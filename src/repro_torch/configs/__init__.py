@@ -1,0 +1,47 @@
+"""Config registry (copy of ``repro/configs/__init__.py``'s ``get_config``,
+``make_tiny`` and ``paper_lm``, for the dense family the port serves)."""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import ModelConfig, QuantConfig, TuningConfig
+
+__all__ = ["ARCHS", "ModelConfig", "QuantConfig", "TuningConfig",
+           "get_config", "make_tiny", "paper_lm"]
+
+_MODULES = {
+    "llama3.2-1b": "llama3_2_1b",
+}
+
+ARCHS = tuple(_MODULES)
+
+
+def get_config(name: str) -> ModelConfig:
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; the port has {ARCHS}")
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
+    return mod.config()
+
+
+def make_tiny(cfg: ModelConfig, *, vocab: int = 512) -> ModelConfig:
+    """Reduced same-family config for CPU tests (the reference's dense
+    branch: 2 layers, d_model 64, 4 heads of 16, float32)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (dense only)")
+    return cfg.replace(
+        name=f"tiny-{cfg.name}", d_model=64, d_ff=0 if cfg.d_ff == 0 else 128,
+        n_heads=4, n_kv_heads=min(cfg.n_kv_heads, 4) if cfg.n_kv_heads > 1 else 1,
+        vocab_size=vocab, head_dim=16, dtype="float32", n_layers=2)
+
+
+def paper_lm(name: str = "llama-tiny", *, n_layers: int = 4, d_model: int = 256,
+             n_heads: int = 4, d_ff: int = 1024, vocab: int = 512,
+             **kw) -> ModelConfig:
+    """The paper's own LLaMA-family shape, scaled for CPU experiments.
+    Defaults to full-precision tuning (callers opt INTO peqa)."""
+    kw.setdefault("tuning", TuningConfig(mode="full"))
+    return ModelConfig(
+        name=name, family="dense", n_layers=n_layers, d_model=d_model,
+        n_heads=n_heads, n_kv_heads=n_heads, d_ff=d_ff, vocab_size=vocab,
+        dtype="float32", **kw)

@@ -1,0 +1,69 @@
+"""Config dataclasses (copy of ``repro/configs/base.py``'s QuantConfig,
+TuningConfig and ModelConfig, trimmed to the fields the port reads or must
+refuse).  Frozen, like the reference, so they can key caches."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantConfig:
+    """Paper Eq. (1) parameters + storage layout."""
+
+    bits: int = 4
+    group_size: Optional[int] = None   # None = per-channel (paper default)
+    packed: bool = True
+    symmetric: bool = False
+    layout: str = "nibble"             # nibble | plane (plane not ported yet)
+    quantize_lm_head: bool = False
+    n_grid: int = 20                   # RTN range grid-search points
+
+    def spec(self):
+        from repro_torch.core.quant import QuantSpec
+
+        return QuantSpec(bits=self.bits, group_size=self.group_size,
+                         symmetric=self.symmetric, packed=self.packed,
+                         layout=self.layout)
+
+
+@dataclasses.dataclass(frozen=True)
+class TuningConfig:
+    """Which fine-tuning method — the paper's comparison axis."""
+
+    mode: str = "peqa"                 # full | peqa (others not ported yet)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                        # dense (the only family ported yet)
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: Optional[int] = None     # default d_model // n_heads
+    rope_theta: float = 10000.0
+    qkv_bias: bool = False             # not ported yet: refused by build
+    act: str = "silu"                  # silu (gelu not ported yet)
+    norm_type: str = "rmsnorm"         # rmsnorm (layernorm not ported yet)
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    swa_window: Optional[int] = None   # not ported yet: refused by build
+    moe: Optional[object] = None       # not ported yet: refused by build
+    use_rope: bool = True              # learned positions not ported yet
+    bf16_reduce: bool = False          # not ported yet: refused by build
+    attn_impl: str = "dense"           # dense (chunked not ported yet)
+    kv_cache_dtype: str = "model"      # model (int8 not ported yet)
+    dtype: str = "bfloat16"
+    quant: QuantConfig = QuantConfig()
+    tuning: TuningConfig = TuningConfig()
+
+    @property
+    def d_head(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)

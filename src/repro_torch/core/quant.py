@@ -1,0 +1,179 @@
+"""Round-to-nearest (RTN) uniform asymmetric quantization — the paper's Eq. (1)
+(port of ``repro/core/quant.py``, nibble layout only).
+
+For a weight matrix ``W ∈ R^{n×m}`` (n = output channels, m = input features)
+and bit-width ``b``::
+
+    q  = clamp(round(W / s) + z, 0, 2**b - 1)     # unsigned integer codes
+    Ŵ  = s · (q - z)                               # dequantized weights
+
+``s, z`` are per-output-channel (``group_size is None``) or per
+``(channel, group)`` with groups of ``group_size`` consecutive input features.
+RTN grid-searches a shrink factor on the (min, max) range to minimize
+``‖W − Ŵ‖_F²`` per group.
+
+Packing: 8 codes per 32-bit word, code ``i`` in bits ``4i..4i+3``.  The
+reference stores ``uint32``; the port stores the same bits as ``torch.int32``
+(PyTorch has no CPU shifts for ``uint32``).  A right shift of an ``int32``
+sign-extends, so every unpack masks with ``& 0xF`` after the shift.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+# Number of codes packed per 32-bit word (3-bit codes ride in nibbles too).
+PACK = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantSpec:
+    """Static description of a quantized tensor layout."""
+
+    bits: int = 4                  # 2..8
+    group_size: Optional[int] = None  # None → per-channel (one group = whole row)
+    symmetric: bool = False        # paper uses asymmetric (zero-points)
+    packed: bool = True            # bit-pack codes into 32-bit words
+    layout: str = "nibble"         # nibble (plane is not ported yet)
+
+    @property
+    def levels(self) -> int:
+        return (1 << self.bits) - 1
+
+    @property
+    def packs(self) -> bool:
+        """Nibble packing only holds codes < 16 (bits ≤ 4)."""
+        return self.packed and self.bits <= 4 and self.layout == "nibble"
+
+    def n_groups(self, in_features: int) -> int:
+        if self.group_size is None:
+            return 1
+        if in_features % self.group_size:
+            raise ValueError(
+                f"in_features={in_features} not divisible by group_size={self.group_size}"
+            )
+        return in_features // self.group_size
+
+    def check_ported(self) -> None:
+        """Raise for the layouts the port does not serve yet: bit-planes,
+        unpacked codes and codes wider than a nibble."""
+        if self.layout != "nibble":
+            raise NotImplementedError(
+                f"layout {self.layout!r} is not ported yet (nibble only)")
+        if not self.packs:
+            raise NotImplementedError(
+                f"unpacked codes (packed={self.packed}, bits={self.bits}) are "
+                f"not ported yet: the port serves packed nibbles, bits <= 4")
+
+
+# ---------------------------------------------------------------------------
+# Pack / unpack (bijective on codes in [0, 15])
+# ---------------------------------------------------------------------------
+
+def pack_codes(q: torch.Tensor) -> torch.Tensor:
+    """Pack codes (…, K) with values < 16 into int32 words (…, K // 8)."""
+    if q.shape[-1] % PACK:
+        raise ValueError(f"last dim {q.shape[-1]} not divisible by {PACK}")
+    q = q.to(torch.int64).reshape(*q.shape[:-1], q.shape[-1] // PACK, PACK)
+    shifts = torch.arange(PACK, dtype=torch.int64, device=q.device) * 4
+    words = (q << shifts).sum(dim=-1)                  # in [0, 2**32)
+    # the uint32 bit pattern as int32: wrap the top half to negatives
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
+
+
+def unpack_codes(packed: torch.Tensor, k: Optional[int] = None) -> torch.Tensor:
+    """Unpack int32 words (…, K//8) → uint8 codes (…, K)."""
+    shifts = torch.arange(PACK, dtype=torch.int32, device=packed.device) * 4
+    q = (packed[..., None] >> shifts) & 0xF            # mask the sign fill
+    q = q.reshape(*packed.shape[:-1], packed.shape[-1] * PACK)
+    if k is not None:
+        q = q[..., :k]
+    return q.to(torch.uint8)
+
+
+# ---------------------------------------------------------------------------
+# RTN quantization
+# ---------------------------------------------------------------------------
+
+def _grouped(w: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
+    """(n, m) → (n, G, m/G) view."""
+    n, m = w.shape
+    g = spec.n_groups(m)
+    return w.reshape(n, g, m // g)
+
+
+def _rtn_params_for_range(lo, hi, spec: QuantSpec):
+    """Given per-group (lo, hi), produce (scale, zero)."""
+    levels = spec.levels
+    if spec.symmetric:
+        amax = torch.maximum(lo.abs(), hi.abs())
+        scale = torch.clamp(amax / ((levels - 1) / 2), min=1e-12)
+        zero = torch.full_like(scale, (levels + 1) / 2)  # midpoint code
+    else:
+        scale = torch.clamp((hi - lo) / levels, min=1e-12)
+        zero = -lo / scale
+    return scale, zero
+
+
+def _quantize_with(wg, scale, zero, spec: QuantSpec):
+    return torch.clamp(torch.round(wg / scale[..., None] + zero[..., None]),
+                       0, spec.levels)
+
+
+def shrink_grid(n_grid: int, max_shrink: float, device) -> torch.Tensor:
+    """The shrink factors 1 → 1 − max_shrink, by the reference's linspace
+    formula ``start·(1 − t) + stop·t`` in float32, ``t = i / (n − 1)``.
+    XLA folds that expression with its own rounding, so a few entries may
+    differ from the reference's by one float32 ulp (tests/test_torch_quant.py
+    states how a resulting near-tie is judged)."""
+    div = n_grid - 1
+    t = torch.arange(div, dtype=torch.float32, device=device) / div
+    start = torch.tensor(1.0, dtype=torch.float32)
+    stop = torch.tensor(1.0 - max_shrink, dtype=torch.float32)
+    out = start * (1 - t) + stop * t
+    return torch.cat([out, stop[None].to(device)])
+
+
+def rtn_quantize(w: torch.Tensor, spec: QuantSpec, *, n_grid: int = 20,
+                 max_shrink: float = 0.45):
+    """RTN with per-group range grid-search (minimize per-group Frobenius err).
+
+    Returns (q_codes uint8 (n, m), scale (n, G), zero (n, G)).
+    ``n_grid=1`` disables the search (plain min/max RTN).
+    """
+    w = w.to(torch.float32)
+    wg = _grouped(w, spec)
+    lo = torch.clamp(wg.amin(dim=-1), max=0.0)
+    hi = torch.clamp(wg.amax(dim=-1), min=0.0)
+
+    def err_for(shrink):
+        s, z = _rtn_params_for_range(lo * shrink, hi * shrink, spec)
+        q = _quantize_with(wg, s, z, spec)
+        deq = s[..., None] * (q - z[..., None])
+        return ((deq - wg) ** 2).sum(dim=-1), s, z
+
+    best_e, scale, zero = err_for(torch.tensor(1.0, dtype=torch.float32,
+                                               device=w.device))
+    if n_grid > 1:
+        for shrink in shrink_grid(n_grid, max_shrink, w.device)[1:]:
+            e, s, z = err_for(shrink)
+            take = e < best_e
+            best_e = torch.where(take, e, best_e)
+            scale = torch.where(take, s, scale)
+            zero = torch.where(take, z, zero)
+
+    q = _quantize_with(wg, scale, zero, spec).reshape(w.shape).to(torch.uint8)
+    return q, scale, zero
+
+
+def dequantize(q: torch.Tensor, scale: torch.Tensor, zero: torch.Tensor,
+               spec: QuantSpec, dtype=torch.float32) -> torch.Tensor:
+    """Ŵ = s · (q − z), per Eq. (1)/(2). q: (n, m) codes; scale/zero: (n, G)."""
+    n, m = q.shape
+    g = scale.shape[-1]
+    qg = q.reshape(n, g, m // g).to(torch.float32)
+    deq = scale[..., None].to(torch.float32) * (
+        qg - zero[..., None].to(torch.float32))
+    return deq.reshape(n, m).to(dtype)

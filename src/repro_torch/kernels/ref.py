@@ -1,0 +1,61 @@
+"""Plain PyTorch versions of the kernels (port of ``repro/kernels/ref.py``).
+
+They are the ground truth the CUDA kernels are held to on the card, and the
+path CPU tensors take.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.quant import QuantSpec, unpack_codes
+
+
+def dequant_ref(qw, scale, zero, shape, spec: QuantSpec, dtype=torch.bfloat16):
+    """Ŵ = s·(q−z) from packed nibble codes. shape = logical (n, m)."""
+    spec.check_ported()
+    n, m = shape
+    codes = unpack_codes(qw, m)
+    g = scale.shape[-1]
+    qg = codes.reshape(n, g, m // g).to(torch.float32)
+    w = scale[..., None].to(torch.float32) * (
+        qg - zero[..., None].to(torch.float32))
+    return w.reshape(n, m).to(dtype)
+
+
+def quant_matmul_ref(x, qw, scale, zero, shape, spec: QuantSpec, out_dtype=None):
+    """y = x @ Ŵᵀ ;  x: (..., K), Ŵ: (N, K) stored as codes; → (..., N),
+    multiplied and summed in float32."""
+    out_dtype = out_dtype or x.dtype
+    w = dequant_ref(qw, scale, zero, shape, spec, torch.float32)
+    return torch.matmul(x.to(torch.float32), w.T).to(out_dtype)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        offset: int | None = None):
+    """Reference (GQA-aware) attention, in float32 einsum and softmax.
+
+    q: (B, Sq, Hq, D), k/v: (B, Sk, Hkv, D), Hq % Hkv == 0.
+    offset: absolute position of query 0; key slot j is at absolute position
+    j.  Defaults to Sk - Sq (prefill: ends aligned).  Decode against a KV
+    cache passes offset = pos so unwritten slots (> pos) are masked.
+    """
+    b, sq, hq, d = q.shape
+    _, sk, hkv, _ = k.shape
+    rep = hq // hkv
+    qf = q.to(torch.float32) * d ** -0.5
+    kf = k.to(torch.float32)
+    vf = v.to(torch.float32)
+    # (B, Hkv, rep, Sq, Sk)
+    logits = torch.einsum("bqhrd,bkhd->bhrqk", qf.reshape(b, sq, hkv, rep, d), kf)
+    if offset is None:
+        offset = sk - sq
+    iq = torch.arange(sq, device=q.device)[:, None] + offset
+    jk = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= jk <= iq
+    logits = logits.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    p = torch.nan_to_num(p, nan=0.0)  # fully-masked rows
+    out = torch.einsum("bhrqk,bkhd->bqhrd", p, vf)
+    return out.reshape(b, sq, hq, d).to(q.dtype)

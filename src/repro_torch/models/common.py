@@ -1,0 +1,129 @@
+"""Shared neural building blocks: norms, RoPE, MLPs, embeddings (port of
+``repro/models/common.py``)."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import linear
+
+
+def model_dtype(cfg: ModelConfig) -> torch.dtype:
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    if cfg.dtype not in dtypes:
+        raise NotImplementedError(f"dtype {cfg.dtype!r} is not ported "
+                                  f"(have {sorted(dtypes)})")
+    return dtypes[cfg.dtype]
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+class Norm(nn.Module):
+    """RMSNorm gain (layernorm comes with the families that use it)."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.g = nn.Parameter(torch.ones(cfg.d_model, device=device))
+
+
+def norm_apply(p: Norm, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    y = xf * torch.rsqrt((xf ** 2).mean(-1, keepdim=True) + cfg.norm_eps)
+    return (y * p.g).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE (split halves, not interleaved)
+# ---------------------------------------------------------------------------
+
+def rope_freqs(cfg: ModelConfig, device=None) -> torch.Tensor:
+    d = cfg.d_head
+    exps = torch.arange(0, d, 2, dtype=torch.float32, device=device) / d
+    theta = torch.tensor(cfg.rope_theta, dtype=torch.float32, device=device)
+    return 1.0 / theta ** exps
+
+
+def rope_table(cfg: ModelConfig, positions: torch.Tensor):
+    """cos and sin of the rotary angles at ``positions`` (S,), each (S, D/2)
+    float32.  Computed once per forward and shared by every layer's q and
+    k (the reference recomputes them inside each ``apply_rope``; the
+    arithmetic is the same)."""
+    freqs = rope_freqs(cfg, device=positions.device)
+    ang = positions.to(torch.float32)[:, None] * freqs[None, :]   # (S, D/2)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, rope) -> torch.Tensor:
+    """x: (B, S, H, D); rope: ``rope_table`` at the S positions of x."""
+    cos, sin = (t[None, :, None, :] for t in rope)
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP (dense FFN)
+# ---------------------------------------------------------------------------
+
+class MLP(nn.Module):
+    """SwiGLU feed-forward (the gelu MLP comes with the families using it)."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.up = linear.Linear(cfg.d_model, cfg.d_ff, device=device)
+        self.down = linear.Linear(cfg.d_ff, cfg.d_model, device=device)
+        self.gate = linear.Linear(cfg.d_model, cfg.d_ff, device=device)
+
+
+def mlp_apply(p: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    h = F.silu(linear.apply(p.gate, x)) * linear.apply(p.up, x)
+    return linear.apply(p.down, h)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / LM head
+# ---------------------------------------------------------------------------
+
+class Embed(nn.Module):
+    """The token table.  Stored in the activation dtype: the reference keeps
+    it in float32 but only ever reads it cast to that dtype (lookup and tied
+    head), so the forward is the same at half the memory for bf16 models."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.emb = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model,
+                                            dtype=model_dtype(cfg),
+                                            device=device))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            w = torch.empty(self.emb.shape, device=self.emb.device)
+            self.emb.copy_(w.normal_(0.0, 0.02, generator=generator))
+
+
+def embed_apply(p: Embed, tokens: torch.Tensor, cfg: ModelConfig
+                ) -> torch.Tensor:
+    return p.emb[tokens].to(model_dtype(cfg))
+
+
+def head_apply(lm_head: Optional[linear.Linear], p_embed: Embed,
+               x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Logits in float32 (the reference's preferred_element_type=f32): the
+    tied head multiplies the activation-dtype operands exactly and sums in
+    float32.  On the card a bf16 head is one bf16 GEMM with a float32
+    output, which reads the table once; elsewhere the operands are widened
+    to float32 first (the same products, a float32 GEMM)."""
+    if cfg.tie_embeddings:
+        emb = p_embed.emb.to(x.dtype)
+        if x.is_cuda and x.dtype == torch.bfloat16:
+            y = torch.mm(x.reshape(-1, x.shape[-1]), emb.T,
+                         out_dtype=torch.float32)
+            return y.reshape(*x.shape[:-1], emb.shape[0])
+        return torch.matmul(x.to(torch.float32), emb.to(torch.float32).T)
+    return linear.apply(lm_head, x).to(torch.float32)

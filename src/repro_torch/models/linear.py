@@ -1,0 +1,64 @@
+"""QLinear — the single fully-connected primitive (port of
+``repro/models/linear.py``, fp and PEQA storage; LoRA and slots come later).
+
+A ``Linear`` holds its tensors under the reference's leaf names, and its
+storage mode is which of them exist (biases come with the families that
+have them):
+
+  fp   : w (out, in) float32
+  peqa : qw (out, in/8) int32 words (a buffer: the codes are frozen),
+         scale (out, G), zero (out, G) float32
+
+``core/peqa.py`` turns fp into peqa in place (``set_quantized``); model code
+only ever calls ``apply``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.core.quant import QuantSpec
+from repro_torch.kernels import ops
+
+
+class Linear(nn.Module):
+    def __init__(self, in_features: int, out_features: int, *, device=None):
+        super().__init__()
+        self.in_features = in_features
+        self.out_features = out_features
+        self.spec: Optional[QuantSpec] = None
+        self.w = nn.Parameter(torch.empty(out_features, in_features,
+                                          device=device))
+
+    @property
+    def quantized(self) -> bool:
+        return "qw" in self._buffers
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """N(0, 1/in_features) weights (the reference's init)."""
+        with torch.no_grad():
+            self.w.normal_(0.0, self.in_features ** -0.5, generator=generator)
+
+    def set_quantized(self, qw: torch.Tensor, scale: torch.Tensor,
+                      zero: torch.Tensor, spec: QuantSpec) -> None:
+        """Replace ``w`` by its PEQA form (in place: the fp weight is freed)."""
+        if "w" in self._parameters:
+            del self._parameters["w"]
+        self.register_buffer("qw", qw)
+        self.scale = nn.Parameter(scale)
+        self.zero = nn.Parameter(zero, requires_grad=False)
+        self.spec = spec
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return apply(self, x)
+
+
+def apply(p: Linear, x: torch.Tensor) -> torch.Tensor:
+    """y = x Wᵀ in x's dtype, storage-mode dispatched."""
+    if p.quantized:
+        return ops.quant_matmul(x, p.qw, p.scale, p.zero, p.spec)
+    # the reference's einsum with float32 accumulation
+    return torch.matmul(x.to(torch.float32),
+                        p.w.to(x.dtype).to(torch.float32).T).to(x.dtype)

@@ -1,0 +1,68 @@
+"""Model registry (port of ``repro/models/registry.py::build``, dense branch).
+
+``build(cfg)`` returns a ``ModelAPI`` with the four functions the server
+calls.  Configurations the port does not serve yet raise here, at build
+time, instead of computing something else.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from repro_torch import device as _device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention, transformer
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelAPI:
+    cfg: ModelConfig
+    device: torch.device
+    init: Callable            # (seed) -> Transformer on device
+    prefill: Callable         # (model, batch) -> (last_logits, cache)
+    decode_step: Callable     # (model, cache, tokens, pos) -> (logits, cache)
+    init_cache: Callable      # (batch, seq_len) -> cache
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for every configuration this slice of the port does not serve."""
+    refused = [
+        (cfg.family != "dense", f"family {cfg.family!r}"),
+        (cfg.moe is not None, "mixture-of-experts blocks"),
+        (cfg.swa_window is not None, "sliding-window attention"),
+        (cfg.kv_cache_dtype != "model", f"kv_cache_dtype={cfg.kv_cache_dtype!r}"),
+        (cfg.bf16_reduce, "bf16_reduce"),
+        (cfg.attn_impl != "dense", f"attn_impl={cfg.attn_impl!r}"),
+        (not cfg.use_rope, "learned positions (use_rope=False)"),
+        (cfg.qkv_bias, "q/k/v biases"),
+        (cfg.act != "silu", f"act={cfg.act!r}"),
+        (cfg.norm_type != "rmsnorm", f"norm_type={cfg.norm_type!r}"),
+    ]
+    bad = [why for flag, why in refused if flag]
+    if bad:
+        raise NotImplementedError(
+            f"{cfg.name}: not ported yet: {'; '.join(bad)}")
+    if cfg.tuning.mode == "peqa":
+        cfg.quant.spec().check_ported()
+
+
+def build(cfg: ModelConfig, device=None) -> ModelAPI:
+    """Dense decoder API on ``device`` (the card unless ``device="cpu"``)."""
+    check_supported(cfg)
+    dev = _device.resolve(device)
+
+    def init(seed: int = 0) -> transformer.Transformer:
+        return transformer.init(
+            cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+
+    return ModelAPI(
+        cfg=cfg,
+        device=dev,
+        init=init,
+        prefill=lambda m, batch: transformer.prefill(m, batch["tokens"], cfg),
+        decode_step=lambda m, c, t, pos: transformer.decode_step(
+            m, c, t, pos, cfg),
+        init_cache=lambda b, s: attention.init_cache(cfg, b, s, dev),
+    )

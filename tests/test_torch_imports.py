@@ -1,0 +1,60 @@
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX package.
+
+Checked twice: by importing every ``repro_torch`` module (and
+``chip_smoke.py``) in a fresh interpreter where ``import jax`` fails, and by
+scanning the sources for such imports.
+"""
+import ast
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+sys.modules["jax"] = None           # any `import jax` now raises
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+sys.path.insert(0, sys.argv[1])
+import chip_smoke                    # defines, runs nothing at import
+bad = sorted(m for m in sys.modules
+             if m == "repro" or m.startswith("repro.") or m == "jaxlib"
+             or m.startswith("jax."))
+print(json.dumps({"modules": len(names), "loaded": bad}))
+"""
+
+
+def test_every_module_imports_with_jax_blocked():
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", _PROBE, str(ROOT)], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["loaded"] == [], res
+    assert res["modules"] >= 15
+
+
+def _imports(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_sources_import_no_jax_nor_reference(path):
+    bad = [m for m in _imports(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, f"{path}: imports {bad}"

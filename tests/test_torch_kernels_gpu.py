@@ -1,0 +1,89 @@
+"""The port's CUDA kernels against their plain version, on the card.
+
+Marked ``gpu``; every test skips without a CUDA device (decided while the
+test runs, so every xdist worker collects the same tests).  This file
+imports only torch and the port, so it also runs on a machine without JAX:
+
+    python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
+
+Tolerance: ``quant_matmul.error_bound`` (two float32 summation orders, plus
+one bf16 ulp for bf16 outputs).
+"""
+import pytest
+import torch
+
+from repro_torch.core.quant import QuantSpec, pack_codes, rtn_quantize
+from repro_torch.kernels import ops
+from repro_torch.kernels import quant_matmul as qm
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _operands(m, n, k, group, dtype, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    w = torch.randn(n, k, generator=g) * k ** -0.5
+    q, s, z = rtn_quantize(w, QuantSpec(bits=4, group_size=group), n_grid=4)
+    x = torch.randn(m, k, generator=g).to(dtype)
+    return [t.to(device) for t in (x, pack_codes(q), s, z)]
+
+
+def _assert_within_bound(got, plain, args):
+    assert got.dtype == plain.dtype and got.shape == plain.shape
+    err = (got.float() - plain.float()).abs()
+    assert torch.isfinite(got).all()
+    assert (err <= qm.error_bound(*args, plain)).all(), \
+        f"max err {err.max().item():.3e}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("group", [None, 32, 12])
+@pytest.mark.parametrize("m", [1, 4, 13, 32, 33, 200])
+def test_kernel_matches_plain_on_card(cuda, m, group, dtype):
+    """Ragged N (100), K not a multiple of 32 (264 with groups of 12, whose
+    boundaries fall inside packed words: the GEMV's per-code group path)."""
+    k = 264 if group == 12 else 512
+    args = _operands(m, 100, k, group, dtype, cuda, seed=m)
+    fn = qm.quant_gemv if m <= 32 else qm.quant_matmul
+    before = fn.launches
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    _assert_within_bound(got, qm.quant_matmul_plain(*args), args)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,k", [(2048, 2048), (512, 2048), (8192, 2048),
+                                 (2048, 8192)])
+def test_kernels_at_llama_shapes(cuda, n, k):
+    for m in (4, 300):
+        args = _operands(m, n, k, None, torch.bfloat16, cuda, seed=n + k)
+        got = ops.quant_matmul(*args, QuantSpec())
+        torch.cuda.synchronize()
+        _assert_within_bound(got, qm.quant_matmul_plain(*args), args)
+
+
+@pytest.mark.gpu
+def test_cuda_tensor_never_takes_plain_version(cuda, monkeypatch):
+    monkeypatch.setattr(qm, "quant_matmul_plain",
+                        lambda *a: pytest.fail("plain version on the card"))
+    for m in (4, 64):
+        args = _operands(m, 96, 256, None, torch.bfloat16, cuda)
+        ops.quant_matmul(*args, QuantSpec())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_kernel_refuses_what_it_cannot_take(cuda):
+    x, qw, s, z = _operands(4, 96, 256, None, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="several devices"):
+        qm.quant_gemv(x, qw.cpu(), s, z)
+    with pytest.raises(ValueError, match="16-byte"):
+        qm.quant_gemv(torch.cat([x.flatten()[:1], x.flatten()])[1:]
+                      .reshape(x.shape), qw, s, z)
