@@ -4,8 +4,12 @@ A reference tree is a nested dict of numpy arrays whose layer leaves are
 stacked, ``tree["layers"]["attn"]["wq"]["qw"]`` of shape (L, n, m/8).  The
 port's ``Transformer`` numbers its layers instead: ``layers.3.attn.wq.qw``.
 A tensor's reference path is its name without the layer index
-(``/layers/attn/wq/qw``, ``core.peqa.ref_path``), so mask paths and
-ScaleBank keys carry over.
+(``/layers/attn/wq/qw``, ``core.peqa.ref_path``), so the ``EXCLUDE`` and
+mask rules carry over.  ScaleBank keys are the reference's key-path form,
+the same path WITHOUT the leading slash (``layers/attn/wq/scale``,
+``core.scale_bank.bank_path``), and a task's scales stay stacked over
+layers, (L, N, G) — so a reference bank's ``tasks[name]`` dicts and npz
+files go into the port's ``ScaleBank`` unchanged, and back.
 
 Packed codes are ``uint32`` in the reference and the same bits as ``int32``
 here.  The token table is stored in the activation dtype here (see
@@ -21,7 +25,7 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.peqa import ref_path
+from repro_torch.core.peqa import layer_index, ref_path
 from repro_torch.models import transformer
 from repro_torch.models.linear import Linear
 
@@ -35,11 +39,6 @@ def _flatten(tree: dict, prefix: str = "") -> dict:
         else:
             out[path] = np.asarray(val)
     return out
-
-
-def _layer_index(name: str):
-    nums = [int(p) for p in name.split(".") if p.isdigit()]
-    return nums[0] if nums else None
 
 
 def _to_torch(arr: np.ndarray) -> torch.Tensor:
@@ -63,7 +62,7 @@ def to_module(tree: dict, cfg: ModelConfig, *, device=None
         if path not in flat:
             raise KeyError(f"reference tree has no leaf {path} for {name}")
         arr = flat[path]
-        i = _layer_index(name)
+        i = layer_index(name)
         return arr if i is None else arr[i]
 
     for name, mod in model.named_modules():
@@ -94,7 +93,7 @@ def to_tree(model: torch.nn.Module) -> dict:
         arr = t.detach().cpu()
         arr = arr.numpy().view(np.uint32) if arr.dtype == torch.int32 \
             else arr.to(torch.float32).numpy()
-        groups[ref_path(name)][_layer_index(name)] = arr
+        groups[ref_path(name)][layer_index(name)] = arr
     tree: dict = {}
     for path, by_layer in groups.items():
         if None in by_layer:

@@ -36,6 +36,13 @@ def ref_path(name: str) -> str:
     return "/" + "/".join(p for p in name.split(".") if not p.isdigit())
 
 
+def layer_index(name: str):
+    """The layer number in a module/tensor name (``layers.3.attn.wq.w`` →
+    3), or None for a tensor outside the layer stack."""
+    nums = [int(p) for p in name.split(".") if p.isdigit()]
+    return nums[0] if nums else None
+
+
 def eligible(path: str, leaf: torch.Tensor, qcfg: QuantConfig) -> bool:
     if not path.endswith("/w"):
         return False

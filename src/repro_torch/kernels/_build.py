@@ -7,7 +7,9 @@ into its own shared library,
          -Xcompiler -fPIC -Xptxas -v -o build/lib<name>-<hash>.so csrc/<name>.cu
 
 and loaded with ``ctypes``.  The library name carries a hash of the source
-and the flags, so an edited source is rebuilt and a current one is reused.
+and the flags, so an edited source is rebuilt and a current one is reused;
+the compiler's register and shared-memory report is kept beside it
+(``lib<name>-<hash>.ptxas.txt``) so a reused build still reports it.
 ``build()`` starts one ``nvcc`` per missing source, all at once.  A missing
 ``nvcc`` or a failed build raises: there is no fallback.
 """
@@ -65,7 +67,9 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, dict]:
     for name in names:
         path = lib_path(name)
         if path.exists():
-            out[name] = {"seconds": 0.0, "ptxas": ""}
+            log = path.with_suffix(".ptxas.txt")
+            out[name] = {"seconds": 0.0,
+                         "ptxas": log.read_text() if log.exists() else ""}
             continue
         tmp = path.with_name(f".{path.name}.{os.getpid()}.tmp")
         cmd = [nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -79,6 +83,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, dict]:
             failed.append(f"{name}: nvcc exit {proc.returncode}\n{stderr}{stdout}")
             tmp.unlink(missing_ok=True)
             continue
+        path.with_suffix(".ptxas.txt").write_text(stderr + stdout)
         os.replace(tmp, path)                 # atomic: readers see whole files
         out[name] = {"seconds": secs, "ptxas": stderr + stdout}
     if failed:

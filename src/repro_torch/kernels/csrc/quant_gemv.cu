@@ -1,11 +1,25 @@
-// K1: decode GEMV  y = x · Ŵᵀ,  Ŵ = s · (q − z)  from packed 4-bit codes.
+// K1: decode GEMV  y = x · Ŵᵀ,  Ŵ = s · (q − z)  from packed 4-bit codes,
+// and K5: the same GEMV with per-row task scales,
+//   y[m, n] = Σ_k x[m, k] · s[t_m, n, g(k)] · (q[n, k] − z[t_m, n, g(k)]),
+//   t_m = task_ids[m].
 //
-// Replaces the TPU kernel repro/kernels/quant_matmul.py::quant_gemv_pallas
+// K1 replaces the TPU kernel repro/kernels/quant_matmul.py::quant_gemv_pallas
 // (plain branch, _qgemv_kernel).  Same semantics: x (M ≤ 32, K) in bf16 or
 // f32, qw (N, K/8) 32-bit words holding 8 nibble codes each (code i in bits
 // 4i..4i+3), scale and zero (N, G) f32 with groups of K/G consecutive codes,
 // dequantization s·(q − z) in f32 exactly as the plain version computes it,
 // f32 accumulation, y (M, N) in x's dtype.
+//
+// K5 replaces quant_gemv_pallas called with task_ids (_qgemv_tasks_kernel,
+// the pallas_call at quant_matmul.py:364): scale and zero are (T, N, G)
+// stacks and task_ids (M,) int32 picks each row's task.  The TPU kernel
+// computes every row under ALL T tasks and keeps the matching one (T× the
+// multiply-adds); here each row gathers its own task's scale and zero.  K5
+// is K1's template with TASKS = true: the same MT/R instantiation for a
+// given M, the same K chunking and KSPLIT reduction order, and the same
+// s·(nib − z) expression feeding fmaf — so row i is bit for bit K1's row i
+// under scale_stack[task_ids[i]].  Ids are validated on the host; the
+// kernel clamps them into [0, T) so it never reads outside the stack.
 //
 // What bounds it on an H100: bytes.  At M = 4 each code is used for 4 FMAs,
 // far below the ~295 operations per byte where the card turns compute-bound,
@@ -21,6 +35,11 @@
 // With f32 FMAs on CUDA cores (as the TPU kernel dots f32 operands), the
 // dequantize + FMA instruction count per code is close to what the card can
 // issue at HBM rate; a later kernel moves to packed bf16 math or tensor cores.
+// K5 dequantizes each code once per row of x (its scale and zero are the
+// row's), not once per MB rows: more FP work per code, but no per-row scale
+// registers.  Per-channel scales of the M rows are staged in shared memory
+// once per block and read from there per word; grouped scales are read per
+// word through the L1.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -45,15 +64,26 @@ __device__ __forceinline__ float nib(uint32_t word, int j) {
 }
 
 // MT: rows of x padded to a power of two; R: output rows per lane;
-// MB: rows of x held in registers at a time
-template <typename T, int MT, int R, int MB = (MT < 4 ? MT : 4)>
+// MB: rows of x held in registers at a time; TASKS: K5 (scale and zero are
+// (T, N, G) stacks, row m reads task task_ids[m]) instead of K1
+template <typename T, int MT, int R, bool TASKS, int MB = (MT < 4 ? MT : 4)>
 __global__ void __launch_bounds__(THREADS, 2) quant_gemv_kernel(
     const T* __restrict__ x, const uint32_t* __restrict__ qw,
     const float* __restrict__ scale, const float* __restrict__ zero,
-    T* __restrict__ y, int M, int N, int K, int G, int kc) {
+    const int* __restrict__ task_ids, T* __restrict__ y,
+    int M, int N, int K, int G, int n_tasks, int kc) {
   extern __shared__ float4 smem4[];
   float* xs = reinterpret_cast<float*>(smem4);            // [MT][kc]
   __shared__ float red[ROW_GROUPS][KSPLIT][R * MT];
+  // K5 only, after xs: per-channel (scale, zero) of the block's rows under
+  // each x row's task, [ROW_GROUPS][R][MT]; then each x row's offset into
+  // the stacks, t_m·N·G, [MT].  Both are read through volatile pointers,
+  // once per use: hoisted out of the word loop they would take R·MT
+  // registers (64-bit row pointers for the offsets), which spilled.
+  float2* sz_s = reinterpret_cast<float2*>(xs + MT * kc);
+  int* tofs_s = reinterpret_cast<int*>(sz_s + ROW_GROUPS * R * MT);
+  const volatile float* szv = reinterpret_cast<const volatile float*>(sz_s);
+  const volatile int* tofs = tofs_s;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int kq = warp % KSPLIT, rg = warp / KSPLIT;
@@ -69,7 +99,23 @@ __global__ void __launch_bounds__(THREADS, 2) quant_gemv_kernel(
     for (int m = 0; m < MT; ++m) acc[r][m] = 0.f;
 
   float s[R], z[R];
-  if (G == 1) {
+  if constexpr (TASKS) {
+    // ids clamped into the stack (the host has validated them); padding
+    // rows m >= M read task 0 and multiply zeros.  Visible to every thread
+    // after the first chunk's __syncthreads.
+    for (int t = threadIdx.x; t < MT; t += THREADS)
+      tofs_s[t] = (t < M ? min(max(__ldg(task_ids + t), 0), n_tasks - 1) : 0) * N * G;
+    if (G == 1) {
+      for (int t = threadIdx.x; t < ROW_GROUPS * R * MT; t += THREADS) {
+        const int gi = t / (R * MT), idx = t - gi * (R * MT);
+        const int r = idx / MT, m = idx - r * MT;
+        const int n = min((int)(blockIdx.x * ROW_GROUPS + gi) * R + r, N - 1);
+        const int tk = m < M ? min(max(__ldg(task_ids + m), 0), n_tasks - 1) : 0;
+        const size_t o = (size_t)tk * N + n;
+        sz_s[t] = make_float2(__ldg(scale + o), __ldg(zero + o));
+      }
+    }
+  } else if (G == 1) {
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int n = min(n0 + r, N - 1);
@@ -113,54 +159,113 @@ __global__ void __launch_bounds__(THREADS, 2) quant_gemv_kernel(
 #pragma unroll
       for (int r = 0; r < R; ++r)
         q[r] = (n0 + r < N) ? __ldg(qw + (size_t)(n0 + r) * words + w) : 0u;
-      if (G != 1 && word_groups) {
-        const int g = k0 / group;
+      if constexpr (TASKS) {
+        // K5: the same per-accumulator order of fmaf's as K1 below, each
+        // row of x dequantizing the code with its own task's (s, z)
+        if (G != 1 && !word_groups) {
+          // j stays a loop (no register array is indexed by it): unrolled,
+          // this rarely taken branch set the whole kernel's register
+          // budget and spilled
 #pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const int n = min(n0 + r, N - 1);
-          s[r] = __ldg(scale + (size_t)n * G + g);
-          z[r] = __ldg(zero + (size_t)n * G + g);
+          for (int r = 0; r < R; ++r) {
+            const int n = min(n0 + r, N - 1);
+#pragma unroll 1
+            for (int j = 0; j < 8; ++j) {
+              const int g = (k0 + j) / group;
+#pragma unroll
+              for (int m = 0; m < MT; ++m) {
+                const int o = tofs[m] + n * G + g;
+                const float wj = __ldg(scale + o) * (nib(q[r], j) - __ldg(zero + o));
+                acc[r][m] = fmaf(xs[m * kc + (i << 3) + j], wj, acc[r][m]);
+              }
+            }
+          }
+          continue;
         }
-      }
-      if (G != 1 && !word_groups) {
-        // groups narrower than a word: look the group up per code
+        const int g = G == 1 ? 0 : k0 / group;
 #pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const int n = min(n0 + r, N - 1);
+        for (int mb = 0; mb < MT; mb += MB) {
+          float xr[MB][8];
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const int g = (k0 + j) / group;
-            const float wj = __ldg(scale + (size_t)n * G + g) *
-                             (nib(q[r], j) - __ldg(zero + (size_t)n * G + g));
+          for (int m = 0; m < MB; ++m) {
+            const float* src = xs + (mb + m) * kc + (i << 3);
+            const float4 a = *reinterpret_cast<const float4*>(src);
+            const float4 b = *reinterpret_cast<const float4*>(src + 4);
+            xr[m][0] = a.x; xr[m][1] = a.y; xr[m][2] = a.z; xr[m][3] = a.w;
+            xr[m][4] = b.x; xr[m][5] = b.y; xr[m][6] = b.z; xr[m][7] = b.w;
+          }
 #pragma unroll
-            for (int m = 0; m < MT; ++m)
-              acc[r][m] = fmaf(xs[m * kc + (i << 3) + j], wj, acc[r][m]);
+          for (int r = 0; r < R; ++r) {
+            const int n = min(n0 + r, N - 1);
+#pragma unroll
+            for (int m = 0; m < MB; ++m) {
+              float sv, zv;
+              if (G == 1) {
+                const int o = 2 * ((rg * R + r) * MT + mb + m);
+                sv = szv[o];
+                zv = szv[o + 1];
+              } else {
+                const int o = tofs[mb + m] + n * G + g;
+                sv = __ldg(scale + o);
+                zv = __ldg(zero + o);
+              }
+#pragma unroll
+              for (int j = 0; j < 8; ++j)
+                acc[r][mb + m] = fmaf(xr[m][j], sv * (nib(q[r], j) - zv),
+                                      acc[r][mb + m]);
+            }
           }
         }
-        continue;
-      }
-      // activations of this word position, MB rows of x at a time: read
-      // from shared memory once and reused for all R rows (the dequantized
-      // weight is recomputed per MB rows, which costs nothing at MT <= 4)
+      } else {
+        if (G != 1 && word_groups) {
+          const int g = k0 / group;
 #pragma unroll
-      for (int mb = 0; mb < MT; mb += MB) {
-        float xr[MB][8];
-#pragma unroll
-        for (int m = 0; m < MB; ++m) {
-          const float* src = xs + (mb + m) * kc + (i << 3);
-          const float4 a = *reinterpret_cast<const float4*>(src);
-          const float4 b = *reinterpret_cast<const float4*>(src + 4);
-          xr[m][0] = a.x; xr[m][1] = a.y; xr[m][2] = a.z; xr[m][3] = a.w;
-          xr[m][4] = b.x; xr[m][5] = b.y; xr[m][6] = b.z; xr[m][7] = b.w;
+          for (int r = 0; r < R; ++r) {
+            const int n = min(n0 + r, N - 1);
+            s[r] = __ldg(scale + (size_t)n * G + g);
+            z[r] = __ldg(zero + (size_t)n * G + g);
+          }
         }
+        if (G != 1 && !word_groups) {
+          // groups narrower than a word: look the group up per code
 #pragma unroll
-        for (int r = 0; r < R; ++r) {
+          for (int r = 0; r < R; ++r) {
+            const int n = min(n0 + r, N - 1);
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const float wj = s[r] * (nib(q[r], j) - z[r]);
+            for (int j = 0; j < 8; ++j) {
+              const int g = (k0 + j) / group;
+              const float wj = __ldg(scale + (size_t)n * G + g) *
+                               (nib(q[r], j) - __ldg(zero + (size_t)n * G + g));
 #pragma unroll
-            for (int m = 0; m < MB; ++m)
-              acc[r][mb + m] = fmaf(xr[m][j], wj, acc[r][mb + m]);
+              for (int m = 0; m < MT; ++m)
+                acc[r][m] = fmaf(xs[m * kc + (i << 3) + j], wj, acc[r][m]);
+            }
+          }
+          continue;
+        }
+        // activations of this word position, MB rows of x at a time: read
+        // from shared memory once and reused for all R rows (the dequantized
+        // weight is recomputed per MB rows, which costs nothing at MT <= 4)
+#pragma unroll
+        for (int mb = 0; mb < MT; mb += MB) {
+          float xr[MB][8];
+#pragma unroll
+          for (int m = 0; m < MB; ++m) {
+            const float* src = xs + (mb + m) * kc + (i << 3);
+            const float4 a = *reinterpret_cast<const float4*>(src);
+            const float4 b = *reinterpret_cast<const float4*>(src + 4);
+            xr[m][0] = a.x; xr[m][1] = a.y; xr[m][2] = a.z; xr[m][3] = a.w;
+            xr[m][4] = b.x; xr[m][5] = b.y; xr[m][6] = b.z; xr[m][7] = b.w;
+          }
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const float wj = s[r] * (nib(q[r], j) - z[r]);
+#pragma unroll
+              for (int m = 0; m < MB; ++m)
+                acc[r][mb + m] = fmaf(xr[m][j], wj, acc[r][mb + m]);
+            }
           }
         }
       }
@@ -192,13 +297,21 @@ __global__ void __launch_bounds__(THREADS, 2) quant_gemv_kernel(
   }
 }
 
-template <typename T, int MT, int R>
+// dynamic shared memory beyond the staged x: K5's per-channel scales and
+// row tasks
+template <int MT, int R, bool TASKS>
+constexpr size_t extra_smem() {
+  return TASKS ? (size_t)ROW_GROUPS * R * MT * sizeof(float2) + MT * sizeof(int) : 0;
+}
+
+template <typename T, int MT, int R, bool TASKS>
 cudaError_t launch(const void* x, const void* qw, const void* scale, const void* zero,
-                   void* y, int M, int N, int K, int G, cudaStream_t stream) {
+                   const int* task_ids, void* y, int M, int N, int K, int G,
+                   int n_tasks, cudaStream_t stream) {
   int kc = (SMEM_X_FLOATS / MT) & ~7;
   if (kc > K) kc = K;
-  const size_t smem = (size_t)MT * kc * sizeof(float);
-  auto kern = quant_gemv_kernel<T, MT, R>;
+  const size_t smem = (size_t)MT * kc * sizeof(float) + extra_smem<MT, R, TASKS>();
+  auto kern = quant_gemv_kernel<T, MT, R, TASKS>;
   // allow the largest chunk any launch of this instantiation stages; the
   // attribute belongs to the device, so it is set once per device
   static unsigned long long set_on = 0;
@@ -207,8 +320,9 @@ cudaError_t launch(const void* x, const void* qw, const void* scale, const void*
   if (err != cudaSuccess) return err;
   if (dev >= 64) return cudaErrorInvalidDevice;
   if (!(set_on >> dev & 1ull)) {
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)(SMEM_X_FLOATS * sizeof(float)));
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)(SMEM_X_FLOATS * sizeof(float) + extra_smem<MT, R, TASKS>()));
     if (err != cudaSuccess) return err;
     set_on |= 1ull << dev;
   }
@@ -217,26 +331,29 @@ cudaError_t launch(const void* x, const void* qw, const void* scale, const void*
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const uint32_t*>(qw),
       static_cast<const float*>(scale), static_cast<const float*>(zero),
-      static_cast<T*>(y), M, N, K, G, kc);
+      task_ids, static_cast<T*>(y), M, N, K, G, n_tasks, kc);
   return cudaGetLastError();
 }
 
-template <typename T>
+// the (MT, R) instantiation for M rows: K1 and K5 share it, so a row's
+// K chunking and reduction order are the same in both
+template <typename T, bool TASKS>
 cudaError_t dispatch(const void* x, const void* qw, const void* scale, const void* zero,
-                     void* y, int M, int N, int K, int G, cudaStream_t stream) {
-  if (M <= 1) return launch<T, 1, 8>(x, qw, scale, zero, y, M, N, K, G, stream);
-  if (M <= 2) return launch<T, 2, 8>(x, qw, scale, zero, y, M, N, K, G, stream);
-  if (M <= 4) return launch<T, 4, 8>(x, qw, scale, zero, y, M, N, K, G, stream);
-  if (M <= 8) return launch<T, 8, 4>(x, qw, scale, zero, y, M, N, K, G, stream);
-  if (M <= 16) return launch<T, 16, 2>(x, qw, scale, zero, y, M, N, K, G, stream);
-  return launch<T, 32, 1>(x, qw, scale, zero, y, M, N, K, G, stream);
+                     const int* task_ids, void* y, int M, int N, int K, int G,
+                     int n_tasks, cudaStream_t s) {
+  if (M <= 1) return launch<T, 1, 8, TASKS>(x, qw, scale, zero, task_ids, y, M, N, K, G, n_tasks, s);
+  if (M <= 2) return launch<T, 2, 8, TASKS>(x, qw, scale, zero, task_ids, y, M, N, K, G, n_tasks, s);
+  if (M <= 4) return launch<T, 4, 8, TASKS>(x, qw, scale, zero, task_ids, y, M, N, K, G, n_tasks, s);
+  if (M <= 8) return launch<T, 8, 4, TASKS>(x, qw, scale, zero, task_ids, y, M, N, K, G, n_tasks, s);
+  if (M <= 16) return launch<T, 16, 2, TASKS>(x, qw, scale, zero, task_ids, y, M, N, K, G, n_tasks, s);
+  return launch<T, 32, 1, TASKS>(x, qw, scale, zero, task_ids, y, M, N, K, G, n_tasks, s);
 }
 
 }  // namespace
 
-// Returns the CUDA error code of the launch (0 on success).  The caller has
-// checked shapes, dtypes, devices and contiguity; these checks only refuse
-// what would index out of bounds.
+// Both entry points return the CUDA error code of the launch (0 on
+// success).  The caller has checked shapes, dtypes, devices and
+// contiguity; these checks only refuse what would index out of bounds.
 extern "C" int quant_gemv(const void* x, const void* qw, const void* scale,
                           const void* zero, void* y, int M, int N, int K, int G,
                           int x_is_bf16, void* stream) {
@@ -244,7 +361,23 @@ extern "C" int quant_gemv(const void* x, const void* qw, const void* scale,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = x_is_bf16
-      ? dispatch<__nv_bfloat16>(x, qw, scale, zero, y, M, N, K, G, s)
-      : dispatch<float>(x, qw, scale, zero, y, M, N, K, G, s);
+      ? dispatch<__nv_bfloat16, false>(x, qw, scale, zero, nullptr, y, M, N, K, G, 1, s)
+      : dispatch<float, false>(x, qw, scale, zero, nullptr, y, M, N, K, G, 1, s);
+  return (int)err;
+}
+
+// K5: scale and zero are (T, N, G) stacks, task_ids (M,) int32 on the device.
+extern "C" int quant_gemv_tasks(const void* x, const void* qw, const void* scale,
+                                const void* zero, const void* task_ids, void* y,
+                                int M, int N, int K, int G, int T,
+                                int x_is_bf16, void* stream) {
+  if (M < 1 || M > 32 || N < 1 || K < 8 || K % 8 || G < 1 || K % G || T < 1 ||
+      (long long)T * N * G > 0x7fffffffLL)      // stack offsets are 32-bit
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* ids = static_cast<const int*>(task_ids);
+  cudaError_t err = x_is_bf16
+      ? dispatch<__nv_bfloat16, true>(x, qw, scale, zero, ids, y, M, N, K, G, T, s)
+      : dispatch<float, true>(x, qw, scale, zero, ids, y, M, N, K, G, T, s);
   return (int)err;
 }

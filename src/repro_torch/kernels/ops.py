@@ -2,11 +2,14 @@
 forward only — the scale gradient comes with the training slice).
 
 ``quant_matmul`` is the single entry point models use for every quantized
-fully-connected layer.  Implementations:
+fully-connected layer, ``quant_matmul_slotted`` its mixed-task form (each
+row under its own task's scales, the resident scheduler's decode and
+prefill).  Implementations:
 
   * ``cuda``  — the hand-written kernels of ``kernels/quant_matmul.py``:
-                M ≤ ``GEMV_MAX_M`` rows go to the GEMV (every decode step),
-                larger M to the tiled GEMM (the prefill).  A CUDA tensor
+                M ≤ ``GEMV_MAX_M`` rows go to the GEMV (every decode step;
+                K5 when slotted), larger M to the tiled GEMM (the prefill;
+                once per task present when slotted).  A CUDA tensor
                 launches the kernel; a CPU tensor takes the kernel's plain
                 version.  The default.
   * ``torch`` — the plain version on whatever device the tensors are on
@@ -25,7 +28,7 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.quant_matmul import GEMV_MAX_M
 
 __all__ = ["GEMV_MAX_M", "KNOWN_IMPLS", "attention", "default_impl",
-           "force_impl", "quant_matmul"]
+           "force_impl", "quant_matmul", "quant_matmul_slotted"]
 
 _tls = threading.local()
 
@@ -56,6 +59,14 @@ def default_impl() -> str:
     return getattr(_tls, "impl", None) or "cuda"
 
 
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """x (..., K) → a contiguous (M, K) that starts on a 16-byte boundary."""
+    x2d = x.reshape(-1, x.shape[-1]).contiguous()
+    if x2d.data_ptr() % 16:              # a view starting mid-vector
+        x2d = x2d.clone()
+    return x2d
+
+
 def quant_matmul(x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
                  zero: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
     """y = x @ Ŵᵀ for arbitrary leading batch dims on x; y in x's dtype,
@@ -63,10 +74,7 @@ def quant_matmul(x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
     impl = default_impl()
     spec.check_ported()
     lead = x.shape[:-1]
-    k = x.shape[-1]
-    x2d = x.reshape(-1, k).contiguous()
-    if x2d.data_ptr() % 16:              # a view starting mid-vector
-        x2d = x2d.clone()
+    x2d = _rows(x)
     scale = scale.to(torch.float32).contiguous()
     zero = zero.to(torch.float32).contiguous()
     if impl == "torch":
@@ -78,6 +86,48 @@ def quant_matmul(x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
     return y.reshape(*lead, y.shape[-1])
 
 
+def quant_matmul_slotted(x: torch.Tensor, qw: torch.Tensor,
+                         scale_stack: torch.Tensor, zero_stack: torch.Tensor,
+                         task_ids: torch.Tensor, spec: QuantSpec
+                         ) -> torch.Tensor:
+    """Mixed-task y[i] = x[i] @ Ŵ(task_ids[i])ᵀ, forward only (serving).
+
+    x (..., K) with prod(leading dims) == M rows; scale/zero stacks
+    (T, N, G); task_ids (M,) int32 rows into the stacks.  Row i is bit for
+    bit ``quant_matmul``'s row i when the live scales are
+    ``scale_stack[task_ids[i]]`` — the resident scheduler's token equality
+    with drain rests on it:
+
+      * ``torch`` impl: the plain matmul per task present, rows selected;
+      * M ≤ ``GEMV_MAX_M``: K5 (its plain version for CPU tensors), which
+        is K1's template with a per-row task gather;
+      * larger M (the slotted prefill, every row the request's task): K2
+        once per task present under ``scale_stack[t]``, rows selected —
+        the same GEMM on the same scale values as the drain prefill.  The
+        distinct ids are read on the host (one sync per call on the card).
+    """
+    impl = default_impl()
+    spec.check_ported()
+    lead = x.shape[:-1]
+    x2d = _rows(x)
+    if x2d.shape[0] != task_ids.shape[0]:
+        raise ValueError(
+            f"task_ids has {task_ids.shape[0]} rows for {x2d.shape[0]} slots")
+    scale_stack = scale_stack.to(torch.float32).contiguous()
+    zero_stack = zero_stack.to(torch.float32).contiguous()
+    task_ids = task_ids.to(torch.int32).contiguous()
+    if impl == "torch":
+        y = _qm.quant_matmul_tasks_plain(x2d, qw, scale_stack, zero_stack,
+                                         task_ids)
+    elif x2d.shape[0] <= GEMV_MAX_M:
+        y = _qm.quant_gemv_tasks(x2d, qw, scale_stack, zero_stack, task_ids)
+    else:
+        y = _qm.per_task(_qm.quant_matmul, x2d, qw, scale_stack, zero_stack,
+                         task_ids)
+    return y.reshape(*lead, y.shape[-1])
+
+
 def attention(q, k, v, *, causal=True, offset=None):
-    """Attention entry point (GQA-aware): the plain float32 version."""
+    """Attention entry point (GQA-aware): the plain float32 version.
+    ``offset`` is a scalar or a (B,) tensor of per-row query positions."""
     return _ref.flash_attention_ref(q, k, v, causal=causal, offset=offset)

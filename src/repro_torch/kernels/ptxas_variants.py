@@ -1,0 +1,104 @@
+"""Register report of K5's variants: where its register pressure comes from.
+
+    python -m repro_torch.kernels.ptxas_variants
+
+Needs ``nvcc`` (the machine with the card).  Compiles ``csrc/quant_gemv.cu``
+as committed and as four variants of K5's loops, all in parallel and into
+a temporary directory, and prints one JSON line per variant with each bf16
+K5 instantiation's registers, local-memory stack frame and spill stores
+(``nvcc -Xptxas -v``).  The variants only exist to be compiled — two of
+them compute wrong results:
+
+  * ``committed``   — the source as it is;
+  * ``j_unrolled``  — the per-code branch (groups narrower than a packed
+                      word) with its j-loop unrolled, as the kernel first was;
+  * ``m_rolled``    — that branch's m-loop rolled instead: the accumulators
+                      are then indexed by a loop variable;
+  * ``no_percode``  — that branch removed (wrong results);
+  * ``one_block``   — K5 bounded to one block per SM (255 registers).
+"""
+from __future__ import annotations
+
+import json
+import re
+import subprocess
+import tempfile
+from pathlib import Path
+
+from repro_torch.kernels import _build
+
+_J_LOOP = ("#pragma unroll 1\n            for (int j = 0; j < 8; ++j) {\n"
+           "              const int g = (k0 + j) / group;")
+_M_LOOP = ("#pragma unroll\n              for (int m = 0; m < MT; ++m) {\n"
+           "                const int o = tofs[m] + n * G + g;")
+_BRANCH = "        if (G != 1 && !word_groups) {\n          // j stays a loop"
+_BRANCH_END = ("          continue;\n        }\n"
+               "        const int g = G == 1 ? 0 : k0 / group;")
+_BOUNDS = "__launch_bounds__(THREADS, 2) quant_gemv_kernel("
+
+
+def variants(src: str) -> dict:
+    for marker in (_J_LOOP, _M_LOOP, _BRANCH, _BRANCH_END, _BOUNDS):
+        if src.count(marker) != 1:
+            raise ValueError(f"quant_gemv.cu no longer has {marker!r} once")
+    j_unrolled = src.replace(_J_LOOP, _J_LOOP.replace("unroll 1", "unroll"))
+    start, end = src.index(_BRANCH), src.index(_BRANCH_END)
+    return {
+        "committed": src,
+        "j_unrolled": j_unrolled,
+        "m_rolled": j_unrolled.replace(_M_LOOP,
+                                       _M_LOOP.replace("unroll", "unroll 1")),
+        "no_percode": (src[:start] + "        if (G != 1 && !word_groups) {\n"
+                       + src[end:]),
+        "one_block": src.replace(
+            _BOUNDS, "__launch_bounds__(THREADS, TASKS ? 1 : 2) "
+                     "quant_gemv_kernel("),
+    }
+
+
+def k5_report(log: str) -> list:
+    """bf16 K5 instantiations (TASKS = true): MT, R, registers, stack
+    frame and spill-store bytes."""
+    rows, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S+?kernelI13__nv_bfloat16"
+                      r"Li(\d+)ELi(\d+)ELb1E", line)
+        if m:
+            cur = {"MT": int(m.group(1)), "R": int(m.group(2))}
+            rows.append(cur)
+            continue
+        if "Compiling entry function" in line:
+            cur = None
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                      line)
+        if m:
+            cur["stack"], cur["spill_stores"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["regs"] = int(m.group(1))
+    return rows
+
+
+def main() -> None:
+    src = (_build.CSRC / "quant_gemv.cu").read_text()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {}
+        for name, text in variants(src).items():
+            cu = Path(tmp) / f"{name}.cu"
+            cu.write_text(text)
+            procs[name] = subprocess.Popen(
+                [_build.nvcc(), *_build.FLAGS, "-o", str(cu.with_suffix(".so")),
+                 str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)
+        for name, proc in procs.items():
+            log = proc.communicate()[0]
+            if proc.returncode != 0:
+                raise RuntimeError(f"{name}: nvcc exit {proc.returncode}\n{log}")
+            print(json.dumps({"variant": name, "k5": k5_report(log)}),
+                  flush=True)
+
+
+if __name__ == "__main__":
+    main()

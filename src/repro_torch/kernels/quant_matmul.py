@@ -1,17 +1,23 @@
-"""Fused 4-bit dequant + matmul: the two hand-written CUDA kernels and their
-plain PyTorch version.
+"""Fused 4-bit dequant + matmul: the hand-written CUDA kernels and their
+plain PyTorch versions.
 
   * ``quant_gemv``   — K1, decode-shaped (M ≤ 32 rows), ``csrc/quant_gemv.cu``;
                        replaces ``repro/kernels/quant_matmul.py::quant_gemv_pallas``.
   * ``quant_matmul`` — K2, the tiled GEMM for prefill, ``csrc/quant_matmul.cu``;
                        replaces ``repro/kernels/quant_matmul.py::quant_matmul_pallas``.
+  * ``quant_gemv_tasks`` — K5, K1 with per-row task scales, ``csrc/quant_gemv.cu``;
+                       replaces ``quant_gemv_pallas`` called with ``task_ids``.
   * ``quant_matmul_plain`` — ``x.float() @ dequant_f32(qw, s, z).T → x.dtype``,
-                       the semantics of both TPU kernels and of
-                       ``ref.quant_matmul_ref``.
+                       the semantics of the TPU kernels and of
+                       ``ref.quant_matmul_ref``; ``quant_matmul_tasks_plain``
+                       runs it once per task present and selects rows.
 
 Operands: x (M, K) bf16 or f32; qw (N, K/8) int32 words, each the bits of the
 reference's uint32 (8 nibble codes, code i in bits 4i..4i+3); scale and zero
-(N, G) f32 with G | K; the result is (M, N) in x's dtype.
+(N, G) f32 with G | K — for K5 (T, N, G) stacks and task_ids (M,) int32; the
+result is (M, N) in x's dtype.  K5's row i is bit for bit K1's row i under
+``scale[task_ids[i]]``; task ids are validated by the caller on the host
+(``train.serve.Engine``), the kernel only clamps them into the stack.
 
 A wrapper given CPU tensors returns the plain version; given CUDA tensors it
 launches its kernel or raises.  Each wrapper counts its launches in the
@@ -28,18 +34,48 @@ from repro_torch.kernels import _build, ref
 
 GEMV_MAX_M = 32
 _DTYPES = (torch.bfloat16, torch.float32)
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C entry point → (library, argument types)
+_ENTRIES = {
+    "quant_gemv": ("quant_gemv", [_P] * 5 + [_I] * 5 + [_P]),
+    "quant_matmul": ("quant_matmul", [_P] * 5 + [_I] * 5 + [_P]),
+    "quant_gemv_tasks": ("quant_gemv", [_P] * 6 + [_I] * 6 + [_P]),
+}
 _entries: dict = {}
 
 
 def quant_matmul_plain(x, qw, scale, zero):
-    """The plain version of both kernels: f32 dequantize, f32 matmul."""
+    """The plain version of K1 and K2: f32 dequantize, f32 matmul."""
     return ref.quant_matmul_ref(x, qw, scale, zero,
                                 (qw.shape[0], x.shape[-1]), QuantSpec())
 
 
-def error_bound(x, qw, scale, zero, plain):
-    """Elementwise bound on |kernel − plain| for the same inputs.
+def per_task(fn, x, qw, scale_stack, zero_stack, task_ids):
+    """Mixed-task y[i] = fn under task ``task_ids[i]``'s scales: ``fn`` runs
+    once per task present on all M rows, and a select keeps each row from
+    its own task's result — so every row is bit for bit ``fn``'s row under
+    its task.  Reads the distinct ids on the host (a sync for CUDA ids)."""
+    n_tasks = scale_stack.shape[0]
+    y = None
+    for t in torch.unique(task_ids).tolist():
+        if not 0 <= t < n_tasks:
+            raise ValueError(f"task id {t} outside the stack of {n_tasks}")
+        yt = fn(x, qw, scale_stack[t], zero_stack[t])
+        y = yt if y is None else torch.where((task_ids == t)[:, None], yt, y)
+    return y
+
+
+def quant_matmul_tasks_plain(x, qw, scale_stack, zero_stack, task_ids):
+    """The plain version of K5: the plain matmul per task present, rows
+    selected (the reference's xla branch of ``quant_matmul_slotted``)."""
+    return per_task(quant_matmul_plain, x, qw, scale_stack, zero_stack,
+                    task_ids)
+
+
+def error_bound(x, qw, scale, zero, plain, task_ids=None):
+    """Elementwise bound on |kernel − plain| for the same inputs (with
+    ``task_ids``: scale and zero are (T, N, G) stacks, row i under task
+    ``task_ids[i]``).
 
     Both sum the same float32 products in different orders, so each is
     within K·2⁻²⁴·Σₖ|x·ŵ| of the exact sum (the standard recursive-summation
@@ -47,6 +83,14 @@ def error_bound(x, qw, scale, zero, plain):
     A bf16 output adds one bf16 ulp of the larger result (rounding to 8
     significant bits can split two float32 sums across a rounding step).
     """
+    if task_ids is not None:
+        out = torch.empty(plain.shape, dtype=torch.float32,
+                          device=plain.device)
+        for t in torch.unique(task_ids).tolist():
+            rows = task_ids == t
+            out[rows] = error_bound(x[rows], qw, scale[t], zero[t],
+                                    plain[rows])
+        return out
     k = x.shape[-1]
     w = ref.dequant_ref(qw, scale, zero, (qw.shape[0], k), QuantSpec(),
                         torch.float32)
@@ -94,28 +138,60 @@ def _check(x, qw, scale, zero, max_m=None):
                          "read it in 16-byte vectors)")
 
 
+def _check_tasks(x, qw, scale_stack, zero_stack, task_ids):
+    """Raise on anything K5 does not take (shapes, dtypes, devices; the id
+    values are the caller's to validate on the host)."""
+    if scale_stack.dim() != 3 or zero_stack.dim() != 3:
+        raise ValueError(f"need scale and zero stacks (T, N, G); got "
+                         f"{tuple(scale_stack.shape)}, {tuple(zero_stack.shape)}")
+    if scale_stack.shape != zero_stack.shape or scale_stack.shape[0] < 1:
+        raise ValueError(f"scale stack {tuple(scale_stack.shape)} and zero "
+                         f"stack {tuple(zero_stack.shape)} must match, T >= 1")
+    if scale_stack.numel() >= 2 ** 31:
+        raise ValueError(f"scale stack {tuple(scale_stack.shape)}: K5 indexes "
+                         f"the stacks with 32-bit offsets (T·N·G < 2^31)")
+    _check(x, qw, scale_stack[0], zero_stack[0], max_m=GEMV_MAX_M)
+    if task_ids.dtype != torch.int32 or task_ids.dim() != 1:
+        raise TypeError(f"task_ids must be (M,) int32, got {task_ids.dtype} "
+                        f"{tuple(task_ids.shape)}")
+    if task_ids.shape[0] != x.shape[0]:
+        raise ValueError(f"task_ids has {task_ids.shape[0]} rows for "
+                         f"{x.shape[0]} rows of x")
+    if task_ids.device != x.device or scale_stack.device != x.device \
+            or zero_stack.device != x.device:
+        raise ValueError("task_ids and the stacks must be on x's device")
+    if not (scale_stack.is_contiguous() and zero_stack.is_contiguous()
+            and task_ids.is_contiguous()):
+        raise ValueError("operands must be contiguous")
+
+
 def _entry(name: str):
-    """The C entry point ``name`` of library ``name``, typed once."""
+    """The C entry point ``name``, typed once."""
     fn = _entries.get(name)
     if fn is None:
-        fn = getattr(_build.load(name), name)
-        fn.argtypes = _ARGTYPES
+        lib, argtypes = _ENTRIES[name]
+        fn = getattr(_build.load(lib), name)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _entries[name] = fn
     return fn
 
 
-def _launch(name: str, x, qw, scale, zero):
+def _launch(name: str, x, qw, scale, zero, task_ids=None):
     if x.device.type != "cuda":
         raise ValueError(f"{name} runs on CUDA tensors, got {x.device}")
     fn = _entry(name)
     m, k = x.shape
-    n, g = qw.shape[0], scale.shape[1]
+    n, g = qw.shape[0], scale.shape[-1]
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    ptrs = [x.data_ptr(), qw.data_ptr(), scale.data_ptr(), zero.data_ptr()]
+    dims = [m, n, k, g]
+    if task_ids is not None:
+        ptrs.append(task_ids.data_ptr())
+        dims.append(scale.shape[0])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(x.data_ptr(), qw.data_ptr(), scale.data_ptr(), zero.data_ptr(),
-                y.data_ptr(), m, n, k, g, int(x.dtype == torch.bfloat16),
+        rc = fn(*ptrs, y.data_ptr(), *dims, int(x.dtype == torch.bfloat16),
                 stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc} "
@@ -143,5 +219,18 @@ def quant_matmul(x, qw, scale, zero):
     return y
 
 
+def quant_gemv_tasks(x, qw, scale_stack, zero_stack, task_ids):
+    """K5: y[i] = x[i] @ Ŵ(task_ids[i])ᵀ for M ≤ 32 rows, scale and zero
+    (T, N, G) stacks (the mixed-task decode GEMV)."""
+    _check_tasks(x, qw, scale_stack, zero_stack, task_ids)
+    if x.device.type == "cpu":
+        return quant_matmul_tasks_plain(x, qw, scale_stack, zero_stack,
+                                        task_ids)
+    y = _launch("quant_gemv_tasks", x, qw, scale_stack, zero_stack, task_ids)
+    quant_gemv_tasks.launches += 1
+    return y
+
+
 quant_gemv.launches = 0
 quant_matmul.launches = 0
+quant_gemv_tasks.launches = 0

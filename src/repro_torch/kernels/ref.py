@@ -30,14 +30,30 @@ def quant_matmul_ref(x, qw, scale, zero, shape, spec: QuantSpec, out_dtype=None)
     return torch.matmul(x.to(torch.float32), w.T).to(out_dtype)
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True,
-                        offset: int | None = None):
+def quant_matmul_tasks_ref(x, qw, scale_stack, zero_stack, task_ids, shape,
+                           spec: QuantSpec, out_dtype=None):
+    """Naive mixed-task oracle: y[i] = x[i] @ Ŵ(task_ids[i])ᵀ.
+
+    scale_stack/zero_stack: (T, N, G); task_ids: (M,) rows into the stack.
+    Materializes all T dequantized weights — ground truth only.
+    """
+    out_dtype = out_dtype or x.dtype
+    w_all = torch.stack([dequant_ref(qw, s, z, shape, spec, torch.float32)
+                         for s, z in zip(scale_stack, zero_stack)])
+    y = torch.einsum("mk,mnk->mn", x.to(torch.float32),
+                     w_all[task_ids.long()])
+    return y.to(out_dtype)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, offset=None):
     """Reference (GQA-aware) attention, in float32 einsum and softmax.
 
     q: (B, Sq, Hq, D), k/v: (B, Sk, Hkv, D), Hq % Hkv == 0.
     offset: absolute position of query 0; key slot j is at absolute position
     j.  Defaults to Sk - Sq (prefill: ends aligned).  Decode against a KV
-    cache passes offset = pos so unwritten slots (> pos) are masked.
+    cache passes offset = pos so unwritten slots (> pos) are masked.  A
+    (B,) tensor gives every batch row its own query position (the slot
+    pool's decode step, where slots sit at different depths).
     """
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
@@ -49,11 +65,19 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
     logits = torch.einsum("bqhrd,bkhd->bhrqk", qf.reshape(b, sq, hkv, rep, d), kf)
     if offset is None:
         offset = sk - sq
-    iq = torch.arange(sq, device=q.device)[:, None] + offset
-    jk = torch.arange(sk, device=q.device)[None, :]
-    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if torch.is_tensor(offset) and offset.dim():         # (B,) per-row
+        iq = (torch.arange(sq, device=q.device)[None, :, None]
+              + offset.to(q.device)[:, None, None])
+        jk = torch.arange(sk, device=q.device)[None, None, :]
+        mask = torch.ones((b, sq, sk), dtype=torch.bool, device=q.device)
+    else:
+        iq = torch.arange(sq, device=q.device)[:, None] + offset
+        jk = torch.arange(sk, device=q.device)[None, :]
+        mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
     if causal:
         mask &= jk <= iq
+    # broadcast over (Hkv, rep): (B|1, 1, 1, Sq, Sk)
+    mask = mask[:, None, None] if mask.dim() == 3 else mask[None, None, None]
     logits = logits.masked_fill(~mask, float("-inf"))
     p = torch.softmax(logits, dim=-1)
     p = torch.nan_to_num(p, nan=0.0)  # fully-masked rows

@@ -1,9 +1,12 @@
 """GQA attention with RoPE and a KV cache (port of ``repro/models/attention.py``:
-``init``, ``init_cache``, ``_qkv``, ``_rope_decode``, ``apply_prefill`` and
-``apply_decode``, for full causal attention with a scalar decode position).
+``init``, ``init_cache``, ``_qkv``, ``_rope_decode``, ``_cache_write``,
+``apply_prefill`` and ``apply_decode``, for full causal attention).
 
 Cache layout (all layers stacked): {"k": (L, B, C, Hkv, D), "v": same} in the
-activation dtype, C = cache capacity; decode writes slot ``pos``.
+activation dtype, C = cache capacity; the batch dim is ``CACHE_BATCH_DIM``
+and the position dim ``CACHE_SEQ_DIM``.  A decode step at scalar ``pos``
+writes slot ``pos`` of every row; at a (B,) position vector (the slot pool)
+each row writes its own slot.
 """
 from __future__ import annotations
 
@@ -13,7 +16,12 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import linear
-from repro_torch.models.common import apply_rope, model_dtype, rope_table
+from repro_torch.models.common import (apply_rope, apply_rope_slots,
+                                       model_dtype, rope_table)
+
+# dims of every cache leaf (L, B, C, Hkv, D): the slot pool admits along
+# the batch dim and pages along the position dim
+CACHE_BATCH_DIM, CACHE_SEQ_DIM = 1, 2
 
 
 class Attention(nn.Module):
@@ -34,53 +42,90 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device) -> dict:
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def _qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig):
+def _qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig, slots=None):
     b, s, _ = x.shape
     dh = cfg.d_head
-    q = linear.apply(p.wq, x).reshape(b, s, cfg.n_heads, dh)
-    k = linear.apply(p.wk, x).reshape(b, s, cfg.n_kv_heads, dh)
-    v = linear.apply(p.wv, x).reshape(b, s, cfg.n_kv_heads, dh)
+    ent = lambda name: linear.slot_entry(slots, name)
+    q = linear.apply(p.wq, x, slots=ent("wq")).reshape(b, s, cfg.n_heads, dh)
+    k = linear.apply(p.wk, x, slots=ent("wk")).reshape(b, s, cfg.n_kv_heads, dh)
+    v = linear.apply(p.wv, x, slots=ent("wv")).reshape(b, s, cfg.n_kv_heads, dh)
     return q, k, v
 
 
-def _rope_decode(cfg: ModelConfig, pos: int, s: int, device):
-    """RoPE table for a decode step of S ≥ 1 tokens starting at scalar
-    ``pos``."""
-    return rope_table(cfg, pos + torch.arange(s, device=device))
+def _rope_decode(cfg: ModelConfig, pos, s: int, device):
+    """RoPE table for a decode step of S ≥ 1 tokens starting at ``pos``:
+    a scalar (one (S,) table for the batch) or a (B,) per-slot tensor (a
+    (B, S) table: token s of row b at position pos[b] + s)."""
+    steps = torch.arange(s, device=device)
+    if torch.is_tensor(pos) and pos.dim() == 1:
+        return rope_table(cfg, pos.to(device)[:, None] + steps[None, :])
+    return rope_table(cfg, pos + steps)
+
+
+def _cache_write(buf: torch.Tensor, val: torch.Tensor, pos) -> None:
+    """Write the step's K/V rows into ``buf`` (B, C, Hkv, D) IN PLACE (the
+    reference returns an updated copy; writing in place keeps one cache in
+    memory).
+
+    pos scalar: rows pos..pos+S-1 of every batch row (lockstep decode).
+    pos (B,): batch row b writes its OWN rows pos[b]..pos[b]+S-1 (the slot
+    pool).  Like the reference's ``dynamic_update_slice``, a start past
+    C − S is clamped to C − S — only evicted slots, whose rows nobody
+    reads, ever sit there.
+    """
+    val = val.to(buf.dtype)
+    s = val.shape[1]
+    if torch.is_tensor(pos) and pos.dim() == 1:
+        start = pos.to(buf.device).clamp(0, buf.shape[1] - s)
+        rows = start[:, None] + torch.arange(s, device=buf.device)[None, :]
+        buf[torch.arange(buf.shape[0], device=buf.device)[:, None], rows] = val
+    else:
+        start = min(max(int(pos), 0), buf.shape[1] - s)
+        buf[:, start:start + s] = val
 
 
 def apply_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig,
-                 cache_k: torch.Tensor, cache_v: torch.Tensor, pos: int,
-                 rope):
-    """Decode step of S ≥ 1 tokens: x (B, S, d); cache (B, C, Hkv, D);
-    rope: ``_rope_decode(cfg, pos, S, device)``.
+                 cache_k: torch.Tensor, cache_v: torch.Tensor, pos, rope,
+                 slots=None):
+    """Decode step of S ≥ 1 tokens: x (B, S, d); cache (B, C, Hkv, D); pos
+    an int or a (B,) per-slot position tensor; rope:
+    ``_rope_decode(cfg, pos, S, device)``.
 
-    The new K/V rows are written into ``cache_k``/``cache_v`` IN PLACE at
-    slots pos..pos+S-1 (the reference returns updated copies; writing in
-    place keeps one cache in memory).  Returns (out (B, S, d_model),
-    cache_k, cache_v).
+    slots: optional (task_ids, stacked-scale subtree) — mixed-task decode
+    reads per-slot scale rows in every quantized linear (linear.apply).
+
+    The new K/V rows go into ``cache_k``/``cache_v`` in place
+    (``_cache_write``).  Returns (out (B, S, d_model), cache_k, cache_v).
     """
     b, s, _ = x.shape
-    q, k, v = _qkv(p, x, cfg)
-    q, k = apply_rope(q, rope), apply_rope(k, rope)
-    cache_k[:, pos:pos + s] = k.to(cache_k.dtype)
-    cache_v[:, pos:pos + s] = v.to(cache_v.dtype)
+    q, k, v = _qkv(p, x, cfg, slots=slots)
+    per_slot = torch.is_tensor(pos) and pos.dim() == 1
+    rot = apply_rope_slots if per_slot else apply_rope
+    q, k = rot(q, rope), rot(k, rope)
+    _cache_write(cache_k, k, pos)
+    _cache_write(cache_v, v, pos)
     # visible = slots with index <= query position
     o = ops.attention(q, cache_k, cache_v, causal=True, offset=pos)
     o = o.reshape(b, s, cfg.n_heads * cfg.d_head)
-    return linear.apply(p.wo, o), cache_k, cache_v
+    out = linear.apply(p.wo, o, slots=linear.slot_entry(slots, "wo"))
+    return out, cache_k, cache_v
 
 
-def apply_prefill(p: Attention, x: torch.Tensor, cfg: ModelConfig, rope):
+def apply_prefill(p: Attention, x: torch.Tensor, cfg: ModelConfig, rope,
+                  slots=None):
     """Full-sequence causal attention that also emits the decode cache;
     rope: ``rope_table`` at positions 0..S-1.
+
+    slots: optional (task_ids, stacked-scale subtree) — a resident-stack
+    prefill reads per-row scales in every quantized linear (task_ids
+    already repeated per token, B·S rows).
 
     Returns (out (B,S,d_model), ck (B,S,Hkv,D), cv) in the activation dtype.
     """
     b, s, _ = x.shape
-    q, k, v = _qkv(p, x, cfg)
+    q, k, v = _qkv(p, x, cfg, slots=slots)
     q, k = apply_rope(q, rope), apply_rope(k, rope)
     o = ops.attention(q, k, v, causal=True)
     o = o.reshape(b, s, cfg.n_heads * cfg.d_head)
-    out = linear.apply(p.wo, o)
+    out = linear.apply(p.wo, o, slots=linear.slot_entry(slots, "wo"))
     return out, k.to(x.dtype), v.to(x.dtype)

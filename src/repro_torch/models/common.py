@@ -50,21 +50,35 @@ def rope_freqs(cfg: ModelConfig, device=None) -> torch.Tensor:
 
 
 def rope_table(cfg: ModelConfig, positions: torch.Tensor):
-    """cos and sin of the rotary angles at ``positions`` (S,), each (S, D/2)
-    float32.  Computed once per forward and shared by every layer's q and
-    k (the reference recomputes them inside each ``apply_rope``; the
-    arithmetic is the same)."""
+    """cos and sin of the rotary angles at ``positions`` — (S,) shared by
+    the batch, or a (B, S) table with one row per slot — each of shape
+    positions.shape + (D/2,), float32.  Computed once per forward and
+    shared by every layer's q and k (the reference recomputes them inside
+    each ``apply_rope``; the arithmetic is the same)."""
     freqs = rope_freqs(cfg, device=positions.device)
-    ang = positions.to(torch.float32)[:, None] * freqs[None, :]   # (S, D/2)
+    ang = positions.to(torch.float32)[..., None] * freqs      # (..., D/2)
     return torch.cos(ang), torch.sin(ang)
+
+
+def _rotate(x: torch.Tensor, cos, sin) -> torch.Tensor:
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
 
 
 def apply_rope(x: torch.Tensor, rope) -> torch.Tensor:
     """x: (B, S, H, D); rope: ``rope_table`` at the S positions of x."""
     cos, sin = (t[None, :, None, :] for t in rope)
-    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-    return out.to(x.dtype)
+    return _rotate(x, cos, sin)
+
+
+def apply_rope_slots(x: torch.Tensor, rope) -> torch.Tensor:
+    """Per-slot RoPE for continuous decode: x (B, S, H, D); rope:
+    ``rope_table`` of a (B, S) position table — token s of row b is at its
+    own absolute position (slots admitted at different times sit at
+    different depths)."""
+    cos, sin = (t[:, :, None, :] for t in rope)
+    return _rotate(x, cos, sin)
 
 
 # ---------------------------------------------------------------------------
@@ -81,9 +95,14 @@ class MLP(nn.Module):
         self.gate = linear.Linear(cfg.d_model, cfg.d_ff, device=device)
 
 
-def mlp_apply(p: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    h = F.silu(linear.apply(p.gate, x)) * linear.apply(p.up, x)
-    return linear.apply(p.down, h)
+def mlp_apply(p: MLP, x: torch.Tensor, cfg: ModelConfig,
+              slots=None) -> torch.Tensor:
+    """slots: optional (task_ids, stacked-scale subtree) for the mixed-task
+    forward — threaded into each quantized linear (see linear.apply)."""
+    up = linear.apply(p.up, x, slots=linear.slot_entry(slots, "up"))
+    gate = linear.apply(p.gate, x, slots=linear.slot_entry(slots, "gate"))
+    h = F.silu(gate) * up
+    return linear.apply(p.down, h, slots=linear.slot_entry(slots, "down"))
 
 
 # ---------------------------------------------------------------------------
@@ -113,7 +132,7 @@ def embed_apply(p: Embed, tokens: torch.Tensor, cfg: ModelConfig
 
 
 def head_apply(lm_head: Optional[linear.Linear], p_embed: Embed,
-               x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+               x: torch.Tensor, cfg: ModelConfig, slots=None) -> torch.Tensor:
     """Logits in float32 (the reference's preferred_element_type=f32): the
     tied head multiplies the activation-dtype operands exactly and sums in
     float32.  On the card a bf16 head is one bf16 GEMM with a float32
@@ -126,4 +145,4 @@ def head_apply(lm_head: Optional[linear.Linear], p_embed: Embed,
                          out_dtype=torch.float32)
             return y.reshape(*x.shape[:-1], emb.shape[0])
         return torch.matmul(x.to(torch.float32), emb.to(torch.float32).T)
-    return linear.apply(lm_head, x).to(torch.float32)
+    return linear.apply(lm_head, x, slots=slots).to(torch.float32)

@@ -1,5 +1,6 @@
 """QLinear — the single fully-connected primitive (port of
-``repro/models/linear.py``, fp and PEQA storage; LoRA and slots come later).
+``repro/models/linear.py``: fp and PEQA storage, ``slot_entry`` and the
+mixed-task ``apply(..., slots=)``; LoRA and QAT come later).
 
 A ``Linear`` holds its tensors under the reference's leaf names, and its
 storage mode is which of them exist (biases come with the families that
@@ -55,9 +56,34 @@ class Linear(nn.Module):
         return apply(self, x)
 
 
-def apply(p: Linear, x: torch.Tensor) -> torch.Tensor:
-    """y = x Wᵀ in x's dtype, storage-mode dispatched."""
+def slot_entry(slots, name: str):
+    """Narrow a ``(task_ids, stack_subtree)`` pair to one child module.
+
+    Returns None when there are no slots or the stacked-scale subtree has no
+    entry for ``name`` (unquantized / EXCLUDE'd module) — the caller then
+    takes the plain single-task path.
+    """
+    if slots is None:
+        return None
+    task_ids, subtree = slots
+    if not isinstance(subtree, dict) or name not in subtree:
+        return None
+    return task_ids, subtree[name]
+
+
+def apply(p: Linear, x: torch.Tensor, slots=None) -> torch.Tensor:
+    """y = x Wᵀ in x's dtype, storage-mode dispatched.
+
+    slots: optional ``(task_ids (M,), {"scale": (T, out, G), "zero": …})``
+    for the mixed-task forward — each of the M rows of x (flattened
+    leading dims) reads the scale row its slot's task owns.  Ignored for
+    the fp storage mode."""
     if p.quantized:
+        if slots is not None and isinstance(slots[1], dict) \
+                and "scale" in slots[1]:
+            task_ids, stack = slots
+            return ops.quant_matmul_slotted(x, p.qw, stack["scale"],
+                                            stack["zero"], task_ids, p.spec)
         return ops.quant_matmul(x, p.qw, p.scale, p.zero, p.spec)
     # the reference's einsum with float32 accumulation
     return torch.matmul(x.to(torch.float32),

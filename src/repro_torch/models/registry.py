@@ -1,19 +1,37 @@
-"""Model registry (port of ``repro/models/registry.py::build``, dense branch).
+"""Model registry (port of ``repro/models/registry.py``: ``FamilyCaps``,
+``ModelAPI`` and ``build``'s dense branch).
 
-``build(cfg)`` returns a ``ModelAPI`` with the four functions the server
-calls.  Configurations the port does not serve yet raise here, at build
-time, instead of computing something else.
+``build(cfg)`` returns a ``ModelAPI`` with the functions the server calls.
+Configurations the port does not serve yet raise here, at build time,
+instead of computing something else.  ``decode_verify`` (speculative
+decoding) comes with the bit-plane slice.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, transformer
+
+
+@dataclasses.dataclass(frozen=True)
+class FamilyCaps:
+    """Per-family capability record — what the serving engine may assume
+    about a family's decode state (the reference's record, with the fields
+    the dense family's serving reads; the prefix and verify fields come
+    with the families and the slice that read them).
+
+      * ``bucketable`` — prompt-length bucketing (right-pad + last-position
+        gather) is sound: padded rows stay causally invisible.
+      * ``slotted_reason`` — why ``decode_step_slotted`` is None (the
+        resident scheduler's refusal message); None = supported.
+    """
+    bucketable: bool = False
+    slotted_reason: Optional[str] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,6 +42,13 @@ class ModelAPI:
     prefill: Callable         # (model, batch) -> (last_logits, cache)
     decode_step: Callable     # (model, cache, tokens, pos) -> (logits, cache)
     init_cache: Callable      # (batch, seq_len) -> cache
+    # (model, task_stack, cache, tokens, pos (B,), task_ids) -> (logits,
+    # cache): mixed-task decode against (T, …)-stacked scales
+    decode_step_slotted: Optional[Callable] = None
+    # (model, task_stack, batch, task_ids) -> (last_logits, cache): prefill
+    # reading per-row scales from the resident stack
+    prefill_slotted: Optional[Callable] = None
+    caps: Optional[FamilyCaps] = None
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -61,8 +86,16 @@ def build(cfg: ModelConfig, device=None) -> ModelAPI:
         cfg=cfg,
         device=dev,
         init=init,
-        prefill=lambda m, batch: transformer.prefill(m, batch["tokens"], cfg),
+        prefill=lambda m, batch: transformer.prefill(
+            m, batch["tokens"], cfg, last_pos=batch.get("last_pos")),
         decode_step=lambda m, c, t, pos: transformer.decode_step(
             m, c, t, pos, cfg),
         init_cache=lambda b, s: attention.init_cache(cfg, b, s, dev),
+        decode_step_slotted=lambda m, st, c, t, pos, tid:
+            transformer.decode_step(m, c, t, pos, cfg, task_stack=st,
+                                    task_ids=tid),
+        prefill_slotted=lambda m, st, batch, tid: transformer.prefill(
+            m, batch["tokens"], cfg, last_pos=batch.get("last_pos"),
+            task_stack=st, task_ids=tid),
+        caps=FamilyCaps(bucketable=True),
     )

@@ -1,5 +1,6 @@
 """Decoder-only transformer backbone, dense family (port of
-``repro/models/transformer.py``: ``init``, ``prefill``, ``decode_step``).
+``repro/models/transformer.py``: ``init``, ``prefill`` and ``decode_step``,
+each with the reference's mixed-task ``task_stack``/``task_ids`` form).
 
 Layers are a ``ModuleList`` of per-layer blocks and run in a Python loop
 (the reference stacks them and scans).  ``bridge.py`` converts between the
@@ -49,46 +50,92 @@ def init(cfg: ModelConfig, generator: torch.Generator, device) -> Transformer:
     return model
 
 
-def _final_logits(model: Transformer, h: torch.Tensor, cfg: ModelConfig):
+def _final_logits(model: Transformer, h: torch.Tensor, cfg: ModelConfig,
+                  slots=None):
     h = common.norm_apply(model.final_norm, h, cfg)
-    return common.head_apply(model.lm_head, model.embed, h, cfg)
+    return common.head_apply(model.lm_head, model.embed, h, cfg, slots=slots)
 
 
-def prefill(model: Transformer, tokens: torch.Tensor, cfg: ModelConfig):
+def _layer_stack(tree, i: int):
+    """Layer ``i``'s slice of a stacked-scale tree: every (L, T, N, G) leaf
+    → its contiguous (T, N, G) view."""
+    if isinstance(tree, dict):
+        return {k: _layer_stack(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def prefill(model: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
+            task_stack: dict | None = None,
+            task_ids: torch.Tensor | None = None, last_pos: int | None = None):
     """Forward over the prompt (B, S), building the KV cache.
+
+    task_stack/task_ids: the prompt's quantized linears read each batch
+    row's scales from the resident stack (``scale_bank.ResidentStack.stack``,
+    leaves (L, T, N, G)) instead of the live ``Linear.scale`` —
+    ``task_ids: (B,) int32`` stack rows, repeated per token here.
+
+    last_pos: index of the last REAL token when the prompt is right-padded
+    to a bucket length — the head reads that row instead of the last one.
+    Padded rows sit causally after every real row, so they never influence
+    it.
 
     Returns (last_logits (B, V) f32, cache {"k", "v": (L, B, S, Hkv, D)}).
     """
     h = common.embed_apply(model.embed, tokens, cfg)
-    rope = common.rope_table(cfg, torch.arange(h.shape[1], device=h.device))
+    b, s, _ = h.shape
+    rope = common.rope_table(cfg, torch.arange(s, device=h.device))
+    slotted = task_stack is not None
+    # quantized linears flatten (B, S, d) to B·S rows: one id per token
+    tok_ids = task_ids.repeat_interleave(s) if slotted else None
     ks, vs = [], []
-    for layer in model.layers:
+    for i, layer in enumerate(model.layers):
+        slots = (tok_ids, _layer_stack(task_stack["layers"], i)) \
+            if slotted else None
         a, ck, cv = attention.apply_prefill(
-            layer.attn, common.norm_apply(layer.ln1, h, cfg), cfg, rope)
+            layer.attn, common.norm_apply(layer.ln1, h, cfg), cfg, rope,
+            slots=linear.slot_entry(slots, "attn"))
         h = h + a
         h = h + common.mlp_apply(layer.mlp,
-                                 common.norm_apply(layer.ln2, h, cfg), cfg)
+                                 common.norm_apply(layer.ln2, h, cfg), cfg,
+                                 slots=linear.slot_entry(slots, "mlp"))
         ks.append(ck)
         vs.append(cv)
-    # the head sees only the last token: one row per batch element
-    logits = _final_logits(model, h[:, -1:], cfg)
+    # the head sees only the last (real) token: one row per batch element
+    head_slots = linear.slot_entry((task_ids, task_stack), "lm_head") \
+        if slotted else None
+    hl = h[:, -1:] if last_pos is None else h[:, last_pos:last_pos + 1]
+    logits = _final_logits(model, hl, cfg, slots=head_slots)
     return logits[:, 0], {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
 def decode_step(model: Transformer, cache: dict, tokens: torch.Tensor,
-                pos: int, cfg: ModelConfig):
-    """One decode step: tokens (B, 1) at scalar position ``pos`` (the next
-    position).  Writes the step's K/V into ``cache`` in place.
+                pos, cfg: ModelConfig, task_stack: dict | None = None,
+                task_ids: torch.Tensor | None = None):
+    """One decode step: tokens (B, 1) at ``pos``, the next position — an
+    int, or a (B,) tensor with each slot's own position (the slot pool).
+    Writes the step's K/V into ``cache`` in place.
+
+    task_stack/task_ids (mixed-task decode): ``task_ids: (B,) int32`` names
+    the resident-stack row each slot reads; the quantized linears gather
+    per-slot scales in the kernel instead of the pool draining for a scale
+    swap.
 
     Returns (logits (B, V) f32, cache).
     """
     h = common.embed_apply(model.embed, tokens, cfg)
     rope = attention._rope_decode(cfg, pos, h.shape[1], h.device)
+    slotted = task_stack is not None
     for i, layer in enumerate(model.layers):
+        slots = (task_ids, _layer_stack(task_stack["layers"], i)) \
+            if slotted else None
         a, _, _ = attention.apply_decode(
             layer.attn, common.norm_apply(layer.ln1, h, cfg), cfg,
-            cache["k"][i], cache["v"][i], pos, rope)
+            cache["k"][i], cache["v"][i], pos, rope,
+            slots=linear.slot_entry(slots, "attn"))
         h = h + a
         h = h + common.mlp_apply(layer.mlp,
-                                 common.norm_apply(layer.ln2, h, cfg), cfg)
-    return _final_logits(model, h, cfg)[:, 0], cache
+                                 common.norm_apply(layer.ln2, h, cfg), cfg,
+                                 slots=linear.slot_entry(slots, "mlp"))
+    head_slots = linear.slot_entry((task_ids, task_stack), "lm_head") \
+        if slotted else None
+    return _final_logits(model, h, cfg, slots=head_slots)[:, 0], cache

@@ -41,7 +41,30 @@ def test_every_module_imports_with_jax_blocked():
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["loaded"] == [], res
-    assert res["modules"] >= 15
+    assert res["modules"] >= 24
+
+
+_ISOLATED = r"""
+import importlib, json, sys
+importlib.import_module(sys.argv[1])
+print(json.dumps(sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "repro"))))
+"""
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.serve", "repro_torch.serve.config",
+    "repro_torch.serve.request", "repro_torch.serve.metrics",
+    "repro_torch.dist", "repro_torch.dist.sampling",
+    "repro_torch.core.scale_bank", "repro_torch.train.serve"])
+def test_serving_modules_pull_in_no_jax_nor_reference(module):
+    """Imported alone, in a fresh interpreter with JAX importable, none of
+    the serving modules loads ``jax`` or ``repro``."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", _ISOLATED, module], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 def _imports(path: pathlib.Path):

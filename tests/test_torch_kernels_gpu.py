@@ -7,7 +7,9 @@ imports only torch and the port, so it also runs on a machine without JAX:
     python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 
 Tolerance: ``quant_matmul.error_bound`` (two float32 summation orders, plus
-one bf16 ulp for bf16 outputs).
+one bf16 ulp for bf16 outputs).  K5 (``quant_gemv_tasks``) is held to its
+plain version within that bound and to K1 bit for bit: each of its rows
+must equal K1's row under that row's task scales.
 """
 import pytest
 import torch
@@ -87,3 +89,52 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="16-byte"):
         qm.quant_gemv(torch.cat([x.flatten()[:1], x.flatten()])[1:]
                       .reshape(x.shape), qw, s, z)
+
+
+def _task_stacks(n_tasks, s, z, seed):
+    g = torch.Generator().manual_seed(seed)
+    ss = torch.stack([s.cpu() * (0.8 + 0.4 * torch.rand(s.shape, generator=g))
+                      for _ in range(n_tasks)])
+    zs = torch.stack([z.cpu() + torch.rand(z.shape, generator=g) - 0.5
+                      for _ in range(n_tasks)])
+    return ss.to(s.device).contiguous(), zs.to(z.device).contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("group", [None, 128, 12])
+@pytest.mark.parametrize("n_tasks", [1, 4])
+@pytest.mark.parametrize("m", [1, 2, 4, 8, 16, 32])
+def test_k5_rows_bitwise_k1_and_within_bound_of_plain(cuda, m, n_tasks,
+                                                      group, dtype):
+    k = 264 if group == 12 else 512
+    x, qw, s, z = _operands(m, 100, k, group, dtype, cuda, seed=7 * m + k)
+    ss, zs = _task_stacks(n_tasks, s, z, seed=m)
+    ids = torch.tensor([(3 * i + 1) % n_tasks for i in range(m)],
+                       dtype=torch.int32, device=cuda)
+    before = qm.quant_gemv_tasks.launches
+    got = qm.quant_gemv_tasks(x, qw, ss, zs, ids)
+    torch.cuda.synchronize()
+    assert qm.quant_gemv_tasks.launches == before + 1
+    plain = qm.quant_matmul_tasks_plain(x, qw, ss, zs, ids)
+    err = (got.float() - plain.float()).abs()
+    assert torch.isfinite(got).all()
+    assert (err <= qm.error_bound(x, qw, ss, zs, plain, task_ids=ids)).all(), \
+        f"max err {err.max().item():.3e}"
+    for t in range(n_tasks):
+        rows = (ids == t).nonzero().flatten()
+        k1 = qm.quant_gemv(x, qw, ss[t], zs[t])
+        assert torch.equal(got[rows], k1[rows]), f"task {t}"
+
+
+@pytest.mark.gpu
+def test_slotted_cuda_tensors_never_take_plain_version(cuda, monkeypatch):
+    monkeypatch.setattr(qm, "quant_matmul_plain",
+                        lambda *a: pytest.fail("plain version on the card"))
+    for m in (8, 64):
+        x, qw, s, z = _operands(m, 96, 256, None, torch.bfloat16, cuda)
+        ss, zs = _task_stacks(3, s, z, seed=m)
+        ids = torch.arange(m, dtype=torch.int32, device=cuda) % 3
+        ops.quant_matmul_slotted(x, qw, ss, zs, ids, QuantSpec())
+    torch.cuda.synchronize()
