@@ -10,7 +10,8 @@ line:
   1. device  — the card, its power limit, the kernel build from
                src/repro_torch/kernels/csrc (one nvcc per source, all at
                once) and each kernel's registers, spills and shared memory
-               (K5's instantiations listed apart from K1's);
+               (listed per wrapper: K1, K5, K2 and the three K6a plane
+               kernels);
   2. kernels — K1 (quant_gemv, M = 4), K2 (quant_matmul, M = 1024) and K5
                (quant_gemv_tasks, M = 8 rows over T = 4 tasks, ids
                0,1,2,3,0,1,2,3) against their plain versions at the main
@@ -19,7 +20,12 @@ line:
                K1's under that row's task; kernel / plain / library time
                (CUDA events; weights rotated through > 2× the L2 so each
                launch reads them from HBM), and the least time the card
-               could take;
+               could take.  Then K6a, the plane branch of each, on the
+               same codes stored as 4 bit-planes, read whole (p = 4) and as
+               the 3-plane draft (p = 3): K1-plane at M = 8 and 32,
+               K5-plane at M = 8 over 4 tasks, K2-plane at M = 1024 —
+               within the bound of its plain version and bit-equal to its
+               nibble kernel on the codes q >> (4 − p) under draft_scales;
   3. main    — llama3.2-1b at full width from a seeded generator, PEQA
                4-bit per-channel RTN (n_grid 20), Engine.generate with
                B = 4, a 256-token prompt and 32 new tokens; the launch
@@ -30,7 +36,11 @@ line:
   4. step    — one main-path step's launches of each kernel over the
                model's own 112 linears (K1 at M = 4, K2 at M = 1024, K5 at
                M = 8 with T = 4), kernel / plain / library time against the
-               summed bound;
+               summed bound; and over the same linears repacked into bit-
+               planes, K6a: a resident draft step (K5-plane, M = 8, p = 3),
+               a resident verify (K5-plane, M = 32, p = 4), an untasked
+               draft step (K1-plane, M = 8, p = 3) and a prefill (K2-plane,
+               M = 1024, p = 4);
   5. serve   — the same full model serving 16 requests of 4 tasks (a
                4-task ScaleBank: the base scales and three random scalings
                of them) through Engine.serve with 8 slots, under the drain
@@ -38,11 +48,26 @@ line:
                drain-free and in fewer steps, K1 never launched under
                resident and K5 launched 112 times per decode step plus its
                prefill launches;
-  6. check   — the same path at 2 layers, once through the kernels and once
+  6. speculative — the same model with its codes repacked into 4 bit-
+               planes (scales shared by value), serving phase serve's 16
+               requests: (a) resident, whose tokens must equal phase
+               serve's; (b) speculative over resident, spec_k 3, a 3-plane
+               draft; (c) speculative without tasks.  Gates: the launch
+               counters (no nibble kernel; K5-plane or K1-plane 112 times
+               per draft step, verify and short prefill; K2-plane per long
+               prefill), draft steps = 3 × rounds, full budgets, no
+               task-drain wait in (b), the verify logits of (b)'s first
+               full round within 2⁻⁵ of the largest logit of the same
+               tokens decoded one step at a time, that round's first draft
+               step replayed proposing the same tokens, and (b)'s peak memory
+               within 5% of the code bytes of (a)'s (the draft reads the
+               target's planes);
+  7. check   — the same path at 2 layers, once through the kernels and once
                through the plain versions on the card: prefill logits within
                2⁻⁵ of their largest magnitude, and the greedy tokens that
-               agree; likewise the slotted prefill (both its routes) and a
-               slotted decode step over mixed tasks.
+               agree; likewise the slotted prefill (both its routes), a
+               slotted decode step over mixed tasks, and on the 2 layers
+               repacked into bit-planes a slotted draft step and verify.
 
 Then the card's name and power limit, the ``kernels`` summary line, and as
 the last line ``{"ok": true, "device": {...}}``.  Any failed phase raises
@@ -76,6 +101,9 @@ TASK_IDS = [i % N_TASKS for i in range(TASKS_M)]
 SERVE_SLOTS, SERVE_REQUESTS = 8, 16
 SERVE_PROMPTS, SERVE_NEW = (20, 100, 256), (16, 32, 48)
 SHAPES = ((2048, 2048), (512, 2048), (8192, 2048), (2048, 8192))
+# speculative phase: 3 draft steps from the top 3 of 4 bit-planes, then one
+# verify of 4 tokens per slot (8 × 4 = 32 rows: still the GEMV route)
+SPEC_K, DRAFT_BITS = 3, 3
 L2_BYTES = 50 * 2 ** 20
 
 
@@ -94,25 +122,6 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
-
-
-def ptxas_summary(log: str) -> list:
-    """Per kernel instantiation: registers, spill bytes, shared memory."""
-    rows, cur = [], None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            args = re.search(r"kernelI(.*)EEvP", m.group(1))
-            cur = {"fn": args.group(1) if args else m.group(1)}
-            rows.append(cur)
-        elif cur is not None:
-            m = re.search(r"(\d+) bytes spill stores", line)
-            if m:
-                cur["spill_stores"] = int(m.group(1))
-            m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
-            if m:
-                cur["regs"], cur["smem"] = int(m.group(1)), int(m.group(2))
-    return rows
 
 
 def timed(fn, argsets, iters: int) -> float:
@@ -140,16 +149,23 @@ def timed(fn, argsets, iters: int) -> float:
     return ms
 
 
-def bound_ms(m: int, n: int, k: int, groups: int, scale_sets: int = 1
-             ) -> tuple:
-    """Least time for one y = x·Ŵᵀ: each input read once (the codes, x, and
-    ``scale_sets`` scale and zero rows — the tasks K5's rows use), the
-    output written once, at HBM rate; 2·M·N·K float32 operations at the
-    CUDA-core rate.  Returns (ms, "bytes" | "operations", ms at the bf16
-    rate)."""
-    nbytes = (m * k * 2 + n * k // 2 + scale_sets * 2 * n * groups * 4
-              + m * n * 2)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+def bytes_ms(m: int, n: int, k: int, groups: int, scale_sets: int = 1,
+             code_bits: int = 4) -> float:
+    """Least time to move one y = x·Ŵᵀ's bytes at HBM rate: each input read
+    once (the codes at ``code_bits`` per weight — 4 for nibbles, p for p
+    planes —, x, and ``scale_sets`` scale and zero rows — the tasks K5's
+    rows use), the output written once."""
+    nbytes = (m * k * 2 + n * k * code_bits // 8
+              + scale_sets * 2 * n * groups * 4 + m * n * 2)
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def bound_ms(m: int, n: int, k: int, groups: int, scale_sets: int = 1,
+             code_bits: int = 4) -> tuple:
+    """Least time for one y = x·Ŵᵀ: the larger of ``bytes_ms`` and
+    2·M·N·K float32 operations at the CUDA-core rate.  Returns (ms,
+    "bytes" | "operations", ms at the bf16 rate)."""
+    t_bytes = bytes_ms(m, n, k, groups, scale_sets, code_bits)
     ops = 2 * m * n * k
     t_ops = ops / F32_FLOPS * 1e3
     t_bf16 = max(t_bytes, ops / BF16_FLOPS * 1e3)
@@ -172,30 +188,28 @@ def check_close(name, got, plain, bound) -> float:
 
 
 def phase_device(torch) -> dict:
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, ptxas_variants
+    from repro_torch.kernels import quant_matmul as qm
     t0 = time.perf_counter()
     built = _build.build()
     total = time.perf_counter() - t0
+    rows = [r for v in built.values()
+            for r in ptxas_variants.report(v["ptxas"])]
     info = {
         "phase": "device", "gpu": nvidia_smi(),
         "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(), "torch": torch.__version__,
         "cuda": torch.version.cuda, "nvcc": _build.nvcc(),
         "build_s": round(total, 3),
-        "build": {k: {"nvcc_s": round(v["seconds"], 3),
-                      "ptxas": ptxas_summary(v["ptxas"])}
-                  for k, v in built.items()},
+        "nvcc_s": {k: round(v["seconds"], 3) for k, v in built.items()},
+        # registers, spills and shared memory per wrapper and instantiation
+        "ptxas": {k.__name__: [{f: r[f] for f in r if f != "kernel"}
+                               for r in rows if r["kernel"] == k.__name__]
+                  for k in qm.KERNELS},
     }
-    # K1 and K5 share quant_gemv.cu: K5's instantiations carry TASKS = true
-    # (``Lb1E`` in the mangled template arguments)
-    rows = info["build"]["quant_gemv"]["ptxas"]
-    info["build"]["quant_gemv"]["ptxas"] = [r for r in rows
-                                            if "Lb1E" not in r["fn"]]
-    info["build"]["quant_gemv_tasks"] = {
-        "source": "quant_gemv", "ptxas": [r for r in rows
-                                          if "Lb1E" in r["fn"]]}
-    if rows and not info["build"]["quant_gemv_tasks"]["ptxas"]:
-        fail("no K5 instantiation in the quant_gemv build")
+    missing = [k for k, v in info["ptxas"].items() if not v]
+    if missing:
+        fail(f"no instantiation of {missing} in the build")
     emit(info)
     return info
 
@@ -218,16 +232,22 @@ def task_stacks(torch, s, z, n_tasks, gen):
             torch.stack([z] * n_tasks).contiguous())
 
 
-def plain_tasks(qm, tasks):
-    """K5's plain version over a known task list: the same dots and
-    selects as ``quant_matmul_tasks_plain`` without its host read of the
-    distinct ids, so a CUDA graph can capture it for timing."""
+def plain_tasks(qm, tasks, bits=None, shift=0):
+    """K5's plain version over a known task list (with ``bits``: K6a's task
+    GEMV's, reading that many planes): the same dots and selects as
+    ``quant_matmul_tasks_plain`` without its host read of the distinct
+    ids, so a CUDA graph can capture it."""
     import torch
 
-    def run(x, qw, ss, zs, ids):
+    def one(x, qw, s, z):
+        if bits is None:
+            return qm.quant_matmul_plain(x, qw, s, z)
+        return qm.quant_matmul_planes_plain(x, qw, s, z, bits, shift)
+
+    def run(x, qw, ss, zs, ids, *_):
         y = None
         for t in tasks:
-            yt = qm.quant_matmul_plain(x, qw, ss[t], zs[t])
+            yt = one(x, qw, ss[t], zs[t])
             y = yt if y is None else torch.where((ids == t)[:, None], yt, y)
         return y
     return run
@@ -239,7 +259,7 @@ def phase_kernels(torch) -> dict:
     from repro_torch.core.quant import QuantSpec
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    worst = {"quant_gemv": 0.0, "quant_matmul": 0.0, "quant_gemv_tasks": 0.0}
+    worst = {k.__name__: 0.0 for k in qm.KERNELS}
     for (n, k) in SHAPES:
         for group in (None, 128):
             qw, s, z = quantized_operands(torch, n, k, group, gen)
@@ -278,6 +298,9 @@ def phase_kernels(torch) -> dict:
             worst["quant_gemv_tasks"] = max(
                 worst["quant_gemv_tasks"],
                 kernel_k5(torch, qm, n, k, group, qw, s, z, gen))
+            for name, err in kernel_planes(torch, qm, n, k, group, qw, s, z,
+                                           gen).items():
+                worst[name] = max(worst[name], err)
             del qw, s, z, w16
             torch.cuda.empty_cache()
     return worst
@@ -317,6 +340,71 @@ def kernel_k5(torch, qm, n, k, group, qw, s, z, gen) -> float:
           "plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms,
           "bound_by": b_by, "bound_bf16_ms": b_bf16})
     return err
+
+
+def kernel_planes(torch, qm, n, k, group, qw, s, z, gen) -> dict:
+    """K6a on the layer's codes stored as 4 bit-planes, read whole (p = 4)
+    and as the 3-plane draft (p = 3): K1-plane at M = 8 and 32, K5-plane at
+    M = 8 over T = 4 tasks, K2-plane at M = 1024.  Each within the bound of
+    its plain version and bit-equal to its nibble kernel on the codes
+    q >> (4 − p) packed as nibbles, under ``draft_scales``.  Returns the
+    worst error per plane kernel."""
+    from repro_torch.core.quant import (draft_scales, pack_codes,
+                                        pack_codes_planes, unpack_codes)
+    codes = unpack_codes(qw)
+    planes = pack_codes_planes(codes, 4)
+    ss, zs = task_stacks(torch, s, z, N_TASKS, gen)
+    ids = torch.tensor(TASK_IDS, dtype=torch.int32, device="cuda")
+    g = s.shape[1]
+    worst = {}
+    for p in (4, 3):
+        shift = 4 - p
+        nib = pack_codes(codes >> shift)
+        sd, zd = draft_scales(s, z, 4, p)
+        ssd, zsd = (t.contiguous() for t in draft_scales(ss, zs, 4, p))
+        cases = [
+            ("quant_gemv_planes", qm.quant_gemv_planes, qm.quant_gemv, m,
+             (s, z), (sd, zd), None, qm.quant_matmul_planes_plain, 1)
+            for m in (TASKS_M, 32)]
+        cases += [
+            ("quant_gemv_tasks_planes", qm.quant_gemv_tasks_planes,
+             qm.quant_gemv_tasks, TASKS_M, (ss, zs), (ssd, zsd), ids,
+             plain_tasks(qm, range(N_TASKS), p, shift),
+             len(set(TASK_IDS))),
+            ("quant_matmul_planes", qm.quant_matmul_planes, qm.quant_matmul,
+             GEMM_M, (s, z), (sd, zd), None, qm.quant_matmul_planes_plain, 1)]
+        for name, fn, nib_fn, m, sz, szd, tid, plain_fn, sets_ in cases:
+            x = torch.randn(m, k, generator=gen, device="cuda"
+                            ).to(torch.bfloat16)
+            extra = () if tid is None else (tid,)
+            got = fn(x, planes, *sz, *extra, p, shift)
+            want = nib_fn(x, nib, *szd, *extra)
+            plain = plain_fn(x, planes, *sz, *extra, p, shift)
+            torch.cuda.synchronize()
+            what = f"{name} M={m} N={n} K={k} group={group} p={p}"
+            err = check_close(what, got, plain, qm.error_bound(
+                x, planes, *sz, plain, task_ids=tid, planes=(p, shift)))
+            if not torch.equal(got, want):
+                fail(f"{what}: differs from its nibble kernel on the "
+                     f"{p}-bit codes under draft_scales")
+            worst[name] = max(worst.get(name, 0.0), err)
+            copies = max(2, math.ceil(2 * L2_BYTES / (n * k * p // 8)))
+            argsets = [(x, planes.clone(), *(t.clone() for t in sz), *extra)
+                       for _ in range(copies)]
+            iters = 20 if name == "quant_matmul_planes" else 200
+            ms = timed(lambda *a: fn(*a, p, shift), argsets, iters)
+            plain_ms = timed(lambda *a: plain_fn(*a, p, shift), argsets,
+                             max(5, iters // 20))
+            b_ms, b_by, _ = bound_ms(m, n, k, g, scale_sets=sets_,
+                                     code_bits=p)
+            emit({"phase": "kernels", "kernel": name, "M": m, "N": n, "K": k,
+                  "group": group, "planes": p, "max_abs_err": err,
+                  "bitwise_nibble": True, "us": ms * 1e3,
+                  "plain_us": plain_ms * 1e3, "library_ms": None,
+                  "bytes_bound_us": bytes_ms(m, n, k, g, sets_, p) * 1e3,
+                  "bound_us": b_ms * 1e3, "bound_by": b_by})
+            del argsets
+    return worst
 
 
 def phase_main(torch) -> dict:
@@ -445,9 +533,10 @@ def phase_profile(torch, main_path) -> dict:
     return res
 
 
-def phase_step(torch, model) -> dict:
+def phase_step(torch, model, plane_model) -> dict:
     """One main-path step's launches of each kernel, over the model's own
-    linears in model order (486 MB of codes: cold in L2 by size)."""
+    linears in model order (486 MB of codes: cold in L2 by size), and of
+    each K6a kernel over the same linears as bit-planes."""
     from repro_torch.kernels import quant_matmul as qm
     from repro_torch.kernels.ref import dequant_ref
     from repro_torch.models.linear import Linear
@@ -497,6 +586,65 @@ def phase_step(torch, model) -> dict:
                      "launches": len(lins)}
         emit({"phase": "step", "kernel": name, "M": m, **out[name]})
     out["quant_gemv_tasks"] = step_k5(torch, qm, lins, gen)
+    out.update(step_planes(torch, qm, [m for m in plane_model.modules()
+                                       if isinstance(m, Linear)
+                                       and m.quantized], gen))
+    return out
+
+
+def step_planes(torch, qm, lins, gen) -> dict:
+    """K6a's launches of one step over the 112 plane linears: a resident
+    draft step (K5-plane, M = 8 slots over 4 tasks, p = 3) and verify
+    (K5-plane, 8 slots × 4 tokens, p = 4), an untasked draft step
+    (K1-plane, M = 8, p = 3) and a prefill (K2-plane, M = 1024, p = 4).
+    No PyTorch call reads bit-planes: no library time.  Returns each
+    kernel's first entry (the draft steps, the prefill) for the summary."""
+    ids = torch.tensor(TASK_IDS, dtype=torch.int32, device="cuda")
+    stacks = [task_stacks(torch, l.scale.detach(), l.zero.detach(), N_TASKS,
+                          gen) for l in lins]
+    runs = (("quant_gemv_tasks_planes", "draft", TASKS_M, DRAFT_BITS, ids),
+            ("quant_gemv_tasks_planes", "verify", TASKS_M * (SPEC_K + 1), 4,
+             ids.repeat_interleave(SPEC_K + 1)),
+            ("quant_gemv_planes", "draft", TASKS_M, DRAFT_BITS, None),
+            ("quant_matmul_planes", "prefill", GEMM_M, 4, None))
+    out = {}
+    for name, what, m, p, tid in runs:
+        fn, shift = getattr(qm, name), 4 - p
+        xs = {k: torch.randn(m, k, generator=gen, device="cuda"
+                             ).to(torch.bfloat16)
+              for k in {l.in_features for l in lins}}
+        if tid is None:
+            ops = [(xs[l.in_features], l.qw, l.scale.detach(),
+                    l.zero.detach()) for l in lins]
+            plain = qm.quant_matmul_planes_plain
+        else:
+            ops = [(xs[l.in_features], l.qw, *st, tid)
+                   for l, st in zip(lins, stacks)]
+            plain = plain_tasks(qm, range(N_TASKS), p, shift)
+
+        def run(f=fn, ops=ops, p=p, shift=shift):
+            for a in ops:
+                f(*a, p, shift)
+
+        def run_plain(f=plain, ops=ops, p=p, shift=shift):
+            for a in ops:
+                f(*a, p, shift)
+
+        reps = 3 if name == "quant_matmul_planes" else 20
+        ms = timed(run, [()], reps)
+        plain_ms = timed(run_plain, [()], 2)
+        sets_ = 1 if tid is None else len(set(TASK_IDS))
+        b = [bound_ms(m, l.out_features, l.in_features, l.scale.shape[1],
+                      scale_sets=sets_, code_bits=p) for l in lins]
+        res = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+               "bound_ms": sum(t for t, _, _ in b), "bound_by": b[0][1],
+               "bound_bf16_ms": sum(t for _, _, t in b),
+               "launches": len(lins)}
+        emit({"phase": "step", "kernel": name, "step": what, "M": m,
+              "planes": p, **res})
+        out.setdefault(name, res)
+        del ops
+    torch.cuda.empty_cache()
     return out
 
 
@@ -666,6 +814,227 @@ def phase_serve(torch, main_path) -> dict:
         fail(f"resident made {rr.switches} scale switches")
     res["tokens_equal"] = True
     emit(res)
+    return {"res": res, "bank": bank, "reqs": reqs,
+            "resident_tokens": rr.tokens}
+
+
+def plane_backbone(torch, main_path) -> dict:
+    """The main model with its codes repacked into 4 bit-planes by the
+    port's own ``unpack_codes``/``pack_codes_planes`` — the codes identical
+    by construction, no second quantization —, its scales and zeros
+    copied, its embedding and norms shared."""
+    import dataclasses
+    from repro_torch.core.quant import pack_codes_planes, unpack_codes
+    from repro_torch.models import registry, transformer
+    from repro_torch.models.linear import Linear
+
+    cfg, src = main_path["cfg"], main_path["model"]
+    cfg_p = cfg.replace(quant=dataclasses.replace(cfg.quant, layout="plane"))
+    api_p = registry.build(cfg_p)
+    t0 = time.perf_counter()
+    model_p = transformer.Transformer(cfg_p, device="meta")
+    srcs = dict(src.named_modules())
+    with torch.no_grad():
+        for name, mod in model_p.named_modules():
+            if isinstance(mod, Linear) and srcs[name].quantized:
+                lin = srcs[name]
+                mod.set_quantized(
+                    pack_codes_planes(unpack_codes(lin.qw), cfg.quant.bits),
+                    lin.scale.detach().clone(), lin.zero.detach().clone(),
+                    cfg_p.quant.spec())
+            for pname, prm in list(mod._parameters.items()):
+                if prm is not None and prm.is_meta:
+                    mod._parameters[pname] = srcs[name]._parameters[pname]
+    torch.cuda.synchronize()
+    left = [n for n, t in model_p.named_parameters() if t.is_meta]
+    if left:
+        fail(f"plane backbone: tensors left unset: {left}")
+    return {"api": api_p, "model": model_p, "cfg": cfg_p,
+            "repack_s": time.perf_counter() - t0}
+
+
+def phase_speculative(torch, plane, serve) -> dict:
+    """The 16 requests of phase serve on the bit-plane backbone: (a)
+    resident, (b) speculative over resident, (c) speculative without tasks.
+    Each run starts with every launch counter at 0."""
+    import dataclasses
+    from repro_torch.kernels import quant_matmul as qm
+    from repro_torch.serve import Request, ServeConfig
+    from repro_torch.train.serve import Engine
+
+    api, model, cfg = plane["api"], plane["model"], plane["cfg"]
+    bank, reqs = serve["bank"], serve["reqs"]
+    n_lin = cfg.n_layers * 7
+    short = sum(r.n_prompt <= 32 for r in reqs)
+    code_bytes = sum(b.numel() * 4 for n, b in model.named_buffers()
+                     if n.endswith("qw"))
+    res = {"phase": "speculative", "requests": len(reqs),
+           "slots": SERVE_SLOTS, "spec_k": SPEC_K, "draft_bits": DRAFT_BITS,
+           "code_bytes": code_bytes}
+    check = {"armed": False, "done": None, "peak": 0}
+
+    def run(label, engine, method, requests, config, want):
+        calls = {"n": 0, "s": 0.0}
+        inner = getattr(engine, method)
+
+        def counted(pool, *a):
+            t0 = time.perf_counter()
+            out = inner(pool, *a)             # ends in a host sync
+            calls["s"] += time.perf_counter() - t0
+            calls["n"] += 1
+            return out
+        setattr(engine, method, counted)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in qm.KERNELS:
+            k.launches = 0
+        t0 = time.perf_counter()
+        rep = engine.serve(requests, config)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = max(check["peak"], torch.cuda.max_memory_allocated())
+        launches = {k.__name__: k.launches for k in qm.KERNELS}
+        for i, (r, toks) in enumerate(zip(requests, rep.tokens)):
+            if toks is None or len(toks) != r.n_new:
+                fail(f"{label}: request {i} served {toks and len(toks)} of "
+                     f"{r.n_new} tokens")
+            if min(toks) < 0 or max(toks) >= cfg.vocab_size:
+                fail(f"{label}: request {i} has token ids outside the "
+                     f"vocabulary")
+        expect = {k.__name__: 0 for k in qm.KERNELS}
+        expect.update(want(calls["n"]))
+        if launches != expect:
+            fail(f"{label}: kernel launches {launches}, expected {expect}")
+        res[label] = {
+            "scheduler": rep.scheduler, "steps": rep.steps,
+            f"{method}_calls": calls["n"], "draft_steps": rep.draft_steps,
+            "draft_proposed": rep.draft_proposed,
+            "draft_accepted": rep.draft_accepted,
+            "acceptance_rate": rep.acceptance_rate,
+            "task_drain_idle_slot_steps": rep.task_drain_idle_slot_steps,
+            "decoded": rep.decoded, "wall_s": wall,
+            "tokens_per_s": rep.decoded / wall,
+            f"ms_per_{method}": calls["s"] * 1e3 / max(calls["n"], 1),
+            "peak_mem_gb": peak / 1e9, "launches": launches}
+        return rep, calls["n"], peak
+
+    long_ = {"quant_matmul_planes": n_lin * (len(reqs) - short)}
+    # (a) resident on the plane backbone
+    eng = Engine(api, model, bank=bank)
+    rep_a, _, peak_a = run(
+        "resident", eng, "step", reqs,
+        ServeConfig(n_slots=SERVE_SLOTS, scheduler="resident",
+                    resident_tasks=N_TASKS),
+        lambda n: {"quant_gemv_tasks_planes": n_lin * (n + short), **long_})
+    del eng                                   # and its resident stack
+    if rep_a.tokens != serve["resident_tokens"]:
+        diff = sum(a != b for a, b in zip(rep_a.tokens,
+                                          serve["resident_tokens"]))
+        fail(f"plane resident tokens differ from the nibble backbone's in "
+             f"{diff} of {len(reqs)} requests")
+
+    # (b) speculative over resident; the verify of the first round with
+    # every slot live is checked against k+1 decode steps on a cache copy
+    def verify_checked(m, st, c, t, pos, tid):
+        if not check["armed"]:
+            return api.decode_verify_slotted(m, st, c, t, pos, tid)
+        check["armed"] = False
+        peak_before = torch.cuda.max_memory_allocated()
+        copies = [{k: v.clone() for k, v in c.items()} for _ in range(2)]
+        logits, c = api.decode_verify_slotted(m, st, c, t, pos, tid)
+        saved = [k.launches for k in qm.KERNELS]
+        steps = []
+        for j in range(t.shape[1]):
+            lg, copies[0] = api.decode_step_slotted(
+                m, st, copies[0], t[:, j:j + 1], pos + j, tid)
+            steps.append(lg)
+        # the round's first draft step again (the 2-layer check holds the
+        # draft step to the plain versions)
+        draft = api.decode_step_slotted(m, st, copies[1], t[:, :1], pos, tid,
+                                        draft_bits=DRAFT_BITS)[0].float()
+        for k, n in zip(qm.KERNELS, saved):   # not the main path's launches
+            k.launches = n
+        dec = torch.stack(steps, 1).float()
+        diff = (logits.float() - dec).abs().amax().item()
+        scale = dec.abs().amax().item()
+        check["done"] = {
+            "rows": t.shape[0] * t.shape[1],
+            "max_abs_diff": diff, "logits_max_abs": scale,
+            "tolerance": 2.0 ** -5 * scale,
+            "argmax_equal_share": (logits.argmax(-1) == dec.argmax(-1)
+                                   ).float().mean().item(),
+            # the replayed draft step proposes the round's first draft
+            "draft_replay_equal": bool(torch.equal(draft.argmax(-1),
+                                                   t[:, 1])),
+            # how far the 3-plane draft is from the target on these rows
+            "draft_target_argmax_share": (draft.argmax(-1)
+                                          == dec[:, 0].argmax(-1)
+                                          ).float().mean().item(),
+            "draft_target_logit_cosine": torch.nn.functional.cosine_similarity(
+                draft, dec[:, 0], dim=-1).mean().item()}
+        del copies, steps, dec, draft
+        # the check's own cache copy is not the run's memory
+        check["peak"] = peak_before
+        torch.cuda.reset_peak_memory_stats()
+        return logits, c
+
+    eng = Engine(dataclasses.replace(api, decode_verify_slotted=verify_checked),
+                 model, bank=bank)
+    real_round = eng._spec_round
+
+    def round_(pool, *a):
+        check["armed"] = check["done"] is None and bool(pool.active.all())
+        return real_round(pool, *a)
+    eng._spec_round = round_
+    spec_cfg = dict(n_slots=SERVE_SLOTS, scheduler="speculative",
+                    spec_k=SPEC_K, draft_bits=DRAFT_BITS,
+                    resident_tasks=N_TASKS)
+    rep_b, rounds_b, peak_b = run(
+        "speculative", eng, "spec_step", reqs, ServeConfig(**spec_cfg),
+        lambda n: {"quant_gemv_tasks_planes":
+                   n_lin * ((SPEC_K + 1) * n + short), **long_})
+    check["peak"] = 0
+    del eng
+    if rep_b.scheduler != "speculative" or rep_b.task_drain_idle_slot_steps:
+        fail(f"speculative run: scheduler {rep_b.scheduler!r}, task-drain "
+             f"idle slot-steps {rep_b.task_drain_idle_slot_steps}")
+    if rep_b.draft_steps != SPEC_K * rounds_b:
+        fail(f"speculative run: {rep_b.draft_steps} draft steps in "
+             f"{rounds_b} rounds of {SPEC_K}")
+    if not 0 <= rep_b.draft_accepted <= rep_b.draft_proposed:
+        fail(f"speculative run: {rep_b.draft_accepted} of "
+             f"{rep_b.draft_proposed} drafts accepted")
+    if check["done"] is None:
+        fail("speculative run: no round had every slot live")
+    done = check["done"]
+    if done["max_abs_diff"] > done["tolerance"]:
+        fail(f"verify logits differ from successive decode steps by "
+             f"{done['max_abs_diff']:.3e} > {done['tolerance']:.3e}")
+    if not done["draft_replay_equal"]:
+        fail("the replayed draft step does not propose the round's draft "
+             "tokens")
+    if not peak_b - peak_a < 0.05 * code_bytes:
+        fail(f"speculative peak memory {peak_b / 1e9:.3f} GB exceeds the "
+             f"resident run's {peak_a / 1e9:.3f} GB by 5% of the "
+             f"{code_bytes / 1e9:.3f} GB of codes or more")
+    res["verify_check"] = check["done"]
+    res["peak_delta_mb"] = (peak_b - peak_a) / 1e6
+    same = [sum(x == y for x, y in zip(a, b))
+            for a, b in zip(rep_a.tokens, rep_b.tokens)]
+    res["tokens_equal_share_vs_resident"] = sum(same) / rep_a.decoded
+    firsts = [i for a, b in zip(rep_a.tokens, rep_b.tokens)
+              for i in [next((j for j, (x, y) in enumerate(zip(a, b))
+                              if x != y), None)] if i is not None]
+    res["first_divergence"] = min(firsts) if firsts else None
+
+    # (c) speculative without tasks: the untasked draft and verify (K1-plane)
+    untasked = [Request(tokens=r.tokens, n_new=r.n_new,
+                        arrival_step=r.arrival_step) for r in reqs]
+    run("speculative_untasked", Engine(api, model), "spec_step", untasked,
+        ServeConfig(**spec_cfg),
+        lambda n: {"quant_gemv_planes": n_lin * ((SPEC_K + 1) * n + short),
+                   **long_})
+    emit(res)
     return res
 
 
@@ -711,8 +1080,10 @@ def phase_check(torch, cfg) -> dict:
 
 
 def check_slotted(torch, api, model, cfg) -> dict:
-    """The slotted prefill (20 tokens: K5; 100 tokens: K2 per task) and a
-    mixed-task decode step of 8 slots, kernels against plain versions."""
+    """The slotted prefill (20 tokens: K5; 100 tokens: K2 per task), a
+    mixed-task decode step of 8 slots, and on the same model repacked into
+    bit-planes a speculative draft step (K5-plane, p = 3) and verify
+    (K5-plane, 8 slots × 4 tokens), kernels against plain versions."""
     import numpy as np
     from repro_torch.core.scale_bank import ResidentStack, ScaleBank
     from repro_torch.kernels import ops
@@ -724,32 +1095,47 @@ def check_slotted(torch, api, model, cfg) -> dict:
         bank.tasks[f"t{t}"] = {
             k: (v * rng.uniform(0.9, 1.1, v.shape)).astype(v.dtype)
             for k, v in bank.tasks["t0"].items()}
-    stack = ResidentStack(bank, model, N_TASKS,
-                          warm=[f"t{t}" for t in range(N_TASKS)]).stack
+    warm = [f"t{t}" for t in range(N_TASKS)]
+    stack = ResidentStack(bank, model, N_TASKS, warm=warm).stack
+    plane = plane_backbone(torch, {"cfg": cfg, "model": model})
+    pstack = ResidentStack(bank, plane["model"], N_TASKS, warm=warm).stack
     gen = torch.Generator().manual_seed(SEED + 5)
     ids = torch.tensor(TASK_IDS, dtype=torch.int32, device="cuda")
     pos = torch.arange(TASKS_M, device="cuda") * 7 + 3
-    toks = torch.randint(0, cfg.vocab_size, (TASKS_M, 1), generator=gen
-                         ).to("cuda")
+    toks = torch.randint(0, cfg.vocab_size, (TASKS_M, SPEC_K + 1),
+                         generator=gen).to("cuda")
+
+    def cache():
+        c = api.init_cache(TASKS_M, 64)
+        for key in c:
+            c[key].normal_(generator=torch.Generator(device="cuda"
+                                                     ).manual_seed(SEED))
+        return c
+
+    def prefill(s):
+        prompt = torch.randint(0, cfg.vocab_size, (1, s),
+                               generator=torch.Generator().manual_seed(s))
+        return api.prefill_slotted(model, stack, {"tokens": prompt.to("cuda")},
+                                   ids[2:3])[0]
+
+    pm, papi = plane["model"], plane["api"]
+    cases = {
+        "prefill_k5": lambda: prefill(20),
+        "prefill_k2": lambda: prefill(100),
+        "decode": lambda: api.decode_step_slotted(
+            model, stack, cache(), toks[:, :1], pos, ids)[0],
+        "plane_draft": lambda: papi.decode_step_slotted(
+            pm, pstack, cache(), toks[:, :1], pos, ids,
+            draft_bits=DRAFT_BITS)[0],
+        "plane_verify": lambda: papi.decode_verify_slotted(
+            pm, pstack, cache(), toks, pos, ids)[0],
+    }
     out = {}
-    for name, s in (("prefill_k5", 20), ("prefill_k2", 100), ("decode", 0)):
+    for name, fn in cases.items():
         logits = {}
         for impl in ("cuda", "torch"):
             with ops.force_impl(impl), torch.inference_mode():
-                if s:
-                    prompt = torch.randint(0, cfg.vocab_size, (1, s),
-                                           generator=torch.Generator()
-                                           .manual_seed(s)).to("cuda")
-                    lg, _ = api.prefill_slotted(model, stack,
-                                                {"tokens": prompt}, ids[2:3])
-                else:
-                    cache = api.init_cache(TASKS_M, 64)
-                    for key in cache:
-                        cache[key].normal_(generator=torch.Generator(
-                            device="cuda").manual_seed(SEED))
-                    lg, _ = api.decode_step_slotted(model, stack, cache, toks,
-                                                    pos, ids)
-            logits[impl] = lg.float()
+                logits[impl] = fn().float()
         lk, lp = logits["cuda"], logits["torch"]
         if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
             fail(f"non-finite logits in the 2-layer slotted {name}")
@@ -781,34 +1167,48 @@ def main() -> None:
     worst_err = phase_kernels(torch)
     main_path = phase_main(torch)
     phase_profile(torch, main_path)
+    plane = plane_backbone(torch, main_path)
+    emit({"phase": "plane_backbone", "repack_s": plane["repack_s"]})
     with torch.inference_mode():
-        step = phase_step(torch, main_path["model"])
+        step = phase_step(torch, main_path["model"], plane["model"])
     serve = phase_serve(torch, main_path)
+    spec = phase_speculative(torch, plane, serve)
+    del plane
     phase_check(torch, main_path["cfg"])
     if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
                                    for m in sys.modules):
         fail("the port loaded JAX or the JAX package")
 
+    from repro_torch.kernels import quant_matmul as qm
     source = "src/repro_torch/kernels/csrc/{}.cu"
+    plane_branch = "src/repro/kernels/quant_matmul.py:98"
     replaces = {
         "quant_gemv": "src/repro/kernels/quant_matmul.py:290",
         "quant_matmul": "src/repro/kernels/quant_matmul.py:170",
         "quant_gemv_tasks": "src/repro/kernels/quant_matmul.py:364",
+        "quant_gemv_planes": plane_branch,
+        "quant_matmul_planes": plane_branch,
+        "quant_gemv_tasks_planes": plane_branch,
     }
     # each kernel's launches on the path that runs it: K1 and K2 on the
-    # lockstep main path, K5 on the resident serve path
+    # lockstep main path, K5 on the resident serve path, K6a's on the
+    # speculative runs (K5- and K2-plane over resident, K1-plane untasked)
     launches = dict(main_path["res"]["launches"])
     launches["quant_gemv_tasks"] = \
-        serve["resident"]["launches"]["quant_gemv_tasks"]
+        serve["res"]["resident"]["launches"]["quant_gemv_tasks"]
+    for name in ("quant_gemv_tasks_planes", "quant_matmul_planes"):
+        launches[name] = spec["speculative"]["launches"][name]
+    launches["quant_gemv_planes"] = \
+        spec["speculative_untasked"]["launches"]["quant_gemv_planes"]
     kernels = []
-    for name in ("quant_gemv", "quant_matmul", "quant_gemv_tasks"):
+    for name in (k.__name__ for k in qm.KERNELS):
         st = step[name]
         if launches[name] < 1:
             fail(f"{name} was never launched on its path")
         kernels.append({
             "name": name, "route": "cuda",
-            "source": source.format("quant_gemv" if name == "quant_gemv_tasks"
-                                    else name),
+            "source": source.format("quant_matmul" if "matmul" in name
+                                    else "quant_gemv"),
             "replaces": replaces[name],
             "launches": launches[name],
             "max_abs_err": worst_err[name],

@@ -15,7 +15,7 @@ class QuantConfig:
     group_size: Optional[int] = None   # None = per-channel (paper default)
     packed: bool = True
     symmetric: bool = False
-    layout: str = "nibble"             # nibble | plane (plane not ported yet)
+    layout: str = "nibble"             # nibble | plane (bit-planes, MSB first)
     quantize_lm_head: bool = False
     n_grid: int = 20                   # RTN range grid-search points
 

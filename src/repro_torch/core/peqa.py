@@ -2,8 +2,9 @@
 ``repro/core/peqa.py``).
 
 Walks a model's linears and replaces every eligible fully-connected weight
-``w (n, m)`` with its quantized form ``qw`` (packed codes), ``scale`` and
-``zero`` (n, G) (Eq. (1)).  The port does this IN PLACE, one linear at a
+``w (n, m)`` with its quantized form ``qw`` (packed codes: (n, m/8) nibble
+words, or (bits, n, m/32) bit-plane words), ``scale`` and ``zero`` (n, G)
+(Eq. (1)).  The port does this IN PLACE, one linear at a
 time, freeing each fp weight as its codes land: peak memory stays near the
 fp model's instead of holding both trees.
 
@@ -21,7 +22,9 @@ from torch import nn
 
 from repro_torch import device as _device
 from repro_torch.configs.base import QuantConfig
-from repro_torch.core.quant import pack_codes, rtn_quantize
+from repro_torch.core.quant import (PLANE_PACK, pack_codes, pack_codes_planes,
+                                    rtn_quantize, unpack_codes,
+                                    unpack_codes_planes)
 from repro_torch.models.linear import Linear
 
 # paths whose "w" leaf must never be quantized
@@ -55,6 +58,8 @@ def eligible(path: str, leaf: torch.Tensor, qcfg: QuantConfig) -> bool:
     spec = qcfg.spec()
     if spec.packs and m % 8:
         return False
+    if spec.plane and m % PLANE_PACK:
+        return False
     if spec.group_size and m % spec.group_size:
         return False
     return True
@@ -65,8 +70,10 @@ def quantize_leaf(w: torch.Tensor, qcfg: QuantConfig) -> dict:
     leading dims; the port's layers are separate modules.)"""
     spec = qcfg.spec()
     spec.check_ported()
+    spec.validate(w.shape[-1])
     q, s, z = rtn_quantize(w, spec, n_grid=qcfg.n_grid)
-    return {"qw": pack_codes(q), "scale": s, "zero": z}
+    qw = pack_codes_planes(q, spec.bits) if spec.plane else pack_codes(q)
+    return {"qw": qw, "scale": s, "zero": z}
 
 
 @torch.no_grad()
@@ -85,12 +92,37 @@ def quantize_params(model: nn.Module, qcfg: QuantConfig, *, device=None
     return model
 
 
+@torch.no_grad()
+def dequantize_params(model: nn.Module, qcfg: QuantConfig) -> nn.Module:
+    """PEQA model → fp model, in place: every quantized linear's ``w`` is
+    Ŵ = s·(q − z) in float32 (merges the tuned scales into the weights;
+    for export and comparisons)."""
+    spec = qcfg.spec()
+    for mod in model.modules():
+        if isinstance(mod, Linear) and mod.quantized:
+            k = mod.in_features
+            codes = unpack_codes_planes(mod.qw, k) if spec.plane \
+                else unpack_codes(mod.qw, k)
+            s, z = mod.scale.detach(), mod.zero.detach()
+            g = s.shape[-1]
+            cg = codes.reshape(mod.out_features, g, k // g).to(torch.float32)
+            w = (s[..., None] * (cg - z[..., None])).reshape(
+                mod.out_features, k)
+            mod.set_dense(w)
+    return model
+
+
 def model_size_bytes(model: nn.Module, qcfg: QuantConfig) -> int:
-    """Deployed size: b-bit codes + fp16 scales/zeros + fp16 fp leaves."""
+    """Deployed size: b-bit codes + fp16 scales/zeros + fp16 fp leaves
+    (bit-planes count their raw words: b bits per weight)."""
+    spec = qcfg.spec()
     total = 0
     for name, t in list(model.named_parameters()) + list(model.named_buffers()):
         if name.endswith("qw"):
-            total += int(np.prod(t.shape)) * 8 * qcfg.bits // 8
+            if spec.plane:
+                total += int(np.prod(t.shape)) * 4
+            else:
+                total += int(np.prod(t.shape)) * 8 * qcfg.bits // 8
         else:
             total += int(np.prod(t.shape)) * 2
     return total

@@ -1,5 +1,5 @@
 """Round-to-nearest (RTN) uniform asymmetric quantization — the paper's Eq. (1)
-(port of ``repro/core/quant.py``, nibble layout only).
+(port of ``repro/core/quant.py``: the nibble and bit-plane layouts).
 
 For a weight matrix ``W ∈ R^{n×m}`` (n = output channels, m = input features)
 and bit-width ``b``::
@@ -12,10 +12,19 @@ and bit-width ``b``::
 RTN grid-searches a shrink factor on the (min, max) range to minimize
 ``‖W − Ŵ‖_F²`` per group.
 
-Packing: 8 codes per 32-bit word, code ``i`` in bits ``4i..4i+3``.  The
-reference stores ``uint32``; the port stores the same bits as ``torch.int32``
-(PyTorch has no CPU shifts for ``uint32``).  A right shift of an ``int32``
-sign-extends, so every unpack masks with ``& 0xF`` after the shift.
+Packing — two layouts, both as in the reference:
+
+  * ``nibble``: 8 codes per 32-bit word, code ``i`` in bits ``4i..4i+3``.
+  * ``plane``: ``bits`` bit-planes, most significant first — ``qw[p]`` is a
+    (N, K/32) array of words holding bit ``bits-1-p`` of every code, code
+    ``i`` in bit ``i`` of its word.  The top ``p`` planes ``qw[:p]`` are a
+    contiguous prefix of the buffer and decode, alone, to ``q >> (bits-p)``:
+    the low-bit draft of self-speculative decoding reads the target's own
+    codes.
+
+The reference stores ``uint32``; the port stores the same bits as
+``torch.int32`` (PyTorch has no CPU shifts for ``uint32``).  A right shift of
+an ``int32`` sign-extends, so every unpack masks after the shift.
 """
 from __future__ import annotations
 
@@ -27,6 +36,9 @@ import torch
 # Number of codes packed per 32-bit word (3-bit codes ride in nibbles too).
 PACK = 8
 
+# Codes per 32-bit word per bit-plane (one bit per code per plane).
+PLANE_PACK = 32
+
 
 @dataclasses.dataclass(frozen=True)
 class QuantSpec:
@@ -36,7 +48,7 @@ class QuantSpec:
     group_size: Optional[int] = None  # None → per-channel (one group = whole row)
     symmetric: bool = False        # paper uses asymmetric (zero-points)
     packed: bool = True            # bit-pack codes into 32-bit words
-    layout: str = "nibble"         # nibble (plane is not ported yet)
+    layout: str = "nibble"         # nibble (8 codes/word) | plane (bit-planes)
 
     @property
     def levels(self) -> int:
@@ -47,6 +59,12 @@ class QuantSpec:
         """Nibble packing only holds codes < 16 (bits ≤ 4)."""
         return self.packed and self.bits <= 4 and self.layout == "nibble"
 
+    @property
+    def plane(self) -> bool:
+        """Bit-plane packed: ``qw`` is (bits', N, K/32) with ``bits' >=
+        bits`` — decode consumes the top ``bits`` planes."""
+        return self.packed and self.layout == "plane"
+
     def n_groups(self, in_features: int) -> int:
         if self.group_size is None:
             return 1
@@ -56,16 +74,31 @@ class QuantSpec:
             )
         return in_features // self.group_size
 
+    def validate(self, in_features: int) -> None:
+        if not (2 <= self.bits <= 8):
+            raise ValueError(f"bits must be in [2, 8], got {self.bits}")
+        if self.layout not in ("nibble", "plane"):
+            raise ValueError(f"unknown layout {self.layout!r} "
+                             f"(know: nibble, plane)")
+        self.n_groups(in_features)
+        if self.packs and in_features % PACK:
+            raise ValueError(f"packed layout needs in_features % {PACK} == 0")
+        if self.plane and in_features % PLANE_PACK:
+            raise ValueError(
+                f"plane layout needs in_features % {PLANE_PACK} == 0")
+
     def check_ported(self) -> None:
-        """Raise for the layouts the port does not serve yet: bit-planes,
-        unpacked codes and codes wider than a nibble."""
-        if self.layout != "nibble":
+        """Raise for the storage the port does not serve: unpacked codes
+        and codes wider than a nibble (the kernels rebuild bit-planes into
+        nibble words, so planes serve bits <= 4 too)."""
+        if self.layout not in ("nibble", "plane"):
+            raise ValueError(f"unknown layout {self.layout!r} "
+                             f"(know: nibble, plane)")
+        if not self.packed or self.bits > 4:
             raise NotImplementedError(
-                f"layout {self.layout!r} is not ported yet (nibble only)")
-        if not self.packs:
-            raise NotImplementedError(
-                f"unpacked codes (packed={self.packed}, bits={self.bits}) are "
-                f"not ported yet: the port serves packed nibbles, bits <= 4")
+                f"{self.layout} codes with packed={self.packed}, "
+                f"bits={self.bits} are not ported: the port serves packed "
+                f"codes of bits <= 4")
 
 
 # ---------------------------------------------------------------------------
@@ -78,9 +111,8 @@ def pack_codes(q: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"last dim {q.shape[-1]} not divisible by {PACK}")
     q = q.to(torch.int64).reshape(*q.shape[:-1], q.shape[-1] // PACK, PACK)
     shifts = torch.arange(PACK, dtype=torch.int64, device=q.device) * 4
-    words = (q << shifts).sum(dim=-1)                  # in [0, 2**32)
-    # the uint32 bit pattern as int32: wrap the top half to negatives
-    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
+    # words in [0, 2**32): the uint32 bit pattern as int32
+    return _as_int32((q << shifts).sum(dim=-1))
 
 
 def unpack_codes(packed: torch.Tensor, k: Optional[int] = None) -> torch.Tensor:
@@ -91,6 +123,61 @@ def unpack_codes(packed: torch.Tensor, k: Optional[int] = None) -> torch.Tensor:
     if k is not None:
         q = q[..., :k]
     return q.to(torch.uint8)
+
+
+def _as_int32(words: torch.Tensor) -> torch.Tensor:
+    """int64 words in [0, 2**32) → the same bits as int32."""
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Bit-plane pack / unpack (plane-major, MSB first: qw[:p] IS the p-bit draft)
+# ---------------------------------------------------------------------------
+
+def pack_codes_planes(q: torch.Tensor, bits: int) -> torch.Tensor:
+    """Pack codes (…, K) < 2**bits into int32 planes (bits, …, K // 32).
+
+    Plane p holds bit ``bits-1-p`` of every code (most significant first),
+    32 codes per word, code ``i`` in bit ``i`` of its word — the top-p
+    planes are a contiguous buffer prefix that decodes to ``code >>
+    (bits-p)``."""
+    if q.shape[-1] % PLANE_PACK:
+        raise ValueError(
+            f"last dim {q.shape[-1]} not divisible by {PLANE_PACK}")
+    q = q.to(torch.int64)
+    sel = torch.arange(bits - 1, -1, -1, dtype=torch.int64, device=q.device)
+    planes = (q[None] >> sel.reshape((bits,) + (1,) * q.dim())) & 1
+    planes = planes.reshape(bits, *q.shape[:-1], q.shape[-1] // PLANE_PACK,
+                            PLANE_PACK)
+    shifts = torch.arange(PLANE_PACK, dtype=torch.int64, device=q.device)
+    return _as_int32((planes << shifts).sum(dim=-1))
+
+
+def unpack_codes_planes(packed: torch.Tensor, k: Optional[int] = None,
+                        bits: Optional[int] = None) -> torch.Tensor:
+    """Unpack int32 planes (bits', …, K//32) → uint8 codes (…, K).
+
+    ``bits`` (≤ bits') consumes only the top planes — the draft decode."""
+    bits = packed.shape[0] if bits is None else bits
+    shifts = torch.arange(PLANE_PACK, dtype=torch.int32, device=packed.device)
+    b = (packed[:bits, ..., None] >> shifts) & 1         # mask the sign fill
+    b = b.reshape(bits, *packed.shape[1:-1], packed.shape[-1] * PLANE_PACK)
+    weight = torch.arange(bits - 1, -1, -1, dtype=torch.int32,
+                          device=packed.device)
+    q = (b << weight.reshape((bits,) + (1,) * (b.dim() - 1))).sum(dim=0)
+    if k is not None:
+        q = q[..., :k]
+    return q.to(torch.uint8)
+
+
+def draft_scales(scale: torch.Tensor, zero: torch.Tensor, bits: int,
+                 draft_bits: int):
+    """(scale, zero) for decoding the top ``draft_bits`` planes of a
+    ``bits``-bit tensor: the p-bit truncation satisfies q ≈ q_p·2**(b-p), so
+    s·(q − z) ≈ (s·2**(b-p))·(q_p − z/2**(b-p)).  Both factors are powers of
+    two, so the rescale is exact in float32."""
+    f = float(1 << (bits - draft_bits))
+    return scale * f, zero / f
 
 
 # ---------------------------------------------------------------------------

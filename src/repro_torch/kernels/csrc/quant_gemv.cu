@@ -1,7 +1,8 @@
 // K1: decode GEMV  y = x · Ŵᵀ,  Ŵ = s · (q − z)  from packed 4-bit codes,
 // and K5: the same GEMV with per-row task scales,
 //   y[m, n] = Σ_k x[m, k] · s[t_m, n, g(k)] · (q[n, k] − z[t_m, n, g(k)]),
-//   t_m = task_ids[m].
+//   t_m = task_ids[m],
+// and K6a: both read from bit-planes (PLANES = true).
 //
 // K1 replaces the TPU kernel repro/kernels/quant_matmul.py::quant_gemv_pallas
 // (plain branch, _qgemv_kernel).  Same semantics: x (M ≤ 32, K) in bf16 or
@@ -40,6 +41,22 @@
 // registers.  Per-channel scales of the M rows are staged in shared memory
 // once per block and read from there per word; grouped scales are read per
 // word through the L1.
+//
+// K6a replaces the plane branch of quant_gemv_pallas (_unpack_planes at
+// repro/kernels/quant_matmul.py:98, the prefix read of _qw_layout :114):
+// qw is (bits', N, K/32) 32-bit words, plane i holding bit bits'−1−i of
+// every code (code i in bit i of its word), and the kernel reads only the
+// top `planes` planes — with planes < bits' the low-bit draft of
+// self-speculative decoding, whose scale and zero it multiplies by 2^shift
+// and 2^−shift as it reads them (exact: powers of two).  The design keeps
+// K1 and K5 whole: a lane that handles packed word w (codes 8w..8w+7)
+// reads byte w & 3 of plane word w >> 2 in each plane, spreads its 8 bits
+// to bits 0, 4, …, 28 and stacks the planes, MSB first — which IS the
+// nibble word of the p-bit codes.  From there the body is K1's (or K5's)
+// unchanged, so a plane kernel is bit for bit its nibble kernel on those
+// codes under the rescaled scales.  Bytes: p/4 of the nibble kernel's code
+// stream, each plane byte read once (a warp reads 8 consecutive words of
+// each plane: 32-byte sectors, fully used).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -63,15 +80,46 @@ __device__ __forceinline__ float nib(uint32_t word, int j) {
   return __uint_as_float(0x4B000000u | ((word >> (4 * j)) & 0xFu)) - 8388608.0f;
 }
 
+// the 8 bits of a byte moved to bits 0, 4, …, 28
+__device__ __forceinline__ uint32_t spread8(uint32_t b) {
+  b = (b | (b << 12)) & 0x000F000Fu;
+  b = (b | (b << 6)) & 0x03030303u;
+  return (b | (b << 3)) & 0x11111111u;
+}
+
+// packed word w (codes 8w..8w+7) of row n as nibbles: read from the nibble
+// words, or rebuilt from the top `planes` bit-planes (MSB first; the plane
+// stride is N·K/32 words, words = K/8)
+template <bool PLANES>
+__device__ __forceinline__ uint32_t load_word(const uint32_t* __restrict__ qw,
+                                              int n, int w, int words,
+                                              size_t plane_stride, int planes) {
+  if constexpr (!PLANES) {
+    return __ldg(qw + (size_t)n * words + w);
+  } else {
+    const uint32_t* src = qw + (size_t)n * (words >> 2) + (w >> 2);
+    const int sh = (w & 3) * 8;
+    uint32_t out = 0;
+#pragma unroll 4
+    for (int i = 0; i < planes; ++i)
+      out = (out << 1) | spread8((__ldg(src + i * plane_stride) >> sh) & 0xFFu);
+    return out;
+  }
+}
+
 // MT: rows of x padded to a power of two; R: output rows per lane;
 // MB: rows of x held in registers at a time; TASKS: K5 (scale and zero are
-// (T, N, G) stacks, row m reads task task_ids[m]) instead of K1
-template <typename T, int MT, int R, bool TASKS, int MB = (MT < 4 ? MT : 4)>
+// (T, N, G) stacks, row m reads task task_ids[m]) instead of K1; PLANES:
+// the codes are the top `planes` bit-planes, the scales multiplied by
+// s_mul and the zeros by z_mul as they are read (K6a)
+template <typename T, int MT, int R, bool TASKS, bool PLANES,
+          int MB = (MT < 4 ? MT : 4)>
 __global__ void __launch_bounds__(THREADS, 2) quant_gemv_kernel(
     const T* __restrict__ x, const uint32_t* __restrict__ qw,
     const float* __restrict__ scale, const float* __restrict__ zero,
     const int* __restrict__ task_ids, T* __restrict__ y,
-    int M, int N, int K, int G, int n_tasks, int kc) {
+    int M, int N, int K, int G, int n_tasks, int kc,
+    int planes, float s_mul, float z_mul) {
   extern __shared__ float4 smem4[];
   float* xs = reinterpret_cast<float*>(smem4);            // [MT][kc]
   __shared__ float red[ROW_GROUPS][KSPLIT][R * MT];
@@ -89,8 +137,12 @@ __global__ void __launch_bounds__(THREADS, 2) quant_gemv_kernel(
   const int kq = warp % KSPLIT, rg = warp / KSPLIT;
   const int n0 = (blockIdx.x * ROW_GROUPS + rg) * R;
   const int words = K >> 3;
+  const size_t plane_stride = (size_t)N * (K >> 5);
   const int group = K / G;
   const bool word_groups = (group & 7) == 0;              // a word never straddles groups
+  // a scale and a zero as the dequantization uses them
+  auto lds = [&](const float* p) { return PLANES ? __ldg(p) * s_mul : __ldg(p); };
+  auto ldz = [&](const float* p) { return PLANES ? __ldg(p) * z_mul : __ldg(p); };
 
   float acc[R][MT];
 #pragma unroll
@@ -112,15 +164,15 @@ __global__ void __launch_bounds__(THREADS, 2) quant_gemv_kernel(
         const int n = min((int)(blockIdx.x * ROW_GROUPS + gi) * R + r, N - 1);
         const int tk = m < M ? min(max(__ldg(task_ids + m), 0), n_tasks - 1) : 0;
         const size_t o = (size_t)tk * N + n;
-        sz_s[t] = make_float2(__ldg(scale + o), __ldg(zero + o));
+        sz_s[t] = make_float2(lds(scale + o), ldz(zero + o));
       }
     }
   } else if (G == 1) {
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int n = min(n0 + r, N - 1);
-      s[r] = __ldg(scale + n);
-      z[r] = __ldg(zero + n);
+      s[r] = lds(scale + n);
+      z[r] = ldz(zero + n);
     }
   }
 
@@ -158,7 +210,8 @@ __global__ void __launch_bounds__(THREADS, 2) quant_gemv_kernel(
       uint32_t q[R];
 #pragma unroll
       for (int r = 0; r < R; ++r)
-        q[r] = (n0 + r < N) ? __ldg(qw + (size_t)(n0 + r) * words + w) : 0u;
+        q[r] = (n0 + r < N)
+            ? load_word<PLANES>(qw, n0 + r, w, words, plane_stride, planes) : 0u;
       if constexpr (TASKS) {
         // K5: the same per-accumulator order of fmaf's as K1 below, each
         // row of x dequantizing the code with its own task's (s, z)
@@ -175,7 +228,7 @@ __global__ void __launch_bounds__(THREADS, 2) quant_gemv_kernel(
 #pragma unroll
               for (int m = 0; m < MT; ++m) {
                 const int o = tofs[m] + n * G + g;
-                const float wj = __ldg(scale + o) * (nib(q[r], j) - __ldg(zero + o));
+                const float wj = lds(scale + o) * (nib(q[r], j) - ldz(zero + o));
                 acc[r][m] = fmaf(xs[m * kc + (i << 3) + j], wj, acc[r][m]);
               }
             }
@@ -206,8 +259,8 @@ __global__ void __launch_bounds__(THREADS, 2) quant_gemv_kernel(
                 zv = szv[o + 1];
               } else {
                 const int o = tofs[mb + m] + n * G + g;
-                sv = __ldg(scale + o);
-                zv = __ldg(zero + o);
+                sv = lds(scale + o);
+                zv = ldz(zero + o);
               }
 #pragma unroll
               for (int j = 0; j < 8; ++j)
@@ -222,8 +275,8 @@ __global__ void __launch_bounds__(THREADS, 2) quant_gemv_kernel(
 #pragma unroll
           for (int r = 0; r < R; ++r) {
             const int n = min(n0 + r, N - 1);
-            s[r] = __ldg(scale + (size_t)n * G + g);
-            z[r] = __ldg(zero + (size_t)n * G + g);
+            s[r] = lds(scale + (size_t)n * G + g);
+            z[r] = ldz(zero + (size_t)n * G + g);
           }
         }
         if (G != 1 && !word_groups) {
@@ -234,8 +287,8 @@ __global__ void __launch_bounds__(THREADS, 2) quant_gemv_kernel(
 #pragma unroll
             for (int j = 0; j < 8; ++j) {
               const int g = (k0 + j) / group;
-              const float wj = __ldg(scale + (size_t)n * G + g) *
-                               (nib(q[r], j) - __ldg(zero + (size_t)n * G + g));
+              const float wj = lds(scale + (size_t)n * G + g) *
+                               (nib(q[r], j) - ldz(zero + (size_t)n * G + g));
 #pragma unroll
               for (int m = 0; m < MT; ++m)
                 acc[r][m] = fmaf(xs[m * kc + (i << 3) + j], wj, acc[r][m]);
@@ -304,14 +357,21 @@ constexpr size_t extra_smem() {
   return TASKS ? (size_t)ROW_GROUPS * R * MT * sizeof(float2) + MT * sizeof(int) : 0;
 }
 
-template <typename T, int MT, int R, bool TASKS>
+// the draft rescale of K6a: scale·2^shift, zero·2^−shift (1 and 1 else)
+struct Planes {
+  int planes = 0, shift = 0;
+  float s_mul() const { return (float)(1u << shift); }
+  float z_mul() const { return 1.0f / (float)(1u << shift); }
+};
+
+template <typename T, int MT, int R, bool TASKS, bool PLANES>
 cudaError_t launch(const void* x, const void* qw, const void* scale, const void* zero,
                    const int* task_ids, void* y, int M, int N, int K, int G,
-                   int n_tasks, cudaStream_t stream) {
+                   int n_tasks, Planes pl, cudaStream_t stream) {
   int kc = (SMEM_X_FLOATS / MT) & ~7;
   if (kc > K) kc = K;
   const size_t smem = (size_t)MT * kc * sizeof(float) + extra_smem<MT, R, TASKS>();
-  auto kern = quant_gemv_kernel<T, MT, R, TASKS>;
+  auto kern = quant_gemv_kernel<T, MT, R, TASKS, PLANES>;
   // allow the largest chunk any launch of this instantiation stages; the
   // attribute belongs to the device, so it is set once per device
   static unsigned long long set_on = 0;
@@ -331,39 +391,60 @@ cudaError_t launch(const void* x, const void* qw, const void* scale, const void*
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const uint32_t*>(qw),
       static_cast<const float*>(scale), static_cast<const float*>(zero),
-      task_ids, static_cast<T*>(y), M, N, K, G, n_tasks, kc);
+      task_ids, static_cast<T*>(y), M, N, K, G, n_tasks, kc,
+      pl.planes, pl.s_mul(), pl.z_mul());
   return cudaGetLastError();
 }
 
-// the (MT, R) instantiation for M rows: K1 and K5 share it, so a row's
-// K chunking and reduction order are the same in both
-template <typename T, bool TASKS>
+// the (MT, R) instantiation for M rows: K1 and K5, nibble or plane, share
+// it, so a row's K chunking and reduction order are the same in all four
+template <typename T, bool TASKS, bool PLANES>
 cudaError_t dispatch(const void* x, const void* qw, const void* scale, const void* zero,
                      const int* task_ids, void* y, int M, int N, int K, int G,
-                     int n_tasks, cudaStream_t s) {
-  if (M <= 1) return launch<T, 1, 8, TASKS>(x, qw, scale, zero, task_ids, y, M, N, K, G, n_tasks, s);
-  if (M <= 2) return launch<T, 2, 8, TASKS>(x, qw, scale, zero, task_ids, y, M, N, K, G, n_tasks, s);
-  if (M <= 4) return launch<T, 4, 8, TASKS>(x, qw, scale, zero, task_ids, y, M, N, K, G, n_tasks, s);
-  if (M <= 8) return launch<T, 8, 4, TASKS>(x, qw, scale, zero, task_ids, y, M, N, K, G, n_tasks, s);
-  if (M <= 16) return launch<T, 16, 2, TASKS>(x, qw, scale, zero, task_ids, y, M, N, K, G, n_tasks, s);
-  return launch<T, 32, 1, TASKS>(x, qw, scale, zero, task_ids, y, M, N, K, G, n_tasks, s);
+                     int n_tasks, Planes pl, cudaStream_t s) {
+  if (M <= 1) return launch<T, 1, 8, TASKS, PLANES>(x, qw, scale, zero, task_ids, y, M, N, K, G, n_tasks, pl, s);
+  if (M <= 2) return launch<T, 2, 8, TASKS, PLANES>(x, qw, scale, zero, task_ids, y, M, N, K, G, n_tasks, pl, s);
+  if (M <= 4) return launch<T, 4, 8, TASKS, PLANES>(x, qw, scale, zero, task_ids, y, M, N, K, G, n_tasks, pl, s);
+  if (M <= 8) return launch<T, 8, 4, TASKS, PLANES>(x, qw, scale, zero, task_ids, y, M, N, K, G, n_tasks, pl, s);
+  if (M <= 16) return launch<T, 16, 2, TASKS, PLANES>(x, qw, scale, zero, task_ids, y, M, N, K, G, n_tasks, pl, s);
+  return launch<T, 32, 1, TASKS, PLANES>(x, qw, scale, zero, task_ids, y, M, N, K, G, n_tasks, pl, s);
+}
+
+template <bool TASKS, bool PLANES>
+int run(const void* x, const void* qw, const void* scale, const void* zero,
+        const void* task_ids, void* y, int M, int N, int K, int G, int T,
+        Planes pl, int x_is_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* ids = static_cast<const int*>(task_ids);
+  cudaError_t err = x_is_bf16
+      ? dispatch<__nv_bfloat16, TASKS, PLANES>(x, qw, scale, zero, ids, y, M, N, K, G, T, pl, s)
+      : dispatch<float, TASKS, PLANES>(x, qw, scale, zero, ids, y, M, N, K, G, T, pl, s);
+  return (int)err;
+}
+
+bool bad_dims(int M, int N, int K, int G) {
+  return M < 1 || M > 32 || N < 1 || K < 8 || K % 8 || G < 1 || K % G;
+}
+
+bool bad_tasks(int N, int G, int T) {
+  return T < 1 || (long long)T * N * G > 0x7fffffffLL;  // stack offsets are 32-bit
+}
+
+bool bad_planes(int K, Planes pl) {
+  return K % 32 || pl.planes < 1 || pl.planes > 4 || pl.shift < 0 || pl.shift > 7;
 }
 
 }  // namespace
 
-// Both entry points return the CUDA error code of the launch (0 on
+// Every entry point returns the CUDA error code of the launch (0 on
 // success).  The caller has checked shapes, dtypes, devices and
 // contiguity; these checks only refuse what would index out of bounds.
 extern "C" int quant_gemv(const void* x, const void* qw, const void* scale,
                           const void* zero, void* y, int M, int N, int K, int G,
                           int x_is_bf16, void* stream) {
-  if (M < 1 || M > 32 || N < 1 || K < 8 || K % 8 || G < 1 || K % G)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = x_is_bf16
-      ? dispatch<__nv_bfloat16, false>(x, qw, scale, zero, nullptr, y, M, N, K, G, 1, s)
-      : dispatch<float, false>(x, qw, scale, zero, nullptr, y, M, N, K, G, 1, s);
-  return (int)err;
+  if (bad_dims(M, N, K, G)) return (int)cudaErrorInvalidValue;
+  return run<false, false>(x, qw, scale, zero, nullptr, y, M, N, K, G, 1,
+                           Planes{}, x_is_bf16, stream);
 }
 
 // K5: scale and zero are (T, N, G) stacks, task_ids (M,) int32 on the device.
@@ -371,13 +452,32 @@ extern "C" int quant_gemv_tasks(const void* x, const void* qw, const void* scale
                                 const void* zero, const void* task_ids, void* y,
                                 int M, int N, int K, int G, int T,
                                 int x_is_bf16, void* stream) {
-  if (M < 1 || M > 32 || N < 1 || K < 8 || K % 8 || G < 1 || K % G || T < 1 ||
-      (long long)T * N * G > 0x7fffffffLL)      // stack offsets are 32-bit
+  if (bad_dims(M, N, K, G) || bad_tasks(N, G, T)) return (int)cudaErrorInvalidValue;
+  return run<true, false>(x, qw, scale, zero, task_ids, y, M, N, K, G, T,
+                          Planes{}, x_is_bf16, stream);
+}
+
+// K6a, K1's plane branch: qw (bits' >= planes, N, K/32); the top `planes`
+// planes are read under scale·2^shift, zero·2^−shift.
+extern "C" int quant_gemv_planes(const void* x, const void* qw, const void* scale,
+                                 const void* zero, void* y, int M, int N, int K,
+                                 int G, int planes, int shift, int x_is_bf16,
+                                 void* stream) {
+  const Planes pl{planes, shift};
+  if (bad_dims(M, N, K, G) || bad_planes(K, pl)) return (int)cudaErrorInvalidValue;
+  return run<false, true>(x, qw, scale, zero, nullptr, y, M, N, K, G, 1, pl,
+                          x_is_bf16, stream);
+}
+
+// K6a, K5's plane branch.
+extern "C" int quant_gemv_tasks_planes(const void* x, const void* qw,
+                                       const void* scale, const void* zero,
+                                       const void* task_ids, void* y, int M, int N,
+                                       int K, int G, int T, int planes, int shift,
+                                       int x_is_bf16, void* stream) {
+  const Planes pl{planes, shift};
+  if (bad_dims(M, N, K, G) || bad_tasks(N, G, T) || bad_planes(K, pl))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* ids = static_cast<const int*>(task_ids);
-  cudaError_t err = x_is_bf16
-      ? dispatch<__nv_bfloat16, true>(x, qw, scale, zero, ids, y, M, N, K, G, T, s)
-      : dispatch<float, true>(x, qw, scale, zero, ids, y, M, N, K, G, T, s);
-  return (int)err;
+  return run<true, true>(x, qw, scale, zero, task_ids, y, M, N, K, G, T, pl,
+                         x_is_bf16, stream);
 }

@@ -1,4 +1,5 @@
-// K2: prefill GEMM  y = x · Ŵᵀ,  Ŵ = s · (q − z)  from packed 4-bit codes.
+// K2: prefill GEMM  y = x · Ŵᵀ,  Ŵ = s · (q − z)  from packed 4-bit codes,
+// and K6a's GEMM: the same from bit-planes (PLANES = true).
 //
 // Replaces the TPU kernel repro/kernels/quant_matmul.py::quant_matmul_pallas
 // (_qmm_kernel).  Same semantics: x (M, K) in bf16 or f32, qw (N, K/8)
@@ -25,6 +26,15 @@
 //   * each thread keeps an 8 × 8 block of outputs in registers, so every
 //     shared-memory value it loads feeds 8 FMAs;
 //   * ragged M, N and K edges are masked with zeros.
+//
+// K6a replaces the plane branch of quant_matmul_pallas (_unpack_planes at
+// repro/kernels/quant_matmul.py:98, reached at :195): qw is (bits', N, K/32)
+// bit-planes, MSB plane first, of which the top `planes` are read, under
+// scale·2^shift and zero·2^−shift.  As in quant_gemv.cu, the thread that
+// loads packed word w of a row rebuilds it from byte w & 3 of plane word
+// w >> 2 of each plane, so the tile store and the product are K2's,
+// unchanged: bit for bit K2 on the nibble words of those codes under the
+// rescaled scales.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -44,6 +54,40 @@ __device__ __forceinline__ float nib(uint32_t word, int j) {
   return __uint_as_float(0x4B000000u | ((word >> (4 * j)) & 0xFu)) - 8388608.0f;
 }
 
+// the 8 bits of a byte moved to bits 0, 4, …, 28
+__device__ __forceinline__ uint32_t spread8(uint32_t b) {
+  b = (b | (b << 12)) & 0x000F000Fu;
+  b = (b | (b << 6)) & 0x03030303u;
+  return (b | (b << 3)) & 0x11111111u;
+}
+
+// K6a's operands: the planes read and the draft rescale (0 planes: nibbles)
+struct Planes {
+  int planes;
+  float s_mul, z_mul;
+};
+
+// packed word w (codes 8w..8w+7) of row n as nibbles: read from the nibble
+// words, or rebuilt from the top planes (MSB first; words = K/8, the plane
+// stride N·K/32 words)
+template <bool PLANES>
+__device__ __forceinline__ uint32_t load_word(const uint32_t* __restrict__ qw,
+                                              int n, int w, int N, int words,
+                                              int planes) {
+  if constexpr (!PLANES) {
+    return __ldg(qw + (size_t)n * words + w);
+  } else {
+    const size_t plane_stride = (size_t)N * (words >> 2);
+    const uint32_t* src = qw + (size_t)n * (words >> 2) + (w >> 2);
+    const int sh = (w & 3) * 8;
+    uint32_t out = 0;
+#pragma unroll 4
+    for (int i = 0; i < planes; ++i)
+      out = (out << 1) | spread8((__ldg(src + i * plane_stride) >> sh) & 0xFFu);
+    return out;
+  }
+}
+
 // One K step's global operands, held in registers while the previous step
 // computes: NX 16-byte vectors of x and one packed word of qw per thread.
 template <typename T>
@@ -54,10 +98,11 @@ struct Stage {
   uint32_t q;
 };
 
-template <typename T>
+template <typename T, bool PLANES>
 __device__ __forceinline__ void load_stage(Stage<T>& st, const T* __restrict__ x,
                                            const uint32_t* __restrict__ qw, int m0,
-                                           int n0, int k0, int M, int N, int K) {
+                                           int n0, int k0, int M, int N, int K,
+                                           int planes) {
   constexpr int VEC = Stage<T>::VEC, PER_ROW = BK / VEC;
 #pragma unroll
   for (int i = 0; i < Stage<T>::NX; ++i) {
@@ -70,17 +115,19 @@ __device__ __forceinline__ void load_stage(Stage<T>& st, const T* __restrict__ x
   }
   const int n = threadIdx.x / (BK / 8), wi = threadIdx.x % (BK / 8);
   const int gn = n0 + n, gw = (k0 >> 3) + wi, words = K >> 3;
-  st.q = (gn < N && gw < words) ? __ldg(qw + (size_t)gn * words + gw) : 0u;
+  st.q = (gn < N && gw < words) ? load_word<PLANES>(qw, gn, gw, N, words, planes)
+                                 : 0u;
 }
 
 // Registers → shared memory, x transposed to k-major and the codes
 // dequantized with their (row, k / group) scale and zero.
-template <typename T>
+template <typename T, bool PLANES>
 __device__ __forceinline__ void store_stage(const Stage<T>& st, float (*xs)[BM + PAD],
                                             float (*ws)[BN + PAD],
                                             const float* __restrict__ scale,
                                             const float* __restrict__ zero, int n0,
-                                            int k0, int N, int K, int G) {
+                                            int k0, int N, int K, int G,
+                                            const Planes& pl) {
   constexpr int VEC = Stage<T>::VEC, PER_ROW = BK / VEC;
 #pragma unroll
   for (int i = 0; i < Stage<T>::NX; ++i) {
@@ -99,18 +146,23 @@ __device__ __forceinline__ void store_stage(const Stage<T>& st, float (*xs)[BM +
     float v = 0.f;
     if (live) {
       const int g = (kw + j) / group;
-      v = __ldg(scale + (size_t)gn * G + g) *
-          (nib(st.q, j) - __ldg(zero + (size_t)gn * G + g));
+      float sv = __ldg(scale + (size_t)gn * G + g);
+      float zv = __ldg(zero + (size_t)gn * G + g);
+      if constexpr (PLANES) {
+        sv *= pl.s_mul;
+        zv *= pl.z_mul;
+      }
+      v = sv * (nib(st.q, j) - zv);
     }
     ws[wi * 8 + j][n] = v;
   }
 }
 
-template <typename T>
+template <typename T, bool PLANES>
 __global__ void __launch_bounds__(THREADS, 2) quant_matmul_kernel(
     const T* __restrict__ x, const uint32_t* __restrict__ qw,
     const float* __restrict__ scale, const float* __restrict__ zero,
-    T* __restrict__ y, int M, int N, int K, int G) {
+    T* __restrict__ y, int M, int N, int K, int G, Planes pl) {
   // two buffers: the step being multiplied and the step being staged
   __shared__ __align__(16) float xs[2][BK][BM + PAD];  // xs[k][m]
   __shared__ __align__(16) float ws[2][BK][BN + PAD];  // ws[k][n] = Ŵ[n][k]
@@ -127,15 +179,15 @@ __global__ void __launch_bounds__(THREADS, 2) quant_matmul_kernel(
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
   Stage<T> st;
-  load_stage(st, x, qw, m0, n0, 0, M, N, K);
-  store_stage(st, xs[0], ws[0], scale, zero, n0, 0, N, K, G);
+  load_stage<T, PLANES>(st, x, qw, m0, n0, 0, M, N, K, pl.planes);
+  store_stage<T, PLANES>(st, xs[0], ws[0], scale, zero, n0, 0, N, K, G, pl);
   __syncthreads();
 
   const int steps = (K + BK - 1) / BK;
   for (int t = 0; t < steps; ++t) {
     const int buf = t & 1;
     const bool more = t + 1 < steps;
-    if (more) load_stage(st, x, qw, m0, n0, (t + 1) * BK, M, N, K);
+    if (more) load_stage<T, PLANES>(st, x, qw, m0, n0, (t + 1) * BK, M, N, K, pl.planes);
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
       // rows ty*4 + {0..3} and 64 + ty*4 + {0..3}; columns likewise with tx
@@ -152,8 +204,8 @@ __global__ void __launch_bounds__(THREADS, 2) quant_matmul_kernel(
     }
     // the other buffer was last read in step t - 1, which every thread
     // finished before the barrier that ended it
-    if (more) store_stage(st, xs[buf ^ 1], ws[buf ^ 1], scale, zero, n0,
-                          (t + 1) * BK, N, K, G);
+    if (more) store_stage<T, PLANES>(st, xs[buf ^ 1], ws[buf ^ 1], scale, zero, n0,
+                                     (t + 1) * BK, N, K, G, pl);
     __syncthreads();
   }
 
@@ -169,30 +221,51 @@ __global__ void __launch_bounds__(THREADS, 2) quant_matmul_kernel(
   }
 }
 
-template <typename T>
+template <typename T, bool PLANES>
 cudaError_t launch(const void* x, const void* qw, const void* scale, const void* zero,
-                   void* y, int M, int N, int K, int G, cudaStream_t stream) {
+                   void* y, int M, int N, int K, int G, Planes pl,
+                   cudaStream_t stream) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  quant_matmul_kernel<T><<<grid, THREADS, 0, stream>>>(
+  quant_matmul_kernel<T, PLANES><<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const uint32_t*>(qw),
       static_cast<const float*>(scale), static_cast<const float*>(zero),
-      static_cast<T*>(y), M, N, K, G);
+      static_cast<T*>(y), M, N, K, G, pl);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// Returns the CUDA error code of the launch (0 on success).  The caller has
-// checked shapes, dtypes, devices and contiguity; these checks only refuse
-// what would index out of bounds.
-extern "C" int quant_matmul(const void* x, const void* qw, const void* scale,
-                            const void* zero, void* y, int M, int N, int K, int G,
-                            int x_is_bf16, void* stream) {
+template <bool PLANES>
+int run(const void* x, const void* qw, const void* scale, const void* zero,
+        void* y, int M, int N, int K, int G, Planes pl, int x_is_bf16,
+        void* stream) {
   if (M < 1 || M > 65535 * BM || N < 1 || K < 8 || K % 8 || G < 1 || K % G)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = x_is_bf16
-      ? launch<__nv_bfloat16>(x, qw, scale, zero, y, M, N, K, G, s)
-      : launch<float>(x, qw, scale, zero, y, M, N, K, G, s);
+      ? launch<__nv_bfloat16, PLANES>(x, qw, scale, zero, y, M, N, K, G, pl, s)
+      : launch<float, PLANES>(x, qw, scale, zero, y, M, N, K, G, pl, s);
   return (int)err;
+}
+
+}  // namespace
+
+// Both entry points return the CUDA error code of the launch (0 on
+// success).  The caller has checked shapes, dtypes, devices and
+// contiguity; these checks only refuse what would index out of bounds.
+extern "C" int quant_matmul(const void* x, const void* qw, const void* scale,
+                            const void* zero, void* y, int M, int N, int K, int G,
+                            int x_is_bf16, void* stream) {
+  return run<false>(x, qw, scale, zero, y, M, N, K, G, Planes{0, 1.f, 1.f},
+                    x_is_bf16, stream);
+}
+
+// K6a's GEMM: qw (bits' >= planes, N, K/32); the top `planes` planes are
+// read under scale·2^shift, zero·2^−shift.
+extern "C" int quant_matmul_planes(const void* x, const void* qw, const void* scale,
+                                   const void* zero, void* y, int M, int N, int K,
+                                   int G, int planes, int shift, int x_is_bf16,
+                                   void* stream) {
+  if (K % 32 || planes < 1 || planes > 4 || shift < 0 || shift > 7)
+    return (int)cudaErrorInvalidValue;
+  const Planes pl{planes, (float)(1u << shift), 1.0f / (float)(1u << shift)};
+  return run<true>(x, qw, scale, zero, y, M, N, K, G, pl, x_is_bf16, stream);
 }

@@ -9,7 +9,8 @@ prefill).  Implementations:
   * ``cuda``  — the hand-written kernels of ``kernels/quant_matmul.py``:
                 M ≤ ``GEMV_MAX_M`` rows go to the GEMV (every decode step;
                 K5 when slotted), larger M to the tiled GEMM (the prefill;
-                once per task present when slotted).  A CUDA tensor
+                once per task present when slotted); bit-plane codes to
+                the plane branch of each (K6a).  A CUDA tensor
                 launches the kernel; a CPU tensor takes the kernel's plain
                 version.  The default.
   * ``torch`` — the plain version on whatever device the tensors are on
@@ -18,7 +19,9 @@ prefill).  Implementations:
 from __future__ import annotations
 
 import contextlib
+import functools
 import threading
+from typing import Optional
 
 import torch
 
@@ -67,29 +70,61 @@ def _rows(x: torch.Tensor) -> torch.Tensor:
     return x2d
 
 
-def quant_matmul(x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
-                 zero: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
-    """y = x @ Ŵᵀ for arbitrary leading batch dims on x; y in x's dtype,
-    through ``default_impl()``."""
-    impl = default_impl()
+def _layout(qw: torch.Tensor, spec: QuantSpec, draft_bits):
+    """``(planes read, draft rescale exponent)`` for bit-plane codes, None
+    for nibbles; refuses what the port does not serve."""
     spec.check_ported()
+    if not spec.plane:
+        if draft_bits is not None:
+            raise ValueError("a draft read needs bit-plane codes "
+                             "(QuantConfig(layout='plane'))")
+        return None
+    read = spec.bits if draft_bits is None else draft_bits
+    if not 1 <= read <= spec.bits or qw.dim() != 3 or qw.shape[0] < read:
+        raise ValueError(f"cannot read {read} planes of a {spec.bits}-bit "
+                         f"code from a buffer of shape {tuple(qw.shape)} "
+                         f"(need (bits' >= {read}, N, K/32))")
+    return read, spec.bits - read
+
+
+def quant_matmul(x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
+                 zero: torch.Tensor, spec: QuantSpec, *,
+                 draft_bits: Optional[int] = None) -> torch.Tensor:
+    """y = x @ Ŵᵀ for arbitrary leading batch dims on x; y in x's dtype,
+    through ``default_impl()``.
+
+    Bit-plane specs read the top ``spec.bits`` planes of qw (bits', N,
+    K/32).  ``draft_bits`` = p < ``spec.bits`` = b is the self-speculative
+    draft: the top p planes under the draft's scales, scale·2^(b−p) and
+    zero/2^(b−p) (``core.quant.draft_scales``; the reference passes a
+    rescaled tree and a p-bit spec instead, the values are the same)."""
+    impl = default_impl()
+    planes = _layout(qw, spec, draft_bits)
     lead = x.shape[:-1]
     x2d = _rows(x)
     scale = scale.to(torch.float32).contiguous()
     zero = zero.to(torch.float32).contiguous()
-    if impl == "torch":
-        y = _qm.quant_matmul_plain(x2d, qw, scale, zero)
-    elif x2d.shape[0] <= GEMV_MAX_M:
-        y = _qm.quant_gemv(x2d, qw, scale, zero)
+    if planes is None:
+        plain, gemv, gemm = (_qm.quant_matmul_plain, _qm.quant_gemv,
+                             _qm.quant_matmul)
     else:
-        y = _qm.quant_matmul(x2d, qw, scale, zero)
+        plain, gemv, gemm = (
+            functools.partial(f, bits=planes[0], shift=planes[1])
+            for f in (_qm.quant_matmul_planes_plain, _qm.quant_gemv_planes,
+                      _qm.quant_matmul_planes))
+    if impl == "torch":
+        y = plain(x2d, qw, scale, zero)
+    elif x2d.shape[0] <= GEMV_MAX_M:
+        y = gemv(x2d, qw, scale, zero)
+    else:
+        y = gemm(x2d, qw, scale, zero)
     return y.reshape(*lead, y.shape[-1])
 
 
 def quant_matmul_slotted(x: torch.Tensor, qw: torch.Tensor,
                          scale_stack: torch.Tensor, zero_stack: torch.Tensor,
-                         task_ids: torch.Tensor, spec: QuantSpec
-                         ) -> torch.Tensor:
+                         task_ids: torch.Tensor, spec: QuantSpec, *,
+                         draft_bits: Optional[int] = None) -> torch.Tensor:
     """Mixed-task y[i] = x[i] @ Ŵ(task_ids[i])ᵀ, forward only (serving).
 
     x (..., K) with prod(leading dims) == M rows; scale/zero stacks
@@ -105,9 +140,12 @@ def quant_matmul_slotted(x: torch.Tensor, qw: torch.Tensor,
         once per task present under ``scale_stack[t]``, rows selected —
         the same GEMM on the same scale values as the drain prefill.  The
         distinct ids are read on the host (one sync per call on the card).
+
+    Bit-plane specs route the same way to K6a (the plane branch of K5 and
+    K2), with ``draft_bits`` as in ``quant_matmul``.
     """
     impl = default_impl()
-    spec.check_ported()
+    planes = _layout(qw, spec, draft_bits)
     lead = x.shape[:-1]
     x2d = _rows(x)
     if x2d.shape[0] != task_ids.shape[0]:
@@ -116,14 +154,20 @@ def quant_matmul_slotted(x: torch.Tensor, qw: torch.Tensor,
     scale_stack = scale_stack.to(torch.float32).contiguous()
     zero_stack = zero_stack.to(torch.float32).contiguous()
     task_ids = task_ids.to(torch.int32).contiguous()
-    if impl == "torch":
-        y = _qm.quant_matmul_tasks_plain(x2d, qw, scale_stack, zero_stack,
-                                         task_ids)
-    elif x2d.shape[0] <= GEMV_MAX_M:
-        y = _qm.quant_gemv_tasks(x2d, qw, scale_stack, zero_stack, task_ids)
+    if planes is None:
+        plain, gemv, gemm = (_qm.quant_matmul_tasks_plain,
+                             _qm.quant_gemv_tasks, _qm.quant_matmul)
     else:
-        y = _qm.per_task(_qm.quant_matmul, x2d, qw, scale_stack, zero_stack,
-                         task_ids)
+        plain, gemv, gemm = (
+            functools.partial(f, bits=planes[0], shift=planes[1])
+            for f in (_qm.quant_matmul_tasks_planes_plain,
+                      _qm.quant_gemv_tasks_planes, _qm.quant_matmul_planes))
+    if impl == "torch":
+        y = plain(x2d, qw, scale_stack, zero_stack, task_ids)
+    elif x2d.shape[0] <= GEMV_MAX_M:
+        y = gemv(x2d, qw, scale_stack, zero_stack, task_ids)
+    else:
+        y = _qm.per_task(gemm, x2d, qw, scale_stack, zero_stack, task_ids)
     return y.reshape(*lead, y.shape[-1])
 
 

@@ -1,13 +1,17 @@
-"""Register report of K5's variants: where its register pressure comes from.
+"""Register reports of the kernels: every instantiation, and K5's variants.
 
     python -m repro_torch.kernels.ptxas_variants
 
 Needs ``nvcc`` (the machine with the card).  Compiles ``csrc/quant_gemv.cu``
-as committed and as four variants of K5's loops, all in parallel and into
-a temporary directory, and prints one JSON line per variant with each bf16
-K5 instantiation's registers, local-memory stack frame and spill stores
-(``nvcc -Xptxas -v``).  The variants only exist to be compiled — two of
-them compute wrong results:
+as committed and as four variants of K5's loops, and
+``csrc/quant_matmul.cu`` as committed, all in parallel and into a temporary
+directory.  Prints one JSON line per variant with each bf16 K5
+instantiation's registers, local-memory stack frame and spill stores
+(``nvcc -Xptxas -v``), then one line listing every bit-plane (K6a)
+instantiation of the committed sources the same way.  ``report`` parses
+any such log into one row per instantiation (``chip_smoke.py`` phase
+``device`` uses it).  The variants only exist to be compiled — two of them
+compute wrong results:
 
   * ``committed``   — the source as it is;
   * ``j_unrolled``  — the per-code branch (groups narrower than a packed
@@ -56,15 +60,30 @@ def variants(src: str) -> dict:
     }
 
 
-def k5_report(log: str) -> list:
-    """bf16 K5 instantiations (TASKS = true): MT, R, registers, stack
-    frame and spill-store bytes."""
+# the wrapper (``kernels/quant_matmul.py``) that launches each instantiation
+_GEMV_NAMES = {(False, False): "quant_gemv", (True, False): "quant_gemv_tasks",
+               (False, True): "quant_gemv_planes",
+               (True, True): "quant_gemv_tasks_planes"}
+
+
+def report(log: str) -> list:
+    """One row per kernel instantiation in an ``nvcc -Xptxas -v`` log: the
+    wrapper that launches it, dtype, (MT, R) for the GEMV, registers,
+    shared memory, stack frame and spill-store bytes."""
     rows, cur = [], None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\S+?kernelI13__nv_bfloat16"
-                      r"Li(\d+)ELi(\d+)ELb1E", line)
+        m = re.search(r"Compiling entry function '\S*?(quant_gemv|quant_matmul)"
+                      r"_kernelI(13__nv_bfloat16|f)((?:L[ib]\d+E)+)", line)
         if m:
-            cur = {"MT": int(m.group(1)), "R": int(m.group(2))}
+            args = [int(a) for a in re.findall(r"L[ib](\d+)E", m.group(3))]
+            cur = {"dtype": "bf16" if m.group(2) != "f" else "f32"}
+            if m.group(1) == "quant_gemv":
+                mt, r, tasks, planes = args[:4]
+                cur = {"kernel": _GEMV_NAMES[bool(tasks), bool(planes)],
+                       **cur, "MT": mt, "R": r}
+            else:
+                cur = {"kernel": "quant_matmul_planes" if args[0]
+                       else "quant_matmul", **cur}
             rows.append(cur)
             continue
         if "Compiling entry function" in line:
@@ -75,29 +94,60 @@ def k5_report(log: str) -> list:
                       line)
         if m:
             cur["stack"], cur["spill_stores"] = int(m.group(1)), int(m.group(2))
-        m = re.search(r"Used (\d+) registers", line)
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
         if m:
-            cur["regs"] = int(m.group(1))
+            cur["regs"], cur["smem"] = int(m.group(1)), int(m.group(2))
+        elif "Used" in line:
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["regs"] = int(m.group(1))
     return rows
+
+
+def k5_report(log: str) -> list:
+    """bf16 K5 instantiations (TASKS = true, nibble codes): MT, R,
+    registers, stack frame and spill-store bytes."""
+    return [{k: r[k] for k in ("MT", "R", "regs", "stack", "spill_stores")
+             if k in r}
+            for r in report(log)
+            if r["kernel"] == "quant_gemv_tasks" and r["dtype"] == "bf16"]
+
+
+def _nvcc(src: str, tmp: str, name: str) -> subprocess.Popen:
+    cu = Path(tmp) / f"{name}.cu"
+    cu.write_text(src)
+    return subprocess.Popen(
+        [_build.nvcc(), *_build.FLAGS, "-o", str(cu.with_suffix(".so")),
+         str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+
+
+def _log(name: str, proc: subprocess.Popen) -> str:
+    log = proc.communicate()[0]
+    if proc.returncode != 0:
+        raise RuntimeError(f"{name}: nvcc exit {proc.returncode}\n{log}")
+    return log
 
 
 def main() -> None:
     src = (_build.CSRC / "quant_gemv.cu").read_text()
     with tempfile.TemporaryDirectory() as tmp:
-        procs = {}
-        for name, text in variants(src).items():
-            cu = Path(tmp) / f"{name}.cu"
-            cu.write_text(text)
-            procs[name] = subprocess.Popen(
-                [_build.nvcc(), *_build.FLAGS, "-o", str(cu.with_suffix(".so")),
-                 str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)
+        procs = {name: _nvcc(text, tmp, name)
+                 for name, text in variants(src).items()}
+        gemm = _nvcc((_build.CSRC / "quant_matmul.cu").read_text(), tmp,
+                     "quant_matmul")
+        planes = []
         for name, proc in procs.items():
-            log = proc.communicate()[0]
-            if proc.returncode != 0:
-                raise RuntimeError(f"{name}: nvcc exit {proc.returncode}\n{log}")
+            log = _log(name, proc)
             print(json.dumps({"variant": name, "k5": k5_report(log)}),
                   flush=True)
+            if name == "committed":
+                planes += [r for r in report(log)
+                           if r["kernel"].endswith("_planes")]
+        planes += [r for r in report(_log("quant_matmul", gemm))
+                   if r["kernel"].endswith("_planes")]
+        print(json.dumps({"variant": "committed", "planes": planes}),
+              flush=True)
 
 
 if __name__ == "__main__":

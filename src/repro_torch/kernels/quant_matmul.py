@@ -7,10 +7,15 @@ plain PyTorch versions.
                        replaces ``repro/kernels/quant_matmul.py::quant_matmul_pallas``.
   * ``quant_gemv_tasks`` — K5, K1 with per-row task scales, ``csrc/quant_gemv.cu``;
                        replaces ``quant_gemv_pallas`` called with ``task_ids``.
+  * ``quant_gemv_planes``, ``quant_gemv_tasks_planes``, ``quant_matmul_planes``
+                     — K6a, the bit-plane branch of K1, K5 and K2 (the same
+                       sources); replaces ``_unpack_planes`` / ``_qw_layout``
+                       of ``repro/kernels/quant_matmul.py``.
   * ``quant_matmul_plain`` — ``x.float() @ dequant_f32(qw, s, z).T → x.dtype``,
                        the semantics of the TPU kernels and of
                        ``ref.quant_matmul_ref``; ``quant_matmul_tasks_plain``
-                       runs it once per task present and selects rows.
+                       runs it once per task present and selects rows; the
+                       ``*_planes_plain`` versions read bit-planes.
 
 Operands: x (M, K) bf16 or f32; qw (N, K/8) int32 words, each the bits of the
 reference's uint32 (8 nibble codes, code i in bits 4i..4i+3); scale and zero
@@ -19,6 +24,16 @@ result is (M, N) in x's dtype.  K5's row i is bit for bit K1's row i under
 ``scale[task_ids[i]]``; task ids are validated by the caller on the host
 (``train.serve.Engine``), the kernel only clamps them into the stack.
 
+K6a takes qw (bits', N, K/32) int32 bit-planes (MSB plane first, code i in
+bit i of its word, K % 32 == 0) and reads only the top ``bits`` ≤ bits'
+planes — with ``bits`` < bits' the low-bit draft, a prefix of the target's
+buffer.  ``shift`` = b − p applies the draft's rescale scale·2^shift,
+zero / 2^shift (``core.quant.draft_scales``; exact, powers of two) as the
+scales are read, so no rescaled copy exists.  Each plane kernel is bit for
+bit its nibble kernel on the nibble words of ``q >> (bits' − bits)`` under
+the rescaled scales: it rebuilds those words from the planes as it loads
+them.
+
 A wrapper given CPU tensors returns the plain version; given CUDA tensors it
 launches its kernel or raises.  Each wrapper counts its launches in the
 integer attribute ``launches`` (incremented only where the kernel launches).
@@ -26,13 +41,17 @@ integer attribute ``launches`` (incremented only where the kernel launches).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from repro_torch.core.quant import PACK, QuantSpec
+from repro_torch.core.quant import PACK, PLANE_PACK, QuantSpec
 from repro_torch.kernels import _build, ref
 
 GEMV_MAX_M = 32
+# codes the kernels rebuild into nibble words: at most 4 planes; a draft
+# rescale factor 2^shift with shift < 8
+MAX_PLANES, MAX_SHIFT = 4, 7
 _DTYPES = (torch.bfloat16, torch.float32)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point → (library, argument types)
@@ -40,14 +59,37 @@ _ENTRIES = {
     "quant_gemv": ("quant_gemv", [_P] * 5 + [_I] * 5 + [_P]),
     "quant_matmul": ("quant_matmul", [_P] * 5 + [_I] * 5 + [_P]),
     "quant_gemv_tasks": ("quant_gemv", [_P] * 6 + [_I] * 6 + [_P]),
+    "quant_gemv_planes": ("quant_gemv", [_P] * 5 + [_I] * 7 + [_P]),
+    "quant_matmul_planes": ("quant_matmul", [_P] * 5 + [_I] * 7 + [_P]),
+    "quant_gemv_tasks_planes": ("quant_gemv", [_P] * 6 + [_I] * 8 + [_P]),
 }
 _entries: dict = {}
 
 
+def _dequant_f32(qw, scale, zero, k, planes=None):
+    """Ŵ (N, K) in float32 from nibble words, or with ``planes = (bits,
+    shift)`` from the top ``bits`` planes under scale·2^shift, zero/2^shift
+    (the reference's draft rescale: ``scale * f``, ``zero / f``)."""
+    if planes is None:
+        return ref.dequant_ref(qw, scale, zero, (qw.shape[0], k), QuantSpec(),
+                               torch.float32)
+    bits, shift = planes
+    f = float(1 << shift)
+    return ref.dequant_ref(qw, scale * f, zero / f, (qw.shape[1], k),
+                           QuantSpec(bits=bits, layout="plane"), torch.float32)
+
+
 def quant_matmul_plain(x, qw, scale, zero):
     """The plain version of K1 and K2: f32 dequantize, f32 matmul."""
-    return ref.quant_matmul_ref(x, qw, scale, zero,
-                                (qw.shape[0], x.shape[-1]), QuantSpec())
+    w = _dequant_f32(qw, scale, zero, x.shape[-1])
+    return torch.matmul(x.to(torch.float32), w.T).to(x.dtype)
+
+
+def quant_matmul_planes_plain(x, qw, scale, zero, bits, shift=0):
+    """The plain version of K6a's GEMV and GEMM: the top ``bits`` planes of
+    qw, dequantized in f32 under the draft rescale, f32 matmul."""
+    w = _dequant_f32(qw, scale, zero, x.shape[-1], (bits, shift))
+    return torch.matmul(x.to(torch.float32), w.T).to(x.dtype)
 
 
 def per_task(fn, x, qw, scale_stack, zero_stack, task_ids):
@@ -72,10 +114,20 @@ def quant_matmul_tasks_plain(x, qw, scale_stack, zero_stack, task_ids):
                     task_ids)
 
 
-def error_bound(x, qw, scale, zero, plain, task_ids=None):
+def quant_matmul_tasks_planes_plain(x, qw, scale_stack, zero_stack, task_ids,
+                                    bits, shift=0):
+    """The plain version of K6a's task GEMV: the plain plane matmul per task
+    present, rows selected."""
+    return per_task(functools.partial(quant_matmul_planes_plain, bits=bits,
+                                      shift=shift),
+                    x, qw, scale_stack, zero_stack, task_ids)
+
+
+def error_bound(x, qw, scale, zero, plain, task_ids=None, planes=None):
     """Elementwise bound on |kernel − plain| for the same inputs (with
     ``task_ids``: scale and zero are (T, N, G) stacks, row i under task
-    ``task_ids[i]``).
+    ``task_ids[i]``; with ``planes = (bits, shift)``: qw is bit-planes read
+    as K6a reads them).
 
     Both sum the same float32 products in different orders, so each is
     within K·2⁻²⁴·Σₖ|x·ŵ| of the exact sum (the standard recursive-summation
@@ -89,11 +141,10 @@ def error_bound(x, qw, scale, zero, plain, task_ids=None):
         for t in torch.unique(task_ids).tolist():
             rows = task_ids == t
             out[rows] = error_bound(x[rows], qw, scale[t], zero[t],
-                                    plain[rows])
+                                    plain[rows], planes=planes)
         return out
     k = x.shape[-1]
-    w = ref.dequant_ref(qw, scale, zero, (qw.shape[0], k), QuantSpec(),
-                        torch.float32)
+    w = _dequant_f32(qw, scale, zero, k, planes)
     bound = 2 * k * 2.0 ** -24 * (x.to(torch.float32).abs() @ w.abs().T)
     if plain.dtype == torch.bfloat16:
         mag = plain.to(torch.float32).abs() + bound
@@ -103,15 +154,18 @@ def error_bound(x, qw, scale, zero, plain, task_ids=None):
     return bound
 
 
-def _check(x, qw, scale, zero, max_m=None):
-    """Raise on anything the kernels do not take."""
-    if x.dim() != 2 or qw.dim() != 2 or scale.dim() != 2 or zero.dim() != 2:
+def _check(x, qw, scale, zero, max_m=None, planes=None):
+    """Raise on anything the kernels do not take (``planes = (bits,
+    shift)``: qw is (bits', N, K/32) bit-planes)."""
+    qdim, pack = (2, PACK) if planes is None else (3, PLANE_PACK)
+    qshape = "(N, K/8)" if planes is None else "(bits', N, K/32)"
+    if x.dim() != 2 or qw.dim() != qdim or scale.dim() != 2 or zero.dim() != 2:
         raise ValueError(
-            f"need x (M, K), qw (N, K/8), scale and zero (N, G); got "
+            f"need x (M, K), qw {qshape}, scale and zero (N, G); got "
             f"{tuple(x.shape)}, {tuple(qw.shape)}, {tuple(scale.shape)}, "
             f"{tuple(zero.shape)}")
     m, k = x.shape
-    n = qw.shape[0]
+    n = qw.shape[-2]
     if x.dtype not in _DTYPES:
         raise TypeError(f"x must be bfloat16 or float32, got {x.dtype}")
     if qw.dtype != torch.int32:
@@ -119,15 +173,24 @@ def _check(x, qw, scale, zero, max_m=None):
     if scale.dtype != torch.float32 or zero.dtype != torch.float32:
         raise TypeError(f"scale and zero must be float32, got "
                         f"{scale.dtype}, {zero.dtype}")
-    if m < 1 or k % PACK or qw.shape[1] != k // PACK:
+    if m < 1 or k % pack or qw.shape[-1] != k // pack:
         raise ValueError(f"x {tuple(x.shape)} and qw {tuple(qw.shape)}: need "
-                         f"M >= 1, K % {PACK} == 0 and qw (N, K/{PACK})")
+                         f"M >= 1, K % {pack} == 0 and qw {qshape}")
+    if planes is not None:
+        bits, shift = planes
+        if not 1 <= bits <= min(qw.shape[0], MAX_PLANES):
+            raise ValueError(f"cannot read {bits} planes of a "
+                             f"{qw.shape[0]}-plane buffer (at most "
+                             f"{MAX_PLANES})")
+        if not 0 <= shift <= MAX_SHIFT:
+            raise ValueError(f"draft rescale shift {shift} outside "
+                             f"[0, {MAX_SHIFT}]")
     g = scale.shape[1]
     if scale.shape != (n, g) or zero.shape != (n, g) or g < 1 or k % g:
         raise ValueError(f"scale {tuple(scale.shape)} / zero "
                          f"{tuple(zero.shape)} must be (N={n}, G) with G | K={k}")
     if max_m is not None and m > max_m:
-        raise ValueError(f"quant_gemv takes M <= {max_m} rows, got {m}")
+        raise ValueError(f"the GEMV takes M <= {max_m} rows, got {m}")
     devs = {t.device for t in (x, qw, scale, zero)}
     if len(devs) != 1:
         raise ValueError(f"operands on several devices: {devs}")
@@ -138,7 +201,7 @@ def _check(x, qw, scale, zero, max_m=None):
                          "read it in 16-byte vectors)")
 
 
-def _check_tasks(x, qw, scale_stack, zero_stack, task_ids):
+def _check_tasks(x, qw, scale_stack, zero_stack, task_ids, planes=None):
     """Raise on anything K5 does not take (shapes, dtypes, devices; the id
     values are the caller's to validate on the host)."""
     if scale_stack.dim() != 3 or zero_stack.dim() != 3:
@@ -150,7 +213,8 @@ def _check_tasks(x, qw, scale_stack, zero_stack, task_ids):
     if scale_stack.numel() >= 2 ** 31:
         raise ValueError(f"scale stack {tuple(scale_stack.shape)}: K5 indexes "
                          f"the stacks with 32-bit offsets (T·N·G < 2^31)")
-    _check(x, qw, scale_stack[0], zero_stack[0], max_m=GEMV_MAX_M)
+    _check(x, qw, scale_stack[0], zero_stack[0], max_m=GEMV_MAX_M,
+           planes=planes)
     if task_ids.dtype != torch.int32 or task_ids.dim() != 1:
         raise TypeError(f"task_ids must be (M,) int32, got {task_ids.dtype} "
                         f"{tuple(task_ids.shape)}")
@@ -177,25 +241,28 @@ def _entry(name: str):
     return fn
 
 
-def _launch(name: str, x, qw, scale, zero, task_ids=None):
+def _launch(name: str, x, qw, scale, zero, task_ids=None, planes=None):
     if x.device.type != "cuda":
         raise ValueError(f"{name} runs on CUDA tensors, got {x.device}")
     fn = _entry(name)
     m, k = x.shape
-    n, g = qw.shape[0], scale.shape[-1]
+    n, g = scale.shape[-2], scale.shape[-1]
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     ptrs = [x.data_ptr(), qw.data_ptr(), scale.data_ptr(), zero.data_ptr()]
     dims = [m, n, k, g]
     if task_ids is not None:
         ptrs.append(task_ids.data_ptr())
         dims.append(scale.shape[0])
+    if planes is not None:
+        dims.extend(planes)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(*ptrs, y.data_ptr(), *dims, int(x.dtype == torch.bfloat16),
                 stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc} "
-                           f"(M={m}, N={n}, K={k}, G={g}, {x.dtype})")
+                           f"(M={m}, N={n}, K={k}, G={g}, {x.dtype}"
+                           f"{'' if planes is None else f', planes {planes}'})")
     return y
 
 
@@ -231,6 +298,44 @@ def quant_gemv_tasks(x, qw, scale_stack, zero_stack, task_ids):
     return y
 
 
-quant_gemv.launches = 0
-quant_matmul.launches = 0
-quant_gemv_tasks.launches = 0
+def quant_gemv_planes(x, qw, scale, zero, bits, shift=0):
+    """K6a, K1's plane branch: y = x @ Ŵᵀ for M ≤ 32 rows, Ŵ from the top
+    ``bits`` planes of qw under scale·2^shift, zero/2^shift."""
+    _check(x, qw, scale, zero, max_m=GEMV_MAX_M, planes=(bits, shift))
+    if x.device.type == "cpu":
+        return quant_matmul_planes_plain(x, qw, scale, zero, bits, shift)
+    y = _launch("quant_gemv_planes", x, qw, scale, zero, planes=(bits, shift))
+    quant_gemv_planes.launches += 1
+    return y
+
+
+def quant_matmul_planes(x, qw, scale, zero, bits, shift=0):
+    """K6a, K2's plane branch: the tiled GEMM on the top ``bits`` planes."""
+    _check(x, qw, scale, zero, planes=(bits, shift))
+    if x.device.type == "cpu":
+        return quant_matmul_planes_plain(x, qw, scale, zero, bits, shift)
+    y = _launch("quant_matmul_planes", x, qw, scale, zero,
+                planes=(bits, shift))
+    quant_matmul_planes.launches += 1
+    return y
+
+
+def quant_gemv_tasks_planes(x, qw, scale_stack, zero_stack, task_ids, bits,
+                            shift=0):
+    """K6a, K5's plane branch: per-row task scales over the top ``bits``
+    planes."""
+    _check_tasks(x, qw, scale_stack, zero_stack, task_ids,
+                 planes=(bits, shift))
+    if x.device.type == "cpu":
+        return quant_matmul_tasks_planes_plain(x, qw, scale_stack, zero_stack,
+                                               task_ids, bits, shift)
+    y = _launch("quant_gemv_tasks_planes", x, qw, scale_stack, zero_stack,
+                task_ids, planes=(bits, shift))
+    quant_gemv_tasks_planes.launches += 1
+    return y
+
+
+KERNELS = (quant_gemv, quant_matmul, quant_gemv_tasks, quant_gemv_planes,
+           quant_matmul_planes, quant_gemv_tasks_planes)
+for _k in KERNELS:
+    _k.launches = 0

@@ -7,14 +7,16 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.quant import QuantSpec, unpack_codes
+from repro_torch.core.quant import QuantSpec, unpack_codes, unpack_codes_planes
 
 
 def dequant_ref(qw, scale, zero, shape, spec: QuantSpec, dtype=torch.bfloat16):
-    """Ŵ = s·(q−z) from packed nibble codes. shape = logical (n, m)."""
+    """Ŵ = s·(q−z) from packed codes — nibble words, or the top
+    ``spec.bits`` planes of a bit-plane buffer. shape = logical (n, m)."""
     spec.check_ported()
     n, m = shape
-    codes = unpack_codes(qw, m)
+    codes = unpack_codes_planes(qw, m, spec.bits) if spec.plane \
+        else unpack_codes(qw, m)
     g = scale.shape[-1]
     qg = codes.reshape(n, g, m // g).to(torch.float32)
     w = scale[..., None].to(torch.float32) * (

@@ -42,14 +42,16 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device) -> dict:
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def _qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig, slots=None):
+def _qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig, slots=None,
+         draft_bits=None):
     b, s, _ = x.shape
     dh = cfg.d_head
-    ent = lambda name: linear.slot_entry(slots, name)
-    q = linear.apply(p.wq, x, slots=ent("wq")).reshape(b, s, cfg.n_heads, dh)
-    k = linear.apply(p.wk, x, slots=ent("wk")).reshape(b, s, cfg.n_kv_heads, dh)
-    v = linear.apply(p.wv, x, slots=ent("wv")).reshape(b, s, cfg.n_kv_heads, dh)
-    return q, k, v
+
+    def proj(lin, name, heads):
+        return linear.apply(lin, x, slots=linear.slot_entry(slots, name),
+                            draft_bits=draft_bits).reshape(b, s, heads, dh)
+    return (proj(p.wq, "wq", cfg.n_heads), proj(p.wk, "wk", cfg.n_kv_heads),
+            proj(p.wv, "wv", cfg.n_kv_heads))
 
 
 def _rope_decode(cfg: ModelConfig, pos, s: int, device):
@@ -86,19 +88,20 @@ def _cache_write(buf: torch.Tensor, val: torch.Tensor, pos) -> None:
 
 def apply_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig,
                  cache_k: torch.Tensor, cache_v: torch.Tensor, pos, rope,
-                 slots=None):
+                 slots=None, draft_bits=None):
     """Decode step of S ≥ 1 tokens: x (B, S, d); cache (B, C, Hkv, D); pos
     an int or a (B,) per-slot position tensor; rope:
     ``_rope_decode(cfg, pos, S, device)``.
 
     slots: optional (task_ids, stacked-scale subtree) — mixed-task decode
-    reads per-slot scale rows in every quantized linear (linear.apply).
+    reads per-slot scale rows in every quantized linear (linear.apply);
+    draft_bits: the speculative draft's plane read width.
 
     The new K/V rows go into ``cache_k``/``cache_v`` in place
     (``_cache_write``).  Returns (out (B, S, d_model), cache_k, cache_v).
     """
     b, s, _ = x.shape
-    q, k, v = _qkv(p, x, cfg, slots=slots)
+    q, k, v = _qkv(p, x, cfg, slots=slots, draft_bits=draft_bits)
     per_slot = torch.is_tensor(pos) and pos.dim() == 1
     rot = apply_rope_slots if per_slot else apply_rope
     q, k = rot(q, rope), rot(k, rope)
@@ -107,7 +110,8 @@ def apply_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     # visible = slots with index <= query position
     o = ops.attention(q, cache_k, cache_v, causal=True, offset=pos)
     o = o.reshape(b, s, cfg.n_heads * cfg.d_head)
-    out = linear.apply(p.wo, o, slots=linear.slot_entry(slots, "wo"))
+    out = linear.apply(p.wo, o, slots=linear.slot_entry(slots, "wo"),
+                       draft_bits=draft_bits)
     return out, cache_k, cache_v
 
 

@@ -96,13 +96,15 @@ class MLP(nn.Module):
 
 
 def mlp_apply(p: MLP, x: torch.Tensor, cfg: ModelConfig,
-              slots=None) -> torch.Tensor:
+              slots=None, draft_bits=None) -> torch.Tensor:
     """slots: optional (task_ids, stacked-scale subtree) for the mixed-task
-    forward — threaded into each quantized linear (see linear.apply)."""
-    up = linear.apply(p.up, x, slots=linear.slot_entry(slots, "up"))
-    gate = linear.apply(p.gate, x, slots=linear.slot_entry(slots, "gate"))
+    forward; draft_bits: the speculative draft's plane read width — both
+    threaded into each quantized linear (see linear.apply)."""
+    ent = lambda name: linear.slot_entry(slots, name)
+    up = linear.apply(p.up, x, slots=ent("up"), draft_bits=draft_bits)
+    gate = linear.apply(p.gate, x, slots=ent("gate"), draft_bits=draft_bits)
     h = F.silu(gate) * up
-    return linear.apply(p.down, h, slots=linear.slot_entry(slots, "down"))
+    return linear.apply(p.down, h, slots=ent("down"), draft_bits=draft_bits)
 
 
 # ---------------------------------------------------------------------------
@@ -132,7 +134,8 @@ def embed_apply(p: Embed, tokens: torch.Tensor, cfg: ModelConfig
 
 
 def head_apply(lm_head: Optional[linear.Linear], p_embed: Embed,
-               x: torch.Tensor, cfg: ModelConfig, slots=None) -> torch.Tensor:
+               x: torch.Tensor, cfg: ModelConfig, slots=None,
+               draft_bits=None) -> torch.Tensor:
     """Logits in float32 (the reference's preferred_element_type=f32): the
     tied head multiplies the activation-dtype operands exactly and sums in
     float32.  On the card a bf16 head is one bf16 GEMM with a float32
@@ -145,4 +148,5 @@ def head_apply(lm_head: Optional[linear.Linear], p_embed: Embed,
                          out_dtype=torch.float32)
             return y.reshape(*x.shape[:-1], emb.shape[0])
         return torch.matmul(x.to(torch.float32), emb.to(torch.float32).T)
-    return linear.apply(lm_head, x, slots=slots).to(torch.float32)
+    return linear.apply(lm_head, x, slots=slots,
+                        draft_bits=draft_bits).to(torch.float32)

@@ -7,7 +7,8 @@ storage mode is which of them exist (biases come with the families that
 have them):
 
   fp   : w (out, in) float32
-  peqa : qw (out, in/8) int32 words (a buffer: the codes are frozen),
+  peqa : qw (a buffer: the codes are frozen) — (out, in/8) int32 nibble
+         words, or (bits, out, in/32) int32 bit-planes —,
          scale (out, G), zero (out, G) float32
 
 ``core/peqa.py`` turns fp into peqa in place (``set_quantized``); model code
@@ -52,6 +53,14 @@ class Linear(nn.Module):
         self.zero = nn.Parameter(zero, requires_grad=False)
         self.spec = spec
 
+    def set_dense(self, w: torch.Tensor) -> None:
+        """Replace the PEQA form by the float weight ``w`` (in place)."""
+        for name in ("scale", "zero"):
+            del self._parameters[name]
+        del self._buffers["qw"]
+        self.w = nn.Parameter(w)
+        self.spec = None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return apply(self, x)
 
@@ -71,20 +80,29 @@ def slot_entry(slots, name: str):
     return task_ids, subtree[name]
 
 
-def apply(p: Linear, x: torch.Tensor, slots=None) -> torch.Tensor:
+def apply(p: Linear, x: torch.Tensor, slots=None,
+          draft_bits: Optional[int] = None) -> torch.Tensor:
     """y = x Wᵀ in x's dtype, storage-mode dispatched.
 
     slots: optional ``(task_ids (M,), {"scale": (T, out, G), "zero": …})``
     for the mixed-task forward — each of the M rows of x (flattened
     leading dims) reads the scale row its slot's task owns.  Ignored for
-    the fp storage mode."""
+    the fp storage mode.
+
+    draft_bits: the self-speculative draft's read width p — a bit-plane
+    linear reads the top p planes of its own buffer under scales rescaled
+    by 2^(b−p) (``core.quant.draft_scales``, applied as the kernel reads
+    them: the live scales, never a stale copy).  Ignored for the fp storage
+    mode, as the reference's draft rescales only PEQA linears."""
     if p.quantized:
         if slots is not None and isinstance(slots[1], dict) \
                 and "scale" in slots[1]:
             task_ids, stack = slots
             return ops.quant_matmul_slotted(x, p.qw, stack["scale"],
-                                            stack["zero"], task_ids, p.spec)
-        return ops.quant_matmul(x, p.qw, p.scale, p.zero, p.spec)
+                                            stack["zero"], task_ids, p.spec,
+                                            draft_bits=draft_bits)
+        return ops.quant_matmul(x, p.qw, p.scale, p.zero, p.spec,
+                                draft_bits=draft_bits)
     # the reference's einsum with float32 accumulation
     return torch.matmul(x.to(torch.float32),
                         p.w.to(x.dtype).to(torch.float32).T).to(x.dtype)

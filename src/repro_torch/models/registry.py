@@ -1,10 +1,10 @@
 """Model registry (port of ``repro/models/registry.py``: ``FamilyCaps``,
 ``ModelAPI`` and ``build``'s dense branch).
 
-``build(cfg)`` returns a ``ModelAPI`` with the functions the server calls.
+``build(cfg)`` returns a ``ModelAPI`` with the functions the server calls,
+the speculative ``decode_verify`` and ``decode_verify_slotted`` among them.
 Configurations the port does not serve yet raise here, at build time,
-instead of computing something else.  ``decode_verify`` (speculative
-decoding) comes with the bit-plane slice.
+instead of computing something else.
 """
 from __future__ import annotations
 
@@ -29,9 +29,12 @@ class FamilyCaps:
         gather) is sound: padded rows stay causally invisible.
       * ``slotted_reason`` — why ``decode_step_slotted`` is None (the
         resident scheduler's refusal message); None = supported.
+      * ``verify_reason`` — why ``decode_verify`` is unusable (the
+        speculative scheduler's refusal message); None = supported.
     """
     bucketable: bool = False
     slotted_reason: Optional[str] = None
+    verify_reason: Optional[str] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,14 +43,21 @@ class ModelAPI:
     device: torch.device
     init: Callable            # (seed) -> Transformer on device
     prefill: Callable         # (model, batch) -> (last_logits, cache)
-    decode_step: Callable     # (model, cache, tokens, pos) -> (logits, cache)
+    # (model, cache, tokens, pos, draft_bits=None) -> (logits, cache)
+    decode_step: Callable
     init_cache: Callable      # (batch, seq_len) -> cache
-    # (model, task_stack, cache, tokens, pos (B,), task_ids) -> (logits,
-    # cache): mixed-task decode against (T, …)-stacked scales
+    # (model, task_stack, cache, tokens, pos (B,), task_ids,
+    # draft_bits=None) -> (logits, cache): mixed-task decode against
+    # (T, …)-stacked scales
     decode_step_slotted: Optional[Callable] = None
     # (model, task_stack, batch, task_ids) -> (last_logits, cache): prefill
     # reading per-row scales from the resident stack
     prefill_slotted: Optional[Callable] = None
+    # (model, cache, tokens (B, S), pos (B,)) -> (logits (B, S, V), cache):
+    # score S tokens in one pass for speculative verify
+    decode_verify: Optional[Callable] = None
+    # slotted variant (+ task_stack, task_ids)
+    decode_verify_slotted: Optional[Callable] = None
     caps: Optional[FamilyCaps] = None
 
 
@@ -88,14 +98,19 @@ def build(cfg: ModelConfig, device=None) -> ModelAPI:
         init=init,
         prefill=lambda m, batch: transformer.prefill(
             m, batch["tokens"], cfg, last_pos=batch.get("last_pos")),
-        decode_step=lambda m, c, t, pos: transformer.decode_step(
-            m, c, t, pos, cfg),
+        decode_step=lambda m, c, t, pos, draft_bits=None:
+            transformer.decode_step(m, c, t, pos, cfg, draft_bits=draft_bits),
         init_cache=lambda b, s: attention.init_cache(cfg, b, s, dev),
-        decode_step_slotted=lambda m, st, c, t, pos, tid:
+        decode_step_slotted=lambda m, st, c, t, pos, tid, draft_bits=None:
             transformer.decode_step(m, c, t, pos, cfg, task_stack=st,
-                                    task_ids=tid),
+                                    task_ids=tid, draft_bits=draft_bits),
         prefill_slotted=lambda m, st, batch, tid: transformer.prefill(
             m, batch["tokens"], cfg, last_pos=batch.get("last_pos"),
             task_stack=st, task_ids=tid),
+        decode_verify=lambda m, c, t, pos: transformer.decode_verify(
+            m, c, t, pos, cfg),
+        decode_verify_slotted=lambda m, st, c, t, pos, tid:
+            transformer.decode_verify(m, c, t, pos, cfg, task_stack=st,
+                                      task_ids=tid),
         caps=FamilyCaps(bucketable=True),
     )

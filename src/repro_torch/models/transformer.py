@@ -1,6 +1,7 @@
 """Decoder-only transformer backbone, dense family (port of
-``repro/models/transformer.py``: ``init``, ``prefill`` and ``decode_step``,
-each with the reference's mixed-task ``task_stack``/``task_ids`` form).
+``repro/models/transformer.py``: ``init``, ``prefill``, ``decode_step`` and
+the speculative ``decode_verify``, each with the reference's mixed-task
+``task_stack``/``task_ids`` form).
 
 Layers are a ``ModuleList`` of per-layer blocks and run in a Python loop
 (the reference stacks them and scans).  ``bridge.py`` converts between the
@@ -51,9 +52,10 @@ def init(cfg: ModelConfig, generator: torch.Generator, device) -> Transformer:
 
 
 def _final_logits(model: Transformer, h: torch.Tensor, cfg: ModelConfig,
-                  slots=None):
+                  slots=None, draft_bits=None):
     h = common.norm_apply(model.final_norm, h, cfg)
-    return common.head_apply(model.lm_head, model.embed, h, cfg, slots=slots)
+    return common.head_apply(model.lm_head, model.embed, h, cfg, slots=slots,
+                             draft_bits=draft_bits)
 
 
 def _layer_stack(tree, i: int):
@@ -108,9 +110,41 @@ def prefill(model: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
     return logits[:, 0], {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
+def _decode_tokens(model: Transformer, cache: dict, tokens: torch.Tensor,
+                   pos, cfg: ModelConfig, task_stack: dict | None = None,
+                   task_ids: torch.Tensor | None = None, draft_bits=None):
+    """Shared decode body: tokens (B, S) at positions pos..pos+S-1 (per
+    slot when pos is (B,)), K/V written into ``cache`` in place.  Returns
+    (logits (B, S, V) f32, cache)."""
+    h = common.embed_apply(model.embed, tokens, cfg)
+    rope = attention._rope_decode(cfg, pos, h.shape[1], h.device)
+    slotted = task_stack is not None
+    if slotted and tokens.shape[1] > 1:
+        # quantized linears flatten (B, S, d) row-major to M = B·S rows —
+        # repeat each slot's task id per token to match
+        task_ids = task_ids.repeat_interleave(tokens.shape[1])
+    for i, layer in enumerate(model.layers):
+        slots = (task_ids, _layer_stack(task_stack["layers"], i)) \
+            if slotted else None
+        a, _, _ = attention.apply_decode(
+            layer.attn, common.norm_apply(layer.ln1, h, cfg), cfg,
+            cache["k"][i], cache["v"][i], pos, rope,
+            slots=linear.slot_entry(slots, "attn"), draft_bits=draft_bits)
+        h = h + a
+        h = h + common.mlp_apply(layer.mlp,
+                                 common.norm_apply(layer.ln2, h, cfg), cfg,
+                                 slots=linear.slot_entry(slots, "mlp"),
+                                 draft_bits=draft_bits)
+    head_slots = linear.slot_entry((task_ids, task_stack), "lm_head") \
+        if slotted else None
+    return _final_logits(model, h, cfg, slots=head_slots,
+                         draft_bits=draft_bits), cache
+
+
 def decode_step(model: Transformer, cache: dict, tokens: torch.Tensor,
                 pos, cfg: ModelConfig, task_stack: dict | None = None,
-                task_ids: torch.Tensor | None = None):
+                task_ids: torch.Tensor | None = None,
+                draft_bits: int | None = None):
     """One decode step: tokens (B, 1) at ``pos``, the next position — an
     int, or a (B,) tensor with each slot's own position (the slot pool).
     Writes the step's K/V into ``cache`` in place.
@@ -120,22 +154,30 @@ def decode_step(model: Transformer, cache: dict, tokens: torch.Tensor,
     per-slot scales in the kernel instead of the pool draining for a scale
     swap.
 
+    draft_bits: the self-speculative draft — every bit-plane linear reads
+    only its top ``draft_bits`` planes under rescaled scales (the
+    reference's draft API built from ``quant.bits = draft_bits``).
+
     Returns (logits (B, V) f32, cache).
     """
-    h = common.embed_apply(model.embed, tokens, cfg)
-    rope = attention._rope_decode(cfg, pos, h.shape[1], h.device)
-    slotted = task_stack is not None
-    for i, layer in enumerate(model.layers):
-        slots = (task_ids, _layer_stack(task_stack["layers"], i)) \
-            if slotted else None
-        a, _, _ = attention.apply_decode(
-            layer.attn, common.norm_apply(layer.ln1, h, cfg), cfg,
-            cache["k"][i], cache["v"][i], pos, rope,
-            slots=linear.slot_entry(slots, "attn"))
-        h = h + a
-        h = h + common.mlp_apply(layer.mlp,
-                                 common.norm_apply(layer.ln2, h, cfg), cfg,
-                                 slots=linear.slot_entry(slots, "mlp"))
-    head_slots = linear.slot_entry((task_ids, task_stack), "lm_head") \
-        if slotted else None
-    return _final_logits(model, h, cfg, slots=head_slots)[:, 0], cache
+    logits, cache = _decode_tokens(model, cache, tokens, pos, cfg,
+                                   task_stack, task_ids, draft_bits)
+    return logits[:, 0], cache
+
+
+def decode_verify(model: Transformer, cache: dict, tokens: torch.Tensor,
+                  pos, cfg: ModelConfig, task_stack: dict | None = None,
+                  task_ids: torch.Tensor | None = None):
+    """Speculative verify: score S = k+1 tokens in ONE target pass.
+
+    tokens (B, S) = [next-input, draft_1..draft_k]; row b's token s sits at
+    absolute position pos[b] + s, writing cache rows pos[b]..pos[b]+S-1
+    (the draft's provisional rows are overwritten with target K/V).  Row s
+    of the returned logits is the target's next-token distribution after
+    consuming tokens[:, :s+1].  Stale cache rows beyond the accepted prefix
+    are never visible: the causal mask keys on absolute position.
+
+    Returns (logits (B, S, V) f32, cache).
+    """
+    return _decode_tokens(model, cache, tokens, pos, cfg, task_stack,
+                          task_ids)

@@ -1,8 +1,5 @@
 """``ServeConfig`` — the one serving-policy surface (copy of
 ``repro/serve/config.py``: every field and every check).
-
-``scheduler="speculative"`` is accepted here, as in the reference, and
-refused by ``Engine.serve`` until the bit-plane slice is ported.
 """
 from __future__ import annotations
 

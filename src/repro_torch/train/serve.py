@@ -19,10 +19,14 @@ One quantized integer backbone, per-task scales from a ``ScaleBank``:
     device stacked (T, N, G); every quantized linear reads each row's task
     in the kernel — K5 for decode, K2 per task for the prefill — so
     admission never waits on a task).
+  * self-speculative decoding (``scheduler="speculative"``, ``spec_step``)
+    on a bit-plane backbone: each pool step is a round of ``spec_k`` draft
+    steps that read the top ``draft_bits`` planes of the target's own
+    codes, then one target verify of the k+1 tokens; the emitted tokens
+    are the target's greedy tokens.
 
-Not ported: the mesh arguments (``ctx``, ``logitshard``), the deprecated
-keyword form of ``serve`` (it takes a ``ServeConfig``), and
-``scheduler="speculative"``, which needs the bit-plane slice.
+Not ported: the mesh arguments (``ctx``, ``logitshard``) and the deprecated
+keyword form of ``serve`` (it takes a ``ServeConfig``).
 """
 from __future__ import annotations
 
@@ -84,6 +88,7 @@ class SlotPool:
         # outputs instead of uploading the host mirrors again
         self._dev = None
         self.steps = 0                 # pool steps (idle clock jumps too)
+        self.draft_steps = 0           # speculative draft steps executed
         self.decoded = 0               # useful tokens decoded
         self.bubble_slot_steps = 0     # slot-steps spent on FINISHED seqs
         self.idle_slot_steps = 0       # inactive slot-steps while work waited
@@ -358,6 +363,135 @@ class Engine:
         pool.idle_slot_steps += pool.n_slots - pool.n_active()
         return nxt
 
+    # ----------------------------------------------------- speculative decode
+    def _spec_supported(self) -> Optional[str]:
+        """None when the self-speculative scheduler can run, else the reason
+        it cannot.  The gates are the assumptions the round's KV
+        bookkeeping rests on: a dense (non-ring) cache whose row index IS
+        the absolute position (stale rows past the accepted prefix stay
+        causally invisible and are rewritten before any query reaches
+        them), a full-precision KV store, and a bit-plane backbone (the
+        draft is a prefix READ of the same codes)."""
+        cfg = self.api.cfg
+        caps = self.api.caps
+        if caps is not None and caps.verify_reason is not None:
+            return caps.verify_reason
+        if self.api.decode_verify is None:
+            return "family has no multi-token verify step (decode_verify)"
+        if cfg.moe is not None:
+            return "MoE expert dispatch is not supported in the verify step"
+        if cfg.swa_window is not None:
+            return ("sliding-window ring cache: rejected draft rows would "
+                    "alias committed slots")
+        if cfg.kv_cache_dtype != "model":
+            return ("quantized KV cache: verify re-quantization drifts "
+                    "from the greedy trajectory")
+        if cfg.quant.layout != "plane":
+            return ("draft needs bit-plane packed codes "
+                    "(QuantConfig(layout='plane'))")
+        return None
+
+    def _resolve_draft_bits(self, cfg: ServeConfig) -> int:
+        bits = self.api.cfg.quant.bits
+        db = bits - 1 if cfg.draft_bits is None else int(cfg.draft_bits)
+        if not 1 <= db < bits:
+            raise ValueError(
+                f"draft_bits={db} must be in [1, {bits - 1}] for a "
+                f"{bits}-bit backbone (the draft reads a strict prefix of "
+                f"the bit-planes)")
+        return db
+
+    def _spec_round(self, pool: SlotPool, tok, pos, act, tid, spec_k: int,
+                    draft_bits: int):
+        """One speculative round on the device: ``spec_k`` greedy draft
+        steps through the ``draft_bits``-bit plane prefix, then ONE target
+        verify over the k+1 tokens [next-input, d_1..d_k].
+
+        The draft view is the decode step with ``draft_bits``: every plane
+        linear reads the top planes of its own buffer and rescales the live
+        scales (or the resident stack's rows) as the kernel reads them —
+        no copy of the codes, and no draft scales that a task switch or a
+        row install could leave stale.
+
+        Cache discipline: draft step j writes PROVISIONAL draft K/V at row
+        pos+j and attends rows ≤ pos+j; the verify overwrites rows
+        pos..pos+k with target K/V.  After acceptance the host advances pos
+        by a+1 ≤ k+1, so the stale suffix rows sit above every live
+        position and the causal mask hides them until a later round
+        rewrites them.  Argmax and acceptance stay on the device.
+
+        Returns ``(g (B, k+1), acc (B,))``: row b of ``g`` = the target's
+        greedy tokens, ``acc`` = the accepted draft count (the host emits
+        ``g[:acc+1]``)."""
+        model, api = self.model, self.api
+        stack = self.resident.stack if pool.slotted else None
+        argmax = sampling.shard_argmax(None, pool.n_slots)
+        seq = [tok]
+        t = tok
+        for j in range(spec_k):
+            if pool.slotted:
+                lg, pool.cache = api.decode_step_slotted(
+                    model, stack, pool.cache, t, pos + j, tid,
+                    draft_bits=draft_bits)
+            else:
+                lg, pool.cache = api.decode_step(model, pool.cache, t,
+                                                 pos + j,
+                                                 draft_bits=draft_bits)
+            t = argmax(lg)[:, None]
+            seq.append(t)
+        seq = torch.cat(seq, dim=1)                       # (B, k+1)
+        if pool.slotted:
+            logits, pool.cache = api.decode_verify_slotted(
+                model, stack, pool.cache, seq, pos, tid)
+        else:
+            logits, pool.cache = api.decode_verify(model, pool.cache, seq,
+                                                   pos)
+        g = torch.argmax(logits, dim=-1)                  # (B, k+1)
+        g = torch.where(act[:, None], g, 0)
+        match = (seq[:, 1:] == g[:, :-1]).to(torch.int64)
+        acc = torch.where(act, torch.cumprod(match, dim=1).sum(dim=1), 0)
+        return g, acc
+
+    @torch.no_grad()
+    def spec_step(self, pool: SlotPool, spec_k: int,
+                  draft_bits: int) -> np.ndarray:
+        """One speculative round over the pool.  Every active slot proposes
+        ``spec_k`` draft tokens and commits 1..spec_k+1 target tokens
+        (capped by its remaining budget and EOS).  ``pool.steps`` counts
+        ONE target step per round; ``pool.draft_steps`` accrues the draft
+        work.  Returns the (n_slots, spec_k+1) greedy target tokens."""
+        if pool.n_active() == 0:
+            raise ValueError("spec_step: no active slot (admit first)")
+        tok, pos, act, tid = self._pool_inputs(pool)
+        g, acc = self._spec_round(pool, tok, pos, act, tid, spec_k,
+                                  draft_bits)
+        both = torch.cat([g, acc[:, None]], dim=1).cpu().numpy()  # one sync
+        g, acc = both[:, :-1], both[:, -1]
+        pool.steps += 1
+        pool.draft_steps += spec_k
+        pool._dev = None          # per-slot advance is data-dependent
+        for slot in np.flatnonzero(pool.active):
+            meta = pool.meta[slot]
+            req = meta["request"]
+            out = meta["out"]
+            if self._slot_done(pool, slot):
+                pool.bubble_slot_steps += 1
+                continue
+            take = min(int(acc[slot]) + 1, int(req.n_new) - len(out))
+            toks = [int(x) for x in g[slot, :take]]
+            if req.eos_id is not None and req.eos_id in toks:
+                toks = toks[:toks.index(req.eos_id) + 1]
+                take = len(toks)
+            meta["draft_proposed"] = meta.get("draft_proposed", 0) + spec_k
+            meta["draft_accepted"] = (meta.get("draft_accepted", 0)
+                                      + int(acc[slot]))
+            out.extend(toks)
+            pool.pos[slot] += take
+            pool.tok[slot] = toks[-1]
+            pool.decoded += take
+        pool.idle_slot_steps += pool.n_slots - pool.n_active()
+        return g
+
     def _resident_supported(self, requests: Sequence[Request]) -> bool:
         """Can the RESIDENT scheduler run this workload?  Needs a ScaleBank,
         a family with slotted decode and prefill, and every request tasked
@@ -401,7 +535,14 @@ class Engine:
             same way.
           * ``"auto"`` — ``resident`` when supported (a bank, a slotted
             family, every request tasked), ``drain`` otherwise.
-          * ``"speculative"`` — not ported yet (raises).
+          * ``"speculative"`` — each pool step is a self-speculative round
+            (``spec_step``): ``config.spec_k`` draft tokens from the
+            ``config.draft_bits``-bit plane prefix of the shared backbone,
+            then one multi-token target verify.  The emitted tokens are
+            the target's greedy tokens; only the step count changes.  The
+            task policy composes like ``"auto"``.  Needs a bit-plane
+            backbone and a family with ``decode_verify``
+            (``_spec_supported``).
 
         Requesting ``"resident"`` on an unsupported workload raises;
         ``report.scheduler`` records the policy that ran.
@@ -410,13 +551,18 @@ class Engine:
             raise TypeError(f"serve needs a ServeConfig, got "
                             f"{type(config).__name__}")
         cfg = config
-        if cfg.scheduler == "speculative":
-            raise NotImplementedError(
-                "scheduler='speculative' is not ported yet: it needs the "
-                "bit-plane codes and the multi-token verify step (slice 4)")
         requests = list(requests)
+        use_spec = cfg.scheduler == "speculative"
+        if use_spec:
+            reason = self._spec_supported()
+            if reason is not None:
+                raise ValueError(
+                    f"scheduler='speculative' unsupported here: {reason}")
+            spec_bits = self._resolve_draft_bits(cfg)
         use_resident = (cfg.scheduler != "drain"
-                        and self._resident_supported(requests))
+                        and self._resident_supported(requests)
+                        and not (use_spec
+                                 and self.api.decode_verify_slotted is None))
         if cfg.scheduler == "resident" and not use_resident:
             caps = self.api.caps
             missing = ("no ScaleBank attached" if self.bank is None
@@ -427,8 +573,16 @@ class Engine:
                        else "not every request names a task")
             raise ValueError(f"scheduler='resident' unsupported here: "
                              f"{missing}")
-        sched_name = "resident" if use_resident else "drain"
+        sched_name = ("speculative" if use_spec
+                      else "resident" if use_resident else "drain")
         step_s, admit_cost = cfg.step_s, cfg.admit_cost_s
+        if use_spec:
+            # one round = spec_k draft steps + one verify.  A draft step's
+            # weight traffic is draft_bits/bits of a target step's (a
+            # prefix read of the same planes), and the verify streams the
+            # weights once regardless of k
+            round_s = step_s * (1.0 + cfg.spec_k * spec_bits
+                                / self.api.cfg.quant.bits)
         metrics = [RequestMetrics(rid=i, task=r.task,
                                   arrival_s=r.arrival_time(step_s),
                                   n_prompt=r.n_prompt,
@@ -440,6 +594,12 @@ class Engine:
         eff_cache_len = cfg.cache_len
         if eff_cache_len is None:
             eff_cache_len = max(r.n_prompt + int(r.n_new) for r in requests)
+        if use_spec:
+            # rollback headroom: a round starting at the final needed
+            # position still writes spec_k provisional rows past it —
+            # without the margin the cache write's clamp would shift those
+            # writes onto committed rows
+            eff_cache_len += cfg.spec_k
         if use_resident:
             resident = self._ensure_resident(cfg.resident_tasks)
             installs0 = resident.installs
@@ -490,6 +650,8 @@ class Engine:
         def finish_slot(slot: int) -> None:
             meta = pool.meta[slot]
             m = metrics[meta["rid"]]
+            m.draft_proposed = meta.get("draft_proposed", 0)
+            m.draft_accepted = meta.get("draft_accepted", 0)
             m.tokens = [int(t) for t in self.evict(pool, slot)]
             m.status = SERVED
             m.finish_s = now
@@ -660,8 +822,12 @@ class Engine:
                 now += k * step_s
                 continue
             n_act = pool.n_active()
-            self.step(pool)
-            now += step_s
+            if use_spec:
+                self.spec_step(pool, cfg.spec_k, spec_bits)
+                now += round_s
+            else:
+                self.step(pool)
+                now += step_s
             if blocked_by_task:
                 # the free slots this step could have hosted the blocked
                 # request — the drain tax the resident scheduler deletes
@@ -675,6 +841,7 @@ class Engine:
             idle_slot_steps=pool.idle_slot_steps,
             switches=switches, wall_s=time.perf_counter() - t0,
             task_drain_idle_slot_steps=pool.task_drain_idle_slot_steps,
+            draft_steps=pool.draft_steps,
             resident_installs=(resident.installs - installs0
                                if use_resident else 0),
             prefill_compiles=len(pool._prefill_keys),

@@ -134,7 +134,7 @@ def test_forced_torch_impl_and_unknown_impl():
     assert ops.default_impl() == "cuda"
 
 
-@pytest.mark.parametrize("spec", [QuantSpec(layout="plane"),
+@pytest.mark.parametrize("spec", [QuantSpec(layout="plane", bits=5),
                                   QuantSpec(packed=False),
                                   QuantSpec(bits=8)])
 def test_unported_specs_raise(spec):

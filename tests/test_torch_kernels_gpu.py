@@ -9,12 +9,16 @@ imports only torch and the port, so it also runs on a machine without JAX:
 Tolerance: ``quant_matmul.error_bound`` (two float32 summation orders, plus
 one bf16 ulp for bf16 outputs).  K5 (``quant_gemv_tasks``) is held to its
 plain version within that bound and to K1 bit for bit: each of its rows
-must equal K1's row under that row's task scales.
+must equal K1's row under that row's task scales.  K6a (the ``*_planes``
+kernels) is held to its plain version within that bound and to its nibble
+kernel bit for bit: reading the top p of b' planes under ``shift = b' − p``
+must equal the nibble kernel on ``q >> shift`` under ``draft_scales``.
 """
 import pytest
 import torch
 
-from repro_torch.core.quant import QuantSpec, pack_codes, rtn_quantize
+from repro_torch.core.quant import (QuantSpec, draft_scales, pack_codes,
+                                    pack_codes_planes, rtn_quantize)
 from repro_torch.kernels import ops
 from repro_torch.kernels import quant_matmul as qm
 
@@ -138,3 +142,76 @@ def test_slotted_cuda_tensors_never_take_plain_version(cuda, monkeypatch):
         ids = torch.arange(m, dtype=torch.int32, device=cuda) % 3
         ops.quant_matmul_slotted(x, qw, ss, zs, ids, QuantSpec())
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("group", [None, 128, 12])
+@pytest.mark.parametrize("bits,p", [(4, 4), (4, 3), (4, 2), (4, 1), (3, 3),
+                                    (3, 2)])
+@pytest.mark.parametrize("m", [1, 2, 4, 8, 16, 32, 33, 256])
+def test_plane_kernels_bitwise_nibble_and_within_bound(cuda, m, bits, p,
+                                                       group, dtype):
+    """K6a at M <= 32 (the GEMV, and its task form over 3 tasks) and above
+    (the GEMM), ragged N (100); groups of 12 straddle packed words (the
+    GEMV's per-code path)."""
+    k = 288 if group == 12 else 512
+    g = torch.Generator().manual_seed(31 * m + 7 * p + k)
+    w = torch.randn(100, k, generator=g) * k ** -0.5
+    q, s, z = rtn_quantize(w, QuantSpec(bits=bits, group_size=group), n_grid=4)
+    x = torch.randn(m, k, generator=g).to(dtype)
+    shift = bits - p
+    sd, zd = draft_scales(s, z, bits, p)
+    x, planes, s, z, sd, zd, nib = (
+        t.to(cuda).contiguous()
+        for t in (x, pack_codes_planes(q, bits), s, z, sd, zd,
+                  pack_codes(q >> shift)))
+    gemv = m <= qm.GEMV_MAX_M
+    fn, nfn = ((qm.quant_gemv_planes, qm.quant_gemv) if gemv
+               else (qm.quant_matmul_planes, qm.quant_matmul))
+    before = fn.launches
+    got = fn(x, planes, s, z, p, shift)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert torch.equal(got, nfn(x, nib, sd, zd))
+    plain = qm.quant_matmul_planes_plain(x, planes, s, z, p, shift)
+    err = (got.float() - plain.float()).abs()
+    assert torch.isfinite(got).all()
+    assert (err <= qm.error_bound(x, planes, s, z, plain,
+                                  planes=(p, shift))).all()
+    if not gemv:
+        return
+    ss, zs = _task_stacks(3, s, z, seed=m + p)
+    ids = torch.tensor([(3 * i + 1) % 3 for i in range(m)], dtype=torch.int32,
+                       device=cuda)
+    got = qm.quant_gemv_tasks_planes(x, planes, ss, zs, ids, p, shift)
+    sdd, zdd = draft_scales(ss, zs, bits, p)
+    assert torch.equal(got, qm.quant_gemv_tasks(x, nib, sdd.contiguous(),
+                                                zdd.contiguous(), ids))
+    plain = qm.quant_matmul_tasks_planes_plain(x, planes, ss, zs, ids, p,
+                                               shift)
+    err = (got.float() - plain.float()).abs()
+    assert (err <= qm.error_bound(x, planes, ss, zs, plain, task_ids=ids,
+                                  planes=(p, shift))).all()
+
+
+@pytest.mark.gpu
+def test_plane_ops_never_take_plain_version_and_refuse_short_buffers(
+        cuda, monkeypatch):
+    monkeypatch.setattr(qm, "quant_matmul_planes_plain",
+                        lambda *a, **k: pytest.fail("plain version on the card"))
+    g = torch.Generator().manual_seed(0)
+    q, s, z = rtn_quantize(torch.randn(96, 256, generator=g) * 0.06,
+                           QuantSpec(bits=4), n_grid=4)
+    planes, s, z = (t.to(cuda) for t in (pack_codes_planes(q, 4), s, z))
+    spec = QuantSpec(bits=4, layout="plane")
+    for m in (8, 64):
+        x = torch.randn(m, 256, generator=g).to(torch.bfloat16).to(cuda)
+        ops.quant_matmul(x, planes, s, z, spec, draft_bits=3)
+        ops.quant_matmul_slotted(x, planes, s[None], z[None],
+                                 torch.zeros(m, dtype=torch.int32,
+                                             device=cuda), spec, draft_bits=3)
+    torch.cuda.synchronize()
+    with pytest.raises(ValueError, match="planes"):
+        qm.quant_gemv_planes(x[:8], planes[:2].contiguous(), s, z, 3)

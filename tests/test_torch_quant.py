@@ -120,8 +120,8 @@ def test_dequantize_matches_reference():
                                   np.asarray(want))
 
 
-@pytest.mark.parametrize("kw", [dict(layout="plane"), dict(packed=False),
-                                dict(bits=8)])
+@pytest.mark.parametrize("kw", [dict(layout="plane", bits=5),
+                                dict(packed=False), dict(bits=8)])
 def test_unported_layouts_raise(kw):
     with pytest.raises(NotImplementedError):
         tq.QuantSpec(**kw).check_ported()

@@ -256,10 +256,17 @@ def test_scheduler_errors_match_reference(setup):
 
 
 def test_speculative_is_not_ported_yet(setup):
-    _, teng = _engines(setup)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        teng.serve(_port_requests(_requests(setup[0], n=3)),
+    """Speculative serving is ported (tests/test_torch_serve_speculative.py)
+    but, as in the reference, needs bit-plane codes: this nibble backbone
+    raises the reference's message."""
+    jeng, teng = _engines(setup)
+    reqs = _requests(setup[0], n=3)
+    with pytest.raises(ValueError, match="plane") as jerr:
+        jeng.serve(reqs, JServeConfig(n_slots=2, scheduler="speculative"))
+    with pytest.raises(ValueError, match="plane") as terr:
+        teng.serve(_port_requests(reqs),
                    ServeConfig(n_slots=2, scheduler="speculative"))
+    assert str(terr.value) == str(jerr.value)
     with pytest.raises(TypeError, match="ServeConfig"):
         teng.serve([], 3)
 
