@@ -10,8 +10,8 @@ line:
   1. device  — the card, its power limit, the kernel build from
                src/repro_torch/kernels/csrc (one nvcc per source, all at
                once) and each kernel's registers, spills and shared memory
-               (listed per wrapper: K1, K5, K2 and the three K6a plane
-               kernels);
+               (listed per wrapper: K1, K5, K2, the three K6a plane
+               kernels, K3, K6b and K4);
   2. kernels — K1 (quant_gemv, M = 4), K2 (quant_matmul, M = 1024) and K5
                (quant_gemv_tasks, M = 8 rows over T = 4 tasks, ids
                0,1,2,3,0,1,2,3) against their plain versions at the main
@@ -25,7 +25,17 @@ line:
                the 3-plane draft (p = 3): K1-plane at M = 8 and 32,
                K5-plane at M = 8 over 4 tasks, K2-plane at M = 1024 —
                within the bound of its plain version and bit-equal to its
-               nibble kernel on the codes q >> (4 − p) under draft_scales;
+               nibble kernel on the codes q >> (4 − p) under draft_scales.
+               K3 and K6b at the same shapes on bf16 weights, 4 and 3 bits:
+               bit-equal to their plain version.  K4 at llama3.2-1b's heads
+               (32 query, 8 KV heads of 64): the prefill (B 4, 256 tokens,
+               causal), the lockstep decode (B 4, Sq 1, generate's
+               PROMPT + NEW cache, an int position), the slot pool's
+               decode and verify (B 8, Sq 1 and 4,
+               a 512-slot cache, offsets spread over [20, 300]), a window
+               and a non-causal case, within flash_attention.error_bound of
+               its plain version, scaled_dot_product_attention timed beside
+               it as a yardstick;
   3. main    — llama3.2-1b at full width from a seeded generator, PEQA
                4-bit per-channel RTN (n_grid 20), Engine.generate with
                B = 4, a 256-token prompt and 32 new tokens; the launch
@@ -62,12 +72,28 @@ line:
                step replayed proposing the same tokens, and (b)'s peak memory
                within 5% of the code bytes of (a)'s (the draft reads the
                target's planes);
-  7. check   — the same path at 2 layers, once through the kernels and once
+  7. convert — the same model quantized with QuantConfig(n_grid=1), plain
+               min/max RTN, through K3 (rtn_pack, nibbles) and then K6b
+               (rtn_pack_planes, bit-planes): 112 launches each, codes,
+               scales and zeros bit-equal to the plain route
+               (force_impl("torch")); quantize seconds of both routes beside
+               phase main's n_grid 20; one conversion's 112 launches timed;
+  8. chunked — attn_impl="chunked" (K4, flash_attention) on those
+               backbones: Engine.generate on the K3 backbone (K4 16 times
+               per prefill and per decode step, K1 and K2 as in main;
+               prefill logits within 2⁻⁵ of the largest logit under
+               "dense"; the share of equal tokens), then phase serve's 16
+               requests on the K6b backbone, resident and speculative over
+               resident (K4 16 times per decode step, draft step, verify and
+               prefill; the verify checked as in phase speculative);
+  9. check   — the same path at 2 layers, once through the kernels and once
                through the plain versions on the card: prefill logits within
                2⁻⁵ of their largest magnitude, and the greedy tokens that
                agree; likewise the slotted prefill (both its routes), a
-               slotted decode step over mixed tasks, and on the 2 layers
-               repacked into bit-planes a slotted draft step and verify.
+               slotted decode step over mixed tasks, on the 2 layers
+               repacked into bit-planes a slotted draft step and verify, and
+               on a 2-layer K3 backbone under "chunked" a prefill and a
+               slot-pool decode step and verify.
 
 Then the card's name and power limit, the ``kernels`` summary line, and as
 the last line ``{"ok": true, "device": {...}}``.  Any failed phase raises
@@ -105,6 +131,20 @@ SHAPES = ((2048, 2048), (512, 2048), (8192, 2048), (2048, 8192))
 # verify of 4 tokens per slot (8 × 4 = 32 rows: still the GEMV route)
 SPEC_K, DRAFT_BITS = 3, 3
 L2_BYTES = 50 * 2 ** 20
+# K4 at llama3.2-1b's heads: (case, B, Sq, Sk, offset, causal, window) —
+# offset None (Sk − Sq), "rows" (a (B,) device tensor spread over [20,
+# 300]) or an int.  The prefill; the lockstep decode over generate's
+# PROMPT + NEW cache at one int position (most of K4's launches on phase
+# chunked's lockstep path); the slot pool's decode and verify over a
+# 512-slot cache; a window and a non-causal case
+HQ, HKV, DHEAD = 32, 8, 64
+ATTN_CASES = (("prefill", 4, 256, 256, None, True, None),
+              ("lockstep_decode", BATCH, 1, PROMPT + NEW, PROMPT + 10, True,
+               None),
+              ("slot_decode", 8, 1, 512, "rows", True, None),
+              ("slot_verify", 8, 4, 512, "rows", True, None),
+              ("window", 4, 256, 256, None, True, 64),
+              ("non_causal", 4, 256, 256, None, False, None))
 
 
 def emit(obj) -> None:
@@ -188,8 +228,7 @@ def check_close(name, got, plain, bound) -> float:
 
 
 def phase_device(torch) -> dict:
-    from repro_torch.kernels import _build, ptxas_variants
-    from repro_torch.kernels import quant_matmul as qm
+    from repro_torch.kernels import _build, ops, ptxas_variants
     t0 = time.perf_counter()
     built = _build.build()
     total = time.perf_counter() - t0
@@ -205,7 +244,7 @@ def phase_device(torch) -> dict:
         # registers, spills and shared memory per wrapper and instantiation
         "ptxas": {k.__name__: [{f: r[f] for f in r if f != "kernel"}
                                for r in rows if r["kernel"] == k.__name__]
-                  for k in qm.KERNELS},
+                  for k in ops.KERNELS},
     }
     missing = [k for k, v in info["ptxas"].items() if not v]
     if missing:
@@ -302,8 +341,144 @@ def phase_kernels(torch) -> dict:
                                            gen).items():
                 worst[name] = max(worst[name], err)
             del qw, s, z, w16
+            kernel_rtn_pack(torch, n, k, group, gen)
             torch.cuda.empty_cache()
-    return worst
+    worst.update(rtn_pack=0.0, rtn_pack_planes=0.0)   # bit-equal, or failed
+    worst["flash_attention"], attn_prefill = kernel_attention(torch, gen)
+    return worst, attn_prefill
+
+
+def pack_bytes_ms(n: int, k: int, groups: int, bits: int,
+                  w_bytes: int) -> float:
+    """Least time of one quantize-and-pack at HBM rate: w read once, the
+    codes (``bits`` a weight), scales and zeros written once."""
+    nbytes = n * k * w_bytes + n * k * bits // 8 + 2 * n * groups * 4
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def kernel_rtn_pack(torch, n, k, group, gen) -> None:
+    """K3 and K6b on bf16 weights of one layer shape at 4 and 3 bits: codes,
+    scales and zeros bit-equal to the plain version; kernel / plain time
+    (weights rotated through > 2× the L2) against the bytes bound.  No
+    PyTorch call quantizes and packs: no library time."""
+    from repro_torch.kernels import rtn_pack as rp
+    w = (torch.randn(n, k, generator=gen, device="cuda") * k ** -0.5
+         ).to(torch.bfloat16)
+    g = 1 if group is None else k // group
+    sets = [(w.clone(),) for _ in range(max(2, math.ceil(
+        2 * L2_BYTES / (n * k * 2))))]
+    for name, fn, plain in (
+            ("rtn_pack", rp.rtn_pack, rp.rtn_pack_plain),
+            ("rtn_pack_planes", rp.rtn_pack_planes, rp.rtn_pack_planes_plain)):
+        for bits in (4, 3):
+            got = fn(w, bits, group)
+            want = plain(w, bits, group)
+            torch.cuda.synchronize()
+            what = f"{name} N={n} K={k} group={group} bits={bits}"
+            for a, b, part in zip(got, want, ("codes", "scales", "zeros")):
+                if a.shape != b.shape or not torch.equal(a, b):
+                    fail(f"{what}: {part} differ from the plain version")
+            ms = timed(lambda x: fn(x, bits, group), sets, 50)
+            plain_ms = timed(lambda x: plain(x, bits, group), sets, 5)
+            emit({"phase": "kernels", "kernel": name, "N": n, "K": k,
+                  "group": group, "bits": bits, "dtype": "bf16",
+                  "bitwise_plain": True, "us": ms * 1e3,
+                  "plain_us": plain_ms * 1e3, "library_ms": None,
+                  "bound_us": pack_bytes_ms(n, k, g, bits, 2) * 1e3,
+                  "bound_by": "bytes"})
+    del sets
+
+
+def attn_mask(torch, b, sq, sk, offset, causal, window):
+    """(B, Sq, Sk) visibility of each key to each query: the plain
+    version's mask, on the card."""
+    iq = torch.arange(sq, device="cuda")[None, :, None] + (
+        offset[:, None, None] if torch.is_tensor(offset)
+        else sk - sq if offset is None else offset)
+    jk = torch.arange(sk, device="cuda")[None, None, :]
+    mask = torch.ones((b, sq, sk), dtype=torch.bool, device="cuda")
+    if causal:
+        mask &= jk <= iq
+    if window is not None:
+        mask &= jk > iq - window
+    return mask
+
+
+def attn_bound_ms(mask) -> tuple:
+    """Least time of one attention call at llama3.2-1b's heads, for the
+    work of these inputs (``mask``): the larger of its bytes (q and out
+    once, the K and V rows of the keys some query of a batch row sees,
+    bf16) at HBM rate and its operations, 2·D per visible (query, key,
+    head) for each of the two products.  q·kᵀ is priced at the bf16
+    tensor-core rate: at D = 64 the scale 2⁻³ is exact in bf16 and a bf16
+    product is exact in f32, so bf16 operands with f32 accumulation are the
+    same function to summation order.  The probabilities are f32, so P·V
+    is priced at the f32 CUDA-core rate.  Returns (ms, "bytes" |
+    "operations", ms with both products at the bf16 rate)."""
+    b, sq, _ = mask.shape
+    pairs, keys = int(mask.sum()), int(mask.any(dim=1).sum())
+    t_bytes = (2 * b * sq * HQ * DHEAD * 2 + 2 * keys * HKV * DHEAD * 2
+               ) / HBM_BYTES_PER_S * 1e3
+    product = 2 * DHEAD * pairs * HQ
+    t_ops = (product / BF16_FLOPS + product / F32_FLOPS) * 1e3
+    t_bf16 = max(t_bytes, 2 * product / BF16_FLOPS * 1e3)
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", t_bf16
+    return t_ops, "operations", t_bf16
+
+
+def kernel_attention(torch, gen) -> tuple:
+    """K4 at llama3.2-1b's heads (32 query, 8 KV heads of 64), bf16, in
+    every ``ATTN_CASES`` case: within ``flash_attention.error_bound`` of the
+    plain version; kernel / plain time (inputs rotated through > 2× the
+    L2) against the bound, and as a yardstick only — never on the path —
+    ``scaled_dot_product_attention`` with ``enable_gqa`` (``is_causal`` for
+    the aligned causal cases, a boolean mask otherwise).  Returns (the
+    worst error, the prefill case's row for the summary)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    worst = 0.0
+    for name, b, sq, sk, off, causal, window in ATTN_CASES:
+        q = torch.randn(b, sq, HQ, DHEAD, generator=gen, device="cuda"
+                        ).to(torch.bfloat16)
+        k, v = (torch.randn(b, sk, HKV, DHEAD, generator=gen, device="cuda"
+                            ).to(torch.bfloat16) for _ in range(2))
+        offset = torch.linspace(20, 300, b, device="cuda").round().long() \
+            if off == "rows" else off
+        kw = dict(causal=causal, window=window, offset=offset)
+        got = fa.flash_attention(q, k, v, **kw)
+        plain = fa.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = check_close(f"flash_attention {name}", got, plain,
+                          fa.error_bound(q, k, v, plain))
+        worst = max(worst, err)
+        nbytes = (q.numel() + 2 * k.numel()) * 2
+        sets = [tuple(t.clone() for t in (q, k, v)) for _ in range(
+            max(2, math.ceil(2 * L2_BYTES / nbytes)))]
+        mask = attn_mask(torch, b, sq, sk, offset, causal, window)
+        b_ms, b_by, b_bf16 = attn_bound_ms(mask)
+        aligned = causal and window is None and off is None and sq == sk
+        mask = None if aligned or not (causal or window) else mask[:, None]
+
+        def lib(q_, k_, v_, mask=mask, aligned=aligned):
+            return F.scaled_dot_product_attention(
+                q_.transpose(1, 2), k_.transpose(1, 2), v_.transpose(1, 2),
+                attn_mask=mask, is_causal=aligned, enable_gqa=True)
+        ms = timed(lambda *a: fa.flash_attention(*a, **kw), sets, 50)
+        plain_ms = timed(lambda *a: fa.flash_attention_plain(*a, **kw), sets,
+                         10)
+        lib_ms = timed(lib, sets, 50)
+        row = {"phase": "kernels", "kernel": "flash_attention", "case": name,
+               "B": b, "Sq": sq, "Sk": sk, "Hq": HQ, "Hkv": HKV, "D": DHEAD,
+               "causal": causal, "window": window, "max_abs_err": err,
+               "us": ms * 1e3, "plain_us": plain_ms * 1e3,
+               "library_us": lib_ms * 1e3, "bound_us": b_ms * 1e3,
+               "bound_by": b_by, "bound_bf16_us": b_bf16 * 1e3}
+        emit(row)
+        if name == "prefill":
+            prefill = row
+        del sets
+    return worst, prefill
 
 
 def kernel_k5(torch, qm, n, k, group, qw, s, z, gen) -> float:
@@ -485,6 +660,218 @@ def phase_main(torch) -> dict:
     emit(res)
     return {"res": res, "model": engine.model, "cfg": cfg, "api": api,
             "prompt": prompt}
+
+
+def convert_cfg(cfg, layout: str):
+    """The main configuration under plain min/max RTN (n_grid 1) in
+    ``layout``: the conversion path of K3 (nibbles) or K6b (bit-planes)."""
+    import dataclasses
+    return cfg.replace(quant=dataclasses.replace(cfg.quant, n_grid=1,
+                                                 layout=layout))
+
+
+def phase_convert(torch, main_path) -> dict:
+    """Quantize full-width llama3.2-1b with QuantConfig(n_grid=1) through
+    K3 (nibbles), then K6b (bit-planes): 112 launches each, codes, scales
+    and zeros bit-equal to the plain route (``force_impl("torch")``) on the
+    same seeded weights; quantize seconds of each route beside phase main's
+    n_grid 20 path; and one conversion's 112 launches over the model's own
+    f32 weights timed against the plain version and the bytes bound.
+    Returns the kernel-quantized backbones for phase chunked."""
+    from repro_torch.core import policies
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rtn_pack as rp
+    from repro_torch.models import registry
+    from repro_torch.models.linear import Linear
+
+    res = {"phase": "convert",
+           "n_grid20_quantize_s": main_path["res"]["quantize_s"]}
+    out = {}
+    for layout, kernel in (("nibble", rp.rtn_pack),
+                           ("plane", rp.rtn_pack_planes)):
+        cfg = convert_cfg(main_path["cfg"], layout)
+        api = registry.build(cfg)
+        n_lin = cfg.n_layers * 7
+        models = {}
+        for impl in ("cuda", "torch"):
+            model = api.init(SEED)
+            torch.cuda.synchronize()
+            if impl == "cuda":
+                step = convert_step(torch, kernel, model, cfg)
+            for k in ops.KERNELS:
+                k.launches = 0
+            t0 = time.perf_counter()
+            with ops.force_impl(impl):
+                model, _ = policies.prepare(model, cfg)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = {k.__name__: k.launches for k in ops.KERNELS
+                        if k.launches}
+            want = {kernel.__name__: n_lin} if impl == "cuda" else {}
+            if launches != want:
+                fail(f"convert {layout} ({impl}): launches {launches}, "
+                     f"expected {want}")
+            models[impl] = model
+            res[f"{layout}_{impl}_quantize_s"] = secs
+            if impl == "cuda":
+                step["launches"] = launches[kernel.__name__]
+        lins = {name: m for name, m in models["cuda"].named_modules()
+                if isinstance(m, Linear) and m.quantized}
+        plain = dict(models["torch"].named_modules())
+        for name, lin in lins.items():
+            ref = plain[name]
+            for part in ("qw", "scale", "zero"):
+                a, b = getattr(lin, part), getattr(ref, part)
+                if a.shape != b.shape or not torch.equal(a, b):
+                    fail(f"convert {layout}: {name}.{part} differs between "
+                         f"{kernel.__name__} and the plain route")
+        if len(lins) != n_lin:
+            fail(f"convert {layout}: {len(lins)} quantized linears, expected "
+                 f"{n_lin}")
+        res[layout] = {"kernel": kernel.__name__, "bitwise_plain": True,
+                       **step}
+        out[layout] = {"api": api, "model": models["cuda"], "cfg": cfg,
+                       "step": step}
+        del models, plain, lins
+        torch.cuda.empty_cache()
+    emit(res)
+    return out
+
+
+def convert_step(torch, kernel, model, cfg) -> dict:
+    """One conversion's launches of ``kernel`` over the model's 112 f32
+    weights (4.4 GB: cold in L2 by size), CUDA-graph timed, against its
+    plain version and the bytes bound."""
+    from repro_torch.models.linear import Linear
+    from repro_torch.kernels import rtn_pack as rp
+    plain = rp.rtn_pack_planes_plain if kernel is rp.rtn_pack_planes \
+        else rp.rtn_pack_plain
+    bits, group = cfg.quant.bits, cfg.quant.group_size
+    ws = [m.w.detach() for m in model.modules() if isinstance(m, Linear)]
+
+    def run(f):
+        def go():
+            for w in ws:
+                f(w, bits, group)
+        return go
+    saved = kernel.launches
+    ms = timed(run(kernel), [()], 3)
+    plain_ms = timed(run(plain), [()], 1)
+    kernel.launches = saved
+    bound = sum(pack_bytes_ms(w.shape[0], w.shape[1],
+                              w.shape[1] // (group or w.shape[1]), bits, 4)
+                for w in ws)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes", "library_ms": None, "weights": len(ws)}
+
+
+def phase_chunked(torch, conv, serve, prompt) -> dict:
+    """attn_impl="chunked" on the min/max RTN backbones of phase convert.
+    (1) The K3 backbone: Engine.generate (B 4, 256-token prompts, 32 new
+    tokens) — K4 16 times per prefill and per decode step, K1 and K2 as in
+    phase main; its prefill logits within 2⁻⁵ of the largest logit of the
+    same backbone under "dense", and the share of equal greedy tokens
+    (near-ties of random weights; not gated).  (2) The K6b backbone serving
+    phase serve's 16 requests resident, then speculative over resident
+    (spec_k 3, a 3-plane draft): K4 16 times per decode step, draft step,
+    verify and prefill; the verify checked as in phase speculative.  Each
+    run starts with every launch counter at 0."""
+    import numpy as np
+    from repro_torch.core.scale_bank import ScaleBank
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.serve import ServeConfig
+    from repro_torch.train.serve import Engine
+
+    nib = conv["nibble"]
+    cfg = nib["cfg"].replace(attn_impl="chunked")
+    api, api_dense = registry.build(cfg), registry.build(nib["cfg"])
+    model = nib["model"]
+    n_lin, layers = cfg.n_layers * 7, cfg.n_layers
+    steps = NEW - 1
+    res = {"phase": "chunked", "model": cfg.name, "layers": layers}
+    engine = Engine(api, model)
+    engine.generate(prompt, 2)                       # warm-up, not counted
+    torch.cuda.synchronize()
+    for k in ops.KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    out = engine.generate(prompt, NEW)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in ops.KERNELS if k.launches}
+    want = {"quant_matmul": n_lin, "quant_gemv": n_lin * steps,
+            "flash_attention": layers * (1 + steps)}
+    if launches != want:
+        fail(f"chunked generate: launches {launches}, expected {want}")
+    if tuple(out.shape) != (BATCH, PROMPT + NEW) or int(out.min()) < 0 \
+            or int(out.max()) >= cfg.vocab_size:
+        fail(f"chunked generate returned {tuple(out.shape)} or ids outside "
+             f"the vocabulary")
+    dense = Engine(api_dense, model).generate(prompt, NEW)
+    with torch.inference_mode():
+        tokens = prompt.to("cuda")
+        lc = api.prefill(model, {"tokens": tokens})[0].float()
+        ld = api_dense.prefill(model, {"tokens": tokens})[0].float()
+    diff = (lc - ld).abs().max().item()
+    tol = 2.0 ** -5 * ld.abs().max().item()
+    if not torch.isfinite(lc).all() or diff > tol:
+        fail(f"chunked prefill logits differ from dense by {diff:.3e} > "
+             f"{tol:.3e}")
+    res["generate"] = {
+        "batch": BATCH, "prompt": PROMPT, "new_tokens": NEW,
+        "generate_s": total_s, "tokens_per_s": BATCH * NEW / total_s,
+        "launches": launches, "prefill_logits_max_abs_diff_vs_dense": diff,
+        "tolerance": tol,
+        "tokens_equal_share_vs_dense": (out[:, PROMPT:].cpu()
+                                        == dense[:, PROMPT:].cpu()
+                                        ).float().mean().item()}
+    res["k4_launches_lockstep"] = launches["flash_attention"]
+
+    # (2) the K6b backbone, chunked, behind a 4-task bank of its own scales
+    pl = conv["plane"]
+    cfg_p = pl["cfg"].replace(attn_impl="chunked")
+    api_p, model_p = registry.build(cfg_p), pl["model"]
+    bank = ScaleBank()
+    bank.add("t0", model_p)
+    rng = np.random.default_rng(SEED)
+    for t in range(1, N_TASKS):
+        bank.tasks[f"t{t}"] = {
+            k: (v * rng.uniform(0.9, 1.1, v.shape)).astype(v.dtype)
+            for k, v in bank.tasks["t0"].items()}
+    reqs = serve["reqs"]
+    short = sum(r.n_prompt <= 32 for r in reqs)
+    code_bytes = sum(b.numel() * 4 for n, b in model_p.named_buffers()
+                     if n.endswith("qw"))
+    check = {"armed": False, "done": None, "peak": 0}
+    long_ = {"quant_matmul_planes": n_lin * (len(reqs) - short)}
+    rep_a, _, peak_a = serve_run(
+        torch, res, check, cfg.vocab_size, "resident",
+        Engine(api_p, model_p, bank=bank), "step", reqs,
+        ServeConfig(n_slots=SERVE_SLOTS, scheduler="resident",
+                    resident_tasks=N_TASKS),
+        lambda n: {"quant_gemv_tasks_planes": n_lin * (n + short),
+                   "flash_attention": layers * (n + len(reqs)), **long_})
+    eng = checked_speculative_engine(torch, api_p, model_p, bank, check)
+    rep_b, rounds_b, peak_b = serve_run(
+        torch, res, check, cfg.vocab_size, "speculative", eng, "spec_step",
+        reqs, ServeConfig(n_slots=SERVE_SLOTS, scheduler="speculative",
+                          spec_k=SPEC_K, draft_bits=DRAFT_BITS,
+                          resident_tasks=N_TASKS),
+        lambda n: {"quant_gemv_tasks_planes":
+                   n_lin * ((SPEC_K + 1) * n + short),
+                   "flash_attention": layers * ((SPEC_K + 1) * n + len(reqs)),
+                   **long_})
+    del eng
+    gate_speculative("chunked speculative run", rep_b, rounds_b, check,
+                     peak_a, peak_b, code_bytes)
+    res["verify_check"] = check["done"]
+    res["peak_delta_mb"] = (peak_b - peak_a) / 1e6
+    res["tokens_equal_share_spec_vs_resident"] = sum(
+        sum(x == y for x, y in zip(a, b))
+        for a, b in zip(rep_a.tokens, rep_b.tokens)) / rep_a.decoded
+    emit(res)
+    return res
 
 
 def device_ms(torch, fn) -> tuple:
@@ -853,88 +1240,68 @@ def plane_backbone(torch, main_path) -> dict:
             "repack_s": time.perf_counter() - t0}
 
 
-def phase_speculative(torch, plane, serve) -> dict:
-    """The 16 requests of phase serve on the bit-plane backbone: (a)
-    resident, (b) speculative over resident, (c) speculative without tasks.
-    Each run starts with every launch counter at 0."""
+def serve_run(torch, res, check, vocab, label, engine, method, requests,
+              config, want):
+    """Serve ``requests`` through ``engine`` with every launch counter at 0,
+    timing each ``method`` call (a step or a speculative round), and fail
+    unless each kernel launched exactly as ``want(calls)`` says (others:
+    0 times) and every request got its full budget.  Records the run under
+    ``res[label]``; returns (report, calls, peak bytes)."""
+    from repro_torch.kernels import ops
+    calls = {"n": 0, "s": 0.0}
+    inner = getattr(engine, method)
+
+    def counted(pool, *a):
+        t0 = time.perf_counter()
+        out = inner(pool, *a)                 # ends in a host sync
+        calls["s"] += time.perf_counter() - t0
+        calls["n"] += 1
+        return out
+    setattr(engine, method, counted)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in ops.KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    rep = engine.serve(requests, config)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = max(check["peak"], torch.cuda.max_memory_allocated())
+    launches = {k.__name__: k.launches for k in ops.KERNELS}
+    for i, (r, toks) in enumerate(zip(requests, rep.tokens)):
+        if toks is None or len(toks) != r.n_new:
+            fail(f"{label}: request {i} served {toks and len(toks)} of "
+                 f"{r.n_new} tokens")
+        if min(toks) < 0 or max(toks) >= vocab:
+            fail(f"{label}: request {i} has token ids outside the "
+                 f"vocabulary")
+    expect = {k.__name__: 0 for k in ops.KERNELS}
+    expect.update(want(calls["n"]))
+    if launches != expect:
+        fail(f"{label}: kernel launches {launches}, expected {expect}")
+    res[label] = {
+        "scheduler": rep.scheduler, "steps": rep.steps,
+        f"{method}_calls": calls["n"], "draft_steps": rep.draft_steps,
+        "draft_proposed": rep.draft_proposed,
+        "draft_accepted": rep.draft_accepted,
+        "acceptance_rate": rep.acceptance_rate,
+        "task_drain_idle_slot_steps": rep.task_drain_idle_slot_steps,
+        "decoded": rep.decoded, "wall_s": wall,
+        "tokens_per_s": rep.decoded / wall,
+        f"ms_per_{method}": calls["s"] * 1e3 / max(calls["n"], 1),
+        "peak_mem_gb": peak / 1e9, "launches": launches}
+    return rep, calls["n"], peak
+
+
+def checked_speculative_engine(torch, api, model, bank, check):
+    """A resident speculative engine whose first round with every slot live
+    has its verify checked against k+1 decode steps on a cache copy (and
+    its first draft step replayed), into ``check["done"]``.  The check's
+    own launches and memory are not the run's."""
     import dataclasses
-    from repro_torch.kernels import quant_matmul as qm
-    from repro_torch.serve import Request, ServeConfig
+    from repro_torch.kernels import ops
     from repro_torch.train.serve import Engine
 
-    api, model, cfg = plane["api"], plane["model"], plane["cfg"]
-    bank, reqs = serve["bank"], serve["reqs"]
-    n_lin = cfg.n_layers * 7
-    short = sum(r.n_prompt <= 32 for r in reqs)
-    code_bytes = sum(b.numel() * 4 for n, b in model.named_buffers()
-                     if n.endswith("qw"))
-    res = {"phase": "speculative", "requests": len(reqs),
-           "slots": SERVE_SLOTS, "spec_k": SPEC_K, "draft_bits": DRAFT_BITS,
-           "code_bytes": code_bytes}
-    check = {"armed": False, "done": None, "peak": 0}
-
-    def run(label, engine, method, requests, config, want):
-        calls = {"n": 0, "s": 0.0}
-        inner = getattr(engine, method)
-
-        def counted(pool, *a):
-            t0 = time.perf_counter()
-            out = inner(pool, *a)             # ends in a host sync
-            calls["s"] += time.perf_counter() - t0
-            calls["n"] += 1
-            return out
-        setattr(engine, method, counted)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        for k in qm.KERNELS:
-            k.launches = 0
-        t0 = time.perf_counter()
-        rep = engine.serve(requests, config)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        peak = max(check["peak"], torch.cuda.max_memory_allocated())
-        launches = {k.__name__: k.launches for k in qm.KERNELS}
-        for i, (r, toks) in enumerate(zip(requests, rep.tokens)):
-            if toks is None or len(toks) != r.n_new:
-                fail(f"{label}: request {i} served {toks and len(toks)} of "
-                     f"{r.n_new} tokens")
-            if min(toks) < 0 or max(toks) >= cfg.vocab_size:
-                fail(f"{label}: request {i} has token ids outside the "
-                     f"vocabulary")
-        expect = {k.__name__: 0 for k in qm.KERNELS}
-        expect.update(want(calls["n"]))
-        if launches != expect:
-            fail(f"{label}: kernel launches {launches}, expected {expect}")
-        res[label] = {
-            "scheduler": rep.scheduler, "steps": rep.steps,
-            f"{method}_calls": calls["n"], "draft_steps": rep.draft_steps,
-            "draft_proposed": rep.draft_proposed,
-            "draft_accepted": rep.draft_accepted,
-            "acceptance_rate": rep.acceptance_rate,
-            "task_drain_idle_slot_steps": rep.task_drain_idle_slot_steps,
-            "decoded": rep.decoded, "wall_s": wall,
-            "tokens_per_s": rep.decoded / wall,
-            f"ms_per_{method}": calls["s"] * 1e3 / max(calls["n"], 1),
-            "peak_mem_gb": peak / 1e9, "launches": launches}
-        return rep, calls["n"], peak
-
-    long_ = {"quant_matmul_planes": n_lin * (len(reqs) - short)}
-    # (a) resident on the plane backbone
-    eng = Engine(api, model, bank=bank)
-    rep_a, _, peak_a = run(
-        "resident", eng, "step", reqs,
-        ServeConfig(n_slots=SERVE_SLOTS, scheduler="resident",
-                    resident_tasks=N_TASKS),
-        lambda n: {"quant_gemv_tasks_planes": n_lin * (n + short), **long_})
-    del eng                                   # and its resident stack
-    if rep_a.tokens != serve["resident_tokens"]:
-        diff = sum(a != b for a, b in zip(rep_a.tokens,
-                                          serve["resident_tokens"]))
-        fail(f"plane resident tokens differ from the nibble backbone's in "
-             f"{diff} of {len(reqs)} requests")
-
-    # (b) speculative over resident; the verify of the first round with
-    # every slot live is checked against k+1 decode steps on a cache copy
     def verify_checked(m, st, c, t, pos, tid):
         if not check["armed"]:
             return api.decode_verify_slotted(m, st, c, t, pos, tid)
@@ -942,7 +1309,7 @@ def phase_speculative(torch, plane, serve) -> dict:
         peak_before = torch.cuda.max_memory_allocated()
         copies = [{k: v.clone() for k, v in c.items()} for _ in range(2)]
         logits, c = api.decode_verify_slotted(m, st, c, t, pos, tid)
-        saved = [k.launches for k in qm.KERNELS]
+        saved = [k.launches for k in ops.KERNELS]
         steps = []
         for j in range(t.shape[1]):
             lg, copies[0] = api.decode_step_slotted(
@@ -952,7 +1319,7 @@ def phase_speculative(torch, plane, serve) -> dict:
         # draft step to the plain versions)
         draft = api.decode_step_slotted(m, st, copies[1], t[:, :1], pos, tid,
                                         draft_bits=DRAFT_BITS)[0].float()
-        for k, n in zip(qm.KERNELS, saved):   # not the main path's launches
+        for k, n in zip(ops.KERNELS, saved):  # not the main path's launches
             k.launches = n
         dec = torch.stack(steps, 1).float()
         diff = (logits.float() - dec).abs().amax().item()
@@ -986,6 +1353,78 @@ def phase_speculative(torch, plane, serve) -> dict:
         check["armed"] = check["done"] is None and bool(pool.active.all())
         return real_round(pool, *a)
     eng._spec_round = round_
+    return eng
+
+
+def gate_speculative(label, rep_b, rounds_b, check, peak_a, peak_b,
+                     code_bytes) -> None:
+    """The speculative-over-resident run's gates: scheduler, no task-drain
+    wait, SPEC_K draft steps a round, a checked verify within 2⁻⁵ of the
+    step-by-step decode, the replayed draft, and peak memory within 5% of
+    the code bytes of the resident run's."""
+    if rep_b.scheduler != "speculative" or rep_b.task_drain_idle_slot_steps:
+        fail(f"{label}: scheduler {rep_b.scheduler!r}, task-drain "
+             f"idle slot-steps {rep_b.task_drain_idle_slot_steps}")
+    if rep_b.draft_steps != SPEC_K * rounds_b:
+        fail(f"{label}: {rep_b.draft_steps} draft steps in "
+             f"{rounds_b} rounds of {SPEC_K}")
+    if not 0 <= rep_b.draft_accepted <= rep_b.draft_proposed:
+        fail(f"{label}: {rep_b.draft_accepted} of "
+             f"{rep_b.draft_proposed} drafts accepted")
+    if check["done"] is None:
+        fail(f"{label}: no round had every slot live")
+    done = check["done"]
+    if done["max_abs_diff"] > done["tolerance"]:
+        fail(f"{label}: verify logits differ from successive decode steps "
+             f"by {done['max_abs_diff']:.3e} > {done['tolerance']:.3e}")
+    if not done["draft_replay_equal"]:
+        fail(f"{label}: the replayed draft step does not propose the "
+             f"round's draft tokens")
+    if not peak_b - peak_a < 0.05 * code_bytes:
+        fail(f"{label}: peak memory {peak_b / 1e9:.3f} GB exceeds the "
+             f"resident run's {peak_a / 1e9:.3f} GB by 5% of the "
+             f"{code_bytes / 1e9:.3f} GB of codes or more")
+
+
+def phase_speculative(torch, plane, serve) -> dict:
+    """The 16 requests of phase serve on the bit-plane backbone: (a)
+    resident, (b) speculative over resident, (c) speculative without tasks.
+    Each run starts with every launch counter at 0."""
+    from repro_torch.serve import Request, ServeConfig
+    from repro_torch.train.serve import Engine
+
+    api, model, cfg = plane["api"], plane["model"], plane["cfg"]
+    bank, reqs = serve["bank"], serve["reqs"]
+    n_lin = cfg.n_layers * 7
+    short = sum(r.n_prompt <= 32 for r in reqs)
+    code_bytes = sum(b.numel() * 4 for n, b in model.named_buffers()
+                     if n.endswith("qw"))
+    res = {"phase": "speculative", "requests": len(reqs),
+           "slots": SERVE_SLOTS, "spec_k": SPEC_K, "draft_bits": DRAFT_BITS,
+           "code_bytes": code_bytes}
+    check = {"armed": False, "done": None, "peak": 0}
+
+    def run(*a):
+        return serve_run(torch, res, check, cfg.vocab_size, *a)
+
+    long_ = {"quant_matmul_planes": n_lin * (len(reqs) - short)}
+    # (a) resident on the plane backbone
+    eng = Engine(api, model, bank=bank)
+    rep_a, _, peak_a = run(
+        "resident", eng, "step", reqs,
+        ServeConfig(n_slots=SERVE_SLOTS, scheduler="resident",
+                    resident_tasks=N_TASKS),
+        lambda n: {"quant_gemv_tasks_planes": n_lin * (n + short), **long_})
+    del eng                                   # and its resident stack
+    if rep_a.tokens != serve["resident_tokens"]:
+        diff = sum(a != b for a, b in zip(rep_a.tokens,
+                                          serve["resident_tokens"]))
+        fail(f"plane resident tokens differ from the nibble backbone's in "
+             f"{diff} of {len(reqs)} requests")
+
+    # (b) speculative over resident; the verify of the first round with
+    # every slot live is checked against k+1 decode steps on a cache copy
+    eng = checked_speculative_engine(torch, api, model, bank, check)
     spec_cfg = dict(n_slots=SERVE_SLOTS, scheduler="speculative",
                     spec_k=SPEC_K, draft_bits=DRAFT_BITS,
                     resident_tasks=N_TASKS)
@@ -995,28 +1434,8 @@ def phase_speculative(torch, plane, serve) -> dict:
                    n_lin * ((SPEC_K + 1) * n + short), **long_})
     check["peak"] = 0
     del eng
-    if rep_b.scheduler != "speculative" or rep_b.task_drain_idle_slot_steps:
-        fail(f"speculative run: scheduler {rep_b.scheduler!r}, task-drain "
-             f"idle slot-steps {rep_b.task_drain_idle_slot_steps}")
-    if rep_b.draft_steps != SPEC_K * rounds_b:
-        fail(f"speculative run: {rep_b.draft_steps} draft steps in "
-             f"{rounds_b} rounds of {SPEC_K}")
-    if not 0 <= rep_b.draft_accepted <= rep_b.draft_proposed:
-        fail(f"speculative run: {rep_b.draft_accepted} of "
-             f"{rep_b.draft_proposed} drafts accepted")
-    if check["done"] is None:
-        fail("speculative run: no round had every slot live")
-    done = check["done"]
-    if done["max_abs_diff"] > done["tolerance"]:
-        fail(f"verify logits differ from successive decode steps by "
-             f"{done['max_abs_diff']:.3e} > {done['tolerance']:.3e}")
-    if not done["draft_replay_equal"]:
-        fail("the replayed draft step does not propose the round's draft "
-             "tokens")
-    if not peak_b - peak_a < 0.05 * code_bytes:
-        fail(f"speculative peak memory {peak_b / 1e9:.3f} GB exceeds the "
-             f"resident run's {peak_a / 1e9:.3f} GB by 5% of the "
-             f"{code_bytes / 1e9:.3f} GB of codes or more")
+    gate_speculative("speculative run", rep_b, rounds_b, check, peak_a,
+                     peak_b, code_bytes)
     res["verify_check"] = check["done"]
     res["peak_delta_mb"] = (peak_b - peak_a) / 1e6
     same = [sum(x == y for x, y in zip(a, b))
@@ -1074,9 +1493,60 @@ def phase_check(torch, cfg) -> dict:
            "logits_max_abs": scale, "tolerance": tol,
            "greedy_tokens_equal_share": agree,
            "greedy_equal_prefix_per_row": prefix,
-           "slotted": check_slotted(torch, api, model, cfg2)}
+           "slotted": check_slotted(torch, api, model, cfg2),
+           "chunked": check_chunked(torch, cfg2)}
     emit(res)
     return res
+
+
+def check_chunked(torch, cfg) -> dict:
+    """The 2-layer chunked path on a min/max RTN backbone (K3): a prefill
+    (K4 at Sq = Sk = 256) and a slot-pool decode step and verify (K4 with
+    (B,) offsets) through the kernels against the plain versions; logits
+    within 2⁻⁵ of their largest magnitude."""
+    from repro_torch.core import policies
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+
+    cfg = convert_cfg(cfg, "nibble").replace(attn_impl="chunked")
+    api = registry.build(cfg)
+    model, _ = policies.prepare(api.init(SEED), cfg)
+    gen = torch.Generator().manual_seed(SEED + 6)
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+                           generator=gen).to("cuda")
+    toks = torch.randint(0, cfg.vocab_size, (TASKS_M, SPEC_K + 1),
+                         generator=gen).to("cuda")
+    pos = torch.arange(TASKS_M, device="cuda") * 31 + 20
+
+    def cache():
+        c = api.init_cache(TASKS_M, 512)
+        for key in c:
+            c[key].normal_(generator=torch.Generator(device="cuda"
+                                                     ).manual_seed(SEED))
+        return c
+
+    cases = {
+        "prefill": lambda: api.prefill(model, {"tokens": prompt})[0],
+        "decode": lambda: api.decode_step(model, cache(), toks[:, :1],
+                                          pos)[0],
+        "verify": lambda: api.decode_verify(model, cache(), toks, pos)[0],
+    }
+    out = {}
+    for name, fn in cases.items():
+        logits = {}
+        for impl in ("cuda", "torch"):
+            with ops.force_impl(impl), torch.inference_mode():
+                logits[impl] = fn().float()
+        lk, lp = logits["cuda"], logits["torch"]
+        if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
+            fail(f"non-finite logits in the 2-layer chunked {name}")
+        diff = (lk - lp).abs().max().item()
+        tol = 2.0 ** -5 * lp.abs().max().item()
+        if diff > tol:
+            fail(f"2-layer chunked {name}: kernels vs plain differ by "
+                 f"{diff:.3e} > {tol:.3e}")
+        out[name] = {"max_abs_diff": diff, "tolerance": tol}
+    return out
 
 
 def check_slotted(torch, api, model, cfg) -> dict:
@@ -1164,7 +1634,7 @@ def main() -> None:
 
     t_start = time.perf_counter()
     dev = phase_device(torch)
-    worst_err = phase_kernels(torch)
+    worst_err, attn_prefill = phase_kernels(torch)
     main_path = phase_main(torch)
     phase_profile(torch, main_path)
     plane = plane_backbone(torch, main_path)
@@ -1174,25 +1644,36 @@ def main() -> None:
     serve = phase_serve(torch, main_path)
     spec = phase_speculative(torch, plane, serve)
     del plane
+    conv = phase_convert(torch, main_path)
+    chunked = phase_chunked(torch, conv, serve, main_path["prompt"])
+    steps = {layout: conv[layout]["step"] for layout in conv}
+    del conv
     phase_check(torch, main_path["cfg"])
     if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
                                    for m in sys.modules):
         fail("the port loaded JAX or the JAX package")
 
-    from repro_torch.kernels import quant_matmul as qm
-    source = "src/repro_torch/kernels/csrc/{}.cu"
+    from repro_torch.kernels import ops
     plane_branch = "src/repro/kernels/quant_matmul.py:98"
-    replaces = {
-        "quant_gemv": "src/repro/kernels/quant_matmul.py:290",
-        "quant_matmul": "src/repro/kernels/quant_matmul.py:170",
-        "quant_gemv_tasks": "src/repro/kernels/quant_matmul.py:364",
-        "quant_gemv_planes": plane_branch,
-        "quant_matmul_planes": plane_branch,
-        "quant_gemv_tasks_planes": plane_branch,
+    # kernel → (its CUDA source, the TPU kernel it replaces)
+    where = {
+        "quant_gemv": ("quant_gemv", "src/repro/kernels/quant_matmul.py:290"),
+        "quant_matmul": ("quant_matmul",
+                         "src/repro/kernels/quant_matmul.py:170"),
+        "quant_gemv_tasks": ("quant_gemv",
+                             "src/repro/kernels/quant_matmul.py:364"),
+        "quant_gemv_planes": ("quant_gemv", plane_branch),
+        "quant_matmul_planes": ("quant_matmul", plane_branch),
+        "quant_gemv_tasks_planes": ("quant_gemv", plane_branch),
+        "rtn_pack": ("rtn_pack", "src/repro/kernels/rtn_pack.py:124"),
+        "rtn_pack_planes": ("rtn_pack", "src/repro/kernels/rtn_pack.py:107"),
+        "flash_attention": ("flash_attention",
+                            "src/repro/kernels/flash_attention.py:113"),
     }
     # each kernel's launches on the path that runs it: K1 and K2 on the
     # lockstep main path, K5 on the resident serve path, K6a's on the
-    # speculative runs (K5- and K2-plane over resident, K1-plane untasked)
+    # speculative runs (K5- and K2-plane over resident, K1-plane untasked),
+    # K3 and K6b on the conversions, K4 on the chunked lockstep path
     launches = dict(main_path["res"]["launches"])
     launches["quant_gemv_tasks"] = \
         serve["res"]["resident"]["launches"]["quant_gemv_tasks"]
@@ -1200,16 +1681,30 @@ def main() -> None:
         launches[name] = spec["speculative"]["launches"][name]
     launches["quant_gemv_planes"] = \
         spec["speculative_untasked"]["launches"]["quant_gemv_planes"]
+    times = dict(step)
+    for layout, name in (("nibble", "rtn_pack"), ("plane", "rtn_pack_planes")):
+        launches[name] = steps[layout]["launches"]
+        times[name] = steps[layout]
+    # K4: launches over the chunked lockstep generate (prefill + 31 steps,
+    # 16 each); ms, bound and library per prefill (16 × phase kernels'
+    # prefill case)
+    launches["flash_attention"] = chunked["k4_launches_lockstep"]
+    per = main_path["cfg"].n_layers
+    times["flash_attention"] = {
+        "ms": attn_prefill["us"] * per / 1e3,
+        "plain_ms": attn_prefill["plain_us"] * per / 1e3,
+        "bound_ms": attn_prefill["bound_us"] * per / 1e3,
+        "bound_by": attn_prefill["bound_by"],
+        "library_ms": attn_prefill["library_us"] * per / 1e3}
     kernels = []
-    for name in (k.__name__ for k in qm.KERNELS):
-        st = step[name]
+    for name in (k.__name__ for k in ops.KERNELS):
+        st = times[name]
         if launches[name] < 1:
             fail(f"{name} was never launched on its path")
         kernels.append({
             "name": name, "route": "cuda",
-            "source": source.format("quant_matmul" if "matmul" in name
-                                    else "quant_gemv"),
-            "replaces": replaces[name],
+            "source": f"src/repro_torch/kernels/csrc/{where[name][0]}.cu",
+            "replaces": where[name][1],
             "launches": launches[name],
             "max_abs_err": worst_err[name],
             "ms": st["ms"], "plain_ms": st["plain_ms"],

@@ -55,7 +55,7 @@ class ModelConfig:
     moe: Optional[object] = None       # not ported yet: refused by build
     use_rope: bool = True              # learned positions not ported yet
     bf16_reduce: bool = False          # not ported yet: refused by build
-    attn_impl: str = "dense"           # dense (chunked not ported yet)
+    attn_impl: str = "dense"           # dense | chunked (the K4 kernel)
     kv_cache_dtype: str = "model"      # model (int8 not ported yet)
     dtype: str = "bfloat16"
     quant: QuantConfig = QuantConfig()

@@ -25,6 +25,7 @@ from repro_torch.configs.base import QuantConfig
 from repro_torch.core.quant import (PLANE_PACK, pack_codes, pack_codes_planes,
                                     rtn_quantize, unpack_codes,
                                     unpack_codes_planes)
+from repro_torch.kernels import ops
 from repro_torch.models.linear import Linear
 
 # paths whose "w" leaf must never be quantized
@@ -67,10 +68,19 @@ def eligible(path: str, leaf: torch.Tensor, qcfg: QuantConfig) -> bool:
 
 def quantize_leaf(w: torch.Tensor, qcfg: QuantConfig) -> dict:
     """(n, m) fp → dict(qw, scale, zero).  (The reference maps over stacked
-    leading dims; the port's layers are separate modules.)"""
+    leading dims; the port's layers are separate modules.)
+
+    Plain min/max RTN (``n_grid <= 1``) of an asymmetric spec is the
+    conversion kernel's function: it goes through ``ops.rtn_pack`` (K3 for
+    nibbles, K6b for bit-planes, on the card).  Everything else runs
+    ``rtn_quantize`` and packs — the same function as the reference's
+    ``quantize_leaf`` either way."""
     spec = qcfg.spec()
     spec.check_ported()
     spec.validate(w.shape[-1])
+    if qcfg.n_grid <= 1 and not spec.symmetric:
+        qw, s, z = ops.rtn_pack(w, spec)
+        return {"qw": qw, "scale": s, "zero": z}
     q, s, z = rtn_quantize(w, spec, n_grid=qcfg.n_grid)
     qw = pack_codes_planes(q, spec.bits) if spec.plane else pack_codes(q)
     return {"qw": qw, "scale": s, "zero": z}

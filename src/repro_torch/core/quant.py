@@ -192,14 +192,22 @@ def _grouped(w: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
 
 
 def _rtn_params_for_range(lo, hi, spec: QuantSpec):
-    """Given per-group (lo, hi), produce (scale, zero)."""
+    """Given per-group (lo, hi), produce (scale, zero).
+
+    Both divisors (``levels``, and ``(levels − 1)/2`` for a symmetric spec)
+    are tensors, not Python numbers: PyTorch's CUDA division by a Python
+    scalar multiplies by its reciprocal, which differs from the reference's
+    division in the last bit; a tensor divisor divides on every device (and
+    is the plain version the pack kernels match bit for bit)."""
     levels = spec.levels
     if spec.symmetric:
         amax = torch.maximum(lo.abs(), hi.abs())
-        scale = torch.clamp(amax / ((levels - 1) / 2), min=1e-12)
+        scale = torch.clamp(amax / torch.full_like(amax, (levels - 1) / 2),
+                            min=1e-12)
         zero = torch.full_like(scale, (levels + 1) / 2)  # midpoint code
     else:
-        scale = torch.clamp((hi - lo) / levels, min=1e-12)
+        scale = torch.clamp((hi - lo) / torch.full_like(hi, levels),
+                            min=1e-12)
         zero = -lo / scale
     return scale, zero
 
@@ -241,8 +249,9 @@ def rtn_quantize(w: torch.Tensor, spec: QuantSpec, *, n_grid: int = 20,
         deq = s[..., None] * (q - z[..., None])
         return ((deq - wg) ** 2).sum(dim=-1), s, z
 
-    best_e, scale, zero = err_for(torch.tensor(1.0, dtype=torch.float32,
-                                               device=w.device))
+    # a device-side 1.0 (no host copy: a CUDA graph can capture this)
+    best_e, scale, zero = err_for(torch.ones((), dtype=torch.float32,
+                                             device=w.device))
     if n_grid > 1:
         for shrink in shrink_grid(n_grid, max_shrink, w.device)[1:]:
             e, s, z = err_for(shrink)

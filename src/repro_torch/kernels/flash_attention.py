@@ -1,0 +1,167 @@
+"""Attention forward with an online softmax: the hand-written CUDA kernel and
+its plain PyTorch version (``csrc/flash_attention.cu``).
+
+  * ``flash_attention``       — K4; replaces
+                                ``repro/kernels/flash_attention.py::
+                                flash_attention_pallas`` (``_fa_kernel``).
+  * ``flash_attention_plain`` — ``ref.flash_attention_ref``: float32 einsum
+                                logits, masked softmax, einsum with V.
+
+Operands in the port's layout: q (B, Sq, Hq, D), k and v (B, Sk, Hkv, D)
+with Hq % Hkv == 0 (GQA: query head h reads KV head h // (Hq/Hkv)), bf16 or
+f32, any strides of whole 16-byte vectors with the last dim contiguous and
+each tensor starting on 16 bytes (a layer's slice of the stacked KV cache
+goes in as it is); D a multiple of 8, at most 128.
+``causal``, ``window`` (key j visible to query i only if j > i − window),
+``scale`` (D^−½ by default) and ``offset`` (query 0's absolute position;
+None: Sk − Sq; an int; or a (B,) integer tensor on q's device, one
+position per batch row, which the kernel reads itself — no host sync).
+Returns (B, Sq, Hq, D) in q's dtype; a query that sees no key gets 0.
+
+A wrapper given CPU tensors returns the plain version; given CUDA tensors it
+launches its kernel or raises.  It counts its launches in the integer
+attribute ``launches`` (incremented only where the kernel launches).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+_DTYPES = (torch.bfloat16, torch.float32)
+D_MAX = 128
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ARGTYPES = [_P] * 5 + [_L] * 9 + [_I] * 9 + [ctypes.c_float, _I, _P]
+_entries: dict = {}
+
+flash_attention_plain = ref.flash_attention_ref
+
+
+def error_bound(q, k, v, plain, *, scale=None):
+    """Elementwise bound on |kernel − plain| for the same inputs.
+
+    Each logit is a D-long float32 dot taken in two orders, so each is
+    within D·u·S of the exact one (u = 2⁻²⁴, S = scale·Σ_d |q_d k_d|, the
+    standard recursive-summation bound) and the two differ by δ ≤ 2·D·u·S.
+    Perturbing the logits by δ moves each softmax weight by at most about
+    2δ of itself; exp, the normalizing sum and the Sk-long sum with V add
+    (2·Sk + 8)·u more, relative.  The output is a convex combination of V
+    rows, so with vmax = the largest |v| of that KV head and dim, the bound
+    is vmax·(4δ + 2·(Sk + 8)·u), δ taken with the row's largest S over all
+    keys.  A bf16 output adds one bf16 ulp of the larger result, as
+    ``quant_matmul.error_bound`` does.
+    """
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    u = 2.0 ** -24
+    qa = q.to(torch.float32).abs().reshape(b, sq, hkv, rep, d)
+    s = torch.einsum("bqhrd,bkhd->bqhrk", qa, k.to(torch.float32).abs())
+    smax = (s.amax(dim=-1) * abs(scale)).reshape(b, sq, hq, 1)
+    vmax = v.to(torch.float32).abs().amax(dim=1)              # (B, Hkv, D)
+    vmax = vmax.repeat_interleave(rep, dim=1)[:, None]        # (B, 1, Hq, D)
+    delta = 2 * d * u * smax
+    bound = vmax * (4 * delta + 2 * (sk + 8) * u)
+    if plain.dtype == torch.bfloat16:
+        mag = plain.to(torch.float32).abs() + bound
+        ulp = torch.exp2(torch.floor(torch.log2(
+            mag.clamp_min(torch.finfo(torch.float32).tiny))) - 7)
+        bound = bound + ulp
+    return bound
+
+
+def _check(q, k, v):
+    """Raise on anything the kernel does not take."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"need q (B, Sq, Hq, D), k and v (B, Sk, Hkv, D); "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, sq, hq, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} must be "
+                         f"(B={b}, Sk, Hkv, D={d})")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k and v must share one dtype of bfloat16 or "
+                        f"float32, got {q.dtype}, {k.dtype}, {v.dtype}")
+    sk, hkv = k.shape[1], k.shape[2]
+    if sq < 1 or sk < 1 or hkv < 1 or hq % hkv:
+        raise ValueError(f"need Sq, Sk >= 1 and Hq={hq} a multiple of "
+                         f"Hkv={hkv}")
+    if d % 8 or d > D_MAX:
+        raise ValueError(f"head dim {d}: need a multiple of 8, at most "
+                         f"{D_MAX}")
+    if b > 65535 or hkv > 65535:
+        raise ValueError(f"B={b} and Hkv={hkv} must be at most 65535")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("q, k and v need a contiguous last dim")
+    vec = 16 // q.element_size()
+    if any(t.data_ptr() % 16 or any(st % vec for st in t.stride()[:3])
+           for t in (q, k, v)):
+        raise ValueError("q, k and v must start on 16 bytes with strides of "
+                         "whole 16-byte vectors (the kernel loads 16-byte "
+                         "vectors)")
+    if len({t.device for t in (q, k, v)}) != 1:
+        raise ValueError("q, k and v on several devices")
+
+
+def _offsets(offset, b, sq, sk, device):
+    """(scalar offset, (B,) int64 device tensor or None) for the kernel."""
+    if offset is None:
+        return sk - sq, None
+    if torch.is_tensor(offset):
+        if offset.dim() > 1 or (offset.dim() == 1 and offset.shape[0] != b):
+            raise ValueError(f"offset {tuple(offset.shape)}: need a scalar "
+                             f"or (B={b},)")
+        if offset.dtype.is_floating_point or offset.dtype == torch.bool:
+            raise TypeError(f"offset must be an integer tensor, got "
+                            f"{offset.dtype}")
+        if offset.device != device:
+            raise ValueError(f"offset on {offset.device}, q on {device}")
+        return 0, offset.to(torch.int64).expand(b).contiguous()
+    return int(offset), None
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, scale=None,
+                    offset=None):
+    """K4: softmax(scale·q·kᵀ, masked)·v in q's dtype (see the module
+    docstring)."""
+    _check(q, k, v)
+    if window is not None and window < 1:
+        raise ValueError(f"window {window}: need None or >= 1")
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     scale=scale, offset=offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on CUDA tensors, got "
+                         f"{q.device}")
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    off, offs = _offsets(offset, b, sq, sk, q.device)
+    fn = _entries.get("flash_attention")
+    if fn is None:
+        fn = _build.load("flash_attention").flash_attention
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+        _entries["flash_attention"] = fn
+    o = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                None if offs is None else offs.data_ptr(),
+                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                b, sq, sk, hq, hkv, d, off, int(causal), int(window or 0),
+                float(scale if scale is not None else d ** -0.5),
+                int(q.dtype == torch.bfloat16), stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed with CUDA "
+                           f"error {rc} (B={b}, Sq={sq}, Sk={sk}, Hq={hq}, "
+                           f"Hkv={hkv}, D={d}, {q.dtype})")
+    flash_attention.launches += 1
+    return o
+
+
+KERNELS = (flash_attention,)
+flash_attention.launches = 0

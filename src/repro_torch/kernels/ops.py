@@ -4,13 +4,17 @@ forward only — the scale gradient comes with the training slice).
 ``quant_matmul`` is the single entry point models use for every quantized
 fully-connected layer, ``quant_matmul_slotted`` its mixed-task form (each
 row under its own task's scales, the resident scheduler's decode and
-prefill).  Implementations:
+prefill), ``rtn_pack`` the min/max quantize-and-pack of model conversion
+and ``attention`` the attention forward.  Implementations:
 
   * ``cuda``  — the hand-written kernels of ``kernels/quant_matmul.py``:
                 M ≤ ``GEMV_MAX_M`` rows go to the GEMV (every decode step;
                 K5 when slotted), larger M to the tiled GEMM (the prefill;
                 once per task present when slotted); bit-plane codes to
-                the plane branch of each (K6a).  A CUDA tensor
+                the plane branch of each (K6a); ``rtn_pack`` to K3
+                (nibbles) or K6b (bit-planes), ``kernels/rtn_pack.py``;
+                ``attention(impl="chunked")`` to K4,
+                ``kernels/flash_attention.py``.  A CUDA tensor
                 launches the kernel; a CPU tensor takes the kernel's plain
                 version.  The default.
   * ``torch`` — the plain version on whatever device the tensors are on
@@ -26,16 +30,23 @@ from typing import Optional
 import torch
 
 from repro_torch.core.quant import QuantSpec
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import quant_matmul as _qm
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import rtn_pack as _rp
 from repro_torch.kernels.quant_matmul import GEMV_MAX_M
 
-__all__ = ["GEMV_MAX_M", "KNOWN_IMPLS", "attention", "default_impl",
-           "force_impl", "quant_matmul", "quant_matmul_slotted"]
+__all__ = ["ATTN_IMPLS", "GEMV_MAX_M", "KERNELS", "KNOWN_IMPLS", "attention",
+           "default_impl", "force_impl", "quant_matmul",
+           "quant_matmul_slotted", "rtn_pack"]
 
 _tls = threading.local()
 
 KNOWN_IMPLS = ("cuda", "torch")
+# attention implementations a model config names (ModelConfig.attn_impl)
+ATTN_IMPLS = ("dense", "chunked")
+# every kernel wrapper, each with its ``launches`` counter
+KERNELS = _qm.KERNELS + _rp.KERNELS + _fa.KERNELS
 
 
 def _check_impl(impl: str) -> str:
@@ -171,7 +182,47 @@ def quant_matmul_slotted(x: torch.Tensor, qw: torch.Tensor,
     return y.reshape(*lead, y.shape[-1])
 
 
-def attention(q, k, v, *, causal=True, offset=None):
-    """Attention entry point (GQA-aware): the plain float32 version.
-    ``offset`` is a scalar or a (B,) tensor of per-row query positions."""
-    return _ref.flash_attention_ref(q, k, v, causal=causal, offset=offset)
+def rtn_pack(w: torch.Tensor, spec: QuantSpec):
+    """Min/max RTN quantize and pack w (N, K) → (qw, scale (N, G), zero (N,
+    G)): qw (N, K/8) nibble words or (bits, N, K/32) bit-planes per
+    ``spec.layout`` (port of the reference's ops.py:252, which is
+    ``ref.rtn_pack_ref(w, spec, n_grid=1)`` off the TPU).  ``cuda`` takes
+    K3 or K6b, ``torch`` their plain version.
+
+    Asymmetric specs only: the reference's Pallas kernel ignores
+    ``spec.symmetric`` and always computes the asymmetric formula, while
+    its ``rtn_pack_ref`` honours it — so a symmetric spec raises here
+    rather than pick one of the two."""
+    spec.check_ported()
+    if spec.symmetric:
+        raise NotImplementedError(
+            "rtn_pack takes asymmetric specs only (the reference's kernel "
+            "and its plain version disagree on symmetric ones); quantize "
+            "with core.quant.rtn_quantize instead")
+    spec.validate(w.shape[-1])
+    w = w.contiguous()
+    if default_impl() == "torch":
+        return _ref.rtn_pack_ref(w, spec, n_grid=1)
+    fn = _rp.rtn_pack_planes if spec.plane else _rp.rtn_pack
+    return fn(w, spec.bits, spec.group_size)
+
+
+def attention(q, k, v, *, causal=True, window=None, scale=None, offset=None,
+              impl: str = "dense"):
+    """Attention entry point (GQA-aware): q (B, Sq, Hq, D), k/v (B, Sk,
+    Hkv, D); ``offset`` a scalar or a (B,) tensor of per-row query
+    positions.
+
+    impl='dense'   — the plain float32 einsum and softmax (the reference's
+                     dense path is XLA, not Pallas);
+    impl='chunked' — K4, the online-softmax kernel, on CUDA tensors; its
+                     plain version on CPU tensors or under
+                     ``force_impl("torch")``."""
+    if impl not in ATTN_IMPLS:
+        raise ValueError(f"unknown attention impl {impl!r}; known: "
+                         f"{', '.join(ATTN_IMPLS)}")
+    if impl == "chunked" and default_impl() == "cuda":
+        return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                                   scale=scale, offset=offset)
+    return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                    scale=scale, offset=offset)

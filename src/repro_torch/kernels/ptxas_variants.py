@@ -4,11 +4,13 @@
 
 Needs ``nvcc`` (the machine with the card).  Compiles ``csrc/quant_gemv.cu``
 as committed and as four variants of K5's loops, and
-``csrc/quant_matmul.cu`` as committed, all in parallel and into a temporary
-directory.  Prints one JSON line per variant with each bf16 K5
+``csrc/quant_matmul.cu``, ``csrc/rtn_pack.cu`` and
+``csrc/flash_attention.cu`` as committed, all in parallel and into a
+temporary directory.  Prints one JSON line per variant with each bf16 K5
 instantiation's registers, local-memory stack frame and spill stores
 (``nvcc -Xptxas -v``), then one line listing every bit-plane (K6a)
-instantiation of the committed sources the same way.  ``report`` parses
+instantiation of the committed sources the same way, and one listing every
+instantiation of K3, K6b and K4.  ``report`` parses
 any such log into one row per instantiation (``chip_smoke.py`` phase
 ``device`` uses it).  The variants only exist to be compiled — two of them
 compute wrong results:
@@ -72,8 +74,9 @@ def report(log: str) -> list:
     shared memory, stack frame and spill-store bytes."""
     rows, cur = [], None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*?(quant_gemv|quant_matmul)"
-                      r"_kernelI(13__nv_bfloat16|f)((?:L[ib]\d+E)+)", line)
+        m = re.search(r"Compiling entry function '\S*?(quant_gemv|quant_matmul|"
+                      r"rtn_pack|flash_attention)_kernelI(13__nv_bfloat16|f)"
+                      r"((?:L[ib]\d+E)*)", line)
         if m:
             args = [int(a) for a in re.findall(r"L[ib](\d+)E", m.group(3))]
             cur = {"dtype": "bf16" if m.group(2) != "f" else "f32"}
@@ -81,9 +84,11 @@ def report(log: str) -> list:
                 mt, r, tasks, planes = args[:4]
                 cur = {"kernel": _GEMV_NAMES[bool(tasks), bool(planes)],
                        **cur, "MT": mt, "R": r}
-            else:
-                cur = {"kernel": "quant_matmul_planes" if args[0]
-                       else "quant_matmul", **cur}
+            elif m.group(1) == "flash_attention":    # <T, output dims a lane>
+                cur = {"kernel": "flash_attention", **cur, "DL": args[0]}
+            else:                        # quant_matmul, rtn_pack: <T, PLANES>
+                cur = {"kernel": m.group(1) + ("_planes" if args[0] else ""),
+                       **cur}
             rows.append(cur)
             continue
         if "Compiling entry function" in line:
@@ -136,6 +141,9 @@ def main() -> None:
                  for name, text in variants(src).items()}
         gemm = _nvcc((_build.CSRC / "quant_matmul.cu").read_text(), tmp,
                      "quant_matmul")
+        others = {name: _nvcc((_build.CSRC / f"{name}.cu").read_text(), tmp,
+                              name)
+                  for name in ("rtn_pack", "flash_attention")}
         planes = []
         for name, proc in procs.items():
             log = _log(name, proc)
@@ -148,6 +156,9 @@ def main() -> None:
                    if r["kernel"].endswith("_planes")]
         print(json.dumps({"variant": "committed", "planes": planes}),
               flush=True)
+        print(json.dumps({"variant": "committed", "pack_attention": [
+            r for name, proc in others.items()
+            for r in report(_log(name, proc))]}), flush=True)
 
 
 if __name__ == "__main__":

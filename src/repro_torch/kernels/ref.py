@@ -7,7 +7,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.quant import QuantSpec, unpack_codes, unpack_codes_planes
+from repro_torch.core.quant import (QuantSpec, pack_codes, pack_codes_planes,
+                                    rtn_quantize, unpack_codes,
+                                    unpack_codes_planes)
 
 
 def dequant_ref(qw, scale, zero, shape, spec: QuantSpec, dtype=torch.bfloat16):
@@ -47,20 +49,36 @@ def quant_matmul_tasks_ref(x, qw, scale_stack, zero_stack, task_ids, shape,
     return y.to(out_dtype)
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True, offset=None):
+def rtn_pack_ref(w, spec: QuantSpec, n_grid: int = 20):
+    """Quantize and pack: ``rtn_quantize`` then the spec's packing (the
+    reference's ``ref.rtn_pack_ref``, for the packed codes the port
+    serves).  With ``n_grid=1`` it is plain min/max RTN, the function of
+    the pack kernels (K3, K6b)."""
+    spec.check_ported()
+    q, s, z = rtn_quantize(w, spec, n_grid=n_grid)
+    qw = pack_codes_planes(q, spec.bits) if spec.plane else pack_codes(q)
+    return qw, s, z
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window=None,
+                        scale=None, offset=None):
     """Reference (GQA-aware) attention, in float32 einsum and softmax.
 
     q: (B, Sq, Hq, D), k/v: (B, Sk, Hkv, D), Hq % Hkv == 0.
+    window: sliding-window size — key j is visible to query i only if
+    j > i − window.  scale: the logit scale, D^−½ by default.
     offset: absolute position of query 0; key slot j is at absolute position
     j.  Defaults to Sk - Sq (prefill: ends aligned).  Decode against a KV
     cache passes offset = pos so unwritten slots (> pos) are masked.  A
     (B,) tensor gives every batch row its own query position (the slot
-    pool's decode step, where slots sit at different depths).
+    pool's decode step, where slots sit at different depths).  A row that
+    sees no key returns 0.
     """
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
     rep = hq // hkv
-    qf = q.to(torch.float32) * d ** -0.5
+    scale = scale if scale is not None else d ** -0.5
+    qf = q.to(torch.float32) * scale
     kf = k.to(torch.float32)
     vf = v.to(torch.float32)
     # (B, Hkv, rep, Sq, Sk)
@@ -78,6 +96,8 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, offset=None):
         mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
     if causal:
         mask &= jk <= iq
+    if window is not None:
+        mask &= jk > iq - window
     # broadcast over (Hkv, rep): (B|1, 1, 1, Sq, Sk)
     mask = mask[:, None, None] if mask.dim() == 3 else mask[None, None, None]
     logits = logits.masked_fill(~mask, float("-inf"))

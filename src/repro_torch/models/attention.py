@@ -1,6 +1,7 @@
 """GQA attention with RoPE and a KV cache (port of ``repro/models/attention.py``:
 ``init``, ``init_cache``, ``_qkv``, ``_rope_decode``, ``_cache_write``,
-``apply_prefill`` and ``apply_decode``, for full causal attention).
+``apply_prefill`` and ``apply_decode``, for full causal attention through
+``ops.attention`` under ``cfg.attn_impl``: dense, or chunked — K4).
 
 Cache layout (all layers stacked): {"k": (L, B, C, Hkv, D), "v": same} in the
 activation dtype, C = cache capacity; the batch dim is ``CACHE_BATCH_DIM``
@@ -108,7 +109,8 @@ def apply_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     _cache_write(cache_k, k, pos)
     _cache_write(cache_v, v, pos)
     # visible = slots with index <= query position
-    o = ops.attention(q, cache_k, cache_v, causal=True, offset=pos)
+    o = ops.attention(q, cache_k, cache_v, causal=True, offset=pos,
+                      impl=cfg.attn_impl)
     o = o.reshape(b, s, cfg.n_heads * cfg.d_head)
     out = linear.apply(p.wo, o, slots=linear.slot_entry(slots, "wo"),
                        draft_bits=draft_bits)
@@ -129,7 +131,7 @@ def apply_prefill(p: Attention, x: torch.Tensor, cfg: ModelConfig, rope,
     b, s, _ = x.shape
     q, k, v = _qkv(p, x, cfg, slots=slots)
     q, k = apply_rope(q, rope), apply_rope(k, rope)
-    o = ops.attention(q, k, v, causal=True)
+    o = ops.attention(q, k, v, causal=True, impl=cfg.attn_impl)
     o = o.reshape(b, s, cfg.n_heads * cfg.d_head)
     out = linear.apply(p.wo, o, slots=linear.slot_entry(slots, "wo"))
     return out, k.to(x.dtype), v.to(x.dtype)

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models import attention, transformer
 
 
@@ -69,7 +70,7 @@ def check_supported(cfg: ModelConfig) -> None:
         (cfg.swa_window is not None, "sliding-window attention"),
         (cfg.kv_cache_dtype != "model", f"kv_cache_dtype={cfg.kv_cache_dtype!r}"),
         (cfg.bf16_reduce, "bf16_reduce"),
-        (cfg.attn_impl != "dense", f"attn_impl={cfg.attn_impl!r}"),
+        (cfg.attn_impl not in ops.ATTN_IMPLS, f"attn_impl={cfg.attn_impl!r}"),
         (not cfg.use_rope, "learned positions (use_rope=False)"),
         (cfg.qkv_bias, "q/k/v biases"),
         (cfg.act != "silu", f"act={cfg.act!r}"),

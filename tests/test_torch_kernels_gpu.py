@@ -13,14 +13,19 @@ must equal K1's row under that row's task scales.  K6a (the ``*_planes``
 kernels) is held to its plain version within that bound and to its nibble
 kernel bit for bit: reading the top p of b' planes under ``shift = b' − p``
 must equal the nibble kernel on ``q >> shift`` under ``draft_scales``.
+K3 and K6b (``rtn_pack``, ``rtn_pack_planes``) must equal their plain
+version bit for bit: codes, scales and zeros.  K4 (``flash_attention``) is
+held to its plain version within ``flash_attention.error_bound``.
 """
 import pytest
 import torch
 
 from repro_torch.core.quant import (QuantSpec, draft_scales, pack_codes,
                                     pack_codes_planes, rtn_quantize)
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import quant_matmul as qm
+from repro_torch.kernels import rtn_pack as rp
 
 
 @pytest.fixture
@@ -215,3 +220,146 @@ def test_plane_ops_never_take_plain_version_and_refuse_short_buffers(
     torch.cuda.synchronize()
     with pytest.raises(ValueError, match="planes"):
         qm.quant_gemv_planes(x[:8], planes[:2].contiguous(), s, z, 3)
+
+
+def _tie_weights(n, k, bits, group, seed):
+    """Rows whose every w/s + z is a half-integer: round half to even
+    decides every code (roundf would round them all away from zero)."""
+    half = 1 << (bits - 1)
+    s0 = 0.25
+    g = torch.Generator().manual_seed(seed)
+    group = group or k
+    vals = (torch.arange(-half, half - 1, dtype=torch.float32) + 0.5) * s0
+    w = vals[torch.randint(0, len(vals), (n, k), generator=g)]
+    w = w.reshape(n, k // group, group)
+    w[..., 0] = -half * s0                   # the range: s = s0, z = half
+    w[..., 1] = (half - 1) * s0
+    return w.reshape(n, k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("group", [None, 128, 32])
+@pytest.mark.parametrize("bits", [2, 3, 4])
+@pytest.mark.parametrize("plane", [False, True], ids=["nibble", "plane"])
+@pytest.mark.parametrize("weights", ["normal", "ties"])
+def test_rtn_pack_bitwise_plain(cuda, weights, plane, bits, group, dtype):
+    """K3 / K6b on ragged N (100), K 512 (per-channel: one block-wide group;
+    group 128: a warp per group; group 32: 16 groups of one lane-width)."""
+    n, k = 100, 512
+    if weights == "ties":
+        w = _tie_weights(n, k, bits, group, seed=bits)
+    else:
+        g = torch.Generator().manual_seed(3 * bits + (group or 0))
+        w = torch.randn(n, k, generator=g) * k ** -0.5
+    w = w.to(dtype).to(cuda)
+    fn, plain = ((rp.rtn_pack_planes, rp.rtn_pack_planes_plain) if plane
+                 else (rp.rtn_pack, rp.rtn_pack_plain))
+    before = fn.launches
+    got = fn(w, bits, group)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = plain(w, bits, group)
+    for a, b, name in zip(got, want, ("qw", "scale", "zero")):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,k,group", [(2048, 8192, None), (8192, 2048, 128),
+                                       (512, 2048, None)])
+def test_rtn_pack_at_llama_shapes(cuda, n, k, group):
+    g = torch.Generator(device=cuda).manual_seed(n + k)
+    w = torch.randn(n, k, generator=g, device=cuda) * k ** -0.5
+    for plane in (False, True):
+        spec = QuantSpec(bits=4, group_size=group,
+                         layout="plane" if plane else "nibble")
+        got = ops.rtn_pack(w, spec)
+        with ops.force_impl("torch"):
+            want = ops.rtn_pack(w, spec)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.gpu
+def test_rtn_pack_cuda_tensors_never_take_plain_version(cuda, monkeypatch):
+    monkeypatch.setattr(rp, "rtn_pack_plain",
+                        lambda *a: pytest.fail("plain version on the card"))
+    monkeypatch.setattr(rp, "rtn_pack_planes_plain",
+                        lambda *a: pytest.fail("plain version on the card"))
+    w = torch.randn(64, 256, device=cuda)
+    for layout in ("nibble", "plane"):
+        ops.rtn_pack(w, QuantSpec(bits=4, layout=layout))
+    torch.cuda.synchronize()
+    with pytest.raises(ValueError, match="divide"):
+        rp.rtn_pack(w, 4, 48)
+
+
+def _attention_inputs(b, sq, sk, hq, hkv, d, dtype, device, seed,
+                      strided=False):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(b, sq, hq, d, generator=g)
+    k = torch.randn(b, sk, hkv, d, generator=g)
+    v = torch.randn(b, sk, hkv, d, generator=g)
+    q, k, v = (t.to(dtype).to(device) for t in (q, k, v))
+    if strided:                  # a layer's slice of a stacked (L, B, …) cache
+        k = torch.stack([torch.zeros_like(k), k])[1]
+        v = torch.stack([v, torch.zeros_like(v)])[0]
+        q = torch.cat([q, q], dim=2)[:, :, :hq]
+    return q, k, v
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "b,sq,sk,hq,hkv,d,causal,window,offset",
+    [(2, 32, 32, 2, 2, 16, True, None, None),
+     (1, 8, 24, 4, 4, 8, True, None, 16),
+     (2, 32, 32, 2, 2, 16, True, 12, None),
+     (1, 16, 48, 2, 2, 8, False, None, None),
+     (4, 256, 256, 32, 8, 64, True, None, None),     # the prefill
+     (8, 1, 512, 32, 8, 64, True, None, "slots"),    # slot decode
+     (8, 4, 512, 32, 8, 64, True, None, "slots"),    # slot verify
+     (3, 5, 70, 6, 2, 128, True, 20, "slots"),
+     (2, 7, 40, 3, 1, 40, False, 9, 5),
+     (2, 3, 50, 4, 2, 64, True, None, "negative")])  # rows that see no key
+def test_flash_attention_within_bound_of_plain(cuda, b, sq, sk, hq, hkv, d,
+                                               causal, window, offset, dtype):
+    q, k, v = _attention_inputs(b, sq, sk, hq, hkv, d, dtype, cuda,
+                                seed=b * sk + d, strided=sk == 70)
+    if offset == "slots":
+        offset = torch.linspace(20, min(300, sk - sq), b).to(torch.int64
+                                                              ).to(cuda)
+    elif offset == "negative":
+        offset = torch.tensor([-2, 30], device=cuda)
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=causal, window=window,
+                             offset=offset)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    plain = fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     offset=offset)
+    assert got.dtype == plain.dtype and got.shape == plain.shape
+    assert torch.isfinite(got).all()
+    err = (got.float() - plain.float()).abs()
+    bound = fa.error_bound(q, k, v, plain)
+    assert (err <= bound).all(), f"max err {err.max().item():.3e}"
+    if torch.is_tensor(offset) and (offset < 0).any():
+        assert torch.equal(got[0, :2], torch.zeros_like(got[0, :2]))
+
+
+@pytest.mark.gpu
+def test_chunked_attention_cuda_never_takes_plain_version(cuda, monkeypatch):
+    from repro_torch.kernels import ref
+    monkeypatch.setattr(ref, "flash_attention_ref",
+                        lambda *a, **k: pytest.fail("plain version on the card"))
+    monkeypatch.setattr(fa, "flash_attention_plain",
+                        lambda *a, **k: pytest.fail("plain version on the card"))
+    q, k, v = _attention_inputs(2, 4, 64, 8, 2, 64, torch.bfloat16, cuda, 0)
+    ops.attention(q, k, v, offset=torch.tensor([3, 40], device=cuda),
+                  impl="chunked")
+    torch.cuda.synchronize()
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fa.flash_attention(q[..., :60], k[..., :60], v[..., :60])

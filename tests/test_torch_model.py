@@ -165,7 +165,7 @@ def test_policies_masks(pair):
 
 @pytest.mark.parametrize("change", [
     dict(swa_window=8), dict(kv_cache_dtype="int8"), dict(moe=object()),
-    dict(bf16_reduce=True), dict(attn_impl="chunked"),
+    dict(bf16_reduce=True), dict(qkv_bias=True),
     dict(family="moe"), dict(quant_layout="plane", quant_bits=5),
     dict(quant_packed=False),
     dict(quant_bits=8)])
