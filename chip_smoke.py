@@ -11,12 +11,17 @@ line:
                src/repro_torch/kernels/csrc (one nvcc per source, all at
                once) and each kernel's registers, spills and shared memory
                (listed per wrapper: K1, K5, K2, the three K6a plane
-               kernels, K3, K6b and K4);
+               kernels, K3, K6b and K4; K2's wgmma and K4's mma.sync
+               instantiations must be there, with their dynamic shared
+               memory and, where cuobjdump is, their HGMMA / HMMA
+               instructions counted in the SASS);
   2. kernels — K1 (quant_gemv, M = 4), K2 (quant_matmul, M = 1024) and K5
                (quant_gemv_tasks, M = 8 rows over T = 4 tasks, ids
                0,1,2,3,0,1,2,3) against their plain versions at the main
                path's shapes, bf16, per-channel and group 128: error within
-               ``quant_matmul.error_bound``, and every K5 row bit-equal to
+               ``quant_matmul.error_bound`` (for K2 the factored bound of
+               its tensor-core route, against the plain version and
+               against its emulation), and every K5 row bit-equal to
                K1's under that row's task; kernel / plain / library time
                (CUDA events; weights rotated through > 2× the L2 so each
                launch reads them from HBM), and the least time the card
@@ -34,8 +39,9 @@ line:
                decode and verify (B 8, Sq 1 and 4,
                a 512-slot cache, offsets spread over [20, 300]), a window
                and a non-causal case, within flash_attention.error_bound of
-               its plain version, scaled_dot_product_attention timed beside
-               it as a yardstick;
+               its plain version (and its distance from the emulation of its
+               split-P, split-KV arithmetic), scaled_dot_product_attention
+               timed beside it as a yardstick;
   3. main    — llama3.2-1b at full width from a seeded generator, PEQA
                4-bit per-channel RTN (n_grid 20), Engine.generate with
                B = 4, a 256-token prompt and 32 new tokens; the launch
@@ -113,8 +119,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12           # CUDA cores: the kernels multiply in float32
-BF16_FLOPS = 989e12         # tensor cores: the library yardstick's rate
+F32_FLOPS = 67e12           # CUDA cores: K1, K5 and the K1/K5-plane GEMVs
+BF16_FLOPS = 989e12         # tensor cores: K2, K2-plane and K4 (bf16)
 
 SEED = 0
 BATCH, PROMPT, NEW = 4, 256, 32
@@ -201,13 +207,15 @@ def bytes_ms(m: int, n: int, k: int, groups: int, scale_sets: int = 1,
 
 
 def bound_ms(m: int, n: int, k: int, groups: int, scale_sets: int = 1,
-             code_bits: int = 4) -> tuple:
-    """Least time for one y = x·Ŵᵀ: the larger of ``bytes_ms`` and
-    2·M·N·K float32 operations at the CUDA-core rate.  Returns (ms,
-    "bytes" | "operations", ms at the bf16 rate)."""
+             code_bits: int = 4, tensor_cores: bool = False) -> tuple:
+    """Least time for one y = x·Ŵᵀ: the larger of ``bytes_ms`` and 2·M·N·K
+    operations at the rate of the units that do them — the bf16 tensor
+    cores for K2's route (``tensor_cores``: bf16 x and 4-bit codes are
+    exact bf16 operands), else the f32 CUDA cores.  Returns (ms, "bytes" |
+    "operations", ms at the bf16 rate)."""
     t_bytes = bytes_ms(m, n, k, groups, scale_sets, code_bits)
     ops = 2 * m * n * k
-    t_ops = ops / F32_FLOPS * 1e3
+    t_ops = ops / (BF16_FLOPS if tensor_cores else F32_FLOPS) * 1e3
     t_bf16 = max(t_bytes, ops / BF16_FLOPS * 1e3)
     if t_bytes >= t_ops:
         return t_bytes, "bytes", t_bf16
@@ -249,8 +257,39 @@ def phase_device(torch) -> dict:
     missing = [k for k, v in info["ptxas"].items() if not v]
     if missing:
         fail(f"no instantiation of {missing} in the build")
+    for name, route in (("quant_matmul", "wgmma"),
+                        ("quant_matmul_planes", "wgmma"),
+                        ("flash_attention", "mma.sync")):
+        if not any(r.get("route") == route for r in info["ptxas"][name]):
+            fail(f"no {route} instantiation of {name} in the build")
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import quant_matmul as qm
+    # dynamic shared memory of the tensor-core kernels (above 48 KB through
+    # cudaFuncSetAttribute), and their tensor-core instructions in the SASS
+    info["dynamic_smem"] = {"quant_matmul": qm.tc_smem_bytes(),
+                            "flash_attention": fa.tc_smem_bytes()}
+    info["sass_tensor_core_ops"] = sass_ops(_build)
+    for name, op in (("quant_matmul", "HGMMA"), ("flash_attention", "HMMA")):
+        got = info["sass_tensor_core_ops"].get(name)
+        if got is not None and not got.get(op):
+            fail(f"no {op} instruction in the compiled {name} library")
     emit(info)
     return info
+
+
+def sass_ops(_build) -> dict:
+    """Tensor-core instructions (HGMMA: wgmma, HMMA: mma.sync) in the SASS
+    of each built library, by ``cuobjdump -sass``; {} without cuobjdump."""
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    if not os.path.isfile(tool):
+        return {}
+    out = {}
+    for name in ("quant_matmul", "flash_attention"):
+        sass = subprocess.run([tool, "-sass", str(_build.lib_path(name))],
+                              capture_output=True, text=True, timeout=300)
+        out[name] = {op: len(re.findall(rf"\b{op}\.", sass.stdout))
+                     for op in ("HGMMA", "HMMA")}
+    return out
 
 
 def quantized_operands(torch, n, k, group, gen):
@@ -311,9 +350,23 @@ def phase_kernels(torch) -> dict:
                 got = fn(x, qw, s, z)
                 plain = qm.quant_matmul_plain(x, qw, s, z)
                 torch.cuda.synchronize()
-                err = check_close(f"{name} M={m} N={n} K={k} group={group}",
-                                  got, plain, qm.error_bound(x, qw, s, z, plain))
+                tc = fn is qm.quant_matmul and qm.tc_route(x, s)
+                what = f"{name} M={m} N={n} K={k} group={group}"
+                err = check_close(what, got, plain, qm.error_bound(
+                    x, qw, s, z, plain, factored=tc))
                 worst[name] = max(worst[name], err)
+                extra = {}
+                if fn is qm.quant_matmul:
+                    if not tc:
+                        fail(f"{what}: not on the tensor-core route")
+                    # the kernel against its emulation, within the same bound
+                    emu = qm.quant_matmul_factored_plain(x, qw, s, z)
+                    extra = {"route": "wgmma", "max_abs_err_emulation":
+                             check_close(f"{what} (emulation)", got, emu,
+                                         qm.error_bound(x, qw, s, z, emu,
+                                                        factored=True)),
+                             "bitwise_emulation": bool(torch.equal(got, emu))}
+                    del emu
                 # rotate weight copies through > 2x the L2 cache so every
                 # launch streams its weights from HBM, as the model's does
                 copies = max(2, math.ceil(2 * L2_BYTES / (n * k // 2)))
@@ -327,9 +380,9 @@ def phase_kernels(torch) -> dict:
                                  max(10, iters // 4))
                 lib_ms = timed(lambda a, b: torch.matmul(a, b.T), lib_sets,
                                iters)
-                b_ms, b_by, b_bf16 = bound_ms(m, n, k, g)
+                b_ms, b_by, b_bf16 = bound_ms(m, n, k, g, tensor_cores=tc)
                 emit({"phase": "kernels", "kernel": name, "M": m, "N": n,
-                      "K": k, "group": group, "max_abs_err": err,
+                      "K": k, "group": group, "max_abs_err": err, **extra,
                       "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                       "bound_ms": b_ms, "bound_by": b_by,
                       "bound_bf16_ms": b_bf16})
@@ -409,22 +462,18 @@ def attn_bound_ms(mask) -> tuple:
     work of these inputs (``mask``): the larger of its bytes (q and out
     once, the K and V rows of the keys some query of a batch row sees,
     bf16) at HBM rate and its operations, 2·D per visible (query, key,
-    head) for each of the two products.  q·kᵀ is priced at the bf16
-    tensor-core rate: at D = 64 the scale 2⁻³ is exact in bf16 and a bf16
-    product is exact in f32, so bf16 operands with f32 accumulation are the
-    same function to summation order.  The probabilities are f32, so P·V
-    is priced at the f32 CUDA-core rate.  Returns (ms, "bytes" |
-    "operations", ms with both products at the bf16 rate)."""
+    head) for each of the two products, both at the bf16 tensor-core rate
+    (q·kᵀ: bf16 products are exact in f32; P·V: the kernel runs it on the
+    tensor cores, P as two bf16 halves — priced once, the function's
+    work).  Returns (ms, "bytes" | "operations")."""
     b, sq, _ = mask.shape
     pairs, keys = int(mask.sum()), int(mask.any(dim=1).sum())
     t_bytes = (2 * b * sq * HQ * DHEAD * 2 + 2 * keys * HKV * DHEAD * 2
                ) / HBM_BYTES_PER_S * 1e3
-    product = 2 * DHEAD * pairs * HQ
-    t_ops = (product / BF16_FLOPS + product / F32_FLOPS) * 1e3
-    t_bf16 = max(t_bytes, 2 * product / BF16_FLOPS * 1e3)
+    t_ops = 2 * (2 * DHEAD * pairs * HQ) / BF16_FLOPS * 1e3
     if t_bytes >= t_ops:
-        return t_bytes, "bytes", t_bf16
-    return t_ops, "operations", t_bf16
+        return t_bytes, "bytes"
+    return t_ops, "operations"
 
 
 def kernel_attention(torch, gen) -> tuple:
@@ -452,11 +501,15 @@ def kernel_attention(torch, gen) -> tuple:
         err = check_close(f"flash_attention {name}", got, plain,
                           fa.error_bound(q, k, v, plain))
         worst = max(worst, err)
+        splits = fa.decode_splits(sq, sk)
+        # the kernel's arithmetic emulated (split-P product, split combine)
+        emu_err = (got.float() - fa.flash_attention_split_plain(
+            q, k, v, splits=splits, **kw).float()).abs().max().item()
         nbytes = (q.numel() + 2 * k.numel()) * 2
         sets = [tuple(t.clone() for t in (q, k, v)) for _ in range(
             max(2, math.ceil(2 * L2_BYTES / nbytes)))]
         mask = attn_mask(torch, b, sq, sk, offset, causal, window)
-        b_ms, b_by, b_bf16 = attn_bound_ms(mask)
+        b_ms, b_by = attn_bound_ms(mask)
         aligned = causal and window is None and off is None and sq == sk
         mask = None if aligned or not (causal or window) else mask[:, None]
 
@@ -470,10 +523,11 @@ def kernel_attention(torch, gen) -> tuple:
         lib_ms = timed(lib, sets, 50)
         row = {"phase": "kernels", "kernel": "flash_attention", "case": name,
                "B": b, "Sq": sq, "Sk": sk, "Hq": HQ, "Hkv": HKV, "D": DHEAD,
-               "causal": causal, "window": window, "max_abs_err": err,
+               "causal": causal, "window": window, "splits": splits,
+               "max_abs_err": err, "max_abs_err_emulation": emu_err,
                "us": ms * 1e3, "plain_us": plain_ms * 1e3,
                "library_us": lib_ms * 1e3, "bound_us": b_ms * 1e3,
-               "bound_by": b_by, "bound_bf16_us": b_bf16 * 1e3}
+               "bound_by": b_by}
         emit(row)
         if name == "prefill":
             prefill = row
@@ -557,8 +611,10 @@ def kernel_planes(torch, qm, n, k, group, qw, s, z, gen) -> dict:
             plain = plain_fn(x, planes, *sz, *extra, p, shift)
             torch.cuda.synchronize()
             what = f"{name} M={m} N={n} K={k} group={group} p={p}"
+            tc = name == "quant_matmul_planes"
             err = check_close(what, got, plain, qm.error_bound(
-                x, planes, *sz, plain, task_ids=tid, planes=(p, shift)))
+                x, planes, *sz, plain, task_ids=tid, planes=(p, shift),
+                factored=tc))
             if not torch.equal(got, want):
                 fail(f"{what}: differs from its nibble kernel on the "
                      f"{p}-bit codes under draft_scales")
@@ -571,7 +627,7 @@ def kernel_planes(torch, qm, n, k, group, qw, s, z, gen) -> dict:
             plain_ms = timed(lambda *a: plain_fn(*a, p, shift), argsets,
                              max(5, iters // 20))
             b_ms, b_by, _ = bound_ms(m, n, k, g, scale_sets=sets_,
-                                     code_bits=p)
+                                     code_bits=p, tensor_cores=tc)
             emit({"phase": "kernels", "kernel": name, "M": m, "N": n, "K": k,
                   "group": group, "planes": p, "max_abs_err": err,
                   "bitwise_nibble": True, "us": ms * 1e3,
@@ -964,8 +1020,8 @@ def phase_step(torch, model, plane_model) -> dict:
         lib_ms = timed(run_lib, [()], reps)
         del w16, lib
         torch.cuda.empty_cache()
-        b = [bound_ms(m, l.out_features, l.in_features, l.scale.shape[1])
-             for l in lins]
+        b = [bound_ms(m, l.out_features, l.in_features, l.scale.shape[1],
+                      tensor_cores=fn is qm.quant_matmul) for l in lins]
         out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                      "bound_ms": sum(t for t, _, _ in b),
                      "bound_by": b[0][1],
@@ -1022,7 +1078,9 @@ def step_planes(torch, qm, lins, gen) -> dict:
         plain_ms = timed(run_plain, [()], 2)
         sets_ = 1 if tid is None else len(set(TASK_IDS))
         b = [bound_ms(m, l.out_features, l.in_features, l.scale.shape[1],
-                      scale_sets=sets_, code_bits=p) for l in lins]
+                      scale_sets=sets_, code_bits=p,
+                      tensor_cores=name == "quant_matmul_planes")
+             for l in lins]
         res = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
                "bound_ms": sum(t for t, _, _ in b), "bound_by": b[0][1],
                "bound_bf16_ms": sum(t for _, _, t in b),

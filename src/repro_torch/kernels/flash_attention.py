@@ -18,9 +18,18 @@ None: Sk − Sq; an int; or a (B,) integer tensor on q's device, one
 position per batch row, which the kernel reads itself — no host sync).
 Returns (B, Sq, Hq, D) in q's dtype; a query that sees no key gets 0.
 
+Two kernels behind the wrapper: bf16 operands take the tensor cores
+(mma.sync bf16 for q·kᵀ, and for P·V with P split into bf16 hi + lo), and
+for Sq ≤ ``SPLIT_MAX_SQ`` (decode, verify) the key range is split across
+blocks, ``decode_splits(Sq, Sk)`` of them, whose partials a second launch
+combines; f32 operands take the SIMT f32 kernel.  ``split_p_product`` and
+``flash_attention_split_plain`` emulate the split-P product and the
+split-KV combine (for the tests and ``chip_smoke.py`` only).
+
 A wrapper given CPU tensors returns the plain version; given CUDA tensors it
 launches its kernel or raises.  It counts its launches in the integer
-attribute ``launches`` (incremented only where the kernel launches).
+attribute ``launches``: one per call (incremented only where the kernel
+launches), also when a split call makes a second, combining launch.
 """
 from __future__ import annotations
 
@@ -33,24 +42,108 @@ from repro_torch.kernels import _build, ref
 _DTYPES = (torch.bfloat16, torch.float32)
 D_MAX = 128
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = [_P] * 5 + [_L] * 9 + [_I] * 9 + [ctypes.c_float, _I, _P]
+_ARGTYPES = ([_P] * 5 + [_L] * 9 + [_I] * 9 + [ctypes.c_float, _I, _I]
+             + [_P] * 3)
 _entries: dict = {}
+# decode and verify: split the keys across blocks for Sq up to this
+SPLIT_MAX_SQ, SPLIT_KEYS, MAX_SPLITS = 4, 64, 16
 
 flash_attention_plain = ref.flash_attention_ref
 
 
-def error_bound(q, k, v, plain, *, scale=None):
-    """Elementwise bound on |kernel − plain| for the same inputs.
+def decode_splits(sq: int, sk: int) -> int:
+    """Blocks the bf16 kernel splits the keys over: one per 64-key tile
+    (at most 16) for Sq ≤ 4, else 1.  Fixed by the shapes, so a captured
+    step replays with any offsets."""
+    if sq > SPLIT_MAX_SQ:
+        return 1
+    return max(1, min(MAX_SPLITS, -(-sk // SPLIT_KEYS)))
 
-    Each logit is a D-long float32 dot taken in two orders, so each is
-    within D·u·S of the exact one (u = 2⁻²⁴, S = scale·Σ_d |q_d k_d|, the
-    standard recursive-summation bound) and the two differ by δ ≤ 2·D·u·S.
-    Perturbing the logits by δ moves each softmax weight by at most about
-    2δ of itself; exp, the normalizing sum and the Sk-long sum with V add
-    (2·Sk + 8)·u more, relative.  The output is a convex combination of V
-    rows, so with vmax = the largest |v| of that KV head and dim, the bound
-    is vmax·(4δ + 2·(Sk + 8)·u), δ taken with the row's largest S over all
-    keys.  A bf16 output adds one bf16 ulp of the larger result, as
+
+def split_chunk(sk: int, splits: int) -> int:
+    """Keys a split: Sk / splits rounded up to whole 64-key tiles (as the
+    kernel computes it)."""
+    return -(-(-(-sk // splits)) // SPLIT_KEYS) * SPLIT_KEYS
+
+
+def split_p_product(p, v):
+    """P·V as the bf16 kernel takes it: f32 P split into hi = bf16(P) and
+    lo = bf16(P − hi), both multiplied with bf16-exact V, summed in f32."""
+    hi = p.to(torch.bfloat16).to(torch.float32)
+    lo = (p - hi).to(torch.bfloat16).to(torch.float32)
+    return hi @ v + lo @ v
+
+
+def flash_attention_split_plain(q, k, v, *, causal=True, window=None,
+                                scale=None, offset=None, splits=1):
+    """An emulation of the bf16 kernel's arithmetic: logits in f32, the keys
+    cut into ``splits`` chunks of ``split_chunk`` keys, each chunk's partial
+    (max m_s, sum l_s, unnormalised split-P product o_s), then the combine
+    o = Σ o_s·e^(m_s − M) / Σ l_s·e^(m_s − M).  A row that sees no key
+    gets 0.  Returns q's dtype."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    qf = q.to(torch.float32).reshape(b, sq, hkv, rep, d)
+    logits = torch.einsum("bqhrd,bkhd->bhrqk", qf, k.to(torch.float32)) * scale
+    mask = ref.visible(b, sq, sk, causal, window, offset, q.device)
+    mask = mask[:, None, None] if mask.dim() == 3 else mask[None, None, None]
+    logits = logits.masked_fill(~mask, float("-inf"))
+    # (B, Hkv, 1, Sk, D)
+    vf = v.to(torch.float32).permute(0, 2, 1, 3)[:, :, None]
+    chunk = split_chunk(sk, splits)
+    parts = []
+    for c0 in range(0, chunk * splits, chunk):
+        lg = logits[..., c0:c0 + chunk]
+        if lg.shape[-1] == 0:
+            continue
+        m = lg.amax(dim=-1, keepdim=True)
+        p = torch.where(torch.isinf(m), torch.zeros_like(lg),
+                        torch.exp(lg - m))
+        parts.append((m, p.sum(dim=-1, keepdim=True),
+                      split_p_product(p, vf[..., c0:c0 + chunk, :])))
+    mx = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    num = torch.zeros_like(parts[0][2])
+    den = torch.zeros_like(parts[0][1])
+    for m, l, o in parts:
+        w = torch.where(torch.isinf(m), torch.zeros_like(m), torch.exp(m - mx))
+        num = num + o * w
+        den = den + l * w
+    tiny = torch.finfo(torch.float32).tiny
+    out = torch.where(den > 0, num / den.clamp_min(tiny), torch.zeros_like(num))
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(q.dtype)
+
+
+def error_bound(q, k, v, plain, *, scale=None):
+    """Elementwise bound on |kernel − plain| for the same inputs
+    (u = 2⁻²⁴, f32 round to nearest).
+
+    f32 operands (the SIMT kernel): each logit is a D-long float32 dot
+    taken in two orders, so each is within D·u·S of the exact one (S =
+    scale·Σ_d |q_d k_d|, the standard recursive-summation bound) and the
+    two differ by δ ≤ 2·D·u·S.  Perturbing the logits by δ moves each
+    softmax weight by at most about 2δ of itself; exp, the normalizing sum
+    and the Sk-long sum with V add (2·Sk + 8)·u more, relative.  The output
+    is a convex combination of V rows, so with vmax = the largest |v| of
+    that KV head and dim, the bound is vmax·(4δ + 2·(Sk + 8)·u), δ taken
+    with the row's largest S over all keys.
+
+    bf16 operands (the tensor-core kernel): the products are exact and the
+    tensor cores accumulate in f32 without a promise of rounding to
+    nearest (u_t = 2u), so a kernel logit is within D·u_t·S, plus u·S for
+    the scale applied to the f32 logit; the plain version's within
+    (D + 1)·u·S; δ ≤ (3·D + 2)·u·S.  On the weights: P = hi + lo keeps 16
+    bits, 2⁻¹⁶ = 2⁸·u relative; the tensor cores add 2·Sk products (hi
+    and lo) at u_t, 4·Sk·u; the running sum, the per-tile rescales, the
+    split combine (at most Sk terms) and the division add Sk + Sk + 8; the
+    plain version's softmax and Sk-long sum add 2·Sk.  So the bound is
+    vmax·(4δ + (2⁸ + 8·Sk + 32)·u).  On an H100 (NVIDIA H100 80GB HBM3,
+    700 W; ``chip_smoke.py`` phase ``kernels`` at llama3.2-1b's heads) the
+    worst |kernel − plain| is 0.0078 (the window case; outputs in bf16, so
+    mostly their last-ulp rounding), inside this bound.
+
+    A bf16 output adds one bf16 ulp of the larger result, as
     ``quant_matmul.error_bound`` does.
     """
     b, sq, hq, d = q.shape
@@ -63,8 +156,12 @@ def error_bound(q, k, v, plain, *, scale=None):
     smax = (s.amax(dim=-1) * abs(scale)).reshape(b, sq, hq, 1)
     vmax = v.to(torch.float32).abs().amax(dim=1)              # (B, Hkv, D)
     vmax = vmax.repeat_interleave(rep, dim=1)[:, None]        # (B, 1, Hq, D)
-    delta = 2 * d * u * smax
-    bound = vmax * (4 * delta + 2 * (sk + 8) * u)
+    if q.dtype == torch.bfloat16:
+        delta = (3 * d + 2) * u * smax
+        bound = vmax * (4 * delta + (2 ** 8 + 8 * sk + 32) * u)
+    else:
+        delta = 2 * d * u * smax
+        bound = vmax * (4 * delta + 2 * (sk + 8) * u)
     if plain.dtype == torch.bfloat16:
         mag = plain.to(torch.float32).abs() + bound
         ulp = torch.exp2(torch.floor(torch.log2(
@@ -146,7 +243,16 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None,
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
         _entries["flash_attention"] = fn
+    bf16 = q.dtype == torch.bfloat16
+    splits = decode_splits(sq, sk) if bf16 else 1
     o = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
+    part_o = part_ml = None
+    if splits > 1:                 # the partials the combining launch reads
+        rows = sq * (hq // hkv)
+        part_o = torch.empty((b, hkv, splits, rows, d), dtype=torch.float32,
+                             device=q.device)
+        part_ml = torch.empty((b, hkv, splits, rows, 2), dtype=torch.float32,
+                              device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -154,13 +260,23 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None,
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                 b, sq, sk, hq, hkv, d, off, int(causal), int(window or 0),
                 float(scale if scale is not None else d ** -0.5),
-                int(q.dtype == torch.bfloat16), stream)
+                int(bf16), splits,
+                None if part_o is None else part_o.data_ptr(),
+                None if part_ml is None else part_ml.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed with CUDA "
                            f"error {rc} (B={b}, Sq={sq}, Sk={sk}, Hq={hq}, "
-                           f"Hkv={hkv}, D={d}, {q.dtype})")
-    flash_attention.launches += 1
+                           f"Hkv={hkv}, D={d}, {q.dtype}, {splits} splits)")
+    flash_attention.launches += 1            # one per call, split or not
     return o
+
+
+def tc_smem_bytes() -> dict:
+    """Dynamic shared memory of a 4-warp block of the bf16 kernel, per
+    padded head dim (above 48 KB at 128: set with cudaFuncSetAttribute)."""
+    fn = _build.load("flash_attention").flash_attention_tc_smem
+    fn.argtypes, fn.restype = [_I], ctypes.c_int
+    return {"D<=64": fn(64), "D<=128": fn(128)}
 
 
 KERNELS = (flash_attention,)

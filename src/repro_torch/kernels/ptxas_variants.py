@@ -10,7 +10,11 @@ temporary directory.  Prints one JSON line per variant with each bf16 K5
 instantiation's registers, local-memory stack frame and spill stores
 (``nvcc -Xptxas -v``), then one line listing every bit-plane (K6a)
 instantiation of the committed sources the same way, and one listing every
-instantiation of K3, K6b and K4.  ``report`` parses
+instantiation of K3, K6b and K4, and one listing the tensor-core
+instantiations (K2's ``wgmma`` tiles, nibble and plane, and K4's ``mma.sync``
+kernel and its combine) with the dynamic shared memory each block takes
+(above the 48 KB default: set with ``cudaFuncSetAttribute``; read from the
+built libraries' ``*_tc_smem`` entry points, no kernel runs).  ``report`` parses
 any such log into one row per instantiation (``chip_smoke.py`` phase
 ``device`` uses it).  The variants only exist to be compiled — two of them
 compute wrong results:
@@ -25,6 +29,7 @@ compute wrong results:
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import re
 import subprocess
@@ -70,10 +75,32 @@ _GEMV_NAMES = {(False, False): "quant_gemv", (True, False): "quant_gemv_tasks",
 
 def report(log: str) -> list:
     """One row per kernel instantiation in an ``nvcc -Xptxas -v`` log: the
-    wrapper that launches it, dtype, (MT, R) for the GEMV, registers,
-    shared memory, stack frame and spill-store bytes."""
+    wrapper that launches it, dtype, (MT, R) for the GEMV, the route and
+    tile of the tensor-core kernels, registers, static shared memory,
+    stack frame and spill-store bytes.  (The tensor-core kernels' shared
+    memory is dynamic: ``quant_matmul.tc_smem_bytes``,
+    ``flash_attention.tc_smem_bytes``.)"""
     rows, cur = [], None
     for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*?quant_matmul_tc_kernelI"
+                      r"NS0_3CfgILi(\d+)ELi(\d+)EEELb([01])E", line)
+        if m:                    # K2's tensor-core route <Cfg<BN, WGS>, PLANES>
+            bn, wgs = int(m.group(1)), int(m.group(2))
+            cur = {"kernel": "quant_matmul" + ("_planes" if m.group(3) == "1"
+                                               else ""),
+                   "dtype": "bf16", "route": "wgmma",
+                   "tile": f"{64 * wgs}x{bn}"}
+            rows.append(cur)
+            continue
+        m = re.search(r"Compiling entry function '\S*?flash_attention_"
+                      r"(tc|combine)_kernel(?:ILi(\d+)E)?", line)
+        if m:                    # K4's tensor-core kernel <DP> and its combine
+            cur = {"kernel": "flash_attention", "dtype": "bf16",
+                   "route": "mma.sync" if m.group(1) == "tc" else "combine"}
+            if m.group(2):
+                cur["DP"] = int(m.group(2))
+            rows.append(cur)
+            continue
         m = re.search(r"Compiling entry function '\S*?(quant_gemv|quant_matmul|"
                       r"rtn_pack|flash_attention)_kernelI(13__nv_bfloat16|f)"
                       r"((?:L[ib]\d+E)*)", line)
@@ -134,6 +161,17 @@ def _log(name: str, proc: subprocess.Popen) -> str:
     return log
 
 
+def _tc_smem(tmp: str) -> dict:
+    """Dynamic shared memory of the tensor-core tiles, from the libraries
+    just built in ``tmp`` (host functions: no kernel is launched)."""
+    qm = ctypes.CDLL(str(Path(tmp) / "quant_matmul.so")).quant_matmul_tc_smem
+    fa = ctypes.CDLL(str(Path(tmp) / "flash_attention.so")
+                     ).flash_attention_tc_smem
+    return {"quant_matmul": {tile: qm(i) for i, tile in
+                             enumerate(("64x64", "128x128", "128x256"))},
+            "flash_attention": {"D<=64": fa(64), "D<=128": fa(128)}}
+
+
 def main() -> None:
     src = (_build.CSRC / "quant_gemv.cu").read_text()
     with tempfile.TemporaryDirectory() as tmp:
@@ -152,13 +190,18 @@ def main() -> None:
             if name == "committed":
                 planes += [r for r in report(log)
                            if r["kernel"].endswith("_planes")]
-        planes += [r for r in report(_log("quant_matmul", gemm))
+        gemm_log = _log("quant_matmul", gemm)
+        planes += [r for r in report(gemm_log)
                    if r["kernel"].endswith("_planes")]
         print(json.dumps({"variant": "committed", "planes": planes}),
               flush=True)
+        logs = {name: _log(name, proc) for name, proc in others.items()}
         print(json.dumps({"variant": "committed", "pack_attention": [
-            r for name, proc in others.items()
-            for r in report(_log(name, proc))]}), flush=True)
+            r for log in logs.values() for r in report(log)]}), flush=True)
+        print(json.dumps({"variant": "committed", "tensor_cores": [
+            r for log in (gemm_log, logs["flash_attention"])
+            for r in report(log) if "route" in r],
+            "dynamic_smem": _tc_smem(tmp)}), flush=True)
 
 
 if __name__ == "__main__":

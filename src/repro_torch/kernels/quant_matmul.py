@@ -5,6 +5,12 @@ plain PyTorch versions.
                        replaces ``repro/kernels/quant_matmul.py::quant_gemv_pallas``.
   * ``quant_matmul`` — K2, the tiled GEMM for prefill, ``csrc/quant_matmul.cu``;
                        replaces ``repro/kernels/quant_matmul.py::quant_matmul_pallas``.
+                       Two routes behind it (``tc_route``): bf16 x with K and
+                       the group size multiples of 64 (every llama3.2-1b
+                       linear) take the tensor cores (wgmma) on the factored
+                       sum Σ_g s·(Σ x·q − z·Σ x), whose emulation is
+                       ``quant_matmul_factored_plain``; f32 x and other shapes
+                       take a SIMT f32 GEMM.
   * ``quant_gemv_tasks`` — K5, K1 with per-row task scales, ``csrc/quant_gemv.cu``;
                        replaces ``quant_gemv_pallas`` called with ``task_ids``.
   * ``quant_gemv_planes``, ``quant_gemv_tasks_planes``, ``quant_matmul_planes``
@@ -45,10 +51,14 @@ import functools
 
 import torch
 
-from repro_torch.core.quant import PACK, PLANE_PACK, QuantSpec
+from repro_torch.core.quant import (PACK, PLANE_PACK, QuantSpec, unpack_codes,
+                                    unpack_codes_planes)
 from repro_torch.kernels import _build, ref
 
 GEMV_MAX_M = 32
+# K2's tensor-core route works in tiles of 64 codes, each product in k-steps
+# of 16 (csrc/quant_matmul.cu)
+TC_TILE_K, TC_K_STEP = 64, 16
 # codes the kernels rebuild into nibble words: at most 4 planes; a draft
 # rescale factor 2^shift with shift < 8
 MAX_PLANES, MAX_SHIFT = 4, 7
@@ -62,6 +72,7 @@ _ENTRIES = {
     "quant_gemv_planes": ("quant_gemv", [_P] * 5 + [_I] * 7 + [_P]),
     "quant_matmul_planes": ("quant_matmul", [_P] * 5 + [_I] * 7 + [_P]),
     "quant_gemv_tasks_planes": ("quant_gemv", [_P] * 6 + [_I] * 8 + [_P]),
+    "quant_matmul_tc_smem": ("quant_matmul", [_I]),
 }
 _entries: dict = {}
 
@@ -83,6 +94,49 @@ def quant_matmul_plain(x, qw, scale, zero):
     """The plain version of K1 and K2: f32 dequantize, f32 matmul."""
     w = _dequant_f32(qw, scale, zero, x.shape[-1])
     return torch.matmul(x.to(torch.float32), w.T).to(x.dtype)
+
+
+def tc_route(x, scale) -> bool:
+    """True when K2 (and K2-plane) take the tensor-core route for x and
+    scale (N, G): bf16 x, K % 64 == 0 and a group size K/G that is a
+    multiple of 64 — whole 64-code tiles in whole groups."""
+    k, g = x.shape[-1], scale.shape[-1]
+    return (x.dtype == torch.bfloat16 and k % TC_TILE_K == 0
+            and (k // g) % TC_TILE_K == 0)
+
+
+def _codes_scales(qw, scale, zero, k, planes=None):
+    """(codes (N, K) f32, scale, zero) as a kernel reads them: nibbles, or
+    the top ``bits`` planes under scale·2^shift, zero/2^shift."""
+    if planes is None:
+        return unpack_codes(qw, k).to(torch.float32), scale, zero
+    bits, shift = planes
+    f = float(1 << shift)
+    return (unpack_codes_planes(qw, k, bits).to(torch.float32), scale * f,
+            zero / f)
+
+
+def quant_matmul_factored_plain(x, qw, scale, zero, planes=None):
+    """An emulation of K2's tensor-core route (feeds only the tests and
+    ``chip_smoke.py``): per group g, A = Σ x·q and R = Σ x accumulated in
+    f32 one k-step of ``TC_K_STEP`` codes at a time (bf16 x and 4-bit codes are
+    exact in f32, so is every product), then y += s·(A − z·R) in f32.
+    ``planes = (bits, shift)`` reads qw as K6a does."""
+    m, k = x.shape
+    q, s, z = _codes_scales(qw, scale, zero, k, planes)
+    xf = x.to(torch.float32)
+    g = s.shape[1]
+    gs = k // g
+    out = torch.zeros((m, q.shape[0]), dtype=torch.float32, device=x.device)
+    for gi in range(g):
+        a = torch.zeros_like(out)
+        r = torch.zeros((m, 1), dtype=torch.float32, device=x.device)
+        for k0 in range(gi * gs, (gi + 1) * gs, TC_K_STEP):
+            k1 = min(k0 + TC_K_STEP, (gi + 1) * gs)
+            a = a + xf[:, k0:k1] @ q[:, k0:k1].T
+            r = r + xf[:, k0:k1].sum(dim=1, keepdim=True)
+        out = out + s[:, gi] * (a - z[:, gi] * r)
+    return out.to(x.dtype)
 
 
 def quant_matmul_planes_plain(x, qw, scale, zero, bits, shift=0):
@@ -123,15 +177,40 @@ def quant_matmul_tasks_planes_plain(x, qw, scale_stack, zero_stack, task_ids,
                     x, qw, scale_stack, zero_stack, task_ids)
 
 
-def error_bound(x, qw, scale, zero, plain, task_ids=None, planes=None):
+def error_bound(x, qw, scale, zero, plain, task_ids=None, planes=None,
+                factored=False):
     """Elementwise bound on |kernel − plain| for the same inputs (with
     ``task_ids``: scale and zero are (T, N, G) stacks, row i under task
     ``task_ids[i]``; with ``planes = (bits, shift)``: qw is bit-planes read
-    as K6a reads them).
+    as K6a reads them; ``factored``: the kernel is K2's tensor-core route,
+    ``tc_route``, or its emulation ``quant_matmul_factored_plain``).
 
-    Both sum the same float32 products in different orders, so each is
-    within K·2⁻²⁴·Σₖ|x·ŵ| of the exact sum (the standard recursive-summation
-    bound, with u = 2⁻²⁴); the bound on their difference is twice that.
+    u = 2⁻²⁴ (f32, round to nearest).  Not factored (K1, K5, K2's SIMT
+    route): both sum the same float32 products s·(q − z)·x in different
+    orders, so each is within K·u·Σₖ|x·ŵ| of the exact sum of those
+    products (the standard recursive-summation bound); the bound on their
+    difference is twice that.
+
+    Factored: the kernel computes, per group g of n = K/G codes,
+    A_g = Σ x·q and R_g = Σ x (exact products; tensor-core f32
+    accumulation, which need not round to nearest, so u_t = 2⁻²³ each
+    addition: |ΔA_g| ≤ n·u_t·Σ|x|·q, |ΔR_g| ≤ n·u_t·Σ|x|), then
+    y = Σ_g s·(A_g − z·R_g) with at most G + 3 roundings on the way (the
+    subtraction, the scaling and G additions).  With T = Σₖ |x|·|s|·(q +
+    |z|) (s, z of k's group), the kernel is within (n·u_t + (G + 3)·u)·T
+    of the exact y, and its round-to-nearest emulation
+    ``quant_matmul_factored_plain`` within (n + G + 3)·u·T.  The plain
+    version rounds ŵ = s·(q − z) twice (2u|ŵ|) and sums K products
+    (K·u·Σ|x·ŵ|); |ŵ| ≤ |s|·(q + |z|), so it is within (K + 2)·u·T.  Any
+    two of the three differ by at most (n·u_t + (K + 2·G + 6)·u)·T
+    (n ≤ K), the bound returned: it grows with Σ|x|·(q + |z|)·s, not
+    Σ|x·ŵ|, because the two sums are subtracted.  u_t stays 2⁻²³: no
+    measurement here isolates the tensor cores' rounding.  On an H100
+    (NVIDIA H100 80GB HBM3, 700 W; ``chip_smoke.py`` phase ``kernels`` at
+    the llama3.2-1b linears, M = 1024, bf16) the worst |kernel − plain|
+    is 0.0156 on outputs of magnitude ≈ 4: one or two bf16 ulps, inside
+    this bound.
+
     A bf16 output adds one bf16 ulp of the larger result (rounding to 8
     significant bits can split two float32 sums across a rounding step).
     """
@@ -141,11 +220,22 @@ def error_bound(x, qw, scale, zero, plain, task_ids=None, planes=None):
         for t in torch.unique(task_ids).tolist():
             rows = task_ids == t
             out[rows] = error_bound(x[rows], qw, scale[t], zero[t],
-                                    plain[rows], planes=planes)
+                                    plain[rows], planes=planes,
+                                    factored=factored)
         return out
     k = x.shape[-1]
-    w = _dequant_f32(qw, scale, zero, k, planes)
-    bound = 2 * k * 2.0 ** -24 * (x.to(torch.float32).abs() @ w.abs().T)
+    u = 2.0 ** -24
+    xa = x.to(torch.float32).abs()
+    if factored:
+        q, s, z = _codes_scales(qw, scale, zero, k, planes)
+        g = s.shape[1]
+        n = k // g
+        wt = (s.abs()[:, :, None] * (q.reshape(q.shape[0], g, n)
+                                     + z.abs()[:, :, None])).reshape(q.shape)
+        bound = (n * 2 * u + (k + 2 * g + 6) * u) * (xa @ wt.T)
+    else:
+        w = _dequant_f32(qw, scale, zero, k, planes)
+        bound = 2 * k * u * (xa @ w.abs().T)
     if plain.dtype == torch.bfloat16:
         mag = plain.to(torch.float32).abs() + bound
         ulp = torch.exp2(torch.floor(torch.log2(
@@ -239,6 +329,13 @@ def _entry(name: str):
         fn.restype = ctypes.c_int
         _entries[name] = fn
     return fn
+
+
+def tc_smem_bytes() -> dict:
+    """Dynamic shared memory a block of K2's tensor-core route takes, per
+    tile shape (set above the 48 KB default with cudaFuncSetAttribute)."""
+    fn = _entry("quant_matmul_tc_smem")
+    return {"128x256": fn(2), "128x128": fn(1), "64x64": fn(0)}
 
 
 def _launch(name: str, x, qw, scale, zero, task_ids=None, planes=None):

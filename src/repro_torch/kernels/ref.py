@@ -60,6 +60,28 @@ def rtn_pack_ref(w, spec: QuantSpec, n_grid: int = 20):
     return qw, s, z
 
 
+def visible(b, sq, sk, causal, window, offset, device):
+    """Which key each query sees: (Sq, Sk), or (B, Sq, Sk) for a (B,)
+    ``offset`` tensor (``flash_attention_ref``'s rule; offset None means
+    Sk − Sq)."""
+    if offset is None:
+        offset = sk - sq
+    if torch.is_tensor(offset) and offset.dim():         # (B,) per-row
+        iq = (torch.arange(sq, device=device)[None, :, None]
+              + offset.to(device)[:, None, None])
+        jk = torch.arange(sk, device=device)[None, None, :]
+        mask = torch.ones((b, sq, sk), dtype=torch.bool, device=device)
+    else:
+        iq = torch.arange(sq, device=device)[:, None] + offset
+        jk = torch.arange(sk, device=device)[None, :]
+        mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= jk <= iq
+    if window is not None:
+        mask &= jk > iq - window
+    return mask
+
+
 def flash_attention_ref(q, k, v, *, causal: bool = True, window=None,
                         scale=None, offset=None):
     """Reference (GQA-aware) attention, in float32 einsum and softmax.
@@ -83,21 +105,7 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window=None,
     vf = v.to(torch.float32)
     # (B, Hkv, rep, Sq, Sk)
     logits = torch.einsum("bqhrd,bkhd->bhrqk", qf.reshape(b, sq, hkv, rep, d), kf)
-    if offset is None:
-        offset = sk - sq
-    if torch.is_tensor(offset) and offset.dim():         # (B,) per-row
-        iq = (torch.arange(sq, device=q.device)[None, :, None]
-              + offset.to(q.device)[:, None, None])
-        jk = torch.arange(sk, device=q.device)[None, None, :]
-        mask = torch.ones((b, sq, sk), dtype=torch.bool, device=q.device)
-    else:
-        iq = torch.arange(sq, device=q.device)[:, None] + offset
-        jk = torch.arange(sk, device=q.device)[None, :]
-        mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= jk <= iq
-    if window is not None:
-        mask &= jk > iq - window
+    mask = visible(b, sq, sk, causal, window, offset, q.device)
     # broadcast over (Hkv, rep): (B|1, 1, 1, Sq, Sk)
     mask = mask[:, None, None] if mask.dim() == 3 else mask[None, None, None]
     logits = logits.masked_fill(~mask, float("-inf"))

@@ -7,15 +7,22 @@ imports only torch and the port, so it also runs on a machine without JAX:
     python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 
 Tolerance: ``quant_matmul.error_bound`` (two float32 summation orders, plus
-one bf16 ulp for bf16 outputs).  K5 (``quant_gemv_tasks``) is held to its
-plain version within that bound and to K1 bit for bit: each of its rows
-must equal K1's row under that row's task scales.  K6a (the ``*_planes``
-kernels) is held to its plain version within that bound and to its nibble
-kernel bit for bit: reading the top p of b' planes under ``shift = b' − p``
-must equal the nibble kernel on ``q >> shift`` under ``draft_scales``.
-K3 and K6b (``rtn_pack``, ``rtn_pack_planes``) must equal their plain
-version bit for bit: codes, scales and zeros.  K4 (``flash_attention``) is
-held to its plain version within ``flash_attention.error_bound``.
+one bf16 ulp for bf16 outputs); for K2 and K2-plane on their tensor-core
+route (bf16 x, K and the group size multiples of 64: ``tc_route``) its
+factored form, derived in its docstring, which also bounds the kernel's
+distance from its emulation ``quant_matmul_factored_plain`` — bitwise
+equality with the emulation is not asked, since the tensor cores' order of
+summation inside a k-step is not reproducible on the CPU.  K5
+(``quant_gemv_tasks``) is held to its plain version within that bound and
+to K1 bit for bit: each of its rows must equal K1's row under that row's
+task scales.  K6a (the ``*_planes`` kernels) is held to its plain version
+within that bound and to its nibble kernel bit for bit: reading the top p
+of b' planes under ``shift = b' − p`` must equal the nibble kernel on
+``q >> shift`` under ``draft_scales``.  K3 and K6b (``rtn_pack``,
+``rtn_pack_planes``) must equal their plain version bit for bit: codes,
+scales and zeros.  K4 (``flash_attention``) is held to its plain version
+within ``flash_attention.error_bound`` (for bf16 its tensor-core form:
+split-P product, split keys for Sq ≤ 4).
 """
 import pytest
 import torch
@@ -43,11 +50,11 @@ def _operands(m, n, k, group, dtype, device, seed=0):
     return [t.to(device) for t in (x, pack_codes(q), s, z)]
 
 
-def _assert_within_bound(got, plain, args):
+def _assert_within_bound(got, plain, args, factored=False):
     assert got.dtype == plain.dtype and got.shape == plain.shape
     err = (got.float() - plain.float()).abs()
     assert torch.isfinite(got).all()
-    assert (err <= qm.error_bound(*args, plain)).all(), \
+    assert (err <= qm.error_bound(*args, plain, factored=factored)).all(), \
         f"max err {err.max().item():.3e}"
 
 
@@ -66,7 +73,9 @@ def test_kernel_matches_plain_on_card(cuda, m, group, dtype):
     got = fn(*args)
     torch.cuda.synchronize()
     assert fn.launches == before + 1
-    _assert_within_bound(got, qm.quant_matmul_plain(*args), args)
+    _assert_within_bound(got, qm.quant_matmul_plain(*args), args,
+                         factored=fn is qm.quant_matmul
+                         and qm.tc_route(args[0], args[2]))
 
 
 @pytest.mark.gpu
@@ -77,14 +86,69 @@ def test_kernels_at_llama_shapes(cuda, n, k):
         args = _operands(m, n, k, None, torch.bfloat16, cuda, seed=n + k)
         got = ops.quant_matmul(*args, QuantSpec())
         torch.cuda.synchronize()
-        _assert_within_bound(got, qm.quant_matmul_plain(*args), args)
+        _assert_within_bound(got, qm.quant_matmul_plain(*args), args,
+                             factored=m > qm.GEMV_MAX_M)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("group", [None, 128])
+@pytest.mark.parametrize("n,k", [(2048, 2048), (512, 2048), (8192, 2048),
+                                 (2048, 8192)])
+@pytest.mark.parametrize("m", [33, 200, 1024])
+def test_k2_tensor_cores_within_bound_of_plain_and_emulation(cuda, m, n, k,
+                                                             group):
+    """K2's tensor-core route at the llama3.2-1b linears: within the
+    factored bound of the plain version and of the emulation of its
+    arithmetic (per group, f32 sums of x·q and x in k-steps of 16)."""
+    args = _operands(m, n, k, group, torch.bfloat16, cuda, seed=m + n + k)
+    assert qm.tc_route(args[0], args[2])
+    before = qm.quant_matmul.launches
+    got = qm.quant_matmul(*args)
+    torch.cuda.synchronize()
+    assert qm.quant_matmul.launches == before + 1
+    _assert_within_bound(got, qm.quant_matmul_plain(*args), args,
+                         factored=True)
+    _assert_within_bound(got, qm.quant_matmul_factored_plain(*args), args,
+                         factored=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("group", [None, 128])
+@pytest.mark.parametrize("m,n", [(1024, 8192), (1000, 8190), (1024, 2048),
+                                 (1000, 2040), (1024, 512), (1000, 500)])
+def test_k2_every_tile_bitwise_planes_and_within_bound(cuda, m, n, group):
+    """Each tile shape of K2's tensor-core route (128 × 256 per-channel at
+    N = 8192, 128 × 128 at 2048, 64 × 64 at 512), full and ragged (M and N
+    not multiples of the tile, N not of 8): within the factored bound of
+    the plain version, and K2-plane bit for bit K2 on q >> (4 − p) under
+    draft_scales."""
+    k = 2048
+    g = torch.Generator().manual_seed(m + n)
+    w = torch.randn(n, k, generator=g) * k ** -0.5
+    q, s, z = rtn_quantize(w, QuantSpec(bits=4, group_size=group), n_grid=2)
+    x = torch.randn(m, k, generator=g).to(torch.bfloat16)
+    x, qw, s, z = (t.to(cuda) for t in (x, pack_codes(q), s, z))
+    assert qm.tc_route(x, s)
+    got = qm.quant_matmul(x, qw, s, z)
+    torch.cuda.synchronize()
+    _assert_within_bound(got, qm.quant_matmul_plain(x, qw, s, z),
+                         [x, qw, s, z], factored=True)
+    planes = pack_codes_planes(q, 4).to(cuda)
+    for p in (4, 3):
+        sd, zd = draft_scales(s, z, 4, p)
+        nib = pack_codes(q >> (4 - p)).to(cuda)
+        assert torch.equal(qm.quant_matmul_planes(x, planes, s, z, p, 4 - p),
+                           qm.quant_matmul(x, nib, sd.contiguous(),
+                                           zd.contiguous()))
 
 
 @pytest.mark.gpu
 def test_cuda_tensor_never_takes_plain_version(cuda, monkeypatch):
     monkeypatch.setattr(qm, "quant_matmul_plain",
                         lambda *a: pytest.fail("plain version on the card"))
-    for m in (4, 64):
+    monkeypatch.setattr(qm, "quant_matmul_factored_plain",
+                        lambda *a, **k: pytest.fail("emulation on the card"))
+    for m in (4, 64, 1024):
         args = _operands(m, 96, 256, None, torch.bfloat16, cuda)
         ops.quant_matmul(*args, QuantSpec())
     torch.cuda.synchronize()
@@ -175,6 +239,7 @@ def test_plane_kernels_bitwise_nibble_and_within_bound(cuda, m, bits, p,
     gemv = m <= qm.GEMV_MAX_M
     fn, nfn = ((qm.quant_gemv_planes, qm.quant_gemv) if gemv
                else (qm.quant_matmul_planes, qm.quant_matmul))
+    factored = not gemv and qm.tc_route(x, s)
     before = fn.launches
     got = fn(x, planes, s, z, p, shift)
     torch.cuda.synchronize()
@@ -183,8 +248,8 @@ def test_plane_kernels_bitwise_nibble_and_within_bound(cuda, m, bits, p,
     plain = qm.quant_matmul_planes_plain(x, planes, s, z, p, shift)
     err = (got.float() - plain.float()).abs()
     assert torch.isfinite(got).all()
-    assert (err <= qm.error_bound(x, planes, s, z, plain,
-                                  planes=(p, shift))).all()
+    assert (err <= qm.error_bound(x, planes, s, z, plain, planes=(p, shift),
+                                  factored=factored)).all()
     if not gemv:
         return
     ss, zs = _task_stacks(3, s, z, seed=m + p)
@@ -363,3 +428,47 @@ def test_chunked_attention_cuda_never_takes_plain_version(cuda, monkeypatch):
     torch.cuda.synchronize()
     with pytest.raises(ValueError, match="multiple of 8"):
         fa.flash_attention(q[..., :60], k[..., :60], v[..., :60])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq", [1, 4])
+@pytest.mark.parametrize("sk", [288, 512])
+@pytest.mark.parametrize("offsets", ["rows", "int"])
+def test_flash_attention_split_keys_within_bound(cuda, sq, sk, offsets):
+    """Decode and verify (Sq ≤ 4) at llama3.2-1b's heads: the keys split
+    over decode_splits(Sq, Sk) blocks (5 at Sk 288, 8 at 512), offsets
+    spread over 20–300; one counted launch per call; within the bound of
+    the plain version, and of the emulation of the split arithmetic."""
+    b = 8 if offsets == "rows" else 4
+    q, k, v = _attention_inputs(b, sq, sk, 32, 8, 64, torch.bfloat16, cuda,
+                                seed=sk + sq)
+    offset = (torch.linspace(20, 300, b).round().to(torch.int64).to(cuda)
+              if offsets == "rows" else sk - 22)
+    splits = fa.decode_splits(sq, sk)
+    assert splits == -(-sk // 64) > 1
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, offset=offset)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert torch.isfinite(got).all()
+    for want in (fa.flash_attention_plain(q, k, v, offset=offset),
+                 fa.flash_attention_split_plain(q, k, v, offset=offset,
+                                                splits=splits)):
+        err = (got.float() - want.float()).abs()
+        assert (err <= fa.error_bound(q, k, v, want)).all(), \
+            f"max err {err.max().item():.3e}"
+
+
+@pytest.mark.gpu
+def test_flash_attention_split_cuda_never_takes_plain_version(cuda,
+                                                              monkeypatch):
+    for name in ("flash_attention_plain", "flash_attention_split_plain",
+                 "split_p_product"):
+        monkeypatch.setattr(fa, name, lambda *a, **k: pytest.fail(
+            "plain version on the card"))
+    q, k, v = _attention_inputs(8, 1, 512, 32, 8, 64, torch.bfloat16, cuda, 1)
+    for sq in (1, 4, 64):
+        ops.attention(q.expand(8, sq, 32, 64).contiguous(), k, v,
+                      offset=torch.arange(8, device=cuda) * 40 + 20,
+                      impl="chunked")
+    torch.cuda.synchronize()
