@@ -11,21 +11,27 @@ line:
                src/repro_torch/kernels/csrc (one nvcc per source, all at
                once) and each kernel's registers, spills and shared memory
                (listed per wrapper: K1, K5, K2, the three K6a plane
-               kernels, K3, K6b and K4; K2's wgmma and K4's mma.sync
-               instantiations must be there, with their dynamic shared
-               memory and, where cuobjdump is, their HGMMA / HMMA
-               instructions counted in the SASS);
+               kernels, K3, K6b and K4; K2's wgmma, the four GEMVs' mma
+               and K4's mma.sync instantiations must be there, with the
+               dynamic shared memory of K2's and K4's and, where cuobjdump
+               is, their HGMMA / HMMA instructions counted in the SASS);
   2. kernels — K1 (quant_gemv, M = 4), K2 (quant_matmul, M = 1024) and K5
                (quant_gemv_tasks, M = 8 rows over T = 4 tasks, ids
                0,1,2,3,0,1,2,3) against their plain versions at the main
-               path's shapes, bf16, per-channel and group 128: error within
-               ``quant_matmul.error_bound`` (for K2 the factored bound of
-               its tensor-core route, against the plain version and
-               against its emulation), and every K5 row bit-equal to
-               K1's under that row's task; kernel / plain / library time
+               path's shapes, bf16, per-channel and group 128, each launch
+               on its tensor-core route ("route": "mma" for the GEMVs,
+               "wgmma" for K2; K1 also at f32 x, "simt"): error within the
+               factored ``quant_matmul.error_bound`` of the plain version
+               and of the route's emulation (``quant_gemv_factored_plain``,
+               ``quant_matmul_factored_plain``), every K5 row bit-equal to
+               K1's under that row's task, and K1's and K5's rows at M = 1,
+               2, 4, 8, 16 bit-equal to the same rows at M = 32 (both
+               routes for K1); kernel / plain / library time
                (CUDA events; weights rotated through > 2× the L2 so each
                launch reads them from HBM), and the least time the card
-               could take.  Then K6a, the plane branch of each, on the
+               could take (bytes for every GEMV: its tensor-core work
+               falls under them), torch.matmul at the GEMV's M beside K5
+               and the GEMV plane kernels.  Then K6a, the plane branch of each, on the
                same codes stored as 4 bit-planes, read whole (p = 4) and as
                the 3-plane draft (p = 3): K1-plane at M = 8 and 32,
                K5-plane at M = 8 over 4 tasks, K2-plane at M = 1024 —
@@ -55,8 +61,10 @@ line:
                summed bound; and over the same linears repacked into bit-
                planes, K6a: a resident draft step (K5-plane, M = 8, p = 3),
                a resident verify (K5-plane, M = 32, p = 4), an untasked
-               draft step (K1-plane, M = 8, p = 3) and a prefill (K2-plane,
-               M = 1024, p = 4);
+               draft step and verify (K1-plane, M = 8, p = 3 and M = 32,
+               p = 4) and a prefill (K2-plane, M = 1024, p = 4), each GEMV
+               beside torch.matmul at its M; every launch on its
+               tensor-core route;
   5. serve   — the same full model serving 16 requests of 4 tasks (a
                4-task ScaleBank: the base scales and three random scalings
                of them) through Engine.serve with 8 slots, under the drain
@@ -73,11 +81,12 @@ line:
                per draft step, verify and short prefill; K2-plane per long
                prefill), draft steps = 3 × rounds, full budgets, no
                task-drain wait in (b), the verify logits of (b)'s first
-               full round within 2⁻⁵ of the largest logit of the same
-               tokens decoded one step at a time, that round's first draft
-               step replayed proposing the same tokens, and (b)'s peak memory
-               within 5% of the code bytes of (a)'s (the draft reads the
-               target's planes);
+               full round bit-equal to the same tokens decoded one step at
+               a time, that round's first draft step replayed proposing the
+               same tokens, (b)'s tokens equal to (a)'s and (c)'s to (d)
+               the same untasked requests decoded greedily, and (b)'s peak
+               memory within 5% of the code bytes of (a)'s (the draft reads
+               the target's planes);
   7. convert — the same model quantized with QuantConfig(n_grid=1), plain
                min/max RTN, through K3 (rtn_pack, nibbles) and then K6b
                (rtn_pack_planes, bit-planes): 112 launches each, codes,
@@ -91,8 +100,14 @@ line:
                "dense"; the share of equal tokens), then phase serve's 16
                requests on the K6b backbone, resident and speculative over
                resident (K4 16 times per decode step, draft step, verify and
-               prefill; the verify checked as in phase speculative);
-  9. check   — the same path at 2 layers, once through the kernels and once
+               prefill; the verify and the tokens checked as in phase
+               speculative);
+  9. invariance — a 2-layer llama3.2-1b at full width, nibble and plane
+               codes, with and without task scales: one verify of 8 slots ×
+               4 tokens (M = 32) against the 4 matching decode steps (M = 8)
+               under "dense" and "chunked", every op's rows bit-equal, and
+               each op kind alone on equal inputs likewise;
+ 10. check   — the same path at 2 layers, once through the kernels and once
                through the plain versions on the card: prefill logits within
                2⁻⁵ of their largest magnitude, and the greedy tokens that
                agree; likewise the slotted prefill (both its routes), a
@@ -119,12 +134,13 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12           # CUDA cores: K1, K5 and the K1/K5-plane GEMVs
-BF16_FLOPS = 989e12         # tensor cores: K2, K2-plane and K4 (bf16)
+F32_FLOPS = 67e12           # CUDA cores: the GEMVs' and K2's SIMT routes (f32 x)
+BF16_FLOPS = 989e12         # tensor cores: every bf16 GEMV and GEMM, K4 (bf16)
 
 SEED = 0
 BATCH, PROMPT, NEW = 4, 256, 32
 GEMV_M, GEMM_M = BATCH, BATCH * PROMPT
+GEMV_MAX = 32               # the GEMV's largest M: the verify's 8 × 4 rows
 # K5 at the serve phase's decode shape: 8 slots over 4 resident tasks
 TASKS_M, N_TASKS = 8, 4
 TASK_IDS = [i % N_TASKS for i in range(TASKS_M)]
@@ -136,6 +152,14 @@ SHAPES = ((2048, 2048), (512, 2048), (8192, 2048), (2048, 8192))
 # speculative phase: 3 draft steps from the top 3 of 4 bit-planes, then one
 # verify of 4 tokens per slot (8 × 4 = 32 rows: still the GEMV route)
 SPEC_K, DRAFT_BITS = 3, 3
+# every serve run's pool capacity: the speculative pool's (the longest
+# request plus SPEC_K rows of rollback headroom).  The dense attention's f32
+# softmax and products sum over the whole cache, so two runs give the same
+# bits only at one capacity; the speculative configs ask for SPEC_K fewer
+# rows, which Engine.serve adds back
+SERVE_CACHE = max(SERVE_PROMPTS) + max(SERVE_NEW) + SPEC_K
+GREEDY_CACHE, SPEC_CACHE = dict(cache_len=SERVE_CACHE), dict(
+    cache_len=SERVE_CACHE - SPEC_K)
 L2_BYTES = 50 * 2 ** 20
 # K4 at llama3.2-1b's heads: (case, B, Sq, Sk, offset, causal, window) —
 # offset None (Sk − Sq), "rows" (a (B,) device tensor spread over [20,
@@ -259,6 +283,9 @@ def phase_device(torch) -> dict:
         fail(f"no instantiation of {missing} in the build")
     for name, route in (("quant_matmul", "wgmma"),
                         ("quant_matmul_planes", "wgmma"),
+                        ("quant_gemv", "mma"), ("quant_gemv_tasks", "mma"),
+                        ("quant_gemv_planes", "mma"),
+                        ("quant_gemv_tasks_planes", "mma"),
                         ("flash_attention", "mma.sync")):
         if not any(r.get("route") == route for r in info["ptxas"][name]):
             fail(f"no {route} instantiation of {name} in the build")
@@ -269,7 +296,8 @@ def phase_device(torch) -> dict:
     info["dynamic_smem"] = {"quant_matmul": qm.tc_smem_bytes(),
                             "flash_attention": fa.tc_smem_bytes()}
     info["sass_tensor_core_ops"] = sass_ops(_build)
-    for name, op in (("quant_matmul", "HGMMA"), ("flash_attention", "HMMA")):
+    for name, op in (("quant_matmul", "HGMMA"), ("quant_gemv", "HMMA"),
+                     ("flash_attention", "HMMA")):
         got = info["sass_tensor_core_ops"].get(name)
         if got is not None and not got.get(op):
             fail(f"no {op} instruction in the compiled {name} library")
@@ -284,7 +312,7 @@ def sass_ops(_build) -> dict:
     if not os.path.isfile(tool):
         return {}
     out = {}
-    for name in ("quant_matmul", "flash_attention"):
+    for name in ("quant_gemv", "quant_matmul", "flash_attention"):
         sass = subprocess.run([tool, "-sass", str(_build.lib_path(name))],
                               capture_output=True, text=True, timeout=300)
         out[name] = {op: len(re.findall(rf"\b{op}\.", sass.stdout))
@@ -331,6 +359,45 @@ def plain_tasks(qm, tasks, bits=None, shift=0):
     return run
 
 
+def gemv_rows_invariant(torch, what, fn, x_all) -> bool:
+    """Fail unless ``fn``'s rows at M = 1, 2, 4, 8, 16 are bit-equal to the
+    same rows at M = 32 (x_all: 32 rows)."""
+    full = fn(x_all)
+    for m in (1, 2, 4, 8, 16):
+        if not torch.equal(fn(x_all[:m].contiguous()), full[:m]):
+            fail(f"{what}: rows at M = {m} differ from the same rows at "
+                 f"M = {GEMV_MAX}")
+    return True
+
+
+def gemv_simt_case(torch, qm, what, x_all, qw, s, z) -> dict:
+    """K1's SIMT route (f32 x) at the same shape: within the bound of its
+    plain version and its rows bit-equal across M."""
+    xf = x_all.float()
+    if qm.tc_route(xf, s):
+        fail(f"{what}: f32 x on the tensor-core route")
+    got = qm.quant_gemv(xf[:GEMV_M].contiguous(), qw, s, z)
+    plain = qm.quant_matmul_plain(xf[:GEMV_M], qw, s, z)
+    err = check_close(f"{what} f32 (SIMT)", got, plain, qm.error_bound(
+        xf[:GEMV_M], qw, s, z, plain))
+    return {"route": "simt", "M": GEMV_M, "max_abs_err": err,
+            "rows_bitwise_across_m": gemv_rows_invariant(
+                torch, f"{what} f32 (SIMT)",
+                lambda a: qm.quant_gemv(a, qw, s, z), xf)}
+
+
+def matmul_ms(torch, m, w16, gen, iters=200) -> float:
+    """A yardstick, never on a path: ``torch.matmul`` of bf16 x (M rows)
+    with a bf16 Ŵ of the same shape, weights rotated through > 2× the L2."""
+    n, k = w16.shape
+    x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    sets = [(x, w16.clone()) for _ in range(max(2, math.ceil(
+        2 * L2_BYTES / (n * k * 2))))]
+    ms = timed(lambda a, b: torch.matmul(a, b.T), sets, iters)
+    del sets
+    return ms
+
+
 def phase_kernels(torch) -> dict:
     from repro_torch.kernels import quant_matmul as qm
     from repro_torch.kernels.ref import dequant_ref
@@ -345,28 +412,43 @@ def phase_kernels(torch) -> dict:
             w16 = dequant_ref(qw, s, z, (n, k), QuantSpec(), torch.bfloat16)
             for name, fn, m in (("quant_gemv", qm.quant_gemv, GEMV_M),
                                 ("quant_matmul", qm.quant_matmul, GEMM_M)):
-                x = torch.randn(m, k, generator=gen, device="cuda"
-                                ).to(torch.bfloat16)
+                gemv = fn is qm.quant_gemv
+                x = torch.randn(GEMV_MAX if gemv else m, k, generator=gen,
+                                device="cuda").to(torch.bfloat16)
+                x_all, x = x, x[:m].contiguous()
                 got = fn(x, qw, s, z)
                 plain = qm.quant_matmul_plain(x, qw, s, z)
                 torch.cuda.synchronize()
-                tc = fn is qm.quant_matmul and qm.tc_route(x, s)
+                tc = qm.tc_route(x, s)
                 what = f"{name} M={m} N={n} K={k} group={group}"
+                if not tc:
+                    fail(f"{what}: not on the tensor-core route")
                 err = check_close(what, got, plain, qm.error_bound(
-                    x, qw, s, z, plain, factored=tc))
+                    x, qw, s, z, plain, factored=True, gemv=gemv))
                 worst[name] = max(worst[name], err)
-                extra = {}
-                if fn is qm.quant_matmul:
-                    if not tc:
-                        fail(f"{what}: not on the tensor-core route")
-                    # the kernel against its emulation, within the same bound
-                    emu = qm.quant_matmul_factored_plain(x, qw, s, z)
-                    extra = {"route": "wgmma", "max_abs_err_emulation":
-                             check_close(f"{what} (emulation)", got, emu,
-                                         qm.error_bound(x, qw, s, z, emu,
-                                                        factored=True)),
-                             "bitwise_emulation": bool(torch.equal(got, emu))}
-                    del emu
+                # the kernel against its emulation, within the same bound
+                emu = (qm.quant_gemv_factored_plain if gemv
+                       else qm.quant_matmul_factored_plain)(x, qw, s, z)
+                extra = {"route": "mma" if gemv else "wgmma",
+                         "max_abs_err_emulation": check_close(
+                             f"{what} (emulation)", got, emu, qm.error_bound(
+                                 x, qw, s, z, emu, factored=True,
+                                 gemv=gemv)),
+                         "bitwise_emulation": bool(torch.equal(got, emu))}
+                del emu
+                if gemv:
+                    # the built kernel's K split over blocks is the one
+                    # the emulation and the bound assume
+                    extra["block_split"] = qm.gemv_tc_split(n, k)
+                    if extra["block_split"] != qm.gemv_block_split(n, k):
+                        fail(f"{what}: the kernel splits K over "
+                             f"{extra['block_split']} blocks, the emulation "
+                             f"over {qm.gemv_block_split(n, k)}")
+                    extra["rows_bitwise_across_m"] = gemv_rows_invariant(
+                        torch, what, lambda a: qm.quant_gemv(a, qw, s, z),
+                        x_all)
+                    extra["simt_f32"] = gemv_simt_case(torch, qm, what,
+                                                       x_all, qw, s, z)
                 # rotate weight copies through > 2x the L2 cache so every
                 # launch streams its weights from HBM, as the model's does
                 copies = max(2, math.ceil(2 * L2_BYTES / (n * k // 2)))
@@ -380,7 +462,7 @@ def phase_kernels(torch) -> dict:
                                  max(10, iters // 4))
                 lib_ms = timed(lambda a, b: torch.matmul(a, b.T), lib_sets,
                                iters)
-                b_ms, b_by, b_bf16 = bound_ms(m, n, k, g, tensor_cores=tc)
+                b_ms, b_by, b_bf16 = bound_ms(m, n, k, g, tensor_cores=True)
                 emit({"phase": "kernels", "kernel": name, "M": m, "N": n,
                       "K": k, "group": group, "max_abs_err": err, **extra,
                       "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
@@ -389,9 +471,9 @@ def phase_kernels(torch) -> dict:
                 del sets, lib_sets
             worst["quant_gemv_tasks"] = max(
                 worst["quant_gemv_tasks"],
-                kernel_k5(torch, qm, n, k, group, qw, s, z, gen))
+                kernel_k5(torch, qm, n, k, group, qw, s, z, w16, gen))
             for name, err in kernel_planes(torch, qm, n, k, group, qw, s, z,
-                                           gen).items():
+                                           w16, gen).items():
                 worst[name] = max(worst[name], err)
             del qw, s, z, w16
             kernel_rtn_pack(torch, n, k, group, gen)
@@ -535,19 +617,33 @@ def kernel_attention(torch, gen) -> tuple:
     return worst, prefill
 
 
-def kernel_k5(torch, qm, n, k, group, qw, s, z, gen) -> float:
-    """K5 at the serve decode shape: within the bound of its plain version,
-    and every row bit-equal to K1's under that row's task."""
+def kernel_k5(torch, qm, n, k, group, qw, s, z, w16, gen) -> float:
+    """K5 at the serve decode shape: within the bound of its plain version
+    and of its emulation, every row bit-equal to K1's under that row's
+    task, and its rows at M = 1 .. 16 bit-equal to them at M = 32 (the
+    verify's 8 slots × 4 tokens)."""
     ss, zs = task_stacks(torch, s, z, N_TASKS, gen)
-    ids = torch.tensor(TASK_IDS, dtype=torch.int32, device="cuda")
-    x = torch.randn(TASKS_M, k, generator=gen, device="cuda"
-                    ).to(torch.bfloat16)
+    ids_all = torch.tensor([i % N_TASKS for i in range(GEMV_MAX)],
+                           dtype=torch.int32, device="cuda")
+    ids = ids_all[:TASKS_M]
+    x_all = torch.randn(GEMV_MAX, k, generator=gen, device="cuda"
+                        ).to(torch.bfloat16)
+    x = x_all[:TASKS_M].contiguous()
     got = qm.quant_gemv_tasks(x, qw, ss, zs, ids)
     plain = qm.quant_matmul_tasks_plain(x, qw, ss, zs, ids)
     torch.cuda.synchronize()
     what = f"quant_gemv_tasks M={TASKS_M} T={N_TASKS} N={n} K={k} group={group}"
-    err = check_close(what, got, plain,
-                      qm.error_bound(x, qw, ss, zs, plain, task_ids=ids))
+    if not qm.tc_route(x, s):
+        fail(f"{what}: not on the tensor-core route")
+    err = check_close(what, got, plain, qm.error_bound(
+        x, qw, ss, zs, plain, task_ids=ids, factored=True, gemv=True))
+    emu = qm.quant_gemv_factored_plain(x, qw, ss, zs, task_ids=ids)
+    emu_err = check_close(f"{what} (emulation)", got, emu, qm.error_bound(
+        x, qw, ss, zs, emu, task_ids=ids, factored=True, gemv=True))
+    del emu
+    gemv_rows_invariant(
+        torch, what, lambda a: qm.quant_gemv_tasks(
+            a, qw, ss, zs, ids_all[:a.shape[0]]), x_all)
     for t in range(N_TASKS):
         rows = (ids == t).nonzero().flatten()
         k1 = qm.quant_gemv(x, qw, ss[t], zs[t])
@@ -562,16 +658,19 @@ def kernel_k5(torch, qm, n, k, group, qw, s, z, gen) -> float:
                                   for a in sets], 200)
     plain_ms = timed(plain_tasks(qm, range(N_TASKS)), sets, 20)
     b_ms, b_by, b_bf16 = bound_ms(TASKS_M, n, k, s.shape[1],
-                                  scale_sets=len(set(TASK_IDS)))
+                                  scale_sets=len(set(TASK_IDS)),
+                                  tensor_cores=True)
     emit({"phase": "kernels", "kernel": "quant_gemv_tasks", "M": TASKS_M,
-          "T": N_TASKS, "N": n, "K": k, "group": group, "max_abs_err": err,
-          "rows_bitwise_k1": True, "ms": ms, "k1_same_m_ms": k1_ms,
-          "plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms,
-          "bound_by": b_by, "bound_bf16_ms": b_bf16})
+          "T": N_TASKS, "N": n, "K": k, "group": group, "route": "mma",
+          "max_abs_err": err, "max_abs_err_emulation": emu_err,
+          "rows_bitwise_k1": True, "rows_bitwise_across_m": True, "ms": ms,
+          "k1_same_m_ms": k1_ms, "plain_ms": plain_ms, "library_ms": None,
+          "matmul_bf16_same_m_ms": matmul_ms(torch, TASKS_M, w16, gen),
+          "bound_ms": b_ms, "bound_by": b_by, "bound_bf16_ms": b_bf16})
     return err
 
 
-def kernel_planes(torch, qm, n, k, group, qw, s, z, gen) -> dict:
+def kernel_planes(torch, qm, n, k, group, qw, s, z, w16, gen) -> dict:
     """K6a on the layer's codes stored as 4 bit-planes, read whole (p = 4)
     and as the 3-plane draft (p = 3): K1-plane at M = 8 and 32, K5-plane at
     M = 8 over T = 4 tasks, K2-plane at M = 1024.  Each within the bound of
@@ -611,10 +710,12 @@ def kernel_planes(torch, qm, n, k, group, qw, s, z, gen) -> dict:
             plain = plain_fn(x, planes, *sz, *extra, p, shift)
             torch.cuda.synchronize()
             what = f"{name} M={m} N={n} K={k} group={group} p={p}"
-            tc = name == "quant_matmul_planes"
+            gemv = name != "quant_matmul_planes"
+            if not qm.tc_route(x, s):
+                fail(f"{what}: not on the tensor-core route")
             err = check_close(what, got, plain, qm.error_bound(
                 x, planes, *sz, plain, task_ids=tid, planes=(p, shift),
-                factored=tc))
+                factored=True, gemv=gemv))
             if not torch.equal(got, want):
                 fail(f"{what}: differs from its nibble kernel on the "
                      f"{p}-bit codes under draft_scales")
@@ -627,13 +728,18 @@ def kernel_planes(torch, qm, n, k, group, qw, s, z, gen) -> dict:
             plain_ms = timed(lambda *a: plain_fn(*a, p, shift), argsets,
                              max(5, iters // 20))
             b_ms, b_by, _ = bound_ms(m, n, k, g, scale_sets=sets_,
-                                     code_bits=p, tensor_cores=tc)
-            emit({"phase": "kernels", "kernel": name, "M": m, "N": n, "K": k,
-                  "group": group, "planes": p, "max_abs_err": err,
-                  "bitwise_nibble": True, "us": ms * 1e3,
-                  "plain_us": plain_ms * 1e3, "library_ms": None,
-                  "bytes_bound_us": bytes_ms(m, n, k, g, sets_, p) * 1e3,
-                  "bound_us": b_ms * 1e3, "bound_by": b_by})
+                                     code_bits=p, tensor_cores=True)
+            row = {"phase": "kernels", "kernel": name, "M": m, "N": n,
+                   "K": k, "group": group, "planes": p,
+                   "route": "mma" if gemv else "wgmma", "max_abs_err": err,
+                   "bitwise_nibble": True, "us": ms * 1e3,
+                   "plain_us": plain_ms * 1e3, "library_ms": None,
+                   "bytes_bound_us": bytes_ms(m, n, k, g, sets_, p) * 1e3,
+                   "bound_us": b_ms * 1e3, "bound_by": b_by}
+            if gemv:
+                row["matmul_bf16_same_m_us"] = matmul_ms(
+                    torch, m, w16, gen) * 1e3
+            emit(row)
             del argsets
     return worst
 
@@ -905,7 +1011,7 @@ def phase_chunked(torch, conv, serve, prompt) -> dict:
         torch, res, check, cfg.vocab_size, "resident",
         Engine(api_p, model_p, bank=bank), "step", reqs,
         ServeConfig(n_slots=SERVE_SLOTS, scheduler="resident",
-                    resident_tasks=N_TASKS),
+                    resident_tasks=N_TASKS, **GREEDY_CACHE),
         lambda n: {"quant_gemv_tasks_planes": n_lin * (n + short),
                    "flash_attention": layers * (n + len(reqs)), **long_})
     eng = checked_speculative_engine(torch, api_p, model_p, bank, check)
@@ -913,14 +1019,14 @@ def phase_chunked(torch, conv, serve, prompt) -> dict:
         torch, res, check, cfg.vocab_size, "speculative", eng, "spec_step",
         reqs, ServeConfig(n_slots=SERVE_SLOTS, scheduler="speculative",
                           spec_k=SPEC_K, draft_bits=DRAFT_BITS,
-                          resident_tasks=N_TASKS),
+                          resident_tasks=N_TASKS, **SPEC_CACHE),
         lambda n: {"quant_gemv_tasks_planes":
                    n_lin * ((SPEC_K + 1) * n + short),
                    "flash_attention": layers * ((SPEC_K + 1) * n + len(reqs)),
                    **long_})
     del eng
-    gate_speculative("chunked speculative run", rep_b, rounds_b, check,
-                     peak_a, peak_b, code_bytes)
+    gate_speculative("chunked speculative run", rep_a, rep_b, rounds_b,
+                     check, peak_a, peak_b, code_bytes)
     res["verify_check"] = check["done"]
     res["peak_delta_mb"] = (peak_b - peak_a) / 1e6
     res["tokens_equal_share_spec_vs_resident"] = sum(
@@ -997,6 +1103,10 @@ def phase_step(torch, model, plane_model) -> dict:
                                          ).to(torch.bfloat16)
         ops = [(xs[(m, l.in_features)], l.qw, l.scale.detach(),
                 l.zero.detach()) for l in lins]
+        off = [l for l, a in zip(lins, ops) if not qm.tc_route(a[0], a[2])]
+        if off:
+            fail(f"step {name}: {len(off)} of the model's linears are not on "
+                 f"the tensor-core route")
 
         def run(f=fn, ops=ops):
             for a in ops:
@@ -1021,8 +1131,9 @@ def phase_step(torch, model, plane_model) -> dict:
         del w16, lib
         torch.cuda.empty_cache()
         b = [bound_ms(m, l.out_features, l.in_features, l.scale.shape[1],
-                      tensor_cores=fn is qm.quant_matmul) for l in lins]
-        out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                      tensor_cores=True) for l in lins]
+        out[name] = {"route": "mma" if fn is qm.quant_gemv else "wgmma",
+                     "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                      "bound_ms": sum(t for t, _, _ in b),
                      "bound_by": b[0][1],
                      "bound_bf16_ms": sum(t for _, _, t in b),
@@ -1040,8 +1151,12 @@ def step_planes(torch, qm, lins, gen) -> dict:
     draft step (K5-plane, M = 8 slots over 4 tasks, p = 3) and verify
     (K5-plane, 8 slots × 4 tokens, p = 4), an untasked draft step
     (K1-plane, M = 8, p = 3) and a prefill (K2-plane, M = 1024, p = 4).
-    No PyTorch call reads bit-planes: no library time.  Returns each
-    kernel's first entry (the draft steps, the prefill) for the summary."""
+    No PyTorch call reads bit-planes: no library time; torch.matmul at the
+    same M on bf16 weights of the same shapes is timed beside each GEMV
+    instance as a yardstick.  K1-plane also at the verify's M = 32.
+    Returns each kernel's first entry (the draft steps, the prefill) for
+    the summary."""
+    from repro_torch.kernels.ref import dequant_ref
     ids = torch.tensor(TASK_IDS, dtype=torch.int32, device="cuda")
     stacks = [task_stacks(torch, l.scale.detach(), l.zero.detach(), N_TASKS,
                           gen) for l in lins]
@@ -1049,7 +1164,13 @@ def step_planes(torch, qm, lins, gen) -> dict:
             ("quant_gemv_tasks_planes", "verify", TASKS_M * (SPEC_K + 1), 4,
              ids.repeat_interleave(SPEC_K + 1)),
             ("quant_gemv_planes", "draft", TASKS_M, DRAFT_BITS, None),
+            ("quant_gemv_planes", "verify", TASKS_M * (SPEC_K + 1), 4, None),
             ("quant_matmul_planes", "prefill", GEMM_M, 4, None))
+    # the yardstick beside each GEMV instance: torch.matmul at the same M
+    # on a bf16 Ŵ of every linear (never on a path)
+    w16 = [dequant_ref(l.qw, l.scale.detach(), l.zero.detach(),
+                       (l.out_features, l.in_features), l.spec,
+                       torch.bfloat16) for l in lins]
     out = {}
     for name, what, m, p, tid in runs:
         fn, shift = getattr(qm, name), 4 - p
@@ -1078,17 +1199,26 @@ def step_planes(torch, qm, lins, gen) -> dict:
         plain_ms = timed(run_plain, [()], 2)
         sets_ = 1 if tid is None else len(set(TASK_IDS))
         b = [bound_ms(m, l.out_features, l.in_features, l.scale.shape[1],
-                      scale_sets=sets_, code_bits=p,
-                      tensor_cores=name == "quant_matmul_planes")
+                      scale_sets=sets_, code_bits=p, tensor_cores=True)
              for l in lins]
-        res = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+        res = {"route": "wgmma" if name == "quant_matmul_planes" else "mma",
+               "ms": ms, "plain_ms": plain_ms, "library_ms": None,
                "bound_ms": sum(t for t, _, _ in b), "bound_by": b[0][1],
                "bound_bf16_ms": sum(t for _, _, t in b),
                "launches": len(lins)}
+        if name != "quant_matmul_planes":
+            lib = [(xs[l.in_features], w) for l, w in zip(lins, w16)]
+
+            def run_lib(lib=lib):
+                for a, w in lib:
+                    torch.matmul(a, w.T)
+            res["matmul_bf16_same_m_ms"] = timed(run_lib, [()], reps)
+            del lib
         emit({"phase": "step", "kernel": name, "step": what, "M": m,
               "planes": p, **res})
         out.setdefault(name, res)
         del ops
+    del w16
     torch.cuda.empty_cache()
     return out
 
@@ -1122,9 +1252,10 @@ def step_k5(torch, qm, lins, gen) -> dict:
     k1_ms = timed(run_k1, [()], 20)         # yardstick: K1 at the same M
     plain_ms = timed(run_plain, [()], 2)
     b = [bound_ms(TASKS_M, l.out_features, l.in_features, l.scale.shape[1],
-                  scale_sets=len(set(TASK_IDS))) for l in lins]
-    res = {"ms": ms, "k1_same_m_ms": k1_ms, "plain_ms": plain_ms,
-           "library_ms": None,
+                  scale_sets=len(set(TASK_IDS)), tensor_cores=True)
+         for l in lins]
+    res = {"route": "mma", "ms": ms, "k1_same_m_ms": k1_ms,
+           "plain_ms": plain_ms, "library_ms": None,
            "bound_ms": sum(t for t, _, _ in b), "bound_by": b[0][1],
            "bound_bf16_ms": sum(t for _, _, t in b), "launches": len(lins)}
     emit({"phase": "step", "kernel": "quant_gemv_tasks", "M": TASKS_M,
@@ -1211,7 +1342,8 @@ def phase_serve(torch, main_path) -> dict:
             k.launches = 0
         t0 = time.perf_counter()
         rep = engine.serve(reqs, ServeConfig(
-            n_slots=SERVE_SLOTS, scheduler=sched, resident_tasks=N_TASKS))
+            n_slots=SERVE_SLOTS, scheduler=sched, resident_tasks=N_TASKS,
+            **GREEDY_CACHE))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {k.__name__: k.launches for k in kernels}
@@ -1384,8 +1516,10 @@ def checked_speculative_engine(torch, api, model, bank, check):
         scale = dec.abs().amax().item()
         check["done"] = {
             "rows": t.shape[0] * t.shape[1],
+            # every op of the path is row-invariant in M, so the verify's
+            # M = 32 logits are the decode steps' M = 8 logits, bit for bit
+            "bit_equal": bool(torch.equal(logits.float(), dec)),
             "max_abs_diff": diff, "logits_max_abs": scale,
-            "tolerance": 2.0 ** -5 * scale,
             "argmax_equal_share": (logits.argmax(-1) == dec.argmax(-1)
                                    ).float().mean().item(),
             # the replayed draft step proposes the round's first draft
@@ -1414,12 +1548,13 @@ def checked_speculative_engine(torch, api, model, bank, check):
     return eng
 
 
-def gate_speculative(label, rep_b, rounds_b, check, peak_a, peak_b,
+def gate_speculative(label, rep_a, rep_b, rounds_b, check, peak_a, peak_b,
                      code_bytes) -> None:
     """The speculative-over-resident run's gates: scheduler, no task-drain
-    wait, SPEC_K draft steps a round, a checked verify within 2⁻⁵ of the
-    step-by-step decode, the replayed draft, and peak memory within 5% of
-    the code bytes of the resident run's."""
+    wait, SPEC_K draft steps a round, a checked verify bit-equal to the
+    step-by-step decode, the replayed draft, the same tokens as the
+    resident (greedy) run ``rep_a``, and peak memory within 5% of the code
+    bytes of the resident run's."""
     if rep_b.scheduler != "speculative" or rep_b.task_drain_idle_slot_steps:
         fail(f"{label}: scheduler {rep_b.scheduler!r}, task-drain "
              f"idle slot-steps {rep_b.task_drain_idle_slot_steps}")
@@ -1432,9 +1567,10 @@ def gate_speculative(label, rep_b, rounds_b, check, peak_a, peak_b,
     if check["done"] is None:
         fail(f"{label}: no round had every slot live")
     done = check["done"]
-    if done["max_abs_diff"] > done["tolerance"]:
+    if not done["bit_equal"]:
         fail(f"{label}: verify logits differ from successive decode steps "
-             f"by {done['max_abs_diff']:.3e} > {done['tolerance']:.3e}")
+             f"by up to {done['max_abs_diff']:.3e} (bit-equal required)")
+    gate_tokens_equal(label, "resident", rep_a, rep_b)
     if not done["draft_replay_equal"]:
         fail(f"{label}: the replayed draft step does not propose the "
              f"round's draft tokens")
@@ -1442,6 +1578,23 @@ def gate_speculative(label, rep_b, rounds_b, check, peak_a, peak_b,
         fail(f"{label}: peak memory {peak_b / 1e9:.3f} GB exceeds the "
              f"resident run's {peak_a / 1e9:.3f} GB by 5% of the "
              f"{code_bytes / 1e9:.3f} GB of codes or more")
+
+
+def gate_tokens_equal(label, what, rep_a, rep_b) -> float:
+    """Fail unless ``rep_b`` served every request the tokens ``rep_a`` did
+    (speculative decoding is greedy decoding, token for token); returns
+    the share of equal tokens (1.0)."""
+    same = sum(sum(x == y for x, y in zip(a, b))
+               for a, b in zip(rep_a.tokens, rep_b.tokens))
+    share = same / rep_a.decoded
+    if rep_b.tokens != rep_a.tokens:
+        first = min((j, i) for i, (a, b) in enumerate(zip(rep_a.tokens,
+                                                          rep_b.tokens))
+                    for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        fail(f"{label}: tokens differ from the {what} run's (share "
+             f"{share:.4f} equal; first at token {first[0]} of request "
+             f"{first[1]})")
+    return share
 
 
 def phase_speculative(torch, plane, serve) -> dict:
@@ -1471,7 +1624,7 @@ def phase_speculative(torch, plane, serve) -> dict:
     rep_a, _, peak_a = run(
         "resident", eng, "step", reqs,
         ServeConfig(n_slots=SERVE_SLOTS, scheduler="resident",
-                    resident_tasks=N_TASKS),
+                    resident_tasks=N_TASKS, **GREEDY_CACHE),
         lambda n: {"quant_gemv_tasks_planes": n_lin * (n + short), **long_})
     del eng                                   # and its resident stack
     if rep_a.tokens != serve["resident_tokens"]:
@@ -1485,15 +1638,15 @@ def phase_speculative(torch, plane, serve) -> dict:
     eng = checked_speculative_engine(torch, api, model, bank, check)
     spec_cfg = dict(n_slots=SERVE_SLOTS, scheduler="speculative",
                     spec_k=SPEC_K, draft_bits=DRAFT_BITS,
-                    resident_tasks=N_TASKS)
+                    resident_tasks=N_TASKS, **SPEC_CACHE)
     rep_b, rounds_b, peak_b = run(
         "speculative", eng, "spec_step", reqs, ServeConfig(**spec_cfg),
         lambda n: {"quant_gemv_tasks_planes":
                    n_lin * ((SPEC_K + 1) * n + short), **long_})
     check["peak"] = 0
     del eng
-    gate_speculative("speculative run", rep_b, rounds_b, check, peak_a,
-                     peak_b, code_bytes)
+    gate_speculative("speculative run", rep_a, rep_b, rounds_b, check,
+                     peak_a, peak_b, code_bytes)
     res["verify_check"] = check["done"]
     res["peak_delta_mb"] = (peak_b - peak_a) / 1e6
     same = [sum(x == y for x, y in zip(a, b))
@@ -1504,13 +1657,88 @@ def phase_speculative(torch, plane, serve) -> dict:
                               if x != y), None)] if i is not None]
     res["first_divergence"] = min(firsts) if firsts else None
 
-    # (c) speculative without tasks: the untasked draft and verify (K1-plane)
+    # (c) speculative without tasks: the untasked draft and verify
+    # (K1-plane), and (d) the same requests decoded greedily, one step at a
+    # time: the same tokens
     untasked = [Request(tokens=r.tokens, n_new=r.n_new,
                         arrival_step=r.arrival_step) for r in reqs]
-    run("speculative_untasked", Engine(api, model), "spec_step", untasked,
+    rep_c, _, _ = run(
+        "speculative_untasked", Engine(api, model), "spec_step", untasked,
         ServeConfig(**spec_cfg),
         lambda n: {"quant_gemv_planes": n_lin * ((SPEC_K + 1) * n + short),
                    **long_})
+    rep_d, _, _ = run(
+        "greedy_untasked", Engine(api, model), "step", untasked,
+        ServeConfig(n_slots=SERVE_SLOTS, scheduler="drain", **GREEDY_CACHE),
+        lambda n: {"quant_gemv_planes": n_lin * (n + short), **long_})
+    res["tokens_equal_share_untasked_vs_greedy"] = gate_tokens_equal(
+        "untasked speculative run", "greedy untasked", rep_d, rep_c)
+    emit(res)
+    return res
+
+
+def phase_invariance(torch, cfg) -> dict:
+    """Row invariance of the decode / verify path on the card: a 2-layer
+    llama3.2-1b at full width (PEQA 4-bit per-channel, and its 4-plane
+    repack), one verify of 8 slots × (SPEC_K + 1) tokens (M = 32) against
+    the SPEC_K + 1 matching decode steps (M = 8), under "dense" and
+    "chunked", with a 4-task resident stack and without: every op's rows
+    (embedding, norms, linears, RoPE, attention, head, argmax) must be
+    bit-equal (``models.row_trace.compare_verify``), and each op kind alone
+    on equal inputs likewise (``isolated_ops``)."""
+    import numpy as np
+    from repro_torch.core import policies
+    from repro_torch.core.scale_bank import ResidentStack, ScaleBank
+    from repro_torch.models import registry, row_trace
+
+    cfg2 = cfg.replace(n_layers=2)
+    api = registry.build(cfg2)
+    model, _ = policies.prepare(api.init(SEED), cfg2)
+    plane = plane_backbone(torch, {"cfg": cfg2, "model": model})
+    bank = ScaleBank()
+    bank.add("t0", model)
+    rng = np.random.default_rng(SEED + 4)
+    for t in range(1, N_TASKS):
+        bank.tasks[f"t{t}"] = {
+            k: (v * rng.uniform(0.9, 1.1, v.shape)).astype(v.dtype)
+            for k, v in bank.tasks["t0"].items()}
+    warm = [f"t{t}" for t in range(N_TASKS)]
+    ids = torch.tensor(TASK_IDS, dtype=torch.int32, device="cuda")
+    pos = torch.arange(TASKS_M, device="cuda") * 31 + 20
+    toks = torch.randint(0, cfg2.vocab_size, (TASKS_M, SPEC_K + 1),
+                         generator=torch.Generator().manual_seed(SEED + 7)
+                         ).to("cuda")
+    cache = api.init_cache(TASKS_M, 512)
+    for key in cache:
+        cache[key].normal_(generator=torch.Generator(device="cuda"
+                                                     ).manual_seed(SEED))
+    res = {"phase": "invariance", "layers": 2, "rows_verify": TASKS_M * (
+        SPEC_K + 1), "rows_decode": TASKS_M, "cases": {}, "isolated": {}}
+    for layout, (m, c) in {"nibble": (model, cfg2),
+                           "plane": (plane["model"], plane["cfg"])}.items():
+        stack = ResidentStack(bank, m, N_TASKS, warm=warm).stack
+        for tasked in (True, False):
+            st, tid = (stack, ids) if tasked else (None, None)
+            for impl in ("dense", "chunked"):
+                rep = row_trace.compare_verify(
+                    registry.build(c.replace(attn_impl=impl)), m, cache, toks,
+                    pos, st, tid)
+                key = f"{layout}/{impl}/{'tasks' if tasked else 'untasked'}"
+                res["cases"][key] = {"ops": len(rep["ops"]),
+                                     "first_differing": rep["first_differing"]}
+                if rep["first_differing"] is not None:
+                    bad = [(r["op"], r["max_abs_diff"]) for r in rep["ops"]
+                           if not r["equal"]][:4]
+                    fail(f"invariance {key}: rows differ from op "
+                         f"{rep['first_differing']} on: {bad}")
+            iso = row_trace.isolated_ops(m, c, cache, pos, SPEC_K + 1, st,
+                                         tid)
+            key = f"{layout}/{'tasks' if tasked else 'untasked'}"
+            res["isolated"][key] = sorted(iso)
+            bad = [k for k, r in iso.items() if not r["equal"]]
+            if bad:
+                fail(f"invariance {key}: ops not row-invariant alone: {bad}")
+        del stack
     emit(res)
     return res
 
@@ -1706,6 +1934,7 @@ def main() -> None:
     chunked = phase_chunked(torch, conv, serve, main_path["prompt"])
     steps = {layout: conv[layout]["step"] for layout in conv}
     del conv
+    phase_invariance(torch, main_path["cfg"])
     phase_check(torch, main_path["cfg"])
     if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
                                    for m in sys.modules):

@@ -4,6 +4,9 @@
 //   t_m = task_ids[m],
 // and K6a: both read from bit-planes (PLANES = true).
 //
+// This header describes the SIMT route first; the tensor-core route, which
+// every model-shape launch takes, follows below it.
+//
 // K1 replaces the TPU kernel repro/kernels/quant_matmul.py::quant_gemv_pallas
 // (plain branch, _qgemv_kernel).  Same semantics: x (M ≤ 32, K) in bf16 or
 // f32, qw (N, K/8) 32-bit words holding 8 nibble codes each (code i in bits
@@ -34,8 +37,9 @@
 //   * a block's 8 warps split K four ways over two row groups and meet in a
 //     shared-memory reduction, so small-N layers still fill the card.
 // With f32 FMAs on CUDA cores (as the TPU kernel dots f32 operands), the
-// dequantize + FMA instruction count per code is close to what the card can
-// issue at HBM rate; a later kernel moves to packed bf16 math or tensor cores.
+// dequantize + FMA instruction count per code sets its pace (8.5× the bytes
+// bound at M = 4, 26× at M = 32 on an H100): the kernel below is now the
+// SIMT route only, and bf16 x at the model's shapes takes the tensor cores.
 // K5 dequantizes each code once per row of x (its scale and zero are the
 // row's), not once per MB rows: more FP work per code, but no per-row scale
 // registers.  Per-channel scales of the M rows are staged in shared memory
@@ -57,17 +61,87 @@
 // codes under the rescaled scales.  Bytes: p/4 of the nibble kernel's code
 // stream, each plane byte read once (a warp reads 8 consecutive words of
 // each plane: 32-byte sectors, fully used).
+//
+// Two routes behind the four entry points, chosen by dtype and shape (not a
+// fallback on failure):
+//
+// * The tensor-core route (quant_gemv_tc_kernel): bf16 x, K % 64 == 0 and a
+//   group size K/G that is a multiple of 64 (per-channel included) — every
+//   llama3.2-1b linear (quant_matmul.tc_route).  A bf16 x and a 4-bit code
+//   (0..15; q >> shift for a plane draft) are both exact bf16 operands, so
+//   Ŵ is never rounded: per group g
+//     y[m,n] = Σ_g s[t_m,n,g]·(Σ_{k∈g} x[m,k]·q[n,k] − z[t_m,n,g]·Σ_{k∈g} x[m,k])
+//   The inner sums run on mma.sync m16n8k16 (bf16 in, f32 accumulate) with
+//   the operands swapped: A is 16 output channels × 16 codes, B is 16 codes
+//   × 8 rows of x.  Σ x is the same product with an A tile of ones.
+//   Work: a cluster of S blocks of 8 warps owns 16 channels; warp w of
+//   block rank r sums K slice i = 8r + w — the 64-code blocks
+//   [i·nb/(8S), (i+1)·nb/(8S)) of the nb = K/64.  S (tc_block_split, 1 to
+//   4) follows from (N, K): enough blocks for ~2 on each of the 132 SMs,
+//   but never fewer than 8 64-code blocks a warp — the cluster's barriers
+//   and exchange cost more than a shorter chain of 4 saves (split over 4
+//   and 2 blocks, the k/v and q/o projections took ~1 µs longer at M <= 8:
+//   kernels/gemv_variants.py).  Of the llama3.2-1b linears only the down
+//   projection (K = 8192, 128 channel tiles) splits, over 2.  M <= 8 is
+//   one n-tile of B, M = 32 four, each A fragment reused across them.  A
+//   lane (g = lane / 4, t = lane % 4) reads, for channels g and g + 8, 16
+//   consecutive codes of each 64-code block (two packed words: one 8-byte
+//   load per channel; a quad of lanes reads a channel's 32 contiguous
+//   bytes, one sector — or the lane's 16 bits of each plane's word) and
+//   the matching 16 bf16 of each x row (two 16-byte loads through L1).
+//   The k order inside a block is permuted so that a lane's codes are its
+//   own loads, and unpacked in the fewest instructions: each packed word
+//   becomes 4 bf16 pairs, pair i = codes (i, i + 4) — a shift, a masked OR
+//   into 0x4300|q (= 128 + q) and one bf16x2 fma that subtracts 128
+//   (exact) — and k-step s of the block pairs them with the same x
+//   elements, which a byte permute pairs likewise.  A and B see the same
+//   permutation, so the dot is unchanged.
+//   (8-byte code loads, not 16: a lane's 16 codes then stay inside one
+//   64-code block, so groups of 64 codes need no exchange between lanes.)
+//   At M <= 8 a warp keeps two batches of 2 blocks in registers, the raw
+//   words of one in flight while the other is unpacked and multiplied, and
+//   reads per-channel scales before the sums; at larger M one batch of
+//   4 / NT blocks at a time.
+//   A group's partial sums are flushed into the lane's y as s·(A − z·R) at
+//   each group boundary and at the slice's end; the 8S slices' partial y
+//   then meet through the cluster's shared memory, added in slice order.
+//   What the card bounds: bytes.  Every code word is read from HBM once;
+//   x (at most 32 × K bf16, in L2) once per 16 channels.  What holds it
+//   back (kernels/gemv_variants.py): at M <= 8 the loop without its loads
+//   takes two thirds of the time and the loads alone one third, yet
+//   neither a third fewer unpack instructions nor half the tensor-core
+//   work (Σ x in A's 16th row, 15 channels a block) made it faster — the
+//   second was slower; at M = 32 x's L2 traffic, 8× the codes' bytes.
+//   The schedule follows from (N, K, G) alone, never from M, and an mma
+//   computes each output element from its own row and column only.  So
+//   row m's bits do not depend on how many rows share the call (a verify of
+//   k+1 tokens gives the bits of k+1 decode steps).  K5 runs the same sums
+//   — they do not depend on the task — and reads row m's (s, z) from the
+//   stacks only for the flush, in K1's expression: K5's row m is K1's row m
+//   under task t_m, bit for bit.  The plane form rebuilds each packed word
+//   from the top planes before the unpack: bit for bit the nibble kernel on
+//   q >> (bits' − planes) under the rescaled scales.
+// * The SIMT route (quant_gemv_kernel, below): f32 x and the other shapes.
+//   Its K chunk is the same for every instantiation (KC_FIXED, the M = 32
+//   chunk), so lane → word and warp → K slice, and with them a row's sum
+//   order, are the same for every M too.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int KSPLIT = 4;                    // warps sharing one row group
 constexpr int ROW_GROUPS = 2;                // row groups per block
 constexpr int WARPS = KSPLIT * ROW_GROUPS;
 constexpr int THREADS = WARPS * 32;
 constexpr int SMEM_X_FLOATS = 16384;         // 64 KB of staged activations
+// the K chunk of every SIMT launch: the M = 32 chunk (a multiple of 8), so
+// a row's chunking — and its sum order — does not depend on M
+constexpr int KC_FIXED = (SMEM_X_FLOATS / 32) & ~7;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -368,7 +442,7 @@ template <typename T, int MT, int R, bool TASKS, bool PLANES>
 cudaError_t launch(const void* x, const void* qw, const void* scale, const void* zero,
                    const int* task_ids, void* y, int M, int N, int K, int G,
                    int n_tasks, Planes pl, cudaStream_t stream) {
-  int kc = (SMEM_X_FLOATS / MT) & ~7;
+  int kc = KC_FIXED;
   if (kc > K) kc = K;
   const size_t smem = (size_t)MT * kc * sizeof(float) + extra_smem<MT, R, TASKS>();
   auto kern = quant_gemv_kernel<T, MT, R, TASKS, PLANES>;
@@ -382,7 +456,7 @@ cudaError_t launch(const void* x, const void* qw, const void* scale, const void*
   if (!(set_on >> dev & 1ull)) {
     err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)(SMEM_X_FLOATS * sizeof(float) + extra_smem<MT, R, TASKS>()));
+        (int)(MT * KC_FIXED * sizeof(float) + extra_smem<MT, R, TASKS>()));
     if (err != cudaSuccess) return err;
     set_on |= 1ull << dev;
   }
@@ -394,6 +468,340 @@ cudaError_t launch(const void* x, const void* qw, const void* scale, const void*
       task_ids, static_cast<T*>(y), M, N, K, G, n_tasks, kc,
       pl.planes, pl.s_mul(), pl.z_mul());
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The tensor-core route
+// ---------------------------------------------------------------------------
+
+constexpr int TC_WARPS = 8;                  // warps (K slices) of a block
+constexpr int TC_THREADS = TC_WARPS * 32;
+constexpr int TC_BLOCK_K = 64;               // codes of one 8-byte load a lane
+constexpr int TC_MAX_SPLIT = 4;              // blocks (a cluster) splitting K
+constexpr int TC_FILL_BLOCKS = 264;          // 2 blocks on each of 132 SMs
+constexpr int TC_MIN_WARP_BLOCKS = 8;        // 64-code blocks a warp, at least
+
+// S, the blocks whose K slices one 16-channel tile's sums are split over:
+// as many as bring the grid to ~2 blocks an SM, at most TC_MAX_SPLIT, and
+// at least TC_MIN_WARP_BLOCKS 64-code blocks for each warp.  From (N, K)
+// alone, never M.
+int tc_block_split(int N, int K) {
+  const int tiles = (N + 15) / 16;
+  const int most = K / TC_BLOCK_K / (TC_WARPS * TC_MIN_WARP_BLOCKS);
+  int s = TC_FILL_BLOCKS / tiles;
+  if (s > TC_MAX_SPLIT) s = TC_MAX_SPLIT;
+  if (s > most) s = most;
+  return s < 1 ? 1 : s;
+}
+constexpr uint32_t BF16X2_ONE = 0x3F803F80u, BF16X2_M128 = 0xC300C300u;
+
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the 8 nibbles of word w as 4 exact bf16 pairs: pair i holds nibbles i
+// (low half) and i + 4 (high half).  0x4300 | q is 128 + q in bf16; one
+// bf16x2 fma subtracts 128.
+__device__ __forceinline__ void unpack_word(uint32_t w, uint32_t (&pr)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t v = ((w >> (4 * i)) & 0x000F000Fu) | 0x43004300u;
+    asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+        : "=r"(pr[i]) : "r"(v), "r"(BF16X2_ONE), "r"(BF16X2_M128));
+  }
+}
+
+// The raw code words lane (g, t) reads for one 64-code block of channel n
+// (codes 16t .. 16t+15): two packed nibble words (one 8-byte load), or the
+// 32-bit word holding those 16 codes in each of the top `planes` planes
+// (MSB plane first).  Kept raw until the block is multiplied, so a batch's
+// loads stay in flight while the batch before it is.
+template <bool PLANES> struct RawCodes;
+template <> struct RawCodes<false> { uint2 w; };
+template <> struct RawCodes<true> { uint32_t p[4]; };
+
+template <bool PLANES>
+__device__ __forceinline__ void load_codes(RawCodes<PLANES>& rc,
+                                           const uint32_t* __restrict__ qw, int n,
+                                           int b, int t, int K, size_t plane_stride,
+                                           int planes) {
+  if constexpr (!PLANES) {
+    rc.w = __ldg(reinterpret_cast<const uint2*>(qw + (size_t)n * (K >> 3) + 8 * b) + t);
+  } else {
+    const uint32_t* src = qw + (size_t)n * (K >> 5) + 2 * b + (t >> 1);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (i < planes) rc.p[i] = __ldg(src + i * plane_stride);
+  }
+}
+
+// the two packed nibble words of the lane's 16 codes: as read, or rebuilt
+// from the planes (the lane's 16 bits of each, spread to bits 0, 4, …, 28
+// and stacked MSB first)
+template <bool PLANES>
+__device__ __forceinline__ uint2 code_words(const RawCodes<PLANES>& rc, int t,
+                                            int planes) {
+  if constexpr (!PLANES) {
+    return rc.w;
+  } else {
+    const int sh = (t & 1) * 16;
+    uint32_t lo = 0, hi = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (i < planes) {
+        const uint32_t bits = rc.p[i] >> sh;
+        lo = (lo << 1) | spread8(bits & 0xFFu);
+        hi = (hi << 1) | spread8((bits >> 8) & 0xFFu);
+      }
+    return make_uint2(lo, hi);
+  }
+}
+
+// NT: n-tiles of 8 rows of x (M <= 8 · NT); TASKS: K5; PLANES: K6a.
+// A cluster of `split` blocks owns 16 channels; warp w of block rank r sums
+// K slice 8r + w (64-code blocks [i·nb/(8·split), (i+1)·nb/(8·split)) for
+// i = 8r + w) for them, each A fragment (unpacked codes) reused
+// across the NT n-tiles.  At NT = 1 (M <= 8) a warp keeps two batches of 2
+// blocks in registers, the raw words of one in flight while the other is
+// unpacked and multiplied, and reads per-channel scales before the sums;
+// at larger NT one batch of 4 / NT blocks at a time (a second batch spilled
+// under the 128-register budget of 2 blocks an SM and ran slower:
+// kernels/gemv_variants.py).  At the end the 8·split slices' partial y
+// meet in the cluster's shared memory, added in slice order; each block
+// writes every split-th output.
+template <int NT, bool TASKS, bool PLANES>
+__global__ void __launch_bounds__(TC_THREADS, 2) quant_gemv_tc_kernel(
+    const __nv_bfloat16* __restrict__ x, const uint32_t* __restrict__ qw,
+    const float* __restrict__ scale, const float* __restrict__ zero,
+    const int* __restrict__ task_ids, __nv_bfloat16* __restrict__ y,
+    int M, int N, int K, int G, int n_tasks, int planes, float s_mul,
+    float z_mul, int split) {
+  constexpr bool PIPE = NT == 1;
+  constexpr int UNR = PIPE ? 2 : 4 / NT;      // 64-code blocks a batch
+  __shared__ float red[TC_WARPS][16][8 * NT];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rank = blockIdx.x % split, n0 = blockIdx.x / split * 16;
+  const int nb = K / TC_BLOCK_K, slices = TC_WARPS * split;
+  const int slice = rank * TC_WARPS + warp;
+  const int beg = slice * nb / slices, end = (slice + 1) * nb / slices;
+  const int group = K / G;
+  const size_t plane_stride = (size_t)N * (K >> 5);
+  // the lane's two channels (clamped: channels >= N compute garbage, never
+  // stored); for its outputs (rows 8j + 2t + e) the offset into the scale
+  // stacks (K5)
+  const int ch[2] = {min(n0 + g, N - 1), min(n0 + g + 8, N - 1)};
+  int toff[NT][2];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int m = 8 * j + 2 * t + e;
+      toff[j][e] = TASKS && m < M
+          ? min(max(__ldg(task_ids + m), 0), n_tasks - 1) * N * G : 0;
+    }
+  auto lds = [&](size_t o) { return PLANES ? __ldg(scale + o) * s_mul : __ldg(scale + o); };
+  auto ldz = [&](size_t o) { return PLANES ? __ldg(zero + o) * z_mul : __ldg(zero + o); };
+  auto sz_off = [&](int j, int e, int gi) {
+    return (size_t)toff[j][e & 1] + (size_t)ch[e >> 1] * G + gi;
+  };
+  // per-channel scales read before the sums (NT = 1), so their latency
+  // hides behind the codes'
+  float sp[NT][4], zp[NT][4];
+  if (PIPE && G == 1) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sp[j][e] = lds(sz_off(j, e, 0));
+        zp[j][e] = ldz(sz_off(j, e, 0));
+      }
+  }
+
+  float yacc[NT][4], acc[NT][4], rs[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) yacc[j][e] = acc[j][e] = rs[j][e] = 0.f;
+  // y += s·(A − z·R) for the group `gi` piece just summed, then restart
+  auto flush = [&](int gi) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float sv = PIPE && G == 1 ? sp[j][e] : lds(sz_off(j, e, gi));
+        const float zv = PIPE && G == 1 ? zp[j][e] : ldz(sz_off(j, e, gi));
+        yacc[j][e] += sv * (acc[j][e] - zv * rs[j][e & 1]);
+        acc[j][e] = 0.f;
+      }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) rs[j][e] = 0.f;
+  };
+  const uint32_t ones[4] = {BF16X2_ONE, BF16X2_ONE, BF16X2_ONE, BF16X2_ONE};
+  // a batch's operands: per block the lane's raw code words of its 2
+  // channels, and 16 bf16 of x row 8j + g for each n-tile j (zero past M)
+  struct Batch {
+    RawCodes<PLANES> q[UNR][2];
+    uint4 xv[UNR][NT][2];
+  };
+  auto load = [&](Batch& bt, int b0) {
+#pragma unroll
+    for (int u = 0; u < UNR; ++u) {
+      const int b = b0 + u;
+      if (b < end) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          load_codes<PLANES>(bt.q[u][r], qw, ch[r], b, t, K, plane_stride, planes);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int m = 8 * j + g;
+          if (m < M) {
+            const uint4* src = reinterpret_cast<const uint4*>(
+                x + (size_t)m * K + b * TC_BLOCK_K + 16 * t);
+            bt.xv[u][j][0] = __ldg(src);
+            bt.xv[u][j][1] = __ldg(src + 1);
+          } else {
+            bt.xv[u][j][0] = bt.xv[u][j][1] = make_uint4(0, 0, 0, 0);
+          }
+        }
+      }
+    }
+  };
+  int cur = beg * TC_BLOCK_K / group;
+  auto compute = [&](const Batch& bt, int b0) {
+#pragma unroll
+    for (int u = 0; u < UNR; ++u) {
+      const int b = b0 + u;
+      if (b >= end) break;
+      const int gi = b * TC_BLOCK_K / group;
+      if (gi != cur) {
+        flush(cur);
+        cur = gi;
+      }
+      // pr[r][h][i]: channel g + 8r, word h (codes 16t + 8h ..), the bf16
+      // pair of its codes i and i + 4
+      uint32_t pr[2][2][4];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const uint2 w = code_words<PLANES>(bt.q[u][r], t, planes);
+        unpack_word(w.x, pr[r][0]);
+        unpack_word(w.y, pr[r][1]);
+      }
+      // k-step s (word h = s / 2, i = 2 (s % 2)): mma columns 2t, 2t+1 are
+      // the lane's codes 8h + i and 8h + i + 4, columns 2t+8, 2t+9 codes
+      // 8h + i + 1 and 8h + i + 5; B takes the same x elements, paired by
+      // a byte permute
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const int h = s >> 1, i = 2 * (s & 1);
+        const uint32_t a[4] = {pr[0][h][i], pr[1][h][i], pr[0][h][i + 1],
+                               pr[1][h][i + 1]};
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const uint4& v = bt.xv[u][j][h];
+          const uint32_t lo = (s & 1) ? v.y : v.x, hi = (s & 1) ? v.w : v.z;
+          const uint32_t b0r = __byte_perm(lo, hi, 0x5410);
+          const uint32_t b1r = __byte_perm(lo, hi, 0x7632);
+          mma16816(acc[j], a, b0r, b1r);
+          mma16816(rs[j], ones, b0r, b1r);
+        }
+      }
+    }
+  };
+  if constexpr (PIPE) {
+    // two batches in registers: while one is multiplied the other loads
+    Batch ba, bb;
+    if (beg < end) load(ba, beg);
+    for (int b0 = beg; b0 < end; b0 += 2 * UNR) {
+      if (b0 + UNR < end) load(bb, b0 + UNR);
+      compute(ba, b0);
+      if (b0 + UNR >= end) break;
+      if (b0 + 2 * UNR < end) load(ba, b0 + 2 * UNR);
+      compute(bb, b0 + UNR);
+    }
+  } else {
+    for (int b0 = beg; b0 < end; b0 += UNR) {
+      Batch bt;
+      load(bt, b0);
+      compute(bt, b0);
+    }
+  }
+  if (beg < end) flush(cur);
+
+  // the 8·split slices' partial y, summed in slice order (block rank,
+  // then warp); block `rank` writes outputs rank, rank + split, ...
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      red[warp][g + 8 * (e >> 1)][8 * j + 2 * t + (e & 1)] = yacc[j][e];
+  float* own = &red[0][0][0];
+  if (split > 1)
+    cg::this_cluster().sync();
+  else
+    __syncthreads();
+  for (int i = threadIdx.x * split + rank; i < 16 * 8 * NT;
+       i += TC_THREADS * split) {
+    const int m = i >> 4, c = i & 15;
+    if (m < M && n0 + c < N) {
+      float v = 0.f;
+      for (int r = 0; r < split; ++r) {
+        const float* part =
+            split > 1 ? cg::this_cluster().map_shared_rank(own, r) : own;
+#pragma unroll
+        for (int w = 0; w < TC_WARPS; ++w) v += part[(w * 16 + c) * 8 * NT + m];
+      }
+      y[(size_t)m * N + n0 + c] = __float2bfloat16_rn(v);
+    }
+  }
+  // no block leaves while another may still read its partial sums
+  if (split > 1) cg::this_cluster().sync();
+}
+
+template <int NT, bool TASKS, bool PLANES>
+cudaError_t launch_tc(const void* x, const void* qw, const void* scale,
+                      const void* zero, const int* task_ids, void* y, int M,
+                      int N, int K, int G, int n_tasks, Planes pl,
+                      cudaStream_t stream) {
+  const int split = tc_block_split(N, K);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = split;
+  attr.val.clusterDim.y = attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + 15) / 16 * split);
+  cfg.blockDim = dim3(TC_THREADS);
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(
+      &cfg, quant_gemv_tc_kernel<NT, TASKS, PLANES>,
+      static_cast<const __nv_bfloat16*>(x), static_cast<const uint32_t*>(qw),
+      static_cast<const float*>(scale), static_cast<const float*>(zero),
+      task_ids, static_cast<__nv_bfloat16*>(y), M, N, K, G, n_tasks,
+      pl.planes, pl.s_mul(), pl.z_mul(), split);
+}
+
+template <bool TASKS, bool PLANES>
+cudaError_t dispatch_tc(const void* x, const void* qw, const void* scale,
+                        const void* zero, const int* task_ids, void* y, int M,
+                        int N, int K, int G, int n_tasks, Planes pl,
+                        cudaStream_t s) {
+  if (M <= 8) return launch_tc<1, TASKS, PLANES>(x, qw, scale, zero, task_ids, y, M, N, K, G, n_tasks, pl, s);
+  if (M <= 16) return launch_tc<2, TASKS, PLANES>(x, qw, scale, zero, task_ids, y, M, N, K, G, n_tasks, pl, s);
+  return launch_tc<4, TASKS, PLANES>(x, qw, scale, zero, task_ids, y, M, N, K, G, n_tasks, pl, s);
+}
+
+// the tensor-core route's shapes (quant_matmul.tc_route on the host)
+bool tc_route(int x_is_bf16, int K, int G) {
+  return x_is_bf16 && K % TC_BLOCK_K == 0 && (K / G) % TC_BLOCK_K == 0;
 }
 
 // the (MT, R) instantiation for M rows: K1 and K5, nibble or plane, share
@@ -416,6 +824,8 @@ int run(const void* x, const void* qw, const void* scale, const void* zero,
         Planes pl, int x_is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* ids = static_cast<const int*>(task_ids);
+  if (tc_route(x_is_bf16, K, G))
+    return (int)dispatch_tc<TASKS, PLANES>(x, qw, scale, zero, ids, y, M, N, K, G, T, pl, s);
   cudaError_t err = x_is_bf16
       ? dispatch<__nv_bfloat16, TASKS, PLANES>(x, qw, scale, zero, ids, y, M, N, K, G, T, pl, s)
       : dispatch<float, TASKS, PLANES>(x, qw, scale, zero, ids, y, M, N, K, G, T, pl, s);
@@ -468,6 +878,10 @@ extern "C" int quant_gemv_planes(const void* x, const void* qw, const void* scal
   return run<false, true>(x, qw, scale, zero, nullptr, y, M, N, K, G, 1, pl,
                           x_is_bf16, stream);
 }
+
+// The tensor-core route's K split over blocks for an (N, K) layer, for the
+// tests and the build report.
+extern "C" int quant_gemv_tc_split(int N, int K) { return tc_block_split(N, K); }
 
 // K6a, K5's plane branch.
 extern "C" int quant_gemv_tasks_planes(const void* x, const void* qw,

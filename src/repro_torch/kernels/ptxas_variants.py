@@ -11,8 +11,9 @@ instantiation's registers, local-memory stack frame and spill stores
 (``nvcc -Xptxas -v``), then one line listing every bit-plane (K6a)
 instantiation of the committed sources the same way, and one listing every
 instantiation of K3, K6b and K4, and one listing the tensor-core
-instantiations (K2's ``wgmma`` tiles, nibble and plane, and K4's ``mma.sync``
-kernel and its combine) with the dynamic shared memory each block takes
+instantiations (the GEMV's ``mma`` kernels for 1, 2 and 4 n-tiles, K2's
+``wgmma`` tiles, nibble and plane, and K4's ``mma.sync`` kernel and its
+combine) with the dynamic shared memory each K2 and K4 block takes
 (above the 48 KB default: set with ``cudaFuncSetAttribute``; read from the
 built libraries' ``*_tc_smem`` entry points, no kernel runs).  ``report`` parses
 any such log into one row per instantiation (``chip_smoke.py`` phase
@@ -90,6 +91,14 @@ def report(log: str) -> list:
                                                else ""),
                    "dtype": "bf16", "route": "wgmma",
                    "tile": f"{64 * wgs}x{bn}"}
+            rows.append(cur)
+            continue
+        m = re.search(r"Compiling entry function '\S*?quant_gemv_tc_kernelI"
+                      r"Li(\d+)ELb([01])ELb([01])E", line)
+        if m:            # the GEMV's tensor-core route <NT, TASKS, PLANES>
+            cur = {"kernel": _GEMV_NAMES[m.group(2) == "1",
+                                         m.group(3) == "1"],
+                   "dtype": "bf16", "route": "mma", "NT": int(m.group(1))}
             rows.append(cur)
             continue
         m = re.search(r"Compiling entry function '\S*?flash_attention_"
@@ -188,6 +197,7 @@ def main() -> None:
             print(json.dumps({"variant": name, "k5": k5_report(log)}),
                   flush=True)
             if name == "committed":
+                gemv_log = log
                 planes += [r for r in report(log)
                            if r["kernel"].endswith("_planes")]
         gemm_log = _log("quant_matmul", gemm)
@@ -199,7 +209,7 @@ def main() -> None:
         print(json.dumps({"variant": "committed", "pack_attention": [
             r for log in logs.values() for r in report(log)]}), flush=True)
         print(json.dumps({"variant": "committed", "tensor_cores": [
-            r for log in (gemm_log, logs["flash_attention"])
+            r for log in (gemv_log, gemm_log, logs["flash_attention"])
             for r in report(log) if "route" in r],
             "dynamic_smem": _tc_smem(tmp)}), flush=True)
 

@@ -3,6 +3,15 @@ plain PyTorch versions.
 
   * ``quant_gemv``   — K1, decode-shaped (M ≤ 32 rows), ``csrc/quant_gemv.cu``;
                        replaces ``repro/kernels/quant_matmul.py::quant_gemv_pallas``.
+                       Two routes behind it, as for K2 (``tc_route``): bf16 x
+                       at whole 64-code blocks and groups takes mma.sync on
+                       the same factored sum, K split over the 8 warps of
+                       each of ``gemv_block_split`` blocks (``gemv_segments``;
+                       emulation ``quant_gemv_factored_plain``); f32 x and
+                       other shapes a SIMT f32 GEMV whose K chunk is the
+                       same at every M.  Either way a row's result does not
+                       depend on M: a verify of k+1 tokens gives the bits of
+                       k+1 decode steps.
   * ``quant_matmul`` — K2, the tiled GEMM for prefill, ``csrc/quant_matmul.cu``;
                        replaces ``repro/kernels/quant_matmul.py::quant_matmul_pallas``.
                        Two routes behind it (``tc_route``): bf16 x with K and
@@ -40,6 +49,9 @@ bit its nibble kernel on the nibble words of ``q >> (bits' − bits)`` under
 the rescaled scales: it rebuilds those words from the planes as it loads
 them.
 
+The GEMV's forms (K1, K5, K1-plane, K5-plane) share its two routes; the
+route follows from x's dtype and the shapes alone.
+
 A wrapper given CPU tensors returns the plain version; given CUDA tensors it
 launches its kernel or raises.  Each wrapper counts its launches in the
 integer attribute ``launches`` (incremented only where the kernel launches).
@@ -57,8 +69,12 @@ from repro_torch.kernels import _build, ref
 
 GEMV_MAX_M = 32
 # K2's tensor-core route works in tiles of 64 codes, each product in k-steps
-# of 16 (csrc/quant_matmul.cu)
+# of 16 (csrc/quant_matmul.cu); so does the GEMV's (csrc/quant_gemv.cu),
+# whose 8 warps a block, in clusters of up to 4 blocks over a 16-channel
+# tile, split K into slices of whole 64-code blocks
 TC_TILE_K, TC_K_STEP = 64, 16
+GEMV_KSPLIT, GEMV_MAX_SPLIT, GEMV_FILL_BLOCKS = 8, 4, 264
+GEMV_MIN_WARP_BLOCKS = 8
 # codes the kernels rebuild into nibble words: at most 4 planes; a draft
 # rescale factor 2^shift with shift < 8
 MAX_PLANES, MAX_SHIFT = 4, 7
@@ -73,6 +89,7 @@ _ENTRIES = {
     "quant_matmul_planes": ("quant_matmul", [_P] * 5 + [_I] * 7 + [_P]),
     "quant_gemv_tasks_planes": ("quant_gemv", [_P] * 6 + [_I] * 8 + [_P]),
     "quant_matmul_tc_smem": ("quant_matmul", [_I]),
+    "quant_gemv_tc_split": ("quant_gemv", [_I, _I]),
 }
 _entries: dict = {}
 
@@ -97,9 +114,10 @@ def quant_matmul_plain(x, qw, scale, zero):
 
 
 def tc_route(x, scale) -> bool:
-    """True when K2 (and K2-plane) take the tensor-core route for x and
-    scale (N, G): bf16 x, K % 64 == 0 and a group size K/G that is a
-    multiple of 64 — whole 64-code tiles in whole groups."""
+    """True when K2, the GEMV (K1, K5) and their plane forms take the
+    tensor-core route for x and scale (N, G): bf16 x, K % 64 == 0 and a
+    group size K/G that is a multiple of 64 — whole 64-code tiles in whole
+    groups."""
     k, g = x.shape[-1], scale.shape[-1]
     return (x.dtype == torch.bfloat16 and k % TC_TILE_K == 0
             and (k // g) % TC_TILE_K == 0)
@@ -137,6 +155,75 @@ def quant_matmul_factored_plain(x, qw, scale, zero, planes=None):
             r = r + xf[:, k0:k1].sum(dim=1, keepdim=True)
         out = out + s[:, gi] * (a - z[:, gi] * r)
     return out.to(x.dtype)
+
+
+def gemv_block_split(n: int, k: int) -> int:
+    """S, the blocks the tensor-core GEMV splits one 16-channel tile's K
+    over (csrc/quant_gemv.cu ``tc_block_split``): enough to bring the grid
+    to ``GEMV_FILL_BLOCKS`` (2 on each of an H100's 132 SMs), at most
+    ``GEMV_MAX_SPLIT``, and at least ``GEMV_MIN_WARP_BLOCKS`` 64-code
+    blocks for every warp.  It depends on (N, K) only."""
+    s = min(GEMV_FILL_BLOCKS // -(-n // 16), GEMV_MAX_SPLIT,
+            k // TC_TILE_K // (GEMV_KSPLIT * GEMV_MIN_WARP_BLOCKS))
+    return max(s, 1)
+
+
+def gemv_segments(n: int, k: int, g: int) -> list:
+    """The tensor-core GEMV's K schedule for an (N, K) layer in G groups:
+    per slice i of the W = ``GEMV_KSPLIT`` · ``gemv_block_split(n, k)``
+    (warp i % 8 of block rank i // 8), 64-code blocks [i·nb/W,
+    (i+1)·nb/W) of nb = K/64, cut at group boundaries, as a list of
+    (slice, k0, k1, group) pieces in the kernel's order.  It depends on
+    (N, K, G) only."""
+    nb, gs = k // TC_TILE_K, k // g
+    slices = GEMV_KSPLIT * gemv_block_split(n, k)
+    out = []
+    for w in range(slices):
+        b0, b1 = w * nb // slices, (w + 1) * nb // slices
+        k0, end = b0 * TC_TILE_K, b1 * TC_TILE_K
+        while k0 < end:
+            k1 = min(end, (k0 // gs + 1) * gs)
+            out.append((w, k0, k1, k0 // gs))
+            k0 = k1
+    return out
+
+
+def quant_gemv_factored_plain(x, qw, scale, zero, task_ids=None,
+                              planes=None):
+    """An emulation of the tensor-core GEMV (feeds only the tests and
+    ``chip_smoke.py``): the ``gemv_segments`` schedule, each k-step's 16
+    exact products summed exactly (float64) and rounded to float32, the
+    k-steps of a piece summed in f32 into A = Σ x·q and R = Σ x, the slice's
+    y += s·(A − z·R) under each row's scales (with ``task_ids``: scale and
+    zero are (T, N, G) stacks, row i under task ``task_ids[i]``), then the
+    slices' y summed in slice order.  Every op is elementwise over rows, so
+    row i does not depend on the other rows.  ``planes = (bits, shift)``
+    reads qw as K6a does."""
+    m, k = x.shape
+    if task_ids is None:
+        q, s, z = _codes_scales(qw, scale, zero, k, planes)
+        s, z = s[None], z[None]
+    else:
+        q, s, z = _codes_scales(qw, scale, zero, k, planes)
+        s, z = s[task_ids.long()], z[task_ids.long()]
+    n, g = q.shape[0], s.shape[-1]
+    xd = x.to(torch.float64).reshape(m, k // TC_K_STEP, TC_K_STEP)
+    steps = torch.einsum("msk,nsk->mns", xd, q.to(torch.float64).reshape(
+        n, k // TC_K_STEP, TC_K_STEP)).to(torch.float32)
+    rsteps = xd.sum(-1).to(torch.float32)                     # (M, K/16)
+    ys = {}
+    for w, k0, k1, gi in gemv_segments(n, k, g):
+        a = torch.zeros((m, n), dtype=torch.float32, device=x.device)
+        r = torch.zeros((m, 1), dtype=torch.float32, device=x.device)
+        for st in range(k0 // TC_K_STEP, k1 // TC_K_STEP):
+            a = a + steps[:, :, st]
+            r = r + rsteps[:, st:st + 1]
+        term = s[..., gi] * (a - z[..., gi] * r)
+        ys[w] = term if w not in ys else ys[w] + term
+    y = torch.zeros((m, n), dtype=torch.float32, device=x.device)
+    for w in sorted(ys):
+        y = y + ys[w]
+    return y.to(x.dtype)
 
 
 def quant_matmul_planes_plain(x, qw, scale, zero, bits, shift=0):
@@ -178,7 +265,7 @@ def quant_matmul_tasks_planes_plain(x, qw, scale_stack, zero_stack, task_ids,
 
 
 def error_bound(x, qw, scale, zero, plain, task_ids=None, planes=None,
-                factored=False):
+                factored=False, gemv=False):
     """Elementwise bound on |kernel − plain| for the same inputs (with
     ``task_ids``: scale and zero are (T, N, G) stacks, row i under task
     ``task_ids[i]``; with ``planes = (bits, shift)``: qw is bit-planes read
@@ -211,6 +298,21 @@ def error_bound(x, qw, scale, zero, plain, task_ids=None, planes=None,
     is 0.0156 on outputs of magnitude ≈ 4: one or two bf16 ulps, inside
     this bound.
 
+    ``gemv`` (with ``factored``): the kernel is the GEMV's tensor-core
+    route, ``quant_gemv_factored_plain`` its emulation.  Its K split cuts a
+    group into pieces (``gemv_segments``: P pieces an output, each at most
+    n codes), and the y of its W slices (``GEMV_KSPLIT`` warps in each of
+    ``gemv_block_split`` blocks) are added at the end.  Per piece the same
+    A, R and s·(A − z·R) as above; then P terms summed within the slices
+    and W partial sums across them, at most P + W additions on any term's
+    way: the kernel is within (n·u_t + (P + W + 3)·u)·T of the exact y, the
+    emulation within (n + P + W + 3)·u·T (its k-step sums round once, from
+    float64), and the bound returned is K2's with G replaced by P + W:
+    (n·u_t + (K + 2·(P + W) + 6)·u)·T.  On an H100 (NVIDIA H100 80GB
+    HBM3, 700 W; ``chip_smoke.py`` phase ``kernels``, the llama3.2-1b
+    linears, M = 4 to 32, bf16) the worst |kernel − plain| is 0.0156
+    (K1-plane, outputs of ≈ 4) and |kernel − emulation| 0.0078.
+
     A bf16 output adds one bf16 ulp of the larger result (rounding to 8
     significant bits can split two float32 sums across a rounding step).
     """
@@ -221,7 +323,7 @@ def error_bound(x, qw, scale, zero, plain, task_ids=None, planes=None,
             rows = task_ids == t
             out[rows] = error_bound(x[rows], qw, scale[t], zero[t],
                                     plain[rows], planes=planes,
-                                    factored=factored)
+                                    factored=factored, gemv=gemv)
         return out
     k = x.shape[-1]
     u = 2.0 ** -24
@@ -232,7 +334,9 @@ def error_bound(x, qw, scale, zero, plain, task_ids=None, planes=None,
         n = k // g
         wt = (s.abs()[:, :, None] * (q.reshape(q.shape[0], g, n)
                                      + z.abs()[:, :, None])).reshape(q.shape)
-        bound = (n * 2 * u + (k + 2 * g + 6) * u) * (xa @ wt.T)
+        adds = (len(gemv_segments(q.shape[0], k, g)) + GEMV_KSPLIT
+                * gemv_block_split(q.shape[0], k) if gemv else g)
+        bound = (n * 2 * u + (k + 2 * adds + 6) * u) * (xa @ wt.T)
     else:
         w = _dequant_f32(qw, scale, zero, k, planes)
         bound = 2 * k * u * (xa @ w.abs().T)
@@ -329,6 +433,12 @@ def _entry(name: str):
         fn.restype = ctypes.c_int
         _entries[name] = fn
     return fn
+
+
+def gemv_tc_split(n: int, k: int) -> int:
+    """The tensor-core GEMV's K split over blocks for an (N, K) layer, as
+    the built kernel computes it (``gemv_block_split`` mirrors it)."""
+    return _entry("quant_gemv_tc_split")(n, k)
 
 
 def tc_smem_bytes() -> dict:

@@ -25,12 +25,9 @@ from __future__ import annotations
 
 import ctypes
 import json
-import math
-import subprocess
-import tempfile
-from pathlib import Path
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _variants
+from repro_torch.kernels._variants import SHAPES
 
 _MMA = ("      wgmma_tile<C::BN>(acc, da, desc(bt + 32 * ks));\n"
         "      wgmma_n8(rs, da, desc(ones + 32 * ks));\n")
@@ -43,15 +40,12 @@ _X_LOADS = ("    cp16(xs + chunk_off(r, c), x + (size_t)(gm < M ? gm : 0)"
 _FILLS = ("  const auto fills = [&](int bm, int bn) {\n"
           "    return 4L * ((M + bm - 1) / bm) * ((N + bn - 1) / bn) >= "
           "3L * sms;\n  };\n")
-SHAPES = ((2048, 2048), (512, 2048), (8192, 2048), (2048, 8192))
 M = 1024
-L2_BYTES = 50 * 2 ** 20
 
 
 def variants(src: str) -> dict:
-    for marker in (_MMA, _UNPACK, _LOADS, _X_LOADS, _FILLS):
-        if src.count(marker) != 1:
-            raise ValueError(f"quant_matmul.cu no longer has {marker!r} once")
+    _variants.require(src, "quant_matmul.cu",
+                      (_MMA, _UNPACK, _LOADS, _X_LOADS, _FILLS))
 
     def cut(*markers):
         out = src
@@ -76,25 +70,6 @@ def variants(src: str) -> dict:
     }
 
 
-def _graph_us(torch, fn, argsets, iters: int) -> float:
-    """Device µs a call: ``iters`` calls over ``argsets`` in one CUDA graph."""
-    for args in argsets:
-        fn(*args)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for i in range(iters):
-            fn(*argsets[i % len(argsets)])
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters * 1e3
-
-
 def main() -> None:
     import torch
 
@@ -102,21 +77,10 @@ def main() -> None:
     from repro_torch.kernels import quant_matmul as qm
 
     src = (_build.CSRC / "quant_matmul.cu").read_text()
-    with tempfile.TemporaryDirectory() as tmp:
-        procs = {}
-        for name, text in variants(src).items():
-            cu = Path(tmp) / f"{name}.cu"
-            cu.write_text(text)
-            procs[name] = subprocess.Popen(
-                [_build.nvcc(), *_build.FLAGS, "-o", str(cu.with_suffix(".so")),
-                 str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)
+    with _variants.built(variants(src)) as libs:
         entries = {}
-        for name, proc in procs.items():
-            log = proc.communicate()[0]
-            if proc.returncode != 0:
-                raise RuntimeError(f"{name}: nvcc exit {proc.returncode}\n{log}")
-            fn = ctypes.CDLL(str(Path(tmp) / f"{name}.so")).quant_matmul
+        for name, lib in libs.items():
+            fn = lib.quant_matmul
             fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
                 ctypes.c_void_p]
             fn.restype = ctypes.c_int
@@ -130,7 +94,7 @@ def main() -> None:
             x = torch.randn(M, k, generator=gen, device="cuda").bfloat16()
             plain = qm.quant_matmul_plain(x, qw, s, z)
             bound = qm.error_bound(x, qw, s, z, plain, factored=True)
-            copies = max(2, math.ceil(2 * L2_BYTES / (n * k // 2)))
+            copies = _variants.copies(n * k // 2)
             sets = [(x, qw.clone(), s, z) for _ in range(copies)]
             row = {"M": M, "N": n, "K": k}
             for name, fn in entries.items():
@@ -145,7 +109,8 @@ def main() -> None:
                 y = run(*sets[0])
                 torch.cuda.synchronize()
                 ok = bool(((y.float() - plain.float()).abs() <= bound).all())
-                row[name] = {"us": _graph_us(torch, run, sets, 2 * copies),
+                row[name] = {"us": _variants.graph_us(torch, run, sets,
+                                                      2 * copies),
                              "within_bound": ok}
             print(json.dumps(row), flush=True)
             del sets

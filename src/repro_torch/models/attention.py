@@ -87,6 +87,27 @@ def _cache_write(buf: torch.Tensor, val: torch.Tensor, pos) -> None:
         buf[:, start:start + s] = val
 
 
+def _decode_attention(q, cache_k, cache_v, pos, impl: str):
+    """Causal attention of S ≥ 1 decode queries (query s at pos + s: keys
+    with index <= its position are visible) over the cache.
+
+    Each query's rows must not depend on S (a verify of k+1 tokens has to
+    give the bits of k+1 decode steps).  ``"dense"``'s f32 einsums and
+    softmax do depend on it — the card's batched GEMM and the CPU's pick
+    their summation order from the matrix shape — so under ``"dense"``
+    query s runs as its own S = 1 call at pos + s, the decode step's
+    shapes.  K4 (``"chunked"``) takes all S in one launch: its key splits
+    follow from the cache length alone and a masked key adds exact zeros,
+    so its rows are the same at any S on the card."""
+    s = q.shape[1]
+    if impl == "dense" and s > 1:
+        return torch.cat([ops.attention(q[:, j:j + 1], cache_k, cache_v,
+                                        causal=True, offset=pos + j,
+                                        impl=impl) for j in range(s)], dim=1)
+    return ops.attention(q, cache_k, cache_v, causal=True, offset=pos,
+                         impl=impl)
+
+
 def apply_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig,
                  cache_k: torch.Tensor, cache_v: torch.Tensor, pos, rope,
                  slots=None, draft_bits=None):
@@ -108,9 +129,7 @@ def apply_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     q, k = rot(q, rope), rot(k, rope)
     _cache_write(cache_k, k, pos)
     _cache_write(cache_v, v, pos)
-    # visible = slots with index <= query position
-    o = ops.attention(q, cache_k, cache_v, causal=True, offset=pos,
-                      impl=cfg.attn_impl)
+    o = _decode_attention(q, cache_k, cache_v, pos, cfg.attn_impl)
     o = o.reshape(b, s, cfg.n_heads * cfg.d_head)
     out = linear.apply(p.wo, o, slots=linear.slot_entry(slots, "wo"),
                        draft_bits=draft_bits)

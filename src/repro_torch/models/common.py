@@ -11,6 +11,10 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import linear
 
+# rows the RMSNorm of a decode step or verify reduces on the card (a verify
+# of 8 slots × 4 tokens is the most), whatever rows the call has
+NORM_DECODE_ROWS = 32
+
 
 def model_dtype(cfg: ModelConfig) -> torch.dtype:
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -32,9 +36,25 @@ class Norm(nn.Module):
         self.g = nn.Parameter(torch.ones(cfg.d_model, device=device))
 
 
+def _mean_sq(xf: torch.Tensor) -> torch.Tensor:
+    """Mean of squares over the last dim, keepdim.  On the card a call of
+    at most ``NORM_DECODE_ROWS`` rows (every decode step and verify)
+    reduces a (``NORM_DECODE_ROWS``, d) tensor padded with zero rows:
+    PyTorch picks a reduction's launch layout, and with it the order of a
+    row's sum, from the number of rows, so without the padding a row's
+    mean would depend on how many rows share the call."""
+    sq = xf ** 2
+    d = sq.shape[-1]
+    rows = sq.numel() // d
+    if not sq.is_cuda or rows > NORM_DECODE_ROWS:
+        return sq.mean(-1, keepdim=True)
+    flat = F.pad(sq.reshape(rows, d), (0, 0, 0, NORM_DECODE_ROWS - rows))
+    return flat.mean(-1, keepdim=True)[:rows].reshape(*sq.shape[:-1], 1)
+
+
 def norm_apply(p: Norm, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     xf = x.to(torch.float32)
-    y = xf * torch.rsqrt((xf ** 2).mean(-1, keepdim=True) + cfg.norm_eps)
+    y = xf * torch.rsqrt(_mean_sq(xf) + cfg.norm_eps)
     return (y * p.g).to(x.dtype)
 
 

@@ -7,12 +7,19 @@ imports only torch and the port, so it also runs on a machine without JAX:
     python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 
 Tolerance: ``quant_matmul.error_bound`` (two float32 summation orders, plus
-one bf16 ulp for bf16 outputs); for K2 and K2-plane on their tensor-core
+one bf16 ulp for bf16 outputs); for every GEMV and GEMM on its tensor-core
 route (bf16 x, K and the group size multiples of 64: ``tc_route``) its
-factored form, derived in its docstring, which also bounds the kernel's
-distance from its emulation ``quant_matmul_factored_plain`` — bitwise
+factored form, derived in its docstring (for the GEMV with its K split,
+``gemv=True``), which also bounds the kernel's distance from its emulation
+``quant_matmul_factored_plain`` / ``quant_gemv_factored_plain`` — bitwise
 equality with the emulation is not asked, since the tensor cores' order of
-summation inside a k-step is not reproducible on the CPU.  K5
+summation inside a k-step is not reproducible on the CPU.  Bitwise, on
+both GEMV routes: K1, K5, K1-plane and K5-plane rows at M ∈ {1, 2, 4, 8,
+16} equal the same rows at M = 32, at the llama3.2-1b linears; the tied
+head's rows at M = 8 equal them at M = 32; and on a 2-layer llama3.2-1b at
+full width every op of a speculative verify (M = 32) gives the bits of the
+matching decode steps (M = 8), under ``"dense"`` and ``"chunked"``
+(``models.row_trace``).  K5
 (``quant_gemv_tasks``) is held to its plain version within that bound and
 to K1 bit for bit: each of its rows must equal K1's row under that row's
 task scales.  K6a (the ``*_planes`` kernels) is held to its plain version
@@ -50,11 +57,12 @@ def _operands(m, n, k, group, dtype, device, seed=0):
     return [t.to(device) for t in (x, pack_codes(q), s, z)]
 
 
-def _assert_within_bound(got, plain, args, factored=False):
+def _assert_within_bound(got, plain, args, factored=False, gemv=False):
     assert got.dtype == plain.dtype and got.shape == plain.shape
     err = (got.float() - plain.float()).abs()
     assert torch.isfinite(got).all()
-    assert (err <= qm.error_bound(*args, plain, factored=factored)).all(), \
+    assert (err <= qm.error_bound(*args, plain, factored=factored,
+                                  gemv=gemv)).all(), \
         f"max err {err.max().item():.3e}"
 
 
@@ -74,8 +82,8 @@ def test_kernel_matches_plain_on_card(cuda, m, group, dtype):
     torch.cuda.synchronize()
     assert fn.launches == before + 1
     _assert_within_bound(got, qm.quant_matmul_plain(*args), args,
-                         factored=fn is qm.quant_matmul
-                         and qm.tc_route(args[0], args[2]))
+                         factored=qm.tc_route(args[0], args[2]),
+                         gemv=fn is qm.quant_gemv)
 
 
 @pytest.mark.gpu
@@ -87,7 +95,7 @@ def test_kernels_at_llama_shapes(cuda, n, k):
         got = ops.quant_matmul(*args, QuantSpec())
         torch.cuda.synchronize()
         _assert_within_bound(got, qm.quant_matmul_plain(*args), args,
-                             factored=m > qm.GEMV_MAX_M)
+                             factored=True, gemv=m <= qm.GEMV_MAX_M)
 
 
 @pytest.mark.gpu
@@ -148,6 +156,8 @@ def test_cuda_tensor_never_takes_plain_version(cuda, monkeypatch):
                         lambda *a: pytest.fail("plain version on the card"))
     monkeypatch.setattr(qm, "quant_matmul_factored_plain",
                         lambda *a, **k: pytest.fail("emulation on the card"))
+    monkeypatch.setattr(qm, "quant_gemv_factored_plain",
+                        lambda *a, **k: pytest.fail("emulation on the card"))
     for m in (4, 64, 1024):
         args = _operands(m, 96, 256, None, torch.bfloat16, cuda)
         ops.quant_matmul(*args, QuantSpec())
@@ -193,7 +203,9 @@ def test_k5_rows_bitwise_k1_and_within_bound_of_plain(cuda, m, n_tasks,
     plain = qm.quant_matmul_tasks_plain(x, qw, ss, zs, ids)
     err = (got.float() - plain.float()).abs()
     assert torch.isfinite(got).all()
-    assert (err <= qm.error_bound(x, qw, ss, zs, plain, task_ids=ids)).all(), \
+    tc = qm.tc_route(x, s)
+    assert (err <= qm.error_bound(x, qw, ss, zs, plain, task_ids=ids,
+                                  factored=tc, gemv=tc)).all(), \
         f"max err {err.max().item():.3e}"
     for t in range(n_tasks):
         rows = (ids == t).nonzero().flatten()
@@ -239,7 +251,7 @@ def test_plane_kernels_bitwise_nibble_and_within_bound(cuda, m, bits, p,
     gemv = m <= qm.GEMV_MAX_M
     fn, nfn = ((qm.quant_gemv_planes, qm.quant_gemv) if gemv
                else (qm.quant_matmul_planes, qm.quant_matmul))
-    factored = not gemv and qm.tc_route(x, s)
+    factored = qm.tc_route(x, s)
     before = fn.launches
     got = fn(x, planes, s, z, p, shift)
     torch.cuda.synchronize()
@@ -249,7 +261,7 @@ def test_plane_kernels_bitwise_nibble_and_within_bound(cuda, m, bits, p,
     err = (got.float() - plain.float()).abs()
     assert torch.isfinite(got).all()
     assert (err <= qm.error_bound(x, planes, s, z, plain, planes=(p, shift),
-                                  factored=factored)).all()
+                                  factored=factored, gemv=gemv)).all()
     if not gemv:
         return
     ss, zs = _task_stacks(3, s, z, seed=m + p)
@@ -263,7 +275,8 @@ def test_plane_kernels_bitwise_nibble_and_within_bound(cuda, m, bits, p,
                                                shift)
     err = (got.float() - plain.float()).abs()
     assert (err <= qm.error_bound(x, planes, ss, zs, plain, task_ids=ids,
-                                  planes=(p, shift))).all()
+                                  planes=(p, shift), factored=factored,
+                                  gemv=True)).all()
 
 
 @pytest.mark.gpu
@@ -472,3 +485,192 @@ def test_flash_attention_split_cuda_never_takes_plain_version(cuda,
                       offset=torch.arange(8, device=cuda) * 40 + 20,
                       impl="chunked")
     torch.cuda.synchronize()
+
+
+LLAMA_SHAPES = [(2048, 2048), (512, 2048), (8192, 2048), (2048, 8192)]
+# and one whose K the tensor-core GEMV splits over 4 blocks
+GEMV_SHAPES = LLAMA_SHAPES + [(48, 32768)]
+_llama = {}
+
+
+def _llama_operands(n, k, group):
+    """RTN codes of N(0, 1/K) weights at a llama3.2-1b linear, 4 task
+    stacks and their 4-plane form, made on the card once per shape."""
+    key = (n, k, group)
+    if key not in _llama:
+        g = torch.Generator(device="cuda").manual_seed(n + k + (group or 0))
+        w = torch.randn(n, k, generator=g, device="cuda") * k ** -0.5
+        q, s, z = rtn_quantize(w, QuantSpec(bits=4, group_size=group),
+                               n_grid=4)
+        ss, zs = _task_stacks(4, s, z, seed=n + k)
+        x = torch.randn(32, k, generator=g, device="cuda")
+        _llama[key] = (x, pack_codes(q), s.contiguous(), z.contiguous(), ss,
+                       zs, pack_codes_planes(q, 4))
+    return _llama[key]
+
+
+_GEMV_FORMS = ["k1", "k5", "k1_planes", "k5_planes"]
+
+
+def _gemv_form(form, qw, s, z, ss, zs, planes):
+    """(M-row call of the form's GEMV) — the planes forms read the 3-plane
+    draft, the task forms 4 tasks, row i under task i % 4."""
+    def ids(m):
+        return torch.arange(m, dtype=torch.int32, device="cuda") % 4
+    return {
+        "k1": lambda x: qm.quant_gemv(x, qw, s, z),
+        "k5": lambda x: qm.quant_gemv_tasks(x, qw, ss, zs, ids(x.shape[0])),
+        "k1_planes": lambda x: qm.quant_gemv_planes(x, planes, s, z, 3, 1),
+        "k5_planes": lambda x: qm.quant_gemv_tasks_planes(
+            x, planes, ss, zs, ids(x.shape[0]), 3, 1),
+    }[form]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["mma", "simt"])
+@pytest.mark.parametrize("form", _GEMV_FORMS)
+@pytest.mark.parametrize("group", [None, 128])
+@pytest.mark.parametrize("n,k", GEMV_SHAPES)
+def test_gemv_rows_do_not_depend_on_m(cuda, n, k, group, form, route):
+    """Row i of K1, K5, K1-plane and K5-plane gives the same bits at M = 1,
+    2, 4, 8 and 16 as at M = 32, on the tensor-core route (bf16 x) and the
+    SIMT route (f32 x): a verify of 8 slots × 4 tokens gives the bits of 4
+    decode steps of 8 slots."""
+    x, qw, s, z, ss, zs, planes = _llama_operands(n, k, group)
+    x = x.to(torch.bfloat16 if route == "mma" else torch.float32)
+    assert qm.tc_route(x, s) == (route == "mma")
+    fn = _gemv_form(form, qw, s, z, ss, zs, planes)
+    full = fn(x)
+    for m in (1, 2, 4, 8, 16):
+        assert torch.equal(fn(x[:m].contiguous()), full[:m]), f"M = {m}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,k", LLAMA_SHAPES + [(96, 256), (48, 32768)])
+def test_gemv_block_split_matches_mirror(cuda, n, k):
+    """The built kernel splits K over the blocks the emulation assumes
+    (``gemv_block_split``): 2 for the down projection, 4 at (48, 32768),
+    1 elsewhere."""
+    assert qm.gemv_tc_split(n, k) == qm.gemv_block_split(n, k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [4, 8, 32])
+@pytest.mark.parametrize("group", [None, 128])
+@pytest.mark.parametrize("n,k", GEMV_SHAPES)
+def test_gemv_tensor_cores_within_bound_of_plain_and_emulation(cuda, n, k,
+                                                               group, m):
+    """The GEMV's tensor-core route at the llama3.2-1b linears: within the
+    factored bound (with the GEMV's K split) of the plain version and of
+    the emulation ``quant_gemv_factored_plain``; K5 likewise against its
+    emulation under 4 tasks."""
+    x, qw, s, z, ss, zs, _ = _llama_operands(n, k, group)
+    x = x[:m].to(torch.bfloat16).contiguous()
+    before = qm.quant_gemv.launches
+    got = qm.quant_gemv(x, qw, s, z)
+    torch.cuda.synchronize()
+    assert qm.quant_gemv.launches == before + 1
+    args = [x, qw, s, z]
+    _assert_within_bound(got, qm.quant_matmul_plain(*args), args,
+                         factored=True, gemv=True)
+    _assert_within_bound(got, qm.quant_gemv_factored_plain(*args), args,
+                         factored=True, gemv=True)
+    ids = torch.arange(m, dtype=torch.int32, device=cuda) % 4
+    got = qm.quant_gemv_tasks(x, qw, ss, zs, ids)
+    emu = qm.quant_gemv_factored_plain(x, qw, ss, zs, task_ids=ids)
+    err = (got.float() - emu.float()).abs()
+    assert (err <= qm.error_bound(x, qw, ss, zs, emu, task_ids=ids,
+                                  factored=True, gemv=True)).all()
+
+
+@pytest.mark.gpu
+def test_head_rows_do_not_depend_on_m(cuda):
+    """The tied head (one bf16 GEMM with f32 output over the 128256 × 2048
+    table): rows at M = 8 equal the same rows at M = 32."""
+    from repro_torch import configs
+    from repro_torch.models import common
+    cfg = configs.get_config("llama3.2-1b")
+    emb = common.Embed(cfg, device=cuda)
+    emb.reset_parameters(torch.Generator(device="cuda").manual_seed(0))
+    x = torch.randn(32, 1, cfg.d_model, device=cuda).to(torch.bfloat16)
+    full = common.head_apply(None, emb, x, cfg)
+    assert torch.equal(common.head_apply(None, emb, x[:8], cfg), full[:8])
+
+
+@pytest.fixture(scope="module")
+def two_layer_llama():
+    """llama3.2-1b at full width, 2 layers, PEQA 4-bit per-channel, its
+    4-plane repack, a 4-task resident stack of each, and a 512-slot cache."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.configs.base import QuantConfig, TuningConfig
+    from repro_torch.core import policies
+    from repro_torch.core.quant import unpack_codes
+    from repro_torch.core.scale_bank import ResidentStack, ScaleBank
+    from repro_torch.models import registry, transformer
+    from repro_torch.models.linear import Linear
+    cfg = configs.get_config("llama3.2-1b").replace(
+        n_layers=2, tuning=TuningConfig(mode="peqa"),
+        quant=QuantConfig(bits=4, group_size=None, n_grid=20))
+    api = registry.build(cfg)
+    model, _ = policies.prepare(api.init(0), cfg)
+    cfg_p = cfg.replace(quant=QuantConfig(bits=4, group_size=None, n_grid=20,
+                                          layout="plane"))
+    plane = transformer.Transformer(cfg_p, device="meta")
+    srcs = dict(model.named_modules())
+    with torch.no_grad():
+        for name, mod in plane.named_modules():
+            if isinstance(mod, Linear):
+                lin = srcs[name]
+                mod.set_quantized(pack_codes_planes(unpack_codes(lin.qw), 4),
+                                  lin.scale.detach().clone(),
+                                  lin.zero.detach().clone(), cfg_p.quant.spec())
+            for pname, prm in list(mod._parameters.items()):
+                if prm is not None and prm.is_meta:
+                    mod._parameters[pname] = srcs[name]._parameters[pname]
+    bank = ScaleBank()
+    bank.add("t0", model)
+    rng = np.random.default_rng(4)
+    for t in range(1, 4):
+        bank.tasks[f"t{t}"] = {
+            k: (v * rng.uniform(0.9, 1.1, v.shape)).astype(v.dtype)
+            for k, v in bank.tasks["t0"].items()}
+    warm = [f"t{t}" for t in range(4)]
+    cache = api.init_cache(8, 512)
+    for key in cache:
+        cache[key].normal_(generator=torch.Generator(device="cuda"
+                                                     ).manual_seed(0))
+    return {"nibble": (cfg, model, ResidentStack(bank, model, 4,
+                                                 warm=warm).stack),
+            "plane": (cfg_p, plane, ResidentStack(bank, plane, 4,
+                                                  warm=warm).stack),
+            "cache": cache}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tasked", [True, False], ids=["tasks", "untasked"])
+@pytest.mark.parametrize("layout", ["nibble", "plane"])
+@pytest.mark.parametrize("impl", ["dense", "chunked"])
+def test_decode_verify_rows_equal_op_by_op(cuda, two_layer_llama, impl,
+                                           layout, tasked):
+    """One speculative verify of 8 slots × 4 tokens (M = 32) against the 4
+    matching decode steps (M = 8) on a 2-layer llama3.2-1b at full width:
+    every op's rows bit-equal (embedding, norms, linears, RoPE, attention,
+    head, argmax), and each op kind alone on equal inputs likewise."""
+    from repro_torch.models import registry, row_trace
+    cfg, model, stack = two_layer_llama[layout]
+    api = registry.build(cfg.replace(attn_impl=impl))
+    cache = two_layer_llama["cache"]
+    pos = torch.arange(8, device=cuda) * 31 + 20
+    ids = torch.arange(8, dtype=torch.int32, device=cuda) % 4
+    toks = torch.randint(0, cfg.vocab_size, (8, 4),
+                         generator=torch.Generator().manual_seed(5)).to(cuda)
+    st, tid = (stack, ids) if tasked else (None, None)
+    rep = row_trace.compare_verify(api, model, cache, toks, pos, st, tid)
+    assert rep["first_differing"] is None, rep["first_differing"]
+    assert rep["logits_equal"] and rep["argmax_equal"]
+    iso = row_trace.isolated_ops(model, cfg, cache, pos, 4, st, tid)
+    assert all(r["equal"] for r in iso.values()), \
+        [k for k, r in iso.items() if not r["equal"]]
