@@ -37,22 +37,27 @@ line:
                K5-plane at M = 8 over 4 tasks, K2-plane at M = 1024 —
                within the bound of its plain version and bit-equal to its
                nibble kernel on the codes q >> (4 − p) under draft_scales.
-               K3 and K6b at the same shapes on bf16 weights, 4 and 3 bits:
-               bit-equal to their plain version.  K4 at llama3.2-1b's heads
-               (32 query, 8 KV heads of 64): the prefill (B 4, 256 tokens,
-               causal), the lockstep decode (B 4, Sq 1, generate's
-               PROMPT + NEW cache, an int position), the slot pool's
-               decode and verify (B 8, Sq 1 and 4,
-               a 512-slot cache, offsets spread over [20, 300]), a window
-               and a non-causal case, within flash_attention.error_bound of
-               its plain version (and its distance from the emulation of its
-               split-P, split-KV arithmetic), scaled_dot_product_attention
-               timed beside it as a yardstick;
+               K3 and K6b at the same shapes on bf16 weights, and per-
+               channel on f32 weights, 4 and 3 bits: bit-equal to their
+               plain version.  K4 at llama3.2-1b's heads (32 query, 8 KV
+               heads of 64): the prefill (B 4, 256 tokens, causal), the
+               lockstep decode (B 4, Sq 1, generate's PROMPT + NEW cache,
+               an int position), the slot pool's decode and verify (B 8,
+               Sq 1 and 4, caches of 512 and of a speculative pool's 307
+               rows, offsets spread over [20, 300]), a decode and a verify
+               deep in a 4096-key cache, a window and a non-causal case,
+               within flash_attention.error_bound of its plain version
+               (and its distance from the emulation of its split-P,
+               split-KV arithmetic), each decode and verify also timed at
+               splits of 64, 128 and 256 keys,
+               scaled_dot_product_attention timed beside it as a
+               yardstick;
   3. main    — llama3.2-1b at full width from a seeded generator, PEQA
                4-bit per-channel RTN (n_grid 20), Engine.generate with
                B = 4, a 256-token prompt and 32 new tokens; the launch
                counters must show 16 × 7 K2 launches for the prefill and
-               16 × 7 K1 launches per decode step;
+               16 × 7 K1 and 16 K4 launches per decode step (on the card
+               the dense decode attention is K4);
      profile — device kernel time (torch.profiler) against wall time for one
                prefill and one decode step: the device's busy share;
   4. step    — one main-path step's launches of each kernel over the
@@ -68,10 +73,13 @@ line:
   5. serve   — the same full model serving 16 requests of 4 tasks (a
                4-task ScaleBank: the base scales and three random scalings
                of them) through Engine.serve with 8 slots, under the drain
-               and then the resident scheduler: identical tokens, resident
+               and then the resident scheduler, each pool at Engine.serve's
+               own capacity (304 rows): identical tokens, resident
                drain-free and in fewer steps, K1 never launched under
                resident and K5 launched 112 times per decode step plus its
-               prefill launches;
+               prefill launches, K4 16 times per decode step; the resident
+               run repeated in a pool of LONG_CACHE (1100) rows serves the
+               same tokens;
   6. speculative — the same model with its codes repacked into 4 bit-
                planes (scales shared by value), serving phase serve's 16
                requests: (a) resident, whose tokens must equal phase
@@ -79,7 +87,9 @@ line:
                draft; (c) speculative without tasks.  Gates: the launch
                counters (no nibble kernel; K5-plane or K1-plane 112 times
                per draft step, verify and short prefill; K2-plane per long
-               prefill), draft steps = 3 × rounds, full budgets, no
+               prefill; K4 16 times per draft step and verify), the
+               speculative pools at 307 rows against the greedy ones' 304,
+               draft steps = 3 × rounds, full budgets, no
                task-drain wait in (b), the verify logits of (b)'s first
                full round bit-equal to the same tokens decoded one step at
                a time, that round's first draft step replayed proposing the
@@ -101,7 +111,8 @@ line:
                requests on the K6b backbone, resident and speculative over
                resident (K4 16 times per decode step, draft step, verify and
                prefill; the verify and the tokens checked as in phase
-               speculative);
+               speculative; the resident run repeated at 1100 rows serves
+               the same tokens);
   9. invariance — a 2-layer llama3.2-1b at full width, nibble and plane
                codes, with and without task scales: one verify of 8 slots ×
                4 tokens (M = 32) against the 4 matching decode steps (M = 8)
@@ -152,29 +163,33 @@ SHAPES = ((2048, 2048), (512, 2048), (8192, 2048), (2048, 8192))
 # speculative phase: 3 draft steps from the top 3 of 4 bit-planes, then one
 # verify of 4 tokens per slot (8 × 4 = 32 rows: still the GEMV route)
 SPEC_K, DRAFT_BITS = 3, 3
-# every serve run's pool capacity: the speculative pool's (the longest
-# request plus SPEC_K rows of rollback headroom).  The dense attention's f32
-# softmax and products sum over the whole cache, so two runs give the same
-# bits only at one capacity; the speculative configs ask for SPEC_K fewer
-# rows, which Engine.serve adds back
-SERVE_CACHE = max(SERVE_PROMPTS) + max(SERVE_NEW) + SPEC_K
-GREEDY_CACHE, SPEC_CACHE = dict(cache_len=SERVE_CACHE), dict(
-    cache_len=SERVE_CACHE - SPEC_K)
+# every serve run takes Engine.serve's own pool capacity (304 rows for a
+# greedy pool, 307 with the speculative headroom): the decode attention's
+# bits do not depend on it.  The resident run is repeated at this capacity
+# and must give the same tokens
+LONG_CACHE = 1100
 L2_BYTES = 50 * 2 ** 20
 # K4 at llama3.2-1b's heads: (case, B, Sq, Sk, offset, causal, window) —
 # offset None (Sk − Sq), "rows" (a (B,) device tensor spread over [20,
 # 300]) or an int.  The prefill; the lockstep decode over generate's
-# PROMPT + NEW cache at one int position (most of K4's launches on phase
-# chunked's lockstep path); the slot pool's decode and verify over a
-# 512-slot cache; a window and a non-causal case
+# PROMPT + NEW cache at one int position (most of K4's launches on the
+# lockstep paths); the slot pool's decode and verify over a 512-slot cache
+# and over a speculative pool's 307; a decode and a verify deep in a
+# 4096-key cache; a window and a non-causal case.  The decode and verify
+# cases are also timed at each split size a measurement chose among
 HQ, HKV, DHEAD = 32, 8, 64
 ATTN_CASES = (("prefill", 4, 256, 256, None, True, None),
               ("lockstep_decode", BATCH, 1, PROMPT + NEW, PROMPT + 10, True,
                None),
               ("slot_decode", 8, 1, 512, "rows", True, None),
               ("slot_verify", 8, 4, 512, "rows", True, None),
+              ("pool_decode", 8, 1, 307, "rows", True, None),
+              ("pool_verify", 8, 4, 307, "rows", True, None),
+              ("long_decode", BATCH, 1, 4096, 4090, True, None),
+              ("long_verify", BATCH, 4, 4096, 4088, True, None),
               ("window", 4, 256, 256, None, True, 64),
               ("non_causal", 4, 256, 256, None, False, None))
+SPLIT_KEYS_TRIED = (64, 128, 256)
 
 
 def emit(obj) -> None:
@@ -492,36 +507,45 @@ def pack_bytes_ms(n: int, k: int, groups: int, bits: int,
 
 
 def kernel_rtn_pack(torch, n, k, group, gen) -> None:
-    """K3 and K6b on bf16 weights of one layer shape at 4 and 3 bits: codes,
-    scales and zeros bit-equal to the plain version; kernel / plain time
-    (weights rotated through > 2× the L2) against the bytes bound.  No
-    PyTorch call quantizes and packs: no library time."""
+    """K3 and K6b on bf16 weights of one layer shape at 4 and 3 bits, and,
+    per-channel, on f32 weights (the conversion's own dtype): codes, scales
+    and zeros bit-equal to the plain version; kernel / plain time (weights
+    rotated through > 2× the L2) against the bytes bound.  No PyTorch call
+    quantizes and packs: no library time."""
     from repro_torch.kernels import rtn_pack as rp
-    w = (torch.randn(n, k, generator=gen, device="cuda") * k ** -0.5
-         ).to(torch.bfloat16)
+    w32 = torch.randn(n, k, generator=gen, device="cuda") * k ** -0.5
     g = 1 if group is None else k // group
-    sets = [(w.clone(),) for _ in range(max(2, math.ceil(
-        2 * L2_BYTES / (n * k * 2))))]
-    for name, fn, plain in (
-            ("rtn_pack", rp.rtn_pack, rp.rtn_pack_plain),
-            ("rtn_pack_planes", rp.rtn_pack_planes, rp.rtn_pack_planes_plain)):
-        for bits in (4, 3):
-            got = fn(w, bits, group)
-            want = plain(w, bits, group)
-            torch.cuda.synchronize()
-            what = f"{name} N={n} K={k} group={group} bits={bits}"
-            for a, b, part in zip(got, want, ("codes", "scales", "zeros")):
-                if a.shape != b.shape or not torch.equal(a, b):
-                    fail(f"{what}: {part} differ from the plain version")
-            ms = timed(lambda x: fn(x, bits, group), sets, 50)
-            plain_ms = timed(lambda x: plain(x, bits, group), sets, 5)
-            emit({"phase": "kernels", "kernel": name, "N": n, "K": k,
-                  "group": group, "bits": bits, "dtype": "bf16",
-                  "bitwise_plain": True, "us": ms * 1e3,
-                  "plain_us": plain_ms * 1e3, "library_ms": None,
-                  "bound_us": pack_bytes_ms(n, k, g, bits, 2) * 1e3,
-                  "bound_by": "bytes"})
-    del sets
+    dtypes = (torch.bfloat16, torch.float32) if group is None \
+        else (torch.bfloat16,)
+    for dtype in dtypes:
+        w = w32.to(dtype)
+        elt = w.element_size()
+        sets = [(w.clone(),) for _ in range(max(2, math.ceil(
+            2 * L2_BYTES / (n * k * elt))))]
+        for name, fn, plain in (
+                ("rtn_pack", rp.rtn_pack, rp.rtn_pack_plain),
+                ("rtn_pack_planes", rp.rtn_pack_planes,
+                 rp.rtn_pack_planes_plain)):
+            for bits in (4, 3):
+                got = fn(w, bits, group)
+                want = plain(w, bits, group)
+                torch.cuda.synchronize()
+                what = (f"{name} N={n} K={k} group={group} bits={bits} "
+                        f"{dtype}")
+                for a, b, part in zip(got, want, ("codes", "scales",
+                                                  "zeros")):
+                    if a.shape != b.shape or not torch.equal(a, b):
+                        fail(f"{what}: {part} differ from the plain version")
+                ms = timed(lambda x: fn(x, bits, group), sets, 50)
+                plain_ms = timed(lambda x: plain(x, bits, group), sets, 5)
+                emit({"phase": "kernels", "kernel": name, "N": n, "K": k,
+                      "group": group, "bits": bits,
+                      "dtype": str(dtype).split(".")[1],
+                      "bitwise_plain": True, "us": ms * 1e3,
+                      "plain_us": plain_ms * 1e3, "library_ms": None,
+                      "bound_us": pack_bytes_ms(n, k, g, bits, elt) * 1e3,
+                      "bound_by": "bytes"})
+        del sets
 
 
 def attn_mask(torch, b, sq, sk, offset, causal, window):
@@ -586,7 +610,8 @@ def kernel_attention(torch, gen) -> tuple:
         splits = fa.decode_splits(sq, sk)
         # the kernel's arithmetic emulated (split-P product, split combine)
         emu_err = (got.float() - fa.flash_attention_split_plain(
-            q, k, v, splits=splits, **kw).float()).abs().max().item()
+            q, k, v, splits=splits, chunk=fa.SPLIT_KEYS if splits > 1
+            else None, **kw).float()).abs().max().item()
         nbytes = (q.numel() + 2 * k.numel()) * 2
         sets = [tuple(t.clone() for t in (q, k, v)) for _ in range(
             max(2, math.ceil(2 * L2_BYTES / nbytes)))]
@@ -603,11 +628,27 @@ def kernel_attention(torch, gen) -> tuple:
         plain_ms = timed(lambda *a: fa.flash_attention_plain(*a, **kw), sets,
                          10)
         lib_ms = timed(lib, sets, 50)
+        # a decode or verify at each split size tried (the earlier rule,
+        # splits of Sk / 16 keys rounded to 64 for Sk > 1024, is 64 keys
+        # at Sk ≤ 1024 and 256 at 4096)
+        by_split = {}
+        if sq <= fa.SPLIT_MAX_SQ:
+            chosen = fa.SPLIT_KEYS
+            for keys in SPLIT_KEYS_TRIED:
+                fa.SPLIT_KEYS = keys
+                try:
+                    by_split[keys] = timed(
+                        lambda *a: fa.flash_attention(*a, **kw), sets,
+                        50) * 1e3
+                finally:
+                    fa.SPLIT_KEYS = chosen
         row = {"phase": "kernels", "kernel": "flash_attention", "case": name,
                "B": b, "Sq": sq, "Sk": sk, "Hq": HQ, "Hkv": HKV, "D": DHEAD,
                "causal": causal, "window": window, "splits": splits,
+               "split_keys": fa.SPLIT_KEYS if splits > 1 else None,
                "max_abs_err": err, "max_abs_err_emulation": emu_err,
-               "us": ms * 1e3, "plain_us": plain_ms * 1e3,
+               "us": ms * 1e3, "us_by_split_keys": by_split or None,
+               "plain_us": plain_ms * 1e3,
                "library_us": lib_ms * 1e3, "bound_us": b_ms * 1e3,
                "bound_by": b_by}
         emit(row)
@@ -748,7 +789,7 @@ def phase_main(torch) -> dict:
     from repro_torch import configs
     from repro_torch.configs.base import QuantConfig, TuningConfig
     from repro_torch.core import policies
-    from repro_torch.kernels import quant_matmul as qm
+    from repro_torch.kernels import ops
     from repro_torch.models import registry
     from repro_torch.train.serve import Engine
 
@@ -771,24 +812,23 @@ def phase_main(torch) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    qm.quant_gemv.launches = 0
-    qm.quant_matmul.launches = 0
+    for k in ops.KERNELS:
+        k.launches = 0
     t0 = time.perf_counter()
     out = engine.generate(prompt, NEW)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
-    launches = {"quant_gemv": qm.quant_gemv.launches,
-                "quant_matmul": qm.quant_matmul.launches}
+    launches = {k.__name__: k.launches for k in ops.KERNELS if k.launches}
     peak = torch.cuda.max_memory_allocated()
 
     n_lin = cfg.n_layers * 7
     steps = NEW - 1                  # the last token needs no decode step
-    if launches["quant_matmul"] != n_lin:
-        fail(f"prefill launched K2 {launches['quant_matmul']} times, "
-             f"expected {n_lin}")
-    if launches["quant_gemv"] != n_lin * steps:
-        fail(f"decode launched K1 {launches['quant_gemv']} times, expected "
-             f"{n_lin} x {steps} steps")
+    # the prefill: K2 a linear, the plain attention; a decode step: K1 a
+    # linear and K4 a layer (dense decode on the card)
+    want = {"quant_matmul": n_lin, "quant_gemv": n_lin * steps,
+            "flash_attention": cfg.n_layers * steps}
+    if launches != want:
+        fail(f"generate: launches {launches}, expected {want}")
     if tuple(out.shape) != (BATCH, PROMPT + NEW):
         fail(f"generate returned {tuple(out.shape)}")
     if not torch.equal(out[:, :PROMPT].cpu(), prompt):
@@ -1011,15 +1051,18 @@ def phase_chunked(torch, conv, serve, prompt) -> dict:
         torch, res, check, cfg.vocab_size, "resident",
         Engine(api_p, model_p, bank=bank), "step", reqs,
         ServeConfig(n_slots=SERVE_SLOTS, scheduler="resident",
-                    resident_tasks=N_TASKS, **GREEDY_CACHE),
+                    resident_tasks=N_TASKS),
         lambda n: {"quant_gemv_tasks_planes": n_lin * (n + short),
                    "flash_attention": layers * (n + len(reqs)), **long_})
+    res["resident_tokens_equal_at_cache_len"] = gate_capacity(
+        "chunked resident run", Engine(api_p, model_p, bank=bank), reqs,
+        rep_a)
     eng = checked_speculative_engine(torch, api_p, model_p, bank, check)
     rep_b, rounds_b, peak_b = serve_run(
         torch, res, check, cfg.vocab_size, "speculative", eng, "spec_step",
         reqs, ServeConfig(n_slots=SERVE_SLOTS, scheduler="speculative",
                           spec_k=SPEC_K, draft_bits=DRAFT_BITS,
-                          resident_tasks=N_TASKS, **SPEC_CACHE),
+                          resident_tasks=N_TASKS),
         lambda n: {"quant_gemv_tasks_planes":
                    n_lin * ((SPEC_K + 1) * n + short),
                    "flash_attention": layers * ((SPEC_K + 1) * n + len(reqs)),
@@ -1306,6 +1349,7 @@ def phase_serve(torch, main_path) -> dict:
     K1.  Each run starts with the launch counters at 0."""
     import numpy as np
     from repro_torch.core.scale_bank import ScaleBank
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import quant_matmul as qm
     from repro_torch.serve import ServeConfig
     from repro_torch.train.serve import Engine
@@ -1321,7 +1365,8 @@ def phase_serve(torch, main_path) -> dict:
     reqs = serve_requests(cfg.vocab_size)
     n_lin = cfg.n_layers * 7
     short = sum(r.n_prompt <= 32 for r in reqs)    # prefills of <= 32 rows
-    kernels = (qm.quant_gemv, qm.quant_matmul, qm.quant_gemv_tasks)
+    kernels = (qm.quant_gemv, qm.quant_matmul, qm.quant_gemv_tasks,
+               fa.flash_attention)
     res, reports = {"phase": "serve", "requests": len(reqs),
                     "slots": SERVE_SLOTS, "tasks": N_TASKS}, {}
     for sched in ("drain", "resident"):
@@ -1342,8 +1387,7 @@ def phase_serve(torch, main_path) -> dict:
             k.launches = 0
         t0 = time.perf_counter()
         rep = engine.serve(reqs, ServeConfig(
-            n_slots=SERVE_SLOTS, scheduler=sched, resident_tasks=N_TASKS,
-            **GREEDY_CACHE))
+            n_slots=SERVE_SLOTS, scheduler=sched, resident_tasks=N_TASKS))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {k.__name__: k.launches for k in kernels}
@@ -1366,17 +1410,22 @@ def phase_serve(torch, main_path) -> dict:
                 fail(f"{sched}: request {i} has token ids outside the "
                      f"vocabulary")
         # decode steps go through the GEMV of the scheduler, prefills of
-        # <= 32 rows too; longer prefills through K2 (one task each)
+        # <= 32 rows too; longer prefills through K2 (one task each); each
+        # decode step's attention through K4, a launch a layer (the dense
+        # prefill is the plain einsum)
         gemv = "quant_gemv_tasks" if sched == "resident" else "quant_gemv"
         other = "quant_gemv" if sched == "resident" else "quant_gemv_tasks"
         want = {gemv: n_lin * (calls["n"] + short), other: 0,
-                "quant_matmul": n_lin * (len(reqs) - short)}
+                "quant_matmul": n_lin * (len(reqs) - short),
+                "flash_attention": cfg.n_layers * calls["n"]}
         if launches != want:
             fail(f"{sched}: kernel launches {launches}, expected {want}")
         res[sched]["profile_step"] = profile_serve_step(
             torch, engine, step, reqs, sched == "resident")
     engine.switch_task("t0")                  # the model's own scales back
     dr, rr = reports["drain"], reports["resident"]
+    res["resident_tokens_equal_at_cache_len"] = gate_capacity(
+        "resident run", Engine(api, model, bank=bank), reqs, rr)
     if rr.tokens != dr.tokens:
         diff = sum(a != b for a, b in zip(rr.tokens, dr.tokens))
         fail(f"resident and drain tokens differ in {diff} of {len(reqs)} "
@@ -1393,6 +1442,20 @@ def phase_serve(torch, main_path) -> dict:
     emit(res)
     return {"res": res, "bank": bank, "reqs": reqs,
             "resident_tokens": rr.tokens}
+
+
+def gate_capacity(label, engine, reqs, rep) -> int:
+    """The resident run ``rep`` (at Engine.serve's own pool capacity)
+    repeated through ``engine`` in a pool of LONG_CACHE rows: fail unless
+    it serves the same tokens — the decode attention's bits do not depend
+    on the capacity.  Returns LONG_CACHE."""
+    from repro_torch.serve import ServeConfig
+    again = engine.serve(reqs, ServeConfig(
+        n_slots=SERVE_SLOTS, scheduler="resident", resident_tasks=N_TASKS,
+        cache_len=LONG_CACHE))
+    gate_tokens_equal(f"{label} at cache_len={LONG_CACHE}",
+                      "default-capacity", rep, again)
+    return LONG_CACHE
 
 
 def plane_backbone(torch, main_path) -> dict:
@@ -1606,7 +1669,7 @@ def phase_speculative(torch, plane, serve) -> dict:
 
     api, model, cfg = plane["api"], plane["model"], plane["cfg"]
     bank, reqs = serve["bank"], serve["reqs"]
-    n_lin = cfg.n_layers * 7
+    n_lin, layers = cfg.n_layers * 7, cfg.n_layers
     short = sum(r.n_prompt <= 32 for r in reqs)
     code_bytes = sum(b.numel() * 4 for n, b in model.named_buffers()
                      if n.endswith("qw"))
@@ -1624,8 +1687,9 @@ def phase_speculative(torch, plane, serve) -> dict:
     rep_a, _, peak_a = run(
         "resident", eng, "step", reqs,
         ServeConfig(n_slots=SERVE_SLOTS, scheduler="resident",
-                    resident_tasks=N_TASKS, **GREEDY_CACHE),
-        lambda n: {"quant_gemv_tasks_planes": n_lin * (n + short), **long_})
+                    resident_tasks=N_TASKS),
+        lambda n: {"quant_gemv_tasks_planes": n_lin * (n + short),
+                   "flash_attention": layers * n, **long_})
     del eng                                   # and its resident stack
     if rep_a.tokens != serve["resident_tokens"]:
         diff = sum(a != b for a, b in zip(rep_a.tokens,
@@ -1638,11 +1702,12 @@ def phase_speculative(torch, plane, serve) -> dict:
     eng = checked_speculative_engine(torch, api, model, bank, check)
     spec_cfg = dict(n_slots=SERVE_SLOTS, scheduler="speculative",
                     spec_k=SPEC_K, draft_bits=DRAFT_BITS,
-                    resident_tasks=N_TASKS, **SPEC_CACHE)
+                    resident_tasks=N_TASKS)
     rep_b, rounds_b, peak_b = run(
         "speculative", eng, "spec_step", reqs, ServeConfig(**spec_cfg),
         lambda n: {"quant_gemv_tasks_planes":
-                   n_lin * ((SPEC_K + 1) * n + short), **long_})
+                   n_lin * ((SPEC_K + 1) * n + short),
+                   "flash_attention": layers * (SPEC_K + 1) * n, **long_})
     check["peak"] = 0
     del eng
     gate_speculative("speculative run", rep_a, rep_b, rounds_b, check,
@@ -1666,11 +1731,12 @@ def phase_speculative(torch, plane, serve) -> dict:
         "speculative_untasked", Engine(api, model), "spec_step", untasked,
         ServeConfig(**spec_cfg),
         lambda n: {"quant_gemv_planes": n_lin * ((SPEC_K + 1) * n + short),
-                   **long_})
+                   "flash_attention": layers * (SPEC_K + 1) * n, **long_})
     rep_d, _, _ = run(
         "greedy_untasked", Engine(api, model), "step", untasked,
-        ServeConfig(n_slots=SERVE_SLOTS, scheduler="drain", **GREEDY_CACHE),
-        lambda n: {"quant_gemv_planes": n_lin * (n + short), **long_})
+        ServeConfig(n_slots=SERVE_SLOTS, scheduler="drain"),
+        lambda n: {"quant_gemv_planes": n_lin * (n + short),
+                   "flash_attention": layers * n, **long_})
     res["tokens_equal_share_untasked_vs_greedy"] = gate_tokens_equal(
         "untasked speculative run", "greedy untasked", rep_d, rep_c)
     emit(res)

@@ -39,15 +39,19 @@
 //     bf16(P − hi) and both go through the tensor cores against the same V
 //     fragments (two MMAs), so each weight keeps 16 significant bits
 //     (relative error ≤ 2⁻¹⁶) instead of bf16's 8.
-//   - Decode and verify (Sq ≤ 4; the wrapper picks the split count from
-//     Sk): the visible key range is split across blocks ("flash-decoding"),
-//     each block's chunk a whole number of 64-key tiles.  Each block writes
-//     its partial (max, sum, unnormalised accumulator) to a workspace; a
-//     second launch (flash_attention_combine_kernel) rescales and sums
-//     them.  The split ranges are fixed by Sk; which keys a block sees
-//     follows from the offsets read on the device, so a block whose chunk
-//     is past the last visible key only writes an empty partial.  The
-//     wrapper counts one launch per call.
+//   - Decode and verify (Sq ≤ 4): the key range is split across blocks
+//     ("flash-decoding"), every split the same constant number of keys
+//     (the wrapper's SPLIT_KEYS, a whole number of 64-key tiles), so
+//     ceil(Sk / chunk) splits whose boundaries do not depend on Sk.  Each
+//     block writes its partial (max, sum, unnormalised accumulator) to a
+//     workspace; a second launch (flash_attention_combine_kernel) rescales
+//     and sums them in split order, skipping empty partials.  Which keys a
+//     block sees follows from the offsets read on the device, so a block
+//     whose chunk is past the last visible key only writes an empty
+//     partial: a longer cache (a pool of larger capacity) adds exactly
+//     nothing, and a call whose keys fit one split (no combine: o / l)
+//     gives the bits of the split path (weight e⁰ = 1, fmaf(o, 1, 0) = o).
+//     The wrapper counts one launch per call.
 //   - Tiles past the last key any of a block's queries can see — or before
 //     the first, with a window — are never loaded.
 // * f32 (only the tests feed it on the card): flash_attention_kernel, SIMT
@@ -606,17 +610,18 @@ cudaError_t launch(const Params& p, const Split& sp, cudaStream_t s) {
 // has checked shapes, dtypes, devices and strides; these checks only
 // refuse what would index out of bounds.  offsets: (B,) int64 on the
 // device, or null to use `offset` for every batch row; window 0: none.
-// splits > 1 (bf16 only): the key range split across blocks, partials in
-// part_o (B, Hkv, splits, Sq·Hq/Hkv, D) and part_ml (…, 2) f32, then
-// combined by a second launch.
+// splits > 1 (bf16 only): the key range split across blocks, chunk keys
+// each (a multiple of 64, splits = ceil(Sk / chunk)), partials in part_o
+// (B, Hkv, splits, Sq·Hq/Hkv, D) and part_ml (…, 2) f32, then combined by a
+// second launch.
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* o,
                                const void* offsets, long long qs_b, long long qs_s,
                                long long qs_h, long long ks_b, long long ks_s,
                                long long ks_h, long long vs_b, long long vs_s,
                                long long vs_h, int B, int Sq, int Sk, int Hq, int Hkv,
                                int D, int offset, int causal, int window, float scale,
-                               int is_bf16, int splits, void* part_o, void* part_ml,
-                               void* stream) {
+                               int is_bf16, int splits, int chunk, void* part_o,
+                               void* part_ml, void* stream) {
   const int E = is_bf16 ? 8 : 4;               // elements per 16-byte vector
   const auto aligned = [E](const void* ptr, long long sb, long long ss, long long sh) {
     return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && sb % E == 0 && ss % E == 0 &&
@@ -626,17 +631,18 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
       Hq % Hkv || D < 8 || D > D_MAX || D % 8 || window < 0 ||
       !aligned(q, qs_b, qs_s, qs_h) || !aligned(k, ks_b, ks_s, ks_h) ||
       !aligned(v, vs_b, vs_s, vs_h) || splits < 1 || (splits > 1 && !is_bf16) ||
-      (splits > 1 && (!part_o || !part_ml)))
+      (splits > 1 && (!part_o || !part_ml || chunk < 1 || chunk % tc::BKEY ||
+                      (Sk + chunk - 1) / chunk != splits ||
+                      (long long)Hkv * splits > 65535)))
     return (int)cudaErrorInvalidValue;
   const Params p{q, k, v, o, static_cast<const long long*>(offsets),
                  qs_b, qs_s, qs_h, ks_b, ks_s, ks_h, vs_b, vs_s, vs_h,
                  B, Sq, Sk, Hq, Hkv, D, offset, causal, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    // each split a whole number of key tiles
-    const int chunk = ((Sk + splits - 1) / splits + tc::BKEY - 1) / tc::BKEY * tc::BKEY;
+    // one split: every key in it
     const tc::Split sp{static_cast<float*>(part_o), static_cast<float*>(part_ml), splits,
-                       chunk};
+                       splits > 1 ? chunk : Sk};
     return (int)(D <= 64 ? tc::launch<64>(p, sp, s) : tc::launch<128>(p, sp, s));
   }
   const int rows = Sq * (Hq / Hkv);

@@ -21,8 +21,12 @@ Returns (B, Sq, Hq, D) in q's dtype; a query that sees no key gets 0.
 Two kernels behind the wrapper: bf16 operands take the tensor cores
 (mma.sync bf16 for q·kᵀ, and for P·V with P split into bf16 hi + lo), and
 for Sq ≤ ``SPLIT_MAX_SQ`` (decode, verify) the key range is split across
-blocks, ``decode_splits(Sq, Sk)`` of them, whose partials a second launch
-combines; f32 operands take the SIMT f32 kernel.  ``split_p_product`` and
+blocks of ``SPLIT_KEYS`` keys each, ``decode_splits(Sq, Sk)`` of them, whose
+partials a second launch combines; f32 operands take the SIMT f32 kernel.
+The split boundaries do not depend on Sk: a cache of larger capacity only
+adds splits past the last visible key, whose empty partials the combine
+skips, so a decode or verify gives the same bits at any capacity that
+holds its keys.  ``split_p_product`` and
 ``flash_attention_split_plain`` emulate the split-P product and the
 split-KV combine (for the tests and ``chip_smoke.py`` only).
 
@@ -42,28 +46,30 @@ from repro_torch.kernels import _build, ref
 _DTYPES = (torch.bfloat16, torch.float32)
 D_MAX = 128
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = ([_P] * 5 + [_L] * 9 + [_I] * 9 + [ctypes.c_float, _I, _I]
+_ARGTYPES = ([_P] * 5 + [_L] * 9 + [_I] * 9 + [ctypes.c_float, _I, _I, _I]
              + [_P] * 3)
 _entries: dict = {}
-# decode and verify: split the keys across blocks for Sq up to this
-SPLIT_MAX_SQ, SPLIT_KEYS, MAX_SPLITS = 4, 64, 16
+# decode and verify: split the keys across blocks for Sq up to this, each
+# split SPLIT_KEYS keys (whole 64-key tiles; the constant is chosen by
+# measurement, PERF.md §6)
+SPLIT_MAX_SQ, SPLIT_KEYS, KEY_TILE = 4, 64, 64
 
 flash_attention_plain = ref.flash_attention_ref
 
 
 def decode_splits(sq: int, sk: int) -> int:
-    """Blocks the bf16 kernel splits the keys over: one per 64-key tile
-    (at most 16) for Sq ≤ 4, else 1.  Fixed by the shapes, so a captured
-    step replays with any offsets."""
+    """Blocks the bf16 kernel splits the keys over: one per SPLIT_KEYS
+    keys for Sq ≤ 4, else 1.  Fixed by the shapes, so a captured step
+    replays with any offsets."""
     if sq > SPLIT_MAX_SQ:
         return 1
-    return max(1, min(MAX_SPLITS, -(-sk // SPLIT_KEYS)))
+    return max(1, -(-sk // SPLIT_KEYS))
 
 
 def split_chunk(sk: int, splits: int) -> int:
-    """Keys a split: Sk / splits rounded up to whole 64-key tiles (as the
-    kernel computes it)."""
-    return -(-(-(-sk // splits)) // SPLIT_KEYS) * SPLIT_KEYS
+    """Keys a split when Sk is cut into ``splits`` chunks of whole 64-key
+    tiles: Sk / splits rounded up (the emulation's default)."""
+    return -(-(-(-sk // splits)) // KEY_TILE) * KEY_TILE
 
 
 def split_p_product(p, v):
@@ -75,34 +81,41 @@ def split_p_product(p, v):
 
 
 def flash_attention_split_plain(q, k, v, *, causal=True, window=None,
-                                scale=None, offset=None, splits=1):
+                                scale=None, offset=None, splits=1,
+                                chunk=None):
     """An emulation of the bf16 kernel's arithmetic: logits in f32, the keys
-    cut into ``splits`` chunks of ``split_chunk`` keys, each chunk's partial
-    (max m_s, sum l_s, unnormalised split-P product o_s), then the combine
-    o = Σ o_s·e^(m_s − M) / Σ l_s·e^(m_s − M).  A row that sees no key
-    gets 0.  Returns q's dtype."""
+    cut into ``splits`` chunks of ``chunk`` keys (default ``split_chunk(Sk,
+    splits)``; the kernel's own cut is ``decode_splits`` chunks of
+    ``SPLIT_KEYS``), each chunk's partial (max m_s, sum l_s, unnormalised
+    split-P product o_s), then the combine o = Σ o_s·e^(m_s − M) / Σ
+    l_s·e^(m_s − M) over the partials that saw a key.  Every chunk is
+    taken at its full width, keys past Sk masked, as the kernel takes whole
+    key tiles, so keys past the last visible one change no bit.  A row
+    that sees no key gets 0.  Returns q's dtype."""
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     rep = hq // hkv
     scale = scale if scale is not None else d ** -0.5
     qf = q.to(torch.float32).reshape(b, sq, hkv, rep, d)
-    logits = torch.einsum("bqhrd,bkhd->bhrqk", qf, k.to(torch.float32)) * scale
+    kf, vf = k.to(torch.float32), v.to(torch.float32)
     mask = ref.visible(b, sq, sk, causal, window, offset, q.device)
-    mask = mask[:, None, None] if mask.dim() == 3 else mask[None, None, None]
-    logits = logits.masked_fill(~mask, float("-inf"))
-    # (B, Hkv, 1, Sk, D)
-    vf = v.to(torch.float32).permute(0, 2, 1, 3)[:, :, None]
-    chunk = split_chunk(sk, splits)
+    mask = mask.expand(b, sq, sk)
+    chunk = chunk or split_chunk(sk, splits)
     parts = []
-    for c0 in range(0, chunk * splits, chunk):
-        lg = logits[..., c0:c0 + chunk]
-        if lg.shape[-1] == 0:
-            continue
+    for c0 in range(0, min(sk, chunk * splits), chunk):
+        c1 = min(sk, c0 + chunk)
+        pad = (0, 0, 0, 0, 0, chunk - (c1 - c0))
+        kc = torch.nn.functional.pad(kf[:, c0:c1], pad)
+        vc = torch.nn.functional.pad(vf[:, c0:c1], pad)
+        mc = torch.nn.functional.pad(mask[..., c0:c1], (0, chunk - (c1 - c0)))
+        lg = torch.einsum("bqhrd,bkhd->bhrqk", qf, kc) * scale
+        lg = lg.masked_fill(~mc[:, None, None], float("-inf"))
         m = lg.amax(dim=-1, keepdim=True)
         p = torch.where(torch.isinf(m), torch.zeros_like(lg),
                         torch.exp(lg - m))
-        parts.append((m, p.sum(dim=-1, keepdim=True),
-                      split_p_product(p, vf[..., c0:c0 + chunk, :])))
+        # (B, Hkv, 1, chunk, D)
+        parts.append((m, p.sum(dim=-1, keepdim=True), split_p_product(
+            p, vc.permute(0, 2, 1, 3)[:, :, None])))
     mx = torch.stack([m for m, _, _ in parts]).amax(dim=0)
     num = torch.zeros_like(parts[0][2])
     den = torch.zeros_like(parts[0][1])
@@ -245,9 +258,12 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None,
         _entries["flash_attention"] = fn
     bf16 = q.dtype == torch.bfloat16
     splits = decode_splits(sq, sk) if bf16 else 1
+    if hkv * splits > 65535:
+        raise ValueError(f"Sk={sk}: {splits} splits of {SPLIT_KEYS} keys for "
+                         f"{hkv} KV heads exceed the grid")
     o = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
     part_o = part_ml = None
-    if splits > 1:                 # the partials the combining launch reads
+    if splits > 1:     # the partials the combining launch reads: grow with Sk
         rows = sq * (hq // hkv)
         part_o = torch.empty((b, hkv, splits, rows, d), dtype=torch.float32,
                              device=q.device)
@@ -260,7 +276,7 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None,
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                 b, sq, sk, hq, hkv, d, off, int(causal), int(window or 0),
                 float(scale if scale is not None else d ** -0.5),
-                int(bf16), splits,
+                int(bf16), splits, SPLIT_KEYS,
                 None if part_o is None else part_o.data_ptr(),
                 None if part_ml is None else part_ml.data_ptr(), stream)
     if rc != 0:

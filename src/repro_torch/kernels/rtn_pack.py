@@ -11,13 +11,16 @@ PyTorch versions (``csrc/rtn_pack.cu``).
                           range search, then ``pack_codes`` or
                           ``pack_codes_planes``.
 
-Operands: w (N, K) bf16 or f32, contiguous; ``bits`` in 2..4 and
-``group_size`` None (per-channel) or a divisor of K; K % 8 == 0 for nibbles
-and K % 32 == 0 for planes.  Returns (qw, scale, zero): qw (N, K/8) int32
-nibble words or (bits, N, K/32) int32 bit-planes — each the bits of the
-reference's uint32 words —, scale and zero (N, G) f32.  The kernels repeat
-the plain version's f32 operations in its order, so their outputs are bit
-for bit the plain version's.
+Operands: w (N, K) bf16 or f32, contiguous (on the card starting on 16
+bytes); ``bits`` in 2..4 and ``group_size`` None (per-channel) or a divisor
+of K; K % 8 == 0 for nibbles and K % 32 == 0 for planes; a block stages
+whole rows, 8192 codes or one longer row, so one row with its partials
+must fit in shared memory (``smem_bytes``: K up to about 54000 f32
+weights when K is a multiple of 32).  Returns (qw, scale, zero): qw (N,
+K/8) int32 nibble words or (bits, N, K/32) int32 bit-planes — each the
+bits of the reference's uint32 words —, scale and zero (N, G) f32.  The
+kernels repeat the plain version's f32 operations in its order, so their
+outputs are bit for bit the plain version's.
 
 A wrapper given CPU tensors returns the plain version; given CUDA tensors it
 launches its kernel or raises.  Each wrapper counts its launches in the
@@ -33,8 +36,10 @@ from repro_torch.core.quant import PACK, PLANE_PACK, QuantSpec
 from repro_torch.kernels import _build, ref
 
 _DTYPES = (torch.bfloat16, torch.float32)
-# (s, z) of a row's groups sit in the kernel's shared memory
 MAX_GROUPS = 4096
+# a block's tile: whole rows, this many codes (or one longer row), in
+# dynamic shared memory of at most SMEM_LIMIT bytes
+TILE_CODES, SMEM_LIMIT = 8192, 227 * 1024
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 4 + [_I] * 5 + [_P]
 _entries: dict = {}
@@ -53,6 +58,17 @@ def rtn_pack_plain(w, bits, group_size=None):
 def rtn_pack_planes_plain(w, bits, group_size=None):
     """The plain version of K6b."""
     return ref.rtn_pack_ref(w, _spec(bits, group_size, True), n_grid=1)
+
+
+def smem_bytes(n: int, k: int, groups: int, elt: int, plane: bool) -> int:
+    """Dynamic shared memory of a block, as ``csrc/rtn_pack.cu`` sizes it:
+    the tile (R rows of K values in whole 128-byte lines), a (min, max)
+    partial per 32-code chunk (8-code when a nibble K is no multiple of
+    32) and (s, z) per group of the tile."""
+    rows = 1 if k >= TILE_CODES else min(n, TILE_CODES // k)
+    chunk = 32 if plane or k % 32 == 0 else 8
+    return (-(-rows * k * elt // 128) * 128 + 2 * (rows * k // chunk) * 4
+            + 2 * rows * groups * 4)
 
 
 def _check(w, bits, group_size, plane):
@@ -74,11 +90,17 @@ def _check(w, bits, group_size, plane):
                          f"most {MAX_GROUPS} groups")
     if not w.is_contiguous():
         raise ValueError("w must be contiguous")
+    if smem_bytes(n, k, k // group, w.element_size(), plane) > SMEM_LIMIT:
+        raise ValueError(f"w {tuple(w.shape)}: a row of K={k} does not fit "
+                         f"the kernel's {SMEM_LIMIT} bytes of shared memory")
 
 
 def _launch(name, w, bits, group_size):
     if w.device.type != "cuda":
         raise ValueError(f"{name} runs on CUDA tensors, got {w.device}")
+    if w.data_ptr() % 16:
+        raise ValueError(f"{name} loads w in 16-byte vectors: it must start "
+                         f"on 16 bytes")
     fn = _entries.get(name)
     if fn is None:
         fn = getattr(_build.load("rtn_pack"), name)

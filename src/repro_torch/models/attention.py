@@ -1,7 +1,8 @@
 """GQA attention with RoPE and a KV cache (port of ``repro/models/attention.py``:
 ``init``, ``init_cache``, ``_qkv``, ``_rope_decode``, ``_cache_write``,
 ``apply_prefill`` and ``apply_decode``, for full causal attention through
-``ops.attention`` under ``cfg.attn_impl``: dense, or chunked — K4).
+``ops.attention`` under ``cfg.attn_impl``: dense, or chunked — K4; on the
+card a decode or verify takes K4 under either).
 
 Cache layout (all layers stacked): {"k": (L, B, C, Hkv, D), "v": same} in the
 activation dtype, C = cache capacity; the batch dim is ``CACHE_BATCH_DIM``
@@ -91,21 +92,30 @@ def _decode_attention(q, cache_k, cache_v, pos, impl: str):
     """Causal attention of S ≥ 1 decode queries (query s at pos + s: keys
     with index <= its position are visible) over the cache.
 
-    Each query's rows must not depend on S (a verify of k+1 tokens has to
-    give the bits of k+1 decode steps).  ``"dense"``'s f32 einsums and
-    softmax do depend on it — the card's batched GEMM and the CPU's pick
-    their summation order from the matrix shape — so under ``"dense"``
-    query s runs as its own S = 1 call at pos + s, the decode step's
-    shapes.  K4 (``"chunked"``) takes all S in one launch: its key splits
-    follow from the cache length alone and a masked key adds exact zeros,
-    so its rows are the same at any S on the card."""
+    Each query's rows must depend neither on S (a verify of k+1 tokens has
+    to give the bits of k+1 decode steps) nor on the cache's capacity C (a
+    speculative pool holds spec_k more rows than a greedy one).  On CUDA
+    tensors under the default kernel route both ``attn_impl`` values take
+    K4, all S queries in one launch: its key splits are a fixed number of
+    keys, so its rows are the same at any S and, since the splits past the
+    last visible key add exactly nothing, at any C.  Under ``"dense"`` this
+    replaces the reference's f32 einsum and softmax by K4 (bf16 for a bf16
+    model), held to ``flash_attention.error_bound``.  On CPU tensors and under
+    ``force_impl("torch")`` ``"dense"`` stays the plain f32 einsum, whose
+    summation order PyTorch picks from the shapes, so there query s runs as
+    its own S = 1 call at pos + s, the decode step's shapes."""
     s = q.shape[1]
-    if impl == "dense" and s > 1:
-        return torch.cat([ops.attention(q[:, j:j + 1], cache_k, cache_v,
-                                        causal=True, offset=pos + j,
-                                        impl=impl) for j in range(s)], dim=1)
+    if impl == "dense" and (q.device.type != "cuda"
+                            or ops.default_impl() != "cuda"):
+        if s > 1:
+            return torch.cat([ops.attention(q[:, j:j + 1], cache_k, cache_v,
+                                            causal=True, offset=pos + j,
+                                            impl=impl) for j in range(s)],
+                             dim=1)
+        return ops.attention(q, cache_k, cache_v, causal=True, offset=pos,
+                             impl=impl)
     return ops.attention(q, cache_k, cache_v, causal=True, offset=pos,
-                         impl=impl)
+                         impl="chunked")
 
 
 def apply_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig,

@@ -131,6 +131,39 @@ def test_flash_attention_ref_window_and_scale_match_reference(window, scale):
     np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("s", [1, 4])
+@pytest.mark.parametrize("impl", ["dense", "chunked"])
+def test_cpu_decode_attention_keeps_the_plain_path(impl, s, monkeypatch):
+    """On CPU tensors the decode attention stays the plain version: under
+    "dense" the f32 einsum, a verify's S > 1 queries as one S = 1 call
+    each; under "chunked" one call of K4's wrapper, which returns its plain
+    version for CPU tensors.  (On the card both take K4: the GPU tests.)"""
+    from repro_torch.models import attention
+    calls, einsums = [], []
+    real_attention, real_ref = ops.attention, ref.flash_attention_ref
+
+    def spy(q, k, v, **kw):
+        calls.append((q.shape[1], kw["impl"]))
+        return real_attention(q, k, v, **kw)
+
+    def spy_ref(q, *a, **kw):
+        einsums.append(q.shape[1])
+        return real_ref(q, *a, **kw)
+    monkeypatch.setattr(ops, "attention", spy)
+    monkeypatch.setattr(ref, "flash_attention_ref", spy_ref)
+    q, k, v = (torch.from_numpy(t) for t in _qkv(3, s, 40, 4, 2, 16))
+    pos = torch.tensor([5, 17, 30])
+    got = attention._decode_attention(q, k, v, pos, impl)
+    if impl == "dense":
+        assert calls == [(1, "dense")] * s and einsums == [1] * s
+        want = torch.cat([real_ref(q[:, j:j + 1], k, v, causal=True,
+                                   offset=pos + j) for j in range(s)], dim=1)
+    else:
+        assert calls == [(s, "chunked")] and einsums == []
+        want = real_ref(q, k, v, causal=True, offset=pos)
+    assert torch.equal(got, want)
+
+
 def test_attention_refuses_unknown_impl():
     q, k, v = (torch.from_numpy(t) for t in _qkv(1, 2, 4, 2, 2, 8))
     with pytest.raises(ValueError, match="unknown attention impl"):

@@ -345,11 +345,16 @@ def test_rtn_pack_bitwise_plain(cuda, weights, plane, bits, group, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,k,group", [(2048, 8192, None), (8192, 2048, 128),
-                                       (512, 2048, None)])
-def test_rtn_pack_at_llama_shapes(cuda, n, k, group):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("group", [None, 128])
+@pytest.mark.parametrize("n,k", [(2048, 2048), (512, 2048), (8192, 2048),
+                                 (2048, 8192)])
+def test_rtn_pack_at_llama_shapes(cuda, n, k, group, dtype):
+    """The conversion's own shapes: llama3.2-1b's four linears, f32 (the
+    checkpoint's dtype) and bf16, per-channel and group 128."""
     g = torch.Generator(device=cuda).manual_seed(n + k)
-    w = torch.randn(n, k, generator=g, device=cuda) * k ** -0.5
+    w = (torch.randn(n, k, generator=g, device=cuda) * k ** -0.5).to(dtype)
     for plane in (False, True):
         spec = QuantSpec(bits=4, group_size=group,
                          layout="plane" if plane else "nibble")
@@ -358,6 +363,35 @@ def test_rtn_pack_at_llama_shapes(cuda, n, k, group):
             want = ops.rtn_pack(w, spec)
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("bits", [2, 3, 4])
+@pytest.mark.parametrize("n,k,group", [
+    (1, 32, None), (3, 32, None), (1, 8192, None), (3, 8192, 128),
+    (5, 2048, None),       # R = 4 rows a tile: a last tile of one row
+    (7, 1024, 32),         # R = 8: one short tile
+    (300, 96, 32), (9, 9216, None), (2, 12288, 128),    # K > 8192: a row
+    (6, 96, 48), (4, 264, 12), (6, 40, 8), (3, 40, None), (5, 64, 16)])
+def test_rtn_pack_edges_bitwise_plain(cuda, n, k, group, bits, dtype):
+    """What a tile of whole rows can get wrong: N of 1 and 3, N no multiple
+    of a tile's rows, K of 32 and 8192 and above (one row a tile), groups
+    of 32 and 128, and groups that are no multiple of a 32-code chunk (48,
+    16) or of a nibble word (12; K 264 and 40 take 8-code chunks)."""
+    g = torch.Generator().manual_seed(n * k + bits)
+    w = (torch.randn(n, k, generator=g) * k ** -0.5).to(dtype).to(cuda)
+    for plane in (False, True):
+        if plane and k % 32:
+            continue
+        fn, plain = ((rp.rtn_pack_planes, rp.rtn_pack_planes_plain) if plane
+                     else (rp.rtn_pack, rp.rtn_pack_plain))
+        got = fn(w, bits, group)
+        torch.cuda.synchronize()
+        want = plain(w, bits, group)
+        for a, b, name in zip(got, want, ("qw", "scale", "zero")):
+            assert a.shape == b.shape and torch.equal(a, b), (plane, name)
 
 
 @pytest.mark.gpu
@@ -449,16 +483,16 @@ def test_chunked_attention_cuda_never_takes_plain_version(cuda, monkeypatch):
 @pytest.mark.parametrize("offsets", ["rows", "int"])
 def test_flash_attention_split_keys_within_bound(cuda, sq, sk, offsets):
     """Decode and verify (Sq ≤ 4) at llama3.2-1b's heads: the keys split
-    over decode_splits(Sq, Sk) blocks (5 at Sk 288, 8 at 512), offsets
-    spread over 20–300; one counted launch per call; within the bound of
-    the plain version, and of the emulation of the split arithmetic."""
+    over decode_splits(Sq, Sk) blocks of SPLIT_KEYS keys, offsets spread
+    over 20–300; one counted launch per call; within the bound of the plain
+    version, and of the emulation of the split arithmetic."""
     b = 8 if offsets == "rows" else 4
     q, k, v = _attention_inputs(b, sq, sk, 32, 8, 64, torch.bfloat16, cuda,
                                 seed=sk + sq)
     offset = (torch.linspace(20, 300, b).round().to(torch.int64).to(cuda)
               if offsets == "rows" else sk - 22)
     splits = fa.decode_splits(sq, sk)
-    assert splits == -(-sk // 64) > 1
+    assert splits == -(-sk // fa.SPLIT_KEYS) > 1
     before = fa.flash_attention.launches
     got = fa.flash_attention(q, k, v, offset=offset)
     torch.cuda.synchronize()
@@ -466,10 +500,64 @@ def test_flash_attention_split_keys_within_bound(cuda, sq, sk, offsets):
     assert torch.isfinite(got).all()
     for want in (fa.flash_attention_plain(q, k, v, offset=offset),
                  fa.flash_attention_split_plain(q, k, v, offset=offset,
-                                                splits=splits)):
+                                                splits=splits,
+                                                chunk=fa.SPLIT_KEYS)):
         err = (got.float() - want.float()).abs()
         assert (err <= fa.error_bound(q, k, v, want)).all(), \
             f"max err {err.max().item():.3e}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq", [1, 4])
+@pytest.mark.parametrize("offsets", ["rows", "int"])
+def test_flash_attention_bits_do_not_depend_on_the_capacity(cuda, sq,
+                                                            offsets):
+    """K4 over caches of 304, 307, 1100 and 4096 rows whose visible keys
+    are the same (the rows past them hold other values in each): bit-equal
+    outputs, decode and verify, one position or one a row."""
+    b = 8 if offsets == "rows" else 4
+    q, k, v = _attention_inputs(b, sq, 4096, 32, 8, 64, torch.bfloat16, cuda,
+                                seed=sq)
+    offset = (torch.linspace(20, 300 - sq, b).round().to(torch.int64).to(cuda)
+              if offsets == "rows" else 300 - sq)
+    seen = 300                     # keys 0..299: every query's visible range
+    outs = []
+    for i, cap in enumerate((304, 307, 1100, 4096)):
+        kc, vc = k[:, :cap].clone(), v[:, :cap].clone()
+        kc[:, seen:] = float(i + 1)
+        vc[:, seen:] = -float(i + 1)
+        outs.append(fa.flash_attention(q, kc, vc, offset=offset))
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(o).all() for o in outs)
+    for o in outs[1:]:
+        assert torch.equal(o, outs[0])
+
+
+@pytest.mark.gpu
+def test_dense_decode_on_the_card_takes_k4(cuda, two_layer_llama,
+                                          monkeypatch):
+    """Under attn_impl="dense" a decode step and a verify of the 2-layer
+    llama3.2-1b on the card launch K4 once a layer, all S queries in one
+    launch, and never the plain einsum."""
+    from repro_torch.kernels import ref
+    from repro_torch.models import registry
+    monkeypatch.setattr(ref, "flash_attention_ref",
+                        lambda *a, **k: pytest.fail("plain einsum on the card"))
+    cfg, model, _ = two_layer_llama["nibble"]
+    api = registry.build(cfg.replace(attn_impl="dense"))
+    cache = {key: t.clone() for key, t in two_layer_llama["cache"].items()}
+    pos = torch.arange(8, device=cuda) * 31 + 20
+    for s in (1, 4):
+        toks = torch.randint(0, cfg.vocab_size, (8, s),
+                             generator=torch.Generator().manual_seed(s)
+                             ).to(cuda)
+        before = fa.flash_attention.launches
+        step = api.decode_step if s == 1 else api.decode_verify
+        with torch.inference_mode():
+            logits, cache = step(model, cache, toks, pos)
+        torch.cuda.synchronize()
+        assert fa.flash_attention.launches == before + cfg.n_layers
+        assert torch.isfinite(logits).all()
 
 
 @pytest.mark.gpu

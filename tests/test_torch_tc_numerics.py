@@ -226,8 +226,70 @@ def test_k4_split_p_product_keeps_sixteen_bits(splits):
     _assert_k4_within(many, one, q, k, v, torch.ones(B, 1, 1, 1, dtype=bool))
 
 
+def _split_bounds(sq, sk):
+    """The key range [start, end) of each split of a bf16 K4 call."""
+    c = fa.SPLIT_KEYS
+    return [(b, min(sk, b + c)) for b in range(0, fa.decode_splits(sq, sk)
+                                                * c, c)]
+
+
 def test_decode_splits_follow_the_cache_length():
-    assert fa.decode_splits(1, 288) == 5 and fa.decode_splits(4, 512) == 8
-    assert fa.decode_splits(5, 512) == 1 and fa.decode_splits(1, 10) == 1
-    assert fa.decode_splits(1, 4096) == fa.MAX_SPLITS
-    assert fa.split_chunk(288, 5) == 64 and fa.split_chunk(4096, 16) == 256
+    """Decode and verify (Sq ≤ 4) split the keys into SPLIT_KEYS-key splits,
+    whole 64-key tiles, as many as Sk needs and no cap; Sq > 4 does not
+    split."""
+    c = fa.SPLIT_KEYS
+    assert c % 64 == 0 and c in (64, 128, 256)
+    for sq in (1, 4):
+        for sk in (1, 10, c, c + 1, 288, 304, 307, 512, 1100, 4096):
+            assert fa.decode_splits(sq, sk) == -(-sk // c)
+    assert fa.decode_splits(5, 512) == 1
+    assert fa.decode_splits(1, 4096) == 4096 // c
+
+
+def test_split_boundaries_do_not_depend_on_the_capacity():
+    """Below the shorter of two capacities (a greedy pool's 304, a
+    speculative pool's 307, and 1100 and 4096) the splits' boundaries are
+    the same, so a longer cache only adds splits past the visible keys."""
+    caps = (304, 307, 1100, 4096)
+    for sq in (1, 4):
+        for a in caps:
+            for b in caps:
+                short = min(a, b)
+                assert [e for s, e in _split_bounds(sq, a) if s < short] \
+                    [:-1] == [e for s, e in _split_bounds(sq, b)
+                              if s < short][:-1]
+                assert [s for s, _ in _split_bounds(sq, a) if s < short] == \
+                    [s for s, _ in _split_bounds(sq, b) if s < short]
+
+
+@pytest.mark.parametrize("sq,kind", [(1, "scalar"), (4, "scalar"),
+                                     (1, "rows"), (4, "rows")])
+def test_split_emulation_equal_across_capacities(sq, kind):
+    """The kernel's arithmetic (``flash_attention_split_plain`` with its own
+    split) gives the same bits for two caches whose visible keys are the
+    same and whose capacities differ (304 and 1100; the rows past the
+    visible keys hold other values)."""
+    rng = np.random.default_rng(sq)
+    b, hq, hkv, d = 2, 8, 2, 64
+    q = torch.from_numpy(rng.normal(size=(b, sq, hq, d)).astype(np.float32)
+                         ).to(torch.bfloat16)
+    long_k, long_v = (torch.from_numpy(rng.normal(size=(b, 1100, hkv, d))
+                                       .astype(np.float32)).to(torch.bfloat16)
+                      for _ in range(2))
+    offset = 290 if kind == "scalar" else torch.tensor([131, 299])
+    outs = []
+    for cap in (304, 1100):
+        k, v = long_k[:, :cap].clone(), long_v[:, :cap].clone()
+        k[:, 303:] = 7.0 * (cap == 1100)       # rows no query sees
+        v[:, 303:] = -5.0 * (cap == 1100)
+        outs.append(fa.flash_attention_split_plain(
+            q, k, v, offset=offset, splits=fa.decode_splits(sq, cap),
+            chunk=fa.SPLIT_KEYS))
+    assert torch.equal(outs[0], outs[1])
+    one = fa.flash_attention_split_plain(q, long_k[:, :fa.SPLIT_KEYS],
+                                         long_v[:, :fa.SPLIT_KEYS],
+                                         offset=fa.SPLIT_KEYS - sq)
+    split = fa.flash_attention_split_plain(
+        q, long_k, long_v, offset=fa.SPLIT_KEYS - sq,
+        splits=fa.decode_splits(sq, 1100), chunk=fa.SPLIT_KEYS)
+    assert torch.equal(one, split)
