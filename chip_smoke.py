@@ -125,7 +125,42 @@ line:
                slotted decode step over mixed tasks, on the 2 layers
                repacked into bit-planes a slotted draft step and verify, and
                on a 2-layer K3 backbone under "chunked" a prefill and a
-               slot-pool decode step and verify.
+               slot-pool decode step and verify;
+ 11. train   — PEQA training (the paper's step 2) on phase main's backbone
+               at full width and depth, TrainConfig's default batch of 8 ×
+               256 tokens (K2 at M = 2048), remat="block", a synthetic
+               corpus at vocab 128256 from the seed.  First, on step 1's
+               batch and weights, every recorded kernel call against its
+               plain version on its own inputs, element by element: the
+               112 K2 calls (M = 2048) within error_bound(factored=True)
+               under "dense", "chunked" and on the bit-plane backbone, the
+               16 K4 calls under "chunked" within flash_attention's
+               error_bound.  Beside them, looser first-order checks: the
+               loss and every scale gradient on the
+               kernel route against force_impl("torch")'s (the loss within
+               the first-order bound Σ|∂L/∂y|·error_bound(y) over the 112
+               K2 calls, each linear's scale gradient within the bound its
+               inputs' differences and ``ops.qmm_grad_bound`` give), the
+               "chunked" loss against "dense"'s within the same bound over
+               the 16 K4 calls, the loss bit-equal under remat "none" and
+               "block"; K4's logsumexp within ``lse_error_bound`` and its
+               o bit-equal with and without it; the backbone repacked
+               into bit-planes gives the nibble one's step-1 loss and
+               scale gradients bit for bit, and a train step on it
+               launches the plane branch of K2 (K6a) 2 × 112 times; a
+               step's time by part.
+               Then 10 steps of ``train.loop.train`` under "dense" and 10
+               under "chunked" from the same scales: exactly 2 × 112 K2
+               launches a step (forward and recompute), 2 × 16 K4 launches
+               under "chunked" and none under "dense", no GEMV; optimizer
+               state = 8 bytes × the model's scales; median step ms,
+               tokens/s, device ms (CUDA events), peak memory; one
+               profiled step's top device ops; eval_perplexity over 4
+               held-out batches; the codes, embedding, norms and zeros
+               unchanged;
+     train_full — one full-mode step at the same size (every float tensor
+               trained): its peak memory and optimizer state beside PEQA's
+               (the paper's Table 1).
 
 Then the card's name and power limit, the ``kernels`` summary line, and as
 the last line ``{"ok": true, "device": {...}}``.  Any failed phase raises
@@ -190,6 +225,12 @@ ATTN_CASES = (("prefill", 4, 256, 256, None, True, None),
               ("window", 4, 256, 256, None, True, 64),
               ("non_causal", 4, 256, 256, None, False, None))
 SPLIT_KEYS_TRIED = (64, 128, 256)
+# train phase: TrainConfig's default batch and length (8 × 256: K2 at M =
+# 2048), TRAIN_STEPS steps under each attn_impl (the first TRAIN_SKIP left
+# out of the medians), then eval_perplexity over TRAIN_EVAL_BATCHES held-out
+# batches of a synthetic corpus of TRAIN_TOKENS tokens (10% held out)
+TRAIN_STEPS, TRAIN_SKIP, TRAIN_EVAL_BATCHES = 10, 2, 4
+TRAIN_TOKENS = 120_000
 
 
 def emit(obj) -> None:
@@ -1079,9 +1120,9 @@ def phase_chunked(torch, conv, serve, prompt) -> dict:
     return res
 
 
-def device_ms(torch, fn) -> tuple:
-    """(device kernel ms, top kernels) of one call of ``fn`` under the
-    profiler's CUDA tracing; the ms is None when it records no device
+def device_ms(torch, fn, top: int = 6) -> tuple:
+    """(device kernel ms, the ``top`` kernels) of one call of ``fn`` under
+    the profiler's CUDA tracing; the ms is None when it records no device
     time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1090,8 +1131,9 @@ def device_ms(torch, fn) -> tuple:
     rows = [(e.key, getattr(e, "self_device_time_total", 0.0))
             for e in prof.key_averages()]
     total = sum(t for _, t in rows) / 1e3
-    top = sorted(rows, key=lambda r: -r[1])[:6]
-    return (total or None), [{"kernel": k[:80], "ms": t / 1e3} for k, t in top]
+    best = sorted(rows, key=lambda r: -r[1])[:top]
+    return (total or None), [{"kernel": k[:80], "ms": t / 1e3}
+                             for k, t in best]
 
 
 def phase_profile(torch, main_path) -> dict:
@@ -1969,6 +2011,615 @@ def check_slotted(torch, api, model, cfg) -> dict:
         out[name] = {"max_abs_diff": diff, "tolerance": tol}
     return out
 
+class Recorder:
+    """Keeps every ``ops.quant_matmul`` and ``ops.attention`` call of one
+    forward — inputs and output, and after the backward the gradient of
+    the loss with respect to that output — by wrapping the two entry
+    points the model calls (restored on exit)."""
+
+    def __init__(self, ops):
+        self.ops, self.lin, self.attn = ops, [], []
+
+    def _keep(self, rec, out):
+        if out.requires_grad:
+            out.register_hook(lambda g: rec.__setitem__("grad", g.detach()))
+
+    def __enter__(self):
+        self._qmm, self._attn = self.ops.quant_matmul, self.ops.attention
+
+        def qmm(x, qw, scale, zero, spec, **kw):
+            y = self._qmm(x, qw, scale, zero, spec, **kw)
+            rec = {"x": x.detach(), "qw": qw, "scale": scale.detach(),
+                   "zero": zero.detach(), "spec": spec, "y": y.detach()}
+            self._keep(rec, y)
+            self.lin.append(rec)
+            return y
+
+        def attn(q, k, v, **kw):
+            o = self._attn(q, k, v, **kw)
+            rec = {"q": q.detach(), "k": k.detach(), "v": v.detach(),
+                   "o": o.detach(), "impl": kw.get("impl", "dense"),
+                   "mask": {n: kw.get(n) for n in ("causal", "window",
+                                                   "scale", "offset")
+                            if n in kw}}
+            self._keep(rec, o)
+            self.attn.append(rec)
+            return o
+
+        self.ops.quant_matmul, self.ops.attention = qmm, attn
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.quant_matmul, self.ops.attention = self._qmm, self._attn
+
+
+def train_step1(torch, cfg, model, batch, impl):
+    """Loss and scale gradients of one forward and backward at the current
+    weights (no update), every kernel call recorded."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    api = registry.build(cfg, device="cuda")
+    for p in model.parameters():
+        p.grad = None
+    with ops.force_impl(impl), Recorder(ops) as rec:
+        loss = api.loss_fn(model, batch)
+        loss.backward()
+    grads = {n: p.grad for n, p in model.named_parameters()
+             if p.grad is not None}
+    for p in model.parameters():
+        p.grad = None
+    return loss.detach(), grads, rec
+
+
+def rows(t):
+    return t.reshape(-1, t.shape[-1])
+
+
+def gate_recorded_calls(torch, label, rec, rows_m: int) -> dict:
+    """Every kernel call of a recorded training forward against its plain
+    version on that call's own inputs, element by element: each K2 call
+    (M = ``rows_m``, on its tensor-core route) within ``error_bound(...,
+    factored=True)`` of ``quant_matmul_plain`` (``quant_matmul_planes_plain``
+    for a bit-plane backbone), each "chunked" attention call (K4) within
+    ``flash_attention.error_bound`` of ``flash_attention_plain``.  Fails on
+    any element outside; returns the worst |kernel − plain| of each."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quant_matmul as qm
+    worst = {"quant_matmul": 0.0, "flash_attention": 0.0}
+    for i, r in enumerate(rec.lin):
+        x, qw = rows(r["x"]), r["qw"]
+        s, z = r["scale"].float(), r["zero"].float()
+        what = f"train {label}: K2 call {i} (M={x.shape[0]})"
+        if x.shape[0] != rows_m or not qm.tc_route(x, s):
+            fail(f"{what}: expected {rows_m} rows on the tensor-core route")
+        planes = ops._layout(qw, r["spec"], None)
+        plain = qm.quant_matmul_plain(x, qw, s, z) if planes is None \
+            else qm.quant_matmul_planes_plain(x, qw, s, z, *planes)
+        err = check_close(what, rows(r["y"]), plain, qm.error_bound(
+            x, qw, s, z, plain, planes=planes, factored=True))
+        worst["quant_matmul"] = max(worst["quant_matmul"], err)
+        del plain
+    for i, r in enumerate(a for a in rec.attn if a["impl"] == "chunked"):
+        q, k, v = r["q"], r["k"], r["v"]
+        plain = fa.flash_attention_plain(q, k, v, **r["mask"])
+        err = check_close(f"train {label}: K4 call {i}", r["o"], plain,
+                          fa.error_bound(q, k, v, plain,
+                                         scale=r["mask"].get("scale")))
+        worst["flash_attention"] = max(worst["flash_attention"], err)
+    return {"k2_calls": len(rec.lin), "k4_calls": sum(
+        a["impl"] == "chunked" for a in rec.attn), "max_abs_err": worst}
+
+
+def loss_bound(torch, rec, attention: bool) -> float:
+    """First-order bound on how far the loss moves when every kernel of the
+    recorded run (K2 at each quantized linear, or with ``attention`` K4 at
+    each attention) replaces its plain version: Σ over the calls of
+    Σ |∂L/∂y|·bound(y), bound the kernel's elementwise ``error_bound``
+    against its plain version on the call's own inputs (with the output's
+    last bf16 rounding in it).  The loss is a smooth function of every
+    call's output, so to first order its change is Σ ⟨∂L/∂y, δy⟩ with
+    |δy| ≤ bound."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import quant_matmul as qm
+    total = 0.0
+    if attention:
+        for r in rec.attn:
+            b = fa.error_bound(r["q"], r["k"], r["v"], r["o"])
+            total += float((r["grad"].float().abs() * b).sum())
+        return total
+    for r in rec.lin:
+        b = qm.error_bound(rows(r["x"]), r["qw"], r["scale"], r["zero"],
+                           rows(r["y"]), factored=True)
+        total += float((rows(r["grad"]).float().abs() * b).sum())
+    return total
+
+
+def scale_grad_gate(torch, rec_p, rec_k, grads_p, grads_k, names) -> dict:
+    """Each linear's scale gradient on the kernel route against the plain
+    route's.  Both compute ds = Σ_{k∈g} (dyᵀx)·(q − z) with the same code
+    (``ops.quant_matmul_bwd``) from what reached the linear on their own
+    route, (x_K, dy_K) and (x_P, dy_P).  In exact arithmetic the two
+    differ by at most Σ_{k∈g} (|dy_K − dy_P|ᵀ|x_K| + |dy_P|ᵀ|x_K − x_P|)
+    ·(q + |z|) (the triangle inequality on dy_K x_K − dy_P x_P), and each
+    computed ds is within ``ops.qmm_grad_bound`` of its exact value, so
+    the bound is that sum plus twice ``qmm_grad_bound`` at (x_K, dy_K).
+    Fails on any scale outside; returns the worst |Δ| / bound and the
+    relative ℓ2 distance of the whole gradient."""
+    from repro_torch.kernels import ops
+    worst, num, den = 0.0, 0.0, 0.0
+    for name, rp, rk in zip(names, rec_p.lin, rec_k.lin):
+        xp, xk = rows(rp["x"]).float(), rows(rk["x"]).float()
+        dyp, dyk = rows(rp["grad"]).float(), rows(rk["grad"]).float()
+        qw, s, z, spec = rk["qw"], rk["scale"], rk["zero"], rk["spec"]
+        n, g = s.shape
+        k = xk.shape[1]
+        qz = ops._codes_f32(qw, k, spec, g) + z.abs()[..., None]
+        prop = ((dyk - dyp).abs().T @ xk.abs()
+                + dyp.abs().T @ (xk - xp).abs()).reshape(n, g, k // g)
+        prop = (prop * qz).sum(-1) * 1.001
+        bds, _ = ops.qmm_grad_bound(rows(rk["x"]), qw, s, z, spec,
+                                    rows(rk["grad"]))
+        bound = prop + 2 * bds
+        err = (grads_k[name].float() - grads_p[name].float()).abs()
+        if not torch.isfinite(grads_k[name]).all():
+            fail(f"train: non-finite scale gradient of {name}")
+        if (err > bound).any():
+            i = int(torch.argmax(err - bound))
+            fail(f"train: {name}'s scale gradient on the kernel route is "
+                 f"{err.flatten()[i].item():.3e} from the plain route's, "
+                 f"beyond the bound {bound.flatten()[i].item():.3e}")
+        worst = max(worst, float((err / bound.clamp_min(1e-30)).max()))
+        num += float((err ** 2).sum())
+        den += float((grads_p[name].float() ** 2).sum())
+    return {"worst_err_over_bound": worst,
+            "rel_l2": math.sqrt(num / den) if den else None}
+
+
+def events_ms(torch, fn, iters: int = 10) -> float:
+    """Device ms per call of ``fn`` between two CUDA events, after a
+    warm-up call (for parts large enough that launch costs do not count)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def train_parts(torch, model, cfg, batch_rows: int, gen) -> dict:
+    """A PEQA training step's device time by part, each part timed alone at
+    the step's shapes (CUDA events) and multiplied by its count a step: K2
+    forward (twice under remat="block": the forward and the recompute),
+    the backward's Ŵ dequantization, dx = dy·Ŵ, c = dyᵀx and the ds
+    reduction at each of the 7 linears of 16 layers, the tied head
+    (forward, and dx of its backward) with the cross entropy, the dense
+    attention's forward and backward, and the chunked one's K4 forward
+    (with the logsumexp) and plain backward."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import quant_matmul as qm
+    from repro_torch.models import common
+    m, layers = batch_rows, cfg.n_layers
+    lin = model.layers[0]
+    by_shape = {}
+    for name, mod in (("wq", lin.attn.wq), ("wk", lin.attn.wk),
+                      ("wv", lin.attn.wv), ("wo", lin.attn.wo),
+                      ("gate", lin.mlp.gate), ("up", lin.mlp.up),
+                      ("down", lin.mlp.down)):
+        n, k = mod.scale.shape[0], mod.in_features
+        by_shape.setdefault((n, k), []).append((name, mod))
+    parts = {p: 0.0 for p in ("k2_forward", "dequant", "dx", "c", "ds")}
+    per_linear = []
+    for (n, k), mods in by_shape.items():
+        mod = mods[0][1]
+        qw, s, z = mod.qw, mod.scale.detach(), mod.zero.detach()
+        g = s.shape[1]
+        x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+        dy = (torch.randn(m, n, generator=gen, device="cuda") * 1e-3
+              ).to(torch.bfloat16)
+        w = ref.dequant_ref(qw, s, z, (n, k), mod.spec, torch.bfloat16)
+        c = ops._mm_f32(dy.T, x)
+        t = {"k2_forward": events_ms(torch, lambda: qm.quant_matmul(
+                 x, qw, s, z)) * 2,
+             "dequant": events_ms(torch, lambda: ref.dequant_ref(
+                 qw, s, z, (n, k), mod.spec, torch.bfloat16)),
+             "dx": events_ms(torch, lambda: ops._mm_f32(dy, w).to(
+                 torch.bfloat16)),
+             "c": events_ms(torch, lambda: ops._mm_f32(dy.T, x)),
+             "ds": events_ms(torch, lambda: (c.reshape(n, g, k // g) * (
+                 ops._codes_f32(qw, k, mod.spec, g) - z[..., None])).sum(-1))}
+        count = len(mods) * layers
+        for key, ms in t.items():
+            parts[key] += ms * count
+        per_linear.append({"N": n, "K": k, "linears": [nm for nm, _ in mods],
+                           **{f"{key}_ms": ms for key, ms in t.items()}})
+    d, v = cfg.d_model, cfg.vocab_size
+    h = torch.randn(m, d, generator=gen, device="cuda").to(torch.bfloat16)
+    labels = torch.randint(0, v, (m,), generator=gen, device="cuda")
+    emb = model.embed.emb.detach()
+
+    def head():
+        hx = h.detach().requires_grad_(True)
+        logits = common.head_apply(None, model.embed, hx, cfg)
+        loss = common.cross_entropy(logits, labels)
+        return torch.autograd.grad(loss, hx)
+    parts["head_and_cross_entropy"] = events_ms(torch, head, 5)
+    b, sq = m // 256, 256
+    q = torch.randn(b, sq, cfg.n_heads, cfg.d_head, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    kk, vv = (torch.randn(b, sq, cfg.n_kv_heads, cfg.d_head, generator=gen,
+                          device="cuda").to(torch.bfloat16) for _ in range(2))
+    do = torch.randn_like(q)
+
+    def dense():
+        qq, k2, v2 = (t.detach().requires_grad_(True) for t in (q, kk, vv))
+        o = ops.attention(qq, k2, v2, causal=True, impl="dense")
+        return torch.autograd.grad(o, (qq, k2, v2), do)
+    o, lse = fa.flash_attention(q, kk, vv, return_lse=True)
+    parts["attention_dense_fwd_bwd"] = events_ms(torch, dense, 5) * layers
+    parts["attention_chunked_fwd"] = events_ms(
+        torch, lambda: fa.flash_attention(q, kk, vv, return_lse=True)
+    ) * layers * 2
+    parts["attention_chunked_bwd"] = events_ms(
+        torch, lambda: ops.chunked_attention_bwd(q, kk, vv, o, lse, do),
+        5) * layers
+    del emb
+    return {"parts_ms": parts, "per_linear": per_linear,
+            "bound_ms": train_part_bounds(cfg, m, by_shape)}
+
+
+def train_part_bounds(cfg, m: int, by_shape: dict) -> dict:
+    """The least time of each part a step, (ms, "bytes" | "operations"):
+    bytes at HBM rate (each input read once, each output written once),
+    operations at the rate of the units the part's data allows — bf16
+    tensor cores for K2, the GEMMs of bf16 operands (dx, c, K4) and the
+    tied head (bf16 operands, exact products), the float32 CUDA cores for
+    the float32 attention.  Beside the head's bound, the implementation's
+    own: its dx = dlogits·emb takes the float32 dlogits as they are (the
+    reference's numerics), so that product runs at the float32 rate.
+    nk = Σ N·K over the 112 linears."""
+    layers = cfg.n_layers
+    nk = sum(n * k * len(mods) for (n, k), mods in by_shape.items()) * layers
+    sn = sum(n * len(mods) for (n, _), mods in by_shape.items()) * layers
+    sk = sum(k * len(mods) for (_, k), mods in by_shape.items()) * layers
+    d, v, s = cfg.d_model, cfg.vocab_size, 256
+    b, hq, hkv, dh = m // s, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+
+    def bound(nbytes, ops, rate):
+        tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
+        return (tb, "bytes") if tb >= to else (to, "operations")
+    mm = 2 * m * nk                                  # one product's operations
+    # causal attention: half the S² logits; forward 2 products, backward 4
+    att = 2 * b * hq * s * s // 2 * dh
+    qkv = b * s * (hq + 2 * hkv) * dh * 2            # q, k, v in bf16
+    return {
+        "k2_forward": bound(2 * (m * sk * 2 + nk // 2 + m * sn * 2),
+                            2 * mm, BF16_FLOPS),
+        "dequant": bound(nk // 2 + nk * 2, nk, F32_FLOPS),
+        "dx": bound(m * sn * 2 + nk * 2 + m * sk * 2, mm, BF16_FLOPS),
+        "c": bound(m * sn * 2 + m * sk * 2 + nk * 4, mm, BF16_FLOPS),
+        "ds": bound(nk * 4 + nk // 2, 3 * nk, F32_FLOPS),
+        "head_and_cross_entropy": bound(v * d * 2 + m * d * 2 + m * v * 4,
+                                        2 * 2 * m * d * v, BF16_FLOPS),
+        "head_and_cross_entropy_f32_dx": (
+            bound(v * d * 2 + m * d * 2 + m * v * 4, 2 * m * d * v,
+                  BF16_FLOPS)[0]
+            + bound(m * v * 4 + v * d * 2 + m * d * 2, 2 * m * d * v,
+                    F32_FLOPS)[0], "operations"),
+        "attention_dense_fwd_bwd": bound(
+            3 * layers * (qkv + b * s * hq * dh * 2), 3 * layers * 2 * att,
+            F32_FLOPS),
+        "attention_chunked_fwd": bound(2 * layers * (qkv + b * s * hq * dh * 2),
+                                       2 * layers * 2 * att, BF16_FLOPS),
+        "attention_chunked_bwd": bound(
+            layers * (qkv + 2 * b * s * hq * dh * 2), layers * 4 * att,
+            F32_FLOPS)}
+
+
+def phase_train(torch, main_path) -> dict:
+    """PEQA training on the card (see the module docstring, phase 11)."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import policies
+    from repro_torch.data import pipeline, synthetic
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.optim.adamw import make_optimizer
+    from repro_torch.train import loop, step
+    from repro_torch.train.state import make_state
+
+    model, cfg0 = main_path["model"], main_path["cfg"]
+    tcfg = TrainConfig(steps=TRAIN_STEPS, log_every=1, eval_every=10 ** 9,
+                       ckpt_every=10 ** 9)
+    cfg = cfg0.replace(remat="block")
+    t0 = time.perf_counter()
+    toks = synthetic.corpus(cfg.vocab_size, TRAIN_TOKENS, seed=SEED)
+    train_toks, val_toks = synthetic.split(toks)
+    data = pipeline.PackedLM(train_toks, tcfg.batch_size, tcfg.seq_len,
+                             seed=SEED)
+    corpus_s = time.perf_counter() - t0
+    m_rows = tcfg.batch_size * tcfg.seq_len
+    mask = policies.make_mask(model, cfg)
+    scales = {n: p for n, p in model.named_parameters() if mask[n]}
+    if not scales or any(not n.endswith(".scale") for n in scales):
+        fail(f"train: the peqa mask trains {sorted(scales)[:4]}…, not only "
+             f"scales")
+    n_scales = sum(p.numel() for p in scales.values())
+    # a recorded call's scale is a view of its parameter: name it by that
+    by_ptr = {p.data_ptr(): n for n, p in scales.items()}
+    frozen = {n: t.clone() for n, t in list(model.named_parameters())
+              + list(model.named_buffers()) if not mask.get(n)}
+    start_scales = {n: p.detach().clone() for n, p in scales.items()}
+    # the memory a run holds, its model included: what is allocated now
+    # less the model's own tensors
+    model_bytes = sum(t.numel() * t.element_size() for t in
+                      list(model.parameters()) + list(model.buffers()))
+    base = torch.cuda.memory_allocated() - model_bytes
+    res = {"phase": "train", "model": cfg.name, "layers": cfg.n_layers,
+           "batch": tcfg.batch_size, "seq": tcfg.seq_len, "rows": m_rows,
+           "remat": cfg.remat, "corpus_tokens": TRAIN_TOKENS,
+           "corpus_s": corpus_s, "scales": n_scales,
+           "trainable": policies.trainable_count(model, mask),
+           "frozen": policies.frozen_count(model, mask)}
+
+    # --- the kernel route against the plain route, on step 1's batch ------
+    batch = step.to_device(data.batch_at(0), "cuda")
+    none = cfg.replace(remat="none")
+    loss_p, grads_p, rec_p = train_step1(torch, none, model, batch, "torch")
+    loss_k, grads_k, rec_k = train_step1(torch, none, model, batch, "cuda")
+    if len(rec_k.lin) != cfg.n_layers * 7 or len(rec_p.lin) != len(rec_k.lin):
+        fail(f"train: {len(rec_k.lin)} quantized linears recorded")
+    calls = {"dense": gate_recorded_calls(torch, "dense", rec_k, m_rows)}
+    k2_bound = loss_bound(torch, rec_p, attention=False)
+    k4_bound = loss_bound(torch, rec_k, attention=True)
+    grad_gate = scale_grad_gate(
+        torch, rec_p, rec_k, grads_p, grads_k,
+        [by_ptr[r["scale"].data_ptr()] for r in rec_k.lin])
+    grads_k_ = grads_k
+    del rec_p, grads_p, grads_k
+    loss_c, _, rec_c = train_step1(
+        torch, none.replace(attn_impl="chunked"), model, batch, "cuda")
+    calls["chunked"] = gate_recorded_calls(torch, "chunked", rec_c, m_rows)
+    if calls["chunked"]["k4_calls"] != cfg.n_layers:
+        fail(f"train: {calls['chunked']['k4_calls']} K4 calls recorded "
+             f"under 'chunked', expected {cfg.n_layers}")
+    del rec_c
+    api_block = registry.build(cfg, device="cuda")
+    loss_block = api_block.loss_fn(model, batch).detach()
+    for p in model.parameters():
+        p.grad = None
+    if not all(torch.isfinite(t) for t in (loss_p, loss_k, loss_c)):
+        fail(f"train: non-finite step-1 loss ({loss_p}, {loss_k}, {loss_c})")
+    if abs(float(loss_k) - float(loss_p)) > k2_bound:
+        fail(f"train: kernel-route loss {float(loss_k)!r} is "
+             f"{abs(float(loss_k) - float(loss_p)):.3e} from the plain "
+             f"route's {float(loss_p)!r}, beyond K2's bound {k2_bound:.3e}")
+    if abs(float(loss_c) - float(loss_k)) > k4_bound:
+        fail(f"train: chunked loss {float(loss_c)!r} is "
+             f"{abs(float(loss_c) - float(loss_k)):.3e} from dense "
+             f"{float(loss_k)!r}, beyond K4's bound {k4_bound:.3e}")
+    if not torch.equal(loss_block, loss_k):
+        fail(f"train: remat='block' changed the step-1 loss "
+             f"({float(loss_block)!r} against {float(loss_k)!r})")
+    res["route_check"] = {
+        "loss_plain": float(loss_p), "loss_kernel": float(loss_k),
+        "loss_chunked": float(loss_c), "loss_remat_block": float(loss_block),
+        "k2_loss_bound": k2_bound, "k4_loss_bound": k4_bound,
+        "scale_grads": grad_gate, "calls": calls}
+    del rec_k
+
+    # --- the same backbone as bit-planes: the plane branch of K2 ----------
+    plane = plane_backbone(torch, main_path)
+    model_p, cfg_p = plane["model"], plane["cfg"].replace(remat="block")
+    mask_p = policies.make_mask(model_p, cfg_p)
+    loss_pl, grads_pl, rec_pl = train_step1(
+        torch, cfg_p.replace(remat="none"), model_p, batch, "cuda")
+    plane_calls = gate_recorded_calls(torch, "planes", rec_pl, m_rows)
+    del rec_pl
+    if not torch.equal(loss_pl, loss_k):
+        fail(f"train: the bit-plane backbone's step-1 loss "
+             f"{float(loss_pl)!r} is not the nibble one's {float(loss_k)!r}")
+    unequal = [n for n in scales if not torch.equal(grads_pl[n], grads_k_[n])]
+    if unequal:
+        fail(f"train: bit-plane scale gradients differ from the nibble "
+             f"ones at {unequal[:3]}")
+    opt_p = make_optimizer(tcfg.optim, tcfg.steps)
+    state_p = make_state(model_p, opt_p.init(
+        dict(model_p.named_parameters()), mask_p))
+    ts_p = step.build_train_step(registry.build(cfg_p, device="cuda"), cfg_p,
+                                 tcfg, mask_p, opt_p)
+    for k in ops.KERNELS:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state_p, metrics = ts_p(state_p, data.batch_at(0))
+    torch.cuda.synchronize()
+    plane_ms = (time.perf_counter() - t0) * 1e3
+    got = {k.__name__: k.launches for k in ops.KERNELS if k.launches}
+    want_p = {"quant_matmul_planes": 2 * cfg.n_layers * 7}
+    if got != want_p or not math.isfinite(float(metrics["loss"])):
+        fail(f"train (planes): a step launched {got}, expected {want_p}; "
+             f"loss {float(metrics['loss'])}")
+    res["planes"] = {"loss_step1": float(loss_pl), "calls": plane_calls,
+                     "equal_to_nibble": True, "step_ms": plane_ms,
+                     "launches_a_step": got,
+                     "state_bytes": opt_p.state_bytes(state_p["opt"])}
+    del plane, model_p, state_p, opt_p, ts_p, grads_pl, grads_k_
+
+    # --- K4's logsumexp: o bit-equal with and without it -----------------
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q = torch.randn(tcfg.batch_size, tcfg.seq_len, cfg.n_heads, cfg.d_head,
+                    generator=gen, device="cuda").to(torch.bfloat16)
+    kk, vv = (torch.randn(tcfg.batch_size, tcfg.seq_len, cfg.n_kv_heads,
+                          cfg.d_head, generator=gen, device="cuda"
+                          ).to(torch.bfloat16) for _ in range(2))
+    o_only = fa.flash_attention(q, kk, vv)
+    o, lse = fa.flash_attention(q, kk, vv, return_lse=True)
+    _, lse_plain = fa.flash_attention_plain(q, kk, vv, return_lse=True)
+    torch.cuda.synchronize()
+    if not torch.equal(o, o_only):
+        fail("train: K4's o changed when its logsumexp was asked for")
+    res["lse_max_abs_err"] = check_close(
+        "flash_attention logsumexp", lse, lse_plain,
+        fa.lse_error_bound(q, kk, lse_plain))
+    res["parts"] = train_parts(torch, model, cfg, m_rows, gen)
+    del q, kk, vv, o, o_only, lse, lse_plain
+
+    # --- 10 steps under "dense", then under "chunked" ---------------------
+    want = {"dense": {"quant_matmul": 2 * cfg.n_layers * 7},
+            "chunked": {"quant_matmul": 2 * cfg.n_layers * 7,
+                        "flash_attention": 2 * cfg.n_layers}}
+    for impl in ("dense", "chunked"):
+        with torch.no_grad():
+            for n, p in scales.items():
+                p.copy_(start_scales[n])
+        icfg = cfg.replace(attn_impl=impl)
+        api = registry.build(icfg, device="cuda")
+        opt = make_optimizer(tcfg.optim, tcfg.steps)
+        state = make_state(model, opt.init(dict(model.named_parameters()),
+                                           mask))
+        ts = step.build_train_step(api, icfg, tcfg, mask, opt)
+        walls, dev, seen = [], [], []
+
+        def counted(state, batch, ts=ts):
+            for k in ops.KERNELS:
+                k.launches = 0
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            state, metrics = ts(state, batch)
+            end.record()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            dev.append(start.elapsed_time(end))
+            seen.append({k.__name__: k.launches for k in ops.KERNELS
+                         if k.launches})
+            return state, metrics
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, hist = loop.train(state, counted, data, tcfg,
+                                 log=lambda msg: None)
+        peak = torch.cuda.max_memory_allocated() - base
+        bad = [i for i, got in enumerate(seen) if got != want[impl]]
+        if bad:
+            fail(f"train ({impl}): step {bad[0] + 1} launched "
+                 f"{seen[bad[0]]}, expected {want[impl]} a step")
+        losses = [h["loss"] for h in hist]
+        if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+            fail(f"train ({impl}): losses {losses}")
+        sbytes = opt.state_bytes(state["opt"])
+        if sbytes != 8 * n_scales:
+            fail(f"train ({impl}): optimizer state {sbytes} bytes, expected "
+                 f"8 × {n_scales} scales")
+        if all(torch.equal(p, start_scales[n]) for n, p in scales.items()):
+            fail(f"train ({impl}): no scale moved in {TRAIN_STEPS} steps")
+        med = sorted(walls[TRAIN_SKIP:])[(TRAIN_STEPS - TRAIN_SKIP) // 2]
+        res[impl] = {
+            "losses": losses, "grad_norms": [h["grad_norm"] for h in hist],
+            "lrs": [h["lr"] for h in hist], "step_ms": walls,
+            "median_step_ms": med, "tokens_per_s": m_rows / med * 1e3,
+            "device_ms": dev,
+            "median_device_ms": sorted(dev[TRAIN_SKIP:])[
+                (TRAIN_STEPS - TRAIN_SKIP) // 2],
+            "peak_mem_gb": peak / 1e9, "state_bytes": sbytes,
+            "launches_a_step": seen[-1]}
+        if impl == "chunked":
+            # one more step, profiled: where the backward's time goes
+            dev_ms, top = device_ms(
+                torch, lambda: ts(state, data.batch_at(TRAIN_STEPS)), top=14)
+            res["profile"] = {"device_ms": dev_ms, "top": top}
+            ev = step.build_eval_step(api, icfg)
+            for k in ops.KERNELS:
+                k.launches = 0
+            batches = [b for _, b in zip(range(TRAIN_EVAL_BATCHES),
+                                         pipeline.eval_batches(
+                                             val_toks, tcfg.batch_size,
+                                             tcfg.seq_len))]
+            ppl = loop.eval_perplexity(model, ev, batches)
+            launches = {k.__name__: k.launches for k in ops.KERNELS
+                        if k.launches}
+            per = {kk: vv * len(batches) // 2 for kk, vv in want[impl].items()}
+            if launches != per or not math.isfinite(ppl):
+                fail(f"train: eval_perplexity {ppl} over {len(batches)} "
+                     f"batches launched {launches}, expected {per}")
+            res["eval"] = {"batches": len(batches), "perplexity": ppl,
+                           "launches": launches}
+        del state, opt, ts
+    for n, t in list(model.named_parameters()) + list(model.named_buffers()):
+        if n in frozen and not torch.equal(t, frozen[n]):
+            fail(f"train: frozen {n} changed")
+    res["frozen_checked"] = len(frozen)
+    del frozen, start_scales
+    emit(res)
+    return res
+
+
+def phase_train_full(torch, main_path, peqa) -> dict:
+    """One full-mode step at the same size: every float tensor trained,
+    float32 linear weights, AdamW moments for all of them — beside PEQA's
+    peak memory and optimizer state (the paper's Table 1)."""
+    from repro_torch.configs.base import TrainConfig, TuningConfig
+    from repro_torch.core import policies
+    from repro_torch.data import pipeline, synthetic
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.optim.adamw import make_optimizer
+    from repro_torch.train import step
+    from repro_torch.train.state import make_state
+    cfg = main_path["cfg"].replace(tuning=TuningConfig(mode="full"),
+                                   remat="block")
+    tcfg = TrainConfig(steps=TRAIN_STEPS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    api = registry.build(cfg, device="cuda")
+    model, mask = policies.prepare(api.init(SEED), cfg, device="cuda")
+    opt = make_optimizer(tcfg.optim, tcfg.steps)
+    state = make_state(model, opt.init(dict(model.named_parameters()), mask))
+    ts = step.build_train_step(api, cfg, tcfg, mask, opt)
+    data = pipeline.PackedLM(synthetic.corpus(cfg.vocab_size, 20_000,
+                                              seed=SEED),
+                             tcfg.batch_size, tcfg.seq_len)
+    for k in ops.KERNELS:
+        k.launches = 0
+    walls = []
+    for i in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = ts(state, data.batch_at(i))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    loss = float(metrics["loss"])
+    if not math.isfinite(loss):
+        fail(f"train_full: loss {loss}")
+    n_float = sum(p.numel() for n, p in model.named_parameters() if mask[n])
+    sbytes = opt.state_bytes(state["opt"])
+    if sbytes != 8 * n_float:
+        fail(f"train_full: optimizer state {sbytes} bytes for {n_float} "
+             f"trained values")
+    res = {"phase": "train_full", "mode": "full", "trainable": n_float,
+           "loss": loss, "step_ms": walls,
+           "peak_mem_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+           "state_bytes": sbytes,
+           "launches": {k.__name__: k.launches for k in ops.KERNELS
+                        if k.launches},
+           "peqa": {"peak_mem_gb": peqa["dense"]["peak_mem_gb"],
+                    "state_bytes": peqa["dense"]["state_bytes"],
+                    "trainable": peqa["scales"]},
+           "state_ratio": sbytes / peqa["dense"]["state_bytes"]}
+    emit(res)
+    del state, model, opt
+    torch.cuda.empty_cache()
+    return res
+
 
 def main() -> None:
     try:
@@ -2002,6 +2653,8 @@ def main() -> None:
     del conv
     phase_invariance(torch, main_path["cfg"])
     phase_check(torch, main_path["cfg"])
+    train = phase_train(torch, main_path)
+    phase_train_full(torch, main_path, train)
     if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
                                    for m in sys.modules):
         fail("the port loaded JAX or the JAX package")

@@ -3,7 +3,8 @@ reference it is tested against).
 
 The port imports torch and numpy only — never JAX and never ``repro``; each
 module it needs from the reference has its own copy here, under the same
-name (``configs/``, ``core/``, ``kernels/``, ``models/``, ``train/serve.py``).
+name (``configs/``, ``core/``, ``kernels/``, ``models/``, ``optim/``, ``data/``,
+``ckpt/``, ``train/``).
 
 Entry points place everything on ``cuda`` unless the caller passes
 ``device="cpu"``; without a card and without that request they raise

@@ -15,6 +15,13 @@ Packed codes are ``uint32`` in the reference and the same bits as ``int32``
 here.  The token table is stored in the activation dtype here (see
 ``models.common.Embed``), so a bf16 model's round trip rounds ``emb``; every
 other leaf round-trips exactly.
+
+The train state crosses too (``state_to_tree`` / ``load_state``): the
+reference's state is ``{"params": tree, "opt": {"mv": …, "count"}, "step"}``
+where ``mv`` mirrors the parameter tree with a (mom, vel) pair of stacked
+moments at every trainable leaf and an empty pair, ``((), ())``, at every
+other (the reference's ``(EMPTY, EMPTY)``); the port's optimizer keeps
+(mom, vel) per trainable tensor name (``optim.adamw.MaskedAdamW``).
 """
 from __future__ import annotations
 
@@ -47,6 +54,29 @@ def _to_torch(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, copy=True, order="C"))
 
 
+def _tensors(model: torch.nn.Module) -> list:
+    return list(model.named_parameters()) + list(model.named_buffers())
+
+
+def _node(tree: dict, name: str):
+    """The entry of a reference tree at the port's tensor ``name``'s path
+    (a stacked leaf, or the optimizer's pair of stacked moments)."""
+    node = tree
+    for k in ref_path(name).strip("/").split("/"):
+        if not isinstance(node, dict) or k not in node:
+            raise KeyError(f"reference tree has no leaf {ref_path(name)} "
+                           f"for {name}")
+        node = node[k]
+    return node
+
+
+def _layer(arr, name: str) -> np.ndarray:
+    """``name``'s layer slice of a stacked reference array."""
+    arr = np.asarray(arr)
+    i = layer_index(name)
+    return arr if i is None else arr[i]
+
+
 @torch.no_grad()
 def to_module(tree: dict, cfg: ModelConfig, *, device=None
               ) -> transformer.Transformer:
@@ -56,53 +86,110 @@ def to_module(tree: dict, cfg: ModelConfig, *, device=None
     dev = _device.resolve(device)
     flat = _flatten(tree)
     model = transformer.Transformer(cfg, device=dev)
-
-    def leaf(name: str) -> np.ndarray:
-        path = ref_path(name)
-        if path not in flat:
-            raise KeyError(f"reference tree has no leaf {path} for {name}")
-        arr = flat[path]
-        i = layer_index(name)
-        return arr if i is None else arr[i]
-
     for name, mod in model.named_modules():
         if isinstance(mod, Linear) and ref_path(f"{name}.qw") in flat:
-            mod.set_quantized(*(_to_torch(leaf(f"{name}.{k}")).to(dev)
-                                for k in ("qw", "scale", "zero")),
+            mod.set_quantized(*(_to_torch(_layer(_node(
+                tree, f"{name}.{k}"), name)).to(dev) for k in ("qw", "scale",
+                                                                "zero")),
                               cfg.quant.spec())
-    used = set()
-    for name, t in list(model.named_parameters()) + list(model.named_buffers()):
-        src = _to_torch(leaf(name))
-        if tuple(src.shape) != tuple(t.shape):
-            raise ValueError(f"{name}: reference leaf {tuple(src.shape)} != "
-                             f"module tensor {tuple(t.shape)}")
-        t.copy_(src)
-        used.add(ref_path(name))
-    extra = sorted(set(flat) - used)
+    extra = sorted(set(flat) - {ref_path(n) for n, _ in _tensors(model)})
     if extra:
         raise KeyError(f"reference leaves the port's model has no tensor "
                        f"for: {extra}")
-    return model
+    return load_params(model, tree)
 
 
 def to_tree(model: torch.nn.Module) -> dict:
     """The port's model → reference-layout nested dict of numpy arrays
     (layer leaves stacked, codes as uint32, floats as float32)."""
     groups = defaultdict(dict)
-    for name, t in list(model.named_parameters()) + list(model.named_buffers()):
+    for name, t in _tensors(model):
         arr = t.detach().cpu()
         arr = arr.numpy().view(np.uint32) if arr.dtype == torch.int32 \
             else arr.to(torch.float32).numpy()
         groups[ref_path(name)][layer_index(name)] = arr
+    return _nest({path: _stacked(groups, path) for path in groups})
+
+
+def _stacked(groups: dict, path: str) -> np.ndarray:
+    by_layer = groups[path]
+    if None in by_layer:
+        return by_layer[None]
+    return np.stack([by_layer[i] for i in sorted(by_layer)])
+
+
+def _nest(flat: dict) -> dict:
+    """{"/a/b": leaf} → {"a": {"b": leaf}}."""
     tree: dict = {}
-    for path, by_layer in groups.items():
-        if None in by_layer:
-            val = by_layer[None]
-        else:
-            val = np.stack([by_layer[i] for i in sorted(by_layer)])
+    for path, val in flat.items():
         node = tree
         keys = path.strip("/").split("/")
         for k in keys[:-1]:
             node = node.setdefault(k, {})
         node[keys[-1]] = val
     return tree
+
+
+def opt_to_tree(model: torch.nn.Module, opt_state: dict) -> dict:
+    """The port's masked-AdamW state → the reference's ``{"mv": tree,
+    "count": int32}`` (moments stacked over layers, float32)."""
+    names = [n for n, _ in _tensors(model)]
+    moms, vels = defaultdict(dict), defaultdict(dict)
+    for name in names:
+        pair = opt_state["mv"].get(name)
+        if pair is not None:
+            path, i = ref_path(name), layer_index(name)
+            moms[path][i], vels[path][i] = (
+                t.detach().cpu().to(torch.float32).numpy() for t in pair)
+    mv = {}
+    for path in {ref_path(n) for n in names}:
+        mv[path] = (_stacked(moms, path), _stacked(vels, path)) \
+            if path in moms else ((), ())
+    return {"mv": _nest(mv),
+            "count": np.asarray(int(opt_state["count"]), np.int32)}
+
+
+@torch.no_grad()
+def opt_from_tree(model: torch.nn.Module, tree: dict, opt_state: dict
+                  ) -> dict:
+    """The reference's ``{"mv", "count"}`` → ``opt_state`` in place (its
+    trainable names must be the tree's non-empty leaves)."""
+    for name, pair in opt_state["mv"].items():
+        src = _node(tree["mv"], name)
+        if len(src) != 2 or isinstance(src[0], (tuple, list)):
+            raise KeyError(f"reference optimizer state has no moments for "
+                           f"{name}")
+        for dst, arr in zip(pair, src):
+            dst.copy_(torch.from_numpy(np.array(_layer(arr, name))))
+    opt_state["count"] = torch.tensor(int(np.asarray(tree["count"])),
+                                      dtype=torch.int32)
+    return opt_state
+
+
+@torch.no_grad()
+def load_params(model: torch.nn.Module, tree: dict) -> torch.nn.Module:
+    """Copy a reference parameter tree into ``model``'s tensors in place
+    (the same storage modes: every tensor must find its leaf)."""
+    for name, t in _tensors(model):
+        src = _to_torch(_layer(_node(tree, name), name))
+        if tuple(src.shape) != tuple(t.shape):
+            raise ValueError(f"{name}: reference leaf {tuple(src.shape)} != "
+                             f"module tensor {tuple(t.shape)}")
+        t.copy_(src)
+    return model
+
+
+def state_to_tree(state: dict) -> dict:
+    """The port's train state (``train.state.make_state``) → the
+    reference's state tree of numpy arrays, as its checkpoints hold it."""
+    return {"params": to_tree(state["params"]),
+            "opt": opt_to_tree(state["params"], state["opt"]),
+            "step": np.asarray(int(state["step"]), np.int32)}
+
+
+def load_state(state: dict, tree: dict) -> dict:
+    """A reference state tree → the port's train state, in place."""
+    load_params(state["params"], tree["params"])
+    opt_from_tree(state["params"], tree["opt"], state["opt"])
+    state["step"] = int(np.asarray(tree["step"]))
+    return state

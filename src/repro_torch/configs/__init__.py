@@ -4,10 +4,12 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig, QuantConfig, TuningConfig
+from repro_torch.configs.base import (ModelConfig, OptimConfig, QuantConfig,
+                                      TrainConfig, TuningConfig)
 
-__all__ = ["ARCHS", "ModelConfig", "QuantConfig", "TuningConfig",
-           "get_config", "make_tiny", "paper_lm"]
+__all__ = ["ARCHS", "ModelConfig", "OptimConfig", "QuantConfig",
+           "TrainConfig", "TuningConfig", "get_config", "make_tiny",
+           "paper_lm"]
 
 _MODULES = {
     "llama3.2-1b": "llama3_2_1b",

@@ -1,10 +1,11 @@
 """Config dataclasses (copy of ``repro/configs/base.py``'s QuantConfig,
 TuningConfig and ModelConfig, trimmed to the fields the port reads or must
-refuse).  Frozen, like the reference, so they can key caches."""
+refuse, and its OptimConfig and TrainConfig whole).  Frozen, like the
+reference, so they can key caches."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,7 +32,8 @@ class QuantConfig:
 class TuningConfig:
     """Which fine-tuning method — the paper's comparison axis."""
 
-    mode: str = "peqa"                 # full | peqa (others not ported yet)
+    mode: str = "peqa"                 # full | peqa | peqa_z (others not ported yet)
+    train_zero_points: bool = False    # Table 17 ablation (peqa_z)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,6 +60,7 @@ class ModelConfig:
     attn_impl: str = "dense"           # dense | chunked (the K4 kernel)
     kv_cache_dtype: str = "model"      # model (int8 not ported yet)
     dtype: str = "bfloat16"
+    remat: str = "block"               # none | block | full (dots not ported yet)
     quant: QuantConfig = QuantConfig()
     tuning: TuningConfig = TuningConfig()
 
@@ -67,3 +70,29 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimConfig:
+    lr: float = 2e-5                   # paper App H
+    betas: Tuple[float, float] = (0.9, 0.999)
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    warmup_steps: int = 10
+    schedule: str = "linear"           # linear (paper) | cosine | constant
+    grad_clip: float = 1.0
+    grad_compression: Optional[str] = None  # None | 'int8'
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    steps: int = 300
+    batch_size: int = 8
+    seq_len: int = 256
+    eval_every: int = 50
+    ckpt_every: int = 100
+    keep_ckpts: int = 3
+    log_every: int = 10
+    seed: int = 0
+    optim: OptimConfig = OptimConfig()
+    watchdog_timeout_s: float = 600.0

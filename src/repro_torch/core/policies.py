@@ -1,10 +1,16 @@
 """TuningPolicy: prepares (model, trainable mask) for a comparison arm (port
-of ``repro/core/policies.py`` for the ``full`` and ``peqa`` arms).
+of ``repro/core/policies.py`` for the ``full``, ``peqa`` and ``peqa_z``
+arms).
 
-    full — full fine-tuning (fp backbone, every float tensor trainable)
-    peqa — the paper: integer backbone frozen, ONLY scales trainable
+    full   — full fine-tuning (fp backbone, every float tensor trainable)
+    peqa   — the paper: integer backbone frozen, ONLY scales trainable
+    peqa_z — Table 17 ablation: scales + zero-points trainable (also peqa
+             with ``tuning.train_zero_points``)
 
-The other arms are not ported yet and raise ``NotImplementedError``.
+The other arms are not ported yet and raise ``NotImplementedError``.  The
+mask names every parameter (the codes are buffers, always frozen); the
+trainable mask drives the masked optimizer (``optim/adamw.py``), which
+keeps no state for frozen tensors.
 """
 from __future__ import annotations
 
@@ -16,7 +22,7 @@ from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import peqa
 
-PORTED_MODES = ("full", "peqa")
+PORTED_MODES = ("full", "peqa", "peqa_z")
 
 
 def _check_mode(mode: str) -> None:
@@ -29,7 +35,7 @@ def transform(model: nn.Module, cfg: ModelConfig, *, device=None) -> nn.Module:
     """fp-initialized model → policy model, in place, on ``device`` (the
     card unless ``device="cpu"``)."""
     _check_mode(cfg.tuning.mode)
-    if cfg.tuning.mode == "peqa":
+    if cfg.tuning.mode in ("peqa", "peqa_z"):
         return peqa.quantize_params(model, cfg.quant, device=device)
     return model.to(_device.resolve(device))
 
@@ -37,11 +43,14 @@ def transform(model: nn.Module, cfg: ModelConfig, *, device=None) -> nn.Module:
 def make_mask(model: nn.Module, cfg: ModelConfig) -> Dict[str, bool]:
     """Trainable flag per parameter name, for an ALREADY-transformed model;
     also sets each parameter's ``requires_grad`` to match."""
-    _check_mode(cfg.tuning.mode)
+    mode = cfg.tuning.mode
+    _check_mode(mode)
+    train_zero = mode == "peqa_z" or cfg.tuning.train_zero_points
     mask = {}
     for name, p in model.named_parameters():
-        train = p.is_floating_point() if cfg.tuning.mode == "full" \
-            else name.endswith("scale")
+        leaf = name.rsplit(".", 1)[-1]
+        train = p.is_floating_point() if mode == "full" \
+            else leaf == "scale" or (train_zero and leaf == "zero")
         p.requires_grad_(train)
         mask[name] = train
     return mask
@@ -52,3 +61,18 @@ def prepare(model: nn.Module, cfg: ModelConfig, *, device=None
     """fp-initialized model → (policy model, trainable mask)."""
     model = transform(model, cfg, device=device)
     return model, make_mask(model, cfg)
+
+
+def _tensors(model: nn.Module):
+    return list(model.named_parameters()) + list(model.named_buffers())
+
+
+def trainable_count(model: nn.Module, mask: Dict[str, bool]) -> int:
+    """Values the optimizer trains (the reference's leaf sizes summed)."""
+    return sum(t.numel() for name, t in _tensors(model) if mask.get(name))
+
+
+def frozen_count(model: nn.Module, mask: Dict[str, bool]) -> int:
+    """Stored values it does not: frozen parameters and the code words."""
+    return sum(t.numel() for name, t in _tensors(model)
+               if not mask.get(name))

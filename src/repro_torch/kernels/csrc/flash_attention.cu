@@ -52,6 +52,13 @@
 //     nothing, and a call whose keys fit one split (no combine: o / l)
 //     gives the bits of the split path (weight e⁰ = 1, fmaf(o, 1, 0) = o).
 //     The wrapper counts one launch per call.
+//   - The logsumexp of each row's logits, lse = m + log(l) in natural units
+//     (m is the running max of the scaled f32 logits, l the sum of
+//     e^(logit − m)), is written to lse (B, Hq, Sq) f32 when the caller
+//     passes that buffer (the training backward reads it): by the one-split
+//     epilogue where it divides by l, or by the combine from the combined
+//     max and sum; −inf for a row that sees no key.  It is a second output
+//     only: o's bits are the same with and without it.
 //   - Tiles past the last key any of a block's queries can see — or before
 //     the first, with a window — are never loaded.
 // * f32 (only the tests feed it on the card): flash_attention_kernel, SIMT
@@ -92,6 +99,7 @@ struct Params {
   const void* v;
   void* o;                                   // (B, Sq, Hq, D), contiguous
   const long long* offsets;                  // (B,) or null
+  float* lse;                                // (B, Hq, Sq) logsumexp, or null
   long long qs_b, qs_s, qs_h;                // strides, in elements
   long long ks_b, ks_s, ks_h;
   long long vs_b, vs_s, vs_h;
@@ -269,6 +277,8 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(Params p) {
       const int d = lane + 32 * t;
       if (d < D) store(dst + d, l[i] > 0.f ? acc[i][t] / l[i] : 0.f);
     }
+    if (p.lse && lane == 0)
+      p.lse[((size_t)b * p.Hq + h) * p.Sq + qi] = l[i] > 0.f ? m[i] + logf(l[i]) : -INFINITY;
   }
 }
 
@@ -546,6 +556,8 @@ __global__ void __launch_bounds__(MAX_WARPS * 32) flash_attention_tc_kernel(Para
           const int dd = d * 8 + t4 * 2 + c;
           if (dd < D) dst[dd] = __float2bfloat16_rn(l[h] > 0.f ? o[d][h * 2 + c] / l[h] : 0.f);
         }
+      if (p.lse && t4 == 0)
+        p.lse[((size_t)b * p.Hq + hh) * p.Sq + qi] = l[h] > 0.f ? m[h] + logf(l[h]) : -INFINITY;
     }
   }
 }
@@ -577,6 +589,8 @@ __global__ void flash_attention_combine_kernel(Params p, Split sp) {
   const int qi = rr / rep, h = kvh * rep + rr % rep;
   static_cast<__nv_bfloat16*>(p.o)[(((size_t)b * p.Sq + qi) * p.Hq + h) * D + d] =
       __float2bfloat16_rn(den > 0.f ? num / den : 0.f);
+  if (p.lse && d == 0)
+    p.lse[((size_t)b * p.Hq + h) * p.Sq + qi] = den > 0.f ? mx + logf(den) : -INFINITY;
 }
 
 template <int DP>
@@ -613,7 +627,7 @@ cudaError_t launch(const Params& p, const Split& sp, cudaStream_t s) {
 // splits > 1 (bf16 only): the key range split across blocks, chunk keys
 // each (a multiple of 64, splits = ceil(Sk / chunk)), partials in part_o
 // (B, Hkv, splits, Sq·Hq/Hkv, D) and part_ml (…, 2) f32, then combined by a
-// second launch.
+// second launch.  lse: (B, Hq, Sq) f32 for each row's logsumexp, or null.
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* o,
                                const void* offsets, long long qs_b, long long qs_s,
                                long long qs_h, long long ks_b, long long ks_s,
@@ -621,7 +635,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
                                long long vs_h, int B, int Sq, int Sk, int Hq, int Hkv,
                                int D, int offset, int causal, int window, float scale,
                                int is_bf16, int splits, int chunk, void* part_o,
-                               void* part_ml, void* stream) {
+                               void* part_ml, void* lse, void* stream) {
   const int E = is_bf16 ? 8 : 4;               // elements per 16-byte vector
   const auto aligned = [E](const void* ptr, long long sb, long long ss, long long sh) {
     return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && sb % E == 0 && ss % E == 0 &&
@@ -636,7 +650,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
                       (long long)Hkv * splits > 65535)))
     return (int)cudaErrorInvalidValue;
   const Params p{q, k, v, o, static_cast<const long long*>(offsets),
-                 qs_b, qs_s, qs_h, ks_b, ks_s, ks_h, vs_b, vs_s, vs_h,
+                 static_cast<float*>(lse), qs_b, qs_s, qs_h, ks_b, ks_s, ks_h, vs_b, vs_s, vs_h,
                  B, Sq, Sk, Hq, Hkv, D, offset, causal, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {

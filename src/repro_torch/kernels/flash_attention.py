@@ -17,6 +17,10 @@ goes in as it is); D a multiple of 8, at most 128.
 None: Sk − Sq; an int; or a (B,) integer tensor on q's device, one
 position per batch row, which the kernel reads itself — no host sync).
 Returns (B, Sq, Hq, D) in q's dtype; a query that sees no key gets 0.
+With ``return_lse=True`` it returns (o, lse): lse (B, Hq, Sq) float32, the
+logsumexp of each row's scaled, masked logits (−inf for a row that sees no
+key), which the training backward (``ops.attention(impl="chunked")``)
+reads; o's bits do not depend on whether it is asked for.
 
 Two kernels behind the wrapper: bf16 operands take the tensor cores
 (mma.sync bf16 for q·kᵀ, and for P·V with P split into bf16 hi + lo), and
@@ -47,7 +51,7 @@ _DTYPES = (torch.bfloat16, torch.float32)
 D_MAX = 128
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = ([_P] * 5 + [_L] * 9 + [_I] * 9 + [ctypes.c_float, _I, _I, _I]
-             + [_P] * 3)
+             + [_P] * 4)
 _entries: dict = {}
 # decode and verify: split the keys across blocks for Sq up to this, each
 # split SPLIT_KEYS keys (whole 64-key tiles; the constant is chosen by
@@ -183,6 +187,30 @@ def error_bound(q, k, v, plain, *, scale=None):
     return bound
 
 
+def lse_error_bound(q, k, lse_plain, *, scale=None):
+    """Elementwise bound on |kernel lse − plain lse| (B, Hq, Sq) for the
+    same inputs (``return_lse``).  lse = log Σ_j e^(s_j): moving every
+    logit by at most δ moves it by at most δ, with δ the logit bound of
+    ``error_bound`` (bf16: (3·D + 2)·u·S, f32: 2·D·u·S); the exponentials
+    and the Sk-long sum add (Sk + 4)·u relative to the sum on either side
+    (the kernel also rescales its running sum once a key tile), which the
+    log turns into as much absolute error; the final addition m + log(l)
+    rounds once, u·|lse| on either side.  So 2·(Sk + 4 + Sk / 64)·u +
+    2·u·|lse| + δ.  A row that sees no key is −inf on both sides."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    u = 2.0 ** -24
+    qa = q.to(torch.float32).abs().reshape(b, sq, hkv, rep, d)
+    s = torch.einsum("bqhrd,bkhd->bqhrk", qa, k.to(torch.float32).abs())
+    smax = (s.amax(dim=-1) * abs(scale)).reshape(b, sq, hq).transpose(1, 2)
+    delta = ((3 * d + 2) if q.dtype == torch.bfloat16 else 2 * d) * u * smax
+    finite = torch.where(torch.isfinite(lse_plain), lse_plain.abs(),
+                         torch.zeros_like(lse_plain))
+    return delta + 2 * (sk + 4 + sk / 64) * u + 2 * u * finite
+
+
 def _check(q, k, v):
     """Raise on anything the kernel does not take."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
@@ -235,15 +263,16 @@ def _offsets(offset, b, sq, sk, device):
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, scale=None,
-                    offset=None):
-    """K4: softmax(scale·q·kᵀ, masked)·v in q's dtype (see the module
-    docstring)."""
+                    offset=None, return_lse=False):
+    """K4: softmax(scale·q·kᵀ, masked)·v in q's dtype, and with
+    ``return_lse`` the rows' logsumexp (see the module docstring)."""
     _check(q, k, v)
     if window is not None and window < 1:
         raise ValueError(f"window {window}: need None or >= 1")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     scale=scale, offset=offset)
+                                     scale=scale, offset=offset,
+                                     return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CUDA tensors, got "
                          f"{q.device}")
@@ -262,6 +291,8 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None,
         raise ValueError(f"Sk={sk}: {splits} splits of {SPLIT_KEYS} keys for "
                          f"{hkv} KV heads exceed the grid")
     o = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     part_o = part_ml = None
     if splits > 1:     # the partials the combining launch reads: grow with Sk
         rows = sq * (hq // hkv)
@@ -278,13 +309,14 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None,
                 float(scale if scale is not None else d ** -0.5),
                 int(bf16), splits, SPLIT_KEYS,
                 None if part_o is None else part_o.data_ptr(),
-                None if part_ml is None else part_ml.data_ptr(), stream)
+                None if part_ml is None else part_ml.data_ptr(),
+                None if lse is None else lse.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed with CUDA "
                            f"error {rc} (B={b}, Sq={sq}, Sk={sk}, Hq={hq}, "
                            f"Hkv={hkv}, D={d}, {q.dtype}, {splits} splits)")
     flash_attention.launches += 1            # one per call, split or not
-    return o
+    return (o, lse) if return_lse else o
 
 
 def tc_smem_bytes() -> dict:

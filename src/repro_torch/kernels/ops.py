@@ -1,5 +1,5 @@
-"""Public kernel ops: backend dispatch (port of ``repro/kernels/ops.py``,
-forward only — the scale gradient comes with the training slice).
+"""Public kernel ops: backend dispatch and the training gradients (port of
+``repro/kernels/ops.py``).
 
 ``quant_matmul`` is the single entry point models use for every quantized
 fully-connected layer, ``quant_matmul_slotted`` its mixed-task form (each
@@ -19,6 +19,29 @@ and ``attention`` the attention forward.  Implementations:
                 version.  The default.
   * ``torch`` — the plain version on whatever device the tensors are on
                 (the card's comparison run of ``chip_smoke.py``).
+
+Gradients (the reference's custom VJPs; neither has a Pallas backward, so
+both backwards are plain PyTorch on either impl).  ``quant_matmul``, with
+y = x·Ŵᵀ and Ŵ = s·(q − z) (paper Eq. (2), reference ``_qmm_bwd``)::
+
+    dx         = dy · Ŵ
+    ds[n, g]   = Σ_{k∈g} (dyᵀx)[n, k] · (q − z)[n, k]
+    dz[n, g]   = −s[n, g] · Σ_{k∈g} (dyᵀx)[n, k]      (peqa_z only)
+
+and the codes get none.  ``attention(impl="chunked")``'s backward is the
+reference's ``_ca_bwd``: the flash-attention backward from the forward's
+logsumexp, blocked over keys.  The autograd node is made only when grad
+mode is on and an input requires grad: a serving call (no grad) takes the
+forward alone, with the same launches and bits as before.  The backward's
+products: Ŵ is dequantized in x's dtype; dx = dy·Ŵ multiplies those
+operands exactly and sums in float32 (on the card a bf16 GEMM with a
+float32 output, so no reduction rounds to bf16 whatever
+``allow_bf16_reduced_precision_reduction`` says), then rounds to x's
+dtype; c = dyᵀx is float32 — for bf16 operands on the card the exact bf16
+products on the tensor cores with a float32 output (``qmm_grad_bound``
+states what that costs against the reference's float32 CUDA-core product),
+elsewhere a float32 product of the widened operands (full float32: TF32
+stays off, PyTorch's default, which ``chip_smoke.py`` also sets).
 """
 from __future__ import annotations
 
@@ -29,7 +52,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.quant import QuantSpec
+from repro_torch.core.quant import (QuantSpec, unpack_codes,
+                                    unpack_codes_planes)
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import quant_matmul as _qm
 from repro_torch.kernels import ref as _ref
@@ -37,7 +61,8 @@ from repro_torch.kernels import rtn_pack as _rp
 from repro_torch.kernels.quant_matmul import GEMV_MAX_M
 
 __all__ = ["ATTN_IMPLS", "GEMV_MAX_M", "KERNELS", "KNOWN_IMPLS", "attention",
-           "default_impl", "force_impl", "quant_matmul",
+           "chunked_attention_bwd", "default_impl", "force_impl",
+           "qmm_grad_bound", "quant_matmul", "quant_matmul_bwd",
            "quant_matmul_slotted", "rtn_pack"]
 
 _tls = threading.local()
@@ -98,21 +123,39 @@ def _layout(qw: torch.Tensor, spec: QuantSpec, draft_bits):
     return read, spec.bits - read
 
 
+def _grad_wanted(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def quant_matmul(x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
                  zero: torch.Tensor, spec: QuantSpec, *,
                  draft_bits: Optional[int] = None) -> torch.Tensor:
     """y = x @ Ŵᵀ for arbitrary leading batch dims on x; y in x's dtype,
-    through ``default_impl()``.
+    through ``default_impl()``.  Differentiable in (x, scale, zero) when
+    grad mode is on (``_QuantMatmul``); the codes are frozen.
 
     Bit-plane specs read the top ``spec.bits`` planes of qw (bits', N,
     K/32).  ``draft_bits`` = p < ``spec.bits`` = b is the self-speculative
     draft: the top p planes under the draft's scales, scale·2^(b−p) and
     zero/2^(b−p) (``core.quant.draft_scales``; the reference passes a
-    rescaled tree and a p-bit spec instead, the values are the same)."""
-    impl = default_impl()
+    rescaled tree and a p-bit spec instead, the values are the same).  It
+    is forward only, as in the reference: with grad wanted it raises."""
     planes = _layout(qw, spec, draft_bits)
     lead = x.shape[:-1]
     x2d = _rows(x)
+    if _grad_wanted(x2d, scale, zero):
+        if draft_bits is not None:
+            raise ValueError("the speculative draft (draft_bits) is forward "
+                             "only: call it under torch.no_grad()")
+        y = _QuantMatmul.apply(x2d, qw, scale, zero, spec)
+    else:
+        y = _qmm_forward(x2d, qw, scale, zero, planes)
+    return y.reshape(*lead, y.shape[-1])
+
+
+def _qmm_forward(x2d, qw, scale, zero, planes) -> torch.Tensor:
+    """The forward dispatch: (M, K) → (M, N) in x's dtype."""
+    impl = default_impl()
     scale = scale.to(torch.float32).contiguous()
     zero = zero.to(torch.float32).contiguous()
     if planes is None:
@@ -124,12 +167,131 @@ def quant_matmul(x: torch.Tensor, qw: torch.Tensor, scale: torch.Tensor,
             for f in (_qm.quant_matmul_planes_plain, _qm.quant_gemv_planes,
                       _qm.quant_matmul_planes))
     if impl == "torch":
-        y = plain(x2d, qw, scale, zero)
-    elif x2d.shape[0] <= GEMV_MAX_M:
-        y = gemv(x2d, qw, scale, zero)
-    else:
-        y = gemm(x2d, qw, scale, zero)
-    return y.reshape(*lead, y.shape[-1])
+        return plain(x2d, qw, scale, zero)
+    if x2d.shape[0] <= GEMV_MAX_M:
+        return gemv(x2d, qw, scale, zero)
+    return gemm(x2d, qw, scale, zero)
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a·b summed in float32 with a float32 result: on the card bf16
+    operands go to the tensor cores as they are (their products are exact
+    in float32); otherwise both are widened to float32 first."""
+    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.to(torch.float32), b.to(torch.float32))
+
+
+def tied_head(x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    """Logits x·embᵀ in float32 for x (..., D) and the table emb (V, D) of
+    x's dtype: the products of the operands as they are, summed in float32
+    (``_mm_f32``; on the card a bf16 GEMM with a float32 output, which reads
+    the table once).  Differentiable in both (``_TiedHead``)."""
+    y = _TiedHead.apply(x.reshape(-1, x.shape[-1]), emb)
+    return y.reshape(*x.shape[:-1], emb.shape[0])
+
+
+class _TiedHead(torch.autograd.Function):
+    """The tied head's backward in float32, as the reference differentiates
+    its float32-output dot: dx = dlogits·emb rounded to x's dtype, and
+    demb = dlogitsᵀ·x rounded to emb's."""
+
+    @staticmethod
+    def forward(ctx, x2d, emb):
+        ctx.save_for_backward(x2d, emb)
+        return _mm_f32(x2d, emb.T)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2d, emb = ctx.saved_tensors
+        dy = dy.to(torch.float32)
+        dx = demb = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.mm(dy, emb.to(torch.float32)).to(x2d.dtype)
+        if ctx.needs_input_grad[1]:
+            demb = torch.mm(dy.T, x2d.to(torch.float32)).to(emb.dtype)
+        return dx, demb
+
+
+def _codes_f32(qw, k: int, spec: QuantSpec, g: int) -> torch.Tensor:
+    """The codes (N, G, K/G) in float32, nibbles or bit-planes."""
+    codes = unpack_codes_planes(qw, k, spec.bits) if spec.plane \
+        else unpack_codes(qw, k)
+    return codes.to(torch.float32).reshape(codes.shape[0], g, k // g)
+
+
+def quant_matmul_bwd(x2d, qw, scale, zero, spec: QuantSpec, dy,
+                     need=(True, True, True)):
+    """The reference's ``_qmm_bwd`` (ops.py:140): (dx, ds, dz) for
+    y = x·Ŵᵀ, x (M, K), dy (M, N); ``need`` says which of the three to
+    compute (None for the others).  dx in x's dtype, ds and dz in scale's
+    and zero's."""
+    k = x2d.shape[-1]
+    n, g = scale.shape
+    dx = ds = dz = None
+    if need[0]:
+        w = _ref.dequant_ref(qw, scale, zero, (n, k), spec, x2d.dtype)
+        dx = _mm_f32(dy.to(x2d.dtype), w).to(x2d.dtype)
+    if need[1] or need[2]:
+        c = _mm_f32(dy.to(x2d.dtype).T, x2d).reshape(n, g, k // g)
+        if need[1]:
+            zf = zero.to(torch.float32)[..., None]
+            ds = (c * (_codes_f32(qw, k, spec, g) - zf)).sum(-1).to(
+                scale.dtype)
+        if need[2]:
+            dz = (-scale.to(torch.float32) * c.sum(-1)).to(zero.dtype)
+    return dx, ds, dz
+
+
+def qmm_grad_bound(x2d, qw, scale, zero, spec: QuantSpec, dy):
+    """Elementwise bounds (on ds, on dz) on the distance between the
+    backward's scale and zero gradients as computed here, for the same
+    (x, dy), and the reference's (float32 c = dyᵀx, then the group sums).
+
+    u = 2⁻²⁴.  c[n, k] is an M-long float32 sum of exact products (bf16 or
+    f32 operands widened: exact in either case for bf16; for f32 operands
+    each product rounds once): the reference's is within (M + 1)·u·C of
+    the exact c, with C[n, k] = Σ_m |dy[m, n]·x[m, k]|; the tensor cores'
+    (bf16 on the card) accumulate without a promise of rounding to nearest,
+    u_t = 2u, so within M·u_t·C.  Then ds = Σ_{k∈g} c·(q − z) adds n_g + 2
+    roundings (the subtraction, the product, n_g = K/G additions) on terms
+    bounded by |c|·(q + |z|), and dz = −s·Σ c adds n_g + 1 on |c|.  So
+    |Δds| ≤ Σ_{k∈g} ((3·M + 2)·u·C + 2·(n_g + 2)·u·|c|)·(q + |z|) —
+    both sides' rounding counted — and |Δdz| ≤ |s|·Σ_{k∈g} ((3·M + 2)·u·C
+    + 2·(n_g + 1)·u·|c|).  Returns float32 (N, G) tensors."""
+    u = 2.0 ** -24
+    k = x2d.shape[-1]
+    n, g = scale.shape
+    ng = k // g
+    dyf, xf = dy.to(torch.float32), x2d.to(torch.float32)
+    cmag = (dyf.abs().T @ xf.abs()).reshape(n, g, ng)
+    c = (dyf.T @ xf).abs().reshape(n, g, ng)
+    m = x2d.shape[0]
+    qz = _codes_f32(qw, k, spec, g) + zero.to(torch.float32).abs()[..., None]
+    base = (3 * m + 2) * u * cmag
+    ds = ((base + 2 * (ng + 2) * u * c) * qz).sum(-1)
+    dz = scale.to(torch.float32).abs() * (base + 2 * (ng + 1) * u * c).sum(-1)
+    return ds, dz
+
+
+class _QuantMatmul(torch.autograd.Function):
+    """quant_matmul with the reference's analytic backward: the forward is
+    ``_qmm_forward`` (the kernels), the backward ``quant_matmul_bwd``."""
+
+    @staticmethod
+    def forward(ctx, x2d, qw, scale, zero, spec):
+        ctx.spec = spec
+        ctx.save_for_backward(x2d, qw, scale, zero)
+        return _qmm_forward(x2d, qw, scale, zero, _layout(qw, spec, None))
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2d, qw, scale, zero = ctx.saved_tensors
+        need = (ctx.needs_input_grad[0], ctx.needs_input_grad[2],
+                ctx.needs_input_grad[3])
+        dx, ds, dz = quant_matmul_bwd(x2d, qw, scale, zero, ctx.spec, dy,
+                                      need)
+        return dx, None, ds, dz, None
 
 
 def quant_matmul_slotted(x: torch.Tensor, qw: torch.Tensor,
@@ -214,15 +376,104 @@ def attention(q, k, v, *, causal=True, window=None, scale=None, offset=None,
     positions.
 
     impl='dense'   — the plain float32 einsum and softmax (the reference's
-                     dense path is XLA, not Pallas);
+                     dense path is XLA, not Pallas), differentiated by
+                     autograd;
     impl='chunked' — K4, the online-softmax kernel, on CUDA tensors; its
                      plain version on CPU tensors or under
-                     ``force_impl("torch")``."""
+                     ``force_impl("torch")``.  With grad wanted the call
+                     goes through ``_ChunkedAttention``: the forward also
+                     returns the rows' logsumexp, and the backward is the
+                     reference's ``_ca_bwd``."""
     if impl not in ATTN_IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}; known: "
                          f"{', '.join(ATTN_IMPLS)}")
-    if impl == "chunked" and default_impl() == "cuda":
-        return _fa.flash_attention(q, k, v, causal=causal, window=window,
-                                   scale=scale, offset=offset)
-    return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                    scale=scale, offset=offset)
+    if impl == "dense":
+        return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                        scale=scale, offset=offset)
+    if _grad_wanted(q, k, v):
+        return _ChunkedAttention.apply(q, k, v, causal, window, scale, offset)
+    return _chunked_forward(q, k, v, causal, window, scale, offset, False)
+
+
+def _chunked_forward(q, k, v, causal, window, scale, offset, return_lse):
+    fn = _fa.flash_attention if default_impl() == "cuda" \
+        else _ref.flash_attention_ref
+    return fn(q, k, v, causal=causal, window=window, scale=scale,
+              offset=offset, return_lse=return_lse)
+
+
+# the reference's key block for the chunked scan (chunked_attention.py:23)
+CHUNK_BLOCK = 1024
+
+
+def _pick_block(sk: int, block: int) -> int:
+    """Largest divisor of sk that is ≤ block (the reference's rule)."""
+    block = min(block, sk)
+    while sk % block:
+        block -= 1
+    return block
+
+
+def chunked_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None,
+                          scale=None, offset=None, block=CHUNK_BLOCK):
+    """The reference's ``_ca_bwd`` (chunked_attention.py:114) in float32:
+    with P = e^(scale·q·kᵀ − lse) over the visible keys and
+    Δ = rowsum(dO·O), dV = Pᵀ·dO, dS = P·(dO·Vᵀ − Δ), dQ = dS·K·scale,
+    dK = dSᵀ·(scale·Q); keys in blocks of ``_pick_block(Sk, block)``,
+    GQA by summing each KV head's query group.  lse (B, Hq, Sq); a row
+    that sees no key (lse −inf) gets a zero gradient.  Returns (dq, dk,
+    dv) in q's, k's and v's dtypes."""
+    b, sq, hq, d = q.shape
+    _, sk, hkv, _ = k.shape
+    rep = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    bk = _pick_block(sk, block)
+    qf = (q.to(torch.float32) * scale).reshape(b, sq, hkv, rep, d)
+    dof = do.to(torch.float32).reshape(b, sq, hkv, rep, d
+                                       ).permute(0, 2, 3, 1, 4)
+    of = o.to(torch.float32).reshape(b, sq, hkv, rep, d
+                                     ).permute(0, 2, 3, 1, 4)
+    delta = (dof * of).sum(-1)                          # (b, hkv, rep, sq)
+    lse = lse.reshape(b, hkv, rep, sq)
+    seen = torch.isfinite(lse)[..., None]
+    mask = _ref.visible(b, sq, sk, causal, window, offset, q.device)
+    mask = mask[:, None, None] if mask.dim() == 3 else mask[None, None, None]
+    kf, vf = k.to(torch.float32), v.to(torch.float32)
+    dq = torch.zeros((b, sq, hkv, rep, d), dtype=torch.float32,
+                     device=q.device)
+    dks, dvs = [], []
+    for j0 in range(0, sk, bk):
+        kb, vb = kf[:, j0:j0 + bk], vf[:, j0:j0 + bk]
+        logits = torch.einsum("bqhrd,bkhd->bhrqk", qf, kb)
+        vis = mask[..., j0:j0 + bk] & seen
+        p = torch.where(vis, torch.exp(logits - lse[..., None]),
+                        torch.zeros((), device=q.device))
+        dp = torch.einsum("bhrqd,bkhd->bhrqk", dof, vb)
+        ds = p * (dp - delta[..., None])
+        dq += torch.einsum("bhrqk,bkhd->bqhrd", ds, kb) * scale
+        dks.append(torch.einsum("bhrqk,bqhrd->bkhd", ds, qf))
+        dvs.append(torch.einsum("bhrqk,bhrqd->bkhd", p, dof))
+    return (dq.reshape(b, sq, hq, d).to(q.dtype),
+            torch.cat(dks, dim=1).to(k.dtype),
+            torch.cat(dvs, dim=1).to(v.dtype))
+
+
+class _ChunkedAttention(torch.autograd.Function):
+    """``attention(impl="chunked")`` with the reference's custom VJP: K4
+    (or its plain version) with the logsumexp forward, the blocked
+    ``chunked_attention_bwd`` backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, offset):
+        o, lse = _chunked_forward(q, k, v, causal, window, scale, offset,
+                                  True)
+        ctx.opts = dict(causal=causal, window=window, scale=scale,
+                        offset=offset)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = chunked_attention_bwd(q, k, v, o, lse, do, **ctx.opts)
+        return dq, dk, dv, None, None, None, None

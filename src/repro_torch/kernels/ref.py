@@ -83,7 +83,7 @@ def visible(b, sq, sk, causal, window, offset, device):
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window=None,
-                        scale=None, offset=None):
+                        scale=None, offset=None, return_lse=False):
     """Reference (GQA-aware) attention, in float32 einsum and softmax.
 
     q: (B, Sq, Hq, D), k/v: (B, Sk, Hkv, D), Hq % Hkv == 0.
@@ -95,6 +95,11 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window=None,
     (B,) tensor gives every batch row its own query position (the slot
     pool's decode step, where slots sit at different depths).  A row that
     sees no key returns 0.
+
+    return_lse: also return each row's logsumexp of the scaled, masked
+    logits, (B, Hq, Sq) float32, −inf for a row that sees no key (the
+    reference keeps it as (B, Hkv, rep, Sq) in ``chunked_attention._fwd``:
+    the same values, head h = kv_head·rep + r).
     """
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
@@ -112,4 +117,7 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window=None,
     p = torch.softmax(logits, dim=-1)
     p = torch.nan_to_num(p, nan=0.0)  # fully-masked rows
     out = torch.einsum("bhrqk,bkhd->bqhrd", p, vf)
-    return out.reshape(b, sq, hq, d).to(q.dtype)
+    out = out.reshape(b, sq, hq, d).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, torch.logsumexp(logits, dim=-1).reshape(b, hq, sq)

@@ -1,6 +1,7 @@
 """GQA attention with RoPE and a KV cache (port of ``repro/models/attention.py``:
 ``init``, ``init_cache``, ``_qkv``, ``_rope_decode``, ``_cache_write``,
-``apply_prefill`` and ``apply_decode``, for full causal attention through
+``apply_train``, ``apply_prefill`` and ``apply_decode``, for full causal
+attention through
 ``ops.attention`` under ``cfg.attn_impl``: dense, or chunked — K4; on the
 card a decode or verify takes K4 under either).
 
@@ -144,6 +145,20 @@ def apply_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     out = linear.apply(p.wo, o, slots=linear.slot_entry(slots, "wo"),
                        draft_bits=draft_bits)
     return out, cache_k, cache_v
+
+
+def apply_train(p: Attention, x: torch.Tensor, cfg: ModelConfig, rope
+                ) -> torch.Tensor:
+    """Full-sequence causal attention for training (reference
+    ``attention.apply_train``): x (B, S, d); rope: ``rope_table`` at
+    positions 0..S-1.  ``ops.attention`` under ``cfg.attn_impl`` (K4 with
+    its logsumexp under "chunked" on the card), never the decode route; no
+    cache is written.  Returns (B, S, d_model) in x's dtype."""
+    b, s, _ = x.shape
+    q, k, v = _qkv(p, x, cfg)
+    q, k = apply_rope(q, rope), apply_rope(k, rope)
+    o = ops.attention(q, k, v, causal=True, impl=cfg.attn_impl)
+    return linear.apply(p.wo, o.reshape(b, s, cfg.n_heads * cfg.d_head))
 
 
 def apply_prefill(p: Attention, x: torch.Tensor, cfg: ModelConfig, rope,

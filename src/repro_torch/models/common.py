@@ -1,5 +1,5 @@
-"""Shared neural building blocks: norms, RoPE, MLPs, embeddings (port of
-``repro/models/common.py``)."""
+"""Shared neural building blocks: norms, RoPE, MLPs, embeddings, the
+training loss (port of ``repro/models/common.py``)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -9,6 +9,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models import linear
 
 # rows the RMSNorm of a decode step or verify reduces on the card (a verify
@@ -156,17 +157,28 @@ def embed_apply(p: Embed, tokens: torch.Tensor, cfg: ModelConfig
 def head_apply(lm_head: Optional[linear.Linear], p_embed: Embed,
                x: torch.Tensor, cfg: ModelConfig, slots=None,
                draft_bits=None) -> torch.Tensor:
-    """Logits in float32 (the reference's preferred_element_type=f32): the
-    tied head multiplies the activation-dtype operands exactly and sums in
-    float32.  On the card a bf16 head is one bf16 GEMM with a float32
-    output, which reads the table once; elsewhere the operands are widened
-    to float32 first (the same products, a float32 GEMM)."""
+    """Logits in float32 (the reference's preferred_element_type=f32) at
+    every position of x: the tied head multiplies the activation-dtype
+    operands exactly and sums in float32 (``ops.tied_head``), serving and
+    training alike."""
     if cfg.tie_embeddings:
-        emb = p_embed.emb.to(x.dtype)
-        if x.is_cuda and x.dtype == torch.bfloat16:
-            y = torch.mm(x.reshape(-1, x.shape[-1]), emb.T,
-                         out_dtype=torch.float32)
-            return y.reshape(*x.shape[:-1], emb.shape[0])
-        return torch.matmul(x.to(torch.float32), emb.to(torch.float32).T)
+        return ops.tied_head(x, p_embed.emb.to(x.dtype))
     return linear.apply(lm_head, x, slots=slots,
                         draft_bits=draft_bits).to(torch.float32)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token-mean cross entropy (reference ``common.cross_entropy``);
+    logits (..., V) float32, labels (...) integers, mask (...) optional.
+    The gold logit is a gather: the same value as the reference's one-hot
+    contraction, which it uses only so that a vocabulary sharded over
+    devices reduces locally."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.to(torch.float32)
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)

@@ -1,8 +1,9 @@
 """Model registry (port of ``repro/models/registry.py``: ``FamilyCaps``,
 ``ModelAPI`` and ``build``'s dense branch).
 
-``build(cfg)`` returns a ``ModelAPI`` with the functions the server calls,
-the speculative ``decode_verify`` and ``decode_verify_slotted`` among them.
+``build(cfg)`` returns a ``ModelAPI`` with the functions the trainer and the
+server call, the speculative ``decode_verify`` and
+``decode_verify_slotted`` among them.
 Configurations the port does not serve yet raise here, at build time,
 instead of computing something else.
 """
@@ -43,6 +44,8 @@ class ModelAPI:
     cfg: ModelConfig
     device: torch.device
     init: Callable            # (seed) -> Transformer on device
+    forward: Callable         # (model, tokens (B, S)) -> logits (B, S, V) f32
+    loss_fn: Callable         # (model, batch) -> scalar loss
     prefill: Callable         # (model, batch) -> (last_logits, cache)
     # (model, cache, tokens, pos, draft_bits=None) -> (logits, cache)
     decode_step: Callable
@@ -75,12 +78,13 @@ def check_supported(cfg: ModelConfig) -> None:
         (cfg.qkv_bias, "q/k/v biases"),
         (cfg.act != "silu", f"act={cfg.act!r}"),
         (cfg.norm_type != "rmsnorm", f"norm_type={cfg.norm_type!r}"),
+        (cfg.remat not in transformer.REMATS, f"remat={cfg.remat!r}"),
     ]
     bad = [why for flag, why in refused if flag]
     if bad:
         raise NotImplementedError(
             f"{cfg.name}: not ported yet: {'; '.join(bad)}")
-    if cfg.tuning.mode == "peqa":
+    if cfg.tuning.mode in ("peqa", "peqa_z"):
         cfg.quant.spec().check_ported()
 
 
@@ -97,6 +101,8 @@ def build(cfg: ModelConfig, device=None) -> ModelAPI:
         cfg=cfg,
         device=dev,
         init=init,
+        forward=lambda m, tokens: transformer.forward(m, tokens, cfg),
+        loss_fn=lambda m, batch: transformer.loss_fn(m, batch, cfg),
         prefill=lambda m, batch: transformer.prefill(
             m, batch["tokens"], cfg, last_pos=batch.get("last_pos")),
         decode_step=lambda m, c, t, pos, draft_bits=None:

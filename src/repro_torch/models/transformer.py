@@ -1,6 +1,7 @@
 """Decoder-only transformer backbone, dense family (port of
-``repro/models/transformer.py``: ``init``, ``prefill``, ``decode_step`` and
-the speculative ``decode_verify``, each with the reference's mixed-task
+``repro/models/transformer.py``: ``init``, the training ``forward`` and
+``loss_fn``, ``prefill``, ``decode_step`` and the speculative
+``decode_verify``, each serving function with the reference's mixed-task
 ``task_stack``/``task_ids`` form).
 
 Layers are a ``ModuleList`` of per-layer blocks and run in a Python loop
@@ -11,6 +12,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, common, linear
@@ -56,6 +58,50 @@ def _final_logits(model: Transformer, h: torch.Tensor, cfg: ModelConfig,
     h = common.norm_apply(model.final_norm, h, cfg)
     return common.head_apply(model.lm_head, model.embed, h, cfg, slots=slots,
                              draft_bits=draft_bits)
+
+
+# ModelConfig.remat values the port runs: "none" keeps every activation for
+# the backward; "block" and "full" (the same in the reference) recompute
+# each block's forward in the backward from its input
+REMATS = ("none", "block", "full")
+
+
+def _block_train(layer: Block, h: torch.Tensor, cfg: ModelConfig, rope):
+    """Pre-norm block over the full sequence (reference ``_block_train``,
+    without MoE)."""
+    h = h + attention.apply_train(
+        layer.attn, common.norm_apply(layer.ln1, h, cfg), cfg, rope)
+    return h + common.mlp_apply(layer.mlp,
+                                common.norm_apply(layer.ln2, h, cfg), cfg)
+
+
+def forward(model: Transformer, tokens: torch.Tensor, cfg: ModelConfig
+            ) -> torch.Tensor:
+    """Full-sequence forward for training: tokens (B, S) → logits (B, S, V)
+    float32 (reference ``forward``, off the mesh, no VLM prefix).  Under
+    ``cfg.remat`` "block" or "full" each block runs under
+    ``torch.utils.checkpoint`` (non-reentrant), so the backward recomputes
+    its forward — every quantized linear's kernel twice a step."""
+    if cfg.remat not in REMATS:
+        raise NotImplementedError(f"remat={cfg.remat!r} is not ported "
+                                  f"(have {REMATS})")
+    h = common.embed_apply(model.embed, tokens, cfg)
+    rope = common.rope_table(cfg, torch.arange(h.shape[1], device=h.device))
+    for layer in model.layers:
+        if cfg.remat == "none":
+            h = _block_train(layer, h, cfg, rope)
+        else:
+            h = checkpoint(_block_train, layer, h, cfg, rope,
+                           use_reentrant=False)
+    return _final_logits(model, h, cfg)
+
+
+def loss_fn(model: Transformer, batch: dict, cfg: ModelConfig
+            ) -> torch.Tensor:
+    """Token-mean next-token cross entropy of ``batch`` ({"tokens",
+    "labels", optional "mask"}: tensors on the model's device)."""
+    logits = forward(model, batch["tokens"], cfg)
+    return common.cross_entropy(logits, batch["labels"], batch.get("mask"))
 
 
 def _layer_stack(tree, i: int):

@@ -8,13 +8,17 @@ import numpy as np
 import pytest
 
 from repro import configs as jconfigs
+from repro.configs.base import OptimConfig as JOptim
 from repro.configs.base import QuantConfig as JQuant
+from repro.configs.base import TrainConfig as JTrain
 from repro.configs.base import TuningConfig as JTuning
 from repro.core import policies as jpolicies
 from repro.models import registry as jregistry
 
 import repro_torch.configs as tconfigs
+from repro_torch.configs.base import OptimConfig as TOptim
 from repro_torch.configs.base import QuantConfig as TQuant
+from repro_torch.configs.base import TrainConfig as TTrain
 from repro_torch.configs.base import TuningConfig as TTuning
 
 
@@ -83,3 +87,17 @@ def test_quant_spec_matches_reference():
 def test_unknown_arch_raises():
     with pytest.raises(KeyError, match="llama3.2-1b"):
         tconfigs.get_config("qwen2-7b")
+
+
+@pytest.mark.parametrize("kind", ["optim", "train"])
+def test_training_configs_equal_reference(kind):
+    """OptimConfig and TrainConfig are whole copies: every field, every
+    default."""
+    ref, port = (JOptim(), TOptim()) if kind == "optim" else (JTrain(),
+                                                               TTrain())
+    assert [f.name for f in dataclasses.fields(port)] == \
+        [f.name for f in dataclasses.fields(ref)]
+    assert _shared_fields(ref, port)[0] == _shared_fields(ref, port)[1]
+    tuning = _shared_fields(JTuning(mode="peqa_z", train_zero_points=True),
+                            TTuning(mode="peqa_z", train_zero_points=True))
+    assert tuning[0] == tuning[1]

@@ -56,10 +56,14 @@ print(json.dumps(sorted(m for m in sys.modules
     "repro_torch.serve", "repro_torch.serve.config",
     "repro_torch.serve.request", "repro_torch.serve.metrics",
     "repro_torch.dist", "repro_torch.dist.sampling",
-    "repro_torch.core.scale_bank", "repro_torch.train.serve"])
+    "repro_torch.core.scale_bank", "repro_torch.train.serve",
+    "repro_torch.optim.adamw", "repro_torch.optim.compression",
+    "repro_torch.data.pipeline", "repro_torch.ckpt.checkpoint",
+    "repro_torch.train.step", "repro_torch.train.loop",
+    "repro_torch.train.quickstart"])
 def test_serving_modules_pull_in_no_jax_nor_reference(module):
     """Imported alone, in a fresh interpreter with JAX importable, none of
-    the serving modules loads ``jax`` or ``repro``."""
+    the serving and training modules loads ``jax`` or ``repro``."""
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     out = subprocess.run([sys.executable, "-c", _ISOLATED, module], env=env,
                          capture_output=True, text=True, timeout=300)

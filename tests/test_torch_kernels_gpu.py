@@ -29,7 +29,12 @@ of b' planes under ``shift = b' − p`` must equal the nibble kernel on
 ``rtn_pack_planes``) must equal their plain version bit for bit: codes,
 scales and zeros.  K4 (``flash_attention``) is held to its plain version
 within ``flash_attention.error_bound`` (for bf16 its tensor-core form:
-split-P product, split keys for Sq ≤ 4).
+split-P product, split keys for Sq ≤ 4), and its logsumexp output within
+``flash_attention.lse_error_bound``, o's bits unchanged by it.  The
+training slice: the autograd ``quant_matmul`` on CUDA tensors (K2 forward,
+the plain route's gradients bit for bit on the same inputs, ds and dz
+within ``ops.qmm_grad_bound`` of float64), and no autograd node on the
+serving path.
 """
 import pytest
 import torch
@@ -685,6 +690,31 @@ def test_head_rows_do_not_depend_on_m(cuda):
     assert torch.equal(common.head_apply(None, emb, x[:8], cfg), full[:8])
 
 
+@pytest.mark.gpu
+def test_tied_head_training_on_the_card(cuda):
+    """``ops.tied_head`` with grad on: logits bit-equal to the serving call
+    (one bf16 GEMM with f32 output either way); dx and demb within their
+    float32 summation bounds of float64 (plus one bf16 rounding)."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    m, d, v = 512, 2048, 32768
+    x = torch.randn(m, d, generator=gen, device=cuda).to(torch.bfloat16)
+    emb = (torch.randn(v, d, generator=gen, device=cuda) * 0.02
+           ).to(torch.bfloat16)
+    dy = torch.randn(m, v, generator=gen, device=cuda) * 1e-3
+    with torch.no_grad():
+        serve = ops.tied_head(x, emb)
+    xg, eg = x.clone().requires_grad_(True), emb.clone().requires_grad_(True)
+    y = ops.tied_head(xg, eg)
+    assert torch.equal(y.detach(), serve)
+    y.backward(dy)
+    xd, ed, dyd = x.double(), emb.double(), dy.double()
+    for got, want, mag, n in ((xg.grad, dyd @ ed, dyd.abs() @ ed.abs(), v),
+                              (eg.grad, dyd.T @ xd, dyd.abs().T @ xd.abs(),
+                               m)):
+        bound = 2 * n * 2.0 ** -24 * mag + want.abs() * 2.0 ** -8
+        assert ((got.double() - want).abs() <= bound).all()
+
+
 @pytest.fixture(scope="module")
 def two_layer_llama():
     """llama3.2-1b at full width, 2 layers, PEQA 4-bit per-channel, its
@@ -762,3 +792,137 @@ def test_decode_verify_rows_equal_op_by_op(cuda, two_layer_llama, impl,
     iso = row_trace.isolated_ops(model, cfg, cache, pos, 4, st, tid)
     assert all(r["equal"] for r in iso.values()), \
         [k for k, r in iso.items() if not r["equal"]]
+
+
+# ------------------------------------------------------------ training slice
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "b,sq,sk,hq,hkv,d,window,offset",
+    [(8, 256, 256, 32, 8, 64, None, None),           # the training step's
+     (2, 32, 32, 2, 2, 16, 12, None),
+     (3, 5, 70, 6, 2, 128, 20, "slots"),
+     (8, 4, 512, 32, 8, 64, None, "slots"),          # split keys: the combine
+     (2, 3, 50, 4, 2, 64, None, "negative")])        # rows that see no key
+def test_flash_attention_logsumexp_within_bound_and_o_unchanged(
+        cuda, b, sq, sk, hq, hkv, d, window, offset, dtype):
+    """K4's logsumexp output against the plain version's, within
+    ``flash_attention.lse_error_bound``; o bit-equal whether or not it is
+    asked for; −inf exactly where a row sees no key."""
+    q, k, v = _attention_inputs(b, sq, sk, hq, hkv, d, dtype, cuda,
+                                seed=7 * sk + d)
+    if offset == "slots":
+        offset = torch.linspace(20, min(300, sk - sq), b).to(torch.int64
+                                                              ).to(cuda)
+    elif offset == "negative":
+        offset = torch.tensor([-2, 30], device=cuda)
+    kw = dict(window=window, offset=offset)
+    o_only = fa.flash_attention(q, k, v, **kw)
+    before = fa.flash_attention.launches
+    o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert torch.equal(o, o_only)
+    _, plain = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    assert lse.shape == (b, hq, sq) and lse.dtype == torch.float32
+    assert torch.equal(torch.isneginf(lse), torch.isneginf(plain))
+    seen = torch.isfinite(plain)
+    err = (lse - plain).abs()[seen]
+    assert (err <= fa.lse_error_bound(q, k, plain)[seen]).all(), \
+        f"max err {err.max().item():.3e}"
+
+
+def _grad_case(m, n, k, group, dtype, device):
+    x, qw, s, z = _operands(m, n, k, group, dtype, device, seed=m + n)
+    x.requires_grad_(True)
+    s.requires_grad_(True)
+    z.requires_grad_(True)
+    dy = (torch.randn(m, n, generator=torch.Generator().manual_seed(n)) * 0.1
+          ).to(dtype).to(device)
+    return x, qw, s, z, dy
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("m,n,k,group", [(2048, 512, 2048, None),
+                                         (256, 2048, 512, 128),
+                                         (64, 96, 256, 64)])
+def test_autograd_quant_matmul_on_the_card(cuda, m, n, k, group, dtype):
+    """The autograd ``quant_matmul`` on CUDA tensors: its forward is the
+    kernel (K2, one launch) within ``error_bound`` of the plain route; its
+    backward gives the plain route's gradients bit for bit on the same
+    (x, dy) — both run ``quant_matmul_bwd`` — and ds, dz within
+    ``qmm_grad_bound`` of the float64 Eq. (2), dx within its float32
+    summation bound of the float64 dy·Ŵ."""
+    spec = QuantSpec(bits=4, group_size=group)
+    x, qw, s, z, dy = _grad_case(m, n, k, group, dtype, cuda)
+    before = qm.quant_matmul.launches
+    y = ops.quant_matmul(x, qw, s, z, spec)
+    assert qm.quant_matmul.launches == before + 1
+    y.backward(dy)
+    grads = [t.grad.clone() for t in (x, s, z)]
+    with ops.force_impl("torch"):
+        for t in (x, s, z):
+            t.grad = None
+        yp = ops.quant_matmul(x, qw, s, z, spec)
+        yp.backward(dy)
+    _assert_within_bound(y.detach(), yp.detach(), (x.detach(), qw, s.detach(),
+                         z.detach()), factored=qm.tc_route(x, s))
+    for got, t in zip(grads, (x, s, z)):
+        assert torch.equal(got, t.grad)
+    # against float64
+    from repro_torch.core.quant import unpack_codes
+    g = s.shape[1]
+    xd, dyd = x.detach().double(), dy.double()
+    c = (dyd.T @ xd).reshape(n, g, k // g)
+    codes = unpack_codes(qw, k).double().reshape(n, g, k // g)
+    ds = (c * (codes - z.detach().double()[..., None])).sum(-1)
+    dz = -s.detach().double() * c.sum(-1)
+    bds, bdz = ops.qmm_grad_bound(x.detach(), qw, s.detach(), z.detach(),
+                                  spec, dy)
+    assert ((grads[1].double() - ds).abs() <= bds).all()
+    assert ((grads[2].double() - dz).abs() <= bdz).all()
+    from repro_torch.kernels import ref
+    w = ref.dequant_ref(qw, s.detach(), z.detach(), (n, k), spec, dtype)
+    dx = dyd @ w.double()
+    bound = 2 * n * 2.0 ** -24 * (dyd.abs() @ w.double().abs())
+    if dtype == torch.bfloat16:
+        bound = bound + dx.abs() * 2.0 ** -8
+    assert ((grads[0].double() - dx).abs() <= bound).all()
+
+
+@pytest.mark.gpu
+def test_serving_path_makes_no_autograd_node(cuda, two_layer_llama):
+    """With trainable scales (requires_grad) the serving path still takes
+    the direct kernel call: no autograd node, the same launches and bits
+    as without them; with grad on, the training forward makes the node."""
+    from repro_torch.models import registry
+    cfg, model, _ = two_layer_llama["nibble"]
+    api = registry.build(cfg)
+    flags = {n: p.requires_grad for n, p in model.named_parameters()}
+    tokens = torch.randint(0, api.cfg.vocab_size, (2, 40),
+                           generator=torch.Generator().manual_seed(3)).to(cuda)
+    outs = []
+    for train in (False, True):
+        for n, p in model.named_parameters():
+            p.requires_grad_(train and n.endswith(".scale"))
+        before = qm.quant_matmul.launches
+        with torch.inference_mode():
+            logits, _ = api.prefill(model, {"tokens": tokens})
+        assert logits.grad_fn is None
+        assert qm.quant_matmul.launches - before == api.cfg.n_layers * 7
+        outs.append(logits)
+    assert torch.equal(outs[0], outs[1])
+    loss = api.loss_fn(model, {"tokens": tokens, "labels": tokens})
+    assert loss.grad_fn is not None
+    loss.backward()
+    grads = [p.grad for n, p in model.named_parameters()
+             if n.endswith(".scale")]
+    assert grads and all(g is not None and torch.isfinite(g).all()
+                         for g in grads)
+    for n, p in model.named_parameters():
+        p.grad = None
+        p.requires_grad_(flags[n])
