@@ -51,7 +51,19 @@ line:
                split-KV arithmetic), each decode and verify also timed at
                splits of 64, 128 and 256 keys,
                scaled_dot_product_attention timed beside it as a
-               yardstick;
+               yardstick.  Then the dense family at 7B: K1 (M = 4), K2
+               (M = 1024) and K5 (M = 8, T = 4) at the four linears
+               (N, K) of qwen2-7b — (3584, 3584), (512, 3584), (18944,
+               3584), (3584, 18944) —, starcoder2-7b — (4608, 4608),
+               (512, 4608), (18432, 4608), (4608, 18432) — and granite-34b
+               — (6144, 6144), its MQA k/v (128, 6144), (24576, 6144),
+               (6144, 24576) —, per-channel, within the factored bound of
+               plain, K1's rows bitwise across M and its K split the
+               mirror's, timed beside torch.matmul and the bound; K4 at
+               head dim 128 with qwen2-7b's (28 / 4), starcoder2-7b's
+               (36 / 4) and granite-34b's (48 / 1) heads: the prefill (B 4
+               × 256), the lockstep decode, the slot pool's decode and
+               verify and a ring's decode (offset past every key);
   3. main    — llama3.2-1b at full width from a seeded generator, PEQA
                4-bit per-channel RTN (n_grid 20), Engine.generate with
                B = 4, a 256-token prompt and 32 new tokens; the launch
@@ -117,7 +129,8 @@ line:
                codes, with and without task scales: one verify of 8 slots ×
                4 tokens (M = 32) against the 4 matching decode steps (M = 8)
                under "dense" and "chunked", every op's rows bit-equal, and
-               each op kind alone on equal inputs likewise;
+               each op kind alone on equal inputs likewise; then a 2-layer
+               starcoder2-7b (LayerNorm, GELU, biases), nibble codes;
  10. check   — the same path at 2 layers, once through the kernels and once
                through the plain versions on the card: prefill logits within
                2⁻⁵ of their largest magnitude, and the greedy tokens that
@@ -125,7 +138,15 @@ line:
                slotted decode step over mixed tasks, on the 2 layers
                repacked into bit-planes a slotted draft step and verify, and
                on a 2-layer K3 backbone under "chunked" a prefill and a
-               slot-pool decode step and verify;
+               slot-pool decode step and verify.  Then 2-layer models at
+               full width, each through the kernels and the plain
+               versions (prefill logits within 2⁻⁵, the kernel run
+               launching K1, K2 and K4, the plain run none; on every model
+               each of the kernel run's K1 and K2 calls held to plain on its
+               own inputs within error_bound(factored=True)): starcoder2-7b,
+               starcoder2-7b with a 64-slot sliding window over 256 + 96
+               tokens (the ring wraps), qwen2-7b with the int8 KV cache,
+               and granite-34b (MQA);
  11. train   — PEQA training (the paper's step 2) on phase main's backbone
                at full width and depth, TrainConfig's default batch of 8 ×
                256 tokens (K2 at M = 2048), remat="block", a synthetic
@@ -159,8 +180,35 @@ line:
                held-out batches; the codes, embedding, norms and zeros
                unchanged;
      train_full — one full-mode step at the same size (every float tensor
-               trained): its peak memory and optimizer state beside PEQA's
-               (the paper's Table 1).
+               trained, the token table a float32 master that must move at
+               step 1): its peak memory — with the model's, the optimizer
+               state's and the gradients' bytes and the peaks of the
+               forward and backward and of the update — and optimizer
+               state beside PEQA's (the paper's Table 1).
+ 13. dense_archs — llama3.2-1b's models freed, qwen2-7b at full width and
+               depth (28 layers, d_model 3584, 28 / 4 heads of 128, d_ff
+               18944, vocab 152064, untied, q/k/v biases), bf16, random
+               weights from the seed, PEQA 4-bit per-channel (n_grid 20):
+               its init and quantize seconds; Engine.generate (B 4, a
+               256-token prompt, 32 new tokens; 28 × 7 K2 launches for the
+               prefill, 28 × 7 K1 and 28 K4 a decode step), a prefill and
+               a decode step profiled as in phase profile; phase serve's
+               16 requests over 4 tasks under drain and resident
+               (identical tokens, K5 on resident); the same generate with
+               the int8 KV cache (the same launches, its cache half of
+               bf16's plus the scales, prefill logits bit-equal to the
+               bf16 cache run's); 3 PEQA train steps at 8 × 256 (step 1's
+               2 × 196 − 28 K2 calls that return an output — the recompute
+               stops before the down projection's — each held to plain
+               element by element, 2 × 196 K2 launches a step, state
+               8 B × the scales, the codes, biases, norms, table and head
+               unchanged; peak memory, step ms, tokens/s beside the
+               reckoned full-mode bytes); the untied head's time under the fp linear's
+               earlier rule and under ``ops.dot_f32``.  Then starcoder2-7b
+               at full width and depth (32 layers): generate with its
+               launch gates, and 2 train steps (the first checked).
+
+Every phase's seconds are printed on a line of their own as it ends.
 
 Then the card's name and power limit, the ``kernels`` summary line, and as
 the last line ``{"ok": true, "device": {...}}``.  Any failed phase raises
@@ -203,6 +251,8 @@ SPEC_K, DRAFT_BITS = 3, 3
 # bits do not depend on it.  The resident run is repeated at this capacity
 # and must give the same tokens
 LONG_CACHE = 1100
+# phase check's sliding-window run: a 64-slot ring, 256 + SWA_NEW tokens
+SWA_NEW = 96
 L2_BYTES = 50 * 2 ** 20
 # K4 at llama3.2-1b's heads: (case, B, Sq, Sk, offset, causal, window) —
 # offset None (Sk − Sq), "rows" (a (B,) device tensor spread over [20,
@@ -225,12 +275,35 @@ ATTN_CASES = (("prefill", 4, 256, 256, None, True, None),
               ("window", 4, 256, 256, None, True, 64),
               ("non_causal", 4, 256, 256, None, False, None))
 SPLIT_KEYS_TRIED = (64, 128, 256)
+# the dense family at 7B: each model's four linears (N, K) — q/o, k/v,
+# gate/up, down (starcoder2-7b's up/down around its GELU; granite-34b's
+# MQA k/v of 128 rows) —, and (Hq, Hkv, D) of each model's heads
+DENSE_7B_SHAPES = {
+    "qwen2-7b": ((3584, 3584), (512, 3584), (18944, 3584), (3584, 18944)),
+    "starcoder2-7b": ((4608, 4608), (512, 4608), (18432, 4608),
+                      (4608, 18432)),
+    "granite-34b": ((6144, 6144), (128, 6144), (24576, 6144),
+                    (6144, 24576))}
+DENSE_7B_HEADS = {"qwen2-7b": (28, 4, 128), "starcoder2-7b": (36, 4, 128),
+                  "granite-34b": (48, 1, 128)}
+# K4 at those heads: the prefill, the lockstep decode, the slot pool's
+# decode and verify, and a ring's decode (starcoder2-7b's 64-slot window
+# in phase check: every slot visible once the ring has wrapped)
+ATTN_7B_CASES = (("prefill", 4, 256, 256, None, True, None),
+                 ("lockstep_decode", BATCH, 1, PROMPT + NEW, PROMPT + 10,
+                  True, None),
+                 ("slot_decode", 8, 1, 512, "rows", True, None),
+                 ("slot_verify", 8, 4, 512, "rows", True, None),
+                 ("ring_decode", BATCH, 1, 64, PROMPT + 40, True, None))
 # train phase: TrainConfig's default batch and length (8 × 256: K2 at M =
 # 2048), TRAIN_STEPS steps under each attn_impl (the first TRAIN_SKIP left
 # out of the medians), then eval_perplexity over TRAIN_EVAL_BATCHES held-out
 # batches of a synthetic corpus of TRAIN_TOKENS tokens (10% held out)
 TRAIN_STEPS, TRAIN_SKIP, TRAIN_EVAL_BATCHES = 10, 2, 4
 TRAIN_TOKENS = 120_000
+# dense_archs phase: PEQA train steps of qwen2-7b at 8 × 256 tokens (the
+# first checked call by call, not timed)
+DENSE_TRAIN_STEPS = 3
 
 
 def emit(obj) -> None:
@@ -454,6 +527,71 @@ def matmul_ms(torch, m, w16, gen, iters=200) -> float:
     return ms
 
 
+def kernel_gemv_gemm(torch, qm, n, k, group, qw, s, z, w16, gen, worst,
+                     emulate=True, model="llama3.2-1b") -> None:
+    """K1 (M = GEMV_M) and K2 (M = GEMM_M) on one quantized layer, bf16:
+    each on its tensor-core route within the factored bound of its plain
+    version (and, with ``emulate``, of its emulation), K1's built K split
+    the mirror's and its rows bit-equal across M (both routes); kernel /
+    plain / ``torch.matmul`` time against the bound.  Updates ``worst``."""
+    g = s.shape[1]
+    for name, fn, m in (("quant_gemv", qm.quant_gemv, GEMV_M),
+                        ("quant_matmul", qm.quant_matmul, GEMM_M)):
+        gemv = fn is qm.quant_gemv
+        x = torch.randn(GEMV_MAX if gemv else m, k, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        x_all, x = x, x[:m].contiguous()
+        got = fn(x, qw, s, z)
+        plain = qm.quant_matmul_plain(x, qw, s, z)
+        torch.cuda.synchronize()
+        tc = qm.tc_route(x, s)
+        what = f"{name} M={m} N={n} K={k} group={group}"
+        if not tc:
+            fail(f"{what}: not on the tensor-core route")
+        err = check_close(what, got, plain, qm.error_bound(
+            x, qw, s, z, plain, factored=True, gemv=gemv))
+        worst[name] = max(worst[name], err)
+        del plain
+        extra = {"model": model, "route": "mma" if gemv else "wgmma"}
+        if emulate:
+            # the kernel against its emulation, within the same bound
+            emu = (qm.quant_gemv_factored_plain if gemv
+                   else qm.quant_matmul_factored_plain)(x, qw, s, z)
+            extra.update(max_abs_err_emulation=check_close(
+                f"{what} (emulation)", got, emu, qm.error_bound(
+                    x, qw, s, z, emu, factored=True, gemv=gemv)),
+                bitwise_emulation=bool(torch.equal(got, emu)))
+            del emu
+        if gemv:
+            # the built kernel's K split over blocks is the one the
+            # emulation and the bound assume
+            extra["block_split"] = qm.gemv_tc_split(n, k)
+            if extra["block_split"] != qm.gemv_block_split(n, k):
+                fail(f"{what}: the kernel splits K over "
+                     f"{extra['block_split']} blocks, the emulation over "
+                     f"{qm.gemv_block_split(n, k)}")
+            extra["rows_bitwise_across_m"] = gemv_rows_invariant(
+                torch, what, lambda a: qm.quant_gemv(a, qw, s, z), x_all)
+            extra["simt_f32"] = gemv_simt_case(torch, qm, what, x_all, qw,
+                                               s, z)
+        # rotate weight copies through > 2x the L2 cache so every launch
+        # streams its weights from HBM, as the model's does
+        copies = max(2, math.ceil(2 * L2_BYTES / (n * k // 2)))
+        sets = [(x, qw.clone(), s.clone(), z.clone()) for _ in range(copies)]
+        lib_copies = max(2, math.ceil(2 * L2_BYTES / (n * k * 2)))
+        lib_sets = [(x, w16.clone()) for _ in range(lib_copies)]
+        iters = 200 if m == GEMV_M else 20
+        ms = timed(fn, sets, iters)
+        plain_ms = timed(qm.quant_matmul_plain, sets, max(10, iters // 4))
+        lib_ms = timed(lambda a, b: torch.matmul(a, b.T), lib_sets, iters)
+        b_ms, b_by, b_bf16 = bound_ms(m, n, k, g, tensor_cores=True)
+        emit({"phase": "kernels", "kernel": name, "M": m, "N": n, "K": k,
+              "group": group, "max_abs_err": err, **extra, "ms": ms,
+              "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+              "bound_by": b_by, "bound_bf16_ms": b_bf16})
+        del sets, lib_sets
+
+
 def phase_kernels(torch) -> dict:
     from repro_torch.kernels import quant_matmul as qm
     from repro_torch.kernels.ref import dequant_ref
@@ -464,67 +602,9 @@ def phase_kernels(torch) -> dict:
     for (n, k) in SHAPES:
         for group in (None, 128):
             qw, s, z = quantized_operands(torch, n, k, group, gen)
-            g = s.shape[1]
             w16 = dequant_ref(qw, s, z, (n, k), QuantSpec(), torch.bfloat16)
-            for name, fn, m in (("quant_gemv", qm.quant_gemv, GEMV_M),
-                                ("quant_matmul", qm.quant_matmul, GEMM_M)):
-                gemv = fn is qm.quant_gemv
-                x = torch.randn(GEMV_MAX if gemv else m, k, generator=gen,
-                                device="cuda").to(torch.bfloat16)
-                x_all, x = x, x[:m].contiguous()
-                got = fn(x, qw, s, z)
-                plain = qm.quant_matmul_plain(x, qw, s, z)
-                torch.cuda.synchronize()
-                tc = qm.tc_route(x, s)
-                what = f"{name} M={m} N={n} K={k} group={group}"
-                if not tc:
-                    fail(f"{what}: not on the tensor-core route")
-                err = check_close(what, got, plain, qm.error_bound(
-                    x, qw, s, z, plain, factored=True, gemv=gemv))
-                worst[name] = max(worst[name], err)
-                # the kernel against its emulation, within the same bound
-                emu = (qm.quant_gemv_factored_plain if gemv
-                       else qm.quant_matmul_factored_plain)(x, qw, s, z)
-                extra = {"route": "mma" if gemv else "wgmma",
-                         "max_abs_err_emulation": check_close(
-                             f"{what} (emulation)", got, emu, qm.error_bound(
-                                 x, qw, s, z, emu, factored=True,
-                                 gemv=gemv)),
-                         "bitwise_emulation": bool(torch.equal(got, emu))}
-                del emu
-                if gemv:
-                    # the built kernel's K split over blocks is the one
-                    # the emulation and the bound assume
-                    extra["block_split"] = qm.gemv_tc_split(n, k)
-                    if extra["block_split"] != qm.gemv_block_split(n, k):
-                        fail(f"{what}: the kernel splits K over "
-                             f"{extra['block_split']} blocks, the emulation "
-                             f"over {qm.gemv_block_split(n, k)}")
-                    extra["rows_bitwise_across_m"] = gemv_rows_invariant(
-                        torch, what, lambda a: qm.quant_gemv(a, qw, s, z),
-                        x_all)
-                    extra["simt_f32"] = gemv_simt_case(torch, qm, what,
-                                                       x_all, qw, s, z)
-                # rotate weight copies through > 2x the L2 cache so every
-                # launch streams its weights from HBM, as the model's does
-                copies = max(2, math.ceil(2 * L2_BYTES / (n * k // 2)))
-                sets = [(x, qw.clone(), s.clone(), z.clone())
-                        for _ in range(copies)]
-                lib_copies = max(2, math.ceil(2 * L2_BYTES / (n * k * 2)))
-                lib_sets = [(x, w16.clone()) for _ in range(lib_copies)]
-                iters = 200 if m == GEMV_M else 20
-                ms = timed(fn, sets, iters)
-                plain_ms = timed(qm.quant_matmul_plain, sets,
-                                 max(10, iters // 4))
-                lib_ms = timed(lambda a, b: torch.matmul(a, b.T), lib_sets,
-                               iters)
-                b_ms, b_by, b_bf16 = bound_ms(m, n, k, g, tensor_cores=True)
-                emit({"phase": "kernels", "kernel": name, "M": m, "N": n,
-                      "K": k, "group": group, "max_abs_err": err, **extra,
-                      "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                      "bound_ms": b_ms, "bound_by": b_by,
-                      "bound_bf16_ms": b_bf16})
-                del sets, lib_sets
+            kernel_gemv_gemm(torch, qm, n, k, group, qw, s, z, w16, gen,
+                             worst)
             worst["quant_gemv_tasks"] = max(
                 worst["quant_gemv_tasks"],
                 kernel_k5(torch, qm, n, k, group, qw, s, z, w16, gen))
@@ -534,9 +614,29 @@ def phase_kernels(torch) -> dict:
             del qw, s, z, w16
             kernel_rtn_pack(torch, n, k, group, gen)
             torch.cuda.empty_cache()
+    # K1, K2 and K5 at the 7B-class models' linears, per-channel (the
+    # shapes of phases check and dense_archs); K2's and the GEMV's
+    # emulations are checked at llama's above
+    for model, shapes in DENSE_7B_SHAPES.items():
+        for (n, k) in shapes:
+            qw, s, z = quantized_operands(torch, n, k, None, gen)
+            w16 = dequant_ref(qw, s, z, (n, k), QuantSpec(), torch.bfloat16)
+            kernel_gemv_gemm(torch, qm, n, k, None, qw, s, z, w16, gen,
+                             worst, emulate=False, model=model)
+            worst["quant_gemv_tasks"] = max(
+                worst["quant_gemv_tasks"],
+                kernel_k5(torch, qm, n, k, None, qw, s, z, w16, gen,
+                          emulate=False, model=model))
+            del qw, s, z, w16
+            torch.cuda.empty_cache()
     worst.update(rtn_pack=0.0, rtn_pack_planes=0.0)   # bit-equal, or failed
     worst["flash_attention"], attn_prefill = kernel_attention(torch, gen)
-    return worst, attn_prefill
+    attn_7b = {}
+    for model, heads in DENSE_7B_HEADS.items():
+        err, attn_7b[model] = kernel_attention(
+            torch, gen, heads, ATTN_7B_CASES, model=model, sweep=False)
+        worst["flash_attention"] = max(worst["flash_attention"], err)
+    return worst, attn_prefill, attn_7b
 
 
 def pack_bytes_ms(n: int, k: int, groups: int, bits: int,
@@ -604,40 +704,45 @@ def attn_mask(torch, b, sq, sk, offset, causal, window):
     return mask
 
 
-def attn_bound_ms(mask) -> tuple:
-    """Least time of one attention call at llama3.2-1b's heads, for the
-    work of these inputs (``mask``): the larger of its bytes (q and out
-    once, the K and V rows of the keys some query of a batch row sees,
-    bf16) at HBM rate and its operations, 2·D per visible (query, key,
-    head) for each of the two products, both at the bf16 tensor-core rate
-    (q·kᵀ: bf16 products are exact in f32; P·V: the kernel runs it on the
-    tensor cores, P as two bf16 halves — priced once, the function's
-    work).  Returns (ms, "bytes" | "operations")."""
+def attn_bound_ms(mask, heads=(HQ, HKV, DHEAD)) -> tuple:
+    """Least time of one attention call at ``heads`` (Hq, Hkv, D; by
+    default llama3.2-1b's), for the work of these inputs (``mask``): the
+    larger of its bytes (q and out once, the K and V rows of the keys some
+    query of a batch row sees, bf16) at HBM rate and its operations, 2·D
+    per visible (query, key, head) for each of the two products, both at
+    the bf16 tensor-core rate (q·kᵀ: bf16 products are exact in f32; P·V:
+    the kernel runs it on the tensor cores, P as two bf16 halves — priced
+    once, the function's work).  Returns (ms, "bytes" | "operations")."""
+    hq, hkv, d = heads
     b, sq, _ = mask.shape
     pairs, keys = int(mask.sum()), int(mask.any(dim=1).sum())
-    t_bytes = (2 * b * sq * HQ * DHEAD * 2 + 2 * keys * HKV * DHEAD * 2
+    t_bytes = (2 * b * sq * hq * d * 2 + 2 * keys * hkv * d * 2
                ) / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * (2 * DHEAD * pairs * HQ) / BF16_FLOPS * 1e3
+    t_ops = 2 * (2 * d * pairs * hq) / BF16_FLOPS * 1e3
     if t_bytes >= t_ops:
         return t_bytes, "bytes"
     return t_ops, "operations"
 
 
-def kernel_attention(torch, gen) -> tuple:
-    """K4 at llama3.2-1b's heads (32 query, 8 KV heads of 64), bf16, in
-    every ``ATTN_CASES`` case: within ``flash_attention.error_bound`` of the
-    plain version; kernel / plain time (inputs rotated through > 2× the
-    L2) against the bound, and as a yardstick only — never on the path —
-    ``scaled_dot_product_attention`` with ``enable_gqa`` (``is_causal`` for
-    the aligned causal cases, a boolean mask otherwise).  Returns (the
-    worst error, the prefill case's row for the summary)."""
+def kernel_attention(torch, gen, heads=(HQ, HKV, DHEAD), cases=ATTN_CASES,
+                     model="llama3.2-1b", sweep=True) -> tuple:
+    """K4 at ``model``'s heads (Hq, Hkv, D; by default llama3.2-1b's 32
+    query and 8 KV heads of 64), bf16, in every case of ``cases``: within
+    ``flash_attention.error_bound`` of the plain version; kernel / plain
+    time (inputs rotated through > 2× the L2) against the bound, and as a
+    yardstick only — never on the path — ``scaled_dot_product_attention``
+    with ``enable_gqa`` (``is_causal`` for the aligned causal cases, a
+    boolean mask otherwise); with ``sweep``, each decode and verify also
+    at every split size tried.  Returns (the worst error, the prefill
+    case's row)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
+    hq, hkv, dh = heads
     worst = 0.0
-    for name, b, sq, sk, off, causal, window in ATTN_CASES:
-        q = torch.randn(b, sq, HQ, DHEAD, generator=gen, device="cuda"
+    for name, b, sq, sk, off, causal, window in cases:
+        q = torch.randn(b, sq, hq, dh, generator=gen, device="cuda"
                         ).to(torch.bfloat16)
-        k, v = (torch.randn(b, sk, HKV, DHEAD, generator=gen, device="cuda"
+        k, v = (torch.randn(b, sk, hkv, dh, generator=gen, device="cuda"
                             ).to(torch.bfloat16) for _ in range(2))
         offset = torch.linspace(20, 300, b, device="cuda").round().long() \
             if off == "rows" else off
@@ -657,7 +762,7 @@ def kernel_attention(torch, gen) -> tuple:
         sets = [tuple(t.clone() for t in (q, k, v)) for _ in range(
             max(2, math.ceil(2 * L2_BYTES / nbytes)))]
         mask = attn_mask(torch, b, sq, sk, offset, causal, window)
-        b_ms, b_by = attn_bound_ms(mask)
+        b_ms, b_by = attn_bound_ms(mask, heads)
         aligned = causal and window is None and off is None and sq == sk
         mask = None if aligned or not (causal or window) else mask[:, None]
 
@@ -673,7 +778,7 @@ def kernel_attention(torch, gen) -> tuple:
         # splits of Sk / 16 keys rounded to 64 for Sk > 1024, is 64 keys
         # at Sk ≤ 1024 and 256 at 4096)
         by_split = {}
-        if sq <= fa.SPLIT_MAX_SQ:
+        if sweep and sq <= fa.SPLIT_MAX_SQ:
             chosen = fa.SPLIT_KEYS
             for keys in SPLIT_KEYS_TRIED:
                 fa.SPLIT_KEYS = keys
@@ -684,7 +789,8 @@ def kernel_attention(torch, gen) -> tuple:
                 finally:
                     fa.SPLIT_KEYS = chosen
         row = {"phase": "kernels", "kernel": "flash_attention", "case": name,
-               "B": b, "Sq": sq, "Sk": sk, "Hq": HQ, "Hkv": HKV, "D": DHEAD,
+               "model": model, "B": b, "Sq": sq, "Sk": sk, "Hq": hq,
+               "Hkv": hkv, "D": dh,
                "causal": causal, "window": window, "splits": splits,
                "split_keys": fa.SPLIT_KEYS if splits > 1 else None,
                "max_abs_err": err, "max_abs_err_emulation": emu_err,
@@ -699,11 +805,12 @@ def kernel_attention(torch, gen) -> tuple:
     return worst, prefill
 
 
-def kernel_k5(torch, qm, n, k, group, qw, s, z, w16, gen) -> float:
+def kernel_k5(torch, qm, n, k, group, qw, s, z, w16, gen, emulate=True,
+              model="llama3.2-1b") -> float:
     """K5 at the serve decode shape: within the bound of its plain version
-    and of its emulation, every row bit-equal to K1's under that row's
-    task, and its rows at M = 1 .. 16 bit-equal to them at M = 32 (the
-    verify's 8 slots × 4 tokens)."""
+    and (with ``emulate``) of its emulation, every row bit-equal to K1's
+    under that row's task, and its rows at M = 1 .. 16 bit-equal to them
+    at M = 32 (the verify's 8 slots × 4 tokens)."""
     ss, zs = task_stacks(torch, s, z, N_TASKS, gen)
     ids_all = torch.tensor([i % N_TASKS for i in range(GEMV_MAX)],
                            dtype=torch.int32, device="cuda")
@@ -719,10 +826,14 @@ def kernel_k5(torch, qm, n, k, group, qw, s, z, w16, gen) -> float:
         fail(f"{what}: not on the tensor-core route")
     err = check_close(what, got, plain, qm.error_bound(
         x, qw, ss, zs, plain, task_ids=ids, factored=True, gemv=True))
-    emu = qm.quant_gemv_factored_plain(x, qw, ss, zs, task_ids=ids)
-    emu_err = check_close(f"{what} (emulation)", got, emu, qm.error_bound(
-        x, qw, ss, zs, emu, task_ids=ids, factored=True, gemv=True))
-    del emu
+    emu_err = None
+    if emulate:
+        emu = qm.quant_gemv_factored_plain(x, qw, ss, zs, task_ids=ids)
+        emu_err = check_close(f"{what} (emulation)", got, emu,
+                              qm.error_bound(x, qw, ss, zs, emu,
+                                             task_ids=ids, factored=True,
+                                             gemv=True))
+        del emu
     gemv_rows_invariant(
         torch, what, lambda a: qm.quant_gemv_tasks(
             a, qw, ss, zs, ids_all[:a.shape[0]]), x_all)
@@ -742,8 +853,9 @@ def kernel_k5(torch, qm, n, k, group, qw, s, z, w16, gen) -> float:
     b_ms, b_by, b_bf16 = bound_ms(TASKS_M, n, k, s.shape[1],
                                   scale_sets=len(set(TASK_IDS)),
                                   tensor_cores=True)
-    emit({"phase": "kernels", "kernel": "quant_gemv_tasks", "M": TASKS_M,
-          "T": N_TASKS, "N": n, "K": k, "group": group, "route": "mma",
+    emit({"phase": "kernels", "kernel": "quant_gemv_tasks", "model": model,
+          "M": TASKS_M, "T": N_TASKS, "N": n, "K": k, "group": group,
+          "route": "mma",
           "max_abs_err": err, "max_abs_err_emulation": emu_err,
           "rows_bitwise_k1": True, "rows_bitwise_across_m": True, "ms": ms,
           "k1_same_m_ms": k1_ms, "plain_ms": plain_ms, "library_ms": None,
@@ -1136,11 +1248,12 @@ def device_ms(torch, fn, top: int = 6) -> tuple:
                              for k, t in best]
 
 
-def phase_profile(torch, main_path) -> dict:
+def phase_profile(torch, main_path, phase="profile") -> dict:
     """Where one prefill's and one decode step's time goes: device kernel
-    time (profiler) against the wall time of the same call."""
+    time (profiler) against the wall time of the same call.  Emits its
+    line under ``phase``."""
     api, model, prompt = main_path["api"], main_path["model"], main_path["prompt"]
-    res = {"phase": "profile"}
+    res = {"phase": phase, "model": api.cfg.name}
     with torch.inference_mode():
         tokens = prompt.to("cuda")
         logits, pcache = api.prefill(model, {"tokens": tokens})
@@ -1385,10 +1498,12 @@ def profile_serve_step(torch, engine, step, reqs, slotted) -> dict:
             "device_busy_share": dev / wall if dev else None, "top": top}
 
 
-def phase_serve(torch, main_path) -> dict:
+def phase_serve(torch, main_path, phase="serve", probes=True) -> dict:
     """Drain vs resident on the full model: same tokens; resident through
     K5 (decode and short prefills) and K2 per task (long prefills), never
-    K1.  Each run starts with the launch counters at 0."""
+    K1.  Each run starts with the launch counters at 0.  With ``probes``,
+    a profiled pool step of each and the resident run again at
+    LONG_CACHE rows.  Emits its line under ``phase``."""
     import numpy as np
     from repro_torch.core.scale_bank import ScaleBank
     from repro_torch.kernels import flash_attention as fa
@@ -1409,8 +1524,9 @@ def phase_serve(torch, main_path) -> dict:
     short = sum(r.n_prompt <= 32 for r in reqs)    # prefills of <= 32 rows
     kernels = (qm.quant_gemv, qm.quant_matmul, qm.quant_gemv_tasks,
                fa.flash_attention)
-    res, reports = {"phase": "serve", "requests": len(reqs),
-                    "slots": SERVE_SLOTS, "tasks": N_TASKS}, {}
+    res, reports = {"phase": phase, "model": cfg.name,
+                    "requests": len(reqs), "slots": SERVE_SLOTS,
+                    "tasks": N_TASKS}, {}
     for sched in ("drain", "resident"):
         engine = Engine(api, model, bank=bank)
         calls = {"n": 0, "s": 0.0}
@@ -1461,13 +1577,16 @@ def phase_serve(torch, main_path) -> dict:
                 "quant_matmul": n_lin * (len(reqs) - short),
                 "flash_attention": cfg.n_layers * calls["n"]}
         if launches != want:
-            fail(f"{sched}: kernel launches {launches}, expected {want}")
-        res[sched]["profile_step"] = profile_serve_step(
-            torch, engine, step, reqs, sched == "resident")
+            fail(f"{phase} {sched}: kernel launches {launches}, expected "
+                 f"{want}")
+        if probes:
+            res[sched]["profile_step"] = profile_serve_step(
+                torch, engine, step, reqs, sched == "resident")
     engine.switch_task("t0")                  # the model's own scales back
     dr, rr = reports["drain"], reports["resident"]
-    res["resident_tokens_equal_at_cache_len"] = gate_capacity(
-        "resident run", Engine(api, model, bank=bank), reqs, rr)
+    if probes:
+        res["resident_tokens_equal_at_cache_len"] = gate_capacity(
+            "resident run", Engine(api, model, bank=bank), reqs, rr)
     if rr.tokens != dr.tokens:
         diff = sum(a != b for a, b in zip(rr.tokens, dr.tokens))
         fail(f"resident and drain tokens differ in {diff} of {len(reqs)} "
@@ -1785,15 +1904,16 @@ def phase_speculative(torch, plane, serve) -> dict:
     return res
 
 
-def phase_invariance(torch, cfg) -> dict:
+def phase_invariance(torch, cfg, layouts=("nibble", "plane")) -> dict:
     """Row invariance of the decode / verify path on the card: a 2-layer
-    llama3.2-1b at full width (PEQA 4-bit per-channel, and its 4-plane
-    repack), one verify of 8 slots × (SPEC_K + 1) tokens (M = 32) against
-    the SPEC_K + 1 matching decode steps (M = 8), under "dense" and
-    "chunked", with a 4-task resident stack and without: every op's rows
-    (embedding, norms, linears, RoPE, attention, head, argmax) must be
-    bit-equal (``models.row_trace.compare_verify``), and each op kind alone
-    on equal inputs likewise (``isolated_ops``)."""
+    ``cfg`` at full width (PEQA 4-bit per-channel, and with "plane" in
+    ``layouts`` its 4-plane repack), one verify of 8 slots × (SPEC_K + 1)
+    tokens (M = 32) against the SPEC_K + 1 matching decode steps (M = 8),
+    under "dense" and "chunked", with a 4-task resident stack and without:
+    every op's rows (embedding, norms, linears and their biases, the GELU,
+    RoPE, attention, head, argmax) must be bit-equal
+    (``models.row_trace.compare_verify``), and each op kind alone on equal
+    inputs likewise (``isolated_ops``)."""
     import numpy as np
     from repro_torch.core import policies
     from repro_torch.core.scale_bank import ResidentStack, ScaleBank
@@ -1802,7 +1922,10 @@ def phase_invariance(torch, cfg) -> dict:
     cfg2 = cfg.replace(n_layers=2)
     api = registry.build(cfg2)
     model, _ = policies.prepare(api.init(SEED), cfg2)
-    plane = plane_backbone(torch, {"cfg": cfg2, "model": model})
+    backbones = {"nibble": (model, cfg2)}
+    if "plane" in layouts:
+        plane = plane_backbone(torch, {"cfg": cfg2, "model": model})
+        backbones["plane"] = (plane["model"], plane["cfg"])
     bank = ScaleBank()
     bank.add("t0", model)
     rng = np.random.default_rng(SEED + 4)
@@ -1820,10 +1943,10 @@ def phase_invariance(torch, cfg) -> dict:
     for key in cache:
         cache[key].normal_(generator=torch.Generator(device="cuda"
                                                      ).manual_seed(SEED))
-    res = {"phase": "invariance", "layers": 2, "rows_verify": TASKS_M * (
-        SPEC_K + 1), "rows_decode": TASKS_M, "cases": {}, "isolated": {}}
-    for layout, (m, c) in {"nibble": (model, cfg2),
-                           "plane": (plane["model"], plane["cfg"])}.items():
+    res = {"phase": "invariance", "model": cfg.name, "layers": 2,
+           "rows_verify": TASKS_M * (SPEC_K + 1), "rows_decode": TASKS_M,
+           "cases": {}, "isolated": {}}
+    for layout, (m, c) in backbones.items():
         stack = ResidentStack(bank, m, N_TASKS, warm=warm).stack
         for tasked in (True, False):
             st, tid = (stack, ids) if tasked else (None, None)
@@ -1851,44 +1974,109 @@ def phase_invariance(torch, cfg) -> dict:
     return res
 
 
-def phase_check(torch, cfg) -> dict:
-    """2 layers at full width: kernels vs plain versions on the card."""
-    from repro_torch.core import policies
+def check_path(torch, api, model, cfg, prompt, new) -> dict:
+    """The prefill of ``prompt`` and a greedy generation of ``new`` tokens,
+    once through the kernels and once through the plain versions on the
+    card: prefill logits within 2⁻⁵ of their largest magnitude, the greedy
+    tokens that agree reported (random weights give near-tied logits).
+    The kernel run must launch K1, K2 and K4 and the plain run none; each
+    of the kernel run's K1 and K2 calls is held to its plain version on its
+    own inputs as it happens (``CheckedQuantMatmul``), so every linear shape
+    of the model meets the element-wise gate in both routes."""
+    from contextlib import nullcontext
     from repro_torch.kernels import ops
-    from repro_torch.models import registry
     from repro_torch.train.serve import Engine
 
-    cfg2 = cfg.replace(n_layers=2)
-    api = registry.build(cfg2)
-    model, _ = policies.prepare(api.init(SEED), cfg2)
     engine = Engine(api, model)
-    gen = torch.Generator().manual_seed(SEED + 2)
-    prompt = torch.randint(0, cfg2.vocab_size, (BATCH, PROMPT), generator=gen)
-    runs = {}
+    b, s = prompt.shape
+    runs, launched = {}, {}
+    label = f"check {cfg.name}"
     for impl in ("cuda", "torch"):
-        with ops.force_impl(impl), torch.inference_mode():
+        for k in ops.KERNELS:
+            k.launches = 0
+        checked = CheckedQuantMatmul(ops, label) if impl == "cuda" \
+            else nullcontext()
+        with ops.force_impl(impl), torch.inference_mode(), checked:
             logits, _ = api.prefill(model, {"tokens": prompt.to("cuda")})
-            toks = engine.generate(prompt, NEW)
-        runs[impl] = (logits.float(), toks[:, PROMPT:])
+            toks = engine.generate(prompt, new)
+        runs[impl] = (logits.float(), toks[:, s:])
+        launched[impl] = {k.__name__: k.launches for k in ops.KERNELS
+                          if k.launches}
+        if impl == "cuda":
+            chk = checked
+    if set(launched["cuda"]) != {"quant_gemv", "quant_matmul",
+                                 "flash_attention"} or launched["torch"]:
+        fail(f"{label}: kernels launched {launched['cuda']} through "
+             f"the kernels and {launched['torch']} through the plain versions")
+    if any(chk.calls[k] != launched["cuda"][k] for k in chk.calls):
+        fail(f"{label}: {chk.calls} calls checked against plain, "
+             f"{launched['cuda']} launched")
     lk, tk = runs["cuda"]
     lp, tp = runs["torch"]
     if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
-        fail("non-finite logits in the 2-layer check")
+        fail(f"non-finite logits in the 2-layer check of {cfg.name}")
     diff = (lk - lp).abs().max().item()
     scale = lp.abs().max().item()
     tol = 2.0 ** -5 * scale
     if diff > tol:
-        fail(f"2-layer prefill logits: kernels vs plain differ by {diff:.3e}"
-             f" > {tol:.3e}")
-    agree = (tk == tp).float().mean().item()
-    prefix = [int((tk[b] != tp[b]).nonzero()[0]) if (tk[b] != tp[b]).any()
-              else NEW for b in range(BATCH)]
-    res = {"phase": "check", "layers": 2, "logits_max_abs_diff": diff,
-           "logits_max_abs": scale, "tolerance": tol,
-           "greedy_tokens_equal_share": agree,
-           "greedy_equal_prefix_per_row": prefix,
+        fail(f"2-layer {cfg.name} prefill logits: kernels vs plain differ by "
+             f"{diff:.3e} > {tol:.3e}")
+    prefix = [int((tk[i] != tp[i]).nonzero()[0]) if (tk[i] != tp[i]).any()
+              else new for i in range(b)]
+    return {"model": cfg.name, "layers": cfg.n_layers, "prompt": s,
+            "new_tokens": new, "logits_max_abs_diff": diff,
+            "logits_max_abs": scale, "tolerance": tol,
+            "greedy_tokens_equal_share": (tk == tp).float().mean().item(),
+            "greedy_equal_prefix_per_row": prefix,
+            "launches": launched["cuda"], "calls_checked": chk.calls,
+            "qmm_max_abs_err": chk.worst}
+
+
+def dense_cfg(name: str, **kw):
+    """``name`` as the smoke runs it: PEQA 4-bit per-channel RTN (n_grid
+    20), bf16, with ``kw`` replaced."""
+    from repro_torch import configs
+    from repro_torch.configs.base import QuantConfig, TuningConfig
+    return configs.get_config(name).replace(
+        tuning=TuningConfig(mode="peqa"),
+        quant=QuantConfig(bits=4, group_size=None, n_grid=20), **kw)
+
+
+# phase check's other 2-layer models at full width: (label, config name,
+# replaced fields, new tokens)
+CHECK_ARCHS = (("starcoder2-7b", "starcoder2-7b", {}, NEW),
+               ("starcoder2-7b/swa64", "starcoder2-7b",
+                {"swa_window": 64}, SWA_NEW),
+               ("qwen2-7b/int8", "qwen2-7b", {"kv_cache_dtype": "int8"}, NEW),
+               ("granite-34b", "granite-34b", {}, NEW))
+
+
+def phase_check(torch, cfg) -> dict:
+    """2 layers at full width: kernels vs plain versions on the card —
+    llama3.2-1b (with its slotted and chunked paths), then each model of
+    ``CHECK_ARCHS``."""
+    from repro_torch.core import policies
+    from repro_torch.models import registry
+
+    cfg2 = cfg.replace(n_layers=2)
+    api = registry.build(cfg2)
+    model, _ = policies.prepare(api.init(SEED), cfg2)
+    gen = torch.Generator().manual_seed(SEED + 2)
+    prompt = torch.randint(0, cfg2.vocab_size, (BATCH, PROMPT), generator=gen)
+    res = {"phase": "check", **check_path(torch, api, model, cfg2, prompt,
+                                          NEW),
            "slotted": check_slotted(torch, api, model, cfg2),
            "chunked": check_chunked(torch, cfg2)}
+    del model
+    res["archs"] = {}
+    for label, name, kw, new in CHECK_ARCHS:
+        c = dense_cfg(name, n_layers=2, **kw)
+        a = registry.build(c)
+        m, _ = policies.prepare(a.init(SEED), c)
+        p = torch.randint(0, c.vocab_size, (BATCH, PROMPT), generator=gen)
+        res["archs"][label] = check_path(torch, a, m, c, p, new)
+        del m
+        torch.cuda.empty_cache()
     emit(res)
     return res
 
@@ -2562,10 +2750,42 @@ def phase_train(torch, main_path) -> dict:
     return res
 
 
+class MeasuredUpdate:
+    """``opt`` with the memory of its update measured from ``base``: the
+    bytes allocated as it starts (model, optimizer state and gradients), the
+    gradients' bytes, the forward and backward's peak before it and its own
+    peak.  Pass it to ``build_train_step`` in the optimizer's place."""
+
+    def __init__(self, torch, opt, base):
+        self.torch, self.opt, self.base = torch, opt, base
+        self.steps = []
+
+    def __getattr__(self, name):
+        return getattr(self.opt, name)
+
+    def update(self, grads, *args):
+        cuda = self.torch.cuda
+        cuda.synchronize()
+        rec = {"fwd_bwd_peak": cuda.max_memory_allocated() - self.base,
+               "at_update": cuda.memory_allocated() - self.base,
+               "grad_bytes": sum(g.numel() * g.element_size()
+                                 for g in grads.values() if g is not None)}
+        cuda.reset_peak_memory_stats()
+        out = self.opt.update(grads, *args)
+        cuda.synchronize()
+        rec["update_peak"] = cuda.max_memory_allocated() - self.base
+        self.steps.append(rec)
+        return out
+
+
 def phase_train_full(torch, main_path, peqa) -> dict:
     """One full-mode step at the same size: every float tensor trained,
     float32 linear weights, AdamW moments for all of them — beside PEQA's
-    peak memory and optimizer state (the paper's Table 1)."""
+    peak memory and optimizer state (the paper's Table 1).  The token table
+    must be a float32 master and move at step 1 (its entries in the first
+    batch's rows, held on the host); the peak is given with its parts —
+    the model's and the optimizer's bytes, the gradients', and the peaks of
+    the forward and backward and of the update (``MeasuredUpdate``)."""
     from repro_torch.configs.base import TrainConfig, TuningConfig
     from repro_torch.core import policies
     from repro_torch.data import pipeline, synthetic
@@ -2582,21 +2802,39 @@ def phase_train_full(torch, main_path, peqa) -> dict:
     base = torch.cuda.memory_allocated()
     api = registry.build(cfg, device="cuda")
     model, mask = policies.prepare(api.init(SEED), cfg, device="cuda")
+    table = model.embed.emb
+    if table.dtype != torch.float32 or not mask["embed.emb"]:
+        fail(f"train_full: the trained token table is {table.dtype}, "
+             f"trained {mask['embed.emb']}; expected a float32 master")
+    torch.cuda.synchronize()
+    model_bytes = torch.cuda.memory_allocated() - base
     opt = make_optimizer(tcfg.optim, tcfg.steps)
     state = make_state(model, opt.init(dict(model.named_parameters()), mask))
-    ts = step.build_train_step(api, cfg, tcfg, mask, opt)
+    measured = MeasuredUpdate(torch, opt, base)
+    ts = step.build_train_step(api, cfg, tcfg, mask, measured)
     data = pipeline.PackedLM(synthetic.corpus(cfg.vocab_size, 20_000,
                                               seed=SEED),
                              tcfg.batch_size, tcfg.seq_len)
+    batch0 = data.batch_at(0)
+    ids = torch.unique(torch.as_tensor(batch0["tokens"]).flatten())
+    rows0 = table.detach()[ids.to("cuda")].cpu()
     for k in ops.KERNELS:
         k.launches = 0
-    walls = []
+    walls, peaks = [], [torch.cuda.max_memory_allocated() - base]
     for i in range(2):
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        state, metrics = ts(state, data.batch_at(i))
+        state, metrics = ts(state, batch0 if i == 0 else data.batch_at(i))
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        if i == 0:
+            moved = (table.detach()[ids.to("cuda")].cpu() != rows0
+                     ).float().mean().item()
+    if moved < 0.5:
+        fail(f"train_full: step 1 moved {moved:.3f} of the table's entries "
+             f"in the batch's {ids.numel()} rows")
     loss = float(metrics["loss"])
     if not math.isfinite(loss):
         fail(f"train_full: loss {loss}")
@@ -2605,10 +2843,16 @@ def phase_train_full(torch, main_path, peqa) -> dict:
     if sbytes != 8 * n_float:
         fail(f"train_full: optimizer state {sbytes} bytes for {n_float} "
              f"trained values")
+    peak = max(peaks + [m for r in measured.steps
+                        for m in (r["fwd_bwd_peak"], r["update_peak"])])
     res = {"phase": "train_full", "mode": "full", "trainable": n_float,
-           "loss": loss, "step_ms": walls,
-           "peak_mem_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
-           "state_bytes": sbytes,
+           "loss": loss, "step_ms": walls, "peak_mem_gb": peak / 1e9,
+           "model_bytes": model_bytes,
+           "table": {"dtype": str(table.dtype).removeprefix("torch."),
+                     "bytes": table.numel() * table.element_size(),
+                     "rows_checked": ids.numel(),
+                     "moved_share_step1": moved},
+           "memory_by_step": measured.steps, "state_bytes": sbytes,
            "launches": {k.__name__: k.launches for k in ops.KERNELS
                         if k.launches},
            "peqa": {"peak_mem_gb": peqa["dense"]["peak_mem_gb"],
@@ -2617,6 +2861,344 @@ def phase_train_full(torch, main_path, peqa) -> dict:
            "state_ratio": sbytes / peqa["dense"]["state_bytes"]}
     emit(res)
     del state, model, opt
+    torch.cuda.empty_cache()
+    return res
+
+
+class CheckedQuantMatmul:
+    """Holds every ``ops.quant_matmul`` call, as it happens, element by
+    element against ``quant_matmul_plain`` on the call's own inputs, on the
+    tensor-core route within ``error_bound(..., factored=True)`` — with
+    ``gemv=True`` for the GEMV's M ≤ 32 rows (K1), else K2 —, without
+    keeping a 7B model's activations alive (what ``gate_recorded_calls``
+    asks of a recorded call).  ``rows_m``, where given, is the M every call
+    must have.  Counts the calls checked by kernel (``calls``).  Wraps the
+    entry point the model calls; restored on exit."""
+
+    def __init__(self, ops, label, rows_m=None):
+        self.ops, self.label, self.rows_m = ops, label, rows_m
+        self.calls = {"quant_gemv": 0, "quant_matmul": 0}
+        self.worst = 0.0
+
+    def __enter__(self):
+        import torch
+        from repro_torch.kernels import quant_matmul as qm
+        self._qmm = self.ops.quant_matmul
+
+        def qmm(x, qw, scale, zero, spec, **kw):
+            y = self._qmm(x, qw, scale, zero, spec, **kw)
+            with torch.no_grad():
+                xr, s, z = rows(x), scale.float(), zero.float()
+                m = xr.shape[0]
+                gemv = m <= qm.GEMV_MAX_M
+                name = "quant_gemv" if gemv else "quant_matmul"
+                what = (f"{self.label}: {name} call {self.calls[name]} "
+                        f"(M={m})")
+                if kw.get("draft_bits") is not None or (
+                        self.rows_m is not None and m != self.rows_m) \
+                        or not qm.tc_route(xr, s):
+                    fail(f"{what}: expected {self.rows_m or 'its'} rows of "
+                         f"nibble codes on the tensor-core route")
+                plain = qm.quant_matmul_plain(xr, qw, s, z)
+                err = check_close(what, rows(y.detach()), plain,
+                                  qm.error_bound(xr, qw, s, z, plain,
+                                                 factored=True, gemv=gemv))
+            self.calls[name] += 1
+            self.worst = max(self.worst, err)
+            return y
+
+        self.ops.quant_matmul = qmm
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.quant_matmul = self._qmm
+
+
+def dense_build(torch, name: str):
+    """``dense_cfg(name)`` at full width and depth from the seed: its
+    random float32 weights, then PEQA.  Returns (cfg, api, model, mask,
+    seconds of each)."""
+    from repro_torch.core import policies
+    from repro_torch.models import registry
+    cfg = dense_cfg(name)
+    api = registry.build(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = api.init(SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model, mask = policies.prepare(model, cfg)
+    torch.cuda.synchronize()
+    return cfg, api, model, mask, {"init_s": init_s,
+                                   "quantize_s": time.perf_counter() - t0}
+
+
+def n_quantized(model) -> int:
+    """The model's quantized linears: 7 a layer with a SwiGLU MLP, 6 with
+    a GELU one."""
+    from repro_torch.models.linear import Linear
+    return sum(isinstance(m, Linear) and m.quantized
+               for m in model.modules())
+
+
+def dense_generate(torch, label, api, model, prompt) -> dict:
+    """``Engine.generate`` of ``prompt`` and NEW tokens with every launch
+    counter at 0: one K2 launch a quantized linear for the prefill, one K1
+    a linear and L K4 launches a decode step; then the prefill alone,
+    timed, its logits kept.  Returns {"res", "out", "logits"}."""
+    from repro_torch.kernels import ops
+    from repro_torch.train.serve import Engine
+    cfg = api.cfg
+    engine = Engine(api, model)
+    engine.generate(prompt, 2)                       # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in ops.KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    out = engine.generate(prompt, NEW)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in ops.KERNELS if k.launches}
+    peak = torch.cuda.max_memory_allocated()
+    n_lin, steps = n_quantized(model), NEW - 1
+    want = {"quant_matmul": n_lin, "quant_gemv": n_lin * steps,
+            "flash_attention": cfg.n_layers * steps}
+    if launches != want:
+        fail(f"{label} generate: launches {launches}, expected {want}")
+    if tuple(out.shape) != (BATCH, PROMPT + NEW) or not torch.equal(
+            out[:, :PROMPT].cpu(), prompt):
+        fail(f"{label} generate returned {tuple(out.shape)} or changed the "
+             f"prompt")
+    if int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
+        fail(f"{label}: generated token ids outside the vocabulary")
+    with torch.inference_mode():
+        pre = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = api.prefill(model, {"tokens": prompt.to("cuda")})
+            torch.cuda.synchronize()
+            pre.append(time.perf_counter() - t0)
+    if not torch.isfinite(logits).all():
+        fail(f"{label}: non-finite prefill logits")
+    prefill_s = sorted(pre)[1]
+    return {"res": {"generate_s": total_s, "prefill_ms": prefill_s * 1e3,
+                    "decode_ms_per_step": (total_s - prefill_s) * 1e3
+                    / steps,
+                    "tokens_per_s": BATCH * NEW / total_s,
+                    "peak_mem_gb": peak / 1e9, "launches": launches},
+            "out": out, "logits": logits}
+
+
+def full_mode_bytes(model) -> tuple:
+    """(values, bytes) full fine-tuning would hold: every weight of the fp
+    model (a quantized linear counted as its in × out weights) in float32
+    with its gradient and two AdamW moments, 16 B a value."""
+    from repro_torch.models.linear import Linear
+    n = sum(m.in_features * m.out_features for m in model.modules()
+            if isinstance(m, Linear) and m.quantized)
+    n += sum(p.numel() for name, p in model.named_parameters()
+             if not name.endswith((".scale", ".zero")))
+    return n, 16 * n
+
+
+def dense_train(torch, label, cfg0, model, mask, steps) -> dict:
+    """``steps`` PEQA train steps at TrainConfig's 8 × 256 tokens (K2 at M =
+    2048), remat "block", on a synthetic corpus at the model's vocabulary:
+    step 1's K2 calls (forward and recompute) each held to plain element by
+    element (``CheckedQuantMatmul``); exactly two K2 launches a quantized linear and
+    nothing else every step (the recompute of a block stops once its last
+    saved tensor is back — the down projection's input —, so that
+    projection's recomputed launch returns no output to check: L fewer
+    calls are checked than launched); finite losses; optimizer state = 8 B × the scales; only
+    the scales move (the codes, zeros, biases, norms, table and head equal
+    their copies on the host).  Figures: the timed steps' walls (step 1,
+    checked, is not timed), tokens/s, peak memory of the run."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import policies
+    from repro_torch.data import pipeline, synthetic
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.optim.adamw import make_optimizer
+    from repro_torch.train import step
+    from repro_torch.train.state import make_state
+    cfg = cfg0.replace(remat="block")
+    tcfg = TrainConfig(steps=steps)
+    data = pipeline.PackedLM(
+        synthetic.corpus(cfg.vocab_size, 4 * steps * tcfg.batch_size
+                         * tcfg.seq_len, seed=SEED),
+        tcfg.batch_size, tcfg.seq_len, seed=SEED)
+    m_rows = tcfg.batch_size * tcfg.seq_len
+    n_lin = n_quantized(model)
+    scales = {n: p for n, p in model.named_parameters() if mask[n]}
+    if not scales or any(not n.endswith(".scale") for n in scales):
+        fail(f"{label} train: the peqa mask trains {sorted(scales)[:4]}…")
+    n_scales = sum(p.numel() for p in scales.values())
+    frozen = {n: t.detach().to("cpu", copy=True) for n, t in
+              list(model.named_parameters()) + list(model.named_buffers())
+              if not mask.get(n)}
+    start = {n: p.detach().clone() for n, p in scales.items()}
+    model_bytes = sum(t.numel() * t.element_size() for t in
+                      list(model.parameters()) + list(model.buffers()))
+    opt = make_optimizer(tcfg.optim, tcfg.steps)
+    state = make_state(model, opt.init(dict(model.named_parameters()), mask))
+    ts = step.build_train_step(registry.build(cfg), cfg, tcfg, mask, opt)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated() - model_bytes
+    torch.cuda.reset_peak_memory_stats()
+    walls, losses, seen = [], [], []
+    for i in range(steps):
+        for k in ops.KERNELS:
+            k.launches = 0
+        batch = data.batch_at(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0:
+            with CheckedQuantMatmul(ops, f"train {label}", m_rows) as chk:
+                state, metrics = ts(state, batch)
+        else:
+            state, metrics = ts(state, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+        seen.append({k.__name__: k.launches for k in ops.KERNELS
+                     if k.launches})
+    peak = torch.cuda.max_memory_allocated() - base
+    want = {"quant_matmul": 2 * n_lin}
+    checked = chk.calls["quant_matmul"]
+    if checked != 2 * n_lin - cfg.n_layers or any(got != want
+                                                  for got in seen):
+        fail(f"{label} train: {checked} K2 calls checked in step 1, "
+             f"launches {seen}; expected {2 * n_lin - cfg.n_layers} and "
+             f"{want} a step")
+    if not all(map(math.isfinite, losses)):
+        fail(f"{label} train: losses {losses}")
+    sbytes = opt.state_bytes(state["opt"])
+    if sbytes != 8 * n_scales:
+        fail(f"{label} train: optimizer state {sbytes} bytes, expected 8 × "
+             f"{n_scales} scales")
+    if all(torch.equal(p, start[n]) for n, p in scales.items()):
+        fail(f"{label} train: no scale moved")
+    for n, t in list(model.named_parameters()) + list(model.named_buffers()):
+        if n in frozen and not torch.equal(t.detach().cpu(), frozen[n]):
+            fail(f"{label} train: frozen {n} changed")
+    timed_ms = walls[1:]
+    med = sorted(timed_ms)[len(timed_ms) // 2] if timed_ms else None
+    del state, opt, ts, start
+    return {"steps": steps, "rows": m_rows, "remat": cfg.remat,
+            "losses": losses, "step_ms": walls,
+            "median_step_ms": med,
+            "tokens_per_s": m_rows / med * 1e3 if med else None,
+            "k2_calls_checked": checked, "k2_max_abs_err": chk.worst,
+            "launches_a_step": seen[-1], "peak_mem_gb": peak / 1e9,
+            "state_bytes": sbytes, "scales": n_scales,
+            "trainable": policies.trainable_count(model, mask),
+            "frozen": policies.frozen_count(model, mask),
+            "frozen_checked": len(frozen)}
+
+
+def head_times(torch, model, cfg, gen) -> dict:
+    """The untied head's device ms (CUDA events) under the fp linear's
+    earlier rule — a float32 GEMM of x widened and of w cast to bf16 and
+    widened — and under ``ops.dot_f32`` (a bf16 GEMM with a float32
+    output): a decode step's (M = BATCH) forward, and a training step's
+    (M = 2048) forward and dx."""
+    from repro_torch.kernels import ops
+    bf = torch.bfloat16
+    w = model.lm_head.w.detach()
+
+    def before(x):
+        return torch.matmul(x.float(), w.to(bf).float().T).to(bf)
+
+    def after(x):
+        return ops.dot_f32(x, w.to(bf)).to(bf)
+    x_dec = torch.randn(BATCH, cfg.d_model, generator=gen,
+                        device="cuda").to(bf)
+    x_tr = torch.randn(2048, cfg.d_model, generator=gen, device="cuda").to(bf)
+    dy = (torch.randn(2048, cfg.vocab_size, generator=gen, device="cuda")
+          * 1e-3).to(bf)
+    out = {"shape": list(w.shape), "train_rows": 2048,
+           "decode_rows": BATCH}
+    for name, fn in (("before", before), ("after", after)):
+        with torch.no_grad():
+            dec = events_ms(torch, lambda: fn(x_dec), iters=20)
+
+        def train(fn=fn):
+            fn(x_tr.clone().requires_grad_(True)).backward(dy)
+        out[name] = {"decode_ms": dec, "train_ms": events_ms(torch, train,
+                                                             iters=5)}
+    del dy
+    return out
+
+
+def phase_dense_archs(torch) -> dict:
+    """qwen2-7b and starcoder2-7b at full width and depth (module
+    docstring, phase 13)."""
+    from repro_torch.models import registry
+    gen = torch.Generator().manual_seed(SEED + 11)
+    cgen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    res = {"phase": "dense_archs"}
+
+    # --- qwen2-7b: generate, serve, the int8 cache, training --------------
+    torch.cuda.reset_peak_memory_stats()
+    cfg, api, model, mask, built = dense_build(torch, "qwen2-7b")
+    q = {"model": cfg.name, "layers": cfg.n_layers, **built,
+         "build_peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "weights_gb": sum(t.numel() * t.element_size() for t in
+                           list(model.parameters())
+                           + list(model.buffers())) / 1e9}
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen)
+    g16 = dense_generate(torch, "qwen2-7b", api, model, prompt)
+    q["generate"] = g16["res"]
+    q["profile"] = phase_profile(torch, {"api": api, "model": model,
+                                         "prompt": prompt},
+                                 phase="dense_archs_profile")
+    phase_serve(torch, {"api": api, "model": model, "cfg": cfg},
+                phase="dense_archs_serve", probes=False)
+    cfg8 = cfg.replace(kv_cache_dtype="int8")
+    api8 = registry.build(cfg8)
+    g8 = dense_generate(torch, "qwen2-7b int8 cache", api8, model, prompt)
+    nbytes = lambda c: sum(t.numel() * t.element_size() for t in c.values())
+    c16, c8 = (a.init_cache(BATCH, PROMPT + NEW) for a in (api, api8))
+    scale_bytes = nbytes({k: c8[k] for k in ("k_scale", "v_scale")})
+    if nbytes(c8) != nbytes(c16) // 2 + scale_bytes:
+        fail(f"int8 cache: {nbytes(c8)} bytes against bf16's {nbytes(c16)}")
+    if not torch.equal(g8["logits"], g16["logits"]):
+        fail("int8 cache: prefill logits differ from the bf16 cache run's "
+             "(the prefill does not read the cache)")
+    q["int8_cache"] = {
+        **g8["res"], "cache_bytes": nbytes(c8), "bf16_cache_bytes":
+        nbytes(c16), "scale_bytes": scale_bytes, "prefill_logits_equal": True,
+        "tokens_equal_share_vs_bf16": (g8["out"] == g16["out"])[
+            :, PROMPT:].float().mean().item()}
+    del c16, c8, g8, g16, api8
+    q["train"] = dense_train(torch, "qwen2-7b", cfg, model, mask,
+                             DENSE_TRAIN_STEPS)
+    q["full_mode_values"], q["full_mode_bytes_reckoned"] = \
+        full_mode_bytes(model)
+    q["head_ms"] = head_times(torch, model, cfg, cgen)
+    res["qwen2-7b"] = q
+    emit({"phase": "dense_archs_qwen2", **q})
+    del model, mask, api
+    torch.cuda.empty_cache()
+
+    # --- starcoder2-7b: generate and a train step -------------------------
+    torch.cuda.reset_peak_memory_stats()
+    cfg, api, model, mask, built = dense_build(torch, "starcoder2-7b")
+    st = {"model": cfg.name, "layers": cfg.n_layers, **built,
+          "build_peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen)
+    st["generate"] = dense_generate(torch, "starcoder2-7b", api, model,
+                                    prompt)["res"]
+    st["train"] = dense_train(torch, "starcoder2-7b", cfg, model, mask, 2)
+    st["full_mode_values"], st["full_mode_bytes_reckoned"] = \
+        full_mode_bytes(model)
+    res["starcoder2-7b"] = st
+    emit({"phase": "dense_archs_starcoder2", **st})
+    del model, mask, api
     torch.cuda.empty_cache()
     return res
 
@@ -2636,25 +3218,45 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     t_start = time.perf_counter()
-    dev = phase_device(torch)
-    worst_err, attn_prefill = phase_kernels(torch)
-    main_path = phase_main(torch)
-    phase_profile(torch, main_path)
-    plane = plane_backbone(torch, main_path)
+    seconds = {}
+
+    def run(name, fn, *args, **kw):
+        """Run one phase and print its seconds on a line of its own."""
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds[name] = time.perf_counter() - t0
+        emit({"phase": "seconds", "of": name, "s": seconds[name]})
+        return out
+
+    dev = run("device", phase_device, torch)
+    worst_err, attn_prefill, attn_7b = run("kernels", phase_kernels, torch)
+    main_path = run("main", phase_main, torch)
+    run("profile", phase_profile, torch, main_path)
+    plane = run("plane_backbone", plane_backbone, torch, main_path)
     emit({"phase": "plane_backbone", "repack_s": plane["repack_s"]})
     with torch.inference_mode():
-        step = phase_step(torch, main_path["model"], plane["model"])
-    serve = phase_serve(torch, main_path)
-    spec = phase_speculative(torch, plane, serve)
+        step = run("step", phase_step, torch, main_path["model"],
+                   plane["model"])
+    serve = run("serve", phase_serve, torch, main_path)
+    spec = run("speculative", phase_speculative, torch, plane, serve)
     del plane
-    conv = phase_convert(torch, main_path)
-    chunked = phase_chunked(torch, conv, serve, main_path["prompt"])
+    conv = run("convert", phase_convert, torch, main_path)
+    chunked = run("chunked", phase_chunked, torch, conv, serve,
+                  main_path["prompt"])
     steps = {layout: conv[layout]["step"] for layout in conv}
     del conv
-    phase_invariance(torch, main_path["cfg"])
-    phase_check(torch, main_path["cfg"])
-    train = phase_train(torch, main_path)
-    phase_train_full(torch, main_path, train)
+    run("invariance", phase_invariance, torch, main_path["cfg"])
+    run("invariance_starcoder2", phase_invariance, torch,
+        dense_cfg("starcoder2-7b"), layouts=("nibble",))
+    run("check", phase_check, torch, main_path["cfg"])
+    train = run("train", phase_train, torch, main_path)
+    run("train_full", phase_train_full, torch, main_path, train)
+    # llama3.2-1b's models go before the 7B ones are made
+    llama_cfg = main_path["cfg"]
+    main_launches = dict(main_path["res"]["launches"])
+    del main_path, train
+    torch.cuda.empty_cache()
+    dense = run("dense_archs", phase_dense_archs, torch)
     if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
                                    for m in sys.modules):
         fail("the port loaded JAX or the JAX package")
@@ -2680,7 +3282,7 @@ def main() -> None:
     # lockstep main path, K5 on the resident serve path, K6a's on the
     # speculative runs (K5- and K2-plane over resident, K1-plane untasked),
     # K3 and K6b on the conversions, K4 on the chunked lockstep path
-    launches = dict(main_path["res"]["launches"])
+    launches = main_launches
     launches["quant_gemv_tasks"] = \
         serve["res"]["resident"]["launches"]["quant_gemv_tasks"]
     for name in ("quant_gemv_tasks_planes", "quant_matmul_planes"):
@@ -2695,7 +3297,7 @@ def main() -> None:
     # 16 each); ms, bound and library per prefill (16 × phase kernels'
     # prefill case)
     launches["flash_attention"] = chunked["k4_launches_lockstep"]
-    per = main_path["cfg"].n_layers
+    per = llama_cfg.n_layers
     times["flash_attention"] = {
         "ms": attn_prefill["us"] * per / 1e3,
         "plain_ms": attn_prefill["plain_us"] * per / 1e3,
@@ -2716,7 +3318,13 @@ def main() -> None:
             "ms": st["ms"], "plain_ms": st["plain_ms"],
             "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
             "library_ms": st["library_ms"]})
-    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start,
+          "phase_seconds": seconds,
+          "k4_7b_prefill_us": {m: r["us"] for m, r in attn_7b.items()},
+          "dense_archs": {m: {"generate": r["generate"], "train": {
+              k: r["train"][k] for k in ("median_step_ms", "peak_mem_gb",
+                                         "state_bytes")}}
+              for m, r in dense.items() if m != "phase"}})
     print(dev["gpu"], flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -12,9 +12,11 @@ layers, (L, N, G) — so a reference bank's ``tasks[name]`` dicts and npz
 files go into the port's ``ScaleBank`` unchanged, and back.
 
 Packed codes are ``uint32`` in the reference and the same bits as ``int32``
-here.  The token table is stored in the activation dtype here (see
-``models.common.Embed``), so a bf16 model's round trip rounds ``emb``; every
-other leaf round-trips exactly.
+here.  A frozen token table (``peqa``, ``peqa_z``) is stored in the
+activation dtype here (``models.common.table_dtype``), so a bf16 model's
+round trip rounds ``emb``; a trained one (``full``) is float32, as the
+reference's, and every other leaf — biases, LayerNorm gains and biases,
+an untied ``lm_head`` — round-trips exactly.
 
 The train state crosses too (``state_to_tree`` / ``load_state``): the
 reference's state is ``{"params": tree, "opt": {"mv": …, "count"}, "step"}``

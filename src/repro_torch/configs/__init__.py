@@ -1,5 +1,6 @@
 """Config registry (copy of ``repro/configs/__init__.py``'s ``get_config``,
-``make_tiny`` and ``paper_lm``, for the dense family the port serves)."""
+``make_tiny`` and ``paper_lm``, for the dense family the port serves:
+llama3.2-1b, qwen2-7b, granite-34b and starcoder2-7b)."""
 from __future__ import annotations
 
 import importlib
@@ -13,6 +14,9 @@ __all__ = ["ARCHS", "ModelConfig", "OptimConfig", "QuantConfig",
 
 _MODULES = {
     "llama3.2-1b": "llama3_2_1b",
+    "qwen2-7b": "qwen2_7b",
+    "granite-34b": "granite_34b",
+    "starcoder2-7b": "starcoder2_7b",
 }
 
 ARCHS = tuple(_MODULES)

@@ -48,17 +48,17 @@ class ModelConfig:
     vocab_size: int
     head_dim: Optional[int] = None     # default d_model // n_heads
     rope_theta: float = 10000.0
-    qkv_bias: bool = False             # not ported yet: refused by build
-    act: str = "silu"                  # silu (gelu not ported yet)
-    norm_type: str = "rmsnorm"         # rmsnorm (layernorm not ported yet)
+    qkv_bias: bool = False             # qwen2, starcoder2
+    act: str = "silu"                  # silu | gelu
+    norm_type: str = "rmsnorm"         # rmsnorm | layernorm
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
-    swa_window: Optional[int] = None   # not ported yet: refused by build
+    swa_window: Optional[int] = None   # sliding window: a ring KV cache
     moe: Optional[object] = None       # not ported yet: refused by build
     use_rope: bool = True              # learned positions not ported yet
     bf16_reduce: bool = False          # not ported yet: refused by build
     attn_impl: str = "dense"           # dense | chunked (the K4 kernel)
-    kv_cache_dtype: str = "model"      # model (int8 not ported yet)
+    kv_cache_dtype: str = "model"      # model | int8
     dtype: str = "bfloat16"
     remat: str = "block"               # none | block | full (dots not ported yet)
     quant: QuantConfig = QuantConfig()

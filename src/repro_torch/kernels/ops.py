@@ -61,7 +61,7 @@ from repro_torch.kernels import rtn_pack as _rp
 from repro_torch.kernels.quant_matmul import GEMV_MAX_M
 
 __all__ = ["ATTN_IMPLS", "GEMV_MAX_M", "KERNELS", "KNOWN_IMPLS", "attention",
-           "chunked_attention_bwd", "default_impl", "force_impl",
+           "chunked_attention_bwd", "default_impl", "dot_f32", "force_impl",
            "qmm_grad_bound", "quant_matmul", "quant_matmul_bwd",
            "quant_matmul_slotted", "rtn_pack"]
 
@@ -182,35 +182,39 @@ def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.mm(a.to(torch.float32), b.to(torch.float32))
 
 
-def tied_head(x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
-    """Logits x·embᵀ in float32 for x (..., D) and the table emb (V, D) of
-    x's dtype: the products of the operands as they are, summed in float32
-    (``_mm_f32``; on the card a bf16 GEMM with a float32 output, which reads
-    the table once).  Differentiable in both (``_TiedHead``)."""
-    y = _TiedHead.apply(x.reshape(-1, x.shape[-1]), emb)
-    return y.reshape(*x.shape[:-1], emb.shape[0])
+def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x·wᵀ in float32 for x (..., K) and w (N, K) of x's dtype — the
+    reference's einsum with bf16 (or f32) operands and
+    ``preferred_element_type=float32``: the products of the operands as
+    they are, summed in float32 (``_mm_f32``; on the card a bf16 GEMM
+    with a float32 output, which reads w once).  The tied head (w the
+    token table) and every fp linear (``models.linear.apply``) take it.
+    Differentiable in both (``_DotF32``)."""
+    y = _DotF32.apply(x.reshape(-1, x.shape[-1]), w)
+    return y.reshape(*x.shape[:-1], w.shape[0])
 
 
-class _TiedHead(torch.autograd.Function):
-    """The tied head's backward in float32, as the reference differentiates
-    its float32-output dot: dx = dlogits·emb rounded to x's dtype, and
-    demb = dlogitsᵀ·x rounded to emb's."""
+class _DotF32(torch.autograd.Function):
+    """``dot_f32``'s backward in float32, as the reference differentiates
+    its float32-output dot: dx = dy·w rounded to x's dtype, and dw =
+    dyᵀ·x rounded to w's (the reference's cotangent of its cast operand;
+    the cast back to a float32 master weight is autograd's)."""
 
     @staticmethod
-    def forward(ctx, x2d, emb):
-        ctx.save_for_backward(x2d, emb)
-        return _mm_f32(x2d, emb.T)
+    def forward(ctx, x2d, w):
+        ctx.save_for_backward(x2d, w)
+        return _mm_f32(x2d, w.T)
 
     @staticmethod
     def backward(ctx, dy):
-        x2d, emb = ctx.saved_tensors
+        x2d, w = ctx.saved_tensors
         dy = dy.to(torch.float32)
-        dx = demb = None
+        dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = torch.mm(dy, emb.to(torch.float32)).to(x2d.dtype)
+            dx = torch.mm(dy, w.to(torch.float32)).to(x2d.dtype)
         if ctx.needs_input_grad[1]:
-            demb = torch.mm(dy.T, x2d.to(torch.float32)).to(emb.dtype)
-        return dx, demb
+            dw = torch.mm(dy.T, x2d.to(torch.float32)).to(w.dtype)
+        return dx, dw
 
 
 def _codes_f32(qw, k: int, spec: QuantSpec, g: int) -> torch.Tensor:

@@ -1,15 +1,23 @@
 """GQA attention with RoPE and a KV cache (port of ``repro/models/attention.py``:
-``init``, ``init_cache``, ``_qkv``, ``_rope_decode``, ``_cache_write``,
-``apply_train``, ``apply_prefill`` and ``apply_decode``, for full causal
-attention through
-``ops.attention`` under ``cfg.attn_impl``: dense, or chunked — K4; on the
-card a decode or verify takes K4 under either).
+``init``, ``cache_capacity``, ``init_cache``, ``_qkv``, ``_rope_decode``,
+``_cache_write``, ``apply_train``, ``apply_prefill``, ``apply_decode``, the
+int8 cache's ``quantize_kv``, ``dequantize_kv``, ``apply_decode_q8`` and
+``prefill_cache_entry``, for causal attention, windowed under
+``cfg.swa_window``, through ``ops.attention`` under ``cfg.attn_impl``:
+dense, or chunked — K4; on the card a decode or verify takes K4 under
+either).
 
 Cache layout (all layers stacked): {"k": (L, B, C, Hkv, D), "v": same} in the
-activation dtype, C = cache capacity; the batch dim is ``CACHE_BATCH_DIM``
-and the position dim ``CACHE_SEQ_DIM``.  A decode step at scalar ``pos``
-writes slot ``pos`` of every row; at a (B,) position vector (the slot pool)
-each row writes its own slot.
+activation dtype, C = cache capacity; under ``kv_cache_dtype="int8"`` k and v
+are int8 codes with a float16 scale per (token, head), {"k_scale",
+"v_scale": (L, B, C, Hkv)}.  Every leaf's batch dim is ``CACHE_BATCH_DIM``
+and its position dim ``CACHE_SEQ_DIM``.  Without a window C is the sequence
+length and a decode step at position ``pos`` writes slot ``pos``; under a
+window C is ``min(window, seq_len)`` and the cache is a ring: position
+``pos`` writes slot ``pos mod C``, so the slots hold exactly the last C
+tokens, and the causal mask "slot ≤ pos" is right in both regimes (once the
+ring has wrapped every slot is visible).  At a (B,) position vector (the
+slot pool) each row writes its own slot.
 """
 from __future__ import annotations
 
@@ -22,7 +30,7 @@ from repro_torch.models import linear
 from repro_torch.models.common import (apply_rope, apply_rope_slots,
                                        model_dtype, rope_table)
 
-# dims of every cache leaf (L, B, C, Hkv, D): the slot pool admits along
+# dims of every cache leaf (L, B, C, Hkv[, D]): the slot pool admits along
 # the batch dim and pages along the position dim
 CACHE_BATCH_DIM, CACHE_SEQ_DIM = 1, 2
 
@@ -31,15 +39,34 @@ class Attention(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         d, dh = cfg.d_model, cfg.d_head
-        self.wq = linear.Linear(d, cfg.n_heads * dh, device=device)
-        self.wk = linear.Linear(d, cfg.n_kv_heads * dh, device=device)
-        self.wv = linear.Linear(d, cfg.n_kv_heads * dh, device=device)
+        kw = dict(bias=cfg.qkv_bias, device=device)
+        self.wq = linear.Linear(d, cfg.n_heads * dh, **kw)
+        self.wk = linear.Linear(d, cfg.n_kv_heads * dh, **kw)
+        self.wv = linear.Linear(d, cfg.n_kv_heads * dh, **kw)
         self.wo = linear.Linear(cfg.n_heads * dh, d, device=device)
 
 
+def cache_capacity(cfg: ModelConfig, seq_len: int) -> int:
+    """Cache rows for ``seq_len`` positions: the window's ring when there
+    is one."""
+    if cfg.swa_window is not None:
+        return min(cfg.swa_window, seq_len)
+    return seq_len
+
+
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device) -> dict:
-    """Stacked-over-layers self-attention cache, zero-filled."""
-    shape = (cfg.n_layers, batch, seq_len, cfg.n_kv_heads, cfg.d_head)
+    """Stacked-over-layers self-attention cache, zero-filled, of capacity
+    ``cache_capacity(cfg, seq_len)``."""
+    c = cache_capacity(cfg, seq_len)
+    shape = (cfg.n_layers, batch, c, cfg.n_kv_heads, cfg.d_head)
+    if cfg.kv_cache_dtype == "int8":
+        sshape = shape[:-1]
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(sshape, dtype=torch.float16,
+                                       device=device),
+                "v_scale": torch.zeros(sshape, dtype=torch.float16,
+                                       device=device)}
     dtype = model_dtype(cfg)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -68,9 +95,9 @@ def _rope_decode(cfg: ModelConfig, pos, s: int, device):
 
 
 def _cache_write(buf: torch.Tensor, val: torch.Tensor, pos) -> None:
-    """Write the step's K/V rows into ``buf`` (B, C, Hkv, D) IN PLACE (the
-    reference returns an updated copy; writing in place keeps one cache in
-    memory).
+    """Write the step's rows — K/V, or the int8 cache's scales — into
+    ``buf`` (B, C, …) IN PLACE (the reference returns an updated copy;
+    writing in place keeps one cache in memory).
 
     pos scalar: rows pos..pos+S-1 of every batch row (lockstep decode).
     pos (B,): batch row b writes its OWN rows pos[b]..pos[b]+S-1 (the slot
@@ -119,6 +146,20 @@ def _decode_attention(q, cache_k, cache_v, pos, impl: str):
                          impl="chunked")
 
 
+def _ring_slot(cfg: ModelConfig, pos, cap: int):
+    """The cache slot of position ``pos`` (an int or a (B,) tensor): itself,
+    or ``pos mod cap`` in a window's ring."""
+    return pos % cap if cfg.swa_window is not None else pos
+
+
+def _rotated_qkv(p, x, cfg, pos, rope, slots, draft_bits):
+    """q, k, v of a decode step, q and k rotated at its positions."""
+    q, k, v = _qkv(p, x, cfg, slots=slots, draft_bits=draft_bits)
+    per_slot = torch.is_tensor(pos) and pos.dim() == 1
+    rot = apply_rope_slots if per_slot else apply_rope
+    return rot(q, rope), rot(k, rope), v
+
+
 def apply_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig,
                  cache_k: torch.Tensor, cache_v: torch.Tensor, pos, rope,
                  slots=None, draft_bits=None):
@@ -131,20 +172,63 @@ def apply_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     draft_bits: the speculative draft's plane read width.
 
     The new K/V rows go into ``cache_k``/``cache_v`` in place
-    (``_cache_write``).  Returns (out (B, S, d_model), cache_k, cache_v).
+    (``_cache_write``), at slot ``pos mod C`` in a window's ring.  Returns
+    (out (B, S, d_model), cache_k, cache_v).
     """
     b, s, _ = x.shape
-    q, k, v = _qkv(p, x, cfg, slots=slots, draft_bits=draft_bits)
-    per_slot = torch.is_tensor(pos) and pos.dim() == 1
-    rot = apply_rope_slots if per_slot else apply_rope
-    q, k = rot(q, rope), rot(k, rope)
-    _cache_write(cache_k, k, pos)
-    _cache_write(cache_v, v, pos)
+    q, k, v = _rotated_qkv(p, x, cfg, pos, rope, slots, draft_bits)
+    slot = _ring_slot(cfg, pos, cache_k.shape[1])
+    _cache_write(cache_k, k, slot)
+    _cache_write(cache_v, v, slot)
     o = _decode_attention(q, cache_k, cache_v, pos, cfg.attn_impl)
-    o = o.reshape(b, s, cfg.n_heads * cfg.d_head)
-    out = linear.apply(p.wo, o, slots=linear.slot_entry(slots, "wo"),
+    out = linear.apply(p.wo, o.reshape(b, s, cfg.n_heads * cfg.d_head),
+                       slots=linear.slot_entry(slots, "wo"),
                        draft_bits=draft_bits)
     return out, cache_k, cache_v
+
+
+def quantize_kv(t: torch.Tensor):
+    """(…, H, D) → (int8 codes, float16 per-(…, H) scale): symmetric,
+    amax/127 floored at 1e-8, rounded half to even, clipped to ±127
+    (reference ``quantize_kv``; the codes come from the float32 scale,
+    the stored scale is its float16 rounding).  Divides by tensors, as
+    the reference does: PyTorch's CUDA division by a Python scalar
+    multiplies by its reciprocal instead."""
+    tf = t.to(torch.float32)
+    amax = tf.abs().amax(dim=-1)
+    scale = torch.clamp_min(amax / amax.new_full((), 127.0), 1e-8)
+    q = torch.clamp(torch.round(tf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale.to(torch.float16)
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype):
+    return (q.to(torch.float32) * scale.to(torch.float32)[..., None]
+            ).to(dtype)
+
+
+def apply_decode_q8(p: Attention, x: torch.Tensor, cfg: ModelConfig,
+                    cache: dict, pos, rope, slots=None, draft_bits=None):
+    """``apply_decode`` against an int8 cache (``kv_cache_dtype="int8"``):
+    cache {k, v: int8 (B, C, Hkv, D); k_scale, v_scale: float16 (B, C,
+    Hkv)}, one layer's views, written in place with the step's quantized
+    K/V.  The whole cache is dequantized to x's dtype in plain torch and
+    attended as ``apply_decode`` attends (K4 on the card), as the
+    reference dequantizes and calls ``ops.attention``.  Returns (out,
+    cache)."""
+    b, s, _ = x.shape
+    q, k, v = _rotated_qkv(p, x, cfg, pos, rope, slots, draft_bits)
+    slot = _ring_slot(cfg, pos, cache["k"].shape[1])
+    for name, t in (("k", k), ("v", v)):
+        codes, scale = quantize_kv(t)
+        _cache_write(cache[name], codes, slot)
+        _cache_write(cache[f"{name}_scale"], scale, slot)
+    kf = dequantize_kv(cache["k"], cache["k_scale"], x.dtype)
+    vf = dequantize_kv(cache["v"], cache["v_scale"], x.dtype)
+    o = _decode_attention(q, kf, vf, pos, cfg.attn_impl)
+    out = linear.apply(p.wo, o.reshape(b, s, cfg.n_heads * cfg.d_head),
+                       slots=linear.slot_entry(slots, "wo"),
+                       draft_bits=draft_bits)
+    return out, cache
 
 
 def apply_train(p: Attention, x: torch.Tensor, cfg: ModelConfig, rope
@@ -152,30 +236,47 @@ def apply_train(p: Attention, x: torch.Tensor, cfg: ModelConfig, rope
     """Full-sequence causal attention for training (reference
     ``attention.apply_train``): x (B, S, d); rope: ``rope_table`` at
     positions 0..S-1.  ``ops.attention`` under ``cfg.attn_impl`` (K4 with
-    its logsumexp under "chunked" on the card), never the decode route; no
-    cache is written.  Returns (B, S, d_model) in x's dtype."""
+    its logsumexp under "chunked" on the card) and ``cfg.swa_window``,
+    never the decode route; no cache is written.  Returns (B, S, d_model)
+    in x's dtype."""
     b, s, _ = x.shape
     q, k, v = _qkv(p, x, cfg)
     q, k = apply_rope(q, rope), apply_rope(k, rope)
-    o = ops.attention(q, k, v, causal=True, impl=cfg.attn_impl)
+    o = ops.attention(q, k, v, causal=True, window=cfg.swa_window,
+                      impl=cfg.attn_impl)
     return linear.apply(p.wo, o.reshape(b, s, cfg.n_heads * cfg.d_head))
 
 
 def apply_prefill(p: Attention, x: torch.Tensor, cfg: ModelConfig, rope,
-                  slots=None):
-    """Full-sequence causal attention that also emits the decode cache;
-    rope: ``rope_table`` at positions 0..S-1.
+                  cap: int, slots=None):
+    """Full-sequence causal attention (windowed under ``cfg.swa_window``)
+    that also emits the decode cache; rope: ``rope_table`` at positions
+    0..S-1; cap: the cache's capacity, ``cache_capacity(cfg, S)``.
 
     slots: optional (task_ids, stacked-scale subtree) — a resident-stack
     prefill reads per-row scales in every quantized linear (task_ids
     already repeated per token, B·S rows).
 
-    Returns (out (B,S,d_model), ck (B,S,Hkv,D), cv) in the activation dtype.
+    Returns (out (B,S,d_model), ck (B,cap,Hkv,D), cv) in the activation
+    dtype, the cache in ring layout: the last ``cap`` keys, token t in slot
+    t mod cap (no roll when cap = S).
     """
     b, s, _ = x.shape
     q, k, v = _qkv(p, x, cfg, slots=slots)
     q, k = apply_rope(q, rope), apply_rope(k, rope)
-    o = ops.attention(q, k, v, causal=True, impl=cfg.attn_impl)
+    o = ops.attention(q, k, v, causal=True, window=cfg.swa_window,
+                      impl=cfg.attn_impl)
     o = o.reshape(b, s, cfg.n_heads * cfg.d_head)
     out = linear.apply(p.wo, o, slots=linear.slot_entry(slots, "wo"))
-    return out, k.to(x.dtype), v.to(x.dtype)
+    ring = lambda t: torch.roll(t[:, s - cap:], s % cap, dims=1).to(x.dtype)
+    return out, ring(k), ring(v)
+
+
+def prefill_cache_entry(ck: torch.Tensor, cv: torch.Tensor,
+                        cfg: ModelConfig) -> dict:
+    """One layer's prefill K/V in the configured cache layout."""
+    if cfg.kv_cache_dtype == "int8":
+        k8, ks = quantize_kv(ck)
+        v8, vs = quantize_kv(cv)
+        return {"k": k8, "v": v8, "k_scale": ks, "v_scale": vs}
+    return {"k": ck, "v": cv}

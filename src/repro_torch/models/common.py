@@ -12,8 +12,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import linear
 
-# rows the RMSNorm of a decode step or verify reduces on the card (a verify
-# of 8 slots × 4 tokens is the most), whatever rows the call has
+# rows a norm of a decode step or verify reduces on the card (a verify of
+# 8 slots × 4 tokens is the most), whatever rows the call has
 NORM_DECODE_ROWS = 32
 
 
@@ -30,32 +30,42 @@ def model_dtype(cfg: ModelConfig) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 class Norm(nn.Module):
-    """RMSNorm gain (layernorm comes with the families that use it)."""
+    """The gain ``g``, and for ``norm_type="layernorm"`` the bias ``b``
+    (reference ``norm_init``)."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         self.g = nn.Parameter(torch.ones(cfg.d_model, device=device))
+        self.b = nn.Parameter(torch.zeros(cfg.d_model, device=device)) \
+            if cfg.norm_type == "layernorm" else None
 
 
-def _mean_sq(xf: torch.Tensor) -> torch.Tensor:
-    """Mean of squares over the last dim, keepdim.  On the card a call of
-    at most ``NORM_DECODE_ROWS`` rows (every decode step and verify)
-    reduces a (``NORM_DECODE_ROWS``, d) tensor padded with zero rows:
-    PyTorch picks a reduction's launch layout, and with it the order of a
-    row's sum, from the number of rows, so without the padding a row's
-    mean would depend on how many rows share the call."""
-    sq = xf ** 2
-    d = sq.shape[-1]
-    rows = sq.numel() // d
-    if not sq.is_cuda or rows > NORM_DECODE_ROWS:
-        return sq.mean(-1, keepdim=True)
-    flat = F.pad(sq.reshape(rows, d), (0, 0, 0, NORM_DECODE_ROWS - rows))
-    return flat.mean(-1, keepdim=True)[:rows].reshape(*sq.shape[:-1], 1)
+def _row_mean(t: torch.Tensor) -> torch.Tensor:
+    """Mean over the last dim, keepdim.  On the card a call of at most
+    ``NORM_DECODE_ROWS`` rows (every decode step and verify) reduces a
+    (``NORM_DECODE_ROWS``, d) tensor padded with zero rows: PyTorch picks
+    a reduction's launch layout, and with it the order of a row's sum,
+    from the number of rows, so without the padding a row's mean would
+    depend on how many rows share the call."""
+    d = t.shape[-1]
+    rows = t.numel() // d
+    if not t.is_cuda or rows > NORM_DECODE_ROWS:
+        return t.mean(-1, keepdim=True)
+    flat = F.pad(t.reshape(rows, d), (0, 0, 0, NORM_DECODE_ROWS - rows))
+    return flat.mean(-1, keepdim=True)[:rows].reshape(*t.shape[:-1], 1)
 
 
 def norm_apply(p: Norm, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """RMSNorm, or LayerNorm for ``norm_type="layernorm"`` — its mean and
+    then its variance each a two-pass float32 row mean (``_row_mean``, so
+    both keep a row's bits whatever the call's rows), as the reference
+    computes them (not ``F.layer_norm``'s one-pass statistics)."""
     xf = x.to(torch.float32)
-    y = xf * torch.rsqrt(_mean_sq(xf) + cfg.norm_eps)
+    if cfg.norm_type == "layernorm":
+        xc = xf - _row_mean(xf)
+        y = xc * torch.rsqrt(_row_mean(xc ** 2) + cfg.norm_eps)
+        return (y * p.g + p.b).to(x.dtype)
+    y = xf * torch.rsqrt(_row_mean(xf ** 2) + cfg.norm_eps)
     return (y * p.g).to(x.dtype)
 
 
@@ -107,13 +117,22 @@ def apply_rope_slots(x: torch.Tensor, rope) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 class MLP(nn.Module):
-    """SwiGLU feed-forward (the gelu MLP comes with the families using it)."""
+    """The feed-forward: SwiGLU (``up``, ``gate``, ``down``) for
+    ``act="silu"``, else ``up`` and ``down`` around a GELU (reference
+    ``mlp_init``)."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         self.up = linear.Linear(cfg.d_model, cfg.d_ff, device=device)
         self.down = linear.Linear(cfg.d_ff, cfg.d_model, device=device)
-        self.gate = linear.Linear(cfg.d_model, cfg.d_ff, device=device)
+        self.gate = linear.Linear(cfg.d_model, cfg.d_ff, device=device) \
+            if cfg.act == "silu" else None
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation (not the erf
+    form)."""
+    return F.gelu(x, approximate="tanh")
 
 
 def mlp_apply(p: MLP, x: torch.Tensor, cfg: ModelConfig,
@@ -123,8 +142,12 @@ def mlp_apply(p: MLP, x: torch.Tensor, cfg: ModelConfig,
     threaded into each quantized linear (see linear.apply)."""
     ent = lambda name: linear.slot_entry(slots, name)
     up = linear.apply(p.up, x, slots=ent("up"), draft_bits=draft_bits)
-    gate = linear.apply(p.gate, x, slots=ent("gate"), draft_bits=draft_bits)
-    h = F.silu(gate) * up
+    if p.gate is not None:
+        gate = linear.apply(p.gate, x, slots=ent("gate"),
+                            draft_bits=draft_bits)
+        h = F.silu(gate) * up
+    else:
+        h = gelu(up)
     return linear.apply(p.down, h, slots=ent("down"), draft_bits=draft_bits)
 
 
@@ -132,15 +155,22 @@ def mlp_apply(p: MLP, x: torch.Tensor, cfg: ModelConfig,
 # Embedding / LM head
 # ---------------------------------------------------------------------------
 
+def table_dtype(cfg: ModelConfig) -> torch.dtype:
+    """The token table's storage dtype: float32 when the tuning mode
+    trains it (``full``), as the reference keeps and updates it — a bf16
+    table would drop every Adam update under half its ulp —, else the
+    activation dtype, since a frozen table is only ever read cast to it
+    (lookup and tied head): the same forward at half the memory."""
+    return torch.float32 if cfg.tuning.mode == "full" else model_dtype(cfg)
+
+
 class Embed(nn.Module):
-    """The token table.  Stored in the activation dtype: the reference keeps
-    it in float32 but only ever reads it cast to that dtype (lookup and tied
-    head), so the forward is the same at half the memory for bf16 models."""
+    """The token table, in ``table_dtype(cfg)``."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         self.emb = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model,
-                                            dtype=model_dtype(cfg),
+                                            dtype=table_dtype(cfg),
                                             device=device))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -159,10 +189,11 @@ def head_apply(lm_head: Optional[linear.Linear], p_embed: Embed,
                draft_bits=None) -> torch.Tensor:
     """Logits in float32 (the reference's preferred_element_type=f32) at
     every position of x: the tied head multiplies the activation-dtype
-    operands exactly and sums in float32 (``ops.tied_head``), serving and
-    training alike."""
+    operands exactly and sums in float32 (``ops.dot_f32``), serving and
+    training alike; the untied head is ``lm_head`` through
+    ``linear.apply``, then widened."""
     if cfg.tie_embeddings:
-        return ops.tied_head(x, p_embed.emb.to(x.dtype))
+        return ops.dot_f32(x, p_embed.emb.to(x.dtype))
     return linear.apply(lm_head, x, slots=slots,
                         draft_bits=draft_bits).to(torch.float32)
 

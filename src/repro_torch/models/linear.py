@@ -1,15 +1,18 @@
 """QLinear — the single fully-connected primitive (port of
-``repro/models/linear.py``: fp and PEQA storage, ``slot_entry`` and the
-mixed-task ``apply(..., slots=)``; LoRA and QAT come later).
+``repro/models/linear.py``: fp and PEQA storage, the optional bias,
+``slot_entry`` and the mixed-task ``apply(..., slots=)``; LoRA and QAT come
+later).
 
 A ``Linear`` holds its tensors under the reference's leaf names, and its
-storage mode is which of them exist (biases come with the families that
-have them):
+storage mode is which of them exist:
 
-  fp   : w (out, in) float32
+  fp   : w (out, in) float32 [, b (out,) float32]
   peqa : qw (a buffer: the codes are frozen) — (out, in/8) int32 nibble
          words, or (bits, out, in/32) int32 bit-planes —,
-         scale (out, G), zero (out, G) float32
+         scale (out, G), zero (out, G) float32 [, b]
+
+The bias (the reference's ``init(bias=True)``: q/k/v of qwen2 and
+starcoder2) is zero-initialised and never quantized.
 
 ``core/peqa.py`` turns fp into peqa in place (``set_quantized``); model code
 only ever calls ``apply``.
@@ -26,22 +29,28 @@ from repro_torch.kernels import ops
 
 
 class Linear(nn.Module):
-    def __init__(self, in_features: int, out_features: int, *, device=None):
+    def __init__(self, in_features: int, out_features: int, *,
+                 bias: bool = False, device=None):
         super().__init__()
         self.in_features = in_features
         self.out_features = out_features
         self.spec: Optional[QuantSpec] = None
         self.w = nn.Parameter(torch.empty(out_features, in_features,
                                           device=device))
+        self.b = nn.Parameter(torch.empty(out_features, device=device)) \
+            if bias else None
 
     @property
     def quantized(self) -> bool:
         return "qw" in self._buffers
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """N(0, 1/in_features) weights (the reference's init)."""
+        """N(0, 1/in_features) weights and a zero bias (the reference's
+        init)."""
         with torch.no_grad():
             self.w.normal_(0.0, self.in_features ** -0.5, generator=generator)
+            if self.b is not None:
+                self.b.zero_()
 
     def set_quantized(self, qw: torch.Tensor, scale: torch.Tensor,
                       zero: torch.Tensor, spec: QuantSpec) -> None:
@@ -82,7 +91,7 @@ def slot_entry(slots, name: str):
 
 def apply(p: Linear, x: torch.Tensor, slots=None,
           draft_bits: Optional[int] = None) -> torch.Tensor:
-    """y = x Wᵀ in x's dtype, storage-mode dispatched.
+    """y = x Wᵀ (+ b) in x's dtype, storage-mode dispatched.
 
     slots: optional ``(task_ids (M,), {"scale": (T, out, G), "zero": …})``
     for the mixed-task forward — each of the M rows of x (flattened
@@ -93,16 +102,27 @@ def apply(p: Linear, x: torch.Tensor, slots=None,
     linear reads the top p planes of its own buffer under scales rescaled
     by 2^(b−p) (``core.quant.draft_scales``, applied as the kernel reads
     them: the live scales, never a stale copy).  Ignored for the fp storage
-    mode, as the reference's draft rescales only PEQA linears."""
+    mode, as the reference's draft rescales only PEQA linears.
+
+    The fp product is the reference's einsum with a float32 output
+    (``ops.dot_f32``: bf16 operands on the card's tensor cores), rounded to
+    x's dtype.  The bias is added after the product has been rounded to
+    y's dtype, in that dtype, on every route (``bias_add``)."""
     if p.quantized:
         if slots is not None and isinstance(slots[1], dict) \
                 and "scale" in slots[1]:
             task_ids, stack = slots
-            return ops.quant_matmul_slotted(x, p.qw, stack["scale"],
-                                            stack["zero"], task_ids, p.spec,
-                                            draft_bits=draft_bits)
-        return ops.quant_matmul(x, p.qw, p.scale, p.zero, p.spec,
-                                draft_bits=draft_bits)
-    # the reference's einsum with float32 accumulation
-    return torch.matmul(x.to(torch.float32),
-                        p.w.to(x.dtype).to(torch.float32).T).to(x.dtype)
+            y = ops.quant_matmul_slotted(x, p.qw, stack["scale"],
+                                         stack["zero"], task_ids, p.spec,
+                                         draft_bits=draft_bits)
+        else:
+            y = ops.quant_matmul(x, p.qw, p.scale, p.zero, p.spec,
+                                 draft_bits=draft_bits)
+    else:
+        y = ops.dot_f32(x, p.w.to(x.dtype)).to(x.dtype)
+    return y if p.b is None else bias_add(y, p.b)
+
+
+def bias_add(y: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """y + b in y's dtype (the reference's ``y + p["b"].astype(y.dtype)``)."""
+    return y + b.to(y.dtype)

@@ -65,19 +65,23 @@ class ModelAPI:
     caps: Optional[FamilyCaps] = None
 
 
+KV_CACHE_DTYPES = ("model", "int8")
+
+
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for every configuration this slice of the port does not serve."""
     refused = [
         (cfg.family != "dense", f"family {cfg.family!r}"),
         (cfg.moe is not None, "mixture-of-experts blocks"),
-        (cfg.swa_window is not None, "sliding-window attention"),
-        (cfg.kv_cache_dtype != "model", f"kv_cache_dtype={cfg.kv_cache_dtype!r}"),
-        (cfg.bf16_reduce, "bf16_reduce"),
+        (cfg.kv_cache_dtype not in KV_CACHE_DTYPES,
+         f"kv_cache_dtype={cfg.kv_cache_dtype!r}"),
+        (cfg.bf16_reduce, "bf16_reduce (it halves the tensor-parallel "
+         "collectives' bytes, so it comes with the mesh: queue 6)"),
         (cfg.attn_impl not in ops.ATTN_IMPLS, f"attn_impl={cfg.attn_impl!r}"),
         (not cfg.use_rope, "learned positions (use_rope=False)"),
-        (cfg.qkv_bias, "q/k/v biases"),
-        (cfg.act != "silu", f"act={cfg.act!r}"),
-        (cfg.norm_type != "rmsnorm", f"norm_type={cfg.norm_type!r}"),
+        (cfg.act not in ("silu", "gelu"), f"act={cfg.act!r}"),
+        (cfg.norm_type not in ("rmsnorm", "layernorm"),
+         f"norm_type={cfg.norm_type!r}"),
         (cfg.remat not in transformer.REMATS, f"remat={cfg.remat!r}"),
     ]
     bad = [why for flag, why in refused if flag]

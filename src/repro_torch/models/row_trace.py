@@ -9,9 +9,11 @@ through ``record_ops`` and reports, op by op in call order, whether the
 verify's rows are bit-equal to the steps' — the first op that is not is
 where row invariance breaks (every later op inherits the difference).
 
-Ops recorded: the embedding, each RMSNorm, each quantized or dense linear
-(``linear.apply``), RoPE on q and k, the decode attention (``attention._decode_attention``,
-dense or chunked), the head, and the greedy argmax of the logits.
+Ops recorded: the embedding, each norm (RMSNorm or LayerNorm), each
+quantized or dense linear (``linear.apply``) and its bias add
+(``linear.bias_add``), the GELU (``common.gelu``), RoPE on q and k, the
+decode attention (``attention._decode_attention``, dense or chunked), the
+head, and the greedy argmax of the logits.
 
 Every op after the first differing one sees different inputs, so the trace
 names one culprit.  ``isolated_ops`` names them all: it feeds each op kind
@@ -51,6 +53,8 @@ def record_ops(model, out: list):
         wrap(common, "norm_apply", by_module),
         wrap(common, "head_apply", lambda a: "head"),
         wrap(linear, "apply", by_module),
+        wrap(linear, "bias_add", lambda a: "bias"),
+        wrap(common, "gelu", lambda a: "gelu"),
         wrap(attention, "apply_rope", lambda a: "rope"),
         wrap(attention, "apply_rope_slots", lambda a: "rope"),
         wrap(attention, "_decode_attention", lambda a: "attention"),
@@ -135,9 +139,11 @@ def isolated_ops(model, cfg, cache: dict, pos, s: int, stack=None,
     """Each op kind of the decode path on the same random inputs as one
     call of B·S rows and as S calls of B rows (row (b, j) of the first is
     row b of call j): every quantized linear of layer 0 (under each row's
-    task with ``stack``), the RMSNorm, the head, RoPE, the attention under
-    ``"dense"`` and ``"chunked"`` against ``cache`` at ``pos`` (query j at
-    pos + j) and the argmax.  Returns {op: {"equal", "max_abs_diff"}}."""
+    task with ``stack``), the norm (RMSNorm or LayerNorm, by the config),
+    the bias add and the GELU where the model has
+    them, the head, RoPE, the attention under ``"dense"`` and
+    ``"chunked"`` against ``cache`` at ``pos`` (query j at pos + j) and the
+    argmax.  Returns {op: {"equal", "max_abs_diff"}}."""
     b = cache["k"].shape[1]
     dev = cache["k"].device
     dt = common.model_dtype(cfg)
@@ -170,12 +176,19 @@ def isolated_ops(model, cfg, cache: dict, pos, s: int, stack=None,
             "gate": ("mlp", "gate"), "down": ("mlp", "down")}
     for name, path in lins.items():
         lin = getattr(getattr(layer, path[0]), path[1])
+        if lin is None:                  # no gate in a GELU MLP
+            continue
         check(f"linear.{name}",
               lambda x, j, lin=lin, path=path: linear.apply(
                   lin, x, slots=slots_for(j, path)),
               rand(b, s, lin.in_features))
     check("norm", lambda x, j: common.norm_apply(layer.ln1, x, cfg),
           rand(b, s, cfg.d_model))
+    if layer.attn.wq.b is not None:
+        check("bias", lambda y, j: linear.bias_add(y, layer.attn.wq.b),
+              rand(b, s, layer.attn.wq.out_features))
+    if layer.mlp.gate is None:
+        check("gelu", lambda x, j: common.gelu(x), rand(b, s, cfg.d_ff))
     check("head", lambda x, j: common.head_apply(model.lm_head, model.embed,
                                                  x, cfg),
           rand(b, s, cfg.d_model))

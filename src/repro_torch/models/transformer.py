@@ -68,7 +68,8 @@ REMATS = ("none", "block", "full")
 
 def _block_train(layer: Block, h: torch.Tensor, cfg: ModelConfig, rope):
     """Pre-norm block over the full sequence (reference ``_block_train``,
-    without MoE)."""
+    without MoE); the norms and the MLP by the config (RMSNorm or
+    LayerNorm, SwiGLU or GELU)."""
     h = h + attention.apply_train(
         layer.attn, common.norm_apply(layer.ln1, h, cfg), cfg, rope)
     return h + common.mlp_apply(layer.mlp,
@@ -127,41 +128,46 @@ def prefill(model: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
     Padded rows sit causally after every real row, so they never influence
     it.
 
-    Returns (last_logits (B, V) f32, cache {"k", "v": (L, B, S, Hkv, D)}).
+    Returns (last_logits (B, V) f32, cache): the cache's leaves stacked
+    over layers, (L, B, C, …) at C = ``attention.cache_capacity(cfg, S)``
+    (the window's ring holds the last C tokens), in the configured layout
+    (``attention.prefill_cache_entry``).
     """
     h = common.embed_apply(model.embed, tokens, cfg)
     b, s, _ = h.shape
     rope = common.rope_table(cfg, torch.arange(s, device=h.device))
+    cap = attention.cache_capacity(cfg, s)
     slotted = task_stack is not None
     # quantized linears flatten (B, S, d) to B·S rows: one id per token
     tok_ids = task_ids.repeat_interleave(s) if slotted else None
-    ks, vs = [], []
+    entries = []
     for i, layer in enumerate(model.layers):
         slots = (tok_ids, _layer_stack(task_stack["layers"], i)) \
             if slotted else None
         a, ck, cv = attention.apply_prefill(
-            layer.attn, common.norm_apply(layer.ln1, h, cfg), cfg, rope,
+            layer.attn, common.norm_apply(layer.ln1, h, cfg), cfg, rope, cap,
             slots=linear.slot_entry(slots, "attn"))
         h = h + a
         h = h + common.mlp_apply(layer.mlp,
                                  common.norm_apply(layer.ln2, h, cfg), cfg,
                                  slots=linear.slot_entry(slots, "mlp"))
-        ks.append(ck)
-        vs.append(cv)
+        entries.append(attention.prefill_cache_entry(ck, cv, cfg))
     # the head sees only the last (real) token: one row per batch element
     head_slots = linear.slot_entry((task_ids, task_stack), "lm_head") \
         if slotted else None
     hl = h[:, -1:] if last_pos is None else h[:, last_pos:last_pos + 1]
     logits = _final_logits(model, hl, cfg, slots=head_slots)
-    return logits[:, 0], {"k": torch.stack(ks), "v": torch.stack(vs)}
+    return logits[:, 0], {key: torch.stack([e[key] for e in entries])
+                          for key in entries[0]}
 
 
 def _decode_tokens(model: Transformer, cache: dict, tokens: torch.Tensor,
                    pos, cfg: ModelConfig, task_stack: dict | None = None,
                    task_ids: torch.Tensor | None = None, draft_bits=None):
     """Shared decode body: tokens (B, S) at positions pos..pos+S-1 (per
-    slot when pos is (B,)), K/V written into ``cache`` in place.  Returns
-    (logits (B, S, V) f32, cache)."""
+    slot when pos is (B,)), K/V written into ``cache`` in place (quantized
+    under ``kv_cache_dtype="int8"``: ``attention.apply_decode_q8``).
+    Returns (logits (B, S, V) f32, cache)."""
     h = common.embed_apply(model.embed, tokens, cfg)
     rope = attention._rope_decode(cfg, pos, h.shape[1], h.device)
     slotted = task_stack is not None
@@ -172,10 +178,16 @@ def _decode_tokens(model: Transformer, cache: dict, tokens: torch.Tensor,
     for i, layer in enumerate(model.layers):
         slots = (task_ids, _layer_stack(task_stack["layers"], i)) \
             if slotted else None
-        a, _, _ = attention.apply_decode(
-            layer.attn, common.norm_apply(layer.ln1, h, cfg), cfg,
-            cache["k"][i], cache["v"][i], pos, rope,
-            slots=linear.slot_entry(slots, "attn"), draft_bits=draft_bits)
+        hin = common.norm_apply(layer.ln1, h, cfg)
+        attn_slots = linear.slot_entry(slots, "attn")
+        if cfg.kv_cache_dtype == "int8":
+            a, _ = attention.apply_decode_q8(
+                layer.attn, hin, cfg, {k: v[i] for k, v in cache.items()},
+                pos, rope, slots=attn_slots, draft_bits=draft_bits)
+        else:
+            a, _, _ = attention.apply_decode(
+                layer.attn, hin, cfg, cache["k"][i], cache["v"][i], pos,
+                rope, slots=attn_slots, draft_bits=draft_bits)
         h = h + a
         h = h + common.mlp_apply(layer.mlp,
                                  common.norm_apply(layer.ln2, h, cfg), cfg,

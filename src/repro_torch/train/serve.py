@@ -148,7 +148,9 @@ class Engine:
 
         ``cache_len`` is validated, not clamped: the deepest cache write is
         position prompt+n_new-2 (the final sampled token's KV is never
-        written), so prompt+n_new-1 slots suffice and fewer raise.
+        written), so prompt+n_new-1 slots suffice and fewer raise.  A
+        sliding window's ring cache wraps, so any positive value is legal
+        there.
         """
         tokens = torch.as_tensor(tokens, device=self.device).to(torch.int64)
         b, s = tokens.shape
@@ -159,16 +161,19 @@ class Engine:
             raise ValueError(
                 f"cache_len={cache_len} must be positive (omit it for the "
                 f"default prompt+n_new={total})")
-        elif cache_len < total - 1:
+        elif cache_len < total - 1 and self.api.cfg.swa_window is None:
             raise ValueError(
                 f"cache_len={cache_len} < prompt+n_new-1={total - 1}: a "
                 f"dense cache cannot hold the generation")
         sample = sampling.shard_argmax(None, b)
         logits, pcache = self.api.prefill(self.model, {"tokens": tokens})
         # re-home the prompt-sized prefill cache into one with headroom
+        # (a ring's prefill cache is already in ring layout: it occupies
+        # the first slots of a ring of at least its capacity)
         cache = self.api.init_cache(b, cache_len)
-        for key in cache:
-            cache[key][:, :, :s] = pcache[key]
+        for key, dst in cache.items():
+            src = pcache[key]
+            dst.narrow(CACHE_SEQ_DIM, 0, src.shape[CACHE_SEQ_DIM]).copy_(src)
         del pcache
         out = [tokens]
         tok = sample(logits)[:, None]
@@ -240,7 +245,10 @@ class Engine:
         bucket: right-pad the prompt to a power-of-two length so mixed
         traffic runs O(log max_len) prefill shapes; the padded rows are
         causally invisible and the head reads the last real row
-        (``last_pos``), so token streams are unchanged.
+        (``last_pos``), so token streams are unchanged.  Off under a
+        sliding window: padded rows would wrap onto the ring's committed
+        slots.  A ring wraps, so its requests are not held to the pool's
+        capacity.
         """
         slot = pool.free_slot()
         if slot is None:
@@ -251,7 +259,8 @@ class Engine:
         if s < 1 or n_new < 1:
             raise ValueError(f"need prompt >= 1 and n_new >= 1 tokens, got "
                              f"({s}, {n_new})")
-        if s + n_new - 1 > pool.cache_len:
+        swa = self.api.cfg.swa_window is not None
+        if not swa and s + n_new - 1 > pool.cache_len:
             raise ValueError(
                 f"request needs {s + n_new - 1} cache slots, pool has "
                 f"{pool.cache_len}")
@@ -262,7 +271,7 @@ class Engine:
                 f"request targets task {request.task!r} but the engine "
                 f"serves {self.current_task!r}; switch_task first (the "
                 f"scheduler drains the pool before switching)")
-        bucket = bucket and self.api.caps.bucketable
+        bucket = bucket and self.api.caps.bucketable and not swa
         s_pad = self._bucket_len(s, pool.cache_len) if bucket else s
         if s_pad != s:
             toks = np.pad(toks, (0, s_pad - s))   # masked filler rows

@@ -692,7 +692,7 @@ def test_head_rows_do_not_depend_on_m(cuda):
 
 @pytest.mark.gpu
 def test_tied_head_training_on_the_card(cuda):
-    """``ops.tied_head`` with grad on: logits bit-equal to the serving call
+    """``ops.dot_f32`` with grad on: logits bit-equal to the serving call
     (one bf16 GEMM with f32 output either way); dx and demb within their
     float32 summation bounds of float64 (plus one bf16 rounding)."""
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -702,9 +702,9 @@ def test_tied_head_training_on_the_card(cuda):
            ).to(torch.bfloat16)
     dy = torch.randn(m, v, generator=gen, device=cuda) * 1e-3
     with torch.no_grad():
-        serve = ops.tied_head(x, emb)
+        serve = ops.dot_f32(x, emb)
     xg, eg = x.clone().requires_grad_(True), emb.clone().requires_grad_(True)
-    y = ops.tied_head(xg, eg)
+    y = ops.dot_f32(xg, eg)
     assert torch.equal(y.detach(), serve)
     y.backward(dy)
     xd, ed, dyd = x.double(), emb.double(), dy.double()
@@ -926,3 +926,153 @@ def test_serving_path_makes_no_autograd_node(cuda, two_layer_llama):
     for n, p in model.named_parameters():
         p.grad = None
         p.requires_grad_(flags[n])
+
+
+# ------------------------------------------------ the dense family at 7B
+
+# (Hq, Hkv) of qwen2-7b, starcoder2-7b and granite-34b (MQA), heads of 128
+DENSE_7B_HEADS = [(28, 4), (36, 4), (48, 1)]
+# qwen2-7b's four linear shapes (N, K): q/o, k/v, gate/up, down
+QWEN_SHAPES = [(3584, 3584), (512, 3584), (18944, 3584), (3584, 18944)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hq,hkv", DENSE_7B_HEADS)
+@pytest.mark.parametrize("case", ["prefill", "window", "decode", "verify",
+                                  "ring"])
+def test_flash_attention_at_head_dim_128(cuda, case, hq, hkv):
+    """K4's D = 128 instantiation at the 7B models' head layouts (GQA
+    groups of 7, 9 and 48): the prefill (B 2 × 256, causal, and under a
+    64-key window), a slot-pool decode and verify (B 8 over 512 keys,
+    offsets spread over 20–300) and a ring's decode (offsets past the last
+    key: every key visible), within ``error_bound`` of plain; the decode
+    and verify bit-equal across capacities of 304 and 1100 rows, and the
+    ring's bit-equal to the same keys at offset Sk − Sq."""
+    prefill = case in ("prefill", "window")
+    b, sq, sk = (2, 256, 256) if prefill else (
+        8, 4 if case == "verify" else 1, 512)
+    q, k, v = _attention_inputs(b, sq, sk, hq, hkv, 128, torch.bfloat16,
+                                cuda, seed=hq + sq)
+    window = 64 if case == "window" else None
+    offset = None if prefill else (
+        torch.tensor([sk, sk + 7, 3 * sk, sk + 100] * 2, device=cuda)
+        if case == "ring" else
+        torch.linspace(20, 300 - sq, b).round().to(torch.int64).to(cuda))
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, window=window, offset=offset)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    plain = fa.flash_attention_plain(q, k, v, window=window, offset=offset)
+    assert torch.isfinite(got).all()
+    err = (got.float() - plain.float()).abs()
+    assert (err <= fa.error_bound(q, k, v, plain)).all(), \
+        f"max err {err.max().item():.3e}"
+    if case == "ring":
+        assert torch.equal(got, fa.flash_attention(q, k, v, offset=sk - sq))
+    if case in ("decode", "verify"):
+        for cap in (304, 1100):
+            kc = torch.full((b, cap, hkv, 128), 3.0, dtype=k.dtype,
+                            device=cuda)
+            vc = torch.full_like(kc, -3.0)
+            kc[:, :300], vc[:, :300] = k[:, :300], v[:, :300]
+            ref = fa.flash_attention(q, k[:, :300].contiguous(),
+                                     v[:, :300].contiguous(), offset=offset)
+            assert torch.equal(fa.flash_attention(q, kc, vc, offset=offset),
+                               ref), cap
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,k", QWEN_SHAPES)
+def test_gemv_and_gemm_at_qwen2_shapes(cuda, n, k):
+    """K1 (M = 4), K5 (M = 8 over 4 tasks) and K2 (M = 1024) at qwen2-7b's
+    linears, bf16, per-channel: within the factored bound of plain (K1 and
+    K5 with the GEMV's K split), K5's rows bit-equal to K1's under their
+    tasks, K1's rows at M = 1–16 bit-equal to M = 32, and the built
+    kernel's K split the mirror's."""
+    x, qw, s, z, ss, zs, _ = _llama_operands(n, k, None)
+    x = x.to(torch.bfloat16)
+    assert qm.gemv_tc_split(n, k) == qm.gemv_block_split(n, k)
+    full = qm.quant_gemv(x, qw, s, z)
+    for m in (1, 2, 4, 8, 16):
+        assert torch.equal(qm.quant_gemv(x[:m].contiguous(), qw, s, z),
+                           full[:m]), f"M = {m}"
+    args = [x[:4].contiguous(), qw, s, z]
+    _assert_within_bound(qm.quant_gemv(*args), qm.quant_matmul_plain(*args),
+                         args, factored=True, gemv=True)
+    ids = torch.arange(8, dtype=torch.int32, device=cuda) % 4
+    x8 = x[:8].contiguous()
+    got = qm.quant_gemv_tasks(x8, qw, ss, zs, ids)
+    plain = qm.quant_matmul_tasks_plain(x8, qw, ss, zs, ids)
+    err = (got.float() - plain.float()).abs()
+    assert (err <= qm.error_bound(x8, qw, ss, zs, plain, task_ids=ids,
+                                  factored=True, gemv=True)).all()
+    for i in range(8):
+        t = int(ids[i])
+        assert torch.equal(got[i], qm.quant_gemv(x8, qw, ss[t], zs[t])[i])
+    g = torch.Generator(device="cuda").manual_seed(n + 3)
+    xm = torch.randn(1024, k, generator=g, device=cuda).to(torch.bfloat16)
+    args = [xm, qw, s, z]
+    assert qm.tc_route(xm, s)
+    _assert_within_bound(qm.quant_matmul(*args),
+                         qm.quant_matmul_plain(*args), args, factored=True)
+
+
+@pytest.mark.gpu
+def test_layernorm_rows_do_not_depend_on_m(cuda):
+    """starcoder2-7b's LayerNorm (d 4608) on the card: rows at M = 1–32
+    bit-equal to the same rows at M = 32 (both of its row means reduce a
+    padded 32-row tensor), and within 2⁻⁸ of a float64 LayerNorm."""
+    from repro_torch import configs
+    from repro_torch.models import common
+    cfg = configs.get_config("starcoder2-7b")
+    norm = common.Norm(cfg, device=cuda)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    with torch.no_grad():
+        norm.g.normal_(1.0, 0.1, generator=g)
+        norm.b.normal_(0.0, 0.1, generator=g)
+    x = (torch.randn(32, 1, cfg.d_model, generator=g, device=cuda) * 3 + 1
+         ).to(torch.bfloat16)
+    full = common.norm_apply(norm, x, cfg)
+    for m in range(1, 33):
+        assert torch.equal(common.norm_apply(norm, x[:m], cfg), full[:m]), m
+    xd = x.double()
+    mu = xd.mean(-1, keepdim=True)
+    want = (xd - mu) / torch.sqrt(((xd - mu) ** 2).mean(-1, keepdim=True)
+                                  + cfg.norm_eps) * norm.g.double() \
+        + norm.b.double()
+    assert ((full.double() - want).abs() <= 2 ** -8 * want.abs() + 1e-6).all()
+
+
+@pytest.mark.gpu
+def test_fp_linear_takes_the_tensor_cores_within_f32_bound(cuda):
+    """An fp linear with bf16 x (qwen2-7b's untied head, cut to 8192 rows):
+    ``ops.dot_f32`` — a bf16 GEMM with a float32 output — then bf16; y
+    within the float32 summation bound of float64 plus its bf16 rounding,
+    and with grad on the same bits, dx and dw within their bounds."""
+    from repro_torch.models import linear
+    n, k, m = 8192, 3584, 64
+    lin = linear.Linear(k, n, device=cuda)
+    lin.reset_parameters(torch.Generator(device="cuda").manual_seed(1))
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(2, m // 2, k, generator=g, device=cuda).to(torch.bfloat16)
+    with torch.no_grad():
+        y = linear.apply(lin, x)
+    assert y.dtype == torch.bfloat16
+    wb = lin.w.detach().to(torch.bfloat16).double()
+    xd = x.double().reshape(m, k)
+    want = xd @ wb.T
+    bound = 2 * k * 2.0 ** -24 * (xd.abs() @ wb.abs().T) \
+        + want.abs() * 2.0 ** -8
+    assert ((y.reshape(m, n).double() - want).abs() <= bound).all()
+    xg = x.clone().requires_grad_(True)
+    yg = linear.apply(lin, xg)
+    assert torch.equal(yg.detach(), y)
+    dy = torch.randn(2, m // 2, n, generator=g, device=cuda).to(torch.bfloat16)
+    yg.backward(dy)
+    dyd = dy.double().reshape(m, n)
+    for got, want, mag, terms in (
+            (xg.grad.reshape(m, k), dyd @ wb, dyd.abs() @ wb.abs(), n),
+            (lin.w.grad, dyd.T @ xd, dyd.abs().T @ xd.abs(), m)):
+        bound = 2 * terms * 2.0 ** -24 * mag + want.abs() * 2.0 ** -8
+        assert ((got.double() - want).abs() <= bound).all()
+    assert lin.w.grad.dtype == torch.float32

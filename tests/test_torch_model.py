@@ -164,8 +164,8 @@ def test_policies_masks(pair):
 
 
 @pytest.mark.parametrize("change", [
-    dict(swa_window=8), dict(kv_cache_dtype="int8"), dict(moe=object()),
-    dict(bf16_reduce=True), dict(qkv_bias=True),
+    dict(use_rope=False), dict(kv_cache_dtype="fp8"), dict(moe=object()),
+    dict(bf16_reduce=True), dict(act="relu"),
     dict(family="moe"), dict(quant_layout="plane", quant_bits=5),
     dict(quant_packed=False),
     dict(quant_bits=8)])

@@ -242,7 +242,7 @@ def test_row_with_no_key_gets_minus_inf_and_zero_gradient():
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_tied_head_backward_matches_reference(dtype):
-    """``ops.tied_head`` (logits, dx, demb) against ``jax.vjp`` of the
+    """``ops.dot_f32`` (logits, dx, demb) against ``jax.vjp`` of the
     reference's tied head, the einsum with a float32 output.  Each value is
     a float32 sum of the same exact products taken in other orders (over D
     for the logits, V for dx, M for demb), so it is within 2·n·2⁻²⁴·Σ|·| of
@@ -261,8 +261,8 @@ def test_tied_head_backward_matches_reference(dtype):
 
     tx = torch.from_numpy(x).to(TDT[dtype]).requires_grad_(True)
     te = torch.from_numpy(emb).to(TDT[dtype]).requires_grad_(True)
-    y = ops.tied_head(tx, te)
-    assert y.dtype == torch.float32 and "_TiedHeadBackward" in _graph_nodes(y)
+    y = ops.dot_f32(tx, te)
+    assert y.dtype == torch.float32 and "_DotF32Backward" in _graph_nodes(y)
     y.backward(torch.from_numpy(dy))
     xf, ef = tx.detach().float(), te.detach().float()
     dyf = torch.from_numpy(dy)
@@ -278,4 +278,4 @@ def test_tied_head_backward_matches_reference(dtype):
         err = (got - want).abs()
         assert (err <= bound).all(), f"{name} max err {err.max():.3e}"
     with torch.no_grad():
-        assert ops.tied_head(tx, te).grad_fn is None
+        assert ops.dot_f32(tx, te).grad_fn is None
