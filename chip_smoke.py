@@ -207,6 +207,40 @@ line:
                earlier rule and under ``ops.dot_f32``.  Then starcoder2-7b
                at full width and depth (32 layers): generate with its
                launch gates, and 2 train steps (the first checked).
+ 14. arms    — the paper's comparison arms at llama3.2-1b full width and
+               depth (bf16, seed 0, QV4: rank 4 on wq and wv), the 7B
+               models freed, on phase train's corpus and TrainConfig (8 ×
+               256 tokens a step, remat "block").  lora_optq: GPTQ
+               (``core.gptq``, 4-bit per-channel, n_grid 20) on 4 × 256
+               calibration tokens of the train split — each layer's replay
+               with its codes in place through K2, 112 calls each held to
+               plain by ``CheckedQuantMatmul`` —, then ``add_lora``; 10
+               train steps: exactly 2 × 112 K2 launches a step and nothing
+               else, step 1's K2 calls each held to plain, the quantized
+               backward asked for dx only (no ds, no dz; none at all for
+               layer 0's q/k/v, which read the frozen table), the step-1
+               loss within 2⁻⁸ of force_impl("torch")'s, optimizer state
+               exactly 8 × 425,984 values = 3,407,872 bytes, the codes,
+               scales, zeros, norms and table bit-equal after training;
+               ``Engine.generate`` as phase main (timed, launches gated),
+               then once more with every K1 and K2 call held to plain and
+               the same tokens.  lora on the float32 backbone: 3 steps
+               (no kernel of ours: the fp products are ``ops.dot_f32``),
+               the backbone bit-equal after them; ``merge_lora``, then the
+               prefill's and first decode step's logits within 2⁻⁵ of the
+               largest of the unmerged model's.  AlphaTuning: BCQ (4 bits)
+               of layer 0's seven linears, ``bcq_weight`` bit-equal to Σ
+               α_b B_b of ``bcq_decompose`` and within a 0.2 relative
+               residual of the float32 weight, ``linear_apply_bcq`` at 8 ×
+               256 rows within the float32 summation bound of float64 plus
+               a bf16 rounding, only ``alpha1`` getting a gradient (within
+               2⁻⁷ of float64 in ℓ2).  qat: two steps as train_full (every
+               float tensor trained; RTN scales and zeros; the float32
+               table moves at step 1; no K1/K2 launch), its peak memory and
+               state (8 B × 1,236,568,064 values).  Last, a line with each
+               arm's trainable values, optimizer-state bytes, peak memory
+               and median step ms beside phase train's PEQA and
+               train_full's figures.
 
 Every phase's seconds are printed on a line of their own as it ends.
 
@@ -216,6 +250,7 @@ and exits non-zero before the summary lines.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -304,6 +339,11 @@ TRAIN_TOKENS = 120_000
 # dense_archs phase: PEQA train steps of qwen2-7b at 8 × 256 tokens (the
 # first checked call by call, not timed)
 DENSE_TRAIN_STEPS = 3
+# arms phase: GPTQ's calibration tokens (B, S) from the train split, and
+# the train steps of LoRA on the float32 backbone (lora_optq takes
+# TRAIN_STEPS)
+ARMS_CALIB = (4, 256)
+LORA_FP_STEPS = 3
 
 
 def emit(obj) -> None:
@@ -3203,6 +3243,528 @@ def phase_dense_archs(torch) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase arms: the paper's comparison arms at llama3.2-1b
+# ---------------------------------------------------------------------------
+
+class RecordedNeed:
+    """Records the ``need`` flags of every ``ops.quant_matmul_bwd`` call
+    (which of dx, ds, dz the quantized backward computes) by wrapping the
+    function the autograd node calls; restored on exit."""
+
+    def __init__(self, ops):
+        self.ops, self.needs = ops, []
+
+    def __enter__(self):
+        self._bwd = self.ops.quant_matmul_bwd
+
+        def bwd(*args, **kw):
+            need = args[6] if len(args) > 6 else kw.get("need",
+                                                        (True, True, True))
+            self.needs.append(tuple(bool(f) for f in need))
+            return self._bwd(*args, **kw)
+
+        self.ops.quant_matmul_bwd = bwd
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.quant_matmul_bwd = self._bwd
+
+
+def arm_cfg(mode: str):
+    """llama3.2-1b as phase main quantizes it (4-bit per-channel, n_grid
+    20, bf16) under tuning ``mode``, QV4 (rank 4 on wq and wv), remat
+    "block"."""
+    from repro_torch import configs
+    from repro_torch.configs.base import QuantConfig, TuningConfig
+    return configs.get_config("llama3.2-1b").replace(
+        tuning=TuningConfig(mode=mode, lora_rank=4,
+                            lora_targets=("wq", "wv")),
+        quant=QuantConfig(bits=4, group_size=None, n_grid=20),
+        remat="block")
+
+
+def model_bytes(model) -> int:
+    return sum(t.numel() * t.element_size() for t in
+               list(model.parameters()) + list(model.buffers()))
+
+
+def arm_train(torch, label, api, cfg, model, mask, data, steps, want,
+              step1=None) -> dict:
+    """``steps`` steps of ``train.loop.train`` (TrainConfig's 8 × 256), every
+    kernel counter at 0 before each step and read after it: each step must
+    launch exactly ``want``.  ``step1``, a context manager factory, wraps
+    the first step (the checks).  Figures: walls, device ms (CUDA events),
+    the median of the steps after the first ``TRAIN_SKIP`` (after the first
+    when there are fewer), peak memory of the run with the model in it
+    (after a checked step 1: of the steps after it), optimizer-state
+    bytes; then one more step profiled (its kernels' device
+    ms and the top ones: the busy share of a step)."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.kernels import ops
+    from repro_torch.optim.adamw import make_optimizer
+    from repro_torch.train import loop, step
+    from repro_torch.train.state import make_state
+    tcfg = TrainConfig(steps=steps, log_every=1, eval_every=10 ** 9,
+                       ckpt_every=10 ** 9)
+    opt = make_optimizer(tcfg.optim, tcfg.steps)
+    state = make_state(model, opt.init(dict(model.named_parameters()), mask))
+    ts = step.build_train_step(api, cfg, tcfg, mask, opt)
+    walls, dev, seen = [], [], []
+
+    def counted(state, batch):
+        for k in ops.KERNELS:
+            k.launches = 0
+        if step1 is not None and len(walls) == 1:
+            # the peak leaves out step 1's checks and their temporaries
+            torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        if step1 is not None and not walls:
+            with step1():
+                state, metrics = ts(state, batch)
+        else:
+            state, metrics = ts(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        dev.append(start.elapsed_time(end))
+        seen.append({k.__name__: k.launches for k in ops.KERNELS
+                     if k.launches})
+        return state, metrics
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated() - model_bytes(model)
+    torch.cuda.reset_peak_memory_stats()
+    state, hist = loop.train(state, counted, data, tcfg,
+                             log=lambda msg: None)
+    peak = torch.cuda.max_memory_allocated() - base
+    bad = [i for i, got in enumerate(seen) if got != want]
+    if bad:
+        fail(f"arms {label}: step {bad[0] + 1} launched {seen[bad[0]]}, "
+             f"expected {want}")
+    losses = [h["loss"] for h in hist]
+    if len(losses) != steps or not all(map(math.isfinite, losses)):
+        fail(f"arms {label}: losses {losses}")
+    skip = TRAIN_SKIP if steps > TRAIN_SKIP + 1 else 1
+    timed = sorted(walls[skip:]) or walls
+    res = {"steps": steps, "losses": losses, "step_ms": walls,
+           "device_ms": dev, "median_step_ms": timed[len(timed) // 2],
+           "tokens_per_s": tcfg.batch_size * tcfg.seq_len
+           / timed[len(timed) // 2] * 1e3,
+           "peak_mem_gb": peak / 1e9,
+           "state_bytes": opt.state_bytes(state["opt"]),
+           "launches_a_step": seen[-1]}
+    dev_ms, top = device_ms(torch, lambda: ts(state, data.batch_at(steps)),
+                            top=8)
+    res["profile"] = {"device_ms": dev_ms, "top": top}
+    del state, opt, ts
+    return res
+
+
+def arms_lora_optq(torch, data, calib, prompt) -> dict:
+    """GPTQ on 4 × 256 calibration tokens, QV4 LoRA, 10 train steps, then
+    ``Engine.generate`` (module docstring, phase 14)."""
+    from repro_torch.core import gptq, lora, policies
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.train import step
+    from repro_torch.train.serve import Engine
+    cfg = arm_cfg("lora_optq")
+    api = registry.build(cfg)
+    model = api.init(SEED)
+    n_lin = cfg.n_layers * 7
+    # the column loop replayed from its CUDA graph gives the eager loop's
+    # codes: layer 0's k projection on correlated inputs, twice replayed
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    w = model.layers[0].attn.wk.w.detach()
+    graphs, equal = {}, []
+    for _ in range(2):
+        x = torch.randn(calib.numel(), w.shape[1] // 4, generator=gen,
+                        device="cuda") @ torch.randn(
+            w.shape[1] // 4, w.shape[1], generator=gen, device="cuda")
+        eager = gptq.gptq_quantize_matrix(w, x, cfg.quant)
+        graphed = gptq.gptq_quantize_matrix(w, x, cfg.quant, graphs=graphs)
+        equal.append(all(torch.equal(a, b) for a, b in zip(eager, graphed)))
+    if not all(equal) or len(graphs) != 1:
+        fail(f"arms gptq: the graphed column loop's codes equal the eager "
+             f"loop's: {equal}")
+    del graphs, w, x, eager, graphed
+    for k in ops.KERNELS:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with CheckedQuantMatmul(ops, "arms gptq replay",
+                            calib.numel()) as chk:
+        gptq.gptq_quantize_transformer(model, cfg, calib.to("cuda"))
+    torch.cuda.synchronize()
+    gptq_s = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in ops.KERNELS if k.launches}
+    # each layer's replay with its codes in place: K2 a quantized linear
+    if launches != {"quant_matmul": n_lin} or \
+            chk.calls["quant_matmul"] != n_lin:
+        fail(f"arms gptq: launches {launches}, {chk.calls} checked; "
+             f"expected {n_lin} K2")
+    if n_quantized(model) != n_lin:
+        fail(f"arms gptq: {n_quantized(model)} quantized linears")
+    lora.add_lora(model, torch.Generator(device="cuda").manual_seed(SEED),
+                  cfg.tuning)
+    mask = policies.make_mask(model, cfg)
+    trained = {n: p for n, p in model.named_parameters() if mask[n]}
+    values = sum(p.numel() for p in trained.values())
+    # wq: A (r, d) and B (d, r); wv: A (r, d) and B (kv, r)
+    want_values = cfg.n_layers * cfg.tuning.lora_rank * (
+        3 * cfg.d_model + cfg.n_kv_heads * cfg.d_head)
+    if values != want_values or any("lora" not in n for n in trained):
+        fail(f"arms lora_optq: trains {values} values in "
+             f"{sorted(trained)[:3]}…, expected {want_values} of lora_a/b")
+    frozen = {n: t.clone() for n, t in list(model.named_parameters())
+              + list(model.named_buffers()) if not mask.get(n)}
+    start = {n: p.detach().clone() for n, p in trained.items()}
+    # step 1's loss on the plain route, the same weights
+    batch0 = step.to_device(data.batch_at(0), "cuda")
+    with torch.no_grad(), ops.force_impl("torch"):
+        loss_plain = float(api.loss_fn(model, batch0))
+    del batch0
+    checked = {}
+
+    @contextlib.contextmanager
+    def step1():
+        with CheckedQuantMatmul(ops, "arms lora_optq step 1",
+                                data.batch_size * data.seq_len) as chk, \
+                RecordedNeed(ops) as need:
+            yield
+        checked.update(k2=chk.calls["quant_matmul"],
+                       gemv=chk.calls["quant_gemv"], worst=chk.worst,
+                       needs=need.needs)
+
+    res = {"gptq_s": gptq_s, "gptq_k2_checked": n_lin,
+           "gptq_k2_max_abs_err": chk.worst, "calib_tokens": calib.numel(),
+           "trainable": policies.trainable_count(model, mask),
+           "frozen": policies.frozen_count(model, mask),
+           "model_bytes": model_bytes(model)}
+    res["train"] = arm_train(torch, "lora_optq", api, cfg, model, mask, data,
+                             TRAIN_STEPS, {"quant_matmul": 2 * n_lin},
+                             step1=step1)
+    tr = res["train"]
+    # the recompute of a block stops once the down projection's input is
+    # back: that launch returns nothing to check (as dense_train)
+    if checked["k2"] != 2 * n_lin - cfg.n_layers or checked["gemv"]:
+        fail(f"arms lora_optq: step 1 checked {checked}, expected "
+             f"{2 * n_lin - cfg.n_layers} K2 calls")
+    # layer 0's q/k/v read the frozen table: no node, no backward
+    needs = checked.pop("needs")
+    if len(needs) != n_lin - 3 or any(nd != (True, False, False)
+                                      for nd in needs):
+        fail(f"arms lora_optq: the quantized backward ran {len(needs)} "
+             f"times with {sorted(set(needs))}; expected {n_lin - 3} dx-only")
+    if tr["state_bytes"] != 8 * want_values:
+        fail(f"arms lora_optq: optimizer state {tr['state_bytes']} bytes, "
+             f"expected {8 * want_values}")
+    tol = 2 ** -8 * abs(loss_plain)
+    if abs(tr["losses"][0] - loss_plain) > tol:
+        fail(f"arms lora_optq: step-1 loss {tr['losses'][0]!r} against the "
+             f"plain route's {loss_plain!r}, beyond bf16's 2^-8 ({tol:.3e})")
+    for n, t in list(model.named_parameters()) + list(model.named_buffers()):
+        if n in frozen and not torch.equal(t, frozen[n]):
+            fail(f"arms lora_optq: frozen {n} changed")
+    if any(torch.equal(p, start[n]) for n, p in trained.items()):
+        fail("arms lora_optq: an adapter did not move")
+    res.update(step1_checked=checked, loss_plain_step1=loss_plain,
+               frozen_checked=len(frozen), trained_values=values)
+    del frozen, start
+    # serving: timed, then every K1/K2 call of one generate checked
+    gen = dense_generate(torch, "arms lora_optq", api, model, prompt)
+    res["generate"] = gen["res"]
+    engine = Engine(api, model)
+    for k in ops.KERNELS:
+        k.launches = 0
+    with CheckedQuantMatmul(ops, "arms lora_optq generate") as chk:
+        out = engine.generate(prompt, NEW)
+    torch.cuda.synchronize()
+    want = {"quant_gemv": n_lin * (NEW - 1), "quant_matmul": n_lin}
+    if chk.calls != want or not torch.equal(out, gen["out"]):
+        fail(f"arms lora_optq generate: {chk.calls} checked, expected "
+             f"{want}; tokens equal to the unchecked run's: "
+             f"{torch.equal(out, gen['out'])}")
+    res["generate"]["checked"] = dict(chk.calls, max_abs_err=chk.worst)
+    del gen, engine, model, trained, out
+    torch.cuda.empty_cache()
+    return res
+
+
+def arms_lora_fp(torch, data, prompt) -> dict:
+    """QV4 LoRA on the float32 backbone: 3 steps, the backbone bit-equal
+    after them; ``merge_lora`` then the first decode step's logits against
+    the unmerged model's.  Returns the layer-0 weights for AlphaTuning."""
+    from repro_torch.core import lora, policies
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    cfg = arm_cfg("lora")
+    api = registry.build(cfg)
+    model, mask = policies.prepare(api.init(SEED), cfg)
+    trained = {n: p for n, p in model.named_parameters() if mask[n]}
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters()
+              if not mask[n]}
+    if not trained or any("lora" not in n for n in trained):
+        fail(f"arms lora: trains {sorted(trained)[:3]}")
+    if model.layers[0].attn.wq.w.dtype != torch.float32:
+        fail("arms lora: the frozen backbone is not float32")
+    res = {"trainable": policies.trainable_count(model, mask),
+           "frozen": policies.frozen_count(model, mask),
+           "model_bytes": model_bytes(model)}
+    res["train"] = arm_train(torch, "lora", api, cfg, model, mask, data,
+                             LORA_FP_STEPS, {})
+    if res["train"]["state_bytes"] != 8 * res["trainable"]:
+        fail(f"arms lora: state {res['train']['state_bytes']} bytes")
+    for n, p in model.named_parameters():
+        if n in frozen and not torch.equal(p, frozen[n]):
+            fail(f"arms lora: frozen {n} changed")
+    res["frozen_checked"] = len(frozen)
+    del frozen
+
+    def first_decode():
+        with torch.inference_mode():
+            logits, cache = api.prefill(model, {"tokens": prompt.to("cuda")})
+            full = api.init_cache(BATCH, PROMPT + 1)
+            for key in full:
+                full[key][:, :, :PROMPT] = cache[key]
+            nxt = logits.argmax(-1)[:, None]
+            step_logits, _ = api.decode_step(model, full, nxt, PROMPT)
+        return logits, step_logits
+
+    for k in ops.KERNELS:
+        k.launches = 0
+    pre, dec = first_decode()
+    attn = {k.__name__: k.launches for k in ops.KERNELS if k.launches}
+    layer0 = {f"/layers/{g}/{n}/w": getattr(getattr(model.layers[0], g),
+                                             n).w.detach().clone()
+              for g, n in (("attn", "wq"), ("attn", "wk"), ("attn", "wv"),
+                           ("attn", "wo"), ("mlp", "up"), ("mlp", "gate"),
+                           ("mlp", "down"))}
+    lora.merge_lora(model, cfg.tuning)
+    if lora.lora_param_count(model):
+        fail("arms lora: merge_lora left adapters")
+    pre_m, dec_m = first_decode()
+    errs = {}
+    for what, a, b in (("prefill", pre, pre_m), ("decode", dec, dec_m)):
+        tol = 2 ** -5 * float(a.abs().max())
+        errs[what] = float((a - b).abs().max())
+        if not errs[what] <= tol:
+            fail(f"arms lora: merged {what} logits {errs[what]:.4f} from "
+                 f"the unmerged model's, beyond 2^-5 of the largest ({tol})")
+    res["merge"] = {"max_abs_diff": errs, "largest_logit": float(
+        dec.abs().max()), "launches_unmerged": attn,
+        "top1_equal_share": (dec.argmax(-1) == dec_m.argmax(-1)
+                             ).float().mean().item()}
+    del model, trained
+    torch.cuda.empty_cache()
+    return res, layer0
+
+
+def arms_qat(torch, data) -> dict:
+    """QAT at full width: every float tensor trained (w, RTN-initialised
+    scales and zero points, norms, a float32 table that must move at step
+    1); its peak memory with the update's parts and its state."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import policies
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.optim.adamw import make_optimizer
+    from repro_torch.train import step
+    from repro_torch.train.state import make_state
+    cfg = arm_cfg("qat")
+    tcfg = TrainConfig(steps=TRAIN_STEPS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    api = registry.build(cfg)
+    t0 = time.perf_counter()
+    model, mask = policies.prepare(api.init(SEED), cfg)
+    torch.cuda.synchronize()
+    prepare_s = time.perf_counter() - t0
+    table = model.embed.emb
+    if table.dtype != torch.float32 or not mask["embed.emb"]:
+        fail(f"arms qat: the token table is {table.dtype}, trained "
+             f"{mask['embed.emb']}; expected a float32 master")
+    n_float = sum(p.numel() for n, p in model.named_parameters() if mask[n])
+    n_sz = sum(p.numel() for n, p in model.named_parameters()
+               if n.endswith((".scale", ".zero")))
+    if not all(mask.values()) or n_sz != 2 * cfg.n_layers * (
+            2 * cfg.d_model + 2 * cfg.n_kv_heads * cfg.d_head
+            + 2 * cfg.d_ff + cfg.d_model):
+        fail(f"arms qat: {n_sz} scales and zeros, mask {set(mask.values())}")
+    mbytes = torch.cuda.memory_allocated() - base
+    opt = make_optimizer(tcfg.optim, tcfg.steps)
+    state = make_state(model, opt.init(dict(model.named_parameters()), mask))
+    measured = MeasuredUpdate(torch, opt, base)
+    ts = step.build_train_step(api, cfg, tcfg, mask, measured)
+    batch0 = data.batch_at(0)
+    ids = torch.unique(torch.as_tensor(batch0["tokens"]).flatten())
+    rows0 = table.detach()[ids.to("cuda")].cpu()
+    scales0 = model.layers[0].attn.wq.scale.detach().clone()
+    for k in ops.KERNELS:
+        k.launches = 0
+    walls, peaks = [], [torch.cuda.max_memory_allocated() - base]
+    for i in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, metrics = ts(state, batch0 if i == 0 else data.batch_at(i))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        if i == 0:
+            moved = (table.detach()[ids.to("cuda")].cpu() != rows0
+                     ).float().mean().item()
+    launches = {k.__name__: k.launches for k in ops.KERNELS if k.launches}
+    if moved < 0.5 or launches:
+        fail(f"arms qat: step 1 moved {moved:.3f} of the table's entries "
+             f"in the batch's rows; launches {launches} (expected none)")
+    if torch.equal(model.layers[0].attn.wq.scale.detach(), scales0):
+        fail("arms qat: the scales did not move")
+    sbytes = opt.state_bytes(state["opt"])
+    if sbytes != 8 * n_float:
+        fail(f"arms qat: optimizer state {sbytes} bytes for {n_float} "
+             f"trained values")
+    if not math.isfinite(float(metrics["loss"])):
+        fail(f"arms qat: loss {float(metrics['loss'])}")
+    peak = max(peaks + [m for r in measured.steps
+                        for m in (r["fwd_bwd_peak"], r["update_peak"])])
+    res = {"trainable": n_float, "scales_and_zeros": n_sz,
+           "prepare_s": prepare_s, "model_bytes": mbytes,
+           "loss": float(metrics["loss"]), "step_ms": walls,
+           "median_step_ms": walls[-1], "peak_mem_gb": peak / 1e9,
+           "state_bytes": sbytes, "memory_by_step": measured.steps,
+           "table": {"dtype": "float32", "moved_share_step1": moved,
+                     "rows_checked": ids.numel()}}
+    del state, model, opt, measured, ts
+    torch.cuda.empty_cache()
+    return res
+
+
+def arms_alphatuning(torch, layer0) -> dict:
+    """AlphaTuning's BCQ (4 bits) of one layer's seven linears at full
+    width: ``bcq_weight`` against the float32 weights (residual, and bit-
+    equal to Σ α_b B_b of a direct ``bcq_decompose``), and
+    ``linear_apply_bcq`` forward (within the float32 summation bound of the
+    float64 product plus a bf16 rounding) and backward (only ``alpha1``
+    gets a gradient, within 2^-7 of float64 in ℓ2) at 8 × 256 rows."""
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.core import alphatuning as at
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = at.alphatuning_params(layer0, QuantConfig(bits=4))
+    torch.cuda.synchronize()
+    res = {"decompose_s": time.perf_counter() - t0, "linears": {}}
+    mask = at.alphatuning_mask(params)
+    if {p.rsplit("/", 1)[-1] for p, v in mask.items() if v} != {"alpha1"}:
+        fail(f"arms alphatuning: mask trains {mask}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    u = 2.0 ** -24
+    for path, w in layer0.items():
+        prefix = path[:-len("/w")]
+        p = at.linear_entry(params, prefix)
+        if p["signs"].dtype != torch.int8 or set(p) != {
+                "alpha1", "alpha_rest", "signs"}:
+            fail(f"arms alphatuning {prefix}: leaves {sorted(p)}")
+        wb = at.bcq_weight(p)
+        a, s = at.bcq_decompose(w, 4)
+        if not torch.equal(wb, at.bcq_apply(a, s)):
+            fail(f"arms alphatuning {prefix}: bcq_weight differs from "
+                 f"Σ α_b B_b of bcq_decompose")
+        resid = float((w - wb).norm() / w.norm())
+        if not resid < 0.2:
+            fail(f"arms alphatuning {prefix}: BCQ residual {resid:.3f}")
+        p = {k: v.detach() for k, v in p.items()}
+        p["alpha1"].requires_grad_(True)
+        n, k = w.shape
+        x = torch.randn(8 * 256, k, generator=gen, device="cuda"
+                        ).to(torch.bfloat16)
+        ct = torch.randn(8 * 256, n, generator=gen, device="cuda")
+        y = at.linear_apply_bcq(p, x)
+        (y.float() * ct).sum().backward()
+        wd, xd = wb.detach().to(torch.bfloat16).double(), x.double()
+        want = xd @ wd.T
+        bound = 2 * k * u * (xd.abs() @ wd.abs().T) + want.abs() * 2.0 ** -8
+        err = float(((y.detach().double() - want).abs() - bound).max())
+        # dα1[n] = Σ_m (ctᵀx)[n, m] · B_1[n, m]
+        g_want = ((ct.double().T @ xd) * p["signs"][0].double()).sum(-1)
+        g = p["alpha1"].grad
+        g_err = float((g.double() - g_want).norm() / g_want.norm())
+        if err > 0 or not g_err <= 2 ** -7 or p["alpha_rest"].grad is not \
+                None or p["alpha_rest"].requires_grad:
+            fail(f"arms alphatuning {prefix}: forward beyond its bound by "
+                 f"{err}, alpha1 gradient {g_err:.2e} from float64 in ℓ2, "
+                 f"alpha_rest grad {p['alpha_rest'].grad is not None}")
+        res["linears"][prefix] = {"shape": [n, k], "residual": resid,
+                                  "alpha1_grad_rel_l2": g_err}
+        del x, ct, y, want, bound, wd, xd
+    res["trainable"] = sum(params[q].numel() for q, v in mask.items() if v)
+    res["alpha_values"] = sum(params[q].numel() for q in params
+                              if "alpha" in q)
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_arms(torch, prompt, peqa, full) -> dict:
+    """The paper's comparison arms at llama3.2-1b (module docstring, phase
+    14); ``peqa`` and ``full`` are phase train's and train_full's figures,
+    printed beside them."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import pipeline, synthetic
+    cfg = arm_cfg("lora_optq")
+    tcfg = TrainConfig()
+    # phase train's corpus: the same call, the same seed
+    train_toks, _ = synthetic.split(synthetic.corpus(
+        cfg.vocab_size, TRAIN_TOKENS, seed=SEED))
+    data = pipeline.PackedLM(train_toks, tcfg.batch_size, tcfg.seq_len,
+                             seed=SEED)
+    calib = torch.as_tensor(train_toks[:ARMS_CALIB[0] * ARMS_CALIB[1]]
+                            .reshape(ARMS_CALIB).astype("int64"))
+    res = {"phase": "arms", "model": cfg.name, "layers": cfg.n_layers}
+    t0 = time.perf_counter()
+    res["lora_optq"] = arms_lora_optq(torch, data, calib, prompt)
+    res["lora_optq"]["seconds"] = time.perf_counter() - t0
+    emit({"phase": "arms_lora_optq", **res["lora_optq"]})
+    t0 = time.perf_counter()
+    res["lora"], layer0 = arms_lora_fp(torch, data, prompt)
+    res["lora"]["seconds"] = time.perf_counter() - t0
+    emit({"phase": "arms_lora", **res["lora"]})
+    res["alphatuning"] = arms_alphatuning(torch, layer0)
+    del layer0
+    emit({"phase": "arms_alphatuning", **res["alphatuning"]})
+    t0 = time.perf_counter()
+    res["qat"] = arms_qat(torch, data)
+    res["qat"]["seconds"] = time.perf_counter() - t0
+    emit({"phase": "arms_qat", **res["qat"]})
+    table = {"peqa": {"trainable": peqa["scales"],
+                      "state_bytes": peqa["dense"]["state_bytes"],
+                      "peak_mem_gb": peqa["dense"]["peak_mem_gb"],
+                      "median_step_ms": peqa["dense"]["median_step_ms"]},
+             "full": {"trainable": full["trainable"],
+                      "state_bytes": full["state_bytes"],
+                      "peak_mem_gb": full["peak_mem_gb"],
+                      "median_step_ms": full["step_ms"][-1]}}
+    for arm in ("lora_optq", "lora"):
+        tr = res[arm]["train"]
+        table[arm] = {"trainable": res[arm]["trainable"],
+                      "state_bytes": tr["state_bytes"],
+                      "peak_mem_gb": tr["peak_mem_gb"],
+                      "median_step_ms": tr["median_step_ms"]}
+    q = res["qat"]
+    table["qat"] = {k: q[k] for k in ("trainable", "state_bytes",
+                                      "peak_mem_gb", "median_step_ms")}
+    res["table"] = table
+    emit({"phase": "arms_table", "model": cfg.name, "arms": table})
+    return res
+
+
 def main() -> None:
     try:
         import torch
@@ -3250,13 +3812,16 @@ def main() -> None:
         dense_cfg("starcoder2-7b"), layouts=("nibble",))
     run("check", phase_check, torch, main_path["cfg"])
     train = run("train", phase_train, torch, main_path)
-    run("train_full", phase_train_full, torch, main_path, train)
+    full = run("train_full", phase_train_full, torch, main_path, train)
     # llama3.2-1b's models go before the 7B ones are made
     llama_cfg = main_path["cfg"]
     main_launches = dict(main_path["res"]["launches"])
+    prompt = main_path["prompt"]
+    peqa = {"scales": train["scales"], "dense": train["dense"]}
     del main_path, train
     torch.cuda.empty_cache()
     dense = run("dense_archs", phase_dense_archs, torch)
+    arms = run("arms", phase_arms, torch, prompt, peqa, full)
     if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
                                    for m in sys.modules):
         fail("the port loaded JAX or the JAX package")
@@ -3324,7 +3889,8 @@ def main() -> None:
           "dense_archs": {m: {"generate": r["generate"], "train": {
               k: r["train"][k] for k in ("median_step_ms", "peak_mem_gb",
                                          "state_bytes")}}
-              for m, r in dense.items() if m != "phase"}})
+              for m, r in dense.items() if m != "phase"},
+          "arms": arms["table"]})
     print(dev["gpu"], flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -11,12 +11,18 @@ the same path WITHOUT the leading slash (``layers/attn/wq/scale``,
 layers, (L, N, G) — so a reference bank's ``tasks[name]`` dicts and npz
 files go into the port's ``ScaleBank`` unchanged, and back.
 
+A linear's storage follows from the leaves present, as in the reference:
+``qw`` makes it quantized, ``scale`` beside ``w`` QAT's fake-quantized
+form, and ``lora_a``/``lora_b`` (stacked (L, r, in) and (L, out, r)) add an
+adapter to either.
+
 Packed codes are ``uint32`` in the reference and the same bits as ``int32``
-here.  A frozen token table (``peqa``, ``peqa_z``) is stored in the
-activation dtype here (``models.common.table_dtype``), so a bf16 model's
-round trip rounds ``emb``; a trained one (``full``) is float32, as the
-reference's, and every other leaf — biases, LayerNorm gains and biases,
-an untied ``lm_head`` — round-trips exactly.
+here.  A frozen token table (``peqa``, ``peqa_z``, ``lora``, ``lora_optq``) is
+stored in the activation dtype here (``models.common.table_dtype``), so a
+bf16 model's round trip rounds ``emb``; a trained one (``full``, ``qat``)
+is float32, as the reference's, and every other leaf — biases, LayerNorm
+gains and biases, an untied ``lm_head``, adapters, QAT's scales — round-
+trips exactly.
 
 The train state crosses too (``state_to_tree`` / ``load_state``): the
 reference's state is ``{"params": tree, "opt": {"mv": …, "count"}, "step"}``
@@ -89,11 +95,18 @@ def to_module(tree: dict, cfg: ModelConfig, *, device=None
     flat = _flatten(tree)
     model = transformer.Transformer(cfg, device=dev)
     for name, mod in model.named_modules():
-        if isinstance(mod, Linear) and ref_path(f"{name}.qw") in flat:
-            mod.set_quantized(*(_to_torch(_layer(_node(
-                tree, f"{name}.{k}"), name)).to(dev) for k in ("qw", "scale",
-                                                                "zero")),
+        if not isinstance(mod, Linear):
+            continue
+        leaf = lambda k: _to_torch(_layer(_node(tree, f"{name}.{k}"),
+                                          name)).to(dev)
+        has = lambda k: ref_path(f"{name}.{k}") in flat
+        if has("qw"):
+            mod.set_quantized(leaf("qw"), leaf("scale"), leaf("zero"),
                               cfg.quant.spec())
+        elif has("scale"):
+            mod.set_fake_quant(leaf("scale"), leaf("zero"), cfg.quant.spec())
+        if has("lora_a"):
+            mod.set_lora(leaf("lora_a"), leaf("lora_b"))
     extra = sorted(set(flat) - {ref_path(n) for n, _ in _tensors(model)})
     if extra:
         raise KeyError(f"reference leaves the port's model has no tensor "

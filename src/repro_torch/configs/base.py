@@ -32,7 +32,10 @@ class QuantConfig:
 class TuningConfig:
     """Which fine-tuning method — the paper's comparison axis."""
 
-    mode: str = "peqa"                 # full | peqa | peqa_z (others not ported yet)
+    mode: str = "peqa"                 # full | lora | lora_optq | qat | peqa | peqa_z
+    lora_rank: int = 4
+    lora_targets: Tuple[str, ...] = ("wq", "wv")   # QV4; QKVO16 = all 4, r=16
+    lora_alpha: float = 1.0
     train_zero_points: bool = False    # Table 17 ablation (peqa_z)
 
 

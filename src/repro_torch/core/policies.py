@@ -1,43 +1,61 @@
-"""TuningPolicy: prepares (model, trainable mask) for a comparison arm (port
-of ``repro/core/policies.py`` for the ``full``, ``peqa`` and ``peqa_z``
-arms).
+"""TuningPolicy: prepares (model, trainable mask) for any of the paper's
+comparison arms (port of ``repro/core/policies.py``).
 
-    full   — full fine-tuning (fp backbone, every float tensor trainable)
-    peqa   — the paper: integer backbone frozen, ONLY scales trainable
-    peqa_z — Table 17 ablation: scales + zero-points trainable (also peqa
-             with ``tuning.train_zero_points``)
+    full      — full fine-tuning (fp backbone, every float tensor trainable)
+    lora      — LoRA on the fp backbone (the paper's PEFT baseline)
+    lora_optq — LoRA on a quantized backbone (the PTQ+PEFT arm): RTN here,
+                as the reference's ``transform``; the OPTQ backbone is
+                ``core.gptq.gptq_quantize_transformer`` then
+                ``core.lora.add_lora``, as ``benchmarks/common.py`` composes
+                them, with this arm's mask
+    qat       — fake-quant STE, w + scales + zero points trainable (the
+                upper bound)
+    peqa      — the paper: integer backbone frozen, ONLY scales trainable
+    peqa_z    — Table 17 ablation: scales + zero-points trainable (also peqa
+                with ``tuning.train_zero_points``)
 
-The other arms are not ported yet and raise ``NotImplementedError``.  The
-mask names every parameter (the codes are buffers, always frozen); the
+The mask names every parameter (the codes are buffers, always frozen); the
 trainable mask drives the masked optimizer (``optim/adamw.py``), which
 keeps no state for frozen tensors.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
+import torch
 from torch import nn
 
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import peqa
+from repro_torch.core import lora, peqa, qat
 
-PORTED_MODES = ("full", "peqa", "peqa_z")
+MODES = ("full", "lora", "lora_optq", "qat", "peqa", "peqa_z")
 
 
 def _check_mode(mode: str) -> None:
-    if mode not in PORTED_MODES:
-        raise NotImplementedError(
-            f"tuning mode {mode!r} is not ported yet (have {PORTED_MODES})")
+    if mode not in MODES:
+        raise ValueError(f"unknown tuning mode {mode!r}")
 
 
-def transform(model: nn.Module, cfg: ModelConfig, *, device=None) -> nn.Module:
+def transform(model: nn.Module, cfg: ModelConfig, *, device=None,
+              generator: Optional[torch.Generator] = None) -> nn.Module:
     """fp-initialized model → policy model, in place, on ``device`` (the
-    card unless ``device="cpu"``)."""
-    _check_mode(cfg.tuning.mode)
-    if cfg.tuning.mode in ("peqa", "peqa_z"):
-        return peqa.quantize_params(model, cfg.quant, device=device)
-    return model.to(_device.resolve(device))
+    card unless ``device="cpu"``).  ``generator`` draws the LoRA arms'
+    ``lora_a`` (on ``device``; seed 0 when None)."""
+    mode = cfg.tuning.mode
+    _check_mode(mode)
+    dev = _device.resolve(device)
+    if mode in ("lora_optq", "peqa", "peqa_z"):
+        model = peqa.quantize_params(model, cfg.quant, device=dev)
+    else:
+        model = model.to(dev)
+    if mode == "qat":
+        qat.add_fake_quant(model, cfg.quant)
+    if mode in ("lora", "lora_optq"):
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        lora.add_lora(model, generator, cfg.tuning)
+    return model
 
 
 def make_mask(model: nn.Module, cfg: ModelConfig) -> Dict[str, bool]:
@@ -49,17 +67,22 @@ def make_mask(model: nn.Module, cfg: ModelConfig) -> Dict[str, bool]:
     mask = {}
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        train = p.is_floating_point() if mode == "full" \
-            else leaf == "scale" or (train_zero and leaf == "zero")
+        if mode in ("full", "qat"):
+            train = p.is_floating_point()
+        elif mode in ("lora", "lora_optq"):
+            train = "lora" in name
+        else:
+            train = leaf == "scale" or (train_zero and leaf == "zero")
         p.requires_grad_(train)
         mask[name] = train
     return mask
 
 
-def prepare(model: nn.Module, cfg: ModelConfig, *, device=None
+def prepare(model: nn.Module, cfg: ModelConfig, *, device=None,
+            generator: Optional[torch.Generator] = None
             ) -> Tuple[nn.Module, Dict[str, bool]]:
     """fp-initialized model → (policy model, trainable mask)."""
-    model = transform(model, cfg, device=device)
+    model = transform(model, cfg, device=device, generator=generator)
     return model, make_mask(model, cfg)
 
 

@@ -157,11 +157,12 @@ def mlp_apply(p: MLP, x: torch.Tensor, cfg: ModelConfig,
 
 def table_dtype(cfg: ModelConfig) -> torch.dtype:
     """The token table's storage dtype: float32 when the tuning mode
-    trains it (``full``), as the reference keeps and updates it — a bf16
-    table would drop every Adam update under half its ulp —, else the
-    activation dtype, since a frozen table is only ever read cast to it
+    trains it (``full``, ``qat``), as the reference keeps and updates it —
+    a bf16 table would drop every Adam update under half its ulp —, else
+    the activation dtype, since a frozen table is only ever read cast to it
     (lookup and tied head): the same forward at half the memory."""
-    return torch.float32 if cfg.tuning.mode == "full" else model_dtype(cfg)
+    return torch.float32 if cfg.tuning.mode in ("full", "qat") \
+        else model_dtype(cfg)
 
 
 class Embed(nn.Module):

@@ -88,8 +88,15 @@ def check_supported(cfg: ModelConfig) -> None:
     if bad:
         raise NotImplementedError(
             f"{cfg.name}: not ported yet: {'; '.join(bad)}")
-    if cfg.tuning.mode in ("peqa", "peqa_z"):
+    if cfg.tuning.mode in ("lora_optq", "peqa", "peqa_z"):
         cfg.quant.spec().check_ported()
+    if cfg.tuning.mode == "lora_optq" and cfg.quant.layout == "plane":
+        raise NotImplementedError(
+            f"{cfg.name}: lora_optq on layout='plane' is refused: the "
+            f"reference's add_lora reads a quantized linear's input width as "
+            f"qw.shape[-1] * 8, which is in/4 for (bits, out, in/32) "
+            f"bit-planes, and its GPTQ writes nibble words whatever the "
+            f"layout (use layout='nibble')")
 
 
 def build(cfg: ModelConfig, device=None) -> ModelAPI:

@@ -9,7 +9,8 @@ a torn write skipped, keep-k, async save, a reference checkpoint restored
 into the port and a port checkpoint into the reference (every array
 equal), and a resumed ``train.loop.train`` run whose losses equal an
 uninterrupted one's bit for bit (the batches are a function of the step,
-and the state is restored exactly).
+and the state is restored exactly); the same both ways for the comparison
+arms' leaves (``lora``, ``lora_optq``, ``qat``), and a resumed LoRA run.
 """
 import os
 
@@ -170,6 +171,59 @@ def test_resumed_run_equals_uninterrupted(tmp_path, compression):
     assert [h["loss"] for h in resumed] == [h["loss"] for h in whole[3:]]
     assert state["step"] == 5
     assert CheckpointManager(str(tmp_path)).all_steps()[-1] == 5
+
+
+@pytest.mark.parametrize("mode", ["lora", "lora_optq", "qat"])
+def test_arm_checkpoint_round_trip_both_ways(tmp_path, mode):
+    """A reference checkpoint of a comparison arm after one train step
+    (moments non-zero: the adapter's, or QAT's for every float tensor) —
+    lora_a/lora_b beside w or beside qw/scale/zero, QAT's w + scale + zero
+    in one subtree — restored into the port, and the port's written back
+    and restored into the reference: every array equal."""
+    jcfg, tcfg = tiny_llama_pair(mode)
+    _, batches = _batches(tcfg.vocab_size)
+    start, jstate = _reference_state(jcfg, batches[0])
+    JManager(str(tmp_path / "ref")).save(1, jstate)
+    _, mask, _, state = _port_state(tcfg, start)
+    restored, extra = CheckpointManager(str(tmp_path / "ref")).restore(
+        bridge.state_to_tree(state))
+    bridge.load_state(state, restored)
+    assert extra["step"] == 1
+    _assert_trees_equal(to_numpy(jstate), bridge.state_to_tree(state))
+    names = set(state["opt"]["mv"])
+    leaves = {"lora": {"lora_a", "lora_b"}, "lora_optq": {"lora_a", "lora_b"},
+              "qat": {"w", "scale", "zero", "g", "emb"}}[mode]
+    assert names and {n.rsplit(".", 1)[-1] for n in names} == leaves
+    CheckpointManager(str(tmp_path / "port")).save(
+        1, bridge.state_to_tree(state))
+    back, extra = JManager(str(tmp_path / "port")).restore(jstate)
+    assert extra["step"] == 1
+    _assert_trees_equal(bridge.state_to_tree(state), back)
+
+
+@pytest.mark.parametrize("mode", ["lora", "lora_optq"])
+def test_resumed_lora_run_equals_uninterrupted(tmp_path, mode):
+    """A LoRA arm's run resumed from its checkpoint (the adapter and its
+    moments) gives the uninterrupted run's losses bit for bit."""
+    jcfg, tcfg = tiny_llama_pair(mode)
+    _, tree = reference_params(jcfg)
+    data, _ = _batches(tcfg.vocab_size)
+    ocfg = OptimConfig(**OCFG)
+
+    def run(steps, ckpt_dir):
+        api, mask, opt, state = _port_state(tcfg, to_numpy(tree))
+        tc = TrainConfig(steps=steps, log_every=1, ckpt_every=2, optim=ocfg)
+        ts = step.build_train_step(api, tcfg, tc, mask, opt)
+        return loop.train(state, ts, data, tc, ckpt_dir=ckpt_dir,
+                          log=lambda msg: None)
+
+    whole_state, whole = run(5, None)
+    run(3, str(tmp_path))
+    state, resumed = run(5, str(tmp_path))
+    assert [h["step"] for h in resumed] == [4, 5]
+    assert [h["loss"] for h in resumed] == [h["loss"] for h in whole[3:]]
+    _assert_trees_equal(bridge.state_to_tree(whole_state),
+                        bridge.state_to_tree(state))
 
 
 def test_watchdog_flags_a_slow_step():

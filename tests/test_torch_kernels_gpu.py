@@ -1076,3 +1076,127 @@ def test_fp_linear_takes_the_tensor_cores_within_f32_bound(cuda):
         bound = 2 * terms * 2.0 ** -24 * mag + want.abs() * 2.0 ** -8
         assert ((got.double() - want).abs() <= bound).all()
     assert lin.w.grad.dtype == torch.float32
+
+
+# ------------------------------------------------ the comparison arms
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("remat", ["none", "block"])
+def test_lora_optq_step_takes_k2_and_computes_dx_only(cuda, monkeypatch,
+                                                      remat):
+    """A LoRA-on-quantized-backbone train step of a 2-layer llama3.2-1b at
+    full width (B 2 × 128 tokens: K2 at M = 256): K2 once a quantized
+    linear in the forward (and again in the recompute under remat
+    "block"), no GEMV; the quantized backward asked for dx only (no ds, no
+    dz: the scales are frozen), and not at all by layer 0's q/k/v; the codes, scales and zeros bit-equal after
+    the update, every adapter moved."""
+    from repro_torch import configs
+    from repro_torch.configs.base import QuantConfig, TrainConfig, TuningConfig
+    from repro_torch.core import policies
+    from repro_torch.models import registry
+    from repro_torch.optim.adamw import make_optimizer
+    from repro_torch.train import step
+    from repro_torch.train.state import make_state
+    cfg = configs.get_config("llama3.2-1b").replace(
+        n_layers=2, remat=remat, tuning=TuningConfig(mode="lora_optq"),
+        quant=QuantConfig(bits=4, n_grid=1))
+    api = registry.build(cfg)
+    model, mask = policies.prepare(api.init(0), cfg)
+    with torch.no_grad():                     # a non-zero adapter
+        for name, p in model.named_parameters():
+            if name.endswith("lora_b"):
+                p.normal_(0, 0.02, generator=torch.Generator(
+                    device="cuda").manual_seed(7))
+    needs = []
+    bwd = ops.quant_matmul_bwd
+    monkeypatch.setattr(ops, "quant_matmul_bwd", lambda *a, **k: (
+        needs.append(tuple(a[-1]) if len(a) > 6 else k.get("need"))
+        or bwd(*a, **k)))
+    frozen = {n: t.clone() for n, t in list(model.named_parameters())
+              + list(model.named_buffers()) if not mask.get(n)}
+    adapters = {n: p.detach().clone() for n, p in model.named_parameters()
+                if mask[n]}
+    assert adapters and all("lora" in n for n in adapters)
+    tcfg = TrainConfig(steps=1, batch_size=2, seq_len=128)
+    opt = make_optimizer(tcfg.optim, 1)
+    state = make_state(model, opt.init(dict(model.named_parameters()), mask))
+    ts = step.build_train_step(api, cfg, tcfg, mask, opt)
+    toks = torch.randint(0, cfg.vocab_size, (2, 129),
+                         generator=torch.Generator().manual_seed(1))
+    k2, k1 = qm.quant_matmul.launches, qm.quant_gemv.launches
+    state, metrics = ts(state, {"tokens": toks[:, :-1],
+                                "labels": toks[:, 1:]})
+    torch.cuda.synchronize()
+    n_lin = cfg.n_layers * 7
+    assert qm.quant_matmul.launches - k2 == n_lin * (2 if remat == "block"
+                                                     else 1)
+    assert qm.quant_gemv.launches == k1
+    # layer 0's q, k and v read the frozen table's rows: nothing upstream
+    # wants a gradient, so their products make no autograd node
+    assert len(needs) == n_lin - 3 and all(nd == (True, False, False)
+                                           for nd in needs)
+    assert torch.isfinite(metrics["loss"])
+    for n, t in list(model.named_parameters()) + list(model.named_buffers()):
+        if n in frozen:
+            assert torch.equal(t, frozen[n]), n
+    assert all(not torch.equal(p, adapters[n])
+               for n, p in model.named_parameters() if n in adapters)
+    assert opt.state_bytes(state["opt"]) == 8 * sum(
+        t.numel() for t in adapters.values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [4, 2048])
+def test_lora_delta_on_the_card_within_bound(cuda, m):
+    """The adapter's delta at llama3.2-1b's q projection (r 4, bf16 x):
+    the first product ``ops.dot_f32`` rounded to bf16 within its float32
+    summation bound of float64 plus one bf16 rounding, the second likewise
+    from that intermediate; ``linear.apply`` adds exactly that delta after
+    the K2/K1 product."""
+    from repro_torch.models import linear
+    k, n, r = 2048, 2048, 4
+    g = torch.Generator(device="cuda").manual_seed(m)
+    x = torch.randn(m, k, generator=g, device=cuda).to(torch.bfloat16)
+    a = torch.randn(r, k, generator=g, device=cuda) * k ** -0.5
+    b = torch.randn(n, r, generator=g, device=cuda) * 0.02
+    u = 2.0 ** -24
+    t = ops.dot_f32(x, a.to(torch.bfloat16)).to(torch.bfloat16)
+    xd, ad = x.double(), a.to(torch.bfloat16).double()
+    want = xd @ ad.T
+    bound = 2 * k * u * (xd.abs() @ ad.abs().T) + want.abs() * 2.0 ** -8
+    assert ((t.double() - want).abs() <= bound).all()
+    delta = linear.lora_delta(x, a, b)
+    td, bd = t.double(), b.to(torch.bfloat16).double()
+    want = td @ bd.T
+    bound = 2 * r * u * (td.abs() @ bd.abs().T) + want.abs() * 2.0 ** -8
+    assert ((delta.double() - want).abs() <= bound).all()
+    lin = linear.Linear(k, n, device=cuda)
+    lin.reset_parameters(torch.Generator(device="cuda").manual_seed(2))
+    spec = QuantSpec(bits=4)
+    q, s, z = rtn_quantize(lin.w.detach(), spec, n_grid=1)
+    lin.set_quantized(pack_codes(q), s, z, spec)
+    with torch.no_grad():
+        base = linear.apply(lin, x)
+        lin.set_lora(a, b)
+        assert torch.equal(linear.apply(lin, x), base + delta)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,m,group", [(512, 2048, None), (256, 1024, 128)])
+def test_gptq_graphed_column_loop_equals_eager(cuda, n, m, group):
+    """GPTQ's column loop replayed from its CUDA graph (captured at the
+    first matrix of a shape, replayed for the next) gives the eager loop's
+    codes, scales and zeros bit for bit."""
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.core import gptq
+    qcfg = QuantConfig(bits=4, group_size=group, n_grid=8)
+    g = torch.Generator(device="cuda").manual_seed(n)
+    graphs = {}
+    for _ in range(2):
+        w = torch.randn(n, m, generator=g, device=cuda) * m ** -0.5
+        x = torch.randn(1024, m // 4, generator=g, device=cuda) @ \
+            torch.randn(m // 4, m, generator=g, device=cuda)
+        eager = gptq.gptq_quantize_matrix(w, x, qcfg)
+        graphed = gptq.gptq_quantize_matrix(w, x, qcfg, graphs=graphs)
+        assert all(torch.equal(a, b) for a, b in zip(eager, graphed))
+    assert len(graphs) == 1

@@ -158,9 +158,15 @@ def test_policies_masks(pair):
     model, mask = policies.prepare(bridge.to_module(fp_np, full, device="cpu"),
                                    full, device="cpu")
     assert all(mask.values()) and "layers.0.attn.wq.w" in mask
-    lora = tcfg.replace(tuning=tcfg.tuning.__class__(mode="lora"))
-    with pytest.raises(NotImplementedError, match="lora"):
-        policies.prepare(model, lora, device="cpu")
+    # every arm is ported; LoRA on bit-plane codes stays refused (the
+    # reference's add_lora misreads a plane buffer's input width)
+    lora = tcfg.replace(tuning=tcfg.tuning.__class__(mode="lora_optq"),
+                        quant=tcfg.quant.__class__(layout="plane"))
+    with pytest.raises(NotImplementedError, match="in/4"):
+        registry.build(lora, device="cpu")
+    with pytest.raises(ValueError, match="unknown tuning mode"):
+        policies.prepare(model, tcfg.replace(
+            tuning=tcfg.tuning.__class__(mode="bitfit")), device="cpu")
 
 
 @pytest.mark.parametrize("change", [

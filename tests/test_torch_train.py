@@ -6,9 +6,12 @@
   * ``data``: ``corpus``, ``split``, ``unigram_entropy``,
     ``PackedLM.batch_at`` and ``eval_batches`` bitwise;
   * the train step on ``make_tiny(get_config("llama3.2-1b"))`` with 2 KV
-    heads: 3 steps from bridged parameters under ``full``, ``peqa`` and
-    ``peqa_z``, dense and chunked attention, remat none and block, float32
-    and bfloat16, against ``repro.train.step.build_train_step``;
+    heads: 3 steps from bridged parameters under every arm (``full``,
+    ``lora``, ``lora_optq``, ``qat``, ``peqa``, ``peqa_z``), dense and
+    chunked attention, remat none and block, float32 and bfloat16, against
+    ``repro.train.step.build_train_step`` (a LoRA arm's ``lora_b`` starts
+    from seeded non-zero values, ``LORA_B_STD``, and once, in float32, from
+    the reference's zero);
   * the quickstart flow (``repro_torch.train.quickstart``) at a few steps.
 
 Tolerances.  Optimizer: elementwise float32 arithmetic in the reference's
@@ -28,9 +31,10 @@ into about ±lr at the first steps, so a gradient within that noise of 0
 flips its update, and a few such elements dominate an ℓ2 distance: the
 updates are held in ℓ1, to 10% of the reference's.  A frozen token
 table is kept in bf16 by the port (``models.common.table_dtype``): it
-equals the reference's rounded to bf16; a trained one (``full``) is a
-float32 master, as the reference's, and is held like every other trained
-leaf.  The integer codes are bit-equal after training, and the optimizer
+equals the reference's rounded to bf16; a trained one (``full``, ``qat``)
+is a float32 master, as the reference's, and is held like every other
+trained leaf.  Every frozen tensor — a LoRA arm's float32 backbone too —
+is bit-equal to where it started.  The integer codes are bit-equal after training, and the optimizer
 state has the reference's bytes.
 """
 import jax
@@ -191,10 +195,35 @@ def _configs(mode, dtype, attn, remat):
     return jcfg.replace(**kw), tcfg.replace(**kw)
 
 
-def _reference_run(jcfg, batches, ocfg):
+# the LoRA arms' lora_b at the start of a compared run: seeded N(0, σ²)
+# entries (None: the reference's zero init).  From zero, Adam's first step
+# moves every lora_b entry by ±lr, an entry whose gradient lies within
+# bf16's noise of 0 takes the opposite sign in one package, and lora_a's
+# gradient — linear in lora_b — carries that into its update: in bf16 the
+# lora_a updates then differ by 16% in ℓ1 although the gradients agree to
+# ~1% in ℓ2 as in every other arm (``test_torch_policies.py``)
+LORA_B_STD = 0.02
+
+
+def seeded_adapter(params, std, seed=11):
+    """``params`` with every ``lora_b`` leaf replaced by N(0, std²) values
+    from ``seed`` (numpy), the rest unchanged."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(kp, val):
+        if str(getattr(kp[-1], "key", "")) != "lora_b":
+            return val
+        return jnp.asarray((rng.normal(size=val.shape) * std
+                            ).astype(np.float32))
+    return jax.tree_util.tree_map_with_path(leaf, params)
+
+
+def _reference_run(jcfg, batches, ocfg, lora_b_std=LORA_B_STD):
     fp, _ = reference_params(jcfg.replace(dtype="float32"))
     api = jregistry.build(jcfg)
     params, mask = jpolicies.prepare(fp, jcfg)
+    if lora_b_std is not None:
+        params = seeded_adapter(params, lora_b_std)
     start = to_numpy(params)
     opt = jmake_optimizer(JOptim(**ocfg), 10)
     state = {"params": params, "opt": opt.init(params, mask),
@@ -235,6 +264,12 @@ TRAIN_CASES = [  # (mode, dtype, attn_impl, remat)
     ("peqa", "bfloat16", "chunked", "none"),
     ("peqa_z", "bfloat16", "chunked", "block"),
     ("full", "bfloat16", "dense", "none"),
+    ("lora", "float32", "dense", "none"),
+    ("lora", "bfloat16", "chunked", "block"),
+    ("lora_optq", "float32", "chunked", "block"),
+    ("lora_optq", "bfloat16", "dense", "none"),
+    ("qat", "float32", "dense", "block"),
+    ("qat", "bfloat16", "dense", "none"),
 ]
 
 
@@ -251,12 +286,21 @@ def test_train_step_matches_reference_at_the_papers_lr(mode, dtype, attn,
     _check_train_steps(mode, dtype, attn, remat, dict(OCFG, lr=PAPER_LR))
 
 
-def _check_train_steps(mode, dtype, attn, remat, ocfg):
+def test_lora_train_step_from_the_zero_init():
+    """The LoRA arm from the reference's own adapter (lora_b = 0, so step 1
+    moves only lora_b), float32."""
+    _check_train_steps("lora", "float32", "dense", "block", OCFG,
+                       lora_b_std=None)
+
+
+def _check_train_steps(mode, dtype, attn, remat, ocfg,
+                       lora_b_std=LORA_B_STD):
     jcfg, tcfg = _configs(mode, dtype, attn, remat)
     data = pipeline.PackedLM(synthetic.corpus(tcfg.vocab_size, 2000, seed=4),
                              B, S)
     batches = [data.batch_at(i) for i in range(STEPS)]
-    start, want, jhist, jbytes = _reference_run(jcfg, batches, ocfg)
+    start, want, jhist, jbytes = _reference_run(jcfg, batches, ocfg,
+                                                lora_b_std)
     got, thist, tbytes, state = _port_run(tcfg, start, batches, ocfg)
     assert tbytes == jbytes
     bf16 = dtype == "bfloat16"
@@ -272,7 +316,9 @@ def _check_train_steps(mode, dtype, attn, remat, ocfg):
     fs, fw, fg = flat(start), flat(want), flat(got)
     assert fw.keys() == fg.keys()
     trained = [k for k in fw if not np.array_equal(fs[k], fw[k])]
-    expect = {"full": "", "peqa": "scale", "peqa_z": ("scale", "zero")}[mode]
+    expect = {"full": "", "qat": "", "peqa": "scale",
+              "peqa_z": ("scale", "zero"), "lora": ("lora_a", "lora_b"),
+              "lora_optq": ("lora_a", "lora_b")}[mode]
     assert trained and all(k.endswith(expect) for k in trained), trained
     for key in fw:
         a, b, s0 = (np.asarray(t[key]) for t in (fw, fg, fs))
@@ -321,7 +367,7 @@ def test_eval_step_makes_no_graph_and_remat_keeps_the_loss():
 
 
 def test_policy_counts_match_reference():
-    for mode in ("full", "peqa", "peqa_z"):
+    for mode in policies.MODES:
         jcfg, tcfg = tiny_llama_pair(mode)
         fp, _ = reference_params(jcfg)
         jp, jmask = jpolicies.prepare(fp, jcfg)
