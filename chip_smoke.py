@@ -65,7 +65,10 @@ line:
                × 256), the lockstep decode, the slot pool's decode and
                verify and a ring's decode (offset past every key);
   3. main    — llama3.2-1b at full width from a seeded generator, PEQA
-               4-bit per-channel RTN (n_grid 20), Engine.generate with
+               4-bit per-channel RTN (n_grid 20) through the layer-by-layer
+               build (``policies.build``, as every PEQA model of the run
+               but phase convert's, which times conversions of an fp
+               model), Engine.generate with
                B = 4, a 256-token prompt and 32 new tokens; the launch
                counters must show 16 × 7 K2 launches for the prefill and
                16 × 7 K1 and 16 K4 launches per decode step (on the card
@@ -146,7 +149,14 @@ line:
                own inputs within error_bound(factored=True)): starcoder2-7b,
                starcoder2-7b with a 64-slot sliding window over 256 + 96
                tokens (the ring wraps), qwen2-7b with the int8 KV cache,
-               and granite-34b (MQA);
+               and granite-34b (MQA).  And a 2-layer llava-next-mistral-7b
+               at full width: its layer-by-layer build bit-equal to the
+               whole build tensor by tensor, then its codes as 4 bit-planes
+               serving 6 requests with 576-row prefixes over 2 tasks in 4
+               slots, resident and speculative over resident (spec_k 3,
+               3-plane draft), gated as phase speculative (launches, the
+               checked verify bit-equal to decoding step by step, the
+               replayed draft, tokens equal to resident's, peak memory);
  11. train   — PEQA training (the paper's step 2) on phase main's backbone
                at full width and depth, TrainConfig's default batch of 8 ×
                256 tokens (K2 at M = 2048), remat="block", a synthetic
@@ -189,7 +199,7 @@ line:
                depth (28 layers, d_model 3584, 28 / 4 heads of 128, d_ff
                18944, vocab 152064, untied, q/k/v biases), bf16, random
                weights from the seed, PEQA 4-bit per-channel (n_grid 20):
-               its init and quantize seconds; Engine.generate (B 4, a
+               its build's seconds and peak; Engine.generate (B 4, a
                256-token prompt, 32 new tokens; 28 × 7 K2 launches for the
                prefill, 28 × 7 K1 and 28 K4 a decode step), a prefill and
                a decode step profiled as in phase profile; phase serve's
@@ -206,7 +216,34 @@ line:
                reckoned full-mode bytes); the untied head's time under the fp linear's
                earlier rule and under ``ops.dot_f32``.  Then starcoder2-7b
                at full width and depth (32 layers): generate with its
-               launch gates, and 2 train steps (the first checked).
+               launch gates, and 2 train steps (the first checked).  Then
+               granite-34b whole (88 layers, d_model 6144, 48 heads of 128
+               over one KV head, d_ff 24576, vocab 49152, untied): 186 GB
+               of float32 weights, so only the layer-by-layer build makes
+               it — its peak gated at the model's bytes plus two blocks'
+               float32 bytes; generate (B 4, 256 + 32 tokens: 616 K2
+               launches for the prefill, 616 K1 and 88 K4 a decode step),
+               the prefill's K2 calls and the first step's K1 calls each
+               held to plain.
+ 15. vlm     — (run before arms) llava-next-mistral-7b at full width
+               and depth (the mistral-7b backbone: 32 layers, d_model 4096,
+               32 / 8 heads of 128, d_ff 14336, vocab 32000, untied, rope θ
+               1e6), built layer by layer, bf16, PEQA 4-bit per-channel
+               (n_grid 20), seed 0; each image prefix 576 rows of seeded
+               N(0, 1) float32.  Build seconds, peak and model bytes;
+               Engine.generate(prefix=) with B 4, 576 + 256 tokens and 32
+               new (224 K2 launches for the prefill at M = 3328, 224 K1 and
+               32 K4 a decode step), the prefill's K2 calls and the first
+               step's K1 calls each held to plain, the logits moved by the
+               prefix; a prefill and a decode step profiled (the busy
+               share); 8 prefixed requests over 2 tasks (a burst each)
+               in 4 slots, prompts of 32–128 tokens and budgets of 16–32,
+               under drain and resident at serve's own capacity (which
+               counts the 576 prefix rows): identical tokens, the exact
+               launches; two
+               PEQA train steps of 4 × (576 + 256) rows, the loss on the
+               text rows, step 1's K2 calls each held to plain, state 8 B ×
+               the scales, peak memory and step ms.
  14. arms    — the paper's comparison arms at llama3.2-1b full width and
                depth (bf16, seed 0, QV4: rank 4 on wq and wv), the 7B
                models freed, on phase train's corpus and TrainConfig (8 ×
@@ -339,6 +376,18 @@ TRAIN_TOKENS = 120_000
 # dense_archs phase: PEQA train steps of qwen2-7b at 8 × 256 tokens (the
 # first checked call by call, not timed)
 DENSE_TRAIN_STEPS = 3
+# vlm phase: llava-next-mistral-7b at full width and depth, each image
+# prefix its n_img_tokens (576) rows of seeded N(0, 1) float32, as the
+# reference's serving workload makes them.  Serving: VLM_REQUESTS requests
+# over VLM_TASKS tasks (one burst a task) in VLM_SLOTS slots, the prompts
+# and budgets in turn; training: VLM_TRAIN_STEPS PEQA steps of
+# VLM_TRAIN_BATCH × (576 + 256) rows.  Phase check's 2-layer llava serves VLM_CHECK_REQUESTS requests of
+# VLM_CHECK_PROMPTS / VLM_CHECK_NEW in VLM_SLOTS slots, all at step 0
+VLM_REQUESTS, VLM_TASKS, VLM_SLOTS = 8, 2, 4
+VLM_PROMPTS, VLM_NEW = (32, 64, 96, 128), (16, 24, 32)
+VLM_TRAIN_STEPS, VLM_TRAIN_BATCH = 2, 4
+VLM_CHECK_REQUESTS, VLM_CHECK_PROMPTS, VLM_CHECK_NEW = 6, (32, 48, 64), \
+    (8, 12, 16)
 # arms phase: GPTQ's calibration tokens (B, S) from the train split, and
 # the train steps of LoRA on the float32 backbone (lora_optq takes
 # TRAIN_STEPS)
@@ -991,13 +1040,9 @@ def phase_main(torch) -> dict:
         quant=QuantConfig(bits=4, group_size=None, n_grid=20))
     api = registry.build(cfg)
     t0 = time.perf_counter()
-    model = api.init(SEED)
+    model, mask = policies.build(api, SEED)
     torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    model, mask = policies.prepare(model, cfg)
-    torch.cuda.synchronize()
-    quant_s = time.perf_counter() - t0
+    build_s = time.perf_counter() - t0
     engine = Engine(api, model)
     gen = torch.Generator().manual_seed(SEED)
     prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen)
@@ -1044,8 +1089,7 @@ def phase_main(torch) -> dict:
     prefill_s = sorted(pre)[1]
     res = {"phase": "main", "model": cfg.name, "layers": cfg.n_layers,
            "batch": BATCH, "prompt": PROMPT, "new_tokens": NEW,
-           "init_s": init_s, "quantize_s": quant_s,
-           "generate_s": total_s, "prefill_ms": prefill_s * 1e3,
+           "build_s": build_s, "generate_s": total_s, "prefill_ms": prefill_s * 1e3,
            "decode_ms_per_step": (total_s - prefill_s) * 1e3 / steps,
            "tokens_per_s": BATCH * NEW / total_s,
            "peak_mem_gb": peak / 1e9, "launches": launches,
@@ -1080,7 +1124,7 @@ def phase_convert(torch, main_path) -> dict:
     from repro_torch.models.linear import Linear
 
     res = {"phase": "convert",
-           "n_grid20_quantize_s": main_path["res"]["quantize_s"]}
+           "n_grid20_build_s": main_path["res"]["build_s"]}
     out = {}
     for layout, kernel in (("nibble", rp.rtn_pack),
                            ("plane", rp.rtn_pack_planes)):
@@ -1290,20 +1334,25 @@ def device_ms(torch, fn, top: int = 6) -> tuple:
 
 def phase_profile(torch, main_path, phase="profile") -> dict:
     """Where one prefill's and one decode step's time goes: device kernel
-    time (profiler) against the wall time of the same call.  Emits its
+    time (profiler) against the wall time of the same call.  A vlm's
+    ``main_path["prefix"]`` (B, P, d) goes before the prompt.  Emits its
     line under ``phase``."""
     api, model, prompt = main_path["api"], main_path["model"], main_path["prompt"]
+    prefix = main_path.get("prefix")
     res = {"phase": phase, "model": api.cfg.name}
     with torch.inference_mode():
-        tokens = prompt.to("cuda")
-        logits, pcache = api.prefill(model, {"tokens": tokens})
-        cache = api.init_cache(BATCH, PROMPT + 8)
+        batch = {"tokens": prompt.to("cuda")}
+        if prefix is not None:
+            batch["image_embeds"] = prefix
+        rows = PROMPT + (0 if prefix is None else prefix.shape[1])
+        logits, pcache = api.prefill(model, batch)
+        cache = api.init_cache(BATCH, rows + 8)
         for key in cache:
-            cache[key][:, :, :PROMPT] = pcache[key]
+            cache[key][:, :, :rows] = pcache[key]
         nxt = torch.argmax(logits, -1)[:, None]
         calls = {
-            "prefill": lambda: api.prefill(model, {"tokens": tokens}),
-            "decode_step": lambda: api.decode_step(model, cache, nxt, PROMPT),
+            "prefill": lambda: api.prefill(model, batch),
+            "decode_step": lambda: api.decode_step(model, cache, nxt, rows),
         }
         for name, fn in calls.items():
             fn()
@@ -1544,21 +1593,13 @@ def phase_serve(torch, main_path, phase="serve", probes=True) -> dict:
     K1.  Each run starts with the launch counters at 0.  With ``probes``,
     a profiled pool step of each and the resident run again at
     LONG_CACHE rows.  Emits its line under ``phase``."""
-    import numpy as np
-    from repro_torch.core.scale_bank import ScaleBank
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import quant_matmul as qm
     from repro_torch.serve import ServeConfig
     from repro_torch.train.serve import Engine
 
     api, model, cfg = main_path["api"], main_path["model"], main_path["cfg"]
-    bank = ScaleBank()
-    bank.add("t0", model)
-    rng = np.random.default_rng(SEED)
-    for t in range(1, N_TASKS):
-        bank.tasks[f"t{t}"] = {
-            k: (v * rng.uniform(0.9, 1.1, v.shape)).astype(v.dtype)
-            for k, v in bank.tasks["t0"].items()}
+    bank = task_bank(model, N_TASKS, SEED)
     reqs = serve_requests(cfg.vocab_size)
     n_lin = cfg.n_layers * 7
     short = sum(r.n_prompt <= 32 for r in reqs)    # prefills of <= 32 rows
@@ -1961,7 +2002,7 @@ def phase_invariance(torch, cfg, layouts=("nibble", "plane")) -> dict:
 
     cfg2 = cfg.replace(n_layers=2)
     api = registry.build(cfg2)
-    model, _ = policies.prepare(api.init(SEED), cfg2)
+    model, _ = policies.build(api, SEED)
     backbones = {"nibble": (model, cfg2)}
     if "plane" in layouts:
         plane = plane_backbone(torch, {"cfg": cfg2, "model": model})
@@ -2100,7 +2141,7 @@ def phase_check(torch, cfg) -> dict:
 
     cfg2 = cfg.replace(n_layers=2)
     api = registry.build(cfg2)
-    model, _ = policies.prepare(api.init(SEED), cfg2)
+    model, _ = policies.build(api, SEED)
     gen = torch.Generator().manual_seed(SEED + 2)
     prompt = torch.randint(0, cfg2.vocab_size, (BATCH, PROMPT), generator=gen)
     res = {"phase": "check", **check_path(torch, api, model, cfg2, prompt,
@@ -2108,11 +2149,12 @@ def phase_check(torch, cfg) -> dict:
            "slotted": check_slotted(torch, api, model, cfg2),
            "chunked": check_chunked(torch, cfg2)}
     del model
+    res["vlm"] = check_vlm(torch)
     res["archs"] = {}
     for label, name, kw, new in CHECK_ARCHS:
         c = dense_cfg(name, n_layers=2, **kw)
         a = registry.build(c)
-        m, _ = policies.prepare(a.init(SEED), c)
+        m, _ = policies.build(a, SEED)
         p = torch.randint(0, c.vocab_size, (BATCH, PROMPT), generator=gen)
         res["archs"][label] = check_path(torch, a, m, c, p, new)
         del m
@@ -2132,7 +2174,7 @@ def check_chunked(torch, cfg) -> dict:
 
     cfg = convert_cfg(cfg, "nibble").replace(attn_impl="chunked")
     api = registry.build(cfg)
-    model, _ = policies.prepare(api.init(SEED), cfg)
+    model, _ = policies.build(api, SEED)
     gen = torch.Generator().manual_seed(SEED + 6)
     prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
                            generator=gen).to("cuda")
@@ -2954,24 +2996,38 @@ class CheckedQuantMatmul:
         self.ops.quant_matmul = self._qmm
 
 
-def dense_build(torch, name: str):
-    """``dense_cfg(name)`` at full width and depth from the seed: its
-    random float32 weights, then PEQA.  Returns (cfg, api, model, mask,
-    seconds of each)."""
+def dense_build(torch, name: str, **kw):
+    """``dense_cfg(name, **kw)`` at full width from the seed through the
+    layer-by-layer build (``policies.build``: each block's random float32
+    weights drawn and quantized before the next block exists).  Returns
+    (cfg, api, model, mask, figures): the build's seconds, its peak above
+    what was allocated before it (``max_memory_allocated``), the model's
+    bytes and one block's float32 bytes."""
     from repro_torch.core import policies
     from repro_torch.models import registry
-    cfg = dense_cfg(name)
+    cfg = dense_cfg(name, **kw)
     api = registry.build(cfg)
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model = api.init(SEED)
+    model, mask = policies.build(api, SEED)
     torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    model, mask = policies.prepare(model, cfg)
-    torch.cuda.synchronize()
-    return cfg, api, model, mask, {"init_s": init_s,
-                                   "quantize_s": time.perf_counter() - t0}
+    secs = time.perf_counter() - t0
+    return cfg, api, model, mask, {
+        "build_s": secs,
+        "build_peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+        "model_gb": model_bytes(model) / 1e9,
+        "block_fp32_gb": block_fp32_bytes(torch, cfg) / 1e9}
+
+
+def block_fp32_bytes(torch, cfg) -> int:
+    """One block's float32 bytes before quantization (its linears, biases
+    and norms: what the layer-by-layer build holds beside the model)."""
+    from repro_torch.models import transformer
+    block = transformer.Block(cfg, device="meta")
+    return 4 * sum(p.numel() for p in block.parameters())
 
 
 def n_quantized(model) -> int:
@@ -2982,22 +3038,23 @@ def n_quantized(model) -> int:
                for m in model.modules())
 
 
-def dense_generate(torch, label, api, model, prompt) -> dict:
-    """``Engine.generate`` of ``prompt`` and NEW tokens with every launch
-    counter at 0: one K2 launch a quantized linear for the prefill, one K1
-    a linear and L K4 launches a decode step; then the prefill alone,
-    timed, its logits kept.  Returns {"res", "out", "logits"}."""
+def dense_generate(torch, label, api, model, prompt, prefix=None) -> dict:
+    """``Engine.generate`` of ``prompt`` (behind a vlm's ``prefix`` (B, P,
+    d), where given) and NEW tokens with every launch counter at 0: one K2
+    launch a quantized linear for the prefill, one K1 a linear and L K4
+    launches a decode step; then the prefill alone, timed, its logits
+    kept.  Returns {"res", "out", "logits"}."""
     from repro_torch.kernels import ops
     from repro_torch.train.serve import Engine
     cfg = api.cfg
     engine = Engine(api, model)
-    engine.generate(prompt, 2)                       # warm-up, not counted
+    engine.generate(prompt, 2, prefix=prefix)        # warm-up, not counted
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for k in ops.KERNELS:
         k.launches = 0
     t0 = time.perf_counter()
-    out = engine.generate(prompt, NEW)
+    out = engine.generate(prompt, NEW, prefix=prefix)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in ops.KERNELS if k.launches}
@@ -3013,12 +3070,15 @@ def dense_generate(torch, label, api, model, prompt) -> dict:
              f"prompt")
     if int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
         fail(f"{label}: generated token ids outside the vocabulary")
+    batch = {"tokens": prompt.to("cuda")}
+    if prefix is not None:
+        batch["image_embeds"] = prefix
     with torch.inference_mode():
         pre = []
         for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            logits, _ = api.prefill(model, {"tokens": prompt.to("cuda")})
+            logits, _ = api.prefill(model, batch)
             torch.cuda.synchronize()
             pre.append(time.perf_counter() - t0)
     if not torch.isfinite(logits).all():
@@ -3030,6 +3090,24 @@ def dense_generate(torch, label, api, model, prompt) -> dict:
                     "tokens_per_s": BATCH * NEW / total_s,
                     "peak_mem_gb": peak / 1e9, "launches": launches},
             "out": out, "logits": logits}
+
+
+def checked_generate(torch, label, api, model, prompt, prefix=None) -> dict:
+    """``Engine.generate`` of ``prompt`` (and ``prefix``) and 2 tokens —
+    the prefill and one decode step — with every K2 call (the prefill's, M
+    = B·(P + S)) and K1 call (the step's, M = B) held to plain element by
+    element as it happens (``CheckedQuantMatmul``): exactly one of each a
+    quantized linear."""
+    from repro_torch.kernels import ops
+    from repro_torch.train.serve import Engine
+    n_lin = n_quantized(model)
+    with CheckedQuantMatmul(ops, f"{label} generate") as chk:
+        Engine(api, model).generate(prompt, 2, prefix=prefix)
+    want = {"quant_gemv": n_lin, "quant_matmul": n_lin}
+    if chk.calls != want:
+        fail(f"{label}: {chk.calls} calls checked against plain, expected "
+             f"{want}")
+    return {"calls_checked": chk.calls, "qmm_max_abs_err": chk.worst}
 
 
 def full_mode_bytes(model) -> tuple:
@@ -3044,9 +3122,13 @@ def full_mode_bytes(model) -> tuple:
     return n, 16 * n
 
 
-def dense_train(torch, label, cfg0, model, mask, steps) -> dict:
+def dense_train(torch, label, cfg0, model, mask, steps, batch_size=None,
+                prefix_rows=0) -> dict:
     """``steps`` PEQA train steps at TrainConfig's 8 × 256 tokens (K2 at M =
-    2048), remat "block", on a synthetic corpus at the model's vocabulary:
+    2048; ``batch_size`` rows of 256 where given, each behind
+    ``prefix_rows`` seeded N(0, 1) float32 patch embeddings for a vlm, the
+    loss on the text rows: K2 at M = B·(P + 256)), remat "block", on a
+    synthetic corpus at the model's vocabulary:
     step 1's K2 calls (forward and recompute) each held to plain element by
     element (``CheckedQuantMatmul``); exactly two K2 launches a quantized linear and
     nothing else every step (the recompute of a block stops once its last
@@ -3066,11 +3148,21 @@ def dense_train(torch, label, cfg0, model, mask, steps) -> dict:
     from repro_torch.train.state import make_state
     cfg = cfg0.replace(remat="block")
     tcfg = TrainConfig(steps=steps)
+    if batch_size is not None:
+        tcfg = TrainConfig(steps=steps, batch_size=batch_size)
     data = pipeline.PackedLM(
         synthetic.corpus(cfg.vocab_size, 4 * steps * tcfg.batch_size
                          * tcfg.seq_len, seed=SEED),
         tcfg.batch_size, tcfg.seq_len, seed=SEED)
-    m_rows = tcfg.batch_size * tcfg.seq_len
+    m_rows = tcfg.batch_size * (prefix_rows + tcfg.seq_len)
+    pgen = torch.Generator().manual_seed(SEED + 12)
+
+    def batch_at(i):
+        batch = data.batch_at(i)
+        if prefix_rows:
+            batch["image_embeds"] = torch.randn(
+                tcfg.batch_size, prefix_rows, cfg.d_model, generator=pgen)
+        return batch
     n_lin = n_quantized(model)
     scales = {n: p for n, p in model.named_parameters() if mask[n]}
     if not scales or any(not n.endswith(".scale") for n in scales):
@@ -3093,7 +3185,7 @@ def dense_train(torch, label, cfg0, model, mask, steps) -> dict:
     for i in range(steps):
         for k in ops.KERNELS:
             k.launches = 0
-        batch = data.batch_at(i)
+        batch = batch_at(i)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if i == 0:
@@ -3128,7 +3220,8 @@ def dense_train(torch, label, cfg0, model, mask, steps) -> dict:
     timed_ms = walls[1:]
     med = sorted(timed_ms)[len(timed_ms) // 2] if timed_ms else None
     del state, opt, ts, start
-    return {"steps": steps, "rows": m_rows, "remat": cfg.remat,
+    return {"steps": steps, "rows": m_rows, "batch": tcfg.batch_size,
+            "prefix_rows": prefix_rows, "remat": cfg.remat,
             "losses": losses, "step_ms": walls,
             "median_step_ms": med,
             "tokens_per_s": m_rows / med * 1e3 if med else None,
@@ -3183,13 +3276,8 @@ def phase_dense_archs(torch) -> dict:
     res = {"phase": "dense_archs"}
 
     # --- qwen2-7b: generate, serve, the int8 cache, training --------------
-    torch.cuda.reset_peak_memory_stats()
     cfg, api, model, mask, built = dense_build(torch, "qwen2-7b")
-    q = {"model": cfg.name, "layers": cfg.n_layers, **built,
-         "build_peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-         "weights_gb": sum(t.numel() * t.element_size() for t in
-                           list(model.parameters())
-                           + list(model.buffers())) / 1e9}
+    q = {"model": cfg.name, "layers": cfg.n_layers, **built}
     prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen)
     g16 = dense_generate(torch, "qwen2-7b", api, model, prompt)
     q["generate"] = g16["res"]
@@ -3226,10 +3314,8 @@ def phase_dense_archs(torch) -> dict:
     torch.cuda.empty_cache()
 
     # --- starcoder2-7b: generate and a train step -------------------------
-    torch.cuda.reset_peak_memory_stats()
     cfg, api, model, mask, built = dense_build(torch, "starcoder2-7b")
-    st = {"model": cfg.name, "layers": cfg.n_layers, **built,
-          "build_peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    st = {"model": cfg.name, "layers": cfg.n_layers, **built}
     prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen)
     st["generate"] = dense_generate(torch, "starcoder2-7b", api, model,
                                     prompt)["res"]
@@ -3239,6 +3325,216 @@ def phase_dense_archs(torch) -> dict:
     res["starcoder2-7b"] = st
     emit({"phase": "dense_archs_starcoder2", **st})
     del model, mask, api
+    torch.cuda.empty_cache()
+
+    # --- granite-34b whole: the layer-by-layer build and generate ---------
+    res["granite-34b"] = granite_whole(torch, gen)
+    emit({"phase": "dense_archs_granite34b", **res["granite-34b"]})
+    return res
+
+
+def granite_whole(torch, gen) -> dict:
+    """granite-34b at full width and depth (88 layers; 186 GB of float32
+    weights, so it exists only through the layer-by-layer build): the
+    build's peak within the model's bytes plus two blocks' float32 bytes;
+    ``Engine.generate`` of 4 × 256 tokens and NEW new with the exact
+    launch counts (88 × 7 K2 for the prefill, 88 × 7 K1 and 88 K4 a decode
+    step), the prefill's K2 calls and the first step's K1 calls each held
+    to plain."""
+    cfg, api, model, mask, built = dense_build(torch, "granite-34b")
+    g = {"model": cfg.name, "layers": cfg.n_layers, **built}
+    bound = built["model_gb"] + 2 * built["block_fp32_gb"]
+    g["build_peak_bound_gb"] = bound
+    if built["build_peak_gb"] > bound:
+        fail(f"granite-34b build: peak {built['build_peak_gb']:.3f} GB above "
+             f"the model's {built['model_gb']:.3f} GB plus two blocks' "
+             f"float32 {2 * built['block_fp32_gb']:.3f} GB")
+    if n_quantized(model) != 7 * cfg.n_layers:
+        fail(f"granite-34b build: {n_quantized(model)} quantized linears")
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen)
+    g["checked"] = checked_generate(torch, "granite-34b", api, model, prompt)
+    g["generate"] = dense_generate(torch, "granite-34b", api, model,
+                                   prompt)["res"]
+    del model, mask, api
+    torch.cuda.empty_cache()
+    return g
+
+
+# ---------------------------------------------------------------------------
+# phase vlm: llava-next-mistral-7b and its image-embedding prefix
+# ---------------------------------------------------------------------------
+
+def vlm_requests(cfg, n, prompts, news, tasks, arrive_every, seed):
+    """``n`` requests, each behind its own prefix of ``cfg.n_img_tokens``
+    seeded N(0, 1) float32 rows; prompt lengths and budgets in turn, the
+    tasks ``t0``… in runs of ``n / tasks`` (one task's burst after
+    another), arriving every ``arrive_every`` pool steps."""
+    import numpy as np
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(seed)
+    return [Request(
+        tokens=rng.integers(0, cfg.vocab_size, prompts[i % len(prompts)]),
+        n_new=news[i % len(news)], task=f"t{i * tasks // n}",
+        prefix=rng.standard_normal((cfg.n_img_tokens, cfg.d_model),
+                                   dtype=np.float32),
+        arrival_step=arrive_every * i) for i in range(n)]
+
+
+def task_bank(model, tasks: int, seed: int):
+    """A ScaleBank of ``tasks`` scale sets: the model's own (``t0``), then
+    seeded random scalings of them within 10%."""
+    import numpy as np
+    from repro_torch.core.scale_bank import ScaleBank
+    bank = ScaleBank()
+    bank.add("t0", model)
+    rng = np.random.default_rng(seed)
+    for t in range(1, tasks):
+        bank.tasks[f"t{t}"] = {
+            k: (v * rng.uniform(0.9, 1.1, v.shape)).astype(v.dtype)
+            for k, v in bank.tasks["t0"].items()}
+    return bank
+
+
+def vlm_serve(torch, api, model, cfg) -> dict:
+    """VLM_REQUESTS prefixed requests over VLM_TASKS tasks through
+    ``Engine.serve`` in VLM_SLOTS slots, under drain and then resident, each
+    pool at ``serve``'s own capacity — which must count the 576 prefix rows
+    — with the exact launches (every prefill of 576 + S rows through K2,
+    once a linear; a decode step K1 under drain, K5 under resident, and K4
+    a layer) and identical tokens."""
+    from repro_torch.serve import ServeConfig
+    from repro_torch.train.serve import Engine
+    bank = task_bank(model, VLM_TASKS, SEED + 14)
+    reqs = vlm_requests(cfg, VLM_REQUESTS, VLM_PROMPTS, VLM_NEW, VLM_TASKS,
+                        2, SEED + 15)
+    n_lin = n_quantized(model)
+    capacity = max(cfg.n_img_tokens + r.n_prompt + r.n_new for r in reqs)
+    res = {"requests": len(reqs), "slots": VLM_SLOTS, "tasks": VLM_TASKS,
+           "prefix_rows": cfg.n_img_tokens, "capacity": capacity}
+    reports, check = {}, {"peak": 0}
+    for sched, gemv in (("drain", "quant_gemv"),
+                        ("resident", "quant_gemv_tasks")):
+        eng = Engine(api, model, bank=bank)
+        pools, open_pool = [], eng.open_pool
+
+        def opened(n, c, _pools=pools, _open=open_pool):
+            _pools.append(c)
+            return _open(n, c)
+        eng.open_pool = opened
+        reports[sched], _, _ = serve_run(
+            torch, res, check, cfg.vocab_size, sched, eng, "step", reqs,
+            ServeConfig(n_slots=VLM_SLOTS, scheduler=sched,
+                        resident_tasks=VLM_TASKS),
+            lambda n, g=gemv: {g: n_lin * n,
+                               "quant_matmul": n_lin * len(reqs),
+                               "flash_attention": cfg.n_layers * n})
+        if pools != [capacity]:
+            fail(f"vlm {sched}: pools of {pools} rows, expected serve's own "
+                 f"capacity {capacity} (prefix rows counted)")
+        if sched == "drain":
+            eng.switch_task("t0")             # the model's own scales back
+    res["tokens_equal_share"] = gate_tokens_equal(
+        "vlm resident run", "drain", reports["drain"], reports["resident"])
+    return res
+
+
+def phase_vlm(torch) -> dict:
+    """llava-next-mistral-7b at full width and depth (module docstring,
+    phase 15)."""
+    gen = torch.Generator().manual_seed(SEED + 13)
+    cfg, api, model, mask, built = dense_build(torch,
+                                               "llava-next-mistral-7b")
+    res = {"phase": "vlm", "model": cfg.name, "layers": cfg.n_layers,
+           "prefix_rows": cfg.n_img_tokens, **built}
+    if n_quantized(model) != 7 * cfg.n_layers:
+        fail(f"vlm build: {n_quantized(model)} quantized linears")
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen)
+    prefix = torch.randn(BATCH, cfg.n_img_tokens, cfg.d_model,
+                         generator=gen).to("cuda")
+    res["checked"] = checked_generate(torch, "vlm", api, model, prompt,
+                                      prefix)
+    g = dense_generate(torch, "vlm", api, model, prompt, prefix)
+    res["generate"] = g["res"]
+    with torch.inference_mode():
+        text_only, _ = api.prefill(model, {"tokens": prompt.to("cuda")})
+    # the prefix rows reach the output
+    res["prefix_moves_logits_by"] = (g["logits"] - text_only).abs().max(
+        ).item()
+    if not res["prefix_moves_logits_by"] > 0:
+        fail("vlm: the prefill's logits do not depend on the prefix")
+    del g, text_only
+    res["profile"] = phase_profile(
+        torch, {"api": api, "model": model, "prompt": prompt,
+                "prefix": prefix}, phase="vlm_profile")
+    res["serve"] = vlm_serve(torch, api, model, cfg)
+    emit({"phase": "vlm_serve", **res["serve"]})
+    res["train"] = dense_train(torch, "vlm", cfg, model, mask,
+                               VLM_TRAIN_STEPS, batch_size=VLM_TRAIN_BATCH,
+                               prefix_rows=cfg.n_img_tokens)
+    emit(res)
+    del model, mask, api, prefix
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_vlm(torch) -> dict:
+    """Phase check's 2-layer llava-next-mistral-7b at full width: the
+    layer-by-layer build bit-equal, tensor by tensor, to the whole build
+    (``api.init`` then ``policies.prepare``); then its codes as 4 bit-planes
+    (``plane_backbone``) serving VLM_CHECK_REQUESTS requests with 576-row
+    prefixes over VLM_TASKS tasks, resident and speculative over resident
+    (spec_k 3, a 3-plane draft), gated as phase speculative gates its runs:
+    the exact launches, the checked verify's logits bit-equal to decoding
+    step by step, the replayed draft, the tokens equal to resident's."""
+    from repro_torch.core import policies
+    from repro_torch.models import registry
+    from repro_torch.serve import ServeConfig
+    from repro_torch.train.serve import Engine
+    cfg = dense_cfg("llava-next-mistral-7b", n_layers=2)
+    api = registry.build(cfg)
+    streamed, _ = policies.build(api, SEED)
+    whole, _ = policies.prepare(api.init(SEED), cfg)
+    ts = dict(list(streamed.named_parameters())
+              + list(streamed.named_buffers()))
+    tw = dict(list(whole.named_parameters()) + list(whole.named_buffers()))
+    differ = [n for n in tw if n not in ts or not torch.equal(ts[n], tw[n])]
+    if differ or ts.keys() != tw.keys():
+        fail(f"vlm 2-layer: the layer-by-layer build differs from the whole "
+             f"build in {differ[:4]} ({len(differ)} tensors)")
+    res = {"model": cfg.name, "layers": cfg.n_layers,
+           "build_bit_equal_tensors": len(tw)}
+    del whole, tw, ts
+    plane = plane_backbone(torch, {"cfg": cfg, "model": streamed})
+    api_p, model_p = plane["api"], plane["model"]
+    bank = task_bank(model_p, VLM_TASKS, SEED + 16)
+    reqs = vlm_requests(cfg, VLM_CHECK_REQUESTS, VLM_CHECK_PROMPTS,
+                        VLM_CHECK_NEW, VLM_TASKS, 0, SEED + 17)
+    n_lin, layers = n_quantized(model_p), cfg.n_layers
+    code_bytes = sum(b.numel() * 4 for n, b in model_p.named_buffers()
+                     if n.endswith("qw"))
+    prefill = {"quant_matmul_planes": n_lin * len(reqs)}
+    check = {"armed": False, "done": None, "peak": 0}
+    rep_a, _, peak_a = serve_run(
+        torch, res, check, cfg.vocab_size, "resident",
+        Engine(api_p, model_p, bank=bank), "step", reqs,
+        ServeConfig(n_slots=VLM_SLOTS, scheduler="resident",
+                    resident_tasks=VLM_TASKS),
+        lambda n: {"quant_gemv_tasks_planes": n_lin * n,
+                   "flash_attention": layers * n, **prefill})
+    eng = checked_speculative_engine(torch, api_p, model_p, bank, check)
+    rep_b, rounds_b, peak_b = serve_run(
+        torch, res, check, cfg.vocab_size, "speculative", eng, "spec_step",
+        reqs, ServeConfig(n_slots=VLM_SLOTS, scheduler="speculative",
+                          spec_k=SPEC_K, draft_bits=DRAFT_BITS,
+                          resident_tasks=VLM_TASKS),
+        lambda n: {"quant_gemv_tasks_planes": n_lin * (SPEC_K + 1) * n,
+                   "flash_attention": layers * (SPEC_K + 1) * n, **prefill})
+    check["peak"] = 0
+    del eng
+    gate_speculative("vlm 2-layer speculative run", rep_a, rep_b, rounds_b,
+                     check, peak_a, peak_b, code_bytes)
+    res["verify_check"] = check["done"]
+    del plane, model_p, streamed
     torch.cuda.empty_cache()
     return res
 
@@ -3821,6 +4117,7 @@ def main() -> None:
     del main_path, train
     torch.cuda.empty_cache()
     dense = run("dense_archs", phase_dense_archs, torch)
+    vlm = run("vlm", phase_vlm, torch)
     arms = run("arms", phase_arms, torch, prompt, peqa, full)
     if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
                                    for m in sys.modules):
@@ -3889,7 +4186,20 @@ def main() -> None:
           "dense_archs": {m: {"generate": r["generate"], "train": {
               k: r["train"][k] for k in ("median_step_ms", "peak_mem_gb",
                                          "state_bytes")}}
-              for m, r in dense.items() if m != "phase"},
+              for m, r in dense.items() if m not in ("phase", "granite-34b")},
+          "granite-34b": {k: dense["granite-34b"][k] for k in (
+              "layers", "build_s", "build_peak_gb", "build_peak_bound_gb",
+              "model_gb", "generate")},
+          "vlm": {"model": vlm["model"], "build_s": vlm["build_s"],
+                  "build_peak_gb": vlm["build_peak_gb"],
+                  "model_gb": vlm["model_gb"], "generate": vlm["generate"],
+                  "busy_share": {k: vlm["profile"][k]["device_busy_share"]
+                                 for k in ("prefill", "decode_step")},
+                  "serve_wall_s": {k: vlm["serve"][k]["wall_s"]
+                                   for k in ("drain", "resident")},
+                  "train": {k: vlm["train"][k] for k in (
+                      "median_step_ms", "peak_mem_gb", "state_bytes",
+                      "scales")}},
           "arms": arms["table"]})
     print(dev["gpu"], flush=True)
     emit({"kernels": kernels})

@@ -1,6 +1,7 @@
 """Config registry (copy of ``repro/configs/__init__.py``'s ``get_config``,
-``make_tiny`` and ``paper_lm``, for the dense family the port serves:
-llama3.2-1b, qwen2-7b, granite-34b and starcoder2-7b)."""
+``make_tiny`` and ``paper_lm``, for the families the port serves: the
+dense llama3.2-1b, qwen2-7b, granite-34b and starcoder2-7b, and the vlm
+llava-next-mistral-7b)."""
 from __future__ import annotations
 
 import importlib
@@ -17,6 +18,7 @@ _MODULES = {
     "qwen2-7b": "qwen2_7b",
     "granite-34b": "granite_34b",
     "starcoder2-7b": "starcoder2_7b",
+    "llava-next-mistral-7b": "llava_next_mistral_7b",
 }
 
 ARCHS = tuple(_MODULES)
@@ -30,15 +32,19 @@ def get_config(name: str) -> ModelConfig:
 
 
 def make_tiny(cfg: ModelConfig, *, vocab: int = 512) -> ModelConfig:
-    """Reduced same-family config for CPU tests (the reference's dense
-    branch: 2 layers, d_model 64, 4 heads of 16, float32)."""
-    if cfg.family != "dense":
+    """Reduced same-family config for CPU tests (the reference's dense and
+    vlm branches: 2 layers, d_model 64, 4 heads of 16, float32; a vlm's
+    prefix 8 rows)."""
+    if cfg.family not in ("dense", "vlm"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense only)")
-    return cfg.replace(
+            f"family {cfg.family!r} is not ported yet (dense and vlm only)")
+    kw = dict(
         name=f"tiny-{cfg.name}", d_model=64, d_ff=0 if cfg.d_ff == 0 else 128,
         n_heads=4, n_kv_heads=min(cfg.n_kv_heads, 4) if cfg.n_kv_heads > 1 else 1,
         vocab_size=vocab, head_dim=16, dtype="float32", n_layers=2)
+    if cfg.family == "vlm":
+        kw["n_img_tokens"] = 8
+    return cfg.replace(**kw)
 
 
 def paper_lm(name: str = "llama-tiny", *, n_layers: int = 4, d_model: int = 256,

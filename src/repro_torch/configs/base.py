@@ -42,7 +42,7 @@ class TuningConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                        # dense (the only family ported yet)
+    family: str                        # dense | vlm (the families ported yet)
     n_layers: int
     d_model: int
     n_heads: int
@@ -64,6 +64,7 @@ class ModelConfig:
     kv_cache_dtype: str = "model"      # model | int8
     dtype: str = "bfloat16"
     remat: str = "block"               # none | block | full (dots not ported yet)
+    n_img_tokens: int = 0              # vlm: patch-embedding prefix length
     quant: QuantConfig = QuantConfig()
     tuning: TuningConfig = TuningConfig()
 

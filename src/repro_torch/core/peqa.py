@@ -87,19 +87,29 @@ def quantize_leaf(w: torch.Tensor, qcfg: QuantConfig) -> dict:
 
 
 @torch.no_grad()
+def quantize_module(module: nn.Module, qcfg: QuantConfig, prefix: str = ""
+                    ) -> nn.Module:
+    """Quantize every eligible fp linear of ``module`` in place, where it
+    lies.  ``prefix`` is the module's path in the whole model (``layers.3``,
+    ``lm_head``): eligibility is decided on the whole model's names.
+    Returns the module."""
+    spec = qcfg.spec()
+    for name, mod in module.named_modules(prefix=prefix):
+        if isinstance(mod, Linear) and not mod.quantized \
+                and eligible(ref_path(f"{name}.w"), mod.w, qcfg):
+            q = quantize_leaf(mod.w, qcfg)
+            mod.set_quantized(q["qw"], q["scale"], q["zero"], spec)
+    return module
+
+
+@torch.no_grad()
 def quantize_params(model: nn.Module, qcfg: QuantConfig, *, device=None
                     ) -> nn.Module:
     """fp model → PEQA model (integer backbone + scales), in place, on
     ``device`` (the card unless ``device="cpu"``).  Returns the model."""
     dev = _device.resolve(device)
     model.to(dev)
-    spec = qcfg.spec()
-    for name, mod in model.named_modules():
-        if isinstance(mod, Linear) and not mod.quantized \
-                and eligible(ref_path(f"{name}.w"), mod.w, qcfg):
-            q = quantize_leaf(mod.w, qcfg)
-            mod.set_quantized(q["qw"], q["scale"], q["zero"], spec)
-    return model
+    return quantize_module(model, qcfg)
 
 
 @torch.no_grad()

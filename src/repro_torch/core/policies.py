@@ -30,6 +30,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import lora, peqa, qat
 
 MODES = ("full", "lora", "lora_optq", "qat", "peqa", "peqa_z")
+# the arms whose policy quantizes the backbone (RTN): ``build`` streams them
+QUANTIZING = ("lora_optq", "peqa", "peqa_z")
 
 
 def _check_mode(mode: str) -> None:
@@ -45,7 +47,7 @@ def transform(model: nn.Module, cfg: ModelConfig, *, device=None,
     mode = cfg.tuning.mode
     _check_mode(mode)
     dev = _device.resolve(device)
-    if mode in ("lora_optq", "peqa", "peqa_z"):
+    if mode in QUANTIZING:
         model = peqa.quantize_params(model, cfg.quant, device=dev)
     else:
         model = model.to(dev)
@@ -84,6 +86,34 @@ def prepare(model: nn.Module, cfg: ModelConfig, *, device=None,
     """fp-initialized model → (policy model, trainable mask)."""
     model = transform(model, cfg, device=device, generator=generator)
     return model, make_mask(model, cfg)
+
+
+def build(api, seed: int = 0, *,
+          generator: Optional[torch.Generator] = None
+          ) -> Tuple[nn.Module, Dict[str, bool]]:
+    """``api.cfg``'s policy model from the seed's random weights → (model,
+    trainable mask), on ``api.device``: ``prepare(api.init(seed), cfg)``'s
+    result, for every arm.
+
+    A quantizing arm (``QUANTIZING``: RTN codes) is built layer by layer:
+    each block's float32 weights are drawn and quantized before the next
+    block exists (``api.init``'s ``transform``), so the build's peak is the
+    finished model plus about one block's float32 weights and the
+    quantizer's temporaries, and a model whose float32 weights exceed the
+    card still builds.  Its codes, scales, zeros, biases, norms and table
+    are bit-equal to the whole build's: the draws come in the same order.
+    The fp arms keep float32 weights anyway and take the whole build.
+    (OPTQ's backbone for ``lora_optq`` quantizes a whole fp model:
+    ``core.gptq``.)  ``generator`` draws the LoRA arms' ``lora_a``, as in
+    ``prepare``."""
+    cfg = api.cfg
+    _check_mode(cfg.tuning.mode)
+    if cfg.tuning.mode in QUANTIZING:
+        model = api.init(seed, transform=lambda name, mod:
+                         peqa.quantize_module(mod, cfg.quant, prefix=name))
+    else:
+        model = api.init(seed)
+    return prepare(model, cfg, device=api.device, generator=generator)
 
 
 def _tensors(model: nn.Module):

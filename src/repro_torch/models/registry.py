@@ -1,5 +1,5 @@
 """Model registry (port of ``repro/models/registry.py``: ``FamilyCaps``,
-``ModelAPI`` and ``build``'s dense branch).
+``ModelAPI`` and ``build``'s dense and vlm branch).
 
 ``build(cfg)`` returns a ``ModelAPI`` with the functions the trainer and the
 server call, the speculative ``decode_verify`` and
@@ -22,18 +22,38 @@ from repro_torch.models import attention, transformer
 
 @dataclasses.dataclass(frozen=True)
 class FamilyCaps:
-    """Per-family capability record — what the serving engine may assume
-    about a family's decode state (the reference's record, with the fields
-    the dense family's serving reads; the prefix and verify fields come
-    with the families and the slice that read them).
+    """Per-family capability record — the serving engine's one source of
+    truth for what a family's decode state looks like.
 
-      * ``bucketable`` — prompt-length bucketing (right-pad + last-position
-        gather) is sound: padded rows stay causally invisible.
+    The slot pool consults this record instead of pattern-matching on
+    ``cfg.family``: every registered family gets one, and a family whose
+    API lacks it is refused by ``SlotPool`` (no silent garbage tracing).
+
+      * ``positional`` — decode threads an absolute position through the
+        cache (attention KV rows).  False for pure recurrent state (SSM),
+        whose ``decode_step`` ignores ``pos`` entirely.
+      * ``prefix_key`` — batch key for per-request prefix state admitted
+        once per slot (``"image_embeds"`` for vlm patch embeddings,
+        ``"frames"`` for encdec encoder inputs); ``None`` = no prefix.
+      * ``prefix_required`` — prefill raises without the prefix (encdec:
+        there is nothing to cross-attend); vlm prefixes are optional.
+      * ``prefix_positions`` — the prefix occupies decoder cache
+        positions (vlm: patch rows share the causal sequence).  Encdec
+        cross-KV lives in its own position-free leaves, so frames consume
+        ZERO decoder slots.
+      * ``bucketable`` — prompt-length bucketing (right-pad + masked
+        last-position gather) is sound: padded rows must stay causally
+        invisible, which rules out recurrent state (it integrates every
+        input) and is additionally gated on no sliding-window ring.
       * ``slotted_reason`` — why ``decode_step_slotted`` is None (the
         resident scheduler's refusal message); None = supported.
       * ``verify_reason`` — why ``decode_verify`` is unusable (the
         speculative scheduler's refusal message); None = supported.
     """
+    positional: bool = True
+    prefix_key: Optional[str] = None
+    prefix_required: bool = False
+    prefix_positions: bool = False
     bucketable: bool = False
     slotted_reason: Optional[str] = None
     verify_reason: Optional[str] = None
@@ -43,10 +63,14 @@ class FamilyCaps:
 class ModelAPI:
     cfg: ModelConfig
     device: torch.device
-    init: Callable            # (seed) -> Transformer on device
+    # (seed, transform=None) -> Transformer on device, built block by block
+    # (``transformer.init``)
+    init: Callable
     forward: Callable         # (model, tokens (B, S)) -> logits (B, S, V) f32
     loss_fn: Callable         # (model, batch) -> scalar loss
-    prefill: Callable         # (model, batch) -> (last_logits, cache)
+    # (model, batch) -> (last_logits, cache); batch: "tokens", optional
+    # "last_pos" and, for a vlm, "image_embeds"
+    prefill: Callable
     # (model, cache, tokens, pos, draft_bits=None) -> (logits, cache)
     decode_step: Callable
     init_cache: Callable      # (batch, seq_len) -> cache
@@ -66,12 +90,15 @@ class ModelAPI:
 
 
 KV_CACHE_DTYPES = ("model", "int8")
+# the families the port builds: the dense decoder, and the vlm — the same
+# decoder behind a prefix of precomputed patch embeddings
+FAMILIES = ("dense", "vlm")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for every configuration this slice of the port does not serve."""
     refused = [
-        (cfg.family != "dense", f"family {cfg.family!r}"),
+        (cfg.family not in FAMILIES, f"family {cfg.family!r}"),
         (cfg.moe is not None, "mixture-of-experts blocks"),
         (cfg.kv_cache_dtype not in KV_CACHE_DTYPES,
          f"kv_cache_dtype={cfg.kv_cache_dtype!r}"),
@@ -100,13 +127,18 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def build(cfg: ModelConfig, device=None) -> ModelAPI:
-    """Dense decoder API on ``device`` (the card unless ``device="cpu"``)."""
+    """The dense or vlm decoder's API on ``device`` (the card unless
+    ``device="cpu"``).  A vlm's prefill takes the batch's optional
+    ``"image_embeds"`` (B, P, d): its rows take the first P cache
+    positions."""
     check_supported(cfg)
     dev = _device.resolve(device)
+    vlm = cfg.family == "vlm"
 
-    def init(seed: int = 0) -> transformer.Transformer:
+    def init(seed: int = 0, transform=None) -> transformer.Transformer:
         return transformer.init(
-            cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+            cfg, torch.Generator(device=dev).manual_seed(seed), dev,
+            transform=transform)
 
     return ModelAPI(
         cfg=cfg,
@@ -115,7 +147,8 @@ def build(cfg: ModelConfig, device=None) -> ModelAPI:
         forward=lambda m, tokens: transformer.forward(m, tokens, cfg),
         loss_fn=lambda m, batch: transformer.loss_fn(m, batch, cfg),
         prefill=lambda m, batch: transformer.prefill(
-            m, batch["tokens"], cfg, last_pos=batch.get("last_pos")),
+            m, batch["tokens"], cfg, prefix_embeds=batch.get("image_embeds"),
+            last_pos=batch.get("last_pos")),
         decode_step=lambda m, c, t, pos, draft_bits=None:
             transformer.decode_step(m, c, t, pos, cfg, draft_bits=draft_bits),
         init_cache=lambda b, s: attention.init_cache(cfg, b, s, dev),
@@ -123,12 +156,14 @@ def build(cfg: ModelConfig, device=None) -> ModelAPI:
             transformer.decode_step(m, c, t, pos, cfg, task_stack=st,
                                     task_ids=tid, draft_bits=draft_bits),
         prefill_slotted=lambda m, st, batch, tid: transformer.prefill(
-            m, batch["tokens"], cfg, last_pos=batch.get("last_pos"),
-            task_stack=st, task_ids=tid),
+            m, batch["tokens"], cfg, prefix_embeds=batch.get("image_embeds"),
+            last_pos=batch.get("last_pos"), task_stack=st, task_ids=tid),
         decode_verify=lambda m, c, t, pos: transformer.decode_verify(
             m, c, t, pos, cfg),
         decode_verify_slotted=lambda m, st, c, t, pos, tid:
             transformer.decode_verify(m, c, t, pos, cfg, task_stack=st,
                                       task_ids=tid),
-        caps=FamilyCaps(bucketable=True),
+        caps=FamilyCaps(bucketable=True,
+                        prefix_key="image_embeds" if vlm else None,
+                        prefix_positions=vlm),
     )

@@ -1,8 +1,9 @@
-"""Decoder-only transformer backbone, dense family (port of
+"""Decoder-only transformer backbone, the dense and vlm families (port of
 ``repro/models/transformer.py``: ``init``, the training ``forward`` and
 ``loss_fn``, ``prefill``, ``decode_step`` and the speculative
 ``decode_verify``, each serving function with the reference's mixed-task
-``task_stack``/``task_ids`` form).
+``task_stack``/``task_ids`` form; a vlm's patch-embedding prefix enters
+``forward``, ``loss_fn`` and ``prefill`` and is only cache rows after).
 
 Layers are a ``ModuleList`` of per-layer blocks and run in a Python loop
 (the reference stacks them and scans).  ``bridge.py`` converts between the
@@ -42,14 +43,39 @@ class Transformer(nn.Module):
             linear.Linear(cfg.d_model, cfg.vocab_size, device=device)
 
 
-def init(cfg: ModelConfig, generator: torch.Generator, device) -> Transformer:
+def init(cfg: ModelConfig, generator: torch.Generator, device,
+         transform=None) -> Transformer:
     """Random float32 weights from ``generator`` (which must live on
-    ``device``): N(0, 1/in) linears, N(0, 0.02²) embedding, unit norms."""
-    model = Transformer(cfg, device=device)
+    ``device``): N(0, 1/in) linears, N(0, 0.02²) embedding, unit norms.
+
+    Built one piece at a time: the skeleton on ``meta`` (no storage), then
+    the token table, block 0, block 1, …, the final norm and the head made
+    on ``device`` in that order, each piece's linears drawn in module order
+    — the order of a walk over the whole model's ``modules()``, so the
+    values do not depend on how the model is built.  ``transform(name,
+    module)``, where given, is applied to each block and to the head
+    (``name`` its module path, ``layers.3`` or ``lm_head``) after its draws
+    and before the next piece exists: a quantizing policy there keeps the
+    build's peak at the finished model plus one block's float32 weights
+    (``core.policies.build``)."""
+    model = Transformer(cfg, device="meta")
+    model.embed = common.Embed(cfg, device=device)
     model.embed.reset_parameters(generator)
-    for mod in model.modules():
-        if isinstance(mod, linear.Linear):
-            mod.reset_parameters(generator)
+
+    def make(name: str, mod: nn.Module) -> nn.Module:
+        for sub in mod.modules():
+            if isinstance(sub, linear.Linear):
+                sub.reset_parameters(generator)
+        if transform is not None:
+            transform(name, mod)
+        return mod
+
+    for i in range(cfg.n_layers):
+        model.layers[i] = make(f"layers.{i}", Block(cfg, device=device))
+    model.final_norm = common.Norm(cfg, device=device)
+    if model.lm_head is not None:
+        model.lm_head = make("lm_head", linear.Linear(
+            cfg.d_model, cfg.vocab_size, device=device))
     return model
 
 
@@ -76,17 +102,29 @@ def _block_train(layer: Block, h: torch.Tensor, cfg: ModelConfig, rope):
                                 common.norm_apply(layer.ln2, h, cfg), cfg)
 
 
-def forward(model: Transformer, tokens: torch.Tensor, cfg: ModelConfig
-            ) -> torch.Tensor:
-    """Full-sequence forward for training: tokens (B, S) → logits (B, S, V)
-    float32 (reference ``forward``, off the mesh, no VLM prefix).  Under
+def _embed(model: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
+           prefix_embeds: torch.Tensor | None) -> torch.Tensor:
+    """Token embeddings (B, S, d), with the vlm's prefix rows (B, P, d),
+    cast to the activation dtype, before them: (B, P + S, d)."""
+    h = common.embed_apply(model.embed, tokens, cfg)
+    if prefix_embeds is None:
+        return h
+    return torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
+
+
+def forward(model: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
+            prefix_embeds: torch.Tensor | None = None) -> torch.Tensor:
+    """Full-sequence forward for training: tokens (B, S) → logits (B, P + S,
+    V) float32 (reference ``forward``, off the mesh).  ``prefix_embeds``
+    (vlm): (B, P, d) precomputed patch embeddings placed before the token
+    embeddings; the positions run over all P + S rows.  Under
     ``cfg.remat`` "block" or "full" each block runs under
     ``torch.utils.checkpoint`` (non-reentrant), so the backward recomputes
     its forward — every quantized linear's kernel twice a step."""
     if cfg.remat not in REMATS:
         raise NotImplementedError(f"remat={cfg.remat!r} is not ported "
                                   f"(have {REMATS})")
-    h = common.embed_apply(model.embed, tokens, cfg)
+    h = _embed(model, tokens, cfg, prefix_embeds)
     rope = common.rope_table(cfg, torch.arange(h.shape[1], device=h.device))
     for layer in model.layers:
         if cfg.remat == "none":
@@ -100,9 +138,15 @@ def forward(model: Transformer, tokens: torch.Tensor, cfg: ModelConfig
 def loss_fn(model: Transformer, batch: dict, cfg: ModelConfig
             ) -> torch.Tensor:
     """Token-mean next-token cross entropy of ``batch`` ({"tokens",
-    "labels", optional "mask"}: tensors on the model's device)."""
-    logits = forward(model, batch["tokens"], cfg)
-    return common.cross_entropy(logits, batch["labels"], batch.get("mask"))
+    "labels", optional "mask" and "image_embeds"}: tensors on the model's
+    device).  With a vlm prefix only the text rows are scored: the last
+    ``labels.shape[1]`` rows of the logits."""
+    logits = forward(model, batch["tokens"], cfg,
+                     prefix_embeds=batch.get("image_embeds"))
+    labels = batch["labels"]
+    if logits.shape[1] != labels.shape[1]:
+        logits = logits[:, logits.shape[1] - labels.shape[1]:]
+    return common.cross_entropy(logits, labels, batch.get("mask"))
 
 
 def _layer_stack(tree, i: int):
@@ -114,31 +158,36 @@ def _layer_stack(tree, i: int):
 
 
 def prefill(model: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
+            prefix_embeds: torch.Tensor | None = None,
             task_stack: dict | None = None,
             task_ids: torch.Tensor | None = None, last_pos: int | None = None):
     """Forward over the prompt (B, S), building the KV cache.
+
+    prefix_embeds (vlm): (B, P, d) patch embeddings before the prompt; they
+    take the cache's first P rows, and the sequence below is P + S long.
 
     task_stack/task_ids: the prompt's quantized linears read each batch
     row's scales from the resident stack (``scale_bank.ResidentStack.stack``,
     leaves (L, T, N, G)) instead of the live ``Linear.scale`` —
     ``task_ids: (B,) int32`` stack rows, repeated per token here.
 
-    last_pos: index of the last REAL token when the prompt is right-padded
-    to a bucket length — the head reads that row instead of the last one.
-    Padded rows sit causally after every real row, so they never influence
-    it.
+    last_pos: index of the last REAL row of the (prefix +) prompt sequence
+    when the prompt is right-padded to a bucket length — the head reads
+    that row instead of the last one.  Padded rows sit causally after every
+    real row, so they never influence it.
 
     Returns (last_logits (B, V) f32, cache): the cache's leaves stacked
     over layers, (L, B, C, …) at C = ``attention.cache_capacity(cfg, S)``
     (the window's ring holds the last C tokens), in the configured layout
     (``attention.prefill_cache_entry``).
     """
-    h = common.embed_apply(model.embed, tokens, cfg)
+    h = _embed(model, tokens, cfg, prefix_embeds)
     b, s, _ = h.shape
     rope = common.rope_table(cfg, torch.arange(s, device=h.device))
     cap = attention.cache_capacity(cfg, s)
     slotted = task_stack is not None
-    # quantized linears flatten (B, S, d) to B·S rows: one id per token
+    # quantized linears flatten (B, P + S, d) to B·(P + S) rows: one id per
+    # row, so the prefix rows read the request's scales too
     tok_ids = task_ids.repeat_interleave(s) if slotted else None
     entries = []
     for i, layer in enumerate(model.layers):

@@ -1,6 +1,5 @@
 """The serving request type (port of ``repro/serve/request.py::Request``;
-the per-request ``prefix`` state comes with the families that take one,
-trace (de)serialization with the traffic harness).
+trace (de)serialization comes with the traffic harness).
 
 A request arrives on one of two clocks: ``arrival_s`` (virtual seconds) or
 ``arrival_step`` (the pool's decode-step counter, for deterministic tests).
@@ -20,6 +19,10 @@ class Request:
     n_new: int                          # generation budget (includes token 0)
     task: Optional[str] = None          # ScaleBank task the request targets
     eos_id: Optional[int] = None        # early-stop token
+    # per-request prefix state admitted once into the slot (family-keyed by
+    # the registry capability record): (P, d_model) float32 image patch
+    # embeddings for a vlm
+    prefix: Optional[np.ndarray] = None
     arrival_s: Optional[float] = None   # virtual seconds
     arrival_step: int = 0               # decode-step index
 

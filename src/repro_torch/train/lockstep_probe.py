@@ -84,7 +84,7 @@ def main() -> None:
         tuning=TuningConfig(mode="peqa"),
         quant=QuantConfig(bits=4, group_size=None, n_grid=20))
     api = registry.build(cfg)
-    model, _ = policies.prepare(api.init(SEED), cfg)
+    model, _ = policies.build(api, SEED)
     engine = Engine(api, model)
     gen = torch.Generator().manual_seed(SEED)
     prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen)

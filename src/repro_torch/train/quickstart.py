@@ -58,7 +58,7 @@ def run(device=None, fp_steps: int = 200, peqa_steps: int = 150,
     tcfg = TrainConfig(steps=fp_steps, batch_size=8, seq_len=64,
                        log_every=50, ckpt_every=10 ** 9,
                        optim=OptimConfig(lr=2e-3))
-    model, mask = policies.prepare(api.init(0), cfg, device=api.device)
+    model, mask = policies.build(api, 0)
     opt = make_optimizer(tcfg.optim, tcfg.steps)
     state = make_state(model, opt.init(dict(model.named_parameters()), mask))
     ts = step.build_train_step(api, cfg, tcfg, mask, opt)

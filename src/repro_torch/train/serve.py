@@ -122,6 +122,31 @@ class Engine:
         # lazily by serve(scheduler="resident"/"auto")
         self.resident: Optional[ResidentStack] = None
 
+    def _prefix_rows(self, prefix) -> int:
+        """Decoder cache rows a request prefix occupies (0 when the family
+        keeps its prefix out of the decoder's positions)."""
+        caps = self.api.caps
+        if prefix is None or caps is None or not caps.prefix_positions:
+            return 0
+        return int(np.shape(prefix)[-2])
+
+    def _check_prefix(self, prefix) -> None:
+        """Validate a request prefix against the capability record."""
+        caps = self.api.caps
+        key = None if caps is None else caps.prefix_key
+        if prefix is not None and key is None:
+            raise ValueError(
+                f"family {self.api.cfg.family!r} takes no per-request "
+                f"prefix state (FamilyCaps.prefix_key is None)")
+        if prefix is None and caps is not None and caps.prefix_required:
+            raise ValueError(
+                f"family {self.api.cfg.family!r} requires prefix state "
+                f"{key!r} on every request (encoder inputs)")
+
+    def _prefix_tensor(self, prefix) -> torch.Tensor:
+        """A prefix (numpy or tensor) as a float32 tensor on the device."""
+        return torch.as_tensor(prefix, device=self.device).to(torch.float32)
+
     @staticmethod
     def _bucket_len(s: int, cap: int) -> int:
         """Smallest power of two >= s, clamped to the pool capacity."""
@@ -142,19 +167,26 @@ class Engine:
 
     # ------------------------------------------------------------- generate
     @torch.inference_mode()
-    def generate(self, tokens, n_new: int,
-                 cache_len: Optional[int] = None) -> torch.Tensor:
+    def generate(self, tokens, n_new: int, cache_len: Optional[int] = None,
+                 prefix=None) -> torch.Tensor:
         """Greedy decode (LOCKSTEP). tokens (B, S) → (B, S + n_new) int64.
 
+        ``prefix``: (B, P, d) per-row prefix state, fed to the prefill
+        under the family's ``FamilyCaps.prefix_key`` (a vlm's image
+        embeddings take the cache's first P positions, so the prompt's
+        tokens start at position P).
+
         ``cache_len`` is validated, not clamped: the deepest cache write is
-        position prompt+n_new-2 (the final sampled token's KV is never
-        written), so prompt+n_new-1 slots suffice and fewer raise.  A
-        sliding window's ring cache wraps, so any positive value is legal
-        there.
+        position prefix+prompt+n_new-2 (the final sampled token's KV is
+        never written), so prefix+prompt+n_new-1 slots suffice and fewer
+        raise.  A sliding window's ring cache wraps, so any positive value
+        is legal there.
         """
+        self._check_prefix(prefix)
         tokens = torch.as_tensor(tokens, device=self.device).to(torch.int64)
         b, s = tokens.shape
-        total = s + n_new
+        s_eff = s + self._prefix_rows(prefix)   # decoder positions consumed
+        total = s_eff + n_new
         if cache_len is None:
             cache_len = total
         elif cache_len <= 0:
@@ -166,7 +198,10 @@ class Engine:
                 f"cache_len={cache_len} < prompt+n_new-1={total - 1}: a "
                 f"dense cache cannot hold the generation")
         sample = sampling.shard_argmax(None, b)
-        logits, pcache = self.api.prefill(self.model, {"tokens": tokens})
+        batch = {"tokens": tokens}
+        if prefix is not None:
+            batch[self.api.caps.prefix_key] = self._prefix_tensor(prefix)
+        logits, pcache = self.api.prefill(self.model, batch)
         # re-home the prompt-sized prefill cache into one with headroom
         # (a ring's prefill cache is already in ring layout: it occupies
         # the first slots of a ring of at least its capacity)
@@ -181,7 +216,8 @@ class Engine:
             out.append(tok)
             if i == n_new - 1:
                 break
-            logits, cache = self.api.decode_step(self.model, cache, tok, s + i)
+            logits, cache = self.api.decode_step(self.model, cache, tok,
+                                                 s_eff + i)
             tok = sample(logits)[:, None]
         return torch.cat(out, dim=1)
 
@@ -259,10 +295,14 @@ class Engine:
         if s < 1 or n_new < 1:
             raise ValueError(f"need prompt >= 1 and n_new >= 1 tokens, got "
                              f"({s}, {n_new})")
+        prefix = request.prefix
+        self._check_prefix(prefix)
+        p_rows = self._prefix_rows(prefix)  # decoder positions the prefix eats
+        s_eff = s + p_rows
         swa = self.api.cfg.swa_window is not None
-        if not swa and s + n_new - 1 > pool.cache_len:
+        if not swa and s_eff + n_new - 1 > pool.cache_len:
             raise ValueError(
-                f"request needs {s + n_new - 1} cache slots, pool has "
+                f"request needs {s_eff + n_new - 1} cache slots, pool has "
                 f"{pool.cache_len}")
         if (task_row is None and request.task is not None
                 and self.bank is not None
@@ -271,14 +311,18 @@ class Engine:
                 f"request targets task {request.task!r} but the engine "
                 f"serves {self.current_task!r}; switch_task first (the "
                 f"scheduler drains the pool before switching)")
-        bucket = bucket and self.api.caps.bucketable and not swa
-        s_pad = self._bucket_len(s, pool.cache_len) if bucket else s
+        caps = self.api.caps
+        bucket = bucket and caps.bucketable and not swa
+        s_pad = self._bucket_len(s, pool.cache_len - p_rows) if bucket \
+            else s
         if s_pad != s:
             toks = np.pad(toks, (0, s_pad - s))   # masked filler rows
         batch = {"tokens": torch.as_tensor(toks, device=self.device)[None]}
+        if prefix is not None:
+            batch[caps.prefix_key] = self._prefix_tensor(prefix)[None]
         if s_pad != s:
-            batch["last_pos"] = s - 1
-        pool._prefill_keys.add((s_pad, s_pad != s))
+            batch["last_pos"] = p_rows + s - 1
+        pool._prefill_keys.add((s_pad, p_rows, s_pad != s))
         if task_row is not None:
             self._check_task_rows([task_row])
             tid = torch.full((1,), task_row, dtype=torch.int32,
@@ -290,7 +334,7 @@ class Engine:
         self._check_admit_shapes(pool, pcache)
         t0 = int(sampling.shard_argmax(None, 1)(logits)[0])
         self._admit_write(pool, pcache, slot)
-        pool.pos[slot] = s
+        pool.pos[slot] = s_eff
         pool.active[slot] = True
         pool.tok[slot] = t0
         pool.task[slot] = request.task or self.current_task
@@ -602,7 +646,9 @@ class Engine:
                                config=cfg)
         eff_cache_len = cfg.cache_len
         if eff_cache_len is None:
-            eff_cache_len = max(r.n_prompt + int(r.n_new) for r in requests)
+            # prefix rows (vlm image tokens) share the slot's cache capacity
+            eff_cache_len = max(self._prefix_rows(r.prefix) + r.n_prompt
+                                + int(r.n_new) for r in requests)
         if use_spec:
             # rollback headroom: a round starting at the final needed
             # position still writes spec_k provisional rows past it —

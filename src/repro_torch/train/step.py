@@ -18,14 +18,16 @@ from repro_torch.optim.compression import compress_tree
 
 
 def to_device(batch: dict, device) -> dict:
-    """numpy or tensor batch → int64 token tensors (and a float mask) on
-    ``device``."""
+    """numpy or tensor batch → tensors on ``device``: integer keys (tokens,
+    labels) as int64, the mask as float32, and every other floating key (a
+    vlm's ``image_embeds``) in its own dtype."""
     out = {}
     for key, val in batch.items():
         t = torch.as_tensor(np.asarray(val)) if not torch.is_tensor(val) \
             else val
-        out[key] = t.to(device=device, dtype=torch.float32 if key == "mask"
-                        else torch.int64, non_blocking=True)
+        dtype = torch.float32 if key == "mask" else \
+            t.dtype if t.is_floating_point() else torch.int64
+        out[key] = t.to(device=device, dtype=dtype, non_blocking=True)
     return out
 
 

@@ -1200,3 +1200,39 @@ def test_gptq_graphed_column_loop_equals_eager(cuda, n, m, group):
         graphed = gptq.gptq_quantize_matrix(w, x, qcfg, graphs=graphs)
         assert all(torch.equal(a, b) for a, b in zip(eager, graphed))
     assert len(graphs) == 1
+
+
+@pytest.mark.gpu
+def test_layer_by_layer_build_of_granite_is_bit_equal_at_a_lower_peak(cuda):
+    """A 2-layer granite-34b at full width (d_model 6144, d_ff 24576, vocab
+    49152; PEQA 4-bit per-channel, n_grid 20, bf16) built by
+    ``policies.build`` and by ``api.init`` then ``policies.prepare``: every
+    tensor bit-equal, and the layer-by-layer build's peak (above what was
+    allocated before it) below the whole build's."""
+    from repro_torch import configs
+    from repro_torch.configs.base import QuantConfig, TuningConfig
+    from repro_torch.core import policies
+    from repro_torch.models import registry
+    cfg = configs.get_config("granite-34b").replace(
+        n_layers=2, tuning=TuningConfig(mode="peqa"),
+        quant=QuantConfig(bits=4, group_size=None, n_grid=20))
+    api = registry.build(cfg)
+
+    def built(fn):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        model, _ = fn()
+        torch.cuda.synchronize()
+        return model, torch.cuda.max_memory_allocated() - base
+
+    streamed, peak_s = built(lambda: policies.build(api, 0))
+    whole, peak_w = built(lambda: policies.prepare(api.init(0), cfg))
+    ts = dict(list(streamed.named_parameters())
+              + list(streamed.named_buffers()))
+    tw = dict(list(whole.named_parameters()) + list(whole.named_buffers()))
+    assert ts.keys() == tw.keys()
+    for name in tw:
+        assert torch.equal(ts[name], tw[name]), name
+    assert peak_s < peak_w, (peak_s, peak_w)

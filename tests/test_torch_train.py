@@ -11,7 +11,9 @@
     chunked attention, remat none and block, float32 and bfloat16, against
     ``repro.train.step.build_train_step`` (a LoRA arm's ``lora_b`` starts
     from seeded non-zero values, ``LORA_B_STD``, and once, in float32, from
-    the reference's zero);
+    the reference's zero); the same cases at the paper's learning rate are
+    ``tests/test_torch_train_papers_lr.py``, which shares this file's
+    helpers and tolerances;
   * the quickstart flow (``repro_torch.train.quickstart``) at a few steps.
 
 Tolerances.  Optimizer: elementwise float32 arithmetic in the reference's
@@ -276,14 +278,6 @@ TRAIN_CASES = [  # (mode, dtype, attn_impl, remat)
 @pytest.mark.parametrize("mode,dtype,attn,remat", TRAIN_CASES)
 def test_train_step_matches_reference(mode, dtype, attn, remat):
     _check_train_steps(mode, dtype, attn, remat, OCFG)
-
-
-@pytest.mark.parametrize("mode,dtype,attn,remat", TRAIN_CASES)
-def test_train_step_matches_reference_at_the_papers_lr(mode, dtype, attn,
-                                                       remat):
-    """The same steps at lr 2e-5: the trained bf16 model's token table
-    moves as the reference's float32 one does."""
-    _check_train_steps(mode, dtype, attn, remat, dict(OCFG, lr=PAPER_LR))
 
 
 def test_lora_train_step_from_the_zero_init():
