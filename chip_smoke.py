@@ -63,7 +63,22 @@ line:
                head dim 128 with qwen2-7b's (28 / 4), starcoder2-7b's
                (36 / 4) and granite-34b's (48 / 1) heads: the prefill (B 4
                × 256), the lockstep decode, the slot pool's decode and
-               verify and a ring's decode (offset past every key);
+               verify and a ring's decode (offset past every key).
+               Then the moe family: K1 and K2 at deepseek-moe-16b's new
+               2-D linears — its experts' (1408, 2048) and (2048, 1408)
+               (22 64-code tiles, 11 groups of 128: shapes K2's 256-wide
+               tile and the GEMV's K split had not met) and its shared
+               MLP's (2816, 2048) and (2048, 2816) —, K4 at its 16 / 16
+               heads of 128; and each model's experts on the expert grid
+               axis (``quant_gemv_experts`` at C = 1, ``quant_matmul_
+               experts`` at the prefill's C = 320 for mixtral-8x7b's 8
+               experts of (14336, 4096) and (4096, 14336), C = 120 for
+               deepseek's 64 of (1408, 2048) and (2048, 1408)): every
+               slice bit-equal to the 2-D kernel on its expert and within
+               the factored bound of plain, timed as one launch, as E 2-D
+               launches (a yardstick), as the plain version and as
+               ``torch.bmm`` on a dequantized bf16 Ŵ stack, beside the
+               bound;
   3. main    — llama3.2-1b at full width from a seeded generator, PEQA
                4-bit per-channel RTN (n_grid 20) through the layer-by-layer
                build (``policies.build``, as every PEQA model of the run
@@ -156,7 +171,11 @@ line:
                slots, resident and speculative over resident (spec_k 3,
                3-plane draft), gated as phase speculative (launches, the
                checked verify bit-equal to decoding step by step, the
-               replayed draft, tokens equal to resident's, peak memory);
+               replayed draft, tokens equal to resident's, peak memory).
+               Last a 2-layer deepseek-moe-16b at full width: its layer-by-
+               layer build bit-equal to the whole build, then the kernels
+               against the plain versions as above, every expert-axis call
+               held to plain too;
  11. train   — PEQA training (the paper's step 2) on phase main's backbone
                at full width and depth, TrainConfig's default batch of 8 ×
                256 tokens (K2 at M = 2048), remat="block", a synthetic
@@ -202,8 +221,9 @@ line:
                its build's seconds and peak; Engine.generate (B 4, a
                256-token prompt, 32 new tokens; 28 × 7 K2 launches for the
                prefill, 28 × 7 K1 and 28 K4 a decode step), a prefill and
-               a decode step profiled as in phase profile; phase serve's
-               16 requests over 4 tasks under drain and resident
+               a decode step profiled as in phase profile; the first 8
+               of phase serve's requests (over 4 tasks) under drain and
+               resident
                (identical tokens, K5 on resident); the same generate with
                the int8 KV cache (the same launches, its cache half of
                bf16's plus the scales, prefill logits bit-equal to the
@@ -217,14 +237,14 @@ line:
                earlier rule and under ``ops.dot_f32``.  Then starcoder2-7b
                at full width and depth (32 layers): generate with its
                launch gates, and 2 train steps (the first checked).  Then
-               granite-34b whole (88 layers, d_model 6144, 48 heads of 128
-               over one KV head, d_ff 24576, vocab 49152, untied): 186 GB
-               of float32 weights, so only the layer-by-layer build makes
-               it — its peak gated at the model's bytes plus two blocks'
-               float32 bytes; generate (B 4, 256 + 32 tokens: 616 K2
-               launches for the prefill, 616 K1 and 88 K4 a decode step),
-               the prefill's K2 calls and the first step's K1 calls each
-               held to plain.
+               granite-34b at full width and GRANITE_LAYERS (16) of its 88
+               layers (d_model 6144, 48 heads of 128 over one KV head,
+               d_ff 24576, vocab 49152, untied) through the layer-by-layer
+               build — its peak gated at the model's bytes plus two
+               blocks' float32 bytes; generate (B 4, 256 + 32 tokens: 112
+               K2 launches for the prefill, 112 K1 and 16 K4 a decode
+               step), the prefill's K2 calls and the first step's K1 calls
+               each held to plain.
  15. vlm     — (run before arms) llava-next-mistral-7b at full width
                and depth (the mistral-7b backbone: 32 layers, d_model 4096,
                32 / 8 heads of 128, d_ff 14336, vocab 32000, untied, rope θ
@@ -244,6 +264,36 @@ line:
                PEQA train steps of 4 × (576 + 256) rows, the loss on the
                text rows, step 1's K2 calls each held to plain, state 8 B ×
                the scales, peak memory and step ms.
+ 16. moe     — (after vlm) mixtral-8x7b (32 layers, d_model 4096, 32 / 8
+               heads of 128, 8 experts of d_ff 14336, top-2, a 4096-key
+               window: the ring cache; vocab 32000, untied; 187 GB of
+               float32 weights) and deepseek-moe-16b (28 layers, d_model
+               2048, 16 / 16 heads of 128, 64 experts of d_ff 1408, top-6,
+               2 shared experts of 2816; vocab 102400, untied) at full
+               width and depth, each built layer by layer (bf16, PEQA
+               4-bit per-channel, n_grid 20, seed 0; every expert stack
+               quantized one expert at a time): the build's seconds and
+               peak, gated at the model's bytes plus two float32 blocks;
+               Engine.generate of 4 × 256 + 32 with exact launches
+               (mixtral: 128 K2 and 96 expert-axis K2 at C = 320 for the
+               prefill, 128 K1, 96 expert-axis K1 at C = 1 and 32 K4 a
+               step; deepseek: 196 K2 (attention and shared MLP) and 84
+               expert-axis K2 at C = 120, 196 K1, 84 expert-axis K1 and 28
+               K4), the prefill's and the first step's every quantized
+               call held to plain as it happens (``CheckedQuantMatmul``),
+               each expert-axis slice also bit-equal to the 2-D kernel on
+               its expert; a prefill and a decode step profiled (the busy
+               share); MOE_REQUESTS requests over MOE_TASKS tasks in
+               MOE_SLOTS slots under drain, twice (every budget served,
+               exact launches, the second run's tokens equal to the
+               first's), and the resident and speculative schedulers
+               refusing with the reference's messages; 2 PEQA steps of 4
+               × 256 rows under remat "block", the loss with the aux term,
+               step 1's every K2 and expert-axis K2 call held to plain,
+               the recompute's first expert call's input bit-equal to the
+               forward's (the same routing), the codes, router, norms,
+               table and head unchanged, state 8 B × the scales, peak
+               memory and step ms.
  14. arms    — the paper's comparison arms at llama3.2-1b full width and
                depth (bf16, seed 0, QV4: rank 4 on wq and wv), the 7B
                models freed, on phase train's corpus and TrainConfig (8 ×
@@ -374,8 +424,11 @@ ATTN_7B_CASES = (("prefill", 4, 256, 256, None, True, None),
 TRAIN_STEPS, TRAIN_SKIP, TRAIN_EVAL_BATCHES = 10, 2, 4
 TRAIN_TOKENS = 120_000
 # dense_archs phase: PEQA train steps of qwen2-7b at 8 × 256 tokens (the
-# first checked call by call, not timed)
+# first checked call by call, not timed); granite-34b's depth (of 88)
 DENSE_TRAIN_STEPS = 3
+GRANITE_LAYERS = 16
+# qwen2-7b serves the first DENSE_SERVE_REQUESTS of phase serve's requests
+DENSE_SERVE_REQUESTS = 8
 # vlm phase: llava-next-mistral-7b at full width and depth, each image
 # prefix its n_img_tokens (576) rows of seeded N(0, 1) float32, as the
 # reference's serving workload makes them.  Serving: VLM_REQUESTS requests
@@ -388,6 +441,26 @@ VLM_PROMPTS, VLM_NEW = (32, 64, 96, 128), (16, 24, 32)
 VLM_TRAIN_STEPS, VLM_TRAIN_BATCH = 2, 4
 VLM_CHECK_REQUESTS, VLM_CHECK_PROMPTS, VLM_CHECK_NEW = 6, (32, 48, 64), \
     (8, 12, 16)
+# moe phase: mixtral-8x7b and deepseek-moe-16b at full width and depth.
+# Serving: MOE_REQUESTS requests over MOE_TASKS tasks (one burst a task) in
+# MOE_SLOTS slots, the prompts and budgets in turn (every prompt over 32
+# rows: the prefill's 2-D linears take K2); training: MOE_TRAIN_STEPS PEQA
+# steps of MOE_TRAIN_BATCH × 256 rows.  Phase kernels: each model's expert
+# linears (E, (N, K) of gate/up and of down, C of a 4 × 256-token prefill)
+# at C = 1 (a decode step of 4 rows) and at that C, and deepseek's 2-D
+# linears new to the kernels (the experts' shapes and the shared MLP's
+# (2816, 2048) / (2048, 2816)) and its 16 / 16 heads of 128
+MOE_ARCHS = ("mixtral-8x7b", "deepseek-moe-16b")
+MOE_REQUESTS, MOE_TASKS, MOE_SLOTS = 8, 2, 4
+MOE_PROMPTS, MOE_NEW = (48, 64, 96, 128), (8, 12, 16)
+MOE_TRAIN_STEPS, MOE_TRAIN_BATCH = 2, 4
+MOE_EXPERT_SHAPES = {
+    "mixtral-8x7b": (8, ((14336, 4096), (4096, 14336)), 320),
+    "deepseek-moe-16b": (64, ((1408, 2048), (2048, 1408)), 120)}
+MOE_2D_SHAPES = ((1408, 2048), (2048, 1408), (2816, 2048), (2048, 2816))
+MOE_HEADS = {"deepseek-moe-16b": (16, 16, 128)}
+# new tokens of phase check's 2-layer deepseek-moe-16b
+MOE_CHECK_NEW = 8
 # arms phase: GPTQ's calibration tokens (B, S) from the train split, and
 # the train steps of LoRA on the float32 backbone (lora_optq takes
 # TRAIN_STEPS)
@@ -477,6 +550,12 @@ def check_close(name, got, plain, bound) -> float:
     return err.max().item()
 
 
+# the expert-axis forms launch their 2-D kernels' (untasked, nibble)
+# instantiations over a grid z axis: no instantiation of their own
+SHARED_INSTANTIATIONS = {"quant_gemv_experts": "quant_gemv",
+                         "quant_matmul_experts": "quant_matmul"}
+
+
 def phase_device(torch) -> dict:
     from repro_torch.kernels import _build, ops, ptxas_variants
     t0 = time.perf_counter()
@@ -493,7 +572,9 @@ def phase_device(torch) -> dict:
         "nvcc_s": {k: round(v["seconds"], 3) for k, v in built.items()},
         # registers, spills and shared memory per wrapper and instantiation
         "ptxas": {k.__name__: [{f: r[f] for f in r if f != "kernel"}
-                               for r in rows if r["kernel"] == k.__name__]
+                               for r in rows
+                               if r["kernel"] == SHARED_INSTANTIATIONS.get(
+                                   k.__name__, k.__name__)]
                   for k in ops.KERNELS},
     }
     missing = [k for k, v in info["ptxas"].items() if not v]
@@ -529,13 +610,16 @@ def sass_ops(_build) -> dict:
     tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
     if not os.path.isfile(tool):
         return {}
-    out = {}
-    for name in ("quant_gemv", "quant_matmul", "flash_attention"):
+    from concurrent.futures import ThreadPoolExecutor
+
+    def count(name):
         sass = subprocess.run([tool, "-sass", str(_build.lib_path(name))],
                               capture_output=True, text=True, timeout=300)
-        out[name] = {op: len(re.findall(rf"\b{op}\.", sass.stdout))
-                     for op in ("HGMMA", "HMMA")}
-    return out
+        return {op: len(re.findall(rf"\b{op}\.", sass.stdout))
+                for op in ("HGMMA", "HMMA")}
+    names = ("quant_gemv", "quant_matmul", "flash_attention")
+    with ThreadPoolExecutor(len(names)) as pool:     # all three at once
+        return dict(zip(names, pool.map(count, names)))
 
 
 def quantized_operands(torch, n, k, group, gen):
@@ -718,14 +802,101 @@ def phase_kernels(torch) -> dict:
                           emulate=False, model=model))
             del qw, s, z, w16
             torch.cuda.empty_cache()
+    # the moe family: deepseek's new 2-D shapes, then each model's experts
+    # on the expert grid axis beside E 2-D launches
+    for (n, k) in MOE_2D_SHAPES:
+        qw, s, z = quantized_operands(torch, n, k, None, gen)
+        w16 = dequant_ref(qw, s, z, (n, k), QuantSpec(), torch.bfloat16)
+        kernel_gemv_gemm(torch, qm, n, k, None, qw, s, z, w16, gen, worst,
+                         emulate=False, model="deepseek-moe-16b")
+        del qw, s, z, w16
+    experts = {}
+    for model, (e, shapes, c_pre) in MOE_EXPERT_SHAPES.items():
+        experts[model] = [kernel_experts(torch, qm, model, e, n, k, c_pre,
+                                         gen, worst) for (n, k) in shapes]
+        torch.cuda.empty_cache()
     worst.update(rtn_pack=0.0, rtn_pack_planes=0.0)   # bit-equal, or failed
     worst["flash_attention"], attn_prefill = kernel_attention(torch, gen)
     attn_7b = {}
-    for model, heads in DENSE_7B_HEADS.items():
+    for model, heads in {**DENSE_7B_HEADS, **MOE_HEADS}.items():
         err, attn_7b[model] = kernel_attention(
             torch, gen, heads, ATTN_7B_CASES, model=model, sweep=False)
         worst["flash_attention"] = max(worst["flash_attention"], err)
-    return worst, attn_prefill, attn_7b
+    return worst, attn_prefill, attn_7b, experts
+
+
+def experts_bound_ms(e: int, c: int, n: int, k: int) -> tuple:
+    """Least time for one expert-axis y[e] = x[e]·Ŵ[e]ᵀ over E experts
+    (per-channel): the larger of its bytes at HBM rate (each expert's codes,
+    x, scales and y once) and its 2·E·C·N·K operations at the bf16 tensor
+    cores' rate.  Returns (ms, "bytes" | "operations")."""
+    t_bytes = e * bytes_ms(c, n, k, 1)
+    t_ops = 2 * e * c * n * k / BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_experts(torch, qm, model, e, n, k, c_pre, gen, worst) -> dict:
+    """One MoE linear's E experts (RTN codes of N(0, 1/K) weights, per-
+    channel, bf16 x) on the expert grid axis: the GEMV at C = 1 and the
+    GEMM at the prefill's C.  Each launch's slices bit-equal to the 2-D
+    kernel on each expert and within ``error_bound`` (factored; ``gemv``
+    for the GEMV) of the plain version; device ms (CUDA graphs, weights
+    rotated through > 2× the L2) of the one launch, of E separate 2-D
+    launches (a yardstick, not a route of the model), of the plain version
+    and of ``torch.bmm`` on a dequantized bf16 Ŵ stack, beside the bound.
+    Updates ``worst``; returns {kernel: figures}."""
+    from repro_torch.core.quant import QuantSpec
+    from repro_torch.kernels.ref import dequant_ref
+    parts = [quantized_operands(torch, n, k, None, gen) for _ in range(e)]
+    qw, s, z = (torch.stack([p[i] for p in parts]) for i in range(3))
+    del parts
+    w16 = dequant_ref(qw.reshape(e * n, -1), s.reshape(e * n, 1),
+                      z.reshape(e * n, 1), (e * n, k), QuantSpec(),
+                      torch.bfloat16).reshape(e, n, k)
+    out = {}
+    for c in (1, c_pre):
+        gemv = c <= GEMV_MAX
+        name = "quant_gemv_experts" if gemv else "quant_matmul_experts"
+        fn, fn2 = ((qm.quant_gemv_experts, qm.quant_gemv) if gemv
+                   else (qm.quant_matmul_experts, qm.quant_matmul))
+        what = f"{name} {model} E={e} C={c} N={n} K={k}"
+        x = torch.randn(e, c, k, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        y = fn(x, qw, s, z)
+        for i in range(e):
+            if not torch.equal(y[i], fn2(x[i], qw[i], s[i], z[i])):
+                fail(f"{what}: slice {i} differs from the 2-D kernel's "
+                     f"launch on expert {i}")
+        plain = qm.quant_matmul_experts_plain(x, qw, s, z)
+        err = check_close(what, y, plain, qm.error_bound(
+            x, qw, s, z, plain, factored=True, gemv=gemv))
+        worst[name] = max(worst[name], err)
+        del plain, y
+        copies = max(2, math.ceil(2 * L2_BYTES / (e * n * k // 2)))
+        sets = [(x, qw.clone(), s.clone(), z.clone()) for _ in range(copies)]
+        lib_sets = [(x, w16.clone()) for _ in range(max(2, math.ceil(
+            2 * L2_BYTES / (e * n * k * 2))))]
+        iters = 40 if gemv else 8
+
+        def loop(a, b, c_, d, fn2=fn2):
+            for i in range(e):
+                fn2(a[i], b[i], c_[i], d[i])
+        ms = timed(fn, sets, iters)
+        loop_ms = timed(loop, sets, iters)
+        plain_ms = timed(qm.quant_matmul_experts_plain, sets,
+                         max(2, iters // 4))
+        lib_ms = timed(lambda a, b: torch.bmm(a, b.transpose(1, 2)),
+                       lib_sets, iters)
+        b_ms, b_by = experts_bound_ms(e, c, n, k)
+        fig = {"ms": ms, "loop_2d_ms": loop_ms, "plain_ms": plain_ms,
+               "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
+        emit({"phase": "kernels", "kernel": name, "model": model, "E": e,
+              "C": c, "N": n, "K": k, "route": "mma" if gemv else "wgmma",
+              "slices_bitwise_2d": e, "max_abs_err": err, **fig})
+        out[name] = fig
+        del sets, lib_sets, x
+    del qw, s, z, w16
+    return out
 
 
 def pack_bytes_ms(n: int, k: int, groups: int, bits: int,
@@ -1552,16 +1723,17 @@ def step_k5(torch, qm, lins, gen) -> dict:
     return res
 
 
-def serve_requests(vocab: int) -> list:
-    """16 requests cycling through the 4 tasks, arriving every 2 decode
-    steps; prompt lengths 20, 100, 256 and budgets 16, 32, 48 in turn."""
+def serve_requests(vocab: int, n: int = SERVE_REQUESTS) -> list:
+    """``n`` (16) requests cycling through the 4 tasks, arriving every 2
+    decode steps; prompt lengths 20, 100, 256 and budgets 16, 32, 48 in
+    turn."""
     import numpy as np
     from repro_torch.serve import Request
     rng = np.random.default_rng(SEED + 3)
     return [Request(
         tokens=rng.integers(0, vocab, SERVE_PROMPTS[i % 3]),
         n_new=SERVE_NEW[(i + 1) % 3], task=f"t{i % N_TASKS}",
-        arrival_step=2 * i) for i in range(SERVE_REQUESTS)]
+        arrival_step=2 * i) for i in range(n)]
 
 
 def profile_serve_step(torch, engine, step, reqs, slotted) -> dict:
@@ -1587,12 +1759,14 @@ def profile_serve_step(torch, engine, step, reqs, slotted) -> dict:
             "device_busy_share": dev / wall if dev else None, "top": top}
 
 
-def phase_serve(torch, main_path, phase="serve", probes=True) -> dict:
+def phase_serve(torch, main_path, phase="serve", probes=True,
+                n_requests=SERVE_REQUESTS) -> dict:
     """Drain vs resident on the full model: same tokens; resident through
     K5 (decode and short prefills) and K2 per task (long prefills), never
     K1.  Each run starts with the launch counters at 0.  With ``probes``,
     a profiled pool step of each and the resident run again at
-    LONG_CACHE rows.  Emits its line under ``phase``."""
+    LONG_CACHE rows.  ``n_requests`` of ``serve_requests``.  Emits its line
+    under ``phase``."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import quant_matmul as qm
     from repro_torch.serve import ServeConfig
@@ -1600,7 +1774,7 @@ def phase_serve(torch, main_path, phase="serve", probes=True) -> dict:
 
     api, model, cfg = main_path["api"], main_path["model"], main_path["cfg"]
     bank = task_bank(model, N_TASKS, SEED)
-    reqs = serve_requests(cfg.vocab_size)
+    reqs = serve_requests(cfg.vocab_size, n_requests)
     n_lin = cfg.n_layers * 7
     short = sum(r.n_prompt <= 32 for r in reqs)    # prefills of <= 32 rows
     kernels = (qm.quant_gemv, qm.quant_matmul, qm.quant_gemv_tasks,
@@ -2085,11 +2259,13 @@ def check_path(torch, api, model, cfg, prompt, new) -> dict:
                           if k.launches}
         if impl == "cuda":
             chk = checked
-    if set(launched["cuda"]) != {"quant_gemv", "quant_matmul",
-                                 "flash_attention"} or launched["torch"]:
+    kinds = {"quant_gemv", "quant_matmul", "flash_attention"}
+    if n_quantized(model, experts=True):
+        kinds |= {"quant_gemv_experts", "quant_matmul_experts"}
+    if set(launched["cuda"]) != kinds or launched["torch"]:
         fail(f"{label}: kernels launched {launched['cuda']} through "
              f"the kernels and {launched['torch']} through the plain versions")
-    if any(chk.calls[k] != launched["cuda"][k] for k in chk.calls):
+    if any(chk.calls[k] != launched["cuda"].get(k, 0) for k in chk.calls):
         fail(f"{label}: {chk.calls} calls checked against plain, "
              f"{launched['cuda']} launched")
     lk, tk = runs["cuda"]
@@ -2150,6 +2326,7 @@ def phase_check(torch, cfg) -> dict:
            "chunked": check_chunked(torch, cfg2)}
     del model
     res["vlm"] = check_vlm(torch)
+    res["moe"] = check_moe(torch)
     res["archs"] = {}
     for label, name, kw, new in CHECK_ARCHS:
         c = dense_cfg(name, n_layers=2, **kw)
@@ -2954,13 +3131,28 @@ class CheckedQuantMatmul:
     ``gemv=True`` for the GEMV's M ≤ 32 rows (K1), else K2 —, without
     keeping a 7B model's activations alive (what ``gate_recorded_calls``
     asks of a recorded call).  ``rows_m``, where given, is the M every call
-    must have.  Counts the calls checked by kernel (``calls``).  Wraps the
-    entry point the model calls; restored on exit."""
+    must have.  Likewise every ``ops.quant_matmul_experts`` call (an MoE
+    block's expert stacks: the expert-axis GEMV at C ≤ 32 rows an expert,
+    else the expert-axis GEMM) against ``quant_matmul_experts_plain``
+    within the same bound, expert by expert; with ``bitwise_2d`` each of
+    its slices is also held bit for bit to the 2-D kernel's launch on that
+    expert's operands (launches made for the comparison are taken off the
+    counters again).  ``watch = (i, j)``: expert call j's input must equal
+    expert call i's bit for bit (a remat recompute's first expert call
+    against the forward's: the same routing).  Counts the calls checked by
+    kernel (``calls``).  Wraps the entry points the model calls; restored
+    on exit."""
 
-    def __init__(self, ops, label, rows_m=None):
+    def __init__(self, ops, label, rows_m=None, bitwise_2d=False,
+                 watch=None):
         self.ops, self.label, self.rows_m = ops, label, rows_m
-        self.calls = {"quant_gemv": 0, "quant_matmul": 0}
+        self.bitwise_2d, self.watch = bitwise_2d, watch
+        self.calls = {"quant_gemv": 0, "quant_matmul": 0,
+                      "quant_gemv_experts": 0, "quant_matmul_experts": 0}
         self.worst = 0.0
+        self.slices_bitwise = 0
+        self.watched = None
+        self._n_expert = 0
 
     def __enter__(self):
         import torch
@@ -2989,11 +3181,56 @@ class CheckedQuantMatmul:
             self.worst = max(self.worst, err)
             return y
 
+        self._qmme = self.ops.quant_matmul_experts
+
+        def qmme(x, qw, scale, zero, spec):
+            y = self._qmme(x, qw, scale, zero, spec)
+            with torch.no_grad():
+                self._expert_call(torch, qm, x, qw, scale, zero, y)
+            return y
+
         self.ops.quant_matmul = qmm
+        self.ops.quant_matmul_experts = qmme
         return self
+
+    def _expert_call(self, torch, qm, x, qw, scale, zero, y):
+        xe, s, z = x.detach().contiguous(), scale.float(), zero.float()
+        gemv = xe.shape[1] <= qm.GEMV_MAX_M
+        name = "quant_gemv_experts" if gemv else "quant_matmul_experts"
+        what = (f"{self.label}: {name} call {self.calls[name]} "
+                f"(E={xe.shape[0]}, C={xe.shape[1]})")
+        if not qm.tc_route(xe[0], s[0]):
+            fail(f"{what}: expected nibble codes on the tensor-core route")
+        plain = qm.quant_matmul_experts_plain(xe, qw, s, z)
+        err = check_close(what, y.detach(), plain, qm.error_bound(
+            xe, qw, s, z, plain, factored=True, gemv=gemv))
+        del plain
+        if self.bitwise_2d:
+            fn = qm.quant_gemv if gemv else qm.quant_matmul
+            saved = fn.launches
+            for e in range(xe.shape[0]):
+                if not torch.equal(y[e], fn(xe[e], qw[e], s[e], z[e])):
+                    fail(f"{what}: slice {e} differs from the 2-D kernel's "
+                         f"launch on that expert")
+            fn.launches = saved
+            self.slices_bitwise += xe.shape[0]
+        if self.watch is not None:
+            i, j = self.watch
+            if self._n_expert == i:
+                self.watched = xe.clone()
+            elif self._n_expert == j:
+                if self.watched is None or not torch.equal(self.watched, xe):
+                    fail(f"{self.label}: expert call {j}'s input (the "
+                         f"recompute's) differs from call {i}'s (the "
+                         f"forward's): the recompute routed differently")
+                self.watched = True
+        self._n_expert += 1
+        self.calls[name] += 1
+        self.worst = max(self.worst, err)
 
     def __exit__(self, *exc):
         self.ops.quant_matmul = self._qmm
+        self.ops.quant_matmul_experts = self._qmme
 
 
 def dense_build(torch, name: str, **kw):
@@ -3030,12 +3267,30 @@ def block_fp32_bytes(torch, cfg) -> int:
     return 4 * sum(p.numel() for p in block.parameters())
 
 
-def n_quantized(model) -> int:
+def n_quantized(model, experts: bool = False) -> int:
     """The model's quantized linears: 7 a layer with a SwiGLU MLP, 6 with
-    a GELU one."""
+    a GELU one, 4 (attention) with an MoE block — plus 3 with deepseek's
+    shared MLP; with ``experts``, its quantized expert stacks instead (3
+    an MoE block)."""
     from repro_torch.models.linear import Linear
     return sum(isinstance(m, Linear) and m.quantized
+               and (m.n_experts is not None) == experts
                for m in model.modules())
+
+
+def launch_want(model, prefill: int, steps: int, layers: int) -> dict:
+    """The launches of ``prefill`` prefills and ``steps`` decode steps of a
+    lockstep batch: one K2 (K1 for a step) a 2-D quantized linear, one
+    expert-axis K2 (K1) an expert stack — a prefill's rows give every
+    expert C > 32 capacity rows, a step's of BATCH rows C = 1 —, and L K4
+    launches a step."""
+    n_lin, n_exp = n_quantized(model), n_quantized(model, experts=True)
+    want = {"quant_matmul": n_lin * prefill, "quant_gemv": n_lin * steps,
+            "flash_attention": layers * steps}
+    if n_exp:
+        want.update(quant_matmul_experts=n_exp * prefill,
+                    quant_gemv_experts=n_exp * steps)
+    return {k: v for k, v in want.items() if v}
 
 
 def dense_generate(torch, label, api, model, prompt, prefix=None) -> dict:
@@ -3059,9 +3314,8 @@ def dense_generate(torch, label, api, model, prompt, prefix=None) -> dict:
     total_s = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in ops.KERNELS if k.launches}
     peak = torch.cuda.max_memory_allocated()
-    n_lin, steps = n_quantized(model), NEW - 1
-    want = {"quant_matmul": n_lin, "quant_gemv": n_lin * steps,
-            "flash_attention": cfg.n_layers * steps}
+    steps = NEW - 1
+    want = launch_want(model, 1, steps, cfg.n_layers)
     if launches != want:
         fail(f"{label} generate: launches {launches}, expected {want}")
     if tuple(out.shape) != (BATCH, PROMPT + NEW) or not torch.equal(
@@ -3097,17 +3351,22 @@ def checked_generate(torch, label, api, model, prompt, prefix=None) -> dict:
     the prefill and one decode step — with every K2 call (the prefill's, M
     = B·(P + S)) and K1 call (the step's, M = B) held to plain element by
     element as it happens (``CheckedQuantMatmul``): exactly one of each a
-    quantized linear."""
+    quantized linear; and likewise, for an MoE model, every expert-axis K2
+    (the prefill's) and K1 (the step's) call, each slice also bit-equal to
+    the 2-D kernel's launch on its expert."""
     from repro_torch.kernels import ops
     from repro_torch.train.serve import Engine
-    n_lin = n_quantized(model)
-    with CheckedQuantMatmul(ops, f"{label} generate") as chk:
+    with CheckedQuantMatmul(ops, f"{label} generate",
+                            bitwise_2d=True) as chk:
         Engine(api, model).generate(prompt, 2, prefix=prefix)
-    want = {"quant_gemv": n_lin, "quant_matmul": n_lin}
+    want = {k: 0 for k in chk.calls}
+    want.update({k: v for k, v in launch_want(
+        model, 1, 1, api.cfg.n_layers).items() if k in want})
     if chk.calls != want:
         fail(f"{label}: {chk.calls} calls checked against plain, expected "
              f"{want}")
-    return {"calls_checked": chk.calls, "qmm_max_abs_err": chk.worst}
+    return {"calls_checked": chk.calls, "qmm_max_abs_err": chk.worst,
+            "expert_slices_bitwise_2d": chk.slices_bitwise}
 
 
 def full_mode_bytes(model) -> tuple:
@@ -3136,7 +3395,7 @@ def dense_train(torch, label, cfg0, model, mask, steps, batch_size=None,
     projection's recomputed launch returns no output to check: L fewer
     calls are checked than launched); finite losses; optimizer state = 8 B × the scales; only
     the scales move (the codes, zeros, biases, norms, table and head equal
-    their copies on the host).  Figures: the timed steps' walls (step 1,
+    their copies on the device).  Figures: the timed steps' walls (step 1,
     checked, is not timed), tokens/s, peak memory of the run."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core import policies
@@ -3163,12 +3422,14 @@ def dense_train(torch, label, cfg0, model, mask, steps, batch_size=None,
             batch["image_embeds"] = torch.randn(
                 tcfg.batch_size, prefix_rows, cfg.d_model, generator=pgen)
         return batch
-    n_lin = n_quantized(model)
+    n_lin, n_exp = n_quantized(model), n_quantized(model, experts=True)
     scales = {n: p for n, p in model.named_parameters() if mask[n]}
     if not scales or any(not n.endswith(".scale") for n in scales):
         fail(f"{label} train: the peqa mask trains {sorted(scales)[:4]}…")
     n_scales = sum(p.numel() for p in scales.values())
-    frozen = {n: t.detach().to("cpu", copy=True) for n, t in
+    # device copies (a host copy of mixtral-8x7b's 24 GB took ≈ 15 s each
+    # way); they are allocated before ``base``, so the peak leaves them out
+    frozen = {n: t.detach().clone() for n, t in
               list(model.named_parameters()) + list(model.named_buffers())
               if not mask.get(n)}
     start = {n: p.detach().clone() for n, p in scales.items()}
@@ -3189,8 +3450,16 @@ def dense_train(torch, label, cfg0, model, mask, steps, batch_size=None,
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if i == 0:
-            with CheckedQuantMatmul(ops, f"train {label}", m_rows) as chk:
+            # an MoE model: the recompute's first expert call (the last
+            # block's, 3 an MoE block) must see the forward's inputs
+            watch = (3 * (cfg.n_layers - 1), 3 * cfg.n_layers) if n_exp \
+                else None
+            with CheckedQuantMatmul(ops, f"train {label}", m_rows,
+                                    watch=watch) as chk:
                 state, metrics = ts(state, batch)
+            if n_exp and chk.watched is not True:
+                fail(f"{label} train: the recompute's routing was not "
+                     f"compared ({chk.calls} checked)")
         else:
             state, metrics = ts(state, batch)
         torch.cuda.synchronize()
@@ -3201,10 +3470,20 @@ def dense_train(torch, label, cfg0, model, mask, steps, batch_size=None,
     peak = torch.cuda.max_memory_allocated() - base
     want = {"quant_matmul": 2 * n_lin}
     checked = chk.calls["quant_matmul"]
-    if checked != 2 * n_lin - cfg.n_layers or any(got != want
-                                                  for got in seen):
+    # the recompute stops once the block's last saved tensor is back: in a
+    # dense block (and deepseek's, whose shared MLP comes last) inside the
+    # down projection, whose output is then never returned; in mixtral's
+    # MoE block after the expert combine (the aux loss saves last)
+    unchecked = {2 * n_lin - cfg.n_layers} if not n_exp else \
+        {2 * n_lin - cfg.n_layers, 2 * n_lin}
+    if n_exp:
+        want["quant_matmul_experts"] = 2 * n_exp
+        if chk.calls["quant_matmul_experts"] not in (
+                2 * n_exp, 2 * n_exp - cfg.n_layers):
+            fail(f"{label} train: {chk.calls} checked in step 1")
+    if checked not in unchecked or any(got != want for got in seen):
         fail(f"{label} train: {checked} K2 calls checked in step 1, "
-             f"launches {seen}; expected {2 * n_lin - cfg.n_layers} and "
+             f"launches {seen}; expected {sorted(unchecked)} and "
              f"{want} a step")
     if not all(map(math.isfinite, losses)):
         fail(f"{label} train: losses {losses}")
@@ -3215,7 +3494,7 @@ def dense_train(torch, label, cfg0, model, mask, steps, batch_size=None,
     if all(torch.equal(p, start[n]) for n, p in scales.items()):
         fail(f"{label} train: no scale moved")
     for n, t in list(model.named_parameters()) + list(model.named_buffers()):
-        if n in frozen and not torch.equal(t.detach().cpu(), frozen[n]):
+        if n in frozen and not torch.equal(t.detach(), frozen[n]):
             fail(f"{label} train: frozen {n} changed")
     timed_ms = walls[1:]
     med = sorted(timed_ms)[len(timed_ms) // 2] if timed_ms else None
@@ -3226,6 +3505,9 @@ def dense_train(torch, label, cfg0, model, mask, steps, batch_size=None,
             "median_step_ms": med,
             "tokens_per_s": m_rows / med * 1e3 if med else None,
             "k2_calls_checked": checked, "k2_max_abs_err": chk.worst,
+            "expert_k2_calls_checked": chk.calls["quant_matmul_experts"],
+            "recompute_routing_equal": (chk.watched is True) if n_exp
+            else None,
             "launches_a_step": seen[-1], "peak_mem_gb": peak / 1e9,
             "state_bytes": sbytes, "scales": n_scales,
             "trainable": policies.trainable_count(model, mask),
@@ -3285,7 +3567,8 @@ def phase_dense_archs(torch) -> dict:
                                          "prompt": prompt},
                                  phase="dense_archs_profile")
     phase_serve(torch, {"api": api, "model": model, "cfg": cfg},
-                phase="dense_archs_serve", probes=False)
+                phase="dense_archs_serve", probes=False,
+                n_requests=DENSE_SERVE_REQUESTS)
     cfg8 = cfg.replace(kv_cache_dtype="int8")
     api8 = registry.build(cfg8)
     g8 = dense_generate(torch, "qwen2-7b int8 cache", api8, model, prompt)
@@ -3334,14 +3617,16 @@ def phase_dense_archs(torch) -> dict:
 
 
 def granite_whole(torch, gen) -> dict:
-    """granite-34b at full width and depth (88 layers; 186 GB of float32
-    weights, so it exists only through the layer-by-layer build): the
-    build's peak within the model's bytes plus two blocks' float32 bytes;
+    """granite-34b at full width and GRANITE_LAYERS of its 88 layers (34 GB
+    of float32 weights at 16; mixtral-8x7b's 187 GB in phase moe
+    carry the proof of a build larger than the card): the build's peak
+    within the model's bytes plus two blocks' float32 bytes;
     ``Engine.generate`` of 4 × 256 tokens and NEW new with the exact
-    launch counts (88 × 7 K2 for the prefill, 88 × 7 K1 and 88 K4 a decode
+    launch counts (L × 7 K2 for the prefill, L × 7 K1 and L K4 a decode
     step), the prefill's K2 calls and the first step's K1 calls each held
     to plain."""
-    cfg, api, model, mask, built = dense_build(torch, "granite-34b")
+    cfg, api, model, mask, built = dense_build(torch, "granite-34b",
+                                               n_layers=GRANITE_LAYERS)
     g = {"model": cfg.name, "layers": cfg.n_layers, **built}
     bound = built["model_gb"] + 2 * built["block_fp32_gb"]
     g["build_peak_bound_gb"] = bound
@@ -3536,6 +3821,183 @@ def check_vlm(torch) -> dict:
     res["verify_check"] = check["done"]
     del plane, model_p, streamed
     torch.cuda.empty_cache()
+    return res
+
+
+def check_moe(torch) -> dict:
+    """Phase check's 2-layer deepseek-moe-16b at full width (64 experts,
+    top-6, 2 shared): the layer-by-layer build bit-equal, tensor by tensor,
+    to the whole build (``api.init`` then ``policies.prepare``), then
+    ``check_path``: the kernels against the plain versions on the card,
+    every K1, K2 and expert-axis call held to plain as it happens."""
+    from repro_torch.core import policies
+    from repro_torch.models import registry
+    cfg = dense_cfg("deepseek-moe-16b", n_layers=2)
+    api = registry.build(cfg)
+    streamed, _ = policies.build(api, SEED)
+    whole, _ = policies.prepare(api.init(SEED), cfg)
+    ts = dict(list(streamed.named_parameters())
+              + list(streamed.named_buffers()))
+    tw = dict(list(whole.named_parameters()) + list(whole.named_buffers()))
+    differ = [n for n in tw if n not in ts or not torch.equal(ts[n], tw[n])]
+    if differ or ts.keys() != tw.keys():
+        fail(f"moe 2-layer: the layer-by-layer build differs from the whole "
+             f"build in {differ[:4]} ({len(differ)} tensors)")
+    n_tensors = len(tw)
+    del whole, tw, ts
+    gen = torch.Generator().manual_seed(SEED + 19)
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen)
+    res = {**check_path(torch, api, streamed, cfg, prompt, MOE_CHECK_NEW),
+           "build_bit_equal_tensors": n_tensors}
+    del streamed
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase moe: mixtral-8x7b and deepseek-moe-16b, the experts on a grid axis
+# ---------------------------------------------------------------------------
+
+def moe_requests(cfg, seed):
+    """MOE_REQUESTS requests over MOE_TASKS tasks in runs (one task's burst
+    after the other), prompt lengths and budgets in turn, all at step 0."""
+    import numpy as np
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(seed)
+    n = MOE_REQUESTS
+    return [Request(
+        tokens=rng.integers(0, cfg.vocab_size, MOE_PROMPTS[i % len(
+            MOE_PROMPTS)]),
+        n_new=MOE_NEW[i % len(MOE_NEW)], task=f"t{i * MOE_TASKS // n}",
+        arrival_step=0) for i in range(n)]
+
+
+def moe_serve_want(cfg, model, reqs, capacity, steps) -> dict:
+    """The exact launches of a drain run: each admitted prompt of S rows
+    (bucketed to a power of two within the pool's ``capacity`` unless the
+    ring forbids it) launches K2 once a 2-D quantized linear (S > 32) and,
+    by its experts' capacity rows C, the expert-axis GEMV (C ≤ 32) or GEMM
+    once an expert stack; each of ``steps`` pool steps routes MOE_SLOTS
+    rows (C = 1): K1 and the expert-axis GEMV once a linear, K4 a layer."""
+    from repro_torch.models import moe
+    from repro_torch.train.serve import Engine
+    mc = cfg.moe
+    n_lin, n_exp = n_quantized(model), n_quantized(model, experts=True)
+    cap = lambda t: moe.capacity(t, mc.top_k, mc.n_experts,
+                                 mc.capacity_factor)
+    want = dict.fromkeys(("quant_matmul", "quant_gemv", "quant_gemv_experts",
+                          "quant_matmul_experts", "flash_attention"), 0)
+    for r in reqs:
+        t = r.n_prompt if cfg.swa_window is not None \
+            else Engine._bucket_len(r.n_prompt, capacity)
+        want["quant_matmul" if t > GEMV_MAX else "quant_gemv"] += n_lin
+        want["quant_matmul_experts" if cap(t) > GEMV_MAX
+             else "quant_gemv_experts"] += n_exp
+    want["quant_gemv"] += n_lin * steps
+    want["quant_matmul_experts" if cap(MOE_SLOTS) > GEMV_MAX
+         else "quant_gemv_experts"] += n_exp * steps
+    want["flash_attention"] += cfg.n_layers * steps
+    return {k: v for k, v in want.items() if v}
+
+
+def moe_serve(torch, api, model, cfg) -> dict:
+    """MOE_REQUESTS requests over MOE_TASKS tasks through ``Engine.serve``
+    in MOE_SLOTS slots under drain, twice: every request its full budget,
+    the exact launches (``moe_serve_want``), and the second run's tokens
+    equal to the first's.  Then the resident and speculative schedulers
+    must refuse with the reference's messages (``FamilyCaps``' reasons)."""
+    from repro_torch.models import registry
+    from repro_torch.serve import ServeConfig
+    from repro_torch.train.serve import Engine
+    bank = task_bank(model, MOE_TASKS, SEED + 20)
+    reqs = moe_requests(cfg, SEED + 21)
+    res = {"requests": len(reqs), "slots": MOE_SLOTS, "tasks": MOE_TASKS}
+    reports, check = [], {"peak": 0}
+    for run in ("drain", "drain_again"):
+        eng = Engine(api, model, bank=bank)
+        pools, open_pool = [], eng.open_pool
+
+        def opened(n, c, _pools=pools, _open=open_pool):
+            _pools.append(c)
+            return _open(n, c)
+        eng.open_pool = opened
+        rep, _, _ = serve_run(
+            torch, res, check, cfg.vocab_size, run, eng, "step", reqs,
+            ServeConfig(n_slots=MOE_SLOTS, scheduler="drain"),
+            lambda n, p=pools: moe_serve_want(cfg, model, reqs, p[0], n))
+        eng.switch_task("t0")                 # the model's own scales back
+        reports.append(rep)
+    res["capacity"] = pools[0]
+    res["tokens_equal_share"] = gate_tokens_equal(
+        f"{cfg.name} second drain run", "first drain", reports[0],
+        reports[1])
+    eng = Engine(api, model, bank=bank)
+    res["refused"] = {}
+    for sched, reason in (("resident", registry.MOE_SLOTTED_REASON),
+                          ("speculative", registry.MOE_VERIFY_REASON)):
+        want = f"scheduler='{sched}' unsupported here: {reason}"
+        try:
+            eng.serve(reqs, ServeConfig(n_slots=MOE_SLOTS, scheduler=sched))
+        except ValueError as err:
+            if str(err) != want:
+                fail(f"{cfg.name} {sched}: refused with {err!r}, expected "
+                     f"{want!r}")
+            res["refused"][sched] = str(err)
+        else:
+            fail(f"{cfg.name}: the {sched} scheduler served an MoE model")
+    return res
+
+
+def moe_model(torch, name, gen) -> dict:
+    """One MoE configuration at full width and depth (module docstring,
+    phase moe)."""
+    cfg, api, model, mask, built = dense_build(torch, name)
+    res = {"model": cfg.name, "layers": cfg.n_layers,
+           "experts": cfg.moe.n_experts, "top_k": cfg.moe.top_k,
+           "shared_experts": cfg.moe.n_shared_experts, **built}
+    bound = built["model_gb"] + 2 * built["block_fp32_gb"]
+    res["build_peak_bound_gb"] = bound
+    if built["build_peak_gb"] > bound:
+        fail(f"{name} build: peak {built['build_peak_gb']:.3f} GB above "
+             f"the model's {built['model_gb']:.3f} GB plus two blocks' "
+             f"float32 {2 * built['block_fp32_gb']:.3f} GB")
+    n_exp = n_quantized(model, experts=True)
+    n_lin = n_quantized(model)
+    want_lin = (4 + 3 * (cfg.moe.n_shared_experts > 0)) * cfg.n_layers
+    if n_exp != 3 * cfg.n_layers or n_lin != want_lin:
+        fail(f"{name} build: {n_lin} 2-D quantized linears and {n_exp} "
+             f"expert stacks")
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen)
+    secs = {"build": built["build_s"]}
+
+    def part(key, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        secs[key] = time.perf_counter() - t0
+        return out
+    res["checked"] = part("checked_generate", checked_generate, torch, name,
+                          api, model, prompt)
+    res["generate"] = part("generate", dense_generate, torch, name, api,
+                           model, prompt)["res"]
+    res["profile"] = part("profile", phase_profile, torch, {
+        "api": api, "model": model, "prompt": prompt}, phase="moe_profile")
+    res["serve"] = part("serve", moe_serve, torch, api, model, cfg)
+    res["train"] = part("train", dense_train, torch, name, cfg, model, mask,
+                        MOE_TRAIN_STEPS, batch_size=MOE_TRAIN_BATCH)
+    res["seconds"] = secs
+    emit({"phase": "moe_model", **res})
+    del model, mask, api
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_moe(torch) -> dict:
+    """mixtral-8x7b and deepseek-moe-16b at full width and depth (module
+    docstring, phase moe)."""
+    gen = torch.Generator().manual_seed(SEED + 18)
+    res = {"phase": "moe"}
+    for name in MOE_ARCHS:
+        res[name] = moe_model(torch, name, gen)
     return res
 
 
@@ -3782,7 +4244,8 @@ def arms_lora_optq(torch, data, calib, prompt) -> dict:
     with CheckedQuantMatmul(ops, "arms lora_optq generate") as chk:
         out = engine.generate(prompt, NEW)
     torch.cuda.synchronize()
-    want = {"quant_gemv": n_lin * (NEW - 1), "quant_matmul": n_lin}
+    want = {"quant_gemv": n_lin * (NEW - 1), "quant_matmul": n_lin,
+            "quant_gemv_experts": 0, "quant_matmul_experts": 0}
     if chk.calls != want or not torch.equal(out, gen["out"]):
         fail(f"arms lora_optq generate: {chk.calls} checked, expected "
              f"{want}; tokens equal to the unchecked run's: "
@@ -4087,7 +4550,8 @@ def main() -> None:
         return out
 
     dev = run("device", phase_device, torch)
-    worst_err, attn_prefill, attn_7b = run("kernels", phase_kernels, torch)
+    worst_err, attn_prefill, attn_7b, experts = run("kernels", phase_kernels,
+                                                    torch)
     main_path = run("main", phase_main, torch)
     run("profile", phase_profile, torch, main_path)
     plane = run("plane_backbone", plane_backbone, torch, main_path)
@@ -4118,6 +4582,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     dense = run("dense_archs", phase_dense_archs, torch)
     vlm = run("vlm", phase_vlm, torch)
+    moe = run("moe", phase_moe, torch)
     arms = run("arms", phase_arms, torch, prompt, peqa, full)
     if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
                                    for m in sys.modules):
@@ -4139,6 +4604,12 @@ def main() -> None:
         "rtn_pack_planes": ("rtn_pack", "src/repro/kernels/rtn_pack.py:107"),
         "flash_attention": ("flash_attention",
                             "src/repro/kernels/flash_attention.py:113"),
+        "quant_gemv_experts": (
+            "quant_gemv", "src/repro/kernels/quant_matmul.py:290 under vmap "
+            "at src/repro/models/moe.py:133"),
+        "quant_matmul_experts": (
+            "quant_matmul", "src/repro/kernels/quant_matmul.py:170 under "
+            "vmap at src/repro/models/moe.py:133"),
     }
     # each kernel's launches on the path that runs it: K1 and K2 on the
     # lockstep main path, K5 on the resident serve path, K6a's on the
@@ -4166,6 +4637,17 @@ def main() -> None:
         "bound_ms": attn_prefill["bound_us"] * per / 1e3,
         "bound_by": attn_prefill["bound_by"],
         "library_ms": attn_prefill["library_us"] * per / 1e3}
+    # the expert-axis forms: launches over phase moe's two generate runs
+    # (its main path); ms, bound and library for one mixtral-8x7b block's
+    # three expert linears (gate and up (14336, 4096), down (4096, 14336))
+    # at C = 1 (K1) and C = 320 (K2), from phase kernels
+    for name in ("quant_gemv_experts", "quant_matmul_experts"):
+        launches[name] = sum(moe[m]["generate"]["launches"].get(name, 0)
+                             for m in MOE_ARCHS)
+        up, down = (f[name] for f in experts["mixtral-8x7b"])
+        times[name] = {k: 2 * up[k] + down[k] for k in (
+            "ms", "plain_ms", "bound_ms", "library_ms", "loop_2d_ms")}
+        times[name]["bound_by"] = up["bound_by"]
     kernels = []
     for name in (k.__name__ for k in ops.KERNELS):
         st = times[name]
@@ -4179,7 +4661,9 @@ def main() -> None:
             "max_abs_err": worst_err[name],
             "ms": st["ms"], "plain_ms": st["plain_ms"],
             "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
-            "library_ms": st["library_ms"]})
+            "library_ms": st["library_ms"],
+            **({"loop_2d_ms": st["loop_2d_ms"]} if "loop_2d_ms" in st
+               else {})})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "phase_seconds": seconds,
           "k4_7b_prefill_us": {m: r["us"] for m, r in attn_7b.items()},
@@ -4200,6 +4684,15 @@ def main() -> None:
                   "train": {k: vlm["train"][k] for k in (
                       "median_step_ms", "peak_mem_gb", "state_bytes",
                       "scales")}},
+          "moe": {m: {k: moe[m][k] for k in (
+              "layers", "build_s", "build_peak_gb", "build_peak_bound_gb",
+              "model_gb", "generate")} | {
+              "busy_share": {k: moe[m]["profile"][k]["device_busy_share"]
+                             for k in ("prefill", "decode_step")},
+              "serve_wall_s": moe[m]["serve"]["drain"]["wall_s"],
+              "train": {k: moe[m]["train"][k] for k in (
+                  "median_step_ms", "peak_mem_gb", "state_bytes",
+                  "scales")}} for m in MOE_ARCHS},
           "arms": arms["table"]})
     print(dev["gpu"], flush=True)
     emit({"kernels": kernels})

@@ -1,15 +1,16 @@
 """Config registry (copy of ``repro/configs/__init__.py``'s ``get_config``,
 ``make_tiny`` and ``paper_lm``, for the families the port serves: the
-dense llama3.2-1b, qwen2-7b, granite-34b and starcoder2-7b, and the vlm
-llava-next-mistral-7b)."""
+dense llama3.2-1b, qwen2-7b, granite-34b and starcoder2-7b, the moe
+mixtral-8x7b and deepseek-moe-16b, and the vlm llava-next-mistral-7b)."""
 from __future__ import annotations
 
+import dataclasses
 import importlib
 
-from repro_torch.configs.base import (ModelConfig, OptimConfig, QuantConfig,
-                                      TrainConfig, TuningConfig)
+from repro_torch.configs.base import (ModelConfig, MoEConfig, OptimConfig,
+                                      QuantConfig, TrainConfig, TuningConfig)
 
-__all__ = ["ARCHS", "ModelConfig", "OptimConfig", "QuantConfig",
+__all__ = ["ARCHS", "ModelConfig", "MoEConfig", "OptimConfig", "QuantConfig",
            "TrainConfig", "TuningConfig", "get_config", "make_tiny",
            "paper_lm"]
 
@@ -18,6 +19,8 @@ _MODULES = {
     "qwen2-7b": "qwen2_7b",
     "granite-34b": "granite_34b",
     "starcoder2-7b": "starcoder2_7b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
+    "mixtral-8x7b": "mixtral_8x7b",
     "llava-next-mistral-7b": "llava_next_mistral_7b",
 }
 
@@ -32,18 +35,26 @@ def get_config(name: str) -> ModelConfig:
 
 
 def make_tiny(cfg: ModelConfig, *, vocab: int = 512) -> ModelConfig:
-    """Reduced same-family config for CPU tests (the reference's dense and
-    vlm branches: 2 layers, d_model 64, 4 heads of 16, float32; a vlm's
-    prefix 8 rows)."""
-    if cfg.family not in ("dense", "vlm"):
+    """Reduced same-family config for CPU tests (the reference's dense, moe
+    and vlm branches: 2 layers, d_model 64, 4 heads of 16, float32; a vlm's
+    prefix 8 rows; an moe's 8 experts under ``expert_sharding="expert"``,
+    else 4, top-2, at most one shared expert, d_ff 64)."""
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense and vlm only)")
+            f"family {cfg.family!r} is not ported yet (dense, moe and vlm "
+            f"only)")
     kw = dict(
         name=f"tiny-{cfg.name}", d_model=64, d_ff=0 if cfg.d_ff == 0 else 128,
         n_heads=4, n_kv_heads=min(cfg.n_kv_heads, 4) if cfg.n_kv_heads > 1 else 1,
         vocab_size=vocab, head_dim=16, dtype="float32", n_layers=2)
     if cfg.family == "vlm":
         kw["n_img_tokens"] = 8
+    if cfg.family == "moe":
+        kw["moe"] = dataclasses.replace(
+            cfg.moe, n_experts=8 if cfg.moe.expert_sharding == "expert" else 4,
+            top_k=2, n_shared_experts=min(cfg.moe.n_shared_experts, 1),
+            d_ff_expert=None)
+        kw["d_ff"] = 64
     return cfg.replace(**kw)
 
 

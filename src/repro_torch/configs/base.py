@@ -1,6 +1,6 @@
 """Config dataclasses (copy of ``repro/configs/base.py``'s QuantConfig,
 TuningConfig and ModelConfig, trimmed to the fields the port reads or must
-refuse, and its OptimConfig and TrainConfig whole).  Frozen, like the
+refuse, and its MoEConfig, OptimConfig and TrainConfig whole).  Frozen, like the
 reference, so they can key caches."""
 from __future__ import annotations
 
@@ -29,6 +29,20 @@ class QuantConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    n_shared_experts: int = 0          # DeepSeek-MoE shared experts
+    d_ff_expert: Optional[int] = None  # defaults to ModelConfig.d_ff
+    capacity_factor: float = 1.25
+    # 'expert': shard expert dim over 'model' (EP; needs n_experts % axis == 0)
+    # 'tensor': shard each expert's d_ff over 'model' (TP-within-expert).
+    # Off the mesh it names the experts' key: experts_ep / experts
+    expert_sharding: str = "tensor"
+    router_aux_coef: float = 0.01      # load-balance loss
+
+
+@dataclasses.dataclass(frozen=True)
 class TuningConfig:
     """Which fine-tuning method — the paper's comparison axis."""
 
@@ -42,7 +56,7 @@ class TuningConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                        # dense | vlm (the families ported yet)
+    family: str                        # dense | moe | vlm (the families ported yet)
     n_layers: int
     d_model: int
     n_heads: int
@@ -57,7 +71,7 @@ class ModelConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     swa_window: Optional[int] = None   # sliding window: a ring KV cache
-    moe: Optional[object] = None       # not ported yet: refused by build
+    moe: Optional[MoEConfig] = None
     use_rope: bool = True              # learned positions not ported yet
     bf16_reduce: bool = False          # not ported yet: refused by build
     attn_impl: str = "dense"           # dense | chunked (the K4 kernel)

@@ -31,6 +31,14 @@ from repro_torch.models.linear import Linear
 # paths whose "w" leaf must never be quantized
 EXCLUDE = re.compile(
     r".*(router|embed|conv|/sr|/sb|pos|lm_head).*")
+# float32 weights the quantizer takes at once when it maps over a leaf's
+# leading dims (an MoE block's expert stack): one (n, m) matrix at a time,
+# or as many small ones as fit this budget as one (k·n, m) matrix — its
+# rows are quantized independently —, so the temporaries stay one large
+# expert's (mixtral-8x7b's 14336 × 4096 experts go one by one) while
+# deepseek-moe-16b's 1408 × 2048 ones go 23 at a time, not in 64 host-bound
+# rounds of the grid search
+QUANT_CHUNK_ELEMENTS = 1 << 26
 
 
 def ref_path(name: str) -> str:
@@ -67,14 +75,40 @@ def eligible(path: str, leaf: torch.Tensor, qcfg: QuantConfig) -> bool:
 
 
 def quantize_leaf(w: torch.Tensor, qcfg: QuantConfig) -> dict:
-    """(n, m) fp → dict(qw, scale, zero).  (The reference maps over stacked
-    leading dims; the port's layers are separate modules.)
+    """(…, n, m) fp → dict(qw, scale, zero), each with w's leading dims (an
+    MoE block's expert stack (E, n, m)).  As the reference's
+    ``quantize_leaf``, the leading dims are mapped SEQUENTIALLY — one
+    (n, m) matrix at a time, or a chunk of small ones within
+    ``QUANT_CHUNK_ELEMENTS``, each result written into the stacked output —
+    so the quantizer's temporaries are one large expert's, not E's.  (The
+    reference maps over stacked layers too; the port's layers are separate
+    modules.)
 
     Plain min/max RTN (``n_grid <= 1``) of an asymmetric spec is the
     conversion kernel's function: it goes through ``ops.rtn_pack`` (K3 for
     nibbles, K6b for bit-planes, on the card).  Everything else runs
     ``rtn_quantize`` and packs — the same function as the reference's
     ``quantize_leaf`` either way."""
+    if w.dim() > 2:
+        if qcfg.layout == "plane":
+            raise NotImplementedError("bit-plane codes of a stacked leaf "
+                                      "(MoE experts) are not ported")
+        lead, (n, m) = w.shape[:-2], w.shape[-2:]
+        flat = w.reshape(-1, n, m)
+        step = max(1, QUANT_CHUNK_ELEMENTS // (n * m))
+        out = None
+        for i in range(0, flat.shape[0], step):
+            part = flat[i:i + step]
+            q = quantize_leaf(part.reshape(-1, m), qcfg)
+            if out is None:
+                out = {k: torch.empty((flat.shape[0], n, *v.shape[1:]),
+                                      dtype=v.dtype, device=v.device)
+                       for k, v in q.items()}
+            for k, v in q.items():
+                out[k][i:i + step] = v.reshape(part.shape[0], n,
+                                               *v.shape[1:])
+            del q
+        return {k: v.reshape(*lead, *v.shape[1:]) for k, v in out.items()}
     spec = qcfg.spec()
     spec.check_ported()
     spec.validate(w.shape[-1])
@@ -116,18 +150,21 @@ def quantize_params(model: nn.Module, qcfg: QuantConfig, *, device=None
 def dequantize_params(model: nn.Module, qcfg: QuantConfig) -> nn.Module:
     """PEQA model → fp model, in place: every quantized linear's ``w`` is
     Ŵ = s·(q − z) in float32 (merges the tuned scales into the weights;
-    for export and comparisons)."""
+    for export and comparisons).  An expert stack's leading axis is kept:
+    its rows are dequantized as (E·out) channels."""
     spec = qcfg.spec()
     for mod in model.modules():
         if isinstance(mod, Linear) and mod.quantized:
             k = mod.in_features
-            codes = unpack_codes_planes(mod.qw, k) if spec.plane \
-                else unpack_codes(mod.qw, k)
+            lead = mod.scale.shape[:-1]           # (out,) or (E, out)
+            rows = int(np.prod(lead))
+            qw = mod.qw if spec.plane else mod.qw.reshape(rows, -1)
+            codes = unpack_codes_planes(qw, k) if spec.plane \
+                else unpack_codes(qw, k)
             s, z = mod.scale.detach(), mod.zero.detach()
             g = s.shape[-1]
-            cg = codes.reshape(mod.out_features, g, k // g).to(torch.float32)
-            w = (s[..., None] * (cg - z[..., None])).reshape(
-                mod.out_features, k)
+            cg = codes.reshape(*lead, g, k // g).to(torch.float32)
+            w = (s[..., None] * (cg - z[..., None])).reshape(*lead, k)
             mod.set_dense(w)
     return model
 

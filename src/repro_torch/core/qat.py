@@ -28,7 +28,15 @@ def add_fake_quant(model: nn.Module, qcfg: QuantConfig) -> nn.Module:
     for name, mod in model.named_modules():
         if isinstance(mod, Linear) and not mod.quantized \
                 and eligible(ref_path(f"{name}.w"), mod.w, qcfg):
-            _, s, z = rtn_quantize(mod.w.to(torch.float32), spec,
-                                   n_grid=qcfg.n_grid)
+            # an expert stack's (E, out, in): one expert at a time, as the
+            # reference's lax.map
+            w = mod.w.to(torch.float32)
+            flat = w.reshape(-1, *w.shape[-2:])
+            sz = [rtn_quantize(wi, spec, n_grid=qcfg.n_grid)[1:]
+                  for wi in flat]
+            s = torch.stack([t[0] for t in sz]).reshape(
+                *w.shape[:-2], *sz[0][0].shape)
+            z = torch.stack([t[1] for t in sz]).reshape(
+                *w.shape[:-2], *sz[0][1].shape)
             mod.set_fake_quant(s, z, spec)
     return model

@@ -181,6 +181,23 @@ __device__ __forceinline__ uint32_t load_word(const uint32_t* __restrict__ qw,
   }
 }
 
+// The expert axis (quant_gemv_experts): one launch over gridDim.z experts,
+// each with its own x (M, K), nibble words (N, K/8), scale and zero (N, G)
+// and y (M, N), all experts of one shape and stored one after another (an
+// MoE block's (E, C, K) rows and its (E, N, …) expert stacks).  Block z
+// advances the operands to expert z's slices and then runs the 2-D
+// launch's tile code unchanged, so slice z of the result is bit for bit
+// the 2-D kernel on expert z's operands; a 2-D launch is z = 0 alone.
+#define EXPERT_SLICE(x, qw, scale, zero, y, M, N, K, G)          \
+  do {                                                            \
+    const size_t e_ = blockIdx.z;                                 \
+    x += e_ * (size_t)(M) * (K);                                  \
+    qw += e_ * (size_t)(N) * ((K) >> 3);                          \
+    scale += e_ * (size_t)(N) * (G);                              \
+    zero += e_ * (size_t)(N) * (G);                               \
+    y += e_ * (size_t)(M) * (N);                                  \
+  } while (0)
+
 // MT: rows of x padded to a power of two; R: output rows per lane;
 // MB: rows of x held in registers at a time; TASKS: K5 (scale and zero are
 // (T, N, G) stacks, row m reads task task_ids[m]) instead of K1; PLANES:
@@ -207,6 +224,7 @@ __global__ void __launch_bounds__(THREADS, 2) quant_gemv_kernel(
   const volatile float* szv = reinterpret_cast<const volatile float*>(sz_s);
   const volatile int* tofs = tofs_s;
 
+  EXPERT_SLICE(x, qw, scale, zero, y, M, N, K, G);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int kq = warp % KSPLIT, rg = warp / KSPLIT;
   const int n0 = (blockIdx.x * ROW_GROUPS + rg) * R;
@@ -441,7 +459,7 @@ struct Planes {
 template <typename T, int MT, int R, bool TASKS, bool PLANES>
 cudaError_t launch(const void* x, const void* qw, const void* scale, const void* zero,
                    const int* task_ids, void* y, int M, int N, int K, int G,
-                   int n_tasks, Planes pl, cudaStream_t stream) {
+                   int n_tasks, Planes pl, int E, cudaStream_t stream) {
   int kc = KC_FIXED;
   if (kc > K) kc = K;
   const size_t smem = (size_t)MT * kc * sizeof(float) + extra_smem<MT, R, TASKS>();
@@ -461,7 +479,7 @@ cudaError_t launch(const void* x, const void* qw, const void* scale, const void*
     set_on |= 1ull << dev;
   }
   const int rows_per_block = ROW_GROUPS * R;
-  const dim3 grid((N + rows_per_block - 1) / rows_per_block);
+  const dim3 grid((N + rows_per_block - 1) / rows_per_block, 1, E);
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const uint32_t*>(qw),
       static_cast<const float*>(scale), static_cast<const float*>(zero),
@@ -584,6 +602,7 @@ __global__ void __launch_bounds__(TC_THREADS, 2) quant_gemv_tc_kernel(
   constexpr bool PIPE = NT == 1;
   constexpr int UNR = PIPE ? 2 : 4 / NT;      // 64-code blocks a batch
   __shared__ float red[TC_WARPS][16][8 * NT];
+  EXPERT_SLICE(x, qw, scale, zero, y, M, N, K, G);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int rank = blockIdx.x % split, n0 = blockIdx.x / split * 16;
@@ -768,7 +787,7 @@ __global__ void __launch_bounds__(TC_THREADS, 2) quant_gemv_tc_kernel(
 template <int NT, bool TASKS, bool PLANES>
 cudaError_t launch_tc(const void* x, const void* qw, const void* scale,
                       const void* zero, const int* task_ids, void* y, int M,
-                      int N, int K, int G, int n_tasks, Planes pl,
+                      int N, int K, int G, int n_tasks, Planes pl, int E,
                       cudaStream_t stream) {
   const int split = tc_block_split(N, K);
   cudaLaunchAttribute attr;
@@ -776,7 +795,7 @@ cudaError_t launch_tc(const void* x, const void* qw, const void* scale,
   attr.val.clusterDim.x = split;
   attr.val.clusterDim.y = attr.val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((N + 15) / 16 * split);
+  cfg.gridDim = dim3((N + 15) / 16 * split, 1, E);
   cfg.blockDim = dim3(TC_THREADS);
   cfg.stream = stream;
   cfg.attrs = &attr;
@@ -792,11 +811,11 @@ cudaError_t launch_tc(const void* x, const void* qw, const void* scale,
 template <bool TASKS, bool PLANES>
 cudaError_t dispatch_tc(const void* x, const void* qw, const void* scale,
                         const void* zero, const int* task_ids, void* y, int M,
-                        int N, int K, int G, int n_tasks, Planes pl,
+                        int N, int K, int G, int n_tasks, Planes pl, int E,
                         cudaStream_t s) {
-  if (M <= 8) return launch_tc<1, TASKS, PLANES>(x, qw, scale, zero, task_ids, y, M, N, K, G, n_tasks, pl, s);
-  if (M <= 16) return launch_tc<2, TASKS, PLANES>(x, qw, scale, zero, task_ids, y, M, N, K, G, n_tasks, pl, s);
-  return launch_tc<4, TASKS, PLANES>(x, qw, scale, zero, task_ids, y, M, N, K, G, n_tasks, pl, s);
+  if (M <= 8) return launch_tc<1, TASKS, PLANES>(x, qw, scale, zero, task_ids, y, M, N, K, G, n_tasks, pl, E, s);
+  if (M <= 16) return launch_tc<2, TASKS, PLANES>(x, qw, scale, zero, task_ids, y, M, N, K, G, n_tasks, pl, E, s);
+  return launch_tc<4, TASKS, PLANES>(x, qw, scale, zero, task_ids, y, M, N, K, G, n_tasks, pl, E, s);
 }
 
 // the tensor-core route's shapes (quant_matmul.tc_route on the host)
@@ -809,26 +828,26 @@ bool tc_route(int x_is_bf16, int K, int G) {
 template <typename T, bool TASKS, bool PLANES>
 cudaError_t dispatch(const void* x, const void* qw, const void* scale, const void* zero,
                      const int* task_ids, void* y, int M, int N, int K, int G,
-                     int n_tasks, Planes pl, cudaStream_t s) {
-  if (M <= 1) return launch<T, 1, 8, TASKS, PLANES>(x, qw, scale, zero, task_ids, y, M, N, K, G, n_tasks, pl, s);
-  if (M <= 2) return launch<T, 2, 8, TASKS, PLANES>(x, qw, scale, zero, task_ids, y, M, N, K, G, n_tasks, pl, s);
-  if (M <= 4) return launch<T, 4, 8, TASKS, PLANES>(x, qw, scale, zero, task_ids, y, M, N, K, G, n_tasks, pl, s);
-  if (M <= 8) return launch<T, 8, 4, TASKS, PLANES>(x, qw, scale, zero, task_ids, y, M, N, K, G, n_tasks, pl, s);
-  if (M <= 16) return launch<T, 16, 2, TASKS, PLANES>(x, qw, scale, zero, task_ids, y, M, N, K, G, n_tasks, pl, s);
-  return launch<T, 32, 1, TASKS, PLANES>(x, qw, scale, zero, task_ids, y, M, N, K, G, n_tasks, pl, s);
+                     int n_tasks, Planes pl, int E, cudaStream_t s) {
+  if (M <= 1) return launch<T, 1, 8, TASKS, PLANES>(x, qw, scale, zero, task_ids, y, M, N, K, G, n_tasks, pl, E, s);
+  if (M <= 2) return launch<T, 2, 8, TASKS, PLANES>(x, qw, scale, zero, task_ids, y, M, N, K, G, n_tasks, pl, E, s);
+  if (M <= 4) return launch<T, 4, 8, TASKS, PLANES>(x, qw, scale, zero, task_ids, y, M, N, K, G, n_tasks, pl, E, s);
+  if (M <= 8) return launch<T, 8, 4, TASKS, PLANES>(x, qw, scale, zero, task_ids, y, M, N, K, G, n_tasks, pl, E, s);
+  if (M <= 16) return launch<T, 16, 2, TASKS, PLANES>(x, qw, scale, zero, task_ids, y, M, N, K, G, n_tasks, pl, E, s);
+  return launch<T, 32, 1, TASKS, PLANES>(x, qw, scale, zero, task_ids, y, M, N, K, G, n_tasks, pl, E, s);
 }
 
 template <bool TASKS, bool PLANES>
 int run(const void* x, const void* qw, const void* scale, const void* zero,
         const void* task_ids, void* y, int M, int N, int K, int G, int T,
-        Planes pl, int x_is_bf16, void* stream) {
+        Planes pl, int x_is_bf16, void* stream, int E = 1) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* ids = static_cast<const int*>(task_ids);
   if (tc_route(x_is_bf16, K, G))
-    return (int)dispatch_tc<TASKS, PLANES>(x, qw, scale, zero, ids, y, M, N, K, G, T, pl, s);
+    return (int)dispatch_tc<TASKS, PLANES>(x, qw, scale, zero, ids, y, M, N, K, G, T, pl, E, s);
   cudaError_t err = x_is_bf16
-      ? dispatch<__nv_bfloat16, TASKS, PLANES>(x, qw, scale, zero, ids, y, M, N, K, G, T, pl, s)
-      : dispatch<float, TASKS, PLANES>(x, qw, scale, zero, ids, y, M, N, K, G, T, pl, s);
+      ? dispatch<__nv_bfloat16, TASKS, PLANES>(x, qw, scale, zero, ids, y, M, N, K, G, T, pl, E, s)
+      : dispatch<float, TASKS, PLANES>(x, qw, scale, zero, ids, y, M, N, K, G, T, pl, E, s);
   return (int)err;
 }
 
@@ -877,6 +896,17 @@ extern "C" int quant_gemv_planes(const void* x, const void* qw, const void* scal
   if (bad_dims(M, N, K, G) || bad_planes(K, pl)) return (int)cudaErrorInvalidValue;
   return run<false, true>(x, qw, scale, zero, nullptr, y, M, N, K, G, 1, pl,
                           x_is_bf16, stream);
+}
+
+// K1 over an expert axis: x (E, M, K), qw (E, N, K/8) nibble words, scale
+// and zero (E, N, G), y (E, M, N); slice e is quant_gemv on expert e's
+// operands, bit for bit (EXPERT_SLICE).
+extern "C" int quant_gemv_experts(const void* x, const void* qw, const void* scale,
+                                  const void* zero, void* y, int E, int M, int N,
+                                  int K, int G, int x_is_bf16, void* stream) {
+  if (bad_dims(M, N, K, G) || E < 1 || E > 65535) return (int)cudaErrorInvalidValue;
+  return run<false, false>(x, qw, scale, zero, nullptr, y, M, N, K, G, 1,
+                           Planes{}, x_is_bf16, stream, E);
 }
 
 // The tensor-core route's K split over blocks for an (N, K) layer, for the

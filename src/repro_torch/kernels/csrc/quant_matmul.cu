@@ -193,6 +193,24 @@ __device__ __forceinline__ void store_stage(const Stage<T>& st, float (*xs)[BM +
   }
 }
 
+// The expert axis (quant_matmul_experts): one launch over gridDim.z
+// experts, each with its own x (M, K), nibble words (N, K/8), scale and
+// zero (N, G) and y (M, N), all experts of one shape and stored one after
+// another (an MoE block's (E, C, K) rows and its (E, N, …) expert stacks).
+// Block z advances the operands to expert z's slices and then runs the 2-D
+// launch's tile code unchanged — with the tile shape the 2-D launch of one
+// expert would pick —, so slice z of the result is bit for bit the 2-D
+// kernel on expert z's operands; a 2-D launch is z = 0 alone.
+#define EXPERT_SLICE(x, qw, scale, zero, y, M, N, K, G)          \
+  do {                                                            \
+    const size_t e_ = blockIdx.z;                                 \
+    x += e_ * (size_t)(M) * (K);                                  \
+    qw += e_ * (size_t)(N) * ((K) >> 3);                          \
+    scale += e_ * (size_t)(N) * (G);                              \
+    zero += e_ * (size_t)(N) * (G);                               \
+    y += e_ * (size_t)(M) * (N);                                  \
+  } while (0)
+
 template <typename T, bool PLANES>
 __global__ void __launch_bounds__(THREADS, 2) quant_matmul_kernel(
     const T* __restrict__ x, const uint32_t* __restrict__ qw,
@@ -203,6 +221,7 @@ __global__ void __launch_bounds__(THREADS, 2) quant_matmul_kernel(
   __shared__ __align__(16) float ws[2][BK][BN + PAD];  // ws[k][n] = Ŵ[n][k]
   static_assert(BN * BK / 8 == THREADS, "one packed word per thread per step");
 
+  EXPERT_SLICE(x, qw, scale, zero, y, M, N, K, G);
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
@@ -258,9 +277,9 @@ __global__ void __launch_bounds__(THREADS, 2) quant_matmul_kernel(
 
 template <typename T, bool PLANES>
 cudaError_t launch(const void* x, const void* qw, const void* scale, const void* zero,
-                   void* y, int M, int N, int K, int G, Planes pl,
+                   void* y, int M, int N, int K, int G, Planes pl, int E,
                    cudaStream_t stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, E);
   quant_matmul_kernel<T, PLANES><<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const uint32_t*>(qw),
       static_cast<const float*>(scale), static_cast<const float*>(zero),
@@ -562,6 +581,7 @@ __global__ void __launch_bounds__(C::THREADS, 1) quant_matmul_tc_kernel(
   uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   uint8_t* wb = smem + STAGES * C::STAGE_BYTES;        // two unpacked B tiles
   uint8_t* ones = wb + 2 * C::B_BYTES;                 // 8 B rows of ones: Σ x
+  EXPERT_SLICE(x, qw, scale, zero, y, M, N, K, G);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wg = warp >> 2, wq = warp & 3;             // warpgroup, warp in it
   const int m0 = blockIdx.y * C::BM, n0 = blockIdx.x * C::BN;
@@ -720,7 +740,8 @@ __global__ void __launch_bounds__(C::THREADS, 1) quant_matmul_tc_kernel(
 
 template <class C, bool PLANES>
 cudaError_t launch(const void* x, const void* qw, const void* scale, const void* zero,
-                   void* y, int M, int N, int K, int G, Planes pl, cudaStream_t stream) {
+                   void* y, int M, int N, int K, int G, Planes pl, int E,
+                   cudaStream_t stream) {
   static bool sized = false;           // the dynamic shared-memory limit, once
   if (!sized) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -728,7 +749,7 @@ cudaError_t launch(const void* x, const void* qw, const void* scale, const void*
     if (e != cudaSuccess) return e;
     sized = true;
   }
-  const dim3 grid((N + C::BN - 1) / C::BN, (M + C::BM - 1) / C::BM);
+  const dim3 grid((N + C::BN - 1) / C::BN, (M + C::BM - 1) / C::BM, E);
   quant_matmul_tc_kernel<C, PLANES><<<grid, C::THREADS, C::SMEM, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const uint32_t*>(qw),
       static_cast<const float*>(scale), static_cast<const float*>(zero),
@@ -742,10 +763,13 @@ bool takes(int K, int G, int x_is_bf16) {
 }
 
 // The largest tile whose grid fills at least 3/4 of a wave on the card's
-// SMs: 128 × 256 (per-channel scales only), 128 × 128, else 64 × 64.
+// SMs: 128 × 256 (per-channel scales only), 128 × 128, else 64 × 64 — the
+// grid of one expert's (M, N), so an expert-axis launch tiles each expert
+// as its own 2-D launch would.
 template <bool PLANES>
 cudaError_t launch_tiled(const void* x, const void* qw, const void* scale, const void* zero,
-                         void* y, int M, int N, int K, int G, Planes pl, cudaStream_t s) {
+                         void* y, int M, int N, int K, int G, Planes pl, int E,
+                         cudaStream_t s) {
   int dev = 0, sms = 132;
   if (cudaGetDevice(&dev) == cudaSuccess)
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -753,10 +777,10 @@ cudaError_t launch_tiled(const void* x, const void* qw, const void* scale, const
     return 4L * ((M + bm - 1) / bm) * ((N + bn - 1) / bn) >= 3L * sms;
   };
   if (G == 1 && fills(Wide::BM, Wide::BN))
-    return tc::launch<Wide, PLANES>(x, qw, scale, zero, y, M, N, K, G, pl, s);
+    return tc::launch<Wide, PLANES>(x, qw, scale, zero, y, M, N, K, G, pl, E, s);
   if (fills(Big::BM, Big::BN))
-    return tc::launch<Big, PLANES>(x, qw, scale, zero, y, M, N, K, G, pl, s);
-  return tc::launch<Small, PLANES>(x, qw, scale, zero, y, M, N, K, G, pl, s);
+    return tc::launch<Big, PLANES>(x, qw, scale, zero, y, M, N, K, G, pl, E, s);
+  return tc::launch<Small, PLANES>(x, qw, scale, zero, y, M, N, K, G, pl, E, s);
 }
 
 }  // namespace tc
@@ -764,17 +788,18 @@ cudaError_t launch_tiled(const void* x, const void* qw, const void* scale, const
 template <bool PLANES>
 int run(const void* x, const void* qw, const void* scale, const void* zero,
         void* y, int M, int N, int K, int G, Planes pl, int x_is_bf16,
-        void* stream) {
-  if (M < 1 || M > 65535 * BM || N < 1 || K < 8 || K % 8 || G < 1 || K % G)
+        void* stream, int E = 1) {
+  if (M < 1 || M > 65535 * BM || N < 1 || K < 8 || K % 8 || G < 1 || K % G ||
+      E < 1 || E > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tc::takes(K, G, x_is_bf16)) {
     if (M > 65535 * tc::Small::BM) return (int)cudaErrorInvalidValue;
-    return (int)tc::launch_tiled<PLANES>(x, qw, scale, zero, y, M, N, K, G, pl, s);
+    return (int)tc::launch_tiled<PLANES>(x, qw, scale, zero, y, M, N, K, G, pl, E, s);
   }
   cudaError_t err = x_is_bf16
-      ? launch<__nv_bfloat16, PLANES>(x, qw, scale, zero, y, M, N, K, G, pl, s)
-      : launch<float, PLANES>(x, qw, scale, zero, y, M, N, K, G, pl, s);
+      ? launch<__nv_bfloat16, PLANES>(x, qw, scale, zero, y, M, N, K, G, pl, E, s)
+      : launch<float, PLANES>(x, qw, scale, zero, y, M, N, K, G, pl, E, s);
   return (int)err;
 }
 
@@ -800,6 +825,16 @@ extern "C" int quant_matmul_planes(const void* x, const void* qw, const void* sc
     return (int)cudaErrorInvalidValue;
   const Planes pl{planes, (float)(1u << shift), 1.0f / (float)(1u << shift)};
   return run<true>(x, qw, scale, zero, y, M, N, K, G, pl, x_is_bf16, stream);
+}
+
+// K2 over an expert axis: x (E, M, K), qw (E, N, K/8) nibble words, scale
+// and zero (E, N, G), y (E, M, N); slice e is quant_matmul on expert e's
+// operands, bit for bit (EXPERT_SLICE).
+extern "C" int quant_matmul_experts(const void* x, const void* qw, const void* scale,
+                                    const void* zero, void* y, int E, int M, int N,
+                                    int K, int G, int x_is_bf16, void* stream) {
+  return run<false>(x, qw, scale, zero, y, M, N, K, G, Planes{0, 1.f, 1.f},
+                    x_is_bf16, stream, E);
 }
 
 // Dynamic shared memory of the tensor-core route's tile shapes (tile 0:

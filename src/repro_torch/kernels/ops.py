@@ -4,14 +4,16 @@
 ``quant_matmul`` is the single entry point models use for every quantized
 fully-connected layer, ``quant_matmul_slotted`` its mixed-task form (each
 row under its own task's scales, the resident scheduler's decode and
-prefill), ``rtn_pack`` the min/max quantize-and-pack of model conversion
+prefill), ``quant_matmul_experts`` its form over an MoE block's stacked
+experts (the reference's ``quant_matmul`` under ``jax.vmap``), ``rtn_pack`` the min/max quantize-and-pack of model conversion
 and ``attention`` the attention forward.  Implementations:
 
   * ``cuda``  — the hand-written kernels of ``kernels/quant_matmul.py``:
                 M ≤ ``GEMV_MAX_M`` rows go to the GEMV (every decode step;
                 K5 when slotted), larger M to the tiled GEMM (the prefill;
                 once per task present when slotted); bit-plane codes to
-                the plane branch of each (K6a); ``rtn_pack`` to K3
+                the plane branch of each (K6a); the expert-axis forms of
+                K1 and K2 for ``quant_matmul_experts``; ``rtn_pack`` to K3
                 (nibbles) or K6b (bit-planes), ``kernels/rtn_pack.py``;
                 ``attention(impl="chunked")`` to K4,
                 ``kernels/flash_attention.py``.  A CUDA tensor
@@ -61,9 +63,10 @@ from repro_torch.kernels import rtn_pack as _rp
 from repro_torch.kernels.quant_matmul import GEMV_MAX_M
 
 __all__ = ["ATTN_IMPLS", "GEMV_MAX_M", "KERNELS", "KNOWN_IMPLS", "attention",
-           "chunked_attention_bwd", "default_impl", "dot_f32", "force_impl",
-           "qmm_grad_bound", "quant_matmul", "quant_matmul_bwd",
-           "quant_matmul_slotted", "rtn_pack"]
+           "chunked_attention_bwd", "default_impl", "dot_f32",
+           "dot_f32_experts", "force_impl", "qmm_grad_bound", "quant_matmul",
+           "quant_matmul_bwd", "quant_matmul_experts",
+           "quant_matmul_experts_bwd", "quant_matmul_slotted", "rtn_pack"]
 
 _tls = threading.local()
 
@@ -182,6 +185,13 @@ def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.mm(a.to(torch.float32), b.to(torch.float32))
 
 
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``_mm_f32`` over a leading batch axis: a (E, M, K) · b (E, K, N)."""
+    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.to(torch.float32), b.to(torch.float32))
+
+
 def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x·wᵀ in float32 for x (..., K) and w (N, K) of x's dtype — the
     reference's einsum with bf16 (or f32) operands and
@@ -214,6 +224,33 @@ class _DotF32(torch.autograd.Function):
             dx = torch.mm(dy, w.to(torch.float32)).to(x2d.dtype)
         if ctx.needs_input_grad[1]:
             dw = torch.mm(dy.T, x2d.to(torch.float32)).to(w.dtype)
+        return dx, dw
+
+
+def dot_f32_experts(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``dot_f32`` for each expert of an MoE block: x (E, C, K) · w (E, N,
+    K)ᵀ → (E, C, N) float32 (the reference's fp einsum under ``jax.vmap``).
+    Differentiable in both."""
+    return _DotF32Experts.apply(x, w)
+
+
+class _DotF32Experts(torch.autograd.Function):
+    """``_DotF32`` batched over the expert axis."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _bmm_f32(x, w.transpose(1, 2))
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.to(torch.float32)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.bmm(dy, w.to(torch.float32)).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = torch.bmm(dy.transpose(1, 2), x.to(torch.float32)).to(w.dtype)
         return dx, dw
 
 
@@ -295,6 +332,94 @@ class _QuantMatmul(torch.autograd.Function):
                 ctx.needs_input_grad[3])
         dx, ds, dz = quant_matmul_bwd(x2d, qw, scale, zero, ctx.spec, dy,
                                       need)
+        return dx, None, ds, dz, None
+
+
+def quant_matmul_experts(x: torch.Tensor, qw: torch.Tensor,
+                         scale: torch.Tensor, zero: torch.Tensor,
+                         spec: QuantSpec) -> torch.Tensor:
+    """y[e] = x[e] @ Ŵ[e]ᵀ over an MoE block's stacked experts: x (E, C, K),
+    qw (E, N, K/8) nibble words, scale and zero (E, N, G) → (E, C, N) in x's
+    dtype, through ``default_impl()``.  The reference calls ``quant_matmul``
+    under ``jax.vmap`` over the experts, so its dispatch rule applies to
+    each vmapped call of C rows: C ≤ ``GEMV_MAX_M`` takes the expert-axis
+    GEMV (K1), more rows the expert-axis GEMM (K2) — one launch for all E
+    experts either way (every expert has the same C rows: the capacity
+    dispatch pads empty slots with zero rows).  Differentiable in (x,
+    scale, zero) when grad mode is on (``_QuantMatmulExperts``, the
+    reference's ``_qmm_bwd`` for each expert); the codes are frozen.
+
+    The expert axis is named by this entry point, never inferred from qw's
+    rank (a bit-plane buffer is 3-D too): nibble codes only."""
+    spec.check_ported()
+    if spec.plane:
+        raise NotImplementedError(
+            "quant_matmul_experts takes nibble codes only (bit-plane MoE "
+            "experts are not ported)")
+    x = x.contiguous()
+    if x.data_ptr() % 16:                # a view starting mid-vector
+        x = x.clone()
+    if _grad_wanted(x, scale, zero):
+        return _QuantMatmulExperts.apply(x, qw, scale, zero, spec)
+    return _qmm_experts_forward(x, qw, scale, zero)
+
+
+def _qmm_experts_forward(x, qw, scale, zero) -> torch.Tensor:
+    """The expert-axis forward dispatch: (E, C, K) → (E, C, N)."""
+    scale = scale.to(torch.float32).contiguous()
+    zero = zero.to(torch.float32).contiguous()
+    if default_impl() == "torch":
+        return _qm.quant_matmul_experts_plain(x, qw, scale, zero)
+    if x.shape[1] <= GEMV_MAX_M:
+        return _qm.quant_gemv_experts(x, qw, scale, zero)
+    return _qm.quant_matmul_experts(x, qw, scale, zero)
+
+
+def quant_matmul_experts_bwd(x, qw, scale, zero, spec: QuantSpec, dy,
+                             need=(True, True, True)):
+    """``quant_matmul_bwd`` for each expert, batched over the expert axis:
+    x (E, C, K), dy (E, C, N) → (dx, ds, dz) with the same products and
+    sums per expert (Ŵ dequantized in x's dtype, dx = dy·Ŵ and c = dyᵀx
+    summed in float32)."""
+    e, _, k = x.shape
+    n, g = scale.shape[-2:]
+    dx = ds = dz = None
+    if need[0]:
+        w = _ref.dequant_ref(qw.reshape(e * n, -1), scale.reshape(e * n, g),
+                             zero.reshape(e * n, g), (e * n, k), spec,
+                             x.dtype).reshape(e, n, k)
+        dx = _bmm_f32(dy.to(x.dtype), w).to(x.dtype)
+    if need[1] or need[2]:
+        c = _bmm_f32(dy.to(x.dtype).transpose(1, 2), x).reshape(
+            e, n, g, k // g)
+        if need[1]:
+            codes = _codes_f32(qw.reshape(e * n, -1), k, spec, g)
+            zf = zero.to(torch.float32)[..., None]
+            ds = (c * (codes.reshape(e, n, g, k // g) - zf)).sum(-1).to(
+                scale.dtype)
+        if need[2]:
+            dz = (-scale.to(torch.float32) * c.sum(-1)).to(zero.dtype)
+    return dx, ds, dz
+
+
+class _QuantMatmulExperts(torch.autograd.Function):
+    """``quant_matmul_experts`` with the reference's analytic backward for
+    each expert: the forward is ``_qmm_experts_forward`` (the expert-axis
+    kernels), the backward ``quant_matmul_experts_bwd``."""
+
+    @staticmethod
+    def forward(ctx, x, qw, scale, zero, spec):
+        ctx.spec = spec
+        ctx.save_for_backward(x, qw, scale, zero)
+        return _qmm_experts_forward(x, qw, scale, zero)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, qw, scale, zero = ctx.saved_tensors
+        need = (ctx.needs_input_grad[0], ctx.needs_input_grad[2],
+                ctx.needs_input_grad[3])
+        dx, ds, dz = quant_matmul_experts_bwd(x, qw, scale, zero, ctx.spec,
+                                              dy, need)
         return dx, None, ds, dz, None
 
 

@@ -26,6 +26,16 @@ plain PyTorch versions.
                      — K6a, the bit-plane branch of K1, K5 and K2 (the same
                        sources); replaces ``_unpack_planes`` / ``_qw_layout``
                        of ``repro/kernels/quant_matmul.py``.
+  * ``quant_gemv_experts``, ``quant_matmul_experts``
+                     — K1 and K2 over an expert axis (the same sources, the
+                       experts on the grid's z axis); replaces
+                       ``quant_gemv_pallas`` and ``quant_matmul_pallas``
+                       under ``jax.vmap`` over an MoE block's experts
+                       (``repro/models/moe.py``, the vmapped MLP).  Slice e of
+                       one launch is bit for bit the 2-D kernel on expert
+                       e's operands; their plain version
+                       ``quant_matmul_experts_plain`` is ``quant_matmul_plain``
+                       on each expert in turn.
   * ``quant_matmul_plain`` — ``x.float() @ dequant_f32(qw, s, z).T → x.dtype``,
                        the semantics of the TPU kernels and of
                        ``ref.quant_matmul_ref``; ``quant_matmul_tasks_plain``
@@ -90,6 +100,8 @@ _ENTRIES = {
     "quant_gemv_tasks_planes": ("quant_gemv", [_P] * 6 + [_I] * 8 + [_P]),
     "quant_matmul_tc_smem": ("quant_matmul", [_I]),
     "quant_gemv_tc_split": ("quant_gemv", [_I, _I]),
+    "quant_gemv_experts": ("quant_gemv", [_P] * 5 + [_I] * 6 + [_P]),
+    "quant_matmul_experts": ("quant_matmul", [_P] * 5 + [_I] * 6 + [_P]),
 }
 _entries: dict = {}
 
@@ -111,6 +123,14 @@ def quant_matmul_plain(x, qw, scale, zero):
     """The plain version of K1 and K2: f32 dequantize, f32 matmul."""
     w = _dequant_f32(qw, scale, zero, x.shape[-1])
     return torch.matmul(x.to(torch.float32), w.T).to(x.dtype)
+
+
+def quant_matmul_experts_plain(x, qw, scale, zero):
+    """The plain version of the expert-axis K1 and K2: x (E, C, K), qw (E,
+    N, K/8), scale and zero (E, N, G) → (E, C, N), ``quant_matmul_plain``
+    on each expert in turn."""
+    return torch.stack([quant_matmul_plain(x[e], qw[e], scale[e], zero[e])
+                        for e in range(x.shape[0])])
 
 
 def tc_route(x, scale) -> bool:
@@ -315,7 +335,14 @@ def error_bound(x, qw, scale, zero, plain, task_ids=None, planes=None,
 
     A bf16 output adds one bf16 ulp of the larger result (rounding to 8
     significant bits can split two float32 sums across a rounding step).
+
+    An expert axis (x (E, C, K), qw (E, N, K/8), scale and zero (E, N, G),
+    plain (E, C, N)): each expert's bound, the same formula batched (every
+    expert has the same N, K and G, so the same n, P, W and G).
     """
+    if x.dim() == 3:
+        return _error_bound_experts(x, qw, scale, zero, plain, factored,
+                                    gemv)
     if task_ids is not None:
         out = torch.empty(plain.shape, dtype=torch.float32,
                           device=plain.device)
@@ -340,6 +367,34 @@ def error_bound(x, qw, scale, zero, plain, task_ids=None, planes=None,
     else:
         w = _dequant_f32(qw, scale, zero, k, planes)
         bound = 2 * k * u * (xa @ w.abs().T)
+    if plain.dtype == torch.bfloat16:
+        mag = plain.to(torch.float32).abs() + bound
+        ulp = torch.exp2(torch.floor(torch.log2(
+            mag.clamp_min(torch.finfo(torch.float32).tiny))) - 7)
+        bound = bound + ulp
+    return bound
+
+
+def _error_bound_experts(x, qw, scale, zero, plain, factored, gemv):
+    """``error_bound`` over an expert axis, batched (nibble codes)."""
+    e, _, k = x.shape
+    n, g = scale.shape[-2:]
+    u = 2.0 ** -24
+    xa = x.to(torch.float32).abs()
+    if factored:
+        q = unpack_codes(qw.reshape(e * n, -1), k).to(torch.float32)
+        wt = (scale.abs()[..., None] * (q.reshape(e, n, g, k // g)
+                                        + zero.abs()[..., None])
+              ).reshape(e, n, k)
+        del q
+        adds = (len(gemv_segments(n, k, g)) + GEMV_KSPLIT
+                * gemv_block_split(n, k) if gemv else g)
+        coef = k // g * 2 * u + (k + 2 * adds + 6) * u
+    else:
+        wt = _dequant_f32(qw.reshape(e * n, -1), scale.reshape(e * n, g),
+                          zero.reshape(e * n, g), k).abs().reshape(e, n, k)
+        coef = 2 * k * u
+    bound = coef * torch.bmm(xa, wt.transpose(1, 2))
     if plain.dtype == torch.bfloat16:
         mag = plain.to(torch.float32).abs() + bound
         ulp = torch.exp2(torch.floor(torch.log2(
@@ -423,6 +478,25 @@ def _check_tasks(x, qw, scale_stack, zero_stack, task_ids, planes=None):
         raise ValueError("operands must be contiguous")
 
 
+def _check_experts(x, qw, scale, zero, max_m=None):
+    """Raise on anything the expert-axis kernels do not take: x (E, C, K),
+    qw (E, N, K/8) nibble words, scale and zero (E, N, G), each expert's
+    slice what ``_check`` asks of a 2-D call."""
+    if x.dim() != 3 or qw.dim() != 3 or scale.dim() != 3 or zero.dim() != 3:
+        raise ValueError(
+            f"need x (E, C, K), qw (E, N, K/8), scale and zero (E, N, G); "
+            f"got {tuple(x.shape)}, {tuple(qw.shape)}, {tuple(scale.shape)}, "
+            f"{tuple(zero.shape)}")
+    e = x.shape[0]
+    if not 1 <= e <= 65535 or any(t.shape[0] != e for t in (qw, scale, zero)):
+        raise ValueError(f"x, qw, scale and zero need the same expert count "
+                         f"1..65535; got {x.shape[0]}, {qw.shape[0]}, "
+                         f"{scale.shape[0]}, {zero.shape[0]}")
+    _check(x[0], qw[0], scale[0], zero[0], max_m=max_m)
+    if not all(t.is_contiguous() for t in (x, qw, scale, zero)):
+        raise ValueError("operands must be contiguous")
+
+
 def _entry(name: str):
     """The C entry point ``name``, typed once."""
     fn = _entries.get(name)
@@ -470,6 +544,24 @@ def _launch(name: str, x, qw, scale, zero, task_ids=None, planes=None):
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc} "
                            f"(M={m}, N={n}, K={k}, G={g}, {x.dtype}"
                            f"{'' if planes is None else f', planes {planes}'})")
+    return y
+
+
+def _launch_experts(name: str, x, qw, scale, zero):
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} runs on CUDA tensors, got {x.device}")
+    fn = _entry(name)
+    e, m, k = x.shape
+    n, g = scale.shape[-2], scale.shape[-1]
+    y = torch.empty((e, m, n), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(x.data_ptr(), qw.data_ptr(), scale.data_ptr(),
+                zero.data_ptr(), y.data_ptr(), e, m, n, k, g,
+                int(x.dtype == torch.bfloat16), stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc} "
+                           f"(E={e}, M={m}, N={n}, K={k}, G={g}, {x.dtype})")
     return y
 
 
@@ -542,7 +634,32 @@ def quant_gemv_tasks_planes(x, qw, scale_stack, zero_stack, task_ids, bits,
     return y
 
 
+def quant_gemv_experts(x, qw, scale, zero):
+    """K1 over an expert axis: y[e] = x[e] @ Ŵ[e]ᵀ for x (E, C ≤ 32, K), qw
+    (E, N, K/8), scale and zero (E, N, G) — one launch for all E experts,
+    slice e bit for bit ``quant_gemv`` on expert e's operands."""
+    _check_experts(x, qw, scale, zero, max_m=GEMV_MAX_M)
+    if x.device.type == "cpu":
+        return quant_matmul_experts_plain(x, qw, scale, zero)
+    y = _launch_experts("quant_gemv_experts", x, qw, scale, zero)
+    quant_gemv_experts.launches += 1
+    return y
+
+
+def quant_matmul_experts(x, qw, scale, zero):
+    """K2 over an expert axis: y[e] = x[e] @ Ŵ[e]ᵀ for x (E, C, K) — one
+    launch for all E experts, slice e bit for bit ``quant_matmul`` on
+    expert e's operands."""
+    _check_experts(x, qw, scale, zero)
+    if x.device.type == "cpu":
+        return quant_matmul_experts_plain(x, qw, scale, zero)
+    y = _launch_experts("quant_matmul_experts", x, qw, scale, zero)
+    quant_matmul_experts.launches += 1
+    return y
+
+
 KERNELS = (quant_gemv, quant_matmul, quant_gemv_tasks, quant_gemv_planes,
-           quant_matmul_planes, quant_gemv_tasks_planes)
+           quant_matmul_planes, quant_gemv_tasks_planes, quant_gemv_experts,
+           quant_matmul_experts)
 for _k in KERNELS:
     _k.launches = 0

@@ -119,13 +119,21 @@ def apply_rope_slots(x: torch.Tensor, rope) -> torch.Tensor:
 class MLP(nn.Module):
     """The feed-forward: SwiGLU (``up``, ``gate``, ``down``) for
     ``act="silu"``, else ``up`` and ``down`` around a GELU (reference
-    ``mlp_init``)."""
+    ``mlp_init``), ``d_in → d_ff → d_in`` (``cfg.d_model`` and ``cfg.d_ff``
+    unless given).  With ``n_experts`` every linear is an expert stack
+    (``linear.Linear(n_experts=)``): an MoE block's experts, applied to
+    (E, C, d_in) rows expert by expert."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None, *,
+                 d_in: Optional[int] = None, d_ff: Optional[int] = None,
+                 n_experts: Optional[int] = None):
         super().__init__()
-        self.up = linear.Linear(cfg.d_model, cfg.d_ff, device=device)
-        self.down = linear.Linear(cfg.d_ff, cfg.d_model, device=device)
-        self.gate = linear.Linear(cfg.d_model, cfg.d_ff, device=device) \
+        d_in = d_in or cfg.d_model
+        d_ff = d_ff or cfg.d_ff
+        kw = dict(n_experts=n_experts, device=device)
+        self.up = linear.Linear(d_in, d_ff, **kw)
+        self.down = linear.Linear(d_ff, d_in, **kw)
+        self.gate = linear.Linear(d_in, d_ff, **kw) \
             if cfg.act == "silu" else None
 
 

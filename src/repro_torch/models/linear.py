@@ -17,6 +17,13 @@ storage mode is which of them exist:
 The bias (the reference's ``init(bias=True)``: q/k/v of qwen2 and
 starcoder2) is zero-initialised and never quantized.
 
+An expert linear (``n_experts=E``: an MoE block's stacked experts, the
+reference's ``mlp_init`` under ``jax.vmap``) holds every leaf with a
+leading expert axis — w (E, out, in), qw (E, out, in/8), scale and zero
+(E, out, G) — and ``apply`` takes x (E, C, in) → (E, C, out), expert e's
+rows through expert e's weight.  It has no bias and no adapter (LoRA
+targets the attention projections only) and nibble codes only.
+
 ``core/peqa.py`` turns fp into peqa in place (``set_quantized``),
 ``core/qat.py`` fp into qat (``set_fake_quant``) and ``core/lora.py`` adds
 the adapter (``set_lora``); model code only ever calls ``apply``.
@@ -34,12 +41,17 @@ from repro_torch.kernels import ops
 
 class Linear(nn.Module):
     def __init__(self, in_features: int, out_features: int, *,
-                 bias: bool = False, device=None):
+                 bias: bool = False, n_experts: Optional[int] = None,
+                 device=None):
         super().__init__()
+        if n_experts is not None and bias:
+            raise ValueError("an expert linear has no bias")
         self.in_features = in_features
         self.out_features = out_features
+        self.n_experts = n_experts
         self.spec: Optional[QuantSpec] = None
-        self.w = nn.Parameter(torch.empty(out_features, in_features,
+        lead = () if n_experts is None else (n_experts,)
+        self.w = nn.Parameter(torch.empty(*lead, out_features, in_features,
                                           device=device))
         self.b = nn.Parameter(torch.empty(out_features, device=device)) \
             if bias else None
@@ -84,6 +96,9 @@ class Linear(nn.Module):
 
     def set_lora(self, lora_a: torch.Tensor, lora_b: torch.Tensor) -> None:
         """Attach the adapter: ``lora_a`` (r, in), ``lora_b`` (out, r)."""
+        if self.n_experts is not None:
+            raise NotImplementedError("LoRA on an expert linear is not "
+                                      "ported")
         self.lora_a = nn.Parameter(lora_a)
         self.lora_b = nn.Parameter(lora_b)
 
@@ -140,6 +155,8 @@ def apply(p: Linear, x: torch.Tensor, slots=None,
     y's dtype (``bias_add``).  The delta's scale is 1: the reference's
     ``apply`` takes ``lora_scale=1.0`` and no call site passes another
     (its ``merge_lora`` multiplies by ``lora_alpha`` all the same)."""
+    if p.n_experts is not None:
+        return _apply_experts(p, x, slots, draft_bits)
     if p.quantized:
         if slots is not None and isinstance(slots[1], dict) \
                 and "scale" in slots[1]:
@@ -160,6 +177,24 @@ def apply(p: Linear, x: torch.Tensor, slots=None,
     return y if p.b is None else bias_add(y, p.b)
 
 
+def _apply_experts(p: Linear, x: torch.Tensor, slots, draft_bits
+                   ) -> torch.Tensor:
+    """An expert linear's y (E, C, out) = x (E, C, in) · W[e]ᵀ per expert, in
+    x's dtype: the reference's ``apply`` under ``jax.vmap`` — the quantized
+    product through ``ops.quant_matmul_experts``, the fp and QAT products
+    through ``ops.dot_f32_experts``.  Forward of one task only (no slots,
+    no draft: the reference's MoE has no slotted or verify step)."""
+    if slots is not None or draft_bits is not None:
+        raise NotImplementedError("an expert linear serves one task's "
+                                  "scales and nibble codes only")
+    if p.quantized:
+        return ops.quant_matmul_experts(x, p.qw, p.scale, p.zero, p.spec)
+    w = p.w.to(x.dtype)
+    if p.fake_quant:
+        w = fake_quant(w, p.scale, p.zero, p.spec)
+    return ops.dot_f32_experts(x, w).to(x.dtype)
+
+
 def ste_round(x: torch.Tensor) -> torch.Tensor:
     """Round with a straight-through gradient, computed as the reference
     writes it, x + stop_gradient(round(x) − x), in x's dtype (in bf16 this
@@ -169,21 +204,22 @@ def ste_round(x: torch.Tensor) -> torch.Tensor:
 
 def fake_quant(w: torch.Tensor, scale: torch.Tensor, zero: torch.Tensor,
                spec: QuantSpec) -> torch.Tensor:
-    """QAT's quantize-dequantize of w (n, m) in w's dtype (the reference's
-    ``_fake_quant``): s·(clip(ste_round(w/s) + z, 0, levels) − z) per
-    group, with s and z cast to w's dtype.  The clip is max then min, as
+    """QAT's quantize-dequantize of w (…, n, m) in w's dtype (the
+    reference's ``_fake_quant``, under ``jax.vmap`` for an expert stack's
+    leading axis): s·(clip(ste_round(w/s) + z, 0, levels) − z) per group,
+    with s and z cast to w's dtype.  The clip is max then min, as
     ``jnp.clip``, whose gradient at a bound is one half (``torch.clamp``'s
     is one)."""
-    n, m = w.shape
+    *lead, n, m = w.shape
     g = scale.shape[-1]
-    wg = w.reshape(n, g, m // g)
+    wg = w.reshape(*lead, n, g, m // g)
     s = scale[..., None].to(w.dtype)
     z = zero[..., None].to(w.dtype)
     q = ste_round(wg / s) + z
     lo = torch.zeros((), dtype=w.dtype, device=w.device)
     hi = torch.full((), spec.levels, dtype=w.dtype, device=w.device)
     q = torch.minimum(torch.maximum(q, lo), hi)
-    return (s * (q - z)).reshape(n, m)
+    return (s * (q - z)).reshape(*lead, n, m)
 
 
 def lora_delta(x: torch.Tensor, lora_a: torch.Tensor,

@@ -1,5 +1,5 @@
 """Model registry (port of ``repro/models/registry.py``: ``FamilyCaps``,
-``ModelAPI`` and ``build``'s dense and vlm branch).
+``ModelAPI`` and ``build``'s dense, moe and vlm branch).
 
 ``build(cfg)`` returns a ``ModelAPI`` with the functions the trainer and the
 server call, the speculative ``decode_verify`` and
@@ -90,16 +90,33 @@ class ModelAPI:
 
 
 KV_CACHE_DTYPES = ("model", "int8")
-# the families the port builds: the dense decoder, and the vlm — the same
-# decoder behind a prefix of precomputed patch embeddings
-FAMILIES = ("dense", "vlm")
+# the families the port builds: the dense decoder, the moe — the same
+# decoder with MoE blocks —, and the vlm — the dense decoder behind a
+# prefix of precomputed patch embeddings
+FAMILIES = ("dense", "moe", "vlm")
+EXPERT_SHARDINGS = ("tensor", "expert")
+# the reference's reasons (its registry.py) why an MoE model has no slotted
+# steps and no usable verify: the resident and speculative schedulers'
+# refusal messages
+MOE_SLOTTED_REASON = ("MoE expert dispatch cannot thread per-slot scales "
+                      "(no slotted decode step)")
+MOE_VERIFY_REASON = "MoE expert dispatch is not supported in the verify step"
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for every configuration this slice of the port does not serve."""
+    moe = cfg.moe is not None
     refused = [
         (cfg.family not in FAMILIES, f"family {cfg.family!r}"),
-        (cfg.moe is not None, "mixture-of-experts blocks"),
+        (moe and cfg.moe.expert_sharding not in EXPERT_SHARDINGS,
+         f"expert_sharding={cfg.moe.expert_sharding!r}" if moe else ""),
+        (moe and cfg.quant.layout == "plane",
+         "bit-plane codes on MoE experts (MoE has no verify step, so planes "
+         "would only be storage; use layout='nibble')"),
+        (moe and cfg.tuning.mode == "lora_optq",
+         "lora_optq on MoE: the reference's GPTQ replays only a dense block "
+         "(core/gptq.py reads layer_p['mlp']), so it has no OPTQ backbone "
+         "for an MoE model"),
         (cfg.kv_cache_dtype not in KV_CACHE_DTYPES,
          f"kv_cache_dtype={cfg.kv_cache_dtype!r}"),
         (cfg.bf16_reduce, "bf16_reduce (it halves the tensor-parallel "
@@ -127,13 +144,17 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def build(cfg: ModelConfig, device=None) -> ModelAPI:
-    """The dense or vlm decoder's API on ``device`` (the card unless
+    """The dense, moe or vlm decoder's API on ``device`` (the card unless
     ``device="cpu"``).  A vlm's prefill takes the batch's optional
     ``"image_embeds"`` (B, P, d): its rows take the first P cache
-    positions."""
+    positions.  With MoE blocks, as in the reference, there is no slotted
+    decode, slotted prefill or slotted verify (None, with the reference's
+    reasons in ``FamilyCaps``), and ``decode_verify`` is built but fenced
+    off by ``verify_reason``."""
     check_supported(cfg)
     dev = _device.resolve(device)
     vlm = cfg.family == "vlm"
+    moe = cfg.moe is not None
 
     def init(seed: int = 0, transform=None) -> transformer.Transformer:
         return transformer.init(
@@ -152,18 +173,24 @@ def build(cfg: ModelConfig, device=None) -> ModelAPI:
         decode_step=lambda m, c, t, pos, draft_bits=None:
             transformer.decode_step(m, c, t, pos, cfg, draft_bits=draft_bits),
         init_cache=lambda b, s: attention.init_cache(cfg, b, s, dev),
-        decode_step_slotted=lambda m, st, c, t, pos, tid, draft_bits=None:
+        decode_step_slotted=None if moe else (
+            lambda m, st, c, t, pos, tid, draft_bits=None:
             transformer.decode_step(m, c, t, pos, cfg, task_stack=st,
-                                    task_ids=tid, draft_bits=draft_bits),
-        prefill_slotted=lambda m, st, batch, tid: transformer.prefill(
-            m, batch["tokens"], cfg, prefix_embeds=batch.get("image_embeds"),
-            last_pos=batch.get("last_pos"), task_stack=st, task_ids=tid),
+                                    task_ids=tid, draft_bits=draft_bits)),
+        prefill_slotted=None if moe else (
+            lambda m, st, batch, tid: transformer.prefill(
+                m, batch["tokens"], cfg,
+                prefix_embeds=batch.get("image_embeds"),
+                last_pos=batch.get("last_pos"), task_stack=st, task_ids=tid)),
         decode_verify=lambda m, c, t, pos: transformer.decode_verify(
             m, c, t, pos, cfg),
-        decode_verify_slotted=lambda m, st, c, t, pos, tid:
+        decode_verify_slotted=None if moe else (
+            lambda m, st, c, t, pos, tid:
             transformer.decode_verify(m, c, t, pos, cfg, task_stack=st,
-                                      task_ids=tid),
+                                      task_ids=tid)),
         caps=FamilyCaps(bucketable=True,
                         prefix_key="image_embeds" if vlm else None,
-                        prefix_positions=vlm),
+                        prefix_positions=vlm,
+                        slotted_reason=MOE_SLOTTED_REASON if moe else None,
+                        verify_reason=MOE_VERIFY_REASON if moe else None),
     )

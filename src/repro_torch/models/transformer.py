@@ -1,9 +1,12 @@
-"""Decoder-only transformer backbone, the dense and vlm families (port of
-``repro/models/transformer.py``: ``init``, the training ``forward`` and
+"""Decoder-only transformer backbone, the dense, moe and vlm families (port
+of ``repro/models/transformer.py``: ``init``, the training ``forward`` and
 ``loss_fn``, ``prefill``, ``decode_step`` and the speculative
 ``decode_verify``, each serving function with the reference's mixed-task
 ``task_stack``/``task_ids`` form; a vlm's patch-embedding prefix enters
 ``forward``, ``loss_fn`` and ``prefill`` and is only cache rows after).
+A block's feed-forward is its ``mlp`` or, with ``cfg.moe``, its ``moe``
+(``models/moe.py``), whose Switch aux loss the training forward sums over
+layers into ``loss_fn``.
 
 Layers are a ``ModuleList`` of per-layer blocks and run in a Python loop
 (the reference stacks them and scans).  ``bridge.py`` converts between the
@@ -16,16 +19,22 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, common, linear
+from repro_torch.models import attention, common, linear, moe
 
 
 class Block(nn.Module):
+    """ln1, attn, ln2 and the feed-forward: ``mlp``, or ``moe`` when the
+    config has one (the other is None)."""
+
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         self.ln1 = common.Norm(cfg, device=device)
         self.attn = attention.Attention(cfg, device=device)
         self.ln2 = common.Norm(cfg, device=device)
-        self.mlp = common.MLP(cfg, device=device)
+        self.mlp = common.MLP(cfg, device=device) if cfg.moe is None \
+            else None
+        self.moe = moe.MoE(cfg, device=device) if cfg.moe is not None \
+            else None
 
 
 class Transformer(nn.Module):
@@ -92,14 +101,30 @@ def _final_logits(model: Transformer, h: torch.Tensor, cfg: ModelConfig,
 REMATS = ("none", "block", "full")
 
 
+def _ffn(layer: Block, h: torch.Tensor, cfg: ModelConfig, slots=None,
+         draft_bits=None):
+    """The block's feed-forward on ln2(h) → (out, aux): the MLP (aux None)
+    or the MoE block (its aux loss, float32).  The MoE block serves one
+    task's nibble codes only: the reference builds it no slotted step, and
+    its verify is refused by ``FamilyCaps.verify_reason``."""
+    hin = common.norm_apply(layer.ln2, h, cfg)
+    if layer.moe is None:
+        return common.mlp_apply(layer.mlp, hin, cfg, slots=slots,
+                                draft_bits=draft_bits), None
+    if slots is not None or draft_bits is not None:
+        raise NotImplementedError("MoE expert dispatch serves one task's "
+                                  "scales and nibble codes only")
+    return moe.apply(layer.moe, hin, cfg)
+
+
 def _block_train(layer: Block, h: torch.Tensor, cfg: ModelConfig, rope):
-    """Pre-norm block over the full sequence (reference ``_block_train``,
-    without MoE); the norms and the MLP by the config (RMSNorm or
-    LayerNorm, SwiGLU or GELU)."""
+    """Pre-norm block over the full sequence (reference ``_block_train``)
+    → (h, aux): the norms and the MLP by the config (RMSNorm or LayerNorm,
+    SwiGLU or GELU), or the MoE block and its aux loss (None without)."""
     h = h + attention.apply_train(
         layer.attn, common.norm_apply(layer.ln1, h, cfg), cfg, rope)
-    return h + common.mlp_apply(layer.mlp,
-                                common.norm_apply(layer.ln2, h, cfg), cfg)
+    m, aux = _ffn(layer, h, cfg)
+    return h + m, aux
 
 
 def _embed(model: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
@@ -115,38 +140,54 @@ def _embed(model: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
 def forward(model: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
             prefix_embeds: torch.Tensor | None = None) -> torch.Tensor:
     """Full-sequence forward for training: tokens (B, S) → logits (B, P + S,
-    V) float32 (reference ``forward``, off the mesh).  ``prefix_embeds``
-    (vlm): (B, P, d) precomputed patch embeddings placed before the token
-    embeddings; the positions run over all P + S rows.  Under
-    ``cfg.remat`` "block" or "full" each block runs under
-    ``torch.utils.checkpoint`` (non-reentrant), so the backward recomputes
-    its forward — every quantized linear's kernel twice a step."""
+    V) float32 (reference ``forward``, off the mesh, without its aux loss:
+    ``forward_aux``).  ``prefix_embeds`` (vlm): (B, P, d) precomputed patch
+    embeddings placed before the token embeddings; the positions run over
+    all P + S rows."""
+    return forward_aux(model, tokens, cfg, prefix_embeds)[0]
+
+
+def forward_aux(model: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
+                prefix_embeds: torch.Tensor | None = None):
+    """``forward``'s logits and the MoE blocks' aux loss summed over layers
+    in layer order, float32 (the reference's ``(logits, aux)``; aux None
+    without MoE).  Under ``cfg.remat`` "block" or "full" each block runs
+    under ``torch.utils.checkpoint`` (non-reentrant), so the backward
+    recomputes its forward — every quantized linear's kernel twice a step
+    — and the aux comes out of the checkpoint with h."""
     if cfg.remat not in REMATS:
         raise NotImplementedError(f"remat={cfg.remat!r} is not ported "
                                   f"(have {REMATS})")
     h = _embed(model, tokens, cfg, prefix_embeds)
     rope = common.rope_table(cfg, torch.arange(h.shape[1], device=h.device))
+    total = None
     for layer in model.layers:
         if cfg.remat == "none":
-            h = _block_train(layer, h, cfg, rope)
+            h, aux = _block_train(layer, h, cfg, rope)
         else:
-            h = checkpoint(_block_train, layer, h, cfg, rope,
-                           use_reentrant=False)
-    return _final_logits(model, h, cfg)
+            h, aux = checkpoint(_block_train, layer, h, cfg, rope,
+                                use_reentrant=False)
+        if aux is not None:
+            total = aux if total is None else total + aux
+    return _final_logits(model, h, cfg), total
 
 
 def loss_fn(model: Transformer, batch: dict, cfg: ModelConfig
             ) -> torch.Tensor:
     """Token-mean next-token cross entropy of ``batch`` ({"tokens",
     "labels", optional "mask" and "image_embeds"}: tensors on the model's
-    device).  With a vlm prefix only the text rows are scored: the last
-    ``labels.shape[1]`` rows of the logits."""
-    logits = forward(model, batch["tokens"], cfg,
-                     prefix_embeds=batch.get("image_embeds"))
+    device), plus ``router_aux_coef`` × the MoE aux loss where the config
+    has MoE blocks.  With a vlm prefix only the text rows are scored: the
+    last ``labels.shape[1]`` rows of the logits."""
+    logits, aux = forward_aux(model, batch["tokens"], cfg,
+                              prefix_embeds=batch.get("image_embeds"))
     labels = batch["labels"]
     if logits.shape[1] != labels.shape[1]:
         logits = logits[:, logits.shape[1] - labels.shape[1]:]
-    return common.cross_entropy(logits, labels, batch.get("mask"))
+    ce = common.cross_entropy(logits, labels, batch.get("mask"))
+    if aux is None:
+        return ce
+    return ce + cfg.moe.router_aux_coef * aux
 
 
 def _layer_stack(tree, i: int):
@@ -197,9 +238,7 @@ def prefill(model: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
             layer.attn, common.norm_apply(layer.ln1, h, cfg), cfg, rope, cap,
             slots=linear.slot_entry(slots, "attn"))
         h = h + a
-        h = h + common.mlp_apply(layer.mlp,
-                                 common.norm_apply(layer.ln2, h, cfg), cfg,
-                                 slots=linear.slot_entry(slots, "mlp"))
+        h = h + _ffn(layer, h, cfg, slots=linear.slot_entry(slots, "mlp"))[0]
         entries.append(attention.prefill_cache_entry(ck, cv, cfg))
     # the head sees only the last (real) token: one row per batch element
     head_slots = linear.slot_entry((task_ids, task_stack), "lm_head") \
@@ -238,10 +277,8 @@ def _decode_tokens(model: Transformer, cache: dict, tokens: torch.Tensor,
                 layer.attn, hin, cfg, cache["k"][i], cache["v"][i], pos,
                 rope, slots=attn_slots, draft_bits=draft_bits)
         h = h + a
-        h = h + common.mlp_apply(layer.mlp,
-                                 common.norm_apply(layer.ln2, h, cfg), cfg,
-                                 slots=linear.slot_entry(slots, "mlp"),
-                                 draft_bits=draft_bits)
+        h = h + _ffn(layer, h, cfg, slots=linear.slot_entry(slots, "mlp"),
+                     draft_bits=draft_bits)[0]
     head_slots = linear.slot_entry((task_ids, task_stack), "lm_head") \
         if slotted else None
     return _final_logits(model, h, cfg, slots=head_slots,

@@ -86,7 +86,7 @@ def test_quant_spec_matches_reference():
 
 def test_unknown_arch_raises():
     with pytest.raises(KeyError, match="llama3.2-1b"):
-        tconfigs.get_config("mixtral-8x7b")
+        tconfigs.get_config("whisper-medium")
 
 
 @pytest.mark.parametrize("kind", ["optim", "train"])

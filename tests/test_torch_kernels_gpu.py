@@ -1236,3 +1236,122 @@ def test_layer_by_layer_build_of_granite_is_bit_equal_at_a_lower_peak(cuda):
     for name in tw:
         assert torch.equal(ts[name], tw[name]), name
     assert peak_s < peak_w, (peak_s, peak_w)
+
+
+# ------------------------------------- the moe family: the expert grid axis
+
+# (E, N, K) of deepseek-moe-16b's experts (gate/up over d_model 2048, down
+# over d_ff 1408) and mixtral-8x7b's (d_ff 14336 over d_model 4096), each
+# with the capacity rows C of a decode step (1), a verify-sized call (32)
+# and the prefill of 4 × 256 tokens (deepseek 120, mixtral 320)
+EXPERT_CASES = [(64, 1408, 2048, c) for c in (1, 4, 120)] \
+    + [(64, 2048, 1408, c) for c in (1, 32, 120)] \
+    + [(8, 14336, 4096, c) for c in (1, 320)] \
+    + [(8, 4096, 14336, c) for c in (1, 320)]
+
+
+def _expert_operands(e, c, n, k, group, dtype, device, seed=0):
+    """E RTN-quantized N(0, 1/K) weights stacked (E, N, …) and x (E, C, K)
+    on ``device``."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    qws, ss, zs = [], [], []
+    for _ in range(e):
+        w = torch.randn(n, k, generator=g, device=device) * k ** -0.5
+        q, s, z = rtn_quantize(w, QuantSpec(bits=4, group_size=group),
+                               n_grid=4)
+        qws.append(pack_codes(q))
+        ss.append(s)
+        zs.append(z)
+    x = torch.randn(e, c, k, generator=g, device=device).to(dtype)
+    return x, torch.stack(qws), torch.stack(ss), torch.stack(zs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("e,n,k,c", EXPERT_CASES)
+def test_moe_expert_axis_bitwise_2d_and_within_bound(cuda, e, n, k, c, dtype):
+    """One expert-axis launch (K1 at C ≤ 32, K2 above) over all E experts:
+    slice e bit for bit the 2-D kernel's launch on expert e's operands
+    (the same tile code and tile shape), and every slice within
+    ``error_bound`` of ``quant_matmul_plain`` on that expert (factored on
+    the tensor-core route, with ``gemv`` for the GEMV).  Per-channel at
+    every shape; groups of 128 at deepseek's gate/up."""
+    groups = [None, 128] if (n, k) == (1408, 2048) else [None]
+    for group in groups:
+        x, qw, s, z = _expert_operands(e, c, n, k, group, dtype, cuda)
+        gemv = c <= qm.GEMV_MAX_M
+        fn2, fne = ((qm.quant_gemv, qm.quant_gemv_experts) if gemv
+                    else (qm.quant_matmul, qm.quant_matmul_experts))
+        before = fne.launches
+        y = fne(x, qw, s, z)
+        assert fne.launches == before + 1 and y.shape == (e, c, n)
+        tc = qm.tc_route(x[0], s[0])
+        assert tc == (dtype == torch.bfloat16)
+        for i in range(e):
+            assert torch.equal(y[i], fn2(x[i], qw[i], s[i], z[i])), i
+            plain = qm.quant_matmul_plain(x[i], qw[i], s[i], z[i])
+            _assert_within_bound(y[i], plain, (x[i], qw[i], s[i], z[i]),
+                                 factored=tc, gemv=gemv)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [3, 40])
+def test_moe_expert_op_on_the_card(cuda, c, monkeypatch):
+    """``ops.quant_matmul_experts`` on CUDA tensors launches the expert-axis
+    GEMV (C ≤ 32) or GEMM once and never the plain version; its autograd
+    gradients equal the plain route's bit for bit on the same (x, dy)
+    (both run ``quant_matmul_experts_bwd``)."""
+    spec = QuantSpec(bits=4)
+    x, qw, s, z = _expert_operands(6, c, 256, 512, None, torch.bfloat16,
+                                   cuda, seed=3)
+    dy = (torch.randn(6, c, 256, device=cuda) * 0.1).to(torch.bfloat16)
+    fn = qm.quant_gemv_experts if c <= 32 else qm.quant_matmul_experts
+    grads = []
+    for impl in ("cuda", "torch"):
+        xs, ss, zs = (t.clone().requires_grad_(True) for t in (x, s, z))
+        with ops.force_impl(impl):
+            before = fn.launches
+            y = ops.quant_matmul_experts(xs, qw, ss, zs, spec)
+            assert fn.launches == before + (impl == "cuda")
+        y.backward(dy)
+        grads.append([t.grad for t in (xs, ss, zs)])
+    for got, want in zip(*grads):
+        assert torch.equal(got, want)
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran on CUDA tensors")
+    monkeypatch.setattr(qm, "quant_matmul_experts_plain", refuse)
+    with torch.no_grad():
+        ops.quant_matmul_experts(x, qw, s, z, spec)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "deepseek-moe-16b"])
+def test_moe_tiny_model_on_the_card(cuda, arch):
+    """``make_tiny`` of each MoE config in bf16 on the card: ``generate``
+    launches one expert-axis GEMM per expert linear for the prefill and one
+    expert-axis GEMV per expert linear a decode step (C = 1), and the
+    prefill's logits through the kernels lie within 2⁻⁵ of their largest
+    magnitude of the plain route's."""
+    from repro_torch import configs
+    from repro_torch.core import policies
+    from repro_torch.models import registry
+    from repro_torch.train.serve import Engine
+    cfg = configs.make_tiny(configs.get_config(arch)).replace(
+        dtype="bfloat16", d_model=256, head_dim=64, d_ff=256)
+    api = registry.build(cfg)
+    model, _ = policies.build(api, 0)
+    prompt = torch.randint(0, cfg.vocab_size, (4, 48),
+                           generator=torch.Generator().manual_seed(1))
+    for kern in ops.KERNELS:
+        kern.launches = 0
+    Engine(api, model).generate(prompt, 3)
+    n = 3 * cfg.n_layers
+    assert qm.quant_matmul_experts.launches == n
+    assert qm.quant_gemv_experts.launches == 2 * n
+    with torch.inference_mode():
+        lk, _ = api.prefill(model, {"tokens": prompt.to(cuda)})
+        with ops.force_impl("torch"):
+            lp, _ = api.prefill(model, {"tokens": prompt.to(cuda)})
+    assert (lk - lp).abs().max() <= 2 ** -5 * lp.abs().max()

@@ -19,6 +19,7 @@ from repro.core import peqa as jpeqa
 from repro.kernels import ops as jops
 from repro.models import registry as jregistry
 from repro_torch import bridge
+from repro_torch.configs.base import MoEConfig
 from repro_torch.core import peqa, policies
 from repro_torch.models import registry
 
@@ -170,9 +171,10 @@ def test_policies_masks(pair):
 
 
 @pytest.mark.parametrize("change", [
-    dict(use_rope=False), dict(kv_cache_dtype="fp8"), dict(moe=object()),
+    dict(use_rope=False), dict(kv_cache_dtype="fp8"),
+    dict(moe=MoEConfig(n_experts=4, top_k=2), quant_layout="plane"),
     dict(bf16_reduce=True), dict(act="relu"),
-    dict(family="moe"), dict(quant_layout="plane", quant_bits=5),
+    dict(family="encdec"), dict(quant_layout="plane", quant_bits=5),
     dict(quant_packed=False),
     dict(quant_bits=8)])
 def test_unserved_configs_raise(pair, change):

@@ -53,7 +53,8 @@ from repro.train.serve import Engine as JEngine
 from repro.train.serve import Request as JRequest
 import repro_torch.configs as tconfigs
 from repro_torch import bridge
-from repro_torch.configs.base import OptimConfig, QuantConfig, TrainConfig
+from repro_torch.configs.base import (MoEConfig, OptimConfig, QuantConfig,
+                                      TrainConfig)
 from repro_torch.configs.base import TuningConfig as TTuning
 from repro_torch.core import policies
 from repro_torch.core import scale_bank as sb
@@ -138,11 +139,13 @@ def test_vlm_config_and_build():
     dense = registry.build(tconfigs.make_tiny(tconfigs.get_config(
         "llama3.2-1b")), device="cpu")
     assert dense.caps.prefix_key is None and not dense.caps.prefix_positions
-    for kw, why in ((dict(family="moe"), "family 'moe'"),
+    for kw, why in ((dict(kv_cache_dtype="fp8"), "kv_cache_dtype='fp8'"),
                     (dict(family="encdec"), "family 'encdec'"),
                     (dict(family="ssm"), "family 'ssm'"),
                     (dict(family="hybrid"), "family 'hybrid'"),
-                    (dict(moe=object()), "mixture-of-experts"),
+                    (dict(moe=MoEConfig(n_experts=4, top_k=2),
+                          quant=QuantConfig(layout="plane")),
+                     "bit-plane codes on MoE"),
                     (dict(bf16_reduce=True), "bf16_reduce"),
                     (dict(use_rope=False), "learned positions"),
                     (dict(remat="dots"), "remat='dots'")):
