@@ -328,6 +328,31 @@ line:
                arm's trainable values, optimizer-state bytes, peak memory
                and median step ms beside phase train's PEQA and
                train_full's figures.
+ 17. encdec  — (after moe, before arms) whisper-medium at full width and
+               depth (24 encoder and 24 decoder layers, d_model 1024, 16
+               heads of 64, d_ff 4096, 1500 frames, vocab 51968, LayerNorm,
+               GELU, learned positions, tied head), built layer by layer
+               (bf16, PEQA 4-bit per-channel, n_grid 20, seed 0): the
+               build's seconds and peak, gated at the model's bytes plus
+               two float32 decoder blocks; B 4 rows of 32 tokens behind
+               1500 seeded N(0, 1) frames each: Engine.generate(prefix=
+               frames) of 32 new tokens with exact launches (384 K2 a
+               prefill: the encoder's 6 and the decoder's 10 linears a
+               layer; 192 K1 and 24 K4 a decode step: the cross K/V are
+               cached), the prefill's and the first step's every K1 and K2
+               call held to plain as it happens (``CheckedQuantMatmul``),
+               the logits moved by the frames; the prefill's time by part
+               (K2's device ms from the profiler, the plain encoder
+               attention timed alone) and a prefill and a decode step
+               profiled (the busy share); ENC_REQUESTS frame-prefixed
+               requests over ENC_TASKS tasks in ENC_SLOTS slots under
+               drain, twice (every budget, exact launches, equal tokens),
+               and the resident and speculative schedulers and a request
+               without frames refused with the reference's messages; 2
+               PEQA steps of 4 × (1500 + 256) rows under remat "block",
+               step 1's K2 calls held to plain, the codes, positions, norms
+               and table unchanged, state 8 B × the scales, peak memory
+               and step ms.
 
 Every phase's seconds are printed on a line of their own as it ends.
 
@@ -461,6 +486,16 @@ MOE_2D_SHAPES = ((1408, 2048), (2048, 1408), (2816, 2048), (2048, 2816))
 MOE_HEADS = {"deepseek-moe-16b": (16, 16, 128)}
 # new tokens of phase check's 2-layer deepseek-moe-16b
 MOE_CHECK_NEW = 8
+# encdec phase: whisper-medium at full width and depth.  Lockstep: BATCH
+# rows of ENC_PROMPT tokens behind their 1500 frames, NEW new tokens.
+# Serving: ENC_REQUESTS frame-prefixed requests over ENC_TASKS tasks (one
+# burst a task) in ENC_SLOTS slots, the prompts and budgets in turn;
+# training: ENC_TRAIN_STEPS PEQA steps of ENC_TRAIN_BATCH × (1500 frames +
+# 256 tokens)
+ENC_PROMPT = 32
+ENC_REQUESTS, ENC_TASKS, ENC_SLOTS = 8, 2, 4
+ENC_PROMPTS, ENC_NEW = (16, 32, 48, 64), (12, 16, 24)
+ENC_TRAIN_STEPS, ENC_TRAIN_BATCH = 2, 4
 # arms phase: GPTQ's calibration tokens (B, S) from the train split, and
 # the train steps of LoRA on the float32 backbone (lora_optq takes
 # TRAIN_STEPS)
@@ -1506,20 +1541,25 @@ def device_ms(torch, fn, top: int = 6) -> tuple:
 def phase_profile(torch, main_path, phase="profile") -> dict:
     """Where one prefill's and one decode step's time goes: device kernel
     time (profiler) against the wall time of the same call.  A vlm's
-    ``main_path["prefix"]`` (B, P, d) goes before the prompt.  Emits its
-    line under ``phase``."""
+    ``main_path["prefix"]`` (B, P, d) goes before the prompt, an encdec's
+    is its frames.  Emits its line under ``phase``."""
+    from repro_torch.train.serve import cache_dims
     api, model, prompt = main_path["api"], main_path["model"], main_path["prompt"]
     prefix = main_path.get("prefix")
     res = {"phase": phase, "model": api.cfg.name}
     with torch.inference_mode():
         batch = {"tokens": prompt.to("cuda")}
         if prefix is not None:
-            batch["image_embeds"] = prefix
-        rows = PROMPT + (0 if prefix is None else prefix.shape[1])
+            batch[api.caps.prefix_key] = prefix
+        rows = prompt.shape[1] + (prefix.shape[1] if prefix is not None
+                                  and api.caps.prefix_positions else 0)
         logits, pcache = api.prefill(model, batch)
         cache = api.init_cache(BATCH, rows + 8)
+        seq_dims = cache_dims(api.init_cache)[1]
         for key in cache:
-            cache[key][:, :, :rows] = pcache[key]
+            sd = seq_dims[key]
+            (cache[key] if sd < 0 else cache[key].narrow(sd, 0, rows)
+             ).copy_(pcache[key])
         nxt = torch.argmax(logits, -1)[:, None]
         calls = {
             "prefill": lambda: api.prefill(model, batch),
@@ -3261,9 +3301,11 @@ def dense_build(torch, name: str, **kw):
 
 def block_fp32_bytes(torch, cfg) -> int:
     """One block's float32 bytes before quantization (its linears, biases
-    and norms: what the layer-by-layer build holds beside the model)."""
-    from repro_torch.models import transformer
-    block = transformer.Block(cfg, device="meta")
+    and norms: what the layer-by-layer build holds beside the model) — a
+    whisper's decoder block, the larger of its two."""
+    from repro_torch.models import transformer, whisper
+    block = (whisper.DecBlock if cfg.family == "encdec"
+             else transformer.Block)(cfg, device="meta")
     return 4 * sum(p.numel() for p in block.parameters())
 
 
@@ -3278,14 +3320,29 @@ def n_quantized(model, experts: bool = False) -> int:
                for m in model.modules())
 
 
+def n_step_linears(model) -> int:
+    """The 2-D quantized linears a decode step runs: every one of a
+    decoder's; of a whisper, its decoder's but the cross-attention's wk and
+    wv (the cross K/V are computed once, at prefill) — 8 a layer."""
+    from repro_torch.models.linear import Linear
+    encdec = hasattr(model, "enc")
+    return sum(isinstance(m, Linear) and m.quantized and m.n_experts is None
+               and (not encdec or (name.startswith("dec.") and not
+                                   name.endswith(("xattn.wk", "xattn.wv"))))
+               for name, m in model.named_modules())
+
+
 def launch_want(model, prefill: int, steps: int, layers: int) -> dict:
     """The launches of ``prefill`` prefills and ``steps`` decode steps of a
-    lockstep batch: one K2 (K1 for a step) a 2-D quantized linear, one
-    expert-axis K2 (K1) an expert stack — a prefill's rows give every
-    expert C > 32 capacity rows, a step's of BATCH rows C = 1 —, and L K4
-    launches a step."""
+    lockstep batch: one K2 a 2-D quantized linear for a prefill (a
+    whisper's encoder linears and cross wk / wv too), one K1 a linear a
+    step runs (``n_step_linears``), one expert-axis K2 (K1) an expert
+    stack — a prefill's rows give every expert C > 32 capacity rows, a
+    step's of BATCH rows C = 1 —, and L K4 launches a step (L the decoder's
+    layers)."""
     n_lin, n_exp = n_quantized(model), n_quantized(model, experts=True)
-    want = {"quant_matmul": n_lin * prefill, "quant_gemv": n_lin * steps,
+    want = {"quant_matmul": n_lin * prefill,
+            "quant_gemv": n_step_linears(model) * steps,
             "flash_attention": layers * steps}
     if n_exp:
         want.update(quant_matmul_experts=n_exp * prefill,
@@ -3295,10 +3352,10 @@ def launch_want(model, prefill: int, steps: int, layers: int) -> dict:
 
 def dense_generate(torch, label, api, model, prompt, prefix=None) -> dict:
     """``Engine.generate`` of ``prompt`` (behind a vlm's ``prefix`` (B, P,
-    d), where given) and NEW tokens with every launch counter at 0: one K2
-    launch a quantized linear for the prefill, one K1 a linear and L K4
-    launches a decode step; then the prefill alone, timed, its logits
-    kept.  Returns {"res", "out", "logits"}."""
+    d), or an encdec's frames, where given) and NEW tokens with every
+    launch counter at 0: the launches ``launch_want`` gives for one prefill
+    and NEW − 1 steps; then the prefill alone, timed, its logits kept.
+    Returns {"res", "out", "logits"}."""
     from repro_torch.kernels import ops
     from repro_torch.train.serve import Engine
     cfg = api.cfg
@@ -3318,15 +3375,16 @@ def dense_generate(torch, label, api, model, prompt, prefix=None) -> dict:
     want = launch_want(model, 1, steps, cfg.n_layers)
     if launches != want:
         fail(f"{label} generate: launches {launches}, expected {want}")
-    if tuple(out.shape) != (BATCH, PROMPT + NEW) or not torch.equal(
-            out[:, :PROMPT].cpu(), prompt):
+    s = prompt.shape[1]
+    if tuple(out.shape) != (BATCH, s + NEW) or not torch.equal(
+            out[:, :s].cpu(), prompt):
         fail(f"{label} generate returned {tuple(out.shape)} or changed the "
              f"prompt")
     if int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
         fail(f"{label}: generated token ids outside the vocabulary")
     batch = {"tokens": prompt.to("cuda")}
     if prefix is not None:
-        batch["image_embeds"] = prefix
+        batch[api.caps.prefix_key] = prefix
     with torch.inference_mode():
         pre = []
         for _ in range(3):
@@ -3386,8 +3444,10 @@ def dense_train(torch, label, cfg0, model, mask, steps, batch_size=None,
     """``steps`` PEQA train steps at TrainConfig's 8 × 256 tokens (K2 at M =
     2048; ``batch_size`` rows of 256 where given, each behind
     ``prefix_rows`` seeded N(0, 1) float32 patch embeddings for a vlm, the
-    loss on the text rows: K2 at M = B·(P + 256)), remat "block", on a
-    synthetic corpus at the model's vocabulary:
+    loss on the text rows: K2 at M = B·(P + 256); for an encdec each row
+    behind ``prefix_rows`` seeded frames: its encoder's K2 at M = B·P, its
+    decoder's at B·256), remat "block", on a synthetic corpus at the
+    model's vocabulary:
     step 1's K2 calls (forward and recompute) each held to plain element by
     element (``CheckedQuantMatmul``); exactly two K2 launches a quantized linear and
     nothing else every step (the recompute of a block stops once its last
@@ -3414,12 +3474,14 @@ def dense_train(torch, label, cfg0, model, mask, steps, batch_size=None,
                          * tcfg.seq_len, seed=SEED),
         tcfg.batch_size, tcfg.seq_len, seed=SEED)
     m_rows = tcfg.batch_size * (prefix_rows + tcfg.seq_len)
+    api = registry.build(cfg)
+    encdec = cfg.family == "encdec"
     pgen = torch.Generator().manual_seed(SEED + 12)
 
     def batch_at(i):
         batch = data.batch_at(i)
         if prefix_rows:
-            batch["image_embeds"] = torch.randn(
+            batch[api.caps.prefix_key] = torch.randn(
                 tcfg.batch_size, prefix_rows, cfg.d_model, generator=pgen)
         return batch
     n_lin, n_exp = n_quantized(model), n_quantized(model, experts=True)
@@ -3437,7 +3499,7 @@ def dense_train(torch, label, cfg0, model, mask, steps, batch_size=None,
                       list(model.parameters()) + list(model.buffers()))
     opt = make_optimizer(tcfg.optim, tcfg.steps)
     state = make_state(model, opt.init(dict(model.named_parameters()), mask))
-    ts = step.build_train_step(registry.build(cfg), cfg, tcfg, mask, opt)
+    ts = step.build_train_step(api, cfg, tcfg, mask, opt)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated() - model_bytes
@@ -3454,7 +3516,8 @@ def dense_train(torch, label, cfg0, model, mask, steps, batch_size=None,
             # block's, 3 an MoE block) must see the forward's inputs
             watch = (3 * (cfg.n_layers - 1), 3 * cfg.n_layers) if n_exp \
                 else None
-            with CheckedQuantMatmul(ops, f"train {label}", m_rows,
+            with CheckedQuantMatmul(ops, f"train {label}",
+                                    None if encdec else m_rows,
                                     watch=watch) as chk:
                 state, metrics = ts(state, batch)
             if n_exp and chk.watched is not True:
@@ -3471,11 +3534,13 @@ def dense_train(torch, label, cfg0, model, mask, steps, batch_size=None,
     want = {"quant_matmul": 2 * n_lin}
     checked = chk.calls["quant_matmul"]
     # the recompute stops once the block's last saved tensor is back: in a
-    # dense block (and deepseek's, whose shared MLP comes last) inside the
-    # down projection, whose output is then never returned; in mixtral's
-    # MoE block after the expert combine (the aux loss saves last)
-    unchecked = {2 * n_lin - cfg.n_layers} if not n_exp else \
-        {2 * n_lin - cfg.n_layers, 2 * n_lin}
+    # dense block (and deepseek's, whose shared MLP comes last, and each of
+    # a whisper's encoder and decoder blocks) inside the down projection,
+    # whose output is then never returned; in mixtral's MoE block after the
+    # expert combine (the aux loss saves last)
+    n_blocks = cfg.n_layers + cfg.enc_layers
+    unchecked = {2 * n_lin - n_blocks} if not n_exp else \
+        {2 * n_lin - n_blocks, 2 * n_lin}
     if n_exp:
         want["quant_matmul_experts"] = 2 * n_exp
         if chk.calls["quant_matmul_experts"] not in (
@@ -3998,6 +4063,209 @@ def phase_moe(torch) -> dict:
     res = {"phase": "moe"}
     for name in MOE_ARCHS:
         res[name] = moe_model(torch, name, gen)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase encdec: whisper-medium, its encoder and cross-attention
+# ---------------------------------------------------------------------------
+
+def prefill_parts(torch, api, model, prompt, frames) -> dict:
+    """Where an encdec prefill's time goes: its wall (CUDA events around a
+    warm call) and device time (``torch.profiler``), K2's device time (the
+    profiled kernels named ``quant_matmul``) and the plain float32 encoder
+    self-attention's (one call at the encoder's (B, T, H, D), timed alone
+    with CUDA events over 5 calls, × the encoder's layers)."""
+    from repro_torch.kernels import ops
+    from torch.profiler import ProfilerActivity, profile
+    cfg = api.cfg
+    batch = {"tokens": prompt.to("cuda"), "frames": frames}
+    with torch.inference_mode():
+        api.prefill(model, batch)                     # warm-up
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        api.prefill(model, batch)
+        e1.record()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            api.prefill(model, batch)
+            torch.cuda.synchronize()
+        b, t = frames.shape[:2]
+        q, k, v = (torch.randn(b, t, cfg.n_heads, cfg.d_head, device="cuda"
+                               ).to(torch.bfloat16) for _ in range(3))
+        attn_ms = events_ms(torch, lambda: ops.attention(q, k, v,
+                                                         causal=False),
+                            iters=5)
+    rows = [(e.key, getattr(e, "self_device_time_total", 0.0) / 1e3)
+            for e in prof.key_averages()]
+    device = sum(ms for _, ms in rows)
+    k2 = sum(ms for key, ms in rows if "quant_matmul" in key)
+    enc_attn = attn_ms * cfg.enc_layers
+    return {"prefill_ms": e0.elapsed_time(e1), "device_ms": device or None,
+            "k2_device_ms": k2, "k2_share_of_device": k2 / device
+            if device else None,
+            "encoder_attention_ms": enc_attn,
+            "encoder_attention_share_of_device": enc_attn / device
+            if device else None,
+            "rows_encoder": b * t, "rows_decoder": prompt.numel()}
+
+
+def encdec_requests(cfg, seed):
+    """ENC_REQUESTS requests, each behind its own 1500 seeded N(0, 1)
+    float32 frames, over ENC_TASKS tasks in runs (one task's burst after
+    the other), prompt lengths and budgets in turn, all at step 0."""
+    import numpy as np
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(seed)
+    n = ENC_REQUESTS
+    return [Request(
+        tokens=rng.integers(0, cfg.vocab_size, ENC_PROMPTS[i % len(
+            ENC_PROMPTS)]),
+        n_new=ENC_NEW[i % len(ENC_NEW)], task=f"t{i * ENC_TASKS // n}",
+        prefix=rng.standard_normal((cfg.enc_frames, cfg.d_model),
+                                   dtype=np.float32),
+        arrival_step=0) for i in range(n)]
+
+
+def encdec_serve_want(cfg, model, reqs, capacity, steps) -> dict:
+    """The exact launches of a drain run: each admitted prompt (bucketed to
+    a power of two within the pool's ``capacity``) runs its encoder's and
+    cross wk / wv's linears over 1500 frame rows (K2) and its decoder's
+    step linears over its S rows (K2 for S > 32, else K1); each of
+    ``steps`` pool steps launches K1 once a step linear and K4 a layer."""
+    from repro_torch.train.serve import Engine
+    n_lin, n_step = n_quantized(model), n_step_linears(model)
+    want = dict.fromkeys(("quant_matmul", "quant_gemv", "flash_attention"),
+                         0)
+    for r in reqs:
+        t = Engine._bucket_len(r.n_prompt, capacity)
+        want["quant_matmul"] += n_lin - n_step
+        want["quant_matmul" if t > GEMV_MAX else "quant_gemv"] += n_step
+    want["quant_gemv"] += n_step * steps
+    want["flash_attention"] += cfg.n_layers * steps
+    return {k: v for k, v in want.items() if v}
+
+
+def encdec_serve(torch, api, model, cfg) -> dict:
+    """ENC_REQUESTS frame-prefixed requests over ENC_TASKS tasks through
+    ``Engine.serve`` in ENC_SLOTS slots under drain, twice, each pool at
+    serve's own capacity (no frame takes a decoder position): every budget
+    served, the exact launches (``encdec_serve_want``), the second run's
+    tokens equal to the first's.  Then the resident and speculative
+    schedulers and a request without frames must be refused with the
+    reference's messages."""
+    from repro_torch.models import registry
+    from repro_torch.serve import Request, ServeConfig
+    from repro_torch.train.serve import Engine
+    bank = task_bank(model, ENC_TASKS, SEED + 23)
+    reqs = encdec_requests(cfg, SEED + 24)
+    capacity = max(r.n_prompt + r.n_new for r in reqs)
+    res = {"requests": len(reqs), "slots": ENC_SLOTS, "tasks": ENC_TASKS,
+           "capacity": capacity}
+    reports, check = [], {"peak": 0}
+    for run in ("drain", "drain_again"):
+        eng = Engine(api, model, bank=bank)
+        pools, open_pool = [], eng.open_pool
+
+        def opened(n, c, _pools=pools, _open=open_pool):
+            _pools.append(c)
+            return _open(n, c)
+        eng.open_pool = opened
+        rep, _, _ = serve_run(
+            torch, res, check, cfg.vocab_size, run, eng, "step", reqs,
+            ServeConfig(n_slots=ENC_SLOTS, scheduler="drain"),
+            lambda n: encdec_serve_want(cfg, model, reqs, capacity, n))
+        if pools != [capacity]:
+            fail(f"encdec {run}: pools of {pools} rows, expected serve's "
+                 f"own capacity {capacity}")
+        eng.switch_task("t0")                 # the model's own scales back
+        reports.append(rep)
+    res["tokens_equal_share"] = gate_tokens_equal(
+        f"{cfg.name} second drain run", "first drain", reports[0],
+        reports[1])
+    eng = Engine(api, model, bank=bank)
+    bare = [Request(tokens=r.tokens, n_new=r.n_new, task=r.task)
+            for r in reqs[:2]]
+    missing = ("family 'encdec' requires prefix state 'frames' on every "
+               "request (encoder inputs)")
+    res["refused"] = {}
+    for what, reqs_, sched, want in (
+            ("resident", reqs, "resident",
+             "scheduler='resident' unsupported here: "
+             + registry.ENCDEC_SLOTTED_REASON),
+            ("speculative", reqs, "speculative",
+             "scheduler='speculative' unsupported here: "
+             + registry.NO_VERIFY_REASON),
+            ("no_frames", bare, "drain", missing)):
+        try:
+            eng.serve(reqs_, ServeConfig(n_slots=ENC_SLOTS, scheduler=sched))
+        except ValueError as err:
+            if str(err) != want:
+                fail(f"{cfg.name} {what}: refused with {err!r}, expected "
+                     f"{want!r}")
+            res["refused"][what] = str(err)
+        else:
+            fail(f"{cfg.name}: {what} was served")
+    return res
+
+
+def phase_encdec(torch) -> dict:
+    """whisper-medium at full width and depth (module docstring, phase
+    17)."""
+    gen = torch.Generator().manual_seed(SEED + 22)
+    cfg, api, model, mask, built = dense_build(torch, "whisper-medium")
+    res = {"phase": "encdec", "model": cfg.name,
+           "enc_layers": cfg.enc_layers, "layers": cfg.n_layers,
+           "frames": cfg.enc_frames, **built}
+    bound = built["model_gb"] + 2 * built["block_fp32_gb"]
+    res["build_peak_bound_gb"] = bound
+    if built["build_peak_gb"] > bound:
+        fail(f"{cfg.name} build: peak {built['build_peak_gb']:.3f} GB above "
+             f"the model's {built['model_gb']:.3f} GB plus two blocks' "
+             f"float32 {2 * built['block_fp32_gb']:.3f} GB")
+    n_lin, n_step = n_quantized(model), n_step_linears(model)
+    if n_lin != 6 * cfg.enc_layers + 10 * cfg.n_layers or \
+            n_step != 8 * cfg.n_layers:
+        fail(f"{cfg.name} build: {n_lin} quantized linears, {n_step} of "
+             f"them a decode step's")
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, ENC_PROMPT),
+                           generator=gen)
+    frames = torch.randn(BATCH, cfg.enc_frames, cfg.d_model,
+                         generator=gen).to("cuda")
+    secs = {"build": built["build_s"]}
+
+    def part(key, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        secs[key] = time.perf_counter() - t0
+        return out
+    res["checked"] = part("checked_generate", checked_generate, torch,
+                          cfg.name, api, model, prompt, frames)
+    g = part("generate", dense_generate, torch, cfg.name, api, model, prompt,
+             frames)
+    res["generate"] = g["res"]
+    with torch.inference_mode():
+        other, _ = api.prefill(model, {"tokens": prompt.to("cuda"),
+                                       "frames": frames.flip(0)})
+    # the frames reach the output
+    res["frames_move_logits_by"] = (g["logits"] - other.flip(0)).abs().max(
+        ).item()
+    if not res["frames_move_logits_by"] > 0:
+        fail(f"{cfg.name}: the prefill's logits do not depend on the frames")
+    del g, other
+    res["prefill_parts"] = part("prefill_parts", prefill_parts, torch, api,
+                                model, prompt, frames)
+    res["profile"] = part("profile", phase_profile, torch, {
+        "api": api, "model": model, "prompt": prompt, "prefix": frames},
+        phase="encdec_profile")
+    res["serve"] = part("serve", encdec_serve, torch, api, model, cfg)
+    res["train"] = part("train", dense_train, torch, cfg.name, cfg, model,
+                        mask, ENC_TRAIN_STEPS, batch_size=ENC_TRAIN_BATCH,
+                        prefix_rows=cfg.enc_frames)
+    res["seconds"] = secs
+    emit(res)
+    del model, mask, api, frames
+    torch.cuda.empty_cache()
     return res
 
 
@@ -4583,6 +4851,7 @@ def main() -> None:
     dense = run("dense_archs", phase_dense_archs, torch)
     vlm = run("vlm", phase_vlm, torch)
     moe = run("moe", phase_moe, torch)
+    encdec = run("encdec", phase_encdec, torch)
     arms = run("arms", phase_arms, torch, prompt, peqa, full)
     if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
                                    for m in sys.modules):
@@ -4648,6 +4917,9 @@ def main() -> None:
         times[name] = {k: 2 * up[k] + down[k] for k in (
             "ms", "plain_ms", "bound_ms", "library_ms", "loop_2d_ms")}
         times[name]["bound_by"] = up["bound_by"]
+    # whisper-medium's lockstep generate (phase encdec's main path): K2 a
+    # prefill, K1 and K4 a decode step
+    encdec_launches = encdec["generate"]["launches"]
     kernels = []
     for name in (k.__name__ for k in ops.KERNELS):
         st = times[name]
@@ -4663,7 +4935,9 @@ def main() -> None:
             "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
             "library_ms": st["library_ms"],
             **({"loop_2d_ms": st["loop_2d_ms"]} if "loop_2d_ms" in st
-               else {})})
+               else {}),
+            **({"encdec_launches": encdec_launches[name]}
+               if name in encdec_launches else {})})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "phase_seconds": seconds,
           "k4_7b_prefill_us": {m: r["us"] for m, r in attn_7b.items()},
@@ -4693,6 +4967,16 @@ def main() -> None:
               "train": {k: moe[m]["train"][k] for k in (
                   "median_step_ms", "peak_mem_gb", "state_bytes",
                   "scales")}} for m in MOE_ARCHS},
+          "encdec": {k: encdec[k] for k in (
+              "enc_layers", "layers", "build_s", "build_peak_gb",
+              "build_peak_bound_gb", "model_gb", "generate")} | {
+              "prefill_parts": encdec["prefill_parts"],
+              "busy_share": {k: encdec["profile"][k]["device_busy_share"]
+                             for k in ("prefill", "decode_step")},
+              "serve_wall_s": encdec["serve"]["drain"]["wall_s"],
+              "train": {k: encdec["train"][k] for k in (
+                  "median_step_ms", "peak_mem_gb", "state_bytes",
+                  "scales")}},
           "arms": arms["table"]})
     print(dev["gpu"], flush=True)
     emit({"kernels": kernels})

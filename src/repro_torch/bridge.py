@@ -2,7 +2,9 @@
 
 A reference tree is a nested dict of numpy arrays whose layer leaves are
 stacked, ``tree["layers"]["attn"]["wq"]["qw"]`` of shape (L, n, m/8).  The
-port's ``Transformer`` numbers its layers instead: ``layers.3.attn.wq.qw``.
+port's ``Transformer`` numbers its layers instead: ``layers.3.attn.wq.qw``
+(and a ``Whisper`` its two stacks': ``enc.layers.3.attn.wq.qw`` ↔
+``tree["enc"]["layers"]…``).
 A tensor's reference path is its name without the layer index
 (``/layers/attn/wq/qw``, ``core.peqa.ref_path``), so the ``EXCLUDE`` and
 mask rules carry over.  ScaleBank keys are the reference's key-path form,
@@ -41,7 +43,7 @@ import torch
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.peqa import layer_index, ref_path
-from repro_torch.models import transformer
+from repro_torch.models import registry
 from repro_torch.models.linear import Linear
 
 
@@ -87,13 +89,13 @@ def _layer(arr, name: str) -> np.ndarray:
 
 @torch.no_grad()
 def to_module(tree: dict, cfg: ModelConfig, *, device=None
-              ) -> transformer.Transformer:
+              ) -> torch.nn.Module:
     """Reference param tree → the port's model on ``device`` (the card
     unless ``device="cpu"``).  Every leaf must find its tensor and every
     tensor its leaf."""
     dev = _device.resolve(device)
     flat = _flatten(tree)
-    model = transformer.Transformer(cfg, device=dev)
+    model = registry.module_class(cfg)(cfg, device=dev)
     for name, mod in model.named_modules():
         if not isinstance(mod, Linear):
             continue

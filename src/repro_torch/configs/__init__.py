@@ -1,7 +1,8 @@
 """Config registry (copy of ``repro/configs/__init__.py``'s ``get_config``,
 ``make_tiny`` and ``paper_lm``, for the families the port serves: the
 dense llama3.2-1b, qwen2-7b, granite-34b and starcoder2-7b, the moe
-mixtral-8x7b and deepseek-moe-16b, and the vlm llava-next-mistral-7b)."""
+mixtral-8x7b and deepseek-moe-16b, the vlm llava-next-mistral-7b and the
+encdec whisper-medium)."""
 from __future__ import annotations
 
 import dataclasses
@@ -22,6 +23,7 @@ _MODULES = {
     "deepseek-moe-16b": "deepseek_moe_16b",
     "mixtral-8x7b": "mixtral_8x7b",
     "llava-next-mistral-7b": "llava_next_mistral_7b",
+    "whisper-medium": "whisper_medium",
 }
 
 ARCHS = tuple(_MODULES)
@@ -35,18 +37,21 @@ def get_config(name: str) -> ModelConfig:
 
 
 def make_tiny(cfg: ModelConfig, *, vocab: int = 512) -> ModelConfig:
-    """Reduced same-family config for CPU tests (the reference's dense, moe
-    and vlm branches: 2 layers, d_model 64, 4 heads of 16, float32; a vlm's
-    prefix 8 rows; an moe's 8 experts under ``expert_sharding="expert"``,
-    else 4, top-2, at most one shared expert, d_ff 64)."""
-    if cfg.family not in ("dense", "moe", "vlm"):
+    """Reduced same-family config for CPU tests (the reference's dense, moe,
+    vlm and encdec branches: 2 layers, d_model 64, 4 heads of 16, float32,
+    learned-position tables of 512 rows; a vlm's prefix 8 rows; an moe's 8
+    experts under ``expert_sharding="expert"``, else 4, top-2, at most one
+    shared expert, d_ff 64; an encdec's 2 encoder layers over 12
+    frames)."""
+    if cfg.family not in ("dense", "moe", "vlm", "encdec"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense, moe and vlm "
-            f"only)")
+            f"family {cfg.family!r} is not ported yet (dense, moe, vlm and "
+            f"encdec only)")
     kw = dict(
         name=f"tiny-{cfg.name}", d_model=64, d_ff=0 if cfg.d_ff == 0 else 128,
         n_heads=4, n_kv_heads=min(cfg.n_kv_heads, 4) if cfg.n_kv_heads > 1 else 1,
-        vocab_size=vocab, head_dim=16, dtype="float32", n_layers=2)
+        vocab_size=vocab, head_dim=16, dtype="float32", max_seq=512,
+        n_layers=2)
     if cfg.family == "vlm":
         kw["n_img_tokens"] = 8
     if cfg.family == "moe":
@@ -55,6 +60,9 @@ def make_tiny(cfg: ModelConfig, *, vocab: int = 512) -> ModelConfig:
             top_k=2, n_shared_experts=min(cfg.moe.n_shared_experts, 1),
             d_ff_expert=None)
         kw["d_ff"] = 64
+    if cfg.family == "encdec":
+        kw["enc_layers"] = 2
+        kw["enc_frames"] = 12
     return cfg.replace(**kw)
 
 

@@ -56,7 +56,7 @@ class TuningConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                        # dense | moe | vlm (the families ported yet)
+    family: str                        # dense | moe | vlm | encdec (ported yet)
     n_layers: int
     d_model: int
     n_heads: int
@@ -72,7 +72,11 @@ class ModelConfig:
     tie_embeddings: bool = False
     swa_window: Optional[int] = None   # sliding window: a ring KV cache
     moe: Optional[MoEConfig] = None
-    use_rope: bool = True              # learned positions not ported yet
+    # encoder-decoder (whisper): encoder layer count + fixed frame count stub
+    enc_layers: int = 0
+    enc_frames: int = 0
+    use_rope: bool = True              # whisper uses learned positions
+    max_seq: int = 32768               # sizes learned pos-emb tables
     bf16_reduce: bool = False          # not ported yet: refused by build
     attn_impl: str = "dense"           # dense | chunked (the K4 kernel)
     kv_cache_dtype: str = "model"      # model | int8

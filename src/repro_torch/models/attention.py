@@ -5,13 +5,13 @@ int8 cache's ``quantize_kv``, ``dequantize_kv``, ``apply_decode_q8`` and
 ``prefill_cache_entry``, for causal attention, windowed under
 ``cfg.swa_window``, through ``ops.attention`` under ``cfg.attn_impl``:
 dense, or chunked — K4; on the card a decode or verify takes K4 under
-either).
+either — and the whisper decoder's ``cross_init`` / ``cross_apply``, dense
+as the reference's).  ``rope`` None (learned positions) rotates nothing.
 
 Cache layout (all layers stacked): {"k": (L, B, C, Hkv, D), "v": same} in the
 activation dtype, C = cache capacity; under ``kv_cache_dtype="int8"`` k and v
 are int8 codes with a float16 scale per (token, head), {"k_scale",
-"v_scale": (L, B, C, Hkv)}.  Every leaf's batch dim is ``CACHE_BATCH_DIM``
-and its position dim ``CACHE_SEQ_DIM``.  Without a window C is the sequence
+"v_scale": (L, B, C, Hkv)}.  Without a window C is the sequence
 length and a decode step at position ``pos`` writes slot ``pos``; under a
 window C is ``min(window, seq_len)`` and the cache is a ring: position
 ``pos`` writes slot ``pos mod C``, so the slots hold exactly the last C
@@ -29,11 +29,6 @@ from repro_torch.kernels import ops
 from repro_torch.models import linear
 from repro_torch.models.common import (apply_rope, apply_rope_slots,
                                        model_dtype, rope_table)
-
-# dims of every cache leaf (L, B, C, Hkv[, D]): the slot pool admits along
-# the batch dim and pages along the position dim
-CACHE_BATCH_DIM, CACHE_SEQ_DIM = 1, 2
-
 
 class Attention(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None):
@@ -153,8 +148,11 @@ def _ring_slot(cfg: ModelConfig, pos, cap: int):
 
 
 def _rotated_qkv(p, x, cfg, pos, rope, slots, draft_bits):
-    """q, k, v of a decode step, q and k rotated at its positions."""
+    """q, k, v of a decode step, q and k rotated at its positions (not at
+    all when ``rope`` is None)."""
     q, k, v = _qkv(p, x, cfg, slots=slots, draft_bits=draft_bits)
+    if rope is None:
+        return q, k, v
     per_slot = torch.is_tensor(pos) and pos.dim() == 1
     rot = apply_rope_slots if per_slot else apply_rope
     return rot(q, rope), rot(k, rope), v
@@ -165,7 +163,7 @@ def apply_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig,
                  slots=None, draft_bits=None):
     """Decode step of S ≥ 1 tokens: x (B, S, d); cache (B, C, Hkv, D); pos
     an int or a (B,) per-slot position tensor; rope:
-    ``_rope_decode(cfg, pos, S, device)``.
+    ``_rope_decode(cfg, pos, S, device)``, or None.
 
     slots: optional (task_ids, stacked-scale subtree) — mixed-task decode
     reads per-slot scale rows in every quantized linear (linear.apply);
@@ -231,17 +229,18 @@ def apply_decode_q8(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     return out, cache
 
 
-def apply_train(p: Attention, x: torch.Tensor, cfg: ModelConfig, rope
+def apply_train(p: Attention, x: torch.Tensor, cfg: ModelConfig, rope=None
                 ) -> torch.Tensor:
     """Full-sequence causal attention for training (reference
     ``attention.apply_train``): x (B, S, d); rope: ``rope_table`` at
-    positions 0..S-1.  ``ops.attention`` under ``cfg.attn_impl`` (K4 with
-    its logsumexp under "chunked" on the card) and ``cfg.swa_window``,
-    never the decode route; no cache is written.  Returns (B, S, d_model)
-    in x's dtype."""
+    positions 0..S-1, or None.  ``ops.attention`` under ``cfg.attn_impl``
+    (K4 with its logsumexp under "chunked" on the card) and
+    ``cfg.swa_window``, never the decode route; no cache is written.
+    Returns (B, S, d_model) in x's dtype."""
     b, s, _ = x.shape
     q, k, v = _qkv(p, x, cfg)
-    q, k = apply_rope(q, rope), apply_rope(k, rope)
+    if rope is not None:
+        q, k = apply_rope(q, rope), apply_rope(k, rope)
     o = ops.attention(q, k, v, causal=True, window=cfg.swa_window,
                       impl=cfg.attn_impl)
     return linear.apply(p.wo, o.reshape(b, s, cfg.n_heads * cfg.d_head))
@@ -251,7 +250,7 @@ def apply_prefill(p: Attention, x: torch.Tensor, cfg: ModelConfig, rope,
                   cap: int, slots=None):
     """Full-sequence causal attention (windowed under ``cfg.swa_window``)
     that also emits the decode cache; rope: ``rope_table`` at positions
-    0..S-1; cap: the cache's capacity, ``cache_capacity(cfg, S)``.
+    0..S-1, or None; cap: the cache's capacity, ``cache_capacity(cfg, S)``.
 
     slots: optional (task_ids, stacked-scale subtree) — a resident-stack
     prefill reads per-row scales in every quantized linear (task_ids
@@ -263,7 +262,8 @@ def apply_prefill(p: Attention, x: torch.Tensor, cfg: ModelConfig, rope,
     """
     b, s, _ = x.shape
     q, k, v = _qkv(p, x, cfg, slots=slots)
-    q, k = apply_rope(q, rope), apply_rope(k, rope)
+    if rope is not None:
+        q, k = apply_rope(q, rope), apply_rope(k, rope)
     o = ops.attention(q, k, v, causal=True, window=cfg.swa_window,
                       impl=cfg.attn_impl)
     o = o.reshape(b, s, cfg.n_heads * cfg.d_head)
@@ -280,3 +280,29 @@ def prefill_cache_entry(ck: torch.Tensor, cv: torch.Tensor,
         v8, vs = quantize_kv(cv)
         return {"k": k8, "v": v8, "k_scale": ks, "v_scale": vs}
     return {"k": ck, "v": cv}
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (the whisper decoder)
+# ---------------------------------------------------------------------------
+
+def cross_init(cfg: ModelConfig, device=None) -> Attention:
+    """The cross-attention's wq, wk, wv, wo: the self-attention's linears
+    (reference ``cross_init`` = ``init``)."""
+    return Attention(cfg, device=device)
+
+
+def cross_apply(p: Attention, x: torch.Tensor, enc: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
+    """x: (B, S, d) decoder states attend over enc: (B, T, d) encoder
+    states, every key visible.  The plain float32 attention
+    (``ops.attention``'s default impl, not ``cfg.attn_impl``), as the
+    reference's call passes none."""
+    b, s, _ = x.shape
+    t = enc.shape[1]
+    dh = cfg.d_head
+    q = linear.apply(p.wq, x).reshape(b, s, cfg.n_heads, dh)
+    k = linear.apply(p.wk, enc).reshape(b, t, cfg.n_kv_heads, dh)
+    v = linear.apply(p.wv, enc).reshape(b, t, cfg.n_kv_heads, dh)
+    o = ops.attention(q, k, v, causal=False)
+    return linear.apply(p.wo, o.reshape(b, s, cfg.n_heads * dh))

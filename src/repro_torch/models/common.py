@@ -173,19 +173,34 @@ def table_dtype(cfg: ModelConfig) -> torch.dtype:
         else model_dtype(cfg)
 
 
+def table(cfg: ModelConfig, rows: int, device=None) -> nn.Parameter:
+    """A (rows, d_model) table in ``table_dtype(cfg)``, storage
+    uninitialised: the token table, or a learned-position table (the
+    encdec's ``enc.pos`` over its frames and ``dec.pos`` over ``max_seq``
+    positions, stored by the token table's rule: float32 where the mode
+    trains them, else the activation dtype they are only ever read cast
+    to)."""
+    return nn.Parameter(torch.empty(rows, cfg.d_model, dtype=table_dtype(cfg),
+                                    device=device))
+
+
+@torch.no_grad()
+def reset_table(t: torch.Tensor, generator: torch.Generator) -> None:
+    """N(0, 0.02²) drawn in float32 from ``generator``, then stored in
+    ``t``'s dtype (the reference's init of every table)."""
+    w = torch.empty(t.shape, device=t.device)
+    t.copy_(w.normal_(0.0, 0.02, generator=generator))
+
+
 class Embed(nn.Module):
     """The token table, in ``table_dtype(cfg)``."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        self.emb = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model,
-                                            dtype=table_dtype(cfg),
-                                            device=device))
+        self.emb = table(cfg, cfg.vocab_size, device)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        with torch.no_grad():
-            w = torch.empty(self.emb.shape, device=self.emb.device)
-            self.emb.copy_(w.normal_(0.0, 0.02, generator=generator))
+        reset_table(self.emb, generator)
 
 
 def embed_apply(p: Embed, tokens: torch.Tensor, cfg: ModelConfig

@@ -1,5 +1,5 @@
 """Model registry (port of ``repro/models/registry.py``: ``FamilyCaps``,
-``ModelAPI`` and ``build``'s dense, moe and vlm branch).
+``ModelAPI`` and ``build``'s dense, moe, vlm and encdec branches).
 
 ``build(cfg)`` returns a ``ModelAPI`` with the functions the trainer and the
 server call, the speculative ``decode_verify`` and
@@ -17,7 +17,7 @@ import torch
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models import attention, transformer
+from repro_torch.models import attention, transformer, whisper
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,17 +63,20 @@ class FamilyCaps:
 class ModelAPI:
     cfg: ModelConfig
     device: torch.device
-    # (seed, transform=None) -> Transformer on device, built block by block
-    # (``transformer.init``)
+    # (seed, transform=None) -> the family's model on device, built block by
+    # block (``transformer.init``, ``whisper.init``)
     init: Callable
-    forward: Callable         # (model, tokens (B, S)) -> logits (B, S, V) f32
+    # (model, tokens (B, S)) -> logits (B, S, V) f32; an encdec's takes
+    # (model, tokens, frames)
+    forward: Callable
     loss_fn: Callable         # (model, batch) -> scalar loss
     # (model, batch) -> (last_logits, cache); batch: "tokens", optional
-    # "last_pos" and, for a vlm, "image_embeds"
+    # "last_pos", for a vlm optional "image_embeds", for an encdec "frames"
     prefill: Callable
     # (model, cache, tokens, pos, draft_bits=None) -> (logits, cache)
     decode_step: Callable
-    init_cache: Callable      # (batch, seq_len) -> cache
+    # (batch, seq_len, device=the API's) -> zero-filled cache
+    init_cache: Callable
     # (model, task_stack, cache, tokens, pos (B,), task_ids,
     # draft_bits=None) -> (logits, cache): mixed-task decode against
     # (T, …)-stacked scales
@@ -91,9 +94,10 @@ class ModelAPI:
 
 KV_CACHE_DTYPES = ("model", "int8")
 # the families the port builds: the dense decoder, the moe — the same
-# decoder with MoE blocks —, and the vlm — the dense decoder behind a
-# prefix of precomputed patch embeddings
-FAMILIES = ("dense", "moe", "vlm")
+# decoder with MoE blocks —, the vlm — the dense decoder behind a prefix of
+# precomputed patch embeddings — and the encdec (whisper): an encoder over
+# precomputed frames and a decoder that cross-attends to it
+FAMILIES = ("dense", "moe", "vlm", "encdec")
 EXPERT_SHARDINGS = ("tensor", "expert")
 # the reference's reasons (its registry.py) why an MoE model has no slotted
 # steps and no usable verify: the resident and speculative schedulers'
@@ -101,13 +105,30 @@ EXPERT_SHARDINGS = ("tensor", "expert")
 MOE_SLOTTED_REASON = ("MoE expert dispatch cannot thread per-slot scales "
                       "(no slotted decode step)")
 MOE_VERIFY_REASON = "MoE expert dispatch is not supported in the verify step"
+# and why an encoder-decoder has neither
+ENCDEC_SLOTTED_REASON = "encoder-decoder backbone has no slotted decode step"
+NO_VERIFY_REASON = "family has no multi-token verify step (decode_verify)"
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for every configuration this slice of the port does not serve."""
     moe = cfg.moe is not None
+    encdec = cfg.family == "encdec"
     refused = [
         (cfg.family not in FAMILIES, f"family {cfg.family!r}"),
+        (encdec and (cfg.enc_layers < 1 or cfg.enc_frames < 1),
+         f"family 'encdec' without an encoder (enc_layers={cfg.enc_layers}, "
+         f"enc_frames={cfg.enc_frames})"),
+        (encdec and cfg.tuning.mode == "lora_optq",
+         "lora_optq on encdec: the reference's GPTQ replays "
+         "params['embed'] and params['layers'] (core/gptq.py), which a "
+         "whisper tree does not have, so it has no OPTQ backbone"),
+        (encdec and cfg.kv_cache_dtype != "model",
+         f"kv_cache_dtype={cfg.kv_cache_dtype!r} on encdec (the reference's "
+         f"whisper cache ignores it and keeps the activation dtype)"),
+        (encdec and cfg.swa_window is not None,
+         f"swa_window={cfg.swa_window} on encdec (the reference's whisper "
+         f"cache and decode step ignore it: a full cache, no ring)"),
         (moe and cfg.moe.expert_sharding not in EXPERT_SHARDINGS,
          f"expert_sharding={cfg.moe.expert_sharding!r}" if moe else ""),
         (moe and cfg.quant.layout == "plane",
@@ -122,7 +143,8 @@ def check_supported(cfg: ModelConfig) -> None:
         (cfg.bf16_reduce, "bf16_reduce (it halves the tensor-parallel "
          "collectives' bytes, so it comes with the mesh: queue 6)"),
         (cfg.attn_impl not in ops.ATTN_IMPLS, f"attn_impl={cfg.attn_impl!r}"),
-        (not cfg.use_rope, "learned positions (use_rope=False)"),
+        (not cfg.use_rope and not encdec,
+         "learned positions (use_rope=False)"),
         (cfg.act not in ("silu", "gelu"), f"act={cfg.act!r}"),
         (cfg.norm_type not in ("rmsnorm", "layernorm"),
          f"norm_type={cfg.norm_type!r}"),
@@ -143,16 +165,24 @@ def check_supported(cfg: ModelConfig) -> None:
             f"layout (use layout='nibble')")
 
 
+def module_class(cfg: ModelConfig):
+    """The ``nn.Module`` class of ``cfg``'s family (storage only)."""
+    return whisper.Whisper if cfg.family == "encdec" \
+        else transformer.Transformer
+
+
 def build(cfg: ModelConfig, device=None) -> ModelAPI:
-    """The dense, moe or vlm decoder's API on ``device`` (the card unless
-    ``device="cpu"``).  A vlm's prefill takes the batch's optional
-    ``"image_embeds"`` (B, P, d): its rows take the first P cache
-    positions.  With MoE blocks, as in the reference, there is no slotted
+    """The family's API on ``device`` (the card unless ``device="cpu"``):
+    ``_build_encdec`` for an encoder-decoder, else the decoder's.  A
+    vlm's prefill takes the batch's optional ``"image_embeds"`` (B, P, d):
+    its rows take the first P cache positions.  With MoE blocks, as in the reference, there is no slotted
     decode, slotted prefill or slotted verify (None, with the reference's
     reasons in ``FamilyCaps``), and ``decode_verify`` is built but fenced
     off by ``verify_reason``."""
     check_supported(cfg)
     dev = _device.resolve(device)
+    if cfg.family == "encdec":
+        return _build_encdec(cfg, dev)
     vlm = cfg.family == "vlm"
     moe = cfg.moe is not None
 
@@ -172,7 +202,8 @@ def build(cfg: ModelConfig, device=None) -> ModelAPI:
             last_pos=batch.get("last_pos")),
         decode_step=lambda m, c, t, pos, draft_bits=None:
             transformer.decode_step(m, c, t, pos, cfg, draft_bits=draft_bits),
-        init_cache=lambda b, s: attention.init_cache(cfg, b, s, dev),
+        init_cache=lambda b, s, device=dev: attention.init_cache(
+            cfg, b, s, device),
         decode_step_slotted=None if moe else (
             lambda m, st, c, t, pos, tid, draft_bits=None:
             transformer.decode_step(m, c, t, pos, cfg, task_stack=st,
@@ -193,4 +224,37 @@ def build(cfg: ModelConfig, device=None) -> ModelAPI:
                         prefix_positions=vlm,
                         slotted_reason=MOE_SLOTTED_REASON if moe else None,
                         verify_reason=MOE_VERIFY_REASON if moe else None),
+    )
+
+
+def _build_encdec(cfg: ModelConfig, dev: torch.device) -> ModelAPI:
+    """Whisper's API (reference ``build``'s encdec branch): every prefill
+    reads ``batch["frames"]`` (B, enc_frames, d), required; the cross K/V
+    are position-free cache leaves, so frames take no decoder position.
+    No slotted step and no verify, with the reference's reasons."""
+
+    def init(seed: int = 0, transform=None) -> whisper.Whisper:
+        return whisper.init(
+            cfg, torch.Generator(device=dev).manual_seed(seed), dev,
+            transform=transform)
+
+    return ModelAPI(
+        cfg=cfg,
+        device=dev,
+        init=init,
+        forward=lambda m, tokens, frames: whisper.forward(m, frames, tokens,
+                                                          cfg),
+        loss_fn=lambda m, batch: whisper.loss_fn(m, batch, cfg),
+        prefill=lambda m, batch: whisper.prefill(
+            m, batch["frames"], batch["tokens"], cfg,
+            last_pos=batch.get("last_pos")),
+        decode_step=lambda m, c, t, pos: whisper.decode_step(m, c, t, pos,
+                                                             cfg),
+        init_cache=lambda b, s, device=dev: whisper.init_cache(cfg, b, s,
+                                                               device),
+        caps=FamilyCaps(positional=True, bucketable=True,
+                        prefix_key="frames", prefix_required=True,
+                        prefix_positions=False,
+                        slotted_reason=ENCDEC_SLOTTED_REASON,
+                        verify_reason=NO_VERIFY_REASON),
     )

@@ -42,15 +42,34 @@ from torch import nn
 from repro_torch import device as _device
 from repro_torch.core.scale_bank import ResidentStack, ScaleBank
 from repro_torch.dist import sampling
-from repro_torch.models.attention import CACHE_BATCH_DIM, CACHE_SEQ_DIM
-from repro_torch.models.registry import ModelAPI
+from repro_torch.models.registry import NO_VERIFY_REASON, ModelAPI
 from repro_torch.serve.config import ServeConfig
 from repro_torch.serve.metrics import (REJECTED, SERVED, SHED, RequestMetrics,
                                        ServeReport)
 from repro_torch.serve.request import Request
 
 __all__ = ["Engine", "Request", "RequestMetrics", "ServeConfig",
-           "ServeReport", "SlotPool"]
+           "ServeReport", "SlotPool", "cache_dims"]
+
+
+def cache_dims(init_cache, batch: int = 2, seq_len: int = 8):
+    """(batch_dims, seq_dims): for every leaf of ``init_cache``'s cache, the
+    index of its batch dim and of its sequence(-capacity) dim, −1 for a
+    leaf without one (whisper's cross K/V have no sequence dim).  Derived
+    from the structure, as the reference's ``cache_batch_dims`` /
+    ``cache_seq_dims`` derive it: the cache is made on the ``meta`` device
+    (no storage) at two batch sizes and at two lengths, and the first dim
+    whose extent moves is the one.  A ring clamps its capacity to the
+    window, so the lengths must lie below it."""
+    base = init_cache(batch, seq_len, device="meta")
+    wider = init_cache(batch + 1, seq_len, device="meta")
+    longer = init_cache(batch, seq_len + 1, device="meta")
+
+    def moved(a, b):
+        return next((i for i, (x, y) in enumerate(zip(a.shape, b.shape))
+                     if x != y), -1)
+    return ({k: moved(base[k], wider[k]) for k in base},
+            {k: moved(base[k], longer[k]) for k in base})
 
 
 class SlotPool:
@@ -121,6 +140,17 @@ class Engine:
         # device-resident stacked scales for the resident scheduler; built
         # lazily by serve(scheduler="resident"/"auto")
         self.resident: Optional[ResidentStack] = None
+        self._dims = None
+
+    def _cache_dims(self):
+        """This API's (batch_dims, seq_dims) (``cache_dims``), memoised.  A
+        ring's probe lengths stay below its window, ``min(8, window − 1)``
+        (the reference's ``Engine._cache_dims``)."""
+        if self._dims is None:
+            w = self.api.cfg.swa_window
+            sl = 8 if w is None else max(1, min(8, w - 1))
+            self._dims = cache_dims(self.api.init_cache, 2, sl)
+        return self._dims
 
     def _prefix_rows(self, prefix) -> int:
         """Decoder cache rows a request prefix occupies (0 when the family
@@ -206,9 +236,15 @@ class Engine:
         # (a ring's prefill cache is already in ring layout: it occupies
         # the first slots of a ring of at least its capacity)
         cache = self.api.init_cache(b, cache_len)
+        sdims = self._cache_dims()[1]
         for key, dst in cache.items():
-            src = pcache[key]
-            dst.narrow(CACHE_SEQ_DIM, 0, src.shape[CACHE_SEQ_DIM]).copy_(src)
+            src, sd = pcache[key], sdims[key]
+            if sd < 0 and src.shape != dst.shape:
+                raise ValueError(
+                    f"cannot grow cache leaf {tuple(src.shape)} into "
+                    f"{tuple(dst.shape)}: it has no seq dim ({sd}, inferred "
+                    f"structurally), so only the seq dim of a leaf may grow")
+            (dst if sd < 0 else dst.narrow(sd, 0, src.shape[sd])).copy_(src)
         del pcache
         out = [tokens]
         tok = sample(logits)[:, None]
@@ -226,26 +262,28 @@ class Engine:
         """Allocate the slot pool."""
         return SlotPool(self, n_slots, cache_len)
 
-    @staticmethod
-    def _admit_write(pool: SlotPool, pcache: dict, slot: int) -> None:
+    def _admit_write(self, pool: SlotPool, pcache: dict, slot: int) -> None:
         """Place a batch-1 prefill cache into slot ``slot`` of the pool, in
-        place, along the cache's batch and position dims."""
+        place: along each leaf's batch dim, at the start of its position
+        dim; a position-free leaf (whisper's cross K/V) as one whole batch
+        row."""
+        bdims, sdims = self._cache_dims()
         for key, dst in pool.cache.items():
-            src = pcache[key]
-            dst.narrow(CACHE_BATCH_DIM, slot, 1).narrow(
-                CACHE_SEQ_DIM, 0, src.shape[CACHE_SEQ_DIM]).copy_(src)
+            src, sd = pcache[key], sdims[key]
+            row = dst.narrow(bdims[key], slot, 1)
+            (row if sd < 0 else row.narrow(sd, 0, src.shape[sd])).copy_(src)
 
-    @staticmethod
-    def _check_admit_shapes(pool: SlotPool, pcache: dict) -> None:
+    def _check_admit_shapes(self, pool: SlotPool, pcache: dict) -> None:
         """The prefill cache must be batch-1, fit the pool capacity, and
-        differ from the pool only on the batch and position dims."""
-        bd, sd = CACHE_BATCH_DIM, CACHE_SEQ_DIM
+        differ from the pool only on the batch and position dims (a
+        position-free leaf only on the batch dim)."""
+        bdims, sdims = self._cache_dims()
         for key, dst in pool.cache.items():
-            src = pcache[key]
+            src, bd, sd = pcache[key], bdims[key], sdims[key]
             if src.shape[bd] != 1:
                 raise ValueError(f"admit needs a batch-1 prefill cache, got "
                                  f"batch {src.shape[bd]} in {tuple(src.shape)}")
-            if src.shape[sd] > dst.shape[sd]:
+            if sd >= 0 and src.shape[sd] > dst.shape[sd]:
                 raise ValueError(
                     f"prompt cache seq extent {src.shape[sd]} exceeds the "
                     f"pool capacity {dst.shape[sd]}")
@@ -430,7 +468,7 @@ class Engine:
         if caps is not None and caps.verify_reason is not None:
             return caps.verify_reason
         if self.api.decode_verify is None:
-            return "family has no multi-token verify step (decode_verify)"
+            return NO_VERIFY_REASON
         if cfg.moe is not None:
             return "MoE expert dispatch is not supported in the verify step"
         if cfg.swa_window is not None:

@@ -1355,3 +1355,88 @@ def test_moe_tiny_model_on_the_card(cuda, arch):
         with ops.force_impl("torch"):
             lp, _ = api.prefill(model, {"tokens": prompt.to(cuda)})
     assert (lk - lp).abs().max() <= 2 ** -5 * lp.abs().max()
+
+
+# ------------------------------- the encdec family: whisper-medium's shapes
+
+# (N, K) of whisper-medium's linears: q/k/v/o and the cross-attention's
+# (1024, 1024), the MLP's up (4096, 1024) and down (1024, 4096)
+WHISPER_SHAPES = ((1024, 1024), (4096, 1024), (1024, 4096))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,k", WHISPER_SHAPES)
+def test_whisper_gemm_and_gemv_shapes(cuda, n, k):
+    """K2 at the encoder's rows (M = 4 × 1500 frames: a tile that is not a
+    multiple of K2's row tile) and at the decoder's prefill (4 × 32), K1 at
+    a decode step's 4 rows, bf16, per-channel: within the factored bound
+    of plain, on the tensor-core route."""
+    g = torch.Generator(device="cuda").manual_seed(n + k)
+    w = torch.randn(n, k, generator=g, device=cuda) * k ** -0.5
+    q, s, z = rtn_quantize(w, QuantSpec(bits=4), n_grid=4)
+    qw = pack_codes(q)
+    for m in (6000, 128, 4):
+        x = torch.randn(m, k, generator=g, device=cuda).to(torch.bfloat16)
+        args = [x, qw, s, z]
+        assert qm.tc_route(x, s)
+        fn = qm.quant_gemv if m <= qm.GEMV_MAX_M else qm.quant_matmul
+        _assert_within_bound(fn(*args), qm.quant_matmul_plain(*args), args,
+                             factored=True, gemv=m <= qm.GEMV_MAX_M)
+
+
+def _tiny_whisper():
+    from repro_torch import configs
+    from repro_torch.configs.base import QuantConfig, TuningConfig
+    from repro_torch.models import registry
+    cfg = configs.make_tiny(configs.get_config("whisper-medium")).replace(
+        dtype="bfloat16", d_model=256, head_dim=64, d_ff=512, enc_frames=40,
+        tuning=TuningConfig(mode="peqa"), quant=QuantConfig(n_grid=20))
+    return cfg, registry.build(cfg)
+
+
+@pytest.mark.gpu
+def test_whisper_tiny_build_is_bit_equal_on_the_card(cuda):
+    """A small whisper (d_model 256, 40 frames, bf16) built by
+    ``policies.build`` and by ``api.init`` then ``policies.prepare`` on the
+    card: every tensor bit-equal."""
+    from repro_torch.core import policies
+    cfg, api = _tiny_whisper()
+    streamed, _ = policies.build(api, 0)
+    whole, _ = policies.prepare(api.init(0), cfg)
+    ts = dict(list(streamed.named_parameters())
+              + list(streamed.named_buffers()))
+    tw = dict(list(whole.named_parameters()) + list(whole.named_buffers()))
+    assert ts.keys() == tw.keys()
+    for name in tw:
+        assert torch.equal(ts[name], tw[name]), name
+
+
+@pytest.mark.gpu
+def test_whisper_tiny_generate_launches_on_the_card(cuda):
+    """``generate(prefix=frames)`` of 4 × 48 tokens behind 40 frames: one
+    K2 launch a quantized linear for the prefill (the encoder's 6 and the
+    decoder's 10 a layer: every call over 32 rows), then 8 K1 and one K4 a
+    decoder layer a step (the cross K/V are cached at prefill); the
+    prefill's logits within 2⁻⁵ of their largest magnitude of the plain
+    route's."""
+    from repro_torch.core import policies
+    from repro_torch.train.serve import Engine
+    cfg, api = _tiny_whisper()
+    model, _ = policies.build(api, 0)
+    gen = torch.Generator().manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (4, 48), generator=gen)
+    frames = torch.randn(4, cfg.enc_frames, cfg.d_model, generator=gen)
+    for kern in ops.KERNELS:
+        kern.launches = 0
+    Engine(api, model).generate(prompt, 4, prefix=frames)
+    launches = {k.__name__: k.launches for k in ops.KERNELS if k.launches}
+    assert launches == {
+        "quant_matmul": 6 * cfg.enc_layers + 10 * cfg.n_layers,
+        "quant_gemv": 8 * cfg.n_layers * 3,
+        "flash_attention": cfg.n_layers * 3}
+    batch = {"tokens": prompt.to(cuda), "frames": frames.to(cuda)}
+    with torch.inference_mode():
+        lk, _ = api.prefill(model, batch)
+        with ops.force_impl("torch"):
+            lp, _ = api.prefill(model, batch)
+    assert (lk - lp).abs().max() <= 2 ** -5 * lp.abs().max()
