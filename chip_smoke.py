@@ -353,6 +353,37 @@ line:
                step 1's K2 calls held to plain, the codes, positions, norms
                and table unchanged, state 8 B × the scales, peak memory
                and step ms.
+ 18. ssm     — (after encdec) xlstm-125m at full width and depth (12
+               layers: an sLSTM every 4th, 9 mLSTMs; d_model 768, 4 heads —
+               mLSTM hd 384, sLSTM hd 192 —, vocab 50304, untied), built
+               layer by layer (bf16, PEQA 4-bit per-channel, n_grid 20,
+               seed 0): the build's seconds and peak, gated at the model's
+               bytes plus two float32 blocks; Engine.generate of 4 × 256 +
+               32 (two 128-token chunks of the scan) with exact launches
+               (69 K2 a prefill, 69 K1 a step, no K4), the prefill's and
+               the first step's every K1 and K2 call held to plain as it
+               happens; a prefill and a decode step profiled; REC_REQUESTS
+               requests over REC_TASKS tasks in REC_SLOTS slots under
+               drain, twice (every budget, exact launches, equal tokens;
+               the slot's state bytes), the resident and speculative
+               schedulers refused with the reference's messages; 2 PEQA
+               steps of 4 × 256 rows under remat "block" (132 K2 a step:
+               the mLSTMs' linears twice, the sLSTMs' once), step 1's K2
+               calls held to plain, the codes, ``sr``, ``sb``, norms and
+               table unchanged, state 8 B × the scales; then the sLSTM
+               time loop timed in place: its share of a prefill and of a
+               training forward and backward.
+ 19. hybrid  — zamba2-7b likewise (81 Mamba2 layers, d_model 3584,
+               d_inner 7168, 112 SSM heads of 64, d_state 64; the shared
+               block after every 6: 13 applications of 32 / 32 heads of
+               112 and d_ff 14336; vocab 32000, untied; 6.79 B values):
+               exact launches 577 K2 a prefill (81 × 6 Mamba2 linears and
+               13 × 7 shared ones), 577 K1 and 13 K4 at head dim 112 a
+               step; the slot's SSM and conv state and its KV bytes a
+               position; 2 PEQA steps of 4 × 256 under the nested remat
+               (1,604 K2 a step).  Phase kernels carries K1 and K2 at both
+               models' linears (N = 4, 64 and 112 among them) and K4 at
+               zamba2's heads.
 
 Every phase's seconds are printed on a line of their own as it ends.
 
@@ -401,6 +432,7 @@ LONG_CACHE = 1100
 # phase check's sliding-window run: a 64-slot ring, 256 + SWA_NEW tokens
 SWA_NEW = 96
 L2_BYTES = 50 * 2 ** 20
+MAX_COPIES = 512
 # K4 at llama3.2-1b's heads: (case, B, Sq, Sk, offset, causal, window) —
 # offset None (Sk − Sq), "rows" (a (B,) device tensor spread over [20,
 # 300]) or an int.  The prefill; the lockstep decode over generate's
@@ -496,6 +528,26 @@ ENC_PROMPT = 32
 ENC_REQUESTS, ENC_TASKS, ENC_SLOTS = 8, 2, 4
 ENC_PROMPTS, ENC_NEW = (16, 32, 48, 64), (12, 16, 24)
 ENC_TRAIN_STEPS, ENC_TRAIN_BATCH = 2, 4
+# ssm and hybrid phases: xlstm-125m and zamba2-7b at full width and depth.
+# Each model's quantized-linear calls a forward and K4 launches a decode
+# step (zamba2's shared block: 7 linears and one attention an application,
+# 13 of them).  Serving: REC_REQUESTS requests over REC_TASKS tasks (one
+# burst a task) in REC_SLOTS slots, the prompts (each at most the scan's
+# 128-token chunk) and the model's budgets in turn; training:
+# REC_TRAIN_STEPS PEQA steps of REC_TRAIN_BATCH × 256 rows.  Phase kernels:
+# K1 and K2 at each model's linears (N, K) — among them output widths of 4
+# (xlstm's scalar gates), 64 and 112 (Mamba2's B / C and dt) —, and K4 at
+# zamba2's 32 / 32 heads of 112
+REC_CALLS = {"xlstm-125m": (69, 0), "zamba2-7b": (577, 13)}
+REC_REQUESTS, REC_TASKS, REC_SLOTS = 8, 2, 4
+REC_PROMPTS = (32, 64, 96, 128)
+REC_NEW = {"xlstm-125m": (16, 24, 32), "zamba2-7b": (8, 12, 16)}
+REC_TRAIN_STEPS, REC_TRAIN_BATCH = 2, 4
+REC_SHAPES = {
+    "xlstm-125m": ((3072, 768), (768, 768), (1536, 768), (4, 768),
+                   (768, 1536)),
+    "zamba2-7b": ((7168, 3584), (64, 3584), (112, 3584), (3584, 7168))}
+ZAMBA2_HEADS = (32, 32, 112)
 # arms phase: GPTQ's calibration tokens (B, S) from the train split, and
 # the train steps of LoRA on the float32 backbone (lora_optq takes
 # TRAIN_STEPS)
@@ -783,10 +835,13 @@ def kernel_gemv_gemm(torch, qm, n, k, group, qw, s, z, w16, gen, worst,
             extra["simt_f32"] = gemv_simt_case(torch, qm, what, x_all, qw,
                                                s, z)
         # rotate weight copies through > 2x the L2 cache so every launch
-        # streams its weights from HBM, as the model's does
-        copies = max(2, math.ceil(2 * L2_BYTES / (n * k // 2)))
+        # streams its weights from HBM, as the model's does (at most
+        # MAX_COPIES: xlstm's (4, 768) gates would take 68,000)
+        copies = min(MAX_COPIES, max(2, math.ceil(2 * L2_BYTES
+                                                  / (n * k // 2))))
         sets = [(x, qw.clone(), s.clone(), z.clone()) for _ in range(copies)]
-        lib_copies = max(2, math.ceil(2 * L2_BYTES / (n * k * 2)))
+        lib_copies = min(MAX_COPIES,
+                         max(2, math.ceil(2 * L2_BYTES / (n * k * 2))))
         lib_sets = [(x, w16.clone()) for _ in range(lib_copies)]
         iters = 200 if m == GEMV_M else 20
         ms = timed(fn, sets, iters)
@@ -850,10 +905,21 @@ def phase_kernels(torch) -> dict:
         experts[model] = [kernel_experts(torch, qm, model, e, n, k, c_pre,
                                          gen, worst) for (n, k) in shapes]
         torch.cuda.empty_cache()
+    # the recurrent families' linears (zamba2's shared q/k/v, (3584, 7168)
+    # over the 7168-wide concat, share out_proj's shape)
+    for model, shapes in REC_SHAPES.items():
+        for (n, k) in shapes:
+            qw, s, z = quantized_operands(torch, n, k, None, gen)
+            w16 = dequant_ref(qw, s, z, (n, k), QuantSpec(), torch.bfloat16)
+            kernel_gemv_gemm(torch, qm, n, k, None, qw, s, z, w16, gen,
+                             worst, emulate=n < 128, model=model)
+            del qw, s, z, w16
+        torch.cuda.empty_cache()
     worst.update(rtn_pack=0.0, rtn_pack_planes=0.0)   # bit-equal, or failed
     worst["flash_attention"], attn_prefill = kernel_attention(torch, gen)
     attn_7b = {}
-    for model, heads in {**DENSE_7B_HEADS, **MOE_HEADS}.items():
+    for model, heads in {**DENSE_7B_HEADS, **MOE_HEADS,
+                         "zamba2-7b": ZAMBA2_HEADS}.items():
         err, attn_7b[model] = kernel_attention(
             torch, gen, heads, ATTN_7B_CASES, model=model, sweep=False)
         worst["flash_attention"] = max(worst["flash_attention"], err)
@@ -3301,12 +3367,16 @@ def dense_build(torch, name: str, **kw):
 
 def block_fp32_bytes(torch, cfg) -> int:
     """One block's float32 bytes before quantization (its linears, biases
-    and norms: what the layer-by-layer build holds beside the model) — a
-    whisper's decoder block, the larger of its two."""
-    from repro_torch.models import transformer, whisper
-    block = (whisper.DecBlock if cfg.family == "encdec"
-             else transformer.Block)(cfg, device="meta")
-    return 4 * sum(p.numel() for p in block.parameters())
+    and norms: what the layer-by-layer build holds beside the model) — of
+    a family with two kinds of block, the larger: a whisper's decoder
+    block, xlstm's mLSTM, zamba2's shared block."""
+    from repro_torch.models import mamba2, transformer, whisper, xlstm, zamba2
+    kinds = {"encdec": (whisper.DecBlock,),
+             "ssm": (xlstm.SLSTM, xlstm.MLSTM),
+             "hybrid": (mamba2.Mamba2, zamba2.Shared)}.get(
+                 cfg.family, (transformer.Block,))
+    return max(4 * sum(p.numel() for p in kind(cfg, device="meta")
+                       .parameters()) for kind in kinds)
 
 
 def n_quantized(model, experts: bool = False) -> int:
@@ -3332,6 +3402,24 @@ def n_step_linears(model) -> int:
                for name, m in model.named_modules())
 
 
+def shared_calls(model) -> int:
+    """The quantized-linear calls a forward makes beyond one a linear:
+    zamba2's shared block runs once an application (13 at full depth), its
+    7 linears each time; 0 elsewhere."""
+    groups = getattr(model, "mamba_groups", None)
+    if groups is None:
+        return 0
+    return n_quantized(model.shared) * (len(groups) - 1)
+
+
+def attn_layers(model, cfg) -> int:
+    """K4 launches a decode step: one a decoder layer; zamba2's shared
+    block once an application; none in xlstm."""
+    if hasattr(model, "mamba_groups"):
+        return len(model.mamba_groups)
+    return 0 if hasattr(model, "mlstm") else cfg.n_layers
+
+
 def launch_want(model, prefill: int, steps: int, layers: int) -> dict:
     """The launches of ``prefill`` prefills and ``steps`` decode steps of a
     lockstep batch: one K2 a 2-D quantized linear for a prefill (a
@@ -3341,8 +3429,9 @@ def launch_want(model, prefill: int, steps: int, layers: int) -> dict:
     step's of BATCH rows C = 1 —, and L K4 launches a step (L the decoder's
     layers)."""
     n_lin, n_exp = n_quantized(model), n_quantized(model, experts=True)
-    want = {"quant_matmul": n_lin * prefill,
-            "quant_gemv": n_step_linears(model) * steps,
+    extra = shared_calls(model)
+    want = {"quant_matmul": (n_lin + extra) * prefill,
+            "quant_gemv": (n_step_linears(model) + extra) * steps,
             "flash_attention": layers * steps}
     if n_exp:
         want.update(quant_matmul_experts=n_exp * prefill,
@@ -3372,7 +3461,7 @@ def dense_generate(torch, label, api, model, prompt, prefix=None) -> dict:
     launches = {k.__name__: k.launches for k in ops.KERNELS if k.launches}
     peak = torch.cuda.max_memory_allocated()
     steps = NEW - 1
-    want = launch_want(model, 1, steps, cfg.n_layers)
+    want = launch_want(model, 1, steps, attn_layers(model, cfg))
     if launches != want:
         fail(f"{label} generate: launches {launches}, expected {want}")
     s = prompt.shape[1]
@@ -3419,7 +3508,7 @@ def checked_generate(torch, label, api, model, prompt, prefix=None) -> dict:
         Engine(api, model).generate(prompt, 2, prefix=prefix)
     want = {k: 0 for k in chk.calls}
     want.update({k: v for k, v in launch_want(
-        model, 1, 1, api.cfg.n_layers).items() if k in want})
+        model, 1, 1, attn_layers(model, api.cfg)).items() if k in want})
     if chk.calls != want:
         fail(f"{label}: {chk.calls} calls checked against plain, expected "
              f"{want}")
@@ -3437,6 +3526,29 @@ def full_mode_bytes(model) -> tuple:
     n += sum(p.numel() for name, p in model.named_parameters()
              if not name.endswith((".scale", ".zero")))
     return n, 16 * n
+
+
+def remat_k2_calls(model, cfg) -> tuple:
+    """(K2 launches a remat "block" train step, the calls of step 1 that
+    return an output) of xlstm and zamba2, or None for the other families
+    (2 a linear, one a block fewer).  The recompute of a checkpointed body
+    stops once its last saved tensor is back, inside its last linear,
+    whose output is then never returned.  xlstm checkpoints each mLSTM
+    block (7 linears), not the sLSTM; zamba2 each Mamba2 block of a group
+    AND each whole group, nested, not the tail: a grouped Mamba2 linear
+    runs three times, a shared one twice an application."""
+    if hasattr(model, "mlstm"):
+        n_m = sum(len(g) for g in model.mlstm)
+        calls = n_quantized(model) + 7 * n_m
+        return calls, calls - n_m
+    if hasattr(model, "mamba_groups"):
+        n_g = len(model.mamba_groups)
+        grouped = sum(len(g) for g in model.mamba_groups)
+        tail = len(model.mamba_tail or ())
+        shared = n_quantized(model.shared)
+        calls = 6 * (3 * grouped + tail) + 2 * n_g * shared
+        return calls, calls - grouped - n_g
+    return None
 
 
 def dense_train(torch, label, cfg0, model, mask, steps, batch_size=None,
@@ -3533,6 +3645,7 @@ def dense_train(torch, label, cfg0, model, mask, steps, batch_size=None,
     peak = torch.cuda.max_memory_allocated() - base
     want = {"quant_matmul": 2 * n_lin}
     checked = chk.calls["quant_matmul"]
+    recurrent = remat_k2_calls(model, cfg)
     # the recompute stops once the block's last saved tensor is back: in a
     # dense block (and deepseek's, whose shared MLP comes last, and each of
     # a whisper's encoder and decoder blocks) inside the down projection,
@@ -3541,6 +3654,9 @@ def dense_train(torch, label, cfg0, model, mask, steps, batch_size=None,
     n_blocks = cfg.n_layers + cfg.enc_layers
     unchecked = {2 * n_lin - n_blocks} if not n_exp else \
         {2 * n_lin - n_blocks, 2 * n_lin}
+    if recurrent is not None:
+        want["quant_matmul"], returned = recurrent
+        unchecked = {returned}
     if n_exp:
         want["quant_matmul_experts"] = 2 * n_exp
         if chk.calls["quant_matmul_experts"] not in (
@@ -4270,6 +4386,232 @@ def phase_encdec(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases ssm and hybrid: xlstm-125m and zamba2-7b, the recurrent families
+# ---------------------------------------------------------------------------
+
+def recurrent_requests(cfg, seed):
+    """REC_REQUESTS requests over REC_TASKS tasks in runs (one task's burst
+    after the other), prompt lengths (each at most the chunk: one chunk of
+    the scan) and budgets in turn, all at step 0."""
+    import numpy as np
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(seed)
+    n, news = REC_REQUESTS, REC_NEW[cfg.name]
+    return [Request(
+        tokens=rng.integers(0, cfg.vocab_size, REC_PROMPTS[i % len(
+            REC_PROMPTS)]),
+        n_new=news[i % len(news)], task=f"t{i * REC_TASKS // n}",
+        arrival_step=0) for i in range(n)]
+
+
+def recurrent_serve_want(cfg, model, reqs, steps) -> dict:
+    """The exact launches of a drain run: each admitted prompt of S rows
+    (never bucketed: the state integrates every row) calls every quantized
+    linear once (zamba2's shared ones once an application) — K2 for S > 32,
+    else K1 —; each of ``steps`` pool steps calls them through K1, and K4
+    once a shared-block application."""
+    calls = n_quantized(model) + shared_calls(model)
+    want = dict.fromkeys(("quant_matmul", "quant_gemv", "flash_attention"),
+                         0)
+    for r in reqs:
+        want["quant_matmul" if r.n_prompt > GEMV_MAX
+             else "quant_gemv"] += calls
+    want["quant_gemv"] += calls * steps
+    want["flash_attention"] += attn_layers(model, cfg) * steps
+    return {k: v for k, v in want.items() if v}
+
+
+def state_bytes(api) -> dict:
+    """The slot pool's state of one slot: the bytes of the position-free
+    leaves (the recurrent states) and of each position of the paged ones
+    (zamba2's shared-block K/V), from ``init_cache`` on ``meta``."""
+    from repro_torch.train.serve import cache_dims
+    bdims, sdims = cache_dims(api.init_cache)
+    one = api.init_cache(1, 1, device="meta")
+    size = lambda t: t.numel() * t.element_size()
+    return {"state_bytes_a_slot": sum(size(t) for k, t in one.items()
+                                      if sdims[k] < 0),
+            "kv_bytes_a_position": sum(size(t) for k, t in one.items()
+                                       if sdims[k] >= 0)}
+
+
+def recurrent_serve(torch, api, model, cfg) -> dict:
+    """REC_REQUESTS requests over REC_TASKS tasks through ``Engine.serve``
+    in REC_SLOTS slots under drain, twice, each pool at serve's own
+    capacity: every budget served, the exact launches
+    (``recurrent_serve_want``), the second run's tokens equal to the
+    first's.  Then the resident and speculative schedulers must refuse
+    with the reference's messages."""
+    from repro_torch.models import registry
+    from repro_torch.serve import ServeConfig
+    from repro_torch.train.serve import Engine
+    bank = task_bank(model, REC_TASKS, SEED + 25)
+    reqs = recurrent_requests(cfg, SEED + 26)
+    capacity = max(r.n_prompt + r.n_new for r in reqs)
+    res = {"requests": len(reqs), "slots": REC_SLOTS, "tasks": REC_TASKS,
+           "capacity": capacity, **state_bytes(api)}
+    reports, check = [], {"peak": 0}
+    for run in ("drain", "drain_again"):
+        eng = Engine(api, model, bank=bank)
+        pools, open_pool = [], eng.open_pool
+
+        def opened(n, c, _pools=pools, _open=open_pool):
+            _pools.append(c)
+            return _open(n, c)
+        eng.open_pool = opened
+        rep, _, _ = serve_run(
+            torch, res, check, cfg.vocab_size, run, eng, "step", reqs,
+            ServeConfig(n_slots=REC_SLOTS, scheduler="drain"),
+            lambda n: recurrent_serve_want(cfg, model, reqs, n))
+        if pools != [capacity]:
+            fail(f"{cfg.name} {run}: pools of {pools} rows, expected "
+                 f"serve's own capacity {capacity}")
+        eng.switch_task("t0")                 # the model's own scales back
+        reports.append(rep)
+    res["tokens_equal_share"] = gate_tokens_equal(
+        f"{cfg.name} second drain run", "first drain", reports[0],
+        reports[1])
+    eng = Engine(api, model, bank=bank)
+    res["refused"] = {}
+    for sched, reason in (("resident", registry.RECURRENT_SLOTTED_REASON),
+                          ("speculative", registry.NO_VERIFY_REASON)):
+        want = f"scheduler='{sched}' unsupported here: {reason}"
+        try:
+            eng.serve(reqs, ServeConfig(n_slots=REC_SLOTS, scheduler=sched))
+        except ValueError as err:
+            if str(err) != want:
+                fail(f"{cfg.name} {sched}: refused with {err!r}, expected "
+                     f"{want!r}")
+            res["refused"][sched] = str(err)
+        else:
+            fail(f"{cfg.name}: the {sched} scheduler served a recurrent "
+                 f"model")
+    return res
+
+
+def slstm_parts(torch, api, model, cfg, prompt) -> dict:
+    """xlstm's sLSTM time loop in place, in one warm prefill of ``prompt``
+    and in one training forward and backward of REC_TRAIN_BATCH × 256
+    rows: each sLSTM block's forward (the host clock around the call, the
+    device synchronised at both ends) and backward (from its output's
+    gradient to the accumulation of its ``sw`` scale's, the block's first
+    linear), beside the whole call's wall.  The sLSTM is host-bound, so
+    only times taken inside the same call share a clock's state."""
+    from repro_torch.models import xlstm
+    real = xlstm.slstm_apply_train
+    fwd, bwd, handles = [], [], []
+
+    def now():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def block(p, u_res, c, state=None, return_state=False):
+        t0 = now()
+        out = real(p, u_res, c, state=state, return_state=return_state)
+        fwd.append(now() - t0)
+        y = out[0] if return_state else out
+        if y.requires_grad:
+            mark = {}
+
+            def start(grad, mark=mark):
+                mark["t0"] = now()
+
+            def end(param, mark=mark):
+                bwd.append(now() - mark["t0"])
+            y.register_hook(start)
+            handles.append(p.sw.scale.register_post_accumulate_grad_hook(end))
+        return out
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 27)
+    toks = torch.randint(0, cfg.vocab_size, (REC_TRAIN_BATCH, 257),
+                         generator=gen, device="cuda")
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    xlstm.slstm_apply_train = block
+    try:
+        with torch.inference_mode():
+            api.prefill(model, {"tokens": prompt.to("cuda")})   # warm-up
+            fwd.clear()
+            t0 = now()
+            api.prefill(model, {"tokens": prompt.to("cuda")})
+            prefill = now() - t0
+        pre, fwd[:] = sum(fwd), []
+        t0 = now()
+        api.loss_fn(model, batch).backward()
+        step = now() - t0
+    finally:
+        xlstm.slstm_apply_train = real
+        for h in handles:
+            h.remove()
+        for p in model.parameters():
+            p.grad = None
+    if len(bwd) != len(model.slstm):
+        fail(f"xlstm: {len(bwd)} sLSTM backwards timed, expected "
+             f"{len(model.slstm)}")
+    train = sum(fwd) + sum(bwd)
+    return {"prefill_ms": prefill * 1e3, "prefill_slstm_ms": pre * 1e3,
+            "prefill_slstm_share": pre / prefill,
+            "train_fwd_bwd_ms": step * 1e3, "train_slstm_ms": train * 1e3,
+            "train_slstm_fwd_ms": sum(fwd) * 1e3,
+            "train_slstm_share": train / step}
+
+
+def recurrent_model(torch, name, phase, gen) -> dict:
+    """One recurrent configuration at full width and depth (module
+    docstring, phases ssm and hybrid)."""
+    cfg, api, model, mask, built = dense_build(torch, name)
+    res = {"phase": phase, "model": cfg.name, "layers": cfg.n_layers,
+           **built}
+    bound = built["model_gb"] + 2 * built["block_fp32_gb"]
+    res["build_peak_bound_gb"] = bound
+    if built["build_peak_gb"] > bound:
+        fail(f"{name} build: peak {built['build_peak_gb']:.3f} GB above "
+             f"the model's {built['model_gb']:.3f} GB plus two blocks' "
+             f"float32 {2 * built['block_fp32_gb']:.3f} GB")
+    calls = n_quantized(model) + shared_calls(model)
+    res["linear_calls"], res["k4_a_step"] = calls, attn_layers(model, cfg)
+    if (calls, res["k4_a_step"]) != REC_CALLS[name]:
+        fail(f"{name} build: {calls} quantized linear calls and "
+             f"{res['k4_a_step']} K4 a step, expected {REC_CALLS[name]}")
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen)
+    secs = {"build": built["build_s"]}
+
+    def part(key, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        secs[key] = time.perf_counter() - t0
+        return out
+    res["checked"] = part("checked_generate", checked_generate, torch, name,
+                          api, model, prompt)
+    res["generate"] = part("generate", dense_generate, torch, name, api,
+                           model, prompt)["res"]
+    res["profile"] = part("profile", phase_profile, torch, {
+        "api": api, "model": model, "prompt": prompt},
+        phase=f"{phase}_profile")
+    res["serve"] = part("serve", recurrent_serve, torch, api, model, cfg)
+    res["train"] = part("train", dense_train, torch, name, cfg, model, mask,
+                        REC_TRAIN_STEPS, batch_size=REC_TRAIN_BATCH)
+    if phase == "ssm":
+        res["slstm"] = part("slstm_parts", slstm_parts, torch, api, model,
+                            cfg, prompt)
+    res["seconds"] = secs
+    emit(res)
+    del model, mask, api
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_ssm(torch) -> dict:
+    """xlstm-125m at full width and depth (module docstring, phase 18)."""
+    return recurrent_model(torch, "xlstm-125m", "ssm",
+                           torch.Generator().manual_seed(SEED + 28))
+
+
+def phase_hybrid(torch) -> dict:
+    """zamba2-7b at full width and depth (module docstring, phase 19)."""
+    return recurrent_model(torch, "zamba2-7b", "hybrid",
+                           torch.Generator().manual_seed(SEED + 29))
+
+
+# ---------------------------------------------------------------------------
 # phase arms: the paper's comparison arms at llama3.2-1b
 # ---------------------------------------------------------------------------
 
@@ -4852,6 +5194,8 @@ def main() -> None:
     vlm = run("vlm", phase_vlm, torch)
     moe = run("moe", phase_moe, torch)
     encdec = run("encdec", phase_encdec, torch)
+    ssm = run("ssm", phase_ssm, torch)
+    hybrid = run("hybrid", phase_hybrid, torch)
     arms = run("arms", phase_arms, torch, prompt, peqa, full)
     if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
                                    for m in sys.modules):
@@ -4917,9 +5261,11 @@ def main() -> None:
         times[name] = {k: 2 * up[k] + down[k] for k in (
             "ms", "plain_ms", "bound_ms", "library_ms", "loop_2d_ms")}
         times[name]["bound_by"] = up["bound_by"]
-    # whisper-medium's lockstep generate (phase encdec's main path): K2 a
-    # prefill, K1 and K4 a decode step
-    encdec_launches = encdec["generate"]["launches"]
+    # whisper-medium's, xlstm-125m's and zamba2-7b's lockstep generate
+    # (phases encdec, ssm and hybrid): K2 a prefill, K1 and K4 a decode step
+    family_launches = {f"{fam}_launches": r["generate"]["launches"]
+                       for fam, r in (("encdec", encdec), ("ssm", ssm),
+                                      ("hybrid", hybrid))}
     kernels = []
     for name in (k.__name__ for k in ops.KERNELS):
         st = times[name]
@@ -4936,8 +5282,8 @@ def main() -> None:
             "library_ms": st["library_ms"],
             **({"loop_2d_ms": st["loop_2d_ms"]} if "loop_2d_ms" in st
                else {}),
-            **({"encdec_launches": encdec_launches[name]}
-               if name in encdec_launches else {})})
+            **{key: got[name] for key, got in family_launches.items()
+               if name in got}})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "phase_seconds": seconds,
           "k4_7b_prefill_us": {m: r["us"] for m, r in attn_7b.items()},
@@ -4977,6 +5323,19 @@ def main() -> None:
               "train": {k: encdec["train"][k] for k in (
                   "median_step_ms", "peak_mem_gb", "state_bytes",
                   "scales")}},
+          **{fam: {k: r[k] for k in (
+              "layers", "build_s", "build_peak_gb", "build_peak_bound_gb",
+              "model_gb", "generate")} | {
+              "busy_share": {k: r["profile"][k]["device_busy_share"]
+                             for k in ("prefill", "decode_step")},
+              "serve_wall_s": r["serve"]["drain"]["wall_s"],
+              "state_bytes_a_slot": r["serve"]["state_bytes_a_slot"],
+              "kv_bytes_a_position": r["serve"]["kv_bytes_a_position"],
+              "slstm": r.get("slstm"),
+              "train": {k: r["train"][k] for k in (
+                  "median_step_ms", "peak_mem_gb", "state_bytes",
+                  "scales")}} for fam, r in (("ssm", ssm),
+                                             ("hybrid", hybrid))},
           "arms": arms["table"]})
     print(dev["gpu"], flush=True)
     emit({"kernels": kernels})

@@ -7,7 +7,10 @@ port's ``Transformer`` numbers its layers instead: ``layers.3.attn.wq.qw``
 ``tree["enc"]["layers"]…``).
 A tensor's reference path is its name without the layer index
 (``/layers/attn/wq/qw``, ``core.peqa.ref_path``), so the ``EXCLUDE`` and
-mask rules carry over.  ScaleBank keys are the reference's key-path form,
+mask rules carry over.  A stack two deep numbers both levels: xlstm's
+``mlstm.2.1.wq.qw`` ↔ ``tree["mlstm"]["wq"]["qw"][2, 1]`` of a (n_groups,
+n_m, …) leaf, zamba2's ``mamba_groups.g.i`` likewise; its unstacked
+``shared`` block has no index.  ScaleBank keys are the reference's key-path form,
 the same path WITHOUT the leading slash (``layers/attn/wq/scale``,
 ``core.scale_bank.bank_path``), and a task's scales stay stacked over
 layers, (L, N, G) — so a reference bank's ``tasks[name]`` dicts and npz
@@ -42,7 +45,7 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.peqa import layer_index, ref_path
+from repro_torch.core.peqa import layer_index, ref_path, stack_indexed
 from repro_torch.models import registry
 from repro_torch.models.linear import Linear
 
@@ -81,7 +84,8 @@ def _node(tree: dict, name: str):
 
 
 def _layer(arr, name: str) -> np.ndarray:
-    """``name``'s layer slice of a stacked reference array."""
+    """``name``'s layer slice of a stacked reference array (indexed along
+    one axis, or two in a nested stack)."""
     arr = np.asarray(arr)
     i = layer_index(name)
     return arr if i is None else arr[i]
@@ -129,10 +133,7 @@ def to_tree(model: torch.nn.Module) -> dict:
 
 
 def _stacked(groups: dict, path: str) -> np.ndarray:
-    by_layer = groups[path]
-    if None in by_layer:
-        return by_layer[None]
-    return np.stack([by_layer[i] for i in sorted(by_layer)])
+    return stack_indexed(groups[path])
 
 
 def _nest(flat: dict) -> dict:

@@ -1,7 +1,7 @@
 """Config dataclasses (copy of ``repro/configs/base.py``'s QuantConfig,
 TuningConfig and ModelConfig, trimmed to the fields the port reads or must
-refuse, and its MoEConfig, OptimConfig and TrainConfig whole).  Frozen, like the
-reference, so they can key caches."""
+refuse, and its MoEConfig, SSMConfig, OptimConfig and TrainConfig whole).
+Frozen, like the reference, so they can key caches."""
 from __future__ import annotations
 
 import dataclasses
@@ -43,6 +43,18 @@ class MoEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2/SSD block parameters (xLSTM's mLSTM reads ``chunk`` alone)."""
+
+    d_state: int = 64
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    n_groups: int = 1
+    chunk: int = 128                    # SSD chunked-scan block length
+
+
+@dataclasses.dataclass(frozen=True)
 class TuningConfig:
     """Which fine-tuning method — the paper's comparison axis."""
 
@@ -56,7 +68,7 @@ class TuningConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                        # dense | moe | vlm | encdec (ported yet)
+    family: str                        # dense | moe | hybrid | vlm | ssm | encdec
     n_layers: int
     d_model: int
     n_heads: int
@@ -72,6 +84,9 @@ class ModelConfig:
     tie_embeddings: bool = False
     swa_window: Optional[int] = None   # sliding window: a ring KV cache
     moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    attn_every: Optional[int] = None   # zamba2: shared attn block period
+    slstm_every: Optional[int] = None  # xlstm: sLSTM block period (else mLSTM)
     # encoder-decoder (whisper): encoder layer count + fixed frame count stub
     enc_layers: int = 0
     enc_frames: int = 0
@@ -89,6 +104,12 @@ class ModelConfig:
     @property
     def d_head(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Can this arch decode at 500k context with bounded state?"""
+        return (self.family in ("ssm", "hybrid")
+                or self.swa_window is not None)
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

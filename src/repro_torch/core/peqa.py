@@ -50,9 +50,38 @@ def ref_path(name: str) -> str:
 
 def layer_index(name: str):
     """The layer number in a module/tensor name (``layers.3.attn.wq.w`` →
-    3), or None for a tensor outside the layer stack."""
-    nums = [int(p) for p in name.split(".") if p.isdigit()]
-    return nums[0] if nums else None
+    3), a tuple of them in a stack two deep (``mlstm.2.1.wq.w`` → (2, 1):
+    the reference's (n_groups, n_m, …) leaves), or None for a tensor
+    outside every stack."""
+    nums = tuple(int(p) for p in name.split(".") if p.isdigit())
+    if not nums:
+        return None
+    return nums[0] if len(nums) == 1 else nums
+
+
+def stacked_shape(indices) -> tuple:
+    """The leading dims of a stacked leaf from its entries' ``layer_index``
+    values: (L,) for layer numbers, (n_groups, n_m) for pairs."""
+    indices = list(indices)
+    if not isinstance(indices[0], tuple):
+        return (len(indices),)
+    shape = tuple(max(i[d] for i in indices) + 1
+                  for d in range(len(indices[0])))
+    if int(np.prod(shape)) != len(indices):
+        raise ValueError(f"stack indices {sorted(indices)} do not fill "
+                         f"{shape}")
+    return shape
+
+
+def stack_indexed(by_index: dict) -> np.ndarray:
+    """{layer_index: array} → one array stacked in index order, its leading
+    dims ``stacked_shape``'s; a single unindexed entry (key None) as it
+    is."""
+    if None in by_index:
+        return by_index[None]
+    keys = sorted(by_index)
+    flat = np.stack([by_index[k] for k in keys])
+    return flat.reshape(*stacked_shape(keys), *flat.shape[1:])
 
 
 def eligible(path: str, leaf: torch.Tensor, qcfg: QuantConfig) -> bool:

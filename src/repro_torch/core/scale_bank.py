@@ -3,7 +3,8 @@ scales (port of ``repro/core/scale_bank.py``, off-mesh).
 
 A task set is ``{path: np.ndarray}`` keyed by the reference's key-path
 form without a leading slash (``layers/attn/wq/scale``), each leaf stacked
-over layers (L, N, G) — the reference's layout, so npz files and
+over layers (L, N, G) — (n_groups, n_m, N, G) in a stack two deep
+(xlstm, zamba2) — the reference's layout, so npz files and
 ``tasks[name]`` dicts move between the two packages unchanged.
 
 Three tiers: the device ``ResidentStack`` (the k hottest tasks' scales
@@ -30,7 +31,7 @@ import torch
 from torch import nn
 
 from repro_torch import device as _device
-from repro_torch.core.peqa import layer_index, ref_path
+from repro_torch.core.peqa import layer_index, ref_path, stacked_shape
 
 SCALE_KEYS = ("scale", "zero")
 
@@ -55,7 +56,8 @@ def task_stack_dim(rank: int) -> int:
 def _scale_params(model: nn.Module, keys: Sequence[str]
                   ) -> Dict[str, List[tuple]]:
     """{bank path: [(layer index or None, parameter), ...] in layer
-    order} for every parameter whose leaf name is in ``keys``."""
+    order} for every parameter whose leaf name is in ``keys`` (an index is
+    a pair in a nested stack, ``core.peqa.layer_index``)."""
     out: Dict[str, List[tuple]] = {}
     for name, p in model.named_parameters():
         path = bank_path(name)
@@ -74,7 +76,9 @@ def _tensor(arr) -> torch.Tensor:
 
 def _stacked_shape(leaves: List[tuple]) -> tuple:
     shape = tuple(leaves[0][1].shape)
-    return shape if leaves[0][0] is None else (len(leaves), *shape)
+    if leaves[0][0] is None:
+        return shape
+    return (*stacked_shape(i for i, _ in leaves), *shape)
 
 
 def extract_scales(model: nn.Module, include_zero: bool = False
@@ -85,7 +89,8 @@ def extract_scales(model: nn.Module, include_zero: bool = False
     out = {}
     for path, leaves in _scale_params(model, keys).items():
         arrs = [p.detach().cpu().numpy() for _, p in leaves]
-        out[path] = arrs[0].copy() if leaves[0][0] is None else np.stack(arrs)
+        out[path] = arrs[0].copy() if leaves[0][0] is None \
+            else np.stack(arrs).reshape(_stacked_shape(leaves))
     return out
 
 

@@ -31,13 +31,18 @@ from repro_torch.models.common import (apply_rope, apply_rope_slots,
                                        model_dtype, rope_table)
 
 class Attention(nn.Module):
-    def __init__(self, cfg: ModelConfig, device=None):
+    """wq, wk, wv over ``d_in`` inputs (``cfg.d_model`` unless given: zamba2's
+    shared block reads the 2·d_model concat) and wo back to ``cfg.d_model``
+    (reference ``init(..., d_in=)``)."""
+
+    def __init__(self, cfg: ModelConfig, device=None, *, d_in=None):
         super().__init__()
         d, dh = cfg.d_model, cfg.d_head
+        d_in = d_in or d
         kw = dict(bias=cfg.qkv_bias, device=device)
-        self.wq = linear.Linear(d, cfg.n_heads * dh, **kw)
-        self.wk = linear.Linear(d, cfg.n_kv_heads * dh, **kw)
-        self.wv = linear.Linear(d, cfg.n_kv_heads * dh, **kw)
+        self.wq = linear.Linear(d_in, cfg.n_heads * dh, **kw)
+        self.wk = linear.Linear(d_in, cfg.n_kv_heads * dh, **kw)
+        self.wv = linear.Linear(d_in, cfg.n_kv_heads * dh, **kw)
         self.wo = linear.Linear(cfg.n_heads * dh, d, device=device)
 
 

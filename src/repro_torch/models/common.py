@@ -17,6 +17,16 @@ from repro_torch.models import linear
 NORM_DECODE_ROWS = 32
 
 
+def reset_block(block: nn.Module, generator: torch.Generator) -> None:
+    """Draw every random leaf of ``block`` from ``generator``, in module
+    order: each submodule that has ``reset_parameters`` (the linears, a
+    Mamba2 conv, an sLSTM's recurrent matrices); the other leaves are
+    constants set when the block is made."""
+    for sub in block.modules():
+        if hasattr(sub, "reset_parameters"):
+            sub.reset_parameters(generator)
+
+
 def model_dtype(cfg: ModelConfig) -> torch.dtype:
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     if cfg.dtype not in dtypes:
@@ -31,13 +41,18 @@ def model_dtype(cfg: ModelConfig) -> torch.dtype:
 
 class Norm(nn.Module):
     """The gain ``g``, and for ``norm_type="layernorm"`` the bias ``b``
-    (reference ``norm_init``)."""
+    (reference ``norm_init(cfg, d)``), over ``d`` features (``cfg.d_model``
+    unless given: zamba2's shared block normalises the 2·d_model concat).
+    ``gain_only`` keeps ``g`` alone whatever the norm type (Mamba2's
+    ``gnorm``, which the reference initialises as ``{"g": ones}``)."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None, *,
+                 d: Optional[int] = None, gain_only: bool = False):
         super().__init__()
-        self.g = nn.Parameter(torch.ones(cfg.d_model, device=device))
-        self.b = nn.Parameter(torch.zeros(cfg.d_model, device=device)) \
-            if cfg.norm_type == "layernorm" else None
+        d = d or cfg.d_model
+        self.g = nn.Parameter(torch.ones(d, device=device))
+        self.b = nn.Parameter(torch.zeros(d, device=device)) \
+            if cfg.norm_type == "layernorm" and not gain_only else None
 
 
 def _row_mean(t: torch.Tensor) -> torch.Tensor:

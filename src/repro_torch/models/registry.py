@@ -1,5 +1,6 @@
 """Model registry (port of ``repro/models/registry.py``: ``FamilyCaps``,
-``ModelAPI`` and ``build``'s dense, moe, vlm and encdec branches).
+``ModelAPI`` and ``build``'s dense, moe, vlm, encdec, ssm and hybrid
+branches).
 
 ``build(cfg)`` returns a ``ModelAPI`` with the functions the trainer and the
 server call, the speculative ``decode_verify`` and
@@ -17,7 +18,7 @@ import torch
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models import attention, transformer, whisper
+from repro_torch.models import attention, transformer, whisper, xlstm, zamba2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,9 +96,12 @@ class ModelAPI:
 KV_CACHE_DTYPES = ("model", "int8")
 # the families the port builds: the dense decoder, the moe — the same
 # decoder with MoE blocks —, the vlm — the dense decoder behind a prefix of
-# precomputed patch embeddings — and the encdec (whisper): an encoder over
-# precomputed frames and a decoder that cross-attends to it
-FAMILIES = ("dense", "moe", "vlm", "encdec")
+# precomputed patch embeddings —, the encdec (whisper): an encoder over
+# precomputed frames and a decoder that cross-attends to it —, the ssm
+# (xlstm: mLSTM and sLSTM blocks) and the hybrid (zamba2: Mamba2 blocks and
+# one shared attention block)
+FAMILIES = ("dense", "moe", "vlm", "encdec", "ssm", "hybrid")
+RECURRENT = ("ssm", "hybrid")
 EXPERT_SHARDINGS = ("tensor", "expert")
 # the reference's reasons (its registry.py) why an MoE model has no slotted
 # steps and no usable verify: the resident and speculative schedulers'
@@ -108,12 +112,19 @@ MOE_VERIFY_REASON = "MoE expert dispatch is not supported in the verify step"
 # and why an encoder-decoder has neither
 ENCDEC_SLOTTED_REASON = "encoder-decoder backbone has no slotted decode step"
 NO_VERIFY_REASON = "family has no multi-token verify step (decode_verify)"
+# and why the recurrent families (ssm, hybrid) have no slotted step
+RECURRENT_SLOTTED_REASON = ("recurrent state layers cannot thread per-slot "
+                            "scales (no slotted decode step)")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for every configuration this slice of the port does not serve."""
     moe = cfg.moe is not None
     encdec = cfg.family == "encdec"
+    fam = cfg.family
+    recurrent = fam in RECURRENT
+    if fam == "ssm" and cfg.slstm_every:
+        xlstm._layout(cfg)              # n_layers % slstm_every, as asserted
     refused = [
         (cfg.family not in FAMILIES, f"family {cfg.family!r}"),
         (encdec and (cfg.enc_layers < 1 or cfg.enc_frames < 1),
@@ -129,6 +140,44 @@ def check_supported(cfg: ModelConfig) -> None:
         (encdec and cfg.swa_window is not None,
          f"swa_window={cfg.swa_window} on encdec (the reference's whisper "
          f"cache and decode step ignore it: a full cache, no ring)"),
+        (fam == "ssm" and not cfg.slstm_every,
+         f"family 'ssm' without slstm_every ({cfg.slstm_every!r}: the "
+         f"reference's xlstm then has no group of blocks to stack)"),
+        (fam == "hybrid" and cfg.ssm is None,
+         "family 'hybrid' without an SSMConfig (ssm=None)"),
+        (not recurrent and cfg.ssm is not None,
+         f"an SSMConfig on {fam} (the reference reads cfg.ssm only in its "
+         f"ssm and hybrid models)"),
+        (fam != "hybrid" and cfg.attn_every is not None,
+         f"attn_every={cfg.attn_every} on {fam} (only the reference's "
+         f"zamba2 reads it)"),
+        (fam != "ssm" and cfg.slstm_every is not None,
+         f"slstm_every={cfg.slstm_every} on {fam} (only the reference's "
+         f"xlstm reads it)"),
+        (recurrent and moe,
+         f"an MoEConfig on {fam} (the reference's {_MODEL.get(fam)} blocks "
+         f"have no MoE)"),
+        (recurrent and cfg.tuning.mode == "lora_optq",
+         f"lora_optq on {fam}: the reference's GPTQ reads params['layers'] "
+         f"(core/gptq.py), which the {_MODEL.get(fam)} tree does not have, "
+         f"so it has no OPTQ backbone"),
+        (fam == "ssm" and cfg.kv_cache_dtype != "model",
+         f"kv_cache_dtype={cfg.kv_cache_dtype!r} on ssm (the reference's "
+         f"xlstm has no KV cache)"),
+        (fam == "hybrid" and cfg.kv_cache_dtype != "model",
+         f"kv_cache_dtype={cfg.kv_cache_dtype!r} on hybrid (the reference's "
+         f"zamba2 cache ignores it and keeps the activation dtype)"),
+        (fam == "ssm" and cfg.swa_window is not None,
+         f"swa_window={cfg.swa_window} on ssm (the reference's xlstm has "
+         f"no attention and no KV cache)"),
+        (fam == "ssm" and cfg.attn_impl != "dense",
+         f"attn_impl={cfg.attn_impl!r} on ssm (the reference's xlstm has no "
+         f"attention)"),
+        (fam == "ssm" and cfg.qkv_bias,
+         "qkv_bias on ssm (the reference's xlstm has no q/k/v biases)"),
+        (fam == "hybrid" and cfg.norm_type == "layernorm",
+         "norm_type='layernorm' on hybrid (the reference's Mamba2 gnorm "
+         "has a gain and no bias, so its LayerNorm reads a missing leaf)"),
         (moe and cfg.moe.expert_sharding not in EXPERT_SHARDINGS,
          f"expert_sharding={cfg.moe.expert_sharding!r}" if moe else ""),
         (moe and cfg.quant.layout == "plane",
@@ -165,10 +214,13 @@ def check_supported(cfg: ModelConfig) -> None:
             f"layout (use layout='nibble')")
 
 
+_MODEL = {"ssm": "xlstm", "hybrid": "zamba2"}
+
+
 def module_class(cfg: ModelConfig):
     """The ``nn.Module`` class of ``cfg``'s family (storage only)."""
-    return whisper.Whisper if cfg.family == "encdec" \
-        else transformer.Transformer
+    return {"encdec": whisper.Whisper, "ssm": xlstm.XLSTM,
+            "hybrid": zamba2.Zamba2}.get(cfg.family, transformer.Transformer)
 
 
 def build(cfg: ModelConfig, device=None) -> ModelAPI:
@@ -183,6 +235,8 @@ def build(cfg: ModelConfig, device=None) -> ModelAPI:
     dev = _device.resolve(device)
     if cfg.family == "encdec":
         return _build_encdec(cfg, dev)
+    if cfg.family in RECURRENT:
+        return _build_recurrent(cfg, dev)
     vlm = cfg.family == "vlm"
     moe = cfg.moe is not None
 
@@ -256,5 +310,34 @@ def _build_encdec(cfg: ModelConfig, dev: torch.device) -> ModelAPI:
                         prefix_key="frames", prefix_required=True,
                         prefix_positions=False,
                         slotted_reason=ENCDEC_SLOTTED_REASON,
+                        verify_reason=NO_VERIFY_REASON),
+    )
+
+
+def _build_recurrent(cfg: ModelConfig, dev: torch.device) -> ModelAPI:
+    """xlstm's (ssm) or zamba2's (hybrid) API (reference ``build``'s ssm and
+    hybrid branches): the prefill reads ``batch["tokens"]`` alone.  Their
+    state integrates every input, so no prompt is bucketed; an ssm's
+    decode ignores the position, a hybrid's pages its shared block's K/V
+    by it.  No slotted step and no verify, with the reference's
+    reasons."""
+    mod = xlstm if cfg.family == "ssm" else zamba2
+
+    def init(seed: int = 0, transform=None):
+        return mod.init(cfg, torch.Generator(device=dev).manual_seed(seed),
+                        dev, transform=transform)
+
+    return ModelAPI(
+        cfg=cfg,
+        device=dev,
+        init=init,
+        forward=lambda m, tokens: mod.forward(m, tokens, cfg),
+        loss_fn=lambda m, batch: mod.loss_fn(m, batch, cfg),
+        prefill=lambda m, batch: mod.prefill(m, batch["tokens"], cfg),
+        decode_step=lambda m, c, t, pos: mod.decode_step(m, c, t, pos, cfg),
+        init_cache=lambda b, s, device=dev: mod.init_cache(cfg, b, s,
+                                                           device),
+        caps=FamilyCaps(positional=cfg.family == "hybrid", bucketable=False,
+                        slotted_reason=RECURRENT_SLOTTED_REASON,
                         verify_reason=NO_VERIFY_REASON),
     )

@@ -152,6 +152,14 @@ class Engine:
             self._dims = cache_dims(self.api.init_cache, 2, sl)
         return self._dims
 
+    def _has_seq_leaf(self) -> bool:
+        """Does ANY cache leaf carry a position (seq) dim?  False for a
+        purely recurrent family (xlstm: ``init_cache`` ignores
+        ``seq_len``), where a pool's capacity and a cache's growth mean
+        nothing and must not refuse a request (the reference's
+        ``Engine._has_seq_leaf``)."""
+        return any(sd >= 0 for sd in self._cache_dims()[1].values())
+
     def _prefix_rows(self, prefix) -> int:
         """Decoder cache rows a request prefix occupies (0 when the family
         keeps its prefix out of the decoder's positions)."""
@@ -223,7 +231,8 @@ class Engine:
             raise ValueError(
                 f"cache_len={cache_len} must be positive (omit it for the "
                 f"default prompt+n_new={total})")
-        elif cache_len < total - 1 and self.api.cfg.swa_window is None:
+        elif (cache_len < total - 1 and self.api.cfg.swa_window is None
+              and self._has_seq_leaf()):
             raise ValueError(
                 f"cache_len={cache_len} < prompt+n_new-1={total - 1}: a "
                 f"dense cache cannot hold the generation")
@@ -337,8 +346,9 @@ class Engine:
         self._check_prefix(prefix)
         p_rows = self._prefix_rows(prefix)  # decoder positions the prefix eats
         s_eff = s + p_rows
+        has_seq = self._has_seq_leaf()
         swa = self.api.cfg.swa_window is not None
-        if not swa and s_eff + n_new - 1 > pool.cache_len:
+        if has_seq and not swa and s_eff + n_new - 1 > pool.cache_len:
             raise ValueError(
                 f"request needs {s_eff + n_new - 1} cache slots, pool has "
                 f"{pool.cache_len}")
@@ -350,7 +360,7 @@ class Engine:
                 f"serves {self.current_task!r}; switch_task first (the "
                 f"scheduler drains the pool before switching)")
         caps = self.api.caps
-        bucket = bucket and caps.bucketable and not swa
+        bucket = bucket and caps.bucketable and has_seq and not swa
         s_pad = self._bucket_len(s, pool.cache_len - p_rows) if bucket \
             else s
         if s_pad != s:
@@ -360,7 +370,6 @@ class Engine:
             batch[caps.prefix_key] = self._prefix_tensor(prefix)[None]
         if s_pad != s:
             batch["last_pos"] = p_rows + s - 1
-        pool._prefill_keys.add((s_pad, p_rows, s_pad != s))
         if task_row is not None:
             self._check_task_rows([task_row])
             tid = torch.full((1,), task_row, dtype=torch.int32,
@@ -369,6 +378,10 @@ class Engine:
                 self.model, self.resident.stack, batch, tid)
         else:
             logits, pcache = self.api.prefill(self.model, batch)
+        # the pool is touched only once the prefill has succeeded (a
+        # recurrent family's prompt whose length its chunked scan refuses
+        # raises above)
+        pool._prefill_keys.add((s_pad, p_rows, s_pad != s))
         self._check_admit_shapes(pool, pcache)
         t0 = int(sampling.shard_argmax(None, 1)(logits)[0])
         self._admit_write(pool, pcache, slot)

@@ -10,6 +10,7 @@ import pytest
 from repro import configs as jconfigs
 from repro.configs.base import OptimConfig as JOptim
 from repro.configs.base import QuantConfig as JQuant
+from repro.configs.base import SSMConfig as JSSM
 from repro.configs.base import TrainConfig as JTrain
 from repro.configs.base import TuningConfig as JTuning
 from repro.core import policies as jpolicies
@@ -18,6 +19,7 @@ from repro.models import registry as jregistry
 import repro_torch.configs as tconfigs
 from repro_torch.configs.base import OptimConfig as TOptim
 from repro_torch.configs.base import QuantConfig as TQuant
+from repro_torch.configs.base import SSMConfig as TSSM
 from repro_torch.configs.base import TrainConfig as TTrain
 from repro_torch.configs.base import TuningConfig as TTuning
 
@@ -86,18 +88,34 @@ def test_quant_spec_matches_reference():
 
 def test_unknown_arch_raises():
     with pytest.raises(KeyError, match="llama3.2-1b"):
-        tconfigs.get_config("xlstm-125m")
+        tconfigs.get_config("gpt-neo-2.7b")
 
 
-@pytest.mark.parametrize("kind", ["optim", "train"])
+@pytest.mark.parametrize("kind", ["optim", "train", "ssm"])
 def test_training_configs_equal_reference(kind):
-    """OptimConfig and TrainConfig are whole copies: every field, every
-    default."""
-    ref, port = (JOptim(), TOptim()) if kind == "optim" else (JTrain(),
-                                                               TTrain())
+    """OptimConfig, TrainConfig and SSMConfig are whole copies: every
+    field, every default."""
+    ref, port = {"optim": (JOptim(), TOptim()), "train": (JTrain(), TTrain()),
+                 "ssm": (JSSM(), TSSM())}[kind]
     assert [f.name for f in dataclasses.fields(port)] == \
         [f.name for f in dataclasses.fields(ref)]
     assert _shared_fields(ref, port)[0] == _shared_fields(ref, port)[1]
     tuning = _shared_fields(JTuning(mode="peqa_z", train_zero_points=True),
                             TTuning(mode="peqa_z", train_zero_points=True))
     assert tuning[0] == tuning[1]
+
+
+@pytest.mark.parametrize("make", ["full", "tiny"])
+@pytest.mark.parametrize("arch", ["xlstm-125m", "zamba2-7b"])
+def test_recurrent_configs_match_reference(arch, make):
+    """xlstm-125m and zamba2-7b field by field (their SSMConfig, and
+    ``attn_every`` / ``slstm_every``, included), at full size and through
+    ``make_tiny``'s hybrid and ssm branches."""
+    ref, port = jconfigs.get_config(arch), tconfigs.get_config(arch)
+    if make == "tiny":
+        ref, port = jconfigs.make_tiny(ref), tconfigs.make_tiny(port)
+    r, p = _shared_fields(ref, port)
+    assert p == r
+    assert (port.ssm, port.attn_every, port.slstm_every) == (
+        TSSM(**dataclasses.asdict(ref.ssm)), ref.attn_every, ref.slstm_every)
+    assert port.sub_quadratic == ref.sub_quadratic

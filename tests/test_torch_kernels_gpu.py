@@ -1440,3 +1440,128 @@ def test_whisper_tiny_generate_launches_on_the_card(cuda):
         with ops.force_impl("torch"):
             lp, _ = api.prefill(model, batch)
     assert (lk - lp).abs().max() <= 2 ** -5 * lp.abs().max()
+
+
+# --------------------------- the recurrent families: xlstm-125m, zamba2-7b
+
+# (N, K) of the linears whose widths no earlier path had: xlstm-125m's
+# scalar gates gi / gf (4, 768), zamba2-7b's B / C projections (64, 3584)
+# and dt projection (112, 3584)
+RECURRENT_NARROW = ((4, 768), (64, 3584), (112, 3584))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,k", RECURRENT_NARROW)
+def test_xlstm_zamba2_narrow_gemv_and_gemm(cuda, n, k):
+    """K1 (M = 1–32) and K2 (M = 1024) at output widths of 4, 64 and 112
+    channels, bf16, per-channel, on the tensor-core route: within the
+    factored bound of their emulations (``quant_gemv_factored_plain``,
+    ``quant_matmul_factored_plain``) and of plain — not bitwise, as the
+    module docstring says (K2 at N = 64 and 112 differs from its
+    emulation in the last bit) —; K1's rows bit-equal across M and its K
+    split the mirror's."""
+    g = torch.Generator(device="cuda").manual_seed(n + k)
+    w = torch.randn(n, k, generator=g, device=cuda) * k ** -0.5
+    q, s, z = rtn_quantize(w, QuantSpec(bits=4), n_grid=4)
+    qw = pack_codes(q)
+    assert qm.gemv_tc_split(n, k) == qm.gemv_block_split(n, k)
+    x = torch.randn(32, k, generator=g, device=cuda).to(torch.bfloat16)
+    full = qm.quant_gemv(x, qw, s, z)
+    for m in (1, 4, 8, 16):
+        assert torch.equal(qm.quant_gemv(x[:m].contiguous(), qw, s, z),
+                           full[:m]), f"M = {m}"
+    xm = torch.randn(1024, k, generator=g, device=cuda).to(torch.bfloat16)
+    for fn, emu, xx, gemv in (
+            (qm.quant_gemv, qm.quant_gemv_factored_plain, x[:4].contiguous(),
+             True),
+            (qm.quant_matmul, qm.quant_matmul_factored_plain, xm, False)):
+        args = [xx, qw, s, z]
+        assert qm.tc_route(xx, s)
+        got = fn(*args)
+        assert got.shape == (xx.shape[0], n)
+        for want in (emu(*args), qm.quant_matmul_plain(*args)):
+            _assert_within_bound(got, want, args, factored=True, gemv=gemv)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["prefill", "decode", "slot_decode",
+                                  "ring"])
+def test_flash_attention_zamba2_head_dim_112(cuda, case):
+    """K4 at zamba2-7b's shared attention, 32 / 32 heads of 112 (the bf16
+    kernel's D = 128 instantiation with dims 112–127 staged as zeros):
+    the prefill (B 4 × 256, causal), the lockstep decode (B 4 over 288
+    keys at one position), the slot pool's decode (B 8 over 512, offsets
+    spread over 20–300) and a ring's decode (offsets past the last key),
+    within ``error_bound`` of plain; only 112 columns are written."""
+    b, sq, sk = {"prefill": (4, 256, 256), "decode": (4, 1, 288),
+                 "slot_decode": (8, 1, 512), "ring": (4, 1, 64)}[case]
+    q, k, v = _attention_inputs(b, sq, sk, 32, 32, 112, torch.bfloat16,
+                                cuda, seed=sq + sk)
+    offset = {"prefill": None, "decode": 266,
+              "slot_decode": torch.linspace(20, 300, b).round().to(
+                  torch.int64).to(cuda),
+              "ring": torch.tensor([sk, sk + 7, 3 * sk, sk + 100],
+                                   device=cuda)}[case]
+    got = fa.flash_attention(q, k, v, offset=offset)
+    plain = fa.flash_attention_plain(q, k, v, offset=offset)
+    assert got.shape == (b, sq, 32, 112) and torch.isfinite(got).all()
+    err = (got.float() - plain.float()).abs()
+    assert (err <= fa.error_bound(q, k, v, plain)).all(), \
+        f"max err {err.max().item():.3e}"
+
+
+def _tiny_recurrent(arch):
+    from repro_torch import configs
+    from repro_torch.configs.base import QuantConfig, TuningConfig
+    from repro_torch.models import registry
+    cfg = configs.make_tiny(configs.get_config(arch)).replace(
+        dtype="bfloat16", d_model=256, tuning=TuningConfig(mode="peqa"),
+        quant=QuantConfig(n_grid=20))
+    return cfg, registry.build(cfg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["xlstm-125m", "zamba2-7b"])
+def test_xlstm_zamba2_tiny_build_and_generate_on_the_card(cuda, arch):
+    """A small model (d_model 256, bf16) built by ``policies.build`` and by
+    ``api.init`` then ``policies.prepare`` on the card: every tensor
+    bit-equal.  Then ``generate`` of 4 × 16 tokens and 3 new: one K2 a
+    quantized linear for the prefill (the shared block's once an
+    application), one K1 a linear a step, K4 once an application a step on
+    zamba2 and never on xlstm; the prefill's logits within 2⁻⁵ of their
+    largest magnitude of the plain route's."""
+    from repro_torch.core import policies
+    from repro_torch.models import linear
+    from repro_torch.train.serve import Engine
+    cfg, api = _tiny_recurrent(arch)
+    streamed, _ = policies.build(api, 0)
+    whole, _ = policies.prepare(api.init(0), cfg)
+    ts = dict(list(streamed.named_parameters())
+              + list(streamed.named_buffers()))
+    tw = dict(list(whole.named_parameters()) + list(whole.named_buffers()))
+    assert ts.keys() == tw.keys()
+    for name in tw:
+        assert torch.equal(ts[name], tw[name]), name
+    del whole
+    shared = [n for n, m in streamed.named_modules()
+              if isinstance(m, linear.Linear) and m.quantized
+              and n.startswith("shared.")]
+    n_lin = sum(isinstance(m, linear.Linear) and m.quantized
+                for m in streamed.modules())
+    apps = len(getattr(streamed, "mamba_groups", ()))
+    calls = n_lin + len(shared) * (apps - 1)
+    gen = torch.Generator().manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (4, 16), generator=gen)
+    for kern in ops.KERNELS:
+        kern.launches = 0
+    Engine(api, streamed).generate(prompt, 3)
+    launches = {k.__name__: k.launches for k in ops.KERNELS if k.launches}
+    want = {"quant_matmul": calls, "quant_gemv": 2 * calls}
+    if apps:
+        want["flash_attention"] = 2 * apps
+    assert launches == want
+    with torch.inference_mode():
+        lk, _ = api.prefill(streamed, {"tokens": prompt.to(cuda)})
+        with ops.force_impl("torch"):
+            lp, _ = api.prefill(streamed, {"tokens": prompt.to(cuda)})
+    assert (lk - lp).abs().max() <= 2 ** -5 * lp.abs().max()
