@@ -384,6 +384,45 @@ line:
                (1,604 K2 a step).  Phase kernels carries K1 and K2 at both
                models' linears (N = 4, 64 and 112 among them) and K4 at
                zamba2's heads.
+ 20. harness — (after speculative, on phase main's llama3.2-1b and its
+               bit-planes) the serving harness and ``launch.serve``'s own
+               functions: two tasks tuned by ``launch.serve.tune_tasks``
+               (8 PEQA steps of 8 × 64 each, lr 3e-3; exactly 2 × 112 K2
+               a step; the backbone's scales restored after each task)
+               into a bank on disk, reopened tiered with a host LRU of
+               one task; ``run_continuous`` with the CLI's arguments under
+               resident (24 Poisson requests at rate 2.0, prompts 4–8,
+               budgets 8 / 16 / 32; tiered-bank admits counted) and drain
+               (the canned two-burst trace), each gated as the CLI gates
+               it; the Poisson stream speculatively on the planes (spec_k
+               2, the 3-plane draft) and replayed greedily: the same
+               tokens, 2 draft steps a round (acceptance recorded: random
+               weights give the draft nothing to agree with); then
+               ``driver.run`` of 32 Poisson requests (prompts 64 / 128 /
+               256, budgets 16 / 32) in 8 slots under resident into a
+               ``MetricSink``, written, reloaded, and run again from the
+               same seed: equal stable rows and equal tokens.  Every run's
+               launches exact (K5 or K1 per decode step and short
+               prefill, K2 per long prefill, K4 per decode step, the plane
+               K5 per draft step and verify); the ``kernels`` line's
+               ``harness_launches`` is their sum.
+ 21. launch  — (after arms) the CLIs as subprocesses, each gated on exit
+               code 0 and its own success line: ``launch.train`` at
+               llama3.2-1b's full width and depth, 10 PEQA steps of 8 ×
+               256 checkpointed (its step wall from its log lines'
+               arrival), then 14 steps on the same directory (resumed
+               from step 10, a finite loss); ``launch.serve --continuous
+               --traffic poisson`` and its speculative form on bit-planes
+               (fewer target steps than its greedy replay), both on the
+               reduced config the CLI's ``--tiny`` forces; ``--family-smoke``
+               for llama3.2-1b (tokens equal to lockstep ``generate``).
+ 22. examples — ``train.instruction_tune.run`` at its defaults
+               (llama3.2-20m, 300 + 300 steps, 3 bits): the PEQA-tuned
+               instruction perplexity below the RTN 3-bit one, the codes
+               bit-identical, the exported npz reloading equal to the
+               model's scales; again on the same checkpoint directory,
+               resumed from step 300; ``train.serve_multitask.run``: the
+               two tasks' continuations differ.
 
 Every phase's seconds are printed on a line of their own as it ends.
 
@@ -553,6 +592,28 @@ ZAMBA2_HEADS = (32, 32, 112)
 # TRAIN_STEPS)
 ARMS_CALIB = (4, 256)
 LORA_FP_STEPS = 3
+# harness phase: launch.serve's tuning of its two tasks (8 × 64 tokens a
+# step), then driver.run over HARNESS_REQUESTS Poisson requests (rate 2.0)
+# of HARNESS_PROMPTS prompt lengths and HARNESS_NEW budgets in SERVE_SLOTS
+# slots under resident, twice
+HARNESS_TUNE_STEPS = 8
+HARNESS_REQUESTS = 32
+HARNESS_PROMPTS, HARNESS_NEW = (64, 128, 256), (16, 32)
+# phase kernels at the reduced float32 configs of phases launch and
+# examples (launch.serve's tiny llama3.2-1b, d 64 and 4 heads of 16, its
+# nibbles and its bit-planes; serve_multitask's paper_lm, d 128 and 4 heads
+# of 32; instruction_tune's llama3.2-20m, d 384, 6 / 2 heads of 64, 3
+# bits): every quantized linear's GEMV at up to 32 rows, its GEMM at a
+# prefill's TINY_GEMM_M rows and the 8 × 64 and 8 × 128 training rows, and
+# K4 in each case of TINY_ATTN_CASES at each config's heads (offset "rows":
+# a (B,) tensor spread over [0, Sk − Sq])
+TINY_GEMM_M = (40, 512, 1024)
+TINY_ATTN_CASES = (("prefill", 2, 64, 64, None, True, None),
+                   ("lockstep_decode", 2, 1, 24, 12, True, None),
+                   ("slot_prefill", 8, 16, 64, "rows", True, None),
+                   ("slot_decode", 8, 1, 64, "rows", True, None),
+                   ("slot_verify", 8, 3, 64, "rows", True, None),
+                   ("long_slot_decode", 8, 1, 512, "rows", True, None))
 
 
 def emit(obj) -> None:
@@ -923,6 +984,8 @@ def phase_kernels(torch) -> dict:
         err, attn_7b[model] = kernel_attention(
             torch, gen, heads, ATTN_7B_CASES, model=model, sweep=False)
         worst["flash_attention"] = max(worst["flash_attention"], err)
+    # the reduced float32 configs of phases launch and examples
+    kernel_tiny(torch, gen, worst)
     return worst, attn_prefill, attn_7b, experts
 
 
@@ -1297,6 +1360,139 @@ def kernel_planes(torch, qm, n, k, group, qw, s, z, w16, gen) -> dict:
             emit(row)
             del argsets
     return worst
+
+
+def tiny_models(torch) -> list:
+    """[(label, cfg, model)]: the reduced float32 configs phases launch and
+    examples run, each from its entry point's own config function, built
+    from the seed on the card — ``launch.serve``'s (as its ``--tiny``
+    forces) in nibbles and in bit-planes (its speculative run), then
+    ``serve_multitask``'s and ``instruction_tune``'s."""
+    from repro_torch.core import policies
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import registry
+    from repro_torch.train import instruction_tune, serve_multitask
+    cfgs = [(f"launch.serve {layout}", launch_serve.model_config(
+        launch_serve.parse_args(["--device", "cuda", "--layout", layout])))
+        for layout in ("nibble", "plane")]
+    cfgs += [("serve_multitask", serve_multitask.model_config()),
+             ("instruction_tune", instruction_tune.peqa_config(3))]
+    return [(label, cfg, policies.build(registry.build(cfg), SEED)[0])
+            for label, cfg in cfgs]
+
+
+def check_linear_f32(torch, qm, what, qw, s, z, spec, gen) -> dict:
+    """One quantized linear's kernels on their SIMT routes (f32 x), each
+    within ``error_bound`` of its plain version on the same inputs:
+    nibbles — K1 at 32 rows (its rows at M = 1 .. 16 bit-equal to them),
+    K2 at every M of TINY_GEMM_M, K5 at 8 slots over N_TASKS tasks;
+    bit-planes — K6a's three forms (the GEMV at 32 rows, the task GEMV at
+    8, the GEMM at TINY_GEMM_M) reading all planes and the draft's one
+    fewer.  Returns the worst error per kernel."""
+    k = qw.shape[-1] * (32 if spec.plane else 8)
+    x_of = {m: torch.randn(m, k, generator=gen, device="cuda")
+            for m in (GEMV_MAX, TASKS_M, *TINY_GEMM_M)}
+    x32, x8 = x_of[GEMV_MAX], x_of[TASKS_M]
+    ss, zs = task_stacks(torch, s, z, N_TASKS, gen)
+    ids = torch.tensor(TASK_IDS, dtype=torch.int32, device="cuda")
+    if qm.tc_route(x32, s):
+        fail(f"{what}: f32 x on the tensor-core route")
+    worst = {}
+
+    def held(name, got, plain, task_ids=None, planes=None):
+        m = got.shape[0]
+        sz = (s, z) if task_ids is None else (ss, zs)
+        err = check_close(f"{what}: {name} M={m} f32", got, plain,
+                          qm.error_bound(x_of[m], qw, *sz, plain,
+                                         task_ids=task_ids, planes=planes))
+        worst[name] = max(worst.get(name, 0.0), err)
+
+    if not spec.plane:
+        held("quant_gemv", qm.quant_gemv(x32, qw, s, z),
+             qm.quant_matmul_plain(x32, qw, s, z))
+        gemv_rows_invariant(torch, f"{what}: quant_gemv f32",
+                            lambda a: qm.quant_gemv(a, qw, s, z), x32)
+        for m in TINY_GEMM_M:
+            held("quant_matmul", qm.quant_matmul(x_of[m], qw, s, z),
+                 qm.quant_matmul_plain(x_of[m], qw, s, z))
+        held("quant_gemv_tasks", qm.quant_gemv_tasks(x8, qw, ss, zs, ids),
+             qm.quant_matmul_tasks_plain(x8, qw, ss, zs, ids), task_ids=ids)
+        return worst
+    for p in (spec.bits, spec.bits - 1):
+        pl = (p, spec.bits - p)
+        held("quant_gemv_planes", qm.quant_gemv_planes(x32, qw, s, z, *pl),
+             qm.quant_matmul_planes_plain(x32, qw, s, z, *pl), planes=pl)
+        for m in TINY_GEMM_M:
+            held("quant_matmul_planes",
+                 qm.quant_matmul_planes(x_of[m], qw, s, z, *pl),
+                 qm.quant_matmul_planes_plain(x_of[m], qw, s, z, *pl),
+                 planes=pl)
+        held("quant_gemv_tasks_planes",
+             qm.quant_gemv_tasks_planes(x8, qw, ss, zs, ids, *pl),
+             qm.quant_matmul_tasks_planes_plain(x8, qw, ss, zs, ids, *pl),
+             task_ids=ids, planes=pl)
+    return worst
+
+
+def check_attention_f32(torch, gen, what, heads) -> float:
+    """K4 in float32 at ``heads`` (Hq, Hkv, D) in every case of
+    TINY_ATTN_CASES, within ``flash_attention.error_bound`` of the plain
+    version on the same inputs.  Returns the worst error."""
+    from repro_torch.kernels import flash_attention as fa
+    hq, hkv, dh = heads
+    worst = 0.0
+    for name, b, sq, sk, off, causal, window in TINY_ATTN_CASES:
+        q = torch.randn(b, sq, hq, dh, generator=gen, device="cuda")
+        k, v = (torch.randn(b, sk, hkv, dh, generator=gen, device="cuda")
+                for _ in range(2))
+        offset = torch.linspace(0, sk - sq, b, device="cuda").round().long() \
+            if off == "rows" else off
+        kw = dict(causal=causal, window=window, offset=offset)
+        plain = fa.flash_attention_plain(q, k, v, **kw)
+        worst = max(worst, check_close(
+            f"{what}: flash_attention {name} f32 D={dh}",
+            fa.flash_attention(q, k, v, **kw), plain,
+            fa.error_bound(q, k, v, plain)))
+    return worst
+
+
+def kernel_tiny(torch, gen, worst) -> dict:
+    """The kernels at the call shapes of phases launch and examples (the
+    reduced float32 configs of ``tiny_models``): each distinct quantized
+    linear (N, K, groups, bits) of each config by ``check_linear_f32`` on
+    the model's own codes and scales, and K4 by ``check_attention_f32`` at
+    each config's heads.  Updates ``worst``; prints one line a config and
+    returns them."""
+    from repro_torch.kernels import quant_matmul as qm
+    from repro_torch.models.linear import Linear
+    rows = {}
+    for label, cfg, model in tiny_models(torch):
+        errs, shapes = {}, set()
+        for m in model.modules():
+            if not (isinstance(m, Linear) and m.quantized):
+                continue
+            key = (m.out_features, m.in_features, m.scale.shape[-1])
+            if key in shapes:
+                continue
+            shapes.add(key)
+            s, z = m.scale.detach().float(), m.zero.detach().float()
+            for name, err in check_linear_f32(
+                    torch, qm, f"{label} {key}", m.qw, s.contiguous(),
+                    z.contiguous(), m.spec, gen).items():
+                errs[name] = max(errs.get(name, 0.0), err)
+        heads = (cfg.n_heads, cfg.n_kv_heads, cfg.d_head)
+        errs["flash_attention"] = check_attention_f32(torch, gen, label,
+                                                      heads)
+        for name, err in errs.items():
+            worst[name] = max(worst[name], err)
+        rows[label] = {"phase": "kernels", "tiny": label, "dtype": "float32",
+                       "bits": cfg.quant.bits, "layout": cfg.quant.layout,
+                       "linears_nkg": sorted(shapes), "heads": heads,
+                       "max_abs_err": errs}
+        emit(rows[label])
+        del model
+    torch.cuda.empty_cache()
+    return rows
 
 
 def phase_main(torch) -> dict:
@@ -2015,34 +2211,59 @@ def plane_backbone(torch, main_path) -> dict:
             "repack_s": time.perf_counter() - t0}
 
 
-def serve_run(torch, res, check, vocab, label, engine, method, requests,
-              config, want):
-    """Serve ``requests`` through ``engine`` with every launch counter at 0,
-    timing each ``method`` call (a step or a speculative round), and fail
-    unless each kernel launched exactly as ``want(calls)`` says (others:
-    0 times) and every request got its full budget.  Records the run under
-    ``res[label]``; returns (report, calls, peak bytes)."""
-    from repro_torch.kernels import ops
-    calls = {"n": 0, "s": 0.0}
-    inner = getattr(engine, method)
+def counted_calls(engine, *methods) -> dict:
+    """Count each call of the engine's ``methods`` (``step``,
+    ``spec_step``) under its name in the returned dict, and its seconds
+    under ``<name>_s`` (each call ends in a host sync)."""
+    calls = {}
+    for m in methods:
+        calls[m], calls[f"{m}_s"] = 0, 0.0
+        inner = getattr(engine, m)
 
-    def counted(pool, *a):
-        t0 = time.perf_counter()
-        out = inner(pool, *a)                 # ends in a host sync
-        calls["s"] += time.perf_counter() - t0
-        calls["n"] += 1
-        return out
-    setattr(engine, method, counted)
+        def counted(pool, *a, _inner=inner, _m=m):
+            t0 = time.perf_counter()
+            out = _inner(pool, *a)
+            calls[f"{_m}_s"] += time.perf_counter() - t0
+            calls[_m] += 1
+            return out
+        setattr(engine, m, counted)
+    return calls
+
+
+def launch_gate(torch, label, fn, want=None) -> tuple:
+    """Run ``fn()`` with every launch counter at 0 and the peak memory
+    reset; with ``want``, fail unless the launches equal ``want(result)``
+    (others 0).  Returns (result, launches, wall s, peak bytes)."""
+    from repro_torch.kernels import ops
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for k in ops.KERNELS:
         k.launches = 0
     t0 = time.perf_counter()
-    rep = engine.serve(requests, config)
+    out = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    peak = max(check["peak"], torch.cuda.max_memory_allocated())
     launches = {k.__name__: k.launches for k in ops.KERNELS}
+    if want is not None:
+        expect = {k.__name__: 0 for k in ops.KERNELS}
+        expect.update(want(out))
+        if launches != expect:
+            fail(f"{label}: kernel launches {launches}, expected {expect}")
+    return out, launches, wall, torch.cuda.max_memory_allocated()
+
+
+def serve_run(torch, res, check, vocab, label, engine, method, requests,
+              config, want):
+    """Serve ``requests`` through ``engine`` under ``launch_gate``, timing
+    each ``method`` call (a step or a speculative round), and fail unless
+    each kernel launched exactly as ``want(calls)`` says (others: 0 times)
+    and every request got its full budget.  Records the run under
+    ``res[label]``; returns (report, calls, peak bytes)."""
+    calls = counted_calls(engine, method)
+    rep, launches, wall, peak = launch_gate(
+        torch, label, lambda: engine.serve(requests, config),
+        lambda _: want(calls[method]))
+    peak = max(check["peak"], peak)
     for i, (r, toks) in enumerate(zip(requests, rep.tokens)):
         if toks is None or len(toks) != r.n_new:
             fail(f"{label}: request {i} served {toks and len(toks)} of "
@@ -2050,22 +2271,19 @@ def serve_run(torch, res, check, vocab, label, engine, method, requests,
         if min(toks) < 0 or max(toks) >= vocab:
             fail(f"{label}: request {i} has token ids outside the "
                  f"vocabulary")
-    expect = {k.__name__: 0 for k in ops.KERNELS}
-    expect.update(want(calls["n"]))
-    if launches != expect:
-        fail(f"{label}: kernel launches {launches}, expected {expect}")
     res[label] = {
         "scheduler": rep.scheduler, "steps": rep.steps,
-        f"{method}_calls": calls["n"], "draft_steps": rep.draft_steps,
+        f"{method}_calls": calls[method], "draft_steps": rep.draft_steps,
         "draft_proposed": rep.draft_proposed,
         "draft_accepted": rep.draft_accepted,
         "acceptance_rate": rep.acceptance_rate,
         "task_drain_idle_slot_steps": rep.task_drain_idle_slot_steps,
         "decoded": rep.decoded, "wall_s": wall,
         "tokens_per_s": rep.decoded / wall,
-        f"ms_per_{method}": calls["s"] * 1e3 / max(calls["n"], 1),
+        f"ms_per_{method}": calls[f"{method}_s"] * 1e3 / max(calls[method],
+                                                            1),
         "peak_mem_gb": peak / 1e9, "launches": launches}
-    return rep, calls["n"], peak
+    return rep, calls[method], peak
 
 
 def checked_speculative_engine(torch, api, model, bank, check):
@@ -5134,6 +5352,398 @@ def phase_arms(torch, prompt, peqa, full) -> dict:
     return res
 
 
+HARNESS_TASKS = ("taskA", "taskB")
+
+
+def quiet(msg: str) -> None:
+    """A log sink for the port's entry points' progress lines."""
+
+
+def slo_row(summary) -> dict:
+    """tok/s on the wall clock and the virtual-clock p50 / p99 of TTFT, TPOT
+    and e2e of a ``driver.summarize`` summary."""
+    slo = summary["slo"]
+    return {"tok_s_wall": summary["tok_s_wall"],
+            **{f"{k[:-2]}_{q}": slo[k][q] for k in ("ttft_s", "tpot_s",
+                                                    "e2e_s")
+               for q in ("p50", "p99")}}
+
+
+def harness_row(out, calls, wall, peak, launches) -> dict:
+    """One harness run's line: counts, tiers, walls, SLOs, launches."""
+    rep, summ = out["report"], out["summary"]
+    return {"requests": len(out["requests"]), "steps": rep.steps,
+            "calls": dict(calls), "decoded": rep.decoded,
+            "switches": rep.switches,
+            "task_drain_idle_slot_steps": rep.task_drain_idle_slot_steps,
+            "tiers": [rep.tier_device_hits, rep.tier_host_hits,
+                      rep.tier_disk_loads],
+            "wall_s": wall, "serve_wall_s": summ["wall_s"],
+            "peak_gb": peak / 1e9, **slo_row(summ), "launches": launches}
+
+
+def phase_harness(torch, main_path, plane) -> dict:
+    """The serving harness (``serve.traffic`` → ``serve.driver`` →
+    ``serve.telemetry``) and ``launch.serve``'s own functions on phase
+    main's llama3.2-1b and phase plane_backbone's planes: two tasks tuned
+    by ``launch.serve.tune_tasks`` into a bank on disk, reopened tiered;
+    ``run_continuous`` with the CLI's arguments under resident (poisson)
+    and drain (the canned trace); the poisson stream speculatively on the
+    planes and replayed greedily (the same tokens); then one
+    ``driver.run`` into a ``MetricSink`` twice from the same seed: equal
+    stable rows.  Every run's launches gated exactly."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from repro_torch.core import policies
+    from repro_torch.core.scale_bank import ScaleBank
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serve import ServeConfig, driver, telemetry, traffic
+    from repro_torch.train.serve import Engine
+
+    api, model, cfg = main_path["api"], main_path["model"], main_path["cfg"]
+    n_lin, layers = cfg.n_layers * 7, cfg.n_layers
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_harness_")
+    root = os.path.join(tmp, "bank")
+    res = {"phase": "harness", "model": cfg.name, "tasks": HARNESS_TASKS}
+    total = {}
+
+    def add(launches):
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+
+    # 1. tuning: the backbone trained in place and restored after each task
+    mask = policies.make_mask(model, cfg)
+    own = {n: p.detach().clone() for n, p in model.named_parameters()
+           if mask[n]}
+    steps = HARNESS_TUNE_STEPS
+    losses, launches, wall, peak = launch_gate(
+        torch, "harness tuning", lambda: launch_serve.tune_tasks(
+            api, model, mask, HARNESS_TASKS, steps, ScaleBank(root=root),
+            log=quiet),
+        # forward and remat recompute, 8 × 64 rows: K2 at M = 512
+        lambda _: {"quant_matmul": len(HARNESS_TASKS) * steps * 2 * n_lin})
+    add(launches)
+    moved = [n for n, p in model.named_parameters()
+             if n in own and not torch.equal(p, own[n])]
+    if moved:
+        fail(f"harness: tuning left {len(moved)} backbone scales changed")
+    if not all(math.isfinite(x) for ls in losses.values() for x in ls):
+        fail(f"harness: non-finite tuning losses {losses}")
+    res["tune"] = {"steps": steps, "wall_s": wall, "peak_gb": peak / 1e9,
+                   "losses": losses, "launches": launches}
+
+    def cli(*flags):
+        return launch_serve.parse_args(["--device", "cuda", "--host-cache",
+                                        "1", *flags])
+
+    # 2. run_continuous with the CLI's arguments, each on a fresh engine
+    #    over the reopened tiered bank (a host LRU of one task)
+    runs = (
+        ("resident_poisson", (
+            "--traffic", "poisson", "--rate", "2.0", "--batch", "8",
+            "--n-new", "16", "--scheduler", "resident", "--prefetch-depth",
+            "2"),
+         lambda c, n: {"quant_gemv_tasks": n_lin * (c + n),
+                       "flash_attention": layers * c}),
+        ("drain_trace", (
+            "--traffic", "trace", "--batch", "8", "--n-new", "16",
+            "--scheduler", "drain"),
+         lambda c, n: {"quant_gemv": n_lin * (c + n),
+                       "flash_attention": layers * c}),
+    )
+    for label, flags, want in runs:
+        args = cli(*flags)
+        engine = Engine(api, model,
+                        bank=launch_serve.open_tiered(root, 1, log=quiet))
+        calls = counted_calls(engine, "step")
+        out, lines = {}, []
+        ok, launches, wall, peak = launch_gate(
+            torch, f"harness {label}",
+            lambda: launch_serve.run_continuous(engine, cfg, args,
+                                                list(HARNESS_TASKS),
+                                                log=lines.append, out=out),
+            lambda _: want(calls["step"], len(out["requests"])))
+        if not ok:
+            fail(f"harness {label}: run_continuous failed its gates:\n"
+                 + "\n".join(line for line in lines
+                              if not line.startswith("[serve] req")))
+        add(launches)
+        res[label] = harness_row(out, calls, wall, peak, launches)
+        if label == "resident_poisson" and sum(res[label]["tiers"]) < 1:
+            fail(f"harness {label}: no tiered-bank admit counted")
+
+    # 3. the same poisson stream speculatively on the plane backbone
+    #    (spec_k 2, the 3-plane draft) through driver.run, and replayed
+    #    greedily: the same tokens, SPEC 2 draft steps a round.  On random
+    #    weights the draft accepts next to nothing, so the step count is
+    #    recorded, not gated (launch.serve's tiny tuned run gates it)
+    args = cli("--traffic", "poisson", "--rate", "2.0", "--batch", "8",
+               "--n-new", "16", "--scheduler", "speculative", "--spec-k",
+               "2")
+    reqs = launch_serve.continuous_requests(cfg, args, HARNESS_TASKS,
+                                            log=quiet)
+    config = launch_serve.serve_config(args)
+    engine = Engine(plane["api"], plane["model"],
+                    bank=launch_serve.open_tiered(root, 1, log=quiet))
+    calls = counted_calls(engine, "step", "spec_step")
+    n = len(reqs)
+    (rep, summ), launches, wall, peak = launch_gate(
+        torch, "harness speculative_poisson",
+        lambda: driver.run(engine, reqs, config),
+        # rounds of k + 1 plane-K5 steps; every prefill (<= 8 rows) K5
+        lambda _: {"quant_gemv_tasks_planes": n_lin * (
+            3 * calls["spec_step"] + n),
+            "flash_attention": layers * 3 * calls["spec_step"]})
+    add(launches)
+    greedy, g_launches, g_wall, _ = launch_gate(
+        torch, "harness speculative_poisson greedy replay",
+        lambda: engine.serve(reqs, dataclasses.replace(config,
+                                                       scheduler="auto")),
+        lambda _: {"quant_gemv_tasks_planes": n_lin * (calls["step"] + n),
+                   "flash_attention": layers * calls["step"]})
+    add(g_launches)
+    if rep.scheduler != "speculative" or rep.n_served != n \
+            or rep.bubble_slot_steps:
+        fail(f"harness speculative: scheduler {rep.scheduler}, served "
+             f"{rep.n_served} of {n}, {rep.bubble_slot_steps} bubbles")
+    if rep.draft_steps != 2 * calls["spec_step"]:
+        fail(f"harness speculative: {rep.draft_steps} draft steps in "
+             f"{calls['spec_step']} rounds of 2")
+    gate_tokens_equal("harness speculative", "greedy replay", greedy, rep)
+    res["speculative_poisson"] = {
+        **harness_row({"requests": reqs, "report": rep, "summary": summ},
+                      {"spec_step": calls["spec_step"]}, wall, peak,
+                      launches),
+        "greedy_steps": greedy.steps, "greedy_wall_s": g_wall,
+        "acceptance_rate": rep.acceptance_rate,
+        "draft_proposed": rep.draft_proposed,
+        "draft_accepted": rep.draft_accepted}
+    # the drain run swapped task scales into the backbone: its own back
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if n in own:
+                p.copy_(own[n])
+
+    # 3. driver.run into a MetricSink, twice from the same seed
+    docs, reps = [], []
+    for i in range(2):
+        reqs, meta = traffic.make(
+            "poisson", vocab=cfg.vocab_size, seed=SEED,
+            tasks=HARNESS_TASKS, rate=2.0, n_requests=HARNESS_REQUESTS,
+            prompt_lens=HARNESS_PROMPTS, n_new=HARNESS_NEW)
+        engine = Engine(api, model,
+                        bank=launch_serve.open_tiered(root, 1, log=quiet))
+        calls = counted_calls(engine, "step")
+        sink = telemetry.MetricSink()
+        (rep, summ), launches, wall, peak = launch_gate(
+            torch, f"harness driver run {i + 1}",
+            lambda: driver.run(engine, reqs, ServeConfig(
+                n_slots=SERVE_SLOTS, scheduler="resident"), sink=sink),
+            # every prompt over 32 rows: K2 a prefill, one task each
+            lambda _: {"quant_matmul": n_lin * len(reqs),
+                       "quant_gemv_tasks": n_lin * calls["step"],
+                       "flash_attention": layers * calls["step"]})
+        add(launches)
+        if rep.n_served != len(reqs) or rep.bubble_slot_steps:
+            fail(f"harness driver run {i + 1}: served {rep.n_served} of "
+                 f"{len(reqs)}, {rep.bubble_slot_steps} bubble slot-steps")
+        path = os.path.join(tmp, f"serving_{i}.json")
+        sink.write(path, **meta)
+        docs.append(telemetry.load(path))
+        reps.append(rep)
+        res[f"driver_run_{i + 1}"] = {
+            "requests": len(reqs), "steps": rep.steps,
+            "step_calls": calls["step"], "decoded": rep.decoded,
+            "wall_s": wall, "peak_gb": peak / 1e9, **slo_row(summ),
+            "launches": launches}
+    if telemetry.stable_metrics(docs[0]) != telemetry.stable_metrics(docs[1]):
+        fail("harness: two same-seed driver runs wrote different stable "
+             "metrics")
+    gate_tokens_equal("harness driver run 2", "first driver", reps[0],
+                      reps[1])
+    res["stable_rows"] = len(telemetry.stable_metrics(docs[0]))
+    res["launches"] = total
+    shutil.rmtree(tmp)
+    emit(res)
+    return res
+
+
+def run_cli(label: str, argv, timeout: float) -> dict:
+    """Run ``python -m <argv>`` from the checkout with the port on the path;
+    returns its exit code, its output lines, each line's arrival second
+    and its wall.  The child is killed at ``timeout`` and never outlives
+    this call."""
+    import subprocess
+    import threading
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(HERE, "src")]
+        + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    env["PYTHONUNBUFFERED"] = "1"
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", *argv], cwd=HERE,
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    timer = threading.Timer(timeout, proc.kill)
+    timer.start()
+    lines, at = [], []
+    try:
+        for line in proc.stdout:
+            lines.append(line.rstrip("\n"))
+            at.append(time.perf_counter() - t0)
+        rc = proc.wait()
+    finally:
+        timer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return {"label": label, "rc": rc, "lines": lines, "at": at,
+            "wall_s": time.perf_counter() - t0}
+
+
+def cli_gate(out: dict, *patterns) -> list:
+    """Fail unless the CLI exited 0 and printed a line matching each
+    pattern; returns each pattern's first match."""
+    found = []
+    for pat in patterns:
+        m = next((re.search(pat, line) for line in out["lines"]
+                  if re.search(pat, line)), None)
+        found.append(m)
+    if out["rc"] != 0 or not all(found):
+        tail = "\n".join(out["lines"][-25:])
+        fail(f"launch {out['label']}: exit code {out['rc']}, missing "
+             f"{[p for p, m in zip(patterns, found) if not m]}; its last "
+             f"lines:\n{tail}")
+    return found
+
+
+def phase_launch(torch) -> dict:
+    """The two CLIs as subprocesses, each gated on its exit code and its
+    own success line: ``launch.train`` at llama3.2-1b's full width and
+    depth (10 PEQA steps of 8 × 256, checkpointed, alone: its step walls;
+    then 14 steps on the same directory, resumed from step 10), and,
+    beside the resumed run, ``launch.serve --continuous`` (the reduced
+    config, as its ``--tiny`` forces) resident and speculative on
+    bit-planes (fewer target steps than its greedy replay), and
+    ``--family-smoke`` for llama3.2-1b — four processes at once, so their
+    walls overlap."""
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_launch_")
+    ckpt = os.path.join(tmp, "ckpt")
+    train = ["repro_torch.launch.train", "--arch", "llama3.2-1b", "--mode",
+             "peqa", "--batch", "8", "--seq", "256", "--ckpt-dir", ckpt]
+    res = {"phase": "launch"}
+    loss = r"\[launch\] done; final loss=(\S+)"
+
+    first = run_cli("train", [*train, "--steps", "10"], 300)
+    done, s1, s10 = cli_gate(first, loss, r"\[train\] step 1/10 ",
+                             r"\[train\] step 10/10 ")
+    if not math.isfinite(float(done.group(1))):
+        fail(f"launch train: final loss {done.group(1)}")
+    at = {n: first["at"][next(i for i, line in enumerate(first["lines"])
+                              if f"[train] step {n}/10 " in line)]
+          for n in (1, 10)}
+    res["train"] = {"wall_s": first["wall_s"], "loss": float(done.group(1)),
+                    # steps 2–10, on this process's clock as their log
+                    # lines arrived (each line follows the step's loss read)
+                    "step_ms": (at[10] - at[1]) * 1e3 / 9,
+                    "first_step_at_s": at[1]}
+    serve = ["repro_torch.launch.serve", "--continuous", "--traffic",
+             "poisson", "--tune-steps", "5"]
+    jobs = {
+        "train resumed": [*train, "--steps", "14"],
+        "serve continuous": serve,
+        # the speculative gate (fewer target steps than greedy, the same
+        # tokens) where the draft accepts: the CLI's tiny model, tuned
+        "serve speculative": [*serve, "--layout", "plane", "--scheduler",
+                              "speculative"],
+        "serve family-smoke": ["repro_torch.launch.serve", "--family-smoke",
+                               "--arch", "llama3.2-1b"]}
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        outs = dict(zip(jobs, pool.map(lambda kv: run_cli(*kv, 300),
+                                       jobs.items())))
+    again = outs["train resumed"]
+    done, _ = cli_gate(again, loss,
+                       r"\[train\] resumed from checkpoint step 10$")
+    if not math.isfinite(float(done.group(1))):
+        fail(f"launch train resumed: final loss {done.group(1)}")
+    res["train_resumed"] = {"wall_s": again["wall_s"],
+                            "loss": float(done.group(1))}
+    cont = outs["serve continuous"]
+    cli_gate(cont, r"^\[serve\] continuous OK$",
+             r"^\[serve\] continuous\[resident\]:")
+    res["serve_continuous"] = {
+        "wall_s": cont["wall_s"],
+        "summary": next(line for line in cont["lines"]
+                        if line.startswith("[serve] continuous["))}
+    spec = outs["serve speculative"]
+    _, ratio = cli_gate(spec, r"^\[serve\] continuous OK$",
+                        r"^\[serve\] speculative == greedy over .*"
+                        r"target steps (\d+) vs (\d+) .*acceptance=(\S+)")
+    res["serve_speculative"] = {
+        "wall_s": spec["wall_s"], "steps": int(ratio.group(1)),
+        "greedy_steps": int(ratio.group(2)),
+        "acceptance_rate": float(ratio.group(3))}
+    smoke = outs["serve family-smoke"]
+    cli_gate(smoke, r"family-smoke dense \(tiny-llama3\.2-1b\): .* OK$")
+    res["serve_family_smoke"] = {"wall_s": smoke["wall_s"]}
+    shutil.rmtree(tmp)
+    emit(res)
+    return res
+
+
+def phase_examples(torch) -> dict:
+    """The two end-to-end examples in process, at their defaults:
+    ``train.instruction_tune.run`` (llama3.2-20m, 300 + 300 steps, 3 bits)
+    twice on one checkpoint directory, and ``train.serve_multitask.run``."""
+    import shutil
+    import tempfile
+    from repro_torch.train import instruction_tune, serve_multitask
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    kw = dict(ckpt_dir=os.path.join(tmp, "ckpt"),
+              scale_bank=os.path.join(tmp, "bank"), log=quiet)
+    res = {"phase": "examples"}
+
+    def counted(fn):
+        out, launches, wall, _ = launch_gate(torch, "examples", fn)
+        return out, wall, {k: n for k, n in launches.items() if n}
+
+    out, wall, launches = counted(lambda: instruction_tune.run(**kw))
+    keys = ("fp_ppl", "fp_instruction_ppl", "rtn_ppl", "tuned_ppl",
+            "trainable", "state_bytes", "scale_bytes")
+    res["instruction_tune"] = {**{k: out[k] for k in keys},
+                               "wall_s": wall, "launches": launches}
+    if not out["tuned_ppl"] < out["rtn_ppl"]:
+        fail(f"instruction_tune: PEQA-tuned ppl {out['tuned_ppl']} not "
+             f"below the RTN 3-bit {out['rtn_ppl']}")
+    if not (out["codes_frozen"] and out["export_reloads_equal"]):
+        fail(f"instruction_tune: codes frozen {out['codes_frozen']}, "
+             f"export reloads equal {out['export_reloads_equal']}")
+    if out["resumed_from"] is not None:
+        fail(f"instruction_tune: a fresh run resumed from "
+             f"{out['resumed_from']}")
+    again, wall, _ = counted(lambda: instruction_tune.run(**kw))
+    if again["resumed_from"] != 300 or not again["codes_frozen"] \
+            or not again["export_reloads_equal"]:
+        fail(f"instruction_tune rerun: resumed from "
+             f"{again['resumed_from']} (want 300)")
+    res["instruction_tune_rerun"] = {"wall_s": wall,
+                                     "tuned_ppl": again["tuned_ppl"]}
+    out, wall, launches = counted(lambda: serve_multitask.run(log=quiet))
+    if not out["tasks_differ"]:
+        fail("serve_multitask: the tasks gave the same continuation")
+    res["serve_multitask"] = {
+        "wall_s": wall, "switch_ms": [s["switch_s"] * 1e3
+                                      for s in out["switches"]],
+        "scale_bytes": out["scale_bytes"], "launches": launches}
+    shutil.rmtree(tmp)
+    emit(res)
+    return res
+
+
 def main() -> None:
     try:
         import torch
@@ -5171,6 +5781,7 @@ def main() -> None:
                    plane["model"])
     serve = run("serve", phase_serve, torch, main_path)
     spec = run("speculative", phase_speculative, torch, plane, serve)
+    harness = run("harness", phase_harness, torch, main_path, plane)
     del plane
     conv = run("convert", phase_convert, torch, main_path)
     chunked = run("chunked", phase_chunked, torch, conv, serve,
@@ -5197,6 +5808,10 @@ def main() -> None:
     ssm = run("ssm", phase_ssm, torch)
     hybrid = run("hybrid", phase_hybrid, torch)
     arms = run("arms", phase_arms, torch, prompt, peqa, full)
+    del prompt, peqa, full
+    torch.cuda.empty_cache()
+    launch = run("launch", phase_launch, torch)
+    examples = run("examples", phase_examples, torch)
     if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
                                    for m in sys.modules):
         fail("the port loaded JAX or the JAX package")
@@ -5283,7 +5898,8 @@ def main() -> None:
             **({"loop_2d_ms": st["loop_2d_ms"]} if "loop_2d_ms" in st
                else {}),
             **{key: got[name] for key, got in family_launches.items()
-               if name in got}})
+               if name in got},
+            "harness_launches": harness["launches"][name]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "phase_seconds": seconds,
           "k4_7b_prefill_us": {m: r["us"] for m, r in attn_7b.items()},
@@ -5336,7 +5952,16 @@ def main() -> None:
                   "median_step_ms", "peak_mem_gb", "state_bytes",
                   "scales")}} for fam, r in (("ssm", ssm),
                                              ("hybrid", hybrid))},
-          "arms": arms["table"]})
+          "arms": arms["table"],
+          "harness": {k: harness[k] for k in (
+              "tune", "resident_poisson", "drain_trace",
+              "speculative_poisson", "driver_run_1", "driver_run_2")},
+          "launch": {k: launch[k] for k in (
+              "train", "train_resumed", "serve_continuous",
+              "serve_speculative", "serve_family_smoke")},
+          "examples": {k: examples[k] for k in (
+              "instruction_tune", "instruction_tune_rerun",
+              "serve_multitask")}})
     print(dev["gpu"], flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

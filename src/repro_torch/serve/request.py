@@ -1,13 +1,19 @@
-"""The serving request type (port of ``repro/serve/request.py::Request``;
-trace (de)serialization comes with the traffic harness).
+"""The serving request type and its trace records (port of
+``repro/serve/request.py``: ``Request``, ``TraceRecord``, ``to_trace``,
+``from_trace``).
 
-A request arrives on one of two clocks: ``arrival_s`` (virtual seconds) or
-``arrival_step`` (the pool's decode-step counter, for deterministic tests).
+A request arrives on one of two clocks: ``arrival_s`` (virtual seconds, the
+traffic harness's unit) or ``arrival_step`` (the pool's decode-step counter,
+for deterministic tests).  Not ported: the deprecated ``Request(arrival=)``
+alias of ``arrival_step``.
+
+A trace is a list of plain-dict records (JSON-ready), the same in both
+packages: a trace written by one replays in the other, request for request.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 
@@ -45,3 +51,59 @@ class Request:
     @property
     def n_prompt(self) -> int:
         return int(np.asarray(self.tokens).size)
+
+
+TraceRecord = dict
+
+
+def to_trace(requests) -> List[TraceRecord]:
+    """Serialize requests to plain-dict trace records (JSON-ready)."""
+    recs = []
+    for r in requests:
+        rec = {
+            "arrival_s": r.arrival_time(1.0) if r.arrival_s is None
+            else float(r.arrival_s),
+            "tokens": [int(t) for t in np.asarray(r.tokens).reshape(-1)],
+            "n_new": int(r.n_new),
+            "task": r.task,
+            "eos_id": r.eos_id,
+        }
+        if r.prefix is not None:
+            rec["prefix"] = np.asarray(r.prefix, np.float32).tolist()
+        recs.append(rec)
+    return recs
+
+
+def from_trace(records, *, vocab: Optional[int] = None,
+               seed: int = 0) -> List[Request]:
+    """Rebuild requests from trace records.
+
+    A record carries either explicit ``tokens`` or a ``prompt_len`` — the
+    latter gets a seeded synthetic prompt (needs ``vocab``) from numpy's
+    ``default_rng(seed)``, drawn in record order as the reference draws
+    it, so a trace can describe traffic SHAPE without shipping the token
+    streams and still give both packages the same prompts.
+    """
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for i, rec in enumerate(records):
+        if "tokens" in rec:
+            toks = np.asarray(rec["tokens"], np.int32)
+        elif "prompt_len" in rec:
+            if vocab is None:
+                raise ValueError(
+                    f"trace record {i} gives prompt_len but no vocab was "
+                    f"passed to synthesize tokens from")
+            toks = rng.integers(0, vocab, size=int(rec["prompt_len"]),
+                                dtype=np.int32)
+        else:
+            raise ValueError(f"trace record {i} has neither tokens nor "
+                             f"prompt_len: {sorted(rec)}")
+        prefix = rec.get("prefix")
+        reqs.append(Request(
+            tokens=toks, n_new=int(rec["n_new"]),
+            task=rec.get("task"), eos_id=rec.get("eos_id"),
+            prefix=None if prefix is None
+            else np.asarray(prefix, np.float32),
+            arrival_s=float(rec.get("arrival_s", 0.0))))
+    return reqs

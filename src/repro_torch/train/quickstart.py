@@ -33,7 +33,8 @@ from repro_torch.train import loop, step
 from repro_torch.train.state import make_state
 
 
-def _codes(model) -> dict:
+def code_buffers(model) -> dict:
+    """A copy of every quantized linear's code words, by buffer name."""
     return {n: b.clone() for n, b in model.named_buffers()
             if n.endswith(".qw")}
 
@@ -79,7 +80,7 @@ def run(device=None, fp_steps: int = 200, peqa_steps: int = 150,
         f"RTN)")
     log(f"trainable scales: {out['trainable']:,} of {out['total']:,} stored "
         f"values ({100 * out['trainable'] / out['total']:.2f}%)")
-    codes_before = _codes(qmodel)
+    codes_before = code_buffers(qmodel)
 
     # --- 3. fine-tune the scales only ------------------------------------
     qt = TrainConfig(steps=peqa_steps, batch_size=8, seq_len=64,
@@ -100,7 +101,7 @@ def run(device=None, fp_steps: int = 200, peqa_steps: int = 150,
     out["tuned_ppl"] = ppl(qapi, qstate["params"])
     log(f"PEQA-tuned 2-bit model ppl: {out['tuned_ppl']:.3f} (restored "
         f"toward fp)")
-    after = _codes(qstate["params"])
+    after = code_buffers(qstate["params"])
     out["codes_frozen"] = after.keys() == codes_before.keys() and all(
         torch.equal(after[n], codes_before[n]) for n in after)
     log(f"integer backbone bit-identical after tuning: "

@@ -60,7 +60,11 @@ print(json.dumps(sorted(m for m in sys.modules
     "repro_torch.optim.adamw", "repro_torch.optim.compression",
     "repro_torch.data.pipeline", "repro_torch.ckpt.checkpoint",
     "repro_torch.train.step", "repro_torch.train.loop",
-    "repro_torch.train.quickstart"])
+    "repro_torch.train.quickstart", "repro_torch.serve.traffic",
+    "repro_torch.serve.telemetry", "repro_torch.serve.driver",
+    "repro_torch.launch.serve", "repro_torch.launch.train",
+    "repro_torch.train.instruction_tune",
+    "repro_torch.train.serve_multitask"])
 def test_serving_modules_pull_in_no_jax_nor_reference(module):
     """Imported alone, in a fresh interpreter with JAX importable, none of
     the serving and training modules loads ``jax`` or ``repro``."""

@@ -1,0 +1,198 @@
+"""PyTorch port vs JAX reference: the launchers (``repro_torch.launch.serve``,
+``repro_torch.launch.train``), run in-process on the CPU.
+
+  * ``mixed_workload`` and ``family_workload`` give the reference's
+    requests for every family;
+  * ``--continuous`` exits 0 under every scheduler (speculative on
+    ``--layout plane``), over each traffic kind; the mesh flags and
+    ``REPRO_FAKE_DEVICES`` are refused with a clear ``SystemExit``; the
+    tuning restores the backbone;
+  * ``launch.train`` (``--tiny``): the loss falls over 12 steps, a second
+    run resumes from the checkpoint, the reference's ``CheckpointManager``
+    restores that checkpoint, ``--grad-compression int8`` runs, and a mesh
+    is refused.
+
+The family smoke (``--family-smoke``) is tests/test_torch_launch_families.py.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.ckpt.checkpoint import CheckpointManager as JManager
+from repro.configs.base import OptimConfig as JOptim
+from repro.configs.base import QuantConfig as JQuant
+from repro.configs.base import TuningConfig as JTuning
+from repro.core import policies as jpolicies
+from repro.launch import serve as jserve
+from repro.models import registry as jregistry
+from repro.optim.adamw import make_optimizer as jmake_optimizer
+import repro_torch.configs as tconfigs
+from repro_torch import bridge
+from repro_torch.core.scale_bank import ScaleBank
+from repro_torch.launch import serve, train
+
+from test_torch_ckpt import _assert_trees_equal
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """These tiny models are op-bound: one intra-op thread a worker keeps
+    them from stalling on busy cores when the suite runs in parallel."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+CPU = ["--device", "cpu"]
+
+
+def _exact(reqs):
+    return [(r.tokens.dtype.str, r.tokens.tobytes(), r.n_new, r.task,
+             r.arrival_step, r.arrival_s, r.eos_id,
+             None if r.prefix is None else (r.prefix.shape,
+                                            r.prefix.tobytes()))
+            for r in reqs]
+
+
+@pytest.mark.parametrize("arch", tconfigs.ARCHS)
+def test_family_workload_equals_reference(arch):
+    cfg = tconfigs.make_tiny(tconfigs.get_config(arch))
+    jcfg = jconfigs.make_tiny(jconfigs.get_config(arch))
+    for seed in (11, 12):
+        assert _exact(serve.family_workload(cfg, seed)) == \
+            _exact(jserve.family_workload(jcfg, seed))
+
+
+@pytest.mark.parametrize("tasks,batch,n_new,n,vocab", [
+    (["taskA", "taskB"], 4, 16, 12, 512), (["a", "b", "c"], 3, 3, 10, 7),
+    ([None], 8, 2, 24, 128256)])
+def test_mixed_workload_equals_reference(tasks, batch, n_new, n, vocab):
+    assert _exact(serve.mixed_workload(tasks, batch, n_new, n, vocab)) == \
+        _exact(jserve.mixed_workload(tasks, batch, n_new, n, vocab))
+
+
+# -------------------------------------------------------- launch.serve CLI
+
+def _serve_main(*flags):
+    with pytest.raises(SystemExit) as exc:
+        serve.main([*CPU, "--tune-steps", "2", "--continuous", *flags])
+    return exc.value.code
+
+
+@pytest.mark.parametrize("flags", [
+    ["--scheduler", "auto"],
+    ["--scheduler", "resident", "--traffic", "poisson"],
+    ["--scheduler", "drain", "--traffic", "trace"],
+    ["--scheduler", "speculative", "--layout", "plane", "--traffic",
+     "poisson"]], ids=["auto", "resident", "drain", "speculative"])
+def test_serve_continuous_exits_zero(flags, capsys):
+    assert _serve_main(*flags) == 0
+    out = capsys.readouterr().out
+    assert "[serve] continuous OK" in out
+    if "speculative" in flags:
+        assert "speculative == greedy" in out
+
+
+def test_serve_tiered_bank(tmp_path, capsys):
+    """``--bank-root``: the tuned sets persist as npz and the serve goes
+    through the re-opened tiered bank (host LRU of one task)."""
+    root = str(tmp_path / "bank")
+    assert _serve_main("--traffic", "poisson", "--scheduler", "resident",
+                       "--bank-root", root, "--host-cache", "1") == 0
+    out = capsys.readouterr().out
+    assert "tiered bank: 2 tasks indexed" in out and "[serve] tiers:" in out
+    assert sorted(ScaleBank(root).tasks) == ["taskA", "taskB"]
+
+
+def test_serve_lockstep_path(capsys):
+    serve.main([*CPU, "--tune-steps", "2", "--n-new", "4"])
+    out = capsys.readouterr().out
+    assert out.count("switch=") == 4 and "tuned taskB" in out
+
+
+@pytest.mark.parametrize("argv,env", [
+    (["--mesh", "2,4"], None), (["--no-logitshard"], None),
+    ([], "8")], ids=["mesh", "no-logitshard", "fake-devices"])
+def test_serve_mesh_flags_refused(argv, env, monkeypatch):
+    if env is not None:
+        monkeypatch.setenv("REPRO_FAKE_DEVICES", env)
+    with pytest.raises(SystemExit) as exc:
+        serve.main([*CPU, *argv])
+    assert "queue 6, item 9" in str(exc.value.code)
+
+
+def test_place_prompt_off_mesh_only():
+    prompt = np.arange(16, dtype=np.int32).reshape(2, 8)
+    assert serve.place_prompt(prompt) is prompt
+    with pytest.raises(NotImplementedError, match="queue 6, item 9"):
+        serve.place_prompt(prompt, ctx=object())
+
+
+def test_tiny_cannot_be_turned_off():
+    """As in the reference (``store_true`` with ``default=True``)."""
+    assert serve.parse_args([]).tiny is True
+
+
+def test_tuning_restores_the_backbone():
+    args = serve.parse_args(CPU)
+    cfg, api, backbone, mask = serve.build_model(args)
+    before = {n: t.clone() for n, t in backbone.state_dict().items()}
+    bank = ScaleBank()
+    losses = serve.tune_tasks(api, backbone, mask, ["t0", "t1"], 3, bank,
+                              log=lambda m: None)
+    after = backbone.state_dict()
+    assert all(torch.equal(before[n], after[n]) for n in before)
+    assert sorted(losses) == ["t0", "t1"]
+    a, b = bank.tasks["t0"], bank.tasks["t1"]
+    assert any(not np.array_equal(a[k], b[k]) for k in a)
+
+
+# -------------------------------------------------------- launch.train CLI
+
+TRAIN = [*CPU, "--tiny", "--batch", "4", "--seq", "32"]
+
+
+def _reference_like(mode="peqa"):
+    """The reference's train state for the tiny config (structure only)."""
+    jcfg = jconfigs.make_tiny(jconfigs.get_config("llama3.2-1b")).replace(
+        tuning=JTuning(mode=mode), quant=JQuant(bits=4, group_size=None))
+    rng = jax.random.PRNGKey(0)
+    params, mask = jpolicies.prepare(
+        jregistry.build(jcfg).init(rng), jcfg, rng)
+    opt = jmake_optimizer(JOptim(), 12)
+    return {"params": params, "opt": opt.init(params, mask),
+            "step": jnp.int32(0)}
+
+
+def test_train_loss_falls_resumes_and_crosses_to_reference(tmp_path, capsys):
+    ckpt = str(tmp_path / "run")
+    state, hist = train.main([*TRAIN, "--steps", "12", "--ckpt-dir", ckpt])
+    assert [h["step"] for h in hist] == [1, 10]
+    assert hist[-1]["loss"] < hist[0]["loss"]
+    assert all(np.isfinite(h["loss"]) for h in hist)
+    restored, extra = JManager(ckpt).restore(_reference_like())
+    assert extra["step"] == 12
+    _assert_trees_equal(bridge.state_to_tree(state), restored)
+    capsys.readouterr()
+    state2, hist2 = train.main([*TRAIN, "--steps", "14", "--ckpt-dir", ckpt])
+    out = capsys.readouterr().out
+    assert "[train] resumed from checkpoint step 12" in out
+    assert [h["step"] for h in hist2] == [13]
+    assert np.isfinite(hist2[0]["loss"]) and state2["step"] == 14
+
+
+def test_train_int8_grad_compression(capsys):
+    _, hist = train.main([*TRAIN, "--steps", "3", "--grad-compression",
+                          "int8"])
+    assert np.isfinite(hist[0]["loss"])
+    assert "final loss=" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("mesh", ["debug", "pod", "multipod"])
+def test_train_mesh_refused(mesh):
+    with pytest.raises(SystemExit) as exc:
+        train.main([*TRAIN, "--mesh", mesh])
+    assert "queue 6, item 9" in str(exc.value.code)
