@@ -78,7 +78,15 @@ line:
                the factored bound of plain, timed as one launch, as E 2-D
                launches (a yardstick), as the plain version and as
                ``torch.bmm`` on a dequantized bf16 Ŵ stack, beside the
-               bound;
+               bound.  Then their plane forms (``quant_gemv_experts_
+               planes``, ``quant_matmul_experts_planes``) at the same
+               shapes and C, on 4 and on 3 bit-planes (an expert's planes
+               3·N·K/32 words, not a nibble expert's N·K/8): every slice
+               bit-equal to the 2-D plane kernel on its expert, at 4 bits
+               the launch bit-equal to the nibble expert-axis kernel on the
+               same codes, within the factored bound of plain; timed as
+               one launch beside the bound, at 4 bits also as E 2-D plane
+               launches, the plain version and ``torch.bmm``;
   3. main    — llama3.2-1b at full width from a seeded generator, PEQA
                4-bit per-channel RTN (n_grid 20) through the layer-by-layer
                build (``policies.build``, as every PEQA model of the run
@@ -175,7 +183,10 @@ line:
                Last a 2-layer deepseek-moe-16b at full width: its layer-by-
                layer build bit-equal to the whole build, then the kernels
                against the plain versions as above, every expert-axis call
-               held to plain too;
+               held to plain too; then the same model built on 4 bit-planes
+               from the same seed (codes equal to the nibble build's), the
+               same check through the plane forms, and its greedy tokens
+               equal to the nibble model's;
  11. train   — PEQA training (the paper's step 2) on phase main's backbone
                at full width and depth, TrainConfig's default batch of 8 ×
                256 tokens (K2 at M = 2048), remat="block", a synthetic
@@ -198,7 +209,14 @@ line:
                into bit-planes gives the nibble one's step-1 loss and
                scale gradients bit for bit, and a train step on it
                launches the plane branch of K2 (K6a) 2 × 112 times; a
-               step's time by part.
+               step's time by part.  remat "dots" beside "block"
+               (``remat_pair``): step 1's loss and scale gradients bit-
+               equal, K2 launched 112 times in the forward and 112 in the
+               recompute under both, the bytes held after the forward
+               (``memory_allocated``; and counted: the tensors autograd
+               saves outside the checkpoints, ``saved_tensors_hooks``, plus
+               the products "dots" keeps), more under "dots"; then
+               REMAT_STEPS PEQA steps each: step ms, K2 a step, peak.
                Then 10 steps of ``train.loop.train`` under "dense" and 10
                under "chunked" from the same scales: exactly 2 × 112 K2
                launches a step (forward and recompute), 2 × 16 K4 launches
@@ -272,14 +290,16 @@ line:
                2 shared experts of 2816; vocab 102400, untied) at full
                width and depth, each built layer by layer (bf16, PEQA
                4-bit per-channel, n_grid 20, seed 0; every expert stack
-               quantized one expert at a time): the build's seconds and
+               quantized in chunks of whole experts; mixtral in nibbles,
+               deepseek on 4 bit-planes, ``MOE_LAYOUTS``, its launches the
+               plane form of each kernel): the build's seconds and
                peak, gated at the model's bytes plus two float32 blocks;
                Engine.generate of 4 × 256 + 32 with exact launches
                (mixtral: 128 K2 and 96 expert-axis K2 at C = 320 for the
                prefill, 128 K1, 96 expert-axis K1 at C = 1 and 32 K4 a
-               step; deepseek: 196 K2 (attention and shared MLP) and 84
-               expert-axis K2 at C = 120, 196 K1, 84 expert-axis K1 and 28
-               K4), the prefill's and the first step's every quantized
+               step; deepseek, each on planes: 196 K2-plane (attention
+               and shared MLP) and 84 expert-axis K2-plane at C = 120, 196
+               K1-plane, 84 expert-axis K1-plane and 28 K4), the prefill's and the first step's every quantized
                call held to plain as it happens (``CheckedQuantMatmul``),
                each expert-axis slice also bit-equal to the 2-D kernel on
                its expert; a prefill and a decode step profiled (the busy
@@ -433,6 +453,7 @@ and exits non-zero before the summary lines.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -519,6 +540,8 @@ ATTN_7B_CASES = (("prefill", 4, 256, 256, None, True, None),
 # batches of a synthetic corpus of TRAIN_TOKENS tokens (10% held out)
 TRAIN_STEPS, TRAIN_SKIP, TRAIN_EVAL_BATCHES = 10, 2, 4
 TRAIN_TOKENS = 120_000
+# phase train's remat pair: PEQA steps under "block", then under "dots"
+REMAT_STEPS = 3
 # dense_archs phase: PEQA train steps of qwen2-7b at 8 × 256 tokens (the
 # first checked call by call, not timed); granite-34b's depth (of 88)
 DENSE_TRAIN_STEPS = 3
@@ -547,6 +570,10 @@ VLM_CHECK_REQUESTS, VLM_CHECK_PROMPTS, VLM_CHECK_NEW = 6, (32, 48, 64), \
 # linears new to the kernels (the experts' shapes and the shared MLP's
 # (2816, 2048) / (2048, 2816)) and its 16 / 16 heads of 128
 MOE_ARCHS = ("mixtral-8x7b", "deepseek-moe-16b")
+# each whole model's code layout: deepseek-moe-16b whole on 4 bit-planes
+# (the expert-axis plane kernels' main path); its nibble path runs at 2
+# layers in phase check, mixtral's whole on nibbles here
+MOE_LAYOUTS = {"mixtral-8x7b": "nibble", "deepseek-moe-16b": "plane"}
 MOE_REQUESTS, MOE_TASKS, MOE_SLOTS = 8, 2, 4
 MOE_PROMPTS, MOE_NEW = (48, 64, 96, 128), (8, 12, 16)
 MOE_TRAIN_STEPS, MOE_TRAIN_BATCH = 2, 4
@@ -698,10 +725,25 @@ def check_close(name, got, plain, bound) -> float:
     return err.max().item()
 
 
-# the expert-axis forms launch their 2-D kernels' (untasked, nibble)
-# instantiations over a grid z axis: no instantiation of their own
+# the expert-axis forms launch their 2-D kernels' (untasked, nibble or
+# plane) instantiations over a grid z axis: no instantiation of their own
 SHARED_INSTANTIATIONS = {"quant_gemv_experts": "quant_gemv",
-                         "quant_matmul_experts": "quant_matmul"}
+                         "quant_matmul_experts": "quant_matmul",
+                         "quant_gemv_experts_planes": "quant_gemv_planes",
+                         "quant_matmul_experts_planes": "quant_matmul_planes"}
+
+
+def model_planes(model) -> bool:
+    """True when the model's quantized linears hold bit-plane codes."""
+    from repro_torch.models.linear import Linear
+    return any(isinstance(m, Linear) and m.quantized and m.spec.plane
+               for m in model.modules())
+
+
+def kname(name: str, planes: bool) -> str:
+    """A quantized-linear kernel's wrapper name, its plane form with
+    ``planes``."""
+    return f"{name}_planes" if planes else name
 
 
 def phase_device(torch) -> dict:
@@ -961,10 +1003,14 @@ def phase_kernels(torch) -> dict:
         kernel_gemv_gemm(torch, qm, n, k, None, qw, s, z, w16, gen, worst,
                          emulate=False, model="deepseek-moe-16b")
         del qw, s, z, w16
-    experts = {}
+    experts, experts_planes = {}, {}
     for model, (e, shapes, c_pre) in MOE_EXPERT_SHAPES.items():
         experts[model] = [kernel_experts(torch, qm, model, e, n, k, c_pre,
                                          gen, worst) for (n, k) in shapes]
+        torch.cuda.empty_cache()
+        experts_planes[model] = [kernel_experts_planes(
+            torch, qm, model, e, n, k, c_pre, gen, worst)
+            for (n, k) in shapes]
         torch.cuda.empty_cache()
     # the recurrent families' linears (zamba2's shared q/k/v, (3584, 7168)
     # over the 7168-wide concat, share out_proj's shape)
@@ -986,15 +1032,17 @@ def phase_kernels(torch) -> dict:
         worst["flash_attention"] = max(worst["flash_attention"], err)
     # the reduced float32 configs of phases launch and examples
     kernel_tiny(torch, gen, worst)
-    return worst, attn_prefill, attn_7b, experts
+    return worst, attn_prefill, attn_7b, experts, experts_planes
 
 
-def experts_bound_ms(e: int, c: int, n: int, k: int) -> tuple:
+def experts_bound_ms(e: int, c: int, n: int, k: int,
+                     code_bits: int = 4) -> tuple:
     """Least time for one expert-axis y[e] = x[e]·Ŵ[e]ᵀ over E experts
-    (per-channel): the larger of its bytes at HBM rate (each expert's codes,
-    x, scales and y once) and its 2·E·C·N·K operations at the bf16 tensor
-    cores' rate.  Returns (ms, "bytes" | "operations")."""
-    t_bytes = e * bytes_ms(c, n, k, 1)
+    (per-channel): the larger of its bytes at HBM rate (each expert's codes
+    at ``code_bits`` a weight, x, scales and y once) and its 2·E·C·N·K
+    operations at the bf16 tensor cores' rate.  Returns (ms, "bytes" |
+    "operations")."""
+    t_bytes = e * bytes_ms(c, n, k, 1, code_bits=code_bits)
     t_ops = 2 * e * c * n * k / BF16_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -1060,6 +1108,104 @@ def kernel_experts(torch, qm, model, e, n, k, c_pre, gen, worst) -> dict:
         out[name] = fig
         del sets, lib_sets, x
     del qw, s, z, w16
+    return out
+
+
+def kernel_experts_planes(torch, qm, model, e, n, k, c_pre, gen,
+                          worst) -> dict:
+    """The expert-axis plane kernels at one MoE linear's E experts (RTN
+    codes of N(0, 1/K) weights, per-channel, bf16 x), on 4 bit-planes and
+    on 3 (the codes q >> 1 under ``draft_scales``: an expert's planes are
+    then 3·N·K/32 words, not a nibble expert's N·K/8): the GEMV form at
+    C = 1 and the GEMM form at the prefill's C.  Each launch's slices
+    bit-equal to the 2-D plane kernel on each expert, at 4 bits bit-equal
+    to the nibble expert-axis kernel on the same codes, and within
+    ``error_bound`` (factored; ``gemv`` for the GEMV) of the plain version;
+    device ms (CUDA graphs, the codes rotated through > 2× the L2) of the
+    one launch beside the bound, and at 4 bits of E separate 2-D plane
+    launches (a yardstick), of the plain version and of ``torch.bmm`` on a
+    dequantized bf16 Ŵ stack.  Updates ``worst``; returns {(bits,
+    kernel): figures}."""
+    from repro_torch.core.quant import (QuantSpec, draft_scales,
+                                        pack_codes_planes, unpack_codes)
+    from repro_torch.kernels.ref import dequant_ref
+    parts = [quantized_operands(torch, n, k, None, gen) for _ in range(e)]
+    qw, s4, z4 = (torch.stack([p[i] for p in parts]) for i in range(3))
+    del parts
+    codes = torch.stack([unpack_codes(q) for q in qw])
+    out = {}
+    for bits in (4, 3):
+        planes = torch.stack([pack_codes_planes(c >> (4 - bits), bits)
+                              for c in codes])
+        s, z = (t.contiguous() for t in draft_scales(s4, z4, 4, bits))
+        w16 = None
+        if bits == 4:
+            w16 = dequant_ref(qw.reshape(e * n, -1), s.reshape(e * n, 1),
+                              z.reshape(e * n, 1), (e * n, k), QuantSpec(),
+                              torch.bfloat16).reshape(e, n, k)
+        for c in (1, c_pre):
+            gemv = c <= GEMV_MAX
+            name = ("quant_gemv_experts_planes" if gemv
+                    else "quant_matmul_experts_planes")
+            fn, fn2, nib = ((qm.quant_gemv_experts_planes,
+                             qm.quant_gemv_planes, qm.quant_gemv_experts)
+                            if gemv else
+                            (qm.quant_matmul_experts_planes,
+                             qm.quant_matmul_planes,
+                             qm.quant_matmul_experts))
+            what = f"{name} {model} E={e} C={c} N={n} K={k} bits={bits}"
+            x = torch.randn(e, c, k, generator=gen, device="cuda").to(
+                torch.bfloat16)
+            y = fn(x, planes, s, z, bits)
+            for i in range(e):
+                if not torch.equal(y[i], fn2(x[i], planes[i], s[i], z[i],
+                                             bits)):
+                    fail(f"{what}: slice {i} differs from the 2-D plane "
+                         f"kernel's launch on expert {i}")
+            if bits == 4 and not torch.equal(y, nib(x, qw, s, z)):
+                fail(f"{what}: differs from the nibble expert-axis kernel "
+                     f"on the same codes")
+            plain = qm.quant_matmul_experts_planes_plain(x, planes, s, z,
+                                                         bits)
+            err = check_close(what, y, plain, qm.error_bound(
+                x, planes, s, z, plain, planes=(bits, 0), factored=True,
+                gemv=gemv))
+            worst[name] = max(worst[name], err)
+            del plain, y
+            copies = max(2, math.ceil(2 * L2_BYTES / (e * n * k * bits
+                                                      // 8)))
+            sets = [(x, planes.clone(), s.clone(), z.clone())
+                    for _ in range(copies)]
+            iters = 40 if gemv else 8
+            b_ms, b_by = experts_bound_ms(e, c, n, k, code_bits=bits)
+            fig = {"ms": timed(lambda a, b, c_, d: fn(a, b, c_, d, bits),
+                               sets, iters),
+                   "bound_ms": b_ms, "bound_by": b_by}
+            if bits == 4:
+                lib_sets = [(x, w16.clone()) for _ in range(max(2, math.ceil(
+                    2 * L2_BYTES / (e * n * k * 2))))]
+
+                def loop(a, b, c_, d, fn2=fn2):
+                    for i in range(e):
+                        fn2(a[i], b[i], c_[i], d[i], bits)
+                fig.update(
+                    loop_2d_ms=timed(loop, sets, iters),
+                    plain_ms=timed(lambda a, b, c_, d:
+                                   qm.quant_matmul_experts_planes_plain(
+                                       a, b, c_, d, bits), sets,
+                                   max(2, iters // 4)),
+                    library_ms=timed(lambda a, b: torch.bmm(
+                        a, b.transpose(1, 2)), lib_sets, iters))
+                del lib_sets
+            emit({"phase": "kernels", "kernel": name, "model": model,
+                  "E": e, "C": c, "N": n, "K": k, "planes": bits,
+                  "route": "mma" if gemv else "wgmma",
+                  "slices_bitwise_2d": e, "bitwise_nibble": bits == 4,
+                  "max_abs_err": err, **fig})
+            out[(bits, name)] = fig
+            del sets, x
+        del planes, w16
+    del qw, s4, z4, codes
     return out
 
 
@@ -2583,9 +2729,12 @@ def check_path(torch, api, model, cfg, prompt, new) -> dict:
                           if k.launches}
         if impl == "cuda":
             chk = checked
-    kinds = {"quant_gemv", "quant_matmul", "flash_attention"}
+    pl = model_planes(model)
+    kinds = {kname("quant_gemv", pl), kname("quant_matmul", pl),
+             "flash_attention"}
     if n_quantized(model, experts=True):
-        kinds |= {"quant_gemv_experts", "quant_matmul_experts"}
+        kinds |= {kname("quant_gemv_experts", pl),
+                  kname("quant_matmul_experts", pl)}
     if set(launched["cuda"]) != kinds or launched["torch"]:
         fail(f"{label}: kernels launched {launched['cuda']} through "
              f"the kernels and {launched['torch']} through the plain versions")
@@ -2613,14 +2762,15 @@ def check_path(torch, api, model, cfg, prompt, new) -> dict:
             "qmm_max_abs_err": chk.worst}
 
 
-def dense_cfg(name: str, **kw):
+def dense_cfg(name: str, layout: str = "nibble", **kw):
     """``name`` as the smoke runs it: PEQA 4-bit per-channel RTN (n_grid
-    20), bf16, with ``kw`` replaced."""
+    20) in ``layout``, bf16, with ``kw`` replaced."""
     from repro_torch import configs
     from repro_torch.configs.base import QuantConfig, TuningConfig
     return configs.get_config(name).replace(
         tuning=TuningConfig(mode="peqa"),
-        quant=QuantConfig(bits=4, group_size=None, n_grid=20), **kw)
+        quant=QuantConfig(bits=4, group_size=None, n_grid=20, layout=layout),
+        **kw)
 
 
 # phase check's other 2-layer models at full width: (label, config name,
@@ -3184,6 +3334,13 @@ def phase_train(torch, main_path) -> dict:
         "scale_grads": grad_gate, "calls": calls}
     del rec_k
 
+    # --- remat "dots" beside "block": a PEQA step pair at 8 × 256 --------
+    res["remat_dots"] = remat_pair(torch, model, cfg, tcfg, mask, scales,
+                                   data, batch, base)
+    with torch.no_grad():
+        for n, p in scales.items():
+            p.copy_(start_scales[n])
+
     # --- the same backbone as bit-planes: the plane branch of K2 ----------
     plane = plane_backbone(torch, main_path)
     model_p, cfg_p = plane["model"], plane["cfg"].replace(remat="block")
@@ -3333,6 +3490,135 @@ def phase_train(torch, main_path) -> dict:
     return res
 
 
+def product_bytes(func, args, kwargs) -> int:
+    """Bytes of a dense product's output, from its operands' shapes."""
+    a, b = [t for t in args if hasattr(t, "shape")][-2:]
+    dtype = next((x for x in args if not hasattr(x, "shape")
+                  and hasattr(x, "itemsize")),
+                 kwargs.get("out_dtype", a.dtype))
+    return a.shape[:-1].numel() * b.shape[-1] * dtype.itemsize
+
+
+def remat_pair(torch, model, cfg, tcfg, mask, scales, data, batch,
+               base) -> dict:
+    """Phase train's model under remat "block" and "dots", each in turn: on
+    step 1's batch the loss and every scale gradient (those of "dots" bit-
+    equal to "block"'s: the same kernels on the same inputs, only what is
+    kept differs), the K2 launches of the forward and of the backward's
+    recompute (7 a layer each under both), the bytes held for the backward
+    after the forward — the device's allocation then (``memory_allocated``
+    after the forward less before it) and the tensors autograd saves
+    outside the checkpoints (``saved_tensors_hooks``; the parameters and
+    buffers excluded) plus the products "dots" keeps (counted from
+    ``transformer.dots_policy``'s choices) —; then two PEQA train steps
+    from the same scales: step ms, K2 launches a step, peak memory (the
+    model included).  The caller restores the scales."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry, transformer
+    from repro_torch.optim.adamw import make_optimizer
+    from repro_torch.train import step
+    from repro_torch.train.state import make_state
+    weights = {t.untyped_storage().data_ptr() for t in
+               list(model.parameters()) + list(model.buffers())}
+    start = {n: p.detach().clone() for n, p in scales.items()}
+    policy = transformer.dots_policy
+    out, step1 = {}, {}
+    for remat in ("block", "dots"):
+        rcfg = cfg.replace(remat=remat)
+        api = registry.build(rcfg, device="cuda")
+        saved, kept = {}, []
+
+        def pack(t):
+            ptr = t.untyped_storage().data_ptr()
+            if ptr not in weights:
+                saved[ptr] = t.untyped_storage().nbytes()
+            return t
+
+        def counting(ctx, func, *args, **kwargs):
+            got = policy(ctx, func, *args, **kwargs)
+            if got == CheckpointPolicy.MUST_SAVE and not ctx.is_recompute:
+                kept.append(product_bytes(func, args, kwargs))
+            return got
+        for k in ops.KERNELS:
+            k.launches = 0
+        transformer.dots_policy = counting
+        try:
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+                loss = api.loss_fn(model, batch)
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated() - before
+        finally:
+            transformer.dots_policy = policy
+        fwd = {k.__name__: k.launches for k in ops.KERNELS if k.launches}
+        loss.backward()
+        total = {k.__name__: k.launches for k in ops.KERNELS if k.launches}
+        step1[remat] = (loss.detach(), {n: p.grad.detach().clone()
+                                        for n, p in scales.items()})
+        for p in model.parameters():
+            p.grad = None
+        del loss
+        opt = make_optimizer(tcfg.optim, tcfg.steps)
+        state = make_state(model, opt.init(dict(model.named_parameters()),
+                                           mask))
+        ts = step.build_train_step(api, rcfg, tcfg, mask, opt)
+        walls, seen = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(REMAT_STEPS):
+            for k in ops.KERNELS:
+                k.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = ts(state, data.batch_at(i))
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            seen.append({k.__name__: k.launches for k in ops.KERNELS
+                         if k.launches})
+            if not math.isfinite(float(metrics["loss"])):
+                fail(f"train remat {remat}: loss {float(metrics['loss'])}")
+        peak = torch.cuda.max_memory_allocated() - base
+        del state, opt, ts
+        with torch.no_grad():
+            for n, p in scales.items():
+                p.copy_(start[n])
+        want = {"quant_matmul": cfg.n_layers * 7}
+        if fwd != want or total != {"quant_matmul": 2 * cfg.n_layers * 7} \
+                or any(got != {"quant_matmul": 2 * cfg.n_layers * 7}
+                       for got in seen):
+            fail(f"train remat {remat}: K2 launches {fwd} in the forward, "
+                 f"{total} with the backward, {seen} a step; expected "
+                 f"{want}, twice that, twice that")
+        out[remat] = {"loss_step1": float(step1[remat][0]),
+                      "held_after_forward_bytes": held,
+                      "saved_outside_checkpoints_bytes": sum(saved.values()),
+                      "dots_kept_bytes": sum(kept),
+                      "dots_kept_products": len(kept),
+                      "k2_forward": fwd["quant_matmul"],
+                      "k2_a_step": seen[-1]["quant_matmul"],
+                      "step_ms": walls, "peak_mem_gb": peak / 1e9}
+    (loss_b, grads_b), (loss_d, grads_d) = step1["block"], step1["dots"]
+    if not torch.equal(loss_b, loss_d):
+        fail(f"train: remat 'dots' changed the step-1 loss "
+             f"({float(loss_d)!r} against 'block''s {float(loss_b)!r})")
+    unequal = [n for n in grads_b if not torch.equal(grads_b[n], grads_d[n])]
+    if unequal:
+        fail(f"train: remat 'dots' scale gradients differ from 'block''s at "
+             f"{unequal[:3]}")
+    if not out["dots"]["dots_kept_products"] or \
+            out["dots"]["held_after_forward_bytes"] <= \
+            out["block"]["held_after_forward_bytes"]:
+        fail(f"train: remat 'dots' kept {out['dots']['dots_kept_products']} "
+             f"products and holds {out['dots']['held_after_forward_bytes']} "
+             f"bytes after the forward against 'block''s "
+             f"{out['block']['held_after_forward_bytes']}")
+    out["grads_equal_to_block"] = len(grads_b)
+    emit({"phase": "train_remat", **out})
+    return out
+
+
 class MeasuredUpdate:
     """``opt`` with the memory of its update measured from ``base``: the
     bytes allocated as it starts (model, optimizer state and gradients), the
@@ -3471,8 +3757,9 @@ class CheckedQuantMatmul:
                  watch=None):
         self.ops, self.label, self.rows_m = ops, label, rows_m
         self.bitwise_2d, self.watch = bitwise_2d, watch
-        self.calls = {"quant_gemv": 0, "quant_matmul": 0,
-                      "quant_gemv_experts": 0, "quant_matmul_experts": 0}
+        self.calls = {kname(k, p): 0 for p in (False, True) for k in (
+            "quant_gemv", "quant_matmul", "quant_gemv_experts",
+            "quant_matmul_experts")}
         self.worst = 0.0
         self.slices_bitwise = 0
         self.watched = None
@@ -3489,17 +3776,23 @@ class CheckedQuantMatmul:
                 xr, s, z = rows(x), scale.float(), zero.float()
                 m = xr.shape[0]
                 gemv = m <= qm.GEMV_MAX_M
-                name = "quant_gemv" if gemv else "quant_matmul"
+                name = kname("quant_gemv" if gemv else "quant_matmul",
+                             spec.plane)
                 what = (f"{self.label}: {name} call {self.calls[name]} "
                         f"(M={m})")
                 if kw.get("draft_bits") is not None or (
                         self.rows_m is not None and m != self.rows_m) \
                         or not qm.tc_route(xr, s):
                     fail(f"{what}: expected {self.rows_m or 'its'} rows of "
-                         f"nibble codes on the tensor-core route")
-                plain = qm.quant_matmul_plain(xr, qw, s, z)
+                         f"every stored plane or nibble on the tensor-core "
+                         f"route")
+                planes = (spec.bits, 0) if spec.plane else None
+                plain = qm.quant_matmul_planes_plain(
+                    xr, qw, s, z, spec.bits) if spec.plane \
+                    else qm.quant_matmul_plain(xr, qw, s, z)
                 err = check_close(what, rows(y.detach()), plain,
                                   qm.error_bound(xr, qw, s, z, plain,
+                                                 planes=planes,
                                                  factored=True, gemv=gemv))
             self.calls[name] += 1
             self.worst = max(self.worst, err)
@@ -3510,30 +3803,41 @@ class CheckedQuantMatmul:
         def qmme(x, qw, scale, zero, spec):
             y = self._qmme(x, qw, scale, zero, spec)
             with torch.no_grad():
-                self._expert_call(torch, qm, x, qw, scale, zero, y)
+                self._expert_call(torch, qm, x, qw, scale, zero, y,
+                                  spec.bits if spec.plane else None)
             return y
 
         self.ops.quant_matmul = qmm
         self.ops.quant_matmul_experts = qmme
         return self
 
-    def _expert_call(self, torch, qm, x, qw, scale, zero, y):
+    def _expert_call(self, torch, qm, x, qw, scale, zero, y, bits=None):
+        """One expert-axis call (``bits``: the planes read, None for
+        nibbles) held to plain, and with ``bitwise_2d`` slice by slice to
+        the 2-D kernel."""
         xe, s, z = x.detach().contiguous(), scale.float(), zero.float()
         gemv = xe.shape[1] <= qm.GEMV_MAX_M
-        name = "quant_gemv_experts" if gemv else "quant_matmul_experts"
+        planes = bits is not None
+        name = kname("quant_gemv_experts" if gemv else "quant_matmul_experts",
+                     planes)
         what = (f"{self.label}: {name} call {self.calls[name]} "
                 f"(E={xe.shape[0]}, C={xe.shape[1]})")
         if not qm.tc_route(xe[0], s[0]):
-            fail(f"{what}: expected nibble codes on the tensor-core route")
-        plain = qm.quant_matmul_experts_plain(xe, qw, s, z)
+            fail(f"{what}: expected the tensor-core route")
+        plain = qm.quant_matmul_experts_planes_plain(xe, qw, s, z, bits) \
+            if planes else qm.quant_matmul_experts_plain(xe, qw, s, z)
         err = check_close(what, y.detach(), plain, qm.error_bound(
-            xe, qw, s, z, plain, factored=True, gemv=gemv))
+            xe, qw, s, z, plain, planes=(bits, 0) if planes else None,
+            factored=True, gemv=gemv))
         del plain
         if self.bitwise_2d:
-            fn = qm.quant_gemv if gemv else qm.quant_matmul
+            fn = getattr(qm, kname("quant_gemv" if gemv else "quant_matmul",
+                                   planes))
+            extra = (bits,) if planes else ()
             saved = fn.launches
             for e in range(xe.shape[0]):
-                if not torch.equal(y[e], fn(xe[e], qw[e], s[e], z[e])):
+                if not torch.equal(y[e], fn(xe[e], qw[e], s[e], z[e],
+                                            *extra)):
                     fail(f"{what}: slice {e} differs from the 2-D kernel's "
                          f"launch on that expert")
             fn.launches = saved
@@ -3558,7 +3862,8 @@ class CheckedQuantMatmul:
 
 
 def dense_build(torch, name: str, **kw):
-    """``dense_cfg(name, **kw)`` at full width from the seed through the
+    """``dense_cfg(name, **kw)`` (``layout`` among them) at full width from
+    the seed through the
     layer-by-layer build (``policies.build``: each block's random float32
     weights drawn and quantized before the next block exists).  Returns
     (cfg, api, model, mask, figures): the build's seconds, its peak above
@@ -3645,15 +3950,16 @@ def launch_want(model, prefill: int, steps: int, layers: int) -> dict:
     step runs (``n_step_linears``), one expert-axis K2 (K1) an expert
     stack — a prefill's rows give every expert C > 32 capacity rows, a
     step's of BATCH rows C = 1 —, and L K4 launches a step (L the decoder's
-    layers)."""
+    layers).  A model on bit-planes launches the plane form of each."""
     n_lin, n_exp = n_quantized(model), n_quantized(model, experts=True)
     extra = shared_calls(model)
-    want = {"quant_matmul": (n_lin + extra) * prefill,
-            "quant_gemv": (n_step_linears(model) + extra) * steps,
+    pl = model_planes(model)
+    want = {kname("quant_matmul", pl): (n_lin + extra) * prefill,
+            kname("quant_gemv", pl): (n_step_linears(model) + extra) * steps,
             "flash_attention": layers * steps}
     if n_exp:
-        want.update(quant_matmul_experts=n_exp * prefill,
-                    quant_gemv_experts=n_exp * steps)
+        want.update({kname("quant_matmul_experts", pl): n_exp * prefill,
+                     kname("quant_gemv_experts", pl): n_exp * steps})
     return {k: v for k, v in want.items() if v}
 
 
@@ -3861,8 +4167,10 @@ def dense_train(torch, label, cfg0, model, mask, steps, batch_size=None,
         seen.append({k.__name__: k.launches for k in ops.KERNELS
                      if k.launches})
     peak = torch.cuda.max_memory_allocated() - base
-    want = {"quant_matmul": 2 * n_lin}
-    checked = chk.calls["quant_matmul"]
+    pl = model_planes(model)
+    k2, k2e = kname("quant_matmul", pl), kname("quant_matmul_experts", pl)
+    want = {k2: 2 * n_lin}
+    checked = chk.calls[k2]
     recurrent = remat_k2_calls(model, cfg)
     # the recompute stops once the block's last saved tensor is back: in a
     # dense block (and deepseek's, whose shared MLP comes last, and each of
@@ -3873,12 +4181,11 @@ def dense_train(torch, label, cfg0, model, mask, steps, batch_size=None,
     unchecked = {2 * n_lin - n_blocks} if not n_exp else \
         {2 * n_lin - n_blocks, 2 * n_lin}
     if recurrent is not None:
-        want["quant_matmul"], returned = recurrent
+        want[k2], returned = recurrent
         unchecked = {returned}
     if n_exp:
-        want["quant_matmul_experts"] = 2 * n_exp
-        if chk.calls["quant_matmul_experts"] not in (
-                2 * n_exp, 2 * n_exp - cfg.n_layers):
+        want[k2e] = 2 * n_exp
+        if chk.calls[k2e] not in (2 * n_exp, 2 * n_exp - cfg.n_layers):
             fail(f"{label} train: {chk.calls} checked in step 1")
     if checked not in unchecked or any(got != want for got in seen):
         fail(f"{label} train: {checked} K2 calls checked in step 1, "
@@ -3904,7 +4211,7 @@ def dense_train(torch, label, cfg0, model, mask, steps, batch_size=None,
             "median_step_ms": med,
             "tokens_per_s": m_rows / med * 1e3 if med else None,
             "k2_calls_checked": checked, "k2_max_abs_err": chk.worst,
-            "expert_k2_calls_checked": chk.calls["quant_matmul_experts"],
+            "expert_k2_calls_checked": chk.calls[k2e],
             "recompute_routing_equal": (chk.watched is True) if n_exp
             else None,
             "launches_a_step": seen[-1], "peak_mem_gb": peak / 1e9,
@@ -4228,9 +4535,14 @@ def check_moe(torch) -> dict:
     top-6, 2 shared): the layer-by-layer build bit-equal, tensor by tensor,
     to the whole build (``api.init`` then ``policies.prepare``), then
     ``check_path``: the kernels against the plain versions on the card,
-    every K1, K2 and expert-axis call held to plain as it happens."""
+    every K1, K2 and expert-axis call held to plain as it happens.  Then
+    the same model built on 4 bit-planes from the same seed (its codes the
+    nibble model's, bit for bit): ``check_path`` through the plane forms,
+    and ``Engine.generate``'s tokens equal to the nibble model's."""
     from repro_torch.core import policies
+    from repro_torch.core.quant import unpack_codes, unpack_codes_planes
     from repro_torch.models import registry
+    from repro_torch.train.serve import Engine
     cfg = dense_cfg("deepseek-moe-16b", n_layers=2)
     api = registry.build(cfg)
     streamed, _ = policies.build(api, SEED)
@@ -4248,7 +4560,33 @@ def check_moe(torch) -> dict:
     prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen)
     res = {**check_path(torch, api, streamed, cfg, prompt, MOE_CHECK_NEW),
            "build_bit_equal_tensors": n_tensors}
-    del streamed
+    cfg_p = dense_cfg("deepseek-moe-16b", layout="plane", n_layers=2)
+    api_p = registry.build(cfg_p)
+    plane, _ = policies.build(api_p, SEED)
+    tp = dict(plane.named_buffers())
+    differ = []
+    for name, qw in streamed.named_buffers():
+        if not name.endswith(".qw"):
+            continue
+        codes = torch.stack([unpack_codes_planes(q) for q in tp[name]]) \
+            if qw.dim() == 3 else unpack_codes_planes(tp[name])
+        if not torch.equal(codes, unpack_codes(qw.reshape(-1, qw.shape[-1])
+                                               ).reshape(codes.shape)):
+            differ.append(name)
+    if differ:
+        fail(f"moe 2-layer planes: codes differ from the nibble build's in "
+             f"{differ[:4]}")
+    res["planes"] = check_path(torch, api_p, plane, cfg_p, prompt,
+                               MOE_CHECK_NEW)
+    with torch.inference_mode():
+        tok_n = Engine(api, streamed).generate(prompt, MOE_CHECK_NEW)
+        tok_p = Engine(api_p, plane).generate(prompt, MOE_CHECK_NEW)
+    if not torch.equal(tok_n, tok_p):
+        fail(f"moe 2-layer: the 4-bit plane model's generate "
+             f"{tok_p[:, PROMPT:].tolist()} differs from the nibble "
+             f"model's {tok_n[:, PROMPT:].tolist()}")
+    res["planes"]["tokens_equal_to_nibble"] = True
+    del streamed, plane
     torch.cuda.empty_cache()
     return res
 
@@ -4284,17 +4622,19 @@ def moe_serve_want(cfg, model, reqs, capacity, steps) -> dict:
     n_lin, n_exp = n_quantized(model), n_quantized(model, experts=True)
     cap = lambda t: moe.capacity(t, mc.top_k, mc.n_experts,
                                  mc.capacity_factor)
-    want = dict.fromkeys(("quant_matmul", "quant_gemv", "quant_gemv_experts",
-                          "quant_matmul_experts", "flash_attention"), 0)
+    k = functools.partial(kname, planes=model_planes(model))
+    want = dict.fromkeys((k("quant_matmul"), k("quant_gemv"),
+                          k("quant_gemv_experts"), k("quant_matmul_experts"),
+                          "flash_attention"), 0)
     for r in reqs:
         t = r.n_prompt if cfg.swa_window is not None \
             else Engine._bucket_len(r.n_prompt, capacity)
-        want["quant_matmul" if t > GEMV_MAX else "quant_gemv"] += n_lin
-        want["quant_matmul_experts" if cap(t) > GEMV_MAX
-             else "quant_gemv_experts"] += n_exp
-    want["quant_gemv"] += n_lin * steps
-    want["quant_matmul_experts" if cap(MOE_SLOTS) > GEMV_MAX
-         else "quant_gemv_experts"] += n_exp * steps
+        want[k("quant_matmul" if t > GEMV_MAX else "quant_gemv")] += n_lin
+        want[k("quant_matmul_experts" if cap(t) > GEMV_MAX
+               else "quant_gemv_experts")] += n_exp
+    want[k("quant_gemv")] += n_lin * steps
+    want[k("quant_matmul_experts" if cap(MOE_SLOTS) > GEMV_MAX
+           else "quant_gemv_experts")] += n_exp * steps
     want["flash_attention"] += cfg.n_layers * steps
     return {k: v for k, v in want.items() if v}
 
@@ -4348,10 +4688,12 @@ def moe_serve(torch, api, model, cfg) -> dict:
 
 
 def moe_model(torch, name, gen) -> dict:
-    """One MoE configuration at full width and depth (module docstring,
-    phase moe)."""
-    cfg, api, model, mask, built = dense_build(torch, name)
-    res = {"model": cfg.name, "layers": cfg.n_layers,
+    """One MoE configuration at full width and depth, in its
+    ``MOE_LAYOUTS`` layout (module docstring, phase moe)."""
+    cfg, api, model, mask, built = dense_build(torch, name,
+                                               layout=MOE_LAYOUTS[name])
+    res = {"model": cfg.name, "layout": cfg.quant.layout,
+           "layers": cfg.n_layers,
            "experts": cfg.moe.n_experts, "top_k": cfg.moe.top_k,
            "shared_experts": cfg.moe.n_shared_experts, **built}
     bound = built["model_gb"] + 2 * built["block_fp32_gb"]
@@ -5072,8 +5414,8 @@ def arms_lora_optq(torch, data, calib, prompt) -> dict:
     with CheckedQuantMatmul(ops, "arms lora_optq generate") as chk:
         out = engine.generate(prompt, NEW)
     torch.cuda.synchronize()
-    want = {"quant_gemv": n_lin * (NEW - 1), "quant_matmul": n_lin,
-            "quant_gemv_experts": 0, "quant_matmul_experts": 0}
+    want = dict.fromkeys(chk.calls, 0)
+    want.update(quant_gemv=n_lin * (NEW - 1), quant_matmul=n_lin)
     if chk.calls != want or not torch.equal(out, gen["out"]):
         fail(f"arms lora_optq generate: {chk.calls} checked, expected "
              f"{want}; tokens equal to the unchecked run's: "
@@ -5770,8 +6112,8 @@ def main() -> None:
         return out
 
     dev = run("device", phase_device, torch)
-    worst_err, attn_prefill, attn_7b, experts = run("kernels", phase_kernels,
-                                                    torch)
+    worst_err, attn_prefill, attn_7b, experts, experts_planes = run(
+        "kernels", phase_kernels, torch)
     main_path = run("main", phase_main, torch)
     run("profile", phase_profile, torch, main_path)
     plane = run("plane_backbone", plane_backbone, torch, main_path)
@@ -5838,6 +6180,12 @@ def main() -> None:
         "quant_matmul_experts": (
             "quant_matmul", "src/repro/kernels/quant_matmul.py:170 under "
             "vmap at src/repro/models/moe.py:133"),
+        "quant_gemv_experts_planes": (
+            "quant_gemv", f"{plane_branch} (reached :325) under vmap at "
+            "src/repro/models/moe.py:133"),
+        "quant_matmul_experts_planes": (
+            "quant_matmul", f"{plane_branch} (reached :195) under vmap at "
+            "src/repro/models/moe.py:133"),
     }
     # each kernel's launches on the path that runs it: K1 and K2 on the
     # lockstep main path, K5 on the resident serve path, K6a's on the
@@ -5873,6 +6221,17 @@ def main() -> None:
         launches[name] = sum(moe[m]["generate"]["launches"].get(name, 0)
                              for m in MOE_ARCHS)
         up, down = (f[name] for f in experts["mixtral-8x7b"])
+        times[name] = {k: 2 * up[k] + down[k] for k in (
+            "ms", "plain_ms", "bound_ms", "library_ms", "loop_2d_ms")}
+        times[name]["bound_by"] = up["bound_by"]
+    # their plane forms: launches over deepseek-moe-16b's generate on 4
+    # bit-planes (phase moe); ms, bound and library for one deepseek block's
+    # three expert linears (gate and up (1408, 2048), down (2048, 1408)) on
+    # 4 planes at C = 1 (K1-plane) and C = 120 (K2-plane), phase kernels
+    for name in ("quant_gemv_experts_planes", "quant_matmul_experts_planes"):
+        launches[name] = moe["deepseek-moe-16b"]["generate"][
+            "launches"].get(name, 0)
+        up, down = (f[(4, name)] for f in experts_planes["deepseek-moe-16b"])
         times[name] = {k: 2 * up[k] + down[k] for k in (
             "ms", "plain_ms", "bound_ms", "library_ms", "loop_2d_ms")}
         times[name]["bound_by"] = up["bound_by"]
@@ -5921,7 +6280,7 @@ def main() -> None:
                       "median_step_ms", "peak_mem_gb", "state_bytes",
                       "scales")}},
           "moe": {m: {k: moe[m][k] for k in (
-              "layers", "build_s", "build_peak_gb", "build_peak_bound_gb",
+              "layout", "layers", "build_s", "build_peak_gb", "build_peak_bound_gb",
               "model_gb", "generate")} | {
               "busy_share": {k: moe[m]["profile"][k]["device_busy_share"]
                              for k in ("prefill", "decode_step")},

@@ -105,13 +105,16 @@ def eligible(path: str, leaf: torch.Tensor, qcfg: QuantConfig) -> bool:
 
 def quantize_leaf(w: torch.Tensor, qcfg: QuantConfig) -> dict:
     """(…, n, m) fp → dict(qw, scale, zero), each with w's leading dims (an
-    MoE block's expert stack (E, n, m)).  As the reference's
-    ``quantize_leaf``, the leading dims are mapped SEQUENTIALLY — one
-    (n, m) matrix at a time, or a chunk of small ones within
-    ``QUANT_CHUNK_ELEMENTS``, each result written into the stacked output —
-    so the quantizer's temporaries are one large expert's, not E's.  (The
-    reference maps over stacked layers too; the port's layers are separate
-    modules.)
+    MoE block's expert stack (E, n, m): qw (E, n, m/8) nibble words or (E,
+    bits, n, m/32) bit-planes, the reference's per-expert layout under its
+    map).  As the reference's ``quantize_leaf``, the leading dims are
+    mapped SEQUENTIALLY — one (n, m) matrix at a time, or a chunk of small
+    ones within ``QUANT_CHUNK_ELEMENTS`` quantized as one (k·n, m) matrix
+    (its rows are independent, so the codes are each expert's own; a
+    chunk's planes (bits, k·n, m/32) are split back into k experts'), each
+    result written into the stacked output — so the quantizer's
+    temporaries are one large expert's, not E's.  (The reference maps over
+    stacked layers too; the port's layers are separate modules.)
 
     Plain min/max RTN (``n_grid <= 1``) of an asymmetric spec is the
     conversion kernel's function: it goes through ``ops.rtn_pack`` (K3 for
@@ -119,9 +122,6 @@ def quantize_leaf(w: torch.Tensor, qcfg: QuantConfig) -> dict:
     ``rtn_quantize`` and packs — the same function as the reference's
     ``quantize_leaf`` either way."""
     if w.dim() > 2:
-        if qcfg.layout == "plane":
-            raise NotImplementedError("bit-plane codes of a stacked leaf "
-                                      "(MoE experts) are not ported")
         lead, (n, m) = w.shape[:-2], w.shape[-2:]
         flat = w.reshape(-1, n, m)
         step = max(1, QUANT_CHUNK_ELEMENTS // (n * m))
@@ -129,13 +129,19 @@ def quantize_leaf(w: torch.Tensor, qcfg: QuantConfig) -> dict:
         for i in range(0, flat.shape[0], step):
             part = flat[i:i + step]
             q = quantize_leaf(part.reshape(-1, m), qcfg)
+            if qcfg.layout == "plane":           # (bits, k·n, m/32)
+                q["qw"] = q["qw"].reshape(q["qw"].shape[0], part.shape[0], n,
+                                          -1).transpose(0, 1)
+            else:
+                q["qw"] = q["qw"].reshape(part.shape[0], n, -1)
+            q["scale"] = q["scale"].reshape(part.shape[0], n, -1)
+            q["zero"] = q["zero"].reshape(part.shape[0], n, -1)
             if out is None:
-                out = {k: torch.empty((flat.shape[0], n, *v.shape[1:]),
+                out = {k: torch.empty((flat.shape[0], *v.shape[1:]),
                                       dtype=v.dtype, device=v.device)
                        for k, v in q.items()}
             for k, v in q.items():
-                out[k][i:i + step] = v.reshape(part.shape[0], n,
-                                               *v.shape[1:])
+                out[k][i:i + step] = v
             del q
         return {k: v.reshape(*lead, *v.shape[1:]) for k, v in out.items()}
     spec = qcfg.spec()
@@ -187,9 +193,9 @@ def dequantize_params(model: nn.Module, qcfg: QuantConfig) -> nn.Module:
             k = mod.in_features
             lead = mod.scale.shape[:-1]           # (out,) or (E, out)
             rows = int(np.prod(lead))
-            qw = mod.qw if spec.plane else mod.qw.reshape(rows, -1)
-            codes = unpack_codes_planes(qw, k) if spec.plane \
-                else unpack_codes(qw, k)
+            # planes: the bits axis first, (bits, [E,] out, in/32)
+            codes = unpack_codes_planes(mod.qw.movedim(-3, 0), k) \
+                if spec.plane else unpack_codes(mod.qw.reshape(rows, -1), k)
             s, z = mod.scale.detach(), mod.zero.detach()
             g = s.shape[-1]
             cg = codes.reshape(*lead, g, k // g).to(torch.float32)

@@ -144,13 +144,18 @@ def pack_codes_planes(q: torch.Tensor, bits: int) -> torch.Tensor:
     if q.shape[-1] % PLANE_PACK:
         raise ValueError(
             f"last dim {q.shape[-1]} not divisible by {PLANE_PACK}")
-    q = q.to(torch.int64)
-    sel = torch.arange(bits - 1, -1, -1, dtype=torch.int64, device=q.device)
-    planes = (q[None] >> sel.reshape((bits,) + (1,) * q.dim())) & 1
-    planes = planes.reshape(bits, *q.shape[:-1], q.shape[-1] // PLANE_PACK,
-                            PLANE_PACK)
+    lead, words = q.shape[:-1], q.shape[-1] // PLANE_PACK
+    q = q.to(torch.int32).reshape(*lead, words, PLANE_PACK)
     shifts = torch.arange(PLANE_PACK, dtype=torch.int64, device=q.device)
-    return _as_int32((planes << shifts).sum(dim=-1))
+    out = torch.empty((bits, *lead, words), dtype=torch.int32,
+                      device=q.device)
+    # one plane at a time: the temporaries are one plane's int64 bits, not
+    # every plane's (an MoE build packs chunks of 2^26 codes)
+    for p in range(bits):
+        bit = ((q >> (bits - 1 - p)) & 1).to(torch.int64)
+        bit <<= shifts
+        out[p] = _as_int32(bit.sum(dim=-1))
+    return out
 
 
 def unpack_codes_planes(packed: torch.Tensor, k: Optional[int] = None,
@@ -160,11 +165,18 @@ def unpack_codes_planes(packed: torch.Tensor, k: Optional[int] = None,
     ``bits`` (≤ bits') consumes only the top planes — the draft decode."""
     bits = packed.shape[0] if bits is None else bits
     shifts = torch.arange(PLANE_PACK, dtype=torch.int32, device=packed.device)
-    b = (packed[:bits, ..., None] >> shifts) & 1         # mask the sign fill
-    b = b.reshape(bits, *packed.shape[1:-1], packed.shape[-1] * PLANE_PACK)
-    weight = torch.arange(bits - 1, -1, -1, dtype=torch.int32,
-                          device=packed.device)
-    q = (b << weight.reshape((bits,) + (1,) * (b.dim() - 1))).sum(dim=0)
+    # MSB plane first, one plane at a time, in place: the temporaries are
+    # two int32 planes of codes, not every plane's bits
+    q = None
+    for p in range(bits):
+        b = packed[p, ..., None] >> shifts
+        b &= 1                                          # mask the sign fill
+        if q is None:
+            q = b
+        else:
+            q <<= 1
+            q |= b
+    q = q.reshape(*packed.shape[1:-1], packed.shape[-1] * PLANE_PACK)
     if k is not None:
         q = q[..., :k]
     return q.to(torch.uint8)

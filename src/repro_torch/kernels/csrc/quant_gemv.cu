@@ -181,18 +181,27 @@ __device__ __forceinline__ uint32_t load_word(const uint32_t* __restrict__ qw,
   }
 }
 
-// The expert axis (quant_gemv_experts): one launch over gridDim.z experts,
-// each with its own x (M, K), nibble words (N, K/8), scale and zero (N, G)
-// and y (M, N), all experts of one shape and stored one after another (an
-// MoE block's (E, C, K) rows and its (E, N, …) expert stacks).  Block z
-// advances the operands to expert z's slices and then runs the 2-D
-// launch's tile code unchanged, so slice z of the result is bit for bit
-// the 2-D kernel on expert z's operands; a 2-D launch is z = 0 alone.
-#define EXPERT_SLICE(x, qw, scale, zero, y, M, N, K, G)          \
+// The expert axis (quant_gemv_experts, quant_gemv_experts_planes): one
+// launch over gridDim.z experts, each with its own x (M, K), codes, scale
+// and zero (N, G) and y (M, N), all experts of one shape and stored one
+// after another (an MoE block's (E, C, K) rows and its (E, N, …) expert
+// stacks).  An expert's codes are N·K/8 nibble words, or `stored` bit-
+// planes of N·K/32 words each (E, bits', N, K/32): expert z's planes start
+// z·stored·N·K/32 words in, while the plane stride within an expert stays
+// N·K/32.  Block z advances the operands to expert z's slices and then
+// runs the 2-D launch's tile code unchanged, so slice z of the result is
+// bit for bit the 2-D kernel on expert z's operands; a 2-D launch is z = 0
+// alone.
+template <bool PLANES>
+__device__ __forceinline__ size_t expert_words(int N, int K, int stored) {
+  return PLANES ? (size_t)stored * N * (K >> 5) : (size_t)N * (K >> 3);
+}
+
+#define EXPERT_SLICE(x, qw, scale, zero, y, M, N, K, G, QW_WORDS) \
   do {                                                            \
     const size_t e_ = blockIdx.z;                                 \
     x += e_ * (size_t)(M) * (K);                                  \
-    qw += e_ * (size_t)(N) * ((K) >> 3);                          \
+    qw += e_ * (QW_WORDS);                                        \
     scale += e_ * (size_t)(N) * (G);                              \
     zero += e_ * (size_t)(N) * (G);                               \
     y += e_ * (size_t)(M) * (N);                                  \
@@ -210,7 +219,7 @@ __global__ void __launch_bounds__(THREADS, 2) quant_gemv_kernel(
     const float* __restrict__ scale, const float* __restrict__ zero,
     const int* __restrict__ task_ids, T* __restrict__ y,
     int M, int N, int K, int G, int n_tasks, int kc,
-    int planes, float s_mul, float z_mul) {
+    int planes, float s_mul, float z_mul, int stored) {
   extern __shared__ float4 smem4[];
   float* xs = reinterpret_cast<float*>(smem4);            // [MT][kc]
   __shared__ float red[ROW_GROUPS][KSPLIT][R * MT];
@@ -224,7 +233,8 @@ __global__ void __launch_bounds__(THREADS, 2) quant_gemv_kernel(
   const volatile float* szv = reinterpret_cast<const volatile float*>(sz_s);
   const volatile int* tofs = tofs_s;
 
-  EXPERT_SLICE(x, qw, scale, zero, y, M, N, K, G);
+  EXPERT_SLICE(x, qw, scale, zero, y, M, N, K, G,
+               expert_words<PLANES>(N, K, stored));
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int kq = warp % KSPLIT, rg = warp / KSPLIT;
   const int n0 = (blockIdx.x * ROW_GROUPS + rg) * R;
@@ -449,9 +459,11 @@ constexpr size_t extra_smem() {
   return TASKS ? (size_t)ROW_GROUPS * R * MT * sizeof(float2) + MT * sizeof(int) : 0;
 }
 
-// the draft rescale of K6a: scale·2^shift, zero·2^−shift (1 and 1 else)
+// K6a's operands: the planes read, the draft rescale scale·2^shift,
+// zero·2^−shift (1 and 1 else), and the planes an expert stores (the
+// expert axis's stride; unread by a 2-D launch)
 struct Planes {
-  int planes = 0, shift = 0;
+  int planes = 0, shift = 0, stored = 0;
   float s_mul() const { return (float)(1u << shift); }
   float z_mul() const { return 1.0f / (float)(1u << shift); }
 };
@@ -484,7 +496,7 @@ cudaError_t launch(const void* x, const void* qw, const void* scale, const void*
       static_cast<const T*>(x), static_cast<const uint32_t*>(qw),
       static_cast<const float*>(scale), static_cast<const float*>(zero),
       task_ids, static_cast<T*>(y), M, N, K, G, n_tasks, kc,
-      pl.planes, pl.s_mul(), pl.z_mul());
+      pl.planes, pl.s_mul(), pl.z_mul(), pl.stored);
   return cudaGetLastError();
 }
 
@@ -598,11 +610,12 @@ __global__ void __launch_bounds__(TC_THREADS, 2) quant_gemv_tc_kernel(
     const float* __restrict__ scale, const float* __restrict__ zero,
     const int* __restrict__ task_ids, __nv_bfloat16* __restrict__ y,
     int M, int N, int K, int G, int n_tasks, int planes, float s_mul,
-    float z_mul, int split) {
+    float z_mul, int split, int stored) {
   constexpr bool PIPE = NT == 1;
   constexpr int UNR = PIPE ? 2 : 4 / NT;      // 64-code blocks a batch
   __shared__ float red[TC_WARPS][16][8 * NT];
-  EXPERT_SLICE(x, qw, scale, zero, y, M, N, K, G);
+  EXPERT_SLICE(x, qw, scale, zero, y, M, N, K, G,
+               expert_words<PLANES>(N, K, stored));
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int rank = blockIdx.x % split, n0 = blockIdx.x / split * 16;
@@ -805,7 +818,7 @@ cudaError_t launch_tc(const void* x, const void* qw, const void* scale,
       static_cast<const __nv_bfloat16*>(x), static_cast<const uint32_t*>(qw),
       static_cast<const float*>(scale), static_cast<const float*>(zero),
       task_ids, static_cast<__nv_bfloat16*>(y), M, N, K, G, n_tasks,
-      pl.planes, pl.s_mul(), pl.z_mul(), split);
+      pl.planes, pl.s_mul(), pl.z_mul(), split, pl.stored);
 }
 
 template <bool TASKS, bool PLANES>
@@ -907,6 +920,23 @@ extern "C" int quant_gemv_experts(const void* x, const void* qw, const void* sca
   if (bad_dims(M, N, K, G) || E < 1 || E > 65535) return (int)cudaErrorInvalidValue;
   return run<false, false>(x, qw, scale, zero, nullptr, y, M, N, K, G, 1,
                            Planes{}, x_is_bf16, stream, E);
+}
+
+// K1-plane over an expert axis: x (E, M, K), qw (E, stored, N, K/32) bit-
+// planes, scale and zero (E, N, G), y (E, M, N); the top `planes` <=
+// `stored` planes of each expert are read; slice e is quant_gemv_planes on
+// expert e's operands, bit for bit (EXPERT_SLICE).
+extern "C" int quant_gemv_experts_planes(const void* x, const void* qw,
+                                         const void* scale, const void* zero,
+                                         void* y, int E, int M, int N, int K,
+                                         int G, int planes, int stored,
+                                         int x_is_bf16, void* stream) {
+  const Planes pl{planes, 0, stored};
+  if (bad_dims(M, N, K, G) || bad_planes(K, pl) || E < 1 || E > 65535 ||
+      stored < planes)
+    return (int)cudaErrorInvalidValue;
+  return run<false, true>(x, qw, scale, zero, nullptr, y, M, N, K, G, 1, pl,
+                          x_is_bf16, stream, E);
 }
 
 // The tensor-core route's K split over blocks for an (N, K) layer, for the

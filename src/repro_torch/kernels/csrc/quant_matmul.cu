@@ -96,10 +96,13 @@ __device__ __forceinline__ uint32_t spread8(uint32_t b) {
   return (b | (b << 3)) & 0x11111111u;
 }
 
-// K6a's operands: the planes read and the draft rescale (0 planes: nibbles)
+// K6a's operands: the planes read and the draft rescale (0 planes:
+// nibbles), and the planes an expert stores (the expert axis's stride;
+// unread by a 2-D launch)
 struct Planes {
   int planes;
   float s_mul, z_mul;
+  int stored;
 };
 
 // packed word w (codes 8w..8w+7) of row n as nibbles: read from the nibble
@@ -193,19 +196,27 @@ __device__ __forceinline__ void store_stage(const Stage<T>& st, float (*xs)[BM +
   }
 }
 
-// The expert axis (quant_matmul_experts): one launch over gridDim.z
-// experts, each with its own x (M, K), nibble words (N, K/8), scale and
-// zero (N, G) and y (M, N), all experts of one shape and stored one after
-// another (an MoE block's (E, C, K) rows and its (E, N, …) expert stacks).
-// Block z advances the operands to expert z's slices and then runs the 2-D
-// launch's tile code unchanged — with the tile shape the 2-D launch of one
-// expert would pick —, so slice z of the result is bit for bit the 2-D
-// kernel on expert z's operands; a 2-D launch is z = 0 alone.
-#define EXPERT_SLICE(x, qw, scale, zero, y, M, N, K, G)          \
+// The expert axis (quant_matmul_experts, quant_matmul_experts_planes): one
+// launch over gridDim.z experts, each with its own x (M, K), codes, scale
+// and zero (N, G) and y (M, N), all experts of one shape and stored one
+// after another (an MoE block's (E, C, K) rows and its (E, N, …) expert
+// stacks).  An expert's codes are N·K/8 nibble words, or `stored` bit-
+// planes of N·K/32 words each (E, bits', N, K/32): expert z's planes start
+// z·stored·N·K/32 words in, while the plane stride within an expert stays
+// N·K/32.  Block z advances the operands to expert z's slices and then
+// runs the 2-D launch's tile code unchanged — with the tile shape the 2-D
+// launch of one expert would pick —, so slice z of the result is bit for
+// bit the 2-D kernel on expert z's operands; a 2-D launch is z = 0 alone.
+template <bool PLANES>
+__device__ __forceinline__ size_t expert_words(int N, int K, int stored) {
+  return PLANES ? (size_t)stored * N * (K >> 5) : (size_t)N * (K >> 3);
+}
+
+#define EXPERT_SLICE(x, qw, scale, zero, y, M, N, K, G, QW_WORDS) \
   do {                                                            \
     const size_t e_ = blockIdx.z;                                 \
     x += e_ * (size_t)(M) * (K);                                  \
-    qw += e_ * (size_t)(N) * ((K) >> 3);                          \
+    qw += e_ * (QW_WORDS);                                        \
     scale += e_ * (size_t)(N) * (G);                              \
     zero += e_ * (size_t)(N) * (G);                               \
     y += e_ * (size_t)(M) * (N);                                  \
@@ -221,7 +232,8 @@ __global__ void __launch_bounds__(THREADS, 2) quant_matmul_kernel(
   __shared__ __align__(16) float ws[2][BK][BN + PAD];  // ws[k][n] = Ŵ[n][k]
   static_assert(BN * BK / 8 == THREADS, "one packed word per thread per step");
 
-  EXPERT_SLICE(x, qw, scale, zero, y, M, N, K, G);
+  EXPERT_SLICE(x, qw, scale, zero, y, M, N, K, G,
+               expert_words<PLANES>(N, K, pl.stored));
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
@@ -581,7 +593,8 @@ __global__ void __launch_bounds__(C::THREADS, 1) quant_matmul_tc_kernel(
   uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   uint8_t* wb = smem + STAGES * C::STAGE_BYTES;        // two unpacked B tiles
   uint8_t* ones = wb + 2 * C::B_BYTES;                 // 8 B rows of ones: Σ x
-  EXPERT_SLICE(x, qw, scale, zero, y, M, N, K, G);
+  EXPERT_SLICE(x, qw, scale, zero, y, M, N, K, G,
+               expert_words<PLANES>(N, K, pl.stored));
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wg = warp >> 2, wq = warp & 3;             // warpgroup, warp in it
   const int m0 = blockIdx.y * C::BM, n0 = blockIdx.x * C::BN;
@@ -805,13 +818,13 @@ int run(const void* x, const void* qw, const void* scale, const void* zero,
 
 }  // namespace
 
-// Both entry points return the CUDA error code of the launch (0 on
+// Every entry point returns the CUDA error code of the launch (0 on
 // success).  The caller has checked shapes, dtypes, devices and
 // contiguity; these checks only refuse what would index out of bounds.
 extern "C" int quant_matmul(const void* x, const void* qw, const void* scale,
                             const void* zero, void* y, int M, int N, int K, int G,
                             int x_is_bf16, void* stream) {
-  return run<false>(x, qw, scale, zero, y, M, N, K, G, Planes{0, 1.f, 1.f},
+  return run<false>(x, qw, scale, zero, y, M, N, K, G, Planes{0, 1.f, 1.f, 0},
                     x_is_bf16, stream);
 }
 
@@ -823,7 +836,8 @@ extern "C" int quant_matmul_planes(const void* x, const void* qw, const void* sc
                                    void* stream) {
   if (K % 32 || planes < 1 || planes > 4 || shift < 0 || shift > 7)
     return (int)cudaErrorInvalidValue;
-  const Planes pl{planes, (float)(1u << shift), 1.0f / (float)(1u << shift)};
+  const Planes pl{planes, (float)(1u << shift), 1.0f / (float)(1u << shift),
+                  planes};
   return run<true>(x, qw, scale, zero, y, M, N, K, G, pl, x_is_bf16, stream);
 }
 
@@ -833,8 +847,23 @@ extern "C" int quant_matmul_planes(const void* x, const void* qw, const void* sc
 extern "C" int quant_matmul_experts(const void* x, const void* qw, const void* scale,
                                     const void* zero, void* y, int E, int M, int N,
                                     int K, int G, int x_is_bf16, void* stream) {
-  return run<false>(x, qw, scale, zero, y, M, N, K, G, Planes{0, 1.f, 1.f},
+  return run<false>(x, qw, scale, zero, y, M, N, K, G, Planes{0, 1.f, 1.f, 0},
                     x_is_bf16, stream, E);
+}
+
+// K2-plane over an expert axis: x (E, M, K), qw (E, stored, N, K/32) bit-
+// planes, scale and zero (E, N, G), y (E, M, N); the top `planes` <=
+// `stored` planes of each expert are read; slice e is quant_matmul_planes
+// on expert e's operands, bit for bit (EXPERT_SLICE).
+extern "C" int quant_matmul_experts_planes(const void* x, const void* qw,
+                                           const void* scale, const void* zero,
+                                           void* y, int E, int M, int N, int K,
+                                           int G, int planes, int stored,
+                                           int x_is_bf16, void* stream) {
+  if (K % 32 || planes < 1 || planes > 4 || stored < planes)
+    return (int)cudaErrorInvalidValue;
+  return run<true>(x, qw, scale, zero, y, M, N, K, G,
+                   Planes{planes, 1.f, 1.f, stored}, x_is_bf16, stream, E);
 }
 
 // Dynamic shared memory of the tensor-core route's tile shapes (tile 0:

@@ -13,7 +13,7 @@ and ``attention`` the attention forward.  Implementations:
                 K5 when slotted), larger M to the tiled GEMM (the prefill;
                 once per task present when slotted); bit-plane codes to
                 the plane branch of each (K6a); the expert-axis forms of
-                K1 and K2 for ``quant_matmul_experts``; ``rtn_pack`` to K3
+                K1 and K2, nibble or plane, for ``quant_matmul_experts``; ``rtn_pack`` to K3
                 (nibbles) or K6b (bit-planes), ``kernels/rtn_pack.py``;
                 ``attention(impl="chunked")`` to K4,
                 ``kernels/flash_attention.py``.  A CUDA tensor
@@ -64,7 +64,8 @@ from repro_torch.kernels.quant_matmul import GEMV_MAX_M
 
 __all__ = ["ATTN_IMPLS", "GEMV_MAX_M", "KERNELS", "KNOWN_IMPLS", "attention",
            "chunked_attention_bwd", "default_impl", "dot_f32",
-           "dot_f32_experts", "force_impl", "qmm_grad_bound", "quant_matmul",
+           "dot_f32_experts", "force_impl", "in_kernel", "kernel_region",
+           "qmm_grad_bound", "quant_matmul",
            "quant_matmul_bwd", "quant_matmul_experts",
            "quant_matmul_experts_bwd", "quant_matmul_slotted", "rtn_pack"]
 
@@ -99,6 +100,27 @@ def force_impl(impl: str):
 
 def default_impl() -> str:
     return getattr(_tls, "impl", None) or "cuda"
+
+
+@contextlib.contextmanager
+def kernel_region():
+    """Mark the forward of a kernel op (K1, K2 and their plane and expert
+    forms, K4) within its scope, this thread only.  On the card a kernel
+    is a launch the dispatcher never sees; its plain version on the CPU is
+    dispatched matmuls.  ``in_kernel`` lets ``remat="dots"`` treat both
+    alike — as the reference's ``checkpoint_dots`` treats a custom VJP
+    over a ``pallas_call`` — and recompute the op rather than save its
+    products."""
+    _tls.kernel = getattr(_tls, "kernel", 0) + 1
+    try:
+        yield
+    finally:
+        _tls.kernel -= 1
+
+
+def in_kernel() -> bool:
+    """True within a kernel op's forward (``kernel_region``)."""
+    return getattr(_tls, "kernel", 0) > 0
 
 
 def _rows(x: torch.Tensor) -> torch.Tensor:
@@ -169,11 +191,12 @@ def _qmm_forward(x2d, qw, scale, zero, planes) -> torch.Tensor:
             functools.partial(f, bits=planes[0], shift=planes[1])
             for f in (_qm.quant_matmul_planes_plain, _qm.quant_gemv_planes,
                       _qm.quant_matmul_planes))
-    if impl == "torch":
-        return plain(x2d, qw, scale, zero)
-    if x2d.shape[0] <= GEMV_MAX_M:
-        return gemv(x2d, qw, scale, zero)
-    return gemm(x2d, qw, scale, zero)
+    with kernel_region():
+        if impl == "torch":
+            return plain(x2d, qw, scale, zero)
+        if x2d.shape[0] <= GEMV_MAX_M:
+            return gemv(x2d, qw, scale, zero)
+        return gemm(x2d, qw, scale, zero)
 
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -255,10 +278,12 @@ class _DotF32Experts(torch.autograd.Function):
 
 
 def _codes_f32(qw, k: int, spec: QuantSpec, g: int) -> torch.Tensor:
-    """The codes (N, G, K/G) in float32, nibbles or bit-planes."""
+    """The codes (N, G, K/G) in float32, nibbles or bit-planes (…, N rows
+    flattened into one axis: (bits', E, N, K/32) planes give (E·N, G,
+    K/G))."""
     codes = unpack_codes_planes(qw, k, spec.bits) if spec.plane \
         else unpack_codes(qw, k)
-    return codes.to(torch.float32).reshape(codes.shape[0], g, k // g)
+    return codes.to(torch.float32).reshape(-1, g, k // g)
 
 
 def quant_matmul_bwd(x2d, qw, scale, zero, spec: QuantSpec, dy,
@@ -339,40 +364,65 @@ def quant_matmul_experts(x: torch.Tensor, qw: torch.Tensor,
                          scale: torch.Tensor, zero: torch.Tensor,
                          spec: QuantSpec) -> torch.Tensor:
     """y[e] = x[e] @ Ŵ[e]ᵀ over an MoE block's stacked experts: x (E, C, K),
-    qw (E, N, K/8) nibble words, scale and zero (E, N, G) → (E, C, N) in x's
-    dtype, through ``default_impl()``.  The reference calls ``quant_matmul``
-    under ``jax.vmap`` over the experts, so its dispatch rule applies to
-    each vmapped call of C rows: C ≤ ``GEMV_MAX_M`` takes the expert-axis
-    GEMV (K1), more rows the expert-axis GEMM (K2) — one launch for all E
-    experts either way (every expert has the same C rows: the capacity
-    dispatch pads empty slots with zero rows).  Differentiable in (x,
-    scale, zero) when grad mode is on (``_QuantMatmulExperts``, the
-    reference's ``_qmm_bwd`` for each expert); the codes are frozen.
+    qw (E, N, K/8) nibble words or (E, bits', N, K/32) bit-planes (the
+    reference's per-expert (bits, N, K/32) under ``jax.vmap``; the top
+    ``spec.bits`` planes are read), scale and zero (E, N, G) → (E, C, N) in
+    x's dtype, through ``default_impl()``.  The reference calls
+    ``quant_matmul`` under ``jax.vmap`` over the experts, so its dispatch
+    rule applies to each vmapped call of C rows: C ≤ ``GEMV_MAX_M`` takes
+    the expert-axis GEMV (K1, or K1-plane), more rows the expert-axis GEMM
+    (K2, or K2-plane) — one launch for all E experts either way (every
+    expert has the same C rows: the capacity dispatch pads empty slots with
+    zero rows).  Differentiable in (x, scale, zero) when grad mode is on
+    (``_QuantMatmulExperts``, the reference's ``_qmm_bwd`` for each
+    expert); the codes are frozen.
 
     The expert axis is named by this entry point, never inferred from qw's
-    rank (a bit-plane buffer is 3-D too): nibble codes only."""
-    spec.check_ported()
-    if spec.plane:
-        raise NotImplementedError(
-            "quant_matmul_experts takes nibble codes only (bit-plane MoE "
-            "experts are not ported)")
+    rank (a 2-D linear's bit-plane buffer is 3-D too).  One task's scales
+    and every stored plane's precision: the MoE block has no slotted or
+    verify step, so no draft read."""
+    bits = _expert_planes(qw, spec)
     x = x.contiguous()
     if x.data_ptr() % 16:                # a view starting mid-vector
         x = x.clone()
     if _grad_wanted(x, scale, zero):
         return _QuantMatmulExperts.apply(x, qw, scale, zero, spec)
-    return _qmm_experts_forward(x, qw, scale, zero)
+    return _qmm_experts_forward(x, qw, scale, zero, bits)
 
 
-def _qmm_experts_forward(x, qw, scale, zero) -> torch.Tensor:
-    """The expert-axis forward dispatch: (E, C, K) → (E, C, N)."""
+def _expert_planes(qw: torch.Tensor, spec: QuantSpec):
+    """The planes an expert stack's forward reads (``spec.bits``), None for
+    nibbles; refuses a buffer that does not hold them."""
+    spec.check_ported()
+    if not spec.plane:
+        return None
+    if qw.dim() != 4 or not spec.bits <= qw.shape[1]:
+        raise ValueError(f"cannot read {spec.bits} planes of an expert "
+                         f"stack of shape {tuple(qw.shape)} (need (E, "
+                         f"bits' >= {spec.bits}, N, K/32))")
+    return spec.bits
+
+
+def _qmm_experts_forward(x, qw, scale, zero, bits=None) -> torch.Tensor:
+    """The expert-axis forward dispatch: (E, C, K) → (E, C, N); ``bits``:
+    qw holds bit-planes, of which the top ``bits`` are read."""
     scale = scale.to(torch.float32).contiguous()
     zero = zero.to(torch.float32).contiguous()
-    if default_impl() == "torch":
-        return _qm.quant_matmul_experts_plain(x, qw, scale, zero)
-    if x.shape[1] <= GEMV_MAX_M:
-        return _qm.quant_gemv_experts(x, qw, scale, zero)
-    return _qm.quant_matmul_experts(x, qw, scale, zero)
+    if bits is None:
+        plain, gemv, gemm = (_qm.quant_matmul_experts_plain,
+                             _qm.quant_gemv_experts, _qm.quant_matmul_experts)
+    else:
+        plain, gemv, gemm = (
+            functools.partial(f, bits=bits)
+            for f in (_qm.quant_matmul_experts_planes_plain,
+                      _qm.quant_gemv_experts_planes,
+                      _qm.quant_matmul_experts_planes))
+    with kernel_region():
+        if default_impl() == "torch":
+            return plain(x, qw, scale, zero)
+        if x.shape[1] <= GEMV_MAX_M:
+            return gemv(x, qw, scale, zero)
+        return gemm(x, qw, scale, zero)
 
 
 def quant_matmul_experts_bwd(x, qw, scale, zero, spec: QuantSpec, dy,
@@ -383,9 +433,12 @@ def quant_matmul_experts_bwd(x, qw, scale, zero, spec: QuantSpec, dy,
     summed in float32)."""
     e, _, k = x.shape
     n, g = scale.shape[-2:]
+    # the stack's codes as one 2-D linear's of E·N rows: nibble words (E·N,
+    # K/8), or the planes axis first, (bits', E, N, K/32) — a view
+    flat = qw.transpose(0, 1) if spec.plane else qw.reshape(e * n, -1)
     dx = ds = dz = None
     if need[0]:
-        w = _ref.dequant_ref(qw.reshape(e * n, -1), scale.reshape(e * n, g),
+        w = _ref.dequant_ref(flat, scale.reshape(e * n, g),
                              zero.reshape(e * n, g), (e * n, k), spec,
                              x.dtype).reshape(e, n, k)
         dx = _bmm_f32(dy.to(x.dtype), w).to(x.dtype)
@@ -393,7 +446,7 @@ def quant_matmul_experts_bwd(x, qw, scale, zero, spec: QuantSpec, dy,
         c = _bmm_f32(dy.to(x.dtype).transpose(1, 2), x).reshape(
             e, n, g, k // g)
         if need[1]:
-            codes = _codes_f32(qw.reshape(e * n, -1), k, spec, g)
+            codes = _codes_f32(flat, k, spec, g)
             zf = zero.to(torch.float32)[..., None]
             ds = (c * (codes.reshape(e, n, g, k // g) - zf)).sum(-1).to(
                 scale.dtype)
@@ -411,7 +464,8 @@ class _QuantMatmulExperts(torch.autograd.Function):
     def forward(ctx, x, qw, scale, zero, spec):
         ctx.spec = spec
         ctx.save_for_backward(x, qw, scale, zero)
-        return _qmm_experts_forward(x, qw, scale, zero)
+        return _qmm_experts_forward(x, qw, scale, zero,
+                                    _expert_planes(qw, spec))
 
     @staticmethod
     def backward(ctx, dy):
@@ -527,8 +581,9 @@ def attention(q, k, v, *, causal=True, window=None, scale=None, offset=None,
 def _chunked_forward(q, k, v, causal, window, scale, offset, return_lse):
     fn = _fa.flash_attention if default_impl() == "cuda" \
         else _ref.flash_attention_ref
-    return fn(q, k, v, causal=causal, window=window, scale=scale,
-              offset=offset, return_lse=return_lse)
+    with kernel_region():
+        return fn(q, k, v, causal=causal, window=window, scale=scale,
+                  offset=offset, return_lse=return_lse)
 
 
 # the reference's key block for the chunked scan (chunked_attention.py:23)

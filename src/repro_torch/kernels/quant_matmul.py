@@ -36,6 +36,15 @@ plain PyTorch versions.
                        e's operands; their plain version
                        ``quant_matmul_experts_plain`` is ``quant_matmul_plain``
                        on each expert in turn.
+  * ``quant_gemv_experts_planes``, ``quant_matmul_experts_planes``
+                     — their bit-plane forms (K1-plane and K2-plane over the
+                       expert axis): qw (E, bits', N, K/32), each expert's
+                       top ``bits`` planes read; replaces the plane branch
+                       of ``quant_gemv_pallas`` and ``quant_matmul_pallas``
+                       under the same ``jax.vmap``.  Slice e is bit for bit
+                       the 2-D plane kernel on expert e's operands;
+                       ``quant_matmul_experts_planes_plain`` is
+                       ``quant_matmul_planes_plain`` on each expert in turn.
   * ``quant_matmul_plain`` — ``x.float() @ dequant_f32(qw, s, z).T → x.dtype``,
                        the semantics of the TPU kernels and of
                        ``ref.quant_matmul_ref``; ``quant_matmul_tasks_plain``
@@ -102,6 +111,9 @@ _ENTRIES = {
     "quant_gemv_tc_split": ("quant_gemv", [_I, _I]),
     "quant_gemv_experts": ("quant_gemv", [_P] * 5 + [_I] * 6 + [_P]),
     "quant_matmul_experts": ("quant_matmul", [_P] * 5 + [_I] * 6 + [_P]),
+    "quant_gemv_experts_planes": ("quant_gemv", [_P] * 5 + [_I] * 8 + [_P]),
+    "quant_matmul_experts_planes": ("quant_matmul",
+                                    [_P] * 5 + [_I] * 8 + [_P]),
 }
 _entries: dict = {}
 
@@ -130,6 +142,16 @@ def quant_matmul_experts_plain(x, qw, scale, zero):
     N, K/8), scale and zero (E, N, G) → (E, C, N), ``quant_matmul_plain``
     on each expert in turn."""
     return torch.stack([quant_matmul_plain(x[e], qw[e], scale[e], zero[e])
+                        for e in range(x.shape[0])])
+
+
+def quant_matmul_experts_planes_plain(x, qw, scale, zero, bits):
+    """The plain version of the expert-axis plane kernels: x (E, C, K), qw
+    (E, bits', N, K/32), scale and zero (E, N, G) → (E, C, N),
+    ``quant_matmul_planes_plain`` on each expert's top ``bits`` planes in
+    turn."""
+    return torch.stack([quant_matmul_planes_plain(x[e], qw[e], scale[e],
+                                                  zero[e], bits)
                         for e in range(x.shape[0])])
 
 
@@ -336,13 +358,14 @@ def error_bound(x, qw, scale, zero, plain, task_ids=None, planes=None,
     A bf16 output adds one bf16 ulp of the larger result (rounding to 8
     significant bits can split two float32 sums across a rounding step).
 
-    An expert axis (x (E, C, K), qw (E, N, K/8), scale and zero (E, N, G),
-    plain (E, C, N)): each expert's bound, the same formula batched (every
-    expert has the same N, K and G, so the same n, P, W and G).
+    An expert axis (x (E, C, K), qw (E, N, K/8) or with ``planes`` (E,
+    bits', N, K/32), scale and zero (E, N, G), plain (E, C, N)): each
+    expert's bound, the same formula batched (every expert has the same N,
+    K and G, so the same n, P, W and G).
     """
     if x.dim() == 3:
         return _error_bound_experts(x, qw, scale, zero, plain, factored,
-                                    gemv)
+                                    gemv, planes)
     if task_ids is not None:
         out = torch.empty(plain.shape, dtype=torch.float32,
                           device=plain.device)
@@ -375,14 +398,25 @@ def error_bound(x, qw, scale, zero, plain, task_ids=None, planes=None,
     return bound
 
 
-def _error_bound_experts(x, qw, scale, zero, plain, factored, gemv):
-    """``error_bound`` over an expert axis, batched (nibble codes)."""
+def _expert_codes(qw, k: int, planes=None) -> torch.Tensor:
+    """An expert stack's codes (E·N, K) uint8: nibble words (E, N, K/8), or
+    with ``planes = (bits, shift)`` the top ``bits`` planes of (E, bits',
+    N, K/32)."""
+    if planes is None:
+        return unpack_codes(qw.reshape(-1, qw.shape[-1]), k)
+    return unpack_codes_planes(qw.transpose(0, 1), k, planes[0]).reshape(-1, k)
+
+
+def _error_bound_experts(x, qw, scale, zero, plain, factored, gemv,
+                         planes=None):
+    """``error_bound`` over an expert axis, batched (nibble codes, or
+    ``planes = (bits, 0)``)."""
     e, _, k = x.shape
     n, g = scale.shape[-2:]
     u = 2.0 ** -24
     xa = x.to(torch.float32).abs()
     if factored:
-        q = unpack_codes(qw.reshape(e * n, -1), k).to(torch.float32)
+        q = _expert_codes(qw, k, planes).to(torch.float32)
         wt = (scale.abs()[..., None] * (q.reshape(e, n, g, k // g)
                                         + zero.abs()[..., None])
               ).reshape(e, n, k)
@@ -391,8 +425,11 @@ def _error_bound_experts(x, qw, scale, zero, plain, factored, gemv):
                 * gemv_block_split(n, k) if gemv else g)
         coef = k // g * 2 * u + (k + 2 * adds + 6) * u
     else:
-        wt = _dequant_f32(qw.reshape(e * n, -1), scale.reshape(e * n, g),
-                          zero.reshape(e * n, g), k).abs().reshape(e, n, k)
+        q = _expert_codes(qw, k, planes).to(torch.float32)
+        wt = (scale.reshape(e * n, g, 1) * (
+            q.reshape(e * n, g, k // g) - zero.reshape(e * n, g, 1))
+              ).abs().reshape(e, n, k)
+        del q
         coef = 2 * k * u
     bound = coef * torch.bmm(xa, wt.transpose(1, 2))
     if plain.dtype == torch.bfloat16:
@@ -478,13 +515,17 @@ def _check_tasks(x, qw, scale_stack, zero_stack, task_ids, planes=None):
         raise ValueError("operands must be contiguous")
 
 
-def _check_experts(x, qw, scale, zero, max_m=None):
+def _check_experts(x, qw, scale, zero, max_m=None, bits=None):
     """Raise on anything the expert-axis kernels do not take: x (E, C, K),
-    qw (E, N, K/8) nibble words, scale and zero (E, N, G), each expert's
+    qw (E, N, K/8) nibble words — or, with ``bits`` (the planes read), (E,
+    bits', N, K/32) bit-planes —, scale and zero (E, N, G), each expert's
     slice what ``_check`` asks of a 2-D call."""
-    if x.dim() != 3 or qw.dim() != 3 or scale.dim() != 3 or zero.dim() != 3:
+    qdim, qshape = (3, "(E, N, K/8)") if bits is None \
+        else (4, "(E, bits', N, K/32)")
+    if x.dim() != 3 or qw.dim() != qdim or scale.dim() != 3 \
+            or zero.dim() != 3:
         raise ValueError(
-            f"need x (E, C, K), qw (E, N, K/8), scale and zero (E, N, G); "
+            f"need x (E, C, K), qw {qshape}, scale and zero (E, N, G); "
             f"got {tuple(x.shape)}, {tuple(qw.shape)}, {tuple(scale.shape)}, "
             f"{tuple(zero.shape)}")
     e = x.shape[0]
@@ -492,7 +533,8 @@ def _check_experts(x, qw, scale, zero, max_m=None):
         raise ValueError(f"x, qw, scale and zero need the same expert count "
                          f"1..65535; got {x.shape[0]}, {qw.shape[0]}, "
                          f"{scale.shape[0]}, {zero.shape[0]}")
-    _check(x[0], qw[0], scale[0], zero[0], max_m=max_m)
+    _check(x[0], qw[0], scale[0], zero[0], max_m=max_m,
+           planes=None if bits is None else (bits, 0))
     if not all(t.is_contiguous() for t in (x, qw, scale, zero)):
         raise ValueError("operands must be contiguous")
 
@@ -547,21 +589,24 @@ def _launch(name: str, x, qw, scale, zero, task_ids=None, planes=None):
     return y
 
 
-def _launch_experts(name: str, x, qw, scale, zero):
+def _launch_experts(name: str, x, qw, scale, zero, bits=None):
     if x.device.type != "cuda":
         raise ValueError(f"{name} runs on CUDA tensors, got {x.device}")
     fn = _entry(name)
     e, m, k = x.shape
     n, g = scale.shape[-2], scale.shape[-1]
+    # the planes read and the planes each expert stores (its stride)
+    planes = [] if bits is None else [bits, qw.shape[1]]
     y = torch.empty((e, m, n), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(x.data_ptr(), qw.data_ptr(), scale.data_ptr(),
-                zero.data_ptr(), y.data_ptr(), e, m, n, k, g,
+                zero.data_ptr(), y.data_ptr(), e, m, n, k, g, *planes,
                 int(x.dtype == torch.bfloat16), stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc} "
-                           f"(E={e}, M={m}, N={n}, K={k}, G={g}, {x.dtype})")
+                           f"(E={e}, M={m}, N={n}, K={k}, G={g}, {x.dtype}"
+                           f"{'' if bits is None else f', planes {planes}'})")
     return y
 
 
@@ -658,8 +703,36 @@ def quant_matmul_experts(x, qw, scale, zero):
     return y
 
 
+def quant_gemv_experts_planes(x, qw, scale, zero, bits):
+    """K1-plane over an expert axis: y[e] = x[e] @ Ŵ[e]ᵀ for x (E, C ≤ 32,
+    K), Ŵ[e] from the top ``bits`` planes of qw[e] (E, bits', N, K/32) —
+    one launch for all E experts, slice e bit for bit
+    ``quant_gemv_planes`` on expert e's operands."""
+    _check_experts(x, qw, scale, zero, max_m=GEMV_MAX_M, bits=bits)
+    if x.device.type == "cpu":
+        return quant_matmul_experts_planes_plain(x, qw, scale, zero, bits)
+    y = _launch_experts("quant_gemv_experts_planes", x, qw, scale, zero,
+                        bits)
+    quant_gemv_experts_planes.launches += 1
+    return y
+
+
+def quant_matmul_experts_planes(x, qw, scale, zero, bits):
+    """K2-plane over an expert axis: y[e] = x[e] @ Ŵ[e]ᵀ for x (E, C, K), Ŵ[e]
+    from the top ``bits`` planes of qw[e] — one launch for all E experts,
+    slice e bit for bit ``quant_matmul_planes`` on expert e's operands."""
+    _check_experts(x, qw, scale, zero, bits=bits)
+    if x.device.type == "cpu":
+        return quant_matmul_experts_planes_plain(x, qw, scale, zero, bits)
+    y = _launch_experts("quant_matmul_experts_planes", x, qw, scale, zero,
+                        bits)
+    quant_matmul_experts_planes.launches += 1
+    return y
+
+
 KERNELS = (quant_gemv, quant_matmul, quant_gemv_tasks, quant_gemv_planes,
            quant_matmul_planes, quant_gemv_tasks_planes, quant_gemv_experts,
-           quant_matmul_experts)
+           quant_matmul_experts, quant_gemv_experts_planes,
+           quant_matmul_experts_planes)
 for _k in KERNELS:
     _k.launches = 0

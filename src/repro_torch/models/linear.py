@@ -19,10 +19,12 @@ starcoder2) is zero-initialised and never quantized.
 
 An expert linear (``n_experts=E``: an MoE block's stacked experts, the
 reference's ``mlp_init`` under ``jax.vmap``) holds every leaf with a
-leading expert axis — w (E, out, in), qw (E, out, in/8), scale and zero
-(E, out, G) — and ``apply`` takes x (E, C, in) → (E, C, out), expert e's
-rows through expert e's weight.  It has no bias and no adapter (LoRA
-targets the attention projections only) and nibble codes only.
+leading expert axis — w (E, out, in), qw (E, out, in/8) nibble words or
+(E, bits, out, in/32) bit-planes, scale and zero (E, out, G) — and
+``apply`` takes x (E, C, in) → (E, C, out), expert e's rows through expert
+e's weight.  It has no bias and no adapter (LoRA targets the attention
+projections only), and serves one task's scales at the codes' full
+precision: no slots, no draft read.
 
 ``core/peqa.py`` turns fp into peqa in place (``set_quantized``),
 ``core/qat.py`` fp into qat (``set_fake_quant``) and ``core/lora.py`` adds
@@ -182,11 +184,17 @@ def _apply_experts(p: Linear, x: torch.Tensor, slots, draft_bits
     """An expert linear's y (E, C, out) = x (E, C, in) · W[e]ᵀ per expert, in
     x's dtype: the reference's ``apply`` under ``jax.vmap`` — the quantized
     product through ``ops.quant_matmul_experts``, the fp and QAT products
-    through ``ops.dot_f32_experts``.  Forward of one task only (no slots,
-    no draft: the reference's MoE has no slotted or verify step)."""
-    if slots is not None or draft_bits is not None:
-        raise NotImplementedError("an expert linear serves one task's "
-                                  "scales and nibble codes only")
+    through ``ops.dot_f32_experts``; nibble codes or bit-planes, as the
+    spec says.  Forward of one task only (no slots, no draft: the
+    reference's MoE has no slotted or verify step)."""
+    if slots is not None:
+        raise NotImplementedError(
+            "an expert linear has no slotted step: MoE expert dispatch "
+            "cannot thread per-slot scales")
+    if draft_bits is not None:
+        raise NotImplementedError(
+            "an expert linear has no draft read: MoE expert dispatch is not "
+            "supported in the verify step")
     if p.quantized:
         return ops.quant_matmul_experts(x, p.qw, p.scale, p.zero, p.spec)
     w = p.w.to(x.dtype)

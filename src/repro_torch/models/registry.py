@@ -180,9 +180,6 @@ def check_supported(cfg: ModelConfig) -> None:
          "has a gain and no bias, so its LayerNorm reads a missing leaf)"),
         (moe and cfg.moe.expert_sharding not in EXPERT_SHARDINGS,
          f"expert_sharding={cfg.moe.expert_sharding!r}" if moe else ""),
-        (moe and cfg.quant.layout == "plane",
-         "bit-plane codes on MoE experts (MoE has no verify step, so planes "
-         "would only be storage; use layout='nibble')"),
         (moe and cfg.tuning.mode == "lora_optq",
          "lora_optq on MoE: the reference's GPTQ replays only a dense block "
          "(core/gptq.py reads layer_p['mlp']), so it has no OPTQ backbone "

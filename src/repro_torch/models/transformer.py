@@ -16,9 +16,11 @@ from __future__ import annotations
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models import attention, common, linear, moe
 
 
@@ -97,23 +99,53 @@ def _final_logits(model: Transformer, h: torch.Tensor, cfg: ModelConfig,
 
 # ModelConfig.remat values the port runs: "none" keeps every activation for
 # the backward; "block" and "full" (the same in the reference) recompute
-# each block's forward in the backward from its input
-REMATS = ("none", "block", "full")
+# each block's forward in the backward from its input; "dots" recomputes
+# it too but keeps the outputs of its dense products (the reference's
+# ``checkpoint_dots`` policy, ``dots_policy``)
+REMATS = ("none", "block", "full", "dots")
+# the dispatched ops a dense product lowers to (the fp linears' and the
+# router's ``ops.dot_f32``, the plain attention's einsums)
+_DOTS = frozenset((torch.ops.aten.mm, torch.ops.aten.bmm,
+                   torch.ops.aten.addmm, torch.ops.aten.baddbmm))
+
+
+def dots_policy(ctx, func, *args, **kwargs):
+    """remat="dots"'s selective-checkpoint policy: save the output of every
+    dense product, recompute everything else.  A quantized linear (K1, K2
+    and their forms) and K4 are recomputed: on the card they are launches
+    the dispatcher never sees, and their plain versions on the CPU run
+    inside ``ops.kernel_region`` — as the reference's kernel path, where
+    ``_qmm`` is a custom VJP over a ``pallas_call``, not a ``dot_general``.
+    Their outputs' allocations are recomputed too."""
+    if func.overloadpacket in _DOTS and not ops.in_kernel():
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_contexts():
+    """The (forward, recompute) contexts of one "dots" checkpoint."""
+    return create_selective_checkpoint_contexts(dots_policy)
 
 
 def _ffn(layer: Block, h: torch.Tensor, cfg: ModelConfig, slots=None,
          draft_bits=None):
     """The block's feed-forward on ln2(h) → (out, aux): the MLP (aux None)
     or the MoE block (its aux loss, float32).  The MoE block serves one
-    task's nibble codes only: the reference builds it no slotted step, and
-    its verify is refused by ``FamilyCaps.verify_reason``."""
+    task's scales (nibble codes or bit-planes) and no draft read: the
+    reference builds it no slotted step, and its verify is refused by
+    ``FamilyCaps.verify_reason``."""
     hin = common.norm_apply(layer.ln2, h, cfg)
     if layer.moe is None:
         return common.mlp_apply(layer.mlp, hin, cfg, slots=slots,
                                 draft_bits=draft_bits), None
-    if slots is not None or draft_bits is not None:
-        raise NotImplementedError("MoE expert dispatch serves one task's "
-                                  "scales and nibble codes only")
+    if slots is not None:
+        raise NotImplementedError(
+            "MoE expert dispatch cannot thread per-slot scales (no slotted "
+            "step)")
+    if draft_bits is not None:
+        raise NotImplementedError(
+            "MoE expert dispatch is not supported in the verify step (no "
+            "draft read)")
     return moe.apply(layer.moe, hin, cfg)
 
 
@@ -154,7 +186,11 @@ def forward_aux(model: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
     without MoE).  Under ``cfg.remat`` "block" or "full" each block runs
     under ``torch.utils.checkpoint`` (non-reentrant), so the backward
     recomputes its forward — every quantized linear's kernel twice a step
-    — and the aux comes out of the checkpoint with h."""
+    — and the aux comes out of the checkpoint with h.  Under "dots" the
+    same checkpoint keeps its dense products' outputs (``dots_policy``):
+    the backward recomputes the rest, every quantized linear included.
+    An MoE block's recompute routes as its forward did under either: the
+    router's logits are the same product of the same input."""
     if cfg.remat not in REMATS:
         raise NotImplementedError(f"remat={cfg.remat!r} is not ported "
                                   f"(have {REMATS})")
@@ -164,6 +200,10 @@ def forward_aux(model: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
     for layer in model.layers:
         if cfg.remat == "none":
             h, aux = _block_train(layer, h, cfg, rope)
+        elif cfg.remat == "dots":
+            h, aux = checkpoint(_block_train, layer, h, cfg, rope,
+                                use_reentrant=False,
+                                context_fn=_dots_contexts)
         else:
             h, aux = checkpoint(_block_train, layer, h, cfg, rope,
                                 use_reentrant=False)

@@ -129,8 +129,9 @@ def init(cfg: ModelConfig, generator: torch.Generator, device,
 def _checkpointed(cfg: ModelConfig, fn, *args):
     """``fn(*args)``, under ``torch.utils.checkpoint`` (non-reentrant) for
     ``cfg.remat`` "block" or "full" where a backward may follow: it
-    recomputes the block."""
-    if cfg.remat == "none" or not torch.is_grad_enabled():
+    recomputes the block.  "dots" runs as "none", as in the reference
+    (whisper.py tests ``remat in ("block", "full")``)."""
+    if cfg.remat not in ("block", "full") or not torch.is_grad_enabled():
         return fn(*args)
     return checkpoint(fn, *args, use_reentrant=False)
 

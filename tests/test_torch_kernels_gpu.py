@@ -1357,6 +1357,118 @@ def test_moe_tiny_model_on_the_card(cuda, arch):
     assert (lk - lp).abs().max() <= 2 ** -5 * lp.abs().max()
 
 
+# ------------------------- the moe family on bit-planes: the expert axis
+
+def _expert_planes(qw, s, z, bits):
+    """The nibble expert stack's codes as (E, bits, N, K/32) planes — at 3
+    bits the codes q >> 1 under ``draft_scales`` — and their scales."""
+    from repro_torch.core.quant import unpack_codes
+    planes = torch.stack([pack_codes_planes(unpack_codes(q) >> (4 - bits),
+                                            bits) for q in qw])
+    sd, zd = (t.contiguous() for t in draft_scales(s, z, 4, bits))
+    return planes, sd, zd
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [4, 3])
+@pytest.mark.parametrize("e,n,k,c", [(64, 1408, 2048, 1), (64, 2048, 1408, 120),
+                                     (8, 14336, 4096, 1),
+                                     (8, 4096, 14336, 320)])
+def test_moe_expert_planes_bitwise_2d_and_within_bound(cuda, e, n, k, c,
+                                                       bits):
+    """The plane forms of the expert-axis K1 (C ≤ 32) and K2 at deepseek-
+    moe-16b's and mixtral-8x7b's expert shapes, bf16, on 4 and 3 planes:
+    slice e bit for bit the 2-D plane kernel on expert e's planes, within
+    ``error_bound`` (factored) of ``quant_matmul_planes_plain`` on that
+    expert, and at 4 bits bit for bit the nibble expert-axis kernel on the
+    same codes."""
+    x, qw, s, z = _expert_operands(e, c, n, k, None, torch.bfloat16, cuda)
+    planes, sd, zd = _expert_planes(qw, s, z, bits)
+    gemv = c <= qm.GEMV_MAX_M
+    fn2, fne, nib = ((qm.quant_gemv_planes, qm.quant_gemv_experts_planes,
+                      qm.quant_gemv_experts) if gemv else
+                     (qm.quant_matmul_planes, qm.quant_matmul_experts_planes,
+                      qm.quant_matmul_experts))
+    before = fne.launches
+    y = fne(x, planes, sd, zd, bits)
+    assert fne.launches == before + 1 and y.shape == (e, c, n)
+    for i in range(e):
+        assert torch.equal(y[i], fn2(x[i], planes[i], sd[i], zd[i], bits)), i
+        plain = qm.quant_matmul_planes_plain(x[i], planes[i], sd[i], zd[i],
+                                             bits)
+        err = (y[i].float() - plain.float()).abs()
+        assert (err <= qm.error_bound(x[i], planes[i], sd[i], zd[i], plain,
+                                      planes=(bits, 0), factored=True,
+                                      gemv=gemv)).all(), i
+    if bits == 4:
+        assert torch.equal(y, nib(x, qw, s, z))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [1, 40])
+def test_moe_expert_planes_read_their_own_expert(cuda, c):
+    """At 3 bits an expert's planes are 3·N·K/32 words: slice e of one
+    launch is the same with every other expert's planes scrambled, and the
+    f32 (SIMT) route too; ``ops.quant_matmul_experts`` on a 3-bit plane
+    spec launches the plane form once and never the plain version."""
+    x, qw, s, z = _expert_operands(6, c, 96, 256, None, torch.bfloat16,
+                                   cuda, seed=5)
+    planes, sd, zd = _expert_planes(qw, s, z, 3)
+    fn = qm.quant_gemv_experts_planes if c <= 32 \
+        else qm.quant_matmul_experts_planes
+    for xx in (x, x.float()):
+        y = fn(xx, planes, sd, zd, 3)
+        for i in range(6):
+            other = planes.clone()
+            keep = torch.arange(6, device=cuda) != i
+            other[keep] = torch.randint(-2 ** 31, 2 ** 31 - 1,
+                                        other[keep].shape, device=cuda,
+                                        dtype=torch.int32)
+            assert torch.equal(fn(xx, other, sd, zd, 3)[i], y[i]), i
+    spec = QuantSpec(bits=3, layout="plane")
+    before = fn.launches
+    with torch.no_grad():
+        got = ops.quant_matmul_experts(x, planes, sd, zd, spec)
+    assert fn.launches == before + 1
+    assert torch.equal(got, fn(x, planes, sd, zd, 3))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "deepseek-moe-16b"])
+def test_moe_plane_tiny_model_on_the_card(cuda, arch):
+    """``make_tiny`` of each MoE config on 3 bit-planes in bf16 on the card:
+    ``generate`` launches only plane forms — one expert-axis K2-plane per
+    expert linear for the prefill, one expert-axis K1-plane per expert
+    linear a decode step —, and the prefill's logits through the kernels
+    lie within 2⁻⁵ of their largest magnitude of the plain route's."""
+    from repro_torch import configs
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.core import policies
+    from repro_torch.models import registry
+    from repro_torch.train.serve import Engine
+    cfg = configs.make_tiny(configs.get_config(arch)).replace(
+        dtype="bfloat16", d_model=256, head_dim=64, d_ff=256,
+        quant=QuantConfig(bits=3, layout="plane"))
+    api = registry.build(cfg)
+    model, _ = policies.build(api, 0)
+    prompt = torch.randint(0, cfg.vocab_size, (4, 48),
+                           generator=torch.Generator().manual_seed(1))
+    for kern in ops.KERNELS:
+        kern.launches = 0
+    Engine(api, model).generate(prompt, 3)
+    n = 3 * cfg.n_layers
+    launched = {k.__name__: k.launches for k in ops.KERNELS if k.launches}
+    assert launched["quant_matmul_experts_planes"] == n
+    assert launched["quant_gemv_experts_planes"] == 2 * n
+    assert not {"quant_gemv", "quant_matmul", "quant_gemv_experts",
+                "quant_matmul_experts"} & set(launched)
+    with torch.inference_mode():
+        lk, _ = api.prefill(model, {"tokens": prompt.to(cuda)})
+        with ops.force_impl("torch"):
+            lp, _ = api.prefill(model, {"tokens": prompt.to(cuda)})
+    assert (lk - lp).abs().max() <= 2 ** -5 * lp.abs().max()
+
+
 # ------------------------------- the encdec family: whisper-medium's shapes
 
 # (N, K) of whisper-medium's linears: q/k/v/o and the cross-attention's

@@ -137,8 +137,8 @@ def test_moe_configs_match_reference(arch, make):
 
 def test_moe_build_caps_and_refusals():
     """Both full configs build (no weights are made), with the reference's
-    MoE capabilities; the arms and options the port does not run on MoE
-    raise with their reasons."""
+    MoE capabilities, also on bit-plane codes (4 and 3 bits); the arms and
+    options the port does not run on MoE raise with their reasons."""
     for arch in ARCHS:
         api = registry.build(tconfigs.get_config(arch), device="cpu")
         assert api.decode_step_slotted is None and api.prefill_slotted is None
@@ -150,9 +150,11 @@ def test_moe_build_caps_and_refusals():
         assert api.caps.verify_reason == \
             "MoE expert dispatch is not supported in the verify step"
     _, tcfg = tiny_pair("deepseek-moe-16b")
-    for kw, why in ((dict(quant=QuantConfig(layout="plane")),
-                     "bit-plane codes on MoE"),
-                    (dict(tuning=TTuning(mode="lora_optq")),
+    for bits in (4, 3):
+        api = registry.build(tcfg.replace(quant=QuantConfig(
+            bits=bits, layout="plane")), device="cpu")
+        assert api.decode_step_slotted is None and api.caps.verify_reason
+    for kw, why in ((dict(tuning=TTuning(mode="lora_optq")),
                      "replays only a dense block"),
                     (dict(moe=dataclasses.replace(
                         tcfg.moe, expert_sharding="pipeline")),
@@ -404,7 +406,8 @@ def _expert_operands(e, c, n, k, group, dtype, seed=0):
 def test_expert_plain_versions_equal_per_expert_plain(c, dtype):
     """Both expert-axis wrappers on CPU tensors, and ``ops.
     quant_matmul_experts`` on either impl, equal ``quant_matmul_plain``
-    on each expert in turn, bit for bit; the GEMV refuses C > 32."""
+    on each expert in turn, bit for bit; the GEMV refuses C > 32, and a
+    plane spec refuses nibble words."""
     x, qw, s, z = _expert_operands(3, c, 24, 64, 16, dtype)
     want = torch.stack([qm.quant_matmul_plain(x[e], qw[e], s[e], z[e])
                         for e in range(3)])
@@ -422,7 +425,7 @@ def test_expert_plain_versions_equal_per_expert_plain(c, dtype):
             qm.quant_gemv_experts(x, qw, s, z)
     with pytest.raises(ValueError, match="same expert count"):
         qm.quant_matmul_experts(x, qw[:2], s[:2], z[:2])
-    with pytest.raises(NotImplementedError, match="nibble"):
+    with pytest.raises(ValueError, match="expert stack of shape"):
         ops.quant_matmul_experts(x, qw, s, z, QuantSpec(layout="plane"))
 
 

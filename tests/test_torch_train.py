@@ -332,13 +332,17 @@ def _check_train_steps(mode, dtype, attn, remat, ocfg,
 
 
 def test_train_step_refuses_a_mesh_and_remat_dots():
+    """A mesh is refused; remat="dots" builds (``test_torch_remat_dots.py``
+    holds it to the reference), and a remat the reference does not know
+    is refused."""
     _, tcfg = tiny_llama_pair()
     api = registry.build(tcfg, device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         step.build_train_step(api, tcfg, TrainConfig(), {}, None,
                               mesh=object())
+    registry.build(tcfg.replace(remat="dots"), device="cpu")
     with pytest.raises(NotImplementedError, match="remat"):
-        registry.build(tcfg.replace(remat="dots"), device="cpu")
+        registry.build(tcfg.replace(remat="offload"), device="cpu")
 
 
 def test_eval_step_makes_no_graph_and_remat_keeps_the_loss():
@@ -347,7 +351,7 @@ def test_eval_step_makes_no_graph_and_remat_keeps_the_loss():
     batch = pipeline.PackedLM(synthetic.corpus(tcfg.vocab_size, 800, seed=5),
                               2, 16).batch_at(0)
     losses = {}
-    for remat in ("none", "block", "full"):
+    for remat in ("none", "block", "full", "dots"):
         cfg = tcfg.replace(remat=remat)
         api = registry.build(cfg, device="cpu")
         model = bridge.to_module(to_numpy(jq), cfg, device="cpu")

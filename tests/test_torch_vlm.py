@@ -144,13 +144,18 @@ def test_vlm_config_and_build():
                     (dict(family="ssm"), "family 'ssm'"),
                     (dict(family="hybrid"), "family 'hybrid'"),
                     (dict(moe=MoEConfig(n_experts=4, top_k=2),
-                          quant=QuantConfig(layout="plane")),
-                     "bit-plane codes on MoE"),
+                          tuning=TTuning(mode="lora_optq")),
+                     "lora_optq on MoE"),
                     (dict(bf16_reduce=True), "bf16_reduce"),
                     (dict(use_rope=False), "learned positions"),
-                    (dict(remat="dots"), "remat='dots'")):
+                    (dict(remat="offload"), "remat='offload'")):
         with pytest.raises(NotImplementedError, match=why):
             registry.build(tiny.replace(**kw), device="cpu")
+    # bit-plane MoE experts and remat="dots" build, as in the reference
+    registry.build(tiny.replace(moe=MoEConfig(n_experts=4, top_k=2),
+                                quant=QuantConfig(layout="plane")),
+                   device="cpu")
+    registry.build(tiny.replace(remat="dots"), device="cpu")
 
 
 def test_reference_tree_round_trips_through_the_bridge():
