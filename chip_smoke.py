@@ -426,7 +426,30 @@ line:
                prefill, K2 per long prefill, K4 per decode step, the plane
                K5 per draft step and verify); the ``kernels`` line's
                ``harness_launches`` is their sum.
- 21. launch  — (after arms) the CLIs as subprocesses, each gated on exit
+ 21. mesh    — (after harness) serving on (data, model) meshes over
+               torch.distributed at llama3.2-1b's full width and depth:
+               phase main's whole model saved once, each spawned rank
+               cutting its shard (``dist.sharding.shard_model``).  Mesh
+               (1, 1) over NCCL: prefill logits and tokens bit-equal to
+               the unsharded engine's, and a decode step's host time by
+               operator beside the unsharded one's (``decode_profile``).
+               Every rank's backend and device from ``backend.summary``
+               (NCCL or gloo, cuda:0).  Meshes (1, 2) and (2, 2), their
+               ranks on cuda:0 under gloo (one card): ``generate`` 4 ×
+               256 + 32 twice (equal tokens), prefill logits within 2⁻⁵
+               of the largest unsharded one, each rank's K1 / K2 / K4
+               launches those of phase main, every new shard shape of K1,
+               K2, K4, K5 and the three K6a forms held once to its plain
+               version (and timed) as it happens on rank 0
+               (``CheckedQuantMatmul(shapes=True)``); 8 requests
+               over 2 tasks resident on nibbles, resident and speculative
+               on 4 planes, equal tokens; a task swap's and a row
+               install's collective record empty; 0 vocab-extent gathers
+               a logitshard decode step, ≥ 1 without.  The collectives a
+               decode step makes (count and bytes by kind), decode ms a
+               step, the peak a rank; gloo's times are its loopback path,
+               not NCCL's speed.
+ 22. launch  — (after arms) the CLIs as subprocesses, each gated on exit
                code 0 and its own success line: ``launch.train`` at
                llama3.2-1b's full width and depth, 10 PEQA steps of 8 ×
                256 checkpointed (its step wall from its log lines'
@@ -436,7 +459,7 @@ line:
                (fewer target steps than its greedy replay), both on the
                reduced config the CLI's ``--tiny`` forces; ``--family-smoke``
                for llama3.2-1b (tokens equal to lockstep ``generate``).
- 22. examples — ``train.instruction_tune.run`` at its defaults
+ 23. examples — ``train.instruction_tune.run`` at its defaults
                (llama3.2-20m, 300 + 300 steps, 3 bits): the PEQA-tuned
                instruction perplexity below the RTN 3-bit one, the codes
                bit-identical, the exported npz reloading equal to the
@@ -1642,16 +1665,12 @@ def kernel_tiny(torch, gen, worst) -> dict:
 
 
 def phase_main(torch) -> dict:
-    from repro_torch import configs
-    from repro_torch.configs.base import QuantConfig, TuningConfig
     from repro_torch.core import policies
     from repro_torch.kernels import ops
     from repro_torch.models import registry
     from repro_torch.train.serve import Engine
 
-    cfg = configs.get_config("llama3.2-1b").replace(
-        tuning=TuningConfig(mode="peqa"),
-        quant=QuantConfig(bits=4, group_size=None, n_grid=20))
+    cfg = main_cfg()
     api = registry.build(cfg)
     t0 = time.perf_counter()
     model, mask = policies.build(api, SEED)
@@ -3750,13 +3769,28 @@ class CheckedQuantMatmul:
     counters again).  ``watch = (i, j)``: expert call j's input must equal
     expert call i's bit for bit (a remat recompute's first expert call
     against the forward's: the same routing).  Counts the calls checked by
-    kernel (``calls``).  Wraps the entry points the model calls; restored
-    on exit."""
+    kernel (``calls``).
+
+    With ``shapes`` it holds instead the kernel each ``ops.quant_matmul``,
+    ``ops.quant_matmul_slotted`` and chunked ``ops.attention`` call
+    reaches — K1, K2, K5, the K6a forms (draft reads too) and K4 —, once
+    for each new call shape, on the call's operands: launched again,
+    within ``error_bound`` of its plain version (factored on the
+    tensor-core route), and timed (``timed``: CUDA-graph replay, so no
+    host launch cost; operands warm in L2) beside its plain version
+    (``events_ms``: the plain K5 reads its task ids on the host, which a
+    graph cannot capture) and its bound (``rows``).  The launches made for
+    this are taken off the kernels' counters again.
+
+    Wraps the ops entry points the model calls; restored on exit."""
+
+    HOOKS = ("quant_matmul", "quant_matmul_experts", "quant_matmul_slotted",
+             "attention")
 
     def __init__(self, ops, label, rows_m=None, bitwise_2d=False,
-                 watch=None):
+                 watch=None, shapes=False):
         self.ops, self.label, self.rows_m = ops, label, rows_m
-        self.bitwise_2d, self.watch = bitwise_2d, watch
+        self.bitwise_2d, self.watch, self.shapes = bitwise_2d, watch, shapes
         self.calls = {kname(k, p): 0 for p in (False, True) for k in (
             "quant_gemv", "quant_matmul", "quant_gemv_experts",
             "quant_matmul_experts")}
@@ -3764,14 +3798,50 @@ class CheckedQuantMatmul:
         self.slices_bitwise = 0
         self.watched = None
         self._n_expert = 0
+        self.rows = {}
 
     def __enter__(self):
+        self._saved = {n: getattr(self.ops, n) for n in self.HOOKS}
+        hooks = self._shape_hooks() if self.shapes else self._call_hooks()
+        for n, fn in hooks.items():
+            setattr(self.ops, n, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self._saved.items():
+            setattr(self.ops, n, fn)
+
+    @staticmethod
+    def _plain(name, args):
+        """The plain version of kernel ``name`` on ``args`` (the wrapper's
+        own positionals), as a call."""
+        from repro_torch.kernels import quant_matmul as qm
+        tasks, planes = "tasks" in name, "planes" in name
+        fn = getattr(qm, "quant_matmul" + ("_tasks" if tasks else "")
+                     + ("_planes" if planes else "") + "_plain")
+        return lambda: fn(*args)
+
+    def _held(self, what, name, args, y) -> float:
+        """``y``, kernel ``name``'s output on ``args``, within its bound of
+        the plain version; returns the worst |error|."""
+        from repro_torch.kernels import quant_matmul as qm
+        tasks, planes = "tasks" in name, "planes" in name
+        x, qw, s, z = args[:4]
+        rest = args[5:] if tasks else args[4:]
+        plain = self._plain(name, args)()
+        return check_close(what, y, plain, qm.error_bound(
+            x, qw, s, z, plain, task_ids=args[4] if tasks else None,
+            planes=(rest[0], rest[1] if len(rest) > 1 else 0)
+            if planes else None,
+            factored=qm.tc_route(x, s), gemv="gemv" in name))
+
+    def _call_hooks(self) -> dict:
         import torch
         from repro_torch.kernels import quant_matmul as qm
-        self._qmm = self.ops.quant_matmul
+        saved = self._saved
 
         def qmm(x, qw, scale, zero, spec, **kw):
-            y = self._qmm(x, qw, scale, zero, spec, **kw)
+            y = saved["quant_matmul"](x, qw, scale, zero, spec, **kw)
             with torch.no_grad():
                 xr, s, z = rows(x), scale.float(), zero.float()
                 m = xr.shape[0]
@@ -3786,30 +3856,123 @@ class CheckedQuantMatmul:
                     fail(f"{what}: expected {self.rows_m or 'its'} rows of "
                          f"every stored plane or nibble on the tensor-core "
                          f"route")
-                planes = (spec.bits, 0) if spec.plane else None
-                plain = qm.quant_matmul_planes_plain(
-                    xr, qw, s, z, spec.bits) if spec.plane \
-                    else qm.quant_matmul_plain(xr, qw, s, z)
-                err = check_close(what, rows(y.detach()), plain,
-                                  qm.error_bound(xr, qw, s, z, plain,
-                                                 planes=planes,
-                                                 factored=True, gemv=gemv))
+                err = self._held(what, name, (xr, qw, s, z) + (
+                    (spec.bits, 0) if spec.plane else ()), rows(y.detach()))
             self.calls[name] += 1
             self.worst = max(self.worst, err)
             return y
 
-        self._qmme = self.ops.quant_matmul_experts
-
         def qmme(x, qw, scale, zero, spec):
-            y = self._qmme(x, qw, scale, zero, spec)
+            y = saved["quant_matmul_experts"](x, qw, scale, zero, spec)
             with torch.no_grad():
                 self._expert_call(torch, qm, x, qw, scale, zero, y,
                                   spec.bits if spec.plane else None)
             return y
 
-        self.ops.quant_matmul = qmm
-        self.ops.quant_matmul_experts = qmme
-        return self
+        return {"quant_matmul": qmm, "quant_matmul_experts": qmme}
+
+    def _shape_hooks(self) -> dict:
+        import torch
+        from repro_torch.kernels import quant_matmul as qm
+        ops, saved = self.ops, self._saved
+
+        def f32(*ts):
+            return [t.float().contiguous() for t in ts]
+
+        def qmm(x, qw, scale, zero, spec, **kw):
+            y = saved["quant_matmul"](x, qw, scale, zero, spec, **kw)
+            p = ops._layout(qw, spec, kw.get("draft_bits")) or ()
+            x2d = ops._rows(x)
+            gemv = x2d.shape[0] <= qm.GEMV_MAX_M
+            self._shape(kname("quant_gemv" if gemv else "quant_matmul",
+                              bool(p)), (x2d, qw, *f32(scale, zero), *p))
+            return y
+
+        def slotted(x, qw, scale_stack, zero_stack, task_ids, spec, **kw):
+            y = saved["quant_matmul_slotted"](x, qw, scale_stack, zero_stack,
+                                              task_ids, spec, **kw)
+            p = ops._layout(qw, spec, kw.get("draft_bits")) or ()
+            x2d = ops._rows(x)
+            ss, zs = f32(scale_stack, zero_stack)
+            tid = task_ids.to(torch.int32).contiguous()
+            if x2d.shape[0] <= qm.GEMV_MAX_M:
+                self._shape(kname("quant_gemv_tasks", bool(p)),
+                            (x2d, qw, ss, zs, tid, *p))
+            else:                  # K2 under each task's scales: the first's
+                t = int(tid[0])
+                self._shape(kname("quant_matmul", bool(p)),
+                            (x2d, qw, ss[t], zs[t], *p))
+            return y
+
+        def attention(q, k, v, **kw):
+            y = saved["attention"](q, k, v, **kw)
+            if kw.pop("impl", "dense") == "chunked" and q.is_cuda:
+                key = ("flash_attention", tuple(q.shape), tuple(k.shape),
+                       torch.is_tensor(kw.get("offset")))
+                if key not in self.rows:
+                    with torch.no_grad():
+                        self.rows[key] = self._fa_row(q, k, v, kw)
+            return y
+
+        return {"quant_matmul": qmm, "quant_matmul_slotted": slotted,
+                "attention": attention}
+
+    def _shape(self, name, args) -> None:
+        import torch
+        key = (name,) + tuple(tuple(a.shape) if torch.is_tensor(a) else a
+                              for a in args)
+        if key not in self.rows:
+            with torch.no_grad():
+                self.rows[key] = self._qm_row(name, args)
+
+    def _qm_row(self, name, args) -> dict:
+        import torch
+        from repro_torch.kernels import quant_matmul as qm
+        tasks, planes = "tasks" in name, "planes" in name
+        x, qw, s, z = args[:4]
+        fn = getattr(qm, name)
+        saved = fn.launches
+        err = self._held(f"{self.label}: {name} at M={x.shape[0]}, qw "
+                         f"{tuple(qw.shape)}", name, args, fn(*args))
+        ms = timed(fn, [args], 50)
+        fn.launches = saved
+        bits = (args[5] if tasks else args[4]) if planes else None
+        m, k = x.shape
+        n, g = s.shape[-2], s.shape[-1]
+        b_ms, b_by, _ = bound_ms(
+            m, n, k, g, scale_sets=s.shape[0] if tasks else 1,
+            code_bits=bits if planes else 4,
+            tensor_cores=qm.tc_route(x, s))
+        return {"kernel": name, "M": m, "N": n, "K": k, "G": g,
+                "tasks": s.shape[0] if tasks else None, "planes": bits,
+                "max_abs_err": err, "ms": ms,
+                "plain_ms": events_ms(torch, self._plain(name, args), 3),
+                "bound_ms": b_ms, "bound_by": b_by}
+
+    def _fa_row(self, q, k, v, kw) -> dict:
+        import torch
+        from repro_torch.kernels import flash_attention as fa
+        fn = fa.flash_attention
+        saved = fn.launches
+        y = fn(q, k, v, **kw)
+        plain = fa.flash_attention_plain(q, k, v, **kw)
+        b, sq, hq, d = q.shape
+        err = check_close(
+            f"{self.label}: flash_attention at B={b}, Sq={sq}, "
+            f"Sk={k.shape[1]}, Hq={hq}, Hkv={k.shape[2]}", y, plain,
+            fa.error_bound(q, k, v, plain))
+        ms = timed(lambda *a: fn(*a, **kw), [(q, k, v)], 50)
+        fn.launches = saved
+        mask = attn_mask(torch, b, sq, k.shape[1], kw.get("offset"),
+                         kw.get("causal", True), kw.get("window"))
+        b_ms, b_by = attn_bound_ms(mask, (hq, k.shape[2], d))
+        return {"kernel": "flash_attention", "B": b, "Sq": sq,
+                "Sk": k.shape[1], "Hq": hq, "Hkv": k.shape[2], "D": d,
+                "max_abs_err": err, "ms": ms,
+                "plain_ms": events_ms(torch, lambda:
+                                      fa.flash_attention_plain(q, k, v, **kw),
+                                      3),
+                "bound_ms": b_ms, "bound_by": b_by}
 
     def _expert_call(self, torch, qm, x, qw, scale, zero, y, bits=None):
         """One expert-axis call (``bits``: the planes read, None for
@@ -3855,10 +4018,6 @@ class CheckedQuantMatmul:
         self._n_expert += 1
         self.calls[name] += 1
         self.worst = max(self.worst, err)
-
-    def __exit__(self, *exc):
-        self.ops.quant_matmul = self._qmm
-        self.ops.quant_matmul_experts = self._qmme
 
 
 def dense_build(torch, name: str, **kw):
@@ -5911,6 +6070,387 @@ def phase_harness(torch, main_path, plane) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase mesh: serving on a (data, model) mesh over torch.distributed
+# ---------------------------------------------------------------------------
+
+# the meshes phase mesh serves on: (1, 1) over NCCL in the script's own
+# process, the others spawned on cuda:0 under gloo (the machine has one
+# card); MESH_REQUESTS of phase
+# serve's requests over MESH_TASKS tasks, all at step 0, their budgets cut
+# to MESH_NEW (gloo's loopback makes a step ~0.1–0.3 s)
+MESH_WORLDS = ((1, 1), (1, 2), (2, 2))
+MESH_REQUESTS, MESH_TASKS, MESH_NEW = 8, 2, (4, 6, 8)
+# the mesh's prefill logits against the unsharded engine's: within 2⁻⁵ of
+# their largest magnitude (the row-parallel sums add in another order)
+MESH_LOGIT_TOL = 2.0 ** -5
+MESH_QM = ("quant_gemv", "quant_matmul", "quant_gemv_tasks",
+           "quant_gemv_planes", "quant_matmul_planes",
+           "quant_gemv_tasks_planes")
+
+
+def main_cfg():
+    """Phase main's configuration: llama3.2-1b, PEQA 4-bit per-channel RTN
+    (n_grid 20)."""
+    from repro_torch import configs
+    from repro_torch.configs.base import QuantConfig, TuningConfig
+    return configs.get_config("llama3.2-1b").replace(
+        tuning=TuningConfig(mode="peqa"),
+        quant=QuantConfig(bits=4, group_size=None, n_grid=20))
+
+
+def load_whole(torch, cfg, path):
+    """The whole quantized model saved by ``phase_mesh`` (a state dict),
+    rebuilt on this rank's card."""
+    from repro_torch.models import transformer
+    from repro_torch.models.linear import Linear
+    state = torch.load(path, map_location="cuda", weights_only=True)
+    model = transformer.Transformer(cfg, device="meta")
+    spec = cfg.quant.spec()
+    for name, mod in model.named_modules():
+        if isinstance(mod, Linear) and f"{name}.qw" in state:
+            mod.set_quantized(state[f"{name}.qw"], state[f"{name}.scale"],
+                              state[f"{name}.zero"], spec)
+    model.load_state_dict(state, assign=True)
+    return model
+
+
+def mesh_requests(vocab: int) -> list:
+    """The first MESH_REQUESTS of phase serve's requests (prompts of 20,
+    100 and 256 tokens), over MESH_TASKS tasks, all arriving at step 0,
+    budgets MESH_NEW."""
+    from repro_torch.serve import Request
+    return [Request(tokens=r.tokens, n_new=MESH_NEW[i % len(MESH_NEW)],
+                    task=f"t{i % MESH_TASKS}")
+            for i, r in enumerate(serve_requests(vocab, MESH_REQUESTS))]
+
+
+def mesh_rank(rank: int, shape: tuple, tmp: str) -> None:
+    """One spawned rank of phase mesh: the whole model saved by the parent,
+    then ``mesh_serve``; the results go to ``tmp``.  A failed gate exits
+    non-zero."""
+    import torch
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.launch import mesh as mesh_mod
+    t0 = time.perf_counter()
+    ctx = mesh_mod.make_debug_mesh(*shape)       # on the rank's own card
+    prompt = torch.load(os.path.join(tmp, "prompt.pt"))
+    # no name here holds the whole model: mesh_serve frees it once cut
+    out = mesh_serve(torch, ctx, rank,
+                     load_whole(torch, main_cfg(),
+                                os.path.join(tmp, "whole.pt")),
+                     prompt, {"mesh_and_load": time.perf_counter() - t0})
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+def mesh_serve(torch, ctx, rank: int, whole, prompt, stages: dict) -> dict:
+    """One rank's part of phase mesh on ``ctx``: its shard of ``whole``
+    (phase main's model) and of its bit-planes, then the gated runs;
+    returns what ``mesh_gate`` reads (``stages``: seconds by part)."""
+    from repro_torch.core.scale_bank import swap_collectives
+    from repro_torch.dist import backend, context, sharding
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.serve import ServeConfig
+    from repro_torch.train.serve import Engine
+
+    shape = (ctx.data_size, ctx.model_size)
+    dev = ctx.device
+    label = f"mesh {shape} rank {rank}"
+    t_stage = [time.perf_counter()]
+
+    def stage(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        stages[name] = now - t_stage[0]
+        t_stage[0] = now
+    cfg = main_cfg()
+    api = registry.build(cfg)
+    bank = task_bank(whole, MESH_TASKS, SEED)
+    local = sharding.shard_model(whole, cfg, ctx)
+    plane = None
+    if shape != (1, 1):
+        plane = plane_backbone(torch, {"cfg": cfg, "model": whole})
+        plane_local = sharding.shard_model(plane["model"], plane["cfg"], ctx)
+        plane["model"] = None
+    del whole
+    torch.cuda.empty_cache()
+    stage("cut")
+    out = {"rank": rank, "stages": stages, "data_rank": ctx.data_rank,
+           "model_rank": ctx.model_rank, "summary": backend.summary(),
+           "local_gb": sum(t.numel() * t.element_size() for t in (
+               *local.parameters(), *local.buffers())) / 1e9}
+    engine = Engine(api, local, bank=bank, ctx=ctx, logitshard=True)
+    engine.generate(prompt, 2)                        # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in ops.KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    toks = engine.generate(prompt, NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    out["launches"] = {k.__name__: k.launches for k in ops.KERNELS
+                       if k.launches}
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    if shape != (1, 1):              # (1, 1) is held to the unsharded run
+        again = engine.generate(prompt, NEW)
+        if not torch.equal(toks, again):
+            fail(f"{label}: two identical sharded generate runs differ")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = engine.prefill_logits(prompt)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    out.update(tokens=toks.cpu(), logits=logits.cpu() if rank == 0 else None,
+               generate_s=gen_s, prefill_ms=prefill_s * 1e3,
+               decode_ms_per_step=(gen_s - prefill_s) * 1e3 / (NEW - 1))
+    cache = PROMPT + NEW
+    rec_ls = engine.decode_collectives(BATCH, cache)
+    rec_base = Engine(api, local, bank=bank, ctx=ctx,
+                      logitshard=False).decode_collectives(BATCH, cache)
+    out["decode_collectives"] = context.collective_stats(rec_ls)
+    out["decode_collectives_no_logitshard"] = context.collective_stats(
+        rec_base)
+    out["vocab_gathers"] = context.allgather_extent_count(
+        rec_ls, cfg.vocab_size)
+    out["vocab_gathers_no_logitshard"] = context.allgather_extent_count(
+        rec_base, cfg.vocab_size)
+    swap = swap_collectives(local, bank.tasks["t1"], ctx)
+    bank.switch(local, "t0", ctx=ctx)
+    out["swap_collectives"] = len(swap)
+    out["swap_local_bytes"] = bank.local_nbytes("t1", ctx)
+    out["swap_bytes"] = bank.nbytes("t1")
+    stage("generate")
+    if shape == (1, 1):
+        out["profile"] = decode_profile(torch, engine, prompt)
+        return out
+
+    # every new shard shape of K1, K2, K4, K5 and K6a held to plain once,
+    # on rank 0 (the others wait in their next collective meanwhile, so
+    # its timings have the card to themselves)
+    reqs = mesh_requests(cfg.vocab_size)
+    resident = ServeConfig(n_slots=SERVE_SLOTS, scheduler="resident",
+                           resident_tasks=MESH_TASKS)
+    checked = CheckedQuantMatmul(ops, label, shapes=True) if rank == 0 \
+        else contextlib.nullcontext()
+    with checked as chk:
+        engine.generate(prompt, 2)
+        t0 = time.perf_counter()
+        rep_n = engine.serve(reqs, resident)
+        out["resident_wall_s"] = time.perf_counter() - t0
+        stage("resident")
+        out["install_collectives"] = len(
+            engine.resident.install_collectives("t1"))
+        p_engine = Engine(plane["api"], plane_local, ctx=ctx,
+                          logitshard=True)
+        p_engine.generate(prompt, 2)                 # K2-plane, K1-plane
+        p_engine = Engine(plane["api"], plane_local, bank=bank, ctx=ctx,
+                          logitshard=True)
+        rep_p = p_engine.serve(reqs, resident)
+        stage("plane_resident")
+        t0 = time.perf_counter()
+        rep_s = p_engine.serve(reqs, ServeConfig(
+            n_slots=SERVE_SLOTS, scheduler="speculative", spec_k=SPEC_K,
+            draft_bits=DRAFT_BITS, resident_tasks=MESH_TASKS))
+        out["speculative_wall_s"] = time.perf_counter() - t0
+        stage("speculative")
+    for what, rep in (("plane resident", rep_p), ("speculative", rep_s)):
+        if rep.tokens != rep_n.tokens:
+            diff = sum(a != b for a, b in zip(rep.tokens, rep_n.tokens))
+            fail(f"{label}: {what} tokens differ from nibble resident in "
+                 f"{diff} of {len(reqs)} requests")
+    if any(t is None or len(t) != r.n_new
+           for r, t in zip(reqs, rep_n.tokens)):
+        fail(f"{label}: a request was not served its budget")
+    out["serve"] = {"requests": len(reqs), "resident_steps": rep_n.steps,
+                    "speculative_steps": rep_s.steps,
+                    "acceptance": rep_s.acceptance_rate,
+                    "decoded": rep_n.decoded, "tokens": rep_n.tokens}
+    out["continuous_decode_collectives"] = context.collective_stats(
+        engine.continuous_decode_collectives(SERVE_SLOTS, cache))
+    if rank == 0:
+        kinds = {r["kernel"] for r in chk.rows.values()}
+        want = {*MESH_QM, "flash_attention"}
+        if kinds != want:
+            fail(f"{label}: shard shapes checked for {sorted(kinds)}, "
+                 f"expected {sorted(want)}")
+        out["shapes"] = list(chk.rows.values())
+    stage("records")
+    return out
+
+
+def decode_profile(torch, engine, prompt, steps: int = 8) -> dict:
+    """Host time a decode step by operator (``torch.profiler``, CPU
+    activity): ``generate(prompt, 1 + steps)``'s self CPU time less that
+    of ``generate(prompt, 1)`` (the prefill and first sample alone), over
+    ``steps``; the ``top`` ops as [name, ms a step, calls a step], and
+    the profiling's own wall seconds."""
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+
+    def by_op(n_new):
+        engine.generate(prompt, n_new)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            engine.generate(prompt, n_new)
+            torch.cuda.synchronize()
+        return {e.key: (e.self_cpu_time_total, e.count)
+                for e in prof.key_averages()}
+    base, run = by_op(1), by_op(1 + steps)
+    ops = {k: ((us - base.get(k, (0, 0))[0]) / steps / 1e3,
+               (n - base.get(k, (0, 0))[1]) / steps)
+           for k, (us, n) in run.items()}
+    top = sorted(ops.items(), key=lambda kv: -kv[1][0])[:12]
+    return {"host_ms_a_step": sum(ms for ms, _ in ops.values()),
+            "top": [[k, ms, n] for k, (ms, n) in top],
+            "s": time.perf_counter() - t0}
+
+
+def phase_mesh(torch, main_path) -> dict:
+    """Serving on (data, model) meshes at llama3.2-1b's full width and
+    depth, each rank cutting its shard from phase main's whole model:
+    (1, 1) over NCCL in this process, bit-equal to the unsharded engine;
+    (1, 2) and (2, 2) spawned on cuda:0 under gloo, the whole model saved
+    once for them (gloo's times measure the path, not NCCL's speed)."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.multiprocessing import ProcessExitedException
+
+    from repro_torch.dist import backend
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.train.serve import Engine
+
+    cfg, model, prompt = main_path["cfg"], main_path["model"], \
+        main_path["prompt"]
+    ref = Engine(main_path["api"], model)
+    ref_logits = ref.prefill_logits(prompt).float().cpu()
+    ref_tokens = ref.generate(prompt, NEW).cpu()
+    want = main_path["res"]["launches"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    res = {"phase": "mesh", "model": cfg.name, "layers": cfg.n_layers,
+           "batch": BATCH, "prompt": PROMPT, "new_tokens": NEW,
+           "logit_tolerance_share": MESH_LOGIT_TOL, "meshes": {}}
+    try:
+        t0 = time.perf_counter()
+        backend.init(0, 1, "cuda", backend.free_port())
+        try:
+            ctx = mesh_mod.make_debug_mesh(1, 1)
+            one = mesh_serve(torch, ctx, 0, model, prompt, {})
+        finally:
+            dist.destroy_process_group()
+        torch.cuda.empty_cache()
+        res["meshes"]["1x1"] = mesh_gate(
+            torch, (1, 1), [one], ref_logits, ref_tokens, want, cfg,
+            time.perf_counter() - t0)
+        # where a (1, 1) step's host time goes, beside the unsharded one's
+        res["profile_1x1"] = {"mesh": one["profile"],
+                              "unsharded": decode_profile(torch, ref,
+                                                          prompt)}
+        torch.save(model.state_dict(), os.path.join(tmp, "whole.pt"))
+        torch.save(prompt, os.path.join(tmp, "prompt.pt"))
+        for shape in MESH_WORLDS[1:]:
+            world = shape[0] * shape[1]
+            t0 = time.perf_counter()
+            try:
+                backend.spawn(mesh_rank, world, "cuda", shape, tmp)
+            except ProcessExitedException as e:
+                fail(f"phase mesh {shape}: a rank failed: {e}")
+            wall = time.perf_counter() - t0
+            ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                                weights_only=False) for r in range(world)]
+            res["meshes"][f"{shape[0]}x{shape[1]}"] = mesh_gate(
+                torch, shape, ranks, ref_logits, ref_tokens, want, cfg, wall)
+            for r in range(world):
+                os.remove(os.path.join(tmp, f"rank{r}.pt"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit(res)
+    return res
+
+
+def mesh_gate(torch, shape, ranks, ref_logits, ref_tokens, want, cfg,
+              wall) -> dict:
+    """Phase mesh's gates on one mesh's rank results; returns its row."""
+    label = f"mesh {shape}"
+    r0 = ranks[0]
+    placed = {(r["summary"]["backend"], r["summary"]["device"])
+              for r in ranks}
+    expect = "nccl" if shape == (1, 1) else "gloo"
+    if placed != {(expect, "cuda:0")}:
+        fail(f"{label}: ranks ran over (backend, device) {placed}, "
+             f"expected {expect} on cuda:0")
+    for r in ranks:
+        if not torch.equal(r["tokens"], r0["tokens"]):
+            fail(f"{label}: rank {r['rank']}'s tokens differ from rank 0's")
+        if r["launches"] != want:
+            fail(f"{label}: rank {r['rank']} launched {r['launches']}, the "
+                 f"unsharded run {want}")
+        if r["swap_collectives"] or r.get("install_collectives"):
+            fail(f"{label}: a task swap or a row install made a collective")
+        if r["vocab_gathers"] != 0 or r["vocab_gathers_no_logitshard"] < 1:
+            fail(f"{label}: vocab-extent gathers {r['vocab_gathers']} under "
+                 f"logitshard (want 0), {r['vocab_gathers_no_logitshard']} "
+                 f"without (want >= 1)")
+    logits = r0["logits"].float()
+    if not torch.isfinite(logits).all():
+        fail(f"{label}: non-finite prefill logits")
+    diff = (logits - ref_logits).abs().max().item()
+    scale = ref_logits.abs().max().item()
+    if shape == (1, 1):
+        if diff != 0.0 or not torch.equal(r0["tokens"], ref_tokens):
+            fail(f"{label}: the mesh path is not bit-equal to the unsharded "
+                 f"engine (logits differ by {diff:.3e})")
+    elif diff > MESH_LOGIT_TOL * scale:
+        fail(f"{label}: prefill logits differ from the unsharded engine's "
+             f"by {diff:.3e} > {MESH_LOGIT_TOL * scale:.3e}")
+    row = {"world": len(ranks), "backend": expect, "wall_s": wall,
+           "logits_max_abs_diff": diff, "logits_max_abs": scale,
+           "tokens_equal_share_vs_unsharded":
+               (r0["tokens"][:, PROMPT:] == ref_tokens[:, PROMPT:]
+                ).float().mean().item(),
+           "launches_a_rank": r0["launches"],
+           "decode_collectives": r0["decode_collectives"],
+           "decode_collectives_no_logitshard":
+               r0["decode_collectives_no_logitshard"],
+           "vocab_gathers": r0["vocab_gathers"],
+           "vocab_gathers_no_logitshard": r0["vocab_gathers_no_logitshard"],
+           "swap_collectives": r0["swap_collectives"],
+           "swap_local_bytes": r0["swap_local_bytes"],
+           "swap_bytes": r0["swap_bytes"],
+           "decode_ms_per_step": [r["decode_ms_per_step"] for r in ranks],
+           "prefill_ms": [r["prefill_ms"] for r in ranks],
+           "peak_gb": [r["peak_gb"] for r in ranks],
+           "local_gb": [r["local_gb"] for r in ranks]}
+    if shape != (1, 1):
+        for r in ranks:
+            if r["serve"]["tokens"] != r0["serve"]["tokens"]:
+                fail(f"{label}: rank {r['rank']} served other tokens")
+        row["serve"] = {k: v for k, v in r0["serve"].items()
+                        if k != "tokens"}
+        row["install_collectives"] = r0["install_collectives"]
+        row["resident_wall_s"] = r0["resident_wall_s"]
+        row["speculative_wall_s"] = r0["speculative_wall_s"]
+        row["continuous_decode_collectives"] = \
+            r0["continuous_decode_collectives"]
+        # one compact row a shape: kernel, M, N, K, err, ms, plain ms,
+        # bound ms (heads for K4: B, Sq, Sk, Hq, Hkv, D)
+        row["shapes"] = [
+            [s["kernel"], *(s[k] for k in (("M", "N", "K")
+                                           if "M" in s else ("B", "Sq", "Sk",
+                                                             "Hq", "Hkv"))),
+             s["max_abs_err"], s["ms"], s["plain_ms"], s["bound_ms"]]
+            for s in r0["shapes"]]
+        row["shapes_max_abs_err"] = max(s["max_abs_err"]
+                                        for s in r0["shapes"])
+    row["stages_s"] = [r["stages"] for r in ranks]
+    return row
+
+
 def run_cli(label: str, argv, timeout: float) -> dict:
     """Run ``python -m <argv>`` from the checkout with the port on the path;
     returns its exit code, its output lines, each line's arrival second
@@ -6125,6 +6665,7 @@ def main() -> None:
     spec = run("speculative", phase_speculative, torch, plane, serve)
     harness = run("harness", phase_harness, torch, main_path, plane)
     del plane
+    mesh = run("mesh", phase_mesh, torch, main_path)
     conv = run("convert", phase_convert, torch, main_path)
     chunked = run("chunked", phase_chunked, torch, conv, serve,
                   main_path["prompt"])
@@ -6315,6 +6856,10 @@ def main() -> None:
           "harness": {k: harness[k] for k in (
               "tune", "resident_poisson", "drain_trace",
               "speculative_poisson", "driver_run_1", "driver_run_2")},
+          "mesh": {name: {k: m[k] for k in (
+              "backend", "decode_ms_per_step", "peak_gb",
+              "decode_collectives", "logits_max_abs_diff")}
+              for name, m in mesh["meshes"].items()},
           "launch": {k: launch[k] for k in (
               "train", "train_resumed", "serve_continuous",
               "serve_speculative", "serve_family_smoke")},

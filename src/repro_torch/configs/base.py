@@ -92,7 +92,7 @@ class ModelConfig:
     enc_frames: int = 0
     use_rope: bool = True              # whisper uses learned positions
     max_seq: int = 32768               # sizes learned pos-emb tables
-    bf16_reduce: bool = False          # not ported yet: refused by build
+    bf16_reduce: bool = False          # bf16 dot outputs → bf16 TP collectives
     attn_impl: str = "dense"           # dense | chunked (the K4 kernel)
     kv_cache_dtype: str = "model"      # model | int8
     dtype: str = "bfloat16"

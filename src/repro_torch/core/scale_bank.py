@@ -14,8 +14,15 @@ copies one task's scales into the model's live ``Linear.scale``
 parameters IN PLACE (the reference returns a new param tree); a resident
 row install likewise writes into the stack in place.
 
-Not ported (mesh only; ROADMAP, multi-GPU): ``put_scales``, ``swap_hlo``,
-``install_hlo``, ``local_nbytes`` and every ``ctx`` argument.
+On a ``(data, model)`` mesh (``ctx``, ``dist/context.py``) the bank keeps
+the whole host sets, and a swap or a row install cuts each rank's block
+from them (``dist/sharding.py::local_scales``: column-parallel rows
+sliced, row-parallel scales whole) and copies only that into the rank's
+shard: no collective.  ``swap_collectives`` and
+``ResidentStack.install_collectives`` return the collective record of one
+swap or install — the reference's ``swap_hlo`` / ``install_hlo`` scans —,
+and it is empty.  ``local_nbytes`` counts a rank's bytes from the shard
+shapes.
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ from torch import nn
 
 from repro_torch import device as _device
 from repro_torch.core.peqa import layer_index, ref_path, stacked_shape
+from repro_torch.dist import sharding
 
 SCALE_KEYS = ("scale", "zero")
 
@@ -95,11 +103,14 @@ def extract_scales(model: nn.Module, include_zero: bool = False
 
 
 @torch.no_grad()
-def apply_scales(model: nn.Module, scales: Dict[str, np.ndarray]
-                 ) -> nn.Module:
-    """Install a task's scales into the model's live parameters, in place.
-    Paths the model lacks are ignored; a shape mismatch raises before
-    anything is written."""
+def apply_scales(model: nn.Module, scales: Dict[str, np.ndarray],
+                 ctx=None) -> nn.Module:
+    """Install a task's scales into the model's live parameters, in place;
+    with ``ctx``, the rank's block of them into its shard.  Paths the model
+    lacks are ignored; a shape mismatch raises before anything is
+    written."""
+    if ctx is not None:
+        scales = sharding.local_scales(scales, ctx)
     params = _scale_params(model, SCALE_KEYS)
     todo = [(path, arr) for path, arr in scales.items() if path in params]
     for path, arr in todo:
@@ -169,6 +180,16 @@ def _stack_row_install(stack: dict, rows: dict, idx: int) -> None:
     _map_nested(upd, stack, rows)
 
 
+def swap_collectives(model: nn.Module, scales: Dict[str, np.ndarray], ctx
+                     ) -> List[dict]:
+    """The collective record of installing ``scales`` into the rank's
+    shard ``model`` (the reference's ``swap_hlo``): the swap runs — it
+    writes ``scales`` — and its record must be empty."""
+    with ctx.recording() as rec:
+        apply_scales(model, scales, ctx=ctx)
+    return rec
+
+
 class ResidentStack:
     """Device-resident stacked scale sets for the k hottest serving tasks.
 
@@ -182,12 +203,15 @@ class ResidentStack:
     """
 
     def __init__(self, bank: "ScaleBank", model: nn.Module, capacity: int,
-                 warm: Sequence[str] = (), *, device=None):
+                 warm: Sequence[str] = (), *, device=None, ctx=None):
         if capacity < 1:
             raise ValueError("ResidentStack needs capacity >= 1")
         self.bank = bank
         self.capacity = int(capacity)
         self.device = _device.resolve(device)
+        # on a mesh ``model`` is the rank's shard: its leaves, and every row
+        # installed, are the rank's blocks of the bank's whole sets
+        self.ctx = ctx
         # host snapshot NOW: switch_task later overwrites the live scales
         self._base = extract_scales(model, include_zero=True)
         warm = list(warm)
@@ -206,15 +230,19 @@ class ResidentStack:
         warm = [w for w in warm if w in bank.tasks][: self.capacity]
         self.names: List[Optional[str]] = (
             warm + [None] * (self.capacity - len(warm)))
-        sets = [bank.tasks[n] if n is not None else self._base
+        sets = [self._local(bank.tasks[n]) if n is not None else self._base
                 for n in self.names]
         self.stack = _map_nested(lambda a: _tensor(a).to(self.device),
                                  stack_scales(self._base, sets))
         self._lru: List[int] = list(range(self.capacity))  # least-recent first
         self.installs = 0
 
+    def _local(self, scales: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        return scales if self.ctx is None \
+            else sharding.local_scales(scales, self.ctx)
+
     def _rows_for(self, name: str) -> dict:
-        task = self.bank.tasks[name]
+        task = self._local(self.bank.tasks[name])
         flat = {}
         for path, b in self._base.items():
             a = np.asarray(task.get(path, b), dtype=b.dtype)
@@ -248,6 +276,21 @@ class ResidentStack:
         self._touch(victim)
         self.installs += 1
         return victim
+
+
+    def install_collectives(self, name: str) -> List[dict]:
+        """The collective record of installing task ``name``'s rows (the
+        reference's ``install_hlo``): the install runs into a one-row
+        scratch copy of the stack — the stack itself is untouched — and
+        its record must be empty."""
+        if self.ctx is None:
+            raise ValueError("install_collectives needs a mesh context")
+        scratch = _map_nested(
+            lambda t: t.narrow(task_stack_dim(t.dim() - 1), 0, 1).clone(),
+            self.stack)
+        with self.ctx.recording() as rec:
+            _stack_row_install(scratch, self._rows_for(name), 0)
+        return rec
 
 
 class TaskStoreStats:
@@ -445,11 +488,26 @@ class ScaleBank:
                     os.remove(tmp)
             self.tasks._disk[name] = path
 
-    def switch(self, model: nn.Module, name: str) -> nn.Module:
-        """Copy task ``name``'s scales into ``model``'s live parameters."""
+    def switch(self, model: nn.Module, name: str, ctx=None) -> nn.Module:
+        """Copy task ``name``'s scales into ``model``'s live parameters;
+        with ``ctx``, the rank's block of them into its shard."""
         if name not in self.tasks:
             raise KeyError(f"no task {name!r}; have {list(self.tasks)}")
-        return apply_scales(model, self.tasks[name])
+        return apply_scales(model, self.tasks[name], ctx=ctx)
 
     def nbytes(self, name: str) -> int:
         return sum(a.nbytes for a in self.tasks[name].values())
+
+    def local_nbytes(self, name: str, ctx=None) -> int:
+        """Bytes one rank receives in a swap, from its block's shape: each
+        sharded extent over its axes, rounded up (the reference's padded
+        shards), a row-parallel scale whole.  With no ctx, ``nbytes``."""
+        if ctx is None:
+            return self.nbytes(name)
+        total = 0
+        for path, arr in self.tasks[name].items():
+            shape = np.shape(arr)
+            spec = sharding.spec_for_path(path, len(shape))
+            total += int(np.prod(sharding.local_shape(
+                shape, spec, ctx.axis_sizes))) * np.asarray(arr).itemsize
+        return total

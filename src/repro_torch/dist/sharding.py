@@ -1,0 +1,395 @@
+"""Path-based partition rules and the cut of a rank's shard (port of
+``repro/dist/sharding.py``).
+
+``spec_for_path(path, ndim)`` decides where every leaf lives on the
+``(data, model)`` mesh, keyed on the leaf name and its parent module name
+(the reference's rules, copied): a spec is a tuple with one entry a dim —
+None (replicated), ``"model"``, or a tuple of data axes —, trailing Nones
+trimmed, as the reference's ``PartitionSpec``.  The rules are relative to
+the trailing dims, so the same rule places a per-layer tensor of the port
+and the reference's layer-stacked leaf.
+
+  * Column-parallel linears (wq/wk/wv/up/gate) shard the OUTPUT dim: codes
+    ``qw``, ``scale`` and ``zero`` on dim −2 (a bit-plane ``qw`` (bits, N,
+    K/32) too), so each model rank holds the scales of exactly the rows it
+    owns and a task swap touches only local bytes.
+  * Row-parallel linears (wo/down/out_proj) shard the INPUT dim of ``w``
+    and ``qw`` (the last dim, nibble words or plane words); their
+    ``scale``/``zero`` (out, G) stay whole, and their outputs are partial
+    sums that ``models/linear.py`` all-reduces over the model axis.
+  * Embeddings and the untied head shard the vocab; norms replicate.
+
+The reference hands these specs to GSPMD.  The port cuts each rank's
+local module from the whole quantized model (``shard_model``): the shard
+is never quantized on its own — per-channel RTN of a row-parallel input
+slice would give other scales —, and ``unshard`` puts the shards back
+together bit for bit.  Attention runs on the rank's n_heads/M query and
+n_kv/M KV heads (``shard_config``).
+
+``shard_problems`` refuses what this slice does not shard, with a reason:
+a head, KV-head, d_ff or vocab count the model axis does not divide (the
+reference's head-dim fallback of ``cache_specs`` and MQA wait for a later
+slice), and a local input extent that breaks a kernel's operand layout
+(the nibble word ``K % 8``, the plane word ``K % 32``, whole groups).
+"""
+from __future__ import annotations
+
+from typing import Dict, Iterable, List, Mapping, Optional, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.peqa import ref_path
+from repro_torch.core.quant import PACK, PLANE_PACK
+
+MODEL_AXIS = "model"
+
+# linears that shard the contraction (input) dim — their outputs are the
+# partial sums reduced once a block (Megatron layout)
+ROW_PARALLEL = ("wo", "down", "out_proj")
+# modules that stay replicated wholesale (routers, sLSTM recurrences, the
+# xLSTM scalar-gate projections)
+REPLICATED_MODULES = ("router", "sr", "sb", "gi", "gf", "sw")
+# per-head SSM vectors: the trailing heads dim
+HEAD_VECTOR_LEAVES = ("A_log", "ssm_D", "dt_bias")
+_LINEAR_LEAVES = ("w", "qw", "scale", "zero", "b")
+
+
+def _mk(ndim: int, axis_at: int) -> tuple:
+    """A spec with MODEL_AXIS at ``axis_at``, trailing Nones trimmed."""
+    if axis_at < 0 or axis_at >= ndim:
+        return ()
+    return (None,) * axis_at + (MODEL_AXIS,)
+
+
+def _is_norm(name: str) -> bool:
+    return name.startswith("ln") or "norm" in name
+
+
+def spec_for_path(path: str, ndim: int) -> tuple:
+    """The spec of the leaf at ``path`` (the reference's key path, with or
+    without its leading slash) with ``ndim`` dims."""
+    parts = [p for p in path.split("/") if p]
+    leaf = parts[-1] if parts else ""
+    parent = parts[-2] if len(parts) >= 2 else ""
+
+    if any(p in REPLICATED_MODULES for p in parts):
+        return ()
+    if "experts_ep" in parts:
+        # expert-parallel: the expert dim of every leaf, just before the
+        # leaf's own trailing dims (1 for b/g, 2 for the rest)
+        trailing = 1 if leaf in ("b", "g") else 2
+        return _mk(ndim, ndim - trailing - 1)
+    if leaf == "emb":                       # (vocab, d): vocab-sharded
+        return _mk(ndim, ndim - 2)
+    if leaf in ("pos", "lora_a") or leaf == "g" or (leaf == "b"
+                                                    and _is_norm(parent)):
+        return ()
+    if leaf in HEAD_VECTOR_LEAVES:          # (…, n_heads)
+        return _mk(ndim, ndim - 1)
+    if leaf == "lora_b":                    # (…, out, r): the out dim
+        return _mk(ndim, ndim - 2)
+    if leaf in _LINEAR_LEAVES:
+        if parent in ROW_PARALLEL:
+            if leaf in ("w", "qw"):         # (…, out, in): the input dim
+                return _mk(ndim, ndim - 1)
+            return ()                       # scale/zero/b: per output row
+        if leaf == "b":                     # a column bias: the output
+            return _mk(ndim, ndim - 1)
+        return _mk(ndim, ndim - 2)          # w/qw/scale/zero: the output
+    return ()
+
+
+def _leaves(tree) -> Iterable[tuple]:
+    """(reference path, tensor or array) of a module's parameters and
+    buffers, or of a flat {path: array} mapping."""
+    if isinstance(tree, nn.Module):
+        for name, t in (*tree.named_parameters(), *tree.named_buffers()):
+            yield ref_path(name), name, t
+        return
+    for path, t in tree.items():
+        yield path, path, t
+
+
+def param_specs(tree) -> Dict[str, tuple]:
+    """{name: spec} of every leaf of ``tree``: a module (keyed by its
+    tensor names) or a flat {path: array} mapping."""
+    return {name: spec_for_path(path, len(tuple(t.shape)))
+            for path, name, t in _leaves(tree)}
+
+
+def stacked_scale_specs(tree) -> dict:
+    """The specs of a ``ResidentStack`` stack (nested, or flat by path):
+    a task dim inserted before the trailing (out, G) pair lands
+    replicated, since the rules are trailing-relative — column-parallel
+    scales shard their out dim as the live leaf does, row-parallel ones
+    stay whole, so a row install moves the same per-rank bytes as a swap
+    and needs no collective."""
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            return {k: walk(v, f"{prefix}/{k}") for k, v in node.items()}
+        last = prefix.split("/")[-1]
+        if last not in ("scale", "zero"):
+            raise ValueError(f"stacked scale tree has non-scale leaf "
+                             f"{prefix!r}")
+        return spec_for_path(prefix, len(tuple(node.shape)))
+    return walk(tree, "")
+
+
+def cache_specs(ctx, cache: Mapping, batch: int, batch_sharded: bool,
+                n_kv_heads: int = 0, batch_dims: Optional[Mapping] = None
+                ) -> Dict[str, tuple]:
+    """The spec of every cache leaf (the reference's rule): the batch dim
+    over the data axes where sharded, the KV-head dim over the model axis
+    where it divides — else head_dim, the reference's fallback, which this
+    slice refuses to run (``shard_problems``).
+
+    ``batch_dims`` ({key: dim}, ``train.serve.cache_dims``' first half)
+    pins each leaf's batch dim structurally; without it the batch dim is
+    the first dim whose extent equals ``batch``, which misfires when that
+    extent collides with a stack extent (batch == n_layers)."""
+    msize = ctx.model_size
+
+    def spec(shape, bdim):
+        nd = len(shape)
+        parts = [None] * nd
+        placed = False
+        for dim in range(nd):
+            is_batch = (dim == bdim) if bdim is not None \
+                else (not placed and shape[dim] == batch)
+            if batch_sharded and not placed and is_batch:
+                parts[dim] = tuple(ctx.data_axes)
+                placed = True
+            elif (n_kv_heads and dim >= 2 and shape[dim] == n_kv_heads
+                  and n_kv_heads % msize == 0
+                  and ctx.model_axis not in parts):
+                parts[dim] = ctx.model_axis
+        if ctx.model_axis not in parts and nd >= 3 \
+                and shape[-1] % msize == 0:
+            parts[-1] = ctx.model_axis
+        return tuple(parts)
+
+    return {k: spec(tuple(v.shape), None if batch_dims is None
+                    else batch_dims[k]) for k, v in cache.items()}
+
+
+def _axis_total(ax, sizes: Mapping) -> int:
+    total = 1
+    for a in (ax if isinstance(ax, tuple) else (ax,)):
+        total *= sizes[a]
+    return total
+
+
+def validate_for_mesh(tree, mesh) -> List[str]:
+    """Every sharded dim of ``tree`` (a module or a flat {path: array})
+    must divide its mesh axes; returns the problems (empty: coherent).
+    ``mesh``: a ``MeshContext`` or a {axis: size} mapping."""
+    sizes = dict(getattr(mesh, "axis_sizes", mesh))
+    problems: List[str] = []
+    for path, _, leaf in _leaves(tree):
+        shape = tuple(leaf.shape)
+        for dim, ax in enumerate(spec_for_path(path, len(shape))):
+            if ax is None:
+                continue
+            missing = [a for a in (ax if isinstance(ax, tuple) else (ax,))
+                       if a not in sizes]
+            if missing:
+                problems.append(f"{path}: axis {missing[0]!r} not in mesh "
+                                f"{tuple(sizes)}")
+                break
+            total = _axis_total(ax, sizes)
+            if shape[dim] % total:
+                problems.append(f"{path}: dim {dim} = {shape[dim]} not "
+                                f"divisible by {total} ({ax})")
+    return problems
+
+
+# ---------------------------------------------------------------------------
+# The cut
+# ---------------------------------------------------------------------------
+
+def shard_problems(cfg: ModelConfig, model_size: int) -> List[str]:
+    """Why ``cfg`` cannot be cut over a model axis of ``model_size`` in this
+    slice (empty: it can)."""
+    m = model_size
+    out = []
+    for what, n in (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
+                    ("d_ff", cfg.d_ff), ("vocab_size", cfg.vocab_size)):
+        if n % m:
+            out.append(f"{what}={n} is not divisible by the model axis ({m})"
+                       + (": the reference's head-dim fallback of "
+                          "cache_specs (MQA, n_kv_heads=1) is not ported"
+                          if what == "n_kv_heads" else ""))
+    if out:
+        return out
+    spec = cfg.quant.spec()
+    if cfg.tuning.mode not in ("peqa", "peqa_z"):
+        return out
+    word = PLANE_PACK if spec.plane else PACK
+    for name, k in (("wo", cfg.n_heads * cfg.d_head // m),
+                    ("down", cfg.d_ff // m)):
+        if k % word:
+            out.append(f"{name}'s local input extent {k} is not a whole "
+                       f"number of {word}-code words")
+        if spec.group_size is not None and k % spec.group_size:
+            out.append(f"{name}'s local input extent {k} is not a whole "
+                       f"number of groups of {spec.group_size}")
+    return out
+
+
+def shard_config(cfg: ModelConfig, model_size: int) -> ModelConfig:
+    """The config a rank's shard runs under: its local query and KV heads,
+    the head width pinned (the vocab, d_ff and d_model stay the whole
+    model's: the shard's tensors carry their own extents)."""
+    return cfg.replace(n_heads=cfg.n_heads // model_size,
+                       n_kv_heads=cfg.n_kv_heads // model_size,
+                       head_dim=cfg.d_head)
+
+
+def local_slice(t: torch.Tensor, spec: Sequence, ctx) -> torch.Tensor:
+    """This rank's block of ``t`` under ``spec`` (model-axis dims only:
+    parameters are never batch-sharded), contiguous, a new tensor."""
+    out = t
+    for dim, ax in enumerate(spec):
+        if ax == MODEL_AXIS:
+            n = t.shape[dim] // ctx.model_size
+            out = out.narrow(dim, ctx.model_rank * n, n)
+    return out.contiguous().clone()
+
+
+def local_shape(shape: Sequence[int], spec: Sequence, sizes: Mapping
+                ) -> tuple:
+    """The block of a ``shape`` leaf one rank holds under ``spec`` (each
+    sharded extent over its axes' product, rounded up as the reference's
+    padded shards are)."""
+    out = []
+    for dim, extent in enumerate(shape):
+        ax = spec[dim] if dim < len(spec) else None
+        k = 1 if ax is None else _axis_total(ax, sizes)
+        out.append(-(-extent // k))
+    return tuple(out)
+
+
+def local_scales(scales: Mapping[str, np.ndarray], ctx
+                 ) -> Dict[str, np.ndarray]:
+    """A host scale set (bank paths, layer-stacked) cut to this rank's
+    block: column-parallel rows sliced, row-parallel scales whole."""
+    out = {}
+    for path, arr in scales.items():
+        arr = np.asarray(arr)
+        spec = spec_for_path(path, arr.ndim)
+        for dim, ax in enumerate(spec):
+            if ax == MODEL_AXIS:
+                n = arr.shape[dim] // ctx.model_size
+                arr = np.take(arr, range(ctx.model_rank * n,
+                                         (ctx.model_rank + 1) * n), axis=dim)
+        out[path] = np.ascontiguousarray(arr)
+    return out
+
+
+def _new_param(t: torch.Tensor, like: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=like.requires_grad)
+
+
+def shard_model(model: nn.Module, cfg: ModelConfig, ctx) -> nn.Module:
+    """This rank's shard of the WHOLE ``model`` (a dense ``Transformer``):
+    a module with the same tensor names, each tensor its ``spec_for_path``
+    block (contiguous copies: the shard shares no storage with ``model``,
+    so a task swap on it leaves the whole model as it was).  Every linear
+    is marked ``tp = "col"`` or ``"row"`` (a row-parallel linear also
+    ``tp_reduce_bf16``, ``cfg.bf16_reduce``, and with G > 1 groups
+    ``tp_groups``, its block of them); the token table keeps
+    ``vocab_start``.  ``ctx`` needs only ``model_size`` and ``model_rank``
+    (``context.coords`` will do)."""
+    from repro_torch.models import linear, transformer
+    probs = shard_problems(cfg, ctx.model_size)
+    if probs:
+        raise NotImplementedError(f"{cfg.name}: cannot shard over a model "
+                                  f"axis of {ctx.model_size}: "
+                                  f"{'; '.join(probs)}")
+    local = transformer.Transformer(shard_config(cfg, ctx.model_size),
+                                    device="meta")
+    whole = dict(model.named_modules())
+    with torch.no_grad():
+        for name, mod in local.named_modules():
+            src = whole[name]
+            if isinstance(mod, linear.Linear):
+                _shard_linear(mod, src, name, ctx, cfg.bf16_reduce)
+                continue
+            for pname, prm in list(src._parameters.items()):
+                if prm is None:
+                    continue
+                path = ref_path(f"{name}.{pname}" if name else pname)
+                mod._parameters[pname] = _new_param(
+                    local_slice(prm.detach(), spec_for_path(path, prm.dim()),
+                                ctx), prm)
+            if name == "embed":
+                mod.vocab_start = ctx.model_rank * (
+                    src.emb.shape[0] // ctx.model_size)
+                mod.vocab_size = src.emb.shape[0]
+    left = [n for n, t in (*local.named_parameters(), *local.named_buffers())
+            if t.is_meta]
+    if left:
+        raise ValueError(f"shard_model: tensors left uncut: {left}")
+    local.mesh_shard = (ctx.model_rank, ctx.model_size)
+    return local
+
+
+def _shard_linear(mod, src, name: str, ctx, bf16_reduce: bool) -> None:
+    """Fill the local ``Linear`` ``mod`` from the whole one ``src``; a
+    row-parallel one reduces in the activation dtype under
+    ``bf16_reduce``."""
+    row = name.split(".")[-1] in ROW_PARALLEL
+    m = ctx.model_size
+
+    def cut(leaf: str, t: torch.Tensor) -> torch.Tensor:
+        path = ref_path(f"{name}.{leaf}")
+        return local_slice(t.detach(), spec_for_path(path, t.dim()), ctx)
+
+    if src.n_experts is not None or src.has_lora or src.fake_quant:
+        raise NotImplementedError(
+            f"{name}: expert, LoRA and QAT linears are not sharded in this "
+            f"slice")
+    mod.in_features = src.in_features // m if row else src.in_features
+    mod.out_features = src.out_features if row else src.out_features // m
+    if src.quantized:
+        del mod._parameters["w"]
+        mod.set_quantized(cut("qw", src.qw), cut("scale", src.scale),
+                          cut("zero", src.zero), src.spec)
+        mod.scale.requires_grad_(src.scale.requires_grad)
+        mod.zero.requires_grad_(src.zero.requires_grad)
+        g = src.scale.shape[-1]
+        if row and g > 1:
+            mod.tp_groups = (ctx.model_rank * g // m,
+                             (ctx.model_rank + 1) * g // m)
+    else:
+        mod.w = _new_param(cut("w", src.w), src.w)
+    mod.b = None if src.b is None else _new_param(cut("b", src.b), src.b)
+    mod.tp = "row" if row else "col"
+    if row:
+        mod.tp_reduce_bf16 = bool(bf16_reduce)
+
+
+def unshard(shards: Sequence[nn.Module]) -> Dict[str, torch.Tensor]:
+    """The whole model's tensors ({name: tensor}) put back together from
+    the ``shards`` of model ranks 0..M−1: each sharded tensor concatenated
+    along its spec's dim, each replicated one taken from rank 0 (and held
+    equal on every rank)."""
+    out = {}
+    tensors = [dict((*s.named_parameters(), *s.named_buffers()))
+               for s in shards]
+    for name, t0 in tensors[0].items():
+        spec = spec_for_path(ref_path(name), t0.dim())
+        parts = [t[name].detach() for t in tensors]
+        dims = [d for d, ax in enumerate(spec) if ax == MODEL_AXIS]
+        if dims:
+            out[name] = torch.cat(parts, dim=dims[0])
+            continue
+        for r, p in enumerate(parts[1:], 1):
+            if not torch.equal(p, parts[0]):
+                raise ValueError(f"{name}: replicated tensor differs on "
+                                 f"model rank {r}")
+        out[name] = parts[0]
+    return out

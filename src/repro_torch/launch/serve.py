@@ -1,5 +1,5 @@
 """Serving launcher: one PEQA backbone, many tasks, batched greedy decode
-(port of ``repro/launch/serve.py``, one device).
+(port of ``repro/launch/serve.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
         --bits 4 --tasks taskA,taskB --n-new 24 [--device cpu]
@@ -21,9 +21,20 @@ any token mismatch or on no fewer target steps.  ``--family-smoke`` serves
 an untasked stream for the arch's family and fails unless every request's
 tokens equal lockstep ``generate``'s.
 
-Not ported: the mesh (``--mesh``, ``--no-logitshard`` and the
-``REPRO_FAKE_DEVICES`` environment variable are refused: ROADMAP queue 6,
-item 9).
+``--mesh D,M`` serves on a (data, model) mesh of D×M ranks, which the
+launcher spawns itself on ``--device`` (``dist/backend.py``'s rule): a
+``cpu`` device runs them under gloo; a ``cuda`` device under NCCL, a rank
+a card, when the machine has D×M cards, and otherwise every rank on
+``cuda:0`` under gloo (printed as such).  The tasks are tuned once, in
+the launching process, into a bank directory the ranks open; every rank
+builds the model from the seed and serves its shard.  The decode logits
+stay vocab-sharded unless ``--no-logitshard``.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --mesh 1,2 --continuous
+
+``REPRO_FAKE_DEVICES`` (the reference's fake host devices for a mesh in
+one process) has no meaning for processes and is refused.
 """
 from __future__ import annotations
 
@@ -49,19 +60,24 @@ from repro_torch.train import loop, step
 from repro_torch.train.serve import Engine
 from repro_torch.train.state import make_state
 
-MESH_REFUSAL = ("serving on a device mesh is not ported yet (several GPUs: "
-                "ROADMAP queue 6, item 9); run without {what}")
+FAKE_DEVICES_REFUSAL = (
+    "REPRO_FAKE_DEVICES fakes several devices inside one process; the "
+    "port's mesh is one process a rank: unset it and run --device cpu "
+    "--mesh D,M (or --mesh D,M on the card)")
 # the reference's per-task tuning: 8 × 64 tokens a step at lr 3e-3
 TUNE_BATCH, TUNE_SEQ, TUNE_LR, TUNE_WARMUP = 8, 64, 3e-3, 8
 TUNE_CORPUS = 60_000
 
 
 def place_prompt(prompt, ctx=None):
-    """Home the lockstep prompt for the engine: off the mesh (``ctx`` None,
-    the only case ported) it is the prompt itself."""
-    if ctx is not None:
-        raise NotImplementedError(MESH_REFUSAL.format(what="a mesh context"))
-    return prompt
+    """This rank's rows of the lockstep prompt, on its device: its data
+    block where the batch divides the data axis, else every row (the
+    reference homes the prompt batch-sharded).  Off the mesh (``ctx``
+    None) the prompt itself."""
+    if ctx is None:
+        return prompt
+    t = torch.as_tensor(np.asarray(prompt), device=ctx.device)
+    return t[ctx.local_rows(t.shape[0])]
 
 
 def mixed_workload(tasks, batch, n_new, n_requests, vocab, stagger=2):
@@ -229,7 +245,7 @@ def run_continuous(engine, cfg, args, tasks, log: Callable = print,
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
-    """The reference's flags, plus ``--device``; the mesh flags refused."""
+    """The reference's flags, plus ``--device``."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="llama3.2-1b")
     ap.add_argument("--tiny", action="store_true", default=True)
@@ -247,9 +263,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--kv-int8", action="store_true")
     ap.add_argument("--mesh", default="",
-                    help="refused: serving on a mesh is not ported")
+                    help="'D,M' data×model mesh: spawn D·M ranks on "
+                         "--device and serve sharded")
     ap.add_argument("--no-logitshard", action="store_true",
-                    help="refused: a mesh-mode flag")
+                    help="mesh mode: gather the decode logits over the "
+                         "model axis instead of the shard-local sampler")
     ap.add_argument("--continuous", action="store_true",
                     help="serve an arrival-simulating mixed-length, "
                          "mixed-task stream through the continuously-"
@@ -303,18 +321,22 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--install-s", type=float, default=0.0,
                     help="virtual seconds one host→device install costs")
     args = ap.parse_args(argv)
-    refuse_mesh(args)
+    if os.environ.get("REPRO_FAKE_DEVICES"):
+        raise SystemExit(FAKE_DEVICES_REFUSAL)
+    args.mesh_shape = mesh_shape(args.mesh) if args.mesh else None
     return args
 
 
-def refuse_mesh(args) -> None:
-    """The mesh flags and the fake-device variable: a clear SystemExit."""
-    if os.environ.get("REPRO_FAKE_DEVICES"):
-        raise SystemExit(MESH_REFUSAL.format(what="REPRO_FAKE_DEVICES"))
-    if args.mesh:
-        raise SystemExit(MESH_REFUSAL.format(what=f"--mesh {args.mesh}"))
-    if args.no_logitshard:
-        raise SystemExit(MESH_REFUSAL.format(what="--no-logitshard"))
+def mesh_shape(text: str) -> tuple:
+    """``--mesh D,M`` → (D, M), positive."""
+    try:
+        shape = tuple(int(x) for x in text.split(","))
+    except ValueError:
+        shape = ()
+    if len(shape) != 2 or min(shape) < 1:
+        raise SystemExit(f"--mesh takes 'D,M' (two positive integers), got "
+                         f"{text!r}")
+    return shape
 
 
 def model_config(args):
@@ -393,8 +415,111 @@ def open_tiered(root: str, host_cache: int, log: Callable = print
     return bank
 
 
-def main(argv: Optional[Sequence[str]] = None) -> None:
+def serve_lockstep(engine, args, tasks, ctx=None, log: Callable = print
+                   ) -> None:
+    """The round-robin lockstep loop: each task twice, ``--batch`` × 8
+    prompt tokens and ``--n-new`` new ones."""
+    prompt = np.tile(np.arange(8, dtype=np.int32), (args.batch, 1))
+    if ctx is not None:
+        log(f"[serve] rank rows: {tuple(place_prompt(prompt, ctx).shape)} "
+            f"of {prompt.shape}")
+    for task in tasks * 2:
+        dt = engine.switch_task(task)
+        t0 = time.perf_counter()
+        out = engine.generate(prompt, n_new=args.n_new)
+        gen_t = time.perf_counter() - t0
+        log(f"[serve] {task}: switch={dt * 1e3:.2f}ms "
+            f"gen={gen_t * 1e3:.0f}ms "
+            f"tok/s={args.batch * args.n_new / gen_t:.0f} "
+            f"sample={out[0, 8:16].tolist()}")
+
+
+def mesh_rank(rank: int, argv, bank_root: str) -> None:
+    """One rank of ``--mesh``: the mesh context, the model from the seed on
+    the rank's device, its shard, the tuned bank from ``bank_root``, then
+    the run; rank 0 logs.  A failed gate exits non-zero on every rank."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import backend, sharding
+    from repro_torch.launch import mesh as mesh_mod
     args = parse_args(argv)
+    d, m = args.mesh_shape
+    # the rank's own device: where backend.init placed it
+    ctx = mesh_mod.make_debug_mesh(d, m)
+    dev = ctx.device
+    log = print if rank == 0 else (lambda *a, **k: None)
+    log(f"[serve] rank 0: {backend.summary()}")
+    args.device = str(dev)
+    cfg, api, backbone, _ = build_model(args)
+    bank = ScaleBank(root=bank_root, host_capacity=args.host_cache or None)
+    tasks = args.tasks.split(",")
+    local = sharding.shard_model(backbone, cfg, ctx)
+    del backbone
+    log(f"[serve] mesh {(d, m)}: a swap moves "
+        f"{bank.local_nbytes(tasks[0], ctx):,} B a rank of "
+        f"{bank.nbytes(tasks[0]):,} B")
+    engine = Engine(api, local, bank=bank, ctx=ctx,
+                    logitshard=not args.no_logitshard)
+    if args.continuous:
+        ok = run_continuous(engine, cfg, args, tasks, log=log)
+        flag = ctx.all_reduce(torch.tensor([int(ok)], device=dev), "data",
+                              "min")
+        flag = ctx.all_reduce(flag, "model", "min")
+        dist.barrier()
+        if not int(flag[0]):
+            raise SystemExit(1)
+        return
+    serve_lockstep(engine, args, tasks, ctx=ctx, log=log)
+
+
+def serve_mesh(args, argv) -> None:
+    """``--mesh``: tune the tasks here into a bank directory, then spawn the
+    ranks on ``--device`` and wait for them; exits non-zero if any rank
+    fails."""
+    import shutil
+    import tempfile
+
+    from torch.multiprocessing import ProcessExitedException
+
+    from repro_torch.dist import backend
+    if args.family_smoke:
+        raise SystemExit("--family-smoke runs off the mesh (the other "
+                         "families shard in a later slice): drop --mesh")
+    d, m = args.mesh_shape
+    device = args.device or "cuda"
+    cfg = model_config(args)
+    from repro_torch.dist import context
+    try:
+        registry.check_supported(cfg, mesh=context.coords(d, m))
+    except NotImplementedError as e:
+        raise SystemExit(f"[serve] {e}") from None
+    print(f"[serve] mesh {(d, m)}: {backend.describe(device, d * m)}")
+    root = args.bank_root or tempfile.mkdtemp(prefix="repro_bank_")
+    try:
+        _, api, backbone, mask = build_model(args)
+        bank = ScaleBank(root=root)
+        tune_tasks(api, backbone, mask, args.tasks.split(","),
+                   args.tune_steps, bank)
+        del api, backbone, mask, bank
+        try:
+            backend.spawn(mesh_rank, d * m, device, list(argv), root,
+                          threads=1 if device == "cpu" else None)
+        except ProcessExitedException as e:
+            raise SystemExit(f"[serve] a mesh rank failed: {e}") from None
+    finally:
+        if not args.bank_root:
+            shutil.rmtree(root, ignore_errors=True)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    import sys
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = parse_args(argv)
+    if args.mesh_shape is not None:
+        serve_mesh(args, argv)
+        if args.continuous:
+            raise SystemExit(0)          # every rank passed its gates
+        return
     cfg, api, backbone, mask = build_model(args)
     if args.family_smoke:
         engine = Engine(api, backbone, device=args.device)
@@ -408,17 +533,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     if args.continuous:
         ok = run_continuous(engine, cfg, args, tasks)
         raise SystemExit(0 if ok else 1)
-    prompt = place_prompt(np.tile(np.arange(8, dtype=np.int32),
-                                  (args.batch, 1)))
-    for task in tasks * 2:
-        dt = engine.switch_task(task)
-        t0 = time.perf_counter()
-        out = engine.generate(prompt, n_new=args.n_new)
-        gen_t = time.perf_counter() - t0
-        print(f"[serve] {task}: switch={dt * 1e3:.2f}ms "
-              f"gen={gen_t * 1e3:.0f}ms "
-              f"tok/s={args.batch * args.n_new / gen_t:.0f} "
-              f"sample={out[0, 8:16].tolist()}")
+    serve_lockstep(engine, args, tasks)
 
 
 if __name__ == "__main__":

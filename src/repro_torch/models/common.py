@@ -9,6 +9,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import context
 from repro_torch.kernels import ops
 from repro_torch.models import linear
 
@@ -208,7 +209,11 @@ def reset_table(t: torch.Tensor, generator: torch.Generator) -> None:
 
 
 class Embed(nn.Module):
-    """The token table, in ``table_dtype(cfg)``."""
+    """The token table, in ``table_dtype(cfg)``.  A model-axis shard
+    (``dist/sharding.py::shard_model``) holds the rows of its vocab block,
+    the first of them ``vocab_start``."""
+
+    vocab_start: Optional[int] = None
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -220,7 +225,19 @@ class Embed(nn.Module):
 
 def embed_apply(p: Embed, tokens: torch.Tensor, cfg: ModelConfig
                 ) -> torch.Tensor:
-    return p.emb[tokens].to(model_dtype(cfg))
+    """The rows of ``tokens``, in the activation dtype.  On a vocab shard a
+    token outside the rank's block looks up a zero row and the rows are
+    summed over the model axis: exact, since every rank but the token's
+    owner adds zeros."""
+    dtype = model_dtype(cfg)
+    if p.vocab_start is None:
+        return p.emb[tokens].to(dtype)
+    n = p.emb.shape[0]
+    local = tokens - p.vocab_start
+    inside = ((local >= 0) & (local < n))[..., None]
+    h = p.emb[local.clamp(0, n - 1)].to(dtype)
+    h = torch.where(inside, h, torch.zeros((), dtype=dtype, device=h.device))
+    return context.require().all_reduce(h, "model")
 
 
 def head_apply(lm_head: Optional[linear.Linear], p_embed: Embed,
@@ -230,7 +247,9 @@ def head_apply(lm_head: Optional[linear.Linear], p_embed: Embed,
     every position of x: the tied head multiplies the activation-dtype
     operands exactly and sums in float32 (``ops.dot_f32``), serving and
     training alike; the untied head is ``lm_head`` through
-    ``linear.apply``, then widened."""
+    ``linear.apply``, then widened.  On a vocab shard these are the
+    logits of the rank's vocab block (``transformer._final_logits``
+    gathers them unless the run keeps them sharded)."""
     if cfg.tie_embeddings:
         return ops.dot_f32(x, p_embed.emb.to(x.dtype))
     return linear.apply(lm_head, x, slots=slots,

@@ -26,6 +26,18 @@ e's weight.  It has no bias and no adapter (LoRA targets the attention
 projections only), and serves one task's scales at the codes' full
 precision: no slots, no draft read.
 
+On a ``(data, model)`` mesh a rank holds its shard of each linear
+(``dist/sharding.py::shard_model``), marked ``tp``: a column-parallel
+linear (``"col"``) holds its output rows and needs nothing more; a
+row-parallel one (``"row"``: wo, down) holds its input columns of ``qw``
+and the whole ``scale``/``zero`` (its block of G > 1 groups is
+``tp_groups``), so its product is a partial sum that ``apply`` all-reduces
+over the model axis before the bias.  Under ``ModelConfig.bf16_reduce``
+the cut marks it ``tp_reduce_bf16`` and that sum runs in the activation
+dtype — half the bytes of float32 —, as the reference's bf16 dot outputs
+make its collectives bf16; off the mesh the flag changes nothing (every
+product is rounded to the activation dtype as it is).
+
 ``core/peqa.py`` turns fp into peqa in place (``set_quantized``),
 ``core/qat.py`` fp into qat (``set_fake_quant``) and ``core/lora.py`` adds
 the adapter (``set_lora``); model code only ever calls ``apply``.
@@ -38,8 +50,8 @@ import torch
 from torch import nn
 
 from repro_torch.core.quant import QuantSpec
+from repro_torch.dist import context
 from repro_torch.kernels import ops
-
 
 class Linear(nn.Module):
     def __init__(self, in_features: int, out_features: int, *,
@@ -156,27 +168,54 @@ def apply(p: Linear, x: torch.Tensor, slots=None,
     added after the product, on every route, and the bias after that, in
     y's dtype (``bias_add``).  The delta's scale is 1: the reference's
     ``apply`` takes ``lora_scale=1.0`` and no call site passes another
-    (its ``merge_lora`` multiplies by ``lora_alpha`` all the same)."""
+    (its ``merge_lora`` multiplies by ``lora_alpha`` all the same).
+
+    A row-parallel shard's product is all-reduced over the model axis
+    (``row_reduce``) before it is rounded to x's dtype and before the
+    delta and the bias."""
     if p.n_experts is not None:
         return _apply_experts(p, x, slots, draft_bits)
+    row = getattr(p, "tp", None) == "row"
     if p.quantized:
+        groups = getattr(p, "tp_groups", None) if row else None
         if slots is not None and isinstance(slots[1], dict) \
                 and "scale" in slots[1]:
             task_ids, stack = slots
-            y = ops.quant_matmul_slotted(x, p.qw, stack["scale"],
-                                         stack["zero"], task_ids, p.spec,
+            y = ops.quant_matmul_slotted(x, p.qw,
+                                         _groups(stack["scale"], groups),
+                                         _groups(stack["zero"], groups),
+                                         task_ids, p.spec,
                                          draft_bits=draft_bits)
         else:
-            y = ops.quant_matmul(x, p.qw, p.scale, p.zero, p.spec,
+            y = ops.quant_matmul(x, p.qw, _groups(p.scale, groups),
+                                 _groups(p.zero, groups), p.spec,
                                  draft_bits=draft_bits)
     elif p.fake_quant:
         w = fake_quant(p.w.to(x.dtype), p.scale, p.zero, p.spec)
-        y = ops.dot_f32(x, w).to(x.dtype)
+        y = ops.dot_f32(x, w)
     else:
-        y = ops.dot_f32(x, p.w.to(x.dtype)).to(x.dtype)
+        y = ops.dot_f32(x, p.w.to(x.dtype))
+    if row:
+        y = row_reduce(y, x.dtype if p.tp_reduce_bf16 else torch.float32)
+    y = y.to(x.dtype)
     if p.has_lora:
         y = y + lora_delta(x, p.lora_a, p.lora_b)
     return y if p.b is None else bias_add(y, p.b)
+
+
+def _groups(t: torch.Tensor, groups) -> torch.Tensor:
+    """A row-parallel shard's block of the (…, N, G) scales or zeros, G > 1
+    groups (contiguous: the kernels take contiguous operands)."""
+    if groups is None:
+        return t
+    return t[..., groups[0]:groups[1]].contiguous()
+
+
+def row_reduce(y: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A row-parallel partial product summed over the model axis in
+    ``dtype`` (the activation dtype under ``bf16_reduce``, else float32);
+    ``y`` is the caller's own, reduced in place where it has that dtype."""
+    return context.require().all_reduce(y.to(dtype), "model")
 
 
 def _apply_experts(p: Linear, x: torch.Tensor, slots, draft_bits

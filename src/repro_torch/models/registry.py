@@ -117,8 +117,32 @@ RECURRENT_SLOTTED_REASON = ("recurrent state layers cannot thread per-slot "
                             "scales (no slotted decode step)")
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for every configuration this slice of the port does not serve."""
+# why serving on a (data, model) mesh refuses a configuration: the later
+# slices of the mesh (ROADMAP §1)
+MESH_FAMILY_REASON = ("serving on a mesh is ported for the dense family "
+                      "only; {fam} shards later (MoE expert parallelism, "
+                      "the encoder, recurrent state and image prefixes)")
+MESH_ARM_REASON = ("the {mode} arm's LoRA or fake-quant leaves are not "
+                   "sharded: serve PEQA (peqa, peqa_z) or full weights on a "
+                   "mesh")
+
+
+def mesh_problems(cfg: ModelConfig) -> list:
+    """Why ``cfg`` cannot be served on a mesh in this slice (empty: it
+    can); the sharded extents are ``dist.sharding.shard_problems``'."""
+    out = []
+    if cfg.family != "dense" or cfg.moe is not None:
+        out.append(MESH_FAMILY_REASON.format(
+            fam="MoE" if cfg.moe is not None else cfg.family))
+    if cfg.tuning.mode in ("lora", "lora_optq", "qat"):
+        out.append(MESH_ARM_REASON.format(mode=cfg.tuning.mode))
+    return out
+
+
+def check_supported(cfg: ModelConfig, mesh=None) -> None:
+    """Raise for every configuration this slice of the port does not serve;
+    with ``mesh`` (a mesh context), also for what it does not serve on a
+    mesh (``mesh_problems``, ``dist.sharding.shard_problems``)."""
     moe = cfg.moe is not None
     encdec = cfg.family == "encdec"
     fam = cfg.family
@@ -186,8 +210,6 @@ def check_supported(cfg: ModelConfig) -> None:
          "for an MoE model"),
         (cfg.kv_cache_dtype not in KV_CACHE_DTYPES,
          f"kv_cache_dtype={cfg.kv_cache_dtype!r}"),
-        (cfg.bf16_reduce, "bf16_reduce (it halves the tensor-parallel "
-         "collectives' bytes, so it comes with the mesh: queue 6)"),
         (cfg.attn_impl not in ops.ATTN_IMPLS, f"attn_impl={cfg.attn_impl!r}"),
         (not cfg.use_rope and not encdec,
          "learned positions (use_rope=False)"),
@@ -197,6 +219,14 @@ def check_supported(cfg: ModelConfig) -> None:
         (cfg.remat not in transformer.REMATS, f"remat={cfg.remat!r}"),
     ]
     bad = [why for flag, why in refused if flag]
+    if mesh is not None and not bad:
+        from repro_torch.dist import sharding
+        bad = mesh_problems(cfg) + sharding.shard_problems(cfg,
+                                                           mesh.model_size)
+        if bad:
+            raise NotImplementedError(
+                f"{cfg.name}: not served on a ({mesh.data_size}, "
+                f"{mesh.model_size}) mesh: {'; '.join(bad)}")
     if bad:
         raise NotImplementedError(
             f"{cfg.name}: not ported yet: {'; '.join(bad)}")

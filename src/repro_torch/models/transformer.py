@@ -11,6 +11,15 @@ layers into ``loss_fn``.
 Layers are a ``ModuleList`` of per-layer blocks and run in a Python loop
 (the reference stacks them and scans).  ``bridge.py`` converts between the
 two layouts.
+
+The same functions run a rank's shard of the model on a ``(data, model)``
+mesh (``dist/sharding.py``) under ``context.use_mesh``: attention on the
+rank's local heads (the shard's config), row-parallel sums and the
+vocab-sharded lookup reduced in ``linear`` and ``common``, the logits
+gathered here unless the run keeps them vocab-sharded.  Activations are
+replicated over the model axis between blocks: the reference's
+Megatron-SP layout hint (``constrain_tokens``) changes no result and has
+no counterpart.
 """
 from __future__ import annotations
 
@@ -20,6 +29,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import context
 from repro_torch.kernels import ops
 from repro_torch.models import attention, common, linear, moe
 
@@ -92,9 +102,16 @@ def init(cfg: ModelConfig, generator: torch.Generator, device,
 
 def _final_logits(model: Transformer, h: torch.Tensor, cfg: ModelConfig,
                   slots=None, draft_bits=None):
+    """The head's float32 logits.  On a model-axis shard: the rank's vocab
+    block under ``context.use_mesh(ctx, logitshard=True)`` — the
+    shard-local samplers take it as it is —, else the whole row, gathered
+    over the model axis."""
     h = common.norm_apply(model.final_norm, h, cfg)
-    return common.head_apply(model.lm_head, model.embed, h, cfg, slots=slots,
-                             draft_bits=draft_bits)
+    logits = common.head_apply(model.lm_head, model.embed, h, cfg,
+                               slots=slots, draft_bits=draft_bits)
+    if model.embed.vocab_start is None or context.logitshard():
+        return logits
+    return context.require().all_gather(logits, "model", dim=-1)
 
 
 # ModelConfig.remat values the port runs: "none" keeps every activation for

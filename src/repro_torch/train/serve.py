@@ -25,11 +25,27 @@ One quantized integer backbone, per-task scales from a ``ScaleBank``:
     codes, then one target verify of the k+1 tokens; the emitted tokens
     are the target's greedy tokens.
 
-Not ported: the mesh arguments (``ctx``, ``logitshard``) and the deprecated
-keyword form of ``serve`` (it takes a ``ServeConfig``).
+On a ``(data, model)`` mesh (``ctx``, ``dist/context.py``) every rank runs
+an engine over its shard of the model (``dist/sharding.py::shard_model``):
+the model axis splits heads, d_ff and the vocab (the collectives are
+explicit, ``models/linear.py`` and ``models/common.py``); the data axis
+splits the lockstep batch, or the slot pool, wherever it divides.  Every
+rank runs the same scheduler on the same host state; the tokens a step
+samples are gathered over the data axis, so every rank's ``ServeReport``
+is the same (but for its wall clock).  Under ``logitshard`` the decode
+logits stay vocab-sharded and the shard-local samplers
+(``dist/sampling.py``) pick the tokens with scalar collectives; without it
+the logits are gathered over the model axis first.
+``decode_collectives`` / ``continuous_decode_collectives`` return one
+decode step's collective record (the reference's ``decode_hlo`` /
+``continuous_decode_hlo``).
+
+Not ported: the deprecated keyword form of ``serve`` (it takes a
+``ServeConfig``).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import time
 from collections import deque
@@ -41,7 +57,8 @@ from torch import nn
 
 from repro_torch import device as _device
 from repro_torch.core.scale_bank import ResidentStack, ScaleBank
-from repro_torch.dist import sampling
+from repro_torch.dist import backend, context, sampling, sharding
+from repro_torch.models import registry
 from repro_torch.models.registry import NO_VERIFY_REASON, ModelAPI
 from repro_torch.serve.config import ServeConfig
 from repro_torch.serve.metrics import (REJECTED, SERVED, SHED, RequestMetrics,
@@ -79,6 +96,9 @@ class SlotPool:
     per slot — the scheduler state: ``pos`` (next absolute position =
     tokens written so far), ``active``, ``tok`` (last sampled token, the
     next decode input), ``tid`` (resident-stack row) and per-slot metadata.
+
+    On a mesh whose data axis divides ``n_slots`` the cache holds the
+    rank's block of slots, ``rows``; the host mirrors stay whole.
     """
 
     def __init__(self, engine: "Engine", n_slots: int, cache_len: int):
@@ -92,7 +112,10 @@ class SlotPool:
                 f"family {engine.api.cfg.family!r} does not provide one")
         self.n_slots = n_slots
         self.cache_len = cache_len
-        self.cache = engine.api.init_cache(n_slots, cache_len)
+        self.rows = slice(0, n_slots) if engine.ctx is None \
+            else engine.ctx.local_rows(n_slots)
+        self.cache = engine.api.init_cache(self.rows.stop - self.rows.start,
+                                           cache_len)
         self.pos = np.zeros((n_slots,), np.int64)
         self.active = np.zeros((n_slots,), bool)
         self.tok = np.zeros((n_slots,), np.int64)
@@ -125,10 +148,47 @@ class SlotPool:
 
 class Engine:
     def __init__(self, api: ModelAPI, model: nn.Module,
-                 bank: Optional[ScaleBank] = None, *, device=None):
+                 bank: Optional[ScaleBank] = None, *, device=None,
+                 ctx: Optional[context.MeshContext] = None,
+                 logitshard: bool = False):
         """Serve ``model`` on ``device`` (the card unless ``device="cpu"``);
         the model is moved there if it is elsewhere.  ``bank`` holds the
-        task scale sets ``switch_task`` and ``serve`` draw on."""
+        task scale sets ``switch_task`` and ``serve`` draw on.
+
+        ``ctx``: serve on a mesh.  ``api`` is the whole model's and
+        ``model`` the rank's shard (``sharding.shard_model``), which must
+        already lie on the context's device (``device``, if given, must be
+        that one): a shard elsewhere is refused, not moved.
+        ``logitshard`` keeps the decode logits vocab-sharded (the vocab
+        must divide the model axis)."""
+        self.ctx = ctx
+        self.logitshard = bool(logitshard and ctx is not None)
+        if ctx is not None:
+            cfg = api.cfg
+            if self.logitshard and cfg.vocab_size % ctx.model_size:
+                raise ValueError(
+                    f"logitshard needs vocab {cfg.vocab_size} divisible by "
+                    f"the model axis ({ctx.model_size})")
+            registry.check_supported(cfg, mesh=ctx)
+            if getattr(model, "mesh_shard", None) != (ctx.model_rank,
+                                                      ctx.model_size):
+                raise ValueError(
+                    "on a mesh the engine serves this rank's shard of the "
+                    "model: pass sharding.shard_model(model, cfg, ctx)")
+            dev = backend.device(ctx.device)
+            if device is not None and backend.device(device) != dev:
+                raise ValueError(f"engine device {device} differs from the "
+                                 f"mesh context's {dev}")
+            where = {str(t.device) for t in (*model.parameters(),
+                                             *model.buffers())}
+            if where != {str(dev)}:
+                raise ValueError(
+                    f"the rank's shard lies on {', '.join(sorted(where))}, "
+                    f"the mesh context on {dev}: cut the shard from a model "
+                    f"on {dev}, or make the context there")
+            device = dev
+            api = registry.build(sharding.shard_config(cfg, ctx.model_size),
+                                 device=device)
         self.device = _device.resolve(device)
         if self.device != api.device:
             raise ValueError(f"engine device {self.device} differs from the "
@@ -141,6 +201,31 @@ class Engine:
         # lazily by serve(scheduler="resident"/"auto")
         self.resident: Optional[ResidentStack] = None
         self._dims = None
+
+    def _mesh(self):
+        """The scope every model call runs in: the mesh context (and the
+        logits layout) on a mesh, nothing off it."""
+        if self.ctx is None:
+            return contextlib.nullcontext()
+        return context.use_mesh(self.ctx, logitshard=self.logitshard)
+
+    def _argmax(self, batch: int):
+        """The greedy sampler of the logits the model functions return:
+        shard-local under ``logitshard``, else over whole rows."""
+        return sampling.shard_argmax(self.ctx if self.logitshard else None,
+                                     batch)
+
+    def _rows(self, batch: int) -> slice:
+        """This rank's rows of a ``batch``-row lockstep batch or pool."""
+        return slice(0, batch) if self.ctx is None \
+            else self.ctx.local_rows(batch)
+
+    def _gather_rows(self, t: torch.Tensor, batch: int) -> torch.Tensor:
+        """The whole batch's rows of ``t`` (this rank's ``_rows(batch)``)
+        on every rank: gathered over the data axis where it split them."""
+        if self.ctx is None or self.ctx.batch_axes(batch) is None:
+            return t
+        return self.ctx.all_gather(t, "data", dim=0)
 
     def _cache_dims(self):
         """This API's (batch_dims, seq_dims) (``cache_dims``), memoised.  A
@@ -197,7 +282,7 @@ class Engine:
         if self.bank is None:
             raise ValueError("no ScaleBank attached")
         t0 = time.perf_counter()
-        self.bank.switch(self.model, name)
+        self.bank.switch(self.model, name, ctx=self.ctx)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.current_task = name
@@ -219,7 +304,15 @@ class Engine:
         never written), so prefix+prompt+n_new-1 slots suffice and fewer
         raise.  A sliding window's ring cache wraps, so any positive value
         is legal there.
+
+        On a mesh ``tokens`` (and ``prefix``) are the whole batch on every
+        rank: each rank decodes its data block of rows where the batch
+        divides the data axis, and every rank returns the whole result.
         """
+        with self._mesh():
+            return self._generate(tokens, n_new, cache_len, prefix)
+
+    def _generate(self, tokens, n_new, cache_len, prefix):
         self._check_prefix(prefix)
         tokens = torch.as_tensor(tokens, device=self.device).to(torch.int64)
         b, s = tokens.shape
@@ -236,10 +329,14 @@ class Engine:
             raise ValueError(
                 f"cache_len={cache_len} < prompt+n_new-1={total - 1}: a "
                 f"dense cache cannot hold the generation")
-        sample = sampling.shard_argmax(None, b)
+        rows = self._rows(b)
+        whole_b, b = b, rows.stop - rows.start
+        tokens = tokens[rows]
+        sample = self._argmax(whole_b)
         batch = {"tokens": tokens}
         if prefix is not None:
-            batch[self.api.caps.prefix_key] = self._prefix_tensor(prefix)
+            batch[self.api.caps.prefix_key] = \
+                self._prefix_tensor(prefix)[rows]
         logits, pcache = self.api.prefill(self.model, batch)
         # re-home the prompt-sized prefill cache into one with headroom
         # (a ring's prefill cache is already in ring layout: it occupies
@@ -264,7 +361,54 @@ class Engine:
             logits, cache = self.api.decode_step(self.model, cache, tok,
                                                  s_eff + i)
             tok = sample(logits)[:, None]
-        return torch.cat(out, dim=1)
+        return self._gather_rows(torch.cat(out, dim=1), whole_b)
+
+    @torch.inference_mode()
+    def prefill_logits(self, tokens) -> torch.Tensor:
+        """The prefill's last-position logits (B, V) float32 of the whole
+        batch, on every rank (gathered over the data and model axes on a
+        mesh): what ``generate`` samples its first token from."""
+        tokens = torch.as_tensor(tokens, device=self.device).to(torch.int64)
+        b = tokens.shape[0]
+        if self.ctx is None:
+            return self.api.prefill(self.model, {"tokens": tokens})[0]
+        with context.use_mesh(self.ctx):          # whole rows: gathered
+            logits, _ = self.api.prefill(
+                self.model, {"tokens": tokens[self._rows(b)]})
+            return self._gather_rows(logits, b)
+
+    @torch.inference_mode()
+    def decode_collectives(self, b: int, cache_len: int) -> List[dict]:
+        """The collective record of one lockstep decode step of ``b`` rows
+        against a ``cache_len`` cache, its sampler included (the
+        reference's ``decode_hlo``, scanned for collectives): run on a
+        scratch cache, on every rank at once."""
+        if self.ctx is None:
+            raise ValueError("decode_collectives needs a mesh context")
+        rows = self._rows(b)
+        n = rows.stop - rows.start
+        cache = self.api.init_cache(n, cache_len)
+        tok = torch.zeros((n, 1), dtype=torch.int64, device=self.device)
+        with self._mesh(), self.ctx.recording() as rec:
+            logits, _ = self.api.decode_step(self.model, cache, tok, 0)
+            self._gather_rows(self._argmax(b)(logits), b)
+        return rec
+
+    @torch.inference_mode()
+    def continuous_decode_collectives(self, n_slots: int, cache_len: int
+                                      ) -> List[dict]:
+        """The collective record of one pool step of ``n_slots`` slots (the
+        reference's ``continuous_decode_hlo``): a scratch pool, every slot
+        active at position 0, decoded and sampled as ``step`` does."""
+        if self.ctx is None:
+            raise ValueError("continuous_decode_collectives needs a mesh "
+                             "context")
+        pool = self.open_pool(n_slots, cache_len)
+        pool.active[:] = True
+        tok, pos, act, tid = self._pool_inputs(pool)
+        with self._mesh(), self.ctx.recording() as rec:
+            self._pool_decode(pool, tok, pos, act, tid)
+        return rec
 
     # ------------------------------------------------- continuous batching
     def open_pool(self, n_slots: int, cache_len: int) -> SlotPool:
@@ -333,6 +477,10 @@ class Engine:
         slots.  A ring wraps, so its requests are not held to the pool's
         capacity.
         """
+        with self._mesh():
+            return self._admit(pool, request, rid, task_row, bucket)
+
+    def _admit(self, pool, request, rid, task_row, bucket) -> int:
         slot = pool.free_slot()
         if slot is None:
             raise RuntimeError("admit: no free slot (evict first)")
@@ -365,26 +513,41 @@ class Engine:
             else s
         if s_pad != s:
             toks = np.pad(toks, (0, s_pad - s))   # masked filler rows
-        batch = {"tokens": torch.as_tensor(toks, device=self.device)[None]}
-        if prefix is not None:
-            batch[caps.prefix_key] = self._prefix_tensor(prefix)[None]
-        if s_pad != s:
-            batch["last_pos"] = p_rows + s - 1
         if task_row is not None:
             self._check_task_rows([task_row])
-            tid = torch.full((1,), task_row, dtype=torch.int32,
-                             device=self.device)
-            logits, pcache = self.api.prefill_slotted(
-                self.model, self.resident.stack, batch, tid)
-        else:
-            logits, pcache = self.api.prefill(self.model, batch)
+        # on a mesh that splits the pool only the data ranks holding the
+        # slot prefill it; the first token then comes from them
+        local = slot - pool.rows.start
+        owner = 0 <= local < pool.rows.stop - pool.rows.start
+        if owner:
+            batch = {"tokens": torch.as_tensor(toks,
+                                               device=self.device)[None]}
+            if prefix is not None:
+                batch[caps.prefix_key] = self._prefix_tensor(prefix)[None]
+            if s_pad != s:
+                batch["last_pos"] = p_rows + s - 1
+            if task_row is not None:
+                tid = torch.full((1,), task_row, dtype=torch.int32,
+                                 device=self.device)
+                logits, pcache = self.api.prefill_slotted(
+                    self.model, self.resident.stack, batch, tid)
+            else:
+                logits, pcache = self.api.prefill(self.model, batch)
+            self._check_admit_shapes(pool, pcache)
+            first = self._argmax(1)(logits)
         # the pool is touched only once the prefill has succeeded (a
         # recurrent family's prompt whose length its chunked scan refuses
         # raises above)
         pool._prefill_keys.add((s_pad, p_rows, s_pad != s))
-        self._check_admit_shapes(pool, pcache)
-        t0 = int(sampling.shard_argmax(None, 1)(logits)[0])
-        self._admit_write(pool, pcache, slot)
+        if pool.rows.stop - pool.rows.start < pool.n_slots:
+            held = pool.rows.stop - pool.rows.start
+            first = self.ctx.broadcast(
+                first if owner else torch.zeros(1, dtype=torch.int64,
+                                                device=self.device),
+                "data", slot // held)
+        t0 = int(first[0])
+        if owner:
+            self._admit_write(pool, pcache, local)
         pool.pos[slot] = s_eff
         pool.active[slot] = True
         pool.tok[slot] = t0
@@ -418,18 +581,31 @@ class Engine:
 
     def _pool_inputs(self, pool: SlotPool):
         """(tok (n, 1), pos (n,), active (n,), tid (n,)) on the device for
-        the decode step — the previous step's device copies when no
-        scheduling event touched the host mirrors, one upload otherwise
-        (task rows validated on the host first)."""
+        the decode step, n the slots this rank holds — the previous step's
+        device copies when no scheduling event touched the host mirrors,
+        one upload otherwise (task rows validated on the host first)."""
         if pool._dev is not None:
             return pool._dev
         if pool.slotted:
             self._check_task_rows(pool.tid)
-        dev = self.device
-        return (torch.as_tensor(pool.tok.reshape(-1, 1), device=dev),
-                torch.as_tensor(pool.pos, device=dev),
-                torch.as_tensor(pool.active, device=dev),
-                torch.as_tensor(pool.tid, device=dev))
+        dev, r = self.device, pool.rows
+        return (torch.as_tensor(pool.tok[r].reshape(-1, 1), device=dev),
+                torch.as_tensor(pool.pos[r], device=dev),
+                torch.as_tensor(pool.active[r], device=dev),
+                torch.as_tensor(pool.tid[r], device=dev))
+
+    def _pool_decode(self, pool: SlotPool, tok, pos, act, tid):
+        """The device part of a pool step: decode the rank's slots and
+        sample them; returns (this rank's tokens, the whole pool's)."""
+        if pool.slotted:
+            logits, pool.cache = self.api.decode_step_slotted(
+                self.model, self.resident.stack, pool.cache, tok, pos, tid)
+        else:
+            logits, pool.cache = self.api.decode_step(self.model, pool.cache,
+                                                      tok, pos)
+        t = sampling.shard_argmax_masked(
+            self.ctx if self.logitshard else None, pool.n_slots)(logits, act)
+        return t, self._gather_rows(t, pool.n_slots)
 
     @torch.no_grad()
     def step(self, pool: SlotPool) -> np.ndarray:
@@ -441,14 +617,9 @@ class Engine:
         if pool.n_active() == 0:
             raise ValueError("step: no active slot (admit first)")
         tok, pos, act, tid = self._pool_inputs(pool)
-        if pool.slotted:
-            logits, pool.cache = self.api.decode_step_slotted(
-                self.model, self.resident.stack, pool.cache, tok, pos, tid)
-        else:
-            logits, pool.cache = self.api.decode_step(self.model, pool.cache,
-                                                      tok, pos)
-        t = sampling.shard_argmax_masked(None, pool.n_slots)(logits, act)
-        nxt = t.cpu().numpy()              # the step's one host sync
+        with self._mesh():
+            t, whole = self._pool_decode(pool, tok, pos, act, tid)
+        nxt = whole.cpu().numpy()          # the step's one host sync
         pool._dev = (t[:, None], pos + act.to(pos.dtype), act, tid)
         pool.steps += 1
         for slot in np.flatnonzero(pool.active):
@@ -529,7 +700,7 @@ class Engine:
         ``g[:acc+1]``)."""
         model, api = self.model, self.api
         stack = self.resident.stack if pool.slotted else None
-        argmax = sampling.shard_argmax(None, pool.n_slots)
+        argmax = self._argmax(pool.n_slots)
         seq = [tok]
         t = tok
         for j in range(spec_k):
@@ -550,7 +721,8 @@ class Engine:
         else:
             logits, pool.cache = api.decode_verify(model, pool.cache, seq,
                                                    pos)
-        g = torch.argmax(logits, dim=-1)                  # (B, k+1)
+        b, s1, v = logits.shape
+        g = argmax(logits.reshape(b * s1, v)).reshape(b, s1)  # (B, k+1)
         g = torch.where(act[:, None], g, 0)
         match = (seq[:, 1:] == g[:, :-1]).to(torch.int64)
         acc = torch.where(act, torch.cumprod(match, dim=1).sum(dim=1), 0)
@@ -567,9 +739,12 @@ class Engine:
         if pool.n_active() == 0:
             raise ValueError("spec_step: no active slot (admit first)")
         tok, pos, act, tid = self._pool_inputs(pool)
-        g, acc = self._spec_round(pool, tok, pos, act, tid, spec_k,
-                                  draft_bits)
-        both = torch.cat([g, acc[:, None]], dim=1).cpu().numpy()  # one sync
+        with self._mesh():
+            g, acc = self._spec_round(pool, tok, pos, act, tid, spec_k,
+                                      draft_bits)
+            both = self._gather_rows(torch.cat([g, acc[:, None]], dim=1),
+                                     pool.n_slots)
+        both = both.cpu().numpy()          # the round's one host sync
         g, acc = both[:, :-1], both[:, -1]
         pool.steps += 1
         pool.draft_steps += spec_k
@@ -609,7 +784,7 @@ class Engine:
         cap = max(2, min(int(resident_tasks), len(self.bank.tasks)))
         if self.resident is None or self.resident.capacity != cap:
             self.resident = ResidentStack(self.bank, self.model, cap,
-                                          device=self.device)
+                                          device=self.device, ctx=self.ctx)
         return self.resident
 
     @torch.no_grad()

@@ -1,0 +1,178 @@
+"""The rank side of the port's mesh tests (``tests/test_torch_dist_*.py``).
+
+Each function here runs in one spawned rank (``repro_torch.dist.backend
+.spawn``, gloo on the CPU, one intra-op thread): it rebuilds the port's
+model from the reference tree the test saved (``save_tree``), cuts its
+shard, runs the mesh path and saves what the test compares into
+``<tmp>/<name><rank>.pt``.  It imports torch and ``repro_torch`` only: the
+JAX side runs in the test's own process.
+"""
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from repro_torch import bridge
+from repro_torch.core import scale_bank as sb
+from repro_torch.dist import sampling, sharding
+from repro_torch.launch import mesh as mesh_mod
+from repro_torch.models import registry
+from repro_torch.serve import Request, ServeConfig
+from repro_torch.train.serve import Engine, cache_dims
+
+
+def save_tree(path: str, tree: dict) -> None:
+    """A reference param tree (numpy leaves) as one flat npz."""
+    np.savez(path, **{k.lstrip("/"): v
+                      for k, v in bridge._flatten(tree).items()})
+
+
+def load_model(path: str, cfg):
+    """The port's model of ``cfg`` from a tree saved by ``save_tree``."""
+    with np.load(path) as z:
+        flat = {k: z[k] for k in z.files}
+    return bridge.to_module(bridge._nest(flat), cfg, device="cpu")
+
+
+def _ctx(shape):
+    return mesh_mod.make_debug_mesh(*shape, device="cpu")
+
+
+def _save(tmp, name, rank, out):
+    torch.save(out, os.path.join(tmp, f"{name}{rank}.pt"))
+
+
+def serve_rank(rank, shape, tmp, cfg, cfg_bf16, prompt, n_new):
+    """Lockstep serving on the mesh: ``generate`` under tasks A and B, the
+    prefill logits (float32, and bf16 under ``bf16_reduce``), a swap's and
+    the decode steps' collective records, the slot pool's cache layout."""
+    ctx = _ctx(shape)
+    model = load_model(os.path.join(tmp, "dense.npz"), cfg)
+    api = registry.build(cfg, device="cpu")
+    bank = sb.ScaleBank(root=os.path.join(tmp, "bank"))
+    local = sharding.shard_model(model, cfg, ctx)
+    eng = Engine(api, local, bank=bank, ctx=ctx, logitshard=True)
+    host = Engine(api, model, bank=bank, device="cpu")
+    out = {"rows": (ctx.local_rows(prompt.shape[0]).start,
+                    ctx.local_rows(prompt.shape[0]).stop)}
+    for task in ("A", "B"):
+        if task == "B":
+            rec = sb.swap_collectives(local, bank.tasks["B"], ctx)
+            out["swap_record"] = rec
+            out["switch_s"] = eng.switch_task("B")
+            host.switch_task("B")
+        else:
+            eng.switch_task("A")
+            host.switch_task("A")
+        out[f"tokens_{task}"] = eng.generate(prompt, n_new)
+        out[f"host_tokens_{task}"] = host.generate(prompt, n_new)
+        out[f"logits_{task}"] = eng.prefill_logits(prompt)
+        out[f"host_logits_{task}"] = host.prefill_logits(prompt)
+    out["local_nbytes"] = bank.local_nbytes("B", ctx)
+    out["nbytes"] = bank.nbytes("B")
+    base = Engine(api, local, bank=bank, ctx=ctx, logitshard=False)
+    for name, e in (("ls", eng), ("base", base)):
+        out[f"decode_{name}"] = e.decode_collectives(prompt.shape[0], 32)
+        out[f"cont_{name}"] = e.continuous_decode_collectives(4, 24)
+        out[f"tokens_{name}"] = e.generate(prompt, n_new)
+    # the slot pool's cache: each leaf the rank's block of cache_specs'
+    eng.switch_task("A")
+    pool = eng.open_pool(4, 24)
+    eng.admit(pool, Request(tokens=np.arange(6, dtype=np.int32), n_new=4,
+                            task="A"))
+    whole = api.init_cache(4, 24, device="meta")
+    specs = sharding.cache_specs(
+        ctx, whole, 4, ctx.batch_axes(4) is not None,
+        n_kv_heads=cfg.n_kv_heads,
+        batch_dims=cache_dims(api.init_cache, 2, 8)[0])
+    out["pool_shapes"] = {k: tuple(v.shape) for k, v in pool.cache.items()}
+    out["spec_shapes"] = {k: sharding.local_shape(whole[k].shape, specs[k],
+                                                  ctx.axis_sizes)
+                          for k in whole}
+    # bf16 with bf16_reduce: the row-parallel sums in bf16
+    mb = load_model(os.path.join(tmp, "dense.npz"), cfg_bf16)
+    api_b = registry.build(cfg_bf16, device="cpu")
+    eb = Engine(api_b, sharding.shard_model(mb, cfg_bf16, ctx), ctx=ctx,
+                logitshard=True)
+    out["bf16_logits"] = eb.prefill_logits(prompt)
+    out["bf16_decode"] = eb.decode_collectives(prompt.shape[0], 32)
+    _save(tmp, "serve", rank, out)
+
+
+def _cont_requests(vocab):
+    """The reference's ``_CONT_TEST`` traffic."""
+    return [Request(tokens=(np.arange(6, dtype=np.int32) * (i + 1)) % vocab,
+                    n_new=[4, 7, 3, 9][i % 4], task=["A", "B"][(i // 4) % 2],
+                    arrival_step=i // 2) for i in range(8)]
+
+
+def _spec_requests(vocab):
+    """The reference's ``_SPEC_SHARD_TEST`` traffic."""
+    return [Request(tokens=(np.arange(6, dtype=np.int32) * (i + 1)) % vocab,
+                    n_new=(16, 24, 32)[i % 3]) for i in range(8)]
+
+
+def _report(rep):
+    return {"tokens": rep.tokens, "steps": rep.steps,
+            "scheduler": rep.scheduler, "switches": rep.switches,
+            "bubble_slot_steps": rep.bubble_slot_steps,
+            "idle_slot_steps": rep.idle_slot_steps, "decoded": rep.decoded,
+            "task_drain_idle_slot_steps": rep.task_drain_idle_slot_steps,
+            "draft_steps": rep.draft_steps,
+            "acceptance_rate": rep.acceptance_rate}
+
+
+def _sampled(ctx, lg, key, active):
+    """Every sampler's sharded form on this rank's block of ``lg`` (B, V),
+    gathered back to the whole batch."""
+    b, v = lg.shape
+    rows = ctx.local_rows(b)
+    c0, c1 = ctx.vocab_range(v)
+    blk = lg[rows, c0:c1].contiguous()
+    split = ctx.batch_axes(b) is not None
+
+    def whole(t):
+        return ctx.all_gather(t, "data", dim=0) if split else t
+    vals, idx = sampling.shard_topk(ctx, b, 5)(blk)
+    return {
+        "argmax": whole(sampling.shard_argmax(ctx, b)(blk)),
+        "argmax_masked": whole(sampling.shard_argmax_masked(ctx, b, fill=3)(
+            blk, active[rows])),
+        "topk_values": whole(vals), "topk_indices": whole(idx),
+        "sample": whole(sampling.shard_sample(ctx, b, 0.8)(blk, key)),
+        "top_p": whole(sampling.shard_top_p(ctx, b, 0.9, 0.8)(blk, key)),
+        "top_p_half": whole(sampling.shard_top_p(ctx, b, 0.5, 0.8)(blk, key)),
+    }
+
+
+def cont_rank(rank, shape, tmp, cfg, cfg_plane, logits):
+    """Continuous serving on the mesh (resident and drain on the dense
+    tree, greedy and speculative on the plane tree) and every sampler's
+    sharded form on ``logits`` ({name: (B, V) float32})."""
+    ctx = _ctx(shape)
+    api = registry.build(cfg, device="cpu")
+    model = load_model(os.path.join(tmp, "dense.npz"), cfg)
+    bank = sb.ScaleBank(root=os.path.join(tmp, "bank"))
+    eng = Engine(api, sharding.shard_model(model, cfg, ctx), bank=bank,
+                 ctx=ctx, logitshard=True)
+    reqs = _cont_requests(cfg.vocab_size)
+    eng.switch_task("A")
+    out = {"resident": _report(eng.serve(reqs, ServeConfig(n_slots=4)))}
+    out["install_record"] = eng.resident.install_collectives("B")
+    out["drain"] = _report(eng.serve(reqs, ServeConfig(n_slots=4,
+                                                       scheduler="drain")))
+    api_p = registry.build(cfg_plane, device="cpu")
+    plane = load_model(os.path.join(tmp, "plane.npz"), cfg_plane)
+    local_p = sharding.shard_model(plane, cfg_plane, ctx)
+    sreqs = _spec_requests(cfg_plane.vocab_size)
+    out["greedy"] = _report(Engine(api_p, local_p, ctx=ctx, logitshard=True
+                                   ).serve(sreqs, ServeConfig(n_slots=4)))
+    out["speculative"] = _report(Engine(
+        api_p, local_p, ctx=ctx, logitshard=True).serve(
+            sreqs, ServeConfig(n_slots=4, scheduler="speculative",
+                               spec_k=2, draft_bits=3)))
+    out["samplers"] = {name: _sampled(ctx, lg, 42, act)
+                       for name, (lg, act) in logits.items()}
+    _save(tmp, "cont", rank, out)

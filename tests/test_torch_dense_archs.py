@@ -123,12 +123,21 @@ def test_dense_configs_match_reference(arch):
 
 
 def test_new_options_build_and_bf16_reduce_is_refused():
+    """The options build.  ``bf16_reduce`` is no longer refused: it builds,
+    and off a mesh — where the dots already come out in the activation
+    dtype — its logits are those without it."""
     _, t = tiny_pair("qwen2-7b")
     for kw in (dict(swa_window=8), dict(kv_cache_dtype="int8"),
                dict(swa_window=8, kv_cache_dtype="int8")):
         registry.build(t.replace(**kw), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 6"):
-        registry.build(t.replace(bf16_reduce=True), device="cpu")
+    t = t.replace(dtype="bfloat16")
+    plain = registry.build(t, device="cpu")
+    red = registry.build(t.replace(bf16_reduce=True), device="cpu")
+    model = plain.init(0)
+    tokens = torch.arange(12).reshape(2, 6)
+    with torch.no_grad():
+        assert torch.equal(plain.forward(model, tokens),
+                           red.forward(model, tokens))
 
 
 # -------------------------------------------------------- forward and loss

@@ -40,7 +40,8 @@ import pytest
 import torch
 
 from repro_torch.core.quant import (QuantSpec, draft_scales, pack_codes,
-                                    pack_codes_planes, rtn_quantize)
+                                    pack_codes_planes, rtn_quantize,
+                                    unpack_codes)
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import quant_matmul as qm
@@ -1677,3 +1678,69 @@ def test_xlstm_zamba2_tiny_build_and_generate_on_the_card(cuda, arch):
         with ops.force_impl("torch"):
             lp, _ = api.prefill(streamed, {"tokens": prompt.to(cuda)})
     assert (lk - lp).abs().max() <= 2 ** -5 * lp.abs().max()
+
+
+# ------------------------------------------------ shard shapes of a mesh
+# llama3.2-1b's linears cut over a model axis of 2 (dist/sharding.py): the
+# column-parallel q, k/v and gate/up hold half their output rows, the
+# row-parallel o and down half their input columns; the mesh's M: a
+# (2, 2) mesh's 2 lockstep rows, (1, 2)'s 4, their prefills' 512 and 1024
+SHARD_SHAPES = [(1024, 2048), (256, 2048), (4096, 2048), (2048, 1024),
+                (2048, 4096)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,k", SHARD_SHAPES)
+@pytest.mark.parametrize("form", ["k1_k2", "k5", "planes"])
+def test_kernels_at_shard_shapes(cuda, form, n, k):
+    """K1 and K2, K5 over 2 tasks, and the K6a forms (4 planes read whole
+    and as the 3-plane draft) at a rank's shard shapes, bf16 on the
+    tensor-core route: within the factored bound of plain."""
+    for m in ((2, 4, 512, 1024) if form != "k5" else (4, 8, 32)):
+        x, qw, s, z = _operands(m, n, k, None, torch.bfloat16, cuda,
+                                seed=n + k + m)
+        gemv = m <= qm.GEMV_MAX_M
+        assert qm.tc_route(x, s)
+        if form == "k1_k2":
+            got = (qm.quant_gemv if gemv else qm.quant_matmul)(x, qw, s, z)
+            _assert_within_bound(got, qm.quant_matmul_plain(x, qw, s, z),
+                                 (x, qw, s, z), factored=True, gemv=gemv)
+        elif form == "k5":
+            ss, zs = _task_stacks(2, s, z, seed=m)
+            ids = torch.tensor([i % 2 for i in range(m)], dtype=torch.int32,
+                               device=cuda)
+            got = qm.quant_gemv_tasks(x, qw, ss, zs, ids)
+            plain = qm.quant_matmul_tasks_plain(x, qw, ss, zs, ids)
+            err = (got.float() - plain.float()).abs()
+            assert (err <= qm.error_bound(x, qw, ss, zs, plain, task_ids=ids,
+                                          factored=True, gemv=True)).all()
+        else:
+            planes = pack_codes_planes(unpack_codes(qw.cpu()), 4).to(cuda)
+            for p in (4, 3):
+                fn = qm.quant_gemv_planes if gemv else qm.quant_matmul_planes
+                got = fn(x, planes, s, z, p, 4 - p)
+                plain = qm.quant_matmul_planes_plain(x, planes, s, z, p,
+                                                     4 - p)
+                err = (got.float() - plain.float()).abs()
+                assert (err <= qm.error_bound(
+                    x, planes, s, z, plain, planes=(p, 4 - p), factored=True,
+                    gemv=gemv)).all(), (m, p)
+        torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,sk,offset", [(2, 256, 256, None),
+                                            (2, 1, 288, 260),
+                                            (4, 4, 307, "slots")],
+                         ids=["prefill", "lockstep_decode", "slot_verify"])
+def test_flash_attention_at_local_heads(cuda, b, sq, sk, offset):
+    """K4 on a rank's heads of llama3.2-1b over a model axis of 2: 16
+    query and 4 KV heads of 64, bf16, within its bound of plain."""
+    q, k, v = _attention_inputs(b, sq, sk, 16, 4, 64, torch.bfloat16, cuda,
+                                seed=sk)
+    if offset == "slots":
+        offset = torch.tensor([20, 100, 200, 300], device=cuda)
+    got = fa.flash_attention(q, k, v, causal=True, offset=offset)
+    plain = fa.flash_attention_plain(q, k, v, causal=True, offset=offset)
+    err = (got.float() - plain.float()).abs()
+    assert (err <= fa.error_bound(q, k, v, plain)).all()

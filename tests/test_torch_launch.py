@@ -4,7 +4,9 @@
   * ``mixed_workload`` and ``family_workload`` give the reference's
     requests for every family;
   * ``--continuous`` exits 0 under every scheduler (speculative on
-    ``--layout plane``), over each traffic kind; the mesh flags and
+    ``--layout plane``), over each traffic kind; ``--mesh 1,2 --device
+    cpu`` serves on two gloo ranks (continuous, and lockstep under
+    ``--no-logitshard``), what the mesh cannot serve and
     ``REPRO_FAKE_DEVICES`` are refused with a clear ``SystemExit``; the
     tuning restores the backbone;
   * ``launch.train`` (``--tiny``): the loss falls over 12 steps, a second
@@ -32,6 +34,7 @@ from repro.optim.adamw import make_optimizer as jmake_optimizer
 import repro_torch.configs as tconfigs
 from repro_torch import bridge
 from repro_torch.core.scale_bank import ScaleBank
+from repro_torch.dist import context
 from repro_torch.launch import serve, train
 
 from test_torch_ckpt import _assert_trees_equal
@@ -113,22 +116,56 @@ def test_serve_lockstep_path(capsys):
     assert out.count("switch=") == 4 and "tuned taskB" in out
 
 
-@pytest.mark.parametrize("argv,env", [
-    (["--mesh", "2,4"], None), (["--no-logitshard"], None),
-    ([], "8")], ids=["mesh", "no-logitshard", "fake-devices"])
-def test_serve_mesh_flags_refused(argv, env, monkeypatch):
+@pytest.mark.parametrize("argv,env,why", [
+    (["--mesh", "1,3"], None, "n_heads=4 is not divisible by the model "
+                              "axis (3)"),
+    (["--mesh", "1,2", "--no-logitshard", "--family-smoke"], None,
+     "--family-smoke runs off the mesh"),
+    ([], "8", "--device cpu --mesh D,M")],
+    ids=["mesh", "no-logitshard", "fake-devices"])
+def test_serve_mesh_flags_refused(argv, env, why, monkeypatch):
+    """What the mesh flags still refuse, with a reason: a mesh the config
+    does not split over, the family smoke on a mesh, and the fake-device
+    variable (one process a rank: it points at ``--mesh``)."""
     if env is not None:
         monkeypatch.setenv("REPRO_FAKE_DEVICES", env)
     with pytest.raises(SystemExit) as exc:
         serve.main([*CPU, *argv])
-    assert "queue 6, item 9" in str(exc.value.code)
+    assert why in str(exc.value.code)
+
+
+@pytest.mark.parametrize("flags,want", [
+    (["--continuous", "--scheduler", "resident"], "[serve] continuous OK"),
+    (["--no-logitshard", "--n-new", "4"], "switch=")],
+    ids=["continuous", "no-logitshard"])
+def test_serve_on_a_cpu_mesh(flags, want, capfd):
+    """``--mesh 1,2 --device cpu``: two gloo ranks serve their shards; the
+    continuous run passes its gates on every rank, the lockstep loop runs
+    each task twice with the logits gathered."""
+    args = [*CPU, "--mesh", "1,2", "--tune-steps", "2", *flags]
+    if "--continuous" in flags:
+        with pytest.raises(SystemExit) as exc:
+            serve.main(args)
+        assert exc.value.code in (0, None)
+    else:
+        serve.main(args)
+    out = capfd.readouterr().out
+    assert "2 ranks over gloo on cpu" in out and want in out
+    assert "a swap moves" in out
+    if "--no-logitshard" in flags:
+        assert out.count("switch=") == 4
 
 
 def test_place_prompt_off_mesh_only():
-    prompt = np.arange(16, dtype=np.int32).reshape(2, 8)
+    """Off the mesh the prompt itself; on a mesh a rank's data block of
+    rows (every row where the batch does not divide the data axis)."""
+    prompt = np.arange(32, dtype=np.int32).reshape(4, 8)
     assert serve.place_prompt(prompt) is prompt
-    with pytest.raises(NotImplementedError, match="queue 6, item 9"):
-        serve.place_prompt(prompt, ctx=object())
+    for d in range(2):
+        got = serve.place_prompt(prompt, ctx=context.coords(2, 2, d, 1))
+        assert torch.equal(got, torch.from_numpy(prompt[2 * d:2 * d + 2]))
+    got = serve.place_prompt(prompt[:3], ctx=context.coords(2, 1, 1))
+    assert got.shape == (3, 8)
 
 
 def test_tiny_cannot_be_turned_off():

@@ -173,7 +173,7 @@ def test_policies_masks(pair):
 @pytest.mark.parametrize("change", [
     dict(use_rope=False), dict(kv_cache_dtype="fp8"),
     dict(moe=MoEConfig(n_experts=4, top_k=2, expert_sharding="pipeline")),
-    dict(bf16_reduce=True), dict(act="relu"),
+    dict(remat="offload"), dict(act="relu"),
     dict(family="encdec"), dict(quant_layout="plane", quant_bits=5),
     dict(quant_packed=False),
     dict(quant_bits=8)])

@@ -26,7 +26,7 @@ import torch
 from scipy import stats
 
 from repro.dist import sampling as jsampling
-from repro_torch.dist import sampling
+from repro_torch.dist import context, sampling
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -109,13 +109,19 @@ def test_degrades_to_argmax(make):
 
 
 def test_mesh_context_and_bad_p_refused():
-    for fn in (lambda: sampling.shard_sample(object(), 2, 0.8),
-               lambda: sampling.shard_top_p(object(), 2, 0.9),
-               lambda: sampling.shard_topk(object(), 2, 3)):
-        with pytest.raises(NotImplementedError, match="mesh"):
+    """A context that names a mesh position but holds no process groups
+    (``context.coords``) is refused when a sharded sampler reduces; the
+    sharded forms themselves are tests/test_torch_dist_continuous.py's."""
+    ctx = context.coords(1, 2)
+    lg = torch.zeros(2, 4)
+    for fn in (lambda: sampling.shard_sample(ctx, 2, 0.8)(lg, 0),
+               lambda: sampling.shard_top_p(ctx, 2, 0.9)(lg, 0),
+               lambda: sampling.shard_topk(ctx, 2, 3)(lg),
+               lambda: sampling.shard_argmax(ctx, 2)(lg)):
+        with pytest.raises(RuntimeError, match="no process groups"):
             fn()
-    with pytest.raises(NotImplementedError, match="mesh"):
-        sampling._topp_keep(torch.zeros(1, 4), 4, 0.5, axis="model")
+    with pytest.raises(RuntimeError, match="no process groups"):
+        sampling._topp_keep(torch.zeros(1, 4), 8, 0.5, axis=ctx)
     for p in (0.0, -0.1, 1.5):
         with pytest.raises(ValueError, match="top-p"):
             sampling.shard_top_p(None, 2, p)

@@ -146,7 +146,7 @@ def test_vlm_config_and_build():
                     (dict(moe=MoEConfig(n_experts=4, top_k=2),
                           tuning=TTuning(mode="lora_optq")),
                      "lora_optq on MoE"),
-                    (dict(bf16_reduce=True), "bf16_reduce"),
+                    (dict(act="relu"), "act='relu'"),
                     (dict(use_rope=False), "learned positions"),
                     (dict(remat="offload"), "remat='offload'")):
         with pytest.raises(NotImplementedError, match=why):
