@@ -449,7 +449,25 @@ line:
                decode step makes (count and bytes by kind), decode ms a
                step, the peak a rank; gloo's times are its loopback path,
                not NCCL's speed.
- 22. launch  — (after arms) the CLIs as subprocesses, each gated on exit
+ 22. mesh_train — (after mesh) PEQA training on the same meshes at
+               llama3.2-1b's full width and depth, 8 × 256 a step
+               (phase train's batches), remat "block", each rank cutting
+               its shard of the whole train state from phase mesh's saved
+               model (``train.state.shard_state``): 3 steps at each mesh,
+               every rank's metrics equal, the step-1 loss within 2⁻⁸ and
+               ``grad_norm`` within 5e-2 of the unsharded step from the
+               same state and batch (every step at (1, 1)), every K2 call
+               of step 1 (and at (1, 2) every K4 call of a "chunked" step)
+               held to plain on rank 0 (``CheckedQuantMatmul(attention=
+               True)``), K2 launched 14L a step, all-reduces only, their
+               count on each axis ``step.mesh_collectives``', no
+               vocab-extent gather, the codes frozen; at (1, 2) also an
+               int8-compressed step, and a checkpoint of the whole state
+               written from the shards and restored off the mesh (its next
+               step's loss the mesh's).  Step ms, the peak a rank and the
+               collectives a step (count and bytes by axis), beside the
+               unsharded step's ms and peak in the same call.
+ 23. launch  — (after arms) the CLIs as subprocesses, each gated on exit
                code 0 and its own success line: ``launch.train`` at
                llama3.2-1b's full width and depth, 10 PEQA steps of 8 ×
                256 checkpointed (its step wall from its log lines'
@@ -459,7 +477,7 @@ line:
                (fewer target steps than its greedy replay), both on the
                reduced config the CLI's ``--tiny`` forces; ``--family-smoke``
                for llama3.2-1b (tokens equal to lockstep ``generate``).
- 23. examples — ``train.instruction_tune.run`` at its defaults
+ 24. examples — ``train.instruction_tune.run`` at its defaults
                (llama3.2-20m, 300 + 300 steps, 3 bits): the PEQA-tuned
                instruction perplexity below the RTN 3-bit one, the codes
                bit-identical, the exported npz reloading equal to the
@@ -481,8 +499,10 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -3651,7 +3671,7 @@ class MeasuredUpdate:
     def __getattr__(self, name):
         return getattr(self.opt, name)
 
-    def update(self, grads, *args):
+    def update(self, grads, *args, **kw):
         cuda = self.torch.cuda
         cuda.synchronize()
         rec = {"fwd_bwd_peak": cuda.max_memory_allocated() - self.base,
@@ -3659,7 +3679,7 @@ class MeasuredUpdate:
                "grad_bytes": sum(g.numel() * g.element_size()
                                  for g in grads.values() if g is not None)}
         cuda.reset_peak_memory_stats()
-        out = self.opt.update(grads, *args)
+        out = self.opt.update(grads, *args, **kw)
         cuda.synchronize()
         rec["update_peak"] = cuda.max_memory_allocated() - self.base
         self.steps.append(rec)
@@ -3768,8 +3788,10 @@ class CheckedQuantMatmul:
     expert's operands (launches made for the comparison are taken off the
     counters again).  ``watch = (i, j)``: expert call j's input must equal
     expert call i's bit for bit (a remat recompute's first expert call
-    against the forward's: the same routing).  Counts the calls checked by
-    kernel (``calls``).
+    against the forward's: the same routing).  With ``attention`` every
+    "chunked" ``ops.attention`` call on the card (K4) too, against
+    ``flash_attention_plain`` within ``flash_attention.error_bound``.
+    Counts the calls checked by kernel (``calls``).
 
     With ``shapes`` it holds instead the kernel each ``ops.quant_matmul``,
     ``ops.quant_matmul_slotted`` and chunked ``ops.attention`` call
@@ -3788,12 +3810,15 @@ class CheckedQuantMatmul:
              "attention")
 
     def __init__(self, ops, label, rows_m=None, bitwise_2d=False,
-                 watch=None, shapes=False):
+                 watch=None, shapes=False, attention=False):
         self.ops, self.label, self.rows_m = ops, label, rows_m
         self.bitwise_2d, self.watch, self.shapes = bitwise_2d, watch, shapes
+        self.attention = attention
         self.calls = {kname(k, p): 0 for p in (False, True) for k in (
             "quant_gemv", "quant_matmul", "quant_gemv_experts",
             "quant_matmul_experts")}
+        if attention:
+            self.calls["flash_attention"] = 0
         self.worst = 0.0
         self.slices_bitwise = 0
         self.watched = None
@@ -3869,7 +3894,27 @@ class CheckedQuantMatmul:
                                   spec.bits if spec.plane else None)
             return y
 
-        return {"quant_matmul": qmm, "quant_matmul_experts": qmme}
+        def attention(q, k, v, **kw):
+            from repro_torch.kernels import flash_attention as fa
+            o = saved["attention"](q, k, v, **kw)
+            if kw.get("impl", "dense") == "chunked" and q.is_cuda:
+                mask = {n: kw[n] for n in ("causal", "window", "scale",
+                                           "offset") if n in kw}
+                with torch.no_grad():
+                    plain = fa.flash_attention_plain(q, k, v, **mask)
+                    err = check_close(
+                        f"{self.label}: flash_attention call "
+                        f"{self.calls['flash_attention']}", o.detach(), plain,
+                        fa.error_bound(q, k, v, plain,
+                                       scale=mask.get("scale")))
+                self.calls["flash_attention"] += 1
+                self.worst = max(self.worst, err)
+            return o
+
+        hooks = {"quant_matmul": qmm, "quant_matmul_experts": qmme}
+        if self.attention:
+            hooks["attention"] = attention
+        return hooks
 
     def _shape_hooks(self) -> dict:
         import torch
@@ -6125,9 +6170,11 @@ def mesh_requests(vocab: int) -> list:
             for i, r in enumerate(serve_requests(vocab, MESH_REQUESTS))]
 
 
-def mesh_rank(rank: int, shape: tuple, tmp: str) -> None:
+def mesh_rank(rank: int, shape: tuple, tmp: str, train: bool) -> None:
     """One spawned rank of phase mesh: the whole model saved by the parent,
-    then ``mesh_serve``; the results go to ``tmp``.  A failed gate exits
+    then ``mesh_serve``; the results go to ``tmp``.  With ``train`` the
+    rank then runs phase mesh_train's part too (``train_rank``: the same
+    process, so no second start and warm-up).  A failed gate exits
     non-zero."""
     import torch
     sys.path.insert(0, os.path.join(HERE, "src"))
@@ -6143,6 +6190,10 @@ def mesh_rank(rank: int, shape: tuple, tmp: str) -> None:
                                 os.path.join(tmp, "whole.pt")),
                      prompt, {"mesh_and_load": time.perf_counter() - t0})
     torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    del out
+    if train:
+        torch.cuda.empty_cache()
+        train_rank(torch, ctx, rank, tmp)
 
 
 def mesh_serve(torch, ctx, rank: int, whole, prompt, stages: dict) -> dict:
@@ -6309,15 +6360,15 @@ def decode_profile(torch, engine, prompt, steps: int = 8) -> dict:
             "s": time.perf_counter() - t0}
 
 
-def phase_mesh(torch, main_path) -> dict:
+def phase_mesh(torch, main_path, tmp=None, train=False) -> dict:
     """Serving on (data, model) meshes at llama3.2-1b's full width and
     depth, each rank cutting its shard from phase main's whole model:
     (1, 1) over NCCL in this process, bit-equal to the unsharded engine;
     (1, 2) and (2, 2) spawned on cuda:0 under gloo, the whole model saved
-    once for them (gloo's times measure the path, not NCCL's speed)."""
-    import shutil
-    import tempfile
-
+    once for them in ``tmp`` (kept there for phase mesh_train; None: a
+    directory of this phase's own, removed after it).  With ``train`` the
+    spawned ranks also run phase mesh_train's part, into ``tmp``.  gloo's
+    times measure the path, not NCCL's speed."""
     import torch.distributed as dist
     from torch.multiprocessing import ProcessExitedException
 
@@ -6331,7 +6382,8 @@ def phase_mesh(torch, main_path) -> dict:
     ref_logits = ref.prefill_logits(prompt).float().cpu()
     ref_tokens = ref.generate(prompt, NEW).cpu()
     want = main_path["res"]["launches"]
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    own = tmp is None
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_") if own else tmp
     res = {"phase": "mesh", "model": cfg.name, "layers": cfg.n_layers,
            "batch": BATCH, "prompt": PROMPT, "new_tokens": NEW,
            "logit_tolerance_share": MESH_LOGIT_TOL, "meshes": {}}
@@ -6357,7 +6409,7 @@ def phase_mesh(torch, main_path) -> dict:
             world = shape[0] * shape[1]
             t0 = time.perf_counter()
             try:
-                backend.spawn(mesh_rank, world, "cuda", shape, tmp)
+                backend.spawn(mesh_rank, world, "cuda", shape, tmp, train)
             except ProcessExitedException as e:
                 fail(f"phase mesh {shape}: a rank failed: {e}")
             wall = time.perf_counter() - t0
@@ -6368,7 +6420,8 @@ def phase_mesh(torch, main_path) -> dict:
             for r in range(world):
                 os.remove(os.path.join(tmp, f"rank{r}.pt"))
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        if own:
+            shutil.rmtree(tmp, ignore_errors=True)
     emit(res)
     return res
 
@@ -6448,6 +6501,388 @@ def mesh_gate(torch, shape, ranks, ref_logits, ref_tokens, want, cfg,
         row["shapes_max_abs_err"] = max(s["max_abs_err"]
                                         for s in r0["shapes"])
     row["stages_s"] = [r["stages"] for r in ranks]
+    return row
+
+
+# ---------------------------------------------------------------------------
+# Phase mesh_train: PEQA training on the meshes of phase mesh
+# ---------------------------------------------------------------------------
+
+# steps a mesh takes (phase train's batch: 8 × 256 a step, its corpus and
+# optimizer); the step-1 loss against the unsharded step within phase
+# train's bf16 tolerances
+MESH_TRAIN_STEPS = 3
+MESH_TRAIN_LOSS_RTOL, MESH_TRAIN_GNORM_RTOL = 2.0 ** -8, 5e-2
+
+
+def mesh_train_batches(cfg) -> list:
+    """Phase train's first MESH_TRAIN_STEPS + 1 global batches (the last
+    for the step after a checkpoint)."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import pipeline, synthetic
+    tcfg = TrainConfig()
+    train_toks, _ = synthetic.split(synthetic.corpus(
+        cfg.vocab_size, TRAIN_TOKENS, seed=SEED))
+    data = pipeline.PackedLM(train_toks, tcfg.batch_size, tcfg.seq_len,
+                             seed=SEED)
+    return [data.batch_at(i) for i in range(MESH_TRAIN_STEPS + 1)]
+
+
+def mesh_train_state(model, cfg, compress: bool = False):
+    """(train config, API, mask, optimizer, state) of a fresh PEQA run over
+    the whole ``model`` (trained in place)."""
+    from repro_torch.configs.base import OptimConfig, TrainConfig
+    from repro_torch.core import policies
+    from repro_torch.models import registry
+    from repro_torch.optim.adamw import make_optimizer
+    from repro_torch.train.state import make_state
+    tcfg = TrainConfig(optim=OptimConfig(
+        grad_compression="int8" if compress else None))
+    mask = policies.make_mask(model, cfg)
+    opt = make_optimizer(tcfg.optim, tcfg.steps)
+    state = make_state(model, opt.init(dict(model.named_parameters()), mask))
+    return tcfg, registry.build(cfg, device="cuda"), mask, opt, state
+
+
+def mesh_train_runs(cfg) -> tuple:
+    """(name, config, int8, steps) of each run: the dense trajectory (its
+    last step after the checkpoint), and one "chunked" and one int8 step
+    from the start."""
+    return (("dense", cfg, False, MESH_TRAIN_STEPS + 1),
+            ("chunked", cfg.replace(attn_impl="chunked"), False, 1),
+            ("int8", cfg, True, 1))
+
+
+def mesh_train_unsharded(torch, model, cfg, batches) -> dict:
+    """Each run's metrics unsharded, every run from ``model``'s scales
+    (restored after each); the dense run's steps after the first timed
+    (``step_ms``) and its peak over them (``peak_gb``, the model
+    included)."""
+    from repro_torch.train import step
+    out = {}
+    for name, c, int8, n in mesh_train_runs(cfg):
+        tcfg, api, mask, opt, state = mesh_train_state(model, c, int8)
+        start = {k: p.detach().clone() for k, p in
+                 model.named_parameters() if mask[k]}
+        ts = step.build_train_step(api, c, tcfg, mask, opt)
+        hist, ms = [], []
+        for i, b in enumerate(batches[:n]):
+            if i == 1:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state, m = ts(state, b)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            hist.append({k: float(v) for k, v in m.items()})
+        out[name] = hist
+        if name == "dense":
+            out["step_ms"] = ms[1:]
+            out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        with torch.no_grad():
+            for k, p in model.named_parameters():
+                if k in start:
+                    p.copy_(start[k])
+    return out
+
+
+def train_file(tmp: str, shape: tuple, rank: int) -> str:
+    return os.path.join(tmp, f"train_{shape[0]}x{shape[1]}_{rank}.pt")
+
+
+def train_rank(torch, ctx, rank: int, tmp: str) -> None:
+    """A spawned rank's part of phase mesh_train on ``ctx``: phase mesh's
+    whole model, then ``mesh_train``; the results go to ``tmp``."""
+    t0 = time.perf_counter()
+    cfg = main_cfg().replace(remat="block")
+    out = mesh_train(torch, ctx, rank, load_whole(
+        torch, cfg, os.path.join(tmp, "whole.pt")), cfg,
+        mesh_train_batches(cfg), tmp, {"load": time.perf_counter() - t0})
+    torch.save(out, train_file(tmp, (ctx.data_size, ctx.model_size), rank))
+
+
+def mesh_train_rank(rank: int, shape: tuple, tmp: str) -> None:
+    """One spawned rank of phase mesh_train alone (when phase mesh's ranks
+    did not run its part): the mesh context, then ``train_rank``."""
+    import torch
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.launch import mesh as mesh_mod
+    train_rank(torch, mesh_mod.make_debug_mesh(*shape), rank, tmp)
+
+
+def collectives_by_axis(record) -> dict:
+    """{axis: {"count", "bytes"}} of a collective record (all-reduces)."""
+    out = {}
+    for e in record:
+        s = out.setdefault(e["axis"], {"count": 0, "bytes": 0})
+        s["count"] += 1
+        s["bytes"] += e["bytes"]
+    return out
+
+
+def mesh_train(torch, ctx, rank: int, whole, cfg, batches, tmp,
+               stages: dict) -> dict:
+    """One rank's part of phase mesh_train on ``ctx``, cutting its shards
+    from ``whole`` (left as it was): at (1, 2) first a "chunked" and an
+    int8 step from the start; then MESH_TRAIN_STEPS steps — step 1's every
+    K2 call (and K4 call, "chunked") held to plain on rank 0, its
+    collectives recorded, steps 2–3 timed —, and at (1, 2) the whole state
+    checkpointed to ``tmp`` and one step more.  Returns what
+    ``mesh_train_gate`` reads."""
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.dist import backend, context
+    from repro_torch.kernels import ops
+    from repro_torch.train import state as state_mod
+    from repro_torch.train import step
+
+    shape = (ctx.data_size, ctx.model_size)
+    label = f"mesh_train {shape} rank {rank}"
+    rows_m = batches[0]["tokens"].size // ctx.data_size
+    t_stage = [time.perf_counter()]
+
+    def stage(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        stages[name] = now - t_stage[0]
+        t_stage[0] = now
+
+    def run(c, int8):
+        tcfg, api, mask, opt, whole_state = mesh_train_state(whole, c, int8)
+        local = state_mod.shard_state(whole_state, ctx, c)
+        return (local, step.build_train_step(api, c, tcfg, mask, opt,
+                                             mesh=ctx), mask)
+
+    def checked(what):
+        return CheckedQuantMatmul(ops, f"{label} {what}", rows_m=rows_m,
+                                  attention=True) if rank == 0 \
+            else contextlib.nullcontext()
+
+    def metrics(m):
+        return {k: float(v) for k, v in m.items()}
+
+    out = {"rank": rank, "coords": (ctx.data_rank, ctx.model_rank),
+           "summary": backend.summary(), "stages": stages, "rows": rows_m}
+    for name, c, int8, _ in mesh_train_runs(cfg)[1:] if shape == (1, 2) \
+            else ():
+        local, ts, _ = run(c, int8)
+        for k in ops.KERNELS:
+            k.launches = 0
+        with checked(name) as chk:
+            local, m = ts(local, batches[0])
+        out[name] = {"step": metrics(m), "launches": {
+            k.__name__: k.launches for k in ops.KERNELS if k.launches}}
+        if chk is not None:
+            out[name]["checked"] = dict(chk.calls, worst=chk.worst)
+        del local, ts
+        stage(name)
+
+    local, ts, mask = run(cfg, False)
+    del whole                   # a spawned rank's copy is freed here
+    torch.cuda.empty_cache()
+    model = local["params"]
+    out["want"] = step.mesh_collectives(model, cfg, mask)
+    out["local_gb"] = sum(t.numel() * t.element_size() for t in (
+        *model.parameters(), *model.buffers())) / 1e9
+    codes = {n: b.clone() for n, b in model.named_buffers()}
+    hist, ms, launches, records = [], [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(ctx.device)
+    for i, b in enumerate(batches[:MESH_TRAIN_STEPS]):
+        for k in ops.KERNELS:
+            k.launches = 0
+        with (checked("step 1") if i == 0 else contextlib.nullcontext()
+              ) as chk, ctx.recording() as rec:
+            t0 = time.perf_counter()
+            local, m = ts(local, b)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        hist.append(metrics(m))
+        launches.append({k.__name__: k.launches for k in ops.KERNELS
+                         if k.launches})
+        records.append(rec)
+        if chk is not None:
+            out["checked"] = dict(chk.calls, worst=chk.worst)
+    out["peak_gb"] = torch.cuda.max_memory_allocated(ctx.device) / 1e9
+    stage("steps")
+    out.update(hist=hist, step_ms=ms, launches=launches,
+               collectives=[collectives_by_axis(r) for r in records],
+               kinds=sorted({e["kind"] for r in records for e in r}),
+               vocab_gathers=sum(context.allgather_extent_count(
+                   r, cfg.vocab_size) for r in records),
+               codes_frozen=all(torch.equal(b, codes[n])
+                                for n, b in model.named_buffers()))
+    if shape == (1, 2):
+        tree = state_mod.whole_tree(local, ctx)
+        if rank == 0:
+            CheckpointManager(os.path.join(tmp, "mesh_ckpt")).save(
+                MESH_TRAIN_STEPS, tree)
+        del tree
+        ctx.barrier()
+        stage("checkpoint")
+        local, m = ts(local, batches[MESH_TRAIN_STEPS])
+        out["after_checkpoint"] = metrics(m)
+        stage("step_after")
+    return out
+
+
+def phase_mesh_train(torch, main_path, tmp) -> dict:
+    """PEQA training on the (data, model) meshes of phase mesh at
+    llama3.2-1b's full width and depth, 8 × 256 a step, remat "block",
+    each rank cutting its shard of the whole train state: (1, 1) over NCCL
+    in this process, (1, 2) and (2, 2) on cuda:0 under gloo from the model
+    phase mesh saved in ``tmp`` — their results read from ``tmp`` where
+    phase mesh's ranks ran this phase's part (``train``), else spawned
+    here.  Every run is held to the unsharded step from the same state
+    and batch."""
+    import torch.distributed as dist
+    from torch.multiprocessing import ProcessExitedException
+
+    from repro_torch import bridge
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.dist import backend
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.train import step
+
+    model = main_path["model"]
+    cfg = main_path["cfg"].replace(remat="block")
+    batches = mesh_train_batches(cfg)
+    grads_on = {n: p.requires_grad for n, p in model.named_parameters()}
+    t0 = time.perf_counter()
+    ref = mesh_train_unsharded(torch, model, cfg, batches)
+    res = {"phase": "mesh_train", "model": cfg.name, "layers": cfg.n_layers,
+           "batch": len(batches[0]["tokens"]),
+           "seq": batches[0]["tokens"].shape[1], "remat": cfg.remat,
+           "steps": MESH_TRAIN_STEPS, "unsharded": ref,
+           "unsharded_s": time.perf_counter() - t0, "meshes": {}}
+    t0 = time.perf_counter()
+    backend.init(0, 1, "cuda", backend.free_port())
+    try:
+        one = mesh_train(torch, mesh_mod.make_debug_mesh(1, 1), 0, model,
+                         cfg, batches, tmp, {})
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    res["meshes"]["1x1"] = mesh_train_gate(torch, (1, 1), [one], ref, cfg,
+                                           time.perf_counter() - t0)
+    for shape in MESH_WORLDS[1:]:
+        world = shape[0] * shape[1]
+        t0 = time.perf_counter()
+        if not os.path.exists(train_file(tmp, shape, 0)):
+            try:
+                backend.spawn(mesh_train_rank, world, "cuda", shape, tmp)
+            except ProcessExitedException as e:
+                fail(f"phase mesh_train {shape}: a rank failed: {e}")
+        ranks = [torch.load(train_file(tmp, shape, r), weights_only=False)
+                 for r in range(world)]
+        res["meshes"][f"{shape[0]}x{shape[1]}"] = mesh_train_gate(
+            torch, shape, ranks, ref, cfg, time.perf_counter() - t0)
+
+    # the (1, 2) checkpoint restored off the mesh: its next step's loss
+    t0 = time.perf_counter()
+    tcfg, api, mask, opt, state = mesh_train_state(model, cfg)
+    start = {n: p.detach().clone() for n, p in model.named_parameters()
+             if mask[n]}
+    tree, extra = CheckpointManager(os.path.join(tmp, "mesh_ckpt")).restore(
+        bridge.state_to_tree(state))
+    if tree is None or extra["step"] != MESH_TRAIN_STEPS:
+        fail("mesh_train: no checkpoint of the (1, 2) run to restore")
+    state = bridge.load_state(state, tree)
+    del tree
+    _, m = step.build_train_step(api, cfg, tcfg, mask, opt)(
+        state, batches[MESH_TRAIN_STEPS])
+    off = float(m["loss"])
+    mesh = res["meshes"]["1x2"]["after_checkpoint"]["loss"]
+    if abs(off - mesh) > MESH_TRAIN_LOSS_RTOL * abs(mesh):
+        fail(f"mesh_train: the (1, 2) checkpoint restored off the mesh "
+             f"gives step {MESH_TRAIN_STEPS + 1} loss {off!r}, the mesh "
+             f"{mesh!r}")
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if n in start:
+                p.copy_(start[n])
+            p.requires_grad_(grads_on[n])
+    res["checkpoint"] = {"restored_off_mesh_loss": off, "mesh_loss": mesh,
+                         "unsharded_loss": ref["dense"][-1]["loss"],
+                         "s": time.perf_counter() - t0}
+    emit(res)
+    return res
+
+
+def mesh_train_gate(torch, shape, ranks, ref, cfg, wall) -> dict:
+    """Phase mesh_train's gates on one mesh's rank results; its row."""
+    label = f"mesh_train {shape}"
+    r0 = ranks[0]
+    expect = "nccl" if shape == (1, 1) else "gloo"
+    placed = {(r["summary"]["backend"], r["summary"]["device"])
+              for r in ranks}
+    if placed != {(expect, "cuda:0")}:
+        fail(f"{label}: ranks ran over (backend, device) {placed}, "
+             f"expected {expect} on cuda:0")
+    n = cfg.n_layers
+    want_launch = {"quant_matmul": 14 * n}        # forward + recompute
+    held = MESH_TRAIN_STEPS if shape == (1, 1) else 1
+
+    def close(what, got, want):
+        for k, rtol in (("loss", MESH_TRAIN_LOSS_RTOL),
+                        ("grad_norm", MESH_TRAIN_GNORM_RTOL)):
+            if not math.isfinite(got[k]) or \
+                    abs(got[k] - want[k]) > rtol * abs(want[k]):
+                fail(f"{label}: {what} {k} {got[k]!r} against the "
+                     f"unsharded {want[k]!r} (rtol {rtol})")
+    for r in ranks:
+        if r["hist"] != r0["hist"]:
+            fail(f"{label}: rank {r['rank']}'s metrics differ from rank 0's")
+        for i, (got, want) in enumerate(zip(r["hist"][:held],
+                                            ref["dense"])):
+            close(f"step {i + 1}", got, want)
+        if any(got != want_launch for got in r["launches"]):
+            fail(f"{label}: rank {r['rank']} launched {r['launches']}, "
+                 f"expected {want_launch} a step")
+        if r["kinds"] != ["all_reduce"] or r["vocab_gathers"]:
+            fail(f"{label}: collectives {r['kinds']}, {r['vocab_gathers']} "
+                 f"vocab-extent gathers (want all-reduces only, none)")
+        for c in r["collectives"]:
+            got = {axis: s["count"] for axis, s in c.items()}
+            if got != r["want"]:
+                fail(f"{label}: rank {r['rank']} issued {got} all-reduces a "
+                     f"step, the formula {r['want']}")
+        if not r["codes_frozen"]:
+            fail(f"{label}: rank {r['rank']}'s frozen codes changed")
+    checked = r0["checked"]
+    if checked["quant_matmul"] < 13 * n:
+        fail(f"{label}: {checked['quant_matmul']} K2 calls of step 1 held "
+             f"to plain, expected at least {13 * n}")
+    row = {"world": len(ranks), "backend": expect, "wall_s": wall,
+           "rows_a_rank": r0["rows"], "hist": r0["hist"],
+           "unsharded": ref["dense"][:MESH_TRAIN_STEPS],
+           "unsharded_step_ms": ref["step_ms"],
+           "unsharded_peak_gb": ref["peak_gb"],
+           "step_ms": [r["step_ms"] for r in ranks],
+           "peak_gb": [r["peak_gb"] for r in ranks],
+           "local_gb": [r["local_gb"] for r in ranks],
+           "launches_a_step": r0["launches"][-1],
+           "collectives_a_step": r0["collectives"][-1],
+           "formula": r0["want"], "vocab_gathers": r0["vocab_gathers"],
+           "step1_checked": checked,
+           "stages_s": [r["stages"] for r in ranks]}
+    if shape == (1, 2):
+        for name in ("chunked", "int8"):
+            for r in ranks:
+                close(f"the {name} step", r[name]["step"], ref[name][0])
+            row[name] = {k: r0[name][k] for k in ("step", "launches",
+                                                  "checked")}
+            row[name]["unsharded"] = ref[name][0]
+        chunked = r0["chunked"]["checked"]
+        if chunked["flash_attention"] != 2 * n or \
+                r0["chunked"]["launches"].get("flash_attention") != 2 * n:
+            fail(f"{label}: the chunked step checked "
+                 f"{chunked['flash_attention']} and launched "
+                 f"{r0['chunked']['launches']} K4 calls, expected {2 * n}")
+        row["after_checkpoint"] = r0["after_checkpoint"]
+    emit({"phase": "mesh_train_row", "mesh": f"{shape[0]}x{shape[1]}",
+          **{k: row[k] for k in ("backend", "step_ms", "peak_gb",
+                                 "collectives_a_step", "formula")}})
     return row
 
 
@@ -6665,7 +7100,16 @@ def main() -> None:
     spec = run("speculative", phase_speculative, torch, plane, serve)
     harness = run("harness", phase_harness, torch, main_path, plane)
     del plane
-    mesh = run("mesh", phase_mesh, torch, main_path)
+    # phase mesh saves the whole model once; phase mesh_train's ranks read
+    # it too
+    mesh_tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        mesh = run("mesh", phase_mesh, torch, main_path, mesh_tmp,
+                   train=True)
+        mesh_train = run("mesh_train", phase_mesh_train, torch, main_path,
+                         mesh_tmp)
+    finally:
+        shutil.rmtree(mesh_tmp, ignore_errors=True)
     conv = run("convert", phase_convert, torch, main_path)
     chunked = run("chunked", phase_chunked, torch, conv, serve,
                   main_path["prompt"])
@@ -6860,6 +7304,9 @@ def main() -> None:
               "backend", "decode_ms_per_step", "peak_gb",
               "decode_collectives", "logits_max_abs_diff")}
               for name, m in mesh["meshes"].items()},
+          "mesh_train": {name: {k: m[k] for k in (
+              "backend", "step_ms", "peak_gb", "collectives_a_step",
+              "formula")} for name, m in mesh_train["meshes"].items()},
           "launch": {k: launch[k] for k in (
               "train", "train_resumed", "serve_continuous",
               "serve_speculative", "serve_family_smoke")},

@@ -123,8 +123,14 @@ def to_module(tree: dict, cfg: ModelConfig, *, device=None
 def to_tree(model: torch.nn.Module) -> dict:
     """The port's model → reference-layout nested dict of numpy arrays
     (layer leaves stacked, codes as uint32, floats as float32)."""
+    return tensors_to_tree(_tensors(model))
+
+
+def tensors_to_tree(named) -> dict:
+    """``to_tree`` of (name, tensor) pairs: a model's tensors, or a whole
+    model's put together from its shards."""
     groups = defaultdict(dict)
-    for name, t in _tensors(model):
+    for name, t in named:
         arr = t.detach().cpu()
         arr = arr.numpy().view(np.uint32) if arr.dtype == torch.int32 \
             else arr.to(torch.float32).numpy()
@@ -151,7 +157,11 @@ def _nest(flat: dict) -> dict:
 def opt_to_tree(model: torch.nn.Module, opt_state: dict) -> dict:
     """The port's masked-AdamW state → the reference's ``{"mv": tree,
     "count": int32}`` (moments stacked over layers, float32)."""
-    names = [n for n, _ in _tensors(model)]
+    return names_opt_tree([n for n, _ in _tensors(model)], opt_state)
+
+
+def names_opt_tree(names, opt_state: dict) -> dict:
+    """``opt_to_tree`` over a model's tensor ``names``."""
     moms, vels = defaultdict(dict), defaultdict(dict)
     for name in names:
         pair = opt_state["mv"].get(name)
@@ -168,28 +178,34 @@ def opt_to_tree(model: torch.nn.Module, opt_state: dict) -> dict:
 
 
 @torch.no_grad()
-def opt_from_tree(model: torch.nn.Module, tree: dict, opt_state: dict
-                  ) -> dict:
+def opt_from_tree(model: torch.nn.Module, tree: dict, opt_state: dict,
+                  cut=None) -> dict:
     """The reference's ``{"mv", "count"}`` → ``opt_state`` in place (its
-    trainable names must be the tree's non-empty leaves)."""
+    trainable names must be the tree's non-empty leaves); ``cut(name, t)``
+    takes a rank's block of each whole moment (``load_state``)."""
     for name, pair in opt_state["mv"].items():
         src = _node(tree["mv"], name)
         if len(src) != 2 or isinstance(src[0], (tuple, list)):
             raise KeyError(f"reference optimizer state has no moments for "
                            f"{name}")
         for dst, arr in zip(pair, src):
-            dst.copy_(torch.from_numpy(np.array(_layer(arr, name))))
+            t = torch.from_numpy(np.array(_layer(arr, name)))
+            dst.copy_(t if cut is None else cut(name, t))
     opt_state["count"] = torch.tensor(int(np.asarray(tree["count"])),
                                       dtype=torch.int32)
     return opt_state
 
 
 @torch.no_grad()
-def load_params(model: torch.nn.Module, tree: dict) -> torch.nn.Module:
+def load_params(model: torch.nn.Module, tree: dict, cut=None
+                ) -> torch.nn.Module:
     """Copy a reference parameter tree into ``model``'s tensors in place
-    (the same storage modes: every tensor must find its leaf)."""
+    (the same storage modes: every tensor must find its leaf);
+    ``cut(name, t)`` takes a rank's block of each whole leaf."""
     for name, t in _tensors(model):
         src = _to_torch(_layer(_node(tree, name), name))
+        if cut is not None:
+            src = cut(name, src)
         if tuple(src.shape) != tuple(t.shape):
             raise ValueError(f"{name}: reference leaf {tuple(src.shape)} != "
                              f"module tensor {tuple(t.shape)}")
@@ -205,9 +221,11 @@ def state_to_tree(state: dict) -> dict:
             "step": np.asarray(int(state["step"]), np.int32)}
 
 
-def load_state(state: dict, tree: dict) -> dict:
-    """A reference state tree → the port's train state, in place."""
-    load_params(state["params"], tree["params"])
-    opt_from_tree(state["params"], tree["opt"], state["opt"])
+def load_state(state: dict, tree: dict, cut=None) -> dict:
+    """A reference state tree → the port's train state, in place;
+    ``cut(name, t)``: a mesh rank's block of each whole tensor
+    (``train.state.load_shard``)."""
+    load_params(state["params"], tree["params"], cut)
+    opt_from_tree(state["params"], tree["opt"], state["opt"], cut)
     state["step"] = int(np.asarray(tree["step"]))
     return state

@@ -39,6 +39,25 @@ memory: each collective takes the rank's tensor where it lies.
 ``use_mesh(ctx, logitshard=...)`` installs the context for the current
 thread; model code reads it through ``current()`` and ``logitshard()``.
 With no context installed every model function runs unsharded.
+
+Training differentiates through the collectives with the Megatron pair
+(``torch.autograd.Function``s, each keeping the context its forward was
+given — a backward never looks the context up: on the card it runs on
+autograd's device thread, where no ``use_mesh`` is installed):
+
+  * ``reduce_sum(t, ctx, axis)`` — an all-reduce sum forward, the identity
+    backward (``reduce_from_model`` over the model axis: the row-parallel
+    sums and the vocab-sharded lookup; over the data axis: the loss);
+  * ``copy_to_model(t, ctx)`` — the identity forward, an all-reduce sum of
+    the gradient backward (the input of a column-parallel group, whose
+    gradient each rank holds a partial sum of).
+
+Both reduce into a fresh tensor while a graph is recorded (nothing
+autograd saved is overwritten); outside one they are the in-place
+``all_reduce`` and the identity.
+
+``group_all_gather`` and ``group_all_reduce`` run the same two kinds over
+any process group (a pipeline's stage axis, ``dist/pipeline_par.py``).
 """
 from __future__ import annotations
 
@@ -165,6 +184,11 @@ class MeshContext:
         dist.broadcast(t, src=dist.get_global_rank(group, src), group=group)
         return t
 
+    def barrier(self) -> None:
+        """Wait until every rank of the mesh gets here."""
+        import torch.distributed as dist
+        dist.barrier()
+
     @contextlib.contextmanager
     def recording(self):
         """Yield a list that receives the collective entries of the scope."""
@@ -174,6 +198,78 @@ class MeshContext:
             yield got
         finally:
             self._recs.remove(got)
+
+
+def _recording_graph(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+class _ReduceSum(torch.autograd.Function):
+    """All-reduce sum over an axis forward, the identity backward."""
+
+    @staticmethod
+    def forward(fctx, t, ctx, axis):
+        return ctx.all_reduce(t.clone(memory_format=torch.contiguous_format),
+                              axis)
+
+    @staticmethod
+    def backward(fctx, grad):
+        return grad, None, None
+
+
+class _CopyToModel(torch.autograd.Function):
+    """The identity forward, the gradient all-reduced over the model axis
+    backward (on the context the forward was given)."""
+
+    @staticmethod
+    def forward(fctx, t, ctx):
+        fctx.mesh = ctx
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(fctx, grad):
+        g = grad.clone(memory_format=torch.contiguous_format)
+        return fctx.mesh.all_reduce(g, "model"), None
+
+
+def reduce_sum(t: torch.Tensor, ctx: MeshContext, axis: str
+               ) -> torch.Tensor:
+    """``t`` summed over ``axis``; differentiable (the gradient passes
+    through unchanged) while a graph is recorded, else in place as
+    ``all_reduce``."""
+    if _recording_graph(t):
+        return _ReduceSum.apply(t, ctx, axis)
+    return ctx.all_reduce(t, axis)
+
+
+def reduce_from_model(t: torch.Tensor, ctx: MeshContext) -> torch.Tensor:
+    """Megatron's g: the model axis' partial sums of ``t`` added up."""
+    return reduce_sum(t, ctx, "model")
+
+
+def copy_to_model(t: torch.Tensor, ctx: MeshContext) -> torch.Tensor:
+    """Megatron's f: ``t`` itself, whose gradient is summed over the model
+    axis in the backward (the identity outside a recorded graph)."""
+    if _recording_graph(t):
+        return _CopyToModel.apply(t, ctx)
+    return t
+
+
+def group_all_gather(t: torch.Tensor, group, n: int) -> list:
+    """The ``n`` ranks of ``group``'s ``t``, in group order."""
+    import torch.distributed as dist
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(n)]
+    dist.all_gather(parts, t, group=group)
+    return parts
+
+
+def group_all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` summed over ``group``, into a fresh tensor."""
+    import torch.distributed as dist
+    t = t.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(t, group=group)
+    return t
 
 
 def coords(data_size: int, model_size: int, data_rank: int = 0,

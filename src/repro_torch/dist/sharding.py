@@ -26,6 +26,15 @@ slice would give other scales —, and ``unshard`` puts the shards back
 together bit for bit.  Attention runs on the rank's n_heads/M query and
 n_kv/M KV heads (``shard_config``).
 
+In training every leaf's gradient is one of three kinds on the model axis
+(``leaf_kind``): ``"sharded"`` — the rank's block, complete —,
+``"partial"`` — a row-parallel linear's whole ``scale``/``zero``, whose
+gradient on a rank is the partial sum over its input columns — and
+``"replicated"`` — equal on every model rank (norm gains, row-parallel
+biases).  The train step sums the partial ones over the model axis, the
+gradient norm and the int8 codec reduce over the sharded ones; the
+optimizer moments take their parameter's block (``moment_specs``).
+
 ``shard_problems`` refuses what this slice does not shard, with a reason:
 a head, KV-head, d_ff or vocab count the model axis does not divide (the
 reference's head-dim fallback of ``cache_specs`` and MQA wait for a later
@@ -100,6 +109,41 @@ def spec_for_path(path: str, ndim: int) -> tuple:
             return _mk(ndim, ndim - 1)
         return _mk(ndim, ndim - 2)          # w/qw/scale/zero: the output
     return ()
+
+
+SHARDED, PARTIAL, REPLICATED = "sharded", "partial", "replicated"
+
+
+def leaf_kind(path: str, ndim: int) -> str:
+    """What a rank holds of the gradient of the leaf at ``path`` on the
+    model axis: ``SHARDED`` (its block), ``PARTIAL`` (a row-parallel
+    scale or zero: a partial sum over its input columns) or
+    ``REPLICATED`` (the whole gradient, equal on every model rank)."""
+    if MODEL_AXIS in spec_for_path(path, ndim):
+        return SHARDED
+    parts = [p for p in path.split("/") if p]
+    if len(parts) >= 2 and parts[-1] in ("scale", "zero") \
+            and parts[-2] in ROW_PARALLEL:
+        return PARTIAL
+    return REPLICATED
+
+
+def leaf_kinds(model: nn.Module) -> Dict[str, str]:
+    """{parameter name: ``leaf_kind``} of ``model``'s parameters."""
+    return {name: leaf_kind(ref_path(name), t.dim())
+            for name, t in model.named_parameters()}
+
+
+def moment_specs(model: nn.Module, mv: Mapping) -> Dict[str, tuple]:
+    """The spec of each optimizer moment pair (``MaskedAdamW``'s ``mv``):
+    both moments take their parameter's spec (the reference's
+    ``state_specs``)."""
+    params = dict(model.named_parameters())
+    out = {}
+    for name in mv:
+        spec = spec_for_path(ref_path(name), params[name].dim())
+        out[name] = (spec, spec)
+    return out
 
 
 def _leaves(tree) -> Iterable[tuple]:
@@ -372,14 +416,16 @@ def _shard_linear(mod, src, name: str, ctx, bf16_reduce: bool) -> None:
         mod.tp_reduce_bf16 = bool(bf16_reduce)
 
 
-def unshard(shards: Sequence[nn.Module]) -> Dict[str, torch.Tensor]:
+def unshard(shards: Sequence) -> Dict[str, torch.Tensor]:
     """The whole model's tensors ({name: tensor}) put back together from
-    the ``shards`` of model ranks 0..M−1: each sharded tensor concatenated
-    along its spec's dim, each replicated one taken from rank 0 (and held
-    equal on every rank)."""
+    the ``shards`` of model ranks 0..M−1 — modules, or {name: tensor}
+    mappings keyed by their parameter names (trained leaves, or one
+    moment of each optimizer pair, for checkpoints) —: each sharded tensor
+    concatenated along its spec's dim, each replicated one taken from rank
+    0 (and held equal on every rank)."""
     out = {}
     tensors = [dict((*s.named_parameters(), *s.named_buffers()))
-               for s in shards]
+               if isinstance(s, nn.Module) else dict(s) for s in shards]
     for name, t0 in tensors[0].items():
         spec = spec_for_path(ref_path(name), t0.dim())
         parts = [t[name].detach() for t in tensors]

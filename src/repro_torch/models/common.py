@@ -237,7 +237,7 @@ def embed_apply(p: Embed, tokens: torch.Tensor, cfg: ModelConfig
     inside = ((local >= 0) & (local < n))[..., None]
     h = p.emb[local.clamp(0, n - 1)].to(dtype)
     h = torch.where(inside, h, torch.zeros((), dtype=dtype, device=h.device))
-    return context.require().all_reduce(h, "model")
+    return context.reduce_from_model(h, context.require())
 
 
 def head_apply(lm_head: Optional[linear.Linear], p_embed: Embed,
@@ -249,7 +249,11 @@ def head_apply(lm_head: Optional[linear.Linear], p_embed: Embed,
     training alike; the untied head is ``lm_head`` through
     ``linear.apply``, then widened.  On a vocab shard these are the
     logits of the rank's vocab block (``transformer._final_logits``
-    gathers them unless the run keeps them sharded)."""
+    gathers them unless the run keeps them sharded), and in training x's
+    gradient — a partial sum over the rank's vocab block — is summed over
+    the model axis (``context.copy_to_model``)."""
+    if p_embed.vocab_start is not None:
+        x = context.copy_to_model(x, context.require())
     if cfg.tie_embeddings:
         return ops.dot_f32(x, p_embed.emb.to(x.dtype))
     return linear.apply(lm_head, x, slots=slots,
@@ -271,3 +275,57 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         return nll.mean()
     mask = mask.to(torch.float32)
     return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """Per-token −log softmax(logits)[label] over a vocab split across the
+    model axis: three all-reduces forward (the row max, the row sum of
+    exp, the gold logit from its owner), none backward (the block's
+    softmax minus its part of the one-hot)."""
+
+    @staticmethod
+    def forward(fctx, block, labels, ctx, start):
+        n = block.shape[-1]
+        rmax = ctx.all_reduce(block.amax(dim=-1), "model", "max")
+        shifted = block - rmax[..., None]
+        sumexp = ctx.all_reduce(torch.exp(shifted).sum(dim=-1), "model")
+        local = labels - start
+        inside = (local >= 0) & (local < n)
+        idx = local.clamp(0, n - 1)[..., None]
+        gold = torch.where(inside, shifted.gather(-1, idx)[..., 0],
+                           torch.zeros((), dtype=block.dtype,
+                                       device=block.device))
+        gold = ctx.all_reduce(gold, "model")
+        fctx.save_for_backward(shifted, sumexp, idx, inside)
+        return torch.log(sumexp) - gold
+
+    @staticmethod
+    def backward(fctx, grad):
+        shifted, sumexp, idx, inside = fctx.saved_tensors
+        d = torch.exp(shifted)          # one block-sized buffer, in place
+        d /= sumexp[..., None]
+        d.scatter_add_(-1, idx, -inside.to(d.dtype)[..., None])
+        d *= grad[..., None]
+        return d, None, None, None
+
+
+def vocab_parallel_cross_entropy(logits_block: torch.Tensor,
+                                 labels: torch.Tensor,
+                                 mask: Optional[torch.Tensor], ctx
+                                 ) -> torch.Tensor:
+    """``cross_entropy`` of a rank's rows over the whole vocab, from its
+    vocab block of the logits (..., V/M) — no rank ever holds a whole row
+    — and over the whole global batch: the local sum of nll × mask divided
+    by the mask's sum over the data axis, then summed over the data axis
+    (the reference's token mean over the global batch, not a mean of the
+    ranks' means).  Equal on every rank; its gradient reaches this rank's
+    rows and vocab block only."""
+    start, _ = ctx.vocab_range(logits_block.shape[-1] * ctx.model_size)
+    nll = _VocabParallelNLL.apply(logits_block.to(torch.float32),
+                                  labels.long(), ctx, start)
+    if mask is None:
+        mask = torch.ones_like(nll)
+    mask = mask.to(torch.float32)
+    count = ctx.all_reduce(mask.sum(), "data")
+    return context.reduce_sum((nll * mask).sum() / count.clamp_min(1.0),
+                              ctx, "data")

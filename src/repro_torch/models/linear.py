@@ -32,11 +32,15 @@ linear (``"col"``) holds its output rows and needs nothing more; a
 row-parallel one (``"row"``: wo, down) holds its input columns of ``qw``
 and the whole ``scale``/``zero`` (its block of G > 1 groups is
 ``tp_groups``), so its product is a partial sum that ``apply`` all-reduces
-over the model axis before the bias.  Under ``ModelConfig.bf16_reduce``
-the cut marks it ``tp_reduce_bf16`` and that sum runs in the activation
-dtype — half the bytes of float32 —, as the reference's bf16 dot outputs
-make its collectives bf16; off the mesh the flag changes nothing (every
-product is rounded to the activation dtype as it is).
+over the model axis before the bias.  In training that rank's gradients of
+the whole ``scale``/``zero`` are partial sums over its input columns (zero
+outside its block of groups): ``dist/sharding.py::leaf_kind`` names them
+model-partial, and the train step sums them over the model axis.  Under
+``ModelConfig.bf16_reduce`` the cut marks it ``tp_reduce_bf16`` and that
+sum runs in the activation dtype — half the bytes of float32 —, as the
+reference's bf16 dot outputs make its collectives bf16; off the mesh the
+flag changes nothing (every product is rounded to the activation dtype as
+it is).
 
 ``core/peqa.py`` turns fp into peqa in place (``set_quantized``),
 ``core/qat.py`` fp into qat (``set_fake_quant``) and ``core/lora.py`` adds
@@ -214,8 +218,11 @@ def _groups(t: torch.Tensor, groups) -> torch.Tensor:
 def row_reduce(y: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """A row-parallel partial product summed over the model axis in
     ``dtype`` (the activation dtype under ``bf16_reduce``, else float32);
-    ``y`` is the caller's own, reduced in place where it has that dtype."""
-    return context.require().all_reduce(y.to(dtype), "model")
+    ``y`` is the caller's own, reduced in place where it has that dtype
+    and no graph is recorded.  In training the sum is Megatron's g
+    (``context.reduce_from_model``): its gradient is the same on every
+    rank."""
+    return context.reduce_from_model(y.to(dtype), context.require())
 
 
 def _apply_experts(p: Linear, x: torch.Tensor, slots, draft_bits

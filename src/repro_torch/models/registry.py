@@ -117,19 +117,28 @@ RECURRENT_SLOTTED_REASON = ("recurrent state layers cannot thread per-slot "
                             "scales (no slotted decode step)")
 
 
-# why serving on a (data, model) mesh refuses a configuration: the later
-# slices of the mesh (ROADMAP §1)
-MESH_FAMILY_REASON = ("serving on a mesh is ported for the dense family "
-                      "only; {fam} shards later (MoE expert parallelism, "
-                      "the encoder, recurrent state and image prefixes)")
+# why serving or training on a (data, model) mesh refuses a configuration:
+# the later slices of the mesh (ROADMAP §1)
+MESH_FAMILY_REASON = ("the mesh (serving and training) is ported for the "
+                      "dense family only; {fam} shards later (MoE expert "
+                      "parallelism, the encoder, recurrent state and image "
+                      "prefixes)")
 MESH_ARM_REASON = ("the {mode} arm's LoRA or fake-quant leaves are not "
-                   "sharded: serve PEQA (peqa, peqa_z) or full weights on a "
-                   "mesh")
+                   "sharded: serve or train PEQA (peqa, peqa_z) or full "
+                   "weights on a mesh")
+
+
+# and why training on one refuses a global batch (the reference homes the
+# batch P(data): every data rank takes an equal block of rows)
+MESH_BATCH_REASON = ("the global batch of {batch} rows is not divisible by "
+                     "the data axis ({data}): every data rank trains on an "
+                     "equal block of the batch's rows")
 
 
 def mesh_problems(cfg: ModelConfig) -> list:
-    """Why ``cfg`` cannot be served on a mesh in this slice (empty: it
-    can); the sharded extents are ``dist.sharding.shard_problems``'."""
+    """Why ``cfg`` cannot be served or trained on a mesh in this slice
+    (empty: it can); the sharded extents are
+    ``dist.sharding.shard_problems``'."""
     out = []
     if cfg.family != "dense" or cfg.moe is not None:
         out.append(MESH_FAMILY_REASON.format(
@@ -139,10 +148,14 @@ def mesh_problems(cfg: ModelConfig) -> list:
     return out
 
 
-def check_supported(cfg: ModelConfig, mesh=None) -> None:
+def check_supported(cfg: ModelConfig, mesh=None, *, train: bool = False,
+                    batch: Optional[int] = None) -> None:
     """Raise for every configuration this slice of the port does not serve;
     with ``mesh`` (a mesh context), also for what it does not serve on a
-    mesh (``mesh_problems``, ``dist.sharding.shard_problems``)."""
+    mesh (``mesh_problems``, ``dist.sharding.shard_problems``).  With
+    ``train`` for what it does not train there: the same, and
+    ``remat="dots"``; ``batch``, a training run's global batch, must
+    divide the data axis."""
     moe = cfg.moe is not None
     encdec = cfg.family == "encdec"
     fam = cfg.family
@@ -223,9 +236,16 @@ def check_supported(cfg: ModelConfig, mesh=None) -> None:
         from repro_torch.dist import sharding
         bad = mesh_problems(cfg) + sharding.shard_problems(cfg,
                                                            mesh.model_size)
+        train = train or batch is not None
+        if train and cfg.remat == "dots":
+            bad.append(transformer.MESH_DOTS_REASON)
+        if batch is not None and batch % mesh.data_size:
+            bad.append(MESH_BATCH_REASON.format(batch=batch,
+                                                data=mesh.data_size))
         if bad:
+            verb = "trained" if train else "served"
             raise NotImplementedError(
-                f"{cfg.name}: not served on a ({mesh.data_size}, "
+                f"{cfg.name}: not {verb} on a ({mesh.data_size}, "
                 f"{mesh.model_size}) mesh: {'; '.join(bad)}")
     if bad:
         raise NotImplementedError(

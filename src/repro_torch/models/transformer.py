@@ -16,7 +16,11 @@ The same functions run a rank's shard of the model on a ``(data, model)``
 mesh (``dist/sharding.py``) under ``context.use_mesh``: attention on the
 rank's local heads (the shard's config), row-parallel sums and the
 vocab-sharded lookup reduced in ``linear`` and ``common``, the logits
-gathered here unless the run keeps them vocab-sharded.  Activations are
+gathered here unless the run keeps them vocab-sharded.  Training on a
+shard differentiates through the Megatron pair (``context.copy_to_model``
+before each column-parallel group, ``reduce_from_model`` after each
+row-parallel sum) and scores the vocab block where it lies
+(``common.vocab_parallel_cross_entropy``).  Activations are
 replicated over the model axis between blocks: the reference's
 Megatron-SP layout hint (``constrain_tokens``) changes no result and has
 no counterpart.
@@ -120,6 +124,9 @@ def _final_logits(model: Transformer, h: torch.Tensor, cfg: ModelConfig,
 # it too but keeps the outputs of its dense products (the reference's
 # ``checkpoint_dots`` policy, ``dots_policy``)
 REMATS = ("none", "block", "full", "dots")
+MESH_DOTS_REASON = ("remat='dots' on a mesh is not ported (its selective "
+                    "checkpoint would replay the row-parallel collectives "
+                    "under its own policy): use 'none' or 'block'")
 # the dispatched ops a dense product lowers to (the fp linears' and the
 # router's ``ops.dot_f32``, the plain attention's einsums)
 _DOTS = frozenset((torch.ops.aten.mm, torch.ops.aten.bmm,
@@ -166,14 +173,27 @@ def _ffn(layer: Block, h: torch.Tensor, cfg: ModelConfig, slots=None,
     return moe.apply(layer.moe, hin, cfg)
 
 
-def _block_train(layer: Block, h: torch.Tensor, cfg: ModelConfig, rope):
+def _block_train(layer: Block, h: torch.Tensor, cfg: ModelConfig, rope,
+                 ctx=None):
     """Pre-norm block over the full sequence (reference ``_block_train``)
     → (h, aux): the norms and the MLP by the config (RMSNorm or LayerNorm,
-    SwiGLU or GELU), or the MoE block and its aux loss (None without)."""
-    h = h + attention.apply_train(
-        layer.attn, common.norm_apply(layer.ln1, h, cfg), cfg, rope)
-    m, aux = _ffn(layer, h, cfg)
-    return h + m, aux
+    SwiGLU or GELU), or the MoE block and its aux loss (None without).
+
+    ``ctx``: a model-axis shard's mesh context, installed here — a remat
+    recompute runs this in the backward, on autograd's thread on the card,
+    where the caller's ``use_mesh`` is not — and each norm's output passes
+    through ``context.copy_to_model``: one all-reduce of its gradient for
+    the column-parallel group it feeds (q/k/v, gate/up)."""
+    if ctx is None:
+        h = h + attention.apply_train(
+            layer.attn, common.norm_apply(layer.ln1, h, cfg), cfg, rope)
+        m, aux = _ffn(layer, h, cfg)
+        return h + m, aux
+    with context.use_mesh(ctx):
+        x = context.copy_to_model(common.norm_apply(layer.ln1, h, cfg), ctx)
+        h = h + attention.apply_train(layer.attn, x, cfg, rope)
+        x = context.copy_to_model(common.norm_apply(layer.ln2, h, cfg), ctx)
+        return h + common.mlp_apply(layer.mlp, x, cfg), None
 
 
 def _embed(model: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
@@ -204,29 +224,39 @@ def forward_aux(model: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
     under ``torch.utils.checkpoint`` (non-reentrant), so the backward
     recomputes its forward — every quantized linear's kernel twice a step
     — and the aux comes out of the checkpoint with h.  Under "dots" the
-    same checkpoint keeps its dense products' outputs (``dots_policy``):
+    the same checkpoint keeps its dense products' outputs (``dots_policy``):
     the backward recomputes the rest, every quantized linear included.
     An MoE block's recompute routes as its forward did under either: the
     router's logits are the same product of the same input."""
+    h, total = _trunk(model, tokens, cfg, prefix_embeds)
+    return _final_logits(model, h, cfg), total
+
+
+def _trunk(model: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
+           prefix_embeds: torch.Tensor | None = None):
+    """The embedding and every block under ``cfg.remat`` → (h, aux)."""
     if cfg.remat not in REMATS:
         raise NotImplementedError(f"remat={cfg.remat!r} is not ported "
                                   f"(have {REMATS})")
+    ctx = context.current() if model.embed.vocab_start is not None else None
+    if ctx is not None and cfg.remat == "dots":
+        raise NotImplementedError(MESH_DOTS_REASON)
     h = _embed(model, tokens, cfg, prefix_embeds)
     rope = common.rope_table(cfg, torch.arange(h.shape[1], device=h.device))
     total = None
     for layer in model.layers:
         if cfg.remat == "none":
-            h, aux = _block_train(layer, h, cfg, rope)
+            h, aux = _block_train(layer, h, cfg, rope, ctx)
         elif cfg.remat == "dots":
             h, aux = checkpoint(_block_train, layer, h, cfg, rope,
                                 use_reentrant=False,
                                 context_fn=_dots_contexts)
         else:
-            h, aux = checkpoint(_block_train, layer, h, cfg, rope,
+            h, aux = checkpoint(_block_train, layer, h, cfg, rope, ctx,
                                 use_reentrant=False)
         if aux is not None:
             total = aux if total is None else total + aux
-    return _final_logits(model, h, cfg), total
+    return h, total
 
 
 def loss_fn(model: Transformer, batch: dict, cfg: ModelConfig
@@ -235,7 +265,19 @@ def loss_fn(model: Transformer, batch: dict, cfg: ModelConfig
     "labels", optional "mask" and "image_embeds"}: tensors on the model's
     device), plus ``router_aux_coef`` × the MoE aux loss where the config
     has MoE blocks.  With a vlm prefix only the text rows are scored: the
-    last ``labels.shape[1]`` rows of the logits."""
+    last ``labels.shape[1]`` rows of the logits.
+
+    On a model-axis shard the batch is this rank's rows of the global
+    batch and the loss is the global batch's token mean, equal on every
+    rank: the head's logits stay the rank's vocab block (never gathered)
+    and go through ``common.vocab_parallel_cross_entropy``."""
+    if model.embed.vocab_start is not None:
+        ctx = context.require()
+        h, _ = _trunk(model, batch["tokens"], cfg)
+        h = common.norm_apply(model.final_norm, h, cfg)
+        block = common.head_apply(model.lm_head, model.embed, h, cfg)
+        return common.vocab_parallel_cross_entropy(
+            block, batch["labels"], batch.get("mask"), ctx)
     logits, aux = forward_aux(model, batch["tokens"], cfg,
                               prefix_embeds=batch.get("image_embeds"))
     labels = batch["labels"]

@@ -13,7 +13,7 @@ overwritten, as the reference's donated buffers are.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+from typing import Callable, Collection, Dict
 
 import torch
 
@@ -42,10 +42,16 @@ class MaskedAdamW:
     @torch.no_grad()
     def update(self, grads: Dict[str, torch.Tensor], state: dict,
                params: Dict[str, torch.Tensor],
-               mask: Dict[str, bool]) -> torch.Tensor:
+               mask: Dict[str, bool], *, ctx=None,
+               sharded: Collection[str] = ()) -> torch.Tensor:
         """One step in place; returns the global gradient norm over the
         trainable gradients (before clipping).  A name with no gradient is
-        left alone, as the reference's float0 leaves are."""
+        left alone, as the reference's float0 leaves are.
+
+        On a mesh (``ctx``, the rank's shard: ``grads`` already summed over
+        the data axis) the norm is the whole model's: the squares of the
+        ``sharded`` names — each rank's block of a model-sharded leaf — are
+        summed over the model axis, every other name counted once."""
         c = self.cfg
         state["count"] = state["count"] + 1
         count = state["count"]
@@ -54,8 +60,14 @@ class MaskedAdamW:
                 and grads.get(name) is not None]
 
         # global-norm clip over trainable grads only
-        sq = [torch.sum(torch.square(grads[n].to(torch.float32)))
-              for n in live]
+        square = lambda n: torch.sum(torch.square(grads[n].to(torch.float32)))
+        sq = [square(n) for n in live if n not in sharded]
+        if ctx is not None:
+            blocks = [square(n) for n in live if n in sharded]
+            dev = grads[live[0]].device if live else None
+            sq.append(ctx.all_reduce(
+                torch.stack(blocks).sum() if blocks
+                else torch.zeros((), device=dev), "model"))
         gnorm = torch.sqrt(sum(sq)) if sq else torch.zeros(())
         clip = torch.clamp(c.grad_clip / (gnorm + 1e-9), max=1.0) \
             if c.grad_clip else 1.0

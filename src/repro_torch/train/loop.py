@@ -9,6 +9,14 @@ Fault-tolerance behavior (exercised in tests/test_torch_ckpt.py):
   * a watchdog thread flags steps exceeding ``watchdog_timeout_s`` —
     straggler detection at node scale; here it aborts the process cleanly so
     the cluster launcher restarts from the last checkpoint.
+
+On a ``(data, model)`` mesh (``mesh=ctx``, the state the rank's shard)
+every rank restores the WHOLE checkpoint and cuts its shard
+(``train.state.load_shard``); at a save every rank takes part in gathering
+the whole state over the model axis (``train.state.whole_tree``), rank
+(0, 0) alone writes it in the reference's format, and every rank waits on
+a barrier — so a checkpoint written on a mesh restores off it, and the
+reverse.
 """
 from __future__ import annotations
 
@@ -21,6 +29,7 @@ import numpy as np
 
 from repro_torch import bridge
 from repro_torch.ckpt.checkpoint import CheckpointManager
+from repro_torch.train import state as state_mod
 
 
 class Watchdog:
@@ -53,25 +62,56 @@ class Watchdog:
         self._thread.join()
 
 
+class _Saver:
+    """A checkpoint of the train state: the state's own tree off a mesh;
+    on one, the whole state gathered on every rank and written by rank
+    (0, 0), every rank waiting until the tree is handed over."""
+
+    def __init__(self, mgr: CheckpointManager, mesh):
+        self.mgr, self.mesh = mgr, mesh
+        self.writer = mesh is None or (mesh.data_rank == 0
+                                       and mesh.model_rank == 0)
+
+    def restore(self, state):
+        # the state's tree is used for structure only
+        restored, extra = self.mgr.restore(bridge.state_to_tree(state))
+        if restored is None:
+            return state, None
+        if self.mesh is None:
+            return bridge.load_state(state, restored), extra
+        return state_mod.load_shard(state, restored, self.mesh), extra
+
+    def save(self, step: int, state, final: bool = False) -> None:
+        tree = bridge.state_to_tree(state) if self.mesh is None \
+            else state_mod.whole_tree(state, self.mesh)
+        if self.writer:
+            self.mgr.save(step, tree)
+            if final:
+                self.mgr.wait()
+        if self.mesh is not None:
+            self.mesh.barrier()
+
+
 def train(state, train_step, data, tcfg, *, ckpt_dir: Optional[str] = None,
           eval_fn: Optional[Callable] = None, log: Optional[Callable] = None,
-          on_metrics: Optional[Callable] = None):
+          on_metrics: Optional[Callable] = None, mesh=None):
     """Run (or resume) training. Returns (final_state, history).
 
     ``state`` is ``train.state.make_state``'s (updated in place); a
     checkpoint holds ``bridge.state_to_tree(state)``, the reference's
-    layout, and a restore loads it back into ``state``."""
+    layout, and a restore loads it back into ``state``.  ``mesh``: the
+    rank's ``MeshContext`` (``state`` its shard, ``train_step`` built on
+    it), whose checkpoints hold the whole state."""
     log = log or (lambda msg: print(msg, flush=True))
     history = []
-    mgr = CheckpointManager(ckpt_dir, keep=tcfg.keep_ckpts,
-                            async_save=True) if ckpt_dir else None
+    saver = _Saver(CheckpointManager(ckpt_dir, keep=tcfg.keep_ckpts,
+                                     async_save=True), mesh) \
+        if ckpt_dir else None
 
     start_step = 0
-    if mgr is not None:
-        # the state's tree is used for structure only
-        restored, extra = mgr.restore(bridge.state_to_tree(state))
-        if restored is not None:
-            state = bridge.load_state(state, restored)
+    if saver is not None:
+        state, extra = saver.restore(state)
+        if extra is not None:
             start_step = int(extra["step"])
             log(f"[train] resumed from checkpoint step {start_step}")
 
@@ -95,11 +135,10 @@ def train(state, train_step, data, tcfg, *, ckpt_dir: Optional[str] = None,
                 ev = eval_fn(state["params"])
                 log(f"[train] step {step + 1} eval_loss={ev:.4f} "
                     f"ppl={math.exp(min(ev, 20)):.2f}")
-            if mgr and (step + 1) % tcfg.ckpt_every == 0:
-                mgr.save(step + 1, bridge.state_to_tree(state))
-        if mgr:
-            mgr.save(tcfg.steps, bridge.state_to_tree(state))
-            mgr.wait()
+            if saver and (step + 1) % tcfg.ckpt_every == 0:
+                saver.save(step + 1, state)
+        if saver:
+            saver.save(tcfg.steps, state, final=True)
     finally:
         wd.close()
     return state, history

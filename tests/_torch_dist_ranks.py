@@ -176,3 +176,157 @@ def cont_rank(rank, shape, tmp, cfg, cfg_plane, logits):
     out["samplers"] = {name: _sampled(ctx, lg, 42, act)
                        for name, (lg, act) in logits.items()}
     _save(tmp, "cont", rank, out)
+
+
+# ---------------------------------------------------------------------------
+# training on the mesh (tests/test_torch_dist_train*.py)
+# ---------------------------------------------------------------------------
+
+def _train_state(path, cfg, ocfg):
+    """(api, model, mask, optimizer, whole state) of ``cfg`` from the tree
+    saved at ``path``, off the mesh."""
+    from repro_torch.configs.base import OptimConfig
+    from repro_torch.core import policies
+    from repro_torch.optim.adamw import make_optimizer
+    from repro_torch.train.state import make_state
+    model = load_model(path, cfg)
+    mask = policies.make_mask(model, cfg)
+    opt = make_optimizer(OptimConfig(**ocfg), 10)
+    state = make_state(model, opt.init(dict(model.named_parameters()), mask))
+    return registry.build(cfg, device="cpu"), model, mask, opt, state
+
+
+def _held(local, mask):
+    """What the test reassembles of a rank's shard: its trained tensors
+    and its codes."""
+    return {"trained": {n: p.detach().clone()
+                        for n, p in local.named_parameters() if mask[n]},
+            "codes": {n: b.clone() for n, b in local.named_buffers()}}
+
+
+def _threaded_backward():
+    """``Tensor.backward`` run on a fresh thread, where no ``use_mesh`` is
+    installed (as autograd's device thread on the card); returns the
+    function to restore."""
+    import threading
+
+    from repro_torch.dist import context
+    orig = torch.Tensor.backward
+
+    def backward(self, *args, **kw):
+        errors = []
+
+        def body():
+            try:
+                assert context.current() is None
+                orig(self, *args, **kw)
+            except BaseException as e:          # re-raised in the caller
+                errors.append(e)
+        t = threading.Thread(target=body)
+        t.start()
+        t.join()
+        if errors:
+            raise errors[0]
+    torch.Tensor.backward = backward
+    return lambda: setattr(torch.Tensor, "backward", orig)
+
+
+def train_rank(rank, shape, tmp, cases, batches, threaded, grads):
+    """Every training case on the mesh: ``cases`` {name: (cfg, ocfg)}, the
+    trees at ``<tmp>/<name>.npz``, 3 steps on ``batches`` from the shard
+    of the whole state; each step's metrics, step 1's collective record,
+    the eval loss after, and the reassembly inputs.  ``threaded``: a case
+    run again with every ``backward()`` on another thread.  ``grads``:
+    per-rank numpy gradients for ``compressed_psum`` over each axis."""
+    from repro_torch.configs.base import TrainConfig, OptimConfig
+    from repro_torch.dist import context
+    from repro_torch.optim.compression import compressed_psum
+    from repro_torch.train import step
+    from repro_torch.train.state import shard_state
+    ctx = _ctx(shape)
+    out = {"coords": (ctx.data_rank, ctx.model_rank)}
+
+    def run(name):
+        cfg, ocfg = cases[name]
+        api, _, mask, opt, whole = _train_state(
+            os.path.join(tmp, f"{name}.npz"), cfg, ocfg)
+        local = shard_state(whole, ctx, cfg)
+        tcfg = TrainConfig(optim=OptimConfig(**ocfg))
+        ts = step.build_train_step(api, cfg, tcfg, mask, opt, mesh=ctx)
+        hist, record = [], None
+        for i, b in enumerate(batches):
+            with ctx.recording() as rec:
+                local, m = ts(local, b)
+            hist.append({k: float(v) for k, v in m.items()})
+            record = rec if i == 0 else record
+        ev = float(step.build_eval_step(api, cfg, mesh=ctx)(
+            local["params"], batches[0]))
+        return {"hist": hist, "record": record, "eval": ev,
+                "want": step.mesh_collectives(
+                    local["params"], cfg, mask,
+                    tcfg.optim.grad_compression == "int8"),
+                **_held(local["params"], mask),
+                "moments": {n: tuple(t.clone() for t in pair)
+                            for n, pair in local["opt"]["mv"].items()}}
+
+    for name in cases:
+        out[name] = run(name)
+    restore = _threaded_backward()
+    try:
+        out["threaded"] = run(threaded)
+    finally:
+        restore()
+    out["psum"] = {axis: compressed_psum(torch.from_numpy(grads[rank]), ctx,
+                                         axis) for axis in context.AXES}
+    _save(tmp, "train", rank, out)
+
+
+class _Batches:
+    """``loop.train``'s data: the i-th of a list of global batches."""
+
+    def __init__(self, batches):
+        self.batches = batches
+
+    def batch_at(self, step):
+        return self.batches[step]
+
+
+def ckpt_rank(rank, shape, tmp, cfg, ocfg, batches, ckpt, steps, extra):
+    """``loop.train`` on the mesh from the tree at ``<tmp>/start.npz`` for
+    ``steps`` steps with checkpoints in ``ckpt`` (resuming from the newest
+    there), then ``extra`` more steps outside the loop; rank 0 saves the
+    history, the extra steps' losses and the restored step."""
+    from repro_torch.configs.base import OptimConfig, TrainConfig
+    from repro_torch.train import loop, step
+    from repro_torch.train.state import shard_state
+    ctx = _ctx(shape)
+    api, _, mask, opt, whole = _train_state(os.path.join(tmp, "start.npz"),
+                                            cfg, ocfg)
+    local = shard_state(whole, ctx, cfg)
+    tcfg = TrainConfig(steps=steps, log_every=1, ckpt_every=10 ** 6,
+                       optim=OptimConfig(**ocfg))
+    ts = step.build_train_step(api, cfg, tcfg, mask, opt, mesh=ctx)
+    logs = []
+    local, hist = loop.train(local, ts, _Batches(batches), tcfg,
+                             ckpt_dir=ckpt, log=logs.append, mesh=ctx)
+    after = [float(ts(local, batches[steps + i])[1]["loss"])
+             for i in range(extra)]
+    if rank == 0:
+        _save(tmp, f"ckpt{shape[0]}x{shape[1]}_", rank,
+              {"hist": hist, "after": after, "logs": logs,
+               "step": local["step"]})
+
+
+def pipeline_rank(rank, n_stages, tmp, ws, x):
+    """``pipeline_apply`` of ``tanh(h @ w)`` over a one-axis ("stage")
+    mesh of ``n_stages`` ranks: its output and ``backward()``'s gradient
+    of the output's sum on this rank."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.dist.pipeline_par import pipeline_apply
+    mesh = DeviceMesh("cpu", torch.arange(n_stages),
+                      mesh_dim_names=("stage",))
+    ws = ws.clone().requires_grad_(True)
+    y = pipeline_apply(lambda w, h: torch.tanh(h @ w), ws, x, mesh)
+    y.sum().backward()
+    _save(tmp, f"pipe{n_stages}_", rank, {"y": y.detach(), "grad": ws.grad})

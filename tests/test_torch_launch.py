@@ -230,6 +230,13 @@ def test_train_int8_grad_compression(capsys):
 
 @pytest.mark.parametrize("mesh", ["debug", "pod", "multipod"])
 def test_train_mesh_refused(mesh):
+    """What training on a mesh still refuses: the reference's TPU pod
+    meshes, and a global batch the debug mesh's data axis (2) does not
+    divide (``tests/test_torch_dist_train_ckpt.py`` trains on meshes)."""
     with pytest.raises(SystemExit) as exc:
-        train.main([*TRAIN, "--mesh", mesh])
-    assert "queue 6, item 9" in str(exc.value.code)
+        train.main([*TRAIN, "--batch", "3", "--mesh", mesh])
+    assert {"debug": "global batch of 3 rows is not divisible by the data "
+                     "axis (2)",
+            "pod": "(16, 16) ('data', 'model'): 256 devices",
+            "multipod": "(2, 16, 16) ('pod', 'data', 'model'): 512 devices",
+            }[mesh] in str(exc.value.code)

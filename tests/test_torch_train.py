@@ -59,6 +59,7 @@ from repro_torch import bridge
 from repro_torch.configs.base import OptimConfig, TrainConfig
 from repro_torch.core import policies
 from repro_torch.data import pipeline, synthetic
+from repro_torch.dist import context
 from repro_torch.models import registry
 from repro_torch.optim import compression
 from repro_torch.optim.adamw import make_optimizer
@@ -332,14 +333,21 @@ def _check_train_steps(mode, dtype, attn, remat, ocfg,
 
 
 def test_train_step_refuses_a_mesh_and_remat_dots():
-    """A mesh is refused; remat="dots" builds (``test_torch_remat_dots.py``
-    holds it to the reference), and a remat the reference does not know
-    is refused."""
+    """On a mesh the lora arm and remat="dots" are refused
+    (``tests/test_torch_dist_train.py`` trains the rest there); off it
+    remat="dots" builds (``test_torch_remat_dots.py`` holds it to the
+    reference), and a remat the reference does not know is refused."""
     _, tcfg = tiny_llama_pair()
     api = registry.build(tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        step.build_train_step(api, tcfg, TrainConfig(), {}, None,
-                              mesh=object())
+    mesh = context.coords(1, 2)
+    with pytest.raises(NotImplementedError,
+                       match="not trained on a .*remat='dots' on a mesh"):
+        step.build_train_step(api, tcfg.replace(remat="dots"), TrainConfig(),
+                              {}, None, mesh=mesh)
+    _, lcfg = tiny_llama_pair("lora")
+    with pytest.raises(NotImplementedError, match="the lora arm"):
+        step.build_train_step(registry.build(lcfg, device="cpu"), lcfg,
+                              TrainConfig(), {}, None, mesh=mesh)
     registry.build(tcfg.replace(remat="dots"), device="cpu")
     with pytest.raises(NotImplementedError, match="remat"):
         registry.build(tcfg.replace(remat="offload"), device="cpu")
