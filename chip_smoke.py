@@ -233,12 +233,13 @@ line:
                forward and backward and of the update — and optimizer
                state beside PEQA's (the paper's Table 1).
  13. dense_archs — llama3.2-1b's models freed, qwen2-7b at full width and
-               depth (28 layers, d_model 3584, 28 / 4 heads of 128, d_ff
+               14 of its 28 layers (``DEPTH``: the time limit; d_model
+               3584, 28 / 4 heads of 128, d_ff
                18944, vocab 152064, untied, q/k/v biases), bf16, random
                weights from the seed, PEQA 4-bit per-channel (n_grid 20):
                its build's seconds and peak; Engine.generate (B 4, a
-               256-token prompt, 32 new tokens; 28 × 7 K2 launches for the
-               prefill, 28 × 7 K1 and 28 K4 a decode step), a prefill and
+               256-token prompt, 32 new tokens; L × 7 K2 launches for the
+               prefill, L × 7 K1 and L K4 a decode step), a prefill and
                a decode step profiled as in phase profile; the first 8
                of phase serve's requests (over 4 tasks) under drain and
                resident
@@ -246,14 +247,14 @@ line:
                the int8 KV cache (the same launches, its cache half of
                bf16's plus the scales, prefill logits bit-equal to the
                bf16 cache run's); 3 PEQA train steps at 8 × 256 (step 1's
-               2 × 196 − 28 K2 calls that return an output — the recompute
+               2 × 7L − L K2 calls that return an output — the recompute
                stops before the down projection's — each held to plain
-               element by element, 2 × 196 K2 launches a step, state
+               element by element, 2 × 7L K2 launches a step, state
                8 B × the scales, the codes, biases, norms, table and head
                unchanged; peak memory, step ms, tokens/s beside the
                reckoned full-mode bytes); the untied head's time under the fp linear's
                earlier rule and under ``ops.dot_f32``.  Then starcoder2-7b
-               at full width and depth (32 layers): generate with its
+               at full width and 16 of its 32 layers: generate with its
                launch gates, and 2 train steps (the first checked).  Then
                granite-34b at full width and GRANITE_LAYERS (16) of its 88
                layers (d_model 6144, 48 heads of 128 over one KV head,
@@ -264,14 +265,15 @@ line:
                step), the prefill's K2 calls and the first step's K1 calls
                each held to plain.
  15. vlm     — (run before arms) llava-next-mistral-7b at full width
-               and depth (the mistral-7b backbone: 32 layers, d_model 4096,
+               and 16 of its 32 layers (``DEPTH``; the mistral-7b
+               backbone: d_model 4096,
                32 / 8 heads of 128, d_ff 14336, vocab 32000, untied, rope θ
                1e6), built layer by layer, bf16, PEQA 4-bit per-channel
                (n_grid 20), seed 0; each image prefix 576 rows of seeded
                N(0, 1) float32.  Build seconds, peak and model bytes;
                Engine.generate(prefix=) with B 4, 576 + 256 tokens and 32
-               new (224 K2 launches for the prefill at M = 3328, 224 K1 and
-               32 K4 a decode step), the prefill's K2 calls and the first
+               new (7L K2 launches for the prefill at M = 3328, 7L K1 and
+               L K4 a decode step), the prefill's K2 calls and the first
                step's K1 calls each held to plain, the logits moved by the
                prefix; a prefill and a decode step profiled (the busy
                share); 8 prefixed requests over 2 tasks (a burst each)
@@ -282,13 +284,17 @@ line:
                PEQA train steps of 4 × (576 + 256) rows, the loss on the
                text rows, step 1's K2 calls each held to plain, state 8 B ×
                the scales, peak memory and step ms.
- 16. moe     — (after vlm) mixtral-8x7b (32 layers, d_model 4096, 32 / 8
-               heads of 128, 8 experts of d_ff 14336, top-2, a 4096-key
-               window: the ring cache; vocab 32000, untied; 187 GB of
-               float32 weights) and deepseek-moe-16b (28 layers, d_model
+ 16. moe     — (after vlm) mixtral-8x7b (16 of its 32 layers, d_model
+               4096, 32 / 8 heads of 128, 8 experts of d_ff 14336, top-2,
+               a 4096-key window: the ring cache; vocab 32000, untied; 93
+               of its 187 GB of float32 weights) and deepseek-moe-16b (28
+               layers, d_model
                2048, 16 / 16 heads of 128, 64 experts of d_ff 1408, top-6,
                2 shared experts of 2816; vocab 102400, untied) at full
-               width and depth, each built layer by layer (bf16, PEQA
+               width at their ``DEPTH``: mixtral at 16 of its 32 layers
+               (93 GB of float32, still more than the card), deepseek at
+               14 of its 28,
+               each built layer by layer (bf16, PEQA
                4-bit per-channel, n_grid 20, seed 0; every expert stack
                quantized in chunks of whole experts; mixtral in nibbles,
                deepseek on 4 bit-planes, ``MOE_LAYOUTS``, its launches the
@@ -297,9 +303,10 @@ line:
                Engine.generate of 4 × 256 + 32 with exact launches
                (mixtral: 128 K2 and 96 expert-axis K2 at C = 320 for the
                prefill, 128 K1, 96 expert-axis K1 at C = 1 and 32 K4 a
-               step; deepseek, each on planes: 196 K2-plane (attention
-               and shared MLP) and 84 expert-axis K2-plane at C = 120, 196
-               K1-plane, 84 expert-axis K1-plane and 28 K4), the prefill's and the first step's every quantized
+               step; deepseek, each on planes: 7 K2-plane (attention and
+               shared MLP) and 3 expert-axis K2-plane at C = 120 a layer
+               for the prefill, 7 K1-plane, 3 expert-axis K1-plane and one
+               K4 a layer a step), the prefill's and the first step's every quantized
                call held to plain as it happens (``CheckedQuantMatmul``),
                each expert-axis slice also bit-equal to the 2-D kernel on
                its expert; a prefill and a decode step profiled (the busy
@@ -467,7 +474,48 @@ line:
                step's loss the mesh's).  Step ms, the peak a rank and the
                collectives a step (count and bytes by axis), beside the
                unsharded step's ms and peak in the same call.
- 23. launch  — (after arms) the CLIs as subprocesses, each gated on exit
+ 25. mesh_moe — (after moe) MoE expert parallelism on (data, model)
+               meshes at full width: deepseek-moe-16b at 14 of its 28
+               layers (64 experts sharded whole, ``"expert"``; the time
+               limit's cut) and mixtral-8x7b at 4 of its 32 layers (every
+               expert's d_ff sharded,
+               ``"tensor"``; whole it is 24 GB a copy), PEQA 4-bit
+               nibbles, remat "block", each built once; (1, 1) over NCCL
+               in the script's process, deepseek also at (1, 2) and (2,
+               2), mixtral at (1, 2), spawned on cuda:0 under gloo (the
+               two meshes at the same time: each one's times include the
+               other's load), each rank reading the script's whole model
+               over CUDA IPC (``torch.multiprocessing``) and copying only
+               its shard: the card holds one whole model, not D·M.
+               Each rank: ``generate`` 4 × 256 + 32 under logitshard (its
+               launches those of the unsharded generate) and without (the
+               same tokens); deepseek at (1, 2) also its shard repacked
+               into 4 bit-planes (``generate`` of MESH_MOE_PLANE_NEW
+               tokens: K1-plane × E and K2-plane × E at z = 32);
+               deepseek's drain serving of phase moe's 8 requests over 2
+               tasks (every budget, a task swap); then 2
+               PEQA steps of 4 × 256 from the model's own scales.  Gates:
+               (1, 1) bit-equal to the unsharded engine; the prefill
+               logits within MESH_LOGIT_TOL of the largest unsharded one
+               (at (2, 2) the unsharded run on each data block's rows);
+               step 1's loss within 2⁻⁸ and ``grad_norm`` within 5e-2 of
+               the unsharded step (at (2, 2) the mean over the data
+               blocks); layer 0's routing at step 1 equal on every model
+               rank; every rank's metrics equal; all-reduces only, their
+               count ``step.mesh_collectives``', no vocab-extent gather;
+               a task swap's collective record empty; the codes frozen;
+               every new shard shape of K1, K2, K4 and the expert-axis
+               K1 × E, K2 × E and plane forms held once to its plain
+               version on rank 0 and timed beside its bound and, for the
+               expert forms, ``torch.bmm`` on the dequantized stack.  The
+               decode ms a step, step ms and peak a rank beside the
+               unsharded run's, the collectives by axis, and at data 1
+               the count of layer 0's router assignments that differ from
+               the unsharded run (reported, not gated: near-tied router
+               probabilities may flip).
+ 23. launch  — (after arms, while this process runs phase examples: the
+               time limit's cut, so both phases' walls include the
+               other's load) the CLIs as subprocesses, each gated on exit
                code 0 and its own success line: ``launch.train`` at
                llama3.2-1b's full width and depth, 10 PEQA steps of 8 ×
                256 checkpointed (its step wall from its log lines'
@@ -589,9 +637,16 @@ REMAT_STEPS = 3
 # first checked call by call, not timed); granite-34b's depth (of 88)
 DENSE_TRAIN_STEPS = 3
 GRANITE_LAYERS = 16
+# the layers of each whole model the script's time limit cuts (at full
+# width; every other model runs whole): qwen2-7b 14 of 28, starcoder2-7b
+# 16 of 32, llava-next-mistral-7b 16 of 32, mixtral-8x7b 16 of 32 (93 GB
+# of float32, still more than the card: the layer-by-layer build's
+# proof), deepseek-moe-16b 14 of 28
+DEPTH = {"qwen2-7b": 14, "starcoder2-7b": 16, "llava-next-mistral-7b": 16,
+         "mixtral-8x7b": 16, "deepseek-moe-16b": 14}
 # qwen2-7b serves the first DENSE_SERVE_REQUESTS of phase serve's requests
 DENSE_SERVE_REQUESTS = 8
-# vlm phase: llava-next-mistral-7b at full width and depth, each image
+# vlm phase: llava-next-mistral-7b at full width (DEPTH), each image
 # prefix its n_img_tokens (576) rows of seeded N(0, 1) float32, as the
 # reference's serving workload makes them.  Serving: VLM_REQUESTS requests
 # over VLM_TASKS tasks (one burst a task) in VLM_SLOTS slots, the prompts
@@ -603,7 +658,7 @@ VLM_PROMPTS, VLM_NEW = (32, 64, 96, 128), (16, 24, 32)
 VLM_TRAIN_STEPS, VLM_TRAIN_BATCH = 2, 4
 VLM_CHECK_REQUESTS, VLM_CHECK_PROMPTS, VLM_CHECK_NEW = 6, (32, 48, 64), \
     (8, 12, 16)
-# moe phase: mixtral-8x7b and deepseek-moe-16b at full width and depth.
+# moe phase: mixtral-8x7b (DEPTH) and deepseek-moe-16b at full width.
 # Serving: MOE_REQUESTS requests over MOE_TASKS tasks (one burst a task) in
 # MOE_SLOTS slots, the prompts and budgets in turn (every prompt over 32
 # rows: the prefill's 2-D linears take K2); training: MOE_TRAIN_STEPS PEQA
@@ -3794,15 +3849,17 @@ class CheckedQuantMatmul:
     Counts the calls checked by kernel (``calls``).
 
     With ``shapes`` it holds instead the kernel each ``ops.quant_matmul``,
-    ``ops.quant_matmul_slotted`` and chunked ``ops.attention`` call
-    reaches — K1, K2, K5, the K6a forms (draft reads too) and K4 —, once
-    for each new call shape, on the call's operands: launched again,
+    ``ops.quant_matmul_slotted``, ``ops.quant_matmul_experts`` and chunked
+    ``ops.attention`` call reaches — K1, K2, K5, the K6a forms (draft reads
+    too), K1 × E, K2 × E and their plane forms, and K4 —, once for each
+    new call shape, on the call's operands: launched again,
     within ``error_bound`` of its plain version (factored on the
     tensor-core route), and timed (``timed``: CUDA-graph replay, so no
     host launch cost; operands warm in L2) beside its plain version
     (``events_ms``: the plain K5 reads its task ids on the host, which a
-    graph cannot capture) and its bound (``rows``).  The launches made for
-    this are taken off the kernels' counters again.
+    graph cannot capture) and its bound (``rows``); an expert-axis call
+    also beside ``torch.bmm`` on its dequantized bf16 stack.  The launches
+    made for this are taken off the kernels' counters again.
 
     Wraps the ops entry points the model calls; restored on exit."""
 
@@ -3959,8 +4016,62 @@ class CheckedQuantMatmul:
                         self.rows[key] = self._fa_row(q, k, v, kw)
             return y
 
+        def experts(x, qw, scale, zero, spec):
+            y = saved["quant_matmul_experts"](x, qw, scale, zero, spec)
+            xe = x.detach().contiguous()
+            name = kname("quant_gemv_experts" if xe.shape[1] <= qm.GEMV_MAX_M
+                         else "quant_matmul_experts", spec.plane)
+            args = (xe, qw, *f32(scale, zero)) + (
+                (spec.bits,) if spec.plane else ())
+            key = (name,) + tuple(tuple(a.shape) if torch.is_tensor(a) else a
+                                  for a in args)
+            if key not in self.rows:
+                with torch.no_grad():
+                    self.rows[key] = self._expert_row(name, args, spec)
+            return y
+
         return {"quant_matmul": qmm, "quant_matmul_slotted": slotted,
-                "attention": attention}
+                "quant_matmul_experts": experts, "attention": attention}
+
+    def _expert_row(self, name, args, spec) -> dict:
+        """One expert-axis call shape (K1 × E, K2 × E or a plane form) held
+        to its plain version, timed beside it, its bound and ``torch.bmm``
+        on the stack's dequantized bf16 Ŵ."""
+        import torch
+        from repro_torch.kernels import quant_matmul as qm
+        from repro_torch.kernels.ref import dequant_ref
+        x, qw, s, z = args[:4]
+        bits = args[4] if len(args) > 4 else None
+        fn = getattr(qm, name)
+        plain = (functools.partial(qm.quant_matmul_experts_planes_plain,
+                                   bits=bits) if bits is not None
+                 else qm.quant_matmul_experts_plain)
+        saved = fn.launches
+        y = fn(*args)
+        want = plain(x, qw, s, z)
+        e, c, k = x.shape
+        n, g = s.shape[-2:]
+        err = check_close(
+            f"{self.label}: {name} at E={e}, C={c}, qw {tuple(qw.shape)}",
+            y, want, qm.error_bound(x, qw, s, z, want,
+                                    planes=(bits, 0) if bits else None,
+                                    factored=qm.tc_route(x[0], s[0]),
+                                    gemv="gemv" in name))
+        del y, want
+        ms = timed(fn, [args], 20)
+        fn.launches = saved
+        flat = qw.transpose(0, 1) if bits is not None \
+            else qw.reshape(e * n, -1)
+        w16 = dequant_ref(flat, s.reshape(e * n, g), z.reshape(e * n, g),
+                          (e * n, k), spec, torch.bfloat16).reshape(e, n, k)
+        lib = timed(lambda a, b: torch.bmm(a, b.transpose(1, 2)),
+                    [(x, w16)], 20)
+        del w16
+        b_ms, b_by = experts_bound_ms(e, c, n, k, code_bits=bits or 4)
+        return {"kernel": name, "E": e, "C": c, "N": n, "K": k, "G": g,
+                "planes": bits, "max_abs_err": err, "ms": ms,
+                "plain_ms": events_ms(torch, lambda: plain(x, qw, s, z), 2),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
 
     def _shape(self, name, args) -> None:
         import torch
@@ -4066,8 +4177,8 @@ class CheckedQuantMatmul:
 
 
 def dense_build(torch, name: str, **kw):
-    """``dense_cfg(name, **kw)`` (``layout`` among them) at full width from
-    the seed through the
+    """``dense_cfg(name, **kw)`` (``layout`` among them; ``n_layers`` by
+    default the model's ``DEPTH``) at full width from the seed through the
     layer-by-layer build (``policies.build``: each block's random float32
     weights drawn and quantized before the next block exists).  Returns
     (cfg, api, model, mask, figures): the build's seconds, its peak above
@@ -4075,6 +4186,8 @@ def dense_build(torch, name: str, **kw):
     bytes and one block's float32 bytes."""
     from repro_torch.core import policies
     from repro_torch.models import registry
+    if name in DEPTH:
+        kw.setdefault("n_layers", DEPTH[name])
     cfg = dense_cfg(name, **kw)
     api = registry.build(cfg)
     torch.cuda.synchronize()
@@ -4460,8 +4573,8 @@ def head_times(torch, model, cfg, gen) -> dict:
 
 
 def phase_dense_archs(torch) -> dict:
-    """qwen2-7b and starcoder2-7b at full width and depth (module
-    docstring, phase 13)."""
+    """qwen2-7b and starcoder2-7b at full width, at their ``DEPTH``
+    (module docstring, phase 13)."""
     from repro_torch.models import registry
     gen = torch.Generator().manual_seed(SEED + 11)
     cgen = torch.Generator(device="cuda").manual_seed(SEED + 11)
@@ -4634,8 +4747,8 @@ def vlm_serve(torch, api, model, cfg) -> dict:
 
 
 def phase_vlm(torch) -> dict:
-    """llava-next-mistral-7b at full width and depth (module docstring,
-    phase 15)."""
+    """llava-next-mistral-7b at full width, at its ``DEPTH`` (module
+    docstring, phase 15)."""
     gen = torch.Generator().manual_seed(SEED + 13)
     cfg, api, model, mask, built = dense_build(torch,
                                                "llava-next-mistral-7b")
@@ -4892,7 +5005,7 @@ def moe_serve(torch, api, model, cfg) -> dict:
 
 
 def moe_model(torch, name, gen) -> dict:
-    """One MoE configuration at full width and depth, in its
+    """One MoE configuration at full width, at its ``DEPTH``, in its
     ``MOE_LAYOUTS`` layout (module docstring, phase moe)."""
     cfg, api, model, mask, built = dense_build(torch, name,
                                                layout=MOE_LAYOUTS[name])
@@ -4937,8 +5050,8 @@ def moe_model(torch, name, gen) -> dict:
 
 
 def phase_moe(torch) -> dict:
-    """mixtral-8x7b and deepseek-moe-16b at full width and depth (module
-    docstring, phase moe)."""
+    """mixtral-8x7b (at its DEPTH) and deepseek-moe-16b at full width
+    (module docstring, phase moe)."""
     gen = torch.Generator().manual_seed(SEED + 18)
     res = {"phase": "moe"}
     for name in MOE_ARCHS:
@@ -6121,7 +6234,7 @@ def phase_harness(torch, main_path, plane) -> dict:
 
 # the meshes phase mesh serves on: (1, 1) over NCCL in the script's own
 # process, the others spawned on cuda:0 under gloo (the machine has one
-# card); MESH_REQUESTS of phase
+# card), at the same time (``spawn_meshes``); MESH_REQUESTS of phase
 # serve's requests over MESH_TASKS tasks, all at step 0, their budgets cut
 # to MESH_NEW (gloo's loopback makes a step ~0.1–0.3 s)
 MESH_WORLDS = ((1, 1), (1, 2), (2, 2))
@@ -6147,9 +6260,15 @@ def main_cfg():
 def load_whole(torch, cfg, path):
     """The whole quantized model saved by ``phase_mesh`` (a state dict),
     rebuilt on this rank's card."""
+    return model_from_state(torch, cfg, torch.load(
+        path, map_location="cuda", weights_only=True))
+
+
+def model_from_state(torch, cfg, state):
+    """A quantized model of ``cfg`` around the tensors of a state dict
+    (taken as they are: no copy)."""
     from repro_torch.models import transformer
     from repro_torch.models.linear import Linear
-    state = torch.load(path, map_location="cuda", weights_only=True)
     model = transformer.Transformer(cfg, device="meta")
     spec = cfg.quant.spec()
     for name, mod in model.named_modules():
@@ -6189,7 +6308,7 @@ def mesh_rank(rank: int, shape: tuple, tmp: str, train: bool) -> None:
                      load_whole(torch, main_cfg(),
                                 os.path.join(tmp, "whole.pt")),
                      prompt, {"mesh_and_load": time.perf_counter() - t0})
-    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    torch.save(out, rank_file(tmp, shape, rank))
     del out
     if train:
         torch.cuda.empty_cache()
@@ -6360,17 +6479,48 @@ def decode_profile(torch, engine, prompt, steps: int = 8) -> dict:
             "s": time.perf_counter() - t0}
 
 
+def spawn_meshes(fn, jobs) -> dict:
+    """``backend.spawn(fn, D·M, "cuda", (D, M), *args)`` for every ((D, M),
+    args) of ``jobs`` at the same time, one thread each — their ranks
+    share the card, so each mesh's times include the others' load —, and
+    wait for all; returns {(D, M): wall s}.  A failed rank fails the
+    phase."""
+    import threading
+    from repro_torch.dist import backend
+    walls, errors = {}, {}
+
+    def run(shape, args):
+        t0 = time.perf_counter()
+        try:
+            backend.spawn(fn, shape[0] * shape[1], "cuda", shape, *args)
+        except Exception as e:           # reported in the caller's thread
+            errors[shape] = e
+        walls[shape] = time.perf_counter() - t0
+    threads = [threading.Thread(target=run, args=job) for job in jobs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for shape, e in errors.items():
+        fail(f"{fn.__name__} {shape}: a rank failed: {e}")
+    return walls
+
+
+def rank_file(tmp: str, shape: tuple, rank: int, name: str = "") -> str:
+    return os.path.join(tmp, f"{name}rank_{shape[0]}x{shape[1]}_{rank}.pt")
+
+
 def phase_mesh(torch, main_path, tmp=None, train=False) -> dict:
     """Serving on (data, model) meshes at llama3.2-1b's full width and
     depth, each rank cutting its shard from phase main's whole model:
     (1, 1) over NCCL in this process, bit-equal to the unsharded engine;
-    (1, 2) and (2, 2) spawned on cuda:0 under gloo, the whole model saved
-    once for them in ``tmp`` (kept there for phase mesh_train; None: a
+    (1, 2) and (2, 2) spawned on cuda:0 under gloo at the same time
+    (``spawn_meshes``), the whole model saved once for them in ``tmp``
+    (kept there for phase mesh_train; None: a
     directory of this phase's own, removed after it).  With ``train`` the
     spawned ranks also run phase mesh_train's part, into ``tmp``.  gloo's
     times measure the path, not NCCL's speed."""
     import torch.distributed as dist
-    from torch.multiprocessing import ProcessExitedException
 
     from repro_torch.dist import backend
     from repro_torch.launch import mesh as mesh_mod
@@ -6405,20 +6555,17 @@ def phase_mesh(torch, main_path, tmp=None, train=False) -> dict:
                                                           prompt)}
         torch.save(model.state_dict(), os.path.join(tmp, "whole.pt"))
         torch.save(prompt, os.path.join(tmp, "prompt.pt"))
+        walls = spawn_meshes(mesh_rank, [(shape, (tmp, train))
+                                         for shape in MESH_WORLDS[1:]])
         for shape in MESH_WORLDS[1:]:
             world = shape[0] * shape[1]
-            t0 = time.perf_counter()
-            try:
-                backend.spawn(mesh_rank, world, "cuda", shape, tmp, train)
-            except ProcessExitedException as e:
-                fail(f"phase mesh {shape}: a rank failed: {e}")
-            wall = time.perf_counter() - t0
-            ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
-                                weights_only=False) for r in range(world)]
+            ranks = [torch.load(rank_file(tmp, shape, r), weights_only=False)
+                     for r in range(world)]
             res["meshes"][f"{shape[0]}x{shape[1]}"] = mesh_gate(
-                torch, shape, ranks, ref_logits, ref_tokens, want, cfg, wall)
+                torch, shape, ranks, ref_logits, ref_tokens, want, cfg,
+                walls[shape])
             for r in range(world):
-                os.remove(os.path.join(tmp, f"rank{r}.pt"))
+                os.remove(rank_file(tmp, shape, r))
     finally:
         if own:
             shutil.rmtree(tmp, ignore_errors=True)
@@ -6886,6 +7033,676 @@ def mesh_train_gate(torch, shape, ranks, ref, cfg, wall) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# Phase mesh_moe: MoE expert parallelism on (data, model) meshes
+# ---------------------------------------------------------------------------
+
+# arch → (its meshes, its layers), at full width: deepseek-moe-16b at 14
+# of its 28 layers (the script's time limit, as phase moe's), mixtral-8x7b
+# at 4 of its 32 (whole it is 24 GB a copy, and the parent's model, its
+# (1, 1) shard and the ranks' would put three on the card)
+MESH_MOE = {"deepseek-moe-16b": (((1, 1), (1, 2), (2, 2)), 14),
+            "mixtral-8x7b": (((1, 1), (1, 2)), 4)}
+MESH_MOE_STEPS = 2
+# the mesh whose deepseek-moe-16b ranks also serve the shard repacked into
+# 4 bit-planes (K1-plane × E and K2-plane × E at z = 32)
+MESH_MOE_PLANES = (1, 2)
+# the new tokens of that plane shard's generate (its kernels' shapes are
+# those of the first steps; its tokens are held only across ranks)
+MESH_MOE_PLANE_NEW = 8
+# what each mesh runs besides generate and the steps: deepseek's drain
+# serving of phase moe's requests (a task swap among them)
+MESH_MOE_SERVE = ("deepseek-moe-16b",)
+
+
+def mesh_moe_cfg(name: str):
+    """``name`` as phase mesh_moe runs it: PEQA 4-bit nibbles (n_grid 20),
+    remat "block", at its MESH_MOE depth."""
+    return dense_cfg(name, remat="block", n_layers=MESH_MOE[name][1])
+
+
+def mesh_moe_batches(cfg) -> list:
+    """MESH_MOE_STEPS global batches of BATCH × PROMPT rows of a synthetic
+    corpus."""
+    from repro_torch.data import pipeline, synthetic
+    data = pipeline.PackedLM(synthetic.corpus(
+        cfg.vocab_size, 4 * MESH_MOE_STEPS * BATCH * PROMPT + 4096,
+        seed=SEED + 40), BATCH, PROMPT, seed=SEED)
+    return [data.batch_at(i) for i in range(MESH_MOE_STEPS)]
+
+
+def all_routing(torch, forced=None):
+    """A context that keeps every ``moe.route`` call's ``gate_idx`` in the
+    list it yields (one a MoE layer of a forward, on the host); with
+    ``forced`` (such a list) call i takes forced[i]'s experts instead of
+    its own top k — its gate values its own float32 probabilities at them,
+    renormalized as ``route`` does —, so two runs share one routing."""
+    from repro_torch.models import moe
+
+    @contextlib.contextmanager
+    def scope():
+        got, orig = [], moe.route
+
+        def route(xt, w, k):
+            idx, vals, probs = orig(xt, w, k)
+            if forced is not None:
+                idx = forced[len(got)].to(idx.device)
+                vals = probs.gather(1, idx)
+                vals = vals / vals.sum(-1, keepdim=True).clamp_min(1e-9)
+            got.append(idx.detach().cpu())
+            return idx, vals, probs
+        moe.route = route
+        try:
+            yield got
+        finally:
+            moe.route = orig
+    return scope()
+
+
+def routing_flips(got, want) -> list:
+    """Each layer's router assignments that differ between two runs'
+    ``all_routing`` records."""
+    return [int((a != b).sum()) for a, b in zip(got, want)]
+
+
+def plane_shard(torch, local, cfg):
+    """A rank's nibble shard with its codes repacked into 4 bit-planes by
+    the port's own ``unpack_codes`` / ``pack_codes_planes`` (an expert
+    stack's planes per expert, (E, bits, N, K/32)): the same codes, no
+    second quantization.  Returns (the plane config, its API, the
+    shard)."""
+    import copy
+    import dataclasses
+    from repro_torch.core.quant import pack_codes_planes, unpack_codes
+    from repro_torch.models import registry
+    from repro_torch.models.linear import Linear
+    cfg_p = cfg.replace(quant=dataclasses.replace(cfg.quant, layout="plane"))
+    spec = cfg_p.quant.spec()
+    out = copy.deepcopy(local)
+    with torch.no_grad():
+        for mod in out.modules():
+            if isinstance(mod, Linear) and mod.quantized:
+                planes = pack_codes_planes(unpack_codes(mod.qw), spec.bits)
+                if mod.n_experts is not None:
+                    planes = planes.transpose(0, 1).contiguous()
+                mod.set_quantized(planes, mod.scale.detach(),
+                                  mod.zero.detach(), spec)
+    return cfg_p, registry.build(cfg_p), out
+
+
+def codes_sum(torch, model) -> int:
+    """A checksum of the model's frozen codes (their int64 sum)."""
+    return int(sum(b.to(torch.int64).sum() for n, b in
+                   model.named_buffers() if n.endswith(".qw")))
+
+
+def mesh_moe_run(torch, ctx, rank: int, whole, cfg, prompt, batches,
+                 routes, check: bool, planes: bool, serve: bool) -> dict:
+    """One rank's part of phase mesh_moe for one MoE model on ``ctx``: its
+    shard cut from ``whole`` (on the host for a spawned rank) and moved to
+    its card; ``generate`` under logitshard (its launches counted) and
+    without; with ``planes`` the same shard on 4 bit-planes; with
+    ``serve`` the drain serving of phase moe's requests (a task swap
+    among them); then
+    MESH_MOE_STEPS PEQA steps from the shard of the model's own scales
+    (step 1's collectives and layer 0's routing recorded).  ``check``:
+    every new call shape held to plain (``CheckedQuantMatmul``, rank 0).
+    ``routes``: the unsharded prefill's routing of each data block's rows
+    (``all_routing``), which a second prefill here is forced to take."""
+    from repro_torch.configs.base import OptimConfig, TrainConfig
+    from repro_torch.core import policies
+    from repro_torch.core.scale_bank import swap_collectives
+    from repro_torch.dist import backend, context, sharding
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.optim.adamw import make_optimizer
+    from repro_torch.serve import ServeConfig
+    from repro_torch.train import step
+    from repro_torch.train.serve import Engine
+    from repro_torch.train.state import make_state
+
+    shape = (ctx.data_size, ctx.model_size)
+    label = f"mesh_moe {cfg.name} {shape} rank {rank}"
+    dev = ctx.device
+    stages, t_stage = {}, [time.perf_counter()]
+
+    def stage(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        stages[name] = now - t_stage[0]
+        t_stage[0] = now
+
+    def checked(what):
+        return CheckedQuantMatmul(ops, f"{label} {what}", shapes=True) \
+            if check else contextlib.nullcontext()
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        for k in ops.KERNELS:
+            k.launches = 0
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        return got, time.perf_counter() - t0, {
+            k.__name__: k.launches for k in ops.KERNELS if k.launches}
+
+    api = registry.build(cfg)
+    bank = task_bank(whole, MOE_TASKS, SEED + 20)
+    local = sharding.shard_model(whole, cfg, ctx).to(dev)
+    del whole
+    torch.cuda.empty_cache()
+    stage("cut")
+    out = {"rank": rank, "coords": (ctx.data_rank, ctx.model_rank),
+           "summary": backend.summary(), "stages": stages,
+           "local_gb": sum(t.numel() * t.element_size() for t in (
+               *local.parameters(), *local.buffers())) / 1e9}
+    codes0 = codes_sum(torch, local)
+    shapes = []
+    engine = Engine(api, local, bank=bank, ctx=ctx, logitshard=True)
+    with checked("generate") as chk:
+        engine.generate(prompt, 2)                 # warm-up, not counted
+    if chk is not None:
+        shapes += list(chk.rows.values())
+    torch.cuda.reset_peak_memory_stats(dev)
+    toks, gen_s, launches = counted(lambda: engine.generate(prompt, NEW))
+    out["generate_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    with all_routing(torch) as free:
+        t0 = time.perf_counter()
+        logits = engine.prefill_logits(prompt)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+    mine = routes[ctx.data_size][ctx.data_rank] \
+        if ctx.batch_axes(BATCH) else routes[1][0]
+    with all_routing(torch, forced=mine):
+        forced = engine.prefill_logits(prompt)
+    base = Engine(api, local, bank=bank, ctx=ctx, logitshard=False)
+    toks_base = base.generate(prompt, NEW)
+    if not torch.equal(toks, toks_base):
+        fail(f"{label}: generate's tokens differ with and without "
+             f"logitshard")
+    cache = PROMPT + NEW
+    rec_ls = engine.decode_collectives(BATCH, cache)
+    rec_base = base.decode_collectives(BATCH, cache)
+    out.update(tokens=toks.cpu(), launches=launches,
+               logits=logits.float().cpu() if rank == 0 else None,
+               forced_logits=forced.float().cpu() if rank == 0 else None,
+               prefill_flips=routing_flips(free, mine),
+               generate_s=gen_s, prefill_ms=prefill_s * 1e3,
+               decode_ms_per_step=(gen_s - prefill_s) * 1e3 / (NEW - 1),
+               decode_collectives=context.collective_stats(rec_ls),
+               decode_collectives_no_logitshard=context.collective_stats(
+                   rec_base),
+               vocab_gathers=context.allgather_extent_count(
+                   rec_ls, cfg.vocab_size),
+               vocab_gathers_no_logitshard=context.allgather_extent_count(
+                   rec_base, cfg.vocab_size))
+    del base
+    stage("generate")
+    if planes:
+        cfg_p, api_p, local_p = plane_shard(torch, local, cfg)
+        p_engine = Engine(api_p, local_p, ctx=ctx, logitshard=True)
+        with checked("planes") as chk:
+            p_engine.generate(prompt, 2)
+        if chk is not None:
+            shapes += list(chk.rows.values())
+        p_toks, p_s, p_launches = counted(
+            lambda: p_engine.generate(prompt, MESH_MOE_PLANE_NEW))
+        with all_routing(torch, forced=mine):          # every rank: gathers
+            p_logits = p_engine.prefill_logits(prompt)
+        out["planes"] = {
+            "tokens": p_toks.cpu(), "launches": p_launches,
+            "generate_s": p_s,
+            "logits": p_logits.float().cpu() if rank == 0 else None}
+        del p_engine, local_p
+        torch.cuda.empty_cache()
+        stage("planes")
+    swap = swap_collectives(local, bank.tasks["t1"], ctx)
+    bank.switch(local, "t0", ctx=ctx)
+    out.update(swap_collectives=len(swap),
+               swap_local_bytes=bank.local_nbytes("t1", ctx),
+               swap_bytes=bank.nbytes("t1"))
+    if serve:
+        reqs = moe_requests(cfg, SEED + 21)
+        with checked("serve") as chk:
+            t0 = time.perf_counter()
+            rep = engine.serve(reqs, ServeConfig(n_slots=MOE_SLOTS,
+                                                 scheduler="drain"))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if chk is not None:
+            shapes += list(chk.rows.values())
+        if any(t is None or len(t) != r.n_new
+               for r, t in zip(reqs, rep.tokens)):
+            fail(f"{label}: a request was not served its budget")
+        out["serve"] = {"requests": len(reqs), "wall_s": wall,
+                        "steps": rep.steps, "decoded": rep.decoded,
+                        "switches": rep.switches, "tokens": rep.tokens}
+        engine.switch_task("t0")            # the model's own scales back
+        stage("serve")
+    del engine
+
+    # training: the shard of a fresh PEQA state over the model's own scales
+    tcfg = TrainConfig(optim=OptimConfig())
+    mask = policies.make_mask(local, cfg)
+    opt = make_optimizer(tcfg.optim, tcfg.steps)
+    state = make_state(local, opt.init(dict(local.named_parameters()), mask))
+    ts = step.build_train_step(api, cfg, tcfg, mask, opt, mesh=ctx)
+    out["want"] = step.mesh_collectives(local, cfg, mask)
+    hist, ms, records, train_launches = [], [], [], []
+    torch.cuda.reset_peak_memory_stats(dev)
+    for i, b in enumerate(batches):
+        for k in ops.KERNELS:
+            k.launches = 0
+        with (checked("step 1") if i == 0 else contextlib.nullcontext()
+              ) as chk, ctx.recording() as rec, \
+                (all_routing(torch) if i == 0
+                 else contextlib.nullcontext()) as routing:
+            t0 = time.perf_counter()
+            state, m = ts(state, b)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        if chk is not None:
+            shapes += list(chk.rows.values())
+        if i == 0:                          # layer 0's, in the forward
+            out["gate_idx"] = routing[0]
+        hist.append({k: float(v) for k, v in m.items()})
+        records.append(rec)
+        train_launches.append({k.__name__: k.launches for k in ops.KERNELS
+                               if k.launches})
+    # each call shape once, as the first part that met it checked it
+    dims = ("kernel", "E", "C", "M", "N", "K", "G", "planes", "B", "Sq",
+            "Sk", "Hq", "Hkv")
+    seen = {}
+    for sh in shapes:
+        seen.setdefault(tuple(sh.get(k) for k in dims), sh)
+    shapes = list(seen.values())
+    out.update(hist=hist, step_ms=ms,
+               train_peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               collectives=[collectives_by_axis(r) for r in records],
+               kinds=sorted({e["kind"] for r in records for e in r}),
+               train_vocab_gathers=sum(context.allgather_extent_count(
+                   r, cfg.vocab_size) for r in records),
+               train_launches=train_launches,
+               codes_frozen=codes_sum(torch, local) == codes0,
+               shapes=shapes)
+    stage("train")
+    del state, local
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_moe_rank(rank: int, shape: tuple, tmp: str, prompt, shared) -> None:
+    """One spawned rank of phase mesh_moe: for each model of ``shared``
+    ({name: (the parent's whole state dict, its unsharded routing)}) the
+    whole model around the parent's own tensors — on the card, passed by
+    ``torch.multiprocessing`` as CUDA IPC handles: nothing is copied but
+    the rank's shard —, then ``mesh_moe_run``; the results go to ``tmp``.
+    A failed gate exits non-zero."""
+    import torch
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.launch import mesh as mesh_mod
+    ctx = mesh_mod.make_debug_mesh(*shape)       # on the rank's own card
+    for name, (state, routes) in shared.items():
+        t0 = time.perf_counter()
+        cfg = mesh_moe_cfg(name)
+        whole = model_from_state(torch, cfg, state)
+        load_s = time.perf_counter() - t0
+        out = mesh_moe_run(
+            torch, ctx, rank, whole, cfg, prompt, mesh_moe_batches(cfg),
+            routes, check=rank == 0,
+            planes=shape == MESH_MOE_PLANES and name in MESH_MOE_SERVE,
+            serve=name in MESH_MOE_SERVE)
+        out["stages"]["load"] = load_s
+        del whole, state
+        torch.save(out, rank_file(tmp, shape, rank, f"{name}_"))
+        del out
+        torch.cuda.empty_cache()
+    # the last references to the parent's tensors: their IPC blocks return
+    # to it now, not when this process exits
+    shared.clear()
+
+
+def mesh_moe_routes(torch, api, model, prompt) -> list:
+    """The unsharded prefill's routing (``all_routing``) of each data
+    block's rows, by the data axis' size: {1: [the whole batch's], 2:
+    [the first half's, the second half's]} — what a mesh rank's prefill
+    is forced to take."""
+    from repro_torch.train.serve import Engine
+    eng, half = Engine(api, model), BATCH // 2
+    out = []
+    for rows in (slice(0, BATCH), slice(0, half), slice(half, BATCH)):
+        with all_routing(torch) as got:
+            eng.prefill_logits(prompt[rows])
+        out.append(got)
+    return {1: out[:1], 2: out[1:]}
+
+
+def mesh_moe_unsharded(torch, api, model, cfg, prompt, batches) -> dict:
+    """The unsharded runs each mesh is held to, on the whole ``model``
+    (its scales trained by the last part): ``generate``'s tokens, launches
+    and time, the prefill logits — whole and of each data block's rows —,
+    then MESH_MOE_STEPS PEQA steps (metrics, ms, peak, layer 0's routing
+    at step 1) after step 1's loss and gradient norm over the two data
+    blocks of the first batch (the mean of their losses, the norm of
+    their mean gradient)."""
+    from repro_torch.configs.base import OptimConfig, TrainConfig
+    from repro_torch.core import policies
+    from repro_torch.kernels import ops
+    from repro_torch.optim.adamw import make_optimizer
+    from repro_torch.train import step
+    from repro_torch.train.serve import Engine
+    from repro_torch.train.state import make_state
+    out = {}
+    eng = Engine(api, model)
+    eng.generate(prompt, 2)
+    torch.cuda.synchronize()
+    for k in ops.KERNELS:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    toks = eng.generate(prompt, NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    out["launches"] = {k.__name__: k.launches for k in ops.KERNELS
+                       if k.launches}
+    out["generate_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    out["logits"] = eng.prefill_logits(prompt).float().cpu()
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    half = BATCH // 2
+    out["logits_blocks"] = torch.cat([
+        eng.prefill_logits(prompt[:half]).float().cpu(),
+        eng.prefill_logits(prompt[half:]).float().cpu()])
+    out.update(tokens=toks.cpu(), generate_s=gen_s,
+               prefill_ms=prefill_s * 1e3,
+               decode_ms_per_step=(gen_s - prefill_s) * 1e3 / (NEW - 1))
+    del eng
+    mask = policies.make_mask(model, cfg)
+    params = dict(model.named_parameters())
+    for p in params.values():
+        p.grad = None
+    losses = []
+    for rows in (slice(0, half), slice(half, BATCH)):
+        loss = api.loss_fn(model, step.to_device(
+            {k: v[rows] for k, v in batches[0].items()}, api.device))
+        (loss / 2).backward()
+        losses.append(float(loss.detach()))
+    out["blocks_step1"] = {"loss": sum(losses) / 2, "grad_norm": math.sqrt(
+        sum(float((p.grad.float() ** 2).sum()) for n, p in params.items()
+            if mask[n] and p.grad is not None))}
+    for p in params.values():
+        p.grad = None
+    tcfg = TrainConfig(optim=OptimConfig())
+    opt = make_optimizer(tcfg.optim, tcfg.steps)
+    state = make_state(model, opt.init(params, mask))
+    ts = step.build_train_step(api, cfg, tcfg, mask, opt)
+    hist, ms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i, b in enumerate(batches):
+        with (all_routing(torch) if i == 0
+              else contextlib.nullcontext()) as routing:
+            t0 = time.perf_counter()
+            state, m = ts(state, b)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            out["gate_idx"] = routing[0]
+        hist.append({k: float(v) for k, v in m.items()})
+    out.update(hist=hist, step_ms=ms,
+               train_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return out
+
+
+def mesh_moe_gate(torch, name, cfg, shape, ranks, ref, wall) -> dict:
+    """Phase mesh_moe's gates on one model's rank results on one mesh;
+    returns its row."""
+    label = f"mesh_moe {name} {shape}"
+    r0 = ranks[0]
+    expect = "nccl" if shape == (1, 1) else "gloo"
+    placed = {(r["summary"]["backend"], r["summary"]["device"])
+              for r in ranks}
+    if placed != {(expect, "cuda:0")}:
+        fail(f"{label}: ranks ran over (backend, device) {placed}, "
+             f"expected {expect} on cuda:0")
+    for r in ranks:
+        if not torch.equal(r["tokens"], r0["tokens"]):
+            fail(f"{label}: rank {r['rank']}'s tokens differ from rank 0's")
+        if r["launches"] != ref["launches"]:
+            fail(f"{label}: rank {r['rank']} launched {r['launches']}, the "
+                 f"unsharded generate {ref['launches']}")
+        if r["swap_collectives"]:
+            fail(f"{label}: a task swap made a collective")
+        if r["vocab_gathers"] != 0 or r["vocab_gathers_no_logitshard"] < 1:
+            fail(f"{label}: vocab-extent gathers {r['vocab_gathers']} under "
+                 f"logitshard (want 0), {r['vocab_gathers_no_logitshard']} "
+                 f"without (want >= 1)")
+        if r["hist"] != r0["hist"]:
+            fail(f"{label}: rank {r['rank']}'s metrics differ from rank 0's")
+        if r["kinds"] != ["all_reduce"] or r["train_vocab_gathers"]:
+            fail(f"{label}: a step's collectives {r['kinds']}, "
+                 f"{r['train_vocab_gathers']} vocab-extent gathers (want "
+                 f"all-reduces only, none)")
+        for c in r["collectives"]:
+            got = {axis: s["count"] for axis, s in c.items()}
+            if got != r["want"]:
+                fail(f"{label}: rank {r['rank']} issued {got} all-reduces a "
+                     f"step, the formula {r['want']}")
+        if not r["codes_frozen"]:
+            fail(f"{label}: rank {r['rank']}'s frozen codes changed")
+        if "serve" in r and r["serve"]["tokens"] != r0["serve"]["tokens"]:
+            fail(f"{label}: rank {r['rank']} served other tokens")
+        twin = next(q for q in ranks if q["coords"] == (r["coords"][0], 0))
+        if not torch.equal(r["gate_idx"], twin["gate_idx"]):
+            fail(f"{label}: layer 0's routing at step 1 differs between "
+                 f"model ranks")
+    logits, forced = r0["logits"], r0["forced_logits"]
+    want = ref["logits"] if shape[0] == 1 else ref["logits_blocks"]
+    if not (torch.isfinite(logits).all() and torch.isfinite(forced).all()):
+        fail(f"{label}: non-finite prefill logits")
+    diff = (logits - want).abs().max().item()
+    forced_diff = (forced - want).abs().max().item()
+    scale = want.abs().max().item()
+    if shape == (1, 1):
+        if diff != 0.0 or forced_diff != 0.0 or \
+                not torch.equal(r0["tokens"], ref["tokens"]) or \
+                any(r0["prefill_flips"]):
+            fail(f"{label}: the mesh path is not bit-equal to the unsharded "
+                 f"engine (logits differ by {diff:.3e})")
+    elif forced_diff > MESH_LOGIT_TOL * scale:
+        # free routing is held by the flips it reports: a bf16 hidden
+        # state a last bit off may take another expert from a near tie
+        fail(f"{label}: prefill logits under the unsharded run's routing "
+             f"differ from the unsharded engine's by {forced_diff:.3e} > "
+             f"{MESH_LOGIT_TOL * scale:.3e}")
+    step1 = ref["hist"][0] if shape[0] == 1 else ref["blocks_step1"]
+    for k, rtol in (("loss", MESH_TRAIN_LOSS_RTOL),
+                    ("grad_norm", MESH_TRAIN_GNORM_RTOL)):
+        got = r0["hist"][0][k]
+        if not math.isfinite(got) or abs(got - step1[k]) > rtol * abs(
+                step1[k]):
+            fail(f"{label}: step 1 {k} {got!r} against the unsharded "
+                 f"{step1[k]!r} (rtol {rtol})")
+    row = {"world": len(ranks), "backend": expect, "wall_s": wall,
+           "logits_max_abs_diff": diff, "logits_max_abs": scale,
+           "forced_routing_logits_max_abs_diff": forced_diff,
+           "prefill_routing_flips": r0["prefill_flips"],
+           "prefill_assignments_a_layer": int(r0["gate_idx"].numel()),
+           "tokens_equal_share_vs_unsharded": (
+               r0["tokens"][:, PROMPT:] == ref["tokens"][:, PROMPT:]
+           ).float().mean().item(),
+           "launches_a_rank": r0["launches"],
+           "decode_ms_per_step": [r["decode_ms_per_step"] for r in ranks],
+           "unsharded_decode_ms_per_step": ref["decode_ms_per_step"],
+           "prefill_ms": [r["prefill_ms"] for r in ranks],
+           "unsharded_prefill_ms": ref["prefill_ms"],
+           "generate_peak_gb": [r["generate_peak_gb"] for r in ranks],
+           "unsharded_generate_peak_gb": ref["generate_peak_gb"],
+           "local_gb": [r["local_gb"] for r in ranks],
+           "decode_collectives": r0["decode_collectives"],
+           "vocab_gathers_no_logitshard": r0["vocab_gathers_no_logitshard"],
+           "swap_collectives": r0["swap_collectives"],
+           "swap_local_bytes": r0["swap_local_bytes"],
+           "swap_bytes": r0["swap_bytes"],
+           "hist": r0["hist"], "unsharded_hist": ref["hist"],
+           "step1_reference": step1,
+           "step_ms": [r["step_ms"] for r in ranks],
+           "unsharded_step_ms": ref["step_ms"],
+           "train_peak_gb": [r["train_peak_gb"] for r in ranks],
+           "unsharded_train_peak_gb": ref["train_peak_gb"],
+           "train_launches_a_step": r0["train_launches"][-1],
+           "collectives_a_step": r0["collectives"][-1],
+           "formula": r0["want"],
+           "stages_s": [r["stages"] for r in ranks]}
+    if shape[0] == 1:
+        row["routing_differs_vs_unsharded"] = int(
+            (r0["gate_idx"] != ref["gate_idx"]).sum())
+    if "serve" in r0:
+        row["serve"] = {k: v for k, v in r0["serve"].items()
+                        if k != "tokens"}
+        if row["serve"]["switches"] < 1:
+            fail(f"{label}: drain serving made no task swap")
+    if "planes" in r0:
+        p = r0["planes"]
+        # the nibble run's launches in plane form: the prefill's as they
+        # are, the decode kernels' (K1, K1 × E, K4) for fewer steps
+        decode = ("quant_gemv", "quant_gemv_experts", "flash_attention")
+        pl = {kname(k, k != "flash_attention"):
+              v * (MESH_MOE_PLANE_NEW - 1) // (NEW - 1) if k in decode
+              else v for k, v in r0["launches"].items()}
+        for r in ranks:
+            if r["planes"]["launches"] != pl:
+                fail(f"{label}: the plane shard launched "
+                     f"{r['planes']['launches']}, expected {pl}")
+            if not torch.equal(r["planes"]["tokens"], p["tokens"]):
+                fail(f"{label}: rank {r['rank']}'s plane tokens differ")
+        pdiff = (p["logits"] - want).abs().max().item()
+        if not torch.isfinite(p["logits"]).all() or \
+                pdiff > MESH_LOGIT_TOL * scale:
+            fail(f"{label}: the plane shard's prefill logits under the "
+                 f"unsharded run's routing differ from the unsharded "
+                 f"nibble engine's by {pdiff:.3e}")
+        row["planes"] = {"launches": p["launches"],
+                         "generate_s": p["generate_s"],
+                         "logits_max_abs_diff": pdiff,
+                         "tokens_equal_share_vs_nibble": (
+                             p["tokens"] == r0["tokens"][:, :p["tokens"]
+                                                         .shape[1]])
+                         .float().mean().item()}
+    if r0["shapes"]:
+        row["shapes"] = r0["shapes"]
+        kinds = {s["kernel"] for s in r0["shapes"]}
+        need = {"quant_gemv", "quant_matmul", "quant_gemv_experts",
+                "quant_matmul_experts"}
+        if "planes" in r0:
+            need |= {kname(k, True) for k in need}
+        if not need <= kinds:
+            fail(f"{label}: shard shapes checked for {sorted(kinds)}, "
+                 f"expected at least {sorted(need)}")
+    emit({"phase": "mesh_moe_row", "model": name,
+          "mesh": f"{shape[0]}x{shape[1]}",
+          **{k: row[k] for k in ("backend", "logits_max_abs_diff",
+                                 "forced_routing_logits_max_abs_diff",
+                                 "prefill_routing_flips",
+                                 "decode_ms_per_step",
+                                 "unsharded_decode_ms_per_step", "step_ms",
+                                 "unsharded_step_ms", "train_peak_gb",
+                                 "unsharded_train_peak_gb",
+                                 "collectives_a_step", "formula")},
+          **({"routing_differs_vs_unsharded":
+              row["routing_differs_vs_unsharded"]} if shape[0] == 1
+             else {})})
+    return row
+
+
+def phase_mesh_moe(torch) -> dict:
+    """MoE expert parallelism on (data, model) meshes (module docstring,
+    phase mesh_moe): each MESH_MOE model built once at full width, then
+    served and PEQA-trained by every rank of each of its meshes from its
+    shard — (1, 1) over NCCL in this process, the others spawned on cuda:0
+    under gloo at the same time (``spawn_meshes``), reading this process'
+    whole model over CUDA IPC and copying only their shard —, and held to
+    the unsharded runs on the same model (made last: the steps train
+    it)."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import backend
+    from repro_torch.launch import mesh as mesh_mod
+
+    gen = torch.Generator().manual_seed(SEED + 41)
+    res = {"phase": "mesh_moe", "batch": BATCH, "prompt": PROMPT,
+           "new_tokens": NEW, "steps": MESH_MOE_STEPS,
+           "logit_tolerance_share": MESH_LOGIT_TOL, "models": {}}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_moe_")
+    built, ranks = {}, {}
+    try:
+        # one prompt for both models: tokens of the smaller vocabulary
+        prompt = torch.randint(0, min(mesh_moe_cfg(n).vocab_size
+                                      for n in MESH_MOE), (BATCH, PROMPT),
+                               generator=gen)
+        for name in MESH_MOE:
+            t0 = time.perf_counter()
+            cfg, api, model, _, figs = dense_build(
+                torch, name, remat="block", n_layers=MESH_MOE[name][1])
+            built[name] = {"cfg": cfg, "api": api, "model": model,
+                           "figs": figs,
+                           "routes": mesh_moe_routes(torch, api, model,
+                                                     prompt),
+                           "build_s": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        backend.init(0, 1, "cuda", backend.free_port())
+        try:
+            ctx = mesh_mod.make_debug_mesh(1, 1)
+            for name, b in built.items():
+                ranks[(name, (1, 1))] = ([mesh_moe_run(
+                    torch, ctx, 0, b["model"], b["cfg"], prompt,
+                    mesh_moe_batches(b["cfg"]), b["routes"], check=False,
+                    planes=False,
+                    serve=name in MESH_MOE_SERVE)],
+                    time.perf_counter() - t0)
+                t0 = time.perf_counter()
+        finally:
+            dist.destroy_process_group()
+        torch.cuda.empty_cache()
+        shapes = sorted({s for meshes, _ in MESH_MOE.values()
+                         for s in meshes} - {(1, 1)})
+        names = {shape: [n for n, (meshes, _) in MESH_MOE.items()
+                         if shape in meshes] for shape in shapes}
+        # the ranks read the parent's whole models over CUDA IPC
+        walls = spawn_meshes(mesh_moe_rank, [(shape, (tmp, prompt, {
+            n: (built[n]["model"].state_dict(), built[n]["routes"])
+            for n in names[shape]})) for shape in shapes])
+        torch.cuda.ipc_collect()
+        for shape in shapes:
+            for name in names[shape]:
+                ranks[(name, shape)] = ([torch.load(
+                    rank_file(tmp, shape, r, f"{name}_"), weights_only=False)
+                    for r in range(shape[0] * shape[1])], walls[shape])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name, b in built.items():
+        t0 = time.perf_counter()
+        ref = mesh_moe_unsharded(torch, b["api"], b["model"], b["cfg"],
+                                 prompt, mesh_moe_batches(b["cfg"]))
+        row = {"layers": b["cfg"].n_layers, "experts": b["cfg"].moe.n_experts,
+               "expert_sharding": b["cfg"].moe.expert_sharding,
+               "model_gb": b["figs"]["model_gb"],
+               "build_s": b["figs"]["build_s"],
+               "build_and_routing_s": b["build_s"],
+               "unsharded_s": time.perf_counter() - t0, "meshes": {}}
+        for shape in MESH_MOE[name][0]:
+            rs, wall = ranks[(name, shape)]
+            row["meshes"][f"{shape[0]}x{shape[1]}"] = mesh_moe_gate(
+                torch, name, b["cfg"], shape, rs, ref, wall)
+        res["models"][name] = row
+        del b["model"], ref
+        torch.cuda.empty_cache()
+    emit(res)
+    return res
+
+
 def run_cli(label: str, argv, timeout: float) -> dict:
     """Run ``python -m <argv>`` from the checkout with the port on the path;
     returns its exit code, its output lines, each line's arrival second
@@ -7131,14 +7948,21 @@ def main() -> None:
     dense = run("dense_archs", phase_dense_archs, torch)
     vlm = run("vlm", phase_vlm, torch)
     moe = run("moe", phase_moe, torch)
+    mesh_moe = run("mesh_moe", phase_mesh_moe, torch)
     encdec = run("encdec", phase_encdec, torch)
     ssm = run("ssm", phase_ssm, torch)
     hybrid = run("hybrid", phase_hybrid, torch)
     arms = run("arms", phase_arms, torch, prompt, peqa, full)
     del prompt, peqa, full
     torch.cuda.empty_cache()
-    launch = run("launch", phase_launch, torch)
-    examples = run("examples", phase_examples, torch)
+    # phase launch's CLIs are processes of their own: they run while this
+    # process runs phase examples (each one's walls include the other's
+    # load), the time limit's cut
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(1) as pool:
+        launching = pool.submit(run, "launch", phase_launch, torch)
+        examples = run("examples", phase_examples, torch)
+        launch = launching.result()
     if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
                                    for m in sys.modules):
         fail("the port loaded JAX or the JAX package")
@@ -7225,6 +8049,25 @@ def main() -> None:
     family_launches = {f"{fam}_launches": r["generate"]["launches"]
                        for fam, r in (("encdec", encdec), ("ssm", ssm),
                                       ("hybrid", hybrid))}
+    # phase mesh_moe's path: deepseek-moe-16b's generate at (1, 2) on rank
+    # 0 (nibble, and its plane shard), counts set to 0 just before; every
+    # shard shape its ranks held to plain, as [E or M, C, N, K, err, ms,
+    # plain ms, bound ms, torch.bmm ms] (the dense kernels' without E and
+    # the library; K4's as B, Sq, Sk, Hq, Hkv)
+    moe_12 = mesh_moe["models"]["deepseek-moe-16b"]["meshes"]["1x2"]
+    mesh_moe_launches = dict(moe_12["launches_a_rank"],
+                             **moe_12["planes"]["launches"])
+    mesh_moe_shapes = {}
+    for m in mesh_moe["models"].values():
+        for row in m["meshes"].values():
+            for sh in row.get("shapes", ()):
+                dims = ("E", "C", "N", "K") if "E" in sh else \
+                    ("M", "N", "K") if "M" in sh else \
+                    ("B", "Sq", "Sk", "Hq", "Hkv")
+                mesh_moe_shapes.setdefault(sh["kernel"], []).append(
+                    [*(sh[d] for d in dims), sh["max_abs_err"], sh["ms"],
+                     sh["plain_ms"], sh["bound_ms"],
+                     *((sh["library_ms"],) if "library_ms" in sh else ())])
     kernels = []
     for name in (k.__name__ for k in ops.KERNELS):
         st = times[name]
@@ -7243,7 +8086,11 @@ def main() -> None:
                else {}),
             **{key: got[name] for key, got in family_launches.items()
                if name in got},
-            "harness_launches": harness["launches"][name]})
+            "harness_launches": harness["launches"][name],
+            **({"mesh_moe_launches": mesh_moe_launches[name]}
+               if name in mesh_moe_launches else {}),
+            **({"mesh_moe_shapes": mesh_moe_shapes[name]}
+               if name in mesh_moe_shapes else {})})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "phase_seconds": seconds,
           "k4_7b_prefill_us": {m: r["us"] for m, r in attn_7b.items()},
@@ -7307,6 +8154,13 @@ def main() -> None:
           "mesh_train": {name: {k: m[k] for k in (
               "backend", "step_ms", "peak_gb", "collectives_a_step",
               "formula")} for name, m in mesh_train["meshes"].items()},
+          "mesh_moe": {model: {name: {k: m[k] for k in (
+              "backend", "decode_ms_per_step",
+              "unsharded_decode_ms_per_step", "step_ms", "unsharded_step_ms",
+              "train_peak_gb", "unsharded_train_peak_gb",
+              "collectives_a_step", "formula", "logits_max_abs_diff")}
+              for name, m in r["meshes"].items()}
+              for model, r in mesh_moe["models"].items()},
           "launch": {k: launch[k] for k in (
               "train", "train_resumed", "serve_continuous",
               "serve_speculative", "serve_family_smoke")},

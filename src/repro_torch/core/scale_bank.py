@@ -17,7 +17,8 @@ row install likewise writes into the stack in place.
 On a ``(data, model)`` mesh (``ctx``, ``dist/context.py``) the bank keeps
 the whole host sets, and a swap or a row install cuts each rank's block
 from them (``dist/sharding.py::local_scales``: column-parallel rows
-sliced, row-parallel scales whole) and copies only that into the rank's
+sliced, row-parallel scales whole, an ``experts_ep`` stack's scales
+narrowed to the rank's experts) and copies only that into the rank's
 shard: no collective.  ``swap_collectives`` and
 ``ResidentStack.install_collectives`` return the collective record of one
 swap or install — the reference's ``swap_hlo`` / ``install_hlo`` scans —,

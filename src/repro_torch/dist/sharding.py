@@ -18,6 +18,15 @@ and the reference's layer-stacked leaf.
     ``scale``/``zero`` (out, G) stay whole, and their outputs are partial
     sums that ``models/linear.py`` all-reduces over the model axis.
   * Embeddings and the untied head shard the vocab; norms replicate.
+  * An MoE block's router replicates.  Its expert stacks shard as the
+    config's ``expert_sharding`` says: ``experts_ep`` ("expert") on the
+    expert dim E of every leaf — each rank holds E/M whole experts, a
+    bit-plane ``qw`` (E, bits, N, K/32) with all its planes —, ``experts``
+    ("tensor") on each expert's d_ff: up/gate column-parallel, down
+    row-parallel, by the rules above.  The shared experts are a dense
+    Megatron MLP.  Unlike the reference's rule, which puts a plane
+    stack's model axis on its bits dim, the port's places it on E
+    (``spec_for_path(..., planes=True)``).
 
 The reference hands these specs to GSPMD.  The port cuts each rank's
 local module from the whole quantized model (``shard_model``): the shard
@@ -33,13 +42,19 @@ gradient on a rank is the partial sum over its input columns — and
 ``"replicated"`` — equal on every model rank (norm gains, row-parallel
 biases).  The train step sums the partial ones over the model axis, the
 gradient norm and the int8 codec reduce over the sharded ones; the
-optimizer moments take their parameter's block (``moment_specs``).
+optimizer moments take their parameter's block (``moment_specs``).  The
+router's gradient is partial too: the combine's gate term covers only the
+rank's experts (or d_ff slice), and the MoE block lets its aux term in at
+1/M a model rank (``models/moe.py``), so one model-axis sum gives the
+whole gradient.
 
 ``shard_problems`` refuses what this slice does not shard, with a reason:
 a head, KV-head, d_ff or vocab count the model axis does not divide (the
 reference's head-dim fallback of ``cache_specs`` and MQA wait for a later
-slice), and a local input extent that breaks a kernel's operand layout
-(the nibble word ``K % 8``, the plane word ``K % 32``, whole groups).
+slice), an expert count ("expert") or an expert's or the shared experts'
+d_ff ("tensor", shared) it does not divide, and a local input extent that
+breaks a kernel's operand layout (the nibble word ``K % 8``, the plane
+word ``K % 32``, whole groups).
 """
 from __future__ import annotations
 
@@ -77,9 +92,12 @@ def _is_norm(name: str) -> bool:
     return name.startswith("ln") or "norm" in name
 
 
-def spec_for_path(path: str, ndim: int) -> tuple:
+def spec_for_path(path: str, ndim: int, planes: bool = False) -> tuple:
     """The spec of the leaf at ``path`` (the reference's key path, with or
-    without its leading slash) with ``ndim`` dims."""
+    without its leading slash) with ``ndim`` dims; ``planes``: the leaf is
+    a bit-plane ``qw``, whose trailing dims are (bits, N, K/32) — which
+    its ndim alone cannot tell apart from a nibble stack with a layer dim
+    (``param_specs`` reads it from a module's linears)."""
     parts = [p for p in path.split("/") if p]
     leaf = parts[-1] if parts else ""
     parent = parts[-2] if len(parts) >= 2 else ""
@@ -88,8 +106,10 @@ def spec_for_path(path: str, ndim: int) -> tuple:
         return ()
     if "experts_ep" in parts:
         # expert-parallel: the expert dim of every leaf, just before the
-        # leaf's own trailing dims (1 for b/g, 2 for the rest)
-        trailing = 1 if leaf in ("b", "g") else 2
+        # leaf's own trailing dims (1 for b/g, 3 for a bit-plane qw, 2 for
+        # the rest)
+        trailing = 1 if leaf in ("b", "g") else \
+            3 if planes and leaf == "qw" else 2
         return _mk(ndim, ndim - trailing - 1)
     if leaf == "emb":                       # (vocab, d): vocab-sharded
         return _mk(ndim, ndim - 2)
@@ -117,13 +137,16 @@ SHARDED, PARTIAL, REPLICATED = "sharded", "partial", "replicated"
 def leaf_kind(path: str, ndim: int) -> str:
     """What a rank holds of the gradient of the leaf at ``path`` on the
     model axis: ``SHARDED`` (its block), ``PARTIAL`` (a row-parallel
-    scale or zero: a partial sum over its input columns) or
-    ``REPLICATED`` (the whole gradient, equal on every model rank)."""
+    scale or zero: a partial sum over its input columns; an MoE router's
+    weight: its experts' or d_ff slice's share) or ``REPLICATED`` (the
+    whole gradient, equal on every model rank)."""
     if MODEL_AXIS in spec_for_path(path, ndim):
         return SHARDED
     parts = [p for p in path.split("/") if p]
     if len(parts) >= 2 and parts[-1] in ("scale", "zero") \
             and parts[-2] in ROW_PARALLEL:
+        return PARTIAL
+    if "router" in parts:
         return PARTIAL
     return REPLICATED
 
@@ -146,22 +169,32 @@ def moment_specs(model: nn.Module, mv: Mapping) -> Dict[str, tuple]:
     return out
 
 
+def plane_codes(model: nn.Module) -> set:
+    """The names of ``model``'s bit-plane ``qw`` buffers."""
+    return {f"{name}.qw" if name else "qw"
+            for name, mod in model.named_modules()
+            if "qw" in mod._buffers and mod.spec.plane}
+
+
 def _leaves(tree) -> Iterable[tuple]:
-    """(reference path, tensor or array) of a module's parameters and
-    buffers, or of a flat {path: array} mapping."""
+    """(reference path, name, tensor or array, bit-plane codes?) of a
+    module's parameters and buffers, or of a flat {path: array}
+    mapping (nibble codes)."""
     if isinstance(tree, nn.Module):
+        planes = plane_codes(tree)
         for name, t in (*tree.named_parameters(), *tree.named_buffers()):
-            yield ref_path(name), name, t
+            yield ref_path(name), name, t, name in planes
         return
     for path, t in tree.items():
-        yield path, path, t
+        yield path, path, t, False
 
 
 def param_specs(tree) -> Dict[str, tuple]:
     """{name: spec} of every leaf of ``tree``: a module (keyed by its
-    tensor names) or a flat {path: array} mapping."""
-    return {name: spec_for_path(path, len(tuple(t.shape)))
-            for path, name, t in _leaves(tree)}
+    tensor names, each bit-plane ``qw`` known from its linear) or a flat
+    {path: array} mapping."""
+    return {name: spec_for_path(path, len(tuple(t.shape)), planes)
+            for path, name, t, planes in _leaves(tree)}
 
 
 def stacked_scale_specs(tree) -> dict:
@@ -232,9 +265,9 @@ def validate_for_mesh(tree, mesh) -> List[str]:
     ``mesh``: a ``MeshContext`` or a {axis: size} mapping."""
     sizes = dict(getattr(mesh, "axis_sizes", mesh))
     problems: List[str] = []
-    for path, _, leaf in _leaves(tree):
+    for path, _, leaf, planes in _leaves(tree):
         shape = tuple(leaf.shape)
-        for dim, ax in enumerate(spec_for_path(path, len(shape))):
+        for dim, ax in enumerate(spec_for_path(path, len(shape), planes)):
             if ax is None:
                 continue
             missing = [a for a in (ax if isinstance(ax, tuple) else (ax,))
@@ -258,22 +291,42 @@ def shard_problems(cfg: ModelConfig, model_size: int) -> List[str]:
     """Why ``cfg`` cannot be cut over a model axis of ``model_size`` in this
     slice (empty: it can)."""
     m = model_size
+    mc = cfg.moe
     out = []
-    for what, n in (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
-                    ("d_ff", cfg.d_ff), ("vocab_size", cfg.vocab_size)):
+    counts = [("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
+              ("vocab_size", cfg.vocab_size)]
+    # the input extents of the row-parallel linears, each cut over m
+    rows = [("wo", cfg.n_heads * cfg.d_head)]
+    if mc is None:
+        counts.append(("d_ff", cfg.d_ff))
+        rows.append(("down", cfg.d_ff))
+    else:
+        d_ff = mc.d_ff_expert or cfg.d_ff
+        if mc.expert_sharding == "expert":
+            counts.append(("n_experts", mc.n_experts))
+        else:
+            counts.append(("d_ff_expert", d_ff))
+            rows.append(("an expert's down", d_ff))
+        if mc.n_shared_experts:
+            counts.append(("the shared experts' d_ff",
+                           d_ff * mc.n_shared_experts))
+            rows.append(("the shared down", d_ff * mc.n_shared_experts))
+    for what, n in counts:
         if n % m:
             out.append(f"{what}={n} is not divisible by the model axis ({m})"
                        + (": the reference's head-dim fallback of "
                           "cache_specs (MQA, n_kv_heads=1) is not ported"
-                          if what == "n_kv_heads" else ""))
+                          if what == "n_kv_heads" else "")
+                       + (": expert parallelism gives each rank whole "
+                          "experts" if what == "n_experts" else ""))
     if out:
         return out
     spec = cfg.quant.spec()
     if cfg.tuning.mode not in ("peqa", "peqa_z"):
         return out
     word = PLANE_PACK if spec.plane else PACK
-    for name, k in (("wo", cfg.n_heads * cfg.d_head // m),
-                    ("down", cfg.d_ff // m)):
+    for name, whole in rows:
+        k = whole // m
         if k % word:
             out.append(f"{name}'s local input extent {k} is not a whole "
                        f"number of {word}-code words")
@@ -319,7 +372,8 @@ def local_shape(shape: Sequence[int], spec: Sequence, sizes: Mapping
 def local_scales(scales: Mapping[str, np.ndarray], ctx
                  ) -> Dict[str, np.ndarray]:
     """A host scale set (bank paths, layer-stacked) cut to this rank's
-    block: column-parallel rows sliced, row-parallel scales whole."""
+    block: column-parallel rows sliced, row-parallel scales whole, an
+    ``experts_ep`` stack's (L, E, N, G) scales narrowed to its experts."""
     out = {}
     for path, arr in scales.items():
         arr = np.asarray(arr)
@@ -338,16 +392,19 @@ def _new_param(t: torch.Tensor, like: torch.Tensor) -> nn.Parameter:
 
 
 def shard_model(model: nn.Module, cfg: ModelConfig, ctx) -> nn.Module:
-    """This rank's shard of the WHOLE ``model`` (a dense ``Transformer``):
-    a module with the same tensor names, each tensor its ``spec_for_path``
-    block (contiguous copies: the shard shares no storage with ``model``,
-    so a task swap on it leaves the whole model as it was).  Every linear
-    is marked ``tp = "col"`` or ``"row"`` (a row-parallel linear also
-    ``tp_reduce_bf16``, ``cfg.bf16_reduce``, and with G > 1 groups
-    ``tp_groups``, its block of them); the token table keeps
-    ``vocab_start``.  ``ctx`` needs only ``model_size`` and ``model_rank``
-    (``context.coords`` will do)."""
-    from repro_torch.models import linear, transformer
+    """This rank's shard of the WHOLE ``model`` (a dense or MoE
+    ``Transformer``): a module with the same tensor names, each tensor its
+    ``spec_for_path`` block (contiguous copies: the shard shares no
+    storage with ``model``, so a task swap on it leaves the whole model as
+    it was).  Every linear is marked ``tp``: ``"col"`` or ``"row"`` (a
+    row-parallel linear also ``tp_reduce_bf16``, ``cfg.bf16_reduce``, and
+    with G > 1 groups ``tp_groups``, its block of them; inside an MoE
+    block ``tp_partial``: the block reduces its routed and shared sums
+    together), ``"expert"`` for an ``experts_ep`` stack of E/M whole
+    experts, None for the router; each MoE block is marked ``mesh_shard``
+    as the model is; the token table keeps ``vocab_start``.  ``ctx`` needs
+    only ``model_size`` and ``model_rank`` (``context.coords`` will do)."""
+    from repro_torch.models import common, linear, transformer
     probs = shard_problems(cfg, ctx.model_size)
     if probs:
         raise NotImplementedError(f"{cfg.name}: cannot shard over a model "
@@ -355,6 +412,16 @@ def shard_model(model: nn.Module, cfg: ModelConfig, ctx) -> nn.Module:
                                   f"{'; '.join(probs)}")
     local = transformer.Transformer(shard_config(cfg, ctx.model_size),
                                     device="meta")
+    shard = (ctx.model_rank, ctx.model_size)
+    for layer in local.layers:
+        if layer.moe is None:
+            continue
+        layer.moe.mesh_shard = shard
+        if "experts_ep" in layer.moe._modules:      # E/M whole experts
+            mc = cfg.moe
+            layer.moe.experts_ep = common.MLP(
+                cfg, "meta", d_ff=mc.d_ff_expert or cfg.d_ff,
+                n_experts=mc.n_experts // ctx.model_size)
     whole = dict(model.named_modules())
     with torch.no_grad():
         for name, mod in local.named_modules():
@@ -377,27 +444,35 @@ def shard_model(model: nn.Module, cfg: ModelConfig, ctx) -> nn.Module:
             if t.is_meta]
     if left:
         raise ValueError(f"shard_model: tensors left uncut: {left}")
-    local.mesh_shard = (ctx.model_rank, ctx.model_size)
+    local.mesh_shard = shard
     return local
 
 
 def _shard_linear(mod, src, name: str, ctx, bf16_reduce: bool) -> None:
     """Fill the local ``Linear`` ``mod`` from the whole one ``src``; a
     row-parallel one reduces in the activation dtype under
-    ``bf16_reduce``."""
-    row = name.split(".")[-1] in ROW_PARALLEL
+    ``bf16_reduce``, or not at all inside an MoE block."""
+    parts = name.split(".")
+    replicated = any(p in REPLICATED_MODULES for p in parts)
+    ep = "experts_ep" in parts
+    row = parts[-1] in ROW_PARALLEL and not (replicated or ep)
     m = ctx.model_size
 
     def cut(leaf: str, t: torch.Tensor) -> torch.Tensor:
         path = ref_path(f"{name}.{leaf}")
-        return local_slice(t.detach(), spec_for_path(path, t.dim()), ctx)
+        planes = leaf == "qw" and src.spec is not None and src.spec.plane
+        return local_slice(t.detach(), spec_for_path(path, t.dim(), planes),
+                           ctx)
 
-    if src.n_experts is not None or src.has_lora or src.fake_quant:
+    if src.has_lora or src.fake_quant:
         raise NotImplementedError(
-            f"{name}: expert, LoRA and QAT linears are not sharded in this "
-            f"slice")
+            f"{name}: LoRA and QAT linears are not sharded in this slice")
+    if src.n_experts is not None:
+        mod.n_experts = src.n_experts // m if ep else src.n_experts
+    split = not (replicated or ep)
     mod.in_features = src.in_features // m if row else src.in_features
-    mod.out_features = src.out_features if row else src.out_features // m
+    mod.out_features = src.out_features // m if split and not row \
+        else src.out_features
     if src.quantized:
         del mod._parameters["w"]
         mod.set_quantized(cut("qw", src.qw), cut("scale", src.scale),
@@ -411,9 +486,12 @@ def _shard_linear(mod, src, name: str, ctx, bf16_reduce: bool) -> None:
     else:
         mod.w = _new_param(cut("w", src.w), src.w)
     mod.b = None if src.b is None else _new_param(cut("b", src.b), src.b)
-    mod.tp = "row" if row else "col"
+    mod.tp = None if replicated else "expert" if ep else \
+        "row" if row else "col"
     if row:
         mod.tp_reduce_bf16 = bool(bf16_reduce)
+        if "moe" in parts:
+            mod.tp_partial = True
 
 
 def unshard(shards: Sequence) -> Dict[str, torch.Tensor]:
@@ -426,8 +504,10 @@ def unshard(shards: Sequence) -> Dict[str, torch.Tensor]:
     out = {}
     tensors = [dict((*s.named_parameters(), *s.named_buffers()))
                if isinstance(s, nn.Module) else dict(s) for s in shards]
+    planes = plane_codes(shards[0]) if isinstance(shards[0], nn.Module) \
+        else set()
     for name, t0 in tensors[0].items():
-        spec = spec_for_path(ref_path(name), t0.dim())
+        spec = spec_for_path(ref_path(name), t0.dim(), name in planes)
         parts = [t[name].detach() for t in tensors]
         dims = [d for d, ax in enumerate(spec) if ax == MODEL_AXIS]
         if dims:

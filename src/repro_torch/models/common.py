@@ -311,7 +311,8 @@ class _VocabParallelNLL(torch.autograd.Function):
 
 def vocab_parallel_cross_entropy(logits_block: torch.Tensor,
                                  labels: torch.Tensor,
-                                 mask: Optional[torch.Tensor], ctx
+                                 mask: Optional[torch.Tensor], ctx,
+                                 aux: Optional[torch.Tensor] = None
                                  ) -> torch.Tensor:
     """``cross_entropy`` of a rank's rows over the whole vocab, from its
     vocab block of the logits (..., V/M) — no rank ever holds a whole row
@@ -319,7 +320,8 @@ def vocab_parallel_cross_entropy(logits_block: torch.Tensor,
     by the mask's sum over the data axis, then summed over the data axis
     (the reference's token mean over the global batch, not a mean of the
     ranks' means).  Equal on every rank; its gradient reaches this rank's
-    rows and vocab block only."""
+    rows and vocab block only.  ``aux``, a term of the rank's data block
+    (the MoE loss), is averaged over the data axis in the same sum."""
     start, _ = ctx.vocab_range(logits_block.shape[-1] * ctx.model_size)
     nll = _VocabParallelNLL.apply(logits_block.to(torch.float32),
                                   labels.long(), ctx, start)
@@ -327,5 +329,7 @@ def vocab_parallel_cross_entropy(logits_block: torch.Tensor,
         mask = torch.ones_like(nll)
     mask = mask.to(torch.float32)
     count = ctx.all_reduce(mask.sum(), "data")
-    return context.reduce_sum((nll * mask).sum() / count.clamp_min(1.0),
-                              ctx, "data")
+    local = (nll * mask).sum() / count.clamp_min(1.0)
+    if aux is not None:
+        local = local + aux / ctx.data_size
+    return context.reduce_sum(local, ctx, "data")

@@ -42,6 +42,15 @@ reference's bf16 dot outputs make its collectives bf16; off the mesh the
 flag changes nothing (every product is rounded to the activation dtype as
 it is).
 
+Inside an MoE block the cut marks a row-parallel linear ``tp_partial``
+(the shared experts' ``down``): its product stays the rank's partial sum,
+rounded to x's dtype, because the block adds it to the routed experts'
+partial sum and reduces the two once (``models/moe.py``).  An expert
+stack's ``down`` under ``expert_sharding="tensor"`` is row-parallel the
+same way (its block of G > 1 groups is ``tp_groups``); an ``experts_ep``
+stack holds E/M whole experts (``tp = "expert"``).  Neither reduces: an
+expert product never does.
+
 ``core/peqa.py`` turns fp into peqa in place (``set_quantized``),
 ``core/qat.py`` fp into qat (``set_fake_quant``) and ``core/lora.py`` adds
 the adapter (``set_lora``); model code only ever calls ``apply``.
@@ -199,7 +208,7 @@ def apply(p: Linear, x: torch.Tensor, slots=None,
         y = ops.dot_f32(x, w)
     else:
         y = ops.dot_f32(x, p.w.to(x.dtype))
-    if row:
+    if row and not getattr(p, "tp_partial", False):
         y = row_reduce(y, x.dtype if p.tp_reduce_bf16 else torch.float32)
     y = y.to(x.dtype)
     if p.has_lora:
@@ -232,7 +241,9 @@ def _apply_experts(p: Linear, x: torch.Tensor, slots, draft_bits
     product through ``ops.quant_matmul_experts``, the fp and QAT products
     through ``ops.dot_f32_experts``; nibble codes or bit-planes, as the
     spec says.  Forward of one task only (no slots, no draft: the
-    reference's MoE has no slotted or verify step)."""
+    reference's MoE has no slotted or verify step).  A row-parallel shard
+    of the stack (``expert_sharding="tensor"``) reads its block of G > 1
+    groups; its product is a partial sum the MoE block reduces."""
     if slots is not None:
         raise NotImplementedError(
             "an expert linear has no slotted step: MoE expert dispatch "
@@ -242,7 +253,9 @@ def _apply_experts(p: Linear, x: torch.Tensor, slots, draft_bits
             "an expert linear has no draft read: MoE expert dispatch is not "
             "supported in the verify step")
     if p.quantized:
-        return ops.quant_matmul_experts(x, p.qw, p.scale, p.zero, p.spec)
+        groups = getattr(p, "tp_groups", None)
+        return ops.quant_matmul_experts(x, p.qw, _groups(p.scale, groups),
+                                        _groups(p.zero, groups), p.spec)
     w = p.w.to(x.dtype)
     if p.fake_quant:
         w = fake_quant(w, p.scale, p.zero, p.spec)

@@ -26,8 +26,24 @@ Capacity is per call: a token's output depends on the other rows of the
 call (the batch, idle slots' rows, a prefill's bucket padding), as in the
 reference.
 
-Not ported (the mesh, ROADMAP queue 1's last item): ``shard_map``, the
-expert-parallel ``experts_ep`` slicing and ``seq_sharded``.
+On a ``(data, model)`` mesh a rank runs its shard of the block
+(``dist/sharding.py::shard_model`` marks it ``mesh_shard``), the
+reference's ``shard_map`` body: every model rank routes and sort-dispatches
+the same replicated rows (its data block's) over the GLOBAL E, so the
+capacity and the aux loss are its data block's.  Under
+``expert_sharding="expert"`` a rank holds experts [lo, lo + E/M) and
+keeps only their slots and assignments; under ``"tensor"`` it holds every
+expert's d_ff/M slice.  Either way its routed output is a partial sum; the
+shared MLP's partial sum (its ``down`` marked ``tp_partial``) is added to
+it, and the two are reduced ONCE over the model axis in the activation
+dtype, as the reference's ``psum`` of ``y.astype(xt.dtype)`` is.  The aux
+loss is the same on every model rank; its gradient enters at 1/M a rank
+(``_ModelShare``), so the model-axis sums of the MoE input's gradient
+(``context.copy_to_model``) and of the router's (a partial leaf,
+``sharding.leaf_kind``) count it once.  ``seq_sharded`` is not ported:
+the port keeps activations replicated over the model axis between
+blocks, and the reference's all-gather plus ``psum_scatter`` gives the
+values of the one all-reduce.
 """
 from __future__ import annotations
 
@@ -36,6 +52,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import context
 from repro_torch.models import common, linear
 
 
@@ -186,23 +203,54 @@ class _Combine(torch.autograd.Function):
         return dxout, None, dw, None, None
 
 
+class _ModelShare(torch.autograd.Function):
+    """The identity forward, the gradient over the model axis' size
+    backward: a replicated term that enters each model rank's partial
+    gradients at 1/M, so their model-axis sum holds it once."""
+
+    @staticmethod
+    def forward(fctx, t, m):
+        fctx.m = m
+        return t.clone()
+
+    @staticmethod
+    def backward(fctx, grad):
+        return grad / fctx.m, None
+
+
 def moe_math(p: MoE, xt: torch.Tensor, cfg: ModelConfig):
     """The routed experts on xt (T, d) → (y (T, d) in xt's dtype, aux
-    float32 scalar) (reference ``_moe_math`` off the mesh)."""
+    float32 scalar) (reference ``_moe_math``).  On an expert-parallel
+    shard (E/M experts in the stack) only the rank's experts' slots and
+    assignments are kept, and y is the rank's partial sum; on a "tensor"
+    shard every expert's output is its d_ff slice's partial sum."""
     mc = cfg.moe
     t, d = xt.shape
     e, k = mc.n_experts, mc.top_k
     cap = capacity(t, k, e, mc.capacity_factor)
     gate_idx, gate_vals, probs = route(xt, p.router.w, k)
     token_for_slot, pos, keep = sort_dispatch(gate_idx, e, cap)
-    slots = gate_idx * cap + pos
-    tok_slots = torch.where(keep, slots, torch.full_like(slots, e * cap))
+    experts = expert_mlp(p)
+    e_local = experts.up.n_experts
+    local_idx = gate_idx
+    if e_local < e:                      # experts [lo, lo + e_local)
+        lo = p.mesh_shard[0] * e_local
+        token_for_slot = token_for_slot[lo * cap:(lo + e_local) * cap]
+        keep = keep & (gate_idx >= lo) & (gate_idx < lo + e_local)
+        local_idx = (gate_idx - lo).clamp(0, e_local - 1)
+    slots = local_idx * cap + pos
+    # a token's slots ascending, the zero row for a dropped or another
+    # rank's assignment
+    tok_slots = torch.where(keep, slots, torch.full_like(slots,
+                                                         e_local * cap))
     tok_slots = torch.sort(tok_slots, dim=1).values
-    xin = _Dispatch.apply(xt, token_for_slot, tok_slots).reshape(e, cap, d)
-    xout = common.mlp_apply(expert_mlp(p), xin, cfg)        # (E, cap, d)
-    idx = slots.reshape(-1).clamp(0, e * cap - 1)
+    xin = _Dispatch.apply(xt, token_for_slot, tok_slots).reshape(
+        e_local, cap, d)
+    xout = common.mlp_apply(experts, xin, cfg)        # (E_local, cap, d)
+    idx = slots.reshape(-1).clamp(0, e_local * cap - 1)
     w = (gate_vals * keep).reshape(-1).to(torch.float32)
-    y = _Combine.apply(xout.reshape(e * cap, d), idx, w, keep.reshape(-1), k)
+    y = _Combine.apply(xout.reshape(e_local * cap, d), idx, w,
+                       keep.reshape(-1), k)
     frac_tokens = F.one_hot(gate_idx, e).to(torch.float32).sum(1).mean(0)
     aux = e * torch.sum(frac_tokens * probs.mean(0))
     return y.to(xt.dtype), aux
@@ -211,10 +259,18 @@ def moe_math(p: MoE, xt: torch.Tensor, cfg: ModelConfig):
 def apply(p: MoE, x: torch.Tensor, cfg: ModelConfig):
     """x (B, S, d) → (out (B, S, d), aux scalar): the routed experts over
     the B·S rows, then the shared MLP's output added in the activation
-    dtype (reference ``apply`` without a mesh context)."""
+    dtype (reference ``apply``).  On a model-axis shard (under
+    ``context.use_mesh``) the sum of the two partial outputs is reduced
+    once over the model axis, in x's dtype, and the aux loss's gradient
+    enters at 1/M."""
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
     y, aux = moe_math(p, xt, cfg)
     if p.shared is not None:
         y = y + common.mlp_apply(p.shared, xt, cfg)
+    shard = getattr(p, "mesh_shard", None)
+    if shard is not None:
+        y = context.reduce_from_model(y, context.require())
+        if torch.is_grad_enabled() and aux.requires_grad:
+            aux = _ModelShare.apply(aux, shard[1])
     return y.reshape(b, s, d), aux

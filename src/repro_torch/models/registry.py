@@ -120,9 +120,11 @@ RECURRENT_SLOTTED_REASON = ("recurrent state layers cannot thread per-slot "
 # why serving or training on a (data, model) mesh refuses a configuration:
 # the later slices of the mesh (ROADMAP §1)
 MESH_FAMILY_REASON = ("the mesh (serving and training) is ported for the "
-                      "dense family only; {fam} shards later (MoE expert "
-                      "parallelism, the encoder, recurrent state and image "
-                      "prefixes)")
+                      "dense and moe families only; {fam} shards later (the "
+                      "vlm's image prefixes, the encdec encoder, the ssm "
+                      "and hybrid recurrent state; MQA's single KV head "
+                      "is refused by the cut)")
+MESH_FAMILIES = ("dense", "moe")
 MESH_ARM_REASON = ("the {mode} arm's LoRA or fake-quant leaves are not "
                    "sharded: serve or train PEQA (peqa, peqa_z) or full "
                    "weights on a mesh")
@@ -140,9 +142,8 @@ def mesh_problems(cfg: ModelConfig) -> list:
     (empty: it can); the sharded extents are
     ``dist.sharding.shard_problems``'."""
     out = []
-    if cfg.family != "dense" or cfg.moe is not None:
-        out.append(MESH_FAMILY_REASON.format(
-            fam="MoE" if cfg.moe is not None else cfg.family))
+    if cfg.family not in MESH_FAMILIES:
+        out.append(MESH_FAMILY_REASON.format(fam=cfg.family))
     if cfg.tuning.mode in ("lora", "lora_optq", "qat"):
         out.append(MESH_ARM_REASON.format(mode=cfg.tuning.mode))
     return out

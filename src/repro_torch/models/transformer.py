@@ -152,13 +152,16 @@ def _dots_contexts():
 
 
 def _ffn(layer: Block, h: torch.Tensor, cfg: ModelConfig, slots=None,
-         draft_bits=None):
+         draft_bits=None, ctx=None):
     """The block's feed-forward on ln2(h) → (out, aux): the MLP (aux None)
     or the MoE block (its aux loss, float32).  The MoE block serves one
     task's scales (nibble codes or bit-planes) and no draft read: the
     reference builds it no slotted step, and its verify is refused by
-    ``FamilyCaps.verify_reason``."""
+    ``FamilyCaps.verify_reason``.  ``ctx``: a model-axis shard in training,
+    whose ln2 output passes through ``context.copy_to_model``."""
     hin = common.norm_apply(layer.ln2, h, cfg)
+    if ctx is not None:
+        hin = context.copy_to_model(hin, ctx)
     if layer.moe is None:
         return common.mlp_apply(layer.mlp, hin, cfg, slots=slots,
                                 draft_bits=draft_bits), None
@@ -192,8 +195,8 @@ def _block_train(layer: Block, h: torch.Tensor, cfg: ModelConfig, rope,
     with context.use_mesh(ctx):
         x = context.copy_to_model(common.norm_apply(layer.ln1, h, cfg), ctx)
         h = h + attention.apply_train(layer.attn, x, cfg, rope)
-        x = context.copy_to_model(common.norm_apply(layer.ln2, h, cfg), ctx)
-        return h + common.mlp_apply(layer.mlp, x, cfg), None
+        m, aux = _ffn(layer, h, cfg, ctx=ctx)
+        return h + m, aux
 
 
 def _embed(model: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
@@ -270,14 +273,17 @@ def loss_fn(model: Transformer, batch: dict, cfg: ModelConfig
     On a model-axis shard the batch is this rank's rows of the global
     batch and the loss is the global batch's token mean, equal on every
     rank: the head's logits stay the rank's vocab block (never gathered)
-    and go through ``common.vocab_parallel_cross_entropy``."""
+    and go through ``common.vocab_parallel_cross_entropy``, which also
+    averages the MoE term (the aux loss of the rank's data block) over the
+    data axis, as the reference's ``pmean``."""
     if model.embed.vocab_start is not None:
         ctx = context.require()
-        h, _ = _trunk(model, batch["tokens"], cfg)
+        h, aux = _trunk(model, batch["tokens"], cfg)
         h = common.norm_apply(model.final_norm, h, cfg)
         block = common.head_apply(model.lm_head, model.embed, h, cfg)
         return common.vocab_parallel_cross_entropy(
-            block, batch["labels"], batch.get("mask"), ctx)
+            block, batch["labels"], batch.get("mask"), ctx,
+            aux=None if aux is None else cfg.moe.router_aux_coef * aux)
     logits, aux = forward_aux(model, batch["tokens"], cfg,
                               prefix_embeds=batch.get("image_embeds"))
     labels = batch["labels"]

@@ -52,9 +52,8 @@ def shard_state(state: dict, ctx, cfg) -> dict:
             "step": int(state["step"])}
 
 
-def _gather(name: str, t: torch.Tensor, ctx) -> torch.Tensor:
-    """The whole tensor of a rank's block ``t`` of tensor ``name``."""
-    spec = sharding.spec_for_path(ref_path(name), t.dim())
+def _gather(spec: tuple, t: torch.Tensor, ctx) -> torch.Tensor:
+    """The whole tensor of a rank's block ``t`` under ``spec``."""
     for dim, ax in enumerate(spec):
         if ax == sharding.MODEL_AXIS:
             return ctx.all_gather(t, "model", dim=dim)
@@ -67,9 +66,10 @@ def whole_tree(state: dict, ctx) -> dict:
     shard: every model-sharded tensor and moment gathered over the model
     axis (a collective: every rank calls it)."""
     model = state["params"]
-    named = [(n, _gather(n, t, ctx))
+    specs = sharding.param_specs(model)
+    named = [(n, _gather(specs[n], t, ctx))
              for n, t in (*model.named_parameters(), *model.named_buffers())]
-    mv = {n: tuple(_gather(n, t, ctx) for t in pair)
+    mv = {n: tuple(_gather(specs[n], t, ctx) for t in pair)
           for n, pair in state["opt"]["mv"].items()}
     return {"params": bridge.tensors_to_tree(named),
             "opt": bridge.names_opt_tree([n for n, _ in named],
@@ -80,8 +80,12 @@ def whole_tree(state: dict, ctx) -> dict:
 
 def load_shard(state: dict, tree: dict, ctx) -> dict:
     """A whole state tree (a checkpoint) loaded into this rank's shard
-    ``state`` in place, each tensor cut to the rank's block."""
+    ``state`` in place, each tensor cut to the rank's block (a bit-plane
+    expert stack's by its planes' rule, read from the shard's linears)."""
+    planes = sharding.plane_codes(state["params"])
+
     def cut(name, t):
         return sharding.local_slice(
-            t, sharding.spec_for_path(ref_path(name), t.dim()), ctx)
+            t, sharding.spec_for_path(ref_path(name), t.dim(),
+                                      name in planes), ctx)
     return bridge.load_state(state, tree, cut)

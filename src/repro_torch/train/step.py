@@ -14,7 +14,9 @@ jitted step over its shardings with every collective explicit:
   * the rank's rows of the GLOBAL batch (``ctx.local_rows``; a batch the
     data axis does not divide is refused, as the reference's ``P(data)``
     would) through the shard config's ``loss_fn`` under ``use_mesh``: the
-    global token-mean loss, equal on every rank;
+    global token-mean loss, equal on every rank — with MoE blocks plus
+    the aux loss of each data block averaged over the data axis, as the
+    reference's ``pmean``;
   * ``backward()`` outside ``use_mesh`` (the backward never reads it);
   * the model-partial gradients (row-parallel scales and zeros,
     ``sharding.leaf_kind``) summed over the model axis in one flat bucket,
@@ -96,14 +98,18 @@ def mesh_collectives(model, cfg: ModelConfig, mask, compress: bool = False
     """The all-reduces one mesh step issues on each axis (it issues no
     other kind), from the rank's shard ``model`` and the mask:
 
-      * model axis: the forward's 2L row-parallel sums and the lookup's
-        one; under remat "block" ("full") the recompute's L — torch's
+      * model axis: the forward's 2L row-parallel sums (an MoE block's
+        feed-forward is one, as a dense MLP's: its routed and shared
+        partial sums are reduced together) and the lookup's one; under
+        remat "block" ("full") the recompute's L — torch's
         checkpoint stops its recompute once the tensors the backward needs
         are back, so each block's last sum (after ``down``) is not re-run
         —; the backward's ``copy_to_model`` gradients, 2L + 1 (ln1, ln2,
         the head), less block 0's ln1 when nothing before it trains (a
-        frozen table and gain: PEQA); the cross entropy's 3; the partial
-        bucket where a trained leaf is model-partial; the norm's 1; and
+        frozen table and gain: PEQA); the cross entropy's 3 (an MoE
+        model's aux loss rides the loss's data-axis sum); the partial
+        bucket where a trained leaf is model-partial (a row-parallel
+        scale or zero; under ``full`` an MoE router); the norm's 1; and
         under int8 compression the max bucket where a trained leaf is
         model-sharded;
       * data axis: the token count, the loss and the gradient bucket."""

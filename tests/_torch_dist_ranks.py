@@ -330,3 +330,119 @@ def pipeline_rank(rank, n_stages, tmp, ws, x):
     y = pipeline_apply(lambda w, h: torch.tanh(h @ w), ws, x, mesh)
     y.sum().backward()
     _save(tmp, f"pipe{n_stages}_", rank, {"y": y.detach(), "grad": ws.grad})
+
+
+# ---------------------------------------------------------------------------
+# MoE expert parallelism (tests/test_torch_dist_moe*.py)
+# ---------------------------------------------------------------------------
+
+def moe_block_rank(rank, shape, tmp, cases, x, c, aux_weight):
+    """Layer 0's MoE block of each case's shard ({name: cfg}, the trees at
+    ``<tmp>/<name>.npz``) on this rank's data block of ``x``: its output,
+    aux loss and the gradients of ``sum(y · c) + aux_weight · aux`` (the
+    aux averaged over the data axis) with respect to x and every float
+    leaf of the block, each model-partial leaf summed over the model axis
+    and every leaf over the data axis, as the train step sums them."""
+    from repro_torch.dist import context
+    from repro_torch.models import moe
+    from repro_torch.train import step
+    ctx = _ctx(shape)
+    rows = ctx.local_rows(x.shape[0])
+    out = {"coords": (ctx.data_rank, ctx.model_rank), "rows": rows}
+    for name, cfg in cases.items():
+        model = load_model(os.path.join(tmp, f"{name}.npz"), cfg)
+        shard = sharding.shard_model(model, cfg, ctx)
+        bank = sb.ScaleBank()
+        bank.add("t", model)
+        bank.tasks["t"] = {k: v * 1.5 for k, v in bank.tasks["t"].items()}
+        swap = {"record": sb.swap_collectives(shard, bank.tasks["t"], ctx),
+                "local_nbytes": bank.local_nbytes("t", ctx),
+                "nbytes": bank.nbytes("t")}
+        bank.switch(model, "t")                 # the whole model, off the mesh
+        swap["equal"] = all(torch.equal(a, b) for a, b in zip(
+            shard.parameters(),
+            sharding.shard_model(model, cfg, ctx).parameters()))
+        model = load_model(os.path.join(tmp, f"{name}.npz"), cfg)
+        shard = sharding.shard_model(model, cfg, ctx)
+        block = shard.layers[0].moe
+        params = {n: p for n, p in block.named_parameters()
+                  if p.is_floating_point()}
+        for p in params.values():
+            p.requires_grad_(True)
+        xl = x[rows].clone().requires_grad_(True)
+        with context.use_mesh(ctx):
+            y, aux = moe.apply(block, context.copy_to_model(xl, ctx), cfg)
+        loss = (y * c[rows]).sum() + aux_weight * aux / ctx.data_size
+        with ctx.recording() as rec:
+            loss.backward()
+        grads = {n: p.grad for n, p in params.items()}
+        kinds = {n: sharding.leaf_kind(f"/layers/moe/{n.replace('.', '/')}",
+                                       p.dim()) for n, p in params.items()}
+        step._bucket_sum(grads, [n for n in grads
+                                 if kinds[n] == sharding.PARTIAL],
+                         ctx, "model")
+        step._bucket_sum(grads, list(grads), ctx, "data")
+        out[name] = {"y": y.detach(), "aux": aux.detach(), "dx": xl.grad,
+                     "swap": swap,
+                     "grads": grads, "kinds": kinds,
+                     "backward_record": rec,
+                     "local": {n: tuple(b.shape)
+                               for n, b in block.named_buffers()}}
+        with torch.no_grad(), context.use_mesh(ctx), \
+                ctx.recording() as fwd:
+            y2, _ = moe.apply(block, x[rows], cfg)
+        out[name]["forward_record"] = fwd
+        out[name]["y_no_grad"] = y2
+    _save(tmp, f"moe{shape[0]}x{shape[1]}_", rank, out)
+
+
+def moe_train_rank(rank, shape, tmp, cases, batch):
+    """Each MoE training case ({name: (cfg, ocfg)}, the trees at
+    ``<tmp>/<name>.npz``) on the mesh from the shard of the whole state:
+    the loss and the trained gradients as the train step makes them (the
+    model-partial ones summed over the model axis, all over the data
+    axis), then one step (its metrics, collective record and the count
+    ``mesh_collectives`` expects), the whole-state tree gathered after it
+    (rank 0 saves it) and whether ``load_shard`` of that tree gives this
+    rank's shard back."""
+    from repro_torch.configs.base import OptimConfig, TrainConfig
+    from repro_torch.train import step
+    from repro_torch.train.state import load_shard, shard_state, whole_tree
+    ctx = _ctx(shape)
+    out = {"coords": (ctx.data_rank, ctx.model_rank)}
+    for name, (cfg, ocfg) in cases.items():
+        api, _, mask, opt, whole = _train_state(
+            os.path.join(tmp, f"{name}.npz"), cfg, ocfg)
+        local = shard_state(whole, ctx, cfg)
+        model = local["params"]
+        loss = step._loss(step._mesh_api(api, cfg, ctx), model, batch, ctx)
+        loss.backward()
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        step._reduce_grads(grads, model, mask, ctx)
+        res = {"loss": float(loss),
+               "grads": {n: g.clone() for n, g in grads.items()
+                         if mask.get(n) and g is not None},
+               "kinds": sharding.leaf_kinds(model)}
+        for p in model.parameters():
+            p.grad = None
+        ts = step.build_train_step(api, cfg, TrainConfig(
+            optim=OptimConfig(**ocfg)), mask, opt, mesh=ctx)
+        with ctx.recording() as rec:
+            local, m = ts(local, batch)
+        res.update(metrics={k: float(v) for k, v in m.items()}, record=rec,
+                   want=step.mesh_collectives(local["params"], cfg, mask),
+                   **_held(local["params"], mask))
+        tree = whole_tree(local, ctx)
+        fresh = load_shard(shard_state(whole, ctx, cfg), tree, ctx)
+        mine = dict((*local["params"].named_parameters(),
+                     *local["params"].named_buffers()))
+        back = dict((*fresh["params"].named_parameters(),
+                     *fresh["params"].named_buffers()))
+        res["restored"] = mine.keys() == back.keys() and all(
+            torch.equal(mine[n], back[n]) for n in mine) and all(
+            torch.equal(a, b) for n, pair in local["opt"]["mv"].items()
+            for a, b in zip(pair, fresh["opt"]["mv"][n]))
+        if rank == 0:
+            res["tree"] = tree
+        out[name] = res
+    _save(tmp, f"moetrain{shape[0]}x{shape[1]}_", rank, out)

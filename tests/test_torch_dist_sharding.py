@@ -16,7 +16,7 @@
   * What this slice does not shard is refused with a reason: MQA and other
     head, d_ff or vocab counts the model axis does not divide, a local
     input extent that breaks a kernel's words or groups, every family but
-    dense, and the LoRA and QAT arms.
+    dense and moe, and the LoRA and QAT arms.
 """
 import types
 
@@ -254,9 +254,19 @@ def test_unshardable_configs_refused(change, m, what):
                                   if tconfigs.get_config(a).family != "dense"
                                   or tconfigs.get_config(a).moe is not None])
 def test_other_families_refused_on_a_mesh(arch):
+    """Every family but dense and moe is refused on a mesh; the moe family
+    is served there (expert parallelism, ``tests/test_torch_dist_moe.py``)
+    and refused where the model axis does not divide its experts."""
     cfg = tconfigs.make_tiny(tconfigs.get_config(arch))
     registry.check_supported(cfg)
-    with pytest.raises(NotImplementedError, match="dense family only"):
+    if cfg.family == "moe":
+        registry.check_supported(cfg, mesh=context.coords(1, 2))
+        with pytest.raises(NotImplementedError, match="not divisible by "
+                                                      "the model axis"):
+            registry.check_supported(cfg, mesh=context.coords(1, 3))
+        return
+    with pytest.raises(NotImplementedError,
+                       match="dense and moe families only"):
         registry.check_supported(cfg, mesh=context.coords(1, 2))
 
 

@@ -172,7 +172,8 @@ def test_cli_mesh_resumes_and_matches_off_mesh(tmp_path):
     (["--mesh", "pod"], "256 devices"),
     (["--mesh", "multipod"], "512 devices"),
     (["--mesh", "1,2", "--mode", "lora"], "the lora arm's LoRA"),
-    (["--mesh", "1,2", "--arch", "mixtral-8x7b"], "dense family only"),
+    (["--mesh", "1,2", "--arch", "xlstm-125m"], "dense and moe families "
+                                                "only"),
     (["--mesh", "3,1"], "global batch of 4 rows is not divisible by the "
                         "data axis (3)"),
 ], ids=["pod", "multipod", "arm", "family", "batch"])

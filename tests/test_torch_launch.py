@@ -156,6 +156,20 @@ def test_serve_on_a_cpu_mesh(flags, want, capfd):
         assert out.count("switch=") == 4
 
 
+def test_serve_moe_on_a_cpu_mesh(capfd):
+    """``--tiny --mesh 1,2 --arch mixtral-8x7b``: two gloo ranks serve
+    their d_ff shards of every expert in drain mode (an MoE model has no
+    slotted step) and pass the continuous gates."""
+    with pytest.raises(SystemExit) as exc:
+        serve.main([*CPU, "--mesh", "1,2", "--arch", "mixtral-8x7b",
+                    "--continuous", "--scheduler", "drain", "--tune-steps",
+                    "2"])
+    assert exc.value.code in (0, None)
+    out = capfd.readouterr().out
+    assert "2 ranks over gloo on cpu" in out and "a swap moves" in out
+    assert "[serve] continuous OK" in out
+
+
 def test_place_prompt_off_mesh_only():
     """Off the mesh the prompt itself; on a mesh a rank's data block of
     rows (every row where the batch does not divide the data axis)."""
@@ -226,6 +240,17 @@ def test_train_int8_grad_compression(capsys):
                           "int8"])
     assert np.isfinite(hist[0]["loss"])
     assert "final loss=" in capsys.readouterr().out
+
+
+def test_train_moe_on_a_cpu_mesh(tmp_path, capsys):
+    """``--tiny --mesh 1,2 --arch deepseek-moe-16b``: two gloo ranks train
+    their expert shards; the loss is finite and the checkpoint written."""
+    ckpt = str(tmp_path / "moe")
+    _, hist = train.main([*TRAIN, "--mesh", "1,2", "--arch",
+                          "deepseek-moe-16b", "--steps", "3", "--ckpt-dir",
+                          ckpt])
+    assert hist and all(np.isfinite(h["loss"]) for h in hist)
+    assert JManager(ckpt).latest_valid_step() == 3
 
 
 @pytest.mark.parametrize("mesh", ["debug", "pod", "multipod"])
