@@ -513,6 +513,43 @@ line:
                the count of layer 0's router assignments that differ from
                the unsharded run (reported, not gated: near-tied router
                probabilities may flip).
+ 26. mesh_families — (built and its (1, 2) ranks spawned after chunked,
+               running beside phases invariance and check, which time
+               nothing; joined after check, then its (1, 1) run, the
+               unsharded engine and the gates alone) the vlm and encdec
+               families and a
+               KV head that model ranks share, on (data, model) meshes at
+               full width: whisper-medium whole (24 + 24 layers, 8 local
+               heads of 64 a rank at M 2), llava-next-mistral-7b at 4 of
+               its 32 layers (576 image-embedding rows a prompt row) and
+               granite-34b at 4 of its 88 (one KV head: at M 2 both
+               ranks hold it whole, ``sharding.kv_share``, their 24 query
+               heads each a group of 24), PEQA 4-bit nibbles, remat
+               "block", each built once; (1, 2) spawned on cuda:0 under
+               gloo first, its ranks reading the script's whole models
+               over CUDA IPC and copying only their shards, while this
+               process runs phases invariance and check (the (1, 2)
+               ranks' times include their load), then, once they are
+               joined, (1, 1) over NCCL and the unsharded engine alone.  Each rank and model: ``generate`` of 4 ×
+               64 tokens behind each row's prefix, 16 new, under
+               logitshard (launches counted) and without (the same
+               tokens); the prefill logits; a task swap's record; 4
+               prefixed requests over 2 tasks, resident (whisper: drain,
+               no slotted step); 2 PEQA steps of MESH_FAM_TRAIN_ROWS ×
+               (prefix + 128) rows.  Gates: (1, 1) bit-equal to the
+               unsharded engine (logits and tokens); (1, 2) logits within
+               MESH_LOGIT_TOL of the largest unsharded one; every rank's
+               launches those of the unsharded generate; step 1's loss
+               within 2⁻⁸ and ``grad_norm`` within 5e-2 of the unsharded
+               step's; all-reduces only, their count
+               ``step.mesh_collectives``' (whisper's encoder and decoder
+               terms); no vocab-extent gather in training, none a
+               logitshard decode step, ≥ 1 without; an empty swap record;
+               every rank's tokens, served tokens and metrics equal; the
+               codes frozen; every new shard shape of K1, K2, K4 and K5
+               held once to its plain version on rank 0 of (1, 2) and
+               timed beside its bound and its library call
+               (``torch.matmul`` on the dequantized bf16 Ŵ, SDPA).
  23. launch  — (after arms, while this process runs phase examples: the
                time limit's cut, so both phases' walls include the
                other's load) the CLIs as subprocesses, each gated on exit
@@ -4099,11 +4136,20 @@ class CheckedQuantMatmul:
             m, n, k, g, scale_sets=s.shape[0] if tasks else 1,
             code_bits=bits if planes else 4,
             tensor_cores=qm.tc_route(x, s))
+        lib = None
+        if not (tasks or planes):
+            # the library yardstick: torch.matmul on the dequantized bf16 Ŵ
+            from repro_torch.kernels.ref import dequant_ref
+            w16 = dequant_ref(qw, s, z, (n, k), qm.QuantSpec(),
+                              torch.bfloat16)
+            lib = timed(lambda a, b: torch.matmul(a, b.T),
+                        [(x.to(torch.bfloat16), w16)], 50)
+            del w16
         return {"kernel": name, "M": m, "N": n, "K": k, "G": g,
                 "tasks": s.shape[0] if tasks else None, "planes": bits,
                 "max_abs_err": err, "ms": ms,
                 "plain_ms": events_ms(torch, self._plain(name, args), 3),
-                "bound_ms": b_ms, "bound_by": b_by}
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
 
     def _fa_row(self, q, k, v, kw) -> dict:
         import torch
@@ -4122,7 +4168,15 @@ class CheckedQuantMatmul:
         mask = attn_mask(torch, b, sq, k.shape[1], kw.get("offset"),
                          kw.get("causal", True), kw.get("window"))
         b_ms, b_by = attn_bound_ms(mask, (hq, k.shape[2], d))
-        return {"kernel": "flash_attention", "B": b, "Sq": sq,
+        # the library yardstick: scaled_dot_product_attention over the
+        # same visible keys
+        import torch.nn.functional as F
+        lmask = mask[:, None] if kw.get("causal", True) or kw.get(
+            "window") else None
+        lib = timed(lambda q_, k_, v_: F.scaled_dot_product_attention(
+            q_.transpose(1, 2), k_.transpose(1, 2), v_.transpose(1, 2),
+            attn_mask=lmask, enable_gqa=True), [(q, k, v)], 50)
+        return {"kernel": "flash_attention", "B": b, "Sq": sq, "library_ms": lib,
                 "Sk": k.shape[1], "Hq": hq, "Hkv": k.shape[2], "D": d,
                 "max_abs_err": err, "ms": ms,
                 "plain_ms": events_ms(torch, lambda:
@@ -6265,11 +6319,11 @@ def load_whole(torch, cfg, path):
 
 
 def model_from_state(torch, cfg, state):
-    """A quantized model of ``cfg`` around the tensors of a state dict
-    (taken as they are: no copy)."""
-    from repro_torch.models import transformer
+    """A quantized model of ``cfg`` (any family's module) around the
+    tensors of a state dict (taken as they are: no copy)."""
+    from repro_torch.models import registry
     from repro_torch.models.linear import Linear
-    model = transformer.Transformer(cfg, device="meta")
+    model = registry.module_class(cfg)(cfg, device="meta")
     spec = cfg.quant.spec()
     for name, mod in model.named_modules():
         if isinstance(mod, Linear) and f"{name}.qw" in state:
@@ -7703,6 +7757,528 @@ def phase_mesh_moe(torch) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase mesh_families: the vlm and encdec families and a KV head that model
+# ranks share, on (data, model) meshes
+# ---------------------------------------------------------------------------
+
+# arch → its layers at full width (None: whole): whisper-medium whole (24 +
+# 24), llava-next-mistral-7b at 4 of its 32 layers and granite-34b at 4 of
+# its 88 (the script's time limit: phases vlm and dense_archs run them
+# deeper off the mesh)
+MESH_FAM = {"whisper-medium": None, "llava-next-mistral-7b": 4,
+            "granite-34b": 4}
+MESH_FAM_SHAPES = ((1, 1), (1, 2))
+MESH_FAM_STEPS = 2
+# the lockstep prompt's text tokens (behind each row's prefix) and new
+# tokens; a training row's text tokens (behind its prefix)
+MESH_FAM_PROMPT, MESH_FAM_NEW, MESH_FAM_SEQ = 64, 16, 128
+# a training batch's rows (whisper's 1500 frames a row dominate the
+# phase's time under gloo: 4 rows took 46 s of its 137 s at (1, 2))
+MESH_FAM_TRAIN_ROWS = 2
+# serving: MESH_FAM_REQUESTS prefixed requests over 2 tasks in 4 slots,
+# prompts and budgets in turn, resident (whisper: drain, it has no slotted
+# step)
+MESH_FAM_REQUESTS, MESH_FAM_PROMPTS, MESH_FAM_BUDGETS = 4, (32, 64), (4, 8)
+
+
+def mesh_fam_cfg(name: str):
+    """``name`` as phase mesh_families runs it: PEQA 4-bit nibbles (n_grid
+    20), remat "block", at its MESH_FAM depth."""
+    layers = MESH_FAM[name]
+    return dense_cfg(name, remat="block",
+                     **({"n_layers": layers} if layers else {}))
+
+
+def mesh_fam_batches(cfg) -> list:
+    """MESH_FAM_STEPS global batches of MESH_FAM_TRAIN_ROWS ×
+    MESH_FAM_SEQ text tokens of a synthetic corpus, each row behind its
+    seeded prefix (image embeddings or frames: ``pipeline.Prefixed``)."""
+    from repro_torch.data import pipeline, synthetic
+    rows = MESH_FAM_TRAIN_ROWS
+    data = pipeline.Prefixed(pipeline.PackedLM(synthetic.corpus(
+        cfg.vocab_size, 4 * MESH_FAM_STEPS * rows * MESH_FAM_SEQ + 4096,
+        seed=SEED + 50), rows, MESH_FAM_SEQ, seed=SEED), cfg, SEED + 51)
+    return [data.batch_at(i) for i in range(MESH_FAM_STEPS)]
+
+
+def mesh_fam_requests(cfg) -> list:
+    """MESH_FAM_REQUESTS requests over 2 tasks, each behind its own seeded
+    prefix where the family takes one, all at step 0."""
+    import numpy as np
+    from repro_torch.data import pipeline
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(SEED + 52)
+    out = []
+    for i in range(MESH_FAM_REQUESTS):
+        got = pipeline.family_prefix(cfg, 1, (SEED + 53, i))
+        out.append(Request(
+            tokens=rng.integers(0, cfg.vocab_size,
+                                MESH_FAM_PROMPTS[i % len(MESH_FAM_PROMPTS)]),
+            n_new=MESH_FAM_BUDGETS[i % len(MESH_FAM_BUDGETS)],
+            task=f"t{i % 2}", prefix=None if got is None else got[1][0]))
+    return out
+
+
+def mesh_fam_inputs(torch, cfg, gen):
+    """The lockstep prompt (BATCH × MESH_FAM_PROMPT) and its prefix on the
+    card (seeded image embeddings or frames, ``pipeline.family_prefix``;
+    None for granite)."""
+    from repro_torch.data import pipeline
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, MESH_FAM_PROMPT),
+                           generator=gen)
+    got = pipeline.family_prefix(cfg, BATCH, SEED + 56)
+    prefix = None if got is None else torch.from_numpy(got[1]).to("cuda")
+    return prompt, prefix
+
+
+def mesh_fam_run(torch, ctx, rank: int, whole, cfg, prompt, prefix,
+                 check: bool) -> dict:
+    """One rank's part of phase mesh_families for one model on ``ctx``:
+    its shard cut from ``whole``; ``generate`` with the prefix under
+    logitshard (launches counted) and without, the prefill logits, the
+    decode step's collectives, a task swap's, the serving of
+    ``mesh_fam_requests`` (resident, or drain for an encdec), then
+    MESH_FAM_STEPS PEQA steps from the model's own scales.  ``check``:
+    every new call shape held to plain (``CheckedQuantMatmul``, rank
+    0)."""
+    from repro_torch.configs.base import OptimConfig, TrainConfig
+    from repro_torch.core import policies
+    from repro_torch.core.scale_bank import swap_collectives
+    from repro_torch.dist import backend, context, sharding
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.optim.adamw import make_optimizer
+    from repro_torch.serve import ServeConfig
+    from repro_torch.train import step
+    from repro_torch.train.serve import Engine
+    from repro_torch.train.state import make_state
+
+    shape = (ctx.data_size, ctx.model_size)
+    label = f"mesh_families {cfg.name} {shape} rank {rank}"
+    dev = ctx.device
+    stages, t_stage = {}, [time.perf_counter()]
+
+    def stage(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        stages[name] = now - t_stage[0]
+        t_stage[0] = now
+
+    def checked(what):
+        return CheckedQuantMatmul(ops, f"{label} {what}", shapes=True) \
+            if check else contextlib.nullcontext()
+
+    api = registry.build(cfg)
+    bank = task_bank(whole, 2, SEED + 54)
+    local = sharding.shard_model(whole, cfg, ctx)
+    del whole
+    torch.cuda.empty_cache()
+    stage("cut")
+    out = {"rank": rank, "coords": (ctx.data_rank, ctx.model_rank),
+           "summary": backend.summary(), "stages": stages,
+           "kv_share": local.kv_share,
+           "local_gb": sum(t.numel() * t.element_size() for t in (
+               *local.parameters(), *local.buffers())) / 1e9}
+    codes0 = codes_sum(torch, local)
+    shapes = []
+    engine = Engine(api, local, bank=bank, ctx=ctx, logitshard=True)
+    with checked("generate") as chk:
+        engine.generate(prompt, 2, prefix=prefix)      # warm-up, not counted
+    if chk is not None:
+        shapes += list(chk.rows.values())
+    torch.cuda.synchronize()
+    for k in ops.KERNELS:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    toks = engine.generate(prompt, MESH_FAM_NEW, prefix=prefix)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    out["launches"] = {k.__name__: k.launches for k in ops.KERNELS
+                       if k.launches}
+    out["generate_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    t0 = time.perf_counter()
+    logits = engine.prefill_logits(prompt, prefix=prefix)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    base = Engine(api, local, bank=bank, ctx=ctx, logitshard=False)
+    if not torch.equal(toks, base.generate(prompt, MESH_FAM_NEW,
+                                           prefix=prefix)):
+        fail(f"{label}: generate's tokens differ with and without "
+             f"logitshard")
+    cache = MESH_FAM_PROMPT + MESH_FAM_NEW + (
+        cfg.n_img_tokens if cfg.family == "vlm" else 0)
+    rec_ls = engine.decode_collectives(BATCH, cache)
+    rec_base = base.decode_collectives(BATCH, cache)
+    del base
+    out.update(tokens=toks.cpu(),
+               logits=logits.float().cpu() if rank == 0 else None,
+               generate_s=gen_s, prefill_ms=prefill_s * 1e3,
+               decode_ms_per_step=(gen_s - prefill_s) * 1e3
+               / (MESH_FAM_NEW - 1),
+               decode_collectives=context.collective_stats(rec_ls),
+               vocab_gathers=context.allgather_extent_count(
+                   rec_ls, cfg.vocab_size),
+               vocab_gathers_no_logitshard=context.allgather_extent_count(
+                   rec_base, cfg.vocab_size))
+    swap = swap_collectives(local, bank.tasks["t1"], ctx)
+    bank.switch(local, "t0", ctx=ctx)
+    out.update(swap_collectives=len(swap),
+               swap_local_bytes=bank.local_nbytes("t1", ctx, local.kv_share),
+               swap_bytes=bank.nbytes("t1"))
+    stage("generate")
+    resident = api.decode_step_slotted is not None
+    reqs = mesh_fam_requests(cfg)
+    with checked("serve") as chk:
+        t0 = time.perf_counter()
+        rep = engine.serve(reqs, ServeConfig(
+            n_slots=4, scheduler="resident" if resident else "drain",
+            resident_tasks=2))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if chk is not None:
+        shapes += list(chk.rows.values())
+    if any(t is None or len(t) != r.n_new
+           for r, t in zip(reqs, rep.tokens)):
+        fail(f"{label}: a request was not served its budget")
+    out["serve"] = {"scheduler": rep.scheduler, "requests": len(reqs),
+                    "wall_s": wall, "steps": rep.steps,
+                    "decoded": rep.decoded, "switches": rep.switches,
+                    "tokens": rep.tokens}
+    engine.switch_task("t0")                 # the model's own scales back
+    del engine
+    stage("serve")
+
+    tcfg = TrainConfig(optim=OptimConfig())
+    mask = policies.make_mask(local, cfg)
+    opt = make_optimizer(tcfg.optim, tcfg.steps)
+    state = make_state(local, opt.init(dict(local.named_parameters()), mask))
+    ts = step.build_train_step(api, cfg, tcfg, mask, opt, mesh=ctx)
+    out["want"] = step.mesh_collectives(local, cfg, mask)
+    hist, ms, records = [], [], []
+    torch.cuda.reset_peak_memory_stats(dev)
+    for i, b in enumerate(mesh_fam_batches(cfg)):
+        with (checked("step 1") if i == 0 else contextlib.nullcontext()
+              ) as chk, ctx.recording() as rec:
+            t0 = time.perf_counter()
+            state, m = ts(state, b)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        if chk is not None:
+            shapes += list(chk.rows.values())
+        hist.append({k: float(v) for k, v in m.items()})
+        records.append(rec)
+    dims = ("kernel", "M", "N", "K", "G", "planes", "tasks", "B", "Sq", "Sk",
+            "Hq", "Hkv")
+    seen = {}
+    for sh in shapes:
+        seen.setdefault(tuple(sh.get(k) for k in dims), sh)
+    out.update(hist=hist, step_ms=ms,
+               train_peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               collectives=[collectives_by_axis(r) for r in records],
+               kinds=sorted({e["kind"] for r in records for e in r}),
+               train_vocab_gathers=sum(context.allgather_extent_count(
+                   r, cfg.vocab_size) for r in records),
+               codes_frozen=codes_sum(torch, local) == codes0,
+               shapes=list(seen.values()))
+    stage("train")
+    del state, local
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_fam_rank(rank: int, shape: tuple, tmp: str, shared) -> None:
+    """One spawned rank of phase mesh_families: for each model of
+    ``shared`` ({name: (the parent's whole state dict, the prompt, its
+    prefix)}) the whole model around the parent's own tensors — CUDA IPC
+    handles: nothing is copied but the rank's shard —, then
+    ``mesh_fam_run``; the results go to ``tmp``.  A failed gate exits
+    non-zero."""
+    import torch
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.launch import mesh as mesh_mod
+    ctx = mesh_mod.make_debug_mesh(*shape)       # on the rank's own card
+    for name, (state, prompt, prefix) in shared.items():
+        t0 = time.perf_counter()
+        cfg = mesh_fam_cfg(name)
+        whole = model_from_state(torch, cfg, state)
+        load_s = time.perf_counter() - t0
+        out = mesh_fam_run(torch, ctx, rank, whole, cfg, prompt, prefix,
+                           check=rank == 0)
+        out["stages"]["load"] = load_s
+        del whole, state
+        torch.save(out, rank_file(tmp, shape, rank, f"{name}_"))
+        del out
+        torch.cuda.empty_cache()
+    shared.clear()
+
+
+def mesh_fam_unsharded(torch, api, model, cfg, prompt, prefix,
+                       train: bool) -> dict:
+    """The unsharded runs each mesh is held to, on the whole ``model``:
+    ``generate``'s tokens, launches and time and the prefill logits; with
+    ``train`` (last: the steps train the model) MESH_FAM_STEPS PEQA
+    steps (metrics, ms, peak)."""
+    from repro_torch.configs.base import OptimConfig, TrainConfig
+    from repro_torch.core import policies
+    from repro_torch.kernels import ops
+    from repro_torch.optim.adamw import make_optimizer
+    from repro_torch.train import step
+    from repro_torch.train.serve import Engine
+    from repro_torch.train.state import make_state
+    if train:
+        tcfg = TrainConfig(optim=OptimConfig())
+        mask = policies.make_mask(model, cfg)
+        opt = make_optimizer(tcfg.optim, tcfg.steps)
+        state = make_state(model, opt.init(dict(model.named_parameters()),
+                                           mask))
+        ts = step.build_train_step(api, cfg, tcfg, mask, opt)
+        hist, ms = [], []
+        torch.cuda.reset_peak_memory_stats()
+        for b in mesh_fam_batches(cfg):
+            t0 = time.perf_counter()
+            state, m = ts(state, b)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            hist.append({k: float(v) for k, v in m.items()})
+        return {"hist": hist, "step_ms": ms,
+                "train_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    eng = Engine(api, model)
+    eng.generate(prompt, 2, prefix=prefix)
+    torch.cuda.synchronize()
+    for k in ops.KERNELS:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    toks = eng.generate(prompt, MESH_FAM_NEW, prefix=prefix)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    out = {"launches": {k.__name__: k.launches for k in ops.KERNELS
+                        if k.launches},
+           "generate_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    t0 = time.perf_counter()
+    out["logits"] = eng.prefill_logits(prompt, prefix=prefix).float().cpu()
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    out.update(tokens=toks.cpu(), generate_s=gen_s,
+               prefill_ms=prefill_s * 1e3,
+               decode_ms_per_step=(gen_s - prefill_s) * 1e3
+               / (MESH_FAM_NEW - 1))
+    return out
+
+
+def mesh_fam_gate(torch, name, cfg, shape, ranks, ref, wall) -> dict:
+    """Phase mesh_families' gates on one model's rank results on one mesh;
+    returns its row."""
+    label = f"mesh_families {name} {shape}"
+    r0 = ranks[0]
+    expect = "nccl" if shape == (1, 1) else "gloo"
+    placed = {(r["summary"]["backend"], r["summary"]["device"])
+              for r in ranks}
+    if placed != {(expect, "cuda:0")}:
+        fail(f"{label}: ranks ran over (backend, device) {placed}, "
+             f"expected {expect} on cuda:0")
+    for r in ranks:
+        if not torch.equal(r["tokens"], r0["tokens"]):
+            fail(f"{label}: rank {r['rank']}'s tokens differ from rank 0's")
+        if r["launches"] != ref["launches"]:
+            fail(f"{label}: rank {r['rank']} launched {r['launches']}, the "
+                 f"unsharded generate {ref['launches']}")
+        if r["swap_collectives"]:
+            fail(f"{label}: a task swap made a collective")
+        if r["vocab_gathers"] != 0 or r["vocab_gathers_no_logitshard"] < 1:
+            fail(f"{label}: vocab-extent gathers {r['vocab_gathers']} under "
+                 f"logitshard (want 0), {r['vocab_gathers_no_logitshard']} "
+                 f"without (want >= 1)")
+        if r["serve"]["tokens"] != r0["serve"]["tokens"]:
+            fail(f"{label}: rank {r['rank']} served other tokens")
+        if r["hist"] != r0["hist"]:
+            fail(f"{label}: rank {r['rank']}'s metrics differ from rank 0's")
+        if r["kinds"] != ["all_reduce"] or r["train_vocab_gathers"]:
+            fail(f"{label}: a step's collectives {r['kinds']}, "
+                 f"{r['train_vocab_gathers']} vocab-extent gathers (want "
+                 f"all-reduces only, none)")
+        for c in r["collectives"]:
+            got = {axis: s["count"] for axis, s in c.items()}
+            if got != r["want"]:
+                fail(f"{label}: rank {r['rank']} issued {got} all-reduces a "
+                     f"step, the formula {r['want']}")
+        if not r["codes_frozen"]:
+            fail(f"{label}: rank {r['rank']}'s frozen codes changed")
+    logits, want = r0["logits"], ref["logits"]
+    if not torch.isfinite(logits).all():
+        fail(f"{label}: non-finite prefill logits")
+    diff = (logits - want).abs().max().item()
+    scale = want.abs().max().item()
+    if shape == (1, 1):
+        if diff != 0.0 or not torch.equal(r0["tokens"], ref["tokens"]):
+            fail(f"{label}: the mesh path is not bit-equal to the unsharded "
+                 f"engine (logits differ by {diff:.3e})")
+    elif diff > MESH_LOGIT_TOL * scale:
+        fail(f"{label}: prefill logits differ from the unsharded engine's "
+             f"by {diff:.3e} > {MESH_LOGIT_TOL * scale:.3e}")
+    for k, rtol in (("loss", MESH_TRAIN_LOSS_RTOL),
+                    ("grad_norm", MESH_TRAIN_GNORM_RTOL)):
+        got, ref1 = r0["hist"][0][k], ref["hist"][0][k]
+        if not math.isfinite(got) or abs(got - ref1) > rtol * abs(ref1):
+            fail(f"{label}: step 1 {k} {got!r} against the unsharded "
+                 f"{ref1!r} (rtol {rtol})")
+    row = {"world": len(ranks), "backend": expect, "wall_s": wall,
+           "kv_share": r0["kv_share"],
+           "logits_max_abs_diff": diff, "logits_max_abs": scale,
+           "tokens_equal_share_vs_unsharded": (
+               r0["tokens"][:, MESH_FAM_PROMPT:]
+               == ref["tokens"][:, MESH_FAM_PROMPT:]).float().mean().item(),
+           "launches_a_rank": r0["launches"],
+           "decode_ms_per_step": [r["decode_ms_per_step"] for r in ranks],
+           "unsharded_decode_ms_per_step": ref["decode_ms_per_step"],
+           "prefill_ms": [r["prefill_ms"] for r in ranks],
+           "unsharded_prefill_ms": ref["prefill_ms"],
+           "generate_peak_gb": [r["generate_peak_gb"] for r in ranks],
+           "unsharded_generate_peak_gb": ref["generate_peak_gb"],
+           "local_gb": [r["local_gb"] for r in ranks],
+           "decode_collectives": r0["decode_collectives"],
+           "swap_local_bytes": r0["swap_local_bytes"],
+           "swap_bytes": r0["swap_bytes"],
+           "serve": {k: v for k, v in r0["serve"].items() if k != "tokens"},
+           "hist": r0["hist"], "unsharded_hist": ref["hist"],
+           "step_ms": [r["step_ms"] for r in ranks],
+           "unsharded_step_ms": ref["step_ms"],
+           "train_peak_gb": [r["train_peak_gb"] for r in ranks],
+           "unsharded_train_peak_gb": ref["train_peak_gb"],
+           "collectives_a_step": r0["collectives"][-1],
+           "formula": r0["want"],
+           "stages_s": [r["stages"] for r in ranks]}
+    if r0["shapes"]:
+        row["shapes"] = r0["shapes"]
+        kinds = {s["kernel"] for s in r0["shapes"]}
+        need = {"quant_gemv", "quant_matmul", "flash_attention"}
+        if cfg.family != "encdec":
+            need.add("quant_gemv_tasks")
+        if not need <= kinds:
+            fail(f"{label}: shard shapes checked for {sorted(kinds)}, "
+                 f"expected at least {sorted(need)}")
+    emit({"phase": "mesh_families_row", "model": name,
+          "mesh": f"{shape[0]}x{shape[1]}",
+          **{k: row[k] for k in ("backend", "kv_share", "logits_max_abs_diff",
+                                 "decode_ms_per_step",
+                                 "unsharded_decode_ms_per_step", "step_ms",
+                                 "unsharded_step_ms", "train_peak_gb",
+                                 "unsharded_train_peak_gb",
+                                 "collectives_a_step", "formula")}})
+    return row
+
+
+def mesh_families_start(torch) -> dict:
+    """Phase mesh_families' first part: each MESH_FAM model built once at
+    full width, then its (1, 2) ranks spawned on cuda:0 under gloo in a
+    thread of this process — they read its whole models over CUDA IPC and
+    copy only their shards — so that they run beside what this process
+    does next (phases that time nothing); ``phase_mesh_families`` joins
+    them."""
+    import threading
+    gen = torch.Generator().manual_seed(SEED + 55)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_families_")
+    built = {}
+    for name in MESH_FAM:
+        cfg, api, model, _, figs = dense_build(
+            torch, name, remat="block",
+            **({"n_layers": MESH_FAM[name]} if MESH_FAM[name] else {}))
+        prompt, prefix = mesh_fam_inputs(torch, cfg, gen)
+        built[name] = {"cfg": cfg, "api": api, "model": model,
+                       "figs": figs, "prompt": prompt, "prefix": prefix}
+    spawned = [s for s in MESH_FAM_SHAPES if s != (1, 1)]
+    box = {}
+
+    def run_spawned():
+        # a failed rank is reported in the joining thread
+        try:
+            box["walls"] = spawn_meshes(mesh_fam_rank, [(shape, (tmp, {
+                n: (b["model"].state_dict(), b["prompt"], b["prefix"])
+                for n, b in built.items()})) for shape in spawned])
+        except BaseException as e:
+            box["error"] = e
+    thread = threading.Thread(target=run_spawned)
+    thread.start()
+    return {"built": built, "tmp": tmp, "spawned": spawned, "box": box,
+            "thread": thread}
+
+
+def phase_mesh_families(torch, started=None) -> dict:
+    """The vlm and encdec families and a KV head that model ranks share on
+    (data, model) meshes (module docstring, phase mesh_families): the
+    models and their spawned (1, 2) ranks of ``started``
+    (``mesh_families_start``, which this calls where it is None) joined
+    first, so that what this process times runs alone; then (1, 1) over
+    NCCL and the unsharded inference in this process, and the unsharded
+    steps last (they train the whole models)."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import backend
+    from repro_torch.launch import mesh as mesh_mod
+
+    started = started or mesh_families_start(torch)
+    built, tmp, box = started["built"], started["tmp"], started["box"]
+    res = {"phase": "mesh_families", "batch": BATCH,
+           "prompt": MESH_FAM_PROMPT, "new_tokens": MESH_FAM_NEW,
+           "train_rows": MESH_FAM_TRAIN_ROWS, "train_seq": MESH_FAM_SEQ,
+           "steps": MESH_FAM_STEPS,
+           "logit_tolerance_share": MESH_LOGIT_TOL, "models": {}}
+    ranks, refs = {}, {}
+    try:
+        started["thread"].join()
+        if "error" in box:
+            fail(f"mesh_families: the spawned meshes failed: "
+                 f"{box['error']!r}")
+        torch.cuda.ipc_collect()
+        for shape in started["spawned"]:
+            for name in built:
+                ranks[(name, shape)] = ([torch.load(
+                    rank_file(tmp, shape, r, f"{name}_"), weights_only=False)
+                    for r in range(shape[0] * shape[1])],
+                    box["walls"][shape])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    t0 = time.perf_counter()
+    backend.init(0, 1, "cuda", backend.free_port())
+    try:
+        ctx = mesh_mod.make_debug_mesh(1, 1)
+        for name, b in built.items():
+            ranks[(name, (1, 1))] = ([mesh_fam_run(
+                torch, ctx, 0, b["model"], b["cfg"], b["prompt"],
+                b["prefix"], check=False)], time.perf_counter() - t0)
+            t0 = time.perf_counter()
+    finally:
+        dist.destroy_process_group()
+    for name, b in built.items():
+        refs[name] = mesh_fam_unsharded(
+            torch, b["api"], b["model"], b["cfg"], b["prompt"], b["prefix"],
+            train=False)
+    for name, b in built.items():
+        t0 = time.perf_counter()
+        ref = dict(refs[name], **mesh_fam_unsharded(
+            torch, b["api"], b["model"], b["cfg"], None, None, train=True))
+        cfg = b["cfg"]
+        row = {"layers": cfg.n_layers, "family": cfg.family,
+               "n_kv_heads": cfg.n_kv_heads, "model_gb": b["figs"]["model_gb"],
+               "build_s": b["figs"]["build_s"],
+               "unsharded_steps_s": time.perf_counter() - t0, "meshes": {}}
+        if cfg.family == "encdec":
+            row["enc_layers"] = cfg.enc_layers
+        for shape in MESH_FAM_SHAPES:
+            rs, wall = ranks[(name, shape)]
+            row["meshes"][f"{shape[0]}x{shape[1]}"] = mesh_fam_gate(
+                torch, name, cfg, shape, rs, ref, wall)
+        res["models"][name] = row
+        del b["model"], ref
+        torch.cuda.empty_cache()
+    emit(res)
+    return res
+
+
 def run_cli(label: str, argv, timeout: float) -> dict:
     """Run ``python -m <argv>`` from the checkout with the port on the path;
     returns its exit code, its output lines, each line's arrival second
@@ -7932,10 +8508,17 @@ def main() -> None:
                   main_path["prompt"])
     steps = {layout: conv[layout]["step"] for layout in conv}
     del conv
+    # phase mesh_families' (1, 2) ranks run beside phases invariance and
+    # check, which time nothing (the time limit's cut: the ranks' own walls
+    # include those phases' load); it joins them before it times anything
+    families = run("mesh_families_start", mesh_families_start, torch)
     run("invariance", phase_invariance, torch, main_path["cfg"])
     run("invariance_starcoder2", phase_invariance, torch,
         dense_cfg("starcoder2-7b"), layouts=("nibble",))
     run("check", phase_check, torch, main_path["cfg"])
+    mesh_families = run("mesh_families", phase_mesh_families, torch,
+                        families)
+    del families
     train = run("train", phase_train, torch, main_path)
     full = run("train_full", phase_train_full, torch, main_path, train)
     # llama3.2-1b's models go before the 7B ones are made
@@ -8068,6 +8651,22 @@ def main() -> None:
                     [*(sh[d] for d in dims), sh["max_abs_err"], sh["ms"],
                      sh["plain_ms"], sh["bound_ms"],
                      *((sh["library_ms"],) if "library_ms" in sh else ())])
+    # phase mesh_families' path: each model's generate at (1, 2) on rank 0
+    # (counts set to 0 just before each), summed; every shard shape its
+    # rank 0 held to plain, as [M, N, K, err, ms, plain ms, bound ms,
+    # library ms] (K4's as B, Sq, Sk, Hq, Hkv; K5 and the plane forms have
+    # no library call)
+    fam_launches, fam_shapes = {}, {}
+    for m in mesh_families["models"].values():
+        row = m["meshes"]["1x2"]
+        for k, v in row["launches_a_rank"].items():
+            fam_launches[k] = fam_launches.get(k, 0) + v
+        for sh in row.get("shapes", ()):
+            dims = ("M", "N", "K") if "M" in sh else \
+                ("B", "Sq", "Sk", "Hq", "Hkv")
+            fam_shapes.setdefault(sh["kernel"], []).append(
+                [*(sh[d] for d in dims), sh["max_abs_err"], sh["ms"],
+                 sh["plain_ms"], sh["bound_ms"], sh.get("library_ms")])
     kernels = []
     for name in (k.__name__ for k in ops.KERNELS):
         st = times[name]
@@ -8090,7 +8689,11 @@ def main() -> None:
             **({"mesh_moe_launches": mesh_moe_launches[name]}
                if name in mesh_moe_launches else {}),
             **({"mesh_moe_shapes": mesh_moe_shapes[name]}
-               if name in mesh_moe_shapes else {})})
+               if name in mesh_moe_shapes else {}),
+            **({"mesh_families_launches": fam_launches[name]}
+               if name in fam_launches else {}),
+            **({"mesh_families_shapes": fam_shapes[name]}
+               if name in fam_shapes else {})})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "phase_seconds": seconds,
           "k4_7b_prefill_us": {m: r["us"] for m, r in attn_7b.items()},
@@ -8161,6 +8764,13 @@ def main() -> None:
               "collectives_a_step", "formula", "logits_max_abs_diff")}
               for name, m in r["meshes"].items()}
               for model, r in mesh_moe["models"].items()},
+          "mesh_families": {model: {name: {k: m[k] for k in (
+              "backend", "kv_share", "decode_ms_per_step",
+              "unsharded_decode_ms_per_step", "step_ms", "unsharded_step_ms",
+              "train_peak_gb", "unsharded_train_peak_gb",
+              "collectives_a_step", "formula", "logits_max_abs_diff")}
+              for name, m in r["meshes"].items()}
+              for model, r in mesh_families["models"].items()},
           "launch": {k: launch[k] for k in (
               "train", "train_resumed", "serve_continuous",
               "serve_speculative", "serve_family_smoke")},

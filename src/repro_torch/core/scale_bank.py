@@ -17,8 +17,10 @@ row install likewise writes into the stack in place.
 On a ``(data, model)`` mesh (``ctx``, ``dist/context.py``) the bank keeps
 the whole host sets, and a swap or a row install cuts each rank's block
 from them (``dist/sharding.py::local_scales``: column-parallel rows
-sliced, row-parallel scales whole, an ``experts_ep`` stack's scales
-narrowed to the rank's experts) and copies only that into the rank's
+sliced — a grouped ``wk``/``wv``'s to the KV head the rank shares —,
+row-parallel scales whole, an ``experts_ep`` stack's scales narrowed to
+the rank's experts; a whisper tree's encoder and decoder leaves alike)
+and copies only that into the rank's
 shard: no collective.  ``swap_collectives`` and
 ``ResidentStack.install_collectives`` return the collective record of one
 swap or install — the reference's ``swap_hlo`` / ``install_hlo`` scans —,
@@ -111,7 +113,8 @@ def apply_scales(model: nn.Module, scales: Dict[str, np.ndarray],
     lacks are ignored; a shape mismatch raises before anything is
     written."""
     if ctx is not None:
-        scales = sharding.local_scales(scales, ctx)
+        scales = sharding.local_scales(scales, ctx,
+                                       sharding.shard_kv_share(model))
     params = _scale_params(model, SCALE_KEYS)
     todo = [(path, arr) for path, arr in scales.items() if path in params]
     for path, arr in todo:
@@ -213,6 +216,7 @@ class ResidentStack:
         # on a mesh ``model`` is the rank's shard: its leaves, and every row
         # installed, are the rank's blocks of the bank's whole sets
         self.ctx = ctx
+        self._kv_share = sharding.shard_kv_share(model)
         # host snapshot NOW: switch_task later overwrites the live scales
         self._base = extract_scales(model, include_zero=True)
         warm = list(warm)
@@ -240,7 +244,7 @@ class ResidentStack:
 
     def _local(self, scales: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         return scales if self.ctx is None \
-            else sharding.local_scales(scales, self.ctx)
+            else sharding.local_scales(scales, self.ctx, self._kv_share)
 
     def _rows_for(self, name: str) -> dict:
         task = self._local(self.bank.tasks[name])
@@ -499,16 +503,17 @@ class ScaleBank:
     def nbytes(self, name: str) -> int:
         return sum(a.nbytes for a in self.tasks[name].values())
 
-    def local_nbytes(self, name: str, ctx=None) -> int:
+    def local_nbytes(self, name: str, ctx=None, kv_share: int = 1) -> int:
         """Bytes one rank receives in a swap, from its block's shape: each
         sharded extent over its axes, rounded up (the reference's padded
-        shards), a row-parallel scale whole.  With no ctx, ``nbytes``."""
+        shards), a row-parallel scale whole, a KV head that ``kv_share``
+        ranks share whole.  With no ctx, ``nbytes``."""
         if ctx is None:
             return self.nbytes(name)
         total = 0
         for path, arr in self.tasks[name].items():
             shape = np.shape(arr)
-            spec = sharding.spec_for_path(path, len(shape))
+            spec = sharding.spec_for_path(path, len(shape), kv_share=kv_share)
             total += int(np.prod(sharding.local_shape(
                 shape, spec, ctx.axis_sizes))) * np.asarray(arr).itemsize
         return total

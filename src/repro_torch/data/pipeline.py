@@ -65,3 +65,42 @@ def eval_batches(tokens: np.ndarray, batch_size: int, seq_len: int):
         tok = np.stack([tokens[s:s + seq_len] for s in starts])
         lab = np.stack([tokens[s + 1:s + seq_len + 1] for s in starts])
         yield {"tokens": tok.astype(np.int32), "labels": lab.astype(np.int32)}
+
+
+def family_prefix(cfg, rows: int, seed) -> Optional[tuple]:
+    """(batch key, (rows, P, d) float32 N(0, 1) array) of a family's
+    per-row prefix state (``registry.prefix_rows``), drawn from ``seed``:
+    a vlm's image embeddings, an encdec's encoder frames; None for a
+    family that takes none.  Both stubs stand for a frontend neither
+    package has (the reference's vision tower and log-mel convolutions)."""
+    from repro_torch.models import registry
+    got = registry.prefix_rows(cfg)
+    if got is None:
+        return None
+    key, p = got
+    return key, np.random.default_rng(seed).normal(
+        size=(rows, p, cfg.d_model)).astype(np.float32)
+
+
+def with_prefix(batch: dict, cfg, seed) -> dict:
+    """``batch`` with the family's prefix state for its rows
+    (``family_prefix``); a family without one gets the batch as it is."""
+    got = family_prefix(cfg, len(batch["tokens"]), seed)
+    return batch if got is None else {**batch, got[0]: got[1]}
+
+
+@dataclasses.dataclass(frozen=True)
+class Prefixed:
+    """A batch source whose step-``s`` batch carries the family's prefix
+    state drawn from (``seed``, 0, s): a pure function of the step, so
+    every rank of a mesh draws the same global batch and a resumed run the
+    same batch as an unbroken one (eval batch i draws from (``seed``, 1,
+    i), ``launch.train``)."""
+
+    data: PackedLM
+    cfg: object
+    seed: int = 0
+
+    def batch_at(self, step: int) -> dict:
+        return with_prefix(self.data.batch_at(step), self.cfg,
+                           (self.seed, 0, step))

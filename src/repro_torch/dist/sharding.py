@@ -27,6 +27,17 @@ and the reference's layer-stacked leaf.
     Megatron MLP.  Unlike the reference's rule, which puts a plane
     stack's model axis on its bits dim, the port's places it on E
     (``spec_for_path(..., planes=True)``).
+  * KV heads fewer than the model ranks (granite-34b's one, MQA): where
+    the model axis M is a multiple of n_kv_heads, ``kv_share`` = M/n_kv
+    consecutive model ranks hold the same KV head whole — rank r the head
+    ``r // kv_share``, exactly the one its n_heads/M query heads group
+    onto —, so ``wk``/``wv``'s output rows (codes, scales, zeros, a
+    ``qkv_bias``) are cut into n_kv blocks, not M (a ``KVGroup`` entry in
+    the spec), and the cache's KV-head dim likewise.  The reference cuts
+    the rows over M and shards the cache's head_dim instead, leaving GSPMD
+    to sum partial QKᵀ products over D; the port computes each rank's
+    attention locally over whole heads (K4), so it keeps the head whole:
+    the same values, another layout (ROADMAP §3).
 
 The reference hands these specs to GSPMD.  The port cuts each rank's
 local module from the whole quantized model (``shard_model``): the shard
@@ -38,7 +49,9 @@ n_kv/M KV heads (``shard_config``).
 In training every leaf's gradient is one of three kinds on the model axis
 (``leaf_kind``): ``"sharded"`` — the rank's block, complete —,
 ``"partial"`` — a row-parallel linear's whole ``scale``/``zero``, whose
-gradient on a rank is the partial sum over its input columns — and
+gradient on a rank is the partial sum over its input columns; a grouped
+``wk``/``wv`` leaf, whose gradient covers only the rank's query heads'
+share of its KV head — and
 ``"replicated"`` — equal on every model rank (norm gains, row-parallel
 biases).  The train step sums the partial ones over the model axis, the
 gradient norm and the int8 codec reduce over the sharded ones; the
@@ -49,15 +62,15 @@ rank's experts (or d_ff slice), and the MoE block lets its aux term in at
 whole gradient.
 
 ``shard_problems`` refuses what this slice does not shard, with a reason:
-a head, KV-head, d_ff or vocab count the model axis does not divide (the
-reference's head-dim fallback of ``cache_specs`` and MQA wait for a later
-slice), an expert count ("expert") or an expert's or the shared experts'
+a head, d_ff or vocab count the model axis does not divide, a KV-head count
+that neither divides it nor is divided by it, an expert count ("expert") or an expert's or the shared experts'
 d_ff ("tensor", shared) it does not divide, and a local input extent that
 breaks a kernel's operand layout (the nibble word ``K % 8``, the plane
 word ``K % 32``, whole groups).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Iterable, List, Mapping, Optional, Sequence
 
 import numpy as np
@@ -79,25 +92,57 @@ REPLICATED_MODULES = ("router", "sr", "sb", "gi", "gf", "sw")
 # per-head SSM vectors: the trailing heads dim
 HEAD_VECTOR_LEAVES = ("A_log", "ssm_D", "dt_bias")
 _LINEAR_LEAVES = ("w", "qw", "scale", "zero", "b")
+# the linears whose output rows are KV heads (self- and cross-attention)
+KV_LINEARS = ("wk", "wv")
 
 
-def _mk(ndim: int, axis_at: int) -> tuple:
-    """A spec with MODEL_AXIS at ``axis_at``, trailing Nones trimmed."""
+@dataclasses.dataclass(frozen=True)
+class KVGroup:
+    """A spec entry: the dim is cut over the model axis into M/``share``
+    blocks, each held by ``share`` consecutive model ranks (a KV head
+    shared by the ranks whose query heads group onto it)."""
+    share: int
+
+
+def kv_share(cfg: ModelConfig, model_size: int) -> int:
+    """How many model ranks hold each KV head: M/n_kv_heads where the KV
+    heads are fewer than the model ranks and divide them, else 1."""
+    n = cfg.n_kv_heads
+    return model_size // n if n < model_size and model_size % n == 0 else 1
+
+
+def model_block(ax, model_size: int, model_rank: int):
+    """(blocks, this rank's block) of a dim under spec entry ``ax``, or
+    None where ``ax`` does not cut the model axis."""
+    if ax == MODEL_AXIS:
+        return model_size, model_rank
+    if isinstance(ax, KVGroup):
+        return model_size // ax.share, model_rank // ax.share
+    return None
+
+
+def _mk(ndim: int, axis_at: int, axis=MODEL_AXIS) -> tuple:
+    """A spec with ``axis`` (the model axis, or a ``KVGroup`` of it) at
+    ``axis_at``, trailing Nones trimmed."""
     if axis_at < 0 or axis_at >= ndim:
         return ()
-    return (None,) * axis_at + (MODEL_AXIS,)
+    return (None,) * axis_at + (axis,)
 
 
 def _is_norm(name: str) -> bool:
     return name.startswith("ln") or "norm" in name
 
 
-def spec_for_path(path: str, ndim: int, planes: bool = False) -> tuple:
+def spec_for_path(path: str, ndim: int, planes: bool = False,
+                  kv_share: int = 1) -> tuple:
     """The spec of the leaf at ``path`` (the reference's key path, with or
     without its leading slash) with ``ndim`` dims; ``planes``: the leaf is
     a bit-plane ``qw``, whose trailing dims are (bits, N, K/32) — which
     its ndim alone cannot tell apart from a nibble stack with a layer dim
-    (``param_specs`` reads it from a module's linears)."""
+    (``param_specs`` reads it from a module's linears); ``kv_share`` > 1:
+    the config's KV heads are fewer than the model ranks (``kv_share(cfg,
+    M)``), so a ``wk``/``wv`` leaf's output dim takes ``KVGroup(kv_share)``
+    instead of the model axis."""
     parts = [p for p in path.split("/") if p]
     leaf = parts[-1] if parts else ""
     parent = parts[-2] if len(parts) >= 2 else ""
@@ -125,22 +170,28 @@ def spec_for_path(path: str, ndim: int, planes: bool = False) -> tuple:
             if leaf in ("w", "qw"):         # (…, out, in): the input dim
                 return _mk(ndim, ndim - 1)
             return ()                       # scale/zero/b: per output row
+        axis = KVGroup(kv_share) if kv_share > 1 and parent in KV_LINEARS \
+            else MODEL_AXIS
         if leaf == "b":                     # a column bias: the output
-            return _mk(ndim, ndim - 1)
-        return _mk(ndim, ndim - 2)          # w/qw/scale/zero: the output
+            return _mk(ndim, ndim - 1, axis)
+        return _mk(ndim, ndim - 2, axis)    # w/qw/scale/zero: the output
     return ()
 
 
 SHARDED, PARTIAL, REPLICATED = "sharded", "partial", "replicated"
 
 
-def leaf_kind(path: str, ndim: int) -> str:
+def leaf_kind(path: str, ndim: int, kv_share: int = 1) -> str:
     """What a rank holds of the gradient of the leaf at ``path`` on the
     model axis: ``SHARDED`` (its block), ``PARTIAL`` (a row-parallel
     scale or zero: a partial sum over its input columns; an MoE router's
-    weight: its experts' or d_ff slice's share) or ``REPLICATED`` (the
+    weight: its experts' or d_ff slice's share; a grouped ``wk``/``wv``
+    leaf: its query heads' share of its KV head's) or ``REPLICATED`` (the
     whole gradient, equal on every model rank)."""
-    if MODEL_AXIS in spec_for_path(path, ndim):
+    spec = spec_for_path(path, ndim, kv_share=kv_share)
+    if any(isinstance(ax, KVGroup) for ax in spec):
+        return PARTIAL
+    if MODEL_AXIS in spec:
         return SHARDED
     parts = [p for p in path.split("/") if p]
     if len(parts) >= 2 and parts[-1] in ("scale", "zero") \
@@ -151,20 +202,34 @@ def leaf_kind(path: str, ndim: int) -> str:
     return REPLICATED
 
 
+def shard_kv_share(model) -> int:
+    """The ``kv_share`` a shard was cut with (``shard_model`` records it;
+    1 for a whole model or a mapping)."""
+    return getattr(model, "kv_share", 1)
+
+
+def _share_of(tree, kv_share: int) -> int:
+    """A module's own ``kv_share``, else (a flat mapping) ``kv_share``."""
+    return shard_kv_share(tree) if isinstance(tree, nn.Module) else kv_share
+
+
 def leaf_kinds(model: nn.Module) -> Dict[str, str]:
     """{parameter name: ``leaf_kind``} of ``model``'s parameters."""
-    return {name: leaf_kind(ref_path(name), t.dim())
+    share = shard_kv_share(model)
+    return {name: leaf_kind(ref_path(name), t.dim(), share)
             for name, t in model.named_parameters()}
 
 
 def moment_specs(model: nn.Module, mv: Mapping) -> Dict[str, tuple]:
     """The spec of each optimizer moment pair (``MaskedAdamW``'s ``mv``):
     both moments take their parameter's spec (the reference's
-    ``state_specs``)."""
+    ``state_specs``; a shared KV head's from the shard's ``kv_share``)."""
+    share = shard_kv_share(model)
     params = dict(model.named_parameters())
     out = {}
     for name in mv:
-        spec = spec_for_path(ref_path(name), params[name].dim())
+        spec = spec_for_path(ref_path(name), params[name].dim(),
+                             kv_share=share)
         out[name] = (spec, spec)
     return out
 
@@ -191,9 +256,11 @@ def _leaves(tree) -> Iterable[tuple]:
 
 def param_specs(tree) -> Dict[str, tuple]:
     """{name: spec} of every leaf of ``tree``: a module (keyed by its
-    tensor names, each bit-plane ``qw`` known from its linear) or a flat
-    {path: array} mapping."""
-    return {name: spec_for_path(path, len(tuple(t.shape)), planes)
+    tensor names, each bit-plane ``qw`` known from its linear, a shared KV
+    head from the shard's ``kv_share``) or a flat {path: array}
+    mapping."""
+    share = shard_kv_share(tree)
+    return {name: spec_for_path(path, len(tuple(t.shape)), planes, share)
             for path, name, t, planes in _leaves(tree)}
 
 
@@ -216,12 +283,14 @@ def stacked_scale_specs(tree) -> dict:
 
 
 def cache_specs(ctx, cache: Mapping, batch: int, batch_sharded: bool,
-                n_kv_heads: int = 0, batch_dims: Optional[Mapping] = None
-                ) -> Dict[str, tuple]:
+                n_kv_heads: int = 0, batch_dims: Optional[Mapping] = None,
+                kv_share: int = 1) -> Dict[str, tuple]:
     """The spec of every cache leaf (the reference's rule): the batch dim
     over the data axes where sharded, the KV-head dim over the model axis
-    where it divides — else head_dim, the reference's fallback, which this
-    slice refuses to run (``shard_problems``).
+    where it divides — else head_dim, the reference's fallback.  With
+    ``kv_share`` > 1 (fewer KV heads than model ranks) the KV-head dim
+    takes ``KVGroup(kv_share)`` instead: the port's layout, each rank's
+    cache holding its KV head whole (the module docstring).
 
     ``batch_dims`` ({key: dim}, ``train.serve.cache_dims``' first half)
     pins each leaf's batch dim structurally; without it the batch dim is
@@ -240,10 +309,12 @@ def cache_specs(ctx, cache: Mapping, batch: int, batch_sharded: bool,
                 parts[dim] = tuple(ctx.data_axes)
                 placed = True
             elif (n_kv_heads and dim >= 2 and shape[dim] == n_kv_heads
-                  and n_kv_heads % msize == 0
-                  and ctx.model_axis not in parts):
-                parts[dim] = ctx.model_axis
-        if ctx.model_axis not in parts and nd >= 3 \
+                  and not any(model_block(p, msize, 0) for p in parts)):
+                if n_kv_heads % msize == 0:
+                    parts[dim] = ctx.model_axis
+                elif kv_share > 1:
+                    parts[dim] = KVGroup(kv_share)
+        if not any(model_block(p, msize, 0) for p in parts) and nd >= 3 \
                 and shape[-1] % msize == 0:
             parts[-1] = ctx.model_axis
         return tuple(parts)
@@ -259,16 +330,27 @@ def _axis_total(ax, sizes: Mapping) -> int:
     return total
 
 
-def validate_for_mesh(tree, mesh) -> List[str]:
+def validate_for_mesh(tree, mesh, kv_share: int = 1) -> List[str]:
     """Every sharded dim of ``tree`` (a module or a flat {path: array})
     must divide its mesh axes; returns the problems (empty: coherent).
-    ``mesh``: a ``MeshContext`` or a {axis: size} mapping."""
+    ``mesh``: a ``MeshContext`` or a {axis: size} mapping; a grouped KV
+    dim must divide its blocks (``kv_share``: a flat mapping's; a module
+    gives its own)."""
     sizes = dict(getattr(mesh, "axis_sizes", mesh))
+    share = _share_of(tree, kv_share)
     problems: List[str] = []
     for path, _, leaf, planes in _leaves(tree):
         shape = tuple(leaf.shape)
-        for dim, ax in enumerate(spec_for_path(path, len(shape), planes)):
+        for dim, ax in enumerate(spec_for_path(path, len(shape), planes,
+                                               share)):
             if ax is None:
+                continue
+            if isinstance(ax, KVGroup):
+                total = sizes.get(MODEL_AXIS, 1) // ax.share
+                if shape[dim] % total:
+                    problems.append(f"{path}: dim {dim} = {shape[dim]} not "
+                                    f"divisible by {total} (model / "
+                                    f"{ax.share})")
                 continue
             missing = [a for a in (ax if isinstance(ax, tuple) else (ax,))
                        if a not in sizes]
@@ -293,8 +375,11 @@ def shard_problems(cfg: ModelConfig, model_size: int) -> List[str]:
     m = model_size
     mc = cfg.moe
     out = []
-    counts = [("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
-              ("vocab_size", cfg.vocab_size)]
+    counts = [("n_heads", cfg.n_heads), ("vocab_size", cfg.vocab_size)]
+    if cfg.n_kv_heads % m and m % cfg.n_kv_heads:
+        out.append(f"n_kv_heads={cfg.n_kv_heads} neither divides nor is "
+                   f"divided by the model axis ({m}): a rank holds whole KV "
+                   f"heads, or one KV head that model ranks share")
     # the input extents of the row-parallel linears, each cut over m
     rows = [("wo", cfg.n_heads * cfg.d_head)]
     if mc is None:
@@ -314,9 +399,6 @@ def shard_problems(cfg: ModelConfig, model_size: int) -> List[str]:
     for what, n in counts:
         if n % m:
             out.append(f"{what}={n} is not divisible by the model axis ({m})"
-                       + (": the reference's head-dim fallback of "
-                          "cache_specs (MQA, n_kv_heads=1) is not ported"
-                          if what == "n_kv_heads" else "")
                        + (": expert parallelism gives each rank whole "
                           "experts" if what == "n_experts" else ""))
     if out:
@@ -337,11 +419,12 @@ def shard_problems(cfg: ModelConfig, model_size: int) -> List[str]:
 
 
 def shard_config(cfg: ModelConfig, model_size: int) -> ModelConfig:
-    """The config a rank's shard runs under: its local query and KV heads,
-    the head width pinned (the vocab, d_ff and d_model stay the whole
-    model's: the shard's tensors carry their own extents)."""
+    """The config a rank's shard runs under: its local query and KV heads
+    (one KV head where ``kv_share`` ranks share it), the head width pinned
+    (the vocab, d_ff and d_model stay the whole model's: the shard's
+    tensors carry their own extents)."""
     return cfg.replace(n_heads=cfg.n_heads // model_size,
-                       n_kv_heads=cfg.n_kv_heads // model_size,
+                       n_kv_heads=max(cfg.n_kv_heads // model_size, 1),
                        head_dim=cfg.d_head)
 
 
@@ -350,9 +433,10 @@ def local_slice(t: torch.Tensor, spec: Sequence, ctx) -> torch.Tensor:
     parameters are never batch-sharded), contiguous, a new tensor."""
     out = t
     for dim, ax in enumerate(spec):
-        if ax == MODEL_AXIS:
-            n = t.shape[dim] // ctx.model_size
-            out = out.narrow(dim, ctx.model_rank * n, n)
+        block = model_block(ax, ctx.model_size, ctx.model_rank)
+        if block is not None:
+            n = t.shape[dim] // block[0]
+            out = out.narrow(dim, block[1] * n, n)
     return out.contiguous().clone()
 
 
@@ -364,25 +448,28 @@ def local_shape(shape: Sequence[int], spec: Sequence, sizes: Mapping
     out = []
     for dim, extent in enumerate(shape):
         ax = spec[dim] if dim < len(spec) else None
-        k = 1 if ax is None else _axis_total(ax, sizes)
+        k = 1 if ax is None else sizes[MODEL_AXIS] // ax.share \
+            if isinstance(ax, KVGroup) else _axis_total(ax, sizes)
         out.append(-(-extent // k))
     return tuple(out)
 
 
-def local_scales(scales: Mapping[str, np.ndarray], ctx
+def local_scales(scales: Mapping[str, np.ndarray], ctx, kv_share: int = 1
                  ) -> Dict[str, np.ndarray]:
     """A host scale set (bank paths, layer-stacked) cut to this rank's
-    block: column-parallel rows sliced, row-parallel scales whole, an
+    block: column-parallel rows sliced (a grouped ``wk``/``wv``'s to its
+    KV head's, ``kv_share`` > 1), row-parallel scales whole, an
     ``experts_ep`` stack's (L, E, N, G) scales narrowed to its experts."""
     out = {}
     for path, arr in scales.items():
         arr = np.asarray(arr)
-        spec = spec_for_path(path, arr.ndim)
+        spec = spec_for_path(path, arr.ndim, kv_share=kv_share)
         for dim, ax in enumerate(spec):
-            if ax == MODEL_AXIS:
-                n = arr.shape[dim] // ctx.model_size
-                arr = np.take(arr, range(ctx.model_rank * n,
-                                         (ctx.model_rank + 1) * n), axis=dim)
+            block = model_block(ax, ctx.model_size, ctx.model_rank)
+            if block is not None:
+                n = arr.shape[dim] // block[0]
+                arr = np.take(arr, range(block[1] * n, (block[1] + 1) * n),
+                              axis=dim)
         out[path] = np.ascontiguousarray(arr)
     return out
 
@@ -392,28 +479,34 @@ def _new_param(t: torch.Tensor, like: torch.Tensor) -> nn.Parameter:
 
 
 def shard_model(model: nn.Module, cfg: ModelConfig, ctx) -> nn.Module:
-    """This rank's shard of the WHOLE ``model`` (a dense or MoE
-    ``Transformer``): a module with the same tensor names, each tensor its
-    ``spec_for_path`` block (contiguous copies: the shard shares no
-    storage with ``model``, so a task swap on it leaves the whole model as
-    it was).  Every linear is marked ``tp``: ``"col"`` or ``"row"`` (a
-    row-parallel linear also ``tp_reduce_bf16``, ``cfg.bf16_reduce``, and
-    with G > 1 groups ``tp_groups``, its block of them; inside an MoE
-    block ``tp_partial``: the block reduces its routed and shared sums
-    together), ``"expert"`` for an ``experts_ep`` stack of E/M whole
-    experts, None for the router; each MoE block is marked ``mesh_shard``
-    as the model is; the token table keeps ``vocab_start``.  ``ctx`` needs
-    only ``model_size`` and ``model_rank`` (``context.coords`` will do)."""
-    from repro_torch.models import common, linear, transformer
+    """This rank's shard of the WHOLE ``model`` (a dense, vlm or MoE
+    ``Transformer``, or an encdec ``Whisper``: each stack's attention and
+    MLP cut alike, the cross-attention's q/k/v column-parallel and its
+    ``wo`` row-parallel, the learned positions and every norm whole): a
+    module with the same tensor names, each tensor its ``spec_for_path``
+    block (contiguous copies: the shard shares no storage with ``model``,
+    so a task swap on it leaves the whole model as it was).  Every linear
+    is marked ``tp``: ``"col"`` or ``"row"`` (a row-parallel linear also
+    ``tp_reduce_bf16``, ``cfg.bf16_reduce``, and with G > 1 groups
+    ``tp_groups``, its block of them; inside an MoE block ``tp_partial``:
+    the block reduces its routed and shared sums together), ``"kv"`` for a
+    ``wk``/``wv`` that holds its KV head whole (``kv_share`` > 1, recorded
+    on the shard as ``kv_share``), ``"expert"`` for an ``experts_ep``
+    stack of E/M whole experts, None for the router; each MoE block is
+    marked ``mesh_shard`` as the model is; the token table keeps
+    ``vocab_start``.  ``ctx`` needs only ``model_size`` and ``model_rank``
+    (``context.coords`` will do)."""
+    from repro_torch.models import common, linear, registry
     probs = shard_problems(cfg, ctx.model_size)
     if probs:
         raise NotImplementedError(f"{cfg.name}: cannot shard over a model "
                                   f"axis of {ctx.model_size}: "
                                   f"{'; '.join(probs)}")
-    local = transformer.Transformer(shard_config(cfg, ctx.model_size),
-                                    device="meta")
+    share = kv_share(cfg, ctx.model_size)
+    local = registry.module_class(cfg)(shard_config(cfg, ctx.model_size),
+                                       device="meta")
     shard = (ctx.model_rank, ctx.model_size)
-    for layer in local.layers:
+    for layer in getattr(local, "layers", ()):
         if layer.moe is None:
             continue
         layer.moe.mesh_shard = shard
@@ -427,7 +520,7 @@ def shard_model(model: nn.Module, cfg: ModelConfig, ctx) -> nn.Module:
         for name, mod in local.named_modules():
             src = whole[name]
             if isinstance(mod, linear.Linear):
-                _shard_linear(mod, src, name, ctx, cfg.bf16_reduce)
+                _shard_linear(mod, src, name, ctx, cfg.bf16_reduce, share)
                 continue
             for pname, prm in list(src._parameters.items()):
                 if prm is None:
@@ -436,7 +529,7 @@ def shard_model(model: nn.Module, cfg: ModelConfig, ctx) -> nn.Module:
                 mod._parameters[pname] = _new_param(
                     local_slice(prm.detach(), spec_for_path(path, prm.dim()),
                                 ctx), prm)
-            if name == "embed":
+            if isinstance(mod, common.Embed):
                 mod.vocab_start = ctx.model_rank * (
                     src.emb.shape[0] // ctx.model_size)
                 mod.vocab_size = src.emb.shape[0]
@@ -445,24 +538,28 @@ def shard_model(model: nn.Module, cfg: ModelConfig, ctx) -> nn.Module:
     if left:
         raise ValueError(f"shard_model: tensors left uncut: {left}")
     local.mesh_shard = shard
+    local.kv_share = share
     return local
 
 
-def _shard_linear(mod, src, name: str, ctx, bf16_reduce: bool) -> None:
+def _shard_linear(mod, src, name: str, ctx, bf16_reduce: bool,
+                  share: int = 1) -> None:
     """Fill the local ``Linear`` ``mod`` from the whole one ``src``; a
     row-parallel one reduces in the activation dtype under
-    ``bf16_reduce``, or not at all inside an MoE block."""
+    ``bf16_reduce``, or not at all inside an MoE block; with ``share`` > 1
+    a ``wk``/``wv`` keeps its rank's KV head whole."""
     parts = name.split(".")
     replicated = any(p in REPLICATED_MODULES for p in parts)
     ep = "experts_ep" in parts
     row = parts[-1] in ROW_PARALLEL and not (replicated or ep)
+    grouped = share > 1 and parts[-1] in KV_LINEARS
     m = ctx.model_size
 
     def cut(leaf: str, t: torch.Tensor) -> torch.Tensor:
         path = ref_path(f"{name}.{leaf}")
         planes = leaf == "qw" and src.spec is not None and src.spec.plane
-        return local_slice(t.detach(), spec_for_path(path, t.dim(), planes),
-                           ctx)
+        return local_slice(t.detach(), spec_for_path(path, t.dim(), planes,
+                                                     share), ctx)
 
     if src.has_lora or src.fake_quant:
         raise NotImplementedError(
@@ -471,8 +568,8 @@ def _shard_linear(mod, src, name: str, ctx, bf16_reduce: bool) -> None:
         mod.n_experts = src.n_experts // m if ep else src.n_experts
     split = not (replicated or ep)
     mod.in_features = src.in_features // m if row else src.in_features
-    mod.out_features = src.out_features // m if split and not row \
-        else src.out_features
+    mod.out_features = src.out_features * share // m if grouped else \
+        src.out_features // m if split and not row else src.out_features
     if src.quantized:
         del mod._parameters["w"]
         mod.set_quantized(cut("qw", src.qw), cut("scale", src.scale),
@@ -487,31 +584,43 @@ def _shard_linear(mod, src, name: str, ctx, bf16_reduce: bool) -> None:
         mod.w = _new_param(cut("w", src.w), src.w)
     mod.b = None if src.b is None else _new_param(cut("b", src.b), src.b)
     mod.tp = None if replicated else "expert" if ep else \
-        "row" if row else "col"
+        "row" if row else "kv" if grouped else "col"
     if row:
         mod.tp_reduce_bf16 = bool(bf16_reduce)
         if "moe" in parts:
             mod.tp_partial = True
 
 
-def unshard(shards: Sequence) -> Dict[str, torch.Tensor]:
+def unshard(shards: Sequence, kv_share: int = 1
+            ) -> Dict[str, torch.Tensor]:
     """The whole model's tensors ({name: tensor}) put back together from
     the ``shards`` of model ranks 0..M−1 — modules, or {name: tensor}
     mappings keyed by their parameter names (trained leaves, or one
     moment of each optimizer pair, for checkpoints) —: each sharded tensor
-    concatenated along its spec's dim, each replicated one taken from rank
-    0 (and held equal on every rank)."""
+    concatenated along its spec's dim (a grouped KV leaf from one rank of
+    each group, ``kv_share`` — for mappings; modules give their own —,
+    held equal within it), each replicated one taken from rank 0 (and held
+    equal on every rank)."""
     out = {}
     tensors = [dict((*s.named_parameters(), *s.named_buffers()))
                if isinstance(s, nn.Module) else dict(s) for s in shards]
     planes = plane_codes(shards[0]) if isinstance(shards[0], nn.Module) \
         else set()
+    share = _share_of(shards[0], kv_share)
+    m = len(shards)
     for name, t0 in tensors[0].items():
-        spec = spec_for_path(ref_path(name), t0.dim(), name in planes)
+        spec = spec_for_path(ref_path(name), t0.dim(), name in planes, share)
         parts = [t[name].detach() for t in tensors]
-        dims = [d for d, ax in enumerate(spec) if ax == MODEL_AXIS]
+        dims = [(d, ax) for d, ax in enumerate(spec)
+                if model_block(ax, m, 0) is not None]
         if dims:
-            out[name] = torch.cat(parts, dim=dims[0])
+            dim, ax = dims[0]
+            step = ax.share if isinstance(ax, KVGroup) else 1
+            for r in range(m):
+                if not torch.equal(parts[r], parts[r - r % step]):
+                    raise ValueError(f"{name}: KV head block differs on "
+                                     f"model rank {r}")
+            out[name] = torch.cat(parts[::step], dim=dim)
             continue
         for r, p in enumerate(parts[1:], 1):
             if not torch.equal(p, parts[0]):

@@ -150,18 +150,32 @@ def run_family_smoke(engine, cfg, args, log: Callable = print) -> bool:
 
 def continuous_requests(cfg, args, tasks, log: Callable = print) -> list:
     """``--continuous``' request stream: 3 × ``--batch`` requests, from
-    ``mixed_workload`` (``--traffic steps``) or ``traffic.make``."""
+    ``mixed_workload`` (``--traffic steps``) or ``traffic.make``; a vlm's
+    or an encdec's each with its own seeded prefix state
+    (``with_prefixes``)."""
     if args.traffic == "steps":
-        return mixed_workload(tasks, args.batch, args.n_new,
-                              n_requests=3 * args.batch,
-                              vocab=cfg.vocab_size)
+        return with_prefixes(cfg, mixed_workload(
+            tasks, args.batch, args.n_new, n_requests=3 * args.batch,
+            vocab=cfg.vocab_size), args.seed)
     reqs, meta = traffic.make(
         args.traffic, vocab=cfg.vocab_size, seed=args.seed,
         tasks=tuple(tasks), rate=args.rate,
         n_requests=3 * args.batch, trace_path=args.trace or None,
         n_new=(max(2, args.n_new // 2), args.n_new, 2 * args.n_new))
     log(f"[serve] traffic: {meta}")
-    return reqs
+    return with_prefixes(cfg, reqs, args.seed)
+
+
+def with_prefixes(cfg, reqs: list, seed: int) -> list:
+    """``reqs`` with a (P, d) prefix state each where the family takes one
+    (image embeddings, encoder frames: ``pipeline.family_prefix``), drawn
+    from (``seed``, the request's index); the others as they are."""
+    out = []
+    for i, r in enumerate(reqs):
+        got = pipeline.family_prefix(cfg, 1, (seed, i))
+        out.append(r if got is None
+                   else dataclasses.replace(r, prefix=got[1][0]))
+    return out
 
 
 def serve_config(args) -> ServeConfig:
@@ -387,8 +401,9 @@ def tune_tasks(api, backbone, mask, tasks: Sequence[str], steps: int,
                            ckpt_every=10 ** 9,
                            optim=OptimConfig(lr=TUNE_LR,
                                              warmup_steps=warmup))
-        data = pipeline.PackedLM(train_toks, TUNE_BATCH, TUNE_SEQ,
-                                 seed=order_seed)
+        data = pipeline.Prefixed(pipeline.PackedLM(
+            train_toks, TUNE_BATCH, TUNE_SEQ, seed=order_seed), cfg,
+            order_seed)
         opt = make_optimizer(tcfg.optim, tcfg.steps)
         state = make_state(backbone, opt.init(
             dict(backbone.named_parameters()), mask))
@@ -420,13 +435,15 @@ def serve_lockstep(engine, args, tasks, ctx=None, log: Callable = print
     """The round-robin lockstep loop: each task twice, ``--batch`` × 8
     prompt tokens and ``--n-new`` new ones."""
     prompt = np.tile(np.arange(8, dtype=np.int32), (args.batch, 1))
+    got = pipeline.family_prefix(engine.api.cfg, args.batch, args.seed)
+    prefix = None if got is None else got[1]
     if ctx is not None:
         log(f"[serve] rank rows: {tuple(place_prompt(prompt, ctx).shape)} "
             f"of {prompt.shape}")
     for task in tasks * 2:
         dt = engine.switch_task(task)
         t0 = time.perf_counter()
-        out = engine.generate(prompt, n_new=args.n_new)
+        out = engine.generate(prompt, n_new=args.n_new, prefix=prefix)
         gen_t = time.perf_counter() - t0
         log(f"[serve] {task}: switch={dt * 1e3:.2f}ms "
             f"gen={gen_t * 1e3:.0f}ms "
@@ -456,7 +473,7 @@ def mesh_rank(rank: int, argv, bank_root: str) -> None:
     local = sharding.shard_model(backbone, cfg, ctx)
     del backbone
     log(f"[serve] mesh {(d, m)}: a swap moves "
-        f"{bank.local_nbytes(tasks[0], ctx):,} B a rank of "
+        f"{bank.local_nbytes(tasks[0], ctx, local.kv_share):,} B a rank of "
         f"{bank.nbytes(tasks[0]):,} B")
     engine = Engine(api, local, bank=bank, ctx=ctx,
                     logitshard=not args.no_logitshard)

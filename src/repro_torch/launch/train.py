@@ -8,8 +8,10 @@ Builds the arch (the reduced config with ``--tiny``) under the tuning
 ``--mode`` from seed ``--seed`` (``policies.build``: a quantizing arm is
 built layer by layer), trains it on a seeded synthetic corpus with eval on
 its held-out tenth, and checkpoints to ``--ckpt-dir``: a second run on the
-same directory resumes from the newest valid checkpoint.  It runs on the
-card unless ``--device cpu``.
+same directory resumes from the newest valid checkpoint.  A vlm's or an
+encdec's batches carry seeded image embeddings or encoder frames
+(``data.pipeline.Prefixed``: the stubs of the frontends neither package
+has).  It runs on the card unless ``--device cpu``.
 
 ``--mesh D,M`` trains on a (data, model) mesh of D×M ranks, which the
 launcher spawns on ``--device`` (``dist/backend.py``'s rule: gloo on the
@@ -132,7 +134,9 @@ def run(args, ctx=None, log=None):
     toks = synthetic.corpus(cfg.vocab_size, max(args.steps, 100) * args.batch
                             * args.seq // 4 + 50000, seed=args.seed)
     train_toks, val_toks = synthetic.split(toks)
-    data = pipeline.PackedLM(train_toks, args.batch, args.seq, seed=args.seed)
+    data = pipeline.Prefixed(pipeline.PackedLM(train_toks, args.batch,
+                                               args.seq, seed=args.seed),
+                             cfg, args.seed)
 
     opt = make_optimizer(tcfg.optim, tcfg.steps)
     state = make_state(model, opt.init(dict(model.named_parameters()), mask))
@@ -146,8 +150,10 @@ def run(args, ctx=None, log=None):
     es = step_mod.build_eval_step(api, cfg, mesh=ctx)
 
     def eval_fn(params):
-        losses = [float(es(params, b)) for b in
-                  pipeline.eval_batches(val_toks, args.batch, args.seq)]
+        losses = [float(es(params, pipeline.with_prefix(b, cfg,
+                                                         (args.seed, 1, i))))
+                  for i, b in enumerate(pipeline.eval_batches(
+                      val_toks, args.batch, args.seq))]
         return float(np.mean(losses)) if losses else float("nan")
 
     state, hist = loop_mod.train(state, ts, data, tcfg, log=log,

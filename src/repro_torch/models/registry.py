@@ -60,6 +60,14 @@ class FamilyCaps:
     verify_reason: Optional[str] = None
 
 
+def prefix_rows(cfg: ModelConfig) -> Optional[tuple]:
+    """(batch key, rows P) of the per-row prefix state ``cfg``'s family
+    takes (``PREFIXES``: a vlm's ``n_img_tokens`` image embeddings, an
+    encdec's ``enc_frames`` frames); None for a family that takes none."""
+    got = PREFIXES.get(cfg.family)
+    return None if got is None else (got[0], getattr(cfg, got[1]))
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelAPI:
     cfg: ModelConfig
@@ -102,6 +110,10 @@ KV_CACHE_DTYPES = ("model", "int8")
 # one shared attention block)
 FAMILIES = ("dense", "moe", "vlm", "encdec", "ssm", "hybrid")
 RECURRENT = ("ssm", "hybrid")
+# each family's per-row prefix state: its batch key (``FamilyCaps.prefix_key``)
+# and the config field that gives its rows (``prefix_rows``)
+PREFIXES = {"vlm": ("image_embeds", "n_img_tokens"),
+            "encdec": ("frames", "enc_frames")}
 EXPERT_SHARDINGS = ("tensor", "expert")
 # the reference's reasons (its registry.py) why an MoE model has no slotted
 # steps and no usable verify: the resident and speculative schedulers'
@@ -120,11 +132,11 @@ RECURRENT_SLOTTED_REASON = ("recurrent state layers cannot thread per-slot "
 # why serving or training on a (data, model) mesh refuses a configuration:
 # the later slices of the mesh (ROADMAP §1)
 MESH_FAMILY_REASON = ("the mesh (serving and training) is ported for the "
-                      "dense and moe families only; {fam} shards later (the "
-                      "vlm's image prefixes, the encdec encoder, the ssm "
-                      "and hybrid recurrent state; MQA's single KV head "
-                      "is refused by the cut)")
-MESH_FAMILIES = ("dense", "moe")
+                      "dense, moe, vlm and encdec families only; {fam} "
+                      "shards later (the ssm and hybrid recurrent state: "
+                      "xproj's concatenated output, the head-sharded SSM "
+                      "state, the conv)")
+MESH_FAMILIES = ("dense", "moe", "vlm", "encdec")
 MESH_ARM_REASON = ("the {mode} arm's LoRA or fake-quant leaves are not "
                    "sharded: serve or train PEQA (peqa, peqa_z) or full "
                    "weights on a mesh")
@@ -322,7 +334,7 @@ def build(cfg: ModelConfig, device=None) -> ModelAPI:
             transformer.decode_verify(m, c, t, pos, cfg, task_stack=st,
                                       task_ids=tid)),
         caps=FamilyCaps(bucketable=True,
-                        prefix_key="image_embeds" if vlm else None,
+                        prefix_key=PREFIXES["vlm"][0] if vlm else None,
                         prefix_positions=vlm,
                         slotted_reason=MOE_SLOTTED_REASON if moe else None,
                         verify_reason=MOE_VERIFY_REASON if moe else None),
@@ -355,7 +367,8 @@ def _build_encdec(cfg: ModelConfig, dev: torch.device) -> ModelAPI:
         init_cache=lambda b, s, device=dev: whisper.init_cache(cfg, b, s,
                                                                device),
         caps=FamilyCaps(positional=True, bucketable=True,
-                        prefix_key="frames", prefix_required=True,
+                        prefix_key=PREFIXES["encdec"][0],
+                        prefix_required=True,
                         prefix_positions=False,
                         slotted_reason=ENCDEC_SLOTTED_REASON,
                         verify_reason=NO_VERIFY_REASON),

@@ -268,7 +268,8 @@ def loss_fn(model: Transformer, batch: dict, cfg: ModelConfig
     "labels", optional "mask" and "image_embeds"}: tensors on the model's
     device), plus ``router_aux_coef`` × the MoE aux loss where the config
     has MoE blocks.  With a vlm prefix only the text rows are scored: the
-    last ``labels.shape[1]`` rows of the logits.
+    last ``labels.shape[1]`` rows of the logits (on a shard, of the final
+    norm's input: the prefix rows never reach the head).
 
     On a model-axis shard the batch is this rank's rows of the global
     batch and the loss is the global batch's token mean, equal on every
@@ -276,17 +277,19 @@ def loss_fn(model: Transformer, batch: dict, cfg: ModelConfig
     and go through ``common.vocab_parallel_cross_entropy``, which also
     averages the MoE term (the aux loss of the rank's data block) over the
     data axis, as the reference's ``pmean``."""
+    labels = batch["labels"]
     if model.embed.vocab_start is not None:
         ctx = context.require()
-        h, aux = _trunk(model, batch["tokens"], cfg)
-        h = common.norm_apply(model.final_norm, h, cfg)
+        h, aux = _trunk(model, batch["tokens"], cfg,
+                        prefix_embeds=batch.get("image_embeds"))
+        h = common.norm_apply(model.final_norm, h[:, h.shape[1]
+                                                  - labels.shape[1]:], cfg)
         block = common.head_apply(model.lm_head, model.embed, h, cfg)
         return common.vocab_parallel_cross_entropy(
-            block, batch["labels"], batch.get("mask"), ctx,
+            block, labels, batch.get("mask"), ctx,
             aux=None if aux is None else cfg.moe.router_aux_coef * aux)
     logits, aux = forward_aux(model, batch["tokens"], cfg,
                               prefix_embeds=batch.get("image_embeds"))
-    labels = batch["labels"]
     if logits.shape[1] != labels.shape[1]:
         logits = logits[:, logits.shape[1] - labels.shape[1]:]
     ce = common.cross_entropy(logits, labels, batch.get("mask"))

@@ -22,14 +22,29 @@ computed once from the encoder's output at prefill and position-free.
 Module names follow the reference's tree (``enc.layers.3.attn.wq`` ↔
 ``/enc/layers/attn/wq``), so ``core.peqa.ref_path``, the bridge and the
 ScaleBank need nothing new.
+
+On a ``(data, model)`` mesh the same functions run a rank's shard
+(``dist/sharding.py::shard_model``) under ``context.use_mesh``: both
+stacks' attention on the rank's local heads, the cross-attention's q/k/v
+column-parallel and every ``wo`` and ``down`` row-parallel (reduced in
+``linear``), the vocab-sharded lookup, the head's logits gathered unless
+the run keeps them vocab-sharded.  Training differentiates through the
+Megatron pair: each LayerNorm's output through ``context.copy_to_model``,
+and the encoder's output once, before every decoder layer's
+column-parallel ``xattn.wk``/``wv`` reads it (one model-axis sum of its
+gradient, not one a layer); the loss scores the vocab block where it lies
+(``common.vocab_parallel_cross_entropy``).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import context
 from repro_torch.kernels import ops
 from repro_torch.models import attention, common, linear
 
@@ -126,26 +141,48 @@ def init(cfg: ModelConfig, generator: torch.Generator, device,
     return model
 
 
-def _checkpointed(cfg: ModelConfig, fn, *args):
+def _checkpointed(cfg: ModelConfig, fn, *args, ctx=None):
     """``fn(*args)``, under ``torch.utils.checkpoint`` (non-reentrant) for
     ``cfg.remat`` "block" or "full" where a backward may follow: it
     recomputes the block.  "dots" runs as "none", as in the reference
-    (whisper.py tests ``remat in ("block", "full")``)."""
+    (whisper.py tests ``remat in ("block", "full")``).  ``ctx``: a
+    model-axis shard's mesh context, re-entered around ``fn`` — the
+    recompute runs in the backward, on autograd's thread on the card,
+    where the caller's ``use_mesh`` is not."""
+    if ctx is not None:
+        fn = functools.partial(_in_mesh, ctx, fn)
     if cfg.remat not in ("block", "full") or not torch.is_grad_enabled():
         return fn(*args)
     return checkpoint(fn, *args, use_reentrant=False)
 
 
-def _enc_block(layer: EncBlock, h: torch.Tensor, cfg: ModelConfig
-               ) -> torch.Tensor:
+def _in_mesh(ctx, fn, *args):
+    with context.use_mesh(ctx):
+        return fn(*args)
+
+
+def _train_ctx(model: Whisper):
+    """The mesh context of a model-axis shard in training (its norms'
+    outputs pass through ``context.copy_to_model``), else None."""
+    if model.dec.embed.vocab_start is None or not torch.is_grad_enabled():
+        return None
+    return context.require()
+
+
+def _copied(x: torch.Tensor, ctx) -> torch.Tensor:
+    return x if ctx is None else context.copy_to_model(x, ctx)
+
+
+def _enc_block(layer: EncBlock, h: torch.Tensor, cfg: ModelConfig,
+               ctx=None) -> torch.Tensor:
     b, t, _ = h.shape
-    q, k, v = attention._qkv(layer.attn, common.norm_apply(layer.ln1, h, cfg),
-                             cfg)
+    q, k, v = attention._qkv(
+        layer.attn, _copied(common.norm_apply(layer.ln1, h, cfg), ctx), cfg)
     o = ops.attention(q, k, v, causal=False)
     h = h + linear.apply(layer.attn.wo,
                          o.reshape(b, t, cfg.n_heads * cfg.d_head))
-    return h + common.mlp_apply(layer.mlp,
-                                common.norm_apply(layer.ln2, h, cfg), cfg)
+    return h + common.mlp_apply(
+        layer.mlp, _copied(common.norm_apply(layer.ln2, h, cfg), ctx), cfg)
 
 
 def encode(model: Whisper, frames: torch.Tensor, cfg: ModelConfig
@@ -156,10 +193,11 @@ def encode(model: Whisper, frames: torch.Tensor, cfg: ModelConfig
     promotes a bf16 model's encoder to float32 when the frames are float32:
     ROADMAP §3)."""
     enc = model.enc
+    ctx = _train_ctx(model)
     h = frames.to(common.model_dtype(cfg))
     h = h + enc.pos.to(h.dtype)
     for layer in enc.layers:
-        h = _checkpointed(cfg, _enc_block, layer, h, cfg)
+        h = _checkpointed(cfg, _enc_block, layer, h, cfg, ctx, ctx=ctx)
     return common.norm_apply(enc.final_norm, h, cfg)
 
 
@@ -189,11 +227,26 @@ def _dec_embed(dec: Decoder, tokens: torch.Tensor, pos, cfg: ModelConfig
     return h + _positions(dec, pos, tokens.shape[1], cfg)
 
 
-def _head(dec: Decoder, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _head_block(dec: Decoder, h: torch.Tensor, cfg: ModelConfig
+                ) -> torch.Tensor:
     """Float32 logits of the final norm of h through the tied token table
-    (whisper's head is tied whatever the config says, as the reference's)."""
+    (whisper's head is tied whatever the config says, as the reference's):
+    on a vocab shard the rank's vocab block, x's gradient summed over the
+    model axis (``context.copy_to_model``)."""
     h = common.norm_apply(dec.final_norm, h, cfg)
+    if dec.embed.vocab_start is not None:
+        h = context.copy_to_model(h, context.require())
     return ops.dot_f32(h, dec.embed.emb.to(h.dtype))
+
+
+def _head(dec: Decoder, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """``_head_block``'s logits, on a vocab shard gathered over the model
+    axis unless the run keeps them vocab-sharded (``context.logitshard``,
+    as ``transformer._final_logits``)."""
+    logits = _head_block(dec, h, cfg)
+    if dec.embed.vocab_start is None or context.logitshard():
+        return logits
+    return context.require().all_gather(logits, "model", dim=-1)
 
 
 def _rope(cfg: ModelConfig, s: int, device):
@@ -205,13 +258,32 @@ def _rope(cfg: ModelConfig, s: int, device):
 
 
 def _dec_block_train(layer: DecBlock, h: torch.Tensor, enc_out: torch.Tensor,
-                     cfg: ModelConfig, rope) -> torch.Tensor:
+                     cfg: ModelConfig, rope, ctx=None) -> torch.Tensor:
     h = h + attention.apply_train(
-        layer.attn, common.norm_apply(layer.ln1, h, cfg), cfg, rope)
+        layer.attn, _copied(common.norm_apply(layer.ln1, h, cfg), ctx), cfg,
+        rope)
     h = h + attention.cross_apply(
-        layer.xattn, common.norm_apply(layer.ln2, h, cfg), enc_out, cfg)
-    return h + common.mlp_apply(layer.mlp,
-                                common.norm_apply(layer.ln3, h, cfg), cfg)
+        layer.xattn, _copied(common.norm_apply(layer.ln2, h, cfg), ctx),
+        enc_out, cfg)
+    return h + common.mlp_apply(
+        layer.mlp, _copied(common.norm_apply(layer.ln3, h, cfg), ctx), cfg)
+
+
+def _trunk(model: Whisper, frames: torch.Tensor, tokens: torch.Tensor,
+           cfg: ModelConfig) -> torch.Tensor:
+    """The encoder and every decoder block → the decoder's last hidden
+    states (B, S, d).  On a shard in training the encoder's output passes
+    through ``context.copy_to_model`` once, for all the decoder layers'
+    cross K/V."""
+    ctx = _train_ctx(model)
+    enc_out = _copied(encode(model, frames, cfg), ctx)
+    dec = model.dec
+    h = _dec_embed(dec, tokens, 0, cfg)
+    rope = _rope(cfg, tokens.shape[1], h.device)
+    for layer in dec.layers:
+        h = _checkpointed(cfg, _dec_block_train, layer, h, enc_out, cfg,
+                          rope, ctx, ctx=ctx)
+    return h
 
 
 def forward(model: Whisper, frames: torch.Tensor, tokens: torch.Tensor,
@@ -219,18 +291,20 @@ def forward(model: Whisper, frames: torch.Tensor, tokens: torch.Tensor,
     """Teacher-forced training forward: frames (B, T, d), tokens (B, S) →
     logits (B, S, V) float32.  Under ``cfg.remat`` "block" or "full" every
     block of both stacks runs under ``torch.utils.checkpoint``."""
-    enc_out = encode(model, frames, cfg)
-    dec = model.dec
-    h = _dec_embed(dec, tokens, 0, cfg)
-    rope = _rope(cfg, tokens.shape[1], h.device)
-    for layer in dec.layers:
-        h = _checkpointed(cfg, _dec_block_train, layer, h, enc_out, cfg, rope)
-    return _head(dec, h, cfg)
+    return _head(model.dec, _trunk(model, frames, tokens, cfg), cfg)
 
 
 def loss_fn(model: Whisper, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     """Token-mean next-token cross entropy of ``batch`` ({"frames",
-    "tokens", "labels", optional "mask"})."""
+    "tokens", "labels", optional "mask"}).  On a model-axis shard the
+    batch is this rank's rows of the global batch and the loss the global
+    batch's token mean, from the rank's vocab block of the logits
+    (``common.vocab_parallel_cross_entropy``)."""
+    if model.dec.embed.vocab_start is not None:
+        h = _trunk(model, batch["frames"], batch["tokens"], cfg)
+        return common.vocab_parallel_cross_entropy(
+            _head_block(model.dec, h, cfg), batch["labels"],
+            batch.get("mask"), context.require())
     logits = forward(model, batch["frames"], batch["tokens"], cfg)
     return common.cross_entropy(logits, batch["labels"], batch.get("mask"))
 

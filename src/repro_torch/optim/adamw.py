@@ -13,7 +13,7 @@ overwritten, as the reference's donated buffers are.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Collection, Dict
+from typing import Callable, Collection, Dict, Mapping
 
 import torch
 
@@ -51,7 +51,9 @@ class MaskedAdamW:
         On a mesh (``ctx``, the rank's shard: ``grads`` already summed over
         the data axis) the norm is the whole model's: the squares of the
         ``sharded`` names — each rank's block of a model-sharded leaf — are
-        summed over the model axis, every other name counted once."""
+        summed over the model axis, every other name counted once; a
+        mapping gives each name the number of model ranks that hold its
+        block (a KV head that ranks share), whose square counts once."""
         c = self.cfg
         state["count"] = state["count"] + 1
         count = state["count"]
@@ -63,7 +65,9 @@ class MaskedAdamW:
         square = lambda n: torch.sum(torch.square(grads[n].to(torch.float32)))
         sq = [square(n) for n in live if n not in sharded]
         if ctx is not None:
-            blocks = [square(n) for n in live if n in sharded]
+            held = sharded.get if isinstance(sharded, Mapping) \
+                else (lambda n: 1)
+            blocks = [square(n) / held(n) for n in live if n in sharded]
             dev = grads[live[0]].device if live else None
             sq.append(ctx.all_reduce(
                 torch.stack(blocks).sum() if blocks

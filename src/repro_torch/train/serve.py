@@ -364,17 +364,26 @@ class Engine:
         return self._gather_rows(torch.cat(out, dim=1), whole_b)
 
     @torch.inference_mode()
-    def prefill_logits(self, tokens) -> torch.Tensor:
+    def prefill_logits(self, tokens, prefix=None) -> torch.Tensor:
         """The prefill's last-position logits (B, V) float32 of the whole
         batch, on every rank (gathered over the data and model axes on a
-        mesh): what ``generate`` samples its first token from."""
+        mesh): what ``generate`` samples its first token from.
+        ``prefix``: (B, P, d) per-row prefix state, as ``generate``'s."""
+        self._check_prefix(prefix)
         tokens = torch.as_tensor(tokens, device=self.device).to(torch.int64)
         b = tokens.shape[0]
+        rows = self._rows(b)
+
+        def batch():
+            out = {"tokens": tokens[rows]}
+            if prefix is not None:
+                out[self.api.caps.prefix_key] = \
+                    self._prefix_tensor(prefix)[rows]
+            return out
         if self.ctx is None:
-            return self.api.prefill(self.model, {"tokens": tokens})[0]
+            return self.api.prefill(self.model, batch())[0]
         with context.use_mesh(self.ctx):          # whole rows: gathered
-            logits, _ = self.api.prefill(
-                self.model, {"tokens": tokens[self._rows(b)]})
+            logits, _ = self.api.prefill(self.model, batch())
             return self._gather_rows(logits, b)
 
     @torch.inference_mode()

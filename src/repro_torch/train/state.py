@@ -11,7 +11,8 @@ their parameter's spec).  ``shard_state`` cuts a whole state;
 ``whole_tree`` puts the reference's tree of the WHOLE state back together
 from the shards (an all-gather over the model axis, for a checkpoint), and
 ``load_shard`` loads a whole tree into a rank's state, cutting its blocks,
-so a checkpoint crosses between meshes and off them.
+so a checkpoint crosses between meshes and off them.  A KV head that model
+ranks share (``sharding.kv_share``) is cut and gathered by its groups.
 """
 from __future__ import annotations
 
@@ -43,20 +44,29 @@ def shard_state(state: dict, ctx, cfg) -> dict:
     """This rank's shard of a WHOLE state (model, moments, count, step):
     ``shard_model``'s cut of the model (of config ``cfg``) and each
     moment's block, new tensors on the model's device."""
-    specs = sharding.moment_specs(state["params"], state["opt"]["mv"])
+    shard = sharding.shard_model(state["params"], cfg, ctx)
+    specs = sharding.moment_specs(shard, state["opt"]["mv"])
     mv = {name: tuple(sharding.local_slice(t, spec, ctx)
                       for t, spec in zip(pair, specs[name]))
           for name, pair in state["opt"]["mv"].items()}
-    return {"params": sharding.shard_model(state["params"], cfg, ctx),
+    return {"params": shard,
             "opt": {"mv": mv, "count": state["opt"]["count"].clone()},
             "step": int(state["step"])}
 
 
 def _gather(spec: tuple, t: torch.Tensor, ctx) -> torch.Tensor:
-    """The whole tensor of a rank's block ``t`` under ``spec``."""
+    """The whole tensor of a rank's block ``t`` under ``spec`` (a grouped
+    KV leaf from one rank of each group of ``share``: the whole leaf
+    itself where there is one KV head)."""
     for dim, ax in enumerate(spec):
-        if ax == sharding.MODEL_AXIS:
-            return ctx.all_gather(t, "model", dim=dim)
+        block = sharding.model_block(ax, ctx.model_size, ctx.model_rank)
+        if block is None:
+            continue
+        if block[0] == 1:
+            return t
+        parts = ctx.all_gather(t, "model", dim=dim).chunk(ctx.model_size,
+                                                          dim=dim)
+        return torch.cat(parts[::ctx.model_size // block[0]], dim=dim)
     return t
 
 
@@ -83,9 +93,10 @@ def load_shard(state: dict, tree: dict, ctx) -> dict:
     ``state`` in place, each tensor cut to the rank's block (a bit-plane
     expert stack's by its planes' rule, read from the shard's linears)."""
     planes = sharding.plane_codes(state["params"])
+    share = sharding.shard_kv_share(state["params"])
 
     def cut(name, t):
         return sharding.local_slice(
             t, sharding.spec_for_path(ref_path(name), t.dim(),
-                                      name in planes), ctx)
+                                      name in planes, share), ctx)
     return bridge.load_state(state, tree, cut)

@@ -18,8 +18,9 @@ jitted step over its shardings with every collective explicit:
     the aux loss of each data block averaged over the data axis, as the
     reference's ``pmean``;
   * ``backward()`` outside ``use_mesh`` (the backward never reads it);
-  * the model-partial gradients (row-parallel scales and zeros,
-    ``sharding.leaf_kind``) summed over the model axis in one flat bucket,
+  * the model-partial gradients (row-parallel scales and zeros, grouped
+    ``wk``/``wv`` leaves, ``sharding.leaf_kind``) summed over the model
+    axis in one flat bucket,
     then every trainable gradient over the data axis in one;
   * the int8 codec and the update on the global gradient: the norm and
     each sharded leaf's max |g| reduced over the model axis.
@@ -98,28 +99,44 @@ def mesh_collectives(model, cfg: ModelConfig, mask, compress: bool = False
     """The all-reduces one mesh step issues on each axis (it issues no
     other kind), from the rank's shard ``model`` and the mask:
 
-      * model axis: the forward's 2L row-parallel sums (an MoE block's
-        feed-forward is one, as a dense MLP's: its routed and shared
-        partial sums are reduced together) and the lookup's one; under
-        remat "block" ("full") the recompute's L — torch's
+      * model axis: the forward's row-parallel sums — 2 a block (attention
+        and the feed-forward; an MoE block's is one, as a dense MLP's: its
+        routed and shared partial sums are reduced together), 2 an encoder
+        block and 3 a decoder block of an encdec (self-attention, the
+        cross-attention, the MLP) — and the lookup's one; under remat
+        "block" ("full") the recompute's, one less a block — torch's
         checkpoint stops its recompute once the tensors the backward needs
         are back, so each block's last sum (after ``down``) is not re-run
-        —; the backward's ``copy_to_model`` gradients, 2L + 1 (ln1, ln2,
-        the head), less block 0's ln1 when nothing before it trains (a
-        frozen table and gain: PEQA); the cross entropy's 3 (an MoE
-        model's aux loss rides the loss's data-axis sum); the partial
-        bucket where a trained leaf is model-partial (a row-parallel
-        scale or zero; under ``full`` an MoE router); the norm's 1; and
-        under int8 compression the max bucket where a trained leaf is
+        —; the backward's ``copy_to_model`` gradients, one for each norm
+        that feeds a column-parallel group (2 a block, 3 a decoder block)
+        and the head's (an encdec also the encoder output's, once for all
+        the cross K/V), less each stack's first norm's when nothing before
+        it trains (a frozen table or position table and gain: PEQA); the
+        cross entropy's 3 (an MoE model's aux loss rides the loss's
+        data-axis sum); the partial bucket where a trained leaf is
+        model-partial (a row-parallel scale or zero, a grouped
+        ``wk``/``wv`` leaf; under ``full`` an MoE router); the norm's 1;
+        and under int8 compression the max bucket where a trained leaf is
         model-sharded;
       * data axis: the token count, the loss and the gradient bucket."""
-    n = cfg.n_layers
     kinds = sharding.leaf_kinds(model)
     trained = [k for k in kinds if mask.get(k)]
-    first = any(k.startswith(("embed.", "layers.0.ln1.")) for k in trained)
+    starts = lambda *names: int(any(k.startswith(names) for k in trained))
     has = lambda kind: int(any(kinds[k] == kind for k in trained))
-    recompute = n if cfg.remat in ("block", "full") else 0
-    return {"model": 2 * n + 1 + recompute + 2 * n + int(first) + 3
+    remat = cfg.remat in ("block", "full")
+    if cfg.family == "encdec":
+        ne, nd = cfg.enc_layers, cfg.n_layers
+        forward = 2 * ne + 3 * nd + 1
+        backward = 2 * ne + 3 * nd + starts("enc.") + 1 \
+            - (1 - starts("enc.pos", "enc.layers.0.ln1.")) \
+            - (1 - starts("dec.embed.", "dec.pos", "dec.layers.0.ln1."))
+        recompute = (ne + 2 * nd) if remat else 0
+    else:
+        n = cfg.n_layers
+        forward = 2 * n + 1
+        backward = 2 * n + starts("embed.", "layers.0.ln1.")
+        recompute = n if remat else 0
+    return {"model": forward + recompute + backward + 3
             + has(sharding.PARTIAL) + 1
             + (has(sharding.SHARDED) if compress else 0),
             "data": 3}
@@ -136,17 +153,52 @@ def _loss(api, model, batch, mesh):
         return api.loss_fn(model, _local_batch(batch, mesh, api.device))
 
 
-def _reduce_grads(grads: Dict[str, torch.Tensor], model, mask, ctx) -> set:
+def _kv_blocks(model, ctx) -> Dict[str, tuple]:
+    """{name: (dim, blocks, this rank's block)} of the shard's grouped KV
+    parameters that ``kv_share`` ranks share and that are cut into more
+    than one block (n_kv_heads > 1)."""
+    out = {}
+    for name, spec in sharding.param_specs(model).items():
+        for dim, ax in enumerate(spec):
+            if isinstance(ax, sharding.KVGroup):
+                blocks, mine = sharding.model_block(ax, ctx.model_size,
+                                                    ctx.model_rank)
+                if blocks > 1:
+                    out[name] = (dim, blocks, mine)
+    return out
+
+
+def _reduce_grads(grads: Dict[str, torch.Tensor], model, mask, ctx
+                  ) -> Dict[str, int]:
     """A rank's trainable gradients made the global gradient's blocks, in
     the dict: the model-partial ones summed over the model axis, then all
-    over the data axis, one bucket each.  Returns the names of the
-    model-sharded ones (for the norm and the int8 codec)."""
+    over the data axis, one bucket each.  A grouped KV leaf cut into more
+    than one block enters the model bucket as the whole leaf, zero outside
+    its block, so each block sums over its own ranks only.  Returns the
+    model-sharded names (for the norm and the int8 codec), each with the
+    number of model ranks that hold the same block: 1, or ``kv_share``
+    for such a grouped leaf."""
     kinds = sharding.leaf_kinds(model)
     live = [n for n, g in grads.items() if mask.get(n) and g is not None]
-    _bucket_sum(grads, [n for n in live if kinds[n] == sharding.PARTIAL],
-                ctx, "model")
+    partial = [n for n in live if kinds[n] == sharding.PARTIAL]
+    grouped = {n: b for n, b in _kv_blocks(model, ctx).items()
+               if n in partial}
+    for n, (dim, blocks, mine) in grouped.items():
+        g = grads[n]
+        shape = list(g.shape)
+        shape[dim] *= blocks
+        whole = g.new_zeros(shape)
+        whole.narrow(dim, mine * g.shape[dim], g.shape[dim]).copy_(g)
+        grads[n] = whole
+    _bucket_sum(grads, partial, ctx, "model")
+    share = sharding.shard_kv_share(model)
+    for n, (dim, blocks, mine) in grouped.items():
+        n_rows = grads[n].shape[dim] // blocks
+        grads[n] = grads[n].narrow(dim, mine * n_rows, n_rows).contiguous()
     _bucket_sum(grads, live, ctx, "data")
-    return {n for n in live if kinds[n] == sharding.SHARDED}
+    out = {n: 1 for n in live if kinds[n] == sharding.SHARDED}
+    out.update({n: share for n in grouped})
+    return out
 
 
 def build_train_step(api, cfg: ModelConfig, tcfg: TrainConfig, mask,
@@ -164,7 +216,7 @@ def build_train_step(api, cfg: ModelConfig, tcfg: TrainConfig, mask,
         loss = _loss(local, model, batch, mesh)
         loss.backward()
         grads = {n: p.grad for n, p in params.items()}
-        sharded = set() if mesh is None \
+        sharded = {} if mesh is None \
             else _reduce_grads(grads, model, mask, mesh)
         if compress:
             grads = compress_tree(grads, mask, ctx=mesh, sharded=sharded)

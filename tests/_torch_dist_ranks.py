@@ -398,19 +398,28 @@ def moe_block_rank(rank, shape, tmp, cases, x, c, aux_weight):
 
 def moe_train_rank(rank, shape, tmp, cases, batch):
     """Each MoE training case ({name: (cfg, ocfg)}, the trees at
-    ``<tmp>/<name>.npz``) on the mesh from the shard of the whole state:
-    the loss and the trained gradients as the train step makes them (the
-    model-partial ones summed over the model axis, all over the data
-    axis), then one step (its metrics, collective record and the count
-    ``mesh_collectives`` expects), the whole-state tree gathered after it
-    (rank 0 saves it) and whether ``load_shard`` of that tree gives this
-    rank's shard back."""
+    ``<tmp>/<name>.npz``) on one global ``batch``: ``train_cases``."""
+    train_cases(rank, shape, tmp, cases, {name: batch for name in cases},
+                "moetrain")
+
+
+def train_cases(rank, shape, tmp, cases, batches, tag="famtrain"):
+    """Each training case ({name: (cfg, ocfg)}, the trees at
+    ``<tmp>/<name>.npz``, the global batch ``batches[name]``) on the mesh
+    from the shard of the whole state: the loss and the trained gradients
+    as the train step makes them (the model-partial ones summed over the
+    model axis, all over the data axis), then one step (its metrics,
+    collective record and the count ``mesh_collectives`` expects), the
+    whole-state tree gathered after it (rank 0 saves it) and whether
+    ``load_shard`` of that tree gives this rank's shard back; saved as
+    ``<tmp>/<tag><D>x<M>_<rank>.pt``."""
     from repro_torch.configs.base import OptimConfig, TrainConfig
     from repro_torch.train import step
     from repro_torch.train.state import load_shard, shard_state, whole_tree
     ctx = _ctx(shape)
     out = {"coords": (ctx.data_rank, ctx.model_rank)}
     for name, (cfg, ocfg) in cases.items():
+        batch = batches[name]
         api, _, mask, opt, whole = _train_state(
             os.path.join(tmp, f"{name}.npz"), cfg, ocfg)
         local = shard_state(whole, ctx, cfg)
@@ -422,7 +431,8 @@ def moe_train_rank(rank, shape, tmp, cases, batch):
         res = {"loss": float(loss),
                "grads": {n: g.clone() for n, g in grads.items()
                          if mask.get(n) and g is not None},
-               "kinds": sharding.leaf_kinds(model)}
+               "kinds": sharding.leaf_kinds(model),
+               "kv_share": sharding.shard_kv_share(model)}
         for p in model.parameters():
             p.grad = None
         ts = step.build_train_step(api, cfg, TrainConfig(
@@ -445,4 +455,67 @@ def moe_train_rank(rank, shape, tmp, cases, batch):
         if rank == 0:
             res["tree"] = tree
         out[name] = res
-    _save(tmp, f"moetrain{shape[0]}x{shape[1]}_", rank, out)
+    _save(tmp, f"{tag}{shape[0]}x{shape[1]}_", rank, out)
+
+
+# ---------------------------------------------------------------------------
+# the vlm and encdec families and grouped KV heads on a mesh
+# (tests/test_torch_dist_families*.py)
+# ---------------------------------------------------------------------------
+
+def families_serve_rank(rank, shape, tmp, cases, prompt, prefixes, n_new,
+                        reqs):
+    """Each serving case ({name: cfg}, the trees at ``<tmp>/<name>.npz``,
+    ``prefixes[name]`` the prompt's (B, P, d) prefix or None): the mesh
+    engine's ``generate`` with and without logitshard and its decode
+    step's collective record, the prefill logits, drain serving of
+    ``reqs[name]`` (rank 0 also runs the unsharded engine's ``generate``
+    and drain serving), the slot pool's cache shapes beside the rank's
+    block of ``cache_specs``, then a swap of rescaled scales: its
+    collective record and whether the shard equals the cut of the swapped
+    whole model."""
+    ctx = _ctx(shape)
+    out = {"coords": (ctx.data_rank, ctx.model_rank)}
+    b = prompt.shape[0]
+    for name, cfg in cases.items():
+        model = load_model(os.path.join(tmp, f"{name}.npz"), cfg)
+        api = registry.build(cfg, device="cpu")
+        local = sharding.shard_model(model, cfg, ctx)
+        host = Engine(api, model, device="cpu")
+        pre = prefixes[name]
+        res = {"kv_share": local.kv_share}
+        for ls in (True, False):
+            eng = Engine(api, local, ctx=ctx, logitshard=ls)
+            res[f"tokens_{ls}"] = eng.generate(prompt, n_new, prefix=pre)
+            res[f"decode_{ls}"] = eng.decode_collectives(b, 24)
+        res["logits"] = eng.prefill_logits(prompt, prefix=pre)
+        scfg = ServeConfig(n_slots=4, scheduler="drain")
+        res["drain"] = _report(eng.serve(reqs[name], scfg))
+        if rank == 0:
+            res["host_tokens"] = host.generate(prompt, n_new, prefix=pre)
+            res["host_drain"] = _report(host.serve(reqs[name], scfg))
+        pool = eng.open_pool(4, 24)
+        whole = api.init_cache(4, 24, device="meta")
+        specs = sharding.cache_specs(
+            ctx, whole, 4, ctx.batch_axes(4) is not None,
+            n_kv_heads=cfg.n_kv_heads,
+            batch_dims=cache_dims(api.init_cache, 2, 8)[0],
+            kv_share=local.kv_share)
+        res["pool_shapes"] = {k: tuple(v.shape) for k, v in pool.cache.items()}
+        res["spec_shapes"] = {k: sharding.local_shape(
+            whole[k].shape, specs[k], ctx.axis_sizes) for k in whole}
+        bank = sb.ScaleBank()
+        bank.add("t", model)
+        rng = np.random.default_rng(7)
+        bank.tasks["t"] = {k: (v * rng.uniform(0.5, 1.5, v.shape)
+                               ).astype(v.dtype)
+                           for k, v in bank.tasks["t"].items()}
+        res["swap_record"] = sb.swap_collectives(local, bank.tasks["t"], ctx)
+        res["local_nbytes"] = bank.local_nbytes("t", ctx, local.kv_share)
+        res["nbytes"] = bank.nbytes("t")
+        bank.switch(model, "t")
+        res["swap_equal"] = all(torch.equal(a, c) for a, c in zip(
+            local.parameters(),
+            sharding.shard_model(model, cfg, ctx).parameters()))
+        out[name] = res
+    _save(tmp, f"famserve{shape[0]}x{shape[1]}_", rank, out)

@@ -27,6 +27,7 @@ from repro_torch.configs.base import QuantConfig
 from repro_torch.core import alphatuning as at
 
 from test_torch_policies import fp_tree
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 
 def _flat(tree):

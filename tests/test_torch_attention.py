@@ -54,6 +54,7 @@ from repro_torch.train.serve import Engine
 from test_torch_configs import reference_params, tiny_llama_pair, to_numpy, tokens
 from test_torch_serve_speculative import (SPEC_COUNTERS, SPEC_PER_REQUEST,
                                           TASKS, _cfgs, _requests)
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 
 def _qkv(b, sq, sk, hq, hkv, d, seed=13):

@@ -20,6 +20,8 @@ import repro_torch.configs as tconfigs
 from repro_torch.configs.base import QuantConfig, TuningConfig
 from repro_torch.core import policies
 from repro_torch.models import linear, registry, transformer
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 ARCHS = ("llama3.2-1b", "qwen2-7b", "llava-next-mistral-7b")
 

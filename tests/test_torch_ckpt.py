@@ -38,6 +38,8 @@ from repro_torch.train import loop, step
 from repro_torch.train.state import make_state
 
 from test_torch_configs import reference_params, tiny_llama_pair, to_numpy
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 OCFG = dict(lr=1e-3, warmup_steps=1)
 

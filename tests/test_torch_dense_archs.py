@@ -58,6 +58,8 @@ from repro_torch.train.serve import Engine
 from repro_torch.train.state import make_state
 
 from test_torch_configs import _shared_fields, to_numpy, tokens
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 ARCHS = ("qwen2-7b", "starcoder2-7b", "granite-34b")
 OCFG = dict(lr=2e-5, warmup_steps=1, schedule="linear", weight_decay=0.01)

@@ -44,6 +44,8 @@ from repro_torch.dist import backend, sampling
 import _torch_dist_ranks as ranks
 from test_torch_dist_serve import (IDS, KW, MESHES, _cfgs, load_ranks,
                                    task_sets, write_inputs)
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 PLANE_KW = dict(n_layers=1, d_model=64, n_heads=2, d_ff=128, vocab=128)
 COUNTERS = ("steps", "scheduler", "switches", "bubble_slot_steps",

@@ -54,6 +54,8 @@ from repro_torch.models import registry
 
 import _jax_moe_oracle as oracle
 import _torch_dist_ranks as ranks
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CASE_MESH = [(case, f"{d}x{m}") for case in oracle.CASES

@@ -54,6 +54,8 @@ from repro_torch.dist import backend, context, sharding
 
 import _torch_dist_ranks as ranks
 from test_torch_configs import to_numpy
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 B, S = 4, 16
 OCFG = dict(lr=1e-3, warmup_steps=1, schedule="linear", weight_decay=0.01)

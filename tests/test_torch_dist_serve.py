@@ -42,6 +42,8 @@ from repro_torch.dist import backend, context
 from repro_torch.dist import sharding
 
 import _torch_dist_ranks as ranks
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 MESHES = [(1, 2), (2, 2)]
 IDS = ["1x2", "2x2"]

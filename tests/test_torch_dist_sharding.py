@@ -13,10 +13,11 @@
     (``unshard``); each linear is marked column- or row-parallel.
   * ``ScaleBank.local_nbytes`` is below ``nbytes`` and equals the
     reference's.
-  * What this slice does not shard is refused with a reason: MQA and other
-    head, d_ff or vocab counts the model axis does not divide, a local
-    input extent that breaks a kernel's words or groups, every family but
-    dense and moe, and the LoRA and QAT arms.
+  * What this slice does not shard is refused with a reason: a KV-head
+    count that neither divides the model axis nor is divided by it, head,
+    d_ff or vocab counts it does not divide, a local input extent that
+    breaks a kernel's words or groups, the ssm and hybrid families, and
+    the LoRA and QAT arms.
 """
 import types
 
@@ -40,6 +41,8 @@ from repro_torch.core import scale_bank as sb
 from repro_torch.dist import backend, context, sharding
 from repro_torch.models import registry
 from repro_torch.train.serve import Engine, cache_dims
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 KW = dict(n_layers=2, d_model=128, n_heads=4, d_ff=256, vocab=512)
 
@@ -234,7 +237,8 @@ def test_local_nbytes_equals_reference(shape):
 
 
 @pytest.mark.parametrize("change,m,what", [
-    (dict(n_kv_heads=1), 2, "head-dim fallback"),
+    (dict(n_heads=6, n_kv_heads=2, d_model=96), 3, "n_kv_heads=2 neither "
+     "divides nor is divided by the model axis (3)"),
     (dict(vocab_size=511), 2, "vocab_size=511"),
     (dict(d_ff=250), 4, "d_ff=250"),
     (dict(quant=QuantConfig(bits=4, group_size=64)), 4, "groups of 64"),
@@ -254,19 +258,20 @@ def test_unshardable_configs_refused(change, m, what):
                                   if tconfigs.get_config(a).family != "dense"
                                   or tconfigs.get_config(a).moe is not None])
 def test_other_families_refused_on_a_mesh(arch):
-    """Every family but dense and moe is refused on a mesh; the moe family
-    is served there (expert parallelism, ``tests/test_torch_dist_moe.py``)
-    and refused where the model axis does not divide its experts."""
+    """The ssm and hybrid families are refused on a mesh; the moe, vlm and
+    encdec families are served there (``tests/test_torch_dist_moe.py``,
+    ``tests/test_torch_dist_families.py``) and refused where the model
+    axis does not divide their heads or experts."""
     cfg = tconfigs.make_tiny(tconfigs.get_config(arch))
     registry.check_supported(cfg)
-    if cfg.family == "moe":
+    if cfg.family in ("moe", "vlm", "encdec"):
         registry.check_supported(cfg, mesh=context.coords(1, 2))
         with pytest.raises(NotImplementedError, match="not divisible by "
                                                       "the model axis"):
             registry.check_supported(cfg, mesh=context.coords(1, 3))
         return
     with pytest.raises(NotImplementedError,
-                       match="dense and moe families only"):
+                       match="dense, moe, vlm and encdec families only"):
         registry.check_supported(cfg, mesh=context.coords(1, 2))
 
 

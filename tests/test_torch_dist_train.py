@@ -61,6 +61,8 @@ from repro_torch.train import step
 import _torch_dist_ranks as ranks
 from test_torch_configs import to_numpy
 from test_torch_train import _port_run
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 MESHES = [(1, 2), (2, 1), (2, 2)]
 IDS = ["1x2", "2x1", "2x2"]

@@ -48,6 +48,8 @@ import _torch_dist_ranks as ranks
 from test_torch_configs import to_numpy
 from test_torch_dist_train import OCFG, _batches, _cfgs, _named
 from test_torch_train import _port_run
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 CPU = ["--device", "cpu", "--tiny", "--batch", "4", "--seq", "32"]
 
@@ -172,8 +174,8 @@ def test_cli_mesh_resumes_and_matches_off_mesh(tmp_path):
     (["--mesh", "pod"], "256 devices"),
     (["--mesh", "multipod"], "512 devices"),
     (["--mesh", "1,2", "--mode", "lora"], "the lora arm's LoRA"),
-    (["--mesh", "1,2", "--arch", "xlstm-125m"], "dense and moe families "
-                                                "only"),
+    (["--mesh", "1,2", "--arch", "xlstm-125m"], "dense, moe, vlm and "
+                                                "encdec families only"),
     (["--mesh", "3,1"], "global batch of 4 rows is not divisible by the "
                         "data axis (3)"),
 ], ids=["pod", "multipod", "arm", "family", "batch"])

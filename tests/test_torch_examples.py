@@ -13,20 +13,10 @@
 """
 import math
 
-import pytest
-import torch
 
 from repro_torch.train import instruction_tune, serve_multitask
+from _torch_threads import _one_torch_thread  # noqa: F401
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """These tiny models are op-bound: one intra-op thread a worker keeps
-    them from stalling on busy cores when the suite runs in parallel."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 SMALL = dict(steps=30, pretrain_steps=30, n_pretrain_tokens=40_000,
              n_instruction_tokens=20_000, seq=64, batch=4)

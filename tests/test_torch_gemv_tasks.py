@@ -29,6 +29,8 @@ from repro_torch.core.quant import QuantSpec
 from repro_torch.kernels import ops
 from repro_torch.kernels import quant_matmul as qm
 from repro_torch.kernels import ref
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 N, K, T = 96, 256, 4
 

@@ -43,6 +43,8 @@ from repro_torch.core import quant as tq
 from repro_torch.core.scale_bank import ResidentStack, ScaleBank
 from repro_torch.kernels import quant_matmul as qm
 from repro_torch.models import registry, row_trace
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 M, N, K = 32, 48, 384                  # K: 6 blocks of 64 over 8 warps
 K_SPLIT = 8192                         # 128 blocks: K split over 2 blocks

@@ -37,6 +37,7 @@ from repro_torch.models import registry
 
 from test_torch_configs import tokens, to_numpy
 from test_torch_policies import fp_tree, pair
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 
 def correlated_inputs(t, m, seed=0):

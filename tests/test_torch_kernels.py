@@ -24,6 +24,8 @@ from repro.kernels import quant_matmul as jqm
 from repro_torch.core.quant import QuantSpec
 from repro_torch.kernels import ops
 from repro_torch.kernels import quant_matmul as qm
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 N, K = 96, 256
 

@@ -46,6 +46,7 @@ from repro_torch.train.serve import Engine
 
 from test_torch_configs import to_numpy, tokens
 from test_torch_dense_archs import policy_tree, tiny_pair
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 
 def _qwen_engines(**kw):

@@ -11,11 +11,15 @@
     tuning restores the backbone;
   * ``launch.train`` (``--tiny``): the loss falls over 12 steps, a second
     run resumes from the checkpoint, the reference's ``CheckpointManager``
-    restores that checkpoint, ``--grad-compression int8`` runs, and a mesh
-    is refused.
+    restores that checkpoint, ``--grad-compression int8`` runs, a vlm and
+    an encdec reach their eval with prefixed eval batches, and a mesh is
+    refused.
 
 The family smoke (``--family-smoke``) is tests/test_torch_launch_families.py.
 """
+import functools
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -38,16 +42,8 @@ from repro_torch.dist import context
 from repro_torch.launch import serve, train
 
 from test_torch_ckpt import _assert_trees_equal
+from _torch_threads import _one_torch_thread  # noqa: F401
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """These tiny models are op-bound: one intra-op thread a worker keeps
-    them from stalling on busy cores when the suite runs in parallel."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 CPU = ["--device", "cpu"]
 
@@ -170,6 +166,20 @@ def test_serve_moe_on_a_cpu_mesh(capfd):
     assert "[serve] continuous OK" in out
 
 
+def test_serve_whisper_on_a_cpu_mesh(capfd):
+    """``--tiny --mesh 1,2 --arch whisper-medium --continuous``: the tasks
+    tuned on frame-prefixed batches, then two gloo ranks serve their
+    shards a stream whose every request carries its encoder frames (drain:
+    an encdec has no slotted step) and pass the continuous gates."""
+    with pytest.raises(SystemExit) as exc:
+        serve.main([*CPU, "--mesh", "1,2", "--arch", "whisper-medium",
+                    "--continuous", "--tune-steps", "2"])
+    assert exc.value.code in (0, None)
+    out = capfd.readouterr().out
+    assert "2 ranks over gloo on cpu" in out and "a swap moves" in out
+    assert "continuous[drain]" in out and "[serve] continuous OK" in out
+
+
 def test_place_prompt_off_mesh_only():
     """Off the mesh the prompt itself; on a mesh a rank's data block of
     rows (every row where the batch does not divide the data axis)."""
@@ -251,6 +261,32 @@ def test_train_moe_on_a_cpu_mesh(tmp_path, capsys):
                           ckpt])
     assert hist and all(np.isfinite(h["loss"]) for h in hist)
     assert JManager(ckpt).latest_valid_step() == 3
+
+
+def test_train_llava_on_a_cpu_mesh(tmp_path, capsys):
+    """``--tiny --mesh 1,2 --arch llava-next-mistral-7b --steps 4``: two
+    gloo ranks train their shards on batches with seeded image-embedding
+    prefixes; the loss is finite and the checkpoint written."""
+    ckpt = str(tmp_path / "llava")
+    _, hist = train.main([*TRAIN, "--mesh", "1,2", "--arch",
+                          "llava-next-mistral-7b", "--steps", "4",
+                          "--ckpt-dir", ckpt])
+    assert hist and all(np.isfinite(h["loss"]) for h in hist)
+    assert JManager(ckpt).latest_valid_step() == 4
+
+
+@pytest.mark.parametrize("arch", ["llava-next-mistral-7b", "whisper-medium"])
+def test_train_prefixed_family_reaches_eval(arch, monkeypatch, capsys):
+    """``launch.train --tiny`` of a family with prefix state reaches its
+    eval (every 2 steps here, over every eval batch of the held-out split,
+    each behind its own seeded prefix): the eval loss is finite."""
+    monkeypatch.setattr(train, "TrainConfig",
+                        functools.partial(train.TrainConfig, eval_every=2))
+    _, hist = train.main([*TRAIN, "--arch", arch, "--steps", "2"])
+    out = capsys.readouterr().out
+    evals = re.findall(r"step 2 eval_loss=(\S+)", out)
+    assert len(evals) == 1 and np.isfinite(float(evals[0]))
+    assert hist and np.isfinite(hist[0]["loss"])
 
 
 @pytest.mark.parametrize("mesh", ["debug", "pod", "multipod"])

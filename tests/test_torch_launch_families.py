@@ -20,7 +20,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from repro import configs as jconfigs
 from repro.configs.base import QuantConfig as JQuant
@@ -35,16 +34,8 @@ from repro_torch.launch import serve
 from repro_torch.models import registry
 from repro_torch.serve import ServeConfig
 from repro_torch.train.serve import Engine
+from _torch_threads import _one_torch_thread  # noqa: F401
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """These tiny models are op-bound: one intra-op thread a worker keeps
-    them from stalling on busy cores when the suite runs in parallel."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 MOE = ("mixtral-8x7b", "deepseek-moe-16b")
 OTHERS = tuple(a for a in tconfigs.ARCHS if a not in MOE)

@@ -24,6 +24,7 @@ from repro_torch.core import peqa, policies
 from repro_torch.models import registry
 
 from test_torch_configs import reference_params, tiny_llama_pair, to_numpy, tokens
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

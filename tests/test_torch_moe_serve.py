@@ -52,6 +52,8 @@ from repro_torch.train.state import make_state
 from test_torch_configs import tokens
 from test_torch_moe import ARCHS, batch_of, flat, fp_tree, policy_tree, \
     tiny_pair
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 OCFG = dict(lr=2e-5, warmup_steps=1, schedule="linear", weight_decay=0.01)
 

@@ -36,6 +36,8 @@ from repro_torch.train import step
 from repro_torch.train.state import make_state
 
 from test_torch_moe import flat, policy_tree, tiny_pair
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 STEPS, B, S = 3, 2, 16
 OCFG = dict(lr=1e-3, warmup_steps=1, schedule="linear", weight_decay=0.01)

@@ -24,6 +24,8 @@ from repro_torch.dist import backend
 from repro_torch.dist import pipeline_par as tpp
 
 import _torch_dist_ranks as ranks
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 L, B, D = 8, 8, 16
 

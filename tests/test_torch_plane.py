@@ -36,6 +36,8 @@ from repro_torch.kernels import quant_matmul as qm
 
 from test_torch_configs import reference_params, tiny_llama_pair, to_numpy
 from test_torch_model import _assert_trees_match
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 BN, BK = 64, 128          # multi-block reference grids at these shapes
 N, K, T = 96, 256, 4

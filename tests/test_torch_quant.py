@@ -21,6 +21,7 @@ import torch
 
 from repro.core import quant as jq
 from repro_torch.core import quant as tq
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 
 def _t(a: np.ndarray) -> torch.Tensor:

@@ -60,6 +60,8 @@ from repro_torch.train.state import make_state
 
 from test_serve_families import _CHUNKED_SHAPES
 from test_torch_xlstm import ARCHS, flat, policy_tree, tiny_pair
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 OCFG = dict(lr=1e-3, warmup_steps=1, schedule="linear", weight_decay=0.01)
 TASKS = ("t0", "t1")

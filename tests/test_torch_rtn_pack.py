@@ -32,6 +32,8 @@ from repro_torch.kernels import rtn_pack as rp
 
 from test_torch_configs import reference_params, tiny_llama_pair, to_numpy
 from test_torch_model import _assert_trees_match
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 SHAPES = [(32, 128, None), (64, 256, 64), (16, 2048, 512), (16, 4096, 128)]
 SPECS = [("nibble", 4), ("nibble", 3), ("nibble", 2), ("plane", 4),

@@ -27,16 +27,8 @@ from scipy import stats
 
 from repro.dist import sampling as jsampling
 from repro_torch.dist import context, sampling
+from _torch_threads import _one_torch_thread  # noqa: F401
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """These tiny models are op-bound: one intra-op thread a worker keeps
-    them from stalling on busy cores when the suite runs in parallel."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 # the χ² tests' significance: a fixed hash either passes or fails, so the
 # level only bounds how unlucky a correct field may be

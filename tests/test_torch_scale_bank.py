@@ -15,6 +15,8 @@ from repro_torch import bridge
 from repro_torch.core import scale_bank as sb
 
 from test_torch_configs import reference_params, tiny_llama_pair, to_numpy
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 TASKS = ("t0", "t1", "t2")
 

@@ -34,6 +34,8 @@ from repro_torch.train.serve import Engine
 
 from test_serve_mixed_task import TASKS, _requests
 from test_torch_configs import reference_params, tiny_llama_pair, to_numpy, tokens
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 COUNTERS = ("scheduler", "steps", "decoded", "switches", "idle_slot_steps",
             "task_drain_idle_slot_steps", "resident_installs",

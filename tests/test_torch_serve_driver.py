@@ -39,16 +39,8 @@ from repro_torch.serve import ServeConfig, driver, telemetry, traffic
 from repro_torch.train.serve import Engine
 
 from test_torch_configs import reference_params, tiny_llama_pair, to_numpy
+from _torch_threads import _one_torch_thread  # noqa: F401
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """These tiny models are op-bound: one intra-op thread a worker keeps
-    them from stalling on busy cores when the suite runs in parallel."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 TASKS = ("taskA", "taskB")
 WALL = ("wall_s", "tok_s_wall")

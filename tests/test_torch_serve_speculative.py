@@ -45,6 +45,8 @@ from repro_torch.serve import Request, ServeConfig
 from repro_torch.train.serve import Engine
 
 from test_torch_serve_continuous import COUNTERS, PER_REQUEST
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 TASKS = ("t0", "t1", "t2")
 SPEC_COUNTERS = COUNTERS + ("draft_steps", "draft_proposed", "draft_accepted")

@@ -40,6 +40,8 @@ from repro_torch.core import quant as tq
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import quant_matmul as qm
 from repro_torch.kernels import ref
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 M, N, K = 40, 48, 384                 # K: 3 groups of 128, 32 of 12
 CODES = ["nibble", (4, 3), (4, 2)]

@@ -39,6 +39,8 @@ trained leaf.  Every frozen tensor — a LoRA arm's float32 backbone too —
 is bit-equal to where it started.  The integer codes are bit-equal after training, and the optimizer
 state has the reference's bytes.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -68,8 +70,10 @@ from repro_torch.train import quickstart, step
 from repro_torch.train.state import make_state
 
 from test_torch_configs import reference_params, tiny_llama_pair, to_numpy
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 # ---------------------------------------------------------------- optimizer
+
 
 OPT_PARAMS = {"a": {"w": (8, 8)}, "b": {"scale": (8, 2)}, "c": {"g": (8,)}}
 
@@ -221,8 +225,16 @@ def seeded_adapter(params, std, seed=11):
     return jax.tree_util.tree_map_with_path(leaf, params)
 
 
+@functools.lru_cache(maxsize=None)
+def _reference_fp():
+    """The reference's float32 weights of the tiny config, drawn once: its
+    ``init`` reads only the shapes, which every case shares (the mode,
+    dtype, attention and remat fields change none of them)."""
+    return jregistry.build(tiny_llama_pair()[0]).init(jax.random.PRNGKey(0))
+
+
 def _reference_run(jcfg, batches, ocfg, lora_b_std=LORA_B_STD):
-    fp, _ = reference_params(jcfg.replace(dtype="float32"))
+    fp = _reference_fp()
     api = jregistry.build(jcfg)
     params, mask = jpolicies.prepare(fp, jcfg)
     if lora_b_std is not None:
@@ -375,8 +387,7 @@ def test_eval_step_makes_no_graph_and_remat_keeps_the_loss():
 def test_policy_counts_match_reference():
     for mode in policies.MODES:
         jcfg, tcfg = tiny_llama_pair(mode)
-        fp, _ = reference_params(jcfg)
-        jp, jmask = jpolicies.prepare(fp, jcfg)
+        jp, jmask = jpolicies.prepare(_reference_fp(), jcfg)
         model = bridge.to_module(to_numpy(jp), tcfg, device="cpu")
         mask = policies.make_mask(model, tcfg)
         assert policies.trainable_count(model, mask) == \

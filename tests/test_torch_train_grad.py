@@ -35,6 +35,8 @@ from repro.kernels import ops as jops
 from repro_torch.core.quant import QuantSpec, unpack_codes, unpack_codes_planes
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 M, N, K = 48, 40, 128
 U = 2.0 ** -24

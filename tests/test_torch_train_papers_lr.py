@@ -12,6 +12,7 @@ one does.
 import pytest
 
 from test_torch_train import OCFG, PAPER_LR, TRAIN_CASES, _check_train_steps
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("mode,dtype,attn,remat", TRAIN_CASES)

@@ -45,6 +45,8 @@ from test_torch_configs import tokens
 from test_torch_xlstm import (assert_close, assert_state_close, batch_of,
                               forward_matches, grads_match, lora_qat_match,
                               policy_tree, streamed_build_equal, tiny_pair)
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 ARCH = "zamba2-7b"
 
