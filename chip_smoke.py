@@ -400,15 +400,16 @@ line:
                table unchanged, state 8 B × the scales; then the sLSTM
                time loop timed in place: its share of a prefill and of a
                training forward and backward.
- 19. hybrid  — zamba2-7b likewise (81 Mamba2 layers, d_model 3584,
-               d_inner 7168, 112 SSM heads of 64, d_state 64; the shared
-               block after every 6: 13 applications of 32 / 32 heads of
-               112 and d_ff 14336; vocab 32000, untied; 6.79 B values):
-               exact launches 577 K2 a prefill (81 × 6 Mamba2 linears and
-               13 × 7 shared ones), 577 K1 and 13 K4 at head dim 112 a
-               step; the slot's SSM and conv state and its KV bytes a
-               position; 2 PEQA steps of 4 × 256 under the nested remat
-               (1,604 K2 a step).  Phase kernels carries K1 and K2 at both
+ 19. hybrid  — zamba2-7b likewise at full width, at 15 of its 81 Mamba2
+               layers (``DEPTH``: the time limit; d_model 3584, d_inner
+               7168, 112 SSM heads of 64, d_state 64; the shared block
+               after every 6: 2 groups of 6 and a 3-layer tail, 2
+               applications of 32 / 32 heads of 112 and d_ff 14336; vocab
+               32000, untied): exact launches 104 K2 a prefill (15 × 6
+               Mamba2 linears and 2 × 7 shared ones), 104 K1 and 2 K4 at
+               head dim 112 a step; the slot's SSM and conv state and its
+               KV bytes a position; 2 PEQA steps of 4 × 256 under the
+               nested remat.  Phase kernels carries K1 and K2 at both
                models' linears (N = 4, 64 and 112 among them) and K4 at
                zamba2's heads.
  20. harness — (after speculative, on phase main's llama3.2-1b and its
@@ -550,6 +551,27 @@ line:
                held once to its plain version on rank 0 of (1, 2) and
                timed beside its bound and its library call
                (``torch.matmul`` on the dequantized bf16 Ŵ, SDPA).
+ 27. mesh_recurrent — (built and its (1, 2) ranks spawned beside
+               mesh_families', also beside phases invariance and check;
+               joined before phase mesh_families times anything) the ssm
+               and hybrid families on (data, model) meshes at full width:
+               xlstm-125m whole (2 local mLSTM heads of 384 a rank at M 2,
+               the sLSTM whole on both) and zamba2-7b at its ``DEPTH`` (15
+               of 81 layers: 2 groups of 6 and the 3-layer tail, so every
+               kind of state leaf exists; 56 SSM heads and 16 / 16
+               attention heads a rank), PEQA 4-bit nibbles, remat "block",
+               xlstm in bf16 and zamba2 in float32 activations
+               (``MESH_DTYPE``: its random-weight stack amplifies a
+               perturbation ≈ 1.4× a layer, so two bf16 runs that round
+               their sums in another order part by O(1); phase kernels
+               holds its shard shapes on the bf16 routes), the runs and
+               gates of mesh_families (drain serving: no slotted step)
+               with the state after the prefill at (1, 1) bit-equal to
+               the unsharded engine's too, and zamba2's gated-norm sums
+               timed in a decode step (their share).
+               Every new shard shape of K1, K2 and K4 held once to its
+               plain version on rank 0 of (1, 2): dtproj's N 56, the
+               scalar gates' N 4 kept whole, K4 at D 112 over 16 heads.
  23. launch  — (after arms, while this process runs phase examples: the
                time limit's cut, so both phases' walls include the
                other's load) the CLIs as subprocesses, each gated on exit
@@ -678,9 +700,10 @@ GRANITE_LAYERS = 16
 # width; every other model runs whole): qwen2-7b 14 of 28, starcoder2-7b
 # 16 of 32, llava-next-mistral-7b 16 of 32, mixtral-8x7b 16 of 32 (93 GB
 # of float32, still more than the card: the layer-by-layer build's
-# proof), deepseek-moe-16b 14 of 28
+# proof), deepseek-moe-16b 14 of 28, zamba2-7b 15 of 81 (2 groups of 6
+# and the 3-layer tail: every kind of block and state leaf)
 DEPTH = {"qwen2-7b": 14, "starcoder2-7b": 16, "llava-next-mistral-7b": 16,
-         "mixtral-8x7b": 16, "deepseek-moe-16b": 14}
+         "mixtral-8x7b": 16, "deepseek-moe-16b": 14, "zamba2-7b": 15}
 # qwen2-7b serves the first DENSE_SERVE_REQUESTS of phase serve's requests
 DENSE_SERVE_REQUESTS = 8
 # vlm phase: llava-next-mistral-7b at full width (DEPTH), each image
@@ -729,17 +752,17 @@ ENC_PROMPT = 32
 ENC_REQUESTS, ENC_TASKS, ENC_SLOTS = 8, 2, 4
 ENC_PROMPTS, ENC_NEW = (16, 32, 48, 64), (12, 16, 24)
 ENC_TRAIN_STEPS, ENC_TRAIN_BATCH = 2, 4
-# ssm and hybrid phases: xlstm-125m and zamba2-7b at full width and depth.
-# Each model's quantized-linear calls a forward and K4 launches a decode
-# step (zamba2's shared block: 7 linears and one attention an application,
-# 13 of them).  Serving: REC_REQUESTS requests over REC_TASKS tasks (one
+# ssm and hybrid phases: xlstm-125m and zamba2-7b at full width, xlstm
+# whole and zamba2 at its DEPTH.  Each model's quantized-linear calls a
+# forward and K4 launches a decode step (zamba2: 6 linears a Mamba2 layer;
+# its shared block 7 linears and one attention an application, 2 of them).  Serving: REC_REQUESTS requests over REC_TASKS tasks (one
 # burst a task) in REC_SLOTS slots, the prompts (each at most the scan's
 # 128-token chunk) and the model's budgets in turn; training:
 # REC_TRAIN_STEPS PEQA steps of REC_TRAIN_BATCH × 256 rows.  Phase kernels:
 # K1 and K2 at each model's linears (N, K) — among them output widths of 4
 # (xlstm's scalar gates), 64 and 112 (Mamba2's B / C and dt) —, and K4 at
 # zamba2's 32 / 32 heads of 112
-REC_CALLS = {"xlstm-125m": (69, 0), "zamba2-7b": (577, 13)}
+REC_CALLS = {"xlstm-125m": (69, 0), "zamba2-7b": (104, 2)}
 REC_REQUESTS, REC_TASKS, REC_SLOTS = 8, 2, 4
 REC_PROMPTS = (32, 64, 96, 128)
 REC_NEW = {"xlstm-125m": (16, 24, 32), "zamba2-7b": (8, 12, 16)}
@@ -747,8 +770,19 @@ REC_TRAIN_STEPS, REC_TRAIN_BATCH = 2, 4
 REC_SHAPES = {
     "xlstm-125m": ((3072, 768), (768, 768), (1536, 768), (4, 768),
                    (768, 1536)),
-    "zamba2-7b": ((7168, 3584), (64, 3584), (112, 3584), (3584, 7168))}
+    "zamba2-7b": ((7168, 3584), (64, 3584), (112, 3584), (3584, 7168)),
+    # a (1, 2) and a (1, 4) shard's (phase mesh_recurrent runs zamba2 in
+    # float32, so its bf16 tensor-core routes at the shard shapes are held
+    # here): zproj / xproj and out_proj (3584, 3584), (1792, 3584) and
+    # (3584, 1792); dtproj's 56 and 28 heads (N 28: K2's scalar store
+    # route); the shared q/k/v (1792, 7168), (896, 7168) and wo (3584,
+    # 1792), (3584, 896); the shared MLP's (7168, 3584) and (3584, 7168)
+    # are the whole model's shapes above
+    "zamba2-7b shard": ((3584, 3584), (1792, 3584), (3584, 1792), (56, 3584),
+                        (28, 3584), (1792, 7168), (896, 7168), (3584, 896))}
 ZAMBA2_HEADS = (32, 32, 112)
+# a (1, 2) shard's heads of zamba2's shared attention
+ZAMBA2_SHARD_HEADS = (16, 16, 112)
 # arms phase: GPTQ's calibration tokens (B, S) from the train split, and
 # the train steps of LoRA on the float32 backbone (lora_optq takes
 # TRAIN_STEPS)
@@ -1161,7 +1195,8 @@ def phase_kernels(torch) -> dict:
     worst["flash_attention"], attn_prefill = kernel_attention(torch, gen)
     attn_7b = {}
     for model, heads in {**DENSE_7B_HEADS, **MOE_HEADS,
-                         "zamba2-7b": ZAMBA2_HEADS}.items():
+                         "zamba2-7b": ZAMBA2_HEADS,
+                         "zamba2-7b shard": ZAMBA2_SHARD_HEADS}.items():
         err, attn_7b[model] = kernel_attention(
             torch, gen, heads, ATTN_7B_CASES, model=model, sweep=False)
         worst["flash_attention"] = max(worst["flash_attention"], err)
@@ -5486,7 +5521,7 @@ def slstm_parts(torch, api, model, cfg, prompt) -> dict:
 
 
 def recurrent_model(torch, name, phase, gen) -> dict:
-    """One recurrent configuration at full width and depth (module
+    """One recurrent configuration at full width, at its DEPTH (module
     docstring, phases ssm and hybrid)."""
     cfg, api, model, mask, built = dense_build(torch, name)
     res = {"phase": phase, "model": cfg.name, "layers": cfg.n_layers,
@@ -5537,7 +5572,8 @@ def phase_ssm(torch) -> dict:
 
 
 def phase_hybrid(torch) -> dict:
-    """zamba2-7b at full width and depth (module docstring, phase 19)."""
+    """zamba2-7b at full width, at its DEPTH (module docstring, phase
+    19)."""
     return recurrent_model(torch, "zamba2-7b", "hybrid",
                            torch.Generator().manual_seed(SEED + 29))
 
@@ -7780,14 +7816,93 @@ MESH_FAM_TRAIN_ROWS = 2
 # prompts and budgets in turn, resident (whisper: drain, it has no slotted
 # step)
 MESH_FAM_REQUESTS, MESH_FAM_PROMPTS, MESH_FAM_BUDGETS = 4, (32, 64), (4, 8)
+# phase mesh_recurrent, run by mesh_families' functions: arch → its layers
+# at full width (None: whole): xlstm-125m whole, zamba2-7b at its DEPTH
+MESH_REC = {"xlstm-125m": None, "zamba2-7b": DEPTH["zamba2-7b"]}
+# the activation dtype a mesh model runs in where not the bf16 default:
+# zamba2's random-weight Mamba2 stack amplifies a perturbation ≈ 1.4× a
+# layer (PERF.md), so two bf16 runs that round their sums in another order
+# (a (1, 2) shard's row-parallel and norm sums against the whole model's)
+# part by O(1) in the logits at 15 layers; in float32 the mesh is held to
+# the unsharded engine as every other model is
+MESH_DTYPE = {"zamba2-7b": "float32"}
+# decode steps timed for zamba2's gated-norm sums' share (each way)
+MESH_REC_GNORM_STEPS = 8
+
+
+def mesh_phase(cfg) -> str:
+    """The phase that runs ``cfg`` on meshes: mesh_recurrent for the ssm
+    and hybrid families, else mesh_families."""
+    return "mesh_recurrent" if cfg.family in ("ssm", "hybrid") \
+        else "mesh_families"
+
+
+def mesh_fam_kw(name: str) -> dict:
+    """The config changes of ``name`` in phase mesh_families
+    (mesh_recurrent): remat "block", its MESH_FAM (MESH_REC) depth, its
+    MESH_DTYPE."""
+    layers = {**MESH_FAM, **MESH_REC}[name]
+    return {"remat": "block", **({"n_layers": layers} if layers else {}),
+            **({"dtype": MESH_DTYPE[name]} if name in MESH_DTYPE else {})}
 
 
 def mesh_fam_cfg(name: str):
-    """``name`` as phase mesh_families runs it: PEQA 4-bit nibbles (n_grid
-    20), remat "block", at its MESH_FAM depth."""
-    layers = MESH_FAM[name]
-    return dense_cfg(name, remat="block",
-                     **({"n_layers": layers} if layers else {}))
+    """``name`` as phase mesh_families (mesh_recurrent) runs it: PEQA
+    4-bit nibbles (n_grid 20) with ``mesh_fam_kw``'s changes."""
+    return dense_cfg(name, **mesh_fam_kw(name))
+
+
+def prefill_state(torch, api, model, prompt, ctx=None) -> dict:
+    """The state after a prefill of ``prompt`` (a recurrent family's cache
+    leaves, on the card), on a mesh under ``ctx``."""
+    from repro_torch.dist import context
+    with torch.inference_mode(), (context.use_mesh(ctx) if ctx is not None
+                                  else contextlib.nullcontext()):
+        return api.prefill(model, {"tokens": prompt.to("cuda")})[1]
+
+
+def gnorm_share(torch, engine, batch: int, cache_len: int) -> dict:
+    """zamba2's gated-norm sums (``context.sum_over_model``, one a Mamba2
+    block) in a lockstep decode step of ``batch`` rows on a mesh:
+    MESH_REC_GNORM_STEPS steps timed as they run (host clock, the device
+    synchronised at both ends), then as many with every sum timed alone
+    (the device synchronised before and after it); the sums' ms a step
+    over the instrumented step's."""
+    from repro_torch.dist import context
+    api, ctx = engine.api, engine.ctx
+    rows = ctx.local_rows(batch)
+    n = rows.stop - rows.start
+    cache = api.init_cache(n, cache_len)
+    tok = torch.zeros((n, 1), dtype=torch.int64, device=ctx.device)
+    real, spent = context.sum_over_model, []
+
+    def timed_sum(t, c):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(t, c)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    def steps(first: int) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(MESH_REC_GNORM_STEPS):
+            api.decode_step(engine.model, cache, tok, first + i)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / MESH_REC_GNORM_STEPS
+    with torch.inference_mode(), context.use_mesh(ctx):
+        api.decode_step(engine.model, cache, tok, 0)        # warm-up
+        plain = steps(1)
+        context.sum_over_model = timed_sum
+        try:
+            inst = steps(1 + MESH_REC_GNORM_STEPS)
+        finally:
+            context.sum_over_model = real
+    a_step = sum(spent) / MESH_REC_GNORM_STEPS
+    return {"decode_ms": plain * 1e3, "instrumented_decode_ms": inst * 1e3,
+            "sums_a_step": len(spent) // MESH_REC_GNORM_STEPS,
+            "sums_ms_a_step": a_step * 1e3, "share": a_step / inst}
 
 
 def mesh_fam_batches(cfg) -> list:
@@ -7855,7 +7970,7 @@ def mesh_fam_run(torch, ctx, rank: int, whole, cfg, prompt, prefix,
     from repro_torch.train.state import make_state
 
     shape = (ctx.data_size, ctx.model_size)
-    label = f"mesh_families {cfg.name} {shape} rank {rank}"
+    label = f"{mesh_phase(cfg)} {cfg.name} {shape} rank {rank}"
     dev = ctx.device
     stages, t_stage = {}, [time.perf_counter()]
 
@@ -7865,9 +7980,15 @@ def mesh_fam_run(torch, ctx, rank: int, whole, cfg, prompt, prefix,
         stages[name] = now - t_stage[0]
         t_stage[0] = now
 
+    # one checker for the whole run: each new call shape is held to plain
+    # once, however many stages reach it
+    checker = CheckedQuantMatmul(ops, label, shapes=True) if check else None
+
     def checked(what):
-        return CheckedQuantMatmul(ops, f"{label} {what}", shapes=True) \
-            if check else contextlib.nullcontext()
+        if checker is None:
+            return contextlib.nullcontext()
+        checker.label = f"{label} {what}"
+        return checker
 
     api = registry.build(cfg)
     bank = task_bank(whole, 2, SEED + 54)
@@ -7881,12 +8002,9 @@ def mesh_fam_run(torch, ctx, rank: int, whole, cfg, prompt, prefix,
            "local_gb": sum(t.numel() * t.element_size() for t in (
                *local.parameters(), *local.buffers())) / 1e9}
     codes0 = codes_sum(torch, local)
-    shapes = []
     engine = Engine(api, local, bank=bank, ctx=ctx, logitshard=True)
-    with checked("generate") as chk:
+    with checked("generate"):
         engine.generate(prompt, 2, prefix=prefix)      # warm-up, not counted
-    if chk is not None:
-        shapes += list(chk.rows.values())
     torch.cuda.synchronize()
     for k in ops.KERNELS:
         k.launches = 0
@@ -7902,6 +8020,11 @@ def mesh_fam_run(torch, ctx, rank: int, whole, cfg, prompt, prefix,
     logits = engine.prefill_logits(prompt, prefix=prefix)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
+    if cfg.family in ("ssm", "hybrid") and ctx.world == 1:
+        out["state"] = prefill_state(torch, engine.api, local, prompt, ctx)
+    if cfg.family == "hybrid":
+        out["gnorm"] = gnorm_share(torch, engine, BATCH,
+                                   MESH_FAM_PROMPT + MESH_FAM_NEW)
     base = Engine(api, local, bank=bank, ctx=ctx, logitshard=False)
     if not torch.equal(toks, base.generate(prompt, MESH_FAM_NEW,
                                            prefix=prefix)):
@@ -7930,15 +8053,13 @@ def mesh_fam_run(torch, ctx, rank: int, whole, cfg, prompt, prefix,
     stage("generate")
     resident = api.decode_step_slotted is not None
     reqs = mesh_fam_requests(cfg)
-    with checked("serve") as chk:
+    with checked("serve"):
         t0 = time.perf_counter()
         rep = engine.serve(reqs, ServeConfig(
             n_slots=4, scheduler="resident" if resident else "drain",
             resident_tasks=2))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    if chk is not None:
-        shapes += list(chk.rows.values())
     if any(t is None or len(t) != r.n_new
            for r, t in zip(reqs, rep.tokens)):
         fail(f"{label}: a request was not served its budget")
@@ -7960,20 +8081,13 @@ def mesh_fam_run(torch, ctx, rank: int, whole, cfg, prompt, prefix,
     torch.cuda.reset_peak_memory_stats(dev)
     for i, b in enumerate(mesh_fam_batches(cfg)):
         with (checked("step 1") if i == 0 else contextlib.nullcontext()
-              ) as chk, ctx.recording() as rec:
+              ), ctx.recording() as rec:
             t0 = time.perf_counter()
             state, m = ts(state, b)
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
-        if chk is not None:
-            shapes += list(chk.rows.values())
         hist.append({k: float(v) for k, v in m.items()})
         records.append(rec)
-    dims = ("kernel", "M", "N", "K", "G", "planes", "tasks", "B", "Sq", "Sk",
-            "Hq", "Hkv")
-    seen = {}
-    for sh in shapes:
-        seen.setdefault(tuple(sh.get(k) for k in dims), sh)
     out.update(hist=hist, step_ms=ms,
                train_peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
                collectives=[collectives_by_axis(r) for r in records],
@@ -7981,7 +8095,7 @@ def mesh_fam_run(torch, ctx, rank: int, whole, cfg, prompt, prefix,
                train_vocab_gathers=sum(context.allgather_extent_count(
                    r, cfg.vocab_size) for r in records),
                codes_frozen=codes_sum(torch, local) == codes0,
-               shapes=list(seen.values()))
+               shapes=[] if checker is None else list(checker.rows.values()))
     stage("train")
     del state, local
     torch.cuda.empty_cache()
@@ -8067,13 +8181,16 @@ def mesh_fam_unsharded(torch, api, model, cfg, prompt, prefix,
                prefill_ms=prefill_s * 1e3,
                decode_ms_per_step=(gen_s - prefill_s) * 1e3
                / (MESH_FAM_NEW - 1))
+    if cfg.family in ("ssm", "hybrid"):
+        out["state"] = prefill_state(torch, api, model, prompt)
     return out
 
 
 def mesh_fam_gate(torch, name, cfg, shape, ranks, ref, wall) -> dict:
-    """Phase mesh_families' gates on one model's rank results on one mesh;
-    returns its row."""
-    label = f"mesh_families {name} {shape}"
+    """Phase mesh_families' (mesh_recurrent's) gates on one model's rank
+    results on one mesh; returns its row."""
+    phase = mesh_phase(cfg)
+    label = f"{phase} {name} {shape}"
     r0 = ranks[0]
     expect = "nccl" if shape == (1, 1) else "gloo"
     placed = {(r["summary"]["backend"], r["summary"]["device"])
@@ -8117,6 +8234,11 @@ def mesh_fam_gate(torch, name, cfg, shape, ranks, ref, wall) -> dict:
         if diff != 0.0 or not torch.equal(r0["tokens"], ref["tokens"]):
             fail(f"{label}: the mesh path is not bit-equal to the unsharded "
                  f"engine (logits differ by {diff:.3e})")
+        state = r0.pop("state", None)
+        if state is not None and (state.keys() != ref["state"].keys() or any(
+                not torch.equal(v, ref["state"][k]) for k, v in state.items())):
+            fail(f"{label}: the state after the prefill is not bit-equal to "
+                 f"the unsharded engine's")
     elif diff > MESH_LOGIT_TOL * scale:
         fail(f"{label}: prefill logits differ from the unsharded engine's "
              f"by {diff:.3e} > {MESH_LOGIT_TOL * scale:.3e}")
@@ -8152,41 +8274,47 @@ def mesh_fam_gate(torch, name, cfg, shape, ranks, ref, wall) -> dict:
            "collectives_a_step": r0["collectives"][-1],
            "formula": r0["want"],
            "stages_s": [r["stages"] for r in ranks]}
+    if "gnorm" in r0:
+        row["gnorm"] = [r["gnorm"] for r in ranks]
     if r0["shapes"]:
         row["shapes"] = r0["shapes"]
         kinds = {s["kernel"] for s in r0["shapes"]}
-        need = {"quant_gemv", "quant_matmul", "flash_attention"}
-        if cfg.family != "encdec":
+        need = {"quant_gemv", "quant_matmul"}
+        if cfg.family != "ssm":             # xlstm has no attention
+            need.add("flash_attention")
+        if cfg.family not in ("encdec", "ssm", "hybrid"):   # drain only
             need.add("quant_gemv_tasks")
         if not need <= kinds:
             fail(f"{label}: shard shapes checked for {sorted(kinds)}, "
                  f"expected at least {sorted(need)}")
-    emit({"phase": "mesh_families_row", "model": name,
+    emit({"phase": f"{phase}_row", "model": name,
           "mesh": f"{shape[0]}x{shape[1]}",
           **{k: row[k] for k in ("backend", "kv_share", "logits_max_abs_diff",
                                  "decode_ms_per_step",
                                  "unsharded_decode_ms_per_step", "step_ms",
                                  "unsharded_step_ms", "train_peak_gb",
                                  "unsharded_train_peak_gb",
-                                 "collectives_a_step", "formula")}})
+                                 "collectives_a_step", "formula")},
+          **({"gnorm": row["gnorm"]} if "gnorm" in row else {})})
     return row
 
 
-def mesh_families_start(torch) -> dict:
-    """Phase mesh_families' first part: each MESH_FAM model built once at
-    full width, then its (1, 2) ranks spawned on cuda:0 under gloo in a
-    thread of this process — they read its whole models over CUDA IPC and
-    copy only their shards — so that they run beside what this process
-    does next (phases that time nothing); ``phase_mesh_families`` joins
-    them."""
+def mesh_families_start(torch, models=None, phase="mesh_families") -> dict:
+    """Phase mesh_families' (``phase``'s) first part: each model of
+    ``models`` ({arch: layers or None}, MESH_FAM by default; MESH_REC for
+    mesh_recurrent) built once at full width, then its (1, 2) ranks
+    spawned on cuda:0 under gloo in a thread of this process — they read
+    its whole models over CUDA IPC and copy only their shards — so that
+    they run beside what this process does next (phases that time
+    nothing); ``phase_mesh_families`` joins them."""
     import threading
+    models = MESH_FAM if models is None else models
     gen = torch.Generator().manual_seed(SEED + 55)
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_families_")
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{phase}_")
     built = {}
-    for name in MESH_FAM:
-        cfg, api, model, _, figs = dense_build(
-            torch, name, remat="block",
-            **({"n_layers": MESH_FAM[name]} if MESH_FAM[name] else {}))
+    for name in models:
+        cfg, api, model, _, figs = dense_build(torch, name,
+                                               **mesh_fam_kw(name))
         prompt, prefix = mesh_fam_inputs(torch, cfg, gen)
         built[name] = {"cfg": cfg, "api": api, "model": model,
                        "figs": figs, "prompt": prompt, "prefix": prefix}
@@ -8203,18 +8331,21 @@ def mesh_families_start(torch) -> dict:
             box["error"] = e
     thread = threading.Thread(target=run_spawned)
     thread.start()
-    return {"built": built, "tmp": tmp, "spawned": spawned, "box": box,
-            "thread": thread}
+    return {"phase": phase, "built": built, "tmp": tmp, "spawned": spawned,
+            "box": box, "thread": thread}
 
 
-def phase_mesh_families(torch, started=None) -> dict:
-    """The vlm and encdec families and a KV head that model ranks share on
-    (data, model) meshes (module docstring, phase mesh_families): the
-    models and their spawned (1, 2) ranks of ``started``
+def phase_mesh_families(torch, started=None, others=()) -> dict:
+    """The vlm and encdec families and a KV head that model ranks share —
+    or, ``started`` by ``mesh_families_start(torch, MESH_REC,
+    "mesh_recurrent")``, the ssm and hybrid families — on (data, model)
+    meshes (module docstring, phases mesh_families and mesh_recurrent):
+    the models and their spawned (1, 2) ranks of ``started``
     (``mesh_families_start``, which this calls where it is None) joined
-    first, so that what this process times runs alone; then (1, 1) over
-    NCCL and the unsharded inference in this process, and the unsharded
-    steps last (they train the whole models)."""
+    first, and the ranks of every started phase of ``others`` too, so that
+    what this process times runs alone; then (1, 1) over NCCL and the
+    unsharded inference in this process, and the unsharded steps last
+    (they train the whole models)."""
     import torch.distributed as dist
 
     from repro_torch.dist import backend
@@ -8222,17 +8353,18 @@ def phase_mesh_families(torch, started=None) -> dict:
 
     started = started or mesh_families_start(torch)
     built, tmp, box = started["built"], started["tmp"], started["box"]
-    res = {"phase": "mesh_families", "batch": BATCH,
+    phase = started["phase"]
+    res = {"phase": phase, "batch": BATCH,
            "prompt": MESH_FAM_PROMPT, "new_tokens": MESH_FAM_NEW,
            "train_rows": MESH_FAM_TRAIN_ROWS, "train_seq": MESH_FAM_SEQ,
            "steps": MESH_FAM_STEPS,
            "logit_tolerance_share": MESH_LOGIT_TOL, "models": {}}
     ranks, refs = {}, {}
     try:
-        started["thread"].join()
+        for s in (started, *others):
+            s["thread"].join()
         if "error" in box:
-            fail(f"mesh_families: the spawned meshes failed: "
-                 f"{box['error']!r}")
+            fail(f"{phase}: the spawned meshes failed: {box['error']!r}")
         torch.cuda.ipc_collect()
         for shape in started["spawned"]:
             for name in built:
@@ -8508,17 +8640,23 @@ def main() -> None:
                   main_path["prompt"])
     steps = {layout: conv[layout]["step"] for layout in conv}
     del conv
-    # phase mesh_families' (1, 2) ranks run beside phases invariance and
-    # check, which time nothing (the time limit's cut: the ranks' own walls
-    # include those phases' load); it joins them before it times anything
+    # phases mesh_families' and mesh_recurrent's (1, 2) ranks run beside
+    # each other and beside phases invariance and check, which time nothing
+    # (the time limit's cut: the ranks' own walls include that load);
+    # mesh_families joins both before it times anything
     families = run("mesh_families_start", mesh_families_start, torch)
+    recurrent = run("mesh_recurrent_start", mesh_families_start, torch,
+                    MESH_REC, "mesh_recurrent")
     run("invariance", phase_invariance, torch, main_path["cfg"])
     run("invariance_starcoder2", phase_invariance, torch,
         dense_cfg("starcoder2-7b"), layouts=("nibble",))
     run("check", phase_check, torch, main_path["cfg"])
     mesh_families = run("mesh_families", phase_mesh_families, torch,
-                        families)
+                        families, (recurrent,))
     del families
+    mesh_recurrent = run("mesh_recurrent", phase_mesh_families, torch,
+                         recurrent)
+    del recurrent
     train = run("train", phase_train, torch, main_path)
     full = run("train_full", phase_train_full, torch, main_path, train)
     # llama3.2-1b's models go before the 7B ones are made
@@ -8651,22 +8789,25 @@ def main() -> None:
                     [*(sh[d] for d in dims), sh["max_abs_err"], sh["ms"],
                      sh["plain_ms"], sh["bound_ms"],
                      *((sh["library_ms"],) if "library_ms" in sh else ())])
-    # phase mesh_families' path: each model's generate at (1, 2) on rank 0
-    # (counts set to 0 just before each), summed; every shard shape its
-    # rank 0 held to plain, as [M, N, K, err, ms, plain ms, bound ms,
-    # library ms] (K4's as B, Sq, Sk, Hq, Hkv; K5 and the plane forms have
-    # no library call)
-    fam_launches, fam_shapes = {}, {}
-    for m in mesh_families["models"].values():
-        row = m["meshes"]["1x2"]
-        for k, v in row["launches_a_rank"].items():
-            fam_launches[k] = fam_launches.get(k, 0) + v
-        for sh in row.get("shapes", ()):
-            dims = ("M", "N", "K") if "M" in sh else \
-                ("B", "Sq", "Sk", "Hq", "Hkv")
-            fam_shapes.setdefault(sh["kernel"], []).append(
-                [*(sh[d] for d in dims), sh["max_abs_err"], sh["ms"],
-                 sh["plain_ms"], sh["bound_ms"], sh.get("library_ms")])
+    # phases mesh_families' and mesh_recurrent's paths: each model's
+    # generate at (1, 2) on rank 0 (counts set to 0 just before each),
+    # summed; every shard shape its rank 0 held to plain, as [M, N, K, err,
+    # ms, plain ms, bound ms, library ms] (K4's as B, Sq, Sk, Hq, Hkv; K5
+    # and the plane forms have no library call)
+    mesh_paths = {}
+    for phase, got in (("mesh_families", mesh_families),
+                       ("mesh_recurrent", mesh_recurrent)):
+        launched, shapes = mesh_paths.setdefault(phase, ({}, {}))
+        for m in got["models"].values():
+            row = m["meshes"]["1x2"]
+            for k, v in row["launches_a_rank"].items():
+                launched[k] = launched.get(k, 0) + v
+            for sh in row.get("shapes", ()):
+                dims = ("M", "N", "K") if "M" in sh else \
+                    ("B", "Sq", "Sk", "Hq", "Hkv")
+                shapes.setdefault(sh["kernel"], []).append(
+                    [*(sh[d] for d in dims), sh["max_abs_err"], sh["ms"],
+                     sh["plain_ms"], sh["bound_ms"], sh.get("library_ms")])
     kernels = []
     for name in (k.__name__ for k in ops.KERNELS):
         st = times[name]
@@ -8690,10 +8831,10 @@ def main() -> None:
                if name in mesh_moe_launches else {}),
             **({"mesh_moe_shapes": mesh_moe_shapes[name]}
                if name in mesh_moe_shapes else {}),
-            **({"mesh_families_launches": fam_launches[name]}
-               if name in fam_launches else {}),
-            **({"mesh_families_shapes": fam_shapes[name]}
-               if name in fam_shapes else {})})
+            **{f"{phase}_{what}": got[name]
+               for phase, pair in mesh_paths.items()
+               for what, got in zip(("launches", "shapes"), pair)
+               if name in got}})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "phase_seconds": seconds,
           "k4_7b_prefill_us": {m: r["us"] for m, r in attn_7b.items()},
@@ -8764,13 +8905,16 @@ def main() -> None:
               "collectives_a_step", "formula", "logits_max_abs_diff")}
               for name, m in r["meshes"].items()}
               for model, r in mesh_moe["models"].items()},
-          "mesh_families": {model: {name: {k: m[k] for k in (
+          **{phase: {model: {name: {k: m[k] for k in (
               "backend", "kv_share", "decode_ms_per_step",
               "unsharded_decode_ms_per_step", "step_ms", "unsharded_step_ms",
               "train_peak_gb", "unsharded_train_peak_gb",
-              "collectives_a_step", "formula", "logits_max_abs_diff")}
+              "collectives_a_step", "formula", "logits_max_abs_diff",
+              "gnorm") if k in m}
               for name, m in r["meshes"].items()}
-              for model, r in mesh_families["models"].items()},
+              for model, r in got["models"].items()}
+              for phase, got in (("mesh_families", mesh_families),
+                                 ("mesh_recurrent", mesh_recurrent))},
           "launch": {k: launch[k] for k in (
               "train", "train_resumed", "serve_continuous",
               "serve_speculative", "serve_family_smoke")},

@@ -50,11 +50,18 @@ autograd's device thread, where no ``use_mesh`` is installed):
     sums and the vocab-sharded lookup; over the data axis: the loss);
   * ``copy_to_model(t, ctx)`` — the identity forward, an all-reduce sum of
     the gradient backward (the input of a column-parallel group, whose
-    gradient each rank holds a partial sum of).
+    gradient each rank holds a partial sum of);
+  * ``sum_over_model(t, ctx)`` — an all-reduce sum forward and backward:
+    a statistic over a dim cut across the model axis whose every rank's
+    copy feeds only that rank's block (Mamba2's gated norm over d_inner,
+    ``common.sharded_rms_norm``), so each rank holds a partial sum of its
+    gradient.
 
-Both reduce into a fresh tensor while a graph is recorded (nothing
+All three reduce into a fresh tensor while a graph is recorded (nothing
 autograd saved is overwritten); outside one they are the in-place
-``all_reduce`` and the identity.
+``all_reduce`` and the identity.  ``in_mesh(ctx, fn)`` re-installs the
+context around a remat checkpoint's function, whose recompute runs in
+the backward.
 
 ``group_all_gather`` and ``group_all_reduce`` run the same two kinds over
 any process group (a pipeline's stage axis, ``dist/pipeline_par.py``).
@@ -217,6 +224,22 @@ class _ReduceSum(torch.autograd.Function):
         return grad, None, None
 
 
+class _SumOverModel(torch.autograd.Function):
+    """All-reduce sum over the model axis forward AND backward (on the
+    context the forward was given)."""
+
+    @staticmethod
+    def forward(fctx, t, ctx):
+        fctx.mesh = ctx
+        return ctx.all_reduce(t.clone(memory_format=torch.contiguous_format),
+                              "model")
+
+    @staticmethod
+    def backward(fctx, grad):
+        g = grad.clone(memory_format=torch.contiguous_format)
+        return fctx.mesh.all_reduce(g, "model"), None
+
+
 class _CopyToModel(torch.autograd.Function):
     """The identity forward, the gradient all-reduced over the model axis
     backward (on the context the forward was given)."""
@@ -253,6 +276,32 @@ def copy_to_model(t: torch.Tensor, ctx: MeshContext) -> torch.Tensor:
     if _recording_graph(t):
         return _CopyToModel.apply(t, ctx)
     return t
+
+
+def sum_over_model(t: torch.Tensor, ctx: MeshContext) -> torch.Tensor:
+    """``t`` summed over the model axis where each rank's copy of the sum
+    feeds only that rank's block of a result (a norm's statistic over a
+    dim cut across the axis): the gradient of the sum is then the model
+    axis' sum of the ranks' gradients, so the backward all-reduces too
+    (the identity forward is never right here); outside a recorded graph
+    the in-place ``all_reduce``."""
+    if _recording_graph(t):
+        return _SumOverModel.apply(t, ctx)
+    return ctx.all_reduce(t, "model")
+
+
+def in_mesh(ctx: Optional[MeshContext], fn):
+    """``fn`` run under ``use_mesh(ctx)`` (``fn`` itself for None): what a
+    remat checkpoint of a shard's block calls, since its recompute runs in
+    the backward — on autograd's device thread on the card, where the
+    caller's ``use_mesh`` is not installed."""
+    if ctx is None:
+        return fn
+
+    def run(*args):
+        with use_mesh(ctx):
+            return fn(*args)
+    return run
 
 
 def group_all_gather(t: torch.Tensor, group, n: int) -> list:

@@ -38,13 +38,24 @@ and the reference's layer-stacked leaf.
     to sum partial QKᵀ products over D; the port computes each rank's
     attention locally over whole heads (K4), so it keeps the head whole:
     the same values, another layout (ROADMAP §3).
+  * The recurrent blocks: Mamba2's ``zproj``, ``xproj`` and ``dtproj``
+    cut by output in whole SSM heads, its conv on d_inner, ``A_log`` /
+    ``ssm_D`` / ``dt_bias`` on heads, ``out_proj`` row-parallel — the
+    reference's rules — but ``bproj`` / ``cproj`` whole on every rank:
+    every head's local scan reads all of d_state (the reference's own
+    Mamba2 docstring says "B/C replicated", its rule cuts them by output;
+    ROADMAP §3).  xLSTM's mLSTM ``wq`` / ``wk`` / ``wv`` / ``gate`` by
+    output in whole heads, its scalar gates ``gi`` / ``gf`` whole, the
+    sLSTM's ``sw`` / ``sr`` / ``sb`` whole (its recurrence mixes a head's
+    units every step), both ``down`` row-parallel.
 
 The reference hands these specs to GSPMD.  The port cuts each rank's
 local module from the whole quantized model (``shard_model``): the shard
 is never quantized on its own — per-channel RTN of a row-parallel input
 slice would give other scales —, and ``unshard`` puts the shards back
 together bit for bit.  Attention runs on the rank's n_heads/M query and
-n_kv/M KV heads (``shard_config``).
+n_kv/M KV heads (``shard_config``), a Mamba2 or mLSTM block on its
+n_heads/M heads.
 
 In training every leaf's gradient is one of three kinds on the model axis
 (``leaf_kind``): ``"sharded"`` — the rank's block, complete —,
@@ -53,7 +64,13 @@ gradient on a rank is the partial sum over its input columns; a grouped
 ``wk``/``wv`` leaf, whose gradient covers only the rank's query heads'
 share of its KV head — and
 ``"replicated"`` — equal on every model rank (norm gains, row-parallel
-biases).  The train step sums the partial ones over the model axis, the
+biases).  Every leaf of a module kept whole whose output a rank uses
+only in part is partial too (``REPLICATED_MODULES``, ``PARTIAL_GAINS``):
+xLSTM's ``gi`` / ``gf`` (the rank's heads' columns), Mamba2's ``bproj`` /
+``cproj`` (the rank's heads' scans), the sLSTM's ``sw`` / ``sr`` / ``sb``
+(its output feeds a row-parallel ``down``, so a rank's gradient of it
+covers its columns), and Mamba2's ``gnorm.g`` (whole, zero outside the
+rank's columns).  The train step sums the partial ones over the model axis, the
 gradient norm and the int8 codec reduce over the sharded ones; the
 optimizer moments take their parameter's block (``moment_specs``).  The
 router's gradient is partial too: the combine's gate term covers only the
@@ -62,11 +79,18 @@ rank's experts (or d_ff slice), and the MoE block lets its aux term in at
 whole gradient.
 
 ``shard_problems`` refuses what this slice does not shard, with a reason:
-a head, d_ff or vocab count the model axis does not divide, a KV-head count
-that neither divides it nor is divided by it, an expert count ("expert") or an expert's or the shared experts'
-d_ff ("tensor", shared) it does not divide, and a local input extent that
-breaks a kernel's operand layout (the nibble word ``K % 8``, the plane
-word ``K % 32``, whole groups).
+a head, SSM-head, d_ff or vocab count the model axis does not divide, a
+KV-head count that neither divides it nor is divided by it, an expert
+count ("expert") or an expert's or the shared experts' d_ff ("tensor",
+shared) it does not divide, and a local input extent that breaks a
+kernel's operand layout (the nibble word ``K % 8``, the plane word ``K %
+32``, whole groups).
+
+``cache_specs`` places a cache leaf's model dim by its structure where
+the caller gives it (``model_dims``: the dim whose extent a shard's
+config cuts, ``train.serve.cache_model_dims``): the SSM state on its
+heads, the conv window on d_inner, the mLSTM state on its heads, the
+sLSTM state whole; the KV heads keep the reference's rule.
 """
 from __future__ import annotations
 
@@ -86,9 +110,14 @@ MODEL_AXIS = "model"
 # linears that shard the contraction (input) dim — their outputs are the
 # partial sums reduced once a block (Megatron layout)
 ROW_PARALLEL = ("wo", "down", "out_proj")
-# modules that stay replicated wholesale (routers, sLSTM recurrences, the
-# xLSTM scalar-gate projections)
-REPLICATED_MODULES = ("router", "sr", "sb", "gi", "gf", "sw")
+# modules that stay whole on every rank (routers, the sLSTM, the xLSTM
+# scalar-gate projections, Mamba2's B/C projections), each of which a rank
+# uses only in part: their gradients are model-partial
+REPLICATED_MODULES = ("router", "sr", "sb", "gi", "gf", "sw", "bproj",
+                      "cproj")
+# the whole gains a rank applies only its columns of (Mamba2's gated norm
+# over d_inner): model-partial gradients too
+PARTIAL_GAINS = ("gnorm",)
 # per-head SSM vectors: the trailing heads dim
 HEAD_VECTOR_LEAVES = ("A_log", "ssm_D", "dt_bias")
 _LINEAR_LEAVES = ("w", "qw", "scale", "zero", "b")
@@ -184,10 +213,13 @@ SHARDED, PARTIAL, REPLICATED = "sharded", "partial", "replicated"
 def leaf_kind(path: str, ndim: int, kv_share: int = 1) -> str:
     """What a rank holds of the gradient of the leaf at ``path`` on the
     model axis: ``SHARDED`` (its block), ``PARTIAL`` (a row-parallel
-    scale or zero: a partial sum over its input columns; an MoE router's
-    weight: its experts' or d_ff slice's share; a grouped ``wk``/``wv``
-    leaf: its query heads' share of its KV head's) or ``REPLICATED`` (the
-    whole gradient, equal on every model rank)."""
+    scale or zero: a partial sum over its input columns; a leaf of a
+    ``REPLICATED_MODULES`` module — an MoE router: its experts' or d_ff
+    slice's share; xLSTM's ``gi`` / ``gf``, Mamba2's ``bproj`` / ``cproj``
+    and the sLSTM: the share of the rank's heads or columns —, a
+    ``PARTIAL_GAINS`` gain; a grouped ``wk``/``wv`` leaf: its query heads'
+    share of its KV head's) or ``REPLICATED`` (the whole gradient, equal
+    on every model rank)."""
     spec = spec_for_path(path, ndim, kv_share=kv_share)
     if any(isinstance(ax, KVGroup) for ax in spec):
         return PARTIAL
@@ -197,7 +229,8 @@ def leaf_kind(path: str, ndim: int, kv_share: int = 1) -> str:
     if len(parts) >= 2 and parts[-1] in ("scale", "zero") \
             and parts[-2] in ROW_PARALLEL:
         return PARTIAL
-    if "router" in parts:
+    if any(p in REPLICATED_MODULES for p in parts) or (
+            len(parts) >= 2 and parts[-2] in PARTIAL_GAINS):
         return PARTIAL
     return REPLICATED
 
@@ -284,7 +317,8 @@ def stacked_scale_specs(tree) -> dict:
 
 def cache_specs(ctx, cache: Mapping, batch: int, batch_sharded: bool,
                 n_kv_heads: int = 0, batch_dims: Optional[Mapping] = None,
-                kv_share: int = 1) -> Dict[str, tuple]:
+                kv_share: int = 1, model_dims: Optional[Mapping] = None
+                ) -> Dict[str, tuple]:
     """The spec of every cache leaf (the reference's rule): the batch dim
     over the data axes where sharded, the KV-head dim over the model axis
     where it divides — else head_dim, the reference's fallback.  With
@@ -295,31 +329,45 @@ def cache_specs(ctx, cache: Mapping, batch: int, batch_sharded: bool,
     ``batch_dims`` ({key: dim}, ``train.serve.cache_dims``' first half)
     pins each leaf's batch dim structurally; without it the batch dim is
     the first dim whose extent equals ``batch``, which misfires when that
-    extent collides with a stack extent (batch == n_layers)."""
+    extent collides with a stack extent (batch == n_layers).
+
+    ``model_dims`` ({key: dim}, ``train.serve.cache_model_dims``) pins
+    each leaf's model dim structurally — the dim a shard's config cuts,
+    −1 for a leaf every rank holds whole —, as the pool lays it out; a −1
+    leaf of a shared KV head still takes ``KVGroup(kv_share)``.  Without
+    it a leaf's model dim is the one whose extent equals n_kv_heads, else
+    the last (the reference's rule), which misplaces the recurrent
+    families' state: the SSM state's d_state, an sLSTM's heads when they
+    number n_kv_heads."""
     msize = ctx.model_size
 
-    def spec(shape, bdim):
+    def spec(key, shape, bdim):
         nd = len(shape)
         parts = [None] * nd
         placed = False
+        mdim = None if model_dims is None else model_dims[key]
         for dim in range(nd):
             is_batch = (dim == bdim) if bdim is not None \
                 else (not placed and shape[dim] == batch)
             if batch_sharded and not placed and is_batch:
                 parts[dim] = tuple(ctx.data_axes)
                 placed = True
+            elif mdim is not None and mdim >= 0:
+                if dim == mdim:
+                    parts[dim] = ctx.model_axis
             elif (n_kv_heads and dim >= 2 and shape[dim] == n_kv_heads
                   and not any(model_block(p, msize, 0) for p in parts)):
-                if n_kv_heads % msize == 0:
+                if n_kv_heads % msize == 0 and mdim is None:
                     parts[dim] = ctx.model_axis
                 elif kv_share > 1:
                     parts[dim] = KVGroup(kv_share)
-        if not any(model_block(p, msize, 0) for p in parts) and nd >= 3 \
-                and shape[-1] % msize == 0:
+        if mdim is None and not any(model_block(p, msize, 0)
+                                    for p in parts) \
+                and nd >= 3 and shape[-1] % msize == 0:
             parts[-1] = ctx.model_axis
         return tuple(parts)
 
-    return {k: spec(tuple(v.shape), None if batch_dims is None
+    return {k: spec(k, tuple(v.shape), None if batch_dims is None
                     else batch_dims[k]) for k, v in cache.items()}
 
 
@@ -376,13 +424,26 @@ def shard_problems(cfg: ModelConfig, model_size: int) -> List[str]:
     mc = cfg.moe
     out = []
     counts = [("n_heads", cfg.n_heads), ("vocab_size", cfg.vocab_size)]
-    if cfg.n_kv_heads % m and m % cfg.n_kv_heads:
+    if cfg.family != "ssm" and cfg.n_kv_heads % m and m % cfg.n_kv_heads:
+        # (xLSTM has no attention: its n_kv_heads is read by nothing)
         out.append(f"n_kv_heads={cfg.n_kv_heads} neither divides nor is "
                    f"divided by the model axis ({m}): a rank holds whole KV "
                    f"heads, or one KV head that model ranks share")
     # the input extents of the row-parallel linears, each cut over m
     rows = [("wo", cfg.n_heads * cfg.d_head)]
-    if mc is None:
+    if cfg.family == "ssm":
+        # xLSTM: the mLSTM's heads (n_heads) and the inputs of its down
+        # (2d) and of the sLSTM's (d); no attention, no MLP
+        rows = [("the mLSTM's down", 2 * cfg.d_model),
+                ("the sLSTM's down", cfg.d_model)]
+    elif cfg.family == "hybrid":
+        # zamba2: the attention heads and the SSM heads, out_proj's
+        # d_inner, the shared block's wo and down
+        d_inner = cfg.ssm.expand * cfg.d_model
+        counts += [("the SSM heads", d_inner // cfg.ssm.head_dim),
+                   ("d_ff", cfg.d_ff)]
+        rows += [("out_proj", d_inner), ("the shared down", cfg.d_ff)]
+    elif mc is None:
         counts.append(("d_ff", cfg.d_ff))
         rows.append(("down", cfg.d_ff))
     else:
@@ -422,7 +483,12 @@ def shard_config(cfg: ModelConfig, model_size: int) -> ModelConfig:
     """The config a rank's shard runs under: its local query and KV heads
     (one KV head where ``kv_share`` ranks share it), the head width pinned
     (the vocab, d_ff and d_model stay the whole model's: the shard's
-    tensors carry their own extents)."""
+    tensors carry their own extents).  The recurrent blocks count their
+    widths in n_heads · d_head (``mamba2.width``: d_model/M here), so the
+    same config gives a Mamba2 block its n_heads/M-th of d_inner and of
+    the SSM heads, an mLSTM its n_heads/M heads of 2·d_head, and the sLSTM
+    its whole d_model // d_head heads — and ``init_cache`` the rank's
+    state."""
     return cfg.replace(n_heads=cfg.n_heads // model_size,
                        n_kv_heads=max(cfg.n_kv_heads // model_size, 1),
                        head_dim=cfg.d_head)
@@ -480,9 +546,12 @@ def _new_param(t: torch.Tensor, like: torch.Tensor) -> nn.Parameter:
 
 def shard_model(model: nn.Module, cfg: ModelConfig, ctx) -> nn.Module:
     """This rank's shard of the WHOLE ``model`` (a dense, vlm or MoE
-    ``Transformer``, or an encdec ``Whisper``: each stack's attention and
+    ``Transformer``, an encdec ``Whisper`` — each stack's attention and
     MLP cut alike, the cross-attention's q/k/v column-parallel and its
-    ``wo`` row-parallel, the learned positions and every norm whole): a
+    ``wo`` row-parallel, the learned positions and every norm whole —, an
+    ssm ``XLSTM`` or a hybrid ``Zamba2``: the recurrent blocks by the
+    rules of the module docstring, zamba2's shared block as a dense block,
+    its q/k/v over the 2·d_model-wide concat column-parallel): a
     module with the same tensor names, each tensor its ``spec_for_path``
     block (contiguous copies: the shard shares no storage with ``model``,
     so a task swap on it leaves the whole model as it was).  Every linear
@@ -493,10 +562,12 @@ def shard_model(model: nn.Module, cfg: ModelConfig, ctx) -> nn.Module:
     ``wk``/``wv`` that holds its KV head whole (``kv_share`` > 1, recorded
     on the shard as ``kv_share``), ``"expert"`` for an ``experts_ep``
     stack of E/M whole experts, None for the router; each MoE block is
-    marked ``mesh_shard`` as the model is; the token table keeps
-    ``vocab_start``.  ``ctx`` needs only ``model_size`` and ``model_rank``
-    (``context.coords`` will do)."""
-    from repro_torch.models import common, linear, registry
+    marked ``mesh_shard`` as the model is, and so is each Mamba2, mLSTM
+    and sLSTM block (it slices its rank's block of a whole module's
+    output: the scalar gates' heads, the sLSTM's columns, the gated norm's
+    gain); the token table keeps ``vocab_start``.  ``ctx`` needs only
+    ``model_size`` and ``model_rank`` (``context.coords`` will do)."""
+    from repro_torch.models import common, linear, mamba2, registry, xlstm
     probs = shard_problems(cfg, ctx.model_size)
     if probs:
         raise NotImplementedError(f"{cfg.name}: cannot shard over a model "
@@ -515,6 +586,9 @@ def shard_model(model: nn.Module, cfg: ModelConfig, ctx) -> nn.Module:
             layer.moe.experts_ep = common.MLP(
                 cfg, "meta", d_ff=mc.d_ff_expert or cfg.d_ff,
                 n_experts=mc.n_experts // ctx.model_size)
+    for mod in local.modules():
+        if isinstance(mod, (mamba2.Mamba2, xlstm.MLSTM, xlstm.SLSTM)):
+            mod.mesh_shard = shard
     whole = dict(model.named_modules())
     with torch.no_grad():
         for name, mod in local.named_modules():

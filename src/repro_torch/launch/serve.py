@@ -500,8 +500,9 @@ def serve_mesh(args, argv) -> None:
 
     from repro_torch.dist import backend
     if args.family_smoke:
-        raise SystemExit("--family-smoke runs off the mesh (the other "
-                         "families shard in a later slice): drop --mesh")
+        raise SystemExit("--family-smoke runs off the mesh (it checks "
+                         "the unsharded engine's serving against its own "
+                         "generate): drop --mesh")
     d, m = args.mesh_shape
     device = args.device or "cuda"
     cfg = model_config(args)

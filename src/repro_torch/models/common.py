@@ -85,6 +85,23 @@ def norm_apply(p: Norm, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return (y * p.g).to(x.dtype)
 
 
+def sharded_rms_norm(p: Norm, x: torch.Tensor, cfg: ModelConfig, ctx,
+                     cols: slice) -> torch.Tensor:
+    """RMSNorm over a feature dim cut across the model axis: ``x`` is the
+    rank's block (…, d/M) of the whole row's columns ``cols``, ``p.g`` the
+    whole gain, of which the rank applies its columns.  The mean of
+    squares is each rank's block mean (``_row_mean``), summed over the
+    model axis and divided by M: the whole row's mean, and at M = 1 the
+    unsharded ``norm_apply``'s bit for bit.  The sum is
+    ``context.sum_over_model`` (one all-reduce forward and one backward):
+    every rank's copy of it scales only the rank's own block, so its
+    gradient is the model axis' sum."""
+    xf = x.to(torch.float32)
+    ms = context.sum_over_model(_row_mean(xf ** 2), ctx) / ctx.model_size
+    y = xf * torch.rsqrt(ms + cfg.norm_eps)
+    return (y * p.g[cols]).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # RoPE (split halves, not interleaved)
 # ---------------------------------------------------------------------------
@@ -258,6 +275,15 @@ def head_apply(lm_head: Optional[linear.Linear], p_embed: Embed,
         return ops.dot_f32(x, p_embed.emb.to(x.dtype))
     return linear.apply(lm_head, x, slots=slots,
                         draft_bits=draft_bits).to(torch.float32)
+
+
+def gather_vocab(logits: torch.Tensor, p_embed: Embed) -> torch.Tensor:
+    """A vocab shard's logits block (``head_apply``'s) as whole rows,
+    gathered over the model axis, unless the run keeps them vocab-sharded
+    (``context.logitshard``); off the mesh the logits themselves."""
+    if p_embed.vocab_start is None or context.logitshard():
+        return logits
+    return context.require().all_gather(logits, "model", dim=-1)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

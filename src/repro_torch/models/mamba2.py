@@ -17,6 +17,18 @@ not Pallas, so it is plain PyTorch on every device; the projections
 (``zproj``, ``xproj``, ``bproj``, ``cproj``, ``dtproj``, ``out_proj``) are
 quantized linears, K2 or K1 on the card.  The state and the conv window are
 float32.
+
+On a ``(data, model)`` mesh a block is a rank's shard
+(``dist/sharding.py::shard_model``, which marks it ``mesh_shard``): its
+n_heads/M SSM heads — ``zproj``, ``xproj`` and ``dtproj`` cut by output
+in whole heads, the conv on its d_inner/M channels, ``A_log``, ``ssm_D``
+and ``dt_bias`` on its heads — and ``bproj`` / ``cproj`` whole (every
+head's scan reads all of d_state); the shard config gives the local
+extents (``dims``).  The block's input passes through
+``context.copy_to_model``; the gated norm over d_inner takes one
+model-axis sum of its mean of squares (``common.sharded_rms_norm``);
+``out_proj`` is row-parallel.  Every rank's scan is local: its state is
+its heads' (B, H/M, hd, st), its conv window its channels'.
 """
 from __future__ import annotations
 
@@ -27,14 +39,32 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import context
 from repro_torch.models import common, linear
 
 
+def width(cfg: ModelConfig) -> int:
+    """The part of d_model a block's heads span: ``n_heads · d_head`` —
+    d_model off the mesh (the recurrent families' heads tile it), d_model/M
+    on a model-axis shard, whose config carries its n_heads/M local heads
+    at the whole head width (``sharding.shard_config``).  The recurrent
+    blocks' widths are counted in it, so one config gives a shard's local
+    extents to its blocks and to its ``init_cache`` alike."""
+    return cfg.n_heads * cfg.d_head
+
+
 def dims(cfg: ModelConfig):
-    """(d_inner, n_heads) of ``cfg``'s Mamba2 block."""
+    """(d_inner, n_heads) of ``cfg``'s Mamba2 block: expand · ``width``
+    and its SSM heads (a shard's local ones)."""
     ssm = cfg.ssm
-    d_inner = ssm.expand * cfg.d_model
+    d_inner = ssm.expand * width(cfg)
     return d_inner, d_inner // ssm.head_dim
+
+
+def shard_ctx(p: nn.Module):
+    """The mesh context of a block that is a rank's shard (marked
+    ``mesh_shard`` by ``sharding.shard_model``), else None."""
+    return context.require() if getattr(p, "mesh_shard", None) else None
 
 
 class Conv(nn.Module):
@@ -58,7 +88,10 @@ class Mamba2(nn.Module):
     """One Mamba2 block's parameters, under the reference's leaf names: the
     split projections, ``conv``, ``A_log`` (log of 1..16 spread over the
     heads), ``ssm_D`` (ones), ``dt_bias`` (−2: softplus ≈ 0.12), ``gnorm``
-    (a gain over d_inner) and ``out_proj``."""
+    (a gain over d_inner) and ``out_proj``.  ``mesh_shard``: (model rank,
+    M) on a rank's shard."""
+
+    mesh_shard = None
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -123,6 +156,18 @@ def _conv1d_causal(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
     for i in range(1, width):
         out = out + xpad[:, i:i + s] * wdt[:, i]
     return out + b.to(x.dtype)
+
+
+def _gnorm(p: Mamba2, y: torch.Tensor, cfg: ModelConfig, ctx
+           ) -> torch.Tensor:
+    """The gated output's RMSNorm over d_inner: on a shard over the
+    rank's columns, its statistic summed over the model axis."""
+    if ctx is None:
+        return common.norm_apply(p.gnorm, y, cfg)
+    n = y.shape[-1]
+    rank = p.mesh_shard[0]
+    return common.sharded_rms_norm(p.gnorm, y, cfg, ctx,
+                                   slice(rank * n, (rank + 1) * n))
 
 
 def _gates(p: Mamba2, u: torch.Tensor, cfg: ModelConfig):
@@ -199,6 +244,9 @@ def apply_train(p: Mamba2, u: torch.Tensor, cfg: ModelConfig,
     bsz, s, _ = u.shape
     d_inner, n_heads = dims(cfg)
     hd, st = ssm.head_dim, ssm.d_state
+    ctx = shard_ctx(p)
+    if ctx is not None:
+        u = context.copy_to_model(u, ctx)
 
     z, x_raw, bb, cc, dt = _gates(p, u, cfg)
     x = silu(_conv1d_causal(x_raw, p.conv.w, p.conv.b))
@@ -214,7 +262,7 @@ def apply_train(p: Mamba2, u: torch.Tensor, cfg: ModelConfig,
     y = y + xh * p.ssm_D[None, None, :, None]
     y = y.reshape(bsz, s, d_inner).to(u.dtype)
     y = y * silu(z)
-    y = common.norm_apply(p.gnorm, y, cfg)
+    y = _gnorm(p, y, cfg, ctx)
     out = linear.apply(p.out_proj, y)
     if return_state:
         tail = ssm.d_conv - 1
@@ -234,6 +282,7 @@ def apply_decode(p: Mamba2, u: torch.Tensor, cfg: ModelConfig,
     bsz = u.shape[0]
     d_inner, n_heads = dims(cfg)
     hd = ssm.head_dim
+    ctx = shard_ctx(p)
 
     z, x, bb, cc, dt = _gates(p, u, cfg)                        # S = 1
     # conv over the rolling window
@@ -255,6 +304,6 @@ def apply_decode(p: Mamba2, u: torch.Tensor, cfg: ModelConfig,
         + xh * p.ssm_D[None, :, None]
     y = y.reshape(bsz, 1, d_inner).to(u.dtype)
     y = y * silu(z)
-    y = common.norm_apply(p.gnorm, y, cfg)
+    y = _gnorm(p, y, cfg, ctx)
     out = linear.apply(p.out_proj, y)
     return out, s_new, new_conv

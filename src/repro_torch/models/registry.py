@@ -130,13 +130,8 @@ RECURRENT_SLOTTED_REASON = ("recurrent state layers cannot thread per-slot "
 
 
 # why serving or training on a (data, model) mesh refuses a configuration:
-# the later slices of the mesh (ROADMAP §1)
-MESH_FAMILY_REASON = ("the mesh (serving and training) is ported for the "
-                      "dense, moe, vlm and encdec families only; {fam} "
-                      "shards later (the ssm and hybrid recurrent state: "
-                      "xproj's concatenated output, the head-sharded SSM "
-                      "state, the conv)")
-MESH_FAMILIES = ("dense", "moe", "vlm", "encdec")
+# the arms' leaves (a later slice of the mesh, ROADMAP §1); every family
+# shards
 MESH_ARM_REASON = ("the {mode} arm's LoRA or fake-quant leaves are not "
                    "sharded: serve or train PEQA (peqa, peqa_z) or full "
                    "weights on a mesh")
@@ -154,8 +149,6 @@ def mesh_problems(cfg: ModelConfig) -> list:
     (empty: it can); the sharded extents are
     ``dist.sharding.shard_problems``'."""
     out = []
-    if cfg.family not in MESH_FAMILIES:
-        out.append(MESH_FAMILY_REASON.format(fam=cfg.family))
     if cfg.tuning.mode in ("lora", "lora_optq", "qat"):
         out.append(MESH_ARM_REASON.format(mode=cfg.tuning.mode))
     return out

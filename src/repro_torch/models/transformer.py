@@ -111,11 +111,9 @@ def _final_logits(model: Transformer, h: torch.Tensor, cfg: ModelConfig,
     shard-local samplers take it as it is —, else the whole row, gathered
     over the model axis."""
     h = common.norm_apply(model.final_norm, h, cfg)
-    logits = common.head_apply(model.lm_head, model.embed, h, cfg,
-                               slots=slots, draft_bits=draft_bits)
-    if model.embed.vocab_start is None or context.logitshard():
-        return logits
-    return context.require().all_gather(logits, "model", dim=-1)
+    return common.gather_vocab(common.head_apply(
+        model.lm_head, model.embed, h, cfg, slots=slots,
+        draft_bits=draft_bits), model.embed)
 
 
 # ModelConfig.remat values the port runs: "none" keeps every activation for

@@ -37,8 +37,6 @@ gradient, not one a layer); the loss scores the vocab block where it lies
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -149,16 +147,10 @@ def _checkpointed(cfg: ModelConfig, fn, *args, ctx=None):
     model-axis shard's mesh context, re-entered around ``fn`` — the
     recompute runs in the backward, on autograd's thread on the card,
     where the caller's ``use_mesh`` is not."""
-    if ctx is not None:
-        fn = functools.partial(_in_mesh, ctx, fn)
+    fn = context.in_mesh(ctx, fn)
     if cfg.remat not in ("block", "full") or not torch.is_grad_enabled():
         return fn(*args)
     return checkpoint(fn, *args, use_reentrant=False)
-
-
-def _in_mesh(ctx, fn, *args):
-    with context.use_mesh(ctx):
-        return fn(*args)
 
 
 def _train_ctx(model: Whisper):
@@ -243,10 +235,7 @@ def _head(dec: Decoder, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """``_head_block``'s logits, on a vocab shard gathered over the model
     axis unless the run keeps them vocab-sharded (``context.logitshard``,
     as ``transformer._final_logits``)."""
-    logits = _head_block(dec, h, cfg)
-    if dec.embed.vocab_start is None or context.logitshard():
-        return logits
-    return context.require().all_gather(logits, "model", dim=-1)
+    return common.gather_vocab(_head_block(dec, h, cfg), dec.embed)
 
 
 def _rope(cfg: ModelConfig, s: int, device):

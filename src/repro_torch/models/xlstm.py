@@ -28,6 +28,20 @@ reference's ``lax.scan``).  Everything but the quantized linears is XLA in
 the reference, so plain PyTorch here; the linears are K2 or K1 on the
 card.  Under ``remat`` "block" or "full" each mLSTM block runs under
 ``torch.utils.checkpoint``, and the sLSTM does not, as in the reference.
+
+Widths are counted in ``mamba2.width`` (n_heads · d_head, d_model off the
+mesh): the mLSTM has n_heads heads of 2·d_head, the sLSTM d_model //
+d_head heads of d_head, the scalar gates ``gi`` / ``gf`` one output a
+whole head.  On a ``(data, model)`` mesh a rank's shard
+(``dist/sharding.py::shard_model``, each block marked ``mesh_shard``)
+runs the mLSTM on its n_heads/M heads — ``wq``, ``wk``, ``wv`` and
+``gate`` cut by output in whole heads, ``gi`` / ``gf`` whole, of which it
+takes its heads' outputs, ``down`` row-parallel — and the sLSTM whole
+(``sw``, ``sr`` and ``sb`` replicated: its recurrence mixes a head's
+units every step), whose output's d/M columns of the rank feed its
+row-parallel ``down``.  Each ``ln``'s output passes through
+``context.copy_to_model``; the state is the rank's mLSTM heads' ``m_S``
+and the whole sLSTM state.
 """
 from __future__ import annotations
 
@@ -39,6 +53,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import context
 from repro_torch.models import common, linear, mamba2
 
 ICLIP = 8.0  # input-gate exp clip
@@ -46,8 +61,34 @@ STATE_KEYS = ("s_c", "s_n", "s_m", "s_h")   # the sLSTM's (c, n, m, h)
 
 
 def _dims(cfg: ModelConfig):
-    d_inner = 2 * cfg.d_model      # mLSTM proj factor 2
-    return d_inner, d_inner // cfg.n_heads
+    """(d_inner, hd) of the mLSTM: proj factor 2 over ``mamba2.width``
+    (a shard's local heads), heads of 2·d_head."""
+    return 2 * mamba2.width(cfg), 2 * cfg.d_head
+
+
+def _slstm_heads(cfg: ModelConfig) -> int:
+    """The sLSTM's (and the scalar gates') whole head count, on a shard
+    too: d_model // d_head."""
+    return cfg.d_model // cfg.d_head
+
+
+def _mine(p: nn.Module, t: torch.Tensor, n: int) -> torch.Tensor:
+    """The rank's block of ``n`` along t's last dim on a block marked
+    ``mesh_shard``, else t."""
+    shard = getattr(p, "mesh_shard", None)
+    if shard is None:
+        return t
+    return t[..., shard[0] * n:(shard[0] + 1) * n]
+
+
+def _ln(p: nn.Module, u_res: torch.Tensor, cfg: ModelConfig
+        ) -> torch.Tensor:
+    """The block's ``ln`` of the residual stream; on a shard through
+    ``context.copy_to_model`` (its column-parallel or replicated readers
+    each hold a partial sum of its gradient)."""
+    u = common.norm_apply(p.ln, u_res, cfg)
+    ctx = mamba2.shard_ctx(p)
+    return u if ctx is None else context.copy_to_model(u, ctx)
 
 
 def _layout(cfg: ModelConfig):
@@ -67,7 +108,10 @@ def _layout(cfg: ModelConfig):
 
 class MLSTM(nn.Module):
     """ln, wq, wk, wv, gate (the output gate) d → 2d, the scalar gates gi
-    and gf d → H, down 2d → d."""
+    and gf d → H, down 2d → d.  ``mesh_shard``: (model rank, M) on a
+    rank's shard."""
+
+    mesh_shard = None
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -76,8 +120,8 @@ class MLSTM(nn.Module):
         self.ln = common.Norm(cfg, device=device)
         for name in ("wq", "wk", "wv", "gate"):
             setattr(self, name, linear.Linear(d, d_inner, device=device))
-        self.gi = linear.Linear(d, cfg.n_heads, device=device)
-        self.gf = linear.Linear(d, cfg.n_heads, device=device)
+        self.gi = linear.Linear(d, _slstm_heads(cfg), device=device)
+        self.gf = linear.Linear(d, _slstm_heads(cfg), device=device)
         self.down = linear.Linear(d_inner, d, device=device)
 
 
@@ -91,7 +135,7 @@ def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
 def _mlstm_gates(p: MLSTM, u: torch.Tensor, cfg: ModelConfig):
     """q and k scaled by hd^-½, v (B, S, H, hd), the output gate σ (B, S,
     2d), ig = exp(clip(ĩ, ±ICLIP)) and logf = logσ(f̃) (B, S, H), all
-    float32."""
+    float32; on a shard its heads' (the whole gates' outputs sliced)."""
     b, s, _ = u.shape
     _, hd = _dims(cfg)
     h = cfg.n_heads
@@ -102,8 +146,8 @@ def _mlstm_gates(p: MLSTM, u: torch.Tensor, cfg: ModelConfig):
     k = proj(p.wk) * hd ** -0.5
     v = proj(p.wv)
     og = torch.sigmoid(linear.apply(p.gate, u).to(torch.float32))
-    i_raw = linear.apply(p.gi, u).to(torch.float32)
-    f_raw = linear.apply(p.gf, u).to(torch.float32)
+    i_raw = _mine(p, linear.apply(p.gi, u), h).to(torch.float32)
+    f_raw = _mine(p, linear.apply(p.gf, u), h).to(torch.float32)
     ig = torch.exp(_clip(i_raw, -ICLIP, ICLIP))
     logf = F.logsigmoid(f_raw)
     return q, k, v, og, ig, logf
@@ -124,7 +168,7 @@ def mlstm_apply_train(p: MLSTM, u_res: torch.Tensor, cfg: ModelConfig,
     hd) float32."""
     b, s, _ = u_res.shape
     d_inner, hd = _dims(cfg)
-    u = common.norm_apply(p.ln, u_res, cfg)
+    u = _ln(p, u_res, cfg)
     q, k, v, og, ig, logf = _mlstm_gates(p, u, cfg)
     v_aug = torch.cat([v, torch.ones(*v.shape[:-1], 1, device=v.device)],
                       dim=-1)                                  # (B,S,H,hd+1)
@@ -146,7 +190,7 @@ def mlstm_apply_decode(p: MLSTM, u_res: torch.Tensor, cfg: ModelConfig,
     the new state)."""
     b = u_res.shape[0]
     d_inner, hd = _dims(cfg)
-    u = common.norm_apply(p.ln, u_res, cfg)
+    u = _ln(p, u_res, cfg)
     q, k, v, og, ig, logf = _mlstm_gates(p, u, cfg)
     q, k, v = q[:, 0], k[:, 0], v[:, 0]                         # (B,H,hd)
     ig, logf, og = ig[:, 0], logf[:, 0], og[:, 0]
@@ -171,7 +215,7 @@ class Recurrent(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        h = cfg.n_heads
+        h = _slstm_heads(cfg)
         hd = cfg.d_model // h
         self.r = nn.Parameter(torch.empty(4, h, hd, hd, device=device))
 
@@ -191,7 +235,10 @@ class GateBias(nn.Module):
 
 
 class SLSTM(nn.Module):
-    """ln, sw (d → 4d: the z, i, f, o pre-activations), sr, sb, down."""
+    """ln, sw (d → 4d: the z, i, f, o pre-activations), sr, sb, down.
+    ``mesh_shard``: (model rank, M) on a rank's shard."""
+
+    mesh_shard = None
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -205,7 +252,7 @@ class SLSTM(nn.Module):
 
 def slstm_zero_state(cfg: ModelConfig, batch: int, device) -> tuple:
     """(c, n, m, h), each (B, H, hd) float32; m starts at −1e9."""
-    h = cfg.n_heads
+    h = _slstm_heads(cfg)
     shape = (batch, h, cfg.d_model // h)
     z = torch.zeros(shape, device=device)
     return (z, z, torch.full(shape, -1e9, device=device), z)
@@ -217,11 +264,12 @@ def slstm_apply_train(p: SLSTM, u_res: torch.Tensor, cfg: ModelConfig,
     """The recurrence over the S steps of u_res (B, S, d), one step at a
     time, from ``state`` (c, n, m, h) or zeros.  Returns the block's output
     (B, S, d) in u_res's dtype, and with ``return_state`` the last (c, n,
-    m, h)."""
+    m, h).  On a shard the recurrence runs whole, and its output's
+    columns of the rank feed the row-parallel ``down``."""
     b, s, d = u_res.shape
-    h = cfg.n_heads
+    h = _slstm_heads(cfg)
     hd = d // h
-    u = common.norm_apply(p.ln, u_res, cfg)
+    u = _ln(p, u_res, cfg)
     wx = linear.apply(p.sw, u).to(torch.float32).reshape(b, s, 4, h, hd) \
         + p.sb.b.reshape(4, h, hd)
     r = p.sr.r
@@ -245,7 +293,7 @@ def slstm_apply_train(p: SLSTM, u_res: torch.Tensor, cfg: ModelConfig,
         m = m_new
         ys.append(hprev)
     y = torch.stack(ys, dim=1).reshape(b, s, d).to(u_res.dtype)
-    out = linear.apply(p.down, y)
+    out = linear.apply(p.down, _mine(p, y, p.down.in_features))
     if return_state:
         return out, (c, n, m, hprev)
     return out
@@ -313,25 +361,47 @@ def _mlstm_res(layer: MLSTM, h: torch.Tensor, cfg: ModelConfig
     return h + mlstm_apply_train(layer, h, cfg)
 
 
-def _head(model: XLSTM, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _head_block(model: XLSTM, h: torch.Tensor, cfg: ModelConfig
+                ) -> torch.Tensor:
     h = common.norm_apply(model.final_norm, h, cfg)
     return common.head_apply(model.lm_head, model.embed, h, cfg)
+
+
+def _head(model: XLSTM, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return common.gather_vocab(_head_block(model, h, cfg), model.embed)
+
+
+def _trunk(model: XLSTM, tokens: torch.Tensor, cfg: ModelConfig
+           ) -> torch.Tensor:
+    """The embedding and every block → the last hidden states (B, S, d);
+    under remat "block" or "full" each mLSTM block checkpointed (on a
+    shard with the mesh context re-installed around its recompute)."""
+    h = common.embed_apply(model.embed, tokens, cfg)
+    remat = cfg.remat in ("block", "full") and torch.is_grad_enabled()
+    res = context.in_mesh(context.current() if model.embed.vocab_start
+                          is not None else None, _mlstm_res)
+    for sl, group in zip(model.slstm, model.mlstm):
+        h = h + slstm_apply_train(sl, h, cfg)
+        for layer in group:
+            h = checkpoint(res, layer, h, cfg, use_reentrant=False) \
+                if remat else _mlstm_res(layer, h, cfg)
+    return h
 
 
 def forward(model: XLSTM, tokens: torch.Tensor, cfg: ModelConfig
             ) -> torch.Tensor:
     """tokens (B, S) → logits (B, S, V) float32."""
-    h = common.embed_apply(model.embed, tokens, cfg)
-    remat = cfg.remat in ("block", "full") and torch.is_grad_enabled()
-    for sl, group in zip(model.slstm, model.mlstm):
-        h = h + slstm_apply_train(sl, h, cfg)
-        for layer in group:
-            h = checkpoint(_mlstm_res, layer, h, cfg, use_reentrant=False) \
-                if remat else _mlstm_res(layer, h, cfg)
-    return _head(model, h, cfg)
+    return _head(model, _trunk(model, tokens, cfg), cfg)
 
 
 def loss_fn(model: XLSTM, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Token-mean next-token cross entropy; on a model-axis shard the
+    global batch's from the rank's rows and vocab block
+    (``common.vocab_parallel_cross_entropy``)."""
+    if model.embed.vocab_start is not None:
+        block = _head_block(model, _trunk(model, batch["tokens"], cfg), cfg)
+        return common.vocab_parallel_cross_entropy(
+            block, batch["labels"], batch.get("mask"), context.require())
     logits = forward(model, batch["tokens"], cfg)
     return common.cross_entropy(logits, batch["labels"], batch.get("mask"))
 
@@ -339,15 +409,15 @@ def loss_fn(model: XLSTM, batch: dict, cfg: ModelConfig) -> torch.Tensor:
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device) -> dict:
     """The recurrent state, float32 and position-free (``seq_len`` is
     unused): the sLSTMs' {"s_c", "s_n", "s_m" (−1e9), "s_h"} (n_groups, B,
-    H, hd) and the mLSTMs' "m_S" (n_groups, n_m, B, H, hd + 1, hd)."""
+    H, hd) and the mLSTMs' "m_S" (n_groups, n_m, B, H, hd + 1, hd) — on a
+    shard's config the sLSTM's whole heads and the rank's mLSTM heads."""
     _, n_groups, n_m = _layout(cfg)
     _, hd = _dims(cfg)
-    h = cfg.n_heads
-    shape = (n_groups, batch, h, cfg.d_model // h)
+    shape = (n_groups, batch, _slstm_heads(cfg), cfg.d_head)
     cache = {k: torch.zeros(shape, device=device) for k in STATE_KEYS}
     cache["s_m"].fill_(-1e9)
-    cache["m_S"] = torch.zeros(n_groups, n_m, batch, h, hd + 1, hd,
-                               device=device)
+    cache["m_S"] = torch.zeros(n_groups, n_m, batch, cfg.n_heads, hd + 1,
+                               hd, device=device)
     return cache
 
 

@@ -27,6 +27,17 @@ attention under "dense", K4 under "chunked"); its decode is
 "full" each Mamba2 block of a group AND each whole group run under
 ``torch.utils.checkpoint``, nested, as the reference checkpoints both; the
 tail does not.
+
+On a ``(data, model)`` mesh a rank's shard (``dist/sharding.py::
+shard_model``) holds its Mamba2 blocks' heads (``models/mamba2.py``) and
+the shared block cut as a dense block is: q/k/v over the 2·d_model-wide
+concat column-parallel, ``wo`` and the MLP's ``down`` row-parallel, its
+n_heads/M heads.  In training ``ln1``'s output (over the concat) and
+``ln2``'s pass through ``context.copy_to_model``, the Megatron pair of
+``transformer._block_train``; a remat checkpoint re-installs the mesh
+context around its recompute.  The shard config's ``init_cache`` holds
+the rank's heads of every leaf: the SSM state's H/M, the conv window's
+d_inner/M channels, the K/V's n_kv/M heads.
 """
 from __future__ import annotations
 
@@ -35,6 +46,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import context
 from repro_torch.models import attention, common, linear, mamba2
 
 
@@ -125,15 +137,22 @@ def _remat(cfg: ModelConfig) -> bool:
     return cfg.remat in ("block", "full") and torch.is_grad_enabled()
 
 
+def _copied(x: torch.Tensor, ctx) -> torch.Tensor:
+    return x if ctx is None else context.copy_to_model(x, ctx)
+
+
 def _attn_in(shared: Shared, h: torch.Tensor, e0: torch.Tensor,
-             cfg: ModelConfig) -> torch.Tensor:
-    return common.norm_apply(shared.ln1, torch.cat([h, e0], dim=-1), cfg)
+             cfg: ModelConfig, ctx=None) -> torch.Tensor:
+    """ln1 of concat(h, e0); ``ctx``: a shard in training, through
+    ``context.copy_to_model`` (q/k/v are column-parallel)."""
+    return _copied(common.norm_apply(shared.ln1, torch.cat([h, e0], dim=-1),
+                                     cfg), ctx)
 
 
-def _shared_mlp(shared: Shared, h: torch.Tensor, cfg: ModelConfig
+def _shared_mlp(shared: Shared, h: torch.Tensor, cfg: ModelConfig, ctx=None
                 ) -> torch.Tensor:
-    return h + common.mlp_apply(shared.mlp,
-                                common.norm_apply(shared.ln2, h, cfg), cfg)
+    return h + common.mlp_apply(
+        shared.mlp, _copied(common.norm_apply(shared.ln2, h, cfg), ctx), cfg)
 
 
 def _mamba_res(layer: mamba2.Mamba2, h: torch.Tensor, cfg: ModelConfig
@@ -142,36 +161,59 @@ def _mamba_res(layer: mamba2.Mamba2, h: torch.Tensor, cfg: ModelConfig
 
 
 def _group_train(group: nn.ModuleList, shared: Shared, h: torch.Tensor,
-                 e0: torch.Tensor, cfg: ModelConfig, rope) -> torch.Tensor:
+                 e0: torch.Tensor, cfg: ModelConfig, rope, ctx=None
+                 ) -> torch.Tensor:
+    res = context.in_mesh(ctx, _mamba_res)
     for layer in group:
-        h = checkpoint(_mamba_res, layer, h, cfg, use_reentrant=False) \
+        h = checkpoint(res, layer, h, cfg, use_reentrant=False) \
             if _remat(cfg) else _mamba_res(layer, h, cfg)
-    h = h + attention.apply_train(shared.attn, _attn_in(shared, h, e0, cfg),
-                                  cfg, rope)
-    return _shared_mlp(shared, h, cfg)
+    h = h + attention.apply_train(
+        shared.attn, _attn_in(shared, h, e0, cfg, ctx), cfg, rope)
+    return _shared_mlp(shared, h, cfg, ctx)
+
+
+def _head_block(model: Zamba2, h: torch.Tensor, cfg: ModelConfig
+                ) -> torch.Tensor:
+    h = common.norm_apply(model.final_norm, h, cfg)
+    return common.head_apply(model.lm_head, model.embed, h, cfg)
 
 
 def _head(model: Zamba2, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    h = common.norm_apply(model.final_norm, h, cfg)
-    return common.head_apply(model.lm_head, model.embed, h, cfg)
+    return common.gather_vocab(_head_block(model, h, cfg), model.embed)
+
+
+def _trunk(model: Zamba2, tokens: torch.Tensor, cfg: ModelConfig
+           ) -> torch.Tensor:
+    """The embedding, the groups and the tail → the last hidden states (B,
+    S, d)."""
+    h = common.embed_apply(model.embed, tokens, cfg)
+    e0 = h
+    rope = _rope(cfg, tokens.shape[1], h.device)
+    ctx = context.current() if model.embed.vocab_start is not None else None
+    group_fn = context.in_mesh(ctx, _group_train)
+    for group in model.mamba_groups:
+        h = checkpoint(group_fn, group, model.shared, h, e0, cfg, rope, ctx,
+                       use_reentrant=False) if _remat(cfg) \
+            else _group_train(group, model.shared, h, e0, cfg, rope, ctx)
+    for layer in model.mamba_tail or ():
+        h = _mamba_res(layer, h, cfg)
+    return h
 
 
 def forward(model: Zamba2, tokens: torch.Tensor, cfg: ModelConfig
             ) -> torch.Tensor:
     """tokens (B, S) → logits (B, S, V) float32."""
-    h = common.embed_apply(model.embed, tokens, cfg)
-    e0 = h
-    rope = _rope(cfg, tokens.shape[1], h.device)
-    for group in model.mamba_groups:
-        h = checkpoint(_group_train, group, model.shared, h, e0, cfg, rope,
-                       use_reentrant=False) if _remat(cfg) \
-            else _group_train(group, model.shared, h, e0, cfg, rope)
-    for layer in model.mamba_tail or ():
-        h = _mamba_res(layer, h, cfg)
-    return _head(model, h, cfg)
+    return _head(model, _trunk(model, tokens, cfg), cfg)
 
 
 def loss_fn(model: Zamba2, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Token-mean next-token cross entropy; on a model-axis shard the
+    global batch's from the rank's rows and vocab block
+    (``common.vocab_parallel_cross_entropy``)."""
+    if model.embed.vocab_start is not None:
+        block = _head_block(model, _trunk(model, batch["tokens"], cfg), cfg)
+        return common.vocab_parallel_cross_entropy(
+            block, batch["labels"], batch.get("mask"), context.require())
     logits = forward(model, batch["tokens"], cfg)
     return common.cross_entropy(logits, batch["labels"], batch.get("mask"))
 

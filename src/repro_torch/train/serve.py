@@ -29,7 +29,11 @@ On a ``(data, model)`` mesh (``ctx``, ``dist/context.py``) every rank runs
 an engine over its shard of the model (``dist/sharding.py::shard_model``):
 the model axis splits heads, d_ff and the vocab (the collectives are
 explicit, ``models/linear.py`` and ``models/common.py``); the data axis
-splits the lockstep batch, or the slot pool, wherever it divides.  Every
+splits the lockstep batch, or the slot pool, wherever it divides.  The
+pool is the shard config's ``init_cache``: each leaf the rank's block —
+the KV heads, a recurrent family's SSM and mLSTM heads and conv
+channels, an sLSTM's state whole (``cache_model_dims`` records which
+dim) —, so a task swap moves only the rank's scales and no state.  Every
 rank runs the same scheduler on the same host state; the tokens a step
 samples are gathered over the data axis, so every rank's ``ServeReport``
 is the same (but for its wall clock).  Under ``logitshard`` the decode
@@ -66,7 +70,7 @@ from repro_torch.serve.metrics import (REJECTED, SERVED, SHED, RequestMetrics,
 from repro_torch.serve.request import Request
 
 __all__ = ["Engine", "Request", "RequestMetrics", "ServeConfig",
-           "ServeReport", "SlotPool", "cache_dims"]
+           "ServeReport", "SlotPool", "cache_dims", "cache_model_dims"]
 
 
 def cache_dims(init_cache, batch: int = 2, seq_len: int = 8):
@@ -81,12 +85,31 @@ def cache_dims(init_cache, batch: int = 2, seq_len: int = 8):
     base = init_cache(batch, seq_len, device="meta")
     wider = init_cache(batch + 1, seq_len, device="meta")
     longer = init_cache(batch, seq_len + 1, device="meta")
+    return ({k: _moved(base[k], wider[k]) for k in base},
+            {k: _moved(base[k], longer[k]) for k in base})
 
-    def moved(a, b):
-        return next((i for i, (x, y) in enumerate(zip(a.shape, b.shape))
-                     if x != y), -1)
-    return ({k: moved(base[k], wider[k]) for k in base},
-            {k: moved(base[k], longer[k]) for k in base})
+
+def _moved(a, b) -> int:
+    """The first dim whose extent differs between ``a`` and ``b``, or
+    −1."""
+    return next((i for i, (x, y) in enumerate(zip(a.shape, b.shape))
+                 if x != y), -1)
+
+
+def cache_model_dims(init_cache, local_init_cache, batch: int = 2,
+                     seq_len: int = 8) -> dict:
+    """The model dim of every cache leaf: the first dim whose extent a
+    shard's config cuts — ``init_cache`` the whole config's,
+    ``local_init_cache`` a shard's (``sharding.shard_config``), both made
+    on ``meta`` —, −1 for a leaf every rank holds whole (an sLSTM's state;
+    a KV head that model ranks share).  Derived from the structure as
+    ``cache_dims`` derives the batch and sequence dims: what
+    ``sharding.cache_specs(model_dims=)`` places the model axis on, and
+    the layout the slot pool of a mesh engine (the shard config's
+    ``init_cache``) holds."""
+    whole = init_cache(batch, seq_len, device="meta")
+    local = local_init_cache(batch, seq_len, device="meta")
+    return {k: _moved(whole[k], local[k]) for k in whole}
 
 
 class SlotPool:

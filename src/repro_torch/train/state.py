@@ -12,7 +12,10 @@ their parameter's spec).  ``shard_state`` cuts a whole state;
 from the shards (an all-gather over the model axis, for a checkpoint), and
 ``load_shard`` loads a whole tree into a rank's state, cutting its blocks,
 so a checkpoint crosses between meshes and off them.  A KV head that model
-ranks share (``sharding.kv_share``) is cut and gathered by its groups.
+ranks share (``sharding.kv_share``) is cut and gathered by its groups.  A
+leaf every rank keeps whole (an MoE router, xLSTM's gates, the sLSTM,
+Mamba2's B/C and its norm's gain: model-partial gradients, summed before
+the update) is the same on every rank and taken whole.
 """
 from __future__ import annotations
 

@@ -19,9 +19,10 @@ jitted step over its shardings with every collective explicit:
     reference's ``pmean``;
   * ``backward()`` outside ``use_mesh`` (the backward never reads it);
   * the model-partial gradients (row-parallel scales and zeros, grouped
-    ``wk``/``wv`` leaves, ``sharding.leaf_kind``) summed over the model
-    axis in one flat bucket,
-    then every trainable gradient over the data axis in one;
+    ``wk``/``wv`` leaves, the leaves a recurrent block keeps whole —
+    xLSTM's gates, the sLSTM, Mamba2's B/C and its norm's gain —,
+    ``sharding.leaf_kind``) summed over the model axis in one flat
+    bucket, then every trainable gradient over the data axis in one;
   * the int8 codec and the update on the global gradient: the norm and
     each sharded leaf's max |g| reduced over the model axis.
 
@@ -103,21 +104,31 @@ def mesh_collectives(model, cfg: ModelConfig, mask, compress: bool = False
         and the feed-forward; an MoE block's is one, as a dense MLP's: its
         routed and shared partial sums are reduced together), 2 an encoder
         block and 3 a decoder block of an encdec (self-attention, the
-        cross-attention, the MLP) — and the lookup's one; under remat
-        "block" ("full") the recompute's, one less a block — torch's
+        cross-attention, the MLP), 1 an xLSTM block (its ``down``), 2 a
+        Mamba2 block (its gated norm's ``sum_over_model`` and
+        ``out_proj``) and 2 a zamba2 shared-block application — and the
+        lookup's one; under remat "block" ("full") the recompute's — torch's
         checkpoint stops its recompute once the tensors the backward needs
-        are back, so each block's last sum (after ``down``) is not re-run
-        —; the backward's ``copy_to_model`` gradients, one for each norm
-        that feeds a column-parallel group (2 a block, 3 a decoder block)
+        are back, so a checkpoint's last sum (after ``down`` or
+        ``out_proj``) is not re-run: one less a block, none an mLSTM
+        block, and a zamba2 group's nested checkpoints 3·attn_every + 1
+        (the group's re-runs its Mamba2 blocks whole, their inner
+        checkpoints included, and its attention's sum; each Mamba2 block's
+        own re-runs its norm's sum) —; the backward's ``copy_to_model``
+        gradients, one for each norm (or Mamba2 input) that feeds a
+        column-parallel or whole-but-partial group (2 a block, 3 a decoder
+        block, 1 an xLSTM or Mamba2 block, 2 a shared-block application)
         and the head's (an encdec also the encoder output's, once for all
-        the cross K/V), less each stack's first norm's when nothing before
-        it trains (a frozen table or position table and gain: PEQA); the
-        cross entropy's 3 (an MoE model's aux loss rides the loss's
-        data-axis sum); the partial bucket where a trained leaf is
-        model-partial (a row-parallel scale or zero, a grouped
-        ``wk``/``wv`` leaf; under ``full`` an MoE router); the norm's 1;
-        and under int8 compression the max bucket where a trained leaf is
-        model-sharded;
+        the cross K/V), less each stack's first when nothing before it
+        trains (a frozen table or position table and gain: PEQA), and a
+        Mamba2 block's norm's ``sum_over_model`` once more; the cross
+        entropy's 3 (an MoE model's aux loss rides the loss's data-axis
+        sum); the partial bucket where a trained leaf is model-partial (a
+        row-parallel scale or zero, a grouped ``wk``/``wv`` leaf, a leaf
+        of a module kept whole: Mamba2's ``bproj``/``cproj``, xLSTM's
+        gates, the sLSTM, a gated norm's gain; under ``full`` an MoE
+        router); the norm's 1; and under int8 compression the max bucket
+        where a trained leaf is model-sharded;
       * data axis: the token count, the loss and the gradient bucket."""
     kinds = sharding.leaf_kinds(model)
     trained = [k for k in kinds if mask.get(k)]
@@ -131,6 +142,18 @@ def mesh_collectives(model, cfg: ModelConfig, mask, compress: bool = False
             - (1 - starts("enc.pos", "enc.layers.0.ln1.")) \
             - (1 - starts("dec.embed.", "dec.pos", "dec.layers.0.ln1."))
         recompute = (ne + 2 * nd) if remat else 0
+    elif cfg.family == "ssm":
+        n = cfg.n_layers
+        forward = n + 1
+        backward = n + starts("embed.", "slstm.0.ln.")
+        recompute = 0
+    elif cfg.family == "hybrid":
+        n = cfg.n_layers
+        every = cfg.attn_every or n + 1
+        groups = n // every
+        forward = 2 * n + 2 * groups + 1
+        backward = 2 * n - 1 + 2 * groups + 1 + starts("embed.")
+        recompute = groups * (3 * every + 1) if remat else 0
     else:
         n = cfg.n_layers
         forward = 2 * n + 1

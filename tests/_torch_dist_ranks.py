@@ -519,3 +519,76 @@ def families_serve_rank(rank, shape, tmp, cases, prompt, prefixes, n_new,
             sharding.shard_model(model, cfg, ctx).parameters()))
         out[name] = res
     _save(tmp, f"famserve{shape[0]}x{shape[1]}_", rank, out)
+
+
+# ---------------------------------------------------------------------------
+# the ssm and hybrid families on a mesh (tests/test_torch_dist_recurrent*.py)
+# ---------------------------------------------------------------------------
+
+def recurrent_serve_rank(rank, shape, tmp, cases, prompt, n_new, reqs):
+    """Each recurrent serving case ({name: cfg}, the trees at
+    ``<tmp>/<name>.npz``; ``reqs[name]`` requests over tasks "t0" / "t1"):
+    the mesh engine's ``generate`` with and without logitshard and its
+    decode step's collective record, the prefill logits, the rank's block
+    of the state after the prefill (and its rows), drain serving of the
+    requests through a two-task bank (rank 0 also runs the unsharded
+    engine's ``generate`` and drain serving), the slot pool's cache shapes
+    beside the rank's block of ``cache_specs`` under the structural model
+    dims, and a swap of rescaled scales: its collective record and
+    whether the shard equals the cut of the swapped whole model."""
+    from repro_torch.dist import context
+    from repro_torch.train.serve import cache_model_dims
+    ctx = _ctx(shape)
+    out = {"coords": (ctx.data_rank, ctx.model_rank)}
+    b = prompt.shape[0]
+    for name, cfg in cases.items():
+        model = load_model(os.path.join(tmp, f"{name}.npz"), cfg)
+        api = registry.build(cfg, device="cpu")
+        local = sharding.shard_model(model, cfg, ctx)
+        bank = sb.ScaleBank()
+        bank.add("t0", model)
+        rng = np.random.default_rng(5)
+        bank.tasks["t1"] = {k: (v * rng.uniform(0.8, 1.2, v.shape)
+                                ).astype(v.dtype)
+                            for k, v in bank.tasks["t0"].items()}
+        res = {}
+        for ls in (True, False):
+            eng = Engine(api, local, bank=bank, ctx=ctx, logitshard=ls)
+            res[f"tokens_{ls}"] = eng.generate(prompt, n_new)
+            res[f"decode_{ls}"] = eng.decode_collectives(b, 24)
+        res["logits"] = eng.prefill_logits(prompt)
+        rows = ctx.local_rows(b)
+        with torch.inference_mode(), context.use_mesh(ctx):
+            _, state = eng.api.prefill(local, {"tokens": prompt[rows]})
+        res["state"] = {k: v.clone() for k, v in state.items()}
+        res["rows"] = (rows.start, rows.stop)
+        scfg = ServeConfig(n_slots=4, scheduler="drain")
+        res["drain"] = _report(eng.serve(reqs[name], scfg))
+        if rank == 0:
+            host = Engine(api, model, bank=bank, device="cpu")
+            res["host_tokens"] = host.generate(prompt, n_new)
+            res["host_drain"] = _report(host.serve(reqs[name], scfg))
+            host.switch_task("t0")
+        eng.switch_task("t0")
+        pool = eng.open_pool(4, 24)
+        whole = api.init_cache(4, 24, device="meta")
+        mdims = cache_model_dims(api.init_cache, eng.api.init_cache)
+        specs = sharding.cache_specs(
+            ctx, whole, 4, ctx.batch_axes(4) is not None,
+            n_kv_heads=cfg.n_kv_heads,
+            batch_dims=cache_dims(api.init_cache, 2, 8)[0],
+            model_dims=mdims)
+        res["model_dims"] = mdims
+        res["specs"] = specs
+        res["pool_shapes"] = {k: tuple(v.shape) for k, v in pool.cache.items()}
+        res["spec_shapes"] = {k: sharding.local_shape(
+            whole[k].shape, specs[k], ctx.axis_sizes) for k in whole}
+        res["swap_record"] = sb.swap_collectives(local, bank.tasks["t1"], ctx)
+        res["local_nbytes"] = bank.local_nbytes("t1", ctx)
+        res["nbytes"] = bank.nbytes("t1")
+        bank.switch(model, "t1")
+        res["swap_equal"] = all(torch.equal(a, c) for a, c in zip(
+            local.parameters(),
+            sharding.shard_model(model, cfg, ctx).parameters()))
+        out[name] = res
+    _save(tmp, f"recserve{shape[0]}x{shape[1]}_", rank, out)

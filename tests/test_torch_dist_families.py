@@ -30,9 +30,10 @@ granite with q/k/v biases and tiny llama3.2-1b with 2 KV heads (GQA).
     blocks of ``cache_specs``; a task swap moves no collective, fewer
     bytes than the whole set, and leaves the shard equal to the cut of the
     swapped whole model.
-  * The refusals that remain, word for word: ssm and hybrid on a mesh,
-    the LoRA and QAT arms, and a KV-head count that neither divides the
-    model axis nor is divided by it.
+  * The refusals that remain, word for word: the LoRA and QAT arms, a
+    KV-head count that neither divides the model axis nor is divided by
+    it, and the recurrent families' heads where the axis does not divide
+    them (both are served at (1, 2)).
 """
 import functools
 import os
@@ -329,13 +330,20 @@ def test_validate_reference_trees(name):
 
 @pytest.mark.parametrize("arch", ["xlstm-125m", "zamba2-7b"])
 def test_recurrent_families_refused_on_a_mesh(arch):
+    """The recurrent families are served and trained on a mesh
+    (``tests/test_torch_dist_recurrent*.py``) and refused, word for word,
+    only where the model axis does not divide their heads."""
     cfg = tconfigs.make_tiny(tconfigs.get_config(arch))
     registry.check_supported(cfg)
+    registry.check_supported(cfg, mesh=context.coords(1, 2), train=True,
+                             batch=4)
     with pytest.raises(NotImplementedError) as e:
-        registry.check_supported(cfg, mesh=context.coords(1, 2))
-    assert str(e.value) == (
-        f"{cfg.name}: not served on a (1, 2) mesh: "
-        + registry.MESH_FAMILY_REASON.format(fam=cfg.family))
+        registry.check_supported(cfg, mesh=context.coords(1, 3))
+    msg = str(e.value)
+    assert msg.startswith(f"{cfg.name}: not served on a (1, 3) mesh: ")
+    assert "n_heads=4 is not divisible by the model axis (3)" in msg
+    assert ("SSM heads=8" in msg) == (cfg.family == "hybrid")
+    assert ("n_kv_heads" in msg) == (cfg.family == "hybrid")
 
 
 @pytest.mark.parametrize("arch", list(ARCHS.values()))

@@ -16,8 +16,8 @@
   * What this slice does not shard is refused with a reason: a KV-head
     count that neither divides the model axis nor is divided by it, head,
     d_ff or vocab counts it does not divide, a local input extent that
-    breaks a kernel's words or groups, the ssm and hybrid families, and
-    the LoRA and QAT arms.
+    breaks a kernel's words or groups, and the LoRA and QAT arms; every
+    family is accepted where the model axis divides it.
 """
 import types
 
@@ -40,14 +40,26 @@ from repro_torch.core import policies
 from repro_torch.core import scale_bank as sb
 from repro_torch.dist import backend, context, sharding
 from repro_torch.models import registry
-from repro_torch.train.serve import Engine, cache_dims
+from repro_torch.train.serve import Engine, cache_dims, cache_model_dims
 from _torch_threads import _one_torch_thread  # noqa: F401
 
 
 KW = dict(n_layers=2, d_model=128, n_heads=4, d_ff=256, vocab=512)
 
 
+# the recurrent trees and their reference arch
+RECURRENT = {"xlstm": "xlstm-125m", "zamba2": "zamba2-7b"}
+# the one place the port's rules differ from the reference's: Mamba2's
+# B/C projections stay whole (every head's local scan reads all of
+# d_state), where the reference's rule cuts them by output (ROADMAP §3)
+SPEC_EXCEPTIONS = ("bproj", "cproj")
+
+
 def _jcfg(kind):
+    if kind in RECURRENT:
+        return jconfigs.make_tiny(jconfigs.get_config(RECURRENT[kind])
+                                  ).replace(tuning=JTuning(mode="peqa"),
+                                            quant=JQuant(bits=4, n_grid=2))
     if kind.startswith("moe"):
         cfg = jconfigs.make_tiny(jconfigs.get_config("mixtral-8x7b"))
         if kind == "moe_expert":
@@ -62,7 +74,8 @@ def _jcfg(kind):
                                                 layout=layout))
 
 
-TREES = ("dense", "plane", "lora", "full", "moe_tensor", "moe_expert")
+TREES = ("dense", "plane", "lora", "full", "moe_tensor", "moe_expert",
+         "xlstm", "zamba2")
 _cache = {}
 
 
@@ -87,6 +100,10 @@ def test_spec_for_path_equals_reference(kind):
                for p, a in flat.items())
     for path, leaf in flat.items():
         want = tuple(jsharding.spec_for_path(path, np.ndim(leaf)))
+        if any(p in SPEC_EXCEPTIONS for p in path.split("/")):
+            assert "model" in want, path
+            assert sharding.spec_for_path(path, np.ndim(leaf)) == (), path
+            continue
         assert sharding.spec_for_path(path, np.ndim(leaf)) == want, path
         # the port's per-layer tensors: the same rule one dim down
         if np.ndim(leaf) > 1 and path.startswith("layers/"):
@@ -151,6 +168,70 @@ def test_cache_specs_equal_reference_at_batch_eq_layers(with_dims):
     if with_dims:          # dim 0 is the layer stack, dim 1 the batch
         assert all(s[1] == ("data",) and s[0] is None and s[3] == "model"
                    for s in got.values())
+    # the structural model dim (the dim the shard config cuts) places the
+    # dense leaves as the reference's extent rule does
+    local = registry.build(sharding.shard_config(tcfg, 4), device="cpu")
+    mdims = cache_model_dims(api.init_cache, local.init_cache)
+    assert mdims == {"k": 3, "v": 3}
+    assert sharding.cache_specs(ctx, cache, 2, True,
+                                n_kv_heads=tcfg.n_kv_heads, batch_dims=bdims,
+                                model_dims=mdims) == got
+
+
+# the recurrent leaves' model dim, the port's layout: (whole shape's dim
+# the shard cuts, the reference's extent rule's)
+RECURRENT_LAYOUT = {
+    # (n_groups, B, H = n_kv_heads, hd): the sLSTM state whole, where the
+    # reference's rule matches n_kv_heads; m_S (n_groups, n_m, B, H, hd +
+    # 1, hd) on its heads, as the reference's
+    "xlstm": {**{k: (-1, 2) for k in ("s_c", "s_n", "s_m", "s_h")},
+              "m_S": (3, 3)},
+    # the SSM state (G, every, B, H, hd, st) on H, where the reference's
+    # fallback takes d_state; the conv window (…, d_conv − 1, d_inner) on
+    # d_inner and the shared block's K/V on their heads, as the reference's
+    "zamba2": {"ssm": (3, 5), "ssm_tail": (2, 4), "conv": (4, 4),
+               "conv_tail": (3, 3), "attn_k": (3, 3), "attn_v": (3, 3)},
+}
+
+
+@pytest.mark.parametrize("kind", list(RECURRENT))
+def test_cache_specs_recurrent_layout(kind):
+    """``cache_specs(model_dims=)`` puts each recurrent leaf's model dim
+    where the shard's pool holds it; the reference's extent rule gives
+    the dense leaves' placement and misplaces the sLSTM state and the SSM
+    state (``RECURRENT_LAYOUT``)."""
+    jcfg = _jcfg(kind)
+    tcfg = tconfigs.make_tiny(tconfigs.get_config(RECURRENT[kind])).replace(
+        tuning=TuningConfig(mode="peqa"), quant=QuantConfig(bits=4, n_grid=2))
+    api = registry.build(tcfg, device="cpu")
+    local = registry.build(sharding.shard_config(tcfg, 2), device="cpu")
+    japi = jregistry.build(jcfg)
+    ctx = context.coords(1, 2)
+    jctx = types.SimpleNamespace(model_size=2, data_axes=("data",),
+                                 model_axis="model")
+    cache = api.init_cache(2, 16, device="meta")
+    jcache = jax.eval_shape(lambda: japi.init_cache(2, 16))
+    bdims = cache_dims(api.init_cache, 2, 8)[0]
+    mdims = cache_model_dims(api.init_cache, local.init_cache)
+    got = sharding.cache_specs(ctx, cache, 2, False,
+                               n_kv_heads=tcfg.n_kv_heads, batch_dims=bdims,
+                               model_dims=mdims)
+    want = jsharding.cache_specs(
+        jctx, jcache, 2, False, n_kv_heads=jcfg.n_kv_heads,
+        batch_dims=jsharding.cache_batch_dims(japi.init_cache, 2, 16))
+    layout = RECURRENT_LAYOUT[kind]
+    assert sorted(got) == sorted(layout)
+    for key, (port, ref) in layout.items():
+        assert mdims[key] == port, key
+        assert [d for d, a in enumerate(got[key]) if a == "model"] == (
+            [] if port < 0 else [port]), key
+        assert [d for d, a in enumerate(tuple(want[key]))
+                if a == "model"] == [ref], key
+        # the pool the shard config makes is the rank's block of the spec
+        whole, mine = cache[key].shape, local.init_cache(2, 16,
+                                                         device="meta")[key]
+        assert sharding.local_shape(whole, got[key], ctx.axis_sizes) == \
+            tuple(mine.shape), key
 
 
 def test_stacked_scale_specs_equal_reference():
@@ -258,21 +339,17 @@ def test_unshardable_configs_refused(change, m, what):
                                   if tconfigs.get_config(a).family != "dense"
                                   or tconfigs.get_config(a).moe is not None])
 def test_other_families_refused_on_a_mesh(arch):
-    """The ssm and hybrid families are refused on a mesh; the moe, vlm and
-    encdec families are served there (``tests/test_torch_dist_moe.py``,
-    ``tests/test_torch_dist_families.py``) and refused where the model
-    axis does not divide their heads or experts."""
+    """Every other family — moe, vlm, encdec, ssm and hybrid — is served
+    on a mesh (``tests/test_torch_dist_moe.py``,
+    ``tests/test_torch_dist_families.py``,
+    ``tests/test_torch_dist_recurrent.py``) and refused only where the
+    model axis does not divide its heads or experts."""
     cfg = tconfigs.make_tiny(tconfigs.get_config(arch))
     registry.check_supported(cfg)
-    if cfg.family in ("moe", "vlm", "encdec"):
-        registry.check_supported(cfg, mesh=context.coords(1, 2))
-        with pytest.raises(NotImplementedError, match="not divisible by "
-                                                      "the model axis"):
-            registry.check_supported(cfg, mesh=context.coords(1, 3))
-        return
-    with pytest.raises(NotImplementedError,
-                       match="dense, moe, vlm and encdec families only"):
-        registry.check_supported(cfg, mesh=context.coords(1, 2))
+    registry.check_supported(cfg, mesh=context.coords(1, 2))
+    with pytest.raises(NotImplementedError, match="not divisible by "
+                                                  "the model axis"):
+        registry.check_supported(cfg, mesh=context.coords(1, 3))
 
 
 @pytest.mark.parametrize("mode", ["lora", "lora_optq", "qat"])

@@ -18,8 +18,9 @@ weights built by the reference; gloo ranks on the CPU.
     and the first run's step-1 loss is the ``--mesh none`` run's within
     rtol 1e-5.
   * The refusals, each with its reason: ``--mesh pod`` / ``multipod`` (the
-    reference's TPU pod shapes), the lora arm, a family other than dense, a
-    global batch the data axis does not divide, ``remat="dots"``.
+    reference's TPU pod shapes), the lora arm, an arch whose heads the
+    model axis does not divide (xlstm-125m at M 3), a global batch the
+    data axis does not divide, ``remat="dots"``.
 """
 import os
 
@@ -174,8 +175,9 @@ def test_cli_mesh_resumes_and_matches_off_mesh(tmp_path):
     (["--mesh", "pod"], "256 devices"),
     (["--mesh", "multipod"], "512 devices"),
     (["--mesh", "1,2", "--mode", "lora"], "the lora arm's LoRA"),
-    (["--mesh", "1,2", "--arch", "xlstm-125m"], "dense, moe, vlm and "
-                                                "encdec families only"),
+    (["--mesh", "1,3", "--arch", "xlstm-125m"], "n_heads=4 is not "
+                                                "divisible by the model "
+                                                "axis (3)"),
     (["--mesh", "3,1"], "global batch of 4 rows is not divisible by the "
                         "data axis (3)"),
 ], ids=["pod", "multipod", "arm", "family", "batch"])
