@@ -572,6 +572,43 @@ line:
                Every new shard shape of K1, K2 and K4 held once to its
                plain version on rank 0 of (1, 2): dtproj's N 56, the
                scalar gates' N 4 kept whole, K4 at D 112 over 16 heads.
+ 28. mesh_arms — (built after arms; its (1, 2) ranks spawned beside
+               phases launch and examples, and joined after them) the
+               comparison arms on (data, model) meshes at llama3.2-1b's
+               full width and depth (16 layers), each as phase arms runs
+               it (QV4, 4-bit per-channel, remat "block"): ``lora`` on its
+               float32 backbone built from the seed, ``lora_optq`` on
+               phase arms' GPTQ backbone, ``qat`` phase arms' trained
+               model, and ``lora_optq`` under QKVO16 (rank 16 on wq, wk,
+               wv and the row-parallel wo, on a copy of that backbone) at
+               (1, 2) only; every adapter fresh, its lora_b drawn N(0,
+               MESH_ARMS_B²).  (1, 2) as gloo ranks on
+               cuda:0 reading the models over CUDA IPC; then (1, 1) over
+               NCCL and the unsharded runs in this process.  Each rank
+               and model: ``generate`` of 4 × 64 + 16 under logitshard
+               (launches counted) and without (the same tokens), the
+               prefill logits, a decode step's collectives, the fp
+               backbone's adapters merged on copies, MESH_ARMS_STEPS
+               steps of 2 × 128 through ``arm_train`` (each step's
+               launches and all-reduces held to their counts).  Gates:
+               (1, 1) bit-equal to the unsharded engine in logits and
+               tokens and in step 1's loss; (1, 2) logits within
+               MESH_LOGIT_TOL of the largest unsharded one and step 1's
+               loss within 2⁻⁸, and both within ADAPTER_SHARE of how far
+               the adapters move the unsharded ones (every lora_b zeroed;
+               QKVO16 also wo's alone), so that a dropped, doubled or
+               unsummed delta fails; launches those of the unsharded
+               generate; 2 L + 1 model-axis sums a decode step (the arms
+               add none); a step's all-reduces ``step.mesh_collectives``';
+               ``merge_lora`` on the (1, 2) shards, put back together,
+               within 2⁻²⁰ of the largest merged weight of the whole
+               model's (and whether bit-equal); every new shard shape of
+               K1, K2 (lora_optq) and K4 held to plain on rank 0 of (1,
+               2).  Beside them, the dry run's CLI pass
+               (``launch.dryrun --all --tuning all``, CPU, ``meta``
+               tensors: a record for every arch × shape × production mesh
+               × tuning mode, the roofline over them), its seconds on a
+               line of their own.
  23. launch  — (after arms, while this process runs phase examples: the
                time limit's cut, so both phases' walls include the
                other's load) the CLIs as subprocesses, each gated on exit
@@ -5625,16 +5662,20 @@ def model_bytes(model) -> int:
 
 
 def arm_train(torch, label, api, cfg, model, mask, data, steps, want,
-              step1=None) -> dict:
-    """``steps`` steps of ``train.loop.train`` (TrainConfig's 8 × 256), every
-    kernel counter at 0 before each step and read after it: each step must
-    launch exactly ``want``.  ``step1``, a context manager factory, wraps
-    the first step (the checks).  Figures: walls, device ms (CUDA events),
-    the median of the steps after the first ``TRAIN_SKIP`` (after the first
-    when there are fewer), peak memory of the run with the model in it
-    (after a checked step 1: of the steps after it), optimizer-state
-    bytes; then one more step profiled (its kernels' device
-    ms and the top ones: the busy share of a step)."""
+              step1=None, mesh=None, profile=True) -> dict:
+    """``steps`` steps of ``train.loop.train`` (``data``'s batches:
+    TrainConfig's 8 × 256 in phase arms), every kernel counter at 0 before
+    each step and read after it: each step must launch exactly ``want``.
+    ``step1``, a context manager factory, wraps the first step (the
+    checks).  Figures: walls, device ms (CUDA events), the median of the
+    steps after the first ``TRAIN_SKIP`` (after the first when there are
+    fewer), peak memory of the run with the model in it (after a checked
+    step 1: of the steps after it), optimizer-state bytes; then one more
+    step profiled (its kernels' device ms and the top ones: the busy share
+    of a step; not with ``profile`` False).  ``mesh``: a rank's context,
+    ``model`` its shard — the mesh step, each step's collective record
+    (all-reduces by axis) held to ``step.mesh_collectives``, and no
+    profiled step."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.kernels import ops
     from repro_torch.optim.adamw import make_optimizer
@@ -5644,8 +5685,8 @@ def arm_train(torch, label, api, cfg, model, mask, data, steps, want,
                        ckpt_every=10 ** 9)
     opt = make_optimizer(tcfg.optim, tcfg.steps)
     state = make_state(model, opt.init(dict(model.named_parameters()), mask))
-    ts = step.build_train_step(api, cfg, tcfg, mask, opt)
-    walls, dev, seen = [], [], []
+    ts = step.build_train_step(api, cfg, tcfg, mask, opt, mesh=mesh)
+    walls, dev, seen, records = [], [], [], []
 
     def counted(state, batch):
         for k in ops.KERNELS:
@@ -5658,11 +5699,12 @@ def arm_train(torch, label, api, cfg, model, mask, data, steps, want,
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         start.record()
-        if step1 is not None and not walls:
-            with step1():
-                state, metrics = ts(state, batch)
-        else:
+        with (step1() if step1 is not None and not walls
+              else contextlib.nullcontext()), \
+                (mesh.recording() if mesh is not None
+                 else contextlib.nullcontext([])) as rec:
             state, metrics = ts(state, batch)
+        records.append(rec)
         end.record()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
@@ -5676,12 +5718,21 @@ def arm_train(torch, label, api, cfg, model, mask, data, steps, want,
     base = torch.cuda.memory_allocated() - model_bytes(model)
     torch.cuda.reset_peak_memory_stats()
     state, hist = loop.train(state, counted, data, tcfg,
-                             log=lambda msg: None)
+                             log=lambda msg: None, mesh=mesh)
     peak = torch.cuda.max_memory_allocated() - base
     bad = [i for i, got in enumerate(seen) if got != want]
     if bad:
         fail(f"arms {label}: step {bad[0] + 1} launched {seen[bad[0]]}, "
              f"expected {want}")
+    formula = None if mesh is None else step.mesh_collectives(model, cfg,
+                                                              mask)
+    for i, rec in enumerate(records if mesh is not None else ()):
+        got = collectives_by_axis(rec)
+        if {e["kind"] for e in rec} != {"all_reduce"} or \
+                {a: c["count"] for a, c in got.items()} != formula:
+            fail(f"arms {label}: step {i + 1} issued {got} (kinds "
+                 f"{sorted({e['kind'] for e in rec})}), the formula "
+                 f"{formula}")
     losses = [h["loss"] for h in hist]
     if len(losses) != steps or not all(map(math.isfinite, losses)):
         fail(f"arms {label}: losses {losses}")
@@ -5689,14 +5740,18 @@ def arm_train(torch, label, api, cfg, model, mask, data, steps, want,
     timed = sorted(walls[skip:]) or walls
     res = {"steps": steps, "losses": losses, "step_ms": walls,
            "device_ms": dev, "median_step_ms": timed[len(timed) // 2],
-           "tokens_per_s": tcfg.batch_size * tcfg.seq_len
+           "tokens_per_s": data.batch_size * data.seq_len
            / timed[len(timed) // 2] * 1e3,
            "peak_mem_gb": peak / 1e9,
            "state_bytes": opt.state_bytes(state["opt"]),
-           "launches_a_step": seen[-1]}
-    dev_ms, top = device_ms(torch, lambda: ts(state, data.batch_at(steps)),
-                            top=8)
-    res["profile"] = {"device_ms": dev_ms, "top": top}
+           "launches_a_step": seen[-1], "hist": hist}
+    if mesh is not None:
+        res.update(collectives_a_step=collectives_by_axis(records[-1]),
+                   formula=formula)
+    elif profile:
+        dev_ms, top = device_ms(torch, lambda: ts(state, data.batch_at(steps)),
+                                top=8)
+        res["profile"] = {"device_ms": dev_ms, "top": top}
     del state, opt, ts
     return res
 
@@ -5828,9 +5883,9 @@ def arms_lora_optq(torch, data, calib, prompt) -> dict:
              f"{want}; tokens equal to the unchecked run's: "
              f"{torch.equal(out, gen['out'])}")
     res["generate"]["checked"] = dict(chk.calls, max_abs_err=chk.worst)
-    del gen, engine, model, trained, out
+    del gen, engine, trained, out
     torch.cuda.empty_cache()
-    return res
+    return res, model
 
 
 def arms_lora_fp(torch, data, prompt) -> dict:
@@ -5978,9 +6033,9 @@ def arms_qat(torch, data) -> dict:
            "state_bytes": sbytes, "memory_by_step": measured.steps,
            "table": {"dtype": "float32", "moved_share_step1": moved,
                      "rows_checked": ids.numel()}}
-    del state, model, opt, measured, ts
+    del state, opt, measured, ts
     torch.cuda.empty_cache()
-    return res
+    return res, model
 
 
 def arms_alphatuning(torch, layer0) -> dict:
@@ -6051,7 +6106,8 @@ def arms_alphatuning(torch, layer0) -> dict:
 def phase_arms(torch, prompt, peqa, full) -> dict:
     """The paper's comparison arms at llama3.2-1b (module docstring, phase
     14); ``peqa`` and ``full`` are phase train's and train_full's figures,
-    printed beside them."""
+    printed beside them.  Its ``models`` (lora_optq's, qat's) go on to
+    phase mesh_arms."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data import pipeline, synthetic
     cfg = arm_cfg("lora_optq")
@@ -6065,7 +6121,7 @@ def phase_arms(torch, prompt, peqa, full) -> dict:
                             .reshape(ARMS_CALIB).astype("int64"))
     res = {"phase": "arms", "model": cfg.name, "layers": cfg.n_layers}
     t0 = time.perf_counter()
-    res["lora_optq"] = arms_lora_optq(torch, data, calib, prompt)
+    res["lora_optq"], optq = arms_lora_optq(torch, data, calib, prompt)
     res["lora_optq"]["seconds"] = time.perf_counter() - t0
     emit({"phase": "arms_lora_optq", **res["lora_optq"]})
     t0 = time.perf_counter()
@@ -6076,7 +6132,7 @@ def phase_arms(torch, prompt, peqa, full) -> dict:
     del layer0
     emit({"phase": "arms_alphatuning", **res["alphatuning"]})
     t0 = time.perf_counter()
-    res["qat"] = arms_qat(torch, data)
+    res["qat"], qat = arms_qat(torch, data)
     res["qat"]["seconds"] = time.perf_counter() - t0
     emit({"phase": "arms_qat", **res["qat"]})
     table = {"peqa": {"trainable": peqa["scales"],
@@ -6098,6 +6154,9 @@ def phase_arms(torch, prompt, peqa, full) -> dict:
                                       "peak_mem_gb", "median_step_ms")}
     res["table"] = table
     emit({"phase": "arms_table", "model": cfg.name, "arms": table})
+    # phase mesh_arms serves and trains these two on meshes: the GPTQ
+    # backbone with its trained adapters, and the trained QAT model
+    res["models"] = {"lora_optq": optq, "qat": qat}
     return res
 
 
@@ -6355,16 +6414,24 @@ def load_whole(torch, cfg, path):
 
 
 def model_from_state(torch, cfg, state):
-    """A quantized model of ``cfg`` (any family's module) around the
-    tensors of a state dict (taken as they are: no copy)."""
+    """A model of ``cfg`` (any family's module, any arm's storage: codes,
+    QAT's scales beside ``w``, LoRA adapters) around the tensors of a
+    state dict (taken as they are: no copy)."""
     from repro_torch.models import registry
     from repro_torch.models.linear import Linear
     model = registry.module_class(cfg)(cfg, device="meta")
     spec = cfg.quant.spec()
     for name, mod in model.named_modules():
-        if isinstance(mod, Linear) and f"{name}.qw" in state:
+        if not isinstance(mod, Linear):
+            continue
+        if f"{name}.qw" in state:
             mod.set_quantized(state[f"{name}.qw"], state[f"{name}.scale"],
                               state[f"{name}.zero"], spec)
+        elif f"{name}.scale" in state:
+            mod.set_fake_quant(state[f"{name}.scale"],
+                               state[f"{name}.zero"], spec)
+        if f"{name}.lora_a" in state:
+            mod.set_lora(state[f"{name}.lora_a"], state[f"{name}.lora_b"])
     model.load_state_dict(state, assign=True)
     return model
 
@@ -8411,6 +8478,513 @@ def phase_mesh_families(torch, started=None, others=()) -> dict:
     return res
 
 
+# phase mesh_arms: the comparison arms on (data, model) meshes at
+# llama3.2-1b's full width and depth (16 layers), each as phase arms runs
+# it (``arm_cfg``: 4-bit per-channel, QV4, remat "block"): ``lora`` on its
+# float32 backbone (built here from the seed), ``lora_optq`` on phase
+# arms' GPTQ backbone, ``qat`` phase arms' trained model, and ``lora_optq``
+# under QKVO16 (rank 16 on wq, wk, wv and wo: the row-parallel adapter) on
+# a copy of that GPTQ backbone, every adapter fresh.  A fresh adapter's
+# lora_b is drawn N(0, MESH_ARMS_B²), so that the adapters move the
+# outputs: (1, 2)'s logits and step-1 loss must lie within ADAPTER_SHARE
+# of the adapters' own move (the unsharded run against the same run with
+# every lora_b zeroed; QKVO16 also with wo's alone zeroed) of the
+# unsharded run's, so that a dropped, doubled or unsummed delta fails.  (1, 1) runs over NCCL in this process, (1,
+# 2) as gloo ranks on cuda:0 beside phases launch and examples; the
+# lockstep prompt, new tokens and training rows are mesh_families'
+MESH_ARMS = ("lora", "lora_optq", "qat", "lora_optq_qkvo16")
+MESH_ARMS_SHAPES = {"lora": ((1, 1), (1, 2)), "lora_optq": ((1, 1), (1, 2)),
+                    "qat": ((1, 1), (1, 2)), "lora_optq_qkvo16": ((1, 2),)}
+MESH_ARMS_B = 0.1
+ADAPTER_SHARE = 0.25
+MESH_ARMS_STEPS = 2
+# the dry run's CLI pass over every arch × shape × production mesh and
+# tuning mode (CPU, meta tensors), timed beside phases launch and examples
+DRYRUN_ARGS = ("--all", "--tuning", "all")
+
+
+def mesh_arm_cfg(name: str):
+    """``name``'s config in phase mesh_arms: ``arm_cfg`` of its arm, QKVO16
+    for ``lora_optq_qkvo16``."""
+    from repro_torch.configs.base import TuningConfig
+    if name == "lora_optq_qkvo16":
+        return arm_cfg("lora_optq").replace(tuning=TuningConfig(
+            mode="lora_optq", lora_rank=16,
+            lora_targets=("wq", "wk", "wv", "wo")))
+    return arm_cfg(name)
+
+
+def fresh_adapters(torch, model, cfg, seed: int):
+    """``model``'s adapters replaced by ``cfg``'s, in place: lora_a drawn
+    as ``core.lora.add_lora`` draws it, lora_b N(0, MESH_ARMS_B²) (both
+    from ``seed``); returns the trainable mask."""
+    from repro_torch.core import lora, policies
+    from repro_torch.models.linear import Linear
+    for mod in model.modules():
+        if isinstance(mod, Linear) and mod.has_lora:
+            mod.drop_lora()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    lora.add_lora(model, gen, cfg.tuning)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, Linear) and mod.has_lora:
+                mod.lora_b.normal_(0.0, MESH_ARMS_B, generator=gen)
+    return policies.make_mask(model, cfg)
+
+
+def merged_targets(torch, model, tcfg) -> dict:
+    """``core.lora.merge_lora`` of a copy of each adapted fp linear of
+    ``model`` (the model itself is left as it is): {"<name>.w": the merged
+    weight, on the host}."""
+    import copy
+
+    from torch import nn
+
+    from repro_torch.core import lora
+    from repro_torch.models.linear import Linear
+    names = [n for n, m in model.named_modules()
+             if isinstance(m, Linear) and m.has_lora and not m.quantized]
+    mods = dict(model.named_modules())
+    box = nn.ModuleDict({n.replace(".", "_"): copy.deepcopy(mods[n])
+                         for n in names})
+    lora.merge_lora(box, tcfg)
+    return {f"{n}.w": box[n.replace(".", "_")].w.detach().cpu()
+            for n in names}
+
+
+def mesh_arms_data(cfg):
+    """The training batches: MESH_FAM_TRAIN_ROWS × MESH_FAM_SEQ rows of a
+    seeded synthetic corpus (``pipeline.PackedLM``)."""
+    from repro_torch.data import pipeline, synthetic
+    return pipeline.PackedLM(synthetic.corpus(
+        cfg.vocab_size, 4 * (MESH_ARMS_STEPS + 1) * MESH_FAM_TRAIN_ROWS
+        * MESH_FAM_SEQ + 4096, seed=SEED + 60), MESH_FAM_TRAIN_ROWS,
+        MESH_FAM_SEQ, seed=SEED)
+
+
+def mesh_arms_run(torch, ctx, rank: int, whole, cfg, prompt, check: bool,
+                  name: str) -> dict:
+    """One rank's part of phase mesh_arms for one model on ``ctx``: its
+    shard cut from ``whole``; ``generate`` under logitshard (launches
+    counted) and without, the prefill logits, the decode step's
+    collectives; for an fp backbone its adapters merged (on copies); then
+    MESH_ARMS_STEPS steps through ``arm_train``.  ``check``: every new
+    call shape held to plain (``CheckedQuantMatmul``)."""
+    from repro_torch.core import policies
+    from repro_torch.dist import backend, context, sharding
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.train.serve import Engine
+
+    shape = (ctx.data_size, ctx.model_size)
+    label = f"mesh_arms {name} {shape} rank {rank}"
+    checker = CheckedQuantMatmul(ops, label, shapes=True) if check else None
+
+    def checked(what):
+        if checker is None:
+            return contextlib.nullcontext()
+        checker.label = f"{label} {what}"
+        return checker
+
+    api = registry.build(cfg)
+    t0 = time.perf_counter()
+    local = sharding.shard_model(whole, cfg, ctx)
+    del whole
+    torch.cuda.empty_cache()
+    out = {"rank": rank, "coords": (ctx.data_rank, ctx.model_rank),
+           "summary": backend.summary(), "cut_s": time.perf_counter() - t0,
+           "local_gb": model_bytes(local) / 1e9}
+    engine = Engine(api, local, ctx=ctx, logitshard=True)
+    with checked("generate"):
+        engine.generate(prompt, 2)                 # warm-up, not counted
+    torch.cuda.synchronize()
+    for k in ops.KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    toks = engine.generate(prompt, MESH_FAM_NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    out["launches"] = {k.__name__: k.launches for k in ops.KERNELS
+                       if k.launches}
+    logits = engine.prefill_logits(prompt)
+    base = Engine(api, local, ctx=ctx, logitshard=False)
+    if not torch.equal(toks, base.generate(prompt, MESH_FAM_NEW)):
+        fail(f"{label}: generate's tokens differ with and without "
+             f"logitshard")
+    rec = engine.decode_collectives(BATCH, MESH_FAM_PROMPT + MESH_FAM_NEW)
+    del base, engine
+    out.update(tokens=toks.cpu(), logits=logits.float().cpu(),
+               generate_s=gen_s,
+               decode_collectives=context.collective_stats(rec),
+               decode_row_sums=sum(
+                   1 for e in rec if e["kind"] == "all_reduce"
+                   and e["axis"] == "model" and e["shape"][-1] == cfg.d_model))
+    if cfg.tuning.mode == "lora":
+        out["merged"] = merged_targets(torch, local, cfg.tuning)
+    mask = policies.make_mask(local, cfg)
+    want = {"quant_matmul": 2 * n_quantized(local)} \
+        if cfg.tuning.mode == "lora_optq" else {}
+    out["train"] = arm_train(
+        torch, label, api, cfg, local, mask, mesh_arms_data(cfg),
+        MESH_ARMS_STEPS, want, mesh=ctx,
+        step1=(lambda: checked("step 1")) if check else None)
+    out["shapes"] = [] if checker is None else list(checker.rows.values())
+    del local
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_arms_rank(rank: int, shape: tuple, tmp: str, shared) -> None:
+    """One spawned rank of phase mesh_arms: for each model of ``shared``
+    ({name: (the parent's whole state dict, the prompt)}) the whole model
+    around the parent's own tensors (CUDA IPC), then ``mesh_arms_run``;
+    rank 0 holds every new shard shape to plain.  A failed gate exits
+    non-zero."""
+    import torch
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.core import policies
+    from repro_torch.launch import mesh as mesh_mod
+    ctx = mesh_mod.make_debug_mesh(*shape)
+    for name, (state, prompt) in shared.items():
+        cfg = mesh_arm_cfg(name)
+        whole = model_from_state(torch, cfg, state)
+        policies.make_mask(whole, cfg)
+        out = mesh_arms_run(torch, ctx, rank, whole, cfg, prompt,
+                            check=rank == 0, name=name)
+        del whole, state
+        torch.save(out, rank_file(tmp, shape, rank, f"{name}_"))
+        del out
+        torch.cuda.empty_cache()
+    shared.clear()
+
+
+def mesh_arms_start(torch, arms_models) -> dict:
+    """Phase mesh_arms' first part: its four models on the card (phase
+    arms' ``lora_optq`` model with fresh adapters and its ``qat`` model,
+    the ``lora`` model built from the seed, the QKVO16 ``lora_optq`` on a
+    copy of the GPTQ backbone),
+    then their (1, 2) ranks spawned on cuda:0 under gloo in a thread of
+    this process (reading the models over CUDA IPC) and the dry run's CLI
+    pass in a CPU subprocess, both beside what this process does next;
+    ``phase_mesh_arms`` joins them."""
+    import copy
+    import threading
+
+    from repro_torch.core import policies
+    from repro_torch.models import registry
+    t0 = time.perf_counter()
+    built = {}
+    cfg = mesh_arm_cfg("lora")
+    api = registry.build(cfg)
+    model, _ = policies.prepare(api.init(SEED), cfg)
+    fresh_adapters(torch, model, cfg, SEED + 61)
+    built["lora"] = model
+    fresh_adapters(torch, arms_models["lora_optq"], mesh_arm_cfg("lora_optq"),
+                   SEED + 64)
+    built["lora_optq"] = arms_models["lora_optq"]
+    built["qat"] = arms_models["qat"]
+    q16 = copy.deepcopy(arms_models["lora_optq"])
+    fresh_adapters(torch, q16, mesh_arm_cfg("lora_optq_qkvo16"), SEED + 62)
+    built["lora_optq_qkvo16"] = q16
+    gen = torch.Generator().manual_seed(SEED + 63)
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, MESH_FAM_PROMPT),
+                           generator=gen)
+    for name, m in built.items():
+        policies.make_mask(m, mesh_arm_cfg(name))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_arms_")
+    box = {}
+
+    def run_spawned():
+        try:
+            box["walls"] = spawn_meshes(mesh_arms_rank, [((1, 2), (tmp, {
+                n: (m.state_dict(), prompt) for n, m in built.items()}))])
+        except BaseException as e:        # reported in the joining thread
+            box["error"] = e
+    thread = threading.Thread(target=run_spawned)
+    thread.start()
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.path.join(HERE, "src"))
+    out = os.path.join(tmp, "dryrun")
+    dry = {"t0": time.perf_counter(), "out": out, "proc": subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_ARGS,
+         "--out", out], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)}
+    return {"built": built, "prompt": prompt, "tmp": tmp, "box": box,
+            "thread": thread, "dryrun": dry,
+            "build_s": time.perf_counter() - t0}
+
+
+def dryrun_gate(dry: dict) -> dict:
+    """The dry run's CLI pass joined: exit code 0, a record for every arch
+    × shape × production mesh × tuning mode, the roofline over them (the
+    H100's constants); its seconds on a line of their own."""
+    import glob
+
+    from repro_torch import configs
+    from repro_torch.core import policies
+    from repro_torch.launch import roofline
+    log, _ = dry["proc"].communicate()
+    seconds = time.perf_counter() - dry["t0"]
+    if dry["proc"].returncode != 0:
+        fail(f"dryrun: exit {dry['proc'].returncode}: {log[-2000:]}")
+    recs = [json.load(open(f)) for f in glob.glob(
+        os.path.join(dry["out"], "*.json"))]
+    want = len(configs.all_cells()) * 2 * len(policies.MODES)
+    errors = [r for r in recs if "error" in r]
+    if len(recs) != want or errors:
+        fail(f"dryrun: {len(recs)} records (want {want}), "
+             f"{len(errors)} failed: {errors[:1]}")
+    rows = roofline.build_table(dry["out"])
+    if not rows:
+        fail("dryrun: the roofline read no record")
+    res = {"phase": "dryrun", "seconds": seconds, "cells": len(recs),
+           "ok": sum(bool(r["ok"]) for r in recs),
+           "refused": sum(not r["ok"] for r in recs),
+           "roofline_rows": len(rows), "card": roofline.CARD}
+    emit(res)
+    return res
+
+
+@contextlib.contextmanager
+def adapters_zeroed(torch, model, suffix: str = ""):
+    """Every adapter's lora_b of ``model`` (of the linears whose name ends
+    with ``suffix``) zeroed inside the block, put back after it."""
+    from repro_torch.models.linear import Linear
+    kept = [(m, m.lora_b.detach().clone()) for n, m in model.named_modules()
+            if isinstance(m, Linear) and m.has_lora and n.endswith(suffix)]
+    if not kept:
+        fail(f"mesh_arms: no adapter ends with {suffix!r}")
+    with torch.no_grad():
+        for m, _ in kept:
+            m.lora_b.zero_()
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for m, b in kept:
+                m.lora_b.copy_(b)
+
+
+def mesh_arms_unsharded(torch, api, model, cfg, prompt) -> dict:
+    """The unsharded runs each mesh is held to, on the whole ``model``:
+    ``generate``'s tokens and launches, the prefill logits, and — where
+    it has adapters — the prefill logits and the first training batch's
+    loss with and without them (``free``: every lora_b zeroed, and under
+    QKVO16 ``.wo``: wo's alone)."""
+    from repro_torch.kernels import ops
+    from repro_torch.train.serve import Engine
+    from repro_torch.train.step import to_device
+    eng = Engine(api, model)
+    eng.generate(prompt, 2)
+    torch.cuda.synchronize()
+    for k in ops.KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    toks = eng.generate(prompt, MESH_FAM_NEW)
+    torch.cuda.synchronize()
+    out = {"tokens": toks.cpu(), "generate_s": time.perf_counter() - t0,
+           "launches": {k.__name__: k.launches for k in ops.KERNELS
+                        if k.launches}}
+    batch = to_device(mesh_arms_data(cfg).batch_at(0), api.device)
+
+    def read():
+        with torch.no_grad():
+            return (eng.prefill_logits(prompt).float().cpu(),
+                    float(api.loss_fn(model, batch)))
+    out["logits"], out["loss"] = read()
+    if cfg.tuning.mode in ("lora", "lora_optq"):
+        out["free"] = {}
+        parts = ("",) + ((".wo",) if "wo" in cfg.tuning.lora_targets
+                         else ())
+        for part in parts:
+            with adapters_zeroed(torch, model, part):
+                out["free"][part or "all"] = read()
+    return out
+
+
+def mesh_arms_gate(torch, name, cfg, shape, ranks, ref, wall) -> dict:
+    """Phase mesh_arms' gates on one model's rank results on one mesh;
+    returns its row."""
+    from repro_torch.dist import sharding
+    label = f"mesh_arms {name} {shape}"
+    r0 = ranks[0]
+    expect = "nccl" if shape == (1, 1) else "gloo"
+    placed = {(r["summary"]["backend"], r["summary"]["device"])
+              for r in ranks}
+    if placed != {(expect, "cuda:0")}:
+        fail(f"{label}: ranks ran over {placed}, expected {expect} on "
+             f"cuda:0")
+    for r in ranks:
+        if not torch.equal(r["tokens"], r0["tokens"]):
+            fail(f"{label}: rank {r['rank']}'s tokens differ from rank 0's")
+        if r["launches"] != ref["launches"]:
+            fail(f"{label}: rank {r['rank']} launched {r['launches']}, the "
+                 f"unsharded generate {ref['launches']}")
+        if r["decode_row_sums"] != 2 * cfg.n_layers + 1:
+            fail(f"{label}: a decode step made {r['decode_row_sums']} "
+                 f"model-axis sums of d_model (want the lookup's and 2 a "
+                 f"block: {2 * cfg.n_layers + 1})")
+        if r["train"]["hist"] != r0["train"]["hist"]:
+            fail(f"{label}: rank {r['rank']}'s metrics differ from rank 0's")
+    logits, want = r0["logits"], ref["logits"]
+    if not torch.isfinite(logits).all():
+        fail(f"{label}: non-finite prefill logits")
+    diff = (logits - want).abs().max().item()
+    scale = want.abs().max().item()
+    loss, loss_ref = r0["train"]["losses"][0], ref["train"]["losses"][0]
+    if shape == (1, 1):
+        if diff != 0.0 or not torch.equal(r0["tokens"], ref["tokens"]) \
+                or loss != loss_ref:
+            fail(f"{label}: the mesh path is not bit-equal to the unsharded "
+                 f"engine and step (logits differ by {diff:.3e}, step-1 "
+                 f"loss {loss!r} against {loss_ref!r})")
+    else:
+        if diff > MESH_LOGIT_TOL * scale:
+            fail(f"{label}: prefill logits differ from the unsharded "
+                 f"engine's by {diff:.3e} > {MESH_LOGIT_TOL * scale:.3e}")
+        if not math.isfinite(loss) or \
+                abs(loss - loss_ref) > MESH_TRAIN_LOSS_RTOL * abs(loss_ref):
+            fail(f"{label}: step-1 loss {loss!r} against the unsharded "
+                 f"{loss_ref!r} (rtol {MESH_TRAIN_LOSS_RTOL})")
+    gaps = {}
+    for part, (free_logits, free_loss) in ref.get("free", {}).items():
+        gaps[part] = {"logits": (want - free_logits).abs().max().item(),
+                      "loss": abs(ref["loss"] - free_loss)}
+        if shape != (1, 1) and (
+                diff > ADAPTER_SHARE * gaps[part]["logits"]
+                or abs(loss - loss_ref) > ADAPTER_SHARE * gaps[part]["loss"]):
+            fail(f"{label}: the adapters ({part}) move the unsharded logits "
+                 f"by {gaps[part]['logits']:.3e} and the first batch's loss "
+                 f"by {gaps[part]['loss']:.3e}; the mesh run lies "
+                 f"{diff:.3e} and {abs(loss - loss_ref):.3e} from the "
+                 f"unsharded one, more than {ADAPTER_SHARE} of that")
+    row = {"world": len(ranks), "backend": expect, "wall_s": wall,
+           "logits_max_abs_diff": diff, "logits_max_abs": scale,
+           "tokens_equal_share_vs_unsharded": (
+               r0["tokens"][:, MESH_FAM_PROMPT:]
+               == ref["tokens"][:, MESH_FAM_PROMPT:]).float().mean().item(),
+           "launches_a_rank": r0["launches"],
+           "generate_s": [r["generate_s"] for r in ranks],
+           "unsharded_generate_s": ref["generate_s"],
+           "decode_collectives": r0["decode_collectives"],
+           "local_gb": [r["local_gb"] for r in ranks],
+           "loss_step1": loss, "unsharded_loss_step1": loss_ref,
+           "adapter_gap": gaps,
+           "step_ms": [r["train"]["step_ms"] for r in ranks],
+           "unsharded_step_ms": ref["train"]["step_ms"],
+           "peak_mem_gb": [r["train"]["peak_mem_gb"] for r in ranks],
+           "unsharded_peak_mem_gb": ref["train"]["peak_mem_gb"],
+           "state_bytes": [r["train"]["state_bytes"] for r in ranks],
+           "collectives_a_step": r0["train"]["collectives_a_step"],
+           "formula": r0["train"]["formula"]}
+    if "merged" in r0 and shape != (1, 1):
+        got = sharding.unshard([r["merged"] for r in ranks])
+        errs = [(got[n] - w).abs().max().item()
+                for n, w in ref["merged"].items()]
+        big = max(w.abs().max().item() for w in ref["merged"].values())
+        if got.keys() != ref["merged"].keys() or max(errs) > 2 ** -20 * big:
+            fail(f"{label}: merge_lora on the shards, put back together, is "
+                 f"{max(errs):.3e} from the merged whole model (limit "
+                 f"{2 ** -20 * big:.3e})")
+        row["merge"] = {"linears": len(errs), "max_abs_diff": max(errs),
+                        "bit_equal": all(e == 0.0 for e in errs)}
+    if r0["shapes"]:
+        row["shapes"] = r0["shapes"]
+        kinds = {s["kernel"] for s in r0["shapes"]}
+        need = {"flash_attention"} | ({"quant_gemv", "quant_matmul"}
+                                      if cfg.tuning.mode == "lora_optq"
+                                      else set())
+        if not need <= kinds:
+            fail(f"{label}: shard shapes checked for {sorted(kinds)}, "
+                 f"expected at least {sorted(need)}")
+    emit({"phase": "mesh_arms_row", "model": name,
+          "mesh": f"{shape[0]}x{shape[1]}",
+          **{k: row[k] for k in ("backend", "logits_max_abs_diff",
+                                 "logits_max_abs", "adapter_gap",
+                                 "loss_step1",
+                                 "unsharded_loss_step1", "step_ms",
+                                 "unsharded_step_ms", "peak_mem_gb",
+                                 "collectives_a_step", "formula")},
+          **({"merge": row["merge"]} if "merge" in row else {})})
+    return row
+
+
+def phase_mesh_arms(torch, started) -> dict:
+    """The comparison arms on (data, model) meshes (module docstring,
+    phase mesh_arms): the (1, 2) ranks and the dry run of ``started``
+    (``mesh_arms_start``) joined first; then (1, 1) over NCCL and the
+    unsharded runs in this process, the unsharded steps last (they train
+    the whole models)."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import backend
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import registry
+
+    built, tmp, box = started["built"], started["tmp"], started["box"]
+    res = {"phase": "mesh_arms", "model": "llama3.2-1b", "batch": BATCH,
+           "prompt": MESH_FAM_PROMPT, "new_tokens": MESH_FAM_NEW,
+           "train_rows": MESH_FAM_TRAIN_ROWS, "train_seq": MESH_FAM_SEQ,
+           "steps": MESH_ARMS_STEPS, "build_s": started["build_s"],
+           "logit_tolerance_share": MESH_LOGIT_TOL, "models": {}}
+    ranks, refs = {}, {}
+    try:
+        started["thread"].join()
+        res["dryrun"] = dryrun_gate(started["dryrun"])
+        if "error" in box:
+            fail(f"mesh_arms: the spawned mesh failed: {box['error']!r}")
+        torch.cuda.ipc_collect()
+        for name in built:
+            ranks[(name, (1, 2))] = ([torch.load(
+                rank_file(tmp, (1, 2), r, f"{name}_"), weights_only=False)
+                for r in range(2)], box["walls"][(1, 2)])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    t0 = time.perf_counter()
+    backend.init(0, 1, "cuda", backend.free_port())
+    try:
+        ctx = mesh_mod.make_debug_mesh(1, 1)
+        for name, model in built.items():
+            if (1, 1) not in MESH_ARMS_SHAPES[name]:
+                continue
+            ranks[(name, (1, 1))] = ([mesh_arms_run(
+                torch, ctx, 0, model, mesh_arm_cfg(name), started["prompt"],
+                check=False, name=name)], time.perf_counter() - t0)
+            t0 = time.perf_counter()
+    finally:
+        dist.destroy_process_group()
+    for name, model in built.items():
+        cfg = mesh_arm_cfg(name)
+        api = registry.build(cfg)
+        ref = mesh_arms_unsharded(torch, api, model, cfg, started["prompt"])
+        if cfg.tuning.mode == "lora":
+            ref["merged"] = merged_targets(torch, model, cfg.tuning)
+        refs[name] = ref
+    for name, model in built.items():
+        cfg = mesh_arm_cfg(name)
+        api = registry.build(cfg)
+        mask = {n: p.requires_grad for n, p in model.named_parameters()}
+        want = {"quant_matmul": 2 * n_quantized(model)} \
+            if cfg.tuning.mode == "lora_optq" else {}
+        refs[name]["train"] = arm_train(
+            torch, f"mesh_arms {name} unsharded", api, cfg, model, mask,
+            mesh_arms_data(cfg), MESH_ARMS_STEPS, want, profile=False)
+        row = {"arm": cfg.tuning.mode, "lora_rank": cfg.tuning.lora_rank,
+               "lora_targets": list(cfg.tuning.lora_targets),
+               "layers": cfg.n_layers, "meshes": {}}
+        for shape in MESH_ARMS_SHAPES[name]:
+            rs, wall = ranks[(name, shape)]
+            row["meshes"][f"{shape[0]}x{shape[1]}"] = mesh_arms_gate(
+                torch, name, cfg, shape, rs, refs[name], wall)
+        res["models"][name] = row
+    built.clear()
+    torch.cuda.empty_cache()
+    emit(res)
+    return res
+
+
 def run_cli(label: str, argv, timeout: float) -> dict:
     """Run ``python -m <argv>`` from the checkout with the port on the path;
     returns its exit code, its output lines, each line's arrival second
@@ -8674,16 +9248,24 @@ def main() -> None:
     ssm = run("ssm", phase_ssm, torch)
     hybrid = run("hybrid", phase_hybrid, torch)
     arms = run("arms", phase_arms, torch, prompt, peqa, full)
+    arms_models = arms.pop("models")
     del prompt, peqa, full
     torch.cuda.empty_cache()
-    # phase launch's CLIs are processes of their own: they run while this
-    # process runs phase examples (each one's walls include the other's
-    # load), the time limit's cut
+    # phase mesh_arms' (1, 2) ranks and the dry run's CLI pass run beside
+    # phases launch and examples, which gate outputs only; phase launch's
+    # CLIs are processes of their own: they run while this process runs
+    # phase examples (each one's walls include the others' load), the time
+    # limit's cut
+    arms_started = run("mesh_arms_start", mesh_arms_start, torch,
+                       arms_models)
+    del arms_models
     from concurrent.futures import ThreadPoolExecutor
     with ThreadPoolExecutor(1) as pool:
         launching = pool.submit(run, "launch", phase_launch, torch)
         examples = run("examples", phase_examples, torch)
         launch = launching.result()
+    mesh_arms = run("mesh_arms", phase_mesh_arms, torch, arms_started)
+    del arms_started
     if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
                                    for m in sys.modules):
         fail("the port loaded JAX or the JAX package")
@@ -8789,14 +9371,15 @@ def main() -> None:
                     [*(sh[d] for d in dims), sh["max_abs_err"], sh["ms"],
                      sh["plain_ms"], sh["bound_ms"],
                      *((sh["library_ms"],) if "library_ms" in sh else ())])
-    # phases mesh_families' and mesh_recurrent's paths: each model's
-    # generate at (1, 2) on rank 0 (counts set to 0 just before each),
-    # summed; every shard shape its rank 0 held to plain, as [M, N, K, err,
-    # ms, plain ms, bound ms, library ms] (K4's as B, Sq, Sk, Hq, Hkv; K5
-    # and the plane forms have no library call)
+    # phases mesh_families', mesh_recurrent's and mesh_arms' paths: each
+    # model's generate at (1, 2) on rank 0 (counts set to 0 just before
+    # each), summed; every shard shape its rank 0 held to plain, as [M, N,
+    # K, err, ms, plain ms, bound ms, library ms] (K4's as B, Sq, Sk, Hq,
+    # Hkv; K5 and the plane forms have no library call)
     mesh_paths = {}
     for phase, got in (("mesh_families", mesh_families),
-                       ("mesh_recurrent", mesh_recurrent)):
+                       ("mesh_recurrent", mesh_recurrent),
+                       ("mesh_arms", mesh_arms)):
         launched, shapes = mesh_paths.setdefault(phase, ({}, {}))
         for m in got["models"].values():
             row = m["meshes"]["1x2"]
@@ -8915,6 +9498,13 @@ def main() -> None:
               for model, r in got["models"].items()}
               for phase, got in (("mesh_families", mesh_families),
                                  ("mesh_recurrent", mesh_recurrent))},
+          "mesh_arms": {model: {name: {k: m[k] for k in (
+              "backend", "logits_max_abs_diff", "loss_step1",
+              "unsharded_loss_step1", "step_ms", "unsharded_step_ms",
+              "peak_mem_gb", "collectives_a_step", "formula", "merge")
+              if k in m} for name, m in r["meshes"].items()}
+              for model, r in mesh_arms["models"].items()},
+          "dryrun": mesh_arms["dryrun"],
           "launch": {k: launch[k] for k in (
               "train", "train_resumed", "serve_continuous",
               "serve_speculative", "serve_family_smoke")},

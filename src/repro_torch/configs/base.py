@@ -1,6 +1,7 @@
 """Config dataclasses (copy of ``repro/configs/base.py``'s QuantConfig,
 TuningConfig and ModelConfig, trimmed to the fields the port reads or must
-refuse, and its MoEConfig, SSMConfig, OptimConfig and TrainConfig whole).
+refuse, and its MoEConfig, SSMConfig, ShapeConfig (with ``SHAPES``, the
+dry run's input shapes), OptimConfig and TrainConfig whole).
 Frozen, like the reference, so they can key caches."""
 from __future__ import annotations
 
@@ -113,6 +114,25 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                          # train | prefill | decode
+
+
+# The assigned input-shape set (identical for all 10 LM-family archs).
+SHAPES = (
+    ShapeConfig("train_4k", 4096, 256, "train"),
+    ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    ShapeConfig("decode_32k", 32768, 128, "decode"),
+    ShapeConfig("long_500k", 524288, 1, "decode"),
+)
+
+SHAPES_BY_NAME = {s.name: s for s in SHAPES}
 
 
 @dataclasses.dataclass(frozen=True)

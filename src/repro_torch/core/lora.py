@@ -36,7 +36,9 @@ def add_lora(model: nn.Module, generator: torch.Generator,
     for _, mod in targets(model, tcfg):
         dev = mod.qw.device if mod.quantized else mod.w.device
         m, n = mod.in_features, mod.out_features
-        a = torch.empty(r, m, device=dev).normal_(generator=generator)
+        a = torch.empty(r, m, device=dev)
+        if not a.is_meta:                   # the dry run draws nothing
+            a.normal_(generator=generator)
         mod.set_lora(a * m ** -0.5, torch.zeros(n, r, device=dev))
     return model
 

@@ -120,7 +120,10 @@ def quantize_leaf(w: torch.Tensor, qcfg: QuantConfig) -> dict:
     conversion kernel's function: it goes through ``ops.rtn_pack`` (K3 for
     nibbles, K6b for bit-planes, on the card).  Everything else runs
     ``rtn_quantize`` and packs — the same function as the reference's
-    ``quantize_leaf`` either way."""
+    ``quantize_leaf`` either way.  On ``meta`` (the dry run's build) it
+    returns the same shapes and dtypes and reads no value."""
+    if w.is_meta:
+        return abstract_leaf(w.shape, qcfg)
     if w.dim() > 2:
         lead, (n, m) = w.shape[:-2], w.shape[-2:]
         flat = w.reshape(-1, n, m)
@@ -153,6 +156,20 @@ def quantize_leaf(w: torch.Tensor, qcfg: QuantConfig) -> dict:
     q, s, z = rtn_quantize(w, spec, n_grid=qcfg.n_grid)
     qw = pack_codes_planes(q, spec.bits) if spec.plane else pack_codes(q)
     return {"qw": qw, "scale": s, "zero": z}
+
+
+def abstract_leaf(shape, qcfg: QuantConfig) -> dict:
+    """``quantize_leaf``'s result for a (…, n, m) weight on ``meta``:
+    (…, n, m/8) nibble words or (…, bits, n, m/32) bit-planes, and (…, n,
+    G) float32 scales and zeros."""
+    spec = qcfg.spec()
+    *lead, n, m = shape
+    qw = (*lead, spec.bits, n, m // PLANE_PACK) if spec.plane \
+        else (*lead, n, m // 8)
+    sz = (*lead, n, spec.n_groups(m))
+    return {"qw": torch.empty(qw, dtype=torch.int32, device="meta"),
+            "scale": torch.empty(sz, device="meta"),
+            "zero": torch.empty(sz, device="meta")}
 
 
 @torch.no_grad()

@@ -43,18 +43,21 @@ def transform(model: nn.Module, cfg: ModelConfig, *, device=None,
               generator: Optional[torch.Generator] = None) -> nn.Module:
     """fp-initialized model → policy model, in place, on ``device`` (the
     card unless ``device="cpu"``).  ``generator`` draws the LoRA arms'
-    ``lora_a`` (on ``device``; seed 0 when None)."""
+    ``lora_a`` (on ``device``; seed 0 when None).  On ``device="meta"``
+    (a model built there) it is the reference's ``jax.eval_shape`` of
+    ``transform``: every leaf's shape and dtype, no value drawn or read
+    (``launch/dryrun.py``)."""
     mode = cfg.tuning.mode
     _check_mode(mode)
-    dev = _device.resolve(device)
+    meta = str(device) == "meta"
+    dev = torch.device("meta") if meta else _device.resolve(device)
+    model = model.to(dev)
     if mode in QUANTIZING:
-        model = peqa.quantize_params(model, cfg.quant, device=dev)
-    else:
-        model = model.to(dev)
+        peqa.quantize_module(model, cfg.quant)
     if mode == "qat":
         qat.add_fake_quant(model, cfg.quant)
     if mode in ("lora", "lora_optq"):
-        if generator is None:
+        if generator is None and not meta:
             generator = torch.Generator(device=dev).manual_seed(0)
         lora.add_lora(model, generator, cfg.tuning)
     return model
@@ -89,7 +92,8 @@ def prepare(model: nn.Module, cfg: ModelConfig, *, device=None,
 
 
 def build(api, seed: int = 0, *,
-          generator: Optional[torch.Generator] = None
+          generator: Optional[torch.Generator] = None,
+          calib: Optional[torch.Tensor] = None
           ) -> Tuple[nn.Module, Dict[str, bool]]:
     """``api.cfg``'s policy model from the seed's random weights → (model,
     trainable mask), on ``api.device``: ``prepare(api.init(seed), cfg)``'s
@@ -103,12 +107,20 @@ def build(api, seed: int = 0, *,
     card still builds.  Its codes, scales, zeros, biases, norms and table
     are bit-equal to the whole build's: the draws come in the same order.
     The fp arms keep float32 weights anyway and take the whole build.
-    (OPTQ's backbone for ``lora_optq`` quantizes a whole fp model:
-    ``core.gptq``.)  ``generator`` draws the LoRA arms' ``lora_a``, as in
-    ``prepare``."""
+    ``generator`` draws the LoRA arms' ``lora_a``, as in ``prepare``.
+
+    ``calib`` (B, S) tokens: ``lora_optq``'s backbone is OPTQ's instead of
+    RTN's — the whole fp model, quantized by
+    ``gptq.gptq_quantize_transformer`` on those tokens, then ``prepare``
+    (which leaves GPTQ's codes as they are and adds the adapters), as
+    ``benchmarks/common.py`` composes the arm."""
     cfg = api.cfg
     _check_mode(cfg.tuning.mode)
-    if cfg.tuning.mode in QUANTIZING:
+    if calib is not None and cfg.tuning.mode == "lora_optq":
+        from repro_torch.core import gptq
+        model = gptq.gptq_quantize_transformer(
+            api.init(seed), cfg, calib.to(api.device))
+    elif cfg.tuning.mode in QUANTIZING:
         model = api.init(seed, transform=lambda name, mod:
                          peqa.quantize_module(mod, cfg.quant, prefix=name))
     else:

@@ -15,7 +15,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import QuantConfig
-from repro_torch.core.peqa import eligible, ref_path
+from repro_torch.core.peqa import abstract_leaf, eligible, ref_path
 from repro_torch.core.quant import rtn_quantize
 from repro_torch.models.linear import Linear
 
@@ -23,7 +23,7 @@ from repro_torch.models.linear import Linear
 @torch.no_grad()
 def add_fake_quant(model: nn.Module, qcfg: QuantConfig) -> nn.Module:
     """Attach RTN-initialised (scale, zero) beside every eligible ``w``, in
-    place.  Returns the model."""
+    place (their shapes only, on ``meta``).  Returns the model."""
     spec = qcfg.spec()
     for name, mod in model.named_modules():
         if isinstance(mod, Linear) and not mod.quantized \
@@ -31,6 +31,10 @@ def add_fake_quant(model: nn.Module, qcfg: QuantConfig) -> nn.Module:
             # an expert stack's (E, out, in): one expert at a time, as the
             # reference's lax.map
             w = mod.w.to(torch.float32)
+            if w.is_meta:                     # the dry run: shapes only
+                q = abstract_leaf(w.shape, qcfg)
+                mod.set_fake_quant(q["scale"], q["zero"], spec)
+                continue
             flat = w.reshape(-1, *w.shape[-2:])
             sz = [rtn_quantize(wi, spec, n_grid=qcfg.n_grid)[1:]
                   for wi in flat]

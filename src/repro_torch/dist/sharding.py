@@ -48,6 +48,14 @@ and the reference's layer-stacked leaf.
     output in whole heads, its scalar gates ``gi`` / ``gf`` whole, the
     sLSTM's ``sw`` / ``sr`` / ``sb`` whole (its recurrence mixes a head's
     units every step), both ``down`` row-parallel.
+  * The comparison arms: QAT's float32 ``w`` takes ``w``'s rule and its
+    ``scale``/``zero`` PEQA's.  A LoRA adapter on a column-parallel
+    linear keeps ``lora_a`` (r, in) whole and cuts ``lora_b`` (out, r) by
+    output (a shared KV head's by its ``KVGroup``): the reference's rule.
+    On the row-parallel ``wo`` (QKVO16) it cuts ``lora_a`` by input and
+    keeps ``lora_b`` whole, so the rank's partial delta joins the block's
+    one row-parallel sum (``models/linear.py``); the reference cuts
+    ``lora_b`` by output there too (ROADMAP §3).
 
 The reference hands these specs to GSPMD.  The port cuts each rank's
 local module from the whole quantized model (``shard_model``): the shard
@@ -69,9 +77,10 @@ only in part is partial too (``REPLICATED_MODULES``, ``PARTIAL_GAINS``):
 xLSTM's ``gi`` / ``gf`` (the rank's heads' columns), Mamba2's ``bproj`` /
 ``cproj`` (the rank's heads' scans), the sLSTM's ``sw`` / ``sr`` / ``sb``
 (its output feeds a row-parallel ``down``, so a rank's gradient of it
-covers its columns), and Mamba2's ``gnorm.g`` (whole, zero outside the
-rank's columns).  The train step sums the partial ones over the model axis, the
-gradient norm and the int8 codec reduce over the sharded ones; the
+covers its columns), Mamba2's ``gnorm.g`` (whole, zero outside the
+rank's columns), and a LoRA leaf kept whole.  The train step sums the
+partial ones over the model axis, the gradient norm and the int8 codec
+reduce over the sharded ones; the
 optimizer moments take their parameter's block (``moment_specs``).  The
 router's gradient is partial too: the combine's gate term covers only the
 rank's experts (or d_ff slice), and the MoE block lets its aux term in at
@@ -187,13 +196,17 @@ def spec_for_path(path: str, ndim: int, planes: bool = False,
         return _mk(ndim, ndim - trailing - 1)
     if leaf == "emb":                       # (vocab, d): vocab-sharded
         return _mk(ndim, ndim - 2)
-    if leaf in ("pos", "lora_a") or leaf == "g" or (leaf == "b"
-                                                    and _is_norm(parent)):
+    if leaf == "pos" or leaf == "g" or (leaf == "b" and _is_norm(parent)):
         return ()
     if leaf in HEAD_VECTOR_LEAVES:          # (…, n_heads)
         return _mk(ndim, ndim - 1)
-    if leaf == "lora_b":                    # (…, out, r): the out dim
-        return _mk(ndim, ndim - 2)
+    if leaf == "lora_a":                    # (…, r, in): whole, or its
+        return _mk(ndim, ndim - 1) if parent in ROW_PARALLEL else ()
+    if leaf == "lora_b":                    # (…, out, r): the out dim, or
+        if parent in ROW_PARALLEL:          # whole on a row-parallel wo
+            return ()
+        return _mk(ndim, ndim - 2, KVGroup(kv_share)
+                   if kv_share > 1 and parent in KV_LINEARS else MODEL_AXIS)
     if leaf in _LINEAR_LEAVES:
         if parent in ROW_PARALLEL:
             if leaf in ("w", "qw"):         # (…, out, in): the input dim
@@ -218,8 +231,11 @@ def leaf_kind(path: str, ndim: int, kv_share: int = 1) -> str:
     slice's share; xLSTM's ``gi`` / ``gf``, Mamba2's ``bproj`` / ``cproj``
     and the sLSTM: the share of the rank's heads or columns —, a
     ``PARTIAL_GAINS`` gain; a grouped ``wk``/``wv`` leaf: its query heads'
-    share of its KV head's) or ``REPLICATED`` (the whole gradient, equal
-    on every model rank)."""
+    share of its KV head's; a LoRA leaf kept whole — a column-parallel
+    linear's ``lora_a``, whose gradient covers the rank's output columns,
+    and a row-parallel ``wo``'s ``lora_b``, whose covers its input
+    columns) or ``REPLICATED`` (the whole gradient, equal on every model
+    rank)."""
     spec = spec_for_path(path, ndim, kv_share=kv_share)
     if any(isinstance(ax, KVGroup) for ax in spec):
         return PARTIAL
@@ -228,6 +244,8 @@ def leaf_kind(path: str, ndim: int, kv_share: int = 1) -> str:
     parts = [p for p in path.split("/") if p]
     if len(parts) >= 2 and parts[-1] in ("scale", "zero") \
             and parts[-2] in ROW_PARALLEL:
+        return PARTIAL
+    if parts and parts[-1] in ("lora_a", "lora_b"):
         return PARTIAL
     if any(p in REPLICATED_MODULES for p in parts) or (
             len(parts) >= 2 and parts[-2] in PARTIAL_GAINS):
@@ -465,9 +483,12 @@ def shard_problems(cfg: ModelConfig, model_size: int) -> List[str]:
     if out:
         return out
     spec = cfg.quant.spec()
-    if cfg.tuning.mode not in ("peqa", "peqa_z"):
+    if cfg.tuning.mode not in ("peqa", "peqa_z", "lora_optq", "qat"):
         return out
-    word = PLANE_PACK if spec.plane else PACK
+    # codes (the quantizing arms) in whole words; QAT's float w in whole
+    # groups only
+    word = 1 if cfg.tuning.mode == "qat" else \
+        PLANE_PACK if spec.plane else PACK
     for name, whole in rows:
         k = whole // m
         if k % word:
@@ -566,7 +587,9 @@ def shard_model(model: nn.Module, cfg: ModelConfig, ctx) -> nn.Module:
     and sLSTM block (it slices its rank's block of a whole module's
     output: the scalar gates' heads, the sLSTM's columns, the gated norm's
     gain); the token table keeps ``vocab_start``.  ``ctx`` needs only
-    ``model_size`` and ``model_rank`` (``context.coords`` will do)."""
+    ``model_size`` and ``model_rank`` (``context.coords`` will do).  A
+    whole model on ``meta`` gives a shard on ``meta``: the dry run's
+    (``launch/dryrun.py``), shapes without storage."""
     from repro_torch.models import common, linear, mamba2, registry, xlstm
     probs = shard_problems(cfg, ctx.model_size)
     if probs:
@@ -609,7 +632,7 @@ def shard_model(model: nn.Module, cfg: ModelConfig, ctx) -> nn.Module:
                 mod.vocab_size = src.emb.shape[0]
     left = [n for n, t in (*local.named_parameters(), *local.named_buffers())
             if t.is_meta]
-    if left:
+    if left and not next(model.parameters()).is_meta:
         raise ValueError(f"shard_model: tensors left uncut: {left}")
     local.mesh_shard = shard
     local.kv_share = share
@@ -618,10 +641,12 @@ def shard_model(model: nn.Module, cfg: ModelConfig, ctx) -> nn.Module:
 
 def _shard_linear(mod, src, name: str, ctx, bf16_reduce: bool,
                   share: int = 1) -> None:
-    """Fill the local ``Linear`` ``mod`` from the whole one ``src``; a
-    row-parallel one reduces in the activation dtype under
-    ``bf16_reduce``, or not at all inside an MoE block; with ``share`` > 1
-    a ``wk``/``wv`` keeps its rank's KV head whole."""
+    """Fill the local ``Linear`` ``mod`` from the whole one ``src`` — its
+    codes or float ``w``, QAT's ``scale``/``zero`` by PEQA's rules, a
+    LoRA adapter by ``spec_for_path``'s —; a row-parallel one reduces in
+    the activation dtype under ``bf16_reduce``, or not at all inside an
+    MoE block; with ``share`` > 1 a ``wk``/``wv`` keeps its rank's KV head
+    whole."""
     parts = name.split(".")
     replicated = any(p in REPLICATED_MODULES for p in parts)
     ep = "experts_ep" in parts
@@ -635,9 +660,6 @@ def _shard_linear(mod, src, name: str, ctx, bf16_reduce: bool,
         return local_slice(t.detach(), spec_for_path(path, t.dim(), planes,
                                                      share), ctx)
 
-    if src.has_lora or src.fake_quant:
-        raise NotImplementedError(
-            f"{name}: LoRA and QAT linears are not sharded in this slice")
     if src.n_experts is not None:
         mod.n_experts = src.n_experts // m if ep else src.n_experts
     split = not (replicated or ep)
@@ -648,14 +670,22 @@ def _shard_linear(mod, src, name: str, ctx, bf16_reduce: bool,
         del mod._parameters["w"]
         mod.set_quantized(cut("qw", src.qw), cut("scale", src.scale),
                           cut("zero", src.zero), src.spec)
+    else:
+        mod.w = _new_param(cut("w", src.w), src.w)
+        if src.fake_quant:
+            mod.set_fake_quant(cut("scale", src.scale),
+                               cut("zero", src.zero), src.spec)
+    if src.quantized or src.fake_quant:
         mod.scale.requires_grad_(src.scale.requires_grad)
         mod.zero.requires_grad_(src.zero.requires_grad)
         g = src.scale.shape[-1]
         if row and g > 1:
             mod.tp_groups = (ctx.model_rank * g // m,
                              (ctx.model_rank + 1) * g // m)
-    else:
-        mod.w = _new_param(cut("w", src.w), src.w)
+    if src.has_lora:
+        mod.set_lora(cut("lora_a", src.lora_a), cut("lora_b", src.lora_b))
+        mod.lora_a.requires_grad_(src.lora_a.requires_grad)
+        mod.lora_b.requires_grad_(src.lora_b.requires_grad)
     mod.b = None if src.b is None else _new_param(cut("b", src.b), src.b)
     mod.tp = None if replicated else "expert" if ep else \
         "row" if row else "kv" if grouped else "col"

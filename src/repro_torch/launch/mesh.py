@@ -1,7 +1,7 @@
 """Mesh construction (port of ``repro/launch/mesh.py``).
 
 Functions, not module constants: importing this module makes no process
-group and no mesh.  The reference's production shapes are TPU v5e pods,
+group and no mesh.  The reference's production shapes are TPU pods,
 (16, 16) and (2, 16, 16) with a leading ``pod`` axis; the port keeps the
 shapes as data (``production_shape``) and builds only 2-D ``(data,
 model)`` meshes over the ranks ``torch.distributed`` already joined

@@ -24,6 +24,15 @@ logs, and the checkpoints hold the whole state in the reference's format
 the reference's debug mesh, ``make_debug_mesh(2, max(n // 2, 1))``, over
 n = 4 ranks: (2, 2).  ``--mesh pod`` and ``--mesh multipod`` (the
 reference's TPU pod shapes, 256 and 512 devices) are refused.
+
+``--mode lora_optq`` puts the adapters on OPTQ's backbone: GPTQ over
+``CALIB`` sequences of ``--seq`` tokens from the head of the training
+split (``policies.build(calib=)``; the reference's launcher composes RTN,
+its benchmarks OPTQ: ROADMAP §3).  On a mesh the launcher runs GPTQ
+once, in its own process before it spawns the ranks, and every rank loads
+that one backbone (bit-equal on every rank) and cuts its shard of it.  A
+run that resumes runs no GPTQ: the checkpoint's codes and scales replace
+the backbone's.
 """
 from __future__ import annotations
 
@@ -34,8 +43,10 @@ import os
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch import configs
+from repro_torch.ckpt.checkpoint import CheckpointManager
 from repro_torch.configs.base import (OptimConfig, QuantConfig, TrainConfig,
                                       TuningConfig)
 from repro_torch.core import policies
@@ -51,6 +62,8 @@ MESHES = ("none", "debug", "pod", "multipod")
 # the ranks --mesh debug spawns (the reference's debug mesh over its
 # devices: (2, n // 2))
 DEBUG_RANKS = 4
+# lora_optq's GPTQ calibration: this many sequences of --seq tokens
+CALIB = 4
 
 
 def mesh_shape(text: str) -> Optional[tuple]:
@@ -111,9 +124,39 @@ def model_config(args):
         quant=QuantConfig(bits=args.bits, group_size=args.group_size))
 
 
-def run(args, ctx=None, log=None):
+def corpus(args, cfg):
+    """(train, validation) tokens of the run's seeded synthetic corpus."""
+    toks = synthetic.corpus(cfg.vocab_size, max(args.steps, 100) * args.batch
+                            * args.seq // 4 + 50000, seed=args.seed)
+    return synthetic.split(toks)
+
+
+def resumes(args) -> bool:
+    """Whether ``--ckpt-dir`` holds a valid checkpoint to resume from."""
+    return bool(args.ckpt_dir) and os.path.isdir(args.ckpt_dir) and \
+        CheckpointManager(args.ckpt_dir).latest_valid_step() is not None
+
+
+def build_model(args, api, log, train_toks=None):
+    """``policies.build`` of the run's arm; ``lora_optq`` on OPTQ's
+    backbone, calibrated on the head of the training split
+    (``train_toks``, else the run's corpus) — on RTN's, of the same
+    shapes, when the run resumes: the checkpoint replaces it."""
+    calib = None
+    if args.mode == "lora_optq" and not resumes(args):
+        if train_toks is None:
+            train_toks, _ = corpus(args, api.cfg)
+        calib = torch.as_tensor(train_toks[:CALIB * args.seq].reshape(
+            CALIB, args.seq).astype(np.int64))
+        log(f"[launch] gptq: {CALIB} × {args.seq} calibration tokens")
+    return policies.build(api, args.seed, calib=calib)
+
+
+def run(args, ctx=None, log=None, backbone=None):
     """Build, train and evaluate as ``args`` say, off the mesh or as the
-    rank of ``ctx`` (its device the rank's); returns (state, history)."""
+    rank of ``ctx`` (its device the rank's); returns (state, history).
+    ``backbone``: the file of a whole policy model to start from
+    (``run_mesh``'s one GPTQ build) instead of building it."""
     log = log or (lambda msg: print(msg, flush=True))
     cfg = model_config(args)
     device = args.device if ctx is None else ctx.device
@@ -121,7 +164,13 @@ def run(args, ctx=None, log=None):
 
     log(f"[launch] arch={cfg.name} mode={args.mode} bits={args.bits} "
         f"device={api.device}")
-    model, mask = policies.build(api, args.seed)
+    train_toks, val_toks = corpus(args, cfg)
+    if backbone is None:
+        model, mask = build_model(args, api, log, train_toks)
+    else:
+        model = torch.load(backbone, map_location=api.device,
+                           weights_only=False)
+        mask = policies.make_mask(model, cfg)
     n_train = policies.trainable_count(model, mask)
     n_total = n_train + policies.frozen_count(model, mask)
     log(f"[launch] params={n_total:,} trainable={n_train:,} "
@@ -131,9 +180,6 @@ def run(args, ctx=None, log=None):
         steps=args.steps, batch_size=args.batch, seq_len=args.seq,
         optim=OptimConfig(lr=args.lr, warmup_steps=max(args.steps // 20, 1),
                           grad_compression=args.grad_compression))
-    toks = synthetic.corpus(cfg.vocab_size, max(args.steps, 100) * args.batch
-                            * args.seq // 4 + 50000, seed=args.seed)
-    train_toks, val_toks = synthetic.split(toks)
     data = pipeline.Prefixed(pipeline.PackedLM(train_toks, args.batch,
                                                args.seq, seed=args.seed),
                              cfg, args.seed)
@@ -164,16 +210,17 @@ def run(args, ctx=None, log=None):
     return state, hist
 
 
-def mesh_rank(rank: int, argv, out: str) -> None:
-    """One rank of ``--mesh``: its context on its own device, then ``run``;
-    rank 0 logs and writes the history to ``out``."""
+def mesh_rank(rank: int, argv, out: str, backbone=None) -> None:
+    """One rank of ``--mesh``: its context on its own device, then ``run``
+    (from the launcher's ``backbone`` file where there is one); rank 0
+    logs and writes the history to ``out``."""
     from repro_torch.dist import backend
     args = parse_args(argv)
     ctx = mesh_mod.make_debug_mesh(*args.mesh_shape)
     log = (lambda msg: print(msg, flush=True)) if rank == 0 \
         else (lambda msg: None)
     log(f"[launch] rank 0: {backend.summary()}")
-    _, hist = run(args, ctx, log)
+    _, hist = run(args, ctx, log, backbone)
     if rank == 0:
         with open(out, "w") as f:
             json.dump(hist, f)
@@ -199,8 +246,19 @@ def run_mesh(args, argv):
           flush=True)
     with tempfile.TemporaryDirectory(prefix="repro_train_") as tmp:
         out = os.path.join(tmp, "history.json")
+        backbone = None
+        if args.mode == "lora_optq" and not resumes(args):
+            # GPTQ once, here, not once a rank: the ranks load its result
+            api = registry.build(model_config(args), device=device)
+            model, _ = build_model(args, api, lambda msg: print(msg,
+                                                                flush=True))
+            backbone = os.path.join(tmp, "backbone.pt")
+            torch.save(model, backbone)
+            del model
+            if device != "cpu":
+                torch.cuda.empty_cache()
         try:
-            backend.spawn(mesh_rank, d * m, device, list(argv), out,
+            backend.spawn(mesh_rank, d * m, device, list(argv), out, backbone,
                           threads=1 if device == "cpu" else None)
         except ProcessExitedException as e:
             raise SystemExit(f"[launch] a mesh rank failed: {e}") from None

@@ -12,7 +12,7 @@ storage mode is which of them exist:
   qat      : w, scale, zero float32 [, b] — fake-quantized on the fly with
              a straight-through rounding
   (+ lora) : lora_a (r, in), lora_b (out, r) float32, beside either w or
-             qw/scale/zero
+             qw/scale/zero (on a mesh: ``dist/sharding.py``'s blocks)
 
 The bias (the reference's ``init(bias=True)``: q/k/v of qwen2 and
 starcoder2) is zero-initialised and never quantized.
@@ -185,12 +185,18 @@ def apply(p: Linear, x: torch.Tensor, slots=None,
 
     A row-parallel shard's product is all-reduced over the model axis
     (``row_reduce``) before it is rounded to x's dtype and before the
-    delta and the bias."""
+    delta and the bias.  Its adapter (QKVO16's ``wo``) holds the rank's
+    input columns of ``lora_a`` and the whole ``lora_b``: over M > 1 model
+    ranks the rank's delta (x_r·A_rᵀ)·Bᵀ is a partial sum too, added in
+    float32 to the partial product before that one sum, so its first
+    product is rounded to x's dtype per rank, not whole (at M = 1 the
+    order is the unsharded one).  A QAT shard fake-quantizes its block of
+    G > 1 groups (``tp_groups``)."""
     if p.n_experts is not None:
         return _apply_experts(p, x, slots, draft_bits)
     row = getattr(p, "tp", None) == "row"
+    groups = getattr(p, "tp_groups", None) if row else None
     if p.quantized:
-        groups = getattr(p, "tp_groups", None) if row else None
         if slots is not None and isinstance(slots[1], dict) \
                 and "scale" in slots[1]:
             task_ids, stack = slots
@@ -204,14 +210,20 @@ def apply(p: Linear, x: torch.Tensor, slots=None,
                                  _groups(p.zero, groups), p.spec,
                                  draft_bits=draft_bits)
     elif p.fake_quant:
-        w = fake_quant(p.w.to(x.dtype), p.scale, p.zero, p.spec)
+        w = fake_quant(p.w.to(x.dtype), _groups(p.scale, groups),
+                       _groups(p.zero, groups), p.spec)
         y = ops.dot_f32(x, w)
     else:
         y = ops.dot_f32(x, p.w.to(x.dtype))
+    # a row-parallel adapter's rank holds its input columns of lora_a: its
+    # float32 partial delta joins the partial product before the one sum
+    split = row and p.has_lora and context.require().model_size > 1
+    if split:
+        y = y + _lora_product(x, p.lora_a, p.lora_b)
     if row and not getattr(p, "tp_partial", False):
         y = row_reduce(y, x.dtype if p.tp_reduce_bf16 else torch.float32)
     y = y.to(x.dtype)
-    if p.has_lora:
+    if p.has_lora and not split:
         y = y + lora_delta(x, p.lora_a, p.lora_b)
     return y if p.b is None else bias_add(y, p.b)
 
@@ -252,13 +264,14 @@ def _apply_experts(p: Linear, x: torch.Tensor, slots, draft_bits
         raise NotImplementedError(
             "an expert linear has no draft read: MoE expert dispatch is not "
             "supported in the verify step")
+    groups = getattr(p, "tp_groups", None)
     if p.quantized:
-        groups = getattr(p, "tp_groups", None)
         return ops.quant_matmul_experts(x, p.qw, _groups(p.scale, groups),
                                         _groups(p.zero, groups), p.spec)
     w = p.w.to(x.dtype)
     if p.fake_quant:
-        w = fake_quant(w, p.scale, p.zero, p.spec)
+        w = fake_quant(w, _groups(p.scale, groups), _groups(p.zero, groups),
+                       p.spec)
     return ops.dot_f32_experts(x, w).to(x.dtype)
 
 
@@ -294,8 +307,14 @@ def lora_delta(x: torch.Tensor, lora_a: torch.Tensor,
     """(x·Aᵀ)·Bᵀ in x's dtype, rounded where the reference rounds: A and B
     cast to x's dtype, the first product rounded to it (its einsum names
     no output type), the second summed in float32 and then rounded."""
+    return _lora_product(x, lora_a, lora_b).to(x.dtype)
+
+
+def _lora_product(x: torch.Tensor, lora_a: torch.Tensor,
+                  lora_b: torch.Tensor) -> torch.Tensor:
+    """``lora_delta`` before its last rounding: the float32 product."""
     t = ops.dot_f32(x, lora_a.to(x.dtype)).to(x.dtype)
-    return ops.dot_f32(t, lora_b.to(x.dtype)).to(x.dtype)
+    return ops.dot_f32(t, lora_b.to(x.dtype))
 
 
 def bias_add(y: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

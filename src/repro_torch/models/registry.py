@@ -129,36 +129,18 @@ RECURRENT_SLOTTED_REASON = ("recurrent state layers cannot thread per-slot "
                             "scales (no slotted decode step)")
 
 
-# why serving or training on a (data, model) mesh refuses a configuration:
-# the arms' leaves (a later slice of the mesh, ROADMAP §1); every family
-# shards
-MESH_ARM_REASON = ("the {mode} arm's LoRA or fake-quant leaves are not "
-                   "sharded: serve or train PEQA (peqa, peqa_z) or full "
-                   "weights on a mesh")
-
-
-# and why training on one refuses a global batch (the reference homes the
+# why training on a mesh refuses a global batch (the reference homes the
 # batch P(data): every data rank takes an equal block of rows)
 MESH_BATCH_REASON = ("the global batch of {batch} rows is not divisible by "
                      "the data axis ({data}): every data rank trains on an "
                      "equal block of the batch's rows")
 
 
-def mesh_problems(cfg: ModelConfig) -> list:
-    """Why ``cfg`` cannot be served or trained on a mesh in this slice
-    (empty: it can); the sharded extents are
-    ``dist.sharding.shard_problems``'."""
-    out = []
-    if cfg.tuning.mode in ("lora", "lora_optq", "qat"):
-        out.append(MESH_ARM_REASON.format(mode=cfg.tuning.mode))
-    return out
-
-
 def check_supported(cfg: ModelConfig, mesh=None, *, train: bool = False,
                     batch: Optional[int] = None) -> None:
     """Raise for every configuration this slice of the port does not serve;
     with ``mesh`` (a mesh context), also for what it does not serve on a
-    mesh (``mesh_problems``, ``dist.sharding.shard_problems``).  With
+    mesh (``dist.sharding.shard_problems``).  With
     ``train`` for what it does not train there: the same, and
     ``remat="dots"``; ``batch``, a training run's global batch, must
     divide the data axis."""
@@ -240,8 +222,7 @@ def check_supported(cfg: ModelConfig, mesh=None, *, train: bool = False,
     bad = [why for flag, why in refused if flag]
     if mesh is not None and not bad:
         from repro_torch.dist import sharding
-        bad = mesh_problems(cfg) + sharding.shard_problems(cfg,
-                                                           mesh.model_size)
+        bad = sharding.shard_problems(cfg, mesh.model_size)
         train = train or batch is not None
         if train and cfg.remat == "dots":
             bad.append(transformer.MESH_DOTS_REASON)

@@ -98,7 +98,19 @@ def _bucket_sum(grads: Dict[str, torch.Tensor], names: List[str], ctx,
 def mesh_collectives(model, cfg: ModelConfig, mask, compress: bool = False
                      ) -> Dict[str, int]:
     """The all-reduces one mesh step issues on each axis (it issues no
-    other kind), from the rank's shard ``model`` and the mask:
+    other kind), from the rank's shard ``model`` and the mask: the model
+    axis' terms of ``model_axis_terms`` summed, and 3 on the data axis."""
+    return {"model": sum(model_axis_terms(model, cfg, mask,
+                                          compress).values()),
+            "data": 3}
+
+
+def model_axis_terms(model, cfg: ModelConfig, mask, compress: bool = False
+                     ) -> Dict[str, int]:
+    """The model-axis all-reduces of one mesh step by term (``forward``,
+    ``recompute``, ``backward``, ``cross_entropy``, ``partial``, ``norm``,
+    ``max``), from the rank's shard ``model`` and the mask (what
+    ``launch/step_stats.py`` gives bytes to):
 
       * model axis: the forward's row-parallel sums — 2 a block (attention
         and the feed-forward; an MoE block's is one, as a dense MLP's: its
@@ -121,15 +133,18 @@ def mesh_collectives(model, cfg: ModelConfig, mask, compress: bool = False
         and the head's (an encdec also the encoder output's, once for all
         the cross K/V), less each stack's first when nothing before it
         trains (a frozen table or position table and gain: PEQA), and a
-        Mamba2 block's norm's ``sum_over_model`` once more; the cross
+        Mamba2 block's norm's ``sum_over_model`` once more — in the ssm
+        and hybrid families none of these, and no recompute, before the
+        first leaf that trains (``_live_sums``: under LoRA the first
+        mLSTM block's adapters, or zamba2's shared block) —; the cross
         entropy's 3 (an MoE model's aux loss rides the loss's data-axis
         sum); the partial bucket where a trained leaf is model-partial (a
         row-parallel scale or zero, a grouped ``wk``/``wv`` leaf, a leaf
         of a module kept whole: Mamba2's ``bproj``/``cproj``, xLSTM's
         gates, the sLSTM, a gated norm's gain; under ``full`` an MoE
         router); the norm's 1; and under int8 compression the max bucket
-        where a trained leaf is model-sharded;
-      * data axis: the token count, the loss and the gradient bucket."""
+        where a trained leaf is model-sharded (on the data axis a step
+        makes 3: the token count, the loss and the gradient bucket)."""
     kinds = sharding.leaf_kinds(model)
     trained = [k for k in kinds if mask.get(k)]
     starts = lambda *names: int(any(k.startswith(names) for k in trained))
@@ -144,25 +159,64 @@ def mesh_collectives(model, cfg: ModelConfig, mask, compress: bool = False
         recompute = (ne + 2 * nd) if remat else 0
     elif cfg.family == "ssm":
         n = cfg.n_layers
+        every = cfg.slstm_every or n + 1
+        points = [(0, 0, ("embed.",))]
+        for g in range(n // every):
+            for b in (f"slstm.{g}.", *(f"mlstm.{g}.{i}."
+                                       for i in range(every - 1))):
+                points += [(1, 0, (b + "ln.",)), (0, 0, (b,))]
         forward = n + 1
-        backward = n + starts("embed.", "slstm.0.ln.")
-        recompute = 0
+        backward, recompute = _live_sums(
+            trained, points + [(1, 0, ("final_norm.",))])
     elif cfg.family == "hybrid":
         n = cfg.n_layers
         every = cfg.attn_every or n + 1
         groups = n // every
+
+        def mamba(b, inner):
+            return [(1, 0, ()), (1, 0, tuple(b + x for x in _MAMBA_IN)),
+                    (0, inner, (b,))]
+        points = [(0, 0, ("embed.",))]
+        for g in range(groups):
+            for i in range(every):
+                points += mamba(f"mamba_groups.{g}.{i}.", int(remat))
+            points += [(1, 0, ("shared.ln1.",)), (0, 0, ("shared.attn.",)),
+                       (1, 0, ("shared.ln2.",)),
+                       (0, (2 * every + 1) * remat, ("shared.",))]
+        for i in range(n - groups * every):
+            points += mamba(f"mamba_tail.{i}.", 0)
         forward = 2 * n + 2 * groups + 1
-        backward = 2 * n - 1 + 2 * groups + 1 + starts("embed.")
-        recompute = groups * (3 * every + 1) if remat else 0
+        backward, recompute = _live_sums(
+            trained, points + [(1, 0, ("final_norm.",))])
     else:
         n = cfg.n_layers
         forward = 2 * n + 1
         backward = 2 * n + starts("embed.", "layers.0.ln1.")
         recompute = n if remat else 0
-    return {"model": forward + recompute + backward + 3
-            + has(sharding.PARTIAL) + 1
-            + (has(sharding.SHARDED) if compress else 0),
-            "data": 3}
+    return {"forward": forward, "recompute": recompute,
+            "backward": backward, "cross_entropy": 3,
+            "partial": has(sharding.PARTIAL), "norm": 1,
+            "max": has(sharding.SHARDED) if compress else 0}
+
+
+# a Mamba2 block's leaves before its gated norm's sum
+_MAMBA_IN = ("A_log", "ssm_D", "dt_bias", "zproj.", "xproj.", "bproj.",
+             "cproj.", "dtproj.", "conv.")
+
+
+def _live_sums(trained, points) -> tuple:
+    """(backward, recompute) model-axis sums of ``points`` — (backward
+    sums, recompute sums, the prefixes of the leaves before them) in
+    forward order — that a gradient reaches: a point counts once a
+    trained leaf is named by its prefixes or an earlier point's.  Before
+    that no tensor requires a gradient, so no ``copy_to_model`` backward
+    and no checkpoint's recompute runs."""
+    live, backward, recompute = False, 0, 0
+    for b, r, prefixes in points:
+        live = live or any(k.startswith(prefixes) for k in trained)
+        backward += b * live
+        recompute += r * live
+    return backward, recompute
 
 
 def _loss(api, model, batch, mesh):

@@ -592,3 +592,84 @@ def recurrent_serve_rank(rank, shape, tmp, cases, prompt, n_new, reqs):
             sharding.shard_model(model, cfg, ctx).parameters()))
         out[name] = res
     _save(tmp, f"recserve{shape[0]}x{shape[1]}_", rank, out)
+
+
+# ---------------------------------------------------------------------------
+# the comparison arms on a mesh (tests/test_torch_dist_arms*.py)
+# ---------------------------------------------------------------------------
+
+def arms_serve_rank(rank, shape, tmp, cases, prompt, n_new, prefixes=None,
+                    tag="armserve"):
+    """Each arm's serving case ({name: cfg}, the trees at
+    ``<tmp>/<name>.npz``; ``prefixes[name]`` the prompt's (B, P, d) prefix
+    or None): the mesh engine's ``generate`` with and without logitshard
+    and its decode step's collective record, and the prefill logits; rank
+    0 also the unsharded engine's ``generate`` and prefill logits."""
+    ctx = _ctx(shape)
+    out = {"coords": (ctx.data_rank, ctx.model_rank)}
+    b = prompt.shape[0]
+    for name, cfg in cases.items():
+        model = load_model(os.path.join(tmp, f"{name}.npz"), cfg)
+        api = registry.build(cfg, device="cpu")
+        local = sharding.shard_model(model, cfg, ctx)
+        pre = (prefixes or {}).get(name)
+        res = {}
+        for ls in (True, False):
+            eng = Engine(api, local, ctx=ctx, logitshard=ls)
+            res[f"tokens_{ls}"] = eng.generate(prompt, n_new, prefix=pre)
+            res[f"decode_{ls}"] = eng.decode_collectives(b, 24)
+            res[f"logits_{ls}"] = eng.prefill_logits(prompt, prefix=pre)
+        if rank == 0:
+            host = Engine(api, model, device="cpu")
+            res["host_tokens"] = host.generate(prompt, n_new, prefix=pre)
+            res["host_logits"] = host.prefill_logits(prompt, prefix=pre)
+        out[name] = res
+    _save(tmp, f"{tag}{shape[0]}x{shape[1]}_", rank, out)
+
+
+# ---------------------------------------------------------------------------
+# the dry run's counts against recorded steps (tests/test_torch_dryrun.py)
+# ---------------------------------------------------------------------------
+
+def dryrun_record_rank(rank, shape, tmp, cases, b, s):
+    """Each case ({name: cfg}, built from seed 0): the collective records
+    of a decode step (``Engine.decode_collectives``, with and without
+    logitshard), of ``api.prefill`` of a (b, s) prompt under the mesh, and
+    of one train step on a (b, s) batch."""
+    from repro_torch.configs.base import OptimConfig, TrainConfig
+    from repro_torch.core import policies
+    from repro_torch.data import pipeline, synthetic
+    from repro_torch.dist import context
+    from repro_torch.optim.adamw import make_optimizer
+    from repro_torch.train import step
+    from repro_torch.train.state import make_state, shard_state
+    ctx = _ctx(shape)
+    out = {}
+    for name, cfg in cases.items():
+        api = registry.build(cfg, device="cpu")
+        model, mask = policies.build(api, 0)
+        local = sharding.shard_model(model, cfg, ctx)
+        res = {}
+        for ls in (False, True):
+            eng = Engine(api, local, ctx=ctx, logitshard=ls)
+            res[f"decode_{ls}"] = eng.decode_collectives(b, 24)
+        batch = pipeline.with_prefix(pipeline.PackedLM(
+            synthetic.corpus(cfg.vocab_size, 4000, seed=5), b, s
+        ).batch_at(0), cfg, 6)
+        rows = ctx.local_rows(b)
+        local_batch = step.to_device({k: np.asarray(v)[rows]
+                                      for k, v in batch.items()}, "cpu")
+        with torch.inference_mode(), context.use_mesh(ctx), \
+                ctx.recording() as rec:
+            eng.api.prefill(local, local_batch)
+        res["prefill"] = rec
+        opt = make_optimizer(OptimConfig(), 10)
+        st = shard_state(make_state(model, opt.init(
+            dict(model.named_parameters()), mask)), ctx, cfg)
+        ts = step.build_train_step(api, cfg, TrainConfig(), mask, opt,
+                                   mesh=ctx)
+        with ctx.recording() as rec:
+            ts(st, batch)
+        res["train"] = rec
+        out[name] = res
+    _save(tmp, "dryrec", rank, out)

@@ -30,7 +30,8 @@ granite with q/k/v biases and tiny llama3.2-1b with 2 KV heads (GQA).
     blocks of ``cache_specs``; a task swap moves no collective, fewer
     bytes than the whole set, and leaves the shard equal to the cut of the
     swapped whole model.
-  * The refusals that remain, word for word: the LoRA and QAT arms, a
+  * The refusals that remain, word for word: the LoRA and QAT arms where
+    PEQA is refused (the heads the model axis does not divide), a
     KV-head count that neither divides the model axis nor is divided by
     it, and the recurrent families' heads where the axis does not divide
     them (both are served at (1, 2)).
@@ -349,12 +350,22 @@ def test_recurrent_families_refused_on_a_mesh(arch):
 @pytest.mark.parametrize("arch", list(ARCHS.values()))
 @pytest.mark.parametrize("mode", ["lora", "qat"])
 def test_arms_refused_on_a_mesh(arch, mode):
+    """The arms are refused on a mesh exactly where PEQA is, word for
+    word: trained at (1, 2), refused at (1, 3) for the heads the model
+    axis does not divide."""
     cfg = tconfigs.make_tiny(tconfigs.get_config(arch)).replace(
         tuning=TuningConfig(mode=mode))
-    with pytest.raises(NotImplementedError) as e:
-        registry.check_supported(cfg, mesh=context.coords(1, 2), train=True)
-    assert str(e.value) == (f"{cfg.name}: not trained on a (1, 2) mesh: "
-                            + registry.MESH_ARM_REASON.format(mode=mode))
+    peqa = cfg.replace(tuning=TuningConfig(mode="peqa"))
+    registry.check_supported(cfg, mesh=context.coords(1, 2), train=True,
+                             batch=4)
+    msgs = []
+    for c in (cfg, peqa):
+        with pytest.raises(NotImplementedError) as e:
+            registry.check_supported(c, mesh=context.coords(1, 3),
+                                     train=True)
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1]
+    assert msgs[0].startswith(f"{cfg.name}: not trained on a (1, 3) mesh: ")
 
 
 def test_kv_heads_that_neither_divide_refused():

@@ -16,8 +16,11 @@
   * What this slice does not shard is refused with a reason: a KV-head
     count that neither divides the model axis nor is divided by it, head,
     d_ff or vocab counts it does not divide, a local input extent that
-    breaks a kernel's words or groups, and the LoRA and QAT arms; every
-    family is accepted where the model axis divides it.
+    breaks a kernel's words or groups, and ``lora_optq`` where it is
+    refused off the mesh too; every family is accepted where the model
+    axis divides it, and every arm (``lora_a`` / ``lora_b`` on the
+    row-parallel ``wo`` the one LoRA exception to the reference's rules,
+    ROADMAP §3).
 """
 import types
 
@@ -49,10 +52,14 @@ KW = dict(n_layers=2, d_model=128, n_heads=4, d_ff=256, vocab=512)
 
 # the recurrent trees and their reference arch
 RECURRENT = {"xlstm": "xlstm-125m", "zamba2": "zamba2-7b"}
-# the one place the port's rules differ from the reference's: Mamba2's
+# the places the port's rules differ from the reference's: Mamba2's
 # B/C projections stay whole (every head's local scan reads all of
 # d_state), where the reference's rule cuts them by output (ROADMAP §3)
 SPEC_EXCEPTIONS = ("bproj", "cproj")
+# and the one LoRA exception: the row-parallel wo's adapter cuts lora_a by
+# input and keeps lora_b whole, where the reference cuts lora_b by output
+# (ROADMAP §3); {leaf: (the port's spec, the reference's) at ndim 2}
+LORA_WO = {"lora_a": ((None, "model"), ()), "lora_b": ((), ("model",))}
 
 
 def _jcfg(kind):
@@ -67,15 +74,18 @@ def _jcfg(kind):
                 **{**cfg.moe.__dict__, "expert_sharding": "expert"}))
         return cfg.replace(tuning=JTuning(mode="peqa"),
                            quant=JQuant(bits=4, n_grid=2))
-    mode = {"lora": "lora", "full": "full"}.get(kind, "peqa")
+    mode = {"lora": "lora", "full": "full", "qat": "qat",
+            "qkvo16": "lora_optq"}.get(kind, "peqa")
+    tun = dict(lora_rank=16, lora_targets=("wq", "wk", "wv", "wo")) \
+        if kind == "qkvo16" else {}
     layout = "plane" if kind == "plane" else "nibble"
     return jconfigs.paper_lm(**KW).replace(
-        tuning=JTuning(mode=mode), quant=JQuant(bits=4, n_grid=2,
-                                                layout=layout))
+        tuning=JTuning(mode=mode, **tun),
+        quant=JQuant(bits=4, n_grid=2, layout=layout))
 
 
-TREES = ("dense", "plane", "lora", "full", "moe_tensor", "moe_expert",
-         "xlstm", "zamba2")
+TREES = ("dense", "plane", "lora", "qkvo16", "qat", "full", "moe_tensor",
+         "moe_expert", "xlstm", "zamba2")
 _cache = {}
 
 
@@ -103,6 +113,15 @@ def test_spec_for_path_equals_reference(kind):
         if any(p in SPEC_EXCEPTIONS for p in path.split("/")):
             assert "model" in want, path
             assert sharding.spec_for_path(path, np.ndim(leaf)) == (), path
+            continue
+        parts = path.split("/")
+        if parts[-2] == "wo" and parts[-1] in LORA_WO:
+            mine, theirs = LORA_WO[parts[-1]]
+            nd = np.ndim(leaf)          # the reference's (L, …) stack
+            assert want == tuple([None] * (nd - 2)) + theirs \
+                if theirs else want == (), path
+            assert sharding.spec_for_path(path, nd) == (
+                tuple([None] * (nd - 2)) + mine if mine else ()), path
             continue
         assert sharding.spec_for_path(path, np.ndim(leaf)) == want, path
         # the port's per-layer tensors: the same rule one dim down
@@ -353,10 +372,62 @@ def test_other_families_refused_on_a_mesh(arch):
 
 
 @pytest.mark.parametrize("mode", ["lora", "lora_optq", "qat"])
-def test_arms_refused_on_a_mesh(mode):
-    cfg = tconfigs.paper_lm(**KW).replace(tuning=TuningConfig(mode=mode))
-    with pytest.raises(NotImplementedError, match=f"the {mode} arm"):
+def test_arms_accepted_on_a_mesh(mode):
+    """Every arm is served and trained on a mesh (``tests/
+    test_torch_dist_arms*.py``): the dense and vlm families under each,
+    every other family under ``lora`` and ``qat``."""
+    for arch in tconfigs.ARCHS:
+        cfg = tconfigs.make_tiny(tconfigs.get_config(arch)).replace(
+            tuning=TuningConfig(mode=mode))
+        if mode == "lora_optq" and cfg.family not in ("dense", "vlm"):
+            continue
         registry.check_supported(cfg, mesh=context.coords(2, 2))
+        registry.check_supported(cfg, mesh=context.coords(1, 2), train=True,
+                                 batch=4)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "deepseek-moe-16b",
+                                  "whisper-medium", "xlstm-125m",
+                                  "zamba2-7b"])
+def test_lora_optq_refusals_hold_on_a_mesh(arch):
+    """``lora_optq``'s refusals off the mesh (no OPTQ backbone for MoE,
+    encdec, ssm or hybrid) hold on it, word for word."""
+    cfg = tconfigs.make_tiny(tconfigs.get_config(arch)).replace(
+        tuning=TuningConfig(mode="lora_optq"))
+    with pytest.raises(NotImplementedError) as off:
+        registry.check_supported(cfg)
+    with pytest.raises(NotImplementedError) as on:
+        registry.check_supported(cfg, mesh=context.coords(1, 2), train=True)
+    assert str(on.value) == str(off.value)
+    assert "lora_optq on" in str(on.value)
+
+
+def test_lora_optq_planes_refused_on_a_mesh():
+    cfg = tconfigs.paper_lm(**KW).replace(
+        tuning=TuningConfig(mode="lora_optq"),
+        quant=QuantConfig(bits=4, layout="plane"))
+    with pytest.raises(NotImplementedError) as off:
+        registry.check_supported(cfg)
+    with pytest.raises(NotImplementedError) as on:
+        registry.check_supported(cfg, mesh=context.coords(1, 2))
+    assert str(on.value) == str(off.value)
+    assert "lora_optq on layout='plane' is refused" in str(on.value)
+
+
+@pytest.mark.parametrize("path,ndim,share,kind", [
+    ("layers/attn/wq/lora_a", 2, 1, "partial"),
+    ("layers/attn/wq/lora_b", 2, 1, "sharded"),
+    ("layers/attn/wk/lora_b", 2, 2, "partial"),
+    ("layers/attn/wv/lora_b", 2, 1, "sharded"),
+    ("layers/attn/wo/lora_a", 2, 1, "sharded"),
+    ("layers/attn/wo/lora_b", 2, 1, "partial"),
+    ("layers/attn/wo/lora_b", 3, 2, "partial"),
+    ("layers/attn/wo/w", 2, 1, "sharded"),
+    ("layers/attn/wo/scale", 2, 1, "partial")])
+def test_lora_and_qat_leaf_kinds(path, ndim, share, kind):
+    """A LoRA leaf kept whole on a split linear has a model-partial
+    gradient; QAT's leaves are PEQA's and full mode's."""
+    assert sharding.leaf_kind(path, ndim, share) == kind
 
 
 def test_engine_takes_the_rank_shard_only():

@@ -18,7 +18,8 @@ weights built by the reference; gloo ranks on the CPU.
     and the first run's step-1 loss is the ``--mesh none`` run's within
     rtol 1e-5.
   * The refusals, each with its reason: ``--mesh pod`` / ``multipod`` (the
-    reference's TPU pod shapes), the lora arm, an arch whose heads the
+    reference's TPU pod shapes), ``lora_optq`` on MoE (no OPTQ backbone,
+    as off the mesh), an arch whose heads the
     model axis does not divide (xlstm-125m at M 3), a global batch the
     data axis does not divide, ``remat="dots"``.
 """
@@ -174,7 +175,8 @@ def test_cli_mesh_resumes_and_matches_off_mesh(tmp_path):
 @pytest.mark.parametrize("argv,reason", [
     (["--mesh", "pod"], "256 devices"),
     (["--mesh", "multipod"], "512 devices"),
-    (["--mesh", "1,2", "--mode", "lora"], "the lora arm's LoRA"),
+    (["--mesh", "1,2", "--mode", "lora_optq", "--arch",
+      "deepseek-moe-16b"], "lora_optq on MoE: the reference's GPTQ"),
     (["--mesh", "1,3", "--arch", "xlstm-125m"], "n_heads=4 is not "
                                                 "divisible by the model "
                                                 "axis (3)"),

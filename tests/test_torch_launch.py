@@ -37,9 +37,11 @@ from repro.models import registry as jregistry
 from repro.optim.adamw import make_optimizer as jmake_optimizer
 import repro_torch.configs as tconfigs
 from repro_torch import bridge
+from repro_torch.core import policies
 from repro_torch.core.scale_bank import ScaleBank
 from repro_torch.dist import context
 from repro_torch.launch import serve, train
+from repro_torch.models import registry
 
 from test_torch_ckpt import _assert_trees_equal
 from _torch_threads import _one_torch_thread  # noqa: F401
@@ -273,6 +275,57 @@ def test_train_llava_on_a_cpu_mesh(tmp_path, capsys):
                           "--ckpt-dir", ckpt])
     assert hist and all(np.isfinite(h["loss"]) for h in hist)
     assert JManager(ckpt).latest_valid_step() == 4
+
+
+def test_train_lora_optq_on_a_cpu_mesh(tmp_path, capfd):
+    """``--tiny --mesh 1,2 --mode lora_optq``: the launcher runs GPTQ
+    once, before it spawns the ranks, and both gloo ranks train their
+    shards of that one backbone (its codes are GPTQ's, not RTN's); the
+    loss is finite, the checkpoint written, and a second run on it
+    resumes without GPTQ, on the checkpoint's GPTQ codes."""
+    from repro_torch.core import gptq
+    ckpt = str(tmp_path / "optq")
+    calls = []
+    real = gptq.gptq_quantize_transformer
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+    gptq.gptq_quantize_transformer = counted
+    try:
+        _, hist = train.main([*TRAIN, "--mesh", "1,2", "--mode",
+                              "lora_optq", "--steps", "2", "--ckpt-dir",
+                              ckpt])
+        out = capfd.readouterr().out
+        _, again = train.main([*TRAIN, "--mesh", "1,2", "--mode",
+                               "lora_optq", "--steps", "3", "--ckpt-dir",
+                               ckpt])
+    finally:
+        gptq.gptq_quantize_transformer = real
+    assert calls == [1]       # in this process, once; the ranks load it
+    assert out.count("[launch] gptq:") == 1
+    assert hist and all(np.isfinite(h["loss"]) for h in hist)
+    assert [h["step"] for h in again] == [3]     # resumed at step 2
+    assert "resumed from checkpoint step 2" in capfd.readouterr().out
+    assert JManager(ckpt).latest_valid_step() == 3
+    # the backbone is GPTQ's: its codes differ from the RTN build's
+    args = train.parse_args([*TRAIN, "--mode", "lora_optq", "--steps", "2"])
+    api = registry.build(train.model_config(args), device="cpu")
+    optq, _ = train.build_model(args, api, lambda msg: None)
+    rtn, _ = policies.build(api, 0)
+    a, b = optq.layers[0].attn.wq, rtn.layers[0].attn.wq
+    assert a.quantized and b.quantized and not torch.equal(a.qw, b.qw)
+    # the resumed run's checkpoint still holds GPTQ's codes
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.configs.base import OptimConfig
+    from repro_torch.optim.adamw import make_optimizer
+    from repro_torch.train.state import make_state
+    opt = make_optimizer(OptimConfig(), 10)
+    state = make_state(rtn, opt.init(dict(rtn.named_parameters()),
+                                     policies.make_mask(rtn, api.cfg)))
+    tree, _ = CheckpointManager(ckpt).restore(bridge.state_to_tree(state))
+    bridge.load_state(state, tree)
+    assert torch.equal(state["params"].layers[0].attn.wq.qw, a.qw)
 
 
 @pytest.mark.parametrize("arch", ["llava-next-mistral-7b", "whisper-medium"])

@@ -345,8 +345,9 @@ def _check_train_steps(mode, dtype, attn, remat, ocfg,
 
 
 def test_train_step_refuses_a_mesh_and_remat_dots():
-    """On a mesh the lora arm and remat="dots" are refused
-    (``tests/test_torch_dist_train.py`` trains the rest there); off it
+    """On a mesh remat="dots" is refused, for the arms too (the lora arm's
+    mesh step builds: ``tests/test_torch_dist_arms_train.py`` trains the
+    arms there, ``tests/test_torch_dist_train.py`` the rest); off it
     remat="dots" builds (``test_torch_remat_dots.py`` holds it to the
     reference), and a remat the reference does not know is refused."""
     _, tcfg = tiny_llama_pair()
@@ -357,9 +358,14 @@ def test_train_step_refuses_a_mesh_and_remat_dots():
         step.build_train_step(api, tcfg.replace(remat="dots"), TrainConfig(),
                               {}, None, mesh=mesh)
     _, lcfg = tiny_llama_pair("lora")
-    with pytest.raises(NotImplementedError, match="the lora arm"):
-        step.build_train_step(registry.build(lcfg, device="cpu"), lcfg,
-                              TrainConfig(), {}, None, mesh=mesh)
+    step.build_train_step(registry.build(lcfg, device="cpu"), lcfg,
+                          TrainConfig(), {}, None,
+                          mesh=context.coords(1, 2, device="cpu"))
+    with pytest.raises(NotImplementedError,
+                       match="not trained on a .*remat='dots' on a mesh"):
+        step.build_train_step(registry.build(lcfg, device="cpu"),
+                              lcfg.replace(remat="dots"), TrainConfig(), {},
+                              None, mesh=mesh)
     registry.build(tcfg.replace(remat="dots"), device="cpu")
     with pytest.raises(NotImplementedError, match="remat"):
         registry.build(tcfg.replace(remat="offload"), device="cpu")
